@@ -10,8 +10,11 @@ Phases, in order; any failure exits non-zero before the last line:
 2. build: the CUDA kernels from ``llm_consensus_tpu_torch/csrc`` with nvcc
    for sm_90a (seconds printed);
 3. kernels against their plain PyTorch versions on the card, in bf16, at
-   the main path's shapes and at small edge cases; each timed with CUDA
-   events beside its plain version and one PyTorch library call;
+   the main path's shapes and at small edge cases (flash, decode over the
+   bf16 cache, decode over the int8 cache, decode with W8A8 scores); each
+   timed with CUDA graphs beside its plain version and, where one exists,
+   one PyTorch library call; then the int8 matmuls (exactness of the int8
+   x int8 product, device time of the int8-weight matmul against bf16);
 4. the small-model check: a narrow model's logits through the kernels
    against the same model through the plain attention op;
 5. the slice: one consensus run through the port's CLI (llama-3-8b +
@@ -21,8 +24,21 @@ Phases, in order; any failure exits non-zero before the last line:
    prompt (chunked prefill, then decode at a longer frontier);
 7. a torch.profiler window over one llama-3-8b generate: device busy
    share and the kernels with the most device time;
-8. a ``{"kernels": [...]}`` line, the card line, then the
-   ``{"ok": true, ...}`` line.
+8. the quantized slice: the same CLI run with ``LLMC_QUANT=int8
+   LLMC_KV_QUANT=int8`` in the environment (int8 weights, int8 KV cache,
+   the int8 decode kernel), then a profiler window over one of its
+   llama-3-8b generates;
+9. long context: llama-3.1-8b with int8 weights and the int8 cache at its
+   full 131,072 slots, an 8,000-token prompt (chunked prefill) and 64
+   decoded tokens;
+10. W8A8 and int4: one llama-3-8b generate each (350-token prompt, 48
+    tokens), the first with int8 x int8 matmuls and decode scores (the W8A8
+    decode kernel), the second with int4 weights;
+11. a ``{"kernels": [...]}`` line, the card line, then the
+    ``{"ok": true, ...}`` line.
+
+Each path's launch counts are set to 0 just before it runs and read just
+after; a kernel of the path that never launched fails the run.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -30,8 +46,10 @@ It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import gc
 import io
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -41,9 +59,14 @@ import time
 # bf16 tensor-core FLOP/s, for the least-time bound of each kernel.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 
 FLASH_TOL = 3e-2   # max |kernel - plain| in bf16 outputs of magnitude ~1
+# Decode outputs shrink as the width grows (~0.07 at most at width 8192 with
+# unit-normal inputs), so a decode check allows 5 % of the largest plain
+# output (a few bf16 ulps there), and never more than 3e-2.
 DECODE_TOL = 3e-2
+DECODE_REL_TOL = 0.05
 
 
 def log(msg: str) -> None:
@@ -113,10 +136,26 @@ def device_time_ms(fn, iters: int) -> tuple[float, str]:
     return ms, "graph"
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float, int8_ops: float = 0.0) -> tuple[float, str]:
+    """Least time for the work: bytes over the memory rate against bf16
+    FLOPs plus int8 operations, each over its own peak."""
     t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = flops / PEAK_BF16_FLOPS
+    t_ops = flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def decode_tol(want) -> float:
+    return min(DECODE_TOL, DECODE_REL_TOL * want.float().abs().max().item())
+
+
+def max_err(got, want) -> float:
+    return (got.float() - want.float()).abs().max().item()
+
+
+def release_memory(torch) -> None:
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
 
 # -- phase 3: kernels against their plain versions ---------------------------
@@ -205,11 +244,11 @@ def check_decode(torch, rec: dict) -> None:
         got = da.decode_attention(q, k, v, i32(pos), i32(layer), rs, **kw)
         torch.cuda.synchronize()
         want = da.decode_attention_plain(q, k, v, pos, layer, rs, **kw)
-        err = (got.float() - want.float()).abs().max().item()
+        err, tol = max_err(got, want), decode_tol(want)
         finite = bool(torch.isfinite(got).all())
         log(f"decode {name:24s} q{list(q.shape)} cache{list(k.shape)} pos {pos} "
-            f"width {w} layer {layer}: max_abs_err {err:.3e} (tol {DECODE_TOL})")
-        if not finite or err > DECODE_TOL:
+            f"width {w} layer {layer}: max_abs_err {err:.3e} (tol {tol:.3e})")
+        if not finite or err > tol:
             raise AssertionError(f"decode_attention {name}: err {err}, finite {finite}")
         worst = max(worst, err)
 
@@ -278,6 +317,176 @@ def check_decode(torch, rec: dict) -> None:
         f"bound {bms:.4f} ms ({by})")
     log(f"decode timing at pos {S - 1}, kv_width {S}: kernel {long_ms:.4f} ms, "
         f"bound {long_bms:.4f} ms (bytes)")
+
+
+def check_decode_int8(torch, rec8: dict, rec_w8: dict) -> None:
+    """The int8-cache decode kernels (int8 and W8A8 scores) against their
+    plain versions, then timed at the slice's decode shape."""
+    from llm_consensus_tpu_torch.ops.kernels import decode_attention as da
+    from llm_consensus_tpu_torch.ops.quant import quantize_kv
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+
+    def int8_side(l, b, s, hkv, dh=128):
+        """{"q8": [L, B, S, Hkv, dh] int8, "s": [L, B, Hkv, S] bf16}, one
+        layer at a time (the float temporaries stay one layer's size)."""
+        q8 = torch.empty((l, b, s, hkv, dh), dtype=torch.int8, device="cuda")
+        sc = torch.empty((l, b, hkv, s), dtype=torch.bfloat16, device="cuda")
+        for i in range(l):
+            codes, scale = quantize_kv(rnd(b, s, hkv, dh))
+            q8[i].copy_(codes)
+            sc[i].copy_(scale[..., 0].transpose(1, 2))
+        return {"q8": q8, "s": sc}
+
+    def i32(x):
+        return torch.full((), x, dtype=torch.int32, device="cuda")
+
+    worst = {False: 0.0, True: 0.0}
+
+    def compare(name, q, k, v, pos, layer, rs, w, window=None, cap=None):
+        if rs is None:
+            rs = torch.zeros(q.shape[0], dtype=torch.int32, device="cuda")
+        for w8a8 in (False, True):
+            kw = dict(kv_width=w, sliding_window=window, logit_softcap=cap, w8a8=w8a8)
+            got = da.decode_attention(q, k, v, i32(pos), i32(layer), rs, **kw)
+            torch.cuda.synchronize()
+            want = da.decode_attention_plain(q, k, v, pos, layer, rs, **kw)
+            err, tol = max_err(got, want), decode_tol(want)
+            finite = bool(torch.isfinite(got).all())
+            variant = "w8a8" if w8a8 else "int8"
+            log(f"decode {variant} {name:22s} q{list(q.shape)} cache{list(k['q8'].shape)} "
+                f"pos {pos} width {w} layer {layer}: max_abs_err {err:.3e} (tol {tol:.3e})")
+            if not finite or err > tol:
+                raise AssertionError(f"decode_attention {variant} {name}: err {err}, "
+                                     f"finite {finite}")
+            worst[w8a8] = max(worst[w8a8], err)
+
+    # llama-3-8b int8 stack; garbage codes and NaN scales poison the slots
+    # past each pos of the layer (pos descending, so a later case never
+    # reads a poisoned valid slot).
+    L, S, hq, hkv, dh, layer = 32, 8192, 32, 8, 128, 7
+    k, v = int8_side(L, 1, S, hkv), int8_side(L, 1, S, hkv)
+    q = rnd(1, 1, hq, dh)
+    for pos, w in ((8191, 8192), (4000, 4096), (383, 384)):
+        for side in (k, v):
+            side["q8"][layer, :, pos + 1:] = 127
+            side["s"][layer, :, :, pos + 1:] = float("nan")
+        compare("llama-3-8b", q, k, v, pos, layer, None, w)
+    pos, w = 383, 384
+    pos_t, layer_t, last = i32(pos), i32(layer), i32(S - 1)
+    rs0 = torch.zeros(1, dtype=torch.int32, device="cuda")
+    # With unit-normal q, rounding q to int8 moves the output far less than
+    # the tolerance, so the cases above cannot tell W8A8 from int8. Here q
+    # has one outlier of 127 per head, on a dimension where every K code is
+    # 0: it sets q's int8 scale to 1 without touching the scores, so W8A8
+    # rounds the rest of q to integers and moves the output well past the
+    # tolerance. Each kernel must match its own plain version and not the
+    # other's.
+    k["q8"][layer, ..., 0] = 0
+    q_out = q.clone()
+    q_out[..., 0] = 127.0
+    got, want = {}, {}
+    for w8a8 in (False, True):
+        got[w8a8] = da.decode_attention(q_out, k, v, pos_t, layer_t, rs0, kv_width=w, w8a8=w8a8)
+        want[w8a8] = da.decode_attention_plain(q_out, k, v, pos_t, layer_t, rs0, kv_width=w,
+                                               w8a8=w8a8)
+    torch.cuda.synchronize()
+    for w8a8 in (False, True):
+        variant = "w8a8" if w8a8 else "int8"
+        err, tol = max_err(got[w8a8], want[w8a8]), decode_tol(want[w8a8])
+        cross = max_err(got[w8a8], want[not w8a8])
+        log(f"decode {variant} q outlier 127 per head   pos {pos} width {w}: max_abs_err "
+            f"{err:.3e} (tol {tol:.3e}); against the {'int8' if w8a8 else 'w8a8'} plain "
+            f"version {cross:.3e} (must exceed the tol)")
+        if not bool(torch.isfinite(got[w8a8]).all()) or err > tol or cross <= tol:
+            raise AssertionError(f"decode_attention {variant} q outlier: err {err}, "
+                                 f"against the other variant {cross}, tol {tol}")
+        worst[w8a8] = max(worst[w8a8], err)
+    # Timing at the slice's decode shape (width 384), both variants.
+
+    def int8_bytes(n):  # K+V codes, their bf16 scales, q in and out in bf16
+        return 2.0 * n * hkv * dh + 2.0 * n * hkv * 2 + 2.0 * 2 * hq * dh
+
+    n_valid = pos + 1
+    nbytes, long_bytes = int8_bytes(n_valid), int8_bytes(S)
+    for w8a8, rec in ((False, rec8), (True, rec_w8)):
+        def call(w8a8=w8a8):
+            return da.decode_attention(q, k, v, pos_t, layer_t, rs0, kv_width=w, w8a8=w8a8)
+
+        ms, how = device_time_ms(call, 200)
+        eager_ms = eager_time_ms(call, 200)
+        plain_ms, _ = device_time_ms(
+            lambda w8a8=w8a8: da.decode_attention_plain(q, k, v, pos_t, layer_t, rs0,
+                                                        kv_width=w, w8a8=w8a8), 10)
+        long_ms, _ = device_time_ms(
+            lambda w8a8=w8a8: da.decode_attention(q, k, v, last, layer_t, rs0,
+                                                  kv_width=S, w8a8=w8a8), 100)
+        if w8a8:  # int8 x int8 scores, bf16 P.V
+            bms, by = bound_ms(nbytes, 2.0 * hq * dh * n_valid, 2.0 * hq * dh * n_valid)
+            long_bms, _ = bound_ms(long_bytes, 2.0 * hq * dh * S, 2.0 * hq * dh * S)
+        else:
+            bms, by = bound_ms(nbytes, 4.0 * hq * dh * n_valid)
+            long_bms, _ = bound_ms(long_bytes, 4.0 * hq * dh * S)
+        name = "decode_attention_int8_w8a8" if w8a8 else "decode_attention_int8"
+        rec.update(
+            name=name, route="cuda",
+            source="llm_consensus_tpu_torch/csrc/decode_attention.cu",
+            replaces=("llm_consensus_tpu/ops/pallas/decode_attention.py:245" if w8a8 else
+                      "llm_consensus_tpu/ops/pallas/decode_attention.py:268"),
+            shapes=f"q[1,1,{hq},{dh}] int8 cache[{L},1,{S},{hkv},{dh}] + bf16 scales, "
+                   f"pos {pos}, kv_width {w}",
+            max_abs_err=worst[w8a8], ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            library_ms=None,
+        )
+        log(f"decode {name} timing {rec['shapes']}: kernel {ms:.4f} ms ({how}; eager with "
+            f"launch {eager_ms:.4f} ms), plain {plain_ms:.4f} ms, library none, bound "
+            f"{bms:.5f} ms ({by}); at pos {S - 1}, width {S}: kernel {long_ms:.4f} ms, "
+            f"bound {long_bms:.4f} ms")
+    del k, v
+    release_memory(torch)
+
+    # consensus-1b-like group 2 at B = 4, ragged rows; window + softcap.
+    k1, v1 = int8_side(2, 4, 512, 8), int8_side(2, 4, 512, 8)
+    rs = torch.tensor([0, 37, 5, 90], dtype=torch.int32, device="cuda")
+    compare("B=4 ragged row_start", rnd(4, 1, 16, 128), k1, v1, 300, 1, rs, 384)
+    compare("window + softcap", rnd(4, 1, 16, 128), k1, v1, 400, 0, None, 512, 128, 30.0)
+    del k1, v1
+    release_memory(torch)
+
+
+def check_int8_matmul(torch) -> None:
+    """The int8 x int8 product on the card against the CPU's exact int32
+    one, and the device time of the plain int8-weight matmul (convert the
+    codes to bf16, multiply, scale the output) against a bf16 matmul and
+    the W8A8 one, at llama-3-8b's gate projection (one decode row)."""
+    from llm_consensus_tpu_torch.ops.quant import _int8_mm, _quantize, qmatmul
+
+    gen = torch.Generator().manual_seed(3)
+    for m in (1, 17, 512):
+        a = torch.randint(-127, 128, (m, 4096), generator=gen, dtype=torch.int8)
+        b = torch.randint(-127, 128, (4096, 1024), generator=gen, dtype=torch.int8)
+        got = _int8_mm(a.cuda(), b.cuda()).cpu()
+        if not torch.equal(got, _int8_mm(a, b)):
+            raise AssertionError(f"int8 x int8 product differs from int32 at M={m}")
+    log("int8 matmul: torch._int_mm on the card equals the exact int32 product "
+        "(M 1, 17, 512; K 4096, N 1024)")
+    gcuda = torch.Generator(device="cuda").manual_seed(3)
+    w = torch.randn(4096, 14336, generator=gcuda, device="cuda", dtype=torch.bfloat16) * 0.02
+    wq = _quantize(w)
+    x = torch.randn(1, 4096, generator=gcuda, device="cuda", dtype=torch.bfloat16)
+    bf16_ms, _ = device_time_ms(lambda: torch.matmul(x, w), 100)
+    int8_ms, _ = device_time_ms(lambda: qmatmul(x, wq), 100)
+    w8a8_ms, _ = device_time_ms(lambda: qmatmul(x, wq, w8a8=True), 100)
+    log(f"int8-weight matmul x[1,4096] @ w[4096,14336] (device time, graph replay): bf16 "
+        f"{bf16_ms:.4f} ms, int8 weights (plain: convert + matmul + scale) {int8_ms:.4f} ms, "
+        f"W8A8 (torch._int_mm) {w8a8_ms:.4f} ms; bytes bound bf16 "
+        f"{4096 * 14336 * 2 / PEAK_BYTES_PER_S * 1e3:.4f} ms, int8 "
+        f"{4096 * 14336 / PEAK_BYTES_PER_S * 1e3:.4f} ms")
+    del w, wq
+    release_memory(torch)
 
 
 # -- phase 4: a narrow model, kernels against the plain attention op ---------
@@ -359,59 +568,92 @@ PROMPT = (
 
 
 def check_devices(engine) -> None:
+    """Every parameter on the card; with int8 weights, every layer matmul
+    weight as int8 codes."""
+    import torch
+
     from llm_consensus_tpu_torch.models.transformer import param_leaves
+    from llm_consensus_tpu_torch.ops.quant import QUANT_KEYS
 
     for name, w in param_leaves(engine.params):
         if not w.is_cuda:
             raise AssertionError(f"{engine.cfg.name}: param {name} on {w.device}")
+    if engine.quant == "int8":
+        for name in QUANT_KEYS - {"lm_head"}:
+            codes = engine.params["layers"][name]["q8"]
+            if codes.dtype != torch.int8:
+                raise AssertionError(f"{engine.cfg.name}: {name} codes are {codes.dtype}")
 
 
-def run_slice(torch, fa, da) -> dict:
+def check_cache(engine, cache: dict) -> None:
+    """The cache on the card; an int8 cache as int8 codes and card scales."""
+    import torch
+
+    for side, leaf in cache.items():
+        parts = leaf.items() if isinstance(leaf, dict) else [("", leaf)]
+        for key, t in parts:
+            if not t.is_cuda:
+                raise AssertionError(f"{engine.cfg.name}: cache {side}{key} on {t.device}")
+        if engine.kv_quant == "int8" and leaf["q8"].dtype != torch.int8:
+            raise AssertionError(f"{engine.cfg.name}: cache codes are {leaf['q8'].dtype}")
+
+
+def run_slice(torch, counters: dict, env: dict, label: str) -> dict:
+    """One consensus run through the port's CLI with ``env`` set for the
+    call (and restored after); ``counters`` (name → LaunchCounter) are set
+    to 0 just before and read just after. Returns the launches, the built
+    engines, the wall and the peak device memory."""
     from llm_consensus_tpu_torch.cli.main import main as cli_main
     from llm_consensus_tpu_torch.engine.tokenizer import ByteTokenizer
     from llm_consensus_tpu_torch.providers.gpu import GPUProvider
+    from llm_consensus_tpu_torch.utils.knobs import quant_modes
 
-    out, err = io.StringIO(), io.StringIO()
-    with tempfile.TemporaryDirectory(prefix="chip-smoke-") as data_dir:
-        argv = [
-            "--models", "gpu:llama-3-8b,gpu:consensus-1b", "--judge", "gpu:llama-3-8b",
-            "--max-tokens", "64", "--json", "--data-dir", data_dir, PROMPT,
-        ]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        fa.LAUNCHES.reset()
-        da.LAUNCHES.reset()
-        t0 = time.monotonic()
-        rc = cli_main(argv, device=None, stdout=out, stderr=err,
-                      install_signal_handlers=False)
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-    launches = {"flash_attention": fa.LAUNCHES.count, "decode_attention": da.LAUNCHES.count}
+    saved = {name: os.environ.get(name) for name in env}
+    os.environ.update(env)
+    try:
+        modes = quant_modes()
+        out, err = io.StringIO(), io.StringIO()
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-") as data_dir:
+            argv = [
+                "--models", "gpu:llama-3-8b,gpu:consensus-1b", "--judge", "gpu:llama-3-8b",
+                "--max-tokens", "64", "--json", "--data-dir", data_dir, PROMPT,
+            ]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for c in counters.values():
+                c.reset()
+            t0 = time.monotonic()
+            rc = cli_main(argv, device=None, stdout=out, stderr=err,
+                          install_signal_handlers=False)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+    finally:
+        for name, value in saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+    launches = {name: c.count for name, c in counters.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if rc != 0:
-        raise AssertionError(f"CLI exit {rc}: {err.getvalue()}")
+        raise AssertionError(f"{label}: CLI exit {rc}: {err.getvalue()}")
     doc = json.loads(out.getvalue())
     if len(doc["responses"]) != 2 or doc.get("failed_models") or not doc["consensus"]:
-        raise AssertionError(f"bad result: {json.dumps(doc)[:2000]}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the path never launched: {launches}")
-    log(f"slice: CLI exit 0 in {wall:.2f} s wall, peak device memory {peak_gb:.2f} GB, "
+        raise AssertionError(f"{label}: bad result: {json.dumps(doc)[:2000]}")
+    log(f"{label}: CLI exit 0 in {wall:.2f} s wall, peak device memory {peak_gb:.2f} GB, "
         f"launches {launches}, consensus {len(doc['consensus'])} chars")
     for resp in doc["responses"]:
         log(f"  {resp['model']}: {resp.get('tokens')} tokens, latency "
             f"{resp['latency_ms']:.1f} ms, decode {resp.get('tokens_per_sec')} tok/s, "
-            f"mbu {resp.get('mbu')}")
+            f"mfu {resp.get('mfu')}, mbu {resp.get('mbu')}")
 
-    provider = GPUProvider.shared()
-    engines = provider.engines()
+    engines = GPUProvider.shared(**modes).engines()
     ids = ByteTokenizer().encode(PROMPT)
     for preset, engine in sorted(engines.items()):
         check_devices(engine)
         with torch.inference_mode():
             _, cache = engine._prefill_ids(ids)
-            for name, t in cache.items():
-                if not t.is_cuda:
-                    raise AssertionError(f"{preset}: cache {name} on {t.device}")
+            check_cache(engine, cache)
             times = []
             for _ in range(5):
                 start = torch.cuda.Event(enable_timing=True)
@@ -424,7 +666,15 @@ def run_slice(torch, fa, da) -> dict:
         times.sort()
         log(f"  {preset}: prefill of {len(ids)} tokens (bucket 512, flash kernel) "
             f"median {times[2]:.2f} ms (min {times[0]:.2f}, max {times[-1]:.2f}, 5 runs)")
-    return {"launches": launches, "engines": engines, "wall_s": wall, "peak_gb": peak_gb}
+    return {"launches": launches, "engines": engines, "wall_s": wall, "peak_gb": peak_gb,
+            "modes": modes}
+
+
+def release_engines(torch, modes: dict) -> None:
+    from llm_consensus_tpu_torch.providers.gpu import GPUProvider
+
+    GPUProvider.shared(**modes).release()
+    release_memory(torch)
 
 
 def run_chunked(torch, fa, da, engine, seed: int) -> None:
@@ -450,10 +700,12 @@ def run_chunked(torch, fa, da, engine, seed: int) -> None:
         f"decode launches {da.LAUNCHES.count}, flash launches {fa.LAUNCHES.count}")
 
 
-def profile_decode(torch, engine) -> None:
+def profile_decode(torch, engine, label: str = "profile") -> None:
     """Where a single stream's time goes: torch.profiler over one
     llama-3-8b generate (350-token prompt, 48 tokens); device busy share of
-    the wall and the kernels with the most device time."""
+    the wall, the kernels with the most device time, and the sums of the
+    matmul (GEMM/GEMV) kernels and of the copy kernels (which carry the
+    int8 → bf16 weight conversion of the plain int8-weight matmul)."""
     from torch.profiler import ProfilerActivity, profile
 
     from llm_consensus_tpu_torch.engine import SamplingParams
@@ -478,17 +730,102 @@ def profile_decode(torch, engine) -> None:
               if "CUDA" in str(getattr(e, "device_type", "")) and dev_us(e) > 0]
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     if busy_ms == 0:
-        log("profile: torch.profiler captured no device time (not measured)")
+        log(f"{label}: torch.profiler captured no device time (not measured)")
         return
-    log(f"profile (under torch.profiler): generate wall {wall_ms:.1f} ms, device busy "
+    log(f"{label} (under torch.profiler): generate wall {wall_ms:.1f} ms, device busy "
         f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% of wall)")
-    for e in sorted(events, key=dev_us, reverse=True)[:10]:
+    for e in sorted(events, key=dev_us, reverse=True)[:12]:
         log(f"  {dev_us(e) / 1e3:9.2f} ms  {e.count:6d} calls  {e.key[:90]}")
     ours = {
         name: sum(dev_us(e) for e in events if name in e.key) / 1e3
-        for name in ("flash_prefill_kernel", "decode_partial_kernel", "decode_merge_kernel")
+        for name in ("flash_prefill_kernel", "decode_partial_kernel",
+                     "decode_partial_q8_kernel", "decode_merge_kernel")
     }
     log(f"  port kernels: {', '.join(f'{k} {v:.2f} ms' for k, v in ours.items())}")
+    matmul = sum(dev_us(e) for e in events
+                 if any(t in e.key.lower() for t in ("gemm", "nvjet", "gemv", "cutlass")))
+    copies = sum(dev_us(e) for e in events if "copy" in e.key.lower())
+    log(f"  matmul kernels {matmul / 1e3:.2f} ms, copy kernels {copies / 1e3:.2f} ms, "
+        f"other {(busy_ms * 1e3 - matmul - copies) / 1e3:.2f} ms of device time")
+
+
+def run_long_context(torch, fa, da, seed: int) -> int:
+    """llama-3.1-8b, int8 weights and the int8 cache at the full 131,072
+    slots: an 8,000-token prompt through chunked prefill, then 64 decoded
+    tokens (the int8 decode kernel at a frontier near 8k). Four chunks of
+    16 tokens give the engine's decode clock (first to last fetch) three
+    chunks to time."""
+    from llm_consensus_tpu_torch.engine import Engine, SamplingParams
+    from llm_consensus_tpu_torch.models import get_config
+
+    cfg = get_config("llama-3.1-8b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    engine = Engine(cfg, quant="int8", kv_quant="int8", seed=seed)
+    build_s = time.monotonic() - t0
+    check_devices(engine)
+    slots = engine.max_seq
+    codes = 2 * cfg.n_layers * slots * cfg.n_kv_heads * cfg.head_dim
+    cache_gb = (codes + 2 * cfg.n_layers * slots * cfg.n_kv_heads * 2) / 1e9
+    gen = torch.Generator().manual_seed(seed)
+    ids = [engine.tokenizer.bos_id] + torch.randint(32, 127, (7999,), generator=gen).tolist()
+    counters = (fa.LAUNCHES, da.LAUNCHES, da.LAUNCHES_INT8)
+    for c in counters:
+        c.reset()
+    t0 = time.monotonic()
+    res = engine.generate_ids(ids, SamplingParams(max_new_tokens=64, ignore_eos=True))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = da.LAUNCHES_INT8.count
+    if (res.prompt_tokens != 8000 or len(res.token_ids) != 64 or launches <= 0
+            or fa.LAUNCHES.count or da.LAUNCHES.count or res.decode_s <= 0):
+        raise AssertionError(
+            f"long context: {res.prompt_tokens} prompt, {len(res.token_ids)} generated, "
+            f"launches flash {fa.LAUNCHES.count} decode bf16 {da.LAUNCHES.count} "
+            f"int8 {launches}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rate = res.decode_tokens / res.decode_s
+    log(f"long context: {cfg.name} int8 weights + int8 KV at {slots} slots (cache "
+        f"{cache_gb:.2f} GB int8 vs {codes * 2 / 1e9:.2f} GB bf16), build {build_s:.2f} s; "
+        f"{res.prompt_tokens}-token prompt in {engine.prefill_chunk}-token chunks + 64 tokens "
+        f"in {wall:.2f} s wall, decode {rate:.1f} tok/s ({res.decode_tokens} tokens in "
+        f"{res.decode_s:.3f} s by the engine's clock), int8 decode launches {launches}, "
+        f"peak device memory {peak_gb:.2f} GB")
+    del engine
+    release_memory(torch)
+    return launches
+
+
+def run_engine_phase(torch, fa, da, label: str, counter, seed: int, **modes) -> int:
+    """One llama-3-8b generate (350-token prompt, 48 tokens) with ``modes``;
+    returns the launches of ``counter`` in it."""
+    from llm_consensus_tpu_torch.engine import Engine, SamplingParams
+    from llm_consensus_tpu_torch.models import get_config
+
+    t0 = time.monotonic()
+    engine = Engine(get_config("llama-3-8b"), seed=seed, **modes)
+    build_s = time.monotonic() - t0
+    check_devices(engine)
+    ids = engine.tokenizer.encode(PROMPT)
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES.reset()
+    counter.reset()
+    t0 = time.monotonic()
+    res = engine.generate_ids(ids, SamplingParams(max_new_tokens=48, ignore_eos=True))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = counter.count
+    if len(res.token_ids) != 48 or launches <= 0 or fa.LAUNCHES.count <= 0:
+        raise AssertionError(f"{label}: {len(res.token_ids)} generated, launches "
+                             f"{launches}, flash {fa.LAUNCHES.count}")
+    rate = res.decode_tokens / res.decode_s if res.decode_s > 0 else float("nan")
+    log(f"{label}: llama-3-8b {modes}, build {build_s:.2f} s, {res.prompt_tokens}-token "
+        f"prompt + 48 tokens in {wall:.2f} s wall, decode {rate:.1f} tok/s, decode "
+        f"launches {launches}, flash launches {fa.LAUNCHES.count}, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del engine
+    release_memory(torch)
+    return launches
 
 
 def main(argv=None) -> int:
@@ -524,21 +861,49 @@ def main(argv=None) -> int:
 
     flash_rec: dict = {}
     decode_rec: dict = {}
+    int8_rec: dict = {}
+    w8a8_rec: dict = {}
+    records = [flash_rec, decode_rec, int8_rec, w8a8_rec]
     check_flash(torch, flash_rec)
     check_decode(torch, decode_rec)
-    if args.phase == "all":
-        check_small_model(torch, args.seed)
-        sl = run_slice(torch, fa, da)
-        flash_rec["launches"] = sl["launches"]["flash_attention"]
-        decode_rec["launches"] = sl["launches"]["decode_attention"]
-        run_chunked(torch, fa, da, sl["engines"]["llama-3-8b"], args.seed)
-        profile_decode(torch, sl["engines"]["llama-3-8b"])
-    else:
+    check_decode_int8(torch, int8_rec, w8a8_rec)
+    check_int8_matmul(torch)
+    if args.phase == "kernels":
         # Kernel checks only: the main path did not run, so no ok line.
-        print(json.dumps({"kernels": [flash_rec, decode_rec]}), flush=True)
+        print(json.dumps({"kernels": records}), flush=True)
         print(card, flush=True)
         return 0
-    print(json.dumps({"kernels": [flash_rec, decode_rec]}), flush=True)
+
+    check_small_model(torch, args.seed)
+    sl = run_slice(torch, {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES},
+                   {}, "slice")
+    flash_rec["launches"] = sl["launches"]["flash_attention"]
+    decode_rec["launches"] = sl["launches"]["decode_attention"]
+    if min(sl["launches"].values()) <= 0:
+        raise AssertionError(f"a kernel of the slice never launched: {sl['launches']}")
+    run_chunked(torch, fa, da, sl["engines"]["llama-3-8b"], args.seed)
+    profile_decode(torch, sl["engines"]["llama-3-8b"])
+    del sl
+    release_engines(torch, {})
+
+    qsl = run_slice(torch, {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES,
+                            "decode_attention_int8": da.LAUNCHES_INT8},
+                    {"LLMC_QUANT": "int8", "LLMC_KV_QUANT": "int8"}, "quantized slice")
+    int8_rec["launches"] = qsl["launches"]["decode_attention_int8"]
+    if (qsl["launches"]["flash_attention"] <= 0 or int8_rec["launches"] <= 0
+            or qsl["launches"]["decode_attention"] != 0):
+        raise AssertionError(f"quantized slice routing: {qsl['launches']}")
+    profile_decode(torch, qsl["engines"]["llama-3-8b"], "profile int8")
+    modes = qsl["modes"]
+    del qsl
+    release_engines(torch, modes)
+
+    run_long_context(torch, fa, da, args.seed)
+    w8a8_rec["launches"] = run_engine_phase(
+        torch, fa, da, "w8a8", da.LAUNCHES_W8A8, args.seed, quant="int8", kv_quant="int8",
+        w8a8=True, decode_w8a8=True)
+    run_engine_phase(torch, fa, da, "int4", da.LAUNCHES, args.seed, quant="int4")
+    print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

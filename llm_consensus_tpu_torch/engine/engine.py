@@ -18,15 +18,22 @@
     a deadline or cancel returns the partial result with ``finish_reason``
     set.
 
-Prefix snapshot reuse, the KV pool, quantized weights and caches, meshes,
-batched generation and the prefill sessions of the JAX engine are later
-work.
+Quantization (ops/quant.py): ``quant`` stores the matmul weights as int8
+(per-channel scales) or int4 (group-wise), ``kv_quant="int8"`` the KV cache
+as int8 codes with per-row scales, which the decode kernel reads directly;
+``w8a8`` runs int8 x int8 matmuls (int8 weights only) and ``decode_w8a8``
+int8 x int8 decode scores (int8 cache, GQA group 2 to 4). The engine reads
+no environment: the CLI reads the JAX package's knobs for these modes.
+
+Prefix snapshot reuse, the KV pool, meshes, batched generation and the
+prefill sessions of the JAX engine are later work.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
+from functools import partial
 from typing import Callable, Optional
 
 import torch
@@ -35,6 +42,9 @@ from llm_consensus_tpu_torch.engine.tokenizer import StreamDecoder, load_tokeniz
 from llm_consensus_tpu_torch.models.config import ModelConfig
 from llm_consensus_tpu_torch.models.transformer import (
     forward, init_kv_cache, init_params, layer_views, param_leaves)
+from llm_consensus_tpu_torch.ops.kernels.decode_attention import w8a8_supported
+from llm_consensus_tpu_torch.ops.quant import (
+    KV_MODES, WEIGHT_MODES, qmatmul, quantize_params, resolve_int4_impl, resolve_mode)
 from llm_consensus_tpu_torch.ops.sampling import sample_token
 from llm_consensus_tpu_torch.utils.context import Context
 from llm_consensus_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -106,6 +116,15 @@ class Engine:
     JAX engine's knob defaults. One-shot prefill and decode go through the
     kernels (``attn_impl="flash"``), the chunked prefill through the plain
     attention op, as in the JAX engine on a TPU.
+
+    ``quant`` ("int8" | "int4") and ``kv_quant`` ("int8") take "bf16" or
+    "none" for off, and an unknown mode raises ``ValueError`` before any
+    parameter is built. ``w8a8`` holds only with int8 weights;
+    ``decode_w8a8`` only with the int8 cache and a GQA group of 2 to 4 (the
+    JAX kernel's dense-GQA form); ``int4_impl`` is the int4 matmul lowering
+    ("auto" | "nibble", checked like the modes). Random-init weights are
+    quantized leaf by leaf as they are drawn; given ``params`` are
+    quantized when ``quant`` is set (already quantized leaves pass through).
     """
 
     def __init__(
@@ -119,8 +138,23 @@ class Engine:
         stream_interval: int = 16,
         prefill_chunk: int = 512,
         device: DeviceLike = None,
+        quant: Optional[str] = None,
+        kv_quant: Optional[str] = None,
+        w8a8: bool = False,
+        decode_w8a8: bool = False,
+        int4_impl: str = "auto",
     ):
         self.cfg = cfg
+        self.quant = resolve_mode(quant, "quant", WEIGHT_MODES)
+        self.kv_quant = resolve_mode(kv_quant, "kv_quant", KV_MODES)
+        self.w8a8 = bool(w8a8) and self.quant == "int8"
+        self.decode_w8a8 = (
+            bool(decode_w8a8) and self.kv_quant == "int8"
+            and w8a8_supported(cfg.n_heads, cfg.n_kv_heads)
+        )
+        # The matmul of every projection, its modes bound once.
+        self._mm = partial(qmatmul, w8a8=self.w8a8,
+                           int4_nibble=resolve_int4_impl(int4_impl) == "nibble")
         self.device = resolve_device(device)
         self.max_seq = max_seq or cfg.max_seq_len
         self.tokenizer = load_tokenizer(None)
@@ -129,13 +163,15 @@ class Engine:
         # Past this length a prompt prefills in fixed chunks; 0 disables.
         self.prefill_chunk = max(0, prefill_chunk)
         if params is None:
-            params = init_params(cfg, seed, device=self.device, dtype=dtype)
+            params = init_params(cfg, seed, device=self.device, dtype=dtype, quant=self.quant)
         else:
             for name, w in param_leaves(params):
                 if w.device != self.device:
                     raise ValueError(
                         f"param {name} is on {w.device}, the engine on {self.device}"
                     )
+            if self.quant is not None:
+                params = quantize_params(params, self.quant)
         self.params = params
         self._layers = layer_views(params)
 
@@ -154,7 +190,7 @@ class Engine:
         return forward(
             self.params, self.cfg, tokens, cache, start_pos=start_pos,
             attn_impl=attn_impl, kv_width=kv_width, logits_index=logits_index,
-            layers=self._layers,
+            layers=self._layers, mm=self._mm, decode_w8a8=self.decode_w8a8,
         )
 
     def _decode_width(self, frontier: int) -> Optional[int]:
@@ -190,6 +226,7 @@ class Engine:
         n_chunks = -(-n_prompt // chunk_len) if chunk_len else 1
         cache = init_kv_cache(
             self.cfg, batch=1, max_seq=self.max_seq, device=self.device, dtype=self.dtype,
+            quant=self.kv_quant,
         )
         if chunk_len and n_prompt > chunk_len and n_chunks * chunk_len <= self.max_seq:
             return self._chunked_prefill(prompt_ids, cache, chunk_len)

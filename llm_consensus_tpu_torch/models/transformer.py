@@ -7,7 +7,10 @@ layout — layers stacked on axis 0 — so a JAX parameter tree carries across
 through :func:`params_from_numpy` unchanged. The KV cache is the same
 layer-stacked [L, B, S, Hkv, dh] pair; where the JAX package writes it
 functionally (``dynamic_update_slice`` with buffer donation) the port
-updates it **in place**.
+updates it **in place**. Matmul weights may be quantized (int8 or int4
+dicts, ops/quant.py) and the cache may be int8 (codes plus seq-minor
+scales); every projection goes through ``qmatmul`` and every cache access
+through the ``kv_*`` helpers of ops/quant.py.
 
 Attention routing mirrors the JAX package, decided before the call from
 shapes alone: a one-shot prefill at a static start runs the flash kernel,
@@ -20,7 +23,7 @@ is no fallback from a kernel to the plain op: a kernel that fails raises.
 from __future__ import annotations
 
 import math
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -33,6 +36,9 @@ from llm_consensus_tpu_torch.ops.kernels.flash_attention import (
     flash_attention, flash_supported)
 from llm_consensus_tpu_torch.ops.mlp import gated_mlp
 from llm_consensus_tpu_torch.ops.norms import rms_norm
+from llm_consensus_tpu_torch.ops.quant import (
+    KV_MODES, QUANT_KEYS, WEIGHT_MODES, is_quantized, kv_capacity, kv_layer, kv_read,
+    kv_write_rows, qmatmul, quantize_kv, quantize_weight)
 from llm_consensus_tpu_torch.ops.rope import apply_rope, rope_angles, rope_inv_freq
 
 Pos = Union[int, torch.Tensor]
@@ -66,21 +72,31 @@ def _check_dense(cfg: ModelConfig) -> None:
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device: torch.device,
-                dtype: torch.dtype = torch.bfloat16) -> dict:
+                dtype: torch.dtype = torch.bfloat16, quant: Optional[str] = None) -> dict:
     """Random-init parameters on ``device`` (layers stacked on axis 0).
 
     Each weight is drawn straight into ``dtype`` on the device from one
     seeded ``torch.Generator``, leaf by leaf: no float32 copy of the tree
-    (or of one 3.7 GB stacked leaf of an 8B model) ever exists. The values
-    differ from the JAX package's ``init_params`` for the same seed (another
-    generator); :func:`params_from_numpy` carries exact weights across.
+    (or of one 3.7 GB stacked leaf of an 8B model) ever exists. With
+    ``quant`` ("int8" | "int4") each matmul weight is quantized as soon as
+    it is drawn and its ``dtype`` source dropped, so the peak is the
+    quantized tree plus one ``dtype`` leaf (the JAX package's
+    ``init_params_quantized``); the draws are the same as without
+    ``quant``. The values differ from the JAX package's ``init_params`` for
+    the same seed (another generator); :func:`params_from_numpy` carries
+    exact weights across.
     """
     _check_dense(cfg)
+    if quant not in (None, *WEIGHT_MODES):
+        raise ValueError(f"unknown quant mode {quant!r}")
     gen = torch.Generator(device=device).manual_seed(seed)
 
-    def normal(shape, std):
+    def normal(shape, std, name=""):
         w = torch.empty(shape, dtype=dtype, device=device)
-        return w.normal_(0.0, std, generator=gen)
+        w.normal_(0.0, std, generator=gen)
+        if quant is not None and name in QUANT_KEYS:
+            return quantize_weight(w, quant)
+        return w
 
     d, dh, hq, hkv, f, l = (
         cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.n_layers,
@@ -90,13 +106,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device: torch.device,
     layers = {
         "attn_norm": torch.full((l, d), norm_fill, dtype=dtype, device=device),
         "mlp_norm": torch.full((l, d), norm_fill, dtype=dtype, device=device),
-        "wq": normal((l, d, hq * dh), proj_std),
-        "wk": normal((l, d, hkv * dh), proj_std),
-        "wv": normal((l, d, hkv * dh), proj_std),
-        "wo": normal((l, hq * dh, d), (hq * dh) ** -0.5),
-        "w_gate": normal((l, d, f), proj_std),
-        "w_up": normal((l, d, f), proj_std),
-        "w_down": normal((l, f, d), f ** -0.5),
+        "wq": normal((l, d, hq * dh), proj_std, "wq"),
+        "wk": normal((l, d, hkv * dh), proj_std, "wk"),
+        "wv": normal((l, d, hkv * dh), proj_std, "wv"),
+        "wo": normal((l, hq * dh, d), (hq * dh) ** -0.5, "wo"),
+        "w_gate": normal((l, d, f), proj_std, "w_gate"),
+        "w_up": normal((l, d, f), proj_std, "w_up"),
+        "w_down": normal((l, f, d), f ** -0.5, "w_down"),
     }
     if cfg.qkv_bias:
         layers["bq"] = torch.zeros((l, hq * dh), dtype=dtype, device=device)
@@ -108,7 +124,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device: torch.device,
         "layers": layers,
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal((d, cfg.vocab_size), proj_std)
+        params["lm_head"] = normal((d, cfg.vocab_size), proj_std, "lm_head")
     return params
 
 
@@ -116,14 +132,39 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device: torch.device,
                       dtype: torch.dtype = torch.bfloat16) -> dict:
     """The JAX package's parameter tree (``init_params`` layout, layers
     stacked on axis 0), given as numpy arrays, as the port's parameters on
-    ``device`` in ``dtype``. Shapes are checked against ``cfg``."""
+    ``device`` in ``dtype``. Shapes are checked against ``cfg``. A tree
+    quantized by the JAX package's ``quantize_params`` carries across as
+    it is: int8 leaves ``{"q8", "s"}`` keep their int8 codes, int4 leaves
+    ``{"q4", "s"}`` their packed uint8 bytes, and the scales come over in
+    ``dtype``, so both packages compute with the same quantized weights."""
     _check_dense(cfg)
 
-    def conv(name: str, arr, shape) -> torch.Tensor:
+    def conv(name: str, arr, shape):
+        if isinstance(arr, dict):
+            return conv_quantized(name, arr, shape)
         a = np.asarray(arr)
         if tuple(a.shape) != tuple(shape):
             raise ValueError(f"{name}: shape {a.shape}, {cfg.name} wants {shape}")
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=device, dtype=dtype)
+
+    def conv_quantized(name: str, leaf: dict, shape) -> dict:
+        *lead, c, o = shape
+        if "q8" in leaf:
+            codes, code_shape, scale_shape = "q8", (*lead, c, o), (*lead, 1, o)
+            code_dtype = np.int8
+        elif "q4" in leaf:
+            g = np.asarray(leaf["q4"]).shape[-2] * 2
+            codes, code_shape, scale_shape = "q4", (*lead, c // g, g // 2, o), (*lead, c // g, 1, o)
+            code_dtype = np.uint8
+        else:
+            raise ValueError(f"{name}: quantized leaf without codes: {sorted(leaf)}")
+        q = np.asarray(leaf[codes])
+        if tuple(q.shape) != code_shape or q.dtype != code_dtype:
+            raise ValueError(f"{name}.{codes}: {q.dtype} {q.shape}, wants {code_shape}")
+        return {
+            codes: torch.from_numpy(np.array(q)).to(device),
+            "s": conv(f"{name}.s", leaf["s"], scale_shape),
+        }
 
     d = cfg.d_model
     shapes = _layer_shapes(cfg)
@@ -153,15 +194,32 @@ def param_leaves(tree: dict, prefix: str = ""):
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: Optional[int] = None, *,
-                  device: torch.device, dtype: torch.dtype = torch.bfloat16) -> dict:
-    """Static-shaped KV cache {"k", "v"}: [L, B, S, Hkv, dh] zeros (bf16
-    form; the int8 cache is later work)."""
+                  device: torch.device, dtype: torch.dtype = torch.bfloat16,
+                  quant: Optional[str] = None) -> dict:
+    """Static-shaped KV cache {"k", "v"}: [L, B, S, Hkv, dh] zeros.
+
+    ``quant="int8"`` stores each side as ``{"q8": int8 [L, B, S, Hkv, dh],
+    "s": [L, B, Hkv, S] in dtype}``, the scales seq-minor as the decode
+    kernels read them: half the memory and the decode reads of bf16.
+    """
     s = max_seq or cfg.max_seq_len
     shape = (cfg.n_layers, batch, s, cfg.n_kv_heads, cfg.head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-    }
+    if quant is None:
+        return {
+            "k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+        }
+    if quant not in KV_MODES:
+        raise ValueError(f"unknown kv cache quant mode {quant!r}")
+
+    def entry():
+        return {
+            "q8": torch.zeros(shape, dtype=torch.int8, device=device),
+            "s": torch.zeros((cfg.n_layers, batch, cfg.n_kv_heads, s), dtype=dtype,
+                             device=device),
+        }
+
+    return {"k": entry(), "v": entry()}
 
 
 # -- forward -------------------------------------------------------------------
@@ -176,40 +234,25 @@ def embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.
     return x
 
 
-def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """[..., K] @ [K, N] with fp32 output: on the card bf16 inputs
-    accumulate and land in fp32 (the JAX package's
-    ``preferred_element_type=float32``); float32 inputs stay float32."""
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    if x2.is_cuda and x2.dtype != torch.float32:
-        out = torch.mm(x2, w, out_dtype=torch.float32)
-    else:
-        out = torch.mm(x2, w).float()
-    return out.reshape(*lead, w.shape[-1])
-
-
-def unembed(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """Final norm + LM head (+ final logit softcap) → fp32 logits [B, T, V]."""
+def unembed(params: dict, cfg: ModelConfig, x: torch.Tensor, mm=qmatmul) -> torch.Tensor:
+    """Final norm + LM head (+ final logit softcap) → fp32 logits [B, T, V]
+    (bf16 inputs accumulate and land in fp32 on the card, the JAX package's
+    ``preferred_element_type=float32``). ``mm`` is the engine's matmul
+    (:func:`qmatmul` with its W8A8 and int4 settings)."""
     x = rms_norm(x, params["final_norm"], cfg.rms_eps, cfg.norm_offset)
     head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
-    logits = _matmul_f32(x, head)
+    logits = mm(x, head, torch.float32)
     if cfg.final_logit_softcap is not None:
         c = cfg.final_logit_softcap
         logits = c * torch.tanh(logits / c)
     return logits
 
 
-def _write_rows(stack: torch.Tensor, layer: int, rows: torch.Tensor, start: Pos,
-                slots: Optional[torch.Tensor]) -> None:
-    """Write ``rows`` [B, T, Hkv, dh] into ``stack`` at (layer, start) in
-    place. A host-known start takes a slice copy; a device-resident start
-    (decode) an ``index_copy_`` at ``slots`` = start + arange(T)."""
-    entry = stack[layer]
-    if slots is None:
-        entry[:, start:start + rows.shape[1]].copy_(rows)
-    else:
-        entry.index_copy_(1, slots, rows.to(stack.dtype))
+def _roundtrip(fresh: torch.Tensor) -> torch.Tensor:
+    """Fresh k/v as an int8 cache would give them back: quantized and
+    dequantized in their own dtype."""
+    q8, s = quantize_kv(fresh)
+    return q8.to(fresh.dtype) * s
 
 
 def _layer(
@@ -219,7 +262,7 @@ def _layer(
     cos: torch.Tensor,
     sin: torch.Tensor,
     mask: Optional[torch.Tensor],  # [B, T, S]; None on the kernel paths
-    cache: Optional[dict],    # FULL stacks {"k", "v"} [L, B, S, Hkv, dh]
+    cache: Optional[dict],    # FULL stacks {"k", "v"} [L, B, S, Hkv, dh] (or int8 dicts)
     start_pos: Pos,
     layer_idx: int,
     layer_t: Optional[torch.Tensor],  # layer_idx as a device int32 scalar
@@ -228,14 +271,16 @@ def _layer(
     flash_offset: Optional[int],
     kv_width: Optional[int],
     decode_flash: bool,
+    mm,                       # qmatmul with the engine's W8A8 / int4 settings
+    decode_w8a8: bool,
 ) -> torch.Tensor:
     b, t, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
     h = rms_norm(x, lp["attn_norm"], cfg.rms_eps, cfg.norm_offset)
-    q = torch.matmul(h, lp["wq"])
-    k = torch.matmul(h, lp["wk"])
-    v = torch.matmul(h, lp["wv"])
+    q = mm(h, lp["wq"])
+    k = mm(h, lp["wk"])
+    v = mm(h, lp["wv"])
     if cfg.qkv_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
     q = apply_rope(q.reshape(b, t, hq, dh), cos, sin)
@@ -243,24 +288,31 @@ def _layer(
     v = v.reshape(b, t, hkv, dh)
 
     if cache is not None:
-        # In place (the JAX package updates the stacks functionally and
-        # lets XLA alias the donated buffer).
-        _write_rows(cache["k"], layer_idx, k, start_pos, slots)
-        _write_rows(cache["v"], layer_idx, v, start_pos, slots)
+        # In place, quantized on write for an int8 cache (the JAX package
+        # updates the stacks functionally and lets XLA alias the buffer).
+        kv_write_rows(cache["k"], k, layer_idx, start_pos, slots)
+        kv_write_rows(cache["v"], v, layer_idx, start_pos, slots)
         if decode_flash:
-            # The decode kernel reads the full stacks at layer_t itself.
+            # The decode kernel reads the full stacks (codes and scales)
+            # at layer_t itself.
             k_att, v_att = cache["k"], cache["v"]
         elif flash_offset == 0 and (kv_width is None or kv_width >= t):
             # One-shot prefill from position 0: the causal frontier IS this
-            # chunk, so attention needs exactly the fresh k/v.
-            k_att, v_att = k, v
+            # chunk, so attention needs exactly the fresh k/v. An int8 cache
+            # round-trips them through quantize/dequantize so attention sees
+            # bit for bit what a cache read-back gives (greedy parity with
+            # the other paths depends on it).
+            if is_quantized(cache["k"]):
+                k_att, v_att = _roundtrip(k), _roundtrip(v)
+            else:
+                k_att, v_att = k, v
         else:
             width = kv_width
             if flash_offset is not None:
                 frontier = flash_offset + t
                 width = frontier if width is None else min(width, frontier)
-            k_att = cache["k"][layer_idx, :, :width]
-            v_att = cache["v"][layer_idx, :, :width]
+            k_att = kv_read(kv_layer(cache["k"], layer_idx, width), x.dtype)
+            v_att = kv_read(kv_layer(cache["v"], layer_idx, width), x.dtype)
             if flash_offset is not None:
                 k_att, v_att = k_att.contiguous(), v_att.contiguous()
     else:
@@ -276,24 +328,28 @@ def _layer(
         attn_out = decode_attention(
             q, k_att, v_att, start_pos, layer_t, row_start, scale=scale,
             sliding_window=cfg.sliding_window, logit_softcap=cfg.attn_logit_softcap,
-            kv_width=kv_width,
+            kv_width=kv_width, w8a8=decode_w8a8,
         )
     else:
         attn_out = attention(
             q, k_att, v_att, mask, scale=scale, logit_softcap=cfg.attn_logit_softcap,
         )
-    x = x + torch.matmul(attn_out.reshape(b, t, hq * dh), lp["wo"])
+    x = x + mm(attn_out.reshape(b, t, hq * dh), lp["wo"])
 
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps, cfg.norm_offset)
-    return x + gated_mlp(h, lp["w_gate"], lp["w_up"], lp["w_down"], cfg.activation)
+    return x + gated_mlp(h, lp["w_gate"], lp["w_up"], lp["w_down"], cfg.activation, mm=mm)
 
 
 def layer_views(params: dict) -> list[dict]:
     """Per-layer views of the stacked layer params (no copies); an engine
     computes them once and hands them to :func:`forward`."""
     layers = params["layers"]
-    n = next(iter(layers.values())).shape[0]
-    return [{name: w[i] for name, w in layers.items()} for i in range(n)]
+
+    def take(w, i):
+        return {k: v[i] for k, v in w.items()} if is_quantized(w) else w[i]
+
+    n = layers["attn_norm"].shape[0]
+    return [{name: take(w, i) for name, w in layers.items()} for i in range(n)]
 
 
 def forward(
@@ -306,6 +362,9 @@ def forward(
     kv_width: Optional[int] = None,   # attend only cache[:, :kv_width] (host int)
     logits_index: Optional[torch.Tensor] = None,  # [B]: unembed only this position
     layers: Optional[list] = None,    # layer_views(params), precomputed
+    *,
+    mm: Callable = qmatmul,           # the matmul, its quantization modes bound
+    decode_w8a8: bool = False,        # int8 x int8 decode scores (int8 cache)
 ) -> tuple[torch.Tensor, Optional[dict]]:
     """Run the model. Returns (logits [B, T, V] fp32, cache).
 
@@ -315,7 +374,10 @@ def forward(
     slots masked. ``attn_impl="flash"`` routes a one-shot prefill at an int
     ``start_pos`` through the flash kernel and T = 1 steps through the
     decode kernel where the gates admit the shape; ``"torch"`` (the JAX
-    package's ``"xla"``) always takes the plain attention op.
+    package's ``"xla"``) always takes the plain attention op. ``mm`` (e.g.
+    ``partial(qmatmul, w8a8=True)``) and ``decode_w8a8`` are the engine's
+    quantization settings (the JAX package threads them through a
+    trace-time scope and its knobs).
     """
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
@@ -353,7 +415,7 @@ def forward(
     if flash_offset is not None or decode_flash:
         mask = None  # the kernels derive causality from pos / q_offset
     elif cache is not None:
-        s = cache["k"].shape[2]
+        s = kv_capacity(cache["k"])
         if kv_width is not None:
             s = min(s, kv_width)
         kv_slots = torch.arange(s, dtype=torch.int32, device=dev)[None, :].expand(b, s)
@@ -376,15 +438,16 @@ def forward(
         row_start = torch.zeros(b, dtype=torch.int32, device=dev)
     if layers is None:
         layers = layer_views(params)
+    decode_w8a8 = decode_w8a8 and decode_flash and is_quantized(cache["k"])
     for i, lp in enumerate(layers):
         x = _layer(
             cfg, x, lp, cos, sin, mask, cache, start_pos, i,
             layer_ids[i] if layer_ids is not None else None, row_start, slots,
-            flash_offset, kv_width, decode_flash,
+            flash_offset, kv_width, decode_flash, mm, decode_w8a8,
         )
 
     if logits_index is not None:
         # Prefill samples one position: unembed only it.
         idx = logits_index.to(device=dev, dtype=torch.long)
         x = x.gather(1, idx[:, None, None].expand(b, 1, x.shape[-1]))
-    return unembed(params, cfg, x), cache
+    return unembed(params, cfg, x, mm), cache

@@ -132,6 +132,16 @@ def _bind(lib: ctypes.CDLL) -> None:
         p,                     # stream
     ]
     lib.llmc_decode_attention_bf16.restype = i
+    for fn in (lib.llmc_decode_attention_int8, lib.llmc_decode_attention_int8_w8a8):
+        fn.argtypes = [
+            p, p, p, p, p,         # q, k codes, v codes, k scales, v scales
+            p, p, p,               # pos, layer, row_start (device int32)
+            p, p, p, p,            # part_m, part_l, part_acc, out
+            i, i, i, i, i,         # B, S, Hq, Hkv, dh
+            i, i, i, f, f,         # kv_width, n_split, window, softcap, scale
+            p,                     # stream
+        ]
+        fn.restype = i
     lib.llmc_cuda_error_string.argtypes = [i]
     lib.llmc_cuda_error_string.restype = ctypes.c_char_p
 

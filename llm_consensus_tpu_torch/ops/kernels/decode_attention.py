@@ -1,14 +1,24 @@
 """One-token GQA decode attention over the layer-stacked KV cache: CUDA
-kernel and its plain version.
+kernels and their plain versions.
 
-The port of ``llm_consensus_tpu/ops/pallas/decode_attention.py``, bf16-cache
-form. The kernel (``csrc/decode_attention.cu``) runs on CUDA tensors;
-:func:`decode_attention` launches it, or raises, for CUDA tensors and uses
-:func:`decode_attention_plain` only for tensors on the CPU. The plain
-version repeats the TPU kernel's arithmetic: kv blocks of the span, an fp32
-online softmax with the same ``NEG_INF``, V rows outside
-[row_start, pos] zeroed by a select, p cast to q's dtype before P.V, and
-l = 0 rows output as 0.
+The port of ``llm_consensus_tpu/ops/pallas/decode_attention.py`` in three
+variants, each a kernel in ``csrc/decode_attention.cu``:
+
+  * the bf16 cache ``[L, B, S, Hkv, dh]``;
+  * the int8 cache ``{"q8": int8 [L, B, S, Hkv, dh], "s": [L, B, Hkv, S]}``
+    read as codes: the per-slot K scale multiplies the scores, the per-slot
+    V scale folds into p (a select, so NaN scales past the frontier never
+    reach the output), and no dequantized K/V exists;
+  * W8A8 scores over the int8 cache (``w8a8=True``, GQA group 2 to 4, the
+    TPU kernel's dense-GQA form): q quantized per (row, head) to int8 with a
+    float32 scale, int8 x int8 scores with int32 accumulation, P.V in bf16.
+
+:func:`decode_attention` launches the kernel, or raises, for CUDA tensors
+and uses :func:`decode_attention_plain` only for tensors on the CPU. The
+plain version repeats the TPU kernel's arithmetic: kv blocks of the span,
+an fp32 online softmax with the same ``NEG_INF``, invalid V rows (bf16) or
+V scales (int8) zeroed by a select, p cast to q's dtype (bf16 for W8A8)
+before P.V, and l = 0 rows output as 0.
 """
 
 from __future__ import annotations
@@ -19,6 +29,7 @@ import torch
 
 from llm_consensus_tpu_torch.ops.kernels.build import (
     LaunchCounter, check, ensure_built)
+from llm_consensus_tpu_torch.ops.quant import is_quantized, quantize_rows_sym
 
 NEG_INF = -1e30  # the TPU kernel's mask value
 
@@ -28,9 +39,12 @@ HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 16
 CHUNK = 64
 
-LAUNCHES = LaunchCounter()
+LAUNCHES = LaunchCounter()        # bf16 cache
+LAUNCHES_INT8 = LaunchCounter()   # int8 cache
+LAUNCHES_W8A8 = LaunchCounter()   # int8 cache, int8 x int8 scores
 
 Index = Union[int, torch.Tensor]
+Cache = Union[torch.Tensor, dict]
 
 
 def _pow2_block(width: int, cap: int) -> int:
@@ -51,25 +65,42 @@ def decode_supported(n_heads: int, n_kv_heads: int, head_dim: int) -> bool:
     )
 
 
-def _check_shapes(q, k, v) -> None:
+def w8a8_supported(n_heads: int, n_kv_heads: int) -> bool:
+    """W8A8 scores exist only in the dense-GQA form: group 2 to 4."""
+    return 2 <= n_heads // n_kv_heads <= 4
+
+
+def _check_shapes(q, k, v, w8a8: bool) -> None:
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"decode kernel is T=1 only, q {tuple(q.shape)}")
-    if k.dim() != 5 or v.shape != k.shape:
+    if is_quantized(k) != is_quantized(v):
+        raise ValueError("k and v must both be int8 dicts or both be tensors")
+    kc, vc = (k["q8"], v["q8"]) if is_quantized(k) else (k, v)
+    if kc.dim() != 5 or vc.shape != kc.shape:
         raise ValueError(
-            f"k/v must be [L, B, S, Hkv, dh] stacks, got {tuple(k.shape)}, "
-            f"{tuple(v.shape)}"
+            f"k/v must be [L, B, S, Hkv, dh] stacks, got {tuple(kc.shape)}, "
+            f"{tuple(vc.shape)}"
         )
     b, _, hq, dh = q.shape
-    if k.shape[1] != b or k.shape[4] != dh:
+    if kc.shape[1] != b or kc.shape[4] != dh:
         raise ValueError("q and the cache disagree on batch or head_dim")
-    if hq % k.shape[3]:
-        raise ValueError(f"n_heads {hq} not a multiple of n_kv_heads {k.shape[3]}")
+    if hq % kc.shape[3]:
+        raise ValueError(f"n_heads {hq} not a multiple of n_kv_heads {kc.shape[3]}")
+    if is_quantized(k):
+        want = (kc.shape[0], b, kc.shape[3], kc.shape[2])
+        for name, x in (("k", k), ("v", v)):
+            if x["q8"].dtype != torch.int8 or tuple(x["s"].shape) != want:
+                raise ValueError(
+                    f"{name} must be {{'q8': int8 [L, B, S, Hkv, dh], 's': {list(want)}}}"
+                )
+    if w8a8 and not (is_quantized(k) and w8a8_supported(hq, kc.shape[3])):
+        raise ValueError("W8A8 scores need the int8 cache and a GQA group of 2 to 4")
 
 
 def decode_attention_plain(
     q: torch.Tensor,   # [B, 1, Hq, dh]
-    k: torch.Tensor,   # [L, B, S, Hkv, dh]
-    v: torch.Tensor,
+    k: Cache,          # [L, B, S, Hkv, dh], or the int8 dict
+    v: Cache,
     pos: Index,
     layer_idx: Index = 0,
     row_start: Optional[torch.Tensor] = None,
@@ -78,25 +109,41 @@ def decode_attention_plain(
     sliding_window: Optional[int] = None,
     logit_softcap: Optional[float] = None,
     kv_width: Optional[int] = None,
+    w8a8: bool = False,
 ) -> torch.Tensor:
     """The TPU kernel's arithmetic in plain PyTorch → [B, 1, Hq, dh]."""
     block_k = 512  # the TPU kernel's default kv block cap
+    quantized = is_quantized(k)
+    kc, vc = (k["q8"], v["q8"]) if quantized else (k, v)
     b, _, hq, dh = q.shape
-    s, hkv = k.shape[2], k.shape[3]
+    s, hkv = kc.shape[2], kc.shape[3]
     g = hq // hkv
     scale = dh ** -0.5 if scale is None else scale
     dev = q.device
     w = s if kv_width is None else min(kv_width, s)
     bk = _pow2_block(w, block_k)
     pos = torch.as_tensor(pos, dtype=torch.int64, device=dev)
-    layer = torch.as_tensor(layer_idx, dtype=torch.int64, device=dev)
+    layer = torch.as_tensor(layer_idx, dtype=torch.int64, device=dev).reshape(1)
     rs = (
         torch.zeros(b, dtype=torch.int64, device=dev) if row_start is None
         else row_start.to(device=dev, dtype=torch.int64)
     )
-    kl = k.index_select(0, layer.reshape(1))[0]  # [B, S, Hkv, dh]
-    vl = v.index_select(0, layer.reshape(1))[0]
-    qg = q[:, 0].reshape(b, hkv, g, dh).float()
+    kl = kc.index_select(0, layer)[0]  # [B, S, Hkv, dh]
+    vl = vc.index_select(0, layer)[0]
+    if quantized:
+        ksl = k["s"].index_select(0, layer)[0].float()  # [B, Hkv, S]
+        vsl = v["s"].index_select(0, layer)[0].float()
+    qg = q[:, 0].reshape(b, hkv, g, dh)
+    # P.V runs in q's dtype; in bf16 for W8A8 whatever q's dtype (the TPU
+    # kernel's _qstruct_tail(..., jnp.bfloat16)).
+    pv_dtype = torch.bfloat16 if w8a8 else q.dtype
+    if w8a8:
+        # q quantized once per step, per (row, head) over its dh values.
+        # The int8 x int8 dot is exact in float32: |sum| <= dh * 127^2 < 2^24.
+        q8, q_scale = quantize_rows_sym(qg)  # [B, Hkv, g, dh], [B, Hkv, g, 1]
+        qg = q8.float()
+    else:
+        qg = qg.float()
     m = torch.full((b, hkv, g), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((b, hkv, g), dtype=torch.float32, device=dev)
     acc = torch.zeros((b, hkv, g, dh), dtype=torch.float32, device=dev)
@@ -105,12 +152,21 @@ def decode_attention_plain(
         valid = (cols[None, :] <= pos) & (cols[None, :] >= rs[:, None])  # [B, bk]
         if sliding_window is not None:
             valid = valid & (cols[None, :] > pos - sliding_window)
-        kb = kl[:, k0:k0 + bk].float()
-        # Zero invalid V rows (a select): NaN garbage past the frontier
-        # would otherwise ride 0 * NaN = NaN through P.V.
-        vb = torch.where(valid[:, :, None, None], vl[:, k0:k0 + bk],
-                         torch.zeros_like(vl[:, k0:k0 + bk]))
-        sc = torch.einsum("bkgd,bskd->bkgs", qg, kb) * scale
+        if quantized:
+            kb = kl[:, k0:k0 + bk].float() if w8a8 else kl[:, k0:k0 + bk].to(q.dtype).float()
+            vb = vl[:, k0:k0 + bk].to(pv_dtype)  # int8 codes cannot be NaN
+        else:
+            kb = kl[:, k0:k0 + bk].float()
+            # Zero invalid V rows (a select): NaN garbage past the frontier
+            # would otherwise ride 0 * NaN = NaN through P.V.
+            vb = torch.where(valid[:, :, None, None], vl[:, k0:k0 + bk],
+                             torch.zeros_like(vl[:, k0:k0 + bk]))
+        sc = torch.einsum("bkgd,bskd->bkgs", qg, kb)
+        if w8a8:
+            sc = sc * q_scale
+        if quantized:
+            sc = sc * ksl[:, :, None, k0:k0 + bk]  # per-column K scale
+        sc = sc * scale
         if logit_softcap is not None:
             sc = logit_softcap * torch.tanh(sc / logit_softcap)
         sc = torch.where(valid[:, None, None, :], sc, torch.full_like(sc, NEG_INF))
@@ -118,7 +174,12 @@ def decode_attention_plain(
         p = torch.exp(sc - m_new[..., None])
         alpha = torch.exp(m - m_new)
         l = alpha * l + p.sum(dim=-1)
-        pv = torch.einsum("bkgs,bskd->bkgd", p.to(q.dtype).float(), vb.float())
+        if quantized:
+            # The V scale folds into p after l; a select keeps NaN scales of
+            # slots past the frontier out.
+            vs = vsl[:, :, None, k0:k0 + bk]
+            p = p * torch.where(valid[:, None, None, :], vs, torch.zeros_like(vs))
+        pv = torch.einsum("bkgs,bskd->bkgd", p.to(pv_dtype).float(), vb.float())
         acc = acc * alpha[..., None] + pv
         m = m_new
     l = torch.where(l == 0.0, torch.ones_like(l), l)
@@ -128,8 +189,8 @@ def decode_attention_plain(
 
 def decode_attention(
     q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
+    k: Cache,
+    v: Cache,
     pos: Index,
     layer_idx: Index = 0,
     row_start: Optional[torch.Tensor] = None,
@@ -138,33 +199,45 @@ def decode_attention(
     sliding_window: Optional[int] = None,
     logit_softcap: Optional[float] = None,
     kv_width: Optional[int] = None,
+    w8a8: bool = False,
 ) -> torch.Tensor:
     """Single-step GQA attention over one layer of the cache → [B, 1, Hq, dh].
 
     Row ``b`` attends slots ``row_start[b] <= p <= pos`` of layer
     ``layer_idx`` (windowed when ``sliding_window``) within ``kv_width``.
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise. On CUDA, ``pos`` and ``layer_idx`` are int32 device scalars and
-    ``row_start`` an int32 device vector, so a step reads them on the card
-    with no host sync.
+    ``k``/``v`` are the full bf16 stacks or the int8 dicts (full code and
+    scale stacks: the kernel addresses the layer by offset, no slice);
+    ``w8a8`` takes the int8 x int8 score variant (int8 cache, GQA group 2
+    to 4). CPU tensors take the plain version; CUDA tensors launch the
+    kernel or raise. On CUDA, ``pos`` and ``layer_idx`` are int32 device
+    scalars and ``row_start`` an int32 device vector, so a step reads them
+    on the card with no host sync.
     """
-    _check_shapes(q, k, v)
-    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
+    _check_shapes(q, k, v, w8a8)
+    quantized = is_quantized(k)
+    tensors = [("q", q)]
+    if quantized:
+        tensors += [("k.q8", k["q8"]), ("v.q8", v["q8"]), ("k.s", k["s"]), ("v.s", v["s"])]
+    else:
+        tensors += [("k", k), ("v", v)]
+    if all(x.device.type == "cpu" for _, x in tensors):
         return decode_attention_plain(
             q, k, v, pos, layer_idx, row_start, scale=scale,
             sliding_window=sliding_window, logit_softcap=logit_softcap,
-            kv_width=kv_width,
+            kv_width=kv_width, w8a8=w8a8,
         )
     dev = q.device
-    for name, x in (("q", q), ("k", k), ("v", v)):
+    for name, x in tensors:
         if x.device != dev or x.device.type != "cuda":
             raise ValueError(f"decode_attention: {name} on {x.device}, q on {dev}")
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"decode_attention kernel takes bf16, {name} is {x.dtype}")
+        if x.dtype != (torch.int8 if name.endswith("q8") else torch.bfloat16):
+            raise TypeError(f"decode_attention kernel takes bf16 and int8 codes, "
+                            f"{name} is {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"decode_attention: {name} must be contiguous")
+    kc = k["q8"] if quantized else k
     b, _, hq, dh = q.shape
-    s, hkv = k.shape[2], k.shape[3]
+    s, hkv = kc.shape[2], kc.shape[3]
     if not decode_supported(hq, hkv, dh):
         raise ValueError(
             f"decode_attention kernel has no build for Hq={hq}, Hkv={hkv}, dh={dh}"
@@ -182,15 +255,23 @@ def decode_attention(
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty(b * hq * n_split * dh, dtype=torch.float32, device=dev)
     out = torch.empty_like(q)
+    tail = (
+        pos.data_ptr(), layer_idx.data_ptr(), row_start.data_ptr(),
+        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
+        b, s, hq, hkv, dh, w, n_split,
+        sliding_window or 0, float(logit_softcap or 0.0), float(scale),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
     with torch.cuda.device(dev):
-        err = lib.llmc_decode_attention_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            pos.data_ptr(), layer_idx.data_ptr(), row_start.data_ptr(),
-            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
-            b, s, hq, hkv, dh, w, n_split,
-            sliding_window or 0, float(logit_softcap or 0.0), float(scale),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    check(lib, err, "decode_attention")
-    LAUNCHES.add()
+        if not quantized:
+            err = lib.llmc_decode_attention_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), *tail)
+            name, counter = "decode_attention", LAUNCHES
+        else:
+            fn = lib.llmc_decode_attention_int8_w8a8 if w8a8 else lib.llmc_decode_attention_int8
+            err = fn(q.data_ptr(), k["q8"].data_ptr(), v["q8"].data_ptr(),
+                     k["s"].data_ptr(), v["s"].data_ptr(), *tail)
+            name = "decode_attention_int8_w8a8" if w8a8 else "decode_attention_int8"
+            counter = LAUNCHES_W8A8 if w8a8 else LAUNCHES_INT8
+    check(lib, err, name)
+    counter.add()
     return out

@@ -1,12 +1,14 @@
 """Gated feed-forward blocks, SwiGLU / GeGLU (port of
 ``llm_consensus_tpu/ops/mlp.py``). Plain matmuls: a large matrix product
-outside any kernel goes to ``torch.matmul``, as the JAX package leaves it
-to XLA. Quantized weights are later work."""
+outside any kernel goes to ``torch.matmul`` (through ``ops/quant.qmatmul``,
+which also takes quantized weights), as the JAX package leaves it to XLA."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from llm_consensus_tpu_torch.ops.quant import qmatmul
 
 
 def _activate(x: torch.Tensor, activation: str) -> torch.Tensor:
@@ -23,7 +25,8 @@ def gated_mlp(
     w_up: torch.Tensor,    # [D, F]
     w_down: torch.Tensor,  # [F, D]
     activation: str = "silu",
+    mm=qmatmul,            # the engine's matmul (W8A8 / int4 settings bound)
 ) -> torch.Tensor:
-    gate = _activate(torch.matmul(x, w_gate), activation)
-    up = torch.matmul(x, w_up)
-    return torch.matmul(gate * up, w_down)
+    gate = _activate(mm(x, w_gate), activation)
+    up = mm(x, w_up)
+    return mm(gate * up, w_down)

@@ -10,7 +10,10 @@ per-preset locks. Weights are random, made on the device from a seed
 provider's 4096-token cap.
 
 ``GPUProvider(device=None)`` runs on the current CUDA card and raises when
-there is none; ``device="cpu"`` runs the same path on the CPU.
+there is none; ``device="cpu"`` runs the same path on the CPU. The
+quantization modes (``quant``, ``kv_quant``, ``w8a8``, ``decode_w8a8``,
+``int4_impl``) go to every engine the provider builds; unknown modes raise
+in the constructor, before anything is built.
 """
 
 from __future__ import annotations
@@ -38,14 +41,32 @@ def parse_model_name(model: str) -> str:
     return name
 
 
+def _resolve_modes(*, quant: Optional[str] = None, kv_quant: Optional[str] = None,
+                   w8a8: bool = False, decode_w8a8: bool = False,
+                   int4_impl: Optional[str] = None) -> dict:
+    """The quantization modes as every engine takes them; an unknown mode
+    raises ``ValueError`` here, before anything is built."""
+    from llm_consensus_tpu_torch.ops.quant import (
+        KV_MODES, WEIGHT_MODES, resolve_int4_impl, resolve_mode)
+
+    return {
+        "quant": resolve_mode(quant, "quant", WEIGHT_MODES),
+        "kv_quant": resolve_mode(kv_quant, "kv_quant", KV_MODES),
+        "w8a8": bool(w8a8), "decode_w8a8": bool(decode_w8a8),
+        "int4_impl": resolve_int4_impl(int4_impl),
+    }
+
+
 class GPUProvider(Provider):
     """Serves every ``gpu:*`` model from a lazily built engine pool."""
 
     name = "gpu"
-    _shared: dict = {}  # device → provider (see shared())
+    _shared: dict = {}  # (device, modes) → provider (see shared())
     _shared_lock = threading.Lock()
 
-    def __init__(self, *, device: DeviceLike = None, max_seq: Optional[int] = None):
+    def __init__(self, *, device: DeviceLike = None, max_seq: Optional[int] = None,
+                 **modes):
+        self.modes = _resolve_modes(**modes)
         self.device = resolve_device(device)
         self._engines: dict[str, object] = {}
         self._lock = threading.Lock()
@@ -56,14 +77,16 @@ class GPUProvider(Provider):
         self.stats = {"tokens": 0, "runs": 0}
 
     @classmethod
-    def shared(cls, device: DeviceLike = None) -> "GPUProvider":
-        """One provider per device for the process (the CLI's factory)."""
+    def shared(cls, device: DeviceLike = None, **modes) -> "GPUProvider":
+        """One provider per device and quantization modes for the process
+        (the CLI's factory): a quantized run never reuses a bf16 engine."""
         dev = resolve_device(device)
+        modes = _resolve_modes(**modes)
+        key = (dev, tuple(sorted(modes.items())))
         with cls._shared_lock:
-            provider = cls._shared.get(dev)
-            if provider is None:
-                provider = cls._shared[dev] = cls(device=dev)
-            return provider
+            if key not in cls._shared:
+                cls._shared[key] = cls(device=dev, **modes)
+            return cls._shared[key]
 
     def prepare(self, models: list[str], judge: Optional[str]) -> None:
         """Build the CUDA kernels before the panel fan-out, so the first
@@ -109,7 +132,7 @@ class GPUProvider(Provider):
 
         cfg = get_config(preset)
         max_seq = min(self._max_seq, cfg.max_seq_len) if self._max_seq else None
-        return Engine(cfg, device=self.device, max_seq=max_seq)
+        return Engine(cfg, device=self.device, max_seq=max_seq, **self.modes)
 
     def query(self, ctx: Context, req: Request) -> Response:
         return self.query_stream(ctx, req, None)
@@ -149,9 +172,13 @@ class GPUProvider(Provider):
             kind = device_name(self.device)
             mid_context = result.prompt_tokens + len(result.token_ids) // 2
             mfu = decode_mfu(engine.cfg, tokens_per_sec, kind, context_len=mid_context)
+            # Bytes per weight and per cache element of this engine's modes
+            # (the JAX provider's widths).
+            itemsize = engine.dtype.itemsize
             mbu = decode_mbu(
                 engine.cfg, tokens_per_sec, kind, context_len=mid_context,
-                weight_bytes=engine.dtype.itemsize, kv_bytes=engine.dtype.itemsize,
+                weight_bytes={"int8": 1, "int4": 0.5}.get(engine.quant, itemsize),
+                kv_bytes=1 if engine.kv_quant == "int8" else itemsize,
             )
         return Response(
             model=req.model,

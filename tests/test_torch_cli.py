@@ -8,6 +8,7 @@ import threading
 import time
 
 import pytest
+import torch
 
 from llm_consensus_tpu.consensus.judge import render_judge_prompt as jax_render
 from llm_consensus_tpu.output.result import Result as JaxResult
@@ -162,3 +163,105 @@ def test_runner_watchdog_abandons_a_wedged_worker():
     assert time.monotonic() - t0 < 5
     assert result.failed_models == ["stuck"]
     assert "abandoned" in result.warnings[0]
+
+
+# -- quantization through the environment -------------------------------------
+
+QUANT_KNOBS = ("LLMC_QUANT", "LLMC_KV_QUANT", "LLMC_W8A8", "LLMC_DECODE_W8A8",
+               "LLMC_DECODE_QSTRUCT", "LLMC_INT4_IMPL")
+
+
+@pytest.fixture
+def clean_knobs(monkeypatch):
+    for name in QUANT_KNOBS:
+        monkeypatch.delenv(name, raising=False)
+    yield monkeypatch
+    for key, provider in list(GPUProvider._shared.items()):
+        if key[1] != tuple(sorted(GPUProvider(device="cpu").modes.items())):
+            provider.release()
+            del GPUProvider._shared[key]
+
+
+def test_cli_env_knobs_reach_the_engines(tmp_path, clean_knobs):
+    clean_knobs.setenv("LLMC_QUANT", "int8")
+    clean_knobs.setenv("LLMC_KV_QUANT", "int8")
+    clean_knobs.setenv("LLMC_W8A8", "1")
+    clean_knobs.setenv("LLMC_DECODE_W8A8", "1")
+    rc, out, err = _run(["--models", PANEL, "--judge", JUDGE, "--max-tokens", "6",
+                         "--json", "--data-dir", str(tmp_path), "what is consensus?"])
+    assert rc == 0, err
+    doc = json.loads(out)
+    provider = GPUProvider.shared("cpu", quant="int8", kv_quant="int8", w8a8=True,
+                                  decode_w8a8=True)
+    engines = provider.engines()
+    assert sorted(engines) == ["tiny-llama", "tiny-qwen2"]
+    for engine in engines.values():
+        assert (engine.quant, engine.kv_quant, engine.w8a8) == ("int8", "int8", True)
+        assert engine.params["layers"]["wq"]["q8"].dtype == torch.int8
+    # tiny-llama has a GQA group of 2 (decode W8A8 applies); tiny-qwen2 may not.
+    assert engines["tiny-llama"].decode_w8a8
+    assert GPUProvider.shared("cpu").engines().get("tiny-llama") is not engines["tiny-llama"]
+    # The output contract (result.json's keys) does not change with the modes.
+    for name in QUANT_KNOBS:
+        clean_knobs.delenv(name, raising=False)
+    rc, out_bf16, _ = _run(["--models", PANEL, "--judge", JUDGE, "--max-tokens", "6",
+                            "--json", "--data-dir", str(tmp_path), "what is consensus?"])
+    assert list(json.loads(out_bf16)) == list(doc)
+    for got, want in zip(doc["responses"], json.loads(out_bf16)["responses"]):
+        assert list(got) == list(want)
+
+
+def test_cli_bogus_quant_fails_before_any_build(clean_knobs, monkeypatch):
+    import llm_consensus_tpu_torch.engine as engine_pkg
+
+    def no_build(*a, **k):
+        raise AssertionError("no engine may be built for a bad mode")
+
+    monkeypatch.setattr(engine_pkg, "Engine", no_build)
+    before = dict(GPUProvider._shared)
+    for name, value, msg in (("LLMC_QUANT", "bogus", "unknown quant mode 'bogus'"),
+                             ("LLMC_KV_QUANT", "int4", "unknown kv_quant mode 'int4'"),
+                             ("LLMC_INT4_IMPL", "nible", "unknown int4_impl 'nible'")):
+        clean_knobs.setenv(name, value)
+        rc, out, err = _run(["--models", "gpu:tiny-llama", "--judge", JUDGE, "x"])
+        assert rc == 1 and out == ""
+        assert err.startswith("error: initializing provider for gpu:tiny-llama") and msg in err
+        clean_knobs.delenv(name)
+    assert GPUProvider._shared == before
+
+
+@pytest.mark.parametrize("off", ["bf16", "none", ""])
+def test_cli_bf16_and_none_mean_off(clean_knobs, off):
+    from llm_consensus_tpu_torch.cli.main import create_provider
+
+    clean_knobs.setenv("LLMC_QUANT", off)
+    clean_knobs.setenv("LLMC_KV_QUANT", off)
+    provider = create_provider("gpu:tiny-llama", "cpu")
+    assert provider is GPUProvider.shared("cpu")
+    assert provider.modes["quant"] is None and provider.modes["kv_quant"] is None
+
+
+def test_provider_mbu_uses_the_modes_byte_widths(monkeypatch):
+    """MBU counts 1 byte per int8 weight, 0.5 per int4 weight and 1 per
+    int8 cache element (the JAX provider's widths)."""
+    import llm_consensus_tpu_torch.utils.flops as flops
+    from llm_consensus_tpu_torch.providers import Request
+
+    seen = []
+
+    def fake_mbu(cfg, tps, kind, context_len=0, weight_bytes=2, kv_bytes=2):
+        seen.append((weight_bytes, kv_bytes))
+        return 0.5
+
+    monkeypatch.setattr(flops, "decode_mbu", fake_mbu)
+    for modes, want in (({}, (4, 4)), ({"quant": "int8", "kv_quant": "int8"}, (1, 1)),
+                        ({"quant": "int4"}, (0.5, 4))):
+        provider = GPUProvider(device="cpu", **modes)
+        engine = provider._engine_for("gpu:tiny-llama")
+        engine.dtype = torch.float32
+        monkeypatch.setattr(engine, "generate", lambda *a, **k: type("R", (), dict(
+            token_ids=[1] * 40, text="x", finish_reason="length", prompt_tokens=5,
+            truncated_prompt=False, decode_tokens=32, decode_s=0.5))())
+        resp = provider.query(Context.background(), Request(model="gpu:tiny-llama", prompt="p"))
+        assert resp.tokens_per_sec == 64.0
+        assert seen[-1] == want, modes

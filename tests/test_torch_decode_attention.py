@@ -5,8 +5,12 @@ The plain version must match the TPU kernel over the cases of
 tests/test_decode_attention.py (row_start, window, softcap,
 non-power-of-two widths, pos = 0), plus layer selection from a stack with
 L > 1, NaN in unwritten slots, and B = 8 with ragged row_start, at
-atol/rtol 1e-5 in float32. The CUDA kernel runs only on a card:
-tests/test_torch_gpu.py holds it to this plain version there.
+atol/rtol 1e-5 in float32. The int8-cache and W8A8 variants are held to
+the TPU kernel on that file's int8 and W8A8 cases at atol/rtol 2e-4 (the
+JAX file's own tolerance for them), with the same codes and scales given
+to both, and must keep NaN scales and garbage codes past the frontier out
+of the output. The CUDA kernels run only on a card: tests/test_torch_gpu.py
+holds them to these plain versions there.
 """
 
 import jax
@@ -16,6 +20,7 @@ import pytest
 import torch
 
 from llm_consensus_tpu.ops.pallas.decode_attention import decode_attention as jax_decode
+from llm_consensus_tpu.ops.quant import quantize_kv as jax_quantize_kv
 from llm_consensus_tpu_torch.ops.kernels import build
 from llm_consensus_tpu_torch.ops.kernels import decode_attention as da
 
@@ -49,9 +54,12 @@ def _jax(q, k, v, pos, layer=0, row_start=None, **kw):
 
 
 def _port(q, k, v, pos, layer=0, row_start=None, **kw):
+    """The plain version on numpy inputs; k/v may be int8-cache dicts of
+    torch tensors."""
     rs = None if row_start is None else torch.tensor(row_start, dtype=torch.int32)
+    conv = (lambda x: x) if isinstance(k, dict) else torch.from_numpy
     return da.decode_attention_plain(
-        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(q), conv(k), conv(v),
         torch.tensor(pos, dtype=torch.int32), torch.tensor(layer, dtype=torch.int32),
         rs, **kw).numpy()
 
@@ -130,3 +138,139 @@ def test_gate_is_the_kernel_shape_limit():
     assert not da.decode_supported(15, 8, 128)  # ragged GQA
     assert not da.decode_supported(64, 2, 128)  # group above the kernel's 16
     assert not da.decode_supported(32, 8, 256)  # no build for dh 256
+
+
+# -- int8 cache and W8A8 scores ---------------------------------------------------
+
+INT8_CASES = [
+    # (b, w, hq, hkv, pos, window, row_start): tests/test_decode_attention.py
+    (1, 512, 16, 8, 300, None, None),
+    (2, 300, 8, 2, 150, None, (0, 37)),   # ragged width + row pads
+    (2, 512, 8, 8, 400, 128, None),       # sliding window
+    (1, 512, 8, 1, 0, None, None),        # MQA, first step
+]
+W8A8_CASES = [
+    # (window, softcap, row_start) at b 4, w 256, Hq 16, Hkv 8, pos 200
+    (None, None, None),
+    (128, None, None),
+    (None, 50.0, None),
+    (None, None, (0, 37, 5, 90)),
+]
+TOL8 = dict(atol=2e-4, rtol=2e-4)
+
+
+def _int8_stack(x):
+    """[L, B, W, H, dh] float → the int8 cache form {"q8", "s" [L, B, H, W]}
+    as numpy, quantized by the JAX package."""
+    q8, s = jax_quantize_kv(jnp.asarray(x))
+    return {"q8": np.array(q8), "s": np.array(jnp.swapaxes(s[..., 0], 2, 3))}
+
+
+def _jax8(q, k8, v8, pos, layer=0, row_start=None, **kw):
+    jk = {key: jnp.asarray(a) for key, a in k8.items()}
+    jv = {key: jnp.asarray(a) for key, a in v8.items()}
+    rs = None if row_start is None else jnp.asarray(row_start, jnp.int32)
+    with jax.default_matmul_precision("highest"):
+        return np.asarray(jax_decode(jnp.asarray(q), jk, jv, jnp.int32(pos), jnp.int32(layer),
+                                     rs, interpret=True, **kw))
+
+
+def _port8(q, k8, v8, pos, layer=0, row_start=None, **kw):
+    tk = {key: torch.from_numpy(a) for key, a in k8.items()}
+    tv = {key: torch.from_numpy(a) for key, a in v8.items()}
+    return _port(q, tk, tv, pos, layer, row_start, **kw)
+
+
+@pytest.mark.parametrize("case", INT8_CASES)
+def test_int8_plain_matches_jax_interpret(case):
+    b, w, hq, hkv, pos, window, rs = case
+    q, k, v = _inputs(7, 1, b, w, hq, hkv)
+    k8, v8 = _int8_stack(k), _int8_stack(v)
+    want = _jax8(q, k8, v8, pos, 0, rs, sliding_window=window)
+    got = _port8(q, k8, v8, pos, 0, rs, sliding_window=window)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, **TOL8)
+
+
+@pytest.mark.parametrize("window,cap,rs", W8A8_CASES)
+def test_w8a8_plain_matches_jax_interpret(monkeypatch, window, cap, rs):
+    b, w, hq, hkv, pos = 4, 256, 16, 8, 200
+    q, k, v = _inputs(9, 1, b, w, hq, hkv)
+    k8, v8 = _int8_stack(k), _int8_stack(v)
+    kw = dict(sliding_window=window, logit_softcap=cap)
+    monkeypatch.setenv("LLMC_DECODE_W8A8", "1")
+    want = _jax8(q, k8, v8, pos, 0, rs, **kw)
+    got = _port8(q, k8, v8, pos, 0, rs, w8a8=True, **kw)
+    np.testing.assert_allclose(got, want, **TOL8)
+    # The variant is real: without W8A8 the scores carry no q rounding.
+    assert not np.allclose(_port8(q, k8, v8, pos, 0, rs, **kw), got, atol=1e-6, rtol=0)
+
+
+def test_w8a8_plain_matches_jax_with_a_q_outlier(monkeypatch):
+    """One q outlier of 127 per head, on a dimension where every K code is
+    0, sets q's int8 scale to 1 without touching the scores: W8A8 then
+    rounds the rest of q to integers, and its output moves far from the
+    int8 variant's (the case the card holds both kernels to)."""
+    b, w, hq, hkv, pos = 1, 384, 32, 8, 383
+    q, k, v = _inputs(13, 1, b, w, hq, hkv)
+    q[..., 0] = 127.0
+    k8, v8 = _int8_stack(k), _int8_stack(v)
+    k8["q8"][..., 0] = 0
+    monkeypatch.setenv("LLMC_DECODE_W8A8", "1")
+    want = _jax8(q, k8, v8, pos)
+    got = _port8(q, k8, v8, pos, w8a8=True)
+    np.testing.assert_allclose(got, want, **TOL8)
+    gap = np.abs(got - _port8(q, k8, v8, pos)).max()
+    assert gap > 0.2 * np.abs(want).max()  # 4x the card's 5 % tolerance
+
+
+@pytest.mark.parametrize("w8a8", [False, True], ids=["int8", "w8a8"])
+def test_int8_layer_selection_and_width(monkeypatch, w8a8):
+    q, k, v = _inputs(10, 3, 2, 512, 16, 8)
+    k8, v8 = _int8_stack(k), _int8_stack(v)
+    monkeypatch.setenv("LLMC_DECODE_W8A8", "1" if w8a8 else "0")
+    for layer, pos, width in ((2, 383, 384), (1, 100, 128)):
+        np.testing.assert_allclose(
+            _port8(q, k8, v8, pos, layer, kv_width=width, w8a8=w8a8),
+            _jax8(q, k8, v8, pos, layer, kv_width=width), **TOL8)
+
+
+@pytest.mark.parametrize("w8a8", [False, True], ids=["int8", "w8a8"])
+def test_nan_scales_and_garbage_codes_past_pos_never_reach_output(w8a8):
+    q, k, v = _inputs(11, 2, 2, 256, 16, 8)
+    k8, v8 = _int8_stack(k), _int8_stack(v)
+    clean = _port8(q, k8, v8, 100, 1, (0, 7), w8a8=w8a8)
+    for side in (k8, v8):
+        side["s"][:, :, :, 101:] = np.nan
+        side["q8"][:, :, 101:] = 127
+        side["s"][:, 1, :, :7] = np.nan  # row 1's slots before its row_start
+    got = _port8(q, k8, v8, 100, 1, (0, 7), w8a8=w8a8)
+    assert np.isfinite(got).all()
+    np.testing.assert_array_equal(got, clean)
+
+
+def test_int8_wrapper_on_cpu_takes_plain_version_and_checks_w8a8(monkeypatch):
+    def no_build():
+        raise AssertionError("CPU tensors must not build the CUDA kernel")
+
+    monkeypatch.setattr(da, "ensure_built", no_build)
+    q, k, v = _inputs(12, 2, 1, 256, 16, 8)
+    k8 = {key: torch.from_numpy(a) for key, a in _int8_stack(k).items()}
+    v8 = {key: torch.from_numpy(a) for key, a in _int8_stack(v).items()}
+    q = torch.from_numpy(q)
+    counts = (da.LAUNCHES_INT8.count, da.LAUNCHES_W8A8.count)
+    for w8a8 in (False, True):
+        got = da.decode_attention(q, k8, v8, 200, 1, kv_width=256, w8a8=w8a8)
+        want = da.decode_attention_plain(q, k8, v8, 200, 1, kv_width=256, w8a8=w8a8)
+        assert torch.equal(got, want)
+    assert (da.LAUNCHES_INT8.count, da.LAUNCHES_W8A8.count) == counts
+    # W8A8 scores exist only over the int8 cache with a GQA group of 2 to 4.
+    with pytest.raises(ValueError, match="W8A8"):
+        da.decode_attention(q, torch.from_numpy(k), torch.from_numpy(v), 200, 1, w8a8=True)
+    mha = {key: t[..., :1, :] if key == "q8" else t[:, :, :1] for key, t in k8.items()}
+    with pytest.raises(ValueError, match="W8A8"):
+        da.decode_attention(q[:, :, :1], mha, mha, 200, 1, w8a8=True)
+    with pytest.raises(ValueError, match="int8 dicts"):
+        da.decode_attention(q, k8, torch.from_numpy(v), 200, 1)
+    assert da.w8a8_supported(32, 8) and da.w8a8_supported(16, 8)
+    assert not da.w8a8_supported(8, 8) and not da.w8a8_supported(8, 1)

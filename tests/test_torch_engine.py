@@ -153,3 +153,88 @@ def test_decode_width_buckets_match_jax():
     je, te = _engines(max_seq=4096)
     for frontier in (1, 100, 128, 129, 700, 4000, 4095):
         assert te._decode_width(frontier) == je._decode_width(frontier)
+
+
+# -- quantized engines -----------------------------------------------------------
+
+QUANT_MODES = [
+    {"kv_quant": "int8"},
+    {"quant": "int8"},
+    {"quant": "int8", "kv_quant": "int8"},
+]
+
+
+@pytest.mark.parametrize("modes", QUANT_MODES, ids=["kv-int8", "w-int8", "both"])
+@pytest.mark.parametrize("prompt,chunk", [(SHORT, 512), (LONG, 32)],
+                         ids=["one-shot", "chunked"])
+def test_quantized_greedy_tokens_identical_to_jax(modes, prompt, chunk):
+    """tiny-llama at head_dim 128 in float32, the JAX Engine given the same
+    modes: int8 KV (the decode kernel's int8 variant, plain here), int8
+    weights, both; one-shot and chunked prefill."""
+    je, te = _engines(128, prefill_chunk=chunk, **modes)
+    assert (te.quant, te.kv_quant) == (je.quant, je.kv_quant)
+    a = je.generate(prompt, JaxSampling(max_new_tokens=40, ignore_eos=True))
+    b = te.generate(prompt, SamplingParams(max_new_tokens=40, ignore_eos=True))
+    assert b.token_ids == a.token_ids
+    assert b.text == a.text
+
+
+def test_w8a8_greedy_tokens_identical_to_jax(monkeypatch):
+    """int8 x int8 matmuls: the JAX Engine takes LLMC_W8A8 from the
+    environment, the port's Engine the argument."""
+    monkeypatch.setenv("LLMC_W8A8", "1")
+    je, te = _engines(128, quant="int8", kv_quant="int8")
+    monkeypatch.delenv("LLMC_W8A8")
+    te = Engine(te.cfg, params=te.params, dtype=torch.float32, max_seq=128, device="cpu",
+                quant="int8", kv_quant="int8", w8a8=True)
+    assert je.w8a8 and te.w8a8
+    sp = dict(max_new_tokens=24, ignore_eos=True)
+    assert (te.generate(SHORT, SamplingParams(**sp)).token_ids
+            == je.generate(SHORT, JaxSampling(**sp)).token_ids)
+
+
+def test_quant_modes_resolve_like_jax(monkeypatch):
+    import llm_consensus_tpu_torch.engine.engine as engine_mod
+
+    cfg = get_config("tiny-llama", head_dim=128)  # GQA group 2
+
+    def no_build(*a, **k):
+        raise AssertionError("a bad mode must fail before any parameter is built")
+
+    monkeypatch.setattr(engine_mod, "init_params", no_build)
+    with pytest.raises(ValueError, match="unknown quant mode 'int3'"):
+        Engine(cfg, dtype=torch.float32, max_seq=64, device="cpu", quant="int3")
+    with pytest.raises(ValueError, match="unknown kv_quant mode 'int4'"):
+        Engine(cfg, dtype=torch.float32, max_seq=64, device="cpu", kv_quant="int4")
+    monkeypatch.undo()
+    for off in ("bf16", "none"):
+        e = Engine(cfg, dtype=torch.float32, max_seq=64, device="cpu", quant=off, kv_quant=off)
+        assert e.quant is None and e.kv_quant is None
+    # W8A8 holds only with int8 weights; decode W8A8 only with the int8
+    # cache and a GQA group of 2 to 4.
+    assert not Engine(cfg, dtype=torch.float32, max_seq=64, device="cpu", w8a8=True).w8a8
+    assert not Engine(cfg, dtype=torch.float32, max_seq=64, device="cpu", quant="int4",
+                      w8a8=True).w8a8
+    e = Engine(cfg, dtype=torch.float32, max_seq=64, device="cpu", quant="int8", w8a8=True,
+               decode_w8a8=True)
+    assert e.w8a8 and not e.decode_w8a8
+    e = Engine(cfg, params=e.params, dtype=torch.float32, max_seq=64, device="cpu",
+               kv_quant="int8", decode_w8a8=True)
+    assert e.decode_w8a8 and e.params["layers"]["wq"]["q8"].dtype == torch.int8
+    mha = get_config("tiny-llama", head_dim=128, n_kv_heads=4)
+    assert not Engine(mha, dtype=torch.float32, max_seq=64, device="cpu", kv_quant="int8",
+                      decode_w8a8=True).decode_w8a8
+
+
+def test_int8_engine_uses_the_int8_cache_and_quantized_weights():
+    te = Engine(get_config("tiny-llama", head_dim=128), dtype=torch.float32, max_seq=128,
+                device="cpu", quant="int8", kv_quant="int8")
+    for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+        assert te.params["layers"][name]["q8"].dtype == torch.int8
+    assert te.params["lm_head"]["q8"].dtype == torch.int8
+    assert te.params["embed"].dtype == torch.float32
+    _, cache = te._prefill_ids(te.tokenizer.encode(SHORT))
+    assert cache["k"]["q8"].dtype == torch.int8 and cache["v"]["s"].shape == (
+        te.cfg.n_layers, 1, te.cfg.n_kv_heads, 128)
+    r = te.generate(SHORT, SamplingParams(max_new_tokens=12, ignore_eos=True))
+    assert len(r.token_ids) == 12

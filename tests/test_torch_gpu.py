@@ -7,8 +7,11 @@ conftest:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
-Tolerance 3e-2 on bf16 outputs of magnitude ~1: the kernels and their
-plain versions round p to bf16 at different running maxima.
+Flash: tolerance 3e-2 on bf16 outputs of magnitude ~1 (the kernels and
+their plain versions round p to bf16 at different running maxima). Decode
+outputs shrink as the width grows (~0.07 at most at width 8192), so decode
+checks allow 5 % of the largest plain output (a few bf16 ulps there), at
+most 3e-2.
 """
 
 import numpy as np
@@ -22,6 +25,12 @@ from llm_consensus_tpu_torch.ops.kernels import flash_attention as fa
 
 pytestmark = pytest.mark.gpu
 TOL = 3e-2
+DECODE_REL_TOL = 0.05
+
+
+def _decode_err_and_tol(got, want):
+    err = (got.float() - want.float()).abs().max().item()
+    return err, min(TOL, DECODE_REL_TOL * want.float().abs().max().item())
 
 
 @pytest.fixture
@@ -75,7 +84,8 @@ def test_decode_kernel_matches_plain(cuda, b, s, hq, hkv, pos, width, rs):
     assert da.LAUNCHES.count == before + 1
     want = da.decode_attention_plain(q, k, v, pos, 1, _i32(cuda, *rs), kv_width=width)
     assert bool(torch.isfinite(got).all())
-    assert (got.float() - want.float()).abs().max().item() < TOL
+    err, tol = _decode_err_and_tol(got, want)
+    assert err <= tol
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
@@ -99,3 +109,104 @@ def test_engine_runs_through_both_kernels(cuda):
     assert fa.LAUNCHES.count - flash0 == engine.cfg.n_layers   # one prefill
     assert da.LAUNCHES.count - decode0 >= 19 * engine.cfg.n_layers
     assert all(0 <= t < engine.cfg.vocab_size for t in result.token_ids)
+
+
+def _int8_cache(cuda, seed, l, b, s, hkv, dh=128):
+    """An int8 cache side {"q8", "s"} on the card from seeded normals."""
+    from llm_consensus_tpu_torch.ops.quant import quantize_kv
+
+    (x,) = _bf16(cuda, seed, (l, b, s, hkv, dh))
+    q8, sc = quantize_kv(x)
+    return {"q8": q8.contiguous(), "s": sc[..., 0].transpose(2, 3).contiguous()}
+
+
+@pytest.mark.parametrize("w8a8", [False, True], ids=["int8", "w8a8"])
+@pytest.mark.parametrize("b,s,hq,hkv,pos,width,rs,window,cap", [
+    (1, 8192, 32, 8, 383, 384, (0,), None, None),      # llama-3-8b, slice width
+    (1, 8192, 32, 8, 8191, 8192, (0,), None, None),    # full window
+    (4, 256, 16, 8, 200, 256, (0, 37, 5, 90), None, None),  # ragged rows
+    (2, 512, 16, 8, 400, 512, (0, 0), 128, 30.0),      # window + softcap
+])
+def test_int8_decode_kernels_match_plain(cuda, w8a8, b, s, hq, hkv, pos, width, rs,
+                                         window, cap):
+    (q,) = _bf16(cuda, 4, (b, 1, hq, 128))
+    k, v = _int8_cache(cuda, 5, 2, b, s, hkv), _int8_cache(cuda, 6, 2, b, s, hkv)
+    for side in (k, v):  # garbage past the frontier must not leak
+        side["s"][1, :, :, pos + 1:] = float("nan")
+        side["q8"][1, :, pos + 1:] = 127
+    counter = da.LAUNCHES_W8A8 if w8a8 else da.LAUNCHES_INT8
+    before = counter.count
+    kw = dict(kv_width=width, sliding_window=window, logit_softcap=cap, w8a8=w8a8)
+    got = da.decode_attention(q, k, v, _i32(cuda, pos)[0], _i32(cuda, 1)[0], _i32(cuda, *rs),
+                              **kw)
+    torch.cuda.synchronize()
+    assert counter.count == before + 1
+    want = da.decode_attention_plain(q, k, v, pos, 1, _i32(cuda, *rs), **kw)
+    assert bool(torch.isfinite(got).all())
+    err, tol = _decode_err_and_tol(got, want)
+    assert err <= tol
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,pos,width", [
+    (1, 1024, 32, 8, 383, 384),     # llama-3-8b at the slice width
+    (4, 512, 16, 8, 300, 384),      # consensus-1b's group, B = 4
+])
+def test_w8a8_kernel_is_not_the_int8_kernel(cuda, b, s, hq, hkv, pos, width):
+    """q with one outlier of 127 per head, on a dimension where every K code
+    is 0: q's int8 scale becomes 1 with the scores untouched, so W8A8
+    rounds the rest of q to integers and its output moves well past the
+    tolerance. Each kernel matches its own plain version, not the other's."""
+    (q,) = _bf16(cuda, 10, (b, 1, hq, 128))
+    q[..., 0] = 127.0
+    k, v = _int8_cache(cuda, 11, 1, b, s, hkv), _int8_cache(cuda, 12, 1, b, s, hkv)
+    k["q8"][..., 0] = 0
+    rs = _i32(cuda, *([0] * b))
+    got, want = {}, {}
+    for w8a8 in (False, True):
+        args = (q, k, v, _i32(cuda, pos)[0], _i32(cuda, 0)[0], rs)
+        got[w8a8] = da.decode_attention(*args, kv_width=width, w8a8=w8a8)
+        want[w8a8] = da.decode_attention_plain(*args, kv_width=width, w8a8=w8a8)
+    torch.cuda.synchronize()
+    for w8a8 in (False, True):
+        err, tol = _decode_err_and_tol(got[w8a8], want[w8a8])
+        cross, _ = _decode_err_and_tol(got[w8a8], want[not w8a8])
+        assert err <= tol < cross, (w8a8, err, tol, cross)
+
+
+def test_int8_kernel_refuses_what_it_does_not_take(cuda):
+    (q,) = _bf16(cuda, 7, (1, 1, 8, 128))
+    k = _int8_cache(cuda, 8, 1, 1, 64, 2)
+    bad = {"q8": k["q8"], "s": k["s"].float()}
+    with pytest.raises(TypeError, match="k.s"):
+        da.decode_attention(q, bad, bad, _i32(cuda, 10)[0], _i32(cuda, 0)[0], _i32(cuda, 0))
+    mha = _int8_cache(cuda, 9, 1, 1, 64, 8)
+    with pytest.raises(ValueError, match="W8A8"):
+        da.decode_attention(q, mha, mha, _i32(cuda, 10)[0], _i32(cuda, 0)[0], _i32(cuda, 0),
+                            w8a8=True)
+
+
+def test_int8_matmul_on_the_card_is_exact(cuda):
+    from llm_consensus_tpu_torch.ops.quant import _int8_mm
+
+    gen = torch.Generator().manual_seed(0)
+    for m in (1, 17, 40):
+        a = torch.randint(-127, 128, (m, 4096), generator=gen, dtype=torch.int8)
+        b = torch.randint(-127, 128, (4096, 1024), generator=gen, dtype=torch.int8)
+        got = _int8_mm(a.to(cuda), b.to(cuda))
+        assert got.dtype == torch.int32 and got.shape == (m, 1024)
+        assert torch.equal(got.cpu(), _int8_mm(a, b))
+
+
+@pytest.mark.parametrize("modes,counter", [
+    ({"quant": "int8", "kv_quant": "int8"}, "LAUNCHES_INT8"),
+    ({"quant": "int8", "kv_quant": "int8", "w8a8": True, "decode_w8a8": True}, "LAUNCHES_W8A8"),
+    ({"quant": "int4"}, "LAUNCHES"),
+])
+def test_quantized_engine_runs_through_the_kernels(cuda, modes, counter):
+    engine = Engine(get_config("tiny-llama", head_dim=128), max_seq=256, device=cuda, **modes)
+    flash0, decode0 = fa.LAUNCHES.count, getattr(da, counter).count
+    result = engine.generate("the quick brown fox", SamplingParams(max_new_tokens=20,
+                                                                   ignore_eos=True))
+    assert len(result.token_ids) == 20
+    assert fa.LAUNCHES.count - flash0 == engine.cfg.n_layers
+    assert getattr(da, counter).count - decode0 >= 19 * engine.cfg.n_layers

@@ -11,6 +11,7 @@ attention op.
 """
 
 from dataclasses import asdict
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -23,9 +24,11 @@ from llm_consensus_tpu.models import transformer as jtf
 from llm_consensus_tpu.utils import flops as jflops
 from llm_consensus_tpu_torch.models import config as tconfig
 from llm_consensus_tpu_torch.models import transformer as ttf
+from llm_consensus_tpu_torch.ops import quant as tq
 from llm_consensus_tpu_torch.utils import flops as tflops
 
 TOL = dict(atol=1e-4, rtol=1e-4)
+TOL8 = dict(atol=1e-3, rtol=1e-3)  # through the int8 cache's quantizer (see its test)
 CPU = torch.device("cpu")
 CONFIGS = [("tiny-llama", {}), ("tiny-llama", {"head_dim": 128})]
 
@@ -154,3 +157,104 @@ def test_padded_prefill_rows_overwritten_by_decode(name, overrides):
                                       tcache, torch.tensor(pos, dtype=torch.int32),
                                       attn_impl="flash", kv_width=64)
             np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+# -- quantized weights and the int8 cache --------------------------------------
+
+
+def _quantized_pair(name, overrides, mode="int8", seed=0):
+    """A tree quantized by the JAX package's quantize_params, carried into
+    the port as it is (codes and scales)."""
+    from llm_consensus_tpu.ops.quant import quantize_params
+
+    jcfg = jconfig.get_config(name, **overrides)
+    tcfg = tconfig.get_config(name, **overrides)
+    jp = quantize_params(jtf.init_params(jcfg, jax.random.PRNGKey(seed), dtype=jnp.float32),
+                         mode=mode)
+    tp = ttf.params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, CPU, torch.float32)
+    return jcfg, tcfg, jp, tp
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+@pytest.mark.parametrize("name,overrides", CONFIGS)
+def test_quantized_jax_tree_gives_the_jax_logits(name, overrides, mode):
+    jcfg, tcfg, jp, tp = _quantized_pair(name, overrides, mode)
+    code = "q4" if mode == "int4" else "q8"
+    for key in ("wq", "w_down"):
+        np.testing.assert_array_equal(tp["layers"][key][code].numpy(),
+                                      np.asarray(jp["layers"][key][code]))
+    toks = _tokens(6, 24, jcfg.vocab_size)
+    with jax.default_matmul_precision("highest"):
+        want, _ = jtf.forward(jp, jcfg, jnp.asarray(toks))
+    got, _ = ttf.forward(tp, tcfg, torch.from_numpy(toks).long())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_w8a8_forward_matches_jax_scope():
+    """int8 x int8 matmuls (W8A8) through the whole model: the port's
+    matmul with ``w8a8=True`` against the JAX forward under its W8A8 scope."""
+    from llm_consensus_tpu.ops.quant import w8a8_scope
+
+    jcfg, tcfg, jp, tp = _quantized_pair("tiny-llama", {"head_dim": 128})
+    toks = _tokens(7, 20, jcfg.vocab_size)
+    with jax.default_matmul_precision("highest"), w8a8_scope(True):
+        want, _ = jtf.forward(jp, jcfg, jnp.asarray(toks))
+    got, _ = ttf.forward(tp, tcfg, torch.from_numpy(toks).long(),
+                         mm=partial(tq.qmatmul, w8a8=True))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    plain, _ = ttf.forward(tp, tcfg, torch.from_numpy(toks).long())
+    assert not np.allclose(plain.numpy(), got.numpy(), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("jax_impl", ["xla", "flash"])
+@pytest.mark.parametrize("name,overrides", CONFIGS)
+def test_int8_cache_prefill_then_decode_matches_jax(name, overrides, jax_impl):
+    """The int8 cache: a one-shot prefill (fresh k/v round-tripped through
+    the quantizer) then decode steps over the codes, the port's kernels'
+    plain versions against JAX's XLA path or its Pallas kernels in
+    interpret mode. Tolerance 1e-3 (TOL8): k/v differ from JAX's by float32
+    summation order (~1e-7), which now and then moves a value across a
+    rounding boundary of the quantizer; that code then differs by one, a
+    step of its row's scale (max|row| / 127), which moves logits by up to
+    ~3e-4 on tiny-llama. At most 0.1 % of the codes may differ, by one."""
+    jcfg, tcfg, jp, tp = _pair(name, overrides)
+    toks = _tokens(8, 20, jcfg.vocab_size)
+    jcache = jtf.init_kv_cache(jcfg, 1, 64, dtype=jnp.float32, quant="int8")
+    tcache = ttf.init_kv_cache(tcfg, 1, 64, device=CPU, dtype=torch.float32, quant="int8")
+    with jax.default_matmul_precision("highest"):
+        want, jcache = jtf.forward(jp, jcfg, jnp.asarray(toks[:, :16]), jcache,
+                                   start_pos=0, attn_impl=jax_impl)
+        got, tcache = ttf.forward(tp, tcfg, torch.from_numpy(toks[:, :16]).long(),
+                                  tcache, start_pos=0, attn_impl="flash")
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL8)
+        for i in range(16, 20):
+            want, jcache = jtf.forward(jp, jcfg, jnp.asarray(toks[:, i:i + 1]), jcache,
+                                       start_pos=jnp.int32(i), attn_impl=jax_impl,
+                                       kv_width=64)
+            got, tcache = ttf.forward(tp, tcfg, torch.from_numpy(toks[:, i:i + 1]).long(),
+                                      tcache, start_pos=torch.tensor(i, dtype=torch.int32),
+                                      attn_impl="flash", kv_width=64)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL8)
+    for side in ("k", "v"):
+        codes = tcache[side]["q8"].numpy()
+        assert codes.dtype == np.int8 and codes[:, :, 20:].max() == 0
+        diff = codes[:, :, :20].astype(np.int32) - np.asarray(jcache[side]["q8"])[:, :, :20]
+        assert np.abs(diff).max() <= 1 and np.count_nonzero(diff) <= diff.size // 1000
+        np.testing.assert_allclose(tcache[side]["s"].numpy(), np.asarray(jcache[side]["s"]),
+                                   **TOL)
+
+
+@pytest.mark.parametrize("name,overrides", CONFIGS)
+def test_int8_cache_plain_path_matches_kernel_path(name, overrides):
+    """With the int8 cache, the plain op over kv_layer/kv_read (the chunked
+    path) and the kernel path agree."""
+    _, tcfg, _, tp = _pair(name, overrides)
+    toks = torch.from_numpy(_tokens(9, 17, tcfg.vocab_size)).long()
+    outs = {}
+    for impl in ("torch", "flash"):
+        cache = ttf.init_kv_cache(tcfg, 1, 64, device=CPU, dtype=torch.float32, quant="int8")
+        first, cache = ttf.forward(tp, tcfg, toks[:, :16], cache, 0, attn_impl=impl)
+        step, _ = ttf.forward(tp, tcfg, toks[:, 16:], cache, torch.tensor(16), attn_impl=impl)
+        outs[impl] = (first, step)
+    for a, b in zip(outs["torch"], outs["flash"]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **TOL)
