@@ -10,11 +10,13 @@ Phases, in order; any failure exits non-zero before the last line:
 2. build: the CUDA kernels from ``llm_consensus_tpu_torch/csrc`` with nvcc
    for sm_90a (seconds printed);
 3. kernels against their plain PyTorch versions on the card, in bf16, at
-   the main path's shapes and at small edge cases (flash, decode over the
-   bf16 cache, decode over the int8 cache, decode with W8A8 scores); each
-   timed with CUDA graphs beside its plain version and, where one exists,
-   one PyTorch library call; then the int8 matmuls (exactness of the int8
-   x int8 product, device time of the int8-weight matmul against bf16);
+   the main path's shapes and at small edge cases (flash, also at B = 4,
+   decode over the bf16 cache, decode over the int8 cache, decode with
+   W8A8 scores, and the ``return_state`` form of all three decode variants
+   at B = 4 with ragged row starts); each timed with CUDA graphs beside
+   its plain version and, where one exists, one PyTorch library call; then
+   the int8 matmuls (exactness of the int8 x int8 product, device time of
+   the int8-weight matmul against bf16);
 4. the small-model check: a narrow model's logits through the kernels
    against the same model through the plain attention op;
 5. the slice: one consensus run through the port's CLI (llama-3-8b +
@@ -24,17 +26,27 @@ Phases, in order; any failure exits non-zero before the last line:
    prompt (chunked prefill, then decode at a longer frontier);
 7. a torch.profiler window over one llama-3-8b generate: device busy
    share and the kernels with the most device time;
-8. the quantized slice: the same CLI run with ``LLMC_QUANT=int8
+8. the batched slice: the CLI run with a panel of 4 x llama-3-8b and a
+   llama-3-8b judge under ``LLMC_MAX_BATCH=4`` (one continuous batcher;
+   the panel's shared prompt becomes the pool's shared prefix, so its
+   decode runs the decode kernel's ``return_state`` form), then the
+   batcher driven directly: the first decode step's logits of a
+   shared-prefix wave against the single-stream engine, the wall of a
+   decode step at B = 1, at B = 4 and at B = 4 with the prefix, a
+   shared-prefix wave with an unrelated prompt beside it, a profiler
+   window over a shared-prefix wave, a wave of 4 unrelated prompts (flash
+   at B = 4), and short int8-KV and W8A8 shared-prefix runs;
+9. the quantized slice: the same CLI run with ``LLMC_QUANT=int8
    LLMC_KV_QUANT=int8`` in the environment (int8 weights, int8 KV cache,
    the int8 decode kernel), then a profiler window over one of its
    llama-3-8b generates;
-9. long context: llama-3.1-8b with int8 weights and the int8 cache at its
-   full 131,072 slots, an 8,000-token prompt (chunked prefill) and 64
-   decoded tokens;
-10. W8A8 and int4: one llama-3-8b generate each (350-token prompt, 48
+10. long context: llama-3.1-8b with int8 weights and the int8 cache at its
+    full 131,072 slots, an 8,000-token prompt (chunked prefill) and 64
+    decoded tokens;
+11. W8A8 and int4: one llama-3-8b generate each (350-token prompt, 48
     tokens), the first with int8 x int8 matmuls and decode scores (the W8A8
     decode kernel), the second with int4 weights;
-11. a ``{"kernels": [...]}`` line, the card line, then the
+12. a ``{"kernels": [...]}`` line, the card line, then the
     ``{"ok": true, ...}`` line.
 
 Each path's launch counts are set to 0 just before it runs and read just
@@ -53,6 +65,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and
@@ -67,6 +80,15 @@ FLASH_TOL = 3e-2   # max |kernel - plain| in bf16 outputs of magnitude ~1
 # output (a few bf16 ulps there), and never more than 3e-2.
 DECODE_TOL = 3e-2
 DECODE_REL_TOL = 0.05
+# return_state: m is a max of fp32 scores of magnitude ~5 and l a sum of
+# exps, both summed in another order than the plain version.
+STATE_M_TOL = 1e-2      # absolute
+STATE_L_REL_TOL = 1e-2  # relative
+# The batcher's first decode step against the single-stream engine on
+# llama-3-8b: two bf16 computation orders 32 layers deep, logits of std ~1
+# (the small-model check's bound for bf16 on the card against float32 on
+# the CPU).
+BATCH_LOGIT_TOL = 0.25
 
 
 def log(msg: str) -> None:
@@ -179,6 +201,7 @@ def check_flash(torch, rec: dict) -> None:
         ("window", 1, 128, 128, 8, 2, 128, 0, 48, None),
         ("softcap", 2, 64, 64, 8, 4, 128, 0, None, 30.0),
         ("ragged T, dh 64", 1, 48, 48, 8, 2, 64, 0, None, None),
+        ("B=4 admission wave", 4, 512, 512, 32, 8, 128, 0, None, None),
     ]
     worst = 0.0
     for name, b, t, s, hq, hkv, dh, off, win, cap in cases:
@@ -457,6 +480,143 @@ def check_decode_int8(torch, rec8: dict, rec_w8: dict) -> None:
     release_memory(torch)
 
 
+STATE_VARIANTS = (
+    # (key, record name, w8a8)
+    ("bf16", "decode_attention_state", False),
+    ("int8", "decode_attention_int8_state", False),
+    ("w8a8", "decode_attention_int8_w8a8_state", True),
+)
+
+
+def check_decode_state(torch, recs: dict) -> None:
+    """The ``return_state`` form of the three decode variants against their
+    plain versions: q [4, 1, 32, 128] over llama-3-8b's [32, 4, 8192, 8, 128]
+    cache with ragged row starts (one row holding one slot) at widths 8,192
+    and 256, and a window + softcap case; garbage past each pos. Then each
+    timed at width 256 against its bound; the bf16 one beside the aten
+    memory-efficient SDPA op, which also returns the log-sum-exp."""
+    from llm_consensus_tpu_torch.ops.kernels import decode_attention as da
+    from llm_consensus_tpu_torch.ops.quant import quantize_kv
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    L, B, S, hq, hkv, dh, layer = 32, 4, 8192, 32, 8, 128, 7
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+
+    def i32(*x):
+        return torch.tensor(x, dtype=torch.int32, device="cuda")
+
+    k, v = rnd(L, B, S, hkv, dh), rnd(L, B, S, hkv, dh)
+
+    def int8_of(x):
+        q8 = torch.empty(x.shape, dtype=torch.int8, device="cuda")
+        sc = torch.empty((L, B, hkv, S), dtype=torch.bfloat16, device="cuda")
+        for i in range(L):
+            codes, scale = quantize_kv(x[i])
+            q8[i].copy_(codes)
+            sc[i].copy_(scale[..., 0].transpose(1, 2))
+        return {"q8": q8, "s": sc}
+
+    k8, v8 = int8_of(k), int8_of(v)
+    q = rnd(B, 1, hq, dh)
+    caches = {"bf16": (k, v), "int8": (k8, v8), "w8a8": (k8, v8)}
+    worst = {key: [0.0, 0.0, 0.0] for key, _, _ in STATE_VARIANTS}
+    cases = [
+        # (pos, width, row_start, window, softcap), pos descending: a later
+        # case never reads a slot an earlier one poisoned.
+        (8191, 8192, (0, 1000, 8191, 17), None, None),
+        (255, 256, (0, 37, 255, 5), None, None),
+        (200, 256, (0, 37, 150, 5), 64, 30.0),
+    ]
+    for pos, w, rs, window, cap in cases:
+        k[layer, :, pos + 1:] = float("nan")
+        v[layer, :, pos + 1:] = float("nan")
+        for side in (k8, v8):
+            side["q8"][layer, :, pos + 1:] = 127
+            side["s"][layer, :, :, pos + 1:] = float("nan")
+        for key, _name, w8a8 in STATE_VARIANTS:
+            kk, vv = caches[key]
+            kw = dict(kv_width=w, sliding_window=window, logit_softcap=cap, w8a8=w8a8,
+                      return_state=True)
+            got = da.decode_attention(q, kk, vv, i32(pos)[0], i32(layer)[0], i32(*rs), **kw)
+            torch.cuda.synchronize()
+            want = da.decode_attention_plain(q, kk, vv, pos, layer, i32(*rs), **kw)
+            err, tol = max_err(got[0], want[0]), decode_tol(want[0])
+            m_err = max_err(got[1], want[1])
+            l_err = ((got[2] - want[2]).abs() / want[2].abs().clamp_min(1e-30)).max().item()
+            finite = all(bool(torch.isfinite(x).all()) for x in got)
+            log(f"state  {key:4s} pos {pos} width {w} row_start {rs} window {window} softcap "
+                f"{cap}: out max_abs_err {err:.3e} (tol {tol:.3e}), m {m_err:.3e} (tol "
+                f"{STATE_M_TOL}), l relative {l_err:.3e} (tol {STATE_L_REL_TOL})")
+            if (not finite or err > tol or m_err > STATE_M_TOL or l_err > STATE_L_REL_TOL
+                    or got[1].shape != (B, hq)):
+                raise AssertionError(f"decode state {key}: out {err}, m {m_err}, l {l_err}, "
+                                     f"finite {finite}")
+            for j, e in enumerate((err, m_err, l_err)):
+                worst[key][j] = max(worst[key][j], e)
+
+    # Timing at width 256 (the poisoned tail lies past every valid slot).
+    pos, w, rs = 255, 256, (0, 37, 255, 5)
+    pos_t, layer_t, rs_t = i32(pos)[0], i32(layer)[0], i32(*rs)
+    # The full window on an unpoisoned layer, for the record.
+    last_t, layer3_t, rs0_t = i32(S - 1)[0], i32(3)[0], i32(0, 0, 0, 0)
+    n_valid = sum(pos - r + 1 for r in rs)
+    io = 2.0 * 2 * B * hq * dh + 2 * 4 * B * hq  # q in, out, and fp32 m and l out
+    qt = q.transpose(1, 2)  # [B, Hq, 1, dh]
+    kt = k[layer, :, :w].transpose(1, 2).repeat_interleave(hq // hkv, dim=1).contiguous()
+    vt = v[layer, :, :w].transpose(1, 2).repeat_interleave(hq // hkv, dim=1).contiguous()
+    cols = torch.arange(w, device="cuda")
+    valid = (cols[None, :] <= pos) & (cols[None, :] >= rs_t[:, None].long())
+    bias = torch.zeros((B, hq, 1, w), dtype=torch.bfloat16, device="cuda")
+    bias.masked_fill_(~valid[:, None, None, :], float("-inf"))
+    for key, name, w8a8 in STATE_VARIANTS:
+        kk, vv = caches[key]
+
+        def call(kk=kk, vv=vv, w8a8=w8a8):
+            return da.decode_attention(q, kk, vv, pos_t, layer_t, rs_t, kv_width=w, w8a8=w8a8,
+                                       return_state=True)
+
+        ms, how = device_time_ms(call, 200)
+        eager_ms = eager_time_ms(call, 200)
+        plain_ms, _ = device_time_ms(
+            lambda kk=kk, vv=vv, w8a8=w8a8: da.decode_attention_plain(
+                q, kk, vv, pos_t, layer_t, rs_t, kv_width=w, w8a8=w8a8, return_state=True), 10)
+        long_ms, _ = device_time_ms(
+            lambda kk=kk, vv=vv, w8a8=w8a8: da.decode_attention(
+                q, kk, vv, last_t, layer3_t, rs0_t, kv_width=S, w8a8=w8a8, return_state=True),
+            50)
+        library_ms = None
+        if key == "bf16":
+            nbytes = 2.0 * 2 * n_valid * hkv * dh + io
+            bms, by = bound_ms(nbytes, 4.0 * hq * dh * n_valid)
+            efficient = torch.ops.aten._scaled_dot_product_efficient_attention
+            library_ms, _ = device_time_ms(lambda: efficient(qt, kt, vt, bias, True), 200)
+        else:
+            nbytes = 2.0 * n_valid * hkv * dh + 2.0 * 2 * n_valid * hkv + io
+            if w8a8:
+                bms, by = bound_ms(nbytes, 2.0 * hq * dh * n_valid, 2.0 * hq * dh * n_valid)
+            else:
+                bms, by = bound_ms(nbytes, 4.0 * hq * dh * n_valid)
+        rec = recs[key]
+        rec.update(
+            name=name, route="cuda", source="llm_consensus_tpu_torch/csrc/decode_attention.cu",
+            replaces="llm_consensus_tpu/ops/pallas/decode_attention.py:410",
+            shapes=(f"q[{B},1,{hq},{dh}] {'int8 ' if key != 'bf16' else ''}cache"
+                    f"[{L},{B},{S},{hkv},{dh}], pos {pos}, kv_width {w}, row_start {list(rs)}, "
+                    f"return_state"),
+            max_abs_err=worst[key][0], m_max_abs_err=worst[key][1],
+            l_max_rel_err=worst[key][2], ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            library_ms=library_ms,
+        )
+        log(f"state  {name} timing {rec['shapes']}: kernel {ms:.4f} ms ({how}; eager with "
+            f"launch {eager_ms:.4f} ms), plain {plain_ms:.4f} ms, library "
+            f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, bound {bms:.5f} ms "
+            f"({by}); at pos {S - 1}, width {S}, B {B}: kernel {long_ms:.4f} ms")
+    del k, v, k8, v8, kt, vt, caches
+    release_memory(torch)
+
+
 def check_int8_matmul(torch) -> None:
     """The int8 x int8 product on the card against the CPU's exact int32
     one, and the device time of the plain int8-weight matmul (convert the
@@ -598,24 +758,26 @@ def check_cache(engine, cache: dict) -> None:
             raise AssertionError(f"{engine.cfg.name}: cache codes are {leaf['q8'].dtype}")
 
 
-def run_slice(torch, counters: dict, env: dict, label: str) -> dict:
-    """One consensus run through the port's CLI with ``env`` set for the
-    call (and restored after); ``counters`` (name → LaunchCounter) are set
-    to 0 just before and read just after. Returns the launches, the built
-    engines, the wall and the peak device memory."""
+def run_slice(torch, counters: dict, env: dict, label: str,
+              models: str = "gpu:llama-3-8b,gpu:consensus-1b") -> dict:
+    """One consensus run through the port's CLI (panel ``models``, judge
+    llama-3-8b) with ``env`` set for the call (and restored after);
+    ``counters`` (name → LaunchCounter) are set to 0 just before and read
+    just after. Returns the launches, the provider and its built engines,
+    the wall, the peak device memory and the responses."""
     from llm_consensus_tpu_torch.cli.main import main as cli_main
     from llm_consensus_tpu_torch.engine.tokenizer import ByteTokenizer
     from llm_consensus_tpu_torch.providers.gpu import GPUProvider
-    from llm_consensus_tpu_torch.utils.knobs import quant_modes
+    from llm_consensus_tpu_torch.utils.knobs import batch_settings, quant_modes
 
     saved = {name: os.environ.get(name) for name in env}
     os.environ.update(env)
     try:
-        modes = quant_modes()
+        modes = {**batch_settings(), **quant_modes()}
         out, err = io.StringIO(), io.StringIO()
         with tempfile.TemporaryDirectory(prefix="chip-smoke-") as data_dir:
             argv = [
-                "--models", "gpu:llama-3-8b,gpu:consensus-1b", "--judge", "gpu:llama-3-8b",
+                "--models", models, "--judge", "gpu:llama-3-8b",
                 "--max-tokens", "64", "--json", "--data-dir", data_dir, PROMPT,
             ]
             torch.cuda.synchronize()
@@ -638,16 +800,23 @@ def run_slice(torch, counters: dict, env: dict, label: str) -> dict:
     if rc != 0:
         raise AssertionError(f"{label}: CLI exit {rc}: {err.getvalue()}")
     doc = json.loads(out.getvalue())
-    if len(doc["responses"]) != 2 or doc.get("failed_models") or not doc["consensus"]:
+    n_models = len(models.split(","))
+    if (len(doc["responses"]) != n_models or doc.get("failed_models")
+            or not doc["consensus"]):
         raise AssertionError(f"{label}: bad result: {json.dumps(doc)[:2000]}")
     log(f"{label}: CLI exit 0 in {wall:.2f} s wall, peak device memory {peak_gb:.2f} GB, "
         f"launches {launches}, consensus {len(doc['consensus'])} chars")
     for resp in doc["responses"]:
+        # Per-response rate over the whole request (prefill, queueing and
+        # decode): the one rate both the batched and the single-stream path
+        # report.
+        e2e = resp["tokens"] / (resp["latency_ms"] / 1e3)
         log(f"  {resp['model']}: {resp.get('tokens')} tokens, latency "
-            f"{resp['latency_ms']:.1f} ms, decode {resp.get('tokens_per_sec')} tok/s, "
-            f"mfu {resp.get('mfu')}, mbu {resp.get('mbu')}")
+            f"{resp['latency_ms']:.1f} ms ({e2e:.2f} tokens/s over the request), decode "
+            f"{resp.get('tokens_per_sec')} tok/s, mfu {resp.get('mfu')}, mbu {resp.get('mbu')}")
 
-    engines = GPUProvider.shared(**modes).engines()
+    provider = GPUProvider.shared(**modes)
+    engines = provider.engines()
     ids = ByteTokenizer().encode(PROMPT)
     for preset, engine in sorted(engines.items()):
         check_devices(engine)
@@ -667,7 +836,7 @@ def run_slice(torch, counters: dict, env: dict, label: str) -> dict:
         log(f"  {preset}: prefill of {len(ids)} tokens (bucket 512, flash kernel) "
             f"median {times[2]:.2f} ms (min {times[0]:.2f}, max {times[-1]:.2f}, 5 runs)")
     return {"launches": launches, "engines": engines, "wall_s": wall, "peak_gb": peak_gb,
-            "modes": modes}
+            "modes": modes, "provider": provider, "responses": doc["responses"]}
 
 
 def release_engines(torch, modes: dict) -> None:
@@ -700,23 +869,29 @@ def run_chunked(torch, fa, da, engine, seed: int) -> None:
         f"decode launches {da.LAUNCHES.count}, flash launches {fa.LAUNCHES.count}")
 
 
-def profile_decode(torch, engine, label: str = "profile") -> None:
-    """Where a single stream's time goes: torch.profiler over one
-    llama-3-8b generate (350-token prompt, 48 tokens); device busy share of
-    the wall, the kernels with the most device time, and the sums of the
-    matmul (GEMM/GEMV) kernels and of the copy kernels (which carry the
-    int8 → bf16 weight conversion of the plain int8-weight matmul)."""
+def profile_decode(torch, engine, label: str = "profile", run=None) -> None:
+    """Where the time goes: torch.profiler over ``run()`` (by default one
+    llama-3-8b generate, 350-token prompt, 48 tokens), run once before to
+    warm; device busy share of the wall, the kernels with the most device
+    time, and the sums of the matmul (GEMM/GEMV) kernels and of the copy
+    kernels (which carry the int8 → bf16 weight conversion of the plain
+    int8-weight matmul)."""
     from torch.profiler import ProfilerActivity, profile
 
     from llm_consensus_tpu_torch.engine import SamplingParams
 
-    ids = engine.tokenizer.encode(PROMPT)
-    sp = SamplingParams(max_new_tokens=48, ignore_eos=True)
-    engine.generate_ids(ids, sp)  # warm
+    if run is None:
+        ids = engine.tokenizer.encode(PROMPT)
+        sp = SamplingParams(max_new_tokens=48, ignore_eos=True)
+
+        def run():
+            engine.generate_ids(ids, sp)
+
+    run()  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        engine.generate_ids(ids, sp)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
 
@@ -732,7 +907,7 @@ def profile_decode(torch, engine, label: str = "profile") -> None:
     if busy_ms == 0:
         log(f"{label}: torch.profiler captured no device time (not measured)")
         return
-    log(f"{label} (under torch.profiler): generate wall {wall_ms:.1f} ms, device busy "
+    log(f"{label} (under torch.profiler): wall {wall_ms:.1f} ms, device busy "
         f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% of wall)")
     for e in sorted(events, key=dev_us, reverse=True)[:12]:
         log(f"  {dev_us(e) / 1e3:9.2f} ms  {e.count:6d} calls  {e.key[:90]}")
@@ -742,6 +917,10 @@ def profile_decode(torch, engine, label: str = "profile") -> None:
                      "decode_partial_q8_kernel", "decode_merge_kernel")
     }
     log(f"  port kernels: {', '.join(f'{k} {v:.2f} ms' for k, v in ours.items())}")
+    host = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
+    log("  host (self CPU time): " + ", ".join(
+        f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.1f} ms/{e.count}" for e in host))
     matmul = sum(dev_us(e) for e in events
                  if any(t in e.key.lower() for t in ("gemm", "nvjet", "gemv", "cutlass")))
     copies = sum(dev_us(e) for e in events if "copy" in e.key.lower())
@@ -828,6 +1007,241 @@ def run_engine_phase(torch, fa, da, label: str, counter, seed: int, **modes) -> 
     return launches
 
 
+# -- phase 8: the batched slice -------------------------------------------------
+
+SUFFIXES = [f" Answer as panelist {i} of four, in one short paragraph with numbers."
+            for i in range(4)]
+UNRELATED = "Name three prime numbers."
+
+
+def run_batched_slice(torch, fa, da, single_responses: list) -> dict:
+    """The CLI run with 4 x llama-3-8b and a llama-3-8b judge under
+    LLMC_MAX_BATCH=4: every answer comes from the one batcher, the panel's
+    shared prompt is established as its prefix, and the panel decodes
+    through the state kernel."""
+    sl = run_slice(torch, {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES,
+                           "decode_attention_state": da.LAUNCHES_STATE},
+                   {"LLMC_MAX_BATCH": "4"}, "batched slice",
+                   models=",".join(["gpu:llama-3-8b"] * 4))
+    stats = sl["provider"].batcher_stats()
+    snap = stats.get("llama-3-8b", {})
+    launches = sl["launches"]
+    rate = snap["decode_tokens"] / snap["decode_s"] if snap.get("decode_s") else float("nan")
+    log(f"batched slice: batcher {snap}; pool decode {rate:.1f} tokens/s "
+        f"({snap.get('decode_tokens')} tokens in {snap.get('decode_s', 0):.3f} s of pure decode "
+        f"intervals)")
+    single = [r for r in single_responses if r["model"] == "gpu:llama-3-8b"]
+    for label, resps in (("batched", sl["responses"]), ("single-stream", single)):
+        rates = [r["tokens"] / (r["latency_ms"] / 1e3) for r in resps]
+        log(f"  {label} llama-3-8b panel answers: {len(rates)}, tokens/s over each request "
+            f"{[round(x, 2) for x in rates]}, decode tokens/s "
+            f"{[r.get('tokens_per_sec') for r in resps]}")
+    # Every panel answer and the judge's through the batcher; the panel
+    # shared its prompt and decoded through the state kernel, the judge
+    # (admitted alone, no prefix) through the bf16 kernel without state.
+    if (list(stats) != ["llama-3-8b"] or snap["admitted"] != 5
+            or snap["establish_tokens"] < 192 or launches["decode_attention_state"] <= 0
+            or launches["decode_attention"] <= launches["decode_attention_state"]
+            or launches["flash_attention"] <= 0):
+        raise AssertionError(f"batched slice: stats {stats}, launches {launches}")
+    sl["pool_rate"] = rate
+    return sl
+
+
+def check_batch_logits(torch, engine, prompts_ids: list, p: int) -> None:
+    """The batcher's admission and first decode step against the
+    single-stream engine on the same prompts: the suffix prefill's last
+    logits (prefix merge, the plain op) and one decode step over the spliced
+    rows (the state kernel at B = 4, merged with the shared prefix), both
+    within BATCH_LOGIT_TOL of the single-stream logits."""
+    from llm_consensus_tpu_torch.engine.batcher import extract_prefix, splice_rows
+    from llm_consensus_tpu_torch.models.transformer import init_kv_cache
+
+    dev = engine.device
+    k = len(prompts_ids)
+    with torch.inference_mode():
+        first, step, toks = [], [], []
+        for ids in prompts_ids:
+            lg, cache = engine._prefill_ids(ids)
+            tok = lg.argmax(dim=-1)
+            n = len(ids)
+            lg1, _ = engine._forward(tok[:, None], cache,
+                                     torch.full((), n, dtype=torch.int32, device=dev),
+                                     attn_impl="flash", kv_width=engine._decode_width(n + 1))
+            first.append(lg[0])
+            step.append(lg1[0, -1])
+            toks.append(tok)
+        _, pcache = engine._prefill_ids(prompts_ids[0][:p])
+        prefix = extract_prefix(pcache, -(-p // 128) * 128)
+        sfx = [ids[p:] for ids in prompts_ids]
+        lg_b, scache, width = engine._prefill_rows_suffix(sfx, prefix, p)
+        pos = max(len(x) for x in sfx)
+        pool = init_kv_cache(engine.cfg, k, 512, device=dev, dtype=engine.dtype)
+        dsts = [pos - len(x) for x in sfx]
+        splice_rows(pool, scache, range(k), range(k), dsts, width)
+        lg1_b, _ = engine._forward(
+            torch.cat(toks)[:, None], pool, torch.full((), pos, dtype=torch.int32, device=dev),
+            attn_impl="flash", kv_width=engine._decode_width(pos + 1),
+            row_start=engine.to_device(dsts, torch.int32), prefix=prefix, prefix_len=p,
+            prefix_rows=torch.ones(k, dtype=torch.bool, device=dev))
+        first_s, step_s = torch.stack(first), torch.stack(step)
+        err0 = max_err(lg_b, first_s)
+        err1 = max_err(lg1_b[:, -1], step_s)
+        same = (lg1_b[:, -1].argmax(-1) == step_s.argmax(-1)).sum().item()
+    log(f"batch logits: {k} rows sharing a {p}-token prefix, suffix prefill last logits max "
+        f"|diff| {err0:.3e}, first decode step (state kernel + merge) {err1:.3e} (tol "
+        f"{BATCH_LOGIT_TOL}; logit std {step_s.float().std().item():.3f}); greedy tokens of "
+        f"that step equal in {same}/{k} rows")
+    if not (err0 <= BATCH_LOGIT_TOL and err1 <= BATCH_LOGIT_TOL):
+        raise AssertionError(f"batched logits: prefill {err0}, decode {err1}")
+
+    # Where a batched decode step's time goes: the engine's decode chunk
+    # alone (no batcher), wall per step over 32 steps after a warm chunk.
+    rows = {"row_start": engine.to_device(dsts, torch.int32)}
+    shared = {**rows, "prefix": prefix, "prefix_len": p,
+              "prefix_rows": torch.ones(k, dtype=torch.bool, device=dev)}
+
+    def step_ms(token, kv, pos0, **kw):
+        with torch.inference_mode():
+            width = engine._decode_width(pos0 + 48)
+            start = torch.full((), pos0, dtype=torch.int32, device=dev)
+            token, _, start = engine._decode_chunk(token, start, kv, 16, None, (0.0, None, None),
+                                                   width, **kw)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            engine._decode_chunk(token, start, kv, 32, None, (0.0, None, None), width, **kw)
+            torch.cuda.synchronize()
+            return (time.monotonic() - t0) * 1e3 / 32
+
+    on_thread = {}
+    worker = threading.Thread(target=lambda: on_thread.update(
+        ms=step_ms(torch.cat(toks), pool, pos, **shared)))
+    times = {
+        "B=1, one stream": step_ms(toks[-1], cache, len(prompts_ids[-1])),
+        "B=4, row starts": step_ms(torch.cat(toks), pool, pos, **rows),
+        "B=4, row starts + prefix": step_ms(torch.cat(toks), pool, pos, **shared),
+    }
+    worker.start()
+    worker.join()
+    times["B=4, row starts + prefix, second thread"] = on_thread["ms"]
+    log("decode step wall (host launches + device, ms per step): "
+        + ", ".join(f"{name} {ms:.2f}" for name, ms in times.items()))
+
+
+def token_agreement(got: list, ref: list) -> int:
+    """Leading tokens two greedy streams share."""
+    n = 0
+    for a, b in zip(got, ref):
+        if a != b:
+            break
+        n += 1
+    return n
+
+
+def run_batched_engine(torch, fa, da, engine, state_recs: dict) -> None:
+    """The batcher on llama-3-8b, driven directly."""
+    from llm_consensus_tpu_torch.engine import Engine, SamplingParams
+    from llm_consensus_tpu_torch.engine.batcher import ContinuousBatcher
+
+    tok = engine.tokenizer
+    prompts = [PROMPT + sfx for sfx in SUFFIXES]
+    ids = [tok.encode(p) for p in prompts]
+    p = len(tok.encode(PROMPT))
+    check_batch_logits(torch, engine, ids, p)
+    s = SamplingParams(max_new_tokens=64, ignore_eos=True)
+
+    def counted(b, submit, counters):
+        for c in counters:
+            c.reset()
+        t0 = time.monotonic()
+        results = submit(b)
+        torch.cuda.synchronize()
+        return results, time.monotonic() - t0, [c.count for c in counters]
+
+    # A shared-prefix wave, with an unrelated prompt admitted beside it.
+    def shared_wave(b):
+        futs = [b.submit(pr, s) for pr in prompts]
+        while not any(st is not None and st.out_ids for st in list(b._slots)):
+            time.sleep(0.002)
+        futs.append(b.submit(UNRELATED, s))
+        return [f.result(timeout=600) for f in futs]
+
+    b = ContinuousBatcher(engine, max_batch=5)
+    try:
+        results, wall, (state_n, bf16_n, flash_n) = counted(
+            b, shared_wave, (da.LAUNCHES_STATE, da.LAUNCHES, fa.LAUNCHES))
+        snap = b.snapshot()
+    finally:
+        b.close()
+    agree = [token_agreement(r.token_ids, engine.generate(pr, s).token_ids)
+             for pr, r in zip(prompts + [UNRELATED], results)]
+    log(f"batched engine, shared prefix: {len(results)} streams x 64 tokens in {wall:.2f} s, "
+        f"stats {snap}, pool decode {snap['decode_tokens'] / snap['decode_s']:.1f} tokens/s; "
+        f"launches state {state_n}, bf16 decode {bf16_n} (state ones included), flash "
+        f"{flash_n}; leading tokens equal to the single-stream engine's {agree} (of 64)")
+    # Every decode step ran with the prefix: no bf16 launch without state.
+    if (state_n <= 0 or bf16_n != state_n or snap["establish_tokens"] < 192
+            or any(len(r.token_ids) != 64 for r in results)):
+        raise AssertionError(f"batched engine shared wave: {snap}, state {state_n}, "
+                             f"bf16 {bf16_n}")
+
+    # Where a shared-prefix wave's time goes (4 streams x 48 tokens).
+    s48 = SamplingParams(max_new_tokens=48, ignore_eos=True)
+    b = ContinuousBatcher(engine, max_batch=4)
+    try:
+        profile_decode(torch, engine, "profile batched shared prefix", run=lambda: [
+            f.result(timeout=600) for f in [b.submit(pr, s48) for pr in prompts]])
+    finally:
+        b.close()
+
+    # A wave of 4 unrelated prompts: full-prompt admission, flash at B = 4.
+    gen = torch.Generator().manual_seed(5)
+    unrelated = [[tok.bos_id] + torch.randint(32, 127, (n,), generator=gen).tolist()
+                 for n in (120, 200, 260, 333)]
+
+    def unrelated_wave(b):
+        futs = [b.submit_ids(x, s) for x in unrelated]
+        return [f.result(timeout=600) for f in futs]
+
+    b = ContinuousBatcher(engine, max_batch=4)
+    try:
+        results, wall, (state_n, plain_n, flash_n) = counted(
+            b, unrelated_wave, (da.LAUNCHES_STATE, da.LAUNCHES, fa.LAUNCHES))
+        snap = b.snapshot()
+    finally:
+        b.close()
+    agree = [token_agreement(r.token_ids, engine.generate_ids(x, s).token_ids)
+             for x, r in zip(unrelated, results)]
+    log(f"batched engine, 4 unrelated prompts: {wall:.2f} s, stats {snap}, launches flash "
+        f"{flash_n} (one wave at B = 4: {engine.cfg.n_layers}), plain decode {plain_n}, state "
+        f"{state_n}; leading tokens equal to single-stream {agree}")
+    if flash_n != engine.cfg.n_layers or plain_n <= 0 or state_n != 0 or snap["admitted"] != 4:
+        raise AssertionError(f"unrelated wave: flash {flash_n}, plain {plain_n}, state {state_n}")
+
+    # Short int8-KV and W8A8 shared-prefix runs on the same weights.
+    s16 = SamplingParams(max_new_tokens=16, ignore_eos=True)
+    for key, counter, modes in (("int8", da.LAUNCHES_INT8, {}),
+                                ("w8a8", da.LAUNCHES_W8A8, {"decode_w8a8": True})):
+        eng8 = Engine(engine.cfg, params=engine.params, kv_quant="int8", **modes)
+        b = ContinuousBatcher(eng8, max_batch=4)
+        try:
+            results, wall, (state_n, variant_n) = counted(
+                b, lambda b: [f.result(timeout=600) for f in
+                              [b.submit(pr, s16) for pr in prompts]],
+                (da.LAUNCHES_STATE, counter))
+            snap = b.snapshot()
+        finally:
+            b.close()
+        log(f"batched engine, int8 KV{' + W8A8 scores' if modes else ''}: {wall:.2f} s, "
+            f"prefix {snap['establish_tokens']}, state launches {state_n}, {key} launches "
+            f"{variant_n}")
+        if state_n <= 0 or variant_n < state_n or snap["establish_tokens"] < 192:
+            raise AssertionError(f"batched {key}: state {state_n}, {key} {variant_n}")
+        state_recs[key]["launches"] = state_n
+        del eng8
+    release_memory(torch)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase", choices=("all", "kernels"), default="all")
@@ -863,10 +1277,12 @@ def main(argv=None) -> int:
     decode_rec: dict = {}
     int8_rec: dict = {}
     w8a8_rec: dict = {}
-    records = [flash_rec, decode_rec, int8_rec, w8a8_rec]
+    state_recs: dict = {key: {} for key, _, _ in STATE_VARIANTS}
+    records = [flash_rec, decode_rec, int8_rec, w8a8_rec, *state_recs.values()]
     check_flash(torch, flash_rec)
     check_decode(torch, decode_rec)
     check_decode_int8(torch, int8_rec, w8a8_rec)
+    check_decode_state(torch, state_recs)
     check_int8_matmul(torch)
     if args.phase == "kernels":
         # Kernel checks only: the main path did not run, so no ok line.
@@ -883,8 +1299,16 @@ def main(argv=None) -> int:
         raise AssertionError(f"a kernel of the slice never launched: {sl['launches']}")
     run_chunked(torch, fa, da, sl["engines"]["llama-3-8b"], args.seed)
     profile_decode(torch, sl["engines"]["llama-3-8b"])
+    single_responses = sl["responses"]
     del sl
     release_engines(torch, {})
+
+    bsl = run_batched_slice(torch, fa, da, single_responses)
+    state_recs["bf16"]["launches"] = bsl["launches"]["decode_attention_state"]
+    run_batched_engine(torch, fa, da, bsl["engines"]["llama-3-8b"], state_recs)
+    modes = bsl["modes"]
+    del bsl
+    release_engines(torch, modes)
 
     qsl = run_slice(torch, {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES,
                             "decode_attention_int8": da.LAUNCHES_INT8},

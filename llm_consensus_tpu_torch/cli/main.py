@@ -19,11 +19,14 @@ Model names are ``gpu:<preset>``. ``main(argv, device=None)`` runs on the
 current CUDA card and raises when there is none; tests pass
 ``device="cpu"``. The JAX CLI's other flags are later work.
 
-Quantization is chosen as in the JAX package, through the environment only
-(``LLMC_QUANT``, ``LLMC_KV_QUANT``, ``LLMC_W8A8``, ``LLMC_DECODE_W8A8``,
-``LLMC_DECODE_QSTRUCT``, ``LLMC_INT4_IMPL``): the default provider factory
-reads them here (utils/knobs.py), the one place the port reads knobs, and
-an unknown mode fails at registry init, before any engine is built.
+Quantization and continuous batching are chosen as in the JAX package,
+through the environment only (``LLMC_QUANT``, ``LLMC_KV_QUANT``,
+``LLMC_W8A8``, ``LLMC_DECODE_W8A8``, ``LLMC_DECODE_QSTRUCT``,
+``LLMC_INT4_IMPL``; ``LLMC_MAX_BATCH`` or ``LLMC_BATCH_STREAMS``,
+``LLMC_POOL_PREFIX``, ``LLMC_POOL_PREFIX_MIN``, ``LLMC_PREFILL_BUDGET``):
+the default provider factory reads them here (utils/knobs.py), the one
+place the port reads knobs, and an unknown mode or a refused setting fails
+at registry init, before any engine is built.
 """
 
 from __future__ import annotations
@@ -73,10 +76,10 @@ class CLIError(Exception):
 
 def create_provider(model: str, device: DeviceLike = None) -> Provider:
     """Resolve a model name to its provider: ``gpu:<preset>`` → the shared
-    GPU provider of ``device`` and of the environment's quantization
-    modes."""
+    GPU provider of ``device`` and of the environment's quantization modes
+    and batching settings."""
     from llm_consensus_tpu_torch.providers.gpu import SCHEME, GPUProvider, parse_model_name
-    from llm_consensus_tpu_torch.utils.knobs import quant_modes
+    from llm_consensus_tpu_torch.utils.knobs import batch_settings, quant_modes
 
     if not model.startswith(SCHEME):
         raise CLIError(f"unknown model {model!r}; available models: ['{SCHEME}<model>']")
@@ -84,7 +87,7 @@ def create_provider(model: str, device: DeviceLike = None) -> Provider:
         parse_model_name(model)
     except ValueError as err:
         raise CLIError(str(err)) from None
-    return GPUProvider.shared(device, **quant_modes())
+    return GPUProvider.shared(device, **batch_settings(), **quant_modes())
 
 
 def init_registry(models: list[str], judge: Optional[str],

@@ -43,6 +43,16 @@
 // their V rows (bf16) or V scales (int8) are selected to zero, so NaN in
 // unwritten slots cannot reach the output; a row with nothing valid
 // outputs 0. The int8 chunk stages half the bytes of the bf16 one.
+//
+// return_state (every variant; the TPU kernel's return_state=True, for the
+// shared-prefix decode path's two-source merge): the merge kernel already
+// holds each (row, query head)'s global softmax state, so when m_out/l_out
+// are non-null it writes it beside the output, fp32 [B, Hq], in the same
+// launch: m = the max of the scaled, softcapped, masked scores; l = the sum
+// of exp(s - m) over valid slots, taken before the int8 V scale folds into
+// p (chunk_softmax sums first, then scales). A row with no valid slot
+// writes m = -1e30 and l = 0. The output is the bf16-rounded normalized
+// attention, as the TPU kernel's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -406,7 +416,7 @@ template <int DH>
 __global__ void __launch_bounds__(kThreads)
 decode_merge_kernel(const float* __restrict__ part_m, const float* __restrict__ part_l,
                     const float* __restrict__ part_acc, __nv_bfloat16* __restrict__ out,
-                    int n_split) {
+                    float* __restrict__ m_out, float* __restrict__ l_out, int n_split) {
   const int64_t bh = blockIdx.x;  // b * Hq + h
   const float* pm = part_m + bh * n_split;
   const float* pl = part_l + bh * n_split;
@@ -415,6 +425,10 @@ decode_merge_kernel(const float* __restrict__ part_m, const float* __restrict__ 
   float l = 0.f;
   for (int i = 0; i < n_split; ++i) l += pl[i] * expf(pm[i] - m);
   const float inv = (l == 0.f) ? 0.f : 1.f / l;
+  if (m_out != nullptr && threadIdx.x == 0) {
+    m_out[bh] = m;
+    l_out[bh] = l;
+  }
   for (int d = threadIdx.x; d < DH; d += kThreads) {
     float acc = 0.f;
     for (int i = 0; i < n_split; ++i) {
@@ -426,21 +440,22 @@ decode_merge_kernel(const float* __restrict__ part_m, const float* __restrict__ 
 }
 
 template <int DH>
-cudaError_t launch_merge(void* part_m, void* part_l, void* part_acc, void* out, int B,
-                         int Hq, int n_split, cudaStream_t stream) {
+cudaError_t launch_merge(void* part_m, void* part_l, void* part_acc, void* out, void* m_out,
+                         void* l_out, int B, int Hq, int n_split, cudaStream_t stream) {
   cudaError_t err = cudaGetLastError();  // the partial kernel's launch
   if (err != cudaSuccess) return err;
   decode_merge_kernel<DH><<<B * Hq, kThreads, 0, stream>>>(
       static_cast<const float*>(part_m), static_cast<const float*>(part_l),
-      static_cast<const float*>(part_acc), static_cast<__nv_bfloat16*>(out), n_split);
+      static_cast<const float*>(part_acc), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(m_out), static_cast<float*>(l_out), n_split);
   return cudaGetLastError();
 }
 
 template <int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* pos,
                    const void* layer, const void* row_start, void* part_m, void* part_l,
-                   void* part_acc, void* out, int B, int S, int Hq, int Hkv, int kv_width,
-                   int n_split, int window, float softcap, float scale,
+                   void* part_acc, void* out, void* m_out, void* l_out, int B, int S, int Hq,
+                   int Hkv, int kv_width, int n_split, int window, float softcap, float scale,
                    cudaStream_t stream) {
   dim3 grid(n_split, Hkv, B);
   decode_partial_kernel<DH><<<grid, kThreads, 0, stream>>>(
@@ -449,15 +464,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* pos,
       static_cast<const int*>(layer), static_cast<const int*>(row_start),
       static_cast<float*>(part_m), static_cast<float*>(part_l), static_cast<float*>(part_acc),
       B, S, Hq, Hkv, kv_width, n_split, window, softcap, scale);
-  return launch_merge<DH>(part_m, part_l, part_acc, out, B, Hq, n_split, stream);
+  return launch_merge<DH>(part_m, part_l, part_acc, out, m_out, l_out, B, Hq, n_split,
+                         stream);
 }
 
 template <int DH, bool W8A8>
 cudaError_t launch_q8(const void* q, const void* k, const void* v, const void* ks,
                       const void* vs, const void* pos, const void* layer,
                       const void* row_start, void* part_m, void* part_l, void* part_acc,
-                      void* out, int B, int S, int Hq, int Hkv, int kv_width, int n_split,
-                      int window, float softcap, float scale, cudaStream_t stream) {
+                      void* out, void* m_out, void* l_out, int B, int S, int Hq, int Hkv,
+                      int kv_width, int n_split, int window, float softcap, float scale,
+                      cudaStream_t stream) {
   dim3 grid(n_split, Hkv, B);
   decode_partial_q8_kernel<DH, W8A8><<<grid, kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k),
@@ -466,7 +483,8 @@ cudaError_t launch_q8(const void* q, const void* k, const void* v, const void* k
       static_cast<const int*>(layer), static_cast<const int*>(row_start),
       static_cast<float*>(part_m), static_cast<float*>(part_l), static_cast<float*>(part_acc),
       B, S, Hq, Hkv, kv_width, n_split, window, softcap, scale);
-  return launch_merge<DH>(part_m, part_l, part_acc, out, B, Hq, n_split, stream);
+  return launch_merge<DH>(part_m, part_l, part_acc, out, m_out, l_out, B, Hq, n_split,
+                         stream);
 }
 
 bool bad_shape(int Hq, int Hkv, int kv_width, int n_split) {
@@ -476,24 +494,24 @@ bool bad_shape(int Hq, int Hkv, int kv_width, int n_split) {
 template <bool W8A8>
 int dispatch_q8(const void* q, const void* k, const void* v, const void* ks, const void* vs,
                 const void* pos, const void* layer, const void* row_start, void* part_m,
-                void* part_l, void* part_acc, void* out, int B, int S, int Hq, int Hkv, int dh,
-                int kv_width, int n_split, int window, float softcap, float scale,
-                void* stream) {
+                void* part_l, void* part_acc, void* out, void* m_out, void* l_out, int B, int S,
+                int Hq, int Hkv, int dh, int kv_width, int n_split, int window, float softcap,
+                float scale, void* stream) {
   if (bad_shape(Hq, Hkv, kv_width, n_split)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dh) {
     case 32:
       return launch_q8<32, W8A8>(q, k, v, ks, vs, pos, layer, row_start, part_m, part_l,
-                                 part_acc, out, B, S, Hq, Hkv, kv_width, n_split, window,
-                                 softcap, scale, st);
+                                 part_acc, out, m_out, l_out, B, S, Hq, Hkv, kv_width,
+                                 n_split, window, softcap, scale, st);
     case 64:
       return launch_q8<64, W8A8>(q, k, v, ks, vs, pos, layer, row_start, part_m, part_l,
-                                 part_acc, out, B, S, Hq, Hkv, kv_width, n_split, window,
-                                 softcap, scale, st);
+                                 part_acc, out, m_out, l_out, B, S, Hq, Hkv, kv_width,
+                                 n_split, window, softcap, scale, st);
     case 128:
       return launch_q8<128, W8A8>(q, k, v, ks, vs, pos, layer, row_start, part_m, part_l,
-                                  part_acc, out, B, S, Hq, Hkv, kv_width, n_split, window,
-                                  softcap, scale, st);
+                                  part_acc, out, m_out, l_out, B, S, Hq, Hkv, kv_width,
+                                  n_split, window, softcap, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -507,25 +525,27 @@ extern "C" {
 // contiguous. pos and layer are int32 device scalars, row_start an int32
 // device vector [B]. part_m / part_l are fp32 scratch [B, Hq, n_split] and
 // part_acc fp32 scratch [B, Hq, n_split, dh], n_split = ceil(kv_width /
-// 64). window <= 0 disables the sliding window, softcap <= 0 the softcap.
+// 64). m_out / l_out are fp32 [B, Hq] (the softmax state), or both NULL.
+// window <= 0 disables the sliding window, softcap <= 0 the softcap.
 // Returns the cudaError_t of the launches (0 on success).
 int llmc_decode_attention_bf16(const void* q, const void* k, const void* v, const void* pos,
                                const void* layer, const void* row_start, void* part_m,
-                               void* part_l, void* part_acc, void* out, int B, int S, int Hq,
-                               int Hkv, int dh, int kv_width, int n_split, int window,
-                               float softcap, float scale, void* stream) {
+                               void* part_l, void* part_acc, void* out, void* m_out,
+                               void* l_out, int B, int S, int Hq, int Hkv, int dh, int kv_width,
+                               int n_split, int window, float softcap, float scale,
+                               void* stream) {
   if (bad_shape(Hq, Hkv, kv_width, n_split)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dh) {
     case 32:
-      return launch<32>(q, k, v, pos, layer, row_start, part_m, part_l, part_acc, out, B, S,
-                        Hq, Hkv, kv_width, n_split, window, softcap, scale, st);
+      return launch<32>(q, k, v, pos, layer, row_start, part_m, part_l, part_acc, out, m_out,
+                        l_out, B, S, Hq, Hkv, kv_width, n_split, window, softcap, scale, st);
     case 64:
-      return launch<64>(q, k, v, pos, layer, row_start, part_m, part_l, part_acc, out, B, S,
-                        Hq, Hkv, kv_width, n_split, window, softcap, scale, st);
+      return launch<64>(q, k, v, pos, layer, row_start, part_m, part_l, part_acc, out, m_out,
+                        l_out, B, S, Hq, Hkv, kv_width, n_split, window, softcap, scale, st);
     case 128:
-      return launch<128>(q, k, v, pos, layer, row_start, part_m, part_l, part_acc, out, B, S,
-                         Hq, Hkv, kv_width, n_split, window, softcap, scale, st);
+      return launch<128>(q, k, v, pos, layer, row_start, part_m, part_l, part_acc, out, m_out,
+                         l_out, B, S, Hq, Hkv, kv_width, n_split, window, softcap, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -536,24 +556,25 @@ int llmc_decode_attention_bf16(const void* q, const void* k, const void* v, cons
 int llmc_decode_attention_int8(const void* q, const void* k, const void* v, const void* ks,
                                const void* vs, const void* pos, const void* layer,
                                const void* row_start, void* part_m, void* part_l,
-                               void* part_acc, void* out, int B, int S, int Hq, int Hkv, int dh,
-                               int kv_width, int n_split, int window, float softcap,
-                               float scale, void* stream) {
+                               void* part_acc, void* out, void* m_out, void* l_out, int B, int S,
+                               int Hq, int Hkv, int dh, int kv_width, int n_split, int window,
+                               float softcap, float scale, void* stream) {
   return dispatch_q8<false>(q, k, v, ks, vs, pos, layer, row_start, part_m, part_l, part_acc,
-                            out, B, S, Hq, Hkv, dh, kv_width, n_split, window, softcap, scale,
-                            stream);
+                            out, m_out, l_out, B, S, Hq, Hkv, dh, kv_width, n_split, window,
+                            softcap, scale, stream);
 }
 
 // The int8 cache with int8 x int8 scores (q quantized per head in-kernel).
 int llmc_decode_attention_int8_w8a8(const void* q, const void* k, const void* v,
                                     const void* ks, const void* vs, const void* pos,
                                     const void* layer, const void* row_start, void* part_m,
-                                    void* part_l, void* part_acc, void* out, int B, int S,
-                                    int Hq, int Hkv, int dh, int kv_width, int n_split,
-                                    int window, float softcap, float scale, void* stream) {
+                                    void* part_l, void* part_acc, void* out, void* m_out,
+                                    void* l_out, int B, int S, int Hq, int Hkv, int dh,
+                                    int kv_width, int n_split, int window, float softcap,
+                                    float scale, void* stream) {
   return dispatch_q8<true>(q, k, v, ks, vs, pos, layer, row_start, part_m, part_l, part_acc,
-                           out, B, S, Hq, Hkv, dh, kv_width, n_split, window, softcap, scale,
-                           stream);
+                           out, m_out, l_out, B, S, Hq, Hkv, dh, kv_width, n_split, window,
+                           softcap, scale, stream);
 }
 
 }  // extern "C"

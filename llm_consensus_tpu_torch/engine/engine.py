@@ -25,8 +25,16 @@ as int8 codes with per-row scales, which the decode kernel reads directly;
 int8 x int8 decode scores (int8 cache, GQA group 2 to 4). The engine reads
 no environment: the CLI reads the JAX package's knobs for these modes.
 
-Prefix snapshot reuse, the KV pool, meshes, batched generation and the
-prefill sessions of the JAX engine are later work.
+For the continuous batcher (engine/batcher.py) the engine also prefills
+admission waves of k rows in one pass (:class:`AdmissionPrefill`: full
+prompts through the flash kernel at B = k, or in chunks; or suffixes
+against the pool's shared prefix) and decodes a chunk of steps over
+right-aligned rows (``row_start``) with an optional shared prefix
+(:meth:`Engine._decode_chunk`).
+
+Prefix snapshot reuse, the KV pool, meshes, ``generate_batch``, the
+interleaved (budgeted) admission steps and the prefill sessions of the JAX
+engine are later work.
 """
 
 from __future__ import annotations
@@ -78,6 +86,9 @@ class GenerateResult:
 # Decode attention width: buckets of this granule over the causal frontier
 # (the JAX engine's LLMC_DECODE_KV_MIN default).
 DECODE_KV_MIN = 128
+# The JAX engine's LLMC_PREFIX_CACHE_MAX_MB default: the largest dense
+# shared-prefix copy the batcher may hold.
+PREFIX_MAX_BYTES = 2048e6
 
 
 def _bucket(n: int, cap: int) -> int:
@@ -100,10 +111,14 @@ class _Fetch:
             self.host = toks
             self.event = None
 
-    def ids(self) -> list[int]:
+    def values(self) -> list:
+        """The host copy as (nested) Python lists, once the copy is done."""
         if self.event is not None:
             self.event.synchronize()
-        return [int(t) for t in self.host.tolist()]
+        return self.host.tolist()
+
+    def ids(self) -> list[int]:
+        return [int(t) for t in self.values()]
 
 
 class Engine:
@@ -125,6 +140,8 @@ class Engine:
     ("auto" | "nibble", checked like the modes). Random-init weights are
     quantized leaf by leaf as they are drawn; given ``params`` are
     quantized when ``quant`` is set (already quantized leaves pass through).
+    ``prefix_max_bytes`` bounds the dense shared-prefix KV a continuous
+    batcher over this engine may establish.
     """
 
     def __init__(
@@ -143,8 +160,10 @@ class Engine:
         w8a8: bool = False,
         decode_w8a8: bool = False,
         int4_impl: str = "auto",
+        prefix_max_bytes: float = PREFIX_MAX_BYTES,
     ):
         self.cfg = cfg
+        self.prefix_max_bytes = prefix_max_bytes
         self.quant = resolve_mode(quant, "quant", WEIGHT_MODES)
         self.kv_quant = resolve_mode(kv_quant, "kv_quant", KV_MODES)
         self.w8a8 = bool(w8a8) and self.quant == "int8"
@@ -177,20 +196,27 @@ class Engine:
 
     # -- helpers ---------------------------------------------------------------
 
-    def _ids_tensor(self, ids: list[int]) -> torch.Tensor:
-        """[1, n] int64 token ids on the device (pinned, asynchronous copy
-        on a card: no host sync)."""
-        t = torch.tensor(ids, dtype=torch.long)[None, :]
+    def to_device(self, values, dtype: torch.dtype = torch.long) -> torch.Tensor:
+        """Host values (nested lists) as a tensor on the device (pinned,
+        asynchronous copy on a card: no host sync)."""
+        t = torch.tensor(values, dtype=dtype)
         if self.device.type == "cuda":
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
 
+    def _ids_tensor(self, ids: list[int]) -> torch.Tensor:
+        """[1, n] int64 token ids on the device."""
+        return self.to_device([ids])
+
     def _forward(self, tokens, cache, start_pos, *, attn_impl, kv_width=None,
-                 logits_index=None):
+                 logits_index=None, **rows):
+        """:func:`forward` with this engine's weights and modes; ``rows``
+        are the batcher's ``row_start``/``prefix``/``prefix_len``/
+        ``prefix_rows``."""
         return forward(
             self.params, self.cfg, tokens, cache, start_pos=start_pos,
             attn_impl=attn_impl, kv_width=kv_width, logits_index=logits_index,
-            layers=self._layers, mm=self._mm, decode_w8a8=self.decode_w8a8,
+            layers=self._layers, mm=self._mm, decode_w8a8=self.decode_w8a8, **rows,
         )
 
     def _decode_width(self, frontier: int) -> Optional[int]:
@@ -237,6 +263,56 @@ class Engine:
             tokens, cache, 0, attn_impl="flash", logits_index=last,
         )
         return logits[:, 0], cache
+
+    def _rows_bucket(self, n_max: int) -> int:
+        """Cache capacity :class:`AdmissionPrefill` allocates for a
+        full-prompt wave whose longest prompt is ``n_max``: the batcher's
+        admission width check must agree with it exactly (it splices rows
+        of this width)."""
+        bucket = _bucket(n_max, self.max_seq)
+        chunk_len = self.prefill_chunk
+        if (
+            chunk_len
+            and bucket > chunk_len
+            and -(-bucket // chunk_len) * chunk_len <= self.max_seq
+        ):
+            bucket = -(-bucket // chunk_len) * chunk_len
+        return bucket
+
+    def _prefill_rows(self, rows: list[list[int]]):
+        """Batched admission prefill: k left-aligned prompts in one pass,
+        padded to a shared bucket. Returns ``(last_logits [k, V], cache,
+        width)``; the cache's capacity is the bucket ``width`` (the batcher
+        copies rows out)."""
+        return AdmissionPrefill(self, rows).run()
+
+    def _prefill_rows_suffix(self, rows_sfx: list[list[int]], prefix_cache, plen: int):
+        """Batched suffix prefill against a shared-prefix KV: each suffix
+        token attends the prefix (the exact two-source merge) plus its own
+        causal window, at positions offset by ``plen``. Returns
+        ``(last_logits [k, V], cache [k, width], width)``, the cache holding
+        suffix KV only."""
+        return AdmissionPrefill(self, rows_sfx, prefix_cache, plen).run()
+
+    # -- decode ------------------------------------------------------------------
+
+    def _decode_chunk(self, token: torch.Tensor, pos: torch.Tensor, cache: dict,
+                      n_steps: int, gen: Optional[torch.Generator], sample_args: tuple,
+                      kv_width: Optional[int], **rows):
+        """``n_steps`` one-token steps over every row of ``cache``, sampling
+        on the device. ``token`` [B] is each row's last token and ``pos``
+        the int32 device scalar of the shared write slot; ``rows`` as
+        :meth:`_forward`. Returns ``(last token [B], tokens [n_steps, B],
+        pos + n_steps)``."""
+        toks = []
+        for _ in range(n_steps):
+            logits, cache = self._forward(
+                token[:, None], cache, pos, attn_impl="flash", kv_width=kv_width, **rows,
+            )
+            token = sample_token(logits[:, -1], gen, *sample_args)
+            toks.append(token)
+            pos = pos + 1
+        return token, torch.stack(toks), pos
 
     # -- token-level API -------------------------------------------------------
 
@@ -341,17 +417,11 @@ class Engine:
             inflight_first = 0  # the prefill-sampled token rides this chunk
             if pos < self.max_seq:
                 n_steps = chunk if pos + chunk <= self.max_seq else 1
-                kv_width = self._decode_width(pos + n_steps)
-                toks = []
-                for _ in range(n_steps):
-                    logits, cache = self._forward(
-                        token[:, None], cache, pos_dev, attn_impl="flash",
-                        kv_width=kv_width,
-                    )
-                    token = sample_token(logits[:, -1], gen, *sample_args)
-                    toks.append(token)
-                    pos_dev = pos_dev + 1
-                ids = torch.cat(toks)
+                token, toks, pos_dev = self._decode_chunk(
+                    token, pos_dev, cache, n_steps, gen, sample_args,
+                    self._decode_width(pos + n_steps),
+                )
+                ids = toks[:, 0]
                 if first is not None:
                     ids = torch.cat([first, ids])
                     first = None
@@ -431,3 +501,78 @@ class Engine:
         result.truncated_prompt = truncated
         return result
 
+
+
+class AdmissionPrefill:
+    """One admission wave of k rows prefilled in one pass (the JAX engine's
+    ``AdmissionPrefill`` driven to completion by ``step(None)``: the
+    classic batcher path; the budgeted interleaved steps are not ported).
+
+    Full-prompt rows are left-aligned and padded to ``_rows_bucket``: a
+    bucket within ``prefill_chunk`` runs one-shot from position 0 through
+    the flash kernel at B = k; a longer one runs in fixed chunks at a
+    running start through the plain attention op. With ``prefix_cache``
+    the rows are suffixes prefilled against the pool's shared prefix
+    (positions offset by ``prefix_len``, the plain op with the prefix
+    merge), padded to their own power-of-two bucket, and the cache holds
+    only suffix KV.
+    """
+
+    def __init__(self, engine: Engine, rows: list[list[int]], prefix_cache=None,
+                 prefix_len: int = 0):
+        self._eng = engine
+        self.rows = rows
+        self.k = len(rows)
+        self._prefix_cache = prefix_cache
+        self._plen = prefix_len
+        n_max = max(len(r) for r in rows)
+        self._chunk_len = engine.prefill_chunk
+        if prefix_cache is not None:
+            self.width = _bucket(n_max, engine.max_seq)
+        else:
+            self.width = engine._rows_bucket(n_max)
+        # A bucket capped at a max_seq that is no chunk multiple cannot
+        # chunk (flooring would drop the tail) and runs one-shot instead.
+        self._use_chunks = (
+            bool(self._chunk_len)
+            and self.width > self._chunk_len
+            and self.width % self._chunk_len == 0
+        )
+
+    def run(self):
+        """``(last_logits [k, V], cache [k, width], width)``."""
+        eng, width = self._eng, self.width
+        cache = init_kv_cache(
+            eng.cfg, batch=self.k, max_seq=width, device=eng.device, dtype=eng.dtype,
+            quant=eng.kv_quant,
+        )
+        tokens = eng.to_device([r + [0] * (width - len(r)) for r in self.rows])
+        prefix = {}
+        if self._prefix_cache is not None:
+            prefix = {"prefix": self._prefix_cache, "prefix_len": self._plen}
+        if not self._use_chunks:
+            last = eng.to_device([len(r) - 1 for r in self.rows])
+            # The flash kernel serves full-prompt waves; suffix waves take
+            # the plain op (the prefill kernel has no merge-state form).
+            impl = "torch" if prefix else "flash"
+            logits, cache = eng._forward(tokens, cache, 0, attn_impl=impl,
+                                         logits_index=last, **prefix)
+            return logits[:, 0], cache, width
+        chunk = self._chunk_len
+        # Per-row "last token in THIS chunk", clamped: each row reads the
+        # logits of the chunk that holds its real last token.
+        idx = eng.to_device([
+            [min(max(len(r) - 1 - c * chunk, 0), chunk - 1) for r in self.rows]
+            for c in range(width // chunk)
+        ])
+        per_chunk = []
+        for c in range(width // chunk):
+            logits, cache = eng._forward(
+                tokens[:, c * chunk:(c + 1) * chunk], cache, c * chunk,
+                attn_impl="torch", kv_width=width, logits_index=idx[c], **prefix,
+            )
+            per_chunk.append(logits[:, 0])
+        sel = eng.to_device([(len(r) - 1) // chunk for r in self.rows])
+        stacked = torch.stack(per_chunk)  # [C, k, V]
+        rows = torch.arange(self.k, device=stacked.device)
+        return stacked[sel, rows], cache, width

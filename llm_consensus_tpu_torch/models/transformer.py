@@ -15,9 +15,18 @@ through the ``kv_*`` helpers of ops/quant.py.
 Attention routing mirrors the JAX package, decided before the call from
 shapes alone: a one-shot prefill at a static start runs the flash kernel,
 a T = 1 decode step runs the decode kernel over the full stack, and
-everything else (the chunked prefill at a running start) runs the plain
-attention op (ops/attention.py), as the JAX package runs XLA there. There
-is no fallback from a kernel to the plain op: a kernel that fails raises.
+everything else (the chunked prefill at a running start, batched rows at
+per-row ``row_start`` offsets, suffix prefill against a shared prefix) runs
+the plain attention op (ops/attention.py), as the JAX package runs XLA
+there. There is no fallback from a kernel to the plain op: a kernel that
+fails raises.
+
+The continuous batcher's forms follow the JAX forward: ``row_start`` makes
+positions row-relative (right-aligned rows at one shared frontier), and a
+shared ``prefix`` KV ([L, 1, P, Hkv, dh], read once per step by every row
+flagged in ``prefix_rows``) is merged into each row's own attention with
+the exact two-source softmax: the decode kernel's ``return_state`` form at
+T = 1, the plain op's for T > 1.
 """
 
 from __future__ import annotations
@@ -29,7 +38,8 @@ import numpy as np
 import torch
 
 from llm_consensus_tpu_torch.models.config import ModelConfig
-from llm_consensus_tpu_torch.ops.attention import attention, make_attention_mask
+from llm_consensus_tpu_torch.ops.attention import (
+    attention, make_attention_mask, merge_attention_states, prefix_attention)
 from llm_consensus_tpu_torch.ops.kernels.decode_attention import (
     decode_attention, decode_supported)
 from llm_consensus_tpu_torch.ops.kernels.flash_attention import (
@@ -266,13 +276,16 @@ def _layer(
     start_pos: Pos,
     layer_idx: int,
     layer_t: Optional[torch.Tensor],  # layer_idx as a device int32 scalar
-    row_start: Optional[torch.Tensor],  # [B] int32 zeros (decode kernel)
+    row_start: Optional[torch.Tensor],  # [B] int32 device (decode kernel)
     slots: Optional[torch.Tensor],    # device write slots (decode), or None
     flash_offset: Optional[int],
     kv_width: Optional[int],
     decode_flash: bool,
     mm,                       # qmatmul with the engine's W8A8 / int4 settings
     decode_w8a8: bool,
+    prefix: Optional[dict],   # shared-prefix KV stacks, or None
+    prefix_len,               # int or int32 scalar: valid prefix slots
+    prefix_rows: Optional[torch.Tensor],  # [B] bool: rows attending the prefix
 ) -> torch.Tensor:
     b, t, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -319,6 +332,7 @@ def _layer(
         k_att, v_att = k, v
 
     scale = dh ** -0.5
+    with_state = prefix is not None
     if flash_offset is not None:
         attn_out = flash_attention(
             q, k_att, v_att, q_offset=flash_offset, scale=scale,
@@ -328,12 +342,29 @@ def _layer(
         attn_out = decode_attention(
             q, k_att, v_att, start_pos, layer_t, row_start, scale=scale,
             sliding_window=cfg.sliding_window, logit_softcap=cfg.attn_logit_softcap,
-            kv_width=kv_width, w8a8=decode_w8a8,
+            kv_width=kv_width, w8a8=decode_w8a8, return_state=with_state,
         )
+        if with_state:
+            attn_out, m2, l2 = attn_out
+            m2, l2 = m2[:, None], l2[:, None]  # [B, Hq] → [B, T=1, Hq]
     else:
         attn_out = attention(
             q, k_att, v_att, mask, scale=scale, logit_softcap=cfg.attn_logit_softcap,
+            return_state=with_state,
         )
+        if with_state:
+            attn_out, m2, l2 = attn_out
+    if with_state:
+        # Shared-prefix merge: every flagged row attends the ONE prefix
+        # copy, merged exactly with its own window's attention; rows not in
+        # prefix_rows contribute (m = NEG_INF, l = 0) and pass through.
+        pk = kv_read(kv_layer(prefix["k"], layer_idx), x.dtype)[0]  # [P, Hkv, dh]
+        pv = kv_read(kv_layer(prefix["v"], layer_idx), x.dtype)[0]
+        o1, m1, l1 = prefix_attention(
+            q, pk, pv, prefix_len, prefix_rows, scale=scale,
+            logit_softcap=cfg.attn_logit_softcap,
+        )
+        attn_out = merge_attention_states(o1, m1, l1, attn_out, m2, l2)
     x = x + mm(attn_out.reshape(b, t, hq * dh), lp["wo"])
 
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps, cfg.norm_offset)
@@ -365,6 +396,10 @@ def forward(
     *,
     mm: Callable = qmatmul,           # the matmul, its quantization modes bound
     decode_w8a8: bool = False,        # int8 x int8 decode scores (int8 cache)
+    row_start: Optional[torch.Tensor] = None,  # [B] int32: first real slot per row
+    prefix: Optional[dict] = None,    # shared-prefix KV {"k", "v"} [L, 1, P, Hkv, dh]
+    prefix_len=None,                  # int or int32 scalar: valid prefix slots
+    prefix_rows: Optional[torch.Tensor] = None,  # [B] bool: rows attending prefix
 ) -> tuple[torch.Tensor, Optional[dict]]:
     """Run the model. Returns (logits [B, T, V] fp32, cache).
 
@@ -378,10 +413,32 @@ def forward(
     ``partial(qmatmul, w8a8=True)``) and ``decode_w8a8`` are the engine's
     quantization settings (the JAX package threads them through a
     trace-time scope and its knobs).
+
+    ``row_start`` (the continuous batcher's right-aligned rows) makes
+    positions row-relative: row ``b``'s slot ``j`` holds position
+    ``j - row_start[b]``, and slots below ``row_start[b]`` are masked (on
+    CUDA the decode kernel takes it as an int32 device vector). ``prefix``
+    with ``prefix_len`` merges attention over a shared-prefix KV into every
+    row flagged in ``prefix_rows`` (all rows when None); those rows' own
+    slots hold positions ``prefix_len`` further on. Neither composes with
+    the flash prefill kernel, and ``prefix`` refuses a sliding window.
     """
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
     _check_dense(cfg)
+    if row_start is not None and cache is None:
+        raise ValueError(
+            "row_start (left-padded batching) requires a cache: the "
+            "no-cache mask path has no kv_valid to exclude pad slots"
+        )
+    if prefix is not None:
+        if cache is None:
+            raise ValueError("a shared prefix requires a cache")
+        if cfg.sliding_window is not None:
+            raise ValueError("shared-prefix attention does not compose "
+                             "with sliding_window")
+        if prefix_len is None:
+            raise ValueError("prefix requires prefix_len")
     b, t = tokens.shape
     dev = tokens.device
     x = embed_tokens(params, cfg, tokens)
@@ -393,6 +450,8 @@ def forward(
             attn_impl == "flash"
             and cache is not None
             and isinstance(start_pos, int)
+            and row_start is None  # the kernel assumes one shared offset
+            and prefix is None     # the prefill kernel has no merge-state form
             and flash_supported(t, hq, hkv, dh)
         )
         else None
@@ -408,6 +467,18 @@ def forward(
 
     steps = torch.arange(t, dtype=torch.int32, device=dev)
     positions = (steps + start_pos)[None, :].expand(b, t)
+    if row_start is not None:
+        positions = positions - row_start.to(device=dev, dtype=torch.int32)[:, None]
+    pos_offset = None
+    if prefix is not None:
+        # Suffix-resident rows: slot j holds ABSOLUTE position prefix_len +
+        # (j - row_start); rows outside prefix_rows carry their whole prompt
+        # in their own window and keep their positions.
+        if prefix_rows is not None:
+            pos_offset = prefix_len * prefix_rows.to(device=dev, dtype=torch.int32)
+        else:
+            pos_offset = torch.zeros(b, dtype=torch.int32, device=dev) + prefix_len
+        positions = positions + pos_offset[:, None]
     inv_freq = rope_inv_freq(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling_dict, device=dev)
     cos, sin = rope_angles(positions, inv_freq)
     slots = None if isinstance(start_pos, int) else (steps + start_pos).long()
@@ -420,22 +491,33 @@ def forward(
             s = min(s, kv_width)
         kv_slots = torch.arange(s, dtype=torch.int32, device=dev)[None, :].expand(b, s)
         kv_valid = kv_slots < (start_pos + t)
-        mask = make_attention_mask(positions, kv_slots, kv_valid, cfg.sliding_window)
+        kv_positions = kv_slots
+        if row_start is not None:
+            rs = row_start.to(device=dev, dtype=torch.int32)[:, None]
+            kv_positions = kv_slots - rs
+            kv_valid = kv_valid & (kv_slots >= rs)
+        if pos_offset is not None:
+            # The causal compare in the basis the query positions moved to.
+            kv_positions = kv_positions + pos_offset[:, None]
+        mask = make_attention_mask(positions, kv_positions, kv_valid, cfg.sliding_window)
     else:
         mask = make_attention_mask(positions, positions, None, cfg.sliding_window)
 
-    layer_ids = row_start = None
+    layer_ids = None
     if decode_flash:
         # Device scalars for the decode kernel: the position, each layer's
-        # index, and a single stream's zero row_start (as the JAX package
-        # passes zeros). A host int becomes a device fill, not a copy.
+        # index, and the rows' starts (a single stream's zeros, as the JAX
+        # package passes). A host int becomes a device fill, not a copy.
         if isinstance(start_pos, int):
             start_pos = torch.full((), start_pos, dtype=torch.int32, device=dev)
             slots = (steps + start_pos).long()  # the cache write follows it
         else:
             start_pos = start_pos.to(device=dev, dtype=torch.int32)
         layer_ids = torch.arange(cfg.n_layers, dtype=torch.int32, device=dev)
-        row_start = torch.zeros(b, dtype=torch.int32, device=dev)
+        if row_start is None:
+            row_start = torch.zeros(b, dtype=torch.int32, device=dev)
+        else:
+            row_start = row_start.to(device=dev, dtype=torch.int32).contiguous()
     if layers is None:
         layers = layer_views(params)
     decode_w8a8 = decode_w8a8 and decode_flash and is_quantized(cache["k"])
@@ -444,6 +526,7 @@ def forward(
             cfg, x, lp, cos, sin, mask, cache, start_pos, i,
             layer_ids[i] if layer_ids is not None else None, row_start, slots,
             flash_offset, kv_width, decode_flash, mm, decode_w8a8,
+            prefix, prefix_len, prefix_rows,
         )
 
     if logits_index is not None:

@@ -13,12 +13,22 @@ variants, each a kernel in ``csrc/decode_attention.cu``:
     TPU kernel's dense-GQA form): q quantized per (row, head) to int8 with a
     float32 scale, int8 x int8 scores with int32 accumulation, P.V in bf16.
 
+Each variant also has a ``return_state`` form (the shared-prefix decode
+path): the kernel's merge writes the softmax state it already holds, fp32
+``(m, l)`` [B, Hq], beside the output, in the same launch. ``m`` is the max
+of the scores after ``scale``, softcap and the mask; ``l`` the denominator
+at that max, summed before the int8 V scale folds into p; a row with no
+valid slot gives ``m = NEG_INF`` and ``l = 0``.
+
 :func:`decode_attention` launches the kernel, or raises, for CUDA tensors
 and uses :func:`decode_attention_plain` only for tensors on the CPU. The
 plain version repeats the TPU kernel's arithmetic: kv blocks of the span,
 an fp32 online softmax with the same ``NEG_INF``, invalid V rows (bf16) or
 V scales (int8) zeroed by a select, p cast to q's dtype (bf16 for W8A8)
-before P.V, and l = 0 rows output as 0.
+before P.V, and l = 0 rows output as 0. Its p is a select over the valid
+slots, so a row with nothing valid reports l = 0 (the TPU kernel's online
+loop counts exp(0) per masked column there; its output is 0 either way,
+and the merge drops such a row whatever its l).
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ CHUNK = 64
 LAUNCHES = LaunchCounter()        # bf16 cache
 LAUNCHES_INT8 = LaunchCounter()   # int8 cache
 LAUNCHES_W8A8 = LaunchCounter()   # int8 cache, int8 x int8 scores
+LAUNCHES_STATE = LaunchCounter()  # any variant with return_state=True
 
 Index = Union[int, torch.Tensor]
 Cache = Union[torch.Tensor, dict]
@@ -110,8 +121,10 @@ def decode_attention_plain(
     logit_softcap: Optional[float] = None,
     kv_width: Optional[int] = None,
     w8a8: bool = False,
-) -> torch.Tensor:
-    """The TPU kernel's arithmetic in plain PyTorch → [B, 1, Hq, dh]."""
+    return_state: bool = False,
+):
+    """The TPU kernel's arithmetic in plain PyTorch → [B, 1, Hq, dh], and
+    with ``return_state`` also fp32 ``(m, l)`` [B, Hq]."""
     block_k = 512  # the TPU kernel's default kv block cap
     quantized = is_quantized(k)
     kc, vc = (k["q8"], v["q8"]) if quantized else (k, v)
@@ -171,7 +184,8 @@ def decode_attention_plain(
             sc = logit_softcap * torch.tanh(sc / logit_softcap)
         sc = torch.where(valid[:, None, None, :], sc, torch.full_like(sc, NEG_INF))
         m_new = torch.maximum(m, sc.amax(dim=-1))
-        p = torch.exp(sc - m_new[..., None])
+        p = torch.where(valid[:, None, None, :], torch.exp(sc - m_new[..., None]),
+                        torch.zeros_like(sc))
         alpha = torch.exp(m - m_new)
         l = alpha * l + p.sum(dim=-1)
         if quantized:
@@ -182,9 +196,11 @@ def decode_attention_plain(
         pv = torch.einsum("bkgs,bskd->bkgd", p.to(pv_dtype).float(), vb.float())
         acc = acc * alpha[..., None] + pv
         m = m_new
-    l = torch.where(l == 0.0, torch.ones_like(l), l)
-    out = acc / l[..., None]
-    return out.reshape(b, 1, hq, dh).to(q.dtype)
+    out = acc / torch.where(l == 0.0, torch.ones_like(l), l)[..., None]
+    out = out.reshape(b, 1, hq, dh).to(q.dtype)
+    if return_state:
+        return out, m.reshape(b, hq), l.reshape(b, hq)
+    return out
 
 
 def decode_attention(
@@ -200,8 +216,10 @@ def decode_attention(
     logit_softcap: Optional[float] = None,
     kv_width: Optional[int] = None,
     w8a8: bool = False,
-) -> torch.Tensor:
-    """Single-step GQA attention over one layer of the cache → [B, 1, Hq, dh].
+    return_state: bool = False,
+):
+    """Single-step GQA attention over one layer of the cache → [B, 1, Hq, dh]
+    (with ``return_state``: ``(out, m, l)``, m and l fp32 [B, Hq]).
 
     Row ``b`` attends slots ``row_start[b] <= p <= pos`` of layer
     ``layer_idx`` (windowed when ``sliding_window``) within ``kv_width``.
@@ -224,7 +242,7 @@ def decode_attention(
         return decode_attention_plain(
             q, k, v, pos, layer_idx, row_start, scale=scale,
             sliding_window=sliding_window, logit_softcap=logit_softcap,
-            kv_width=kv_width, w8a8=w8a8,
+            kv_width=kv_width, w8a8=w8a8, return_state=return_state,
         )
     dev = q.device
     for name, x in tensors:
@@ -255,9 +273,15 @@ def decode_attention(
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty(b * hq * n_split * dh, dtype=torch.float32, device=dev)
     out = torch.empty_like(q)
+    m_out = l_out = None
+    if return_state:
+        m_out = torch.empty((b, hq), dtype=torch.float32, device=dev)
+        l_out = torch.empty_like(m_out)
     tail = (
         pos.data_ptr(), layer_idx.data_ptr(), row_start.data_ptr(),
         part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
+        None if m_out is None else m_out.data_ptr(),
+        None if l_out is None else l_out.data_ptr(),
         b, s, hq, hkv, dh, w, n_split,
         sliding_window or 0, float(logit_softcap or 0.0), float(scale),
         torch.cuda.current_stream(dev).cuda_stream,
@@ -274,4 +298,7 @@ def decode_attention(
             counter = LAUNCHES_W8A8 if w8a8 else LAUNCHES_INT8
     check(lib, err, name)
     counter.add()
+    if return_state:
+        LAUNCHES_STATE.add()
+        return out, m_out, l_out
     return out

@@ -14,6 +14,14 @@ there is none; ``device="cpu"`` runs the same path on the CPU. The
 quantization modes (``quant``, ``kv_quant``, ``w8a8``, ``decode_w8a8``,
 ``int4_impl``) go to every engine the provider builds; unknown modes raise
 in the constructor, before anything is built.
+
+``batch_streams`` > 1 routes every request for a preset through one
+``ContinuousBatcher`` over that preset's engine (built once, under a build
+lock), so concurrent streams of one model share the decode; greedy results
+equal the single-stream path's. ``pool_prefix`` and ``pool_prefix_min`` go
+to the batcher (shared-prefix serving: a panel of one model fans one prompt
+out to N streams). A failed submit raises: there is no fallback to the
+single-stream path.
 """
 
 from __future__ import annotations
@@ -65,27 +73,37 @@ class GPUProvider(Provider):
     _shared_lock = threading.Lock()
 
     def __init__(self, *, device: DeviceLike = None, max_seq: Optional[int] = None,
+                 batch_streams: int = 1, pool_prefix: bool = True, pool_prefix_min: int = 192,
                  **modes):
         self.modes = _resolve_modes(**modes)
         self.device = resolve_device(device)
+        self.batch_streams = batch_streams
+        self.pool_prefix = pool_prefix
+        self.pool_prefix_min = pool_prefix_min
         self._engines: dict[str, object] = {}
+        self._batchers: dict[str, object] = {}
         self._lock = threading.Lock()
-        self._build_locks: dict[str, threading.Lock] = {}
+        self._build_locks: dict[tuple[str, str], threading.Lock] = {}
         # Context-capacity cap: every engine's max_seq is at most this
         # (KV-cache memory is proportional to capacity).
         self._max_seq = max_seq
         self.stats = {"tokens": 0, "runs": 0}
 
     @classmethod
-    def shared(cls, device: DeviceLike = None, **modes) -> "GPUProvider":
-        """One provider per device and quantization modes for the process
-        (the CLI's factory): a quantized run never reuses a bf16 engine."""
+    def shared(cls, device: DeviceLike = None, *, batch_streams: int = 1,
+               pool_prefix: bool = True, pool_prefix_min: int = 192,
+               **modes) -> "GPUProvider":
+        """One provider per device, quantization modes and batching
+        settings for the process (the CLI's factory): a quantized run never
+        reuses a bf16 engine, a batched run never an unbatched provider."""
         dev = resolve_device(device)
         modes = _resolve_modes(**modes)
-        key = (dev, tuple(sorted(modes.items())))
+        batching = {"batch_streams": batch_streams, "pool_prefix": bool(pool_prefix),
+                    "pool_prefix_min": pool_prefix_min}
+        key = (dev, tuple(sorted(modes.items())), tuple(sorted(batching.items())))
         with cls._shared_lock:
             if key not in cls._shared:
-                cls._shared[key] = cls(device=dev, **modes)
+                cls._shared[key] = cls(device=dev, **batching, **modes)
             return cls._shared[key]
 
     def prepare(self, models: list[str], judge: Optional[str]) -> None:
@@ -101,30 +119,47 @@ class GPUProvider(Provider):
         with self._lock:
             return dict(self._engines)
 
-    def release(self) -> None:
-        """Drop every engine (weights and caches become collectible)."""
+    def batcher_stats(self) -> dict:
+        """Phase-accounting snapshot of every live batcher, keyed by preset
+        (``ContinuousBatcher.snapshot``)."""
         with self._lock:
-            self._engines.clear()
+            batchers = dict(self._batchers)
+        return {preset: b.snapshot() for preset, b in batchers.items()}
 
-    def _engine_for(self, model: str):
-        """Get or lazily build the engine serving ``model``. Construction
-        happens outside the pool lock under a per-preset lock, so distinct
-        panel models build concurrently while duplicate requests for one
-        model share a single build."""
-        preset = parse_model_name(model)
+    def release(self) -> None:
+        """Close every batcher and drop every engine (weights and caches
+        become collectible)."""
         with self._lock:
-            engine = self._engines.get(preset)
-            if engine is not None:
-                return engine
-            build_lock = self._build_locks.setdefault(preset, threading.Lock())
+            batchers = list(self._batchers.values())
+            self._batchers.clear()
+            self._engines.clear()
+        for b in batchers:
+            b.close()
+
+    def _get_or_build(self, table: dict, kind: str, preset: str, build):
+        """``table[preset]``, built by ``build(preset)`` on first use.
+        Construction happens outside the pool lock under a per-(kind,
+        preset) lock, so distinct presets build concurrently while duplicate
+        first requests for one preset share a single build (one engine, one
+        pool cache)."""
+        with self._lock:
+            obj = table.get(preset)
+            if obj is not None:
+                return obj
+            build_lock = self._build_locks.setdefault((kind, preset), threading.Lock())
         with build_lock:
             with self._lock:
-                engine = self._engines.get(preset)
-            if engine is None:
-                engine = self._build_engine(preset)
+                obj = table.get(preset)
+            if obj is None:
+                obj = build(preset)
                 with self._lock:
-                    self._engines[preset] = engine
-            return engine
+                    table[preset] = obj
+            return obj
+
+    def _engine_for(self, model: str):
+        """Get or lazily build the engine serving ``model``."""
+        return self._get_or_build(self._engines, "engine", parse_model_name(model),
+                                  self._build_engine)
 
     def _build_engine(self, preset: str):
         from llm_consensus_tpu_torch.engine import Engine
@@ -133,6 +168,14 @@ class GPUProvider(Provider):
         cfg = get_config(preset)
         max_seq = min(self._max_seq, cfg.max_seq_len) if self._max_seq else None
         return Engine(cfg, device=self.device, max_seq=max_seq, **self.modes)
+
+    def _batcher_for(self, preset: str, engine):
+        """The batcher serving ``preset`` over ``engine``, built once."""
+        from llm_consensus_tpu_torch.engine.batcher import ContinuousBatcher
+
+        return self._get_or_build(self._batchers, "batcher", preset, lambda _: ContinuousBatcher(
+            engine, max_batch=self.batch_streams, pool_prefix=self.pool_prefix,
+            pool_prefix_min=self.pool_prefix_min))
 
     def query(self, ctx: Context, req: Request) -> Response:
         return self.query_stream(ctx, req, None)
@@ -156,7 +199,11 @@ class GPUProvider(Provider):
             # The plain engine has no chat template; fold the system
             # prompt ahead of the user prompt.
             prompt = f"{req.system}\n\n{req.prompt}"
-        result = engine.generate(prompt, sampling, ctx, on_text=callback)
+        if self.batch_streams > 1:
+            batcher = self._batcher_for(parse_model_name(req.model), engine)
+            result = batcher.submit(prompt, sampling, ctx, on_text=callback).result()
+        else:
+            result = engine.generate(prompt, sampling, ctx, on_text=callback)
         with self._lock:
             self.stats["tokens"] += len(result.token_ids)
             self.stats["runs"] += 1

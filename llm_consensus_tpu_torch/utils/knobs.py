@@ -12,7 +12,13 @@ knobs that the JAX package declares, with the same meaning:
   * ``LLMC_W8A8``: int8 x int8 matmuls (int8 weights only);
   * ``LLMC_DECODE_W8A8``: int8 x int8 decode-attention scores (int8 KV
     cache, GQA group 2 to 4), turned off by ``LLMC_DECODE_QSTRUCT=0``;
-  * ``LLMC_INT4_IMPL``: the int4 matmul lowering, ``auto`` or ``nibble``.
+  * ``LLMC_INT4_IMPL``: the int4 matmul lowering, ``auto`` or ``nibble``;
+  * ``LLMC_MAX_BATCH`` (falling back to ``LLMC_BATCH_STREAMS``): slots of
+    the continuous-batching pool per preset, above 1 to batch;
+  * ``LLMC_POOL_PREFIX``, ``LLMC_POOL_PREFIX_MIN``: shared-prefix serving
+    and its minimum common prefix;
+  * ``LLMC_PREFILL_BUDGET``: interleaved admission, not ported: a value
+    above 0 is refused.
 """
 
 from __future__ import annotations
@@ -35,6 +41,31 @@ def get_bool(name: str, default: bool = False) -> bool:
     if not v:
         return bool(default)
     return v.lower() not in _FALSY
+
+
+def get_int(name: str, default: int) -> int:
+    """Unset, empty or unparsable → ``default``."""
+    v = (os.environ.get(name) or "").strip()
+    if not v:
+        return default
+    try:
+        return int(v)
+    except ValueError:
+        return default
+
+
+def batch_settings() -> dict:
+    """The continuous-batching settings of the environment, as the keyword
+    arguments of ``GPUProvider``. Raises ``NotImplementedError`` for
+    ``LLMC_PREFILL_BUDGET`` above 0 (interleaved admission)."""
+    if get_int("LLMC_PREFILL_BUDGET", 0) > 0:
+        raise NotImplementedError(
+            "LLMC_PREFILL_BUDGET > 0 (interleaved admission) is not ported; unset it or use 0")
+    return {
+        "batch_streams": get_int("LLMC_MAX_BATCH", 0) or get_int("LLMC_BATCH_STREAMS", 1),
+        "pool_prefix": get_bool("LLMC_POOL_PREFIX", True),
+        "pool_prefix_min": get_int("LLMC_POOL_PREFIX_MIN", 192),
+    }
 
 
 def quant_modes() -> dict:

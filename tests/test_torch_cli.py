@@ -265,3 +265,128 @@ def test_provider_mbu_uses_the_modes_byte_widths(monkeypatch):
         resp = provider.query(Context.background(), Request(model="gpu:tiny-llama", prompt="p"))
         assert resp.tokens_per_sec == 64.0
         assert seen[-1] == want, modes
+
+
+# -- continuous batching through the environment --------------------------------
+
+BATCH_KNOBS = ("LLMC_MAX_BATCH", "LLMC_BATCH_STREAMS", "LLMC_POOL_PREFIX",
+               "LLMC_POOL_PREFIX_MIN", "LLMC_PREFILL_BUDGET")
+# 4 panel streams of one prompt share all of it but one token: at least the
+# 192 common tokens that establish sharing.
+LONG_PROMPT = ("Compare shipping drives by courier with streaming over the existing "
+               "link and with renting a dedicated line, on cost, time, risk and effort, "
+               "for a dataset of four hundred terabytes that has to arrive within five "
+               "days; recommend one option and say why.")
+
+
+@pytest.fixture
+def batch_knobs(monkeypatch):
+    for name in BATCH_KNOBS + QUANT_KNOBS:
+        monkeypatch.delenv(name, raising=False)
+    yield monkeypatch
+    for key, provider in list(GPUProvider._shared.items()):
+        if key[2] != tuple(sorted({"batch_streams": 1, "pool_prefix": True,
+                                   "pool_prefix_min": 192}.items())):
+            provider.release()
+            del GPUProvider._shared[key]
+
+
+def test_cli_batched_duplicate_panel_matches_unbatched(tmp_path, batch_knobs):
+    """A panel of 4 x gpu:tiny-llama under LLMC_MAX_BATCH=4: every answer
+    comes through the one batcher (which establishes the shared prompt as
+    its prefix) and result.json holds the answers and consensus of the
+    unbatched run."""
+    def argv(data_dir):
+        return ["--models", ",".join(["gpu:tiny-llama"] * 4), "--judge", JUDGE,
+                "--max-tokens", "12", "--data-dir", str(data_dir), LONG_PROMPT]
+
+    assert len(LONG_PROMPT) > 193
+    rc, _, err = _run(argv(tmp_path / "plain"))
+    assert rc == 0, err
+    batch_knobs.setenv("LLMC_MAX_BATCH", "4")
+    rc, _, err = _run(argv(tmp_path / "batched"))
+    assert rc == 0, err
+    provider = GPUProvider.shared("cpu", batch_streams=4)
+    stats = provider.batcher_stats()
+    assert list(stats) == ["tiny-llama"]
+    assert stats["tiny-llama"]["prefix_len"] == 0  # the judge, last, admitted alone
+    assert stats["tiny-llama"]["admitted"] == 5  # every panel answer and the judge's
+    assert stats["tiny-llama"]["establish_tokens"] == len(LONG_PROMPT)
+    doc, ref = (json.loads(next((tmp_path / side).iterdir()).joinpath("result.json")
+                           .read_text()) for side in ("batched", "plain"))
+    assert len(doc["responses"]) == 4 and not doc.get("failed_models")
+    assert sorted(r["content"] for r in doc["responses"]) == sorted(
+        r["content"] for r in ref["responses"])
+    assert doc["consensus"] == ref["consensus"]
+    assert list(doc) == list(ref)
+
+
+def test_cli_batched_panel_establishes_the_shared_prefix(tmp_path, batch_knobs, monkeypatch):
+    from llm_consensus_tpu_torch.engine.batcher import ContinuousBatcher
+
+    seen = []
+    real = ContinuousBatcher._establish_prefix
+
+    def spy(self, prefix_ids):
+        ok = real(self, prefix_ids)
+        seen.append((len(prefix_ids), ok))
+        return ok
+
+    monkeypatch.setattr(ContinuousBatcher, "_establish_prefix", spy)
+    batch_knobs.setenv("LLMC_BATCH_STREAMS", "4")  # the fallback spelling
+    rc, _, err = _run(["--models", ",".join(["gpu:tiny-llama"] * 4), "--judge", JUDGE,
+                       "--max-tokens", "6", "--json", LONG_PROMPT])
+    assert rc == 0, err
+    assert seen == [(len(LONG_PROMPT), True)]  # bos + bytes, less the last token
+
+
+def test_shared_provider_keys_on_batching(batch_knobs):
+    from llm_consensus_tpu_torch.cli.main import create_provider
+
+    plain = create_provider("gpu:tiny-llama", "cpu")
+    batch_knobs.setenv("LLMC_MAX_BATCH", "4")
+    batched = create_provider("gpu:tiny-llama", "cpu")
+    assert plain is GPUProvider.shared("cpu") and plain.batch_streams == 1
+    assert batched is not plain and batched.batch_streams == 4
+    batch_knobs.setenv("LLMC_POOL_PREFIX", "0")
+    unshared = create_provider("gpu:tiny-llama", "cpu")
+    assert unshared is not batched and unshared.pool_prefix is False
+
+
+def test_batch_knobs_parse_like_jax(batch_knobs):
+    from llm_consensus_tpu.utils import knobs as jknobs
+    from llm_consensus_tpu_torch.utils.knobs import batch_settings
+
+    for env in ({}, {"LLMC_MAX_BATCH": "4"}, {"LLMC_BATCH_STREAMS": "3"},
+                {"LLMC_MAX_BATCH": "x", "LLMC_BATCH_STREAMS": "2"},
+                {"LLMC_POOL_PREFIX": "off", "LLMC_POOL_PREFIX_MIN": "64"},
+                {"LLMC_POOL_PREFIX_MIN": "bad"}):
+        for name in BATCH_KNOBS:
+            batch_knobs.delenv(name, raising=False)
+        for name, value in env.items():
+            batch_knobs.setenv(name, value)
+        want = {
+            "batch_streams": (jknobs.get_int("LLMC_MAX_BATCH", 0)
+                              or jknobs.get_int("LLMC_BATCH_STREAMS")),
+            "pool_prefix": jknobs.get_bool("LLMC_POOL_PREFIX"),
+            "pool_prefix_min": jknobs.get_int("LLMC_POOL_PREFIX_MIN"),
+        }
+        assert batch_settings() == want, env
+
+
+def test_cli_refuses_interleaved_admission(batch_knobs, monkeypatch):
+    import llm_consensus_tpu_torch.engine as engine_pkg
+
+    def no_build(*a, **k):
+        raise AssertionError("no engine may be built for a refused setting")
+
+    monkeypatch.setattr(engine_pkg, "Engine", no_build)
+    batch_knobs.setenv("LLMC_MAX_BATCH", "4")
+    batch_knobs.setenv("LLMC_PREFILL_BUDGET", "512")
+    rc, out, err = _run(["--models", "gpu:tiny-llama", "--judge", JUDGE, "x"])
+    assert rc == 1 and out == ""
+    assert "LLMC_PREFILL_BUDGET" in err and "not ported" in err
+    batch_knobs.setenv("LLMC_PREFILL_BUDGET", "0")  # 0 is the classic path
+    from llm_consensus_tpu_torch.utils.knobs import batch_settings
+
+    assert batch_settings()["batch_streams"] == 4

@@ -210,3 +210,72 @@ def test_quantized_engine_runs_through_the_kernels(cuda, modes, counter):
     assert len(result.token_ids) == 20
     assert fa.LAUNCHES.count - flash0 == engine.cfg.n_layers
     assert getattr(da, counter).count - decode0 >= 19 * engine.cfg.n_layers
+
+
+@pytest.mark.parametrize("variant", ["bf16", "int8", "w8a8"])
+@pytest.mark.parametrize("b,s,hq,hkv,pos,width,rs,window,cap", [
+    (4, 8192, 32, 8, 300, 384, (0, 37, 300, 5), None, None),   # llama-3-8b, one row 1 slot
+    (4, 8192, 32, 8, 8000, 8192, (0, 100, 7999, 8000), None, None),
+    (4, 512, 16, 8, 400, 512, (0, 0, 390, 0), 128, 30.0),     # window + softcap
+])
+def test_state_kernels_match_plain(cuda, variant, b, s, hq, hkv, pos, width, rs, window, cap):
+    """return_state of each variant: out at the decode tolerance; m within
+    1e-2 absolute (scores of magnitude ~10, fp32 sums in another order);
+    l within 1e-2 relative (a sum of exps rescaled in another order)."""
+    (q,) = _bf16(cuda, 20, (b, 1, hq, 128))
+    if variant == "bf16":
+        k, v = _bf16(cuda, 21, (2, b, s, hkv, 128), (2, b, s, hkv, 128))
+        k[1, :, pos + 1:] = float("nan")
+        v[1, :, pos + 1:] = float("nan")
+    else:
+        k, v = _int8_cache(cuda, 22, 2, b, s, hkv), _int8_cache(cuda, 23, 2, b, s, hkv)
+        for side in (k, v):
+            side["s"][1, :, :, pos + 1:] = float("nan")
+            side["q8"][1, :, pos + 1:] = 127
+    kw = dict(kv_width=width, sliding_window=window, logit_softcap=cap,
+              w8a8=variant == "w8a8", return_state=True)
+    before = da.LAUNCHES_STATE.count
+    got = da.decode_attention(q, k, v, _i32(cuda, pos)[0], _i32(cuda, 1)[0], _i32(cuda, *rs),
+                              **kw)
+    torch.cuda.synchronize()
+    assert da.LAUNCHES_STATE.count == before + 1
+    want = da.decode_attention_plain(q, k, v, pos, 1, _i32(cuda, *rs), **kw)
+    err, tol = _decode_err_and_tol(got[0], want[0])
+    assert err <= tol
+    assert (got[1] - want[1]).abs().max().item() <= 1e-2
+    assert ((got[2] - want[2]).abs() <= 1e-2 * want[2].abs() + 1e-6).all()
+    assert got[1].dtype == got[2].dtype == torch.float32 and got[1].shape == (b, hq)
+
+
+def test_state_kernel_row_with_nothing_valid(cuda):
+    (q,) = _bf16(cuda, 24, (2, 1, 8, 128))
+    k, v = _bf16(cuda, 25, (1, 2, 256, 4, 128), (1, 2, 256, 4, 128))
+    out, m, l = da.decode_attention(q, k, v, _i32(cuda, 100)[0], _i32(cuda, 0)[0],
+                                    _i32(cuda, 0, 101), kv_width=256, return_state=True)
+    torch.cuda.synchronize()
+    assert bool((out[1] == 0).all()) and bool((l[1] == 0).all())
+    assert bool((m[1] == da.NEG_INF).all()) and bool((l[0] > 0).all())
+
+
+def test_batcher_shared_prefix_runs_through_the_state_kernel(cuda):
+    """A shared-prefix wave on the card: the prefix decode goes through the
+    state kernel, and a lone prompt afterwards (no prefix) through the
+    plain decode kernel."""
+    from llm_consensus_tpu_torch.engine.batcher import ContinuousBatcher
+
+    engine = Engine(get_config("tiny-llama", head_dim=128), max_seq=512, device=cuda)
+    b = ContinuousBatcher(engine, max_batch=4, pool_prefix_min=64)
+    try:
+        s = SamplingParams(max_new_tokens=20, ignore_eos=True)
+        prefix = "a shared prompt prefix that every stream of the wave carries " * 2
+        state0, plain0 = da.LAUNCHES_STATE.count, da.LAUNCHES.count
+        futs = [b.submit(f"{prefix} stream {i}", s) for i in range(4)]
+        results = [f.result(timeout=300) for f in futs]
+        assert b.snapshot()["prefix_len"] >= 64
+        assert all(len(r.token_ids) == 20 for r in results)
+        assert da.LAUNCHES_STATE.count - state0 >= 19 * engine.cfg.n_layers
+        lone = b.submit("unrelated", s).result(timeout=300)
+        assert len(lone.token_ids) == 20 and b.snapshot()["prefix_len"] == 0
+        assert da.LAUNCHES.count - plain0 >= 19 * engine.cfg.n_layers
+    finally:
+        b.close()

@@ -53,6 +53,7 @@ def _port_modules():
 def test_every_module_imports_without_jax():
     modules = _port_modules()
     assert "llm_consensus_tpu_torch.ops.kernels.decode_attention" in modules
+    assert "llm_consensus_tpu_torch.engine.batcher" in modules
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'llm_consensus_tpu'):\n"
