@@ -10,13 +10,18 @@ Phases, in order; any failure exits non-zero before the last line:
 2. build: the CUDA kernels from ``llm_consensus_tpu_torch/csrc`` with nvcc
    for sm_90a (seconds printed);
 3. kernels against their plain PyTorch versions on the card, in bf16, at
-   the main path's shapes and at small edge cases (flash, also at B = 4,
-   decode over the bf16 cache, decode over the int8 cache, decode with
-   W8A8 scores, and the ``return_state`` form of all three decode variants
-   at B = 4 with ragged row starts); each timed with CUDA graphs beside
-   its plain version and, where one exists, one PyTorch library call; then
-   the int8 matmuls (exactness of the int8 x int8 product, device time of
-   the int8-weight matmul against bf16);
+   the main path's shapes and at edge cases of their tiling (flash, also at
+   B = 4, ragged T, q_offset, window, softcap, GQA groups 1 and 8, dh 32
+   and 64; decode over the bf16 cache at the split plan's edge widths and
+   replayed from one CUDA graph at four frontiers; decode over the int8
+   cache; decode with W8A8 scores; the ``return_state`` form of all three
+   decode variants at B = 4 with ragged row starts); each timed with CUDA
+   graphs, warm (back-to-back calls on the same inputs) and cold (a 128 MiB
+   write between calls flushes the 50 MB L2; the flushes alone are timed
+   and subtracted), beside its plain version and, where one exists, one
+   PyTorch library call timed the same two ways; then the int8 matmuls
+   (exactness of the int8 x int8 product, device time of the int8-weight
+   matmul against bf16);
 4. the small-model check: a narrow model's logits through the kernels
    against the same model through the plain attention op;
 5. the slice: one consensus run through the port's CLI (llama-3-8b +
@@ -25,7 +30,8 @@ Phases, in order; any failure exits non-zero before the last line:
 6. the chunked path: one Engine.generate on llama-3-8b with a ~1,500-token
    prompt (chunked prefill, then decode at a longer frontier);
 7. a torch.profiler window over one llama-3-8b generate: device busy
-   share and the kernels with the most device time;
+   share and the kernels with the most device time (the bf16 decode is one
+   launch per call: no merge kernel may appear);
 8. the batched slice: the CLI run with a panel of 4 x llama-3-8b and a
    llama-3-8b judge under ``LLMC_MAX_BATCH=4`` (one continuous batcher;
    the panel's shared prompt becomes the pool's shared prefix, so its
@@ -89,6 +95,7 @@ STATE_L_REL_TOL = 1e-2  # relative
 # (the small-model check's bound for bf16 on the card against float32 on
 # the CPU).
 BATCH_LOGIT_TOL = 0.25
+FLUSH_BYTES = 128 << 20  # L2 flush for cold timings: over twice the H100's 50 MB L2
 
 
 def log(msg: str) -> None:
@@ -121,30 +128,28 @@ def eager_time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_time_ms(fn, iters: int) -> tuple[float, str]:
-    """Mean device time per call of ``fn``: ``iters`` calls captured in one
-    CUDA graph and replayed between two events, so host launch cost drops
-    out. Returns (ms, method); a call that cannot be captured is timed
-    eagerly instead, and the method says so."""
+_FLUSH = []  # the L2 flush buffer, made on first use
+
+
+def _flush_l2() -> None:
+    """Write a 128 MiB scratch buffer (over twice the H100's 50 MB L2), so the
+    next kernel finds none of its inputs in L2."""
     import torch
 
-    fn()
-    torch.cuda.synchronize()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda"))
+    _FLUSH[0].fill_(1)
+
+
+def _graph_ms(fn, iters: int) -> float:
+    """Mean time per call of ``fn`` over ``iters`` calls captured in one CUDA
+    graph and replayed between two events."""
+    import torch
+
     graph = torch.cuda.CUDAGraph()
-    try:
-        with torch.cuda.graph(graph):
-            for _ in range(iters):
-                fn()
-    except RuntimeError as err:
-        log(f"  (graph capture refused: {err}; timing eagerly)")
-        torch.cuda.synchronize()
-        return eager_time_ms(fn, iters), "eager"
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -153,9 +158,52 @@ def device_time_ms(fn, iters: int) -> tuple[float, str]:
     graph.replay()
     end.record()
     end.synchronize()
-    ms = start.elapsed_time(end) / iters
     del graph
-    return ms, "graph"
+    return start.elapsed_time(end) / iters
+
+
+def device_time_ms(fn, iters: int, cold: bool = False) -> tuple[float, str]:
+    """Mean device time per call of ``fn``: ``iters`` calls captured in one
+    CUDA graph and replayed between two events, so host launch cost drops
+    out. Warm (``cold=False``): back-to-back calls on the same inputs, which
+    stay in L2 when they fit. Cold: each call follows a 128 MiB write
+    (``_flush_l2``); the flushes are timed alone the same way and their time
+    is subtracted. Returns (ms, method); a call that cannot be captured is
+    timed eagerly instead (warm only), and the method says so."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        if cold:
+            _flush_l2()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    if not cold:
+        try:
+            return _graph_ms(fn, iters), "graph"
+        except RuntimeError as err:
+            log(f"  (graph capture refused: {err}; timing eagerly)")
+            torch.cuda.synchronize()
+            return eager_time_ms(fn, iters), "eager"
+
+    def both():
+        _flush_l2()
+        fn()
+
+    # The flush alone before and after, averaged: it is the larger term.
+    flush_ms = _graph_ms(_flush_l2, iters)
+    both_ms = _graph_ms(both, iters)
+    flush_ms = 0.5 * (flush_ms + _graph_ms(_flush_l2, iters))
+    return both_ms - flush_ms, "graph, L2 flushed"
+
+
+def timed(fn, iters: int) -> dict:
+    """Warm and cold device time of ``fn`` (ms)."""
+    return {"ms": device_time_ms(fn, iters)[0], "cold_ms": device_time_ms(fn, iters, cold=True)[0]}
 
 
 def bound_ms(nbytes: float, flops: float, int8_ops: float = 0.0) -> tuple[float, str]:
@@ -198,9 +246,13 @@ def check_flash(torch, rec: dict) -> None:
         ("llama-3-8b prefill", 1, 512, 512, 32, 8, 128, 0, None, None),
         ("consensus-1b prefill", 1, 256, 256, 16, 8, 128, 0, None, None),
         ("q_offset", 1, 64, 192, 8, 2, 128, 128, None, None),
+        ("q_offset mid-tile", 1, 100, 300, 8, 2, 128, 170, None, None),
         ("window", 1, 128, 128, 8, 2, 128, 0, 48, None),
+        ("window mid-tile", 1, 320, 320, 8, 2, 128, 0, 200, None),
         ("softcap", 2, 64, 64, 8, 4, 128, 0, None, 30.0),
         ("ragged T, dh 64", 1, 48, 48, 8, 2, 64, 0, None, None),
+        ("T 200, MHA, dh 32", 1, 200, 200, 8, 8, 32, 0, None, None),
+        ("T 320, group 8", 2, 320, 320, 8, 1, 128, 0, None, None),
         ("B=4 admission wave", 4, 512, 512, 32, 8, 128, 0, None, None),
     ]
     worst = 0.0
@@ -218,32 +270,46 @@ def check_flash(torch, rec: dict) -> None:
             raise AssertionError(f"flash_attention {name}: err {err}, finite {finite}")
         worst = max(worst, err)
 
-    # Timing at the slice's prefill shape (llama-3-8b, bucket 512).
-    b, t, hq, hkv, dh = 1, 512, 32, 8, 128
-    q, k, v = qkv(b, t, t, hq, hkv, dh)
-    ms, how = device_time_ms(lambda: fa.flash_attention(q, k, v), 50)
-    eager_ms = eager_time_ms(lambda: fa.flash_attention(q, k, v), 50)
-    plain_ms, _ = device_time_ms(lambda: fa.flash_attention_plain(q, k, v), 5)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    kt = kt.repeat_interleave(hq // hkv, dim=1)
-    vt = vt.repeat_interleave(hq // hkv, dim=1)
+    # Timing at the slice's prefill shape (llama-3-8b, bucket 512), B = 1 and
+    # the batcher's B = 4 admission wave.
+    hq, hkv, dh, t = 32, 8, 128, 512
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms, _ = device_time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 50)
-    pairs = t * (t + 1) // 2
-    flops = 4.0 * b * hq * dh * pairs
-    nbytes = 2.0 * (2 * b * t * hq * dh + 2 * b * t * hkv * dh)
-    bms, by = bound_ms(nbytes, flops)
+    times = {}
+    for b in (1, 4):
+        q, k, v = qkv(b, t, t, hq, hkv, dh)
+        kern = timed(lambda: fa.flash_attention(q, k, v), 50)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        kt = kt.repeat_interleave(hq // hkv, dim=1)
+        vt = vt.repeat_interleave(hq // hkv, dim=1)
+        lib = timed(lambda: sdpa(qt, kt, vt, is_causal=True), 50)
+        pairs = t * (t + 1) // 2
+        bms, by = bound_ms(2.0 * (2 * b * t * hq * dh + 2 * b * t * hkv * dh),
+                           4.0 * b * hq * dh * pairs)
+        times[b] = dict(kern=kern, lib=lib, bound=bms, by=by)
+        if b == 1:
+            eager_ms = eager_time_ms(lambda: fa.flash_attention(q, k, v), 50)
+            plain_ms, _ = device_time_ms(lambda: fa.flash_attention_plain(q, k, v), 5)
+        del q, k, v, qt, kt, vt
+    one, four = times[1], times[4]
     rec.update(
         name="flash_attention", route="cuda",
         source="llm_consensus_tpu_torch/csrc/flash_attention.cu",
         replaces="llm_consensus_tpu/ops/pallas/flash_attention.py:136",
-        shapes=f"q[{b},{t},{hq},{dh}] k/v[{b},{t},{hkv},{dh}] bf16, q_offset 0",
-        max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-        library_ms=library_ms,
+        shapes=f"q[1,{t},{hq},{dh}] k/v[1,{t},{hkv},{dh}] bf16, q_offset 0",
+        max_abs_err=worst, ms=one["kern"]["ms"], cold_ms=one["kern"]["cold_ms"],
+        plain_ms=plain_ms, bound_ms=one["bound"], bound_by=one["by"],
+        bound_share=one["bound"] / one["kern"]["cold_ms"],
+        library_ms=one["lib"]["ms"], library_cold_ms=one["lib"]["cold_ms"],
+        b4_ms=four["kern"]["ms"], b4_cold_ms=four["kern"]["cold_ms"],
+        b4_bound_ms=four["bound"], b4_library_ms=four["lib"]["ms"],
+        b4_library_cold_ms=four["lib"]["cold_ms"],
     )
-    log(f"flash  timing {rec['shapes']}: kernel {ms:.4f} ms ({how}; eager with launch "
-        f"{eager_ms:.4f} ms), plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
-        f"bound {bms:.4f} ms ({by})")
+    for b, x in times.items():
+        log(f"flash  timing q[{b},{t},{hq},{dh}] k/v[{b},{t},{hkv},{dh}]: kernel warm "
+            f"{x['kern']['ms']:.4f} ms, cold {x['kern']['cold_ms']:.4f} ms; sdpa warm "
+            f"{x['lib']['ms']:.4f}, cold {x['lib']['cold_ms']:.4f} ms; bound {x['bound']:.5f} ms "
+            f"({x['by']})" + (f"; eager with launch {eager_ms:.4f} ms, plain {plain_ms:.4f} ms"
+                              if b == 1 else ""))
 
 
 def check_decode(torch, rec: dict) -> None:
@@ -276,43 +342,64 @@ def check_decode(torch, rec: dict) -> None:
         worst = max(worst, err)
 
     # llama-3-8b stack; NaN poisons the slots past each pos (pos descending,
-    # so a later case never reads a poisoned valid slot).
+    # so a later case never reads a poisoned valid slot). Widths 1, 63, 65
+    # and 512 give the split plan its edge values (one split under one chunk,
+    # just past one, the first width that splits).
     L, S, hq, hkv, dh, layer = 32, 8192, 32, 8, 128, 7
     k = rnd(L, 1, S, hkv, dh)
     v = rnd(L, 1, S, hkv, dh)
     q = rnd(1, 1, hq, dh)
-    for pos, w in ((8191, 8192), (4000, 4096), (600, 640), (383, 384), (100, 128)):
+    for pos, w in ((8191, 8192), (4000, 4096), (600, 640), (511, 512), (383, 384), (100, 128),
+                   (64, 65), (62, 63), (0, 1)):
         k[layer, :, pos + 1:] = float("nan")
         v[layer, :, pos + 1:] = float("nan")
         compare("llama-3-8b", q, k, v, pos, layer, None, w)
-    # Timing at the slice's decode shape: prompt ~300 + 64 tokens → width 384
-    # (the timed layer is refilled: the cases above poisoned its tail).
     k[layer].normal_(generator=gen)
     v[layer].normal_(generator=gen)
+
+    # One CUDA graph of a decode call replayed at other frontiers: the
+    # kernel's merge tickets must be back at 0 after every launch.
+    rs0 = torch.zeros(1, dtype=torch.int32, device="cuda")
+    pos_t, layer_t, w = i32(100), i32(layer), 2048
+    da.decode_attention(q, k, v, pos_t, layer_t, rs0, kv_width=w)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = da.decode_attention(q, k, v, pos_t, layer_t, rs0, kv_width=w)
+    for pos in (100, 2047, 700, 5):
+        pos_t.fill_(pos)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = da.decode_attention_plain(q, k, v, pos, layer, rs0, kv_width=w)
+        err, tol = max_err(got, want), decode_tol(want)
+        log(f"decode graph replay at pos {pos}, width {w}: max_abs_err {err:.3e} (tol {tol:.3e})")
+        if err > tol:
+            raise AssertionError(f"decode graph replay at pos {pos}: err {err}")
+        worst = max(worst, err)
+    del graph
+
+    # Timing at the slice's decode shape (prompt ~300 + 64 tokens: width
+    # 384) and at the full llama-3-8b window, warm and cold.
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt = q.transpose(1, 2)                                   # [1, Hq, 1, dh]
+    times = {}
+    for pos, w in ((383, 384), (S - 1, S)):
+        pos_t = i32(pos)
+        kern = timed(lambda: da.decode_attention(q, k, v, pos_t, layer_t, rs0, kv_width=w), 200)
+        kt = k[layer, :, :w].transpose(1, 2).repeat_interleave(hq // hkv, dim=1).contiguous()
+        vt = v[layer, :, :w].transpose(1, 2).repeat_interleave(hq // hkv, dim=1).contiguous()
+        lib = timed(lambda: sdpa(qt, kt, vt), 200)
+        n_valid = pos + 1
+        bms, by = bound_ms(2.0 * (2 * n_valid * hkv * dh + 2 * hq * dh), 4.0 * hq * dh * n_valid)
+        times[w] = dict(kern=kern, lib=lib, bound=bms, by=by, pos=pos)
+        del kt, vt
     pos, w = 383, 384
-    pos_t, layer_t, rs0 = i32(pos), i32(layer), torch.zeros(1, dtype=torch.int32,
-                                                               device="cuda")
-    ms, how = device_time_ms(
-        lambda: da.decode_attention(q, k, v, pos_t, layer_t, rs0, kv_width=w), 200)
+    pos_t = i32(pos)
     eager_ms = eager_time_ms(
         lambda: da.decode_attention(q, k, v, pos_t, layer_t, rs0, kv_width=w), 200)
     plain_ms, _ = device_time_ms(
         lambda: da.decode_attention_plain(q, k, v, pos_t, layer_t, rs0, kv_width=w), 10)
-    # The long-context point (full llama-3-8b window), for the record.
-    last = i32(S - 1)
-    long_ms, _ = device_time_ms(
-        lambda: da.decode_attention(q, k, v, last, layer_t, rs0, kv_width=S), 100)
-    long_bms, _ = bound_ms(2.0 * 2 * S * hkv * dh, 4.0 * hq * dh * S)
-    qt = q.transpose(1, 2)                                   # [1, Hq, 1, dh]
-    kt = k[layer, :, :w].transpose(1, 2).repeat_interleave(hq // hkv, dim=1).contiguous()
-    vt = v[layer, :, :w].transpose(1, 2).repeat_interleave(hq // hkv, dim=1).contiguous()
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms, _ = device_time_ms(lambda: sdpa(qt, kt, vt), 200)
-    n_valid = pos + 1
-    nbytes = 2.0 * (2 * n_valid * hkv * dh + 2 * hq * dh)
-    flops = 4.0 * hq * dh * n_valid
-    bms, by = bound_ms(nbytes, flops)
-    del k, v, kt, vt
+    del k, v
     torch.cuda.empty_cache()
 
     # consensus-1b stack (GQA group 2), small edge cases.
@@ -326,20 +413,31 @@ def check_decode(torch, rec: dict) -> None:
     compare("window + softcap", rnd(4, 1, 8, 128), kr, vr, 120, 0, None, 128, 32, 20.0)
     km, vm = rnd(1, 1, 300, 1, 64), rnd(1, 1, 300, 1, 64)
     compare("MQA g=8, dh 64, w 300", rnd(1, 1, 8, 64), km, vm, 250, 0, None, 300)
+    kg, vg = rnd(1, 2, 1024, 1, 32), rnd(1, 2, 1024, 1, 32)
+    compare("group 16, dh 32, B 2", rnd(2, 1, 16, 32), kg, vg, 1000, 0, None, 1024)
+    short, full = times[384], times[S]
     rec.update(
         name="decode_attention", route="cuda",
         source="llm_consensus_tpu_torch/csrc/decode_attention.cu",
         replaces="llm_consensus_tpu/ops/pallas/decode_attention.py:415",
         shapes=f"q[1,1,{hq},{dh}] cache[{L},1,{S},{hkv},{dh}] bf16, pos {pos}, "
                f"kv_width {w}",
-        max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-        library_ms=library_ms,
+        max_abs_err=worst, ms=short["kern"]["ms"], cold_ms=short["kern"]["cold_ms"],
+        plain_ms=plain_ms, bound_ms=short["bound"], bound_by=short["by"],
+        bound_share=short["bound"] / short["kern"]["cold_ms"],
+        library_ms=short["lib"]["ms"], library_cold_ms=short["lib"]["cold_ms"],
+        w8192_ms=full["kern"]["ms"], w8192_cold_ms=full["kern"]["cold_ms"],
+        w8192_bound_ms=full["bound"], w8192_bound_share=full["bound"] / full["kern"]["cold_ms"],
+        w8192_library_ms=full["lib"]["ms"], w8192_library_cold_ms=full["lib"]["cold_ms"],
     )
-    log(f"decode timing {rec['shapes']}: kernel {ms:.4f} ms ({how}; eager with launch "
-        f"{eager_ms:.4f} ms), plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
-        f"bound {bms:.4f} ms ({by})")
-    log(f"decode timing at pos {S - 1}, kv_width {S}: kernel {long_ms:.4f} ms, "
-        f"bound {long_bms:.4f} ms (bytes)")
+    for w, x in times.items():
+        log(f"decode timing q[1,1,{hq},{dh}] cache[{L},1,{S},{hkv},{dh}] pos {x['pos']} width "
+            f"{w} (split plan {da.split_plan(w, 1, hkv)}): kernel warm {x['kern']['ms']:.4f} ms, "
+            f"cold {x['kern']['cold_ms']:.4f} ms; sdpa warm {x['lib']['ms']:.4f}, cold "
+            f"{x['lib']['cold_ms']:.4f} ms; bound {x['bound']:.5f} ms ({x['by']}), "
+            f"{100 * x['bound'] / x['kern']['cold_ms']:.1f} % of it cold"
+            + (f"; eager with launch {eager_ms:.4f} ms, plain {plain_ms:.4f} ms"
+               if w == 384 else ""))
 
 
 def check_decode_int8(torch, rec8: dict, rec_w8: dict) -> None:
@@ -439,12 +537,13 @@ def check_decode_int8(torch, rec8: dict, rec_w8: dict) -> None:
         def call(w8a8=w8a8):
             return da.decode_attention(q, k, v, pos_t, layer_t, rs0, kv_width=w, w8a8=w8a8)
 
-        ms, how = device_time_ms(call, 200)
+        kern = timed(call, 200)
+        ms = kern["ms"]
         eager_ms = eager_time_ms(call, 200)
         plain_ms, _ = device_time_ms(
             lambda w8a8=w8a8: da.decode_attention_plain(q, k, v, pos_t, layer_t, rs0,
                                                         kv_width=w, w8a8=w8a8), 10)
-        long_ms, _ = device_time_ms(
+        long = timed(
             lambda w8a8=w8a8: da.decode_attention(q, k, v, last, layer_t, rs0,
                                                   kv_width=S, w8a8=w8a8), 100)
         if w8a8:  # int8 x int8 scores, bf16 P.V
@@ -461,12 +560,14 @@ def check_decode_int8(torch, rec8: dict, rec_w8: dict) -> None:
                       "llm_consensus_tpu/ops/pallas/decode_attention.py:268"),
             shapes=f"q[1,1,{hq},{dh}] int8 cache[{L},1,{S},{hkv},{dh}] + bf16 scales, "
                    f"pos {pos}, kv_width {w}",
-            max_abs_err=worst[w8a8], ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-            library_ms=None,
+            max_abs_err=worst[w8a8], ms=ms, cold_ms=kern["cold_ms"], plain_ms=plain_ms,
+            bound_ms=bms, bound_by=by, bound_share=bms / kern["cold_ms"], library_ms=None,
+            w8192_ms=long["ms"], w8192_cold_ms=long["cold_ms"], w8192_bound_ms=long_bms,
         )
-        log(f"decode {name} timing {rec['shapes']}: kernel {ms:.4f} ms ({how}; eager with "
-            f"launch {eager_ms:.4f} ms), plain {plain_ms:.4f} ms, library none, bound "
-            f"{bms:.5f} ms ({by}); at pos {S - 1}, width {S}: kernel {long_ms:.4f} ms, "
+        log(f"decode {name} timing {rec['shapes']}: kernel warm {ms:.4f} ms, cold "
+            f"{kern['cold_ms']:.4f} ms (eager with launch {eager_ms:.4f} ms), plain "
+            f"{plain_ms:.4f} ms, library none, bound {bms:.5f} ms ({by}); at pos {S - 1}, "
+            f"width {S}: kernel warm {long['ms']:.4f} ms, cold {long['cold_ms']:.4f} ms, "
             f"bound {long_bms:.4f} ms")
     del k, v
     release_memory(torch)
@@ -577,27 +678,33 @@ def check_decode_state(torch, recs: dict) -> None:
             return da.decode_attention(q, kk, vv, pos_t, layer_t, rs_t, kv_width=w, w8a8=w8a8,
                                        return_state=True)
 
-        ms, how = device_time_ms(call, 200)
+        kern = timed(call, 200)
+        ms = kern["ms"]
         eager_ms = eager_time_ms(call, 200)
         plain_ms, _ = device_time_ms(
             lambda kk=kk, vv=vv, w8a8=w8a8: da.decode_attention_plain(
                 q, kk, vv, pos_t, layer_t, rs_t, kv_width=w, w8a8=w8a8, return_state=True), 10)
-        long_ms, _ = device_time_ms(
+        long = timed(
             lambda kk=kk, vv=vv, w8a8=w8a8: da.decode_attention(
                 q, kk, vv, last_t, layer3_t, rs0_t, kv_width=S, w8a8=w8a8, return_state=True),
             50)
-        library_ms = None
+        library = {"ms": None, "cold_ms": None}
         if key == "bf16":
             nbytes = 2.0 * 2 * n_valid * hkv * dh + io
             bms, by = bound_ms(nbytes, 4.0 * hq * dh * n_valid)
+            long_bms, _ = bound_ms(2.0 * 2 * B * S * hkv * dh + io, 4.0 * B * hq * dh * S)
             efficient = torch.ops.aten._scaled_dot_product_efficient_attention
-            library_ms, _ = device_time_ms(lambda: efficient(qt, kt, vt, bias, True), 200)
+            library = timed(lambda: efficient(qt, kt, vt, bias, True), 200)
         else:
             nbytes = 2.0 * n_valid * hkv * dh + 2.0 * 2 * n_valid * hkv + io
+            long_bytes = 2.0 * B * S * hkv * dh + 2.0 * 2 * B * S * hkv + io
             if w8a8:
                 bms, by = bound_ms(nbytes, 2.0 * hq * dh * n_valid, 2.0 * hq * dh * n_valid)
+                long_bms, _ = bound_ms(long_bytes, 2.0 * B * hq * dh * S, 2.0 * B * hq * dh * S)
             else:
                 bms, by = bound_ms(nbytes, 4.0 * hq * dh * n_valid)
+                long_bms, _ = bound_ms(long_bytes, 4.0 * B * hq * dh * S)
+        library_ms = library["ms"]
         rec = recs[key]
         rec.update(
             name=name, route="cuda", source="llm_consensus_tpu_torch/csrc/decode_attention.cu",
@@ -606,13 +713,19 @@ def check_decode_state(torch, recs: dict) -> None:
                     f"[{L},{B},{S},{hkv},{dh}], pos {pos}, kv_width {w}, row_start {list(rs)}, "
                     f"return_state"),
             max_abs_err=worst[key][0], m_max_abs_err=worst[key][1],
-            l_max_rel_err=worst[key][2], ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-            library_ms=library_ms,
+            l_max_rel_err=worst[key][2], ms=ms, cold_ms=kern["cold_ms"], plain_ms=plain_ms,
+            bound_ms=bms, bound_by=by, bound_share=bms / kern["cold_ms"], library_ms=library_ms,
+            library_cold_ms=library["cold_ms"], w8192_ms=long["ms"],
+            w8192_cold_ms=long["cold_ms"], w8192_bound_ms=long_bms,
+            w8192_bound_share=long_bms / long["cold_ms"],
         )
-        log(f"state  {name} timing {rec['shapes']}: kernel {ms:.4f} ms ({how}; eager with "
-            f"launch {eager_ms:.4f} ms), plain {plain_ms:.4f} ms, library "
-            f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, bound {bms:.5f} ms "
-            f"({by}); at pos {S - 1}, width {S}, B {B}: kernel {long_ms:.4f} ms")
+        lib_text = ("none" if library_ms is None else
+                    f"warm {library_ms:.4f}, cold {library['cold_ms']:.4f} ms")
+        log(f"state  {name} timing {rec['shapes']}: kernel warm {ms:.4f} ms, cold "
+            f"{kern['cold_ms']:.4f} ms (eager with launch {eager_ms:.4f} ms), plain "
+            f"{plain_ms:.4f} ms, library {lib_text}, bound {bms:.5f} ms ({by}); at pos {S - 1}, width {S}, B {B}: kernel warm "
+            f"{long['ms']:.4f} ms, cold {long['cold_ms']:.4f} ms, bound {long_bms:.4f} ms "
+            f"({100 * long_bms / long['cold_ms']:.1f} % of it cold)")
     del k, v, k8, v8, kt, vt, caches
     release_memory(torch)
 
@@ -869,13 +982,14 @@ def run_chunked(torch, fa, da, engine, seed: int) -> None:
         f"decode launches {da.LAUNCHES.count}, flash launches {fa.LAUNCHES.count}")
 
 
-def profile_decode(torch, engine, label: str = "profile", run=None) -> None:
+def profile_decode(torch, engine, label: str = "profile", run=None) -> dict:
     """Where the time goes: torch.profiler over ``run()`` (by default one
     llama-3-8b generate, 350-token prompt, 48 tokens), run once before to
     warm; device busy share of the wall, the kernels with the most device
     time, and the sums of the matmul (GEMM/GEMV) kernels and of the copy
     kernels (which carry the int8 → bf16 weight conversion of the plain
-    int8-weight matmul)."""
+    int8-weight matmul). Returns the port's kernels' (device ms, launches)
+    by name, or {} when the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from llm_consensus_tpu_torch.engine import SamplingParams
@@ -906,17 +1020,19 @@ def profile_decode(torch, engine, label: str = "profile", run=None) -> None:
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     if busy_ms == 0:
         log(f"{label}: torch.profiler captured no device time (not measured)")
-        return
+        return {}
     log(f"{label} (under torch.profiler): wall {wall_ms:.1f} ms, device busy "
         f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}% of wall)")
     for e in sorted(events, key=dev_us, reverse=True)[:12]:
         log(f"  {dev_us(e) / 1e3:9.2f} ms  {e.count:6d} calls  {e.key[:90]}")
     ours = {
-        name: sum(dev_us(e) for e in events if name in e.key) / 1e3
-        for name in ("flash_prefill_kernel", "decode_partial_kernel",
+        name: (sum(dev_us(e) for e in events if name in e.key) / 1e3,
+               sum(e.count for e in events if name in e.key))
+        for name in ("flash_prefill_kernel", "decode_bf16_kernel",
                      "decode_partial_q8_kernel", "decode_merge_kernel")
     }
-    log(f"  port kernels: {', '.join(f'{k} {v:.2f} ms' for k, v in ours.items())}")
+    log("  port kernels: " + ", ".join(f"{k} {ms:.2f} ms in {n} launches"
+                                       for k, (ms, n) in ours.items()))
     host = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0),
                   key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
     log("  host (self CPU time): " + ", ".join(
@@ -926,6 +1042,7 @@ def profile_decode(torch, engine, label: str = "profile", run=None) -> None:
     copies = sum(dev_us(e) for e in events if "copy" in e.key.lower())
     log(f"  matmul kernels {matmul / 1e3:.2f} ms, copy kernels {copies / 1e3:.2f} ms, "
         f"other {(busy_ms * 1e3 - matmul - copies) / 1e3:.2f} ms of device time")
+    return ours
 
 
 def run_long_context(torch, fa, da, seed: int) -> int:
@@ -1298,7 +1415,10 @@ def main(argv=None) -> int:
     if min(sl["launches"].values()) <= 0:
         raise AssertionError(f"a kernel of the slice never launched: {sl['launches']}")
     run_chunked(torch, fa, da, sl["engines"]["llama-3-8b"], args.seed)
-    profile_decode(torch, sl["engines"]["llama-3-8b"])
+    ours = profile_decode(torch, sl["engines"]["llama-3-8b"])
+    # The bf16 decode is one launch per call: no merge kernel beside it.
+    if ours and (ours["decode_merge_kernel"][1] != 0 or ours["decode_bf16_kernel"][1] <= 0):
+        raise AssertionError(f"bf16 decode profile: {ours}")
     single_responses = sl["responses"]
     del sl
     release_engines(torch, {})

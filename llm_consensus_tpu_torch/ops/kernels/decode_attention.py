@@ -33,6 +33,7 @@ and the merge drops such a row whatever its l).
 
 from __future__ import annotations
 
+import threading
 from typing import Optional, Union
 
 import torch
@@ -44,10 +45,18 @@ from llm_consensus_tpu_torch.ops.quant import is_quantized, quantize_rows_sym
 NEG_INF = -1e30  # the TPU kernel's mask value
 
 # Head widths the CUDA kernel is instantiated for, the largest GQA group it
-# holds in shared memory, and the kv slots one CTA covers.
+# holds (one 16-row tensor-core tile), the kv slots of one CTA of the int8
+# kernels, the least span of a bf16 split, the most splits the bf16
+# kernel's fused merge holds, and the CTAs per SM its plan aims at. The last two come from the card: one
+# merge round trip costs more than splitting under 256 slots saves, and a
+# second CTA per SM bought no bandwidth (measured on an H100, PERF.md §6).
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 16
 CHUNK = 64
+MIN_SPLIT = 256
+MAX_SPLIT = 512
+CTAS_PER_SM = 1
+H100_SMS = 132
 
 LAUNCHES = LaunchCounter()        # bf16 cache
 LAUNCHES_INT8 = LaunchCounter()   # int8 cache
@@ -64,6 +73,52 @@ def _pow2_block(width: int, cap: int) -> int:
     while bk * 2 <= cap and width % (bk * 2) == 0:
         bk *= 2
     return bk
+
+
+def split_plan(kv_width: int, batch: int, n_kv_heads: int, sms: int = H100_SMS) -> int:
+    """Splits per (row, kv head) of the bf16 kernel: as many CTAs
+    (``batch * n_kv_heads * n_split``) as fit ``CTAS_PER_SM`` to an SM in one
+    wave, never more (a second wave would double the time of the CTAs left
+    over), and no split shorter than ``MIN_SPLIT`` slots unless the width
+    is. It depends only on host ints, so one plan serves every step of a
+    CUDA graph."""
+    rows = batch * n_kv_heads
+    want = CTAS_PER_SM * sms // rows
+    return max(1, min(want, kv_width // MIN_SPLIT, MAX_SPLIT))
+
+
+def split_bounds(kv_width: int, n_split: int) -> list:
+    """The slots ``[start, end)`` of each split, as the kernel computes them:
+    split ``i`` starts at ``i * kv_width // n_split``."""
+    return [(i * kv_width // n_split, (i + 1) * kv_width // n_split) for i in range(n_split)]
+
+
+_sms: dict = {}
+_tickets: dict = {}
+_tickets_lock = threading.Lock()
+
+
+def _sm_count(dev: torch.device) -> int:
+    if dev.index not in _sms:
+        _sms[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _sms[dev.index]
+
+
+def _ticket_buffer(dev: torch.device, n: int) -> torch.Tensor:
+    """The bf16 kernel's int32 tickets on ``dev``, zero between launches (the
+    last CTA of each (row, kv head) resets its own). One buffer per device:
+    the port issues all device work of a device on one stream. Made outside
+    CUDA-graph capture, so a graph replays against zeros."""
+    with _tickets_lock:
+        buf = _tickets.get(dev.index)
+        if buf is None or buf.numel() < n:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "decode_attention: call it once outside CUDA-graph capture first "
+                    "(its ticket buffer is made then)")
+            buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+            _tickets[dev.index] = buf
+        return buf
 
 
 def decode_supported(n_heads: int, n_kv_heads: int, head_dim: int) -> bool:
@@ -266,34 +321,43 @@ def decode_attention(
                 or x.numel() != n or not x.is_contiguous()):
             raise ValueError(f"decode_attention: {name} must be {n} int32 on {dev}")
     w = s if kv_width is None else min(kv_width, s)
-    n_split = -(-w // CHUNK)
     scale = dh ** -0.5 if scale is None else scale
     lib = ensure_built()
-    part_m = torch.empty(b * hq * n_split, dtype=torch.float32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty(b * hq * n_split * dh, dtype=torch.float32, device=dev)
+    # bf16: the host's split plan, one launch with a fused merge; int8: one
+    # split per 64-slot chunk and the merge kernel.
+    n_split = -(-w // CHUNK) if quantized else split_plan(w, b, hkv, _sm_count(dev))
+    part_m = part_l = part_acc = tickets = None
+    if n_split > 1 or quantized:
+        part_m = torch.empty(b * hq * n_split, dtype=torch.float32, device=dev)
+        part_l = torch.empty_like(part_m)
+        part_acc = torch.empty(b * hq * n_split * dh, dtype=torch.float32, device=dev)
+    if n_split > 1 and not quantized:
+        tickets = _ticket_buffer(dev, b * hkv)
     out = torch.empty_like(q)
     m_out = l_out = None
     if return_state:
         m_out = torch.empty((b, hq), dtype=torch.float32, device=dev)
         l_out = torch.empty_like(m_out)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    index = (pos.data_ptr(), layer_idx.data_ptr(), row_start.data_ptr(),
+             ptr(part_m), ptr(part_l), ptr(part_acc))
     tail = (
-        pos.data_ptr(), layer_idx.data_ptr(), row_start.data_ptr(),
-        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
-        None if m_out is None else m_out.data_ptr(),
-        None if l_out is None else l_out.data_ptr(),
-        b, s, hq, hkv, dh, w, n_split,
+        out.data_ptr(), ptr(m_out), ptr(l_out), b, s, hq, hkv, dh, w, n_split,
         sliding_window or 0, float(logit_softcap or 0.0), float(scale),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     with torch.cuda.device(dev):
         if not quantized:
-            err = lib.llmc_decode_attention_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), *tail)
+            err = lib.llmc_decode_attention_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                                 *index, ptr(tickets), *tail)
             name, counter = "decode_attention", LAUNCHES
         else:
             fn = lib.llmc_decode_attention_int8_w8a8 if w8a8 else lib.llmc_decode_attention_int8
             err = fn(q.data_ptr(), k["q8"].data_ptr(), v["q8"].data_ptr(),
-                     k["s"].data_ptr(), v["s"].data_ptr(), *tail)
+                     k["s"].data_ptr(), v["s"].data_ptr(), *index, *tail)
             name = "decode_attention_int8_w8a8" if w8a8 else "decode_attention_int8"
             counter = LAUNCHES_W8A8 if w8a8 else LAUNCHES_INT8
     check(lib, err, name)

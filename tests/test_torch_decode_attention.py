@@ -131,6 +131,35 @@ def test_wrapper_on_cpu_takes_plain_version(monkeypatch):
     assert da.LAUNCHES.count == before
 
 
+@pytest.mark.parametrize("hkv", [1, 8])
+@pytest.mark.parametrize("b", [1, 4, 8])
+@pytest.mark.parametrize("width", [1, 64, 384, 8192, 131072])
+def test_split_plan_covers_the_width(width, b, hkv):
+    """The bf16 kernel's split plan: contiguous splits that cover the width,
+    none shorter than MIN_SPLIT (so none under a 64-slot chunk) unless the
+    width is, at most one wave of CTAs unless the rows alone need more, and
+    at least half an SM's worth where the width allows."""
+    n = da.split_plan(width, b, hkv)
+    bounds = da.split_bounds(width, n)
+    assert 1 <= n <= da.MAX_SPLIT and len(bounds) == n
+    assert bounds[0][0] == 0 and bounds[-1][1] == width
+    assert all(end == start for (_, end), (start, _) in zip(bounds, bounds[1:]))
+    assert all(end - start >= min(da.MIN_SPLIT, width) for start, end in bounds)
+    assert da.MIN_SPLIT >= da.CHUNK
+    ctas = b * hkv * n
+    assert ctas <= max(b * hkv, da.CTAS_PER_SM * da.H100_SMS)
+    assert ctas >= min(da.H100_SMS // 2, b * hkv * max(1, width // da.MIN_SPLIT))
+
+
+def test_split_plan_of_the_main_path():
+    assert da.split_plan(384, 1, 8) == 1       # llama-3-8b at the slice's width: no merge
+    assert da.split_plan(1536, 1, 8) == 6      # the chunked phase's width: 48 CTAs
+    assert da.split_plan(8192, 1, 8) == 16     # full window: 128 CTAs
+    assert da.split_plan(8192, 4, 8) == 4      # B 4: 128 CTAs, one wave
+    assert da.split_plan(256, 4, 8) == 1       # the batched state shape
+    assert da.split_plan(63, 1, 8) == 1        # below one chunk
+
+
 def test_gate_is_the_kernel_shape_limit():
     assert da.decode_supported(32, 8, 128)      # llama-3-8b
     assert da.decode_supported(16, 8, 128)      # consensus-1b

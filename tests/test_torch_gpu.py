@@ -279,3 +279,96 @@ def test_batcher_shared_prefix_runs_through_the_state_kernel(cuda):
         assert da.LAUNCHES.count - plain0 >= 19 * engine.cfg.n_layers
     finally:
         b.close()
+
+
+@pytest.mark.parametrize("b,t,s,hq,hkv,dh,off,window,cap", [
+    (1, 48, 48, 8, 2, 128, 0, None, None),       # T below one 128-row q tile
+    (1, 200, 200, 8, 8, 128, 0, None, None),     # ragged last q tile, group 1
+    (2, 320, 320, 8, 1, 128, 0, None, None),     # group 8
+    (1, 100, 300, 8, 2, 128, 170, None, None),   # q_offset: a kv tile straddles the diagonal
+    (1, 320, 320, 8, 2, 128, 0, 200, None),      # window ending mid-tile
+    (2, 128, 128, 8, 4, 128, 0, None, 30.0),     # softcap
+    (1, 200, 200, 8, 2, 32, 0, None, None),      # dh 32 (64-byte swizzle)
+    (1, 320, 320, 8, 2, 64, 0, None, None),      # dh 64
+    (4, 512, 512, 32, 8, 128, 0, None, None),    # the batcher's B = 4 admission wave
+])
+def test_flash_kernel_tiles_and_masks(cuda, b, t, s, hq, hkv, dh, off, window, cap):
+    """The Hopper flash kernel (128-row q tiles, 128-row kv tiles, masks only
+    on edge tiles) against its plain version where the tiling has edges."""
+    q, k, v = _bf16(cuda, 30, (b, t, hq, dh), (b, s, hkv, dh), (b, s, hkv, dh))
+    kw = dict(q_offset=off, sliding_window=window, logit_softcap=cap)
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    assert bool(torch.isfinite(got).all())
+    assert (got.float() - want.float()).abs().max().item() < TOL
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,pos,width,rs", [
+    (1, 64, 32, 8, 0, 1, (0,)),                    # one slot
+    (1, 128, 32, 8, 62, 63, (0,)),                 # below one chunk
+    (1, 128, 32, 8, 64, 65, (0,)),                 # one slot past a chunk
+    (1, 1024, 32, 8, 511, 512, (0,)),              # the first width that splits (2 x 256)
+    (1, 8192, 32, 8, 8191, 8192, (0,)),            # the full llama-3-8b window
+    (4, 1024, 32, 8, 700, 768, (0, 699, 700, 3)),  # ragged rows, one holds one slot
+])
+@pytest.mark.parametrize("state", [False, True], ids=["out", "state"])
+def test_decode_split_plan_edges(cuda, b, s, hq, hkv, pos, width, rs, state):
+    """The bf16 kernel at the split plan's edge widths, NaN past pos."""
+    q, k, v = _bf16(cuda, 31, (b, 1, hq, 128), (2, b, s, hkv, 128), (2, b, s, hkv, 128))
+    k[1, :, pos + 1:] = float("nan")
+    v[1, :, pos + 1:] = float("nan")
+    kw = dict(kv_width=width, return_state=state)
+    before = da.LAUNCHES.count
+    got = da.decode_attention(q, k, v, _i32(cuda, pos)[0], _i32(cuda, 1)[0], _i32(cuda, *rs),
+                              **kw)
+    torch.cuda.synchronize()
+    assert da.LAUNCHES.count == before + 1
+    want = da.decode_attention_plain(q, k, v, pos, 1, _i32(cuda, *rs), **kw)
+    got, want = (got, want) if state else ((got,), (want,))
+    assert bool(torch.isfinite(got[0]).all())
+    err, tol = _decode_err_and_tol(got[0], want[0])
+    assert err <= tol
+    if state:
+        assert (got[1] - want[1]).abs().max().item() <= 1e-2
+        assert ((got[2] - want[2]).abs() <= 1e-2 * want[2].abs() + 1e-6).all()
+
+
+def test_decode_state_row_with_nothing_valid_among_splits(cuda):
+    """A row whose row_start lies past pos, beside full rows, at a width
+    the plan splits: out 0, m = NEG_INF, l = 0 for it alone."""
+    (q,) = _bf16(cuda, 32, (4, 1, 32, 128))
+    k, v = _bf16(cuda, 33, (1, 4, 1024, 8, 128), (1, 4, 1024, 8, 128))
+    rs = _i32(cuda, 0, 900, 0, 10)
+    out, m, l = da.decode_attention(q, k, v, _i32(cuda, 899)[0], _i32(cuda, 0)[0], rs,
+                                    kv_width=1024, return_state=True)
+    torch.cuda.synchronize()
+    assert da.split_plan(1024, 4, 8) > 1
+    assert bool((out[1] == 0).all()) and bool((l[1] == 0).all())
+    assert bool((m[1] == da.NEG_INF).all())
+    assert bool((l[[0, 2, 3]] > 0).all())
+    want = da.decode_attention_plain(q, k, v, 899, 0, rs, kv_width=1024, return_state=True)
+    err, tol = _decode_err_and_tol(out, want[0])
+    assert err <= tol
+
+
+def test_decode_graph_replay_at_other_positions(cuda):
+    """One CUDA graph of a decode call replayed at four frontiers: the
+    kernel's merge tickets must be back at 0 after every launch, and pos is
+    read on the device."""
+    (q,) = _bf16(cuda, 34, (1, 1, 32, 128))
+    k, v = _bf16(cuda, 35, (1, 1, 2048, 8, 128), (1, 1, 2048, 8, 128))
+    pos, layer, rs = _i32(cuda, 100)[0], _i32(cuda, 0)[0], _i32(cuda, 0)
+    assert da.split_plan(2048, 1, 8) > 1
+    da.decode_attention(q, k, v, pos, layer, rs, kv_width=2048)  # makes the tickets
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = da.decode_attention(q, k, v, pos, layer, rs, kv_width=2048)
+    for p in (100, 2047, 700, 5):
+        pos.fill_(p)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = da.decode_attention_plain(q, k, v, p, 0, rs, kv_width=2048)
+        err, tol = _decode_err_and_tol(out, want)
+        assert err <= tol, (p, err, tol)
