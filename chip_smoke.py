@@ -14,8 +14,10 @@ Phases, in order; any failure exits non-zero before the last line:
    B = 4, ragged T, q_offset, window, softcap, GQA groups 1 and 8, dh 32
    and 64; decode over the bf16 cache at the split plan's edge widths and
    replayed from one CUDA graph at four frontiers; decode over the int8
-   cache; decode with W8A8 scores; the ``return_state`` form of all three
-   decode variants at B = 4 with ragged row starts); each timed with CUDA
+   cache and with W8A8 scores, at widths 1 to 8,192 across the split plan
+   and from a CUDA graph replayed at four frontiers, with the plan's least
+   split timed at 128, 256 and 512 slots; the ``return_state`` form of all
+   three decode variants at B = 4 with ragged row starts); each timed with CUDA
    graphs, warm (back-to-back calls on the same inputs) and cold (a 128 MiB
    write between calls flushes the 50 MB L2; the flushes alone are timed
    and subtracted), beside its plain version and, where one exists, one
@@ -31,7 +33,7 @@ Phases, in order; any failure exits non-zero before the last line:
    prompt (chunked prefill, then decode at a longer frontier);
 7. a torch.profiler window over one llama-3-8b generate: device busy
    share and the kernels with the most device time (the bf16 decode is one
-   launch per call: no merge kernel may appear);
+   launch per (layer, step): no merge kernel may appear);
 8. the batched slice: the CLI run with a panel of 4 x llama-3-8b and a
    llama-3-8b judge under ``LLMC_MAX_BATCH=4`` (one continuous batcher;
    the panel's shared prompt becomes the pool's shared prefix, so its
@@ -45,7 +47,8 @@ Phases, in order; any failure exits non-zero before the last line:
 9. the quantized slice: the same CLI run with ``LLMC_QUANT=int8
    LLMC_KV_QUANT=int8`` in the environment (int8 weights, int8 KV cache,
    the int8 decode kernel), then a profiler window over one of its
-   llama-3-8b generates;
+   llama-3-8b generates (one int8 decode launch per (layer, step), no
+   merge kernel);
 10. long context: llama-3.1-8b with int8 weights and the int8 cache at its
     full 131,072 slots, an 8,000-token prompt (chunked prefill) and 64
     decoded tokens;
@@ -487,18 +490,49 @@ def check_decode_int8(torch, rec8: dict, rec_w8: dict) -> None:
 
     # llama-3-8b int8 stack; garbage codes and NaN scales poison the slots
     # past each pos of the layer (pos descending, so a later case never
-    # reads a poisoned valid slot).
+    # reads a poisoned valid slot). The widths walk the split plan from 16
+    # splits down to one, through split bounds off multiples of 8 (2,999),
+    # the first width that splits (1,024), one chunk (128), just past one
+    # (65), under one (63) and one slot.
     L, S, hq, hkv, dh, layer = 32, 8192, 32, 8, 128, 7
     k, v = int8_side(L, 1, S, hkv), int8_side(L, 1, S, hkv)
     q = rnd(1, 1, hq, dh)
-    for pos, w in ((8191, 8192), (4000, 4096), (383, 384)):
+    for pos, w in ((8191, 8192), (4000, 4096), (2998, 2999), (1500, 1536), (1023, 1024),
+                   (600, 640), (511, 512), (383, 384), (100, 128), (64, 65), (62, 63), (0, 1)):
         for side in (k, v):
             side["q8"][layer, :, pos + 1:] = 127
             side["s"][layer, :, :, pos + 1:] = float("nan")
         compare("llama-3-8b", q, k, v, pos, layer, None, w)
+    for side in (k, v):
+        codes, scale = quantize_kv(rnd(1, S, hkv, dh))
+        side["q8"][layer].copy_(codes)
+        side["s"][layer].copy_(scale[..., 0].transpose(1, 2))
+
+    # One CUDA graph of each variant replayed at other frontiers: the
+    # kernel's merge tickets must be back at 0 after every launch.
+    rs0 = torch.zeros(1, dtype=torch.int32, device="cuda")
+    for w8a8 in (False, True):
+        variant = "w8a8" if w8a8 else "int8"
+        pos_t, layer_t, w = i32(100), i32(layer), 2048
+        da.decode_attention(q, k, v, pos_t, layer_t, rs0, kv_width=w, w8a8=w8a8)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = da.decode_attention(q, k, v, pos_t, layer_t, rs0, kv_width=w, w8a8=w8a8)
+        for pos in (100, 2047, 700, 5):
+            pos_t.fill_(pos)
+            graph.replay()
+            torch.cuda.synchronize()
+            want = da.decode_attention_plain(q, k, v, pos, layer, rs0, kv_width=w, w8a8=w8a8)
+            err, tol = max_err(got, want), decode_tol(want)
+            log(f"decode {variant} graph replay at pos {pos}, width {w}: max_abs_err {err:.3e} "
+                f"(tol {tol:.3e})")
+            if not bool(torch.isfinite(got).all()) or err > tol:
+                raise AssertionError(f"decode {variant} graph replay at pos {pos}: err {err}")
+            worst[w8a8] = max(worst[w8a8], err)
+        del graph
     pos, w = 383, 384
     pos_t, layer_t, last = i32(pos), i32(layer), i32(S - 1)
-    rs0 = torch.zeros(1, dtype=torch.int32, device="cuda")
     # With unit-normal q, rounding q to int8 moves the output far less than
     # the tolerance, so the cases above cannot tell W8A8 from int8. Here q
     # has one outlier of 127 per head, on a dimension where every K code is
@@ -563,12 +597,38 @@ def check_decode_int8(torch, rec8: dict, rec_w8: dict) -> None:
             max_abs_err=worst[w8a8], ms=ms, cold_ms=kern["cold_ms"], plain_ms=plain_ms,
             bound_ms=bms, bound_by=by, bound_share=bms / kern["cold_ms"], library_ms=None,
             w8192_ms=long["ms"], w8192_cold_ms=long["cold_ms"], w8192_bound_ms=long_bms,
+            w8192_bound_share=long_bms / long["cold_ms"],
         )
-        log(f"decode {name} timing {rec['shapes']}: kernel warm {ms:.4f} ms, cold "
-            f"{kern['cold_ms']:.4f} ms (eager with launch {eager_ms:.4f} ms), plain "
-            f"{plain_ms:.4f} ms, library none, bound {bms:.5f} ms ({by}); at pos {S - 1}, "
-            f"width {S}: kernel warm {long['ms']:.4f} ms, cold {long['cold_ms']:.4f} ms, "
-            f"bound {long_bms:.4f} ms")
+        log(f"decode {name} timing {rec['shapes']} (split plan "
+            f"{da.split_plan(w, 1, hkv)}): kernel warm {ms:.4f} ms, "
+            f"cold {kern['cold_ms']:.4f} ms (eager with launch {eager_ms:.4f} ms), plain "
+            f"{plain_ms:.4f} ms, library none, bound {bms:.5f} ms ({by}), "
+            f"{100 * bms / kern['cold_ms']:.1f} % of it cold; at pos {S - 1}, width {S} (split "
+            f"plan {da.split_plan(S, 1, hkv)}): kernel warm "
+            f"{long['ms']:.4f} ms, cold {long['cold_ms']:.4f} ms, bound {long_bms:.5f} ms, "
+            f"{100 * long_bms / long['cold_ms']:.1f} % of it cold")
+
+    # The plan's least split over the int8 cache, whose slots carry half
+    # the bf16 bytes: 128, 256 (the shipped MIN_SPLIT) and 512 slots, cold,
+    # at widths where the plans differ (B 1), in turns.
+    shipped = da.MIN_SPLIT
+    by_min, splits = {}, {}
+    try:
+        for min_split in (128, 256, 512, 512, 256, 128):
+            da.MIN_SPLIT = min_split
+            for width in (384, 1024, 2048, 8064):
+                splits[min_split, width] = da.split_plan(width, 1, hkv)
+                t = device_time_ms(lambda width=width, p=i32(width - 1): da.decode_attention(
+                    q, k, v, p, layer_t, rs0, kv_width=width), 100, cold=True)[0]
+                by_min.setdefault(min_split, {}).setdefault(width, []).append(t)
+    finally:
+        da.MIN_SPLIT = shipped
+    for min_split, times in by_min.items():
+        log(f"decode int8 least split {min_split}: cold ms by width (two runs each) "
+            + ", ".join(f"{width} ({splits[min_split, width]} splits) {t[0]:.4f}/{t[1]:.4f}"
+                        for width, t in times.items()))
+    rec8["min_split_cold_ms"] = {str(m): {str(w): sum(t) / len(t) for w, t in times.items()}
+                                 for m, times in by_min.items()}
     del k, v
     release_memory(torch)
 
@@ -982,14 +1042,34 @@ def run_chunked(torch, fa, da, engine, seed: int) -> None:
         f"decode launches {da.LAUNCHES.count}, flash launches {fa.LAUNCHES.count}")
 
 
-def profile_decode(torch, engine, label: str = "profile", run=None) -> dict:
+# The int8 decode's two launches before it became one (a partial kernel and
+# a merge kernel): no profile may show them.
+OLD_DECODE_SYMBOLS = ("decode_partial_q8_kernel", "decode_merge_kernel")
+
+
+def check_one_launch_per_step(ours: dict, kernel: str, other: str, counter, n_layers: int,
+                              label: str) -> None:
+    """The profiled generate ran ``kernel`` once per (layer, decode step):
+    as many launches as its wrapper counted, a whole number of steps, and
+    none of ``other`` or of the old two-launch symbols."""
+    n = ours[kernel][1]
+    if (n != counter.count or n <= 0 or n % n_layers or ours[other][1] != 0
+            or any(ours[s][1] for s in OLD_DECODE_SYMBOLS)):
+        raise AssertionError(f"{label}: {ours}, wrapper launches {counter.count}")
+    log(f"  {label}: {n} {kernel} launches = {n // n_layers} decode steps x {n_layers} layers, "
+        f"one per call, no {other} or {'/'.join(OLD_DECODE_SYMBOLS)}")
+
+
+def profile_decode(torch, engine, label: str = "profile", run=None, counter=None) -> dict:
     """Where the time goes: torch.profiler over ``run()`` (by default one
     llama-3-8b generate, 350-token prompt, 48 tokens), run once before to
     warm; device busy share of the wall, the kernels with the most device
     time, and the sums of the matmul (GEMM/GEMV) kernels and of the copy
     kernels (which carry the int8 → bf16 weight conversion of the plain
     int8-weight matmul). Returns the port's kernels' (device ms, launches)
-    by name, or {} when the profiler saw no device time."""
+    by name, or {} when the profiler saw no device time. ``counter``, when
+    given, is set to 0 just before the profiled run, so it holds that run's
+    wrapper launches."""
     from torch.profiler import ProfilerActivity, profile
 
     from llm_consensus_tpu_torch.engine import SamplingParams
@@ -1003,6 +1083,8 @@ def profile_decode(torch, engine, label: str = "profile", run=None) -> dict:
 
     run()  # warm
     torch.cuda.synchronize()
+    if counter is not None:
+        counter.reset()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         run()
@@ -1028,8 +1110,8 @@ def profile_decode(torch, engine, label: str = "profile", run=None) -> dict:
     ours = {
         name: (sum(dev_us(e) for e in events if name in e.key) / 1e3,
                sum(e.count for e in events if name in e.key))
-        for name in ("flash_prefill_kernel", "decode_bf16_kernel",
-                     "decode_partial_q8_kernel", "decode_merge_kernel")
+        for name in ("flash_prefill_kernel", "decode_bf16_kernel", "decode_q8_kernel",
+                     *OLD_DECODE_SYMBOLS)
     }
     log("  port kernels: " + ", ".join(f"{k} {ms:.2f} ms in {n} launches"
                                        for k, (ms, n) in ours.items()))
@@ -1415,10 +1497,13 @@ def main(argv=None) -> int:
     if min(sl["launches"].values()) <= 0:
         raise AssertionError(f"a kernel of the slice never launched: {sl['launches']}")
     run_chunked(torch, fa, da, sl["engines"]["llama-3-8b"], args.seed)
-    ours = profile_decode(torch, sl["engines"]["llama-3-8b"])
+    engine = sl["engines"]["llama-3-8b"]
+    ours = profile_decode(torch, engine, counter=da.LAUNCHES)
     # The bf16 decode is one launch per call: no merge kernel beside it.
-    if ours and (ours["decode_merge_kernel"][1] != 0 or ours["decode_bf16_kernel"][1] <= 0):
-        raise AssertionError(f"bf16 decode profile: {ours}")
+    if ours:
+        check_one_launch_per_step(ours, "decode_bf16_kernel", "decode_q8_kernel", da.LAUNCHES,
+                                  engine.cfg.n_layers, "bf16 decode profile")
+    del engine
     single_responses = sl["responses"]
     del sl
     release_engines(torch, {})
@@ -1437,7 +1522,13 @@ def main(argv=None) -> int:
     if (qsl["launches"]["flash_attention"] <= 0 or int8_rec["launches"] <= 0
             or qsl["launches"]["decode_attention"] != 0):
         raise AssertionError(f"quantized slice routing: {qsl['launches']}")
-    profile_decode(torch, qsl["engines"]["llama-3-8b"], "profile int8")
+    engine = qsl["engines"]["llama-3-8b"]
+    ours = profile_decode(torch, engine, "profile int8", counter=da.LAUNCHES_INT8)
+    # The int8 decode is one launch per call too: one q8 kernel a (layer, step).
+    if ours:
+        check_one_launch_per_step(ours, "decode_q8_kernel", "decode_bf16_kernel",
+                                  da.LAUNCHES_INT8, engine.cfg.n_layers, "int8 decode profile")
+    del engine
     modes = qsl["modes"]
     del qsl
     release_engines(torch, modes)

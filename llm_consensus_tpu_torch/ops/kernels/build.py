@@ -137,7 +137,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         fn.argtypes = [
             p, p, p, p, p,         # q, k codes, v codes, k scales, v scales
             p, p, p,               # pos, layer, row_start (device int32)
-            p, p, p, p,            # part_m, part_l, part_acc, out
+            p, p, p, p, p,         # part_m, part_l, part_acc, tickets (NULL at one split), out
             p, p,                  # m_out, l_out (NULL unless return_state)
             i, i, i, i, i,         # B, S, Hq, Hkv, dh
             i, i, i, f, f,         # kv_width, n_split, window, softcap, scale

@@ -13,6 +13,10 @@ variants, each a kernel in ``csrc/decode_attention.cu``:
     TPU kernel's dense-GQA form): q quantized per (row, head) to int8 with a
     float32 scale, int8 x int8 scores with int32 accumulation, P.V in bf16.
 
+All three are one launch per call: a split plan made here from the shape
+(:func:`split_plan`), a ``cp.async`` ring of 128-slot chunks, tensor-core
+scores, and the merge of the splits fused into the launch (the last CTA of
+each (row, kv head) merges, after a ticket in a per-device int32 buffer).
 Each variant also has a ``return_state`` form (the shared-prefix decode
 path): the kernel's merge writes the softmax state it already holds, fp32
 ``(m, l)`` [B, Hq], beside the output, in the same launch. ``m`` is the max
@@ -45,14 +49,16 @@ from llm_consensus_tpu_torch.ops.quant import is_quantized, quantize_rows_sym
 NEG_INF = -1e30  # the TPU kernel's mask value
 
 # Head widths the CUDA kernel is instantiated for, the largest GQA group it
-# holds (one 16-row tensor-core tile), the kv slots of one CTA of the int8
-# kernels, the least span of a bf16 split, the most splits the bf16
-# kernel's fused merge holds, and the CTAs per SM its plan aims at. The last two come from the card: one
-# merge round trip costs more than splitting under 256 slots saves, and a
-# second CTA per SM bought no bandwidth (measured on an H100, PERF.md §6).
+# holds (one 16-row tensor-core tile), the kv slots of one chunk of its
+# ring, the least span of a split, the most splits its fused merge holds,
+# and the CTAs per SM its plan aims at. The least split and the CTAs per SM
+# come from the card: over either cache one merge round trip costs more
+# than a split under 256 slots saves (the int8 cache measured at 128, 256
+# and 512), and a second CTA per SM bought no bandwidth (measured on an
+# H100, PERF.md §6).
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 16
-CHUNK = 64
+RING_CHUNK = 128
 MIN_SPLIT = 256
 MAX_SPLIT = 512
 CTAS_PER_SM = 1
@@ -76,12 +82,12 @@ def _pow2_block(width: int, cap: int) -> int:
 
 
 def split_plan(kv_width: int, batch: int, n_kv_heads: int, sms: int = H100_SMS) -> int:
-    """Splits per (row, kv head) of the bf16 kernel: as many CTAs
-    (``batch * n_kv_heads * n_split``) as fit ``CTAS_PER_SM`` to an SM in one
-    wave, never more (a second wave would double the time of the CTAs left
-    over), and no split shorter than ``MIN_SPLIT`` slots unless the width
-    is. It depends only on host ints, so one plan serves every step of a
-    CUDA graph."""
+    """Splits per (row, kv head) of the decode kernel, over either cache: as
+    many CTAs (``batch * n_kv_heads * n_split``) as fit ``CTAS_PER_SM`` to an
+    SM in one wave, never more (a second wave would double the time of the
+    CTAs left over), and no split shorter than ``MIN_SPLIT`` slots unless
+    the width is. It depends only on host ints, so one plan serves every
+    step of a CUDA graph."""
     rows = batch * n_kv_heads
     want = CTAS_PER_SM * sms // rows
     return max(1, min(want, kv_width // MIN_SPLIT, MAX_SPLIT))
@@ -105,7 +111,7 @@ def _sm_count(dev: torch.device) -> int:
 
 
 def _ticket_buffer(dev: torch.device, n: int) -> torch.Tensor:
-    """The bf16 kernel's int32 tickets on ``dev``, zero between launches (the
+    """The decode kernel's int32 tickets on ``dev``, zero between launches (the
     last CTA of each (row, kv head) resets its own). One buffer per device:
     the port issues all device work of a device on one stream. Made outside
     CUDA-graph capture, so a graph replays against zeros."""
@@ -308,6 +314,8 @@ def decode_attention(
                             f"{name} is {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"decode_attention: {name} must be contiguous")
+        if x.data_ptr() % 16:
+            raise ValueError(f"decode_attention: {name} must start on a 16-byte boundary")
     kc = k["q8"] if quantized else k
     b, _, hq, dh = q.shape
     s, hkv = kc.shape[2], kc.shape[3]
@@ -323,15 +331,14 @@ def decode_attention(
     w = s if kv_width is None else min(kv_width, s)
     scale = dh ** -0.5 if scale is None else scale
     lib = ensure_built()
-    # bf16: the host's split plan, one launch with a fused merge; int8: one
-    # split per 64-slot chunk and the merge kernel.
-    n_split = -(-w // CHUNK) if quantized else split_plan(w, b, hkv, _sm_count(dev))
+    # The host's split plan; one launch, whose last CTA per (row, kv head)
+    # merges the splits.
+    n_split = split_plan(w, b, hkv, _sm_count(dev))
     part_m = part_l = part_acc = tickets = None
-    if n_split > 1 or quantized:
+    if n_split > 1:
         part_m = torch.empty(b * hq * n_split, dtype=torch.float32, device=dev)
         part_l = torch.empty_like(part_m)
         part_acc = torch.empty(b * hq * n_split * dh, dtype=torch.float32, device=dev)
-    if n_split > 1 and not quantized:
         tickets = _ticket_buffer(dev, b * hkv)
     out = torch.empty_like(q)
     m_out = l_out = None
@@ -343,7 +350,7 @@ def decode_attention(
         return None if x is None else x.data_ptr()
 
     index = (pos.data_ptr(), layer_idx.data_ptr(), row_start.data_ptr(),
-             ptr(part_m), ptr(part_l), ptr(part_acc))
+             ptr(part_m), ptr(part_l), ptr(part_acc), ptr(tickets))
     tail = (
         out.data_ptr(), ptr(m_out), ptr(l_out), b, s, hq, hkv, dh, w, n_split,
         sliding_window or 0, float(logit_softcap or 0.0), float(scale),
@@ -352,7 +359,7 @@ def decode_attention(
     with torch.cuda.device(dev):
         if not quantized:
             err = lib.llmc_decode_attention_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                                 *index, ptr(tickets), *tail)
+                                                 *index, *tail)
             name, counter = "decode_attention", LAUNCHES
         else:
             fn = lib.llmc_decode_attention_int8_w8a8 if w8a8 else lib.llmc_decode_attention_int8

@@ -133,19 +133,21 @@ def test_wrapper_on_cpu_takes_plain_version(monkeypatch):
 
 @pytest.mark.parametrize("hkv", [1, 8])
 @pytest.mark.parametrize("b", [1, 4, 8])
-@pytest.mark.parametrize("width", [1, 64, 384, 8192, 131072])
+@pytest.mark.parametrize("width", [1, 64, 384, 8192, 131072, 1536, 8064])
 def test_split_plan_covers_the_width(width, b, hkv):
-    """The bf16 kernel's split plan: contiguous splits that cover the width,
-    none shorter than MIN_SPLIT (so none under a 64-slot chunk) unless the
-    width is, at most one wave of CTAs unless the rows alone need more, and
-    at least half an SM's worth where the width allows."""
+    """The decode kernel's split plan, over the bf16 and the int8 cache
+    alike (1,536 and 8,064 are the int8 phases' widths): contiguous splits
+    that cover the width, none shorter than MIN_SPLIT (so none under one
+    128-slot ring chunk) unless the width is, at most one wave of CTAs
+    unless the rows alone need more, and at least half an SM's worth where
+    the width allows."""
     n = da.split_plan(width, b, hkv)
     bounds = da.split_bounds(width, n)
     assert 1 <= n <= da.MAX_SPLIT and len(bounds) == n
     assert bounds[0][0] == 0 and bounds[-1][1] == width
     assert all(end == start for (_, end), (start, _) in zip(bounds, bounds[1:]))
     assert all(end - start >= min(da.MIN_SPLIT, width) for start, end in bounds)
-    assert da.MIN_SPLIT >= da.CHUNK
+    assert da.MIN_SPLIT >= da.RING_CHUNK
     ctas = b * hkv * n
     assert ctas <= max(b * hkv, da.CTAS_PER_SM * da.H100_SMS)
     assert ctas >= min(da.H100_SMS // 2, b * hkv * max(1, width // da.MIN_SPLIT))
@@ -158,6 +160,10 @@ def test_split_plan_of_the_main_path():
     assert da.split_plan(8192, 4, 8) == 4      # B 4: 128 CTAs, one wave
     assert da.split_plan(256, 4, 8) == 1       # the batched state shape
     assert da.split_plan(63, 1, 8) == 1        # below one chunk
+    # The int8 cache takes the same plan (the quantized slice at 384, the
+    # long-context phase at 8,064).
+    assert da.split_plan(8064, 1, 8) == 16     # long context: 128 CTAs
+    assert da.split_plan(8064, 1, 32) == 4     # a 32-kv-head model there: 128 CTAs
 
 
 def test_gate_is_the_kernel_shape_limit():

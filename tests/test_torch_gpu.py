@@ -304,26 +304,68 @@ def test_flash_kernel_tiles_and_masks(cuda, b, t, s, hq, hkv, dh, off, window, c
     assert (got.float() - want.float()).abs().max().item() < TOL
 
 
-@pytest.mark.parametrize("b,s,hq,hkv,pos,width,rs", [
-    (1, 64, 32, 8, 0, 1, (0,)),                    # one slot
-    (1, 128, 32, 8, 62, 63, (0,)),                 # below one chunk
-    (1, 128, 32, 8, 64, 65, (0,)),                 # one slot past a chunk
-    (1, 1024, 32, 8, 511, 512, (0,)),              # the first width that splits (2 x 256)
-    (1, 8192, 32, 8, 8191, 8192, (0,)),            # the full llama-3-8b window
-    (4, 1024, 32, 8, 700, 768, (0, 699, 700, 3)),  # ragged rows, one holds one slot
+VARIANTS = ["bf16", "int8", "w8a8"]
+COUNTERS = {"bf16": "LAUNCHES", "int8": "LAUNCHES_INT8", "w8a8": "LAUNCHES_W8A8"}
+
+
+def _cache(cuda, variant, seed, l, b, s, hkv, dh=128):
+    """k and v stacks [l, b, s, hkv, dh] of the variant's cache (bf16, or the
+    int8 dicts for int8 and w8a8), made on the card from a seed."""
+    from llm_consensus_tpu_torch.ops.quant import quantize_kv
+
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    out = []
+    for _ in range(2):
+        x = torch.randn((l, b, s, hkv, dh), generator=gen, device=cuda, dtype=torch.bfloat16)
+        if variant != "bf16":
+            q8, sc = quantize_kv(x)
+            x = {"q8": q8.contiguous(), "s": sc[..., 0].transpose(2, 3).contiguous()}
+        out.append(x)
+    return out
+
+
+def _poison(k, v, layer, pos, rs=()):
+    """Garbage in layer ``layer`` past ``pos`` and before each row's
+    row_start: NaN (bf16), or NaN scales and codes of 127 (int8). None of it
+    may reach the output."""
+    spans = [(slice(None), slice(pos + 1, None))] + [(i, slice(0, r)) for i, r in enumerate(rs)]
+    for row, span in spans:
+        for side in (k, v):
+            if isinstance(side, dict):
+                side["q8"][layer, row, span] = 127
+                side["s"][layer, row, :, span] = float("nan")
+            else:
+                side[layer, row, span] = float("nan")
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,pos,width,rs,dh", [
+    (1, 64, 32, 8, 0, 1, (0,), 128),                    # one slot
+    (1, 128, 32, 8, 62, 63, (0,), 128),                 # below one chunk
+    (1, 128, 32, 8, 64, 65, (0,), 128),                 # one slot past a chunk
+    (1, 1024, 32, 8, 511, 512, (0,), 128),              # the first width that splits (2 x 256)
+    (1, 8192, 32, 8, 8191, 8192, (0,), 128),            # the full llama-3-8b window
+    (4, 1024, 32, 8, 700, 768, (0, 699, 700, 3), 128),  # ragged rows, one holds one slot
+    (1, 3000, 32, 8, 2998, 2999, (0,), 128),            # split bounds off multiples of 8
+    (4, 1024, 32, 8, 900, 1000, (37, 3, 901, 13), 128), # row starts off 8, one row empty
+    (2, 2048, 8, 2, 2000, 2040, (5, 77), 32),           # dh 32
+    (1, 1536, 16, 4, 1500, 1533, (19,), 64),            # dh 64
+    (1, 131072, 32, 8, 131000, 131072, (0,), 128),      # the long-context stack's S
 ])
 @pytest.mark.parametrize("state", [False, True], ids=["out", "state"])
-def test_decode_split_plan_edges(cuda, b, s, hq, hkv, pos, width, rs, state):
-    """The bf16 kernel at the split plan's edge widths, NaN past pos."""
-    q, k, v = _bf16(cuda, 31, (b, 1, hq, 128), (2, b, s, hkv, 128), (2, b, s, hkv, 128))
-    k[1, :, pos + 1:] = float("nan")
-    v[1, :, pos + 1:] = float("nan")
-    kw = dict(kv_width=width, return_state=state)
-    before = da.LAUNCHES.count
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_decode_split_plan_edges(cuda, variant, b, s, hq, hkv, pos, width, rs, dh, state):
+    """Each decode kernel at the split plan's edge widths, with garbage past
+    pos and before each row's start."""
+    (q,) = _bf16(cuda, 31, (b, 1, hq, dh))
+    k, v = _cache(cuda, variant, 31, 2, b, s, hkv, dh)
+    _poison(k, v, 1, pos, rs)
+    kw = dict(kv_width=width, return_state=state, w8a8=variant == "w8a8")
+    counter = getattr(da, COUNTERS[variant])
+    before = counter.count
     got = da.decode_attention(q, k, v, _i32(cuda, pos)[0], _i32(cuda, 1)[0], _i32(cuda, *rs),
                               **kw)
     torch.cuda.synchronize()
-    assert da.LAUNCHES.count == before + 1
+    assert counter.count == before + 1
     want = da.decode_attention_plain(q, k, v, pos, 1, _i32(cuda, *rs), **kw)
     got, want = (got, want) if state else ((got,), (want,))
     assert bool(torch.isfinite(got[0]).all())
@@ -334,41 +376,44 @@ def test_decode_split_plan_edges(cuda, b, s, hq, hkv, pos, width, rs, state):
         assert ((got[2] - want[2]).abs() <= 1e-2 * want[2].abs() + 1e-6).all()
 
 
-def test_decode_state_row_with_nothing_valid_among_splits(cuda):
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_decode_state_row_with_nothing_valid_among_splits(cuda, variant):
     """A row whose row_start lies past pos, beside full rows, at a width
     the plan splits: out 0, m = NEG_INF, l = 0 for it alone."""
     (q,) = _bf16(cuda, 32, (4, 1, 32, 128))
-    k, v = _bf16(cuda, 33, (1, 4, 1024, 8, 128), (1, 4, 1024, 8, 128))
+    k, v = _cache(cuda, variant, 33, 1, 4, 1024, 8)
     rs = _i32(cuda, 0, 900, 0, 10)
-    out, m, l = da.decode_attention(q, k, v, _i32(cuda, 899)[0], _i32(cuda, 0)[0], rs,
-                                    kv_width=1024, return_state=True)
+    kw = dict(kv_width=1024, return_state=True, w8a8=variant == "w8a8")
+    out, m, l = da.decode_attention(q, k, v, _i32(cuda, 899)[0], _i32(cuda, 0)[0], rs, **kw)
     torch.cuda.synchronize()
     assert da.split_plan(1024, 4, 8) > 1
     assert bool((out[1] == 0).all()) and bool((l[1] == 0).all())
     assert bool((m[1] == da.NEG_INF).all())
     assert bool((l[[0, 2, 3]] > 0).all())
-    want = da.decode_attention_plain(q, k, v, 899, 0, rs, kv_width=1024, return_state=True)
+    want = da.decode_attention_plain(q, k, v, 899, 0, rs, **kw)
     err, tol = _decode_err_and_tol(out, want[0])
     assert err <= tol
 
 
-def test_decode_graph_replay_at_other_positions(cuda):
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_decode_graph_replay_at_other_positions(cuda, variant):
     """One CUDA graph of a decode call replayed at four frontiers: the
     kernel's merge tickets must be back at 0 after every launch, and pos is
     read on the device."""
     (q,) = _bf16(cuda, 34, (1, 1, 32, 128))
-    k, v = _bf16(cuda, 35, (1, 1, 2048, 8, 128), (1, 1, 2048, 8, 128))
+    k, v = _cache(cuda, variant, 35, 1, 1, 2048, 8)
     pos, layer, rs = _i32(cuda, 100)[0], _i32(cuda, 0)[0], _i32(cuda, 0)
+    kw = dict(kv_width=2048, w8a8=variant == "w8a8")
     assert da.split_plan(2048, 1, 8) > 1
-    da.decode_attention(q, k, v, pos, layer, rs, kv_width=2048)  # makes the tickets
+    da.decode_attention(q, k, v, pos, layer, rs, **kw)  # makes the tickets
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        out = da.decode_attention(q, k, v, pos, layer, rs, kv_width=2048)
+        out = da.decode_attention(q, k, v, pos, layer, rs, **kw)
     for p in (100, 2047, 700, 5):
         pos.fill_(p)
         graph.replay()
         torch.cuda.synchronize()
-        want = da.decode_attention_plain(q, k, v, p, 0, rs, kv_width=2048)
+        want = da.decode_attention_plain(q, k, v, p, 0, rs, **kw)
         err, tol = _decode_err_and_tol(out, want)
         assert err <= tol, (p, err, tol)
