@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --phase kernels   # build + kernel checks only
+    python3 chip_smoke.py --phase mixtral   # build + the Mixtral phases only
 
 Phases, in order; any failure exits non-zero before the last line:
 
@@ -55,7 +56,25 @@ Phases, in order; any failure exits non-zero before the last line:
 11. W8A8 and int4: one llama-3-8b generate each (350-token prompt, 48
     tokens), the first with int8 x int8 matmuls and decode scores (the W8A8
     decode kernel), the second with int4 weights;
-12. a ``{"kernels": [...]}`` line, the card line, then the
+12. Mixtral's shapes: one mixtral-8x7b layer's ``moe_block`` (d 4096,
+    d_ff 14336, 8 experts, top-2) in float32 on the card against float32
+    on the CPU at 1, 4 and 512 tokens, and the int8 and W8A8 decode
+    kernels over its [32, 1, 32768, 8, 128] cache;
+13. the Mixtral slice: the CLI run with a ``gpu:mixtral-8x7b,
+    gpu:consensus-1b`` panel and a ``gpu:mixtral-8x7b`` judge under
+    ``LLMC_QUANT=int8 LLMC_KV_QUANT=int8`` at full published width (random
+    weights from the seed), auto-saved: every response, the consensus,
+    ``agreement``, ``run.json`` and ``panel/``; flash and the int8 decode
+    kernel launched, the bf16 decode kernel not; engine build time, wall,
+    decode rates and MBU, prefill ms and peak device memory;
+14. a torch.profiler window over one Mixtral int8 generate (one int8
+    decode launch per (layer, step));
+15. one Mixtral generate with W8A8 matmuls (``torch._int_mm`` per expert)
+    and W8A8 decode scores;
+16. the checkpoint loader: synthetic HF-layout checkpoints of tiny-mixtral
+    and tiny-qwen2 written into a temp dir (the format writer is here),
+    loaded through ``GPUProvider(checkpoint_dir=...)`` on the card;
+17. a ``{"kernels": [...]}`` line, the card line, then the
     ``{"ok": true, ...}`` line.
 
 Each path's launch counts are set to 0 just before it runs and read just
@@ -1441,9 +1460,367 @@ def run_batched_engine(torch, fa, da, engine, state_recs: dict) -> None:
     release_memory(torch)
 
 
+# -- phases 12 to 16: Mixtral and the checkpoint loader ------------------------
+
+MIXTRAL = "mixtral-8x7b"
+# moe_block in float32 on the card (TF32 off) against float32 on the CPU at
+# Mixtral's widths: sums of 4,096 and 14,336 products in another order, on
+# outputs of magnitude ~1.
+MOE_TOL = 1e-4
+
+
+def check_moe_block(torch, seed: int) -> None:
+    """One Mixtral layer's moe_block (d 4096, d_ff 14336, 8 experts, top-2)
+    in float32 on the card against float32 on the CPU, at n = 1, 4 and 512
+    tokens: identical top-2 indices and outputs within MOE_TOL of the
+    largest output."""
+    from llm_consensus_tpu_torch.models import get_config
+    from llm_consensus_tpu_torch.ops.moe import moe_block, route
+
+    cfg = get_config(MIXTRAL)
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: routing would not be float32")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(shape, std):
+        return torch.randn(*shape, generator=gen, device="cuda") * std
+
+    dev = [rnd((d, e), d ** -0.5), rnd((e, d, f), d ** -0.5), rnd((e, d, f), d ** -0.5),
+           rnd((e, f, d), f ** -0.5)]
+    cpu = [w.cpu() for w in dev]
+    for n in (1, 4, 512):
+        x = rnd((1, n, d), 1.0)
+        _, idx_dev = route(x.reshape(n, d), dev[0], cfg.experts_per_token)
+        _, idx_cpu = route(x.cpu().reshape(n, d), cpu[0], cfg.experts_per_token)
+        t0 = time.monotonic()
+        got = moe_block(x, *dev, top_k=cfg.experts_per_token)
+        torch.cuda.synchronize()
+        card_ms = (time.monotonic() - t0) * 1e3
+        want = moe_block(x.cpu(), *cpu, top_k=cfg.experts_per_token)
+        err = (got.cpu() - want).abs().max().item()
+        scale = max(1.0, want.abs().max().item())
+        same = torch.equal(idx_dev.cpu(), idx_cpu)
+        log(f"moe_block {MIXTRAL} layer, n {n}: float32 card vs CPU max |diff| {err:.3e} "
+            f"(tol {MOE_TOL * scale:.3e}), top-2 indices identical {same}, card wall "
+            f"{card_ms:.2f} ms (first call at this n)")
+        if not same or err > MOE_TOL * scale or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"moe_block n {n}: err {err}, indices same {same}")
+    del dev, cpu
+    release_memory(torch)
+
+
+def check_decode_mixtral_cache(torch) -> None:
+    """The int8 decode kernel over the cache shape the Mixtral slice gives
+    it ([32, 1, 32768, 8, 128], its full context), against its plain
+    version at the slice's decode widths."""
+    from llm_consensus_tpu_torch.ops.kernels import decode_attention as da
+    from llm_consensus_tpu_torch.ops.quant import quantize_kv
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    L, S, hq, hkv, dh, layer = 32, 32768, 32, 8, 128, 31
+    side = []
+    for _ in range(2):
+        q8 = torch.zeros((L, 1, S, hkv, dh), dtype=torch.int8, device="cuda")
+        sc = torch.zeros((L, 1, hkv, S), dtype=torch.bfloat16, device="cuda")
+        codes, scale = quantize_kv(torch.randn(1, 1024, hkv, dh, generator=gen,
+                                               device="cuda", dtype=torch.bfloat16))
+        q8[layer, :, :1024].copy_(codes)
+        sc[layer, :, :, :1024].copy_(scale[..., 0].transpose(1, 2))
+        side.append({"q8": q8, "s": sc})
+    q = torch.randn(1, 1, hq, dh, generator=gen, device="cuda", dtype=torch.bfloat16)
+    rs = torch.zeros(1, dtype=torch.int32, device="cuda")
+    for pos, w in ((397, 512), (1023, 1024)):
+        for w8a8 in (False, True):
+            kw = dict(kv_width=w, w8a8=w8a8)
+            got = da.decode_attention(q, *side, torch.full((), pos, dtype=torch.int32,
+                                                           device="cuda"),
+                                      torch.full((), layer, dtype=torch.int32, device="cuda"),
+                                      rs, **kw)
+            torch.cuda.synchronize()
+            want = da.decode_attention_plain(q, *side, pos, layer, rs, **kw)
+            err, tol = max_err(got, want), decode_tol(want)
+            log(f"decode {'w8a8' if w8a8 else 'int8'} {MIXTRAL} cache{list(side[0]['q8'].shape)}"
+                f" pos {pos} width {w}: max_abs_err {err:.3e} (tol {tol:.3e})")
+            if err > tol or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"decode over the Mixtral cache: err {err}")
+    del side
+    release_memory(torch)
+
+
+def run_mixtral_slice(torch, fa, da, seed: int) -> dict:
+    """The CLI run with a gpu:mixtral-8x7b + gpu:consensus-1b panel and a
+    gpu:mixtral-8x7b judge, int8 weights and cache, auto-saved: every
+    response, a consensus, ``agreement`` in result.json, ``run.json`` and
+    one ``panel/`` file per answer; flash and the int8 decode kernel
+    launched on its path, the bf16 decode kernel not. The Mixtral engine is
+    built first (timed), then the CLI builds consensus-1b and runs."""
+    from llm_consensus_tpu_torch.cli.main import main as cli_main
+    from llm_consensus_tpu_torch.providers.gpu import GPUProvider
+    from llm_consensus_tpu_torch.utils.flops import param_count
+    from llm_consensus_tpu_torch.utils.knobs import batch_settings, checkpoint_dir, quant_modes
+
+    env = {"LLMC_QUANT": "int8", "LLMC_KV_QUANT": "int8"}
+    saved = {name: os.environ.get(name) for name in env}
+    os.environ.update(env)
+    counters = {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES,
+                "decode_attention_int8": da.LAUNCHES_INT8}
+    try:
+        modes = {**batch_settings(), **quant_modes(), **checkpoint_dir()}
+        provider = GPUProvider.shared(**modes)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        engine = provider._engine_for(f"gpu:{MIXTRAL}")
+        torch.cuda.synchronize()
+        build_s = time.monotonic() - t0
+        build_peak = torch.cuda.max_memory_allocated() / 1e9
+        check_devices(engine)
+        resident = torch.cuda.memory_allocated() / 1e9
+        out, err = io.StringIO(), io.StringIO()
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-mixtral-") as data_dir:
+            argv = ["--models", f"gpu:{MIXTRAL},gpu:consensus-1b", "--judge", f"gpu:{MIXTRAL}",
+                    "--max-tokens", "48", "--data-dir", data_dir, PROMPT]
+            for c in counters.values():
+                c.reset()
+            t0 = time.monotonic()
+            rc = cli_main(argv, device=None, stdout=out, stderr=err,
+                          install_signal_handlers=False)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            launches = {name: c.count for name, c in counters.items()}
+            if rc != 0:
+                raise AssertionError(f"mixtral slice: CLI exit {rc}: {err.getvalue()}")
+            (run_id,) = os.listdir(data_dir)
+            run_dir = os.path.join(data_dir, run_id)
+            listing = sorted(os.listdir(run_dir))
+            panel = sorted(os.listdir(os.path.join(run_dir, "panel")))
+            with open(os.path.join(run_dir, "result.json"), encoding="utf-8") as fh:
+                doc = json.load(fh)
+            with open(os.path.join(run_dir, "run.json"), encoding="utf-8") as fh:
+                manifest = json.load(fh)
+    finally:
+        for name, value in saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    total = torch.cuda.get_device_properties(0).total_memory / 1e9
+    log(f"mixtral slice: {MIXTRAL} int8 weights + int8 KV ({engine.max_seq} slots), engine "
+        f"build {build_s:.2f} s (peak {build_peak:.2f} GB, resident {resident:.2f} GB); CLI "
+        f"exit 0 in {wall:.2f} s wall, peak device memory {peak:.2f} GB of {total:.2f} GB, "
+        f"launches {launches}; run dir {listing}, panel {panel}, agreement "
+        f"{doc.get('agreement')}")
+    cfg = engine.cfg
+    active, whole = param_count(cfg, active_only=True), param_count(cfg)
+    log(f"  {MIXTRAL} int8 weight bytes a decode step: {active / 1e9:.2f} GB active (top-2 "
+        f"of 8, what Response.mbu counts) against {whole / 1e9:.2f} GB all experts (what "
+        f"the dense dispatch reads)")
+    for resp in doc["responses"]:
+        log(f"  {resp['model']}: {resp.get('tokens')} tokens, latency {resp['latency_ms']:.1f} "
+            f"ms, decode {resp.get('tokens_per_sec')} tok/s, mfu {resp.get('mfu')}, mbu "
+            f"{resp.get('mbu')}")
+        if resp["model"] == f"gpu:{MIXTRAL}" and resp.get("tokens_per_sec"):
+            log(f"  {MIXTRAL}: the same rate over all experts' int8 bytes: "
+                f"{resp['tokens_per_sec'] * whole / PEAK_BYTES_PER_S:.4f} of "
+                f"{PEAK_BYTES_PER_S / 1e12} TB/s")
+    want_listing = ["consensus.md", "panel", "prompt.txt", "result.json", "run.json"]
+    if (len(doc["responses"]) != 2 or doc.get("failed_models") or not doc["consensus"]
+            or "agreement" not in doc or listing != want_listing or len(panel) != 2
+            or manifest["models"] != [f"gpu:{MIXTRAL}", "gpu:consensus-1b"]
+            or launches["flash_attention"] <= 0 or launches["decode_attention_int8"] <= 0
+            or launches["decode_attention"] != 0 or peak >= total):
+        raise AssertionError(f"mixtral slice: launches {launches}, listing {listing}, "
+                             f"panel {panel}, result {json.dumps(doc)[:1500]}")
+    ids = engine.tokenizer.encode(PROMPT)
+    with torch.inference_mode():
+        times = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            engine._prefill_ids(ids)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+    times.sort()
+    log(f"  {MIXTRAL}: prefill of {len(ids)} tokens (bucket 512, flash kernel) median "
+        f"{times[2]:.2f} ms (min {times[0]:.2f}, max {times[-1]:.2f}, 5 runs)")
+    return {"launches": launches, "engine": engine, "modes": modes, "peak_gb": peak}
+
+
+def run_mixtral_w8a8(torch, fa, da, engine) -> int:
+    """One 48-token Mixtral generate with W8A8 matmuls (one
+    ``torch._int_mm`` per expert) and W8A8 decode scores, on the int8
+    slice's weights; returns the W8A8 decode launches."""
+    from llm_consensus_tpu_torch.engine import Engine, SamplingParams
+
+    w8 = Engine(engine.cfg, params=engine.params, quant="int8", kv_quant="int8", w8a8=True,
+                decode_w8a8=True)
+    if not (w8.w8a8 and w8.decode_w8a8):
+        raise AssertionError("mixtral W8A8: modes not taken")
+    ids = w8.tokenizer.encode(PROMPT)
+    for c in (fa.LAUNCHES, da.LAUNCHES_INT8, da.LAUNCHES_W8A8):
+        c.reset()
+    t0 = time.monotonic()
+    res = w8.generate_ids(ids, SamplingParams(max_new_tokens=48, ignore_eos=True))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    n = da.LAUNCHES_W8A8.count
+    rate = res.decode_tokens / res.decode_s if res.decode_s > 0 else float("nan")
+    log(f"mixtral w8a8: {res.prompt_tokens}-token prompt + 48 tokens in {wall:.2f} s wall, "
+        f"decode {rate:.2f} tok/s, W8A8 decode launches {n}, int8 {da.LAUNCHES_INT8.count}, "
+        f"flash {fa.LAUNCHES.count}")
+    if (len(res.token_ids) != 48 or n <= 0 or da.LAUNCHES_INT8.count != 0
+            or fa.LAUNCHES.count <= 0):
+        raise AssertionError(f"mixtral w8a8: {len(res.token_ids)} tokens, launches w8a8 {n}")
+    return n
+
+
+SAFETENSORS_DTYPES = {"F32": "float32", "F16": "float16", "BF16": "bfloat16"}
+
+
+def write_safetensors(path: str, tensors: dict) -> None:
+    """A safetensors file: an 8-byte little-endian header length, a JSON
+    header of dtype, shape and byte offsets, then the raw bytes (written
+    here, since the card's machine has no safetensors package)."""
+    import struct
+
+    import torch
+
+    names = {getattr(torch, v): k for k, v in SAFETENSORS_DTYPES.items()}
+    header, blobs, offset = {}, [], 0
+    for name, t in tensors.items():
+        raw = t.contiguous().cpu().view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    head = json.dumps(header).encode()
+    with open(path, "wb") as fh:
+        fh.write(struct.pack("<Q", len(head)) + head + b"".join(blobs))
+
+
+def synthetic_hf_tensors(torch, cfg, seed: int) -> dict:
+    """Seeded random weights of ``cfg`` in the HF layout ([out, in] linear
+    weights, one tensor per layer and per expert), as bf16."""
+    gen = torch.Generator().manual_seed(seed)
+    d, dh, f = cfg.d_model, cfg.head_dim, cfg.d_ff
+
+    def w(*shape, std=0.05):
+        return (torch.randn(*shape, generator=gen) * std).to(torch.bfloat16)
+
+    def norm():
+        return (1.0 + 0.1 * torch.randn(d, generator=gen)).to(torch.bfloat16)
+
+    t = {"model.embed_tokens.weight": w(cfg.vocab_size, d, std=0.2), "model.norm.weight": norm()}
+    if not cfg.tie_embeddings:
+        t["lm_head.weight"] = w(cfg.vocab_size, d, std=0.2)
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}"
+        t[f"{p}.input_layernorm.weight"] = norm()
+        t[f"{p}.post_attention_layernorm.weight"] = norm()
+        for name, heads in (("q", cfg.n_heads), ("k", cfg.n_kv_heads), ("v", cfg.n_kv_heads)):
+            t[f"{p}.self_attn.{name}_proj.weight"] = w(heads * dh, d)
+            if cfg.qkv_bias:
+                t[f"{p}.self_attn.{name}_proj.bias"] = w(heads * dh)
+        t[f"{p}.self_attn.o_proj.weight"] = w(d, cfg.n_heads * dh)
+        if cfg.is_moe:
+            t[f"{p}.block_sparse_moe.gate.weight"] = w(cfg.n_experts, d, std=1.0)
+            for e in range(cfg.n_experts):
+                ep = f"{p}.block_sparse_moe.experts.{e}"
+                t[f"{ep}.w1.weight"] = w(f, d)
+                t[f"{ep}.w2.weight"] = w(d, f)
+                t[f"{ep}.w3.weight"] = w(f, d)
+        else:
+            t[f"{p}.mlp.gate_proj.weight"] = w(f, d)
+            t[f"{p}.mlp.up_proj.weight"] = w(f, d)
+            t[f"{p}.mlp.down_proj.weight"] = w(d, f)
+    return t
+
+
+def check_checkpoint_load(torch, seed: int) -> None:
+    """Synthetic HF-layout checkpoints of tiny-mixtral and tiny-qwen2 (qkv
+    biases) written into a temp dir, loaded through
+    GPUProvider(checkpoint_dir=...) on the card: the tree equals a CPU load
+    of the same directory, and greedy tokens equal an engine on the card
+    over that CPU load (the same computation, so exactly); the CPU's own
+    greedy tokens (bf16 on the CPU, another computation order) are
+    reported beside them."""
+    from llm_consensus_tpu_torch.engine import Engine, SamplingParams
+    from llm_consensus_tpu_torch.engine.checkpoint import load_hf_safetensors
+    from llm_consensus_tpu_torch.models import get_config
+    from llm_consensus_tpu_torch.models.transformer import param_leaves
+    from llm_consensus_tpu_torch.providers.gpu import GPUProvider
+
+    def to(tree, dev):
+        return {k: to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+    sp = SamplingParams(max_new_tokens=24, ignore_eos=True)
+    prompt = "a checkpoint loaded on the card"
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-ckpt-") as root:
+        for i, preset in enumerate(("tiny-mixtral", "tiny-qwen2")):
+            cfg = get_config(preset)
+            os.makedirs(os.path.join(root, preset))
+            write_safetensors(os.path.join(root, preset, "model.safetensors"),
+                              synthetic_hf_tensors(torch, cfg, seed + i))
+        provider = GPUProvider(checkpoint_dir=root)
+        try:
+            for preset in ("tiny-mixtral", "tiny-qwen2"):
+                cfg = get_config(preset)
+                t0 = time.monotonic()
+                engine = provider._engine_for(f"gpu:{preset}")
+                load_s = time.monotonic() - t0
+                cpu_tree = load_hf_safetensors(cfg, os.path.join(root, preset),
+                                               device=torch.device("cpu"))
+                for (name, a), (_, b) in zip(param_leaves(engine.params),
+                                             param_leaves(cpu_tree)):
+                    if not a.is_cuda or not torch.equal(a.cpu(), b):
+                        raise AssertionError(f"{preset}: card load differs at {name}")
+                got = engine.generate(prompt, sp).token_ids
+                moved = Engine(cfg, to(cpu_tree, "cuda")).generate(prompt, sp).token_ids
+                on_cpu = Engine(cfg, cpu_tree, device="cpu").generate(prompt, sp).token_ids
+                log(f"checkpoint {preset}: loaded on the card through GPUProvider in "
+                    f"{load_s:.2f} s, tree equal to the CPU load; greedy tokens equal to the "
+                    f"CPU load on the card {got == moved}; leading tokens equal to the CPU's "
+                    f"own run {token_agreement(got, on_cpu)} of {len(got)}")
+                if got != moved or len(got) != 24:
+                    raise AssertionError(f"{preset}: {got} vs {moved}")
+        finally:
+            provider.release()
+    release_memory(torch)
+
+
+def run_mixtral(torch, fa, da, seed: int, records: dict) -> None:
+    """Phases 12 to 16: moe_block and the int8 decode kernel at Mixtral's
+    shapes, the Mixtral CLI slice, its profile, its W8A8 generate, and the
+    checkpoint loader on the card."""
+    t0 = time.monotonic()
+    check_moe_block(torch, seed)
+    check_decode_mixtral_cache(torch)
+    log(f"mixtral shape checks: {time.monotonic() - t0:.1f} s")
+    sl = run_mixtral_slice(torch, fa, da, seed)
+    records["flash"]["launches_mixtral"] = sl["launches"]["flash_attention"]
+    records["int8"]["launches_mixtral"] = sl["launches"]["decode_attention_int8"]
+    engine = sl["engine"]
+    ours = profile_decode(torch, engine, "profile mixtral int8", counter=da.LAUNCHES_INT8)
+    if ours:
+        check_one_launch_per_step(ours, "decode_q8_kernel", "decode_bf16_kernel",
+                                  da.LAUNCHES_INT8, engine.cfg.n_layers,
+                                  "mixtral int8 decode profile")
+    records["w8a8"]["launches_mixtral"] = run_mixtral_w8a8(torch, fa, da, engine)
+    del engine
+    modes = sl["modes"]
+    del sl
+    release_engines(torch, modes)
+    check_checkpoint_load(torch, seed)
+    log(f"mixtral phases: {time.monotonic() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phase", choices=("all", "kernels"), default="all")
+    ap.add_argument("--phase", choices=("all", "kernels", "mixtral"), default="all")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -1460,6 +1837,7 @@ def main(argv=None) -> int:
         print(f"error: run from the repository root ({err})", file=sys.stderr)
         return 2
 
+    t_start = time.monotonic()
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1478,6 +1856,12 @@ def main(argv=None) -> int:
     w8a8_rec: dict = {}
     state_recs: dict = {key: {} for key, _, _ in STATE_VARIANTS}
     records = [flash_rec, decode_rec, int8_rec, w8a8_rec, *state_recs.values()]
+    mixtral_recs = {"flash": flash_rec, "int8": int8_rec, "w8a8": w8a8_rec}
+    if args.phase == "mixtral":
+        # The Mixtral phases alone: no ok line.
+        run_mixtral(torch, fa, da, args.seed, mixtral_recs)
+        print(card, flush=True)
+        return 0
     check_flash(torch, flash_rec)
     check_decode(torch, decode_rec)
     check_decode_int8(torch, int8_rec, w8a8_rec)
@@ -1538,6 +1922,8 @@ def main(argv=None) -> int:
         torch, fa, da, "w8a8", da.LAUNCHES_W8A8, args.seed, quant="int8", kv_quant="int8",
         w8a8=True, decode_w8a8=True)
     run_engine_phase(torch, fa, da, "int4", da.LAUNCHES, args.seed, quant="int4")
+    run_mixtral(torch, fa, da, args.seed, mixtral_recs)
+    log(f"all phases: {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

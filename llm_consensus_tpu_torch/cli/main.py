@@ -9,21 +9,28 @@ follow the JAX CLI:
   * prompt: positional args > ``--file`` > piped stdin;
   * one provider per unique model, judge included; an unknown model fails
     at registry init with the available set;
-  * best-effort panel fan-out, judge synthesis, auto-save to
-    ``<data-dir>/<run-id>/{result.json,prompt.txt,consensus.md}``, output
-    routing ``--output`` file | auto-save | ``--json`` stdout | pretty TTY
-    | JSON stdout;
+  * the auto-saved run directory ``<data-dir>/<run-id>/`` is reserved
+    before the fan-out, with the run manifest ``run.json`` (the JAX
+    manifest's keys; flags the port lacks take the values the JAX CLI
+    writes without them); each panel answer lands in
+    ``panel/NNN-<slug>.json`` as its worker records it;
+  * best-effort panel fan-out, panel agreement (``consensus/agreement.py``,
+    scored on every run), judge synthesis, then ``result.json``,
+    ``prompt.txt`` and ``consensus.md``; output routing ``--output`` file |
+    auto-save | ``--json`` stdout | pretty TTY | JSON stdout;
   * errors print ``error: ...`` to stderr and exit 1.
 
 Model names are ``gpu:<preset>``. ``main(argv, device=None)`` runs on the
 current CUDA card and raises when there is none; tests pass
-``device="cpu"``. The JAX CLI's other flags are later work.
+``device="cpu"``. The JAX CLI's other flags, ``--resume`` (the reader of
+``run.json`` and ``panel/``) and ``metrics.json`` are later work.
 
 Quantization and continuous batching are chosen as in the JAX package,
 through the environment only (``LLMC_QUANT``, ``LLMC_KV_QUANT``,
 ``LLMC_W8A8``, ``LLMC_DECODE_W8A8``, ``LLMC_DECODE_QSTRUCT``,
 ``LLMC_INT4_IMPL``; ``LLMC_MAX_BATCH`` or ``LLMC_BATCH_STREAMS``,
-``LLMC_POOL_PREFIX``, ``LLMC_POOL_PREFIX_MIN``, ``LLMC_PREFILL_BUDGET``):
+``LLMC_POOL_PREFIX``, ``LLMC_POOL_PREFIX_MIN``, ``LLMC_PREFILL_BUDGET``;
+and ``LLMC_CHECKPOINT_DIR``, the per-preset checkpoint directory):
 the default provider factory reads them here (utils/knobs.py), the one
 place the port reads knobs, and an unknown mode or a refused setting fails
 at registry init, before any engine is built.
@@ -32,17 +39,19 @@ at registry init, before any engine is built.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import signal
 import sys
+import threading
 import time
 from dataclasses import dataclass
 from typing import Callable, Optional, TextIO
 
-from llm_consensus_tpu_torch.consensus import Judge
+from llm_consensus_tpu_torch.consensus import Judge, score_agreement
 from llm_consensus_tpu_torch.output import Result
 from llm_consensus_tpu_torch.output.persist import reserve_run_dir, save_aux_files, save_file
-from llm_consensus_tpu_torch.providers import Provider, Registry
+from llm_consensus_tpu_torch.providers import Provider, Registry, Response
 from llm_consensus_tpu_torch.runner import AllModelsFailed, Callbacks, Runner
 from llm_consensus_tpu_torch.utils.context import Context
 from llm_consensus_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -76,10 +85,10 @@ class CLIError(Exception):
 
 def create_provider(model: str, device: DeviceLike = None) -> Provider:
     """Resolve a model name to its provider: ``gpu:<preset>`` → the shared
-    GPU provider of ``device`` and of the environment's quantization modes
-    and batching settings."""
+    GPU provider of ``device`` and of the environment's quantization modes,
+    batching settings and checkpoint directory."""
     from llm_consensus_tpu_torch.providers.gpu import SCHEME, GPUProvider, parse_model_name
-    from llm_consensus_tpu_torch.utils.knobs import batch_settings, quant_modes
+    from llm_consensus_tpu_torch.utils.knobs import batch_settings, checkpoint_dir, quant_modes
 
     if not model.startswith(SCHEME):
         raise CLIError(f"unknown model {model!r}; available models: ['{SCHEME}<model>']")
@@ -87,7 +96,7 @@ def create_provider(model: str, device: DeviceLike = None) -> Provider:
         parse_model_name(model)
     except ValueError as err:
         raise CLIError(str(err)) from None
-    return GPUProvider.shared(device, **batch_settings(), **quant_modes())
+    return GPUProvider.shared(device, **batch_settings(), **quant_modes(), **checkpoint_dir())
 
 
 def init_registry(models: list[str], judge: Optional[str],
@@ -192,6 +201,55 @@ class _Progress:
         )
 
 
+def _slug(model: str) -> str:
+    """Filesystem-safe model-name slug for panel journal files."""
+    return "".join(c if c.isalnum() or c in "-_." else "_" for c in model)
+
+
+def write_run_manifest(run_dir: str, cfg: Config, warn=None) -> None:
+    """The run's identity in ``run.json``, written before the fan-out: the
+    JAX manifest's keys, the flags the port lacks at the values the JAX
+    CLI writes without them."""
+    manifest = {
+        "prompt": cfg.prompt,
+        "models": list(cfg.models),
+        "judge": cfg.judge,
+        "system": "",
+        "max_tokens": cfg.max_tokens,
+        "timeout": cfg.timeout,
+        "rounds": 1,
+        "vote": False,
+        "options": [],
+        "confidence": False,
+        "history": [],
+    }
+    save_file(run_dir, "run.json", json.dumps(manifest, indent=2), warn=warn)
+
+
+def panel_journal(run_dir: str, warn=None) -> Callable[[Response], None]:
+    """The hook that writes each panel answer into
+    ``<run_dir>/panel/NNN-<slug>.json`` (atomic ``save_file``), numbering
+    past the highest file already there."""
+    panel_dir = os.path.join(run_dir, "panel")
+    lock = threading.Lock()
+    nxt = 0
+    if os.path.isdir(panel_dir):
+        for name in os.listdir(panel_dir):
+            head = name.split("-", 1)[0]
+            if head.isdigit():
+                nxt = max(nxt, int(head) + 1)
+    counter = [nxt]
+
+    def journal(resp: Response) -> None:
+        with lock:
+            n = counter[0]
+            counter[0] += 1
+        save_file(panel_dir, f"{n:03d}-{_slug(resp.model)}.json",
+                  json.dumps(resp.to_dict(), indent=2), warn=warn)
+
+    return journal
+
+
 def run(cfg: Config, ctx: Context, *, factory: ProviderFactory, stdout: TextIO,
         stderr: TextIO) -> Result:
     """One consensus run: fan-out, judge synthesis, persistence, output."""
@@ -213,21 +271,31 @@ def run(cfg: Config, ctx: Context, *, factory: ProviderFactory, stdout: TextIO,
         except Exception as err:  # noqa: BLE001 — reported as a CLI error
             raise CLIError(f"preparing provider: {err}") from err
 
+    # The run directory and its manifest before the fan-out; each panel
+    # answer is journaled into it as it lands.
+    warn = progress.line if show_ui else None
     run_dir = ""
     if not cfg.output and not cfg.json and not cfg.no_save:
         try:
             _run_id, run_dir = reserve_run_dir(cfg.data_dir)
         except OSError as err:
             raise CLIError(f"creating run directory: {err}") from err
+        write_run_manifest(run_dir, cfg, warn=warn)
 
     progress.line("Querying models...")
     runner = Runner(registry, cfg.timeout, max_tokens=cfg.max_tokens)
-    runner.with_callbacks(progress.callbacks())
+    callbacks = progress.callbacks()
+    if run_dir:
+        callbacks.on_model_response = panel_journal(run_dir, warn=warn)
+    runner.with_callbacks(callbacks)
     try:
         result = runner.run(ctx, cfg.models, cfg.prompt)
     except AllModelsFailed as err:
         raise CLIError(f"running queries: {err}") from err
+    agreement = score_agreement(result.responses)
     progress.line(f"Received responses from {len(result.responses)} models")
+    if agreement is not None:
+        progress.line(f"Panel agreement: {agreement.level} ({agreement.score:.2f})")
 
     progress.line("Synthesizing consensus...")
     try:
@@ -249,9 +317,9 @@ def run(cfg: Config, ctx: Context, *, factory: ProviderFactory, stdout: TextIO,
         judge=cfg.judge,
         warnings=result.warnings,
         failed_models=result.failed_models,
+        agreement=agreement.to_dict() if agreement else None,
     )
 
-    warn = progress.line if show_ui else None
     output_path = cfg.output
     if not output_path and run_dir:
         try:

@@ -141,7 +141,8 @@ class Engine:
     quantized leaf by leaf as they are drawn; given ``params`` are
     quantized when ``quant`` is set (already quantized leaves pass through).
     ``prefix_max_bytes`` bounds the dense shared-prefix KV a continuous
-    batcher over this engine may establish.
+    batcher over this engine may establish. ``tokenizer`` defaults to the
+    byte-level one (a checkpoint's own comes from ``load_tokenizer``).
     """
 
     def __init__(
@@ -161,6 +162,7 @@ class Engine:
         decode_w8a8: bool = False,
         int4_impl: str = "auto",
         prefix_max_bytes: float = PREFIX_MAX_BYTES,
+        tokenizer=None,
     ):
         self.cfg = cfg
         self.prefix_max_bytes = prefix_max_bytes
@@ -176,7 +178,7 @@ class Engine:
                            int4_nibble=resolve_int4_impl(int4_impl) == "nibble")
         self.device = resolve_device(device)
         self.max_seq = max_seq or cfg.max_seq_len
-        self.tokenizer = load_tokenizer(None)
+        self.tokenizer = tokenizer if tokenizer is not None else load_tokenizer(None)
         self.stream_interval = max(1, stream_interval)
         self.dtype = dtype
         # Past this length a prompt prefills in fixed chunks; 0 disables.

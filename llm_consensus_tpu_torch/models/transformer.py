@@ -1,9 +1,11 @@
 """Generic decoder-only transformer in PyTorch (port of
 ``llm_consensus_tpu/models/transformer.py``).
 
-One implementation serves the dense families via static ``ModelConfig``
-switches. Parameters are a plain dict of tensors with the JAX package's
-layout — layers stacked on axis 0 — so a JAX parameter tree carries across
+One implementation serves every family of the catalog via static
+``ModelConfig`` switches, Mixtral's mixture-of-experts layer included
+(ops/moe.py in place of the gated MLP). Parameters are a plain dict of
+tensors with the JAX package's layout — layers stacked on axis 0, experts
+on axis 1 — so a JAX parameter tree carries across
 through :func:`params_from_numpy` unchanged. The KV cache is the same
 layer-stacked [L, B, S, Hkv, dh] pair; where the JAX package writes it
 functionally (``dynamic_update_slice`` with buffer donation) the port
@@ -45,10 +47,11 @@ from llm_consensus_tpu_torch.ops.kernels.decode_attention import (
 from llm_consensus_tpu_torch.ops.kernels.flash_attention import (
     flash_attention, flash_supported)
 from llm_consensus_tpu_torch.ops.mlp import gated_mlp
+from llm_consensus_tpu_torch.ops.moe import moe_block
 from llm_consensus_tpu_torch.ops.norms import rms_norm
 from llm_consensus_tpu_torch.ops.quant import (
     KV_MODES, QUANT_KEYS, WEIGHT_MODES, is_quantized, kv_capacity, kv_layer, kv_read,
-    kv_write_rows, qmatmul, quantize_kv, quantize_weight)
+    kv_write_rows, qmatmul, quantize_kv, quantize_weight, stack_layers)
 from llm_consensus_tpu_torch.ops.rope import apply_rope, rope_angles, rope_inv_freq
 
 Pos = Union[int, torch.Tensor]
@@ -64,18 +67,16 @@ def _layer_shapes(cfg: ModelConfig) -> dict:
         "attn_norm": (l, d), "mlp_norm": (l, d),
         "wq": (l, d, hq * dh), "wk": (l, d, hkv * dh), "wv": (l, d, hkv * dh),
         "wo": (l, hq * dh, d),
-        "w_gate": (l, d, f), "w_up": (l, d, f), "w_down": (l, f, d),
     }
     if cfg.qkv_bias:
         shapes.update(bq=(l, hq * dh), bk=(l, hkv * dh), bv=(l, hkv * dh))
-    return shapes
-
-
-def _check_dense(cfg: ModelConfig) -> None:
     if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: mixture-of-experts layers are not ported yet"
-        )
+        e = cfg.n_experts
+        shapes.update(w_router=(l, d, e), w_gate=(l, e, d, f), w_up=(l, e, d, f),
+                      w_down=(l, e, f, d))
+    else:
+        shapes.update(w_gate=(l, d, f), w_up=(l, d, f), w_down=(l, f, d))
+    return shapes
 
 
 # -- parameters ----------------------------------------------------------------
@@ -91,22 +92,31 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device: torch.device,
     ``quant`` ("int8" | "int4") each matmul weight is quantized as soon as
     it is drawn and its ``dtype`` source dropped, so the peak is the
     quantized tree plus one ``dtype`` leaf (the JAX package's
-    ``init_params_quantized``); the draws are the same as without
-    ``quant``. The values differ from the JAX package's ``init_params`` for
-    the same seed (another generator); :func:`params_from_numpy` carries
-    exact weights across.
+    ``init_params_quantized``). The experts' stacked leaves [L, E, D, F]
+    are drawn layer by layer, each layer's slice quantized as it is drawn:
+    a whole leaf of Mixtral's (30.1 GB in bf16) never exists, so the peak
+    is the quantized tree plus one layer's slice. The draws are the same
+    with and without ``quant``. The values differ from the JAX package's
+    ``init_params`` for the same seed (another generator);
+    :func:`params_from_numpy` carries exact weights across.
     """
-    _check_dense(cfg)
     if quant not in (None, *WEIGHT_MODES):
         raise ValueError(f"unknown quant mode {quant!r}")
     gen = torch.Generator(device=device).manual_seed(seed)
 
-    def normal(shape, std, name=""):
+    def draw(shape, std):
         w = torch.empty(shape, dtype=dtype, device=device)
-        w.normal_(0.0, std, generator=gen)
+        return w.normal_(0.0, std, generator=gen)
+
+    def normal(shape, std, name=""):
+        w = draw(shape, std)
         if quant is not None and name in QUANT_KEYS:
             return quantize_weight(w, quant)
         return w
+
+    def per_layer(shape, std):
+        """An expert leaf drawn one layer at a time (and quantized as drawn)."""
+        return stack_layers(shape[0], lambda _: draw(shape[1:], std), quant)
 
     d, dh, hq, hkv, f, l = (
         cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.n_layers,
@@ -120,10 +130,17 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device: torch.device,
         "wk": normal((l, d, hkv * dh), proj_std, "wk"),
         "wv": normal((l, d, hkv * dh), proj_std, "wv"),
         "wo": normal((l, hq * dh, d), (hq * dh) ** -0.5, "wo"),
-        "w_gate": normal((l, d, f), proj_std, "w_gate"),
-        "w_up": normal((l, d, f), proj_std, "w_up"),
-        "w_down": normal((l, f, d), f ** -0.5, "w_down"),
     }
+    if cfg.is_moe:
+        e = cfg.n_experts
+        layers["w_router"] = normal((l, d, e), proj_std, "w_router")
+        layers["w_gate"] = per_layer((l, e, d, f), proj_std)
+        layers["w_up"] = per_layer((l, e, d, f), proj_std)
+        layers["w_down"] = per_layer((l, e, f, d), f ** -0.5)
+    else:
+        layers["w_gate"] = normal((l, d, f), proj_std, "w_gate")
+        layers["w_up"] = normal((l, d, f), proj_std, "w_up")
+        layers["w_down"] = normal((l, f, d), f ** -0.5, "w_down")
     if cfg.qkv_bias:
         layers["bq"] = torch.zeros((l, hq * dh), dtype=dtype, device=device)
         layers["bk"] = torch.zeros((l, hkv * dh), dtype=dtype, device=device)
@@ -146,8 +163,9 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device: torch.device,
     quantized by the JAX package's ``quantize_params`` carries across as
     it is: int8 leaves ``{"q8", "s"}`` keep their int8 codes, int4 leaves
     ``{"q4", "s"}`` their packed uint8 bytes, and the scales come over in
-    ``dtype``, so both packages compute with the same quantized weights."""
-    _check_dense(cfg)
+    ``dtype``, so both packages compute with the same quantized weights.
+    MoE trees alike: the router stays in ``dtype`` (never quantized), the
+    stacked experts are [L, E, ...]."""
 
     def conv(name: str, arr, shape):
         if isinstance(arr, dict):
@@ -368,6 +386,9 @@ def _layer(
     x = x + mm(attn_out.reshape(b, t, hq * dh), lp["wo"])
 
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps, cfg.norm_offset)
+    if cfg.is_moe:
+        return x + moe_block(h, lp["w_router"], lp["w_gate"], lp["w_up"], lp["w_down"],
+                             top_k=cfg.experts_per_token, activation=cfg.activation, mm=mm)
     return x + gated_mlp(h, lp["w_gate"], lp["w_up"], lp["w_down"], cfg.activation, mm=mm)
 
 
@@ -425,7 +446,6 @@ def forward(
     """
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
-    _check_dense(cfg)
     if row_start is not None and cache is None:
         raise ValueError(
             "row_start (left-padded batching) requires a cache: the "

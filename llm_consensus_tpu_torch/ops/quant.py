@@ -27,6 +27,11 @@ int8 x int8 with int32 accumulation (``torch._int_mm`` on the card, an
 int32 matmul on the CPU; a float32 sum of thousands of products up to
 127 * 127 would not be exact).
 
+Every mode also takes the mixture-of-experts form ``[E, C, K] @ [E, K, N]``
+(stacked expert weights, scales ``[E, 1, N]``; the JAX package's
+``qeinsum("ecd,edf->ecf")``): a batched matmul, one int8 x int8 product
+per expert for W8A8, and the int4 nibble dot with the experts in front.
+
 int8 KV cache: ``{"q8": int8 [L, B, S, Hkv, dh], "s": [L, B, Hkv, S]}``
 with one scale per written row (over ``dh``), stored seq-minor in the cache
 dtype, the layout the decode kernel reads.
@@ -37,7 +42,7 @@ environment.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -119,24 +124,42 @@ def _unpack4(w: dict, dtype: torch.dtype) -> torch.Tensor:
     return q.reshape(*lead, groups * g, o)
 
 
+def _fill(n: int, make: Callable[[int], torch.Tensor], fn) -> dict:
+    """``fn(make(i))`` (a dict of tensors) for i < n, each copied into
+    outputs with a new leading axis of n, allocated at the first slice:
+    only one slice's temporaries exist at a time."""
+    out = None
+    for i in range(n):
+        part = fn(make(i))
+        if out is None:
+            out = {k: torch.empty((n, *v.shape), dtype=v.dtype, device=v.device)
+                   for k, v in part.items()}
+        for k, v in part.items():
+            out[k][i].copy_(v)
+        del part
+    return out
+
+
 def quantize_weight(w: torch.Tensor, mode: str = "int8") -> dict:
-    """Quantize one weight. A stacked leaf [L, C, O] quantizes slice by
-    slice along L into preallocated outputs (the scales reduce over C
-    only, so this is exact), keeping the float temporaries one slice in
-    size."""
+    """Quantize one weight. A stacked leaf ([L, C, O], or the experts'
+    [L, E, C, O]) quantizes one [C, O] slice at a time into preallocated
+    outputs (the scales reduce over C only, so this is exact), keeping the
+    float temporaries one slice in size."""
     fn = _quantize4 if mode == "int4" else _quantize
     if w.dim() <= 2:
         return fn(w)
-    first = fn(w[0])
-    out = {k: torch.empty((w.shape[0], *v.shape), dtype=v.dtype, device=v.device)
-           for k, v in first.items()}
-    for k, v in first.items():
-        out[k][0].copy_(v)
-    del first
-    for i in range(1, w.shape[0]):
-        for k, v in fn(w[i]).items():
-            out[k][i].copy_(v)
-    return out
+    flat = w.reshape(-1, *w.shape[-2:])
+    out = _fill(flat.shape[0], flat.__getitem__, fn)
+    return {k: v.reshape(*w.shape[:-2], *v.shape[1:]) for k, v in out.items()}
+
+
+def stack_layers(n: int, make: Callable[[int], torch.Tensor], mode: Optional[str] = None):
+    """The tensors ``make(0) .. make(n - 1)`` stacked on a new axis 0, made
+    one at a time in that order; with ``mode`` ("int8" | "int4") each is
+    quantized as it is made, so the full-precision stack never exists."""
+    if mode is None:
+        return _fill(n, make, lambda w: {"": w})[""]
+    return _fill(n, make, lambda w: quantize_weight(w, mode))
 
 
 def quantize_params(params: dict, mode: str = "int8") -> dict:
@@ -201,10 +224,15 @@ def _int8_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _w8a8_matmul(x: torch.Tensor, w: dict, out_dtype: Optional[torch.dtype]) -> torch.Tensor:
     """int8 activations (per row) x int8 weights, int32 accumulation; the
-    row scale and the channel scale apply to the output."""
+    row scale and the channel scale apply to the output. The expert form
+    ([E, C, K] @ [E, K, N]) runs one int8 product per expert (the card's
+    ``torch._int_mm`` is 2-D only); empty expert slots are zero rows."""
     xq, xs = quantize_rows_sym(x)
-    lead = x.shape[:-1]
-    y = _int8_mm(xq.reshape(-1, x.shape[-1]), w["q8"]).reshape(*lead, -1)
+    if w["q8"].dim() == 3:  # [E, K, N]
+        y = torch.stack([_int8_mm(xq[e], w["q8"][e]) for e in range(w["q8"].shape[0])])
+    else:
+        lead = x.shape[:-1]
+        y = _int8_mm(xq.reshape(-1, x.shape[-1]), w["q8"]).reshape(*lead, -1)
     y = y.float() * xs
     y = y * w["s"].float()
     return y.to(out_dtype or x.dtype)
@@ -215,18 +243,22 @@ def _int4_nibble_matmul(x: torch.Tensor, w: dict,
     """Decode lowering of the int4 matmul: dot on the raw unsigned nibbles,
     offset and scale repaired on the output,
     ``y = sum_G s[G,o] (x_lo.lo_u + x_hi.hi_u - 8 sum(x_G))``, exact
-    because the zero point and the scale are constant within a group."""
+    because the zero point and the scale are constant within a group.
+    Codes [G, g/2, O] take x [..., K]; the experts' [E, G, g/2, O] take
+    x [E, C, K], each expert's groups one batch of the product."""
     p, s = w["q4"], w["s"]
-    groups, half, o = p.shape
-    lo = (p & 0xF).to(x.dtype)
-    hi = (p >> 4).to(x.dtype)
+    *experts, groups, half, o = p.shape
+    e = experts[0] if experts else 1
+    lo = (p & 0xF).to(x.dtype).reshape(e * groups, half, o)
+    hi = (p >> 4).to(x.dtype).reshape(e * groups, half, o)
     lead = x.shape[:-1]
-    xg = x.reshape(-1, groups, 2 * half).transpose(0, 1)  # [G, R, g]
+    xg = x.reshape(e, -1, groups, 2 * half).transpose(1, 2)  # [E, G, R, g]
+    xg = xg.reshape(e * groups, -1, 2 * half)
     yg = (
         _bmm_f32(xg[..., :half], lo) + _bmm_f32(xg[..., half:], hi)
         - 8.0 * xg.float().sum(dim=-1, keepdim=True)
-    )  # [G, R, O]
-    y = (yg * s[:, 0, :].float()[:, None, :]).sum(dim=0)
+    ).reshape(e, groups, -1, o)  # [E, G, R, O]
+    y = (yg * s[..., 0, :].float().reshape(e, groups, 1, o)).sum(dim=1)
     return y.reshape(*lead, o).to(out_dtype or x.dtype)
 
 
@@ -240,14 +272,18 @@ def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def qmatmul(x: torch.Tensor, w, out_dtype: Optional[torch.dtype] = None, *,
             w8a8: bool = False, int4_nibble: bool = False) -> torch.Tensor:
-    """``x @ w`` for a weight [K, N] that may be quantized (the JAX
-    package's ``qeinsum`` for the ``[..., K] @ [K, N]`` layout every dense
-    weight has). The output is ``out_dtype`` (default: x's dtype).
+    """``x @ w`` for a weight that may be quantized (the JAX package's
+    ``qeinsum``): ``[..., K] @ [K, N]``, the layout every dense weight
+    has, or the experts' batched ``[E, C, K] @ [E, K, N]`` (a batched
+    matmul; its scales are [E, 1, N]). The output is ``out_dtype``
+    (default: x's dtype).
 
     int8: the product on the codes in x's dtype, then times the
     per-channel scale; ``w8a8`` takes the int8 x int8 product instead.
-    int4: the nibble dot for at most 16 rows, or at any row count with
-    ``int4_nibble`` (``int4_impl="nibble"``), else the dequantized weight.
+    int4: the nibble dot for at most 16 rows (all of x's leading dims,
+    E·C for the experts, as the JAX package counts them), or at any row
+    count with ``int4_nibble`` (``int4_impl="nibble"``), else the
+    dequantized weight.
     """
     if not is_quantized(w):
         return _mm(x, w, out_dtype)

@@ -1,8 +1,10 @@
 """Run persistence: every run auto-saved to data/<run-id>/ (a copy of
 ``llm_consensus_tpu/output/persist.py``).
 
-Layout: ``result.json``, ``prompt.txt``, ``consensus.md``. Run ids are a
-timestamp plus 3 random bytes in hex, e.g. ``20260112-143052-a1b2c3``.
+Layout: ``run.json`` (the manifest, written before the panel fan-out),
+``panel/NNN-<slug>.json`` (each answer as it lands), ``result.json``,
+``prompt.txt``, ``consensus.md``. Run ids are a timestamp plus 3 random
+bytes in hex, e.g. ``20260112-143052-a1b2c3``.
 """
 
 from __future__ import annotations

@@ -1,13 +1,16 @@
 """The ``gpu`` provider: on-device inference behind the Provider seam
 (port of the single-stream half of ``llm_consensus_tpu/providers/tpu.py``).
 
-Model names are ``gpu:<preset>`` for any dense preset of the catalog
-(models/config.py), e.g. ``gpu:llama-3-8b``, ``gpu:consensus-1b``,
+Model names are ``gpu:<preset>`` for any preset of the catalog
+(models/config.py), mixture-of-experts presets included, e.g.
+``gpu:llama-3-8b``, ``gpu:mixtral-8x7b``, ``gpu:consensus-1b``,
 ``gpu:tiny-llama``. Engines are built lazily, once per preset, and shared
 between panel and judge uses; distinct presets build concurrently under
-per-preset locks. Weights are random, made on the device from a seed
-(checkpoint loading is later work). The generation default mirrors the JAX
-provider's 4096-token cap.
+per-preset locks. With ``checkpoint_dir`` each engine loads its weights
+and tokenizer from ``<checkpoint_dir>/<preset>/`` (HF safetensors,
+engine/checkpoint.py) when that directory exists; otherwise, and without
+``checkpoint_dir``, weights are random, made on the device from a seed.
+The generation default mirrors the JAX provider's 4096-token cap.
 
 ``GPUProvider(device=None)`` runs on the current CUDA card and raises when
 there is none; ``device="cpu"`` runs the same path on the CPU. The
@@ -26,6 +29,7 @@ single-stream path.
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from typing import Optional
@@ -69,14 +73,15 @@ class GPUProvider(Provider):
     """Serves every ``gpu:*`` model from a lazily built engine pool."""
 
     name = "gpu"
-    _shared: dict = {}  # (device, modes) → provider (see shared())
+    _shared: dict = {}  # (device, modes, batching, checkpoints) → provider (see shared())
     _shared_lock = threading.Lock()
 
     def __init__(self, *, device: DeviceLike = None, max_seq: Optional[int] = None,
                  batch_streams: int = 1, pool_prefix: bool = True, pool_prefix_min: int = 192,
-                 **modes):
+                 checkpoint_dir: Optional[str] = None, **modes):
         self.modes = _resolve_modes(**modes)
         self.device = resolve_device(device)
+        self.checkpoint_dir = checkpoint_dir or None
         self.batch_streams = batch_streams
         self.pool_prefix = pool_prefix
         self.pool_prefix_min = pool_prefix_min
@@ -92,18 +97,22 @@ class GPUProvider(Provider):
     @classmethod
     def shared(cls, device: DeviceLike = None, *, batch_streams: int = 1,
                pool_prefix: bool = True, pool_prefix_min: int = 192,
-               **modes) -> "GPUProvider":
-        """One provider per device, quantization modes and batching
-        settings for the process (the CLI's factory): a quantized run never
-        reuses a bf16 engine, a batched run never an unbatched provider."""
+               checkpoint_dir: Optional[str] = None, **modes) -> "GPUProvider":
+        """One provider per device, quantization modes, batching settings
+        and checkpoint directory for the process (the CLI's factory): a
+        quantized run never reuses a bf16 engine, a batched run never an
+        unbatched provider, a checkpointed run never random weights."""
         dev = resolve_device(device)
         modes = _resolve_modes(**modes)
         batching = {"batch_streams": batch_streams, "pool_prefix": bool(pool_prefix),
                     "pool_prefix_min": pool_prefix_min}
-        key = (dev, tuple(sorted(modes.items())), tuple(sorted(batching.items())))
+        checkpoint_dir = checkpoint_dir or None
+        key = (dev, tuple(sorted(modes.items())), tuple(sorted(batching.items())),
+               checkpoint_dir)
         with cls._shared_lock:
             if key not in cls._shared:
-                cls._shared[key] = cls(device=dev, **batching, **modes)
+                cls._shared[key] = cls(device=dev, checkpoint_dir=checkpoint_dir, **batching,
+                                       **modes)
             return cls._shared[key]
 
     def prepare(self, models: list[str], judge: Optional[str]) -> None:
@@ -163,11 +172,19 @@ class GPUProvider(Provider):
 
     def _build_engine(self, preset: str):
         from llm_consensus_tpu_torch.engine import Engine
+        from llm_consensus_tpu_torch.engine.checkpoint import try_load_params
+        from llm_consensus_tpu_torch.engine.tokenizer import load_tokenizer
         from llm_consensus_tpu_torch.models.config import get_config
 
         cfg = get_config(preset)
+        params = tokenizer = None
+        if self.checkpoint_dir:
+            ckpt = os.path.join(self.checkpoint_dir, preset)
+            params = try_load_params(cfg, ckpt, device=self.device, quant=self.modes["quant"])
+            tokenizer = load_tokenizer(ckpt)
         max_seq = min(self._max_seq, cfg.max_seq_len) if self._max_seq else None
-        return Engine(cfg, device=self.device, max_seq=max_seq, **self.modes)
+        return Engine(cfg, params, device=self.device, max_seq=max_seq, tokenizer=tokenizer,
+                      **self.modes)
 
     def _batcher_for(self, preset: str, engine):
         """The batcher serving ``preset`` over ``engine``, built once."""

@@ -33,6 +33,9 @@ class Callbacks:
     on_model_start: Optional[Callable[[str], None]] = None
     on_model_complete: Optional[Callable[[str], None]] = None
     on_model_error: Optional[Callable[[str, Exception], None]] = None
+    # The full response the moment its worker records it (the CLI's panel
+    # journal); its failures are swallowed: a hook never fails a model.
+    on_model_response: Optional[Callable[[Response], None]] = None
 
 
 @dataclass
@@ -155,6 +158,13 @@ class Runner:
                         result.warnings.append(
                             f"{model}: prompt truncated to fit context window"
                         )
+                if cb.on_model_response:
+                    # Outside the lock; a hook must not fail a model that
+                    # answered.
+                    try:
+                        cb.on_model_response(resp)
+                    except Exception:  # noqa: BLE001
+                        pass
                 if cb.on_model_complete:
                     cb.on_model_complete(model)
             finally:

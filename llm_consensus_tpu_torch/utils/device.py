@@ -15,8 +15,12 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     moves to the CPU unless the caller asks for it."""
     if device is not None:
         dev = torch.device(device)
-        if dev.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {dev} requested but no CUDA device is available")
+        if dev.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(f"device {dev} requested but no CUDA device is available")
+            if dev.index is None:
+                # "cuda" names the current card: the index tensors report.
+                dev = torch.device("cuda", torch.cuda.current_device())
         return dev
     if not torch.cuda.is_available():
         raise RuntimeError(

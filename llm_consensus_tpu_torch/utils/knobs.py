@@ -18,7 +18,9 @@ knobs that the JAX package declares, with the same meaning:
   * ``LLMC_POOL_PREFIX``, ``LLMC_POOL_PREFIX_MIN``: shared-prefix serving
     and its minimum common prefix;
   * ``LLMC_PREFILL_BUDGET``: interleaved admission, not ported: a value
-    above 0 is refused.
+    above 0 is refused;
+  * ``LLMC_CHECKPOINT_DIR``: the directory of per-preset HF safetensors
+    checkpoints (``<dir>/<preset>/``).
 """
 
 from __future__ import annotations
@@ -79,3 +81,9 @@ def quant_modes() -> dict:
         "decode_w8a8": get_bool("LLMC_DECODE_W8A8") and get_bool("LLMC_DECODE_QSTRUCT", True),
         "int4_impl": get_str("LLMC_INT4_IMPL", "auto"),
     }
+
+
+def checkpoint_dir() -> dict:
+    """The checkpoint directory of the environment, as the keyword argument
+    of ``GPUProvider`` (None when unset)."""
+    return {"checkpoint_dir": get_str("LLMC_CHECKPOINT_DIR") or None}

@@ -45,8 +45,9 @@ def _no_jax_prefix_reuse(monkeypatch):
     monkeypatch.setenv("LLMC_PREFIX_CACHE", "0")
 
 
-def _engines(max_seq=256, **modes):
-    jcfg, tcfg = jax_config("tiny-llama"), get_config("tiny-llama")
+def _engines(max_seq=256, preset="tiny-llama", overrides=None, **modes):
+    over = overrides or {}
+    jcfg, tcfg = jax_config(preset, **over), get_config(preset, **over)
     jp = jax_init(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, torch.device("cpu"),
                            torch.float32)
@@ -493,3 +494,53 @@ def test_refuses_what_is_not_ported(engine):
             engine, "eight rows", s).token_ids
     finally:
         b.close()
+
+
+# -- mixture of experts ------------------------------------------------------------
+
+
+def _jax_gated(eng, max_batch):
+    """The JAX batcher gated the same way: one deterministic wave."""
+    from llm_consensus_tpu.engine.batcher import ContinuousBatcher as JaxBatcher
+
+    gate = threading.Event()
+    real_loop = JaxBatcher._loop
+
+    def gated(self):
+        gate.wait(timeout=WAIT)
+        real_loop(self)
+
+    JaxBatcher._loop = gated
+    try:
+        b = JaxBatcher(eng, max_batch=max_batch)
+    finally:
+        JaxBatcher._loop = real_loop
+    return b, gate
+
+
+@pytest.mark.parametrize("modes", [{}, {"kv_quant": "int8"}], ids=["f32", "int8-kv"])
+def test_mixtral_wave_matches_the_jax_batcher(make_batcher, modes):
+    """tiny-mixtral with 8 experts in a 4-slot pool: a decode step routes 4
+    rows, so each expert holds int(2 * 4 * 2 / 8) = 2 slots and a step can
+    drop a row's choice, which makes a stream's tokens depend on its
+    neighbours. The port's batcher must then decode what the JAX batcher
+    decodes: the same rows (idle and pad rows included) in the same order,
+    so the same tokens for every stream of one gated wave."""
+    je, te = _engines(preset="tiny-mixtral", overrides={"n_experts": 8}, **modes)
+    prompts = ["mixture of experts stream one", "two", "stream three of the wave, longer",
+               "the fourth"]
+    sp = dict(max_new_tokens=20, ignore_eos=True)
+    jb, jgate = _jax_gated(je, 4)
+    try:
+        jfuts = [jb.submit(p, JaxSampling(**sp)) for p in prompts]
+        jgate.set()
+        want = [f.result(timeout=WAIT).token_ids for f in jfuts]
+    finally:
+        jb.close()
+    b, gate = _gated(make_batcher, te, max_batch=4)
+    futs = [b.submit(p, SamplingParams(**sp)) for p in prompts]
+    gate.set()
+    got = [f.result(timeout=WAIT).token_ids for f in futs]
+    assert got == want
+    # Drops happened: some stream decoded otherwise than alone.
+    assert got != [te.generate(p, SamplingParams(**sp)).token_ids for p in prompts]

@@ -10,14 +10,14 @@ import time
 import pytest
 import torch
 
+from llm_consensus_tpu.consensus.agreement import score_agreement as jax_agreement
 from llm_consensus_tpu.consensus.judge import render_judge_prompt as jax_render
-from llm_consensus_tpu.output.result import Result as JaxResult
 from llm_consensus_tpu.providers.base import Response as JaxResponse
 from llm_consensus_tpu_torch.cli.main import main
 from llm_consensus_tpu_torch.consensus import Judge, render_judge_prompt
 from llm_consensus_tpu_torch.providers import ProviderFunc, Registry, Response
 from llm_consensus_tpu_torch.providers.gpu import GPUProvider
-from llm_consensus_tpu_torch.runner import AllModelsFailed, Runner
+from llm_consensus_tpu_torch.runner import AllModelsFailed, Callbacks, Runner
 from llm_consensus_tpu_torch.utils.context import Context
 
 PANEL = "gpu:tiny-llama,gpu:tiny-qwen2"
@@ -37,33 +37,205 @@ def _release_engines():
     GPUProvider.shared("cpu").release()
 
 
-def test_cli_end_to_end_auto_save(tmp_path):
+# -- the output contract, against the JAX CLI's own files ---------------------------
+
+QUESTION = "what is consensus?"
+MAX_TOKENS = "8"
+
+
+def _run_jax(argv):
+    """The JAX CLI in this process, with a fresh shared TPU provider (it
+    reads LLMC_CHECKPOINT_DIR when built); the previous one is restored."""
+    from llm_consensus_tpu.cli.main import main as jax_main
+    from llm_consensus_tpu.providers.tpu import TPUProvider
+
+    saved = TPUProvider._shared
+    TPUProvider._shared = None
+    try:
+        stdout, stderr = io.StringIO(), io.StringIO()
+        rc = jax_main(argv, stdin=io.StringIO(""), stdout=stdout, stderr=stderr,
+                      install_signal_handlers=False)
+    finally:
+        TPUProvider._shared = saved
+    return rc, stdout.getvalue(), stderr.getvalue()
+
+
+@pytest.fixture(scope="module")
+def checkpoint_runs(tmp_path_factory):
+    """Both CLIs, auto-saving, on the same synthetic HF checkpoints of
+    tiny-llama and tiny-qwen2 through LLMC_CHECKPOINT_DIR: the JAX one with
+    ``tpu:`` names, the port with ``gpu:``. Returns each run directory."""
+    from llm_consensus_tpu.models import get_config as jax_config
+    from tests.test_hf_golden import _make_hf_checkpoint
+
+    root = tmp_path_factory.mktemp("cli-contract")
+    for seed, preset in enumerate(("tiny-llama", "tiny-qwen2")):
+        _make_hf_checkpoint(jax_config(preset), str(root / "ckpt" / preset), seed=seed)
+    runs = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("LLMC_CHECKPOINT_DIR", str(root / "ckpt"))
+        for scheme, runner in (("tpu", _run_jax), ("gpu", _run)):
+            data = root / scheme
+            rc, out, err = runner([
+                "--models", f"{scheme}:tiny-llama,{scheme}:tiny-qwen2",
+                "--judge", f"{scheme}:tiny-llama", "--max-tokens", MAX_TOKENS,
+                "--data-dir", str(data), QUESTION])
+            assert rc == 0, err
+            assert out == ""
+            (runs[scheme],) = list(data.iterdir())
+    provider = GPUProvider.shared("cpu", checkpoint_dir=str(root / "ckpt"))
+    yield runs, provider
+    provider.release()
+    GPUProvider._shared = {k: v for k, v in GPUProvider._shared.items() if v is not provider}
+
+
+def _doc(run_dir, name="result.json"):
+    return json.loads((run_dir / name).read_text())
+
+
+def test_cli_end_to_end_auto_save(tmp_path, checkpoint_runs):
     data = tmp_path / "data"
-    rc, out, err = _run(["--models", PANEL, "--judge", JUDGE, "--max-tokens", "8",
-                         "--data-dir", str(data), "what is consensus?"])
+    rc, out, err = _run(["--models", PANEL, "--judge", JUDGE, "--max-tokens", MAX_TOKENS,
+                         "--data-dir", str(data), QUESTION])
     assert rc == 0, err
     assert out == ""  # auto-saved, not printed (stderr is no terminal)
     (run_dir,) = list(data.iterdir())
-    assert sorted(os.listdir(run_dir)) == ["consensus.md", "prompt.txt", "result.json"]
-    doc = json.loads((run_dir / "result.json").read_text())
-    assert (run_dir / "prompt.txt").read_text() == "what is consensus?"
+    # The JAX CLI's run directory, less metrics.json (not ported).
+    jax_dir = checkpoint_runs[0]["tpu"]
+    assert sorted(os.listdir(run_dir)) == sorted(
+        set(os.listdir(jax_dir)) - {"metrics.json"}) == [
+        "consensus.md", "panel", "prompt.txt", "result.json", "run.json"]
+    doc = _doc(run_dir)
+    assert (run_dir / "prompt.txt").read_text() == QUESTION
     assert (run_dir / "consensus.md").read_text() == doc["consensus"]
     assert sorted(r["model"] for r in doc["responses"]) == sorted(PANEL.split(","))
     assert doc["judge"] == JUDGE and doc["consensus"]
     assert all(r["provider"] == "gpu" and 0 < r["tokens"] <= 8 for r in doc["responses"])
 
-    # The key sets the JAX package's Result.to_dict gives the same fields.
-    jax_doc = JaxResult(
-        prompt=doc["prompt"],
-        responses=[JaxResponse(**{k: r[k] for k in ("model", "content", "provider",
-                                                      "latency_ms", "tokens")},
-                               tokens_per_sec=r.get("tokens_per_sec"))
-                   for r in doc["responses"]],
-        consensus=doc["consensus"], judge=doc["judge"],
-    ).to_dict()
+    # The JAX CLI's own result.json: the same fields in the same order.
+    jax_doc = _doc(jax_dir)
     assert list(doc) == list(jax_doc)
     for got, want in zip(doc["responses"], jax_doc["responses"]):
         assert list(got) == list(want)
+    assert list(doc["agreement"]) == list(jax_doc["agreement"]) == [
+        "score", "level", "divergence"]
+
+
+def _as_jax(responses):
+    return [JaxResponse(model=r["model"], content=r["content"], provider=r["provider"])
+            for r in responses]
+
+
+def test_checkpoint_runs_give_the_jax_cli_result_fields(checkpoint_runs):
+    """result.json of the two CLIs on one checkpoint: key order, the
+    per-response keys of each model, and ``agreement``: the JAX scoring of
+    the port's own responses always, and the JAX run's exactly where the
+    answers' contents are equal."""
+    runs, provider = checkpoint_runs
+    doc, jax_doc = _doc(runs["gpu"]), _doc(runs["tpu"])
+    assert list(doc) == list(jax_doc)
+    got = {r["model"].split(":", 1)[1]: r for r in doc["responses"]}
+    want = {r["model"].split(":", 1)[1]: r for r in jax_doc["responses"]}
+    assert sorted(got) == sorted(want) == ["tiny-llama", "tiny-qwen2"]
+    for preset in got:
+        assert list(got[preset]) == list(want[preset]), preset
+    assert doc["agreement"] == jax_agreement(_as_jax(doc["responses"])).to_dict()
+    if all(got[p]["content"] == want[p]["content"] for p in got):
+        rename = {f"tpu:{p}": f"gpu:{p}" for p in got}
+        jax_agree = dict(jax_doc["agreement"])
+        jax_agree["divergence"] = {rename[m]: v for m, v in jax_agree["divergence"].items()}
+        assert doc["agreement"] == jax_agree
+    # The engines took the checkpoint's weights, not a random init.
+    from llm_consensus_tpu_torch.engine.checkpoint import SafetensorsDir
+
+    engine = provider.engines()["tiny-llama"]
+    ckpt = SafetensorsDir(os.path.join(provider.checkpoint_dir, "tiny-llama"))
+    assert torch.equal(engine.params["embed"],
+                       ckpt.get("model.embed_tokens.weight").to(engine.dtype))
+
+
+def test_checkpoint_runs_write_the_jax_manifest_and_panel(checkpoint_runs):
+    runs, _ = checkpoint_runs
+    gpu, tpu = runs["gpu"], runs["tpu"]
+    assert sorted(os.listdir(gpu)) == sorted(set(os.listdir(tpu)) - {"metrics.json"})
+    manifest, jax_manifest = _doc(gpu, "run.json"), _doc(tpu, "run.json")
+    assert list(manifest) == list(jax_manifest)
+    for key in ("models", "judge"):
+        jax_manifest[key] = json.loads(json.dumps(jax_manifest[key]).replace("tpu:", "gpu:"))
+    assert manifest == jax_manifest
+    assert manifest["models"] == ["gpu:tiny-llama", "gpu:tiny-qwen2"]
+
+    # One journal file per answer, numbered in landing order, named by slug.
+    names = sorted(os.listdir(gpu / "panel"))
+    jax_names = sorted(os.listdir(tpu / "panel"))
+    assert [n[:4] for n in names] == [n[:4] for n in jax_names] == ["000-", "001-"]
+    assert sorted(n[4:] for n in names) == sorted(
+        n[4:].replace("tpu_", "gpu_") for n in jax_names) == [
+        "gpu_tiny-llama.json", "gpu_tiny-qwen2.json"]
+    responses = {r["model"]: r for r in _doc(gpu)["responses"]}
+    for name in names:
+        entry = _doc(gpu / "panel", name)
+        assert entry == responses[entry["model"]]
+        assert list(entry) == list(_doc(tpu / "panel", jax_names[0]))
+
+
+def test_panel_journal_numbers_past_existing_files_and_never_fails_a_model(tmp_path):
+    from llm_consensus_tpu_torch.cli.main import panel_journal
+
+    panel = tmp_path / "panel"
+    panel.mkdir()
+    (panel / "004-gpu_a.json").write_text("{torn")
+    journal = panel_journal(str(tmp_path))
+    journal(_resp("gpu:b", "answer"))
+    assert sorted(os.listdir(panel)) == ["004-gpu_a.json", "005-gpu_b.json"]
+    assert json.loads((panel / "005-gpu_b.json").read_text())["content"] == "answer"
+
+    # A journal hook that raises is swallowed: the model still counts.
+    reg = Registry()
+    reg.register("ok", ProviderFunc(lambda ctx, req: _resp(req.model, "fine")))
+
+    def boom(resp):
+        raise OSError("disk full")
+
+    result = Runner(reg, timeout=5).with_callbacks(Callbacks(on_model_response=boom)).run(
+        Context.background(), ["ok"], "p")
+    assert [r.model for r in result.responses] == ["ok"] and not result.failed_models
+
+
+def test_cli_prints_panel_agreement_on_a_terminal(tmp_path):
+    """On a terminal the phase lines include the JAX CLI's "Panel
+    agreement" line; the run directory is journaled the same way."""
+    class Terminal(io.StringIO):
+        def isatty(self):
+            return True
+
+    answers = {"m:a": "the answer is forty two", "m:b": "the answer is 42"}
+    reg = {m: ProviderFunc(lambda ctx, req: _resp(req.model, answers.get(req.model, "ok")))
+           for m in (*answers, "m:judge")}
+    stderr = Terminal()
+    rc = main(["--models", "m:a,m:b", "--judge", "m:judge", "--data-dir", str(tmp_path), "q"],
+              factory=reg.__getitem__, stdin=io.StringIO(""), stdout=io.StringIO(),
+              stderr=stderr, install_signal_handlers=False)
+    assert rc == 0
+    want = jax_agreement([JaxResponse(model=m, content=c, provider="gpu")
+                          for m, c in answers.items()])
+    assert f"Panel agreement: {want.level} ({want.score:.2f})" in stderr.getvalue()
+    (run_dir,) = list(tmp_path.iterdir())
+    assert sorted(n[4:] for n in os.listdir(run_dir / "panel")) == ["m_a.json", "m_b.json"]
+
+
+def test_agreement_scores_like_jax():
+    from llm_consensus_tpu_torch.consensus import score_agreement
+
+    specs = [("gpu:a", "the answer is forty two"), ("gpu:b", "the answer is 42"),
+             ("gpu:c", "something else entirely"), ("gpu:d", "")]
+    for n in (1, 2, 4):
+        ours = score_agreement([_resp(m, c) for m, c in specs[:n]])
+        theirs = jax_agreement([JaxResponse(model=m, content=c, provider="gpu")
+                                for m, c in specs[:n]])
+        assert (ours is None) == (theirs is None) == (n < 2)
+        if ours is not None:
+            assert ours.to_dict() == theirs.to_dict()
 
 
 def test_cli_json_to_stdout(tmp_path):

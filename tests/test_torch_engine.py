@@ -32,10 +32,17 @@ def _no_prefix_reuse(monkeypatch):
     monkeypatch.setenv("LLMC_PREFIX_CACHE", "0")
 
 
-def _engines(head_dim=None, prefill_chunk=512, max_seq=128, **kw):
-    over = {} if head_dim is None else {"head_dim": head_dim}
-    jcfg, tcfg = jax_config("tiny-llama", **over), get_config("tiny-llama", **over)
+def _engines(head_dim=None, prefill_chunk=512, max_seq=128, preset="tiny-llama",
+             overrides=None, edit=None, **kw):
+    """The JAX and the port's engine on the same float32 weights; ``edit``
+    may change the JAX tree first."""
+    over = dict(overrides or {})
+    if head_dim is not None:
+        over["head_dim"] = head_dim
+    jcfg, tcfg = jax_config(preset, **over), get_config(preset, **over)
     jp = jax_init(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    if edit is not None:
+        jp = edit(jp)
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, torch.device("cpu"),
                            torch.float32)
     je = JaxEngine(jcfg, params=jp, dtype=jnp.float32, max_seq=max_seq,
@@ -238,3 +245,35 @@ def test_int8_engine_uses_the_int8_cache_and_quantized_weights():
         te.cfg.n_layers, 1, te.cfg.n_kv_heads, 128)
     r = te.generate(SHORT, SamplingParams(max_new_tokens=12, ignore_eos=True))
     assert len(r.token_ids) == 12
+
+
+# -- mixture of experts ------------------------------------------------------------
+
+
+def _zero_router(jp):
+    """Every router logit 0: all choices tie, so every token picks experts
+    0 and 1 (the lower index first), and with 8 experts each holds half
+    the tokens of a prefill: the rest are dropped."""
+    layers = dict(jp["layers"])
+    layers["w_router"] = jnp.zeros_like(layers["w_router"])
+    return {**jp, "layers": layers}
+
+
+@pytest.mark.parametrize("case", [
+    ({}, None), ({"n_experts": 8}, None), ({"n_experts": 8}, _zero_router),
+], ids=["e4", "e8", "e8-ties-drops"])
+@pytest.mark.parametrize("modes", [{}, {"quant": "int8", "kv_quant": "int8"}],
+                         ids=["f32", "int8-int8"])
+@pytest.mark.parametrize("prompt,chunk", [(SHORT, 512), (LONG, 32)],
+                         ids=["one-shot", "chunked"])
+def test_mixtral_greedy_tokens_identical_to_jax(case, modes, prompt, chunk):
+    """tiny-mixtral through both engines: the same routing, capacity and
+    drop order (pad tokens of the prompt's bucket included) give the same
+    greedy tokens, in float32 and with int8 weights and cache."""
+    over, edit = case
+    je, te = _engines(prefill_chunk=chunk, preset="tiny-mixtral", overrides=over, edit=edit,
+                      **modes)
+    a = je.generate(prompt, JaxSampling(max_new_tokens=32, ignore_eos=True))
+    b = te.generate(prompt, SamplingParams(max_new_tokens=32, ignore_eos=True))
+    assert b.token_ids == a.token_ids
+    assert b.text == a.text

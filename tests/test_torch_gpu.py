@@ -417,3 +417,96 @@ def test_decode_graph_replay_at_other_positions(cuda, variant):
         want = da.decode_attention_plain(q, k, v, p, 0, rs, **kw)
         err, tol = _decode_err_and_tol(out, want)
         assert err <= tol, (p, err, tol)
+
+
+# -- mixture of experts and checkpoints on the card ----------------------------------
+
+
+@pytest.mark.parametrize("n", [1, 4, 64])
+def test_moe_block_on_the_card_matches_the_cpu(cuda, n):
+    """float32 on the card (TF32 off, torch's default) against float32 on
+    the CPU: identical routing and outputs within 1e-4 (float32 sums of
+    512 and 1,024 products in another order). n = 64 at 8 experts drops
+    choices past capacity 32."""
+    from llm_consensus_tpu_torch.ops.moe import moe_block, route
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rng = np.random.default_rng(n)
+    e, d, f = 8, 512, 1024
+    x = rng.standard_normal((1, n, d)).astype(np.float32)
+    ws = [rng.standard_normal(s).astype(np.float32) * sc for s, sc in (
+        ((d, e), 0.3), ((e, d, f), d ** -0.5), ((e, d, f), d ** -0.5), ((e, f, d), f ** -0.5))]
+    cpu = [torch.from_numpy(a) for a in [x] + ws]
+    dev = [t.to(cuda) for t in cpu]
+    _, idx_cpu = route(cpu[0].reshape(n, d), cpu[1], 2)
+    _, idx_dev = route(dev[0].reshape(n, d), dev[1], 2)
+    assert torch.equal(idx_dev.cpu(), idx_cpu)
+    got = moe_block(*dev, top_k=2)
+    want = moe_block(*cpu, top_k=2)
+    assert got.is_cuda and (got.cpu() - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4", "w8a8"])
+@pytest.mark.parametrize("rows", [1, 40], ids=["decode", "prefill"])
+def test_expert_products_on_the_card(cuda, mode, rows):
+    """``qmatmul``'s expert form [E, C, K] @ [E, K, N] on the card against
+    the CPU on the same codes: bf16 activations on the card against float32
+    on the CPU, within 2 % of the largest output (bf16 rounding of inputs
+    and outputs); W8A8's int32 products are exact and only its bf16 output
+    rounds, so each value within 2^-8 of its own size."""
+    from llm_consensus_tpu_torch.ops.quant import qmatmul, quantize_weight
+
+    gen = torch.Generator().manual_seed(rows)
+    e, k, n = 8, 512, 256
+    w = quantize_weight(torch.randn(e, k, n, generator=gen) * k ** -0.5,
+                        "int4" if mode == "int4" else "int8")
+    x = torch.randn(e, rows, k, generator=gen).to(torch.bfloat16)
+    x[2] = 0  # an empty expert
+    w8a8 = mode == "w8a8"
+    got = qmatmul(x.to(cuda), {kk: v.to(cuda) for kk, v in w.items()}, w8a8=w8a8)
+    want = qmatmul(x.float(), {kk: v.float() if v.is_floating_point() else v
+                               for kk, v in w.items()}, w8a8=w8a8)
+    assert got.is_cuda and got.shape == (e, rows, n) and not got[2].any()
+    err = (got.float().cpu() - want).abs()
+    if w8a8:
+        assert bool((err <= 2 ** -8 * want.abs() + 1e-6).all())
+    else:
+        assert err.max().item() <= 2e-2 * want.abs().max().item()
+
+
+def test_checkpoint_loads_on_the_card(cuda, tmp_path):
+    """A synthetic HF checkpoint of tiny-mixtral in BF16 (chip_smoke.py's
+    writer: the card's machine has no safetensors package), loaded on the
+    card (int8-quantized as it lands) and on the CPU: the same tree; and
+    GPUProvider(checkpoint_dir=...) on the card gives the greedy text of an
+    engine on the card over the CPU load moved there."""
+    from llm_consensus_tpu_torch.engine.checkpoint import load_hf_safetensors
+    from llm_consensus_tpu_torch.models.transformer import param_leaves
+    from llm_consensus_tpu_torch.providers import Request
+    from llm_consensus_tpu_torch.providers.gpu import GPUProvider
+    from llm_consensus_tpu_torch.utils.context import Context
+
+    from chip_smoke import synthetic_hf_tensors, write_safetensors
+
+    cfg = get_config("tiny-mixtral")
+    (tmp_path / cfg.name).mkdir()
+    write_safetensors(str(tmp_path / cfg.name / "model.safetensors"),
+                      synthetic_hf_tensors(torch, cfg, seed=0))
+    on_card = load_hf_safetensors(cfg, str(tmp_path / cfg.name), device=cuda, quant="int8")
+    on_cpu = load_hf_safetensors(cfg, str(tmp_path / cfg.name), device=torch.device("cpu"),
+                                 quant="int8")
+    for (name, a), (_, b) in zip(param_leaves(on_card), param_leaves(on_cpu)):
+        assert a.is_cuda and torch.equal(a.cpu(), b), name
+    prompt = "checkpoint on the card"
+    provider = GPUProvider(device=cuda, checkpoint_dir=str(tmp_path), quant="int8")
+    try:
+        got = provider.query(Context.background(), Request(
+            model=f"gpu:{cfg.name}", prompt=prompt, max_tokens=16)).content
+    finally:
+        provider.release()
+    moved = Engine(cfg, _to(on_cpu, cuda), device=cuda, quant="int8")
+    assert got == moved.generate(prompt, SamplingParams(max_new_tokens=16)).text
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}

@@ -30,13 +30,32 @@ from llm_consensus_tpu_torch.utils import flops as tflops
 TOL = dict(atol=1e-4, rtol=1e-4)
 TOL8 = dict(atol=1e-3, rtol=1e-3)  # through the int8 cache's quantizer (see its test)
 CPU = torch.device("cpu")
-CONFIGS = [("tiny-llama", {}), ("tiny-llama", {"head_dim": 128})]
+# Every tiny family of the reference (tests/test_models.py FAMILIES): gemma's
+# norm offset, embedding scale and tied head, qwen2's qkv biases (drawn
+# non-zero), mistral's window and mixtral's experts each held against JAX.
+FAMILIES = ["tiny-gemma", "tiny-qwen2", "tiny-mistral", "tiny-mixtral"]
+CONFIGS = [("tiny-llama", {}), ("tiny-llama", {"head_dim": 128})] + [
+    (name, {}) for name in FAMILIES]
+
+
+def _with_biases(jp, jcfg, seed):
+    """Non-zero qkv biases (the reference initializes them to zero)."""
+    if not jcfg.qkv_bias:
+        return jp
+    rng = np.random.default_rng(seed + 100)
+    layers = dict(jp["layers"])
+    for name in ("bq", "bk", "bv"):
+        layers[name] = jnp.asarray(
+            rng.standard_normal(layers[name].shape).astype(np.float32) * 0.1,
+            layers[name].dtype)
+    return {**jp, "layers": layers}
 
 
 def _pair(name, overrides, seed=0):
     jcfg = jconfig.get_config(name, **overrides)
     tcfg = tconfig.get_config(name, **overrides)
-    jp = jtf.init_params(jcfg, jax.random.PRNGKey(seed), dtype=jnp.float32)
+    jp = _with_biases(jtf.init_params(jcfg, jax.random.PRNGKey(seed), dtype=jnp.float32),
+                      jcfg, seed)
     tp = ttf.params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, CPU, torch.float32)
     return jcfg, tcfg, jp, tp
 
@@ -76,6 +95,30 @@ def test_init_params_draws_in_the_working_dtype():
         assert torch.equal(w, b["layers"][name])
     assert a["lm_head"].shape == (cfg.d_model, cfg.vocab_size)
     assert not torch.equal(a["embed"], ttf.init_params(cfg, 4, device=CPU)["embed"])
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_expert_leaves_draw_layer_by_layer_the_same_with_quant(mode):
+    """tiny-mixtral: the experts' [L, E, D, F] leaves and the router have
+    the reference's shapes, and the streamed quantized init gives exactly
+    the codes of quantizing the unquantized init (the draws do not depend
+    on ``quant``); the router stays in the working dtype."""
+    cfg = tconfig.get_config("tiny-mixtral")
+    plain = ttf.init_params(cfg, 5, device=CPU)
+    streamed = ttf.init_params(cfg, 5, device=CPU, quant=mode)
+    want = tq.quantize_params(plain, mode)
+    for name, shape in ttf._layer_shapes(cfg).items():
+        assert tuple(plain["layers"][name].shape) == shape, name
+        got = streamed["layers"][name]
+        if name in tq.QUANT_KEYS:
+            for key, codes in want["layers"][name].items():
+                assert torch.equal(got[key], codes), (name, key)
+        else:
+            assert torch.equal(got, plain["layers"][name]), name
+    assert streamed["layers"]["w_router"].dtype == torch.bfloat16
+    jshapes = jax.eval_shape(lambda: jtf.init_params(
+        jconfig.get_config("tiny-mixtral"), jax.random.PRNGKey(0)))["layers"]
+    assert {k: tuple(v.shape) for k, v in jshapes.items()} == ttf._layer_shapes(cfg)
 
 
 @pytest.mark.parametrize("name,overrides", CONFIGS)
@@ -169,8 +212,9 @@ def _quantized_pair(name, overrides, mode="int8", seed=0):
 
     jcfg = jconfig.get_config(name, **overrides)
     tcfg = tconfig.get_config(name, **overrides)
-    jp = quantize_params(jtf.init_params(jcfg, jax.random.PRNGKey(seed), dtype=jnp.float32),
-                         mode=mode)
+    jp = quantize_params(_with_biases(
+        jtf.init_params(jcfg, jax.random.PRNGKey(seed), dtype=jnp.float32), jcfg, seed),
+        mode=mode)
     tp = ttf.params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, CPU, torch.float32)
     return jcfg, tcfg, jp, tp
 
