@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --phase kernels   # build + kernel checks only
     python3 chip_smoke.py --phase mixtral   # build + the Mixtral phases only
+    python3 chip_smoke.py --phase telemetry # build + the telemetry phase only
 
 Phases, in order; any failure exits non-zero before the last line:
 
@@ -45,6 +46,23 @@ Phases, in order; any failure exits non-zero before the last line:
    shared-prefix wave with an unrelated prompt beside it, a profiler
    window over a shared-prefix wave, a wave of 4 unrelated prompts (flash
    at B = 4), and short int8-KV and W8A8 shared-prefix runs;
+8a. telemetry (obs/, on by default in every CLI phase): the slice's CLI
+   run with ``--events`` and auto-save, then the batched slice's, each
+   checked for the JAX CLI's run directory (``metrics.json``,
+   ``trace.json``), the expected spans and roofline counters, the kernels'
+   launches, every roofline share at most 1.05, decode memory-bound and
+   the cross-check ok (each family's rates, intensity and verdict
+   printed); the attribution ledger's decode device time against the
+   kernels of a torch.profiler window; a generate on new keys and again
+   (the device time a captured and an uncaptured dispatch book, and the
+   captures' counting time); one llama-3-8b generate with every
+   plane bound and with none, in turns (decode rates, host time inside
+   telemetry code per chunk, synchronizations per chunk, which must be
+   equal); ``--trace DIR`` and ``--profile`` artifacts with the card's
+   kernels; the ledger's device-memory numbers against
+   ``torch.cuda.max_memory_allocated``; the slice's auto-saved CLI run in
+   a fresh process with the planes on and off, in turns (process and
+   main() walls);
 9. the quantized slice: the same CLI run with ``LLMC_QUANT=int8
    LLMC_KV_QUANT=int8`` in the environment (int8 weights, int8 KV cache,
    the int8 decode kernel), then a profiler window over one of its
@@ -951,12 +969,15 @@ def check_cache(engine, cache: dict) -> None:
 
 
 def run_slice(torch, counters: dict, env: dict, label: str,
-              models: str = "gpu:llama-3-8b,gpu:consensus-1b") -> dict:
+              models: str = "gpu:llama-3-8b,gpu:consensus-1b", events: bool = False) -> dict:
     """One consensus run through the port's CLI (panel ``models``, judge
     llama-3-8b) with ``env`` set for the call (and restored after);
     ``counters`` (name → LaunchCounter) are set to 0 just before and read
     just after. Returns the launches, the provider and its built engines,
-    the wall, the peak device memory and the responses."""
+    the wall, the peak device memory and the responses. ``events``: the run
+    takes ``--events`` and auto-saves instead of ``--json``, and the result
+    also holds the run directory's listing and its ``metrics.json`` and
+    ``trace.json``."""
     from llm_consensus_tpu_torch.cli.main import main as cli_main
     from llm_consensus_tpu_torch.engine.tokenizer import ByteTokenizer
     from llm_consensus_tpu_torch.providers.gpu import GPUProvider
@@ -967,10 +988,11 @@ def run_slice(torch, counters: dict, env: dict, label: str,
     try:
         modes = {**batch_settings(), **quant_modes()}
         out, err = io.StringIO(), io.StringIO()
+        files = {}
         with tempfile.TemporaryDirectory(prefix="chip-smoke-") as data_dir:
             argv = [
-                "--models", models, "--judge", "gpu:llama-3-8b",
-                "--max-tokens", "64", "--json", "--data-dir", data_dir, PROMPT,
+                "--models", models, "--judge", "gpu:llama-3-8b", "--max-tokens", "64",
+                *(["--events"] if events else ["--json"]), "--data-dir", data_dir, PROMPT,
             ]
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -981,6 +1003,15 @@ def run_slice(torch, counters: dict, env: dict, label: str,
                           install_signal_handlers=False)
             torch.cuda.synchronize()
             wall = time.monotonic() - t0
+            if events and rc == 0:
+                (run_id,) = os.listdir(data_dir)
+                run_dir = os.path.join(data_dir, run_id)
+                files["listing"] = sorted(os.listdir(run_dir))
+                for name in ("result.json", "metrics.json", "trace.json"):
+                    path = os.path.join(run_dir, name)
+                    if os.path.exists(path):
+                        with open(path, encoding="utf-8") as f:
+                            files[name] = json.load(f)
     finally:
         for name, value in saved.items():
             if value is None:
@@ -991,7 +1022,7 @@ def run_slice(torch, counters: dict, env: dict, label: str,
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if rc != 0:
         raise AssertionError(f"{label}: CLI exit {rc}: {err.getvalue()}")
-    doc = json.loads(out.getvalue())
+    doc = files["result.json"] if events else json.loads(out.getvalue())
     n_models = len(models.split(","))
     if (len(doc["responses"]) != n_models or doc.get("failed_models")
             or not doc["consensus"]):
@@ -1028,7 +1059,8 @@ def run_slice(torch, counters: dict, env: dict, label: str,
         log(f"  {preset}: prefill of {len(ids)} tokens (bucket 512, flash kernel) "
             f"median {times[2]:.2f} ms (min {times[0]:.2f}, max {times[-1]:.2f}, 5 runs)")
     return {"launches": launches, "engines": engines, "wall_s": wall, "peak_gb": peak_gb,
-            "modes": modes, "provider": provider, "responses": doc["responses"]}
+            "modes": modes, "provider": provider, "responses": doc["responses"],
+            "files": files}
 
 
 def release_engines(torch, modes: dict) -> None:
@@ -1079,7 +1111,8 @@ def check_one_launch_per_step(ours: dict, kernel: str, other: str, counter, n_la
         f"one per call, no {other} or {'/'.join(OLD_DECODE_SYMBOLS)}")
 
 
-def profile_decode(torch, engine, label: str = "profile", run=None, counter=None) -> dict:
+def profile_decode(torch, engine, label: str = "profile", run=None, counter=None,
+                   export: str = None, stats: dict = None) -> dict:
     """Where the time goes: torch.profiler over ``run()`` (by default one
     llama-3-8b generate, 350-token prompt, 48 tokens), run once before to
     warm; device busy share of the wall, the kernels with the most device
@@ -1088,7 +1121,8 @@ def profile_decode(torch, engine, label: str = "profile", run=None, counter=None
     int8-weight matmul). Returns the port's kernels' (device ms, launches)
     by name, or {} when the profiler saw no device time. ``counter``, when
     given, is set to 0 just before the profiled run, so it holds that run's
-    wrapper launches."""
+    wrapper launches; ``export``, a path for the window's Chrome trace;
+    ``stats`` gets the window's ``wall_ms`` and ``busy_ms``."""
     from torch.profiler import ProfilerActivity, profile
 
     from llm_consensus_tpu_torch.engine import SamplingParams
@@ -1119,6 +1153,10 @@ def profile_decode(torch, engine, label: str = "profile", run=None, counter=None
     events = [e for e in prof.key_averages()
               if "CUDA" in str(getattr(e, "device_type", "")) and dev_us(e) > 0]
     busy_ms = sum(dev_us(e) for e in events) / 1e3
+    if export is not None:
+        prof.export_chrome_trace(export)
+    if stats is not None:
+        stats.update(wall_ms=wall_ms, busy_ms=busy_ms)
     if busy_ms == 0:
         log(f"{label}: torch.profiler captured no device time (not measured)")
         return {}
@@ -1460,6 +1498,390 @@ def run_batched_engine(torch, fa, da, engine, state_recs: dict) -> None:
     release_memory(torch)
 
 
+# -- the telemetry phase ----------------------------------------------------------
+
+# No roofline share may read above the card's peak by more than this
+# (the walls are stream intervals, so a share over 1 would mean the
+# intervals undercount the device work).
+SHARE_MAX = 1.05
+RUN_FILES = ["consensus.md", "metrics.json", "panel", "prompt.txt", "result.json", "run.json",
+             "trace.json"]
+METRICS_KEYS = {"counters", "events", "models", "live", "attrib", "roofline"}
+
+
+def fresh_planes() -> None:
+    """Drop the shared providers and forget the telemetry planes: the next
+    CLI run installs the planes from the environment again (on by default)
+    and builds providers and engines that bind them."""
+    from llm_consensus_tpu_torch import obs
+    from llm_consensus_tpu_torch.providers.gpu import GPUProvider
+
+    for provider in GPUProvider._shared.values():
+        provider.release()
+    GPUProvider._shared.clear()
+    obs.reset_planes()
+
+
+def check_run_telemetry(sl: dict, label: str, spans: set, batcher_spans: set = frozenset()):
+    """The run directory of an ``--events`` run: the JAX CLI's listing,
+    metrics.json's blocks, the trace's spans and roofline counters."""
+    files = sl["files"]
+    if files.get("listing") != RUN_FILES:
+        raise AssertionError(f"{label}: run directory {files.get('listing')}")
+    metrics, trace = files["metrics.json"], files["trace.json"]
+    if not METRICS_KEYS <= set(metrics):
+        raise AssertionError(f"{label}: metrics.json keys {list(metrics)}")
+    tids = {e["tid"]: e["args"]["name"] for e in trace["traceEvents"]
+            if e["name"] == "thread_name"}
+    rows = {(e["name"], tids[e["tid"]]) for e in trace["traceEvents"] if e["ph"] == "X"}
+    names = {n for n, _ in rows}
+    counters = {e["name"] for e in trace["traceEvents"] if e["ph"] == "C"}
+    want_c = {f"roofline_{k}/{f}" for k in ("flops", "bytes") for f in ("decode", "prefill")}
+    if (not spans <= names or not batcher_spans <= {n for n, t in rows if t == "batcher"}
+            or counters != want_c):
+        raise AssertionError(f"{label}: trace spans {sorted(rows)}, counters {sorted(counters)}")
+    kinds = {}
+    for e in trace["traceEvents"]:
+        kinds[e["ph"], e["name"]] = kinds.get((e["ph"], e["name"]), 0) + 1
+    log(f"  {label}: run dir {files['listing']}; metrics.json {list(metrics)}; trace events "
+        + ", ".join(f"{ph} {n} x{c}" for (ph, n), c in sorted(kinds.items())))
+    return metrics
+
+
+def check_roofline(metrics: dict, responses: list, label: str) -> None:
+    """Every family's shares at or under SHARE_MAX, decode memory-bound, the
+    cross-check ok; prints each family's rates and shares beside the
+    responses' own MBU."""
+    rl = metrics["roofline"]
+    log(f"  {label} roofline: ridge {rl['ridge_flops_per_byte']} FLOP/B ({rl['ridge_source']}), "
+        f"peaks {rl['peak_flops_per_s']} FLOP/s {rl['peak_bytes_per_s']} B/s, coverage "
+        f"{rl['coverage']}")
+    for fam, f in rl["families"].items():
+        shares = (f.get("mfu_vs_peak"), f.get("mbu_vs_peak"))
+        log(f"    {fam}: {f['programs']} programs, {f['dispatches']} dispatches, "
+            f"{f['tokens']} tokens, wall {f['wall_s']} s, {f['flops']:.6g} FLOP, "
+            f"{f['bytes']:.6g} B, intensity {f['intensity']:.6g} FLOP/B, {f['verdict']}, "
+            f"achieved {f['achieved_flops_per_s']:.6g} FLOP/s {f['achieved_bytes_per_s']:.6g} "
+            f"B/s, mfu_vs_peak {shares[0]}, mbu_vs_peak {shares[1]}")
+        if any(v is None or v > SHARE_MAX for v in shares):
+            raise AssertionError(f"{label}: {fam} shares {shares} (limit {SHARE_MAX})")
+    if rl["families"]["decode"]["verdict"] != "memory_bound":
+        raise AssertionError(f"{label}: decode verdict {rl['families']['decode']['verdict']}")
+    for fam, c in rl["crosscheck"].items():
+        log(f"    crosscheck {fam}: {c}")
+    if not rl["crosscheck"] or not all(c["ok"] for c in rl["crosscheck"].values()):
+        raise AssertionError(f"{label}: crosscheck {rl['crosscheck']}")
+    log(f"    responses' own decode MBU: "
+        + ", ".join(f"{r['model']} {r.get('mbu')}" for r in responses))
+    att = metrics["attrib"]
+    log(f"  {label} attrib: device_s {att['device_s']}, dispatches {att['dispatches']}, "
+        f"tokens {att['tokens']}, gap_s {att['gap_s']} in {att['gaps']} gaps, compiles "
+        f"{att['compiles']}")
+
+
+def check_attrib_against_profiler(torch, engine) -> None:
+    """One llama-3-8b generate inside profile_decode's window with the
+    ledger bound: the ledger's decode device_s holds every decode kernel's
+    time and fits in the window's wall."""
+    from llm_consensus_tpu_torch.engine import SamplingParams
+
+    led = engine._attrib
+    ids = engine.tokenizer.encode(PROMPT)
+    sp = SamplingParams(max_new_tokens=48, ignore_eos=True)
+    marks = []
+
+    def run():
+        marks.append(led.snapshot()["device_s"].get("decode", 0.0))
+        engine.generate_ids(ids, sp)
+
+    stats: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
+        path = os.path.join(tmp, "trace.json")
+        profile_decode(torch, engine, "attribution profile", run=run, export=path, stats=stats)
+        if not stats:
+            log("attribution profile: no device time in the profiler (not measured)")
+            return
+        with open(path, encoding="utf-8") as f:
+            kernels = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    decode_s = led.snapshot()["device_s"]["decode"] - marks[-1]
+    prefill_end = max(e["ts"] + e["dur"] for e in kernels if "flash_prefill" in e["name"])
+    decode_kernels_s = sum(e["dur"] for e in kernels if e["ts"] >= prefill_end) / 1e6
+    wall_s = stats["wall_ms"] / 1e3
+    log(f"attribution vs profiler: ledger decode device_s {decode_s:.6f} s, the decode "
+        f"window's kernels {decode_kernels_s:.6f} s (ratio {decode_s / decode_kernels_s:.4f}), "
+        f"window wall {wall_s:.6f} s; kernels / ledger = {decode_kernels_s / decode_s:.4f} "
+        f"(the profiler's busy share of the ledger's decode interval)")
+    if not decode_kernels_s <= decode_s <= wall_s:
+        raise AssertionError(f"attribution: decode {decode_s} s against kernels "
+                             f"{decode_kernels_s} s and wall {wall_s} s")
+
+
+def check_capture_walls(torch, engine) -> None:
+    """One llama-3-8b generate on keys the run has not met (the prompt cut
+    to 200 tokens: a new prefill bucket and decode width), then the same
+    generate again: the first runs each key's roofline capture, the second
+    none. Prints the device time each booked per family beside the
+    captures' counting time, which the intervals leave out."""
+    from llm_consensus_tpu_torch.engine import SamplingParams
+
+    led, rl = engine._attrib, engine._roofline
+    ids = engine.tokenizer.encode(PROMPT)[:200]
+    sp = SamplingParams(max_new_tokens=48, ignore_eos=True)
+    arms = []
+    for arm in ("captured", "uncaptured"):
+        before, n0, held0 = led.snapshot()["device_s"], rl.captures, rl.capture_s
+        engine.generate_ids(ids, sp)
+        torch.cuda.synchronize()
+        after = led.snapshot()["device_s"]
+        booked = {f: after[f] - before.get(f, 0.0) for f in ("prefill", "decode")}
+        arms.append(rl.captures - n0)
+        log(f"capture walls, {arm}: prefill {booked['prefill']:.6f} s, decode "
+            f"{booked['decode']:.6f} s booked; {rl.captures - n0} keys counted in "
+            f"{(rl.capture_s - held0) * 1e3:.3f} ms of host time")
+    if arms[0] == 0 or arms[1] != 0:
+        raise AssertionError(f"capture walls: keys counted per generate {arms}")
+
+
+# The slice's CLI in a fresh process: stderr's last line is the import
+# and main() walls.
+_FRESH_CLI = (
+    "import json, sys, time\n"
+    "t0 = time.monotonic()\n"
+    "import torch\n"
+    "from llm_consensus_tpu_torch.cli.main import main\n"
+    "t1 = time.monotonic()\n"
+    "rc = main(sys.argv[1:])\n"
+    "torch.cuda.synchronize()\n"
+    "print(json.dumps({'rc': rc, 'import_s': t1 - t0, 'main_s': time.monotonic() - t1}),\n"
+    "      file=sys.stderr)\n"
+)
+PLANES_OFF = {"LLMC_LIVE": "0", "LLMC_ATTRIB": "0", "LLMC_ROOFLINE": "0", "LLMC_BLACKBOX": "0"}
+
+
+def measure_fresh_cli_walls() -> None:
+    """The slice's CLI run, auto-saved as a user runs it, each time in a
+    fresh process, with the planes on (the default) and off (every plane's
+    knob at 0), in turns (on, off, off, on, on, off): the process wall and
+    main()'s own wall. The planes-on runs write metrics.json, the others
+    do not."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    base = {k: v for k, v in os.environ.items() if not k.startswith("LLMC_")}
+    walls: dict = {"on": [], "off": []}
+    for arm in ("on", "off", "off", "on", "on", "off"):
+        env = {**base, **(PLANES_OFF if arm == "off" else {})}
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-") as data_dir:
+            argv = ["--models", "gpu:llama-3-8b,gpu:consensus-1b", "--judge", "gpu:llama-3-8b",
+                    "--max-tokens", "64", "--data-dir", data_dir, PROMPT]
+            t0 = time.monotonic()
+            proc = subprocess.run([sys.executable, "-c", _FRESH_CLI, *argv], env=env, cwd=repo,
+                                  capture_output=True, text=True, timeout=600)
+            wall = time.monotonic() - t0
+            lines = proc.stderr.strip().splitlines()
+            if proc.returncode != 0 or not lines:
+                raise AssertionError(f"fresh CLI ({arm}): exit {proc.returncode}: "
+                                     f"{proc.stderr[-2000:]}")
+            rec = json.loads(lines[-1])
+            (run_id,) = os.listdir(data_dir)
+            listing = sorted(os.listdir(os.path.join(data_dir, run_id)))
+        if rec["rc"] != 0 or ("metrics.json" in listing) != (arm == "on"):
+            raise AssertionError(f"fresh CLI ({arm}): {rec}, run directory {listing}")
+        walls[arm].append((wall, rec["main_s"]))
+        log(f"fresh CLI, planes {arm}: process {wall:.3f} s, import {rec['import_s']:.3f} s, "
+            f"main() {rec['main_s']:.3f} s; run directory {listing}")
+    for arm, runs in walls.items():
+        log(f"fresh CLI, planes {arm}: main() " + ", ".join(f"{m:.3f}" for _, m in runs)
+            + " s; process " + ", ".join(f"{w:.3f}" for w, _ in runs) + " s")
+
+
+def measure_overhead(torch, engine) -> None:
+    """The same llama-3-8b generate with every plane bound and with none,
+    in turns (off, on, on, off): both decode rates, the host time inside
+    telemetry code per decode chunk, and the synchronizations per chunk,
+    which must not differ."""
+    from llm_consensus_tpu_torch import obs
+    from llm_consensus_tpu_torch.engine import SamplingParams
+    from llm_consensus_tpu_torch.engine import engine as engine_mod
+
+    planes = (engine._obs, engine._attrib, engine._roofline)
+    if any(p is None for p in planes):
+        raise AssertionError(f"overhead: the engine bound {planes}")
+    host_ns = [0]
+    depth = threading.local()
+    hooks = [(obs.Recorder, "complete"), (obs.Recorder, "count"),
+             (obs.attrib.ChipTimeLedger, "observe_device"),
+             (obs.attrib.ChipTimeLedger, "token_event"),
+             (obs.roofline.RooflineLedger, "dispatch"), (obs.live.LiveMetrics, "observe"),
+             (engine_mod.DeviceWall, "__init__"), (engine_mod.DeviceWall, "stop"),
+             (engine_mod.DeviceWall, "seconds")]
+
+    def timed(fn):
+        def wrapper(*a, **kw):
+            if getattr(depth, "n", 0):
+                return fn(*a, **kw)
+            depth.n = 1
+            t0 = time.perf_counter_ns()
+            try:
+                return fn(*a, **kw)
+            finally:
+                host_ns[0] += time.perf_counter_ns() - t0
+                depth.n = 0
+        return wrapper
+
+    syncs = [0]
+
+    def counted(fn):
+        def wrapper(*a, **kw):
+            syncs[0] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    chunks = [0]
+    decode_chunk = engine._decode_chunk
+
+    def chunk(*a, **kw):
+        chunks[0] += 1
+        return decode_chunk(*a, **kw)
+
+    originals = [(cls, name, cls.__dict__[name]) for cls, name in hooks]
+    sync_orig = (torch.cuda.synchronize, torch.cuda.Event.synchronize)
+    ids = engine.tokenizer.encode(PROMPT)
+    sp = SamplingParams(max_new_tokens=128, ignore_eos=True)
+    engine.generate_ids(ids, sp)  # warm: every key of this shape counted already
+    arms = {"off": [], "on": []}
+    try:
+        for cls, name, fn in originals:
+            setattr(cls, name, timed(fn))
+        torch.cuda.synchronize = counted(sync_orig[0])
+        torch.cuda.Event.synchronize = counted(sync_orig[1])
+        engine._decode_chunk = chunk
+        for arm in ("off", "on", "on", "off"):
+            engine._obs, engine._attrib, engine._roofline = (
+                planes if arm == "on" else (None, None, None))
+            host_ns[0] = syncs[0] = chunks[0] = 0
+            res = engine.generate_ids(ids, sp)
+            arms[arm].append((res.decode_tokens / res.decode_s, host_ns[0], syncs[0], chunks[0]))
+    finally:
+        for cls, name, fn in originals:
+            setattr(cls, name, fn)
+        torch.cuda.synchronize, torch.cuda.Event.synchronize = sync_orig
+        del engine._decode_chunk
+        engine._obs, engine._attrib, engine._roofline = planes
+    for arm, runs in arms.items():
+        log(f"overhead, planes {arm}: decode "
+            + ", ".join(f"{r:.2f}" for r, _, _, _ in runs) + " tok/s; host in telemetry "
+            + ", ".join(f"{h / 1e3 / c:.1f}" for _, h, _, c in runs) + " us/chunk; syncs "
+            + ", ".join(f"{sy}/{c}" for _, _, sy, c in runs) + " per chunks")
+    per_chunk = {arm: {sy / c for _, _, sy, c in runs} for arm, runs in arms.items()}
+    if len(per_chunk["on"] | per_chunk["off"]) != 1 or any(h for _, h, _, _ in arms["off"]):
+        raise AssertionError(f"overhead: syncs per chunk {per_chunk}, off-arm host time "
+                             f"{[h for _, h, _, _ in arms['off']]}")
+
+
+def check_trace_and_profile(torch) -> None:
+    """``--trace DIR`` and ``--profile``, each on a short consensus-1b CLI
+    run: a complete artifact with the card's kernels in its Chrome trace,
+    no ``.partial`` left."""
+    from llm_consensus_tpu_torch.cli.main import main as cli_main
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
+        profiles = os.path.join(tmp, "profiles")
+        saved = os.environ.get("LLMC_PROFILE_DIR")
+        os.environ["LLMC_PROFILE_DIR"] = profiles
+        fresh_planes()
+        try:
+            for flag in (["--trace", os.path.join(tmp, "trace")], ["--profile"]):
+                out, err = io.StringIO(), io.StringIO()
+                t0 = time.monotonic()
+                rc = cli_main(["--models", "gpu:consensus-1b", "--judge", "gpu:consensus-1b",
+                               "--max-tokens", "16", "--json", *flag, PROMPT], device=None,
+                              stdout=out, stderr=err, install_signal_handlers=False)
+                if rc != 0:
+                    raise AssertionError(f"{flag[0]}: exit {rc}: {err.getvalue()}")
+                if flag[0] == "--trace":
+                    artifact = flag[1]
+                else:
+                    (name,) = os.listdir(profiles)
+                    artifact = os.path.join(profiles, name)
+                listing = sorted(os.listdir(artifact))
+                with open(os.path.join(artifact, "trace.json"), encoding="utf-8") as f:
+                    events = json.load(f)["traceEvents"]
+                kernels = [e for e in events if e.get("cat") == "kernel"]
+                port = sum(1 for e in kernels if "decode_bf16" in e["name"]
+                           or "flash_prefill" in e["name"])
+                log(f"{flag[0]}: {time.monotonic() - t0:.2f} s, artifact {artifact} {listing}, "
+                    f"{len(events)} events, {len(kernels)} CUDA kernel events ({port} of the "
+                    f"port's kernels)")
+                if listing != ["trace.json"] or not kernels or artifact.endswith(".partial"):
+                    raise AssertionError(f"{flag[0]}: artifact {artifact} {listing}")
+        finally:
+            if saved is None:
+                os.environ.pop("LLMC_PROFILE_DIR", None)
+            else:
+                os.environ["LLMC_PROFILE_DIR"] = saved
+            release_engines(torch, {})
+            fresh_planes()
+
+
+def run_telemetry(torch, fa, da) -> None:
+    """The telemetry phase: full-width CLI runs with ``--events``, single
+    stream and batched, their roofline, attribution against the profiler,
+    the planes' host cost, ``--trace`` and ``--profile``, device memory."""
+    from llm_consensus_tpu_torch.obs import roofline
+
+    t_phase = time.monotonic()
+    a = torch.ones(8, 8, device="cuda")
+    a @ a  # the process's cuBLAS set-up, outside the timing below
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with roofline.RooflineLedger().dispatch("warm", ()):
+        a @ a
+    log(f"telemetry: the dispatch mode's first use in the process "
+        f"{time.monotonic() - t0:.3f} s")
+
+    fresh_planes()
+    sl = run_slice(torch, {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES},
+                   {}, "telemetry slice", events=True)
+    if min(sl["launches"].values()) <= 0:
+        raise AssertionError(f"telemetry slice launches {sl['launches']}")
+    metrics = check_run_telemetry(sl, "telemetry slice",
+                                  {"prefill", "decode", "fetch", "engine_stream", "worker"})
+    check_roofline(metrics, sl["responses"], "telemetry slice")
+    engine = sl["engines"]["llama-3-8b"]
+    led = engine._roofline
+    log(f"  roofline captures: {led.captures} keys counted in {led.capture_s:.4f} s of host "
+        f"time ({led.capture_s / max(1, led.captures) * 1e3:.2f} ms each)")
+    dev = metrics["attrib"]["hbm"].get("device")
+    log(f"  device memory (attrib.hbm.device): {dev}; torch.cuda.max_memory_allocated over "
+        f"the run {sl['peak_gb'] * 1e9:.0f} B")
+    if (not dev or not dev["bytes_in_use"]
+            or not 0 < dev["peak_bytes_in_use"] <= sl["peak_gb"] * 1e9 + 1):
+        raise AssertionError(f"telemetry: device memory {dev}, peak {sl['peak_gb']} GB")
+    check_attrib_against_profiler(torch, engine)
+    check_capture_walls(torch, engine)
+    measure_overhead(torch, engine)
+    del engine, led
+    modes = sl["modes"]
+    del sl
+    release_engines(torch, modes)
+
+    fresh_planes()
+    bsl = run_slice(torch, {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES,
+                            "decode_attention_state": da.LAUNCHES_STATE},
+                    {"LLMC_MAX_BATCH": "4"}, "telemetry batched slice",
+                    models=",".join(["gpu:llama-3-8b"] * 4), events=True)
+    if min(bsl["launches"].values()) <= 0:
+        raise AssertionError(f"telemetry batched slice launches {bsl['launches']}")
+    metrics = check_run_telemetry(bsl, "telemetry batched slice", {"worker", "engine_stream"},
+                                  {"admit", "decode", "fetch"})
+    check_roofline(metrics, bsl["responses"], "telemetry batched slice")
+    modes = bsl["modes"]
+    del bsl
+    release_engines(torch, modes)
+    check_trace_and_profile(torch)
+    measure_fresh_cli_walls()
+    log(f"telemetry phase: {time.monotonic() - t_phase:.1f} s")
+
+
 # -- phases 12 to 16: Mixtral and the checkpoint loader ------------------------
 
 MIXTRAL = "mixtral-8x7b"
@@ -1625,7 +2047,9 @@ def run_mixtral_slice(torch, fa, da, seed: int) -> dict:
             log(f"  {MIXTRAL}: the same rate over all experts' int8 bytes: "
                 f"{resp['tokens_per_sec'] * whole / PEAK_BYTES_PER_S:.4f} of "
                 f"{PEAK_BYTES_PER_S / 1e12} TB/s")
-    want_listing = ["consensus.md", "panel", "prompt.txt", "result.json", "run.json"]
+    # The JAX CLI's run directory, metrics.json included (the planes are on).
+    want_listing = ["consensus.md", "metrics.json", "panel", "prompt.txt", "result.json",
+                    "run.json"]
     if (len(doc["responses"]) != 2 or doc.get("failed_models") or not doc["consensus"]
             or "agreement" not in doc or listing != want_listing or len(panel) != 2
             or manifest["models"] != [f"gpu:{MIXTRAL}", "gpu:consensus-1b"]
@@ -1820,7 +2244,8 @@ def run_mixtral(torch, fa, da, seed: int, records: dict) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phase", choices=("all", "kernels", "mixtral"), default="all")
+    ap.add_argument("--phase", choices=("all", "kernels", "mixtral", "telemetry"),
+                    default="all")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -1862,6 +2287,11 @@ def main(argv=None) -> int:
         run_mixtral(torch, fa, da, args.seed, mixtral_recs)
         print(card, flush=True)
         return 0
+    if args.phase == "telemetry":
+        # The telemetry phase alone: no ok line.
+        run_telemetry(torch, fa, da)
+        print(card, flush=True)
+        return 0
     check_flash(torch, flash_rec)
     check_decode(torch, decode_rec)
     check_decode_int8(torch, int8_rec, w8a8_rec)
@@ -1898,6 +2328,7 @@ def main(argv=None) -> int:
     modes = bsl["modes"]
     del bsl
     release_engines(torch, modes)
+    run_telemetry(torch, fa, da)
 
     qsl = run_slice(torch, {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES,
                             "decode_attention_int8": da.LAUNCHES_INT8},

@@ -22,8 +22,20 @@ follow the JAX CLI:
 
 Model names are ``gpu:<preset>``. ``main(argv, device=None)`` runs on the
 current CUDA card and raises when there is none; tests pass
-``device="cpu"``. The JAX CLI's other flags, ``--resume`` (the reader of
-``run.json`` and ``panel/``) and ``metrics.json`` are later work.
+``device="cpu"``. The JAX CLI's other flags and ``--resume`` (the reader
+of ``run.json`` and ``panel/``) are later work.
+
+Run telemetry follows the JAX CLI: the live, attribution, roofline and
+flight-recorder planes are on by default and installed here, before any
+provider exists (the knobs of ``utils/knobs.py`` ``telemetry_settings``);
+an auto-saved run writes ``metrics.json`` whenever one of them grew during
+the run. ``--events`` (or ``LLMC_EVENTS``) adds the run recorder: the run
+directory gains ``trace.json`` (Perfetto-loadable) and ``metrics.json``
+gains ``counters`` and ``events``. ``--output``, ``--json`` and
+``--no-save`` leave no run directory, and a recorded run says so in a
+warning. ``--trace DIR`` writes a ``torch.profiler`` trace of the whole run
+to ``DIR/trace.json``; ``--profile`` arms one bounded window of the deep
+profiler (obs/profiler.py) around the run.
 
 Quantization and continuous batching are chosen as in the JAX package,
 through the environment only (``LLMC_QUANT``, ``LLMC_KV_QUANT``,
@@ -48,7 +60,9 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Optional, TextIO
 
+from llm_consensus_tpu_torch import obs
 from llm_consensus_tpu_torch.consensus import Judge, score_agreement
+from llm_consensus_tpu_torch.obs import export as obs_export
 from llm_consensus_tpu_torch.output import Result
 from llm_consensus_tpu_torch.output.persist import reserve_run_dir, save_aux_files, save_file
 from llm_consensus_tpu_torch.providers import Provider, Registry, Response
@@ -77,6 +91,9 @@ class Config:
     json: bool = False
     no_save: bool = False
     max_tokens: Optional[int] = None
+    trace: str = ""        # torch.profiler trace of the run → DIR/trace.json
+    events: bool = False   # run recorder → trace.json + metrics.json
+    profile: bool = False  # one bounded deep-profiler window around the run
 
 
 class CLIError(Exception):
@@ -161,6 +178,18 @@ def parse_args(argv: list[str], stdin: Optional[TextIO]) -> Config:
                         help="Output JSON to stdout (no interactive display, no auto-save)")
     parser.add_argument("--no-save", "-no-save", action="store_true",
                         help="Don't auto-save results to data directory")
+    parser.add_argument("--trace", "-trace", default="", metavar="DIR",
+                        help="Write a torch.profiler trace of the run to DIR")
+    parser.add_argument("--events", "-events", action="store_true",
+                        help="Record the run's host telemetry timeline (spans/counters/"
+                             "instants across engine, batcher, runner); persisted as "
+                             "trace.json (Perfetto-loadable) + metrics.json in the run "
+                             "dir. LLMC_EVENTS=1 is equivalent")
+    parser.add_argument("--profile", "-profile", action="store_true",
+                        help="Arm one bounded deep-profiling window (obs/profiler) "
+                             "around the run, capped at LLMC_PROFILE_MAX_S and closed "
+                             "when the run finishes. Unlike --trace it is rate-limited "
+                             "and lands in an atomic artifact dir under LLMC_PROFILE_DIR")
     parser.add_argument("prompt", nargs="*", help="The prompt (or use --file / stdin)")
     ns = parser.parse_args(argv)
     if not ns.models:
@@ -176,6 +205,9 @@ def parse_args(argv: list[str], stdin: Optional[TextIO]) -> Config:
         json=ns.json,
         no_save=ns.no_save,
         max_tokens=ns.max_tokens,
+        trace=ns.trace,
+        events=ns.events,
+        profile=ns.profile,
     )
     cfg.prompt = get_prompt(ns.prompt, ns.file, stdin)
     return cfg
@@ -250,12 +282,116 @@ def panel_journal(run_dir: str, warn=None) -> Callable[[Response], None]:
     return journal
 
 
+def install_planes(events: bool, stderr: TextIO) -> None:
+    """Install the telemetry planes from the environment before any
+    provider exists (consumers bind them at construction). Each plane is
+    decided once per process; the recorder is per run: ``events`` (the
+    flag) or ``LLMC_EVENTS`` installs it, otherwise a previous run's
+    recorder is dropped."""
+    from llm_consensus_tpu_torch.obs import attrib, blackbox, live, profiler, roofline
+    from llm_consensus_tpu_torch.utils.knobs import telemetry_settings
+
+    st = telemetry_settings()
+    if events or st["events"]:
+        if obs.recorder() is None:
+            from llm_consensus_tpu_torch.providers.gpu import GPUProvider
+
+            if GPUProvider._shared:
+                stderr.write(
+                    "warning: --events enabled after the shared gpu provider was built; "
+                    "its warm engines will not record device spans this run (use "
+                    "--events from the first run of the process, or LLMC_EVENTS=1)\n")
+            obs.install(obs.Recorder(max_events=st["events_max"]))
+    else:
+        obs.install(None)
+    if not live.resolved():
+        live.install(live.LiveMetrics(st["live_window_s"], st["live_windows"])
+                     if st["live"] else None)
+    if not attrib.resolved():
+        attrib.install(attrib.ChipTimeLedger(st["attrib_warmup_s"], st["attrib_hbm_high"])
+                       if st["attrib"] else None)
+    if not roofline.resolved():
+        roofline.install(roofline.RooflineLedger(st["roofline_ridge"], st["roofline_tol"])
+                         if st["roofline"] else None)
+    if not blackbox.resolved():
+        blackbox.install(blackbox.FlightRecorder(
+            st["blackbox_events"], st["blackbox_dir"] or blackbox.DEFAULT_DIR,
+            st["blackbox_min_interval_s"]) if st["blackbox"] else None)
+    if not profiler.resolved():
+        profiler.install(profiler.DeepProfiler(
+            st["profile_dir"] or profiler.DEFAULT_DIR, st["profile_max_s"],
+            st["profile_min_interval_s"]) if st["profile"] else None)
+
+
 def run(cfg: Config, ctx: Context, *, factory: ProviderFactory, stdout: TextIO,
-        stderr: TextIO) -> Result:
+        stderr: TextIO) -> Optional[Result]:
+    """One consensus run with the telemetry planes installed; ``--trace``
+    wraps it in a ``torch.profiler`` trace, ``--profile`` in one bounded
+    deep-profiler window."""
+    install_planes(cfg.events, stderr)
+
+    def body() -> Result:
+        return _run(cfg, ctx, factory=factory, stdout=stdout, stderr=stderr)
+
+    if cfg.trace:
+        from llm_consensus_tpu_torch.obs.profiler import trace_window
+
+        try:
+            window = trace_window(cfg.trace)
+            window.__enter__()
+        except Exception as err:  # noqa: BLE001 — reported as a CLI error
+            raise CLIError(f"starting profiler trace: {err}") from err
+        try:
+            return body()
+        finally:
+            window.__exit__(None, None, None)
+    if not cfg.profile:
+        return body()
+    # --profile: one bounded window through the deep profiler, closed when
+    # the run finishes. Force-installed like --events: the flag overrides a
+    # profiler disabled by the environment.
+    from llm_consensus_tpu_torch.obs import profiler as profiler_mod
+
+    prof = profiler_mod.profiler()
+    if prof is None:
+        prof = profiler_mod.DeepProfiler()
+        profiler_mod.install(prof)
+    path, status = prof.arm(prof.max_s, tag="cli")
+    if status != "armed":
+        stderr.write(f"warning: --profile window not armed ({status})\n")
+        return body()
+    try:
+        return body()
+    finally:
+        final = prof.stop_now() or path
+        if final:
+            stderr.write(f"profile artifact: {final}\n")
+
+
+def _close_expired_profile() -> None:
+    """A phase boundary of the run: close a --profile window past its
+    bound."""
+    prof = obs.profiler.profiler()
+    if prof is not None:
+        prof.stop_if_expired()
+
+
+def _run(cfg: Config, ctx: Context, *, factory: ProviderFactory, stdout: TextIO,
+         stderr: TextIO) -> Result:
     """One consensus run: fan-out, judge synthesis, persistence, output."""
     show_ui = _is_terminal(stderr) and not cfg.quiet and not cfg.json
     progress = _Progress(stderr, show_ui)
     start_time = time.monotonic()
+    # Per-run telemetry reset at entry; the process-lifetime planes get
+    # watermarks, so a run that moved none of them writes no metrics.json.
+    recorder = obs.recorder()
+    if recorder is not None:
+        recorder.clear()
+    live_plane, attrib_led, roofline_led = (
+        obs.live.metrics(), obs.attrib.ledger(), obs.roofline.ledger())
+    live0 = live_plane.counts() if live_plane is not None else 0
+    attrib0 = attrib_led.activity() if attrib_led is not None else 0
+    roofline0 = roofline_led.activity() if roofline_led is not None else 0
     registry = init_registry(cfg.models, cfg.judge, factory)
 
     # Announce the run before any query: the GPU provider builds its
@@ -292,6 +428,7 @@ def run(cfg: Config, ctx: Context, *, factory: ProviderFactory, stdout: TextIO,
         result = runner.run(ctx, cfg.models, cfg.prompt)
     except AllModelsFailed as err:
         raise CLIError(f"running queries: {err}") from err
+    _close_expired_profile()
     agreement = score_agreement(result.responses)
     progress.line(f"Received responses from {len(result.responses)} models")
     if agreement is not None:
@@ -309,6 +446,40 @@ def run(cfg: Config, ctx: Context, *, factory: ProviderFactory, stdout: TextIO,
         raise CLIError(f"consensus synthesis: {err}") from err
     if judge.last_truncated:
         result.warnings.append(f"{cfg.judge}: judge prompt truncated to fit context window")
+    _close_expired_profile()
+
+    # Run telemetry rides the auto-saved run directory; a recorded run
+    # that has none says so instead of discarding it silently.
+    trace_doc = metrics_doc = None
+    if recorder is not None and not run_dir:
+        result.warnings.append(
+            "run telemetry recorded but not persisted: trace.json/metrics.json ride the "
+            "auto-saved run directory, which --output, --json, and --no-save disable")
+    if recorder is not None and run_dir:
+        trace_doc = obs_export.local_trace(recorder)
+        metrics_doc = obs_export.metrics_summary(
+            recorder, responses=result.responses,
+            batcher_stats=obs_export.collect_batcher_stats(registry),
+            kv_stats=obs_export.collect_kv_stats(registry),
+            spec_stats=obs_export.collect_spec_stats(registry),
+            disagg_stats=obs_export.collect_disagg_stats(registry),
+            failed_models=result.failed_models, warnings=result.warnings,
+            live=obs_export.live_summary(), attrib=obs_export.attrib_summary(),
+            roofline=obs_export.roofline_summary(),
+        )
+    elif run_dir:
+        # Without the recorder, the planes' numbers persist whenever this
+        # run moved them (the process-lifetime snapshot, as a scrape shows).
+        live_doc = (obs_export.live_summary(live_plane)
+                    if live_plane is not None and live_plane.counts() > live0 else None)
+        attrib_grew = attrib_led is not None and attrib_led.activity() > attrib0
+        roofline_grew = roofline_led is not None and roofline_led.activity() > roofline0
+        if live_doc or attrib_grew or roofline_grew:
+            metrics_doc = obs_export.metrics_summary(
+                responses=result.responses, failed_models=result.failed_models,
+                warnings=result.warnings, live=live_doc,
+                attrib=obs_export.attrib_summary(), roofline=obs_export.roofline_summary(),
+            )
 
     out = Result(
         prompt=cfg.prompt,
@@ -326,6 +497,8 @@ def run(cfg: Config, ctx: Context, *, factory: ProviderFactory, stdout: TextIO,
             output_path = save_aux_files(run_dir, cfg.prompt, consensus, warn=warn)
         except OSError as err:
             raise CLIError(f"creating run directory: {err}") from err
+    if metrics_doc is not None:
+        obs_export.save_run_telemetry(run_dir, trace_doc, metrics_doc, warn=warn)
     if output_path:
         errors: list[str] = []
         written = save_file(
@@ -345,11 +518,42 @@ def run(cfg: Config, ctx: Context, *, factory: ProviderFactory, stdout: TextIO,
             f"\n{len(result.responses)}/{len(cfg.models)} models responded, "
             f"{len(result.failed_models)} failed, {time.monotonic() - start_time:.1f}s\n"
         )
+        print_throughput(stderr, result.responses)
+        if recorder is not None:
+            print_aggregate(stderr, obs_export.aggregate_throughput(recorder))
         for w in result.warnings:
             stderr.write(f"warning: {w}\n")
     else:
         stdout.write(out.to_json())
     return out
+
+
+def print_throughput(w: TextIO, responses) -> None:
+    """One line per response with decode measurements: tokens, steady
+    decode tokens/s, MBU and MFU where the card's peaks are known; nothing
+    when no response has them."""
+    stats = [r for r in responses if r.tokens_per_sec]
+    if not stats:
+        return
+    w.write("\n─── Throughput (on-device) ───\n")
+    for r in stats:
+        line = f"{r.model}: {r.tokens} tokens, {r.tokens_per_sec:.1f} tok/s"
+        if r.mbu is not None:
+            line += f", {r.mbu * 100:.0f}% MBU"
+        if r.mfu is not None:
+            line += f", {r.mfu * 100:.1f}% MFU"
+        w.write(line + "\n")
+
+
+def print_aggregate(w: TextIO, aggregate: Optional[dict]) -> None:
+    """The pool-wide line from the recorder's aggregate (tokens over the
+    union of the run's decode window, the token-weighted MFU)."""
+    if not aggregate or not aggregate.get("tokens") or not aggregate.get("tokens_per_sec"):
+        return
+    line = f"Pool: {int(aggregate['tokens'])} tokens, {aggregate['tokens_per_sec']:.1f} tok/s"
+    if aggregate.get("mfu"):
+        line += f", {aggregate['mfu'] * 100:.1f}% MFU"
+    w.write(line + "\n")
 
 
 def main(

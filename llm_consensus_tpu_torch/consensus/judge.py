@@ -113,7 +113,7 @@ class Judge:
             resp = self._provider.query_stream(
                 ctx,
                 Request(model=self._model, prompt=judge_prompt,
-                        max_tokens=self._max_tokens),
+                        max_tokens=self._max_tokens, priority=0),
                 callback,
             )
         except Exception as err:

@@ -40,12 +40,23 @@ and ``ignore_eos`` are per stream. A stream's seed draws its first token
 from the batcher's own generator. Greedy streams produce exactly the
 single-stream engine's tokens.
 
+Telemetry (obs/), bound at construction as the JAX batcher binds it: the
+recorder gets ``admit``, ``establish``, ``compact``, ``drain``, ``decode``
+and ``fetch`` spans (tid "batcher"), the flight recorder the decode and
+fetch spans and a dump at a fatal loop exit, and the attribution ledger
+the stream interval of every dispatch (an admission wave or a
+shared-prefix establishment as ``prefill``, a compaction as ``compact``, a
+decode chunk as ``decode``: :class:`DeviceWall`, read by the fetch worker
+after the next chunk's copy), the ``useful`` tokens, the pool cache's
+bytes and the host gaps between a drained pipeline and the next dispatch,
+by scheduler phase.
+
 Not ported (each listed in ROADMAP.md): speculative rounds, preemption and
 brownout, interleaved admission (``prefill_budget`` > 0, refused),
 occupancy row-bucketing (``max_batch`` above 8, refused), the journal, the
-integrity sentinel, obs/attribution spans, weight-swap pins and
-``abandon``/heartbeat. Settings are constructor arguments with the JAX
-knobs' defaults; nothing here reads the environment.
+integrity sentinel, weight-swap pins and ``abandon``/heartbeat. Settings
+are constructor arguments with the JAX knobs' defaults; nothing here reads
+the environment.
 """
 
 from __future__ import annotations
@@ -54,6 +65,7 @@ import atexit
 import threading
 import time
 import warnings
+from contextlib import contextmanager
 from concurrent.futures import Future, InvalidStateError
 from dataclasses import dataclass, field
 from queue import SimpleQueue
@@ -61,8 +73,9 @@ from typing import Callable, Iterable, Optional
 
 import torch
 
+from llm_consensus_tpu_torch import obs
 from llm_consensus_tpu_torch.engine.engine import (
-    Engine, GenerateResult, SamplingParams, _bucket, _Fetch)
+    DeviceWall, Engine, GenerateResult, SamplingParams, _bucket, _Fetch)
 from llm_consensus_tpu_torch.engine.tokenizer import StreamDecoder
 from llm_consensus_tpu_torch.models.transformer import init_kv_cache
 from llm_consensus_tpu_torch.ops.quant import is_quantized, kv_capacity, kv_seq_axis
@@ -225,6 +238,26 @@ class ContinuousBatcher:
         self._unfetched = 0  # dispatched chunks not yet emitted (guarded by _work)
         self._nondecode_work = False  # admission/compaction since last dispatch
         self._worker_exc: Optional[BaseException] = None  # guarded by _work
+        # Telemetry planes, bound once: a plane off costs one None check
+        # per chunk on the scheduler and fetch loops.
+        self._obs = obs.recorder()
+        self._bb = obs.blackbox.ring()
+        self._attrib = obs.attrib.ledger()
+        if self._attrib is not None:
+            self._attrib.update_component(f"pool_cache:{engine.cfg.name}", sum(
+                t.numel() * t.element_size()
+                for side in self._cache.values() for (t,) in _leaves(side)))
+        # Device intervals of the admissions and compactions since the last
+        # dispatch (scheduler-owned): they ride the next chunk to its fetch.
+        self._walls: list[tuple[str, DeviceWall]] = []
+        # Host-gap state: _idle_at marks the arrival that drained the
+        # pipeline while work remained; _gap_phase names the scheduler
+        # phase that ran in the gap.
+        self._idle_at: Optional[float] = None
+        self._gap_phase = "schedule"
+        # A chunk is being enqueued (its steps already run on the device,
+        # but it joins _unfetched only once whole): no gap while it is.
+        self._dispatching = False  # guarded by _work
         self._fetch_q: SimpleQueue = SimpleQueue()
         self._fetch_thread = threading.Thread(
             target=self._fetch_worker, name="llmc-batcher-fetch", daemon=True)
@@ -451,13 +484,14 @@ class ContinuousBatcher:
             except InvalidStateError:
                 pass
 
-    def _emit(self, slot: int, tok: int, eos: int) -> None:
+    def _emit(self, slot: int, tok: int, eos: int) -> bool:
+        """Hand one token to its stream; True when it was appended."""
         s = self._slots[slot]
         if s is None:
-            return
+            return False
         if tok == eos and not s.sampling.ignore_eos:
             self._retire(slot, "eos")
-            return
+            return False
         s.out_ids.append(tok)
         if s.on_text is not None:
             text = s.decoder.push(tok)
@@ -466,6 +500,7 @@ class ContinuousBatcher:
                 s.on_text(text)
         if len(s.out_ids) >= s.max_new:
             self._retire(slot, "length")
+        return True
 
     def _stat_add_locked(self, **deltas) -> None:
         """Under ``_work``: accumulate stats."""
@@ -526,6 +561,10 @@ class ContinuousBatcher:
             with torch.inference_mode():
                 self._loop()
         except BaseException as exc:  # noqa: BLE001 — fail every future
+            if self._bb is not None:
+                # The ring holds the spans leading up to the death.
+                self._bb.instant("engine_crash", tid="batcher", error=repr(exc))
+                self._bb.dump("engine_crash", extra={"error": repr(exc)})
             # Stop the fetch worker first: what it emits from queued chunks
             # is legitimate; only what remains gets the exception.
             self._fetch_q.put(None)
@@ -557,22 +596,30 @@ class ContinuousBatcher:
         first_vals = [f.values() for _, f, _ in firsts]
         cols = list(zip(*fetch.values()))  # [n_steps][B] → [B][n_steps]
         t_arrival = time.monotonic()
-        emitted = 0
+        emitted = appended = 0
         for (slots, _, wave_owners), vals in zip(firsts, first_vals):
             for slot, owner, val in zip(slots, wave_owners, vals):
                 if self._slots[slot] is owner:
-                    self._emit(slot, val, eos)
+                    appended += self._emit(slot, val, eos)
                     emitted += 1
+        overshoot = 0
         for i, owner in enumerate(owners):
             if owner is None:
                 continue
+            taken = 0
             for tok in cols[i]:
                 # Owner identity: a slot retired (and maybe reused)
                 # mid-chunk never leaks its predecessor's tokens.
                 if self._slots[i] is not owner:
                     break
-                self._emit(i, tok, eos)
-                emitted += 1
+                appended += self._emit(i, tok, eos)
+                taken += 1
+            emitted += taken
+            # Dead stepping: steps this row computed that no stream took.
+            overshoot += len(cols[i]) - taken
+        if self._attrib is not None:
+            self._attrib.token_event("useful", appended)
+            self._attrib.token_event("overshoot", overshoot)
         return emitted, t_arrival
 
     def _fetch_worker(self) -> None:
@@ -584,7 +631,7 @@ class ContinuousBatcher:
             item = self._fetch_q.get()
             if item is None:
                 return
-            fetch, owners, firsts, pure, t_dispatch = item
+            fetch, owners, firsts, pure, t_dispatch, walls = item
             if self._worker_exc is not None:
                 # A prior fetch failed: emitting later chunks would resolve
                 # streams with tokens missing. Drain; the scheduler fails
@@ -593,6 +640,8 @@ class ContinuousBatcher:
                     self._unfetched -= 1
                     self._work.notify_all()
                 continue
+            t0_obs = (time.monotonic_ns()
+                      if self._obs is not None or self._bb is not None else 0)
             try:
                 emitted, t_arrival = self._fetch(fetch, owners, firsts, eos)
             except BaseException as exc:  # noqa: BLE001
@@ -602,6 +651,14 @@ class ContinuousBatcher:
                     self._prev_arrival = None
                     self._work.notify_all()
                 continue
+            for rec in (self._obs, self._bb):
+                if rec is not None:
+                    rec.complete("fetch", t0_obs, tid="batcher", tokens=emitted, pure=pure)
+            if self._attrib is not None:
+                # This chunk's copy is done, so its interval and those of
+                # the work enqueued before it read without a wait.
+                for family, wall in walls:
+                    self._attrib.observe_device(family, wall.seconds())
             # Cancellation after the emit, so a cancel never discards
             # tokens already decoded.
             for i, s in enumerate(self._slots):
@@ -616,16 +673,63 @@ class ContinuousBatcher:
                 if self._unfetched == 0:
                     # Drained: the next interval spans device idle time.
                     self._prev_arrival = None
+                    if (self._attrib is not None and not self._dispatching
+                            and (self._live() or self._queue)):
+                        # Device idle begins on a batcher that still has
+                        # work: the next dispatch closes the gap.
+                        self._idle_at = t_arrival
+                        self._gap_phase = "schedule"
                 self._work.notify_all()
 
     def _drain_fetches(self) -> None:
         """Wait until every dispatched chunk is emitted (the barrier before
         compaction's full-row retires)."""
+        t0_obs = self._obs.now() if self._obs is not None else 0
         with self._work:
             while self._unfetched > 0 and self._worker_exc is None:
                 self._work.wait(0.1)
             if self._worker_exc is not None:
                 raise self._worker_exc
+        if self._obs is not None:
+            self._obs.complete("drain", t0_obs, tid="batcher")
+
+    # -- telemetry -------------------------------------------------------------
+
+    @contextmanager
+    def _wall(self, family: str):
+        """Record the stream interval of the device work in the body as one
+        ``family`` dispatch, booked at the next chunk's fetch."""
+        if self._attrib is None:
+            yield
+            return
+        wall = DeviceWall(self.engine.device)
+        try:
+            yield
+        finally:
+            self._walls.append((family, wall.stop()))
+
+    def _admission_starts(self) -> float:
+        """An admission begins now: a drained pipeline's gap ends here."""
+        t = time.monotonic()
+        if self._attrib is not None:
+            with self._work:
+                drained = self._unfetched == 0
+            if drained:
+                self._close_gap(t)
+            self._gap_phase = "admit"
+        return t
+
+    def _close_gap(self, now: Optional[float] = None) -> None:
+        """Book the armed device-idle gap, if any, up to ``now`` against the
+        phase that ran in it."""
+        if self._attrib is None:
+            return
+        with self._work:
+            idle_at, self._idle_at = self._idle_at, None
+        if idle_at is None:
+            return
+        phase, self._gap_phase = self._gap_phase, "schedule"
+        self._attrib.gap((now if now is not None else time.monotonic()) - idle_at, phase)
 
     def _live(self) -> bool:
         return any(s is not None for s in self._slots)
@@ -645,6 +749,7 @@ class ContinuousBatcher:
             seen = n
             self._work.wait(timeout=0.01)
         self._stat_add_locked(absorb_s=time.monotonic() - t_abs)
+        self._gap_phase = "absorb"
 
     def _plan_prefix(self, candidates: list, pool_idle: bool) -> int:
         """The wave's shared-prefix length (all or nothing): join the
@@ -672,8 +777,14 @@ class ContinuousBatcher:
             self._clear_prefix()
             return 0
         t_est = time.monotonic()
-        ok = self._establish_prefix(list(candidates[0][:p]))
+        self._close_gap(t_est)  # the pool is idle: nothing is in flight
+        self._gap_phase = "establish"
+        t0_obs = self._obs.now() if self._obs is not None else 0
+        with self._wall("prefill"), obs.attrib.tag("prefill"):
+            ok = self._establish_prefix(list(candidates[0][:p]))
         self._stat_add(establish_s=time.monotonic() - t_est, establish_tokens=p if ok else 0)
+        if self._obs is not None:
+            self._obs.complete("establish", t0_obs, tid="batcher", prefix=p, ok=ok)
         return p if ok else 0
 
     def _admission_pass(self, pending: list, firsts: list) -> list:
@@ -725,15 +836,20 @@ class ContinuousBatcher:
             singles: list = []
             if batch:
                 self._nondecode_work = True
-                t_adm = time.monotonic()
+                t_adm = self._admission_starts()
+                t0_obs = self._obs.now() if self._obs is not None else 0
                 admitted = None
                 try:
-                    admitted = self._admit_batch(batch, wave_p)
+                    with self._wall("prefill"), obs.attrib.tag("prefill"):
+                        admitted = self._admit_batch(batch, wave_p)
                 finally:
                     ok = admitted is not None
                     self._stat_add(
                         admit_s=time.monotonic() - t_adm, admitted=len(batch) if ok else 0,
                         admit_tokens=sum(len(i2) - wave_p for _, i2, _ in batch) if ok else 0)
+                    if self._obs is not None:
+                        self._obs.complete("admit", t0_obs, tid="batcher", streams=len(batch),
+                                           prefix=wave_p, ok=ok)
                 if admitted is None:
                     singles = batch
                     if wave_p:
@@ -752,16 +868,21 @@ class ContinuousBatcher:
                     requeue.append((ids, stream))
                     continue
                 self._nondecode_work = True
-                t_adm = time.monotonic()
+                t_adm = self._admission_starts()
+                t0_obs = self._obs.now() if self._obs is not None else 0
                 entry = None
                 try:
-                    entry = self._admit(slot, ids, stream)
+                    with self._wall("prefill"), obs.attrib.tag("prefill"):
+                        entry = self._admit(slot, ids, stream)
                 except Exception as exc:  # noqa: BLE001 — fails this stream only
                     stream.future.set_exception(exc)
                 finally:
                     ok = entry is not None
                     self._stat_add(admit_s=time.monotonic() - t_adm, admitted=int(ok),
                                    admit_tokens=len(ids) if ok else 0)
+                    if self._obs is not None:
+                        self._obs.complete("admit", t0_obs, tid="batcher", streams=1,
+                                           prefix=0, ok=ok)
                 if entry is not None:
                     firsts.append(entry)
             if requeue or not batch or all(st is not None for st in self._slots):
@@ -812,7 +933,13 @@ class ContinuousBatcher:
                 # Waterline: drain first, so full-row retires lose no token.
                 self._drain_fetches()
                 self._nondecode_work = True
-                self._compact()
+                self._close_gap()  # compaction runs pipeline-drained
+                self._gap_phase = "compact"
+                t0_obs = self._obs.now() if self._obs is not None else 0
+                with self._wall("compact"), obs.attrib.tag("compact"):
+                    self._compact()
+                if self._obs is not None:
+                    self._obs.complete("compact", t0_obs, tid="batcher", pos=self._pos)
                 if self._pos >= eng.max_seq:
                     for i, s in enumerate(self._slots):
                         if s is not None:
@@ -863,6 +990,13 @@ class ContinuousBatcher:
         # Taken before the launches: an eager chunk's host launch loop is
         # most of its time, so a drained pipeline's interval starts here.
         t_dispatch = time.monotonic()
+        self._close_gap(t_dispatch)
+        if self._attrib is not None:
+            with self._work:
+                self._dispatching = True
+        t0_obs = (time.monotonic_ns()
+                  if self._obs is not None or self._bb is not None else 0)
+        wall = DeviceWall(eng.device) if self._attrib is not None else None
         n_steps = self._plan_steps(chunk)
         pos = torch.full((), self._pos, dtype=torch.int32, device=eng.device)
         rows = {"row_start": self._row_start}
@@ -871,13 +1005,25 @@ class ContinuousBatcher:
             # window (the decode kernel's return_state form and the merge).
             rows.update(prefix=self._prefix_cache, prefix_len=self._prefix_len_host,
                         prefix_rows=self._prefix_rows)
-        self._token, toks, _ = eng._decode_chunk(
-            self._token, pos, self._cache, n_steps, self._gen,
-            (sampling.temperature, sampling.top_k, sampling.top_p),
-            eng._decode_width(self._pos + n_steps), **rows,
-        )
-        fetch = _Fetch(toks)
+        # Valid cache slots of the first step over every row, for the
+        # roofline's count of the decode kernel's work.
+        kv_valid = None
+        if eng._roofline is not None:
+            kv_valid = sum(max(0, self._pos - r + 1) for r in self._row_start_host)
+        with obs.attrib.tag("decode"):
+            self._token, toks, _ = eng._decode_chunk(
+                self._token, pos, self._cache, n_steps, self._gen,
+                (sampling.temperature, sampling.top_k, sampling.top_p),
+                eng._decode_width(self._pos + n_steps), kv_valid=kv_valid, **rows,
+            )
+        fetch = _Fetch(toks, wall)
         self._pos += n_steps
+        for rec in (self._obs, self._bb):
+            if rec is not None:
+                rec.complete("decode", t0_obs, tid="batcher", steps=n_steps, pos=self._pos)
+        walls, self._walls = self._walls, []
+        if wall is not None:
+            walls.append(("decode", fetch.wall))
         # A pure interval: nothing but the previous chunk ran on the device
         # since the last dispatch (no admission, no compaction).
         pure = not firsts and not self._nondecode_work
@@ -885,7 +1031,8 @@ class ContinuousBatcher:
         for s in self._slots:
             if s is not None:
                 s.planned += n_steps
-        item = (fetch, list(self._slots), firsts, pure, t_dispatch)
+        item = (fetch, list(self._slots), firsts, pure, t_dispatch, walls)
         with self._work:
             self._unfetched += 1
+            self._dispatching = False
         self._fetch_q.put(item)

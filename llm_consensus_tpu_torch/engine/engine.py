@@ -32,6 +32,15 @@ against the pool's shared prefix) and decodes a chunk of steps over
 right-aligned rows (``row_start``) with an optional shared prefix
 (:meth:`Engine._decode_chunk`).
 
+Telemetry (obs/): the recorder, the attribution ledger and the roofline
+ledger are bound at construction. A prefill and each decode chunk record
+their stream interval (:class:`DeviceWall`), read at the chunk's fetch,
+into the attribution ledger; the first dispatch of each shape key runs one
+step under a roofline capture, which counts that step's first layer (its
+host time is taken out of the interval); spans ``prefill``, ``decode`` and ``fetch``
+land on the recorder. With every plane off the loops consult only the
+bound Nones, once per chunk.
+
 Prefix snapshot reuse, the KV pool, meshes, ``generate_batch``, the
 interleaved (budgeted) admission steps and the prefill sessions of the JAX
 engine are later work.
@@ -40,12 +49,14 @@ engine are later work.
 from __future__ import annotations
 
 import time
+from contextlib import nullcontext
 from dataclasses import dataclass
 from functools import partial
 from typing import Callable, Optional
 
 import torch
 
+from llm_consensus_tpu_torch import obs
 from llm_consensus_tpu_torch.engine.tokenizer import StreamDecoder, load_tokenizer
 from llm_consensus_tpu_torch.models.config import ModelConfig
 from llm_consensus_tpu_torch.models.transformer import (
@@ -56,6 +67,8 @@ from llm_consensus_tpu_torch.ops.quant import (
 from llm_consensus_tpu_torch.ops.sampling import sample_token
 from llm_consensus_tpu_torch.utils.context import Context
 from llm_consensus_tpu_torch.utils.device import DeviceLike, resolve_device
+from llm_consensus_tpu_torch.utils.flops import (
+    decode_bytes_per_token, flops_per_token, param_count)
 
 
 @dataclass(frozen=True)
@@ -98,18 +111,67 @@ def _bucket(n: int, cap: int) -> int:
     return min(b, cap)
 
 
+class DeviceWall:
+    """The stream interval of one dispatch, for the attribution ledger: a
+    start event on a card, closed by a later event of the path and read
+    after a later sync point (the fetch of a chunk enqueued after it) with
+    no sync of its own; the host clock around it on the CPU, where a
+    dispatch runs synchronously. The host time a roofline capture spent
+    counting inside the interval (obs/roofline.py ``held_s``) is taken out
+    of it: the device waited for the host meanwhile."""
+
+    __slots__ = ("_start", "_end", "_t0", "_t1", "_held")
+
+    def __init__(self, device: torch.device) -> None:
+        self._end = None
+        self._t1 = 0.0
+        self._held = obs.roofline.held_s()
+        if device.type == "cuda":
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._start.record()
+        else:
+            self._start = None
+            self._t0 = time.monotonic()
+
+    def stop(self, end: Optional[torch.cuda.Event] = None) -> "DeviceWall":
+        """Close the interval here, or at ``end``, a timing event the
+        caller has just recorded."""
+        self._held = obs.roofline.held_s() - self._held
+        if self._start is not None:
+            if end is None:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+            self._end = end
+        else:
+            self._t1 = time.monotonic()
+        return self
+
+    def done(self) -> bool:
+        """Whether :meth:`seconds` can be read without waiting."""
+        return self._start is None or self._end.query()
+
+    def seconds(self) -> float:
+        if self._start is not None:
+            wall = self._start.elapsed_time(self._end) / 1e3
+        else:
+            wall = self._t1 - self._t0
+        return max(0.0, wall - self._held)
+
+
 class _Fetch:
     """One chunk's token ids on their way to the host: the device tensor,
-    its host copy, and (on a card) the event that marks the copy done."""
+    its host copy, and (on a card) the event that marks the copy done.
+    ``wall`` is the chunk's :class:`DeviceWall`, closed by that event."""
 
-    def __init__(self, toks: torch.Tensor) -> None:
+    def __init__(self, toks: torch.Tensor, wall: Optional[DeviceWall] = None) -> None:
         if toks.is_cuda:
             self.host = toks.to("cpu", non_blocking=True)  # pinned destination
-            self.event = torch.cuda.Event()
+            self.event = torch.cuda.Event(enable_timing=wall is not None)
             self.event.record()
         else:
             self.host = toks
             self.event = None
+        self.wall = wall.stop(self.event) if wall is not None else None
 
     def values(self) -> list:
         """The host copy as (nested) Python lists, once the copy is done."""
@@ -195,6 +257,22 @@ class Engine:
                 params = quantize_params(params, self.quant)
         self.params = params
         self._layers = layer_views(params)
+        # Telemetry planes (obs/), bound once: a plane off costs the hot
+        # loops one None check per chunk.
+        self._obs = obs.recorder()
+        self._attrib = obs.attrib.ledger()
+        self._roofline = obs.roofline.ledger()
+        weight_bytes = {"int8": 1, "int4": 0.5}.get(self.quant, dtype.itemsize)
+        if self._attrib is not None:
+            self._attrib.update_component(f"weights:{cfg.name}", int(param_count(cfg) * weight_bytes))
+        if self._roofline is not None:
+            # The cross-check's modeled range: context 0 to max_seq.
+            kv_bytes = 1 if self.kv_quant == "int8" else dtype.itemsize
+            for ctx_len in (0, self.max_seq):
+                self._roofline.note_modeled(
+                    "decode", flops_per_token(cfg, ctx_len),
+                    decode_bytes_per_token(cfg, ctx_len, weight_bytes, kv_bytes))
+                self._roofline.note_modeled("prefill", flops_per_token(cfg, ctx_len))
 
     # -- helpers ---------------------------------------------------------------
 
@@ -211,14 +289,16 @@ class Engine:
         return self.to_device([ids])
 
     def _forward(self, tokens, cache, start_pos, *, attn_impl, kv_width=None,
-                 logits_index=None, **rows):
+                 logits_index=None, capture=None, **rows):
         """:func:`forward` with this engine's weights and modes; ``rows``
         are the batcher's ``row_start``/``prefix``/``prefix_len``/
-        ``prefix_rows``."""
+        ``prefix_rows``; ``capture`` the roofline capture this step runs
+        under, if any (it counts the first layer)."""
         return forward(
             self.params, self.cfg, tokens, cache, start_pos=start_pos,
             attn_impl=attn_impl, kv_width=kv_width, logits_index=logits_index,
-            layers=self._layers, mm=self._mm, decode_w8a8=self.decode_w8a8, **rows,
+            layers=self._layers, mm=self._mm, decode_w8a8=self.decode_w8a8,
+            layer_scope=capture.layer if capture is not None else None, **rows,
         )
 
     def _decode_width(self, frontier: int) -> Optional[int]:
@@ -230,6 +310,19 @@ class Engine:
 
     # -- prefill ---------------------------------------------------------------
 
+    def _capture(self, family: str, key: tuple, tokens: int, steps: int = 1,
+                 kv_valid: Optional[int] = None):
+        """Book one dispatch with the roofline ledger: a capture to run the
+        dispatch's first step under (passing it to :meth:`_forward`) on the
+        key's first sight, else None. The key names this engine's model and
+        modes beside the shapes: two models (or one model's bf16 and int8
+        engines) share a ledger, and one shape costs each its own work."""
+        if self._roofline is None:
+            return None
+        key = (self.cfg.name, str(self.dtype), self.quant, self.kv_quant, self.w8a8,
+               self.decode_w8a8, *key)
+        return self._roofline.dispatch(family, key, tokens=tokens, steps=steps, kv_valid=kv_valid)
+
     def _chunked_prefill(self, prompt_ids: list[int], cache, chunk: int):
         """Prefill in fixed chunks at a running start over the prompt's
         bucket (the plain attention op, as the JAX package runs XLA here)."""
@@ -239,16 +332,22 @@ class Engine:
         kv_width = _bucket(n_tail * chunk, self.max_seq)
         last_in_chunk = torch.full((1,), (n_prompt - 1) % chunk, device=self.device)
         tokens = self._ids_tensor(padded)
+        # One prefill dispatch of n_tail steps, the JAX chunk loop's count.
+        cap = self._capture("prefill", ((1, chunk), kv_width), n_tail * chunk, n_tail)
         for i in range(n_tail):
-            logits, cache = self._forward(
-                tokens[:, i * chunk:(i + 1) * chunk], cache, i * chunk,
-                attn_impl="torch", kv_width=kv_width, logits_index=last_in_chunk,
-            )
+            counted = cap if i == 0 else None
+            with counted or nullcontext():
+                logits, cache = self._forward(
+                    tokens[:, i * chunk:(i + 1) * chunk], cache, i * chunk,
+                    attn_impl="torch", kv_width=kv_width, logits_index=last_in_chunk,
+                    capture=counted,
+                )
         return logits[:, 0], cache
 
     def _prefill_ids(self, prompt_ids: list[int]):
         """Prefill ``prompt_ids`` into a fresh cache; returns
         ``(last_logits [1, V] fp32, cache)``."""
+        t0_obs = self._obs.now() if self._obs is not None else 0
         n_prompt = len(prompt_ids)
         chunk_len = self.prefill_chunk
         n_chunks = -(-n_prompt // chunk_len) if chunk_len else 1
@@ -257,14 +356,20 @@ class Engine:
             quant=self.kv_quant,
         )
         if chunk_len and n_prompt > chunk_len and n_chunks * chunk_len <= self.max_seq:
-            return self._chunked_prefill(prompt_ids, cache, chunk_len)
-        bucket = _bucket(n_prompt, self.max_seq)
-        tokens = self._ids_tensor(prompt_ids + [0] * (bucket - n_prompt))
-        last = torch.full((1,), n_prompt - 1, device=self.device)
-        logits, cache = self._forward(
-            tokens, cache, 0, attn_impl="flash", logits_index=last,
-        )
-        return logits[:, 0], cache
+            last_logits, cache = self._chunked_prefill(prompt_ids, cache, chunk_len)
+        else:
+            bucket = _bucket(n_prompt, self.max_seq)
+            tokens = self._ids_tensor(prompt_ids + [0] * (bucket - n_prompt))
+            last = torch.full((1,), n_prompt - 1, device=self.device)
+            cap = self._capture("prefill", (1, bucket), bucket)
+            with cap or nullcontext():
+                logits, cache = self._forward(
+                    tokens, cache, 0, attn_impl="flash", logits_index=last, capture=cap,
+                )
+            last_logits = logits[:, 0]
+        if self._obs is not None:
+            self._obs.complete("prefill", t0_obs, tid="engine", tokens=n_prompt, reused=0)
+        return last_logits, cache
 
     def _rows_bucket(self, n_max: int) -> int:
         """Cache capacity :class:`AdmissionPrefill` allocates for a
@@ -300,18 +405,31 @@ class Engine:
 
     def _decode_chunk(self, token: torch.Tensor, pos: torch.Tensor, cache: dict,
                       n_steps: int, gen: Optional[torch.Generator], sample_args: tuple,
-                      kv_width: Optional[int], **rows):
+                      kv_width: Optional[int], kv_valid: Optional[int] = None, **rows):
         """``n_steps`` one-token steps over every row of ``cache``, sampling
         on the device. ``token`` [B] is each row's last token and ``pos``
         the int32 device scalar of the shared write slot; ``rows`` as
-        :meth:`_forward`. Returns ``(last token [B], tokens [n_steps, B],
+        :meth:`_forward`; ``kv_valid`` the host-known valid cache slots of
+        the first step summed over rows (the roofline's count of the decode
+        kernel's work). Returns ``(last token [B], tokens [n_steps, B],
         pos + n_steps)``."""
-        toks = []
-        for _ in range(n_steps):
-            logits, cache = self._forward(
-                token[:, None], cache, pos, attn_impl="flash", kv_width=kv_width, **rows,
+        cap = self._capture("decode", (tuple(token.shape), n_steps, kv_width),
+                            n_steps * token.shape[0], n_steps, kv_valid)
+
+        def step(token, pos, capture=None):
+            logits, _ = self._forward(
+                token[:, None], cache, pos, attn_impl="flash", kv_width=kv_width,
+                capture=capture, **rows,
             )
-            token = sample_token(logits[:, -1], gen, *sample_args)
+            return sample_token(logits[:, -1], gen, *sample_args)
+
+        toks = []
+        for i in range(n_steps):
+            if i == 0 and cap is not None:
+                with cap:  # one step counted: the key's work per step
+                    token = step(token, pos, cap)
+            else:
+                token = step(token, pos)
             toks.append(token)
             pos = pos + 1
         return token, torch.stack(toks), pos
@@ -341,9 +459,12 @@ class Engine:
                 latency_ms=(time.monotonic() - start_time) * 1000,
             )
         with torch.inference_mode():
-            last_logits, cache = self._prefill_ids(prompt_ids)
+            wall = DeviceWall(self.device) if self._attrib is not None else None
+            with obs.attrib.tag("prefill"):
+                last_logits, cache = self._prefill_ids(prompt_ids)
             return self._decode_stream(
                 prompt_ids, last_logits, cache, sampling, ctx, on_token, start_time,
+                prefill_wall=wall.stop() if wall is not None else None,
             )
 
     def _decode_stream(
@@ -355,8 +476,10 @@ class Engine:
         ctx: Context,
         on_token: Optional[Callable[[int], None]],
         start_time: float,
+        prefill_wall: Optional[DeviceWall] = None,
     ) -> GenerateResult:
-        """The streamed decode loop over an established cache."""
+        """The streamed decode loop over an established cache;
+        ``prefill_wall`` is booked at the first fetch."""
         n_prompt = len(prompt_ids)
         max_new = min(sampling.max_new_tokens, self.max_seq - n_prompt)
         gen = torch.Generator(device=self.device).manual_seed(sampling.seed)
@@ -385,6 +508,10 @@ class Engine:
                     on_token(tok_id)
             return False
 
+        # Telemetry, bound at construction: per chunk one check at dispatch
+        # and one at fetch when every plane is off.
+        obs_r, attrib = self._obs, self._attrib
+
         stopped = False
         # Decode-rate clock: starts at the first fetch boundary (prefill +
         # chunk 1 complete), so it measures steady-state decode only.
@@ -395,7 +522,21 @@ class Engine:
 
         def fetch(pending: _Fetch) -> None:
             nonlocal stopped, t_first_fetch, n_at_first_fetch, t_last_fetch, n_at_last_fetch
-            stopped = emit(pending.ids())
+            nonlocal prefill_wall
+            t0_obs = obs_r.now() if obs_r is not None else 0
+            n_before = len(out_ids)
+            fetched = pending.ids()
+            stopped = emit(fetched)
+            if obs_r is not None:
+                obs_r.complete("fetch", t0_obs, tid="engine", tokens=len(fetched))
+            if attrib is not None:
+                # The chunk's copy is done, so its interval, and the
+                # prefill's before it, can be read without a wait.
+                if prefill_wall is not None:
+                    attrib.observe_device("prefill", prefill_wall.seconds())
+                    prefill_wall = None
+                attrib.observe_device("decode", pending.wall.seconds())
+                attrib.token_event("useful", len(out_ids) - n_before)
             now = time.monotonic()
             if t_first_fetch is None:
                 t_first_fetch, n_at_first_fetch = now, len(out_ids)
@@ -419,16 +560,23 @@ class Engine:
             inflight_first = 0  # the prefill-sampled token rides this chunk
             if pos < self.max_seq:
                 n_steps = chunk if pos + chunk <= self.max_seq else 1
+                t0_obs = obs_r.now() if obs_r is not None else 0
+                wall = DeviceWall(self.device) if attrib is not None else None
                 token, toks, pos_dev = self._decode_chunk(
                     token, pos_dev, cache, n_steps, gen, sample_args,
                     self._decode_width(pos + n_steps),
+                    kv_valid=min(pos + 1, self.cfg.sliding_window or pos + 1),
                 )
                 ids = toks[:, 0]
                 if first is not None:
                     ids = torch.cat([first, ids])
                     first = None
                     inflight_first = 1
-                dispatched = _Fetch(ids)
+                dispatched = _Fetch(ids, wall)
+                if obs_r is not None:
+                    # Host dispatch wall (the enqueue; device time is the
+                    # attribution ledger's).
+                    obs_r.complete("decode", t0_obs, tid="engine", steps=n_steps)
                 pos += n_steps
             if inflight is not None:
                 fetch(inflight)  # overlaps the chunk just enqueued
@@ -439,7 +587,12 @@ class Engine:
         if not stopped and inflight is not None:
             fetch(inflight)
         if not stopped and first is not None and len(out_ids) < max_new:
+            n_before = len(out_ids)
             emit([int(first.item())])
+            if attrib is not None:
+                attrib.token_event("useful", len(out_ids) - n_before)
+        if attrib is not None and prefill_wall is not None and prefill_wall.done():
+            attrib.observe_device("prefill", prefill_wall.seconds())
 
         decode_tokens, decode_s = 0, 0.0
         if t_first_fetch is not None and t_last_fetch > t_first_fetch:
@@ -540,9 +693,21 @@ class AdmissionPrefill:
             and self.width > self._chunk_len
             and self.width % self._chunk_len == 0
         )
+        self._t0_obs = engine._obs.now() if engine._obs is not None else 0
 
     def run(self):
-        """``(last_logits [k, V], cache [k, width], width)``."""
+        """``(last_logits [k, V], cache [k, width], width)``; one prefill
+        dispatch for the roofline, an ``admit_prefill`` span."""
+        out = self._run()
+        eng = self._eng
+        if eng._obs is not None:
+            args = {"rows": self.k, "width": self.width}
+            if self._prefix_cache is not None:
+                args["prefix"] = self._plen
+            eng._obs.complete("admit_prefill", self._t0_obs, tid="engine", **args)
+        return out
+
+    def _run(self):
         eng, width = self._eng, self.width
         cache = init_kv_cache(
             eng.cfg, batch=self.k, max_seq=width, device=eng.device, dtype=eng.dtype,
@@ -557,8 +722,10 @@ class AdmissionPrefill:
             # The flash kernel serves full-prompt waves; suffix waves take
             # the plain op (the prefill kernel has no merge-state form).
             impl = "torch" if prefix else "flash"
-            logits, cache = eng._forward(tokens, cache, 0, attn_impl=impl,
-                                         logits_index=last, **prefix)
+            cap = eng._capture("prefill", (self.k, width), self.k * width)
+            with cap or nullcontext():
+                logits, cache = eng._forward(tokens, cache, 0, attn_impl=impl,
+                                             logits_index=last, capture=cap, **prefix)
             return logits[:, 0], cache, width
         chunk = self._chunk_len
         # Per-row "last token in THIS chunk", clamped: each row reads the
@@ -568,11 +735,16 @@ class AdmissionPrefill:
             for c in range(width // chunk)
         ])
         per_chunk = []
-        for c in range(width // chunk):
-            logits, cache = eng._forward(
-                tokens[:, c * chunk:(c + 1) * chunk], cache, c * chunk,
-                attn_impl="torch", kv_width=width, logits_index=idx[c], **prefix,
-            )
+        n_chunks = width // chunk
+        cap = eng._capture("prefill", ((self.k, chunk), width), self.k * width, n_chunks)
+        for c in range(n_chunks):
+            counted = cap if c == 0 else None
+            with counted or nullcontext():
+                logits, cache = eng._forward(
+                    tokens[:, c * chunk:(c + 1) * chunk], cache, c * chunk,
+                    attn_impl="torch", kv_width=width, logits_index=idx[c],
+                    capture=counted, **prefix,
+                )
             per_chunk.append(logits[:, 0])
         sel = eng.to_device([(len(r) - 1) // chunk for r in self.rows])
         stacked = torch.stack(per_chunk)  # [C, k, V]

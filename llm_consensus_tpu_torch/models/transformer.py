@@ -34,6 +34,7 @@ T = 1, the plain op's for T > 1.
 from __future__ import annotations
 
 import math
+from contextlib import nullcontext
 from typing import Callable, Optional, Union
 
 import numpy as np
@@ -57,6 +58,7 @@ from llm_consensus_tpu_torch.ops.rope import apply_rope, rope_angles, rope_inv_f
 Pos = Union[int, torch.Tensor]
 
 ATTN_IMPLS = ("flash", "torch")  # kernels where the shape allows, or the plain op
+_NO_SCOPE = nullcontext()  # around each layer when no layer_scope is given
 
 
 def _layer_shapes(cfg: ModelConfig) -> dict:
@@ -421,6 +423,7 @@ def forward(
     prefix: Optional[dict] = None,    # shared-prefix KV {"k", "v"} [L, 1, P, Hkv, dh]
     prefix_len=None,                  # int or int32 scalar: valid prefix slots
     prefix_rows: Optional[torch.Tensor] = None,  # [B] bool: rows attending prefix
+    layer_scope: Optional[Callable] = None,  # a roofline capture's Capture.layer
 ) -> tuple[torch.Tensor, Optional[dict]]:
     """Run the model. Returns (logits [B, T, V] fp32, cache).
 
@@ -443,6 +446,8 @@ def forward(
     row flagged in ``prefix_rows`` (all rows when None); those rows' own
     slots hold positions ``prefix_len`` further on. Neither composes with
     the flash prefill kernel, and ``prefix`` refuses a sliding window.
+    ``layer_scope(i)`` is entered around layer ``i`` when given (a roofline
+    capture counts the first layer only, obs/roofline.py).
     """
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
@@ -542,12 +547,13 @@ def forward(
         layers = layer_views(params)
     decode_w8a8 = decode_w8a8 and decode_flash and is_quantized(cache["k"])
     for i, lp in enumerate(layers):
-        x = _layer(
-            cfg, x, lp, cos, sin, mask, cache, start_pos, i,
-            layer_ids[i] if layer_ids is not None else None, row_start, slots,
-            flash_offset, kv_width, decode_flash, mm, decode_w8a8,
-            prefix, prefix_len, prefix_rows,
-        )
+        with layer_scope(i) if layer_scope is not None else _NO_SCOPE:
+            x = _layer(
+                cfg, x, lp, cos, sin, mask, cache, start_pos, i,
+                layer_ids[i] if layer_ids is not None else None, row_start, slots,
+                flash_offset, kv_width, decode_flash, mm, decode_w8a8,
+                prefix, prefix_len, prefix_rows,
+            )
 
     if logits_index is not None:
         # Prefill samples one position: unembed only it.

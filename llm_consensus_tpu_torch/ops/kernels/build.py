@@ -151,11 +151,28 @@ def _bind(lib: ctypes.CDLL) -> None:
 def ensure_built() -> ctypes.CDLL:
     """The loaded kernel library, building it first if this checkout has
     no build for the current sources. Thread-safe; raises
-    :class:`KernelBuildError` when nvcc or the load fails."""
+    :class:`KernelBuildError` when nvcc or the load fails. The build or load
+    is the one compile on the port's path: the installed attribution ledger
+    books it (obs/attrib.py, the build sentinel)."""
+    if _lib is not None:
+        return _lib
+    t0 = time.monotonic()
+    lib, loaded = _load()
+    if loaded:
+        from llm_consensus_tpu_torch.obs import attrib
+
+        led = attrib.ledger()
+        if led is not None:
+            led.note_build(time.monotonic() - t0)
+    return lib
+
+
+def _load() -> tuple[ctypes.CDLL, bool]:
+    """``(library, whether this call built or loaded it)``."""
     global _lib
     with _lock:
         if _lib is not None:
-            return _lib
+            return _lib, False
         out_dir = BUILD_ROOT / _key()
         if not (out_dir / LIB_NAME).exists():
             _build(out_dir)
@@ -165,7 +182,7 @@ def ensure_built() -> ctypes.CDLL:
             raise KernelBuildError(f"loading {out_dir / LIB_NAME}: {err}") from err
         _bind(lib)
         _lib = lib
-        return lib
+        return lib, True
 
 
 def check(lib: ctypes.CDLL, err: int, name: str) -> None:

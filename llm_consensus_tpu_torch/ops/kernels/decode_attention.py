@@ -42,6 +42,7 @@ from typing import Optional, Union
 
 import torch
 
+from llm_consensus_tpu_torch.obs import roofline as _roofline
 from llm_consensus_tpu_torch.ops.kernels.build import (
     LaunchCounter, check, ensure_built)
 from llm_consensus_tpu_torch.ops.quant import is_quantized, quantize_rows_sym
@@ -290,9 +291,40 @@ def decode_attention(
     to 4). CPU tensors take the plain version; CUDA tensors launch the
     kernel or raise. On CUDA, ``pos`` and ``layer_idx`` are int32 device
     scalars and ``row_start`` an int32 device vector, so a step reads them
-    on the card with no host sync.
+    on the card with no host sync. Under a roofline capture
+    (obs/roofline.py) the call books its own work.
     """
     _check_shapes(q, k, v, w8a8)
+    args = (q, k, v, pos, layer_idx, row_start, scale, sliding_window, logit_softcap,
+            kv_width, w8a8, return_state)
+    if _roofline.CAPTURING:
+        cap = _roofline.current_capture()
+        if cap is not None:
+            with cap.kernel(*decode_work(q, k, kv_width, cap.kv_valid, return_state)):
+                return _decode(*args)
+    return _decode(*args)
+
+
+def decode_work(q: torch.Tensor, k: Cache, kv_width: Optional[int] = None,
+                kv_valid: Optional[int] = None,
+                return_state: bool = False) -> tuple[float, float, float]:
+    """(FLOPs, bytes, output bytes) of one call over ``kv_valid`` valid
+    cache slots summed over rows (None: every slot of the width, every
+    row): QK^T and PV per valid slot; each valid K/V slot (codes and scales
+    of an int8 cache) and q read once, the output (and the state) written
+    once."""
+    b, _, hq, dh = q.shape
+    quantized = is_quantized(k)
+    kc = k["q8"] if quantized else k
+    s, hkv = kc.shape[2], kc.shape[3]
+    n = b * (s if kv_width is None else min(kv_width, s)) if kv_valid is None else kv_valid
+    slot = 2.0 * hkv * (dh + k["s"].element_size() if quantized else dh * kc.element_size())
+    out_b = float(q.element_size() * b * hq * dh + (8 * b * hq if return_state else 0))
+    return 4.0 * hq * dh * n, n * slot + q.element_size() * b * hq * dh + out_b, out_b
+
+
+def _decode(q, k, v, pos, layer_idx, row_start, scale, sliding_window, logit_softcap,
+            kv_width, w8a8, return_state):
     quantized = is_quantized(k)
     tensors = [("q", q)]
     if quantized:

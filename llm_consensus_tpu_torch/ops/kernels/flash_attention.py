@@ -15,6 +15,7 @@ from typing import Optional
 
 import torch
 
+from llm_consensus_tpu_torch.obs import roofline as _roofline
 from llm_consensus_tpu_torch.ops.kernels.build import (
     LaunchCounter, check, ensure_built)
 
@@ -135,9 +136,35 @@ def flash_attention(
     Query row r attends kv positions p with ``p <= q_offset + r`` (and
     ``p > q_offset + r - sliding_window`` when windowed). KV beyond
     ``q_offset + T`` is never read. CPU tensors take the plain version;
-    CUDA tensors launch the kernel (bf16, contiguous) or raise.
+    CUDA tensors launch the kernel (bf16, contiguous) or raise. Under a
+    roofline capture (obs/roofline.py) the call books its own work.
     """
     _check_shapes(q, k, v, q_offset)
+    args = (q, k, v, q_offset, scale, sliding_window, logit_softcap)
+    if _roofline.CAPTURING:
+        cap = _roofline.current_capture()
+        if cap is not None:
+            with cap.kernel(*flash_work(q, k, q_offset, sliding_window)):
+                return _flash(*args)
+    return _flash(*args)
+
+
+def flash_work(q: torch.Tensor, k: torch.Tensor, q_offset: int = 0,
+               sliding_window: Optional[int] = None) -> tuple[float, float, float]:
+    """(FLOPs, bytes, output bytes) of one call: QK^T and PV over the
+    causal (and windowed) pairs; q, k and v read once, the output written
+    once."""
+    b, t, hq, dh = q.shape
+    hkv = k.shape[2]
+    s_eff = min(k.shape[1], q_offset + t)
+    win = sliding_window or (q_offset + t)
+    pairs = sum(min(q_offset + r + 1, win) for r in range(t))
+    item = q.element_size()
+    out_b = float(item * b * t * hq * dh)
+    return 4.0 * b * hq * dh * pairs, out_b * 2 + 2.0 * item * b * s_eff * hkv * dh, out_b
+
+
+def _flash(q, k, v, q_offset, scale, sliding_window, logit_softcap) -> torch.Tensor:
     if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
         return flash_attention_plain(
             q, k, v, q_offset=q_offset, scale=scale,

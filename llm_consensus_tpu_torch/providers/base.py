@@ -28,6 +28,10 @@ class Request:
     max_tokens: Optional[int] = None
     temperature: Optional[float] = None
     system: Optional[str] = None
+    # Priority class (HIGH=0 / NORMAL=1 / LOW=2; None is NORMAL): the
+    # judge's work outranks the panel's. The provider labels its per-token
+    # latency with it (obs/live.py ``class_label``).
+    priority: Optional[int] = None
 
 
 @dataclass

@@ -25,6 +25,12 @@ equal the single-stream path's. ``pool_prefix`` and ``pool_prefix_min`` go
 to the batcher (shared-prefix serving: a panel of one model fans one prompt
 out to N streams). A failed submit raises: there is no fallback to the
 single-stream path.
+
+Telemetry (obs/), bound at construction: an ``engine_stream`` span per
+request (recorder and flight recorder), the per-token latency into the live
+plane labeled by the request's priority class and outcome, and the
+run-aggregate decode counters (``decode_tokens``, ``decode_s``, the MFU
+weights) the CLI's footer and ``metrics.json`` read.
 """
 
 from __future__ import annotations
@@ -34,6 +40,8 @@ import threading
 import time
 from typing import Optional
 
+from llm_consensus_tpu_torch import obs
+from llm_consensus_tpu_torch.obs.live import class_label
 from llm_consensus_tpu_torch.providers.base import Provider, Request, Response, StreamCallback
 from llm_consensus_tpu_torch.utils.context import Context
 from llm_consensus_tpu_torch.utils.device import DeviceLike, device_name, resolve_device
@@ -93,6 +101,9 @@ class GPUProvider(Provider):
         # (KV-cache memory is proportional to capacity).
         self._max_seq = max_seq
         self.stats = {"tokens": 0, "runs": 0}
+        self._obs = obs.recorder()
+        self._live = obs.live.metrics()
+        self._bb = obs.blackbox.ring()
 
     @classmethod
     def shared(cls, device: DeviceLike = None, *, batch_streams: int = 1,
@@ -205,6 +216,7 @@ class GPUProvider(Provider):
 
         engine = self._engine_for(req.model)
         start = time.monotonic()
+        t0_ns = time.monotonic_ns() if self._obs is not None or self._bb is not None else 0
         sampling = SamplingParams(
             max_new_tokens=(
                 req.max_tokens if req.max_tokens is not None else DEFAULT_MAX_NEW_TOKENS
@@ -244,6 +256,28 @@ class GPUProvider(Provider):
                 weight_bytes={"int8": 1, "int4": 0.5}.get(engine.quant, itemsize),
                 kv_bytes=1 if engine.kv_quant == "int8" else itemsize,
             )
+        for rec in (self._obs, self._bb):
+            if rec is not None:
+                rec.complete("engine_stream", t0_ns, tid="engine", model=req.model,
+                             tokens=len(result.token_ids))
+        if self._live is not None and result.token_ids:
+            # Steady-state decode cadence when the engine measured one, else
+            # the whole request's mean per token.
+            if result.decode_tokens and result.decode_s > 0:
+                per_tok = result.decode_s / result.decode_tokens
+            else:
+                per_tok = (time.monotonic() - start) / len(result.token_ids)
+            self._live.observe("token_latency", per_tok, outcome="ok",
+                               **{"class": class_label(1 if req.priority is None
+                                                       else req.priority)})
+        if self._obs is not None and tokens_per_sec is not None:
+            # Run aggregates: the footer divides the sums; MFU re-weights by
+            # the tokens that reported one.
+            self._obs.count("decode_tokens", result.decode_tokens)
+            self._obs.count("decode_s", result.decode_s)
+            if mfu is not None:
+                self._obs.count("mfu_weighted_tokens", mfu * result.decode_tokens)
+                self._obs.count("mfu_tokens", result.decode_tokens)
         return Response(
             model=req.model,
             content=result.text,

@@ -32,6 +32,10 @@ class Registry:
         with self._lock:
             self._providers[model] = provider
 
+    def models(self) -> list[str]:
+        with self._lock:
+            return sorted(self._providers)
+
     def get(self, model: str) -> Provider:
         with self._lock:
             try:

@@ -11,6 +11,9 @@
     for ``stall_grace`` seconds is booked failed and abandoned, so ``run``
     never blocks on a wedged worker. Abandoned workers run as daemon
     threads against a sealed result: late completions are dropped.
+  * Telemetry (obs/), bound at construction: a ``worker`` span per model
+    (tid "runner") on the recorder and the flight recorder, and a
+    ``watchdog_abandon`` instant when the watchdog gives a worker up.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
+from llm_consensus_tpu_torch import obs
 from llm_consensus_tpu_torch.providers import Registry, Request, Response
 from llm_consensus_tpu_torch.utils.context import Context
 
@@ -68,6 +72,8 @@ class Runner:
         self._system = system  # system prompt for every panel query
         self._stall_grace = stall_grace
         self._callbacks = Callbacks()
+        self._obs = obs.recorder()
+        self._bb = obs.blackbox.ring()
 
     def with_callbacks(self, callbacks: Callbacks) -> "Runner":
         self._callbacks = callbacks
@@ -103,6 +109,8 @@ class Runner:
         def worker(model: str, wid: int) -> None:
             # Workers never raise: failures, including ones thrown by the
             # caller's callbacks, become warnings.
+            t0_obs = (time.monotonic_ns()
+                      if self._obs is not None or self._bb is not None else 0)
             try:
                 query_one(model, wid)
             except Exception as err:  # noqa: BLE001 — the best-effort boundary
@@ -115,6 +123,10 @@ class Runner:
                             cb.on_model_error(model, err)
                         except Exception:  # noqa: BLE001
                             pass
+            finally:
+                for rec in (self._obs, self._bb):
+                    if rec is not None:
+                        rec.complete("worker", t0_obs, tid="runner", model=model, wid=wid)
 
         def query_one(model: str, wid: int) -> None:
             model_ctx = ctx.with_timeout(self._timeout)
@@ -215,6 +227,9 @@ class Runner:
                             abandoned.add(wid)
                             result.warnings.append(f"{model}: {err}")
                             result.failed_models.append(model)
+                    if not accounted and self._obs is not None:
+                        self._obs.instant("watchdog_abandon", tid="runner", model=model,
+                                          wid=wid, overdue_s=round(overdue, 3))
                     if not accounted and cb.on_model_error:
                         try:
                             cb.on_model_error(model, err)

@@ -20,7 +20,18 @@ knobs that the JAX package declares, with the same meaning:
   * ``LLMC_PREFILL_BUDGET``: interleaved admission, not ported: a value
     above 0 is refused;
   * ``LLMC_CHECKPOINT_DIR``: the directory of per-preset HF safetensors
-    checkpoints (``<dir>/<preset>/``).
+    checkpoints (``<dir>/<preset>/``);
+  * the telemetry planes (:func:`telemetry_settings`, installed by the CLI
+    before any provider exists): ``LLMC_EVENTS`` and ``LLMC_EVENTS_MAX``
+    (the recorder), ``LLMC_LIVE`` (default on), ``LLMC_LIVE_WINDOW_S``,
+    ``LLMC_LIVE_WINDOWS``, ``LLMC_ATTRIB`` ("0" off, unset follows
+    ``LLMC_LIVE``), ``LLMC_ATTRIB_WARMUP_S``, ``LLMC_ATTRIB_HBM_HIGH``,
+    ``LLMC_ROOFLINE`` ("0" off, unset follows attribution),
+    ``LLMC_ROOFLINE_RIDGE``, ``LLMC_ROOFLINE_TOL``, ``LLMC_BLACKBOX``
+    (default on), ``LLMC_BLACKBOX_EVENTS``, ``LLMC_BLACKBOX_DIR``,
+    ``LLMC_BLACKBOX_MIN_INTERVAL_S``, ``LLMC_PROFILE`` (default on),
+    ``LLMC_PROFILE_DIR``, ``LLMC_PROFILE_MAX_S``,
+    ``LLMC_PROFILE_MIN_INTERVAL_S``, with the JAX package's defaults.
 """
 
 from __future__ import annotations
@@ -54,6 +65,54 @@ def get_int(name: str, default: int) -> int:
         return int(v)
     except ValueError:
         return default
+
+
+def get_float(name: str, default: float) -> float:
+    """Unset, empty or unparsable → ``default``."""
+    v = (os.environ.get(name) or "").strip()
+    if not v:
+        return default
+    try:
+        return float(v)
+    except ValueError:
+        return default
+
+
+def _tristate(name: str, follows: bool) -> bool:
+    """The JAX planes' switch: "0" off, any other value on, unset
+    ``follows``."""
+    v = get_str(name)
+    return follows if not v else v != "0"
+
+
+def telemetry_settings() -> dict:
+    """The telemetry planes' switches and settings of the environment,
+    with the JAX package's defaults and its follow rules (attribution
+    follows the live plane, the roofline follows attribution)."""
+    live = get_bool("LLMC_LIVE", True)
+    attrib = _tristate("LLMC_ATTRIB", live)
+    events = get_str("LLMC_EVENTS")
+    return {
+        "events": bool(events) and events != "0",
+        "events_max": get_int("LLMC_EVENTS_MAX", 200_000),
+        "live": live,
+        "live_window_s": get_float("LLMC_LIVE_WINDOW_S", 10.0),
+        "live_windows": get_int("LLMC_LIVE_WINDOWS", 30),
+        "attrib": attrib,
+        "attrib_warmup_s": get_float("LLMC_ATTRIB_WARMUP_S", 120.0),
+        "attrib_hbm_high": get_float("LLMC_ATTRIB_HBM_HIGH", 0.92),
+        "roofline": _tristate("LLMC_ROOFLINE", attrib),
+        "roofline_ridge": get_float("LLMC_ROOFLINE_RIDGE", 0.0),
+        "roofline_tol": get_float("LLMC_ROOFLINE_TOL", 4.0),
+        "blackbox": get_bool("LLMC_BLACKBOX", True),
+        "blackbox_events": get_int("LLMC_BLACKBOX_EVENTS", 4096),
+        "blackbox_dir": get_str("LLMC_BLACKBOX_DIR"),
+        "blackbox_min_interval_s": get_float("LLMC_BLACKBOX_MIN_INTERVAL_S", 30.0),
+        "profile": get_bool("LLMC_PROFILE", True),
+        "profile_dir": get_str("LLMC_PROFILE_DIR"),
+        "profile_max_s": get_float("LLMC_PROFILE_MAX_S", 10.0),
+        "profile_min_interval_s": get_float("LLMC_PROFILE_MIN_INTERVAL_S", 60.0),
+    }
 
 
 def batch_settings() -> dict:

@@ -13,6 +13,7 @@ import torch
 from llm_consensus_tpu.consensus.agreement import score_agreement as jax_agreement
 from llm_consensus_tpu.consensus.judge import render_judge_prompt as jax_render
 from llm_consensus_tpu.providers.base import Response as JaxResponse
+from llm_consensus_tpu_torch import obs
 from llm_consensus_tpu_torch.cli.main import main
 from llm_consensus_tpu_torch.consensus import Judge, render_judge_prompt
 from llm_consensus_tpu_torch.providers import ProviderFunc, Registry, Response
@@ -33,8 +34,14 @@ def _run(argv, stdin_text=""):
 
 @pytest.fixture(scope="module", autouse=True)
 def _release_engines():
+    # Engines bind the telemetry planes when built: start from none, so the
+    # CLI's planes reach every engine here, and leave none behind.
+    for provider in GPUProvider._shared.values():
+        provider.release()
+    GPUProvider._shared.clear()
     yield
     GPUProvider.shared("cpu").release()
+    obs.reset_planes()
 
 
 # -- the output contract, against the JAX CLI's own files ---------------------------
@@ -100,11 +107,10 @@ def test_cli_end_to_end_auto_save(tmp_path, checkpoint_runs):
     assert rc == 0, err
     assert out == ""  # auto-saved, not printed (stderr is no terminal)
     (run_dir,) = list(data.iterdir())
-    # The JAX CLI's run directory, less metrics.json (not ported).
+    # The JAX CLI's run directory, metrics.json included.
     jax_dir = checkpoint_runs[0]["tpu"]
-    assert sorted(os.listdir(run_dir)) == sorted(
-        set(os.listdir(jax_dir)) - {"metrics.json"}) == [
-        "consensus.md", "panel", "prompt.txt", "result.json", "run.json"]
+    assert sorted(os.listdir(run_dir)) == sorted(os.listdir(jax_dir)) == [
+        "consensus.md", "metrics.json", "panel", "prompt.txt", "result.json", "run.json"]
     doc = _doc(run_dir)
     assert (run_dir / "prompt.txt").read_text() == QUESTION
     assert (run_dir / "consensus.md").read_text() == doc["consensus"]
@@ -157,7 +163,7 @@ def test_checkpoint_runs_give_the_jax_cli_result_fields(checkpoint_runs):
 def test_checkpoint_runs_write_the_jax_manifest_and_panel(checkpoint_runs):
     runs, _ = checkpoint_runs
     gpu, tpu = runs["gpu"], runs["tpu"]
-    assert sorted(os.listdir(gpu)) == sorted(set(os.listdir(tpu)) - {"metrics.json"})
+    assert sorted(os.listdir(gpu)) == sorted(os.listdir(tpu))
     manifest, jax_manifest = _doc(gpu, "run.json"), _doc(tpu, "run.json")
     assert list(manifest) == list(jax_manifest)
     for key in ("models", "judge"):

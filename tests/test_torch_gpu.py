@@ -510,3 +510,107 @@ def test_checkpoint_loads_on_the_card(cuda, tmp_path):
 
 def _to(tree, device):
     return {k: _to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
+
+
+# -- the telemetry planes on the card (obs/) ------------------------------------------------
+
+
+@pytest.fixture
+def planes():
+    """The attribution and roofline ledgers, installed for the test only."""
+    from llm_consensus_tpu_torch import obs
+
+    obs.reset_planes()
+    led = obs.attrib.ChipTimeLedger(warmup_s=3600.0)
+    rl = obs.roofline.RooflineLedger()
+    obs.attrib.install(led)
+    obs.roofline.install(rl)
+    yield led, rl
+    obs.reset_planes()
+
+
+def _small_engine(cuda):
+    from llm_consensus_tpu_torch.models.config import ModelConfig
+
+    cfg = ModelConfig(name="obs-small", family="llama", vocab_size=512, d_model=512,
+                      n_layers=4, n_heads=8, n_kv_heads=2, head_dim=64, d_ff=1024,
+                      max_seq_len=1024)
+    return Engine(cfg, device=cuda, stream_interval=8)
+
+
+def test_family_walls_cover_the_profiled_kernel_time(cuda, planes):
+    """The ledger's stream intervals of one generate hold every kernel the
+    profiler saw in it and fit inside its wall."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    led, _ = planes
+    engine = _small_engine(cuda)
+    sp = SamplingParams(max_new_tokens=40, ignore_eos=True)
+    engine.generate_ids(list(range(1, 200)), sp)  # warm: kernels built, keys counted
+    before = led.snapshot()["busy_s"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        engine.generate_ids(list(range(1, 200)), sp)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    busy = led.snapshot()["busy_s"] - before
+    kernels = sum(getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0)
+                  for e in prof.key_averages()
+                  if "CUDA" in str(getattr(e, "device_type", ""))) / 1e6
+    if kernels == 0:
+        pytest.skip("torch.profiler saw no device time")
+    # The ledger rounds to 0.1 ms.
+    assert kernels - 1e-4 <= busy <= wall + 1e-4, (kernels, busy, wall)
+
+
+def test_capture_books_a_kernel_launch_and_launches_it(cuda, planes):
+    _, rl = planes
+    q, k, v = _bf16(cuda, 7, (1, 128, 8, 64), (1, 128, 2, 64), (1, 128, 2, 64))
+    before = fa.LAUNCHES.count
+    with rl.dispatch("prefill", ("f",), tokens=128):
+        fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES.count == before + 1
+    flops, nbytes, _ = fa.flash_work(q, k)
+    fam = rl.snapshot(device_s={})["families"]["prefill"]
+    assert (fam["flops"], fam["bytes"]) == (flops, nbytes)
+    assert flops == 4.0 * 8 * 64 * (128 * 129 // 2)
+
+
+def test_planes_add_no_synchronization(cuda, planes, monkeypatch):
+    """The same generate with the planes bound and with none makes the same
+    number of synchronize calls."""
+    engine = _small_engine(cuda)
+    bound = (engine._obs, engine._attrib, engine._roofline)
+    sp = SamplingParams(max_new_tokens=40, ignore_eos=True)
+    engine.generate_ids(list(range(1, 100)), sp)
+    counts = {}
+    calls = [0]
+    sync, event_sync = torch.cuda.synchronize, torch.cuda.Event.synchronize
+
+    def counted(fn):
+        def wrapper(*a, **kw):
+            calls[0] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    monkeypatch.setattr(torch.cuda, "synchronize", counted(sync))
+    monkeypatch.setattr(torch.cuda.Event, "synchronize", counted(event_sync))
+    for arm in ("off", "on"):
+        engine._obs, engine._attrib, engine._roofline = bound if arm == "on" else (None,) * 3
+        calls[0] = 0
+        engine.generate_ids(list(range(1, 100)), sp)
+        counts[arm] = calls[0]
+    engine._obs, engine._attrib, engine._roofline = bound
+    assert bound[1] is not None and counts["on"] == counts["off"] > 0
+
+
+def test_hbm_device_stats_read_the_card(cuda, planes):
+    led, _ = planes
+    x = torch.empty(1 << 20, device=cuda)
+    st = led.hbm_device_stats()
+    assert st["bytes_in_use"] >= x.numel() * 4 and st["peak_bytes_in_use"] >= st["bytes_in_use"]
+    assert st["bytes_limit"] == torch.cuda.get_device_properties(0).total_memory
+    assert "device" in led.snapshot()["hbm"]

@@ -6,6 +6,7 @@ back to the CPU when no card is visible."""
 import ast
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -43,6 +44,29 @@ def test_no_jax_import(path):
             if _forbidden(node.module):
                 bad.append(node.module)
     assert not bad, f"{path.name} imports {bad}"
+
+
+def test_the_obs_modules_are_covered():
+    names = {p.name for p in _port_files() if p.parent.name == "obs"}
+    assert names == {"__init__.py", "attrib.py", "blackbox.py", "export.py", "live.py",
+                     "profiler.py", "recorder.py", "roofline.py"}
+
+
+@pytest.mark.parametrize("path", [p for p in _port_files() if p.parent != ROOT],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_only_the_knobs_module_reads_llmc_variables(path):
+    """The environment is read at one boundary: utils/knobs.py. No other
+    module of the package holds an ``LLMC_*`` variable's name as a string
+    (the key a read needs; help texts and docstrings may mention them)."""
+    if path == PKG / "utils" / "knobs.py":
+        return
+    tree = ast.parse(path.read_text(), filename=str(path))
+    named = [
+        node.value for node in ast.walk(tree)
+        if isinstance(node, ast.Constant) and isinstance(node.value, str)
+        and re.fullmatch(r"LLMC_[A-Z0-9_]*", node.value)
+    ]
+    assert not named, f"{path.name} names {named}"
 
 
 def _port_modules():
