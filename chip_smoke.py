@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phase kernels   # build + kernel checks only
     python3 chip_smoke.py --phase mixtral   # build + the Mixtral phases only
     python3 chip_smoke.py --phase telemetry # build + the telemetry phase only
+    python3 chip_smoke.py --phase modes     # build + the modes phase only
 
 Phases, in order; any failure exits non-zero before the last line:
 
@@ -19,7 +20,8 @@ Phases, in order; any failure exits non-zero before the last line:
    cache and with W8A8 scores, at widths 1 to 8,192 across the split plan
    and from a CUDA graph replayed at four frontiers, with the plan's least
    split timed at 128, 256 and 512 slots; the ``return_state`` form of all
-   three decode variants at B = 4 with ragged row starts); each timed with CUDA
+   three decode variants at B = 4 with ragged row starts, the bf16 one also at
+   width 8,192 beside the aten memory-efficient attention); each timed with CUDA
    graphs, warm (back-to-back calls on the same inputs) and cold (a 128 MiB
    write between calls flushes the 50 MB L2; the flushes alone are timed
    and subtracted), beside its plain version and, where one exists, one
@@ -63,6 +65,17 @@ Phases, in order; any failure exits non-zero before the last line:
    ``torch.cuda.max_memory_allocated``; the slice's auto-saved CLI run in
    a fresh process with the planes on and off, in turns (process and
    main() walls);
+8b. the consensus modes (``--phase modes``), each through the port's CLI
+   over warm shared providers (the slice's panel and judge, bf16, the
+   350-token prompt, 64 tokens): ``--rounds 2 --confidence --system-file``
+   (7 generates), ``--vote`` (2, no judge engine built), ``--continue``, a
+   plain run (the phase's baseline wall), ``--resume`` of that run less one
+   panel answer and of a run whose child
+   process was killed with SIGKILL after its first panel answer, ``-i``
+   over three queries, the config file with an alias, and ``--version``;
+   each run's generates, the decode kernel's launches, flash launched
+   exactly for the prompts that fit one prefill chunk, no warning but the
+   ones random weights cause; a ``{"modes": ...}`` line;
 9. the quantized slice: the same CLI run with ``LLMC_QUANT=int8
    LLMC_KV_QUANT=int8`` in the environment (int8 weights, int8 KV cache,
    the int8 decode kernel), then a profiler window over one of its
@@ -104,6 +117,7 @@ It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import io
 import json
@@ -786,12 +800,14 @@ def check_decode_state(torch, recs: dict) -> None:
                 q, kk, vv, last_t, layer3_t, rs0_t, kv_width=S, w8a8=w8a8, return_state=True),
             50)
         library = {"ms": None, "cold_ms": None}
+        wide = {}
         if key == "bf16":
             nbytes = 2.0 * 2 * n_valid * hkv * dh + io
             bms, by = bound_ms(nbytes, 4.0 * hq * dh * n_valid)
             long_bms, _ = bound_ms(2.0 * 2 * B * S * hkv * dh + io, 4.0 * B * hq * dh * S)
             efficient = torch.ops.aten._scaled_dot_product_efficient_attention
             library = timed(lambda: efficient(qt, kt, vt, bias, True), 200)
+            wide = time_state_width_8192(torch, da, q, k, v, rs)
         else:
             nbytes = 2.0 * n_valid * hkv * dh + 2.0 * 2 * n_valid * hkv + io
             long_bytes = 2.0 * B * S * hkv * dh + 2.0 * 2 * B * S * hkv + io
@@ -814,7 +830,7 @@ def check_decode_state(torch, recs: dict) -> None:
             bound_ms=bms, bound_by=by, bound_share=bms / kern["cold_ms"], library_ms=library_ms,
             library_cold_ms=library["cold_ms"], w8192_ms=long["ms"],
             w8192_cold_ms=long["cold_ms"], w8192_bound_ms=long_bms,
-            w8192_bound_share=long_bms / long["cold_ms"],
+            w8192_bound_share=long_bms / long["cold_ms"], **wide,
         )
         lib_text = ("none" if library_ms is None else
                     f"warm {library_ms:.4f}, cold {library['cold_ms']:.4f} ms")
@@ -825,6 +841,48 @@ def check_decode_state(torch, recs: dict) -> None:
             f"({100 * long_bms / long['cold_ms']:.1f} % of it cold)")
     del k, v, k8, v8, kt, vt, caches
     release_memory(torch)
+
+
+def time_state_width_8192(torch, da, q, k, v, rs: tuple) -> dict:
+    """The bf16 ``return_state`` kernel at width 8,192 (pos 8,191 on an
+    unpoisoned layer, row starts ``rs``) beside the one library call of the
+    same function: the aten memory-efficient attention with its log-sum-exp
+    over the GQA-expanded K and V of the layer, the slots outside
+    ``[row_start, pos]`` masked by a bias. Each warm and cold."""
+    L, B, S, hkv, dh = k.shape
+    hq, layer = q.shape[2], 3
+    pos = S - 1
+    rs_t = torch.tensor(rs, dtype=torch.int32, device="cuda")
+    pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    layer_t = torch.tensor(layer, dtype=torch.int32, device="cuda")
+    kern = timed(lambda: da.decode_attention(q, k, v, pos_t, layer_t, rs_t, kv_width=S,
+                                             return_state=True), 50)
+    qt = q.transpose(1, 2)
+    kt = k[layer].transpose(1, 2).repeat_interleave(hq // hkv, dim=1).contiguous()
+    vt = v[layer].transpose(1, 2).repeat_interleave(hq // hkv, dim=1).contiguous()
+    cols = torch.arange(S, device="cuda")
+    valid = (cols[None, :] <= pos) & (cols[None, :] >= rs_t[:, None].long())
+    bias = torch.zeros((B, hq, 1, S), dtype=torch.bfloat16, device="cuda")
+    bias.masked_fill_(~valid[:, None, None, :], float("-inf"))
+    efficient = torch.ops.aten._scaled_dot_product_efficient_attention
+    got = da.decode_attention(q, k, v, pos_t, layer_t, rs_t, kv_width=S, return_state=True)
+    lib_out = efficient(qt, kt, vt, bias, True)[0].transpose(1, 2)
+    err = max_err(got[0], lib_out)
+    library = timed(lambda: efficient(qt, kt, vt, bias, True), 50)
+    n_valid = sum(pos - r + 1 for r in rs)
+    bms, _ = bound_ms(2.0 * 2 * n_valid * hkv * dh + 2.0 * 2 * B * hq * dh + 2 * 4 * B * hq,
+                      4.0 * hq * dh * n_valid)
+    log(f"state  bf16 at pos {pos}, width {S}, row_start {list(rs)}: kernel warm "
+        f"{kern['ms']:.4f} ms, cold {kern['cold_ms']:.4f} ms; library (aten efficient "
+        f"attention with log-sum-exp, K/V expanded to {hq} heads) warm {library['ms']:.4f} ms, "
+        f"cold {library['cold_ms']:.4f} ms; bound {bms:.5f} ms; kernel against library out "
+        f"max_abs_err {err:.3e}")
+    if err > decode_tol(lib_out):
+        raise AssertionError(f"decode state at width {S}: kernel against library {err}")
+    del kt, vt, bias
+    return {"w8192_rs_ms": kern["ms"], "w8192_rs_cold_ms": kern["cold_ms"],
+            "w8192_rs_bound_ms": bms, "w8192_library_ms": library["ms"],
+            "w8192_library_cold_ms": library["cold_ms"], "w8192_rs": list(rs)}
 
 
 def check_int8_matmul(torch) -> None:
@@ -968,62 +1026,97 @@ def check_cache(engine, cache: dict) -> None:
             raise AssertionError(f"{engine.cfg.name}: cache codes are {leaf['q8'].dtype}")
 
 
-def run_slice(torch, counters: dict, env: dict, label: str,
-              models: str = "gpu:llama-3-8b,gpu:consensus-1b", events: bool = False) -> dict:
-    """One consensus run through the port's CLI (panel ``models``, judge
-    llama-3-8b) with ``env`` set for the call (and restored after);
-    ``counters`` (name → LaunchCounter) are set to 0 just before and read
-    just after. Returns the launches, the provider and its built engines,
-    the wall, the peak device memory and the responses. ``events``: the run
-    takes ``--events`` and auto-saves instead of ``--json``, and the result
-    also holds the run directory's listing and its ``metrics.json`` and
-    ``trace.json``."""
-    from llm_consensus_tpu_torch.cli.main import main as cli_main
-    from llm_consensus_tpu_torch.engine.tokenizer import ByteTokenizer
-    from llm_consensus_tpu_torch.providers.gpu import GPUProvider
-    from llm_consensus_tpu_torch.utils.knobs import batch_settings, quant_modes
-
+@contextlib.contextmanager
+def set_environ(env: dict):
+    """``env`` set in the process environment for the block, then restored."""
     saved = {name: os.environ.get(name) for name in env}
     os.environ.update(env)
     try:
-        modes = {**batch_settings(), **quant_modes()}
-        out, err = io.StringIO(), io.StringIO()
-        files = {}
-        with tempfile.TemporaryDirectory(prefix="chip-smoke-") as data_dir:
-            argv = [
-                "--models", models, "--judge", "gpu:llama-3-8b", "--max-tokens", "64",
-                *(["--events"] if events else ["--json"]), "--data-dir", data_dir, PROMPT,
-            ]
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            for c in counters.values():
-                c.reset()
-            t0 = time.monotonic()
-            rc = cli_main(argv, device=None, stdout=out, stderr=err,
-                          install_signal_handlers=False)
-            torch.cuda.synchronize()
-            wall = time.monotonic() - t0
-            if events and rc == 0:
-                (run_id,) = os.listdir(data_dir)
-                run_dir = os.path.join(data_dir, run_id)
-                files["listing"] = sorted(os.listdir(run_dir))
-                for name in ("result.json", "metrics.json", "trace.json"):
-                    path = os.path.join(run_dir, name)
-                    if os.path.exists(path):
-                        with open(path, encoding="utf-8") as f:
-                            files[name] = json.load(f)
+        yield
     finally:
         for name, value in saved.items():
             if value is None:
                 os.environ.pop(name, None)
             else:
                 os.environ[name] = value
-    launches = {name: c.count for name, c in counters.items()}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+
+def cli_call(torch, counters: dict, env: dict, argv: list, stdin: str = "") -> dict:
+    """One call of the port's CLI in this process, on the card, with ``env``
+    set for the call (and restored after) and ``stdin`` as its input;
+    ``counters`` (name → LaunchCounter) are set to 0 just before and read
+    just after. Returns the exit code, stdout, stderr, wall, launches and
+    peak device memory."""
+    from llm_consensus_tpu_torch.cli.main import main as cli_main
+
+    with set_environ(env):
+        out, err = io.StringIO(), io.StringIO()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.reset()
+        t0 = time.monotonic()
+        rc = cli_main(argv, device=None, stdin=io.StringIO(stdin), stdout=out, stderr=err,
+                      install_signal_handlers=False)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    return {"rc": rc, "out": out.getvalue(), "err": err.getvalue(), "wall_s": wall,
+            "launches": {name: c.count for name, c in counters.items()},
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def read_run_dir(run_dir: str) -> dict:
+    """A saved run directory: its listing and its JSON files."""
+    files = {"listing": sorted(os.listdir(run_dir)), "run_dir": run_dir}
+    for name in ("result.json", "run.json", "metrics.json", "trace.json"):
+        path = os.path.join(run_dir, name)
+        if os.path.exists(path):
+            with open(path, encoding="utf-8") as f:
+                files[name] = json.load(f)
+    return files
+
+
+def run_slice(torch, counters: dict, env: dict, label: str,
+              models: str = "gpu:llama-3-8b,gpu:consensus-1b", events: bool = False,
+              extra: tuple = (), data_dir: str = "", prompt: str = PROMPT,
+              timing: bool = True, n_models: int = 0, judge: str = "gpu:llama-3-8b") -> dict:
+    """One consensus run through the port's CLI (panel ``models``, ``judge``,
+    ``extra`` flags) with ``env`` set for the call (and restored
+    after); ``counters`` (name → LaunchCounter) are set to 0 just before and
+    read just after. Returns the launches, the provider and its built
+    engines, the wall, the peak device memory and the responses; with
+    ``timing``, each engine's prefill of the prompt is timed after the run.
+    ``events``: the run takes ``--events``. ``events`` or ``data_dir``: the
+    run auto-saves (into ``data_dir``, else a temporary directory) instead of
+    printing ``--json``, and the result also holds the run directory's
+    listing and its JSON files. ``n_models``: the panel's size when
+    ``models`` holds an alias."""
+    from llm_consensus_tpu_torch.engine.tokenizer import ByteTokenizer
+    from llm_consensus_tpu_torch.providers.gpu import GPUProvider
+    from llm_consensus_tpu_torch.utils.knobs import batch_settings, quant_modes
+
+    with set_environ(env):
+        modes = {**batch_settings(), **quant_modes()}
+    save = events or bool(data_dir)
+    files = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
+        root = data_dir or tmp
+        before = set(os.listdir(root)) if os.path.isdir(root) else set()
+        argv = [
+            "--models", models, "--judge", judge, "--max-tokens", "64",
+            *(["--events"] if events else []), *([] if save else ["--json"]),
+            "--data-dir", root, *extra, prompt,
+        ]
+        call = cli_call(torch, counters, env, argv)
+        rc, wall = call["rc"], call["wall_s"]
+        if save and rc == 0:
+            (run_id,) = set(os.listdir(root)) - before
+            files = read_run_dir(os.path.join(root, run_id))
+    launches, peak_gb = call["launches"], call["peak_gb"]
     if rc != 0:
-        raise AssertionError(f"{label}: CLI exit {rc}: {err.getvalue()}")
-    doc = files["result.json"] if events else json.loads(out.getvalue())
-    n_models = len(models.split(","))
+        raise AssertionError(f"{label}: CLI exit {rc}: {call['err']}")
+    doc = files["result.json"] if save else json.loads(call["out"])
+    n_models = n_models or len(models.split(","))
     if (len(doc["responses"]) != n_models or doc.get("failed_models")
             or not doc["consensus"]):
         raise AssertionError(f"{label}: bad result: {json.dumps(doc)[:2000]}")
@@ -1043,6 +1136,8 @@ def run_slice(torch, counters: dict, env: dict, label: str,
     ids = ByteTokenizer().encode(PROMPT)
     for preset, engine in sorted(engines.items()):
         check_devices(engine)
+        if not timing:
+            continue
         with torch.inference_mode():
             _, cache = engine._prefill_ids(ids)
             check_cache(engine, cache)
@@ -1060,7 +1155,7 @@ def run_slice(torch, counters: dict, env: dict, label: str,
             f"median {times[2]:.2f} ms (min {times[0]:.2f}, max {times[-1]:.2f}, 5 runs)")
     return {"launches": launches, "engines": engines, "wall_s": wall, "peak_gb": peak_gb,
             "modes": modes, "provider": provider, "responses": doc["responses"],
-            "files": files}
+            "files": files, "doc": doc, "err": call["err"]}
 
 
 def release_engines(torch, modes: dict) -> None:
@@ -1666,6 +1761,7 @@ def measure_fresh_cli_walls() -> None:
     do not."""
     repo = os.path.dirname(os.path.abspath(__file__))
     base = {k: v for k, v in os.environ.items() if not k.startswith("LLMC_")}
+    base["LLMC_CONFIG"] = "0"  # no ambient config file changes the slice
     walls: dict = {"on": [], "off": []}
     for arm in ("on", "off", "off", "on", "on", "off"):
         env = {**base, **(PLANES_OFF if arm == "off" else {})}
@@ -1880,6 +1976,307 @@ def run_telemetry(torch, fa, da) -> None:
     check_trace_and_profile(torch)
     measure_fresh_cli_walls()
     log(f"telemetry phase: {time.monotonic() - t_phase:.1f} s")
+
+
+# -- the modes phase: the CLI's consensus modes at the slice's width ----------
+
+MODES_PANEL = "gpu:llama-3-8b,gpu:consensus-1b"
+MODES_JUDGE = "gpu:llama-3-8b"
+# The vote run names a judge outside the panel, so that "no judge engine is
+# built" reads directly in the provider's engines().
+VOTE_JUDGE = "gpu:llama-3.1-8b"
+SYSTEM_PROMPT = ("You are a storage and networking engineer. Give numbers, name the "
+                 "risks, and keep the answer short.")
+FOLLOW_UPS = ("How would the answer change if the link were 1 Gbit/s?",
+              "Which risks remain with the option you chose?")
+# The only warnings a run on random weights may carry: random text holds
+# no vote and no grade. Any other warning (a failed round, grading or
+# model) fails the phase, so a kernel error can never pass as one.
+RANDOM_WEIGHT_WARNINGS = ("no recognizable vote in response",
+                          "confidence grading returned an unparseable reply")
+
+
+class GenerateLog:
+    """Every ``Engine.generate`` while installed (a context manager):
+    (preset, prompt tokens, layers, path), the path "flash" for a prompt the
+    engine prefills in one shot (the flash kernel), "chunked" for one it
+    prefills in chunks (the plain attention op). ``reset`` and ``count``
+    make it a counter beside the kernels' LaunchCounters."""
+
+    def __init__(self) -> None:
+        self.calls: list = []
+        self._lock = threading.Lock()
+        self._orig = None
+
+    def __enter__(self) -> "GenerateLog":
+        from llm_consensus_tpu_torch.engine import engine as engine_mod
+
+        orig = self._orig = engine_mod.Engine.generate
+        calls, lock = self.calls, self._lock
+
+        def generate(engine, *args, **kwargs):
+            res = orig(engine, *args, **kwargs)
+            n, chunk = res.prompt_tokens, engine.prefill_chunk
+            chunked = bool(chunk) and n > chunk and -(-n // chunk) * chunk <= engine.max_seq
+            with lock:
+                calls.append((engine.cfg.name, n, engine.cfg.n_layers,
+                              "chunked" if chunked else "flash"))
+            return res
+
+        engine_mod.Engine.generate = generate
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from llm_consensus_tpu_torch.engine import engine as engine_mod
+
+        engine_mod.Engine.generate = self._orig
+
+    def reset(self) -> None:
+        with self._lock:
+            self.calls.clear()
+
+    @property
+    def count(self) -> int:
+        return len(self.calls)
+
+
+def check_mode(label: str, run: dict, gens: GenerateLog, docs: list, generates: int,
+               min_flash: int = 0) -> dict:
+    """One mode's run: the generates it made, the decode kernel launched
+    whenever a model ran, flash launched exactly for the prompts that fit
+    one prefill chunk (one launch per layer), no failed model and no
+    warning but a random-weight one. Returns the mode's row."""
+    launches, calls = run["launches"], list(gens.calls)
+    flash_layers = sum(layers for _, _, layers, path in calls if path == "flash")
+    n_flash = sum(1 for c in calls if c[3] == "flash")
+    for preset, n, _, path in sorted(calls, key=lambda c: (c[3], c[1])):
+        log(f"  {label}: {preset} prompt of {n} tokens -> {path}")
+    problems = []
+    if len(calls) != generates:
+        problems.append(f"{len(calls)} generates, expected {generates}")
+    if calls and launches["decode_attention"] <= 0:
+        problems.append("the bf16 decode kernel never launched")
+    if launches["flash_attention"] != flash_layers or n_flash < min_flash:
+        problems.append(f"flash launches {launches['flash_attention']} for {n_flash} one-shot "
+                        f"prompts of {flash_layers} layers (at least {min_flash} expected)")
+    for doc in docs:
+        if doc.get("failed_models"):
+            problems.append(f"failed models {doc['failed_models']}")
+        problems += [f"warning {w!r}" for w in doc.get("warnings", [])
+                     if not w.endswith(RANDOM_WEIGHT_WARNINGS)]
+    if problems:
+        raise AssertionError(f"{label}: " + "; ".join(problems))
+    row = {"wall_s": run["wall_s"], "generates": len(calls),
+           "decode_bf16_kernel": launches["decode_attention"],
+           "flash_attention": launches["flash_attention"],
+           "prompts_flash": n_flash, "prompts_chunked": len(calls) - n_flash,
+           "longest_prompt_tokens": max((c[1] for c in calls), default=0),
+           "peak_gb": run["peak_gb"]}
+    log(f"{label}: {json.dumps(row)}")
+    return row
+
+
+def saved_runs(data_dir: str) -> list:
+    """The run directories of ``data_dir`` in start order (run.json's mtime)."""
+    dirs = [os.path.join(data_dir, d) for d in os.listdir(data_dir)]
+    return [read_run_dir(d) for d in
+            sorted(dirs, key=lambda d: os.stat(os.path.join(d, "run.json")).st_mtime_ns)]
+
+
+def crash_run(data_dir: str, log_path: str) -> str:
+    """The slice's CLI, auto-saved, in a child process killed with SIGKILL
+    once its first panel answer lands in ``panel/``. Returns the run id."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    argv = [sys.executable, "-m", "llm_consensus_tpu_torch", "--models", MODES_PANEL,
+            "--judge", MODES_JUDGE, "--max-tokens", "64", "--data-dir", data_dir, PROMPT]
+    landed, t0 = [], time.monotonic()
+    with open(log_path, "w", encoding="utf-8") as child_log:
+        child = subprocess.Popen(argv, cwd=repo, env={**os.environ, "LLMC_CONFIG": "0"},
+                                 stdout=child_log, stderr=subprocess.STDOUT)
+        try:
+            while not landed and child.poll() is None and time.monotonic() - t0 < 300:
+                time.sleep(0.01)
+                for run_id in os.listdir(data_dir) if os.path.isdir(data_dir) else ():
+                    panel = os.path.join(data_dir, run_id, "panel")
+                    if os.path.isdir(panel):
+                        landed = [n for n in os.listdir(panel) if n.startswith("000-")]
+        finally:
+            child.kill()
+            child.wait(60)
+    with open(log_path, encoding="utf-8") as f:
+        tail = f.read()[-2000:]
+    if not landed:
+        raise AssertionError(f"crash run: no panel answer landed (exit {child.returncode}): "
+                             f"{tail}")
+    (run_id,) = os.listdir(data_dir)
+    listing = sorted(os.listdir(os.path.join(data_dir, run_id)))
+    log(f"crash run: child killed (exit {child.returncode}) {time.monotonic() - t0:.2f} s "
+        f"after its start, once {landed[0]} landed; run directory {listing}")
+    if "result.json" in listing:
+        raise AssertionError("crash run: the child finished before it was killed")
+    return run_id
+
+
+def run_modes(torch, fa, da, card: str) -> dict:
+    """The modes phase: each consensus mode of the CLI through the port's
+    CLI in this process over warm shared providers (panel llama-3-8b +
+    consensus-1b, judge llama-3-8b, bf16, random weights, the 350-token
+    prompt, 64 new tokens), the crash case in a child process. Returns the
+    rows of the ``{"modes": ...}`` line."""
+    from llm_consensus_tpu_torch.cli.main import install_planes, load_panel_journal
+    from llm_consensus_tpu_torch.engine.tokenizer import ByteTokenizer
+    from llm_consensus_tpu_torch.providers.gpu import GPUProvider
+
+    t_phase = time.monotonic()
+    gens = GenerateLog()
+    counters = {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES,
+                "generates": gens}
+    env = {"LLMC_CONFIG": "0"}
+    slice_kw = {"models": MODES_PANEL, "judge": MODES_JUDGE}
+    second = MODES_PANEL.split(",")[1].split(":", 1)[1]
+    rows: dict = {}
+    # Warm shared providers: the panel's engines are built before the first
+    # mode, so no mode's wall holds a build. The telemetry planes are
+    # installed first, as the CLI does, since engines bind them when built.
+    install_planes(False, sys.stderr)
+    t0 = time.monotonic()
+    warm = GPUProvider.shared()
+    for model in MODES_PANEL.split(","):
+        warm._engine_for(model)
+    torch.cuda.synchronize()
+    log(f"modes: engines {sorted(warm.engines())} built in {time.monotonic() - t0:.2f} s")
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-modes-") as tmp, gens:
+        # 1. --rounds 2 --confidence --system-file: panel 2 x 2, judge 3.
+        sysfile = os.path.join(tmp, "system.txt")
+        with open(sysfile, "w", encoding="utf-8") as f:
+            f.write(SYSTEM_PROMPT + "\n")
+        saved = os.path.join(tmp, "saved")
+        sl = run_slice(torch, counters, env, "modes: --rounds 2 --confidence", **slice_kw,
+                       extra=("--rounds", "2", "--confidence", "--system-file", sysfile),
+                       data_dir=saved, timing=False)
+        manifest, doc = sl["files"]["run.json"], sl["doc"]
+        if (manifest["rounds"], manifest["confidence"], manifest["system"]) != (
+                2, True, SYSTEM_PROMPT):
+            raise AssertionError(f"rounds: run.json {manifest}")
+        if "confidence" not in doc and doc.get("warnings") != [RANDOM_WEIGHT_WARNINGS[1]]:
+            raise AssertionError(f"rounds: confidence {doc.get('confidence')}, warnings "
+                                 f"{doc.get('warnings')}")
+        log(f"  rounds: confidence {doc.get('confidence')}, warnings {doc.get('warnings')}")
+        rows["rounds"] = check_mode("rounds", sl, gens, [doc], 7, min_flash=2)
+        first_run = os.path.basename(sl["files"]["run_dir"])
+
+        # 2. --vote: the panel's 2 generates, no judge provider or engine.
+        provider = sl["provider"]
+        sl = run_slice(torch, counters, env, "modes: --vote", models=MODES_PANEL, judge=VOTE_JUDGE,
+                       extra=("--vote", "--options", "A,B,C"), timing=False)
+        judge_preset = VOTE_JUDGE.split(":", 1)[1]
+        if sl["doc"]["judge"] != "vote" or judge_preset in provider.engines():
+            raise AssertionError(f"vote: judge {sl['doc']['judge']}, engines "
+                                 f"{sorted(provider.engines())}")
+        log(f"  vote: {sl['doc']['consensus'].splitlines()[0]!r}; engines built "
+            f"{sorted(provider.engines())} (no {judge_preset})")
+        rows["vote"] = check_mode("vote", sl, gens, [sl["doc"]], 2)
+
+        # 3. --continue the first run: the panel prompts carry its exchange.
+        sl = run_slice(torch, counters, env, "modes: --continue", **slice_kw,
+                       extra=("--continue", first_run), data_dir=saved,
+                       prompt=FOLLOW_UPS[0], timing=False)
+        history = sl["doc"].get("history", [])
+        raw = len(ByteTokenizer().encode(FOLLOW_UPS[0]))
+        panel_tokens = [n for preset, n, _, _ in gens.calls if preset == second]
+        log(f"  continue: history {len(history)}; follow-up {raw} tokens, {second}'s "
+            f"panel prompt {panel_tokens} tokens (+{[n - raw for n in panel_tokens]} of "
+            f"history)")
+        if len(history) != 1 or not panel_tokens or panel_tokens[0] < raw + len(PROMPT):
+            raise AssertionError(f"continue: history {history}, panel prompt {panel_tokens}")
+        rows["continue"] = check_mode("continue", sl, gens, [sl["doc"]], 3)
+
+        # 4. --resume: a completed run less its result.json and one panel
+        # answer reruns that answer and the judge, and ends as a fresh run.
+        resume = os.path.join(tmp, "resume")
+        sl = run_slice(torch, counters, env, "modes: a plain run, then --resume", **slice_kw,
+                       data_dir=resume, timing=False)
+        # The plain run: this call's baseline for every mode's wall, with the
+        # JAX CLI's run directory (metrics.json included: the engines bound
+        # the planes).
+        rows["plain"] = check_mode("plain", sl, gens, [sl["doc"]], 3, min_flash=2)
+        run_dir, fresh = sl["files"]["run_dir"], sl["files"]["listing"]
+        if fresh != [name for name in RUN_FILES if name != "trace.json"]:
+            raise AssertionError(f"plain run: run directory {fresh}")
+        os.remove(os.path.join(run_dir, "result.json"))
+        (answer,) = [n for n in os.listdir(os.path.join(run_dir, "panel"))
+                     if n.endswith(f"_{second}.json")]
+        os.remove(os.path.join(run_dir, "panel", answer))
+        run = cli_call(torch, counters, env,
+                       ["--data-dir", resume, "--resume", os.path.basename(run_dir)])
+        files = read_run_dir(run_dir)
+        if run["rc"] != 0 or files["listing"] != fresh or len(
+                files["result.json"]["responses"]) != 2:
+            raise AssertionError(f"resume: exit {run['rc']} {run['err'][-2000:]}; listing "
+                                 f"{files['listing']} against a fresh run's {fresh}")
+        log(f"  resume: exit 0 in {run['wall_s']:.2f} s; listing {files['listing']} = a "
+            f"fresh run's; panel {sorted(os.listdir(os.path.join(run_dir, 'panel')))}")
+        rows["resume"] = check_mode("resume", run, gens, [files["result.json"]], 2,
+                                    min_flash=1)
+
+        # 4b. A run SIGKILL'd after its first panel answer, finished by
+        # --resume.
+        crash = os.path.join(tmp, "crash")
+        run_id = crash_run(crash, os.path.join(tmp, "child.log"))
+        reused = len(load_panel_journal(os.path.join(crash, run_id)))
+        run = cli_call(torch, counters, env, ["--data-dir", crash, "--resume", run_id])
+        files = read_run_dir(os.path.join(crash, run_id))
+        rerun = len(gens.calls) - 1  # less the judge's
+        log(f"  crash resume: exit {run['rc']}, {reused} answers reused, {rerun} rerun; "
+            f"listing {files['listing']}")
+        if run["rc"] != 0 or reused + rerun != 2 or len(
+                files.get("result.json", {}).get("responses", [])) != 2:
+            raise AssertionError(f"crash resume: exit {run['rc']}, reused {reused}, rerun "
+                                 f"{rerun}: {run['err'][-2000:]}")
+        rows["resume_crash"] = check_mode("resume after SIGKILL", run, gens,
+                                          [files["result.json"]], 1 + rerun)
+        rows["resume_crash"].update(reused=reused, rerun=rerun)
+
+        # 5. -i: two queries, drop consensus-1b, a third, /reset, /exit.
+        session = os.path.join(tmp, "interactive")
+        stdin = "\n".join([PROMPT, FOLLOW_UPS[0], f"/models -gpu:{second}",
+                           FOLLOW_UPS[1], "/reset", "/exit"]) + "\n"
+        run = cli_call(torch, counters, env,
+                       ["--models", MODES_PANEL, "--judge", MODES_JUDGE, "--max-tokens",
+                        "64", "--data-dir", session, "-i"], stdin=stdin)
+        runs = saved_runs(session) if os.path.isdir(session) else []
+        docs = [r.get("result.json", {}) for r in runs]
+        shape = [(len(d.get("history", [])), len(d.get("responses", []))) for d in docs]
+        log(f"  interactive: exit {run['rc']}, runs (history, responses) {shape}; stderr "
+            f"{run['err'].strip()!r}")
+        if (run["rc"] != 0 or "error:" in run["err"] or shape != [(0, 2), (1, 2), (2, 1)]
+                or docs[2]["consensus"] != docs[2]["responses"][0]["content"]):
+            raise AssertionError(f"interactive: exit {run['rc']}, runs {shape}: "
+                                 f"{run['err'][-2000:]}")
+        rows["interactive"] = check_mode("interactive", run, gens, docs, 7, min_flash=2)
+
+        # 6. The config file through LLMC_CONFIG: an alias and rounds 2.
+        config = os.path.join(tmp, "llm-consensus.json")
+        with open(config, "w", encoding="utf-8") as f:
+            json.dump({"aliases": {"@panel": MODES_PANEL}, "rounds": 2}, f)
+        sl = run_slice(torch, counters, {"LLMC_CONFIG": config}, "modes: config file",
+                       judge=MODES_JUDGE, models="@panel", n_models=2, data_dir=os.path.join(tmp, "config"),
+                       timing=False)
+        manifest = sl["files"]["run.json"]
+        if manifest["models"] != MODES_PANEL.split(",") or manifest["rounds"] != 2:
+            raise AssertionError(f"config: run.json {manifest}")
+        rows["config"] = check_mode("config", sl, gens, [sl["doc"]], 6, min_flash=2)
+
+        # 7. --version: no model runs.
+        run = cli_call(torch, counters, env, ["--version"])
+        log(f"  version: exit {run['rc']}, {run['out'].strip()!r}")
+        if run["rc"] != 0 or not run["out"].startswith("llm-consensus-torch "):
+            raise AssertionError(f"version: exit {run['rc']}: {run['out']} {run['err']}")
+        rows["version"] = check_mode("version", run, gens, [], 0)
+    log(f"modes phase: {time.monotonic() - t_phase:.1f} s")
+    print(json.dumps({"modes": rows, "card": card}), flush=True)
+    release_engines(torch, {})
+    return rows
 
 
 # -- phases 12 to 16: Mixtral and the checkpoint loader ------------------------
@@ -2244,7 +2641,7 @@ def run_mixtral(torch, fa, da, seed: int, records: dict) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phase", choices=("all", "kernels", "mixtral", "telemetry"),
+    ap.add_argument("--phase", choices=("all", "kernels", "mixtral", "telemetry", "modes"),
                     default="all")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -2262,6 +2659,9 @@ def main(argv=None) -> int:
         print(f"error: run from the repository root ({err})", file=sys.stderr)
         return 2
 
+    # Only the modes phase's config-file run reads a config file: no ambient
+    # ~/.llm-consensus.json changes any other phase.
+    os.environ["LLMC_CONFIG"] = "0"
     t_start = time.monotonic()
     card = card_line()
     log(f"card: {card}")
@@ -2290,6 +2690,11 @@ def main(argv=None) -> int:
     if args.phase == "telemetry":
         # The telemetry phase alone: no ok line.
         run_telemetry(torch, fa, da)
+        print(card, flush=True)
+        return 0
+    if args.phase == "modes":
+        # The modes phase alone: no ok line.
+        run_modes(torch, fa, da, card)
         print(card, flush=True)
         return 0
     check_flash(torch, flash_rec)
@@ -2329,6 +2734,7 @@ def main(argv=None) -> int:
     del bsl
     release_engines(torch, modes)
     run_telemetry(torch, fa, da)
+    run_modes(torch, fa, da, card)
 
     qsl = run_slice(torch, {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES,
                             "decode_attention_int8": da.LAUNCHES_INT8},

@@ -1,41 +1,58 @@
 """CLI entry point of the port (``python -m llm_consensus_tpu_torch``).
 
-A port of the consensus-run path of ``llm_consensus_tpu/cli/main.py`` with
-these flags: ``--models``, ``--judge``, ``--file``, the positional prompt,
-piped stdin, ``--output``, ``--data-dir``, ``--timeout``, ``--max-tokens``,
-``--json``, ``--no-save`` and ``-q/--quiet``. Precedence and exit codes
-follow the JAX CLI:
+A port of the consensus-run path of ``llm_consensus_tpu/cli/main.py``: its
+flags, their validation and messages, precedence and exit codes.
 
   * prompt: positional args > ``--file`` > piped stdin;
-  * one provider per unique model, judge included; an unknown model fails
-    at registry init with the available set;
+  * the config file (``.llm-consensus.json`` in the working directory,
+    else ``~/.llm-consensus.json``; ``LLMC_CONFIG=<path>`` overrides the
+    search, ``LLMC_CONFIG=0`` disables it) gives flag defaults and
+    ``@alias`` model lists; explicit flags win. ``--version`` and
+    ``--help`` never read it;
+  * one provider per unique model, judge included (the panel only under
+    ``--vote``); an unknown model fails at registry init with the
+    available set;
   * the auto-saved run directory ``<data-dir>/<run-id>/`` is reserved
-    before the fan-out, with the run manifest ``run.json`` (the JAX
-    manifest's keys; flags the port lacks take the values the JAX CLI
-    writes without them); each panel answer lands in
-    ``panel/NNN-<slug>.json`` as its worker records it;
-  * best-effort panel fan-out, panel agreement (``consensus/agreement.py``,
-    scored on every run), judge synthesis, then ``result.json``,
-    ``prompt.txt`` and ``consensus.md``; output routing ``--output`` file |
-    auto-save | ``--json`` stdout | pretty TTY | JSON stdout;
+    before the fan-out, with the run manifest ``run.json`` (prompt, panel,
+    judge and every setting that changes what the models see); each panel
+    answer lands in ``panel/NNN-<slug>.json`` as its worker records it.
+    ``--resume RUN_ID`` finishes such a run after a crash: it reruns only
+    the models the journal lacks, then the judge, into the same directory;
+  * best-effort panel fan-out, panel agreement (``consensus/agreement.py``),
+    then the judge's synthesis, or under ``--vote`` the host's tally of the
+    panel's votes (``consensus/vote.py``). ``--rounds N`` adds N - 1
+    refinement rounds (panel critique, judge refine; a failed round is a
+    warning that keeps the last good consensus) and ``--confidence`` one
+    judge-graded confidence query (``consensus/confidence.py``; a failure
+    is a warning). ``--system`` reaches the panel only; ``--continue``
+    folds a saved run's conversation into the prompts the models see;
+  * ``result.json``, ``prompt.txt`` and ``consensus.md``; output routing
+    ``--output`` file | auto-save | ``--json`` stdout | pretty TTY
+    (``ui/``) | JSON stdout;
+  * ``-i/--interactive``: one run per stdin line over warm providers, the
+    conversation carried across queries (``/models +m|-m``, ``/judge m``,
+    ``/reset``, ``/exit``);
   * errors print ``error: ...`` to stderr and exit 1.
 
 Model names are ``gpu:<preset>``. ``main(argv, device=None)`` runs on the
 current CUDA card and raises when there is none; tests pass
-``device="cpu"``. The JAX CLI's other flags and ``--resume`` (the reader
-of ``run.json`` and ``panel/``) are later work.
+``device="cpu"``. The JAX CLI's flags for modules the port lacks
+(``--draft``, ``--spec-k``, ``--prefill-budget``, ``--judge-overlap``,
+``--priority``) are later work; a config file that sets ``draft`` is
+refused.
 
 Run telemetry follows the JAX CLI: the live, attribution, roofline and
-flight-recorder planes are on by default and installed here, before any
-provider exists (the knobs of ``utils/knobs.py`` ``telemetry_settings``);
-an auto-saved run writes ``metrics.json`` whenever one of them grew during
-the run. ``--events`` (or ``LLMC_EVENTS``) adds the run recorder: the run
-directory gains ``trace.json`` (Perfetto-loadable) and ``metrics.json``
-gains ``counters`` and ``events``. ``--output``, ``--json`` and
-``--no-save`` leave no run directory, and a recorded run says so in a
-warning. ``--trace DIR`` writes a ``torch.profiler`` trace of the whole run
-to ``DIR/trace.json``; ``--profile`` arms one bounded window of the deep
-profiler (obs/profiler.py) around the run.
+flight-recorder planes are on by default and installed once per process
+run, before any provider exists (the knobs of ``utils/knobs.py``
+``telemetry_settings``); an auto-saved run writes ``metrics.json``
+whenever one of them grew during the run. ``--events`` (or
+``LLMC_EVENTS``) adds the run recorder: the run directory gains
+``trace.json`` (Perfetto-loadable) and ``metrics.json`` gains ``counters``
+and ``events``. ``--output``, ``--json`` and ``--no-save`` leave no run
+directory, and a recorded run says so in a warning. ``--trace DIR`` writes
+a ``torch.profiler`` trace of the whole run to ``DIR/trace.json``;
+``--profile`` arms one bounded window of the deep profiler
+(obs/profiler.py) around the run.
 
 Quantization and continuous batching are chosen as in the JAX package,
 through the environment only (``LLMC_QUANT``, ``LLMC_KV_QUANT``,
@@ -57,18 +74,28 @@ import signal
 import sys
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field, replace
 from typing import Callable, Optional, TextIO
 
-from llm_consensus_tpu_torch import obs
-from llm_consensus_tpu_torch.consensus import Judge, score_agreement
+from llm_consensus_tpu_torch import obs, ui
+from llm_consensus_tpu_torch.consensus import (
+    Judge,
+    grade_confidence,
+    render_critique_prompt,
+    render_refine_prompt,
+    render_vote_prompt,
+    score_agreement,
+    tally_votes,
+)
 from llm_consensus_tpu_torch.obs import export as obs_export
 from llm_consensus_tpu_torch.output import Result
 from llm_consensus_tpu_torch.output.persist import reserve_run_dir, save_aux_files, save_file
 from llm_consensus_tpu_torch.providers import Provider, Registry, Response
-from llm_consensus_tpu_torch.runner import AllModelsFailed, Callbacks, Runner
+from llm_consensus_tpu_torch.runner import AllModelsFailed, Callbacks, RunResult, Runner
+from llm_consensus_tpu_torch.utils import knobs
 from llm_consensus_tpu_torch.utils.context import Context
 from llm_consensus_tpu_torch.utils.device import DeviceLike, resolve_device
+from llm_consensus_tpu_torch.version import version_string
 
 DEFAULT_JUDGE = "gpu:llama-3-8b"
 DEFAULT_TIMEOUT_S = 120
@@ -94,6 +121,14 @@ class Config:
     trace: str = ""        # torch.profiler trace of the run → DIR/trace.json
     events: bool = False   # run recorder → trace.json + metrics.json
     profile: bool = False  # one bounded deep-profiler window around the run
+    rounds: int = 1        # consensus rounds: critique + refine after round 1
+    vote: bool = False     # the panel picks one of ``options``; no judge
+    options: list[str] = field(default_factory=list)
+    continue_run: str = ""  # run-id whose conversation this run continues
+    system: str = ""       # system prompt for every panel model
+    interactive: bool = False  # REPL: one run per stdin line
+    confidence: bool = False   # judge-graded confidence in the consensus
+    resume: str = ""       # run-id of a crashed run to finish
 
 
 class CLIError(Exception):
@@ -118,7 +153,8 @@ def create_provider(model: str, device: DeviceLike = None) -> Provider:
 
 def init_registry(models: list[str], judge: Optional[str],
                   factory: ProviderFactory) -> Registry:
-    """One provider per unique model, judge included."""
+    """One provider per unique model, judge included; ``judge=None``
+    (voting mode) registers the panel only."""
     registry = Registry()
     for model in dict.fromkeys(models + ([judge] if judge else [])):
         try:
@@ -131,13 +167,6 @@ def init_registry(models: list[str], judge: Optional[str],
     return registry
 
 
-def _is_terminal(stream) -> bool:
-    try:
-        return stream.isatty()
-    except (AttributeError, ValueError):
-        return False
-
-
 def get_prompt(args: list[str], file: str, stdin: Optional[TextIO]) -> str:
     """Prompt precedence: positional > --file > piped stdin."""
     if args:
@@ -148,19 +177,137 @@ def get_prompt(args: list[str], file: str, stdin: Optional[TextIO]) -> str:
                 return f.read().strip()
         except OSError as err:
             raise CLIError(f"reading prompt file: {err}") from err
-    if stdin is not None and not _is_terminal(stdin):
+    if stdin is not None and not ui.is_terminal(stdin):
         return stdin.read().rstrip("\n")
     raise CLIError("no prompt provided: use positional argument, --file, or pipe to stdin")
 
 
-def parse_args(argv: list[str], stdin: Optional[TextIO]) -> Config:
+# Config-file keys that set flag defaults (CLI flags always win): the JAX
+# CLI's set. ``draft`` names a flag the port does not have yet and is
+# refused, never ignored.
+_CONFIG_FLAG_KEYS = frozenset({
+    "models", "judge", "timeout", "data_dir", "max_tokens", "system",
+    "rounds", "confidence", "draft",
+})
+
+
+def load_config_file() -> tuple[dict, str]:
+    """Defaults and model aliases from ``.llm-consensus.json`` in the
+    working directory, else ``~/.llm-consensus.json``. ``LLMC_CONFIG=<path>``
+    overrides the search; ``LLMC_CONFIG=0`` disables. Returns ({}, "") when
+    none is found."""
+    env = knobs.config_file()
+    if env == "0":
+        return {}, ""
+    if env:
+        path = os.path.expanduser(env)
+        if not os.path.exists(path):
+            raise CLIError(f"LLMC_CONFIG points to a missing file: {path}")
+        candidates = [path]
+    else:
+        candidates = [
+            ".llm-consensus.json",
+            os.path.expanduser("~/.llm-consensus.json"),
+        ]
+    for path in candidates:
+        if not os.path.exists(path):
+            continue
+        try:
+            with open(path, "r", encoding="utf-8") as f:
+                data = json.load(f)
+        except (OSError, ValueError) as err:
+            raise CLIError(f"reading config file {path}: {err}") from err
+        if not isinstance(data, dict):
+            raise CLIError(f"config file {path}: expected a JSON object")
+        unknown = set(data) - _CONFIG_FLAG_KEYS - {"aliases"}
+        if unknown:
+            raise CLIError(
+                f"config file {path}: unknown keys {sorted(unknown)} "
+                f"(known: {sorted(_CONFIG_FLAG_KEYS | {'aliases'})})"
+            )
+        _validate_config_types(data, path)
+        if "draft" in data:
+            raise CLIError(
+                f"config file {path}: 'draft' sets --draft, which is not in the "
+                "PyTorch port yet; remove the key"
+            )
+        return data, path
+    return {}, ""
+
+
+def _validate_config_types(data: dict, path: str) -> None:
+    """Reject wrong-typed config values with a CLIError: set_defaults()
+    bypasses argparse's type conversion, so raw JSON types would flow into
+    the run otherwise."""
+    def fail(key, expected):
+        raise CLIError(
+            f"config file {path}: {key!r} must be {expected}, "
+            f"got {type(data[key]).__name__}"
+        )
+
+    for key in ("models", "judge", "system", "data_dir"):
+        if key in data and not isinstance(data[key], str):
+            fail(key, "a string")
+    for key in ("timeout", "max_tokens"):
+        if key in data and (
+            isinstance(data[key], bool) or not isinstance(data[key], (int, float))
+        ):
+            fail(key, "a number")
+    if "rounds" in data and (
+        isinstance(data["rounds"], bool) or not isinstance(data["rounds"], int)
+    ):
+        fail("rounds", "an integer")
+    if "confidence" in data and not isinstance(data["confidence"], bool):
+        fail("confidence", "a boolean")
+    aliases = data.get("aliases")
+    if aliases is not None:
+        if not isinstance(aliases, dict) or not all(
+            isinstance(k, str) and isinstance(v, str) for k, v in aliases.items()
+        ):
+            raise CLIError(
+                f"config file {path}: 'aliases' must map alias names to "
+                f"comma-separated model strings"
+            )
+
+
+def expand_aliases(models: list[str], aliases: dict) -> list[str]:
+    """``@alias`` entries → their comma-separated model lists. Duplicates
+    are kept: an explicit repeated model means two queries, and alias
+    overlap follows the same rule."""
+    out: list[str] = []
+    for m in models:
+        if m.startswith("@"):
+            if m not in aliases:
+                raise CLIError(
+                    f"unknown model alias {m!r}; defined: {sorted(aliases)}"
+                )
+            out.extend(x.strip() for x in aliases[m].split(",") if x.strip())
+        else:
+            out.append(m)
+    return out
+
+
+# Flags that would change a resumed run's identity, which its manifest
+# fixes; checked against argv, so config-file defaults never clash.
+_IDENTITY_FLAGS = (
+    "--models", "-models", "--judge", "-judge", "--system",
+    "-system", "--system-file", "-system-file", "--max-tokens",
+    "-max-tokens", "--vote", "-vote", "--options", "-options",
+    "--rounds", "-rounds", "--confidence", "-confidence",
+)
+
+
+def parse_args(argv: list[str], stdin: Optional[TextIO],
+               stdout: TextIO) -> Optional[Config]:
+    """Parse flags; returns None when ``--version`` was handled."""
     parser = argparse.ArgumentParser(
         prog="llm-consensus-torch",
         description="Query multiple on-device LLMs in parallel and synthesize a "
                     "consensus answer (PyTorch/CUDA port).",
     )
     parser.add_argument("--models", "-models", default="", metavar="LIST",
-                        help="Comma-separated list of gpu:<preset> models to query (required)")
+                        help="Comma-separated list of gpu:<preset> models (or @aliases "
+                             "of the config file) to query (required)")
     parser.add_argument("--judge", "-judge", default=DEFAULT_JUDGE,
                         help="Model to use for consensus synthesis")
     parser.add_argument("--file", "-file", default="", help="Read prompt from file")
@@ -172,12 +319,6 @@ def parse_args(argv: list[str], stdin: Optional[TextIO]) -> Config:
                         help="Per-model timeout in seconds")
     parser.add_argument("--max-tokens", "-max-tokens", type=int, default=None,
                         help="Max new tokens generated per model")
-    parser.add_argument("--quiet", "-quiet", "-q", action="store_true",
-                        help="Suppress progress output")
-    parser.add_argument("--json", "-json", action="store_true",
-                        help="Output JSON to stdout (no interactive display, no auto-save)")
-    parser.add_argument("--no-save", "-no-save", action="store_true",
-                        help="Don't auto-save results to data directory")
     parser.add_argument("--trace", "-trace", default="", metavar="DIR",
                         help="Write a torch.profiler trace of the run to DIR")
     parser.add_argument("--events", "-events", action="store_true",
@@ -190,13 +331,92 @@ def parse_args(argv: list[str], stdin: Optional[TextIO]) -> Config:
                              "around the run, capped at LLMC_PROFILE_MAX_S and closed "
                              "when the run finishes. Unlike --trace it is rate-limited "
                              "and lands in an atomic artifact dir under LLMC_PROFILE_DIR")
+    parser.add_argument("--rounds", "-rounds", type=int, default=1,
+                        help="Consensus rounds: after each synthesis the panel "
+                             "critiques the draft and the judge refines it")
+    parser.add_argument("--vote", "-vote", action="store_true",
+                        help="Voting mode: panel picks one of --options; no judge")
+    parser.add_argument("--options", "-options", default="", metavar="LIST",
+                        help="Comma-separated options for --vote")
+    parser.add_argument("--continue", "-continue", dest="continue_run",
+                        default="", metavar="RUN_ID",
+                        help="Continue the conversation from a saved run in --data-dir")
+    parser.add_argument("--resume", "-resume", default="", metavar="RUN_ID",
+                        help="Finish a crashed run in --data-dir: reuse the panel "
+                             "answers its journal already completed "
+                             "(data/<run-id>/panel/), rerun only the missing/failed "
+                             "models, then the judge")
+    parser.add_argument("--system", "-system", default="",
+                        help="System prompt for every panel model")
+    parser.add_argument("--system-file", "-system-file", default="", metavar="PATH",
+                        help="Read the system prompt from a file")
+    parser.add_argument("--interactive", "-interactive", "-i", action="store_true",
+                        help="REPL mode: one consensus query per line, conversation "
+                             "carried across queries")
+    parser.add_argument("--confidence", "-confidence", action="store_true",
+                        help="After synthesis, the judge grades its confidence in the "
+                             "consensus (0-100) and lists controversy points")
+    parser.add_argument("--quiet", "-quiet", "-q", action="store_true",
+                        help="Suppress progress output")
+    parser.add_argument("--json", "-json", action="store_true",
+                        help="Output JSON to stdout (no interactive display, no auto-save)")
+    parser.add_argument("--no-save", "-no-save", action="store_true",
+                        help="Don't auto-save results to data directory")
+    parser.add_argument("--version", "-version", action="store_true",
+                        help="Print version information and exit")
     parser.add_argument("prompt", nargs="*", help="The prompt (or use --file / stdin)")
+
+    # Config-file values become flag defaults, so explicit flags win: CLI >
+    # config file > built-in default. --version and --help work even with
+    # a broken config file, so those invocations skip it.
+    skip_config = any(a in ("--version", "-version", "--help", "-h") for a in argv)
+    config, _config_path = ({}, "") if skip_config else load_config_file()
+    flag_defaults = {k: v for k, v in config.items() if k in _CONFIG_FLAG_KEYS}
+    if flag_defaults:
+        parser.set_defaults(**flag_defaults)
+
     ns = parser.parse_args(argv)
-    if not ns.models:
+
+    if ns.version:
+        stdout.write(version_string(parser.prog) + "\n")
+        return None
+
+    if not ns.models and not ns.resume:
         raise CLIError("--models flag is required")
+
+    options = [o.strip() for o in ns.options.split(",") if o.strip()]
+    if ns.vote and len(options) < 2:
+        raise CLIError("--vote requires --options with at least two choices")
+    if options and not ns.vote:
+        raise CLIError("--options only applies with --vote")
+    if ns.rounds < 1:
+        raise CLIError("--rounds must be >= 1")
+    if ns.vote and ns.rounds != 1:
+        raise CLIError("--vote and --rounds are mutually exclusive")
+    if ns.vote and ns.confidence:
+        raise CLIError(
+            "--vote and --confidence are mutually exclusive (voting mode "
+            "has no judge to grade the consensus)"
+        )
+
+    system = ns.system
+    if ns.system_file:
+        if system:
+            raise CLIError("--system and --system-file are mutually exclusive")
+        try:
+            with open(ns.system_file, "r", encoding="utf-8") as f:
+                system = f.read().strip()
+        except OSError as err:
+            raise CLIError(f"reading system prompt file: {err}") from err
+
+    aliases = config.get("aliases", {}) or {}
+    models = expand_aliases([m.strip() for m in ns.models.split(",") if m.strip()], aliases)
+    judge_list = expand_aliases([ns.judge], aliases)
+    if len(judge_list) != 1:
+        raise CLIError(f"--judge must resolve to exactly one model, got {judge_list}")
     cfg = Config(
-        models=[m.strip() for m in ns.models.split(",") if m.strip()],
-        judge=ns.judge,
+        models=models,
+        judge=judge_list[0],
         file=ns.file,
         output=ns.output,
         data_dir=ns.data_dir,
@@ -208,29 +428,80 @@ def parse_args(argv: list[str], stdin: Optional[TextIO]) -> Config:
         trace=ns.trace,
         events=ns.events,
         profile=ns.profile,
+        rounds=ns.rounds,
+        vote=ns.vote,
+        options=options,
+        continue_run=ns.continue_run,
+        system=system,
+        interactive=ns.interactive,
+        confidence=ns.confidence,
     )
+    if ns.resume:
+        # A resumed run's identity (prompt, panel, judge, settings) comes
+        # from its manifest; flags that would change it, or disable the
+        # persistence the resume writes into, contradict it.
+        if ns.prompt or ns.file:
+            raise CLIError("--resume takes the prompt from the saved run")
+        if ns.interactive:
+            raise CLIError("--resume and --interactive are incompatible")
+        if ns.continue_run:
+            raise CLIError("--resume and --continue are incompatible")
+        if ns.output or ns.json or ns.no_save:
+            raise CLIError(
+                "--resume writes into the saved run directory; it is "
+                "incompatible with --output/--json/--no-save"
+            )
+        clashing = sorted({
+            f for f in _IDENTITY_FLAGS for a in argv if a == f or a.startswith(f + "=")
+        })
+        if clashing:
+            raise CLIError(
+                f"--resume takes {', '.join(clashing)} from the saved "
+                "run's manifest; drop the flag(s) or start a fresh run"
+            )
+        cfg.resume = ns.resume
+        return cfg
+    if ns.interactive:
+        if ns.prompt:
+            raise CLIError("--interactive takes queries from stdin, not arguments")
+        if ns.file:
+            raise CLIError("--interactive takes queries from stdin, not --file")
+        if ns.output:
+            raise CLIError(
+                "--interactive and --output are incompatible (each query "
+                "would overwrite the file); use the auto-saved run dirs"
+            )
+        return cfg
     cfg.prompt = get_prompt(ns.prompt, ns.file, stdin)
     return cfg
 
 
-class _Progress:
-    """Plain progress lines on stderr (only when it is a terminal)."""
+def load_history(data_dir: str, run_id: str) -> list[dict]:
+    """Conversation history for ``--continue``: the saved run's history
+    plus its own exchange, oldest first."""
+    path = os.path.join(data_dir, run_id, "result.json")
+    try:
+        with open(path, "r", encoding="utf-8") as f:
+            data = json.load(f)
+    except (OSError, ValueError) as err:
+        raise CLIError(f"loading run {run_id!r}: {err}") from err
+    if not isinstance(data, dict) or "prompt" not in data or "consensus" not in data:
+        raise CLIError(f"run {run_id!r} has no usable result.json")
+    history = [
+        h for h in data.get("history", [])
+        if isinstance(h, dict) and "prompt" in h and "consensus" in h
+    ]
+    history.append({"prompt": data["prompt"], "consensus": data["consensus"]})
+    return history
 
-    def __init__(self, stream: TextIO, enabled: bool) -> None:
-        self._stream = stream
-        self._enabled = enabled
 
-    def line(self, text: str) -> None:
-        if self._enabled:
-            self._stream.write(text + "\n")
-            self._stream.flush()
-
-    def callbacks(self) -> Callbacks:
-        return Callbacks(
-            on_model_start=lambda m: self.line(f"  … {m}"),
-            on_model_complete=lambda m: self.line(f"  ✓ {m}"),
-            on_model_error=lambda m, err: self.line(f"  ✗ {m}: {err}"),
-        )
+def render_conversation(history: list[dict], prompt: str) -> str:
+    """Fold earlier exchanges into the prompt the models see."""
+    parts = ["Earlier exchanges in this conversation:"]
+    for h in history:
+        parts.append(f"\n[User]\n{h['prompt']}\n\n[Answer]\n{h['consensus']}")
+    parts.append(f"\nCurrent follow-up prompt:\n{prompt}")
+    return "\n".join(parts)
 
 
 def _slug(model: str) -> str:
@@ -238,30 +509,84 @@ def _slug(model: str) -> str:
     return "".join(c if c.isalnum() or c in "-_." else "_" for c in model)
 
 
-def write_run_manifest(run_dir: str, cfg: Config, warn=None) -> None:
-    """The run's identity in ``run.json``, written before the fan-out: the
-    JAX manifest's keys, the flags the port lacks at the values the JAX
-    CLI writes without them."""
+def write_run_manifest(run_dir: str, cfg: Config, history: list[dict], warn=None) -> None:
+    """The run's identity in ``run.json``, written before the fan-out, so a
+    crashed process leaves enough for ``--resume`` to finish the run:
+    prompt, panel, judge and every setting that changes what the models
+    see."""
     manifest = {
         "prompt": cfg.prompt,
         "models": list(cfg.models),
         "judge": cfg.judge,
-        "system": "",
+        "system": cfg.system,
         "max_tokens": cfg.max_tokens,
         "timeout": cfg.timeout,
-        "rounds": 1,
-        "vote": False,
-        "options": [],
-        "confidence": False,
-        "history": [],
+        "rounds": cfg.rounds,
+        "vote": cfg.vote,
+        "options": list(cfg.options),
+        "confidence": cfg.confidence,
+        "history": history,
     }
     save_file(run_dir, "run.json", json.dumps(manifest, indent=2), warn=warn)
+
+
+def load_resume_manifest(data_dir: str, run_id: str) -> dict:
+    """The saved run's manifest, or a CLIError that says what is wrong."""
+    run_dir = os.path.join(data_dir, run_id)
+    path = os.path.join(run_dir, "run.json")
+    if os.path.exists(os.path.join(run_dir, "result.json")):
+        raise CLIError(
+            f"run {run_id!r} already completed (result.json exists); "
+            "use --continue to build on it"
+        )
+    try:
+        with open(path, "r", encoding="utf-8") as f:
+            manifest = json.load(f)
+    except (OSError, ValueError) as err:
+        raise CLIError(
+            f"resuming run {run_id!r}: no usable run.json ({err}); only "
+            "runs started by this version journal their manifest"
+        ) from err
+    if not isinstance(manifest, dict) or not manifest.get("models"):
+        raise CLIError(f"resuming run {run_id!r}: run.json has no panel")
+    return manifest
+
+
+def load_panel_journal(run_dir: str) -> list[Response]:
+    """Completed panel answers journaled under ``<run_dir>/panel/``, in
+    journal order. Torn or unparseable files are skipped: their models
+    rerun, which is the safe direction."""
+    panel_dir = os.path.join(run_dir, "panel")
+    if not os.path.isdir(panel_dir):
+        return []
+    out = []
+    for name in sorted(os.listdir(panel_dir)):
+        if not name.endswith(".json"):
+            continue
+        try:
+            with open(os.path.join(panel_dir, name), encoding="utf-8") as f:
+                doc = json.load(f)
+            out.append(Response(
+                model=doc["model"],
+                content=doc["content"],
+                provider=doc.get("provider", ""),
+                latency_ms=doc.get("latency_ms", 0.0),
+                truncated=doc.get("truncated", False),
+                tokens=doc.get("tokens"),
+                tokens_per_sec=doc.get("tokens_per_sec"),
+                mfu=doc.get("mfu"),
+                mbu=doc.get("mbu"),
+            ))
+        except (OSError, ValueError, KeyError, TypeError):
+            continue
+    return out
 
 
 def panel_journal(run_dir: str, warn=None) -> Callable[[Response], None]:
     """The hook that writes each panel answer into
     ``<run_dir>/panel/NNN-<slug>.json`` (atomic ``save_file``), numbering
-    past the highest file already there."""
+    past the highest file already there: a torn file keeps its index, and
+    a resumed rerun never overwrites the journal it reuses."""
     panel_dir = os.path.join(run_dir, "panel")
     lock = threading.Lock()
     nxt = 0
@@ -324,14 +649,39 @@ def install_planes(events: bool, stderr: TextIO) -> None:
 
 
 def run(cfg: Config, ctx: Context, *, factory: ProviderFactory, stdout: TextIO,
-        stderr: TextIO) -> Optional[Result]:
-    """One consensus run with the telemetry planes installed; ``--trace``
-    wraps it in a ``torch.profiler`` trace, ``--profile`` in one bounded
-    deep-profiler window."""
+        stderr: TextIO, stdin: Optional[TextIO] = None) -> None:
+    """One consensus run, or an interactive session of them, with the
+    telemetry planes installed once; ``--trace`` wraps it in a
+    ``torch.profiler`` trace, ``--profile`` in one bounded deep-profiler
+    window."""
     install_planes(cfg.events, stderr)
+    # A resumed run's identity comes from the saved manifest, applied
+    # before any provider exists.
+    resume_manifest = None
+    if cfg.resume:
+        resume_manifest = manifest = load_resume_manifest(cfg.data_dir, cfg.resume)
+        cfg = replace(
+            cfg,
+            prompt=manifest.get("prompt", ""),
+            models=list(manifest["models"]),
+            judge=manifest.get("judge") or cfg.judge,
+            system=manifest.get("system") or "",
+            max_tokens=manifest.get("max_tokens"),
+            timeout=float(manifest.get("timeout") or cfg.timeout),
+            rounds=int(manifest.get("rounds") or 1),
+            vote=bool(manifest.get("vote", False)),
+            options=list(manifest.get("options") or []),
+            confidence=bool(manifest.get("confidence", False)),
+        )
 
-    def body() -> Result:
-        return _run(cfg, ctx, factory=factory, stdout=stdout, stderr=stderr)
+    def body() -> None:
+        if cfg.interactive:
+            interactive_loop(cfg, ctx, factory=factory,
+                             stdin=stdin if stdin is not None else sys.stdin,
+                             stdout=stdout, stderr=stderr)
+        else:
+            _run(cfg, ctx, factory=factory, stdout=stdout, stderr=stderr,
+                 resume_manifest=resume_manifest)
 
     if cfg.trace:
         from llm_consensus_tpu_torch.obs.profiler import trace_window
@@ -377,13 +727,16 @@ def _close_expired_profile() -> None:
 
 
 def _run(cfg: Config, ctx: Context, *, factory: ProviderFactory, stdout: TextIO,
-         stderr: TextIO) -> Result:
-    """One consensus run: fan-out, judge synthesis, persistence, output."""
-    show_ui = _is_terminal(stderr) and not cfg.quiet and not cfg.json
-    progress = _Progress(stderr, show_ui)
+         stderr: TextIO, history: Optional[list[dict]] = None,
+         resume_manifest: Optional[dict] = None) -> Result:
+    """One consensus run: fan-out, judge synthesis (or the vote tally),
+    refinement rounds, confidence grading, persistence, output."""
+    show_ui = ui.is_terminal(stderr) and not cfg.quiet and not cfg.json
     start_time = time.monotonic()
-    # Per-run telemetry reset at entry; the process-lifetime planes get
-    # watermarks, so a run that moved none of them writes no metrics.json.
+    # Per-run telemetry reset at entry (an interactive session calls _run
+    # once per query and keeps going after a failed one); the
+    # process-lifetime planes get watermarks, so a run that moved none of
+    # them writes no metrics.json.
     recorder = obs.recorder()
     if recorder is not None:
         recorder.clear()
@@ -392,60 +745,121 @@ def _run(cfg: Config, ctx: Context, *, factory: ProviderFactory, stdout: TextIO,
     live0 = live_plane.counts() if live_plane is not None else 0
     attrib0 = attrib_led.activity() if attrib_led is not None else 0
     roofline0 = roofline_led.activity() if roofline_led is not None else 0
-    registry = init_registry(cfg.models, cfg.judge, factory)
+
+    # --resume: the crashed run's directory, its conversation history, and
+    # the panel answers its journal already holds; their models do not
+    # rerun.
+    resume_dir = ""
+    completed: list[Response] = []
+    if cfg.resume:
+        resume_dir = os.path.join(cfg.data_dir, cfg.resume)
+        manifest = (resume_manifest if resume_manifest is not None
+                    else load_resume_manifest(cfg.data_dir, cfg.resume))
+        history = [h for h in manifest.get("history", [])
+                   if isinstance(h, dict) and "prompt" in h and "consensus" in h]
+        completed = load_panel_journal(resume_dir)
+
+    # Conversation context, from the interactive session or --continue's
+    # saved run (loaded first, so a bad run-id fails before any provider
+    # exists). Panel and judge see the folded prompt; Result.prompt and
+    # prompt.txt keep the raw follow-up.
+    if history is None:
+        history = load_history(cfg.data_dir, cfg.continue_run) if cfg.continue_run else []
+    context_prompt = render_conversation(history, cfg.prompt) if history else cfg.prompt
+
+    # Voting mode never queries a judge: no judge provider, no judge engine.
+    judge = None if cfg.vote else cfg.judge
+    registry = init_registry(cfg.models, judge, factory)
 
     # Announce the run before any query: the GPU provider builds its
     # kernels here, outside every model's deadline.
     seen: set = set()
-    for model in dict.fromkeys(cfg.models + [cfg.judge]):
+    for model in dict.fromkeys(cfg.models + ([judge] if judge else [])):
         provider = registry.get(model)
         if id(provider) in seen:
             continue
         seen.add(id(provider))
         try:
-            provider.prepare(cfg.models, cfg.judge)
+            provider.prepare(cfg.models, judge)
         except Exception as err:  # noqa: BLE001 — reported as a CLI error
             raise CLIError(f"preparing provider: {err}") from err
 
-    # The run directory and its manifest before the fan-out; each panel
-    # answer is journaled into it as it lands.
-    warn = progress.line if show_ui else None
-    run_dir = ""
-    if not cfg.output and not cfg.json and not cfg.no_save:
+    # The run directory and its manifest before the fan-out (a resumed run
+    # writes into its own); each panel answer is journaled as it lands.
+    warn = (lambda msg: ui.print_error(stderr, msg)) if show_ui else None
+    run_dir = resume_dir
+    if not run_dir and not cfg.output and not cfg.json and not cfg.no_save:
         try:
             _run_id, run_dir = reserve_run_dir(cfg.data_dir)
         except OSError as err:
             raise CLIError(f"creating run directory: {err}") from err
-        write_run_manifest(run_dir, cfg, warn=warn)
+        write_run_manifest(run_dir, cfg, history, warn=warn)
 
-    progress.line("Querying models...")
-    runner = Runner(registry, cfg.timeout, max_tokens=cfg.max_tokens)
-    callbacks = progress.callbacks()
-    if run_dir:
-        callbacks.on_model_response = panel_journal(run_dir, warn=warn)
-    runner.with_callbacks(callbacks)
+    if show_ui:
+        ui.print_header(stderr, cfg.prompt)
+        ui.print_phase(stderr, "Querying models...")
+        stderr.write("\n")
+
+    # A resumed run queries only the models whose answers are not in the
+    # journal (duplicates consume one journaled answer each).
+    models_to_run = list(cfg.models)
+    for resp in completed:
+        if resp.model in models_to_run:
+            models_to_run.remove(resp.model)
+    if cfg.resume and show_ui:
+        ui.print_phase(stderr, f"Resuming {cfg.resume}: reusing {len(completed)} journaled "
+                               f"answers, rerunning {len(models_to_run)} models")
+
+    progress = ui.Progress(stderr, models_to_run, quiet=not show_ui)
+    progress.start()
+    runner = Runner(registry, cfg.timeout, max_tokens=cfg.max_tokens,
+                    system=cfg.system or None)
+    runner.with_callbacks(Callbacks(
+        on_model_start=progress.model_started,
+        on_model_stream=progress.model_streaming,
+        on_model_complete=progress.model_completed,
+        on_model_error=progress.model_failed,
+        on_model_response=panel_journal(run_dir, warn=warn) if run_dir else None,
+    ))
+    panel_prompt = render_vote_prompt(context_prompt, cfg.options) if cfg.vote else context_prompt
     try:
-        result = runner.run(ctx, cfg.models, cfg.prompt)
+        # Every panel answer may come from the journal: nothing to rerun.
+        result = runner.run(ctx, models_to_run, panel_prompt) if models_to_run else RunResult()
     except AllModelsFailed as err:
+        if not completed:
+            raise CLIError(f"running queries: {err}") from err
+        # The rerun wiped out, but journaled answers carry the run: the
+        # best-effort rule of a partial panel failure.
+        result = RunResult(warnings=[f"resumed rerun failed: {err}"],
+                           failed_models=list(dict.fromkeys(models_to_run)))
+    except Exception as err:  # noqa: BLE001 — reported as a CLI error
         raise CLIError(f"running queries: {err}") from err
+    finally:
+        progress.stop()
+    result.responses[:0] = completed
     _close_expired_profile()
-    agreement = score_agreement(result.responses)
-    progress.line(f"Received responses from {len(result.responses)} models")
-    if agreement is not None:
-        progress.line(f"Panel agreement: {agreement.level} ({agreement.score:.2f})")
 
-    progress.line("Synthesizing consensus...")
-    try:
-        judge_provider = registry.get(cfg.judge)
-    except Exception as err:  # noqa: BLE001
-        raise CLIError(f"judge model {cfg.judge}: {err}") from err
-    judge = Judge(judge_provider, cfg.judge, max_tokens=cfg.max_tokens)
-    try:
-        consensus = judge.synthesize_stream(ctx, cfg.prompt, result.responses, None)
-    except Exception as err:  # noqa: BLE001
-        raise CLIError(f"consensus synthesis: {err}") from err
-    if judge.last_truncated:
-        result.warnings.append(f"{cfg.judge}: judge prompt truncated to fit context window")
+    agreement = score_agreement(result.responses)
+    if show_ui:
+        ui.print_success(stderr, f"Received responses from {len(result.responses)} models")
+        if agreement is not None:
+            ui.print_phase(stderr, f"Panel agreement: {agreement.level} ({agreement.score:.2f})")
+        stderr.write("\n")
+
+    confidence = None
+    if cfg.vote:
+        # Voting mode: the host tallies the panel's votes; no judge.
+        vote = tally_votes(result.responses, cfg.options)
+        consensus = vote.summary()
+        judge_name = "vote"
+        for m in vote.unparsed:
+            result.warnings.append(f"{m}: no recognizable vote in response")
+        if show_ui:
+            ui.print_success(stderr, "Votes tallied!")
+    else:
+        consensus, confidence = _synthesize_rounds(
+            cfg, ctx, registry, runner, result, context_prompt, show_ui, stderr)
+        judge_name = cfg.judge
     _close_expired_profile()
 
     # Run telemetry rides the auto-saved run directory; a recorded run
@@ -485,12 +899,17 @@ def _run(cfg: Config, ctx: Context, *, factory: ProviderFactory, stdout: TextIO,
         prompt=cfg.prompt,
         responses=result.responses,
         consensus=consensus,
-        judge=cfg.judge,
+        judge=judge_name,
         warnings=result.warnings,
         failed_models=result.failed_models,
+        history=history,
         agreement=agreement.to_dict() if agreement else None,
+        confidence=confidence,
     )
 
+    # Output routing: --output file, else the run directory's result.json,
+    # else --json stdout, else pretty TTY, else JSON stdout. result.json is
+    # written last and atomically: its existence marks the run complete.
     output_path = cfg.output
     if not output_path and run_dir:
         try:
@@ -507,53 +926,224 @@ def _run(cfg: Config, ctx: Context, *, factory: ProviderFactory, stdout: TextIO,
         )
         if written is None:
             raise CLIError("creating output file: " + (errors[0] if errors else output_path))
-        progress.line(f"Run saved to {os.path.dirname(output_path) or '.'}")
+        if show_ui:
+            stderr.write("\n")
+            ui.print_success(stderr, f"Run saved to {os.path.dirname(output_path) or '.'}")
     elif cfg.json:
         stdout.write(out.to_json())
     elif show_ui:
+        stderr.write("\n")
         for resp in result.responses:
-            stderr.write(f"\n--- {resp.model} ({resp.latency_ms:.0f} ms) ---\n{resp.content}\n")
-        stderr.write(f"\n=== Consensus ===\n{consensus}\n")
-        stderr.write(
-            f"\n{len(result.responses)}/{len(cfg.models)} models responded, "
-            f"{len(result.failed_models)} failed, {time.monotonic() - start_time:.1f}s\n"
-        )
-        print_throughput(stderr, result.responses)
+            ui.print_model_response(stderr, resp.model, resp.provider, resp.content,
+                                    resp.latency_ms)
+        ui.print_consensus(stderr, consensus)
+        ui.print_summary(stderr, len(cfg.models), len(result.responses),
+                         len(result.failed_models), time.monotonic() - start_time)
+        ui.print_throughput(stderr, result.responses)
         if recorder is not None:
-            print_aggregate(stderr, obs_export.aggregate_throughput(recorder))
-        for w in result.warnings:
-            stderr.write(f"warning: {w}\n")
+            ui.print_aggregate(stderr, obs_export.aggregate_throughput(recorder))
+        if result.warnings:
+            stderr.write("\n")
+            for w in result.warnings:
+                ui.print_error(stderr, w)
     else:
         stdout.write(out.to_json())
     return out
 
 
-def print_throughput(w: TextIO, responses) -> None:
-    """One line per response with decode measurements: tokens, steady
-    decode tokens/s, MBU and MFU where the card's peaks are known; nothing
-    when no response has them."""
-    stats = [r for r in responses if r.tokens_per_sec]
-    if not stats:
-        return
-    w.write("\n─── Throughput (on-device) ───\n")
-    for r in stats:
-        line = f"{r.model}: {r.tokens} tokens, {r.tokens_per_sec:.1f} tok/s"
-        if r.mbu is not None:
-            line += f", {r.mbu * 100:.0f}% MBU"
-        if r.mfu is not None:
-            line += f", {r.mfu * 100:.1f}% MFU"
-        w.write(line + "\n")
+def _synthesize_rounds(cfg: Config, ctx: Context, registry: Registry, runner: Runner,
+                       result: RunResult, context_prompt: str, show_ui: bool,
+                       stderr: TextIO) -> tuple[str, Optional[dict]]:
+    """The judge's synthesis of round 1, then each refinement round (panel
+    critique, judge refine), then the confidence grading. A failed later
+    round or grading is a warning in ``result`` and the run keeps the last
+    good consensus. Returns (consensus, confidence or None)."""
+    if show_ui:
+        ui.print_phase(stderr, "Synthesizing consensus...")
+        stderr.write("\n")
+    try:
+        judge_provider = registry.get(cfg.judge)
+    except Exception as err:  # noqa: BLE001
+        raise CLIError(f"judge model {cfg.judge}: {err}") from err
+    judge = Judge(judge_provider, cfg.judge, max_tokens=cfg.max_tokens)
+
+    def synthesize(user_prompt: str, responses) -> str:
+        judge_progress = ui.Progress(stderr, [cfg.judge], quiet=not show_ui)
+        judge_progress.start()
+        judge_progress.model_started(cfg.judge)
+        try:
+            text = judge.synthesize_stream(
+                ctx, user_prompt, responses,
+                lambda chunk: judge_progress.model_streaming(cfg.judge, chunk))
+        except Exception as err:  # noqa: BLE001
+            judge_progress.stop()
+            raise CLIError(f"consensus synthesis: {err}") from err
+        judge_progress.model_completed(cfg.judge)
+        judge_progress.stop()
+        if judge.last_truncated:
+            result.warnings.append(f"{cfg.judge}: judge prompt truncated to fit context window")
+        return text
+
+    consensus = synthesize(context_prompt, result.responses)
+    _close_expired_profile()
+
+    # Refinement rounds: the panel critiques the draft, the judge refines.
+    # Critiques are intermediate: the result keeps round 1's answers.
+    for round_no in range(2, cfg.rounds + 1):
+        if show_ui:
+            stderr.write("\n")
+            ui.print_phase(stderr, f"Round {round_no}: panel critique...")
+            stderr.write("\n")
+        round_progress = ui.Progress(stderr, cfg.models, quiet=not show_ui)
+        round_progress.start()
+        runner.with_callbacks(Callbacks(
+            on_model_start=round_progress.model_started,
+            on_model_stream=round_progress.model_streaming,
+            on_model_complete=round_progress.model_completed,
+            on_model_error=round_progress.model_failed,
+        ))
+        try:
+            critique = runner.run(ctx, cfg.models,
+                                  render_critique_prompt(context_prompt, consensus))
+        except Exception as err:  # noqa: BLE001 — a failed round is a warning
+            round_progress.stop()
+            result.warnings.append(f"round {round_no} critique failed, keeping round "
+                                   f"{round_no - 1} consensus: {err}")
+            break
+        round_progress.stop()
+        result.warnings.extend(f"round {round_no}: {w}" for w in critique.warnings)
+        if show_ui:
+            stderr.write("\n")
+            ui.print_phase(stderr, f"Round {round_no}: refining consensus...")
+            stderr.write("\n")
+        try:
+            consensus = synthesize(render_refine_prompt(context_prompt, consensus),
+                                   critique.responses)
+        except CLIError as err:
+            result.warnings.append(f"round {round_no} synthesis failed, keeping round "
+                                   f"{round_no - 1} consensus: {err}")
+            break
+        _close_expired_profile()
+
+    if show_ui:
+        ui.print_success(stderr, "Consensus reached!")
+    if not cfg.confidence:
+        return consensus, None
+    # Judge-graded confidence: one more judge query; a failed or
+    # unparseable grading is a warning, never a failed run.
+    if show_ui:
+        stderr.write("\n")
+        ui.print_phase(stderr, "Grading confidence...")
+    try:
+        graded = grade_confidence(ctx, judge_provider, cfg.judge, context_prompt,
+                                  result.responses, consensus, max_tokens=cfg.max_tokens)
+    except Exception as err:  # noqa: BLE001
+        result.warnings.append(f"confidence grading failed: {err}")
+        return consensus, None
+    if graded.score is None:
+        result.warnings.append("confidence grading returned an unparseable reply")
+        return consensus, None
+    if show_ui:
+        ui.print_success(stderr, f"Judge confidence: {graded.score}/100")
+        for point in graded.controversy:
+            stderr.write(f"  • {point}\n")
+    return consensus, graded.to_dict()
 
 
-def print_aggregate(w: TextIO, aggregate: Optional[dict]) -> None:
-    """The pool-wide line from the recorder's aggregate (tokens over the
-    union of the run's decode window, the token-weighted MFU)."""
-    if not aggregate or not aggregate.get("tokens") or not aggregate.get("tokens_per_sec"):
+def interactive_loop(cfg: Config, ctx: Context, *, factory: ProviderFactory, stdin: TextIO,
+                     stdout: TextIO, stderr: TextIO) -> None:
+    """REPL over warm providers: each line is a consensus run, and the
+    conversation accumulates across them (the folding of --continue).
+    Commands:
+
+      /models            show the panel
+      /models +m / -m    add / remove a model (never the last one)
+      /judge m           change the judge
+      /reset             clear the conversation history
+      /exit, /quit       leave
+    """
+    tty = ui.is_terminal(stderr)
+    history: list[dict] = []
+    if cfg.continue_run:
+        history = load_history(cfg.data_dir, cfg.continue_run)
+    if tty:
+        stderr.write("Interactive mode: type a prompt, /models [+m|-m], /judge m, /reset, /exit\n")
+
+    # While idle at the prompt a plain ctx.cancel() cannot unblock readline
+    # (Python retries it after EINTR), so for the session's lifetime SIGINT
+    # also raises KeyboardInterrupt, which ends the session. Installed only
+    # on the main thread.
+    prev_handler = None
+    try:
+        def _sigint(*_):
+            ctx.cancel()
+            raise KeyboardInterrupt
+
+        prev_handler = signal.signal(signal.SIGINT, _sigint)
+    except ValueError:
+        prev_handler = None  # not the main thread
+
+    try:
+        while True:
+            if ctx.done():
+                return
+            if tty:
+                stderr.write("> ")
+                stderr.flush()
+            line = stdin.readline()
+            if not line or ctx.done():
+                return  # EOF, or cancelled while blocked
+            line = line.strip()
+            if not line:
+                continue
+            cmd = line.split()[0]
+            if cmd in ("/exit", "/quit"):
+                return
+            if cmd == "/reset":
+                history = []
+                if tty:
+                    stderr.write("conversation cleared\n")
+                continue
+            if cmd == "/judge":
+                parts = line.split()
+                if len(parts) == 2:
+                    cfg.judge = parts[1]
+                stderr.write(f"judge: {cfg.judge}\n")
+                continue
+            if cmd == "/models":
+                for tok in line.split()[1:]:
+                    if tok.startswith("+"):
+                        if tok[1:] and tok[1:] not in cfg.models:
+                            cfg.models.append(tok[1:])
+                    elif tok.startswith("-"):
+                        if tok[1:] in cfg.models:
+                            if len(cfg.models) == 1:
+                                stderr.write("cannot remove the last panel model\n")
+                            else:
+                                cfg.models.remove(tok[1:])
+                stderr.write(f"models: {','.join(cfg.models)}\n")
+                continue
+            if cmd.startswith("/"):
+                stderr.write(f"unknown command {cmd!r}\n")
+                continue
+
+            query_cfg = replace(cfg, prompt=line, continue_run="")
+            try:
+                out = _run(query_cfg, ctx, factory=factory, stdout=stdout, stderr=stderr,
+                           history=list(history))
+            except CLIError as err:
+                # One failed query does not end the session.
+                stderr.write(f"error: {err}\n")
+                continue
+            history.append({"prompt": line, "consensus": out.consensus})
+    except KeyboardInterrupt:
         return
-    line = f"Pool: {int(aggregate['tokens'])} tokens, {aggregate['tokens_per_sec']:.1f} tok/s"
-    if aggregate.get("mfu"):
-        line += f", {aggregate['mfu'] * 100:.1f}% MFU"
-    w.write(line + "\n")
+    finally:
+        if prev_handler is not None:
+            try:
+                signal.signal(signal.SIGINT, prev_handler)
+            except ValueError:
+                pass
 
 
 def main(
@@ -582,14 +1172,16 @@ def main(
             except ValueError:
                 break  # not the main thread
     try:
-        cfg = parse_args(argv, stdin)
+        cfg = parse_args(argv, stdin, stdout)
+        if cfg is None:
+            return 0
         if factory is None:
             dev = resolve_device(device)
 
             def factory(model: str) -> Provider:
                 return create_provider(model, dev)
 
-        run(cfg, ctx, factory=factory, stdout=stdout, stderr=stderr)
+        run(cfg, ctx, factory=factory, stdout=stdout, stderr=stderr, stdin=stdin)
     except CLIError as err:
         stderr.write(f"error: {err}\n")
         return 1

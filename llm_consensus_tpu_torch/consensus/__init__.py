@@ -1,6 +1,13 @@
 from llm_consensus_tpu_torch.consensus.agreement import Agreement, score_agreement
+from llm_consensus_tpu_torch.consensus.confidence import (
+    Confidence, grade_confidence, parse_confidence, render_confidence_prompt)
 from llm_consensus_tpu_torch.consensus.judge import (
-    Judge, NoResponsesError, render_judge_prompt, render_response_block)
+    Judge, NoResponsesError, render_critique_prompt, render_judge_prompt, render_refine_prompt,
+    render_response_block)
+from llm_consensus_tpu_torch.consensus.vote import (
+    VoteResult, parse_vote, render_vote_prompt, tally_votes)
 
-__all__ = ["Agreement", "Judge", "NoResponsesError", "render_judge_prompt",
-           "render_response_block", "score_agreement"]
+__all__ = ["Agreement", "Confidence", "Judge", "NoResponsesError", "VoteResult",
+           "grade_confidence", "parse_confidence", "parse_vote", "render_confidence_prompt",
+           "render_critique_prompt", "render_judge_prompt", "render_refine_prompt",
+           "render_response_block", "render_vote_prompt", "score_agreement", "tally_votes"]

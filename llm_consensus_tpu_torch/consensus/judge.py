@@ -8,6 +8,10 @@
   * Exactly one response → returned verbatim with no judge call, still
     invoking the stream callback once.
   * Otherwise a single streamed query against the judge's provider.
+
+The refinement rounds of ``--rounds`` use the critique prompt (the panel's)
+and the refine prompt (the judge's "user prompt"), both copies of the JAX
+package's, byte for byte.
 """
 
 from __future__ import annotations
@@ -52,6 +56,33 @@ Output requirements
 - Keep it coherent and non-redundant; use structure (headings, bullets, code
   blocks) when it serves the task.
 """
+
+
+CRITIQUE_PROMPT = """\
+{prompt}
+
+A draft answer to the prompt above is shown below. Critique it — identify
+errors, omissions, and concrete improvements — then provide your own
+corrected and improved answer.
+
+--- Draft answer ---
+{draft}
+"""
+
+
+def render_critique_prompt(prompt: str, draft: str) -> str:
+    """Panel prompt of a refinement round: the panel critiques the
+    previous synthesis."""
+    return CRITIQUE_PROMPT.format(prompt=prompt, draft=draft)
+
+
+def render_refine_prompt(prompt: str, draft: str) -> str:
+    """The "user prompt" a refinement round's judge sees: the original
+    prompt plus the draft under revision (the critiques arrive as the
+    panel responses through the normal judge template)."""
+    return (
+        f"{prompt}\n\n[Previous draft answer under revision]\n{draft}"
+    )
 
 
 def render_response_block(resp: Response) -> str:

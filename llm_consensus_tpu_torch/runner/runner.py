@@ -35,6 +35,8 @@ class Callbacks:
     """Progress hooks, all optional."""
 
     on_model_start: Optional[Callable[[str], None]] = None
+    # Each streamed chunk of a model's answer (the TTY progress display).
+    on_model_stream: Optional[Callable[[str, str], None]] = None
     on_model_complete: Optional[Callable[[str], None]] = None
     on_model_error: Optional[Callable[[str, Exception], None]] = None
     # The full response the moment its worker records it (the CLI's panel
@@ -147,6 +149,8 @@ class Runner:
                     # Streaming proves liveness to the watchdog.
                     with lock:
                         activity[wid] = time.monotonic()
+                    if cb.on_model_stream:
+                        cb.on_model_stream(model, chunk)
 
                 try:
                     resp = provider.query_stream(

@@ -1,6 +1,7 @@
-"""Environment knobs of the port, read at one boundary only: the CLI's
-provider factory (``cli/main.py``). Engines and providers take explicit
-arguments and read no environment.
+"""Environment knobs of the port, read at one boundary only: the CLI
+(``cli/main.py``: its provider factory, its telemetry planes and its
+config file). Engines and providers take explicit arguments and read no
+environment.
 
 The parsing is the JAX package's (``llm_consensus_tpu/utils/knobs.py``
 ``get_str``/``get_bool``): an unset or empty value means the default, and
@@ -31,7 +32,8 @@ knobs that the JAX package declares, with the same meaning:
     (default on), ``LLMC_BLACKBOX_EVENTS``, ``LLMC_BLACKBOX_DIR``,
     ``LLMC_BLACKBOX_MIN_INTERVAL_S``, ``LLMC_PROFILE`` (default on),
     ``LLMC_PROFILE_DIR``, ``LLMC_PROFILE_MAX_S``,
-    ``LLMC_PROFILE_MIN_INTERVAL_S``, with the JAX package's defaults.
+    ``LLMC_PROFILE_MIN_INTERVAL_S``, with the JAX package's defaults;
+  * ``LLMC_CONFIG``: the CLI's config file (:func:`config_file`).
 """
 
 from __future__ import annotations
@@ -146,3 +148,9 @@ def checkpoint_dir() -> dict:
     """The checkpoint directory of the environment, as the keyword argument
     of ``GPUProvider`` (None when unset)."""
     return {"checkpoint_dir": get_str("LLMC_CHECKPOINT_DIR") or None}
+
+
+def config_file() -> str:
+    """``LLMC_CONFIG``, the CLI's config file: ``"0"`` disables it, a path
+    overrides the search, unset (or empty) means search."""
+    return get_str("LLMC_CONFIG")

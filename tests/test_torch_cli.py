@@ -208,13 +208,17 @@ def test_panel_journal_numbers_past_existing_files_and_never_fails_a_model(tmp_p
     assert [r.model for r in result.responses] == ["ok"] and not result.failed_models
 
 
-def test_cli_prints_panel_agreement_on_a_terminal(tmp_path):
+def test_cli_prints_panel_agreement_on_a_terminal(tmp_path, monkeypatch):
     """On a terminal the phase lines include the JAX CLI's "Panel
     agreement" line; the run directory is journaled the same way."""
-    class Terminal(io.StringIO):
-        def isatty(self):
-            return True
+    from llm_consensus_tpu_torch import ui
 
+    class Terminal(io.StringIO):
+        pass
+
+    # The CLI's terminal test is ui.is_terminal (a character device, as in
+    # the JAX package's ui/); a StringIO stands in for one here.
+    monkeypatch.setattr(ui, "is_terminal", lambda f: isinstance(f, Terminal))
     answers = {"m:a": "the answer is forty two", "m:b": "the answer is 42"}
     reg = {m: ProviderFunc(lambda ctx, req: _resp(req.model, answers.get(req.model, "ok")))
            for m in (*answers, "m:judge")}
