@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phase mixtral   # build + the Mixtral phases only
     python3 chip_smoke.py --phase telemetry # build + the telemetry phase only
     python3 chip_smoke.py --phase modes     # build + the modes phase only
+    python3 chip_smoke.py --phase session   # build + the session phase only
 
 Phases, in order; any failure exits non-zero before the last line:
 
@@ -76,6 +77,26 @@ Phases, in order; any failure exits non-zero before the last line:
    each run's generates, the decode kernel's launches, flash launched
    exactly for the prompts that fit one prefill chunk, no warning but the
    ones random weights cause; a ``{"modes": ...}`` line;
+8c. the session phase (``--phase session``) over warm shared providers
+   (llama-3-8b and consensus-1b, bf16): (a) prefix snapshot reuse, the
+   1,501-token prompt and 48 tokens, then it with its answer and a
+   200-token follow-up, on an engine holding the snapshot and on a fresh
+   one (the reused tokens of the prefill span, at least 1,501; the
+   follow-up's prefill ms, CUDA events, median of 5; first-step logits
+   within BATCH_LOGIT_TOL; greedy tokens; peak memory with and without the
+   snapshot), then a full-prompt wave of 4 rows sharing 1,100 tokens with a
+   snapshot to fork and without; (b) the slice's CLI run with
+   ``--judge-overlap`` and without, in turns (on, off, off, on): wall, the
+   judge's time to first token after the panel's end, the session's
+   prefilled tokens, the judge prompt's tokens, no classic fallback; (c)
+   the provider's retry ladder on consensus-1b: an injected RuntimeError
+   (one eviction, one rebuild, the answer, peak memory under one more
+   engine's weights), an injected torch.cuda.OutOfMemoryError (rebuilt),
+   an injected KernelLaunchError (propagates, no rebuild); (d) a mixed panel
+   through the CLI: ``gpt-5.2-2025-12-11`` served by a local SSE mock on
+   127.0.0.1 (``OPENAI_BASE_URL``) beside ``gpu:consensus-1b``, the
+   llama-3-8b judge overlapped: exit 0, both answers, the JAX CLI's run
+   directory; a ``{"session": ...}`` line;
 9. the quantized slice: the same CLI run with ``LLMC_QUANT=int8
    LLMC_KV_QUANT=int8`` in the environment (int8 weights, int8 KV cache,
    the int8 decode kernel), then a profiler window over one of its
@@ -1125,10 +1146,11 @@ def run_slice(torch, counters: dict, env: dict, label: str,
     for resp in doc["responses"]:
         # Per-response rate over the whole request (prefill, queueing and
         # decode): the one rate both the batched and the single-stream path
-        # report.
-        e2e = resp["tokens"] / (resp["latency_ms"] / 1e3)
+        # report (a remote answer counts no tokens).
+        e2e = (f"{resp['tokens'] / (resp['latency_ms'] / 1e3):.2f}"
+               if resp.get("tokens") is not None else "n/a")
         log(f"  {resp['model']}: {resp.get('tokens')} tokens, latency "
-            f"{resp['latency_ms']:.1f} ms ({e2e:.2f} tokens/s over the request), decode "
+            f"{resp['latency_ms']:.1f} ms ({e2e} tokens/s over the request), decode "
             f"{resp.get('tokens_per_sec')} tok/s, mfu {resp.get('mfu')}, mbu {resp.get('mbu')}")
 
     provider = GPUProvider.shared(**modes)
@@ -1756,14 +1778,13 @@ PLANES_OFF = {"LLMC_LIVE": "0", "LLMC_ATTRIB": "0", "LLMC_ROOFLINE": "0", "LLMC_
 def measure_fresh_cli_walls() -> None:
     """The slice's CLI run, auto-saved as a user runs it, each time in a
     fresh process, with the planes on (the default) and off (every plane's
-    knob at 0), in turns (on, off, off, on, on, off): the process wall and
-    main()'s own wall. The planes-on runs write metrics.json, the others
-    do not."""
+    knob at 0), in turns (on, off, off, on): the process wall and main()'s
+    own wall. The planes-on runs write metrics.json, the others do not."""
     repo = os.path.dirname(os.path.abspath(__file__))
     base = {k: v for k, v in os.environ.items() if not k.startswith("LLMC_")}
     base["LLMC_CONFIG"] = "0"  # no ambient config file changes the slice
     walls: dict = {"on": [], "off": []}
-    for arm in ("on", "off", "off", "on", "on", "off"):
+    for arm in ("on", "off", "off", "on"):
         env = {**base, **(PLANES_OFF if arm == "off" else {})}
         with tempfile.TemporaryDirectory(prefix="chip-smoke-") as data_dir:
             argv = ["--models", "gpu:llama-3-8b,gpu:consensus-1b", "--judge", "gpu:llama-3-8b",
@@ -2279,6 +2300,417 @@ def run_modes(torch, fa, da, card: str) -> dict:
     return rows
 
 
+# -- phase 8c: prefix reuse, the overlapped judge, the retry ladder, a mixed panel --
+
+SESSION_PANEL = "gpu:llama-3-8b,gpu:consensus-1b"
+SESSION_JUDGE = "gpu:llama-3-8b"
+REMOTE_MODEL = "gpt-5.2-2025-12-11"
+REMOTE_ANSWER = ("Ship encrypted drives by courier: 400 TB over a 10 Gbit/s link takes "
+                 "about four days at full rate, and the drives arrive in two.")
+# The retry ladder's injected failures run on consensus-1b: a rebuild of it
+# costs seconds, and its weights bound the check that the failed engine was
+# freed before the new one allocated.
+LADDER_MODEL = "gpu:consensus-1b"
+
+
+def random_ids(torch, seed: int, n: int, bos=None) -> list:
+    """``n`` printable byte tokens from ``seed`` (after ``bos`` when given)."""
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.randint(32, 127, (n,), generator=gen).tolist()
+    return ([bos] if bos is not None else []) + ids
+
+
+def cuda_ms(torch, fn) -> float:
+    """Device-stream milliseconds of ``fn()`` between two CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def median_ms(torch, fn, n: int = 5) -> float:
+    return sorted(cuda_ms(torch, fn) for _ in range(n))[n // 2]
+
+
+def session_reuse(torch, provider, seed: int) -> dict:
+    """(a) Prefix snapshot reuse on llama-3-8b: the 1,501-token prompt and
+    48 tokens, then that prompt, its answer and a 200-token follow-up on an
+    engine holding the snapshot and on a fresh one (both on the provider's
+    weights): the reused length from the prefill span, the follow-up's
+    prefill ms, the first-step logits, the greedy tokens, the peak memory;
+    then a full-prompt wave of 4 rows sharing 1,100 tokens, with and without
+    a snapshot to fork."""
+    from llm_consensus_tpu_torch import obs
+    from llm_consensus_tpu_torch.engine import Engine, SamplingParams
+
+    warm = provider._engine_for(SESSION_JUDGE)
+    kw = dict(device=warm.device, max_seq=warm.max_seq, tokenizer=warm.tokenizer)
+    rec, prev = obs.Recorder(), obs.recorder()
+    obs.install(rec)  # the reusing engine binds it: its prefill spans say `reused`
+    try:
+        eng = Engine(warm.cfg, warm.params, **kw)
+    finally:
+        obs.install(prev)
+    fresh = Engine(warm.cfg, warm.params, prefix_cache=False, **kw)
+    for e in provider.engines().values():
+        e.drop_prefix()
+    s48 = SamplingParams(max_new_tokens=48, ignore_eos=True)
+    ids = random_ids(torch, seed, 1500, bos=warm.tokenizer.bos_id)
+    follow_up = random_ids(torch, seed + 1, 200)
+    torch.cuda.synchronize()
+    a0 = torch.cuda.memory_allocated()
+
+    first = eng.generate_ids(ids, s48)
+    torch.cuda.synchronize()
+    snapshot_gb = (torch.cuda.memory_allocated() - a0) / 1e9
+    follow = ids + first.token_ids + follow_up
+    reusable = eng._reusable_prefix(follow)[0]
+    with torch.inference_mode():
+        lg_reuse, _ = eng._prefill_ids(follow)
+        lg_fresh, _ = fresh._prefill_ids(follow)
+        logit_err = max_err(lg_reuse, lg_fresh)
+        reuse_ms = median_ms(torch, lambda: eng._prefill_ids(follow))
+        fresh_ms = median_ms(torch, lambda: fresh._prefill_ids(follow))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    got = eng.generate_ids(follow, s48)
+    torch.cuda.synchronize()
+    peak_with = torch.cuda.max_memory_allocated() / 1e9
+    eng.drop_prefix()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ref = fresh.generate_ids(follow, s48)
+    torch.cuda.synchronize()
+    peak_without = torch.cuda.max_memory_allocated() / 1e9
+    reused = [e.args["reused"] for e in rec.events() if e.name == "prefill"]
+    same = sum(a == b for a, b in zip(got.token_ids, ref.token_ids))
+    row = {"prompt_tokens": len(follow), "reused": reused[-1] if reused else None,
+           "reusable": reusable, "follow_up_prefill_ms_reuse": reuse_ms,
+           "follow_up_prefill_ms_fresh": fresh_ms, "first_logits_max_abs_diff": logit_err,
+           "greedy_equal": same, "greedy_of": len(ref.token_ids),
+           "leading_equal": token_agreement(got.token_ids, ref.token_ids),
+           "snapshot_gb": snapshot_gb, "peak_gb_with_snapshot": peak_with,
+           "peak_gb_without": peak_without}
+    log(f"session reuse: prefill spans reused {reused}; follow-up of {len(follow)} tokens "
+        f"prefilled in {reuse_ms:.2f} ms reusing {row['reused']} against {fresh_ms:.2f} ms "
+        f"fresh (CUDA events, median of 5); first-step logits max |diff| {logit_err:.3e} "
+        f"(tol {BATCH_LOGIT_TOL}); greedy tokens equal {same}/{len(ref.token_ids)} "
+        f"({row['leading_equal']} leading); snapshot {snapshot_gb:.3f} GB; peak "
+        f"{peak_with:.2f} GB with it, {peak_without:.2f} GB without")
+    if not (row["reused"] is not None and row["reused"] >= 1501 and logit_err <= BATCH_LOGIT_TOL
+            and len(got.token_ids) == 48):
+        raise AssertionError(f"session reuse: {row}")
+
+    # The batcher's full-prompt wave: 4 rows sharing 1,100 tokens (bucket
+    # 2,048, four 512-token chunks); with a snapshot holding the shared
+    # tokens the wave forks two chunks and prefills two.
+    shared = ids[:1100]
+    rows = [shared + random_ids(torch, seed + 2 + i, 40 + 8 * i) for i in range(4)]
+    with torch.inference_mode():
+        eng.generate_ids(shared + follow_up[:60], SamplingParams(max_new_tokens=16,
+                                                                 ignore_eos=True))
+        lg_fork, _, width = eng._prefill_rows(rows)  # retains row 0
+        lg_plain, _, _ = fresh._prefill_rows(rows)
+        wave_err = max_err(lg_fork, lg_plain)
+        fork_ms = median_ms(torch, lambda: eng._prefill_rows(rows), 3)
+        plain_ms = median_ms(torch, lambda: fresh._prefill_rows(rows), 3)
+    row.update(wave_rows=4, wave_shared=len(shared), wave_width=width, wave_ms_fork=fork_ms,
+               wave_ms_no_snapshot=plain_ms, wave_logits_max_abs_diff=wave_err)
+    log(f"session wave: 4 rows sharing {len(shared)} tokens, width {width}: prefill "
+        f"{fork_ms:.2f} ms forking the snapshot against {plain_ms:.2f} ms without (median of "
+        f"3); last logits max |diff| {wave_err:.3e}")
+    if wave_err > BATCH_LOGIT_TOL:
+        raise AssertionError(f"session wave: logits {wave_err}")
+    del eng, fresh
+    release_memory(torch)
+    return row
+
+
+class JudgeClock:
+    """While installed (a context manager), each CLI run's judge synthesis:
+    the time from the panel's end (``Runner.run`` returning) to the judge's
+    first token reaching the host (the decode loop's first fetch, whatever
+    text the tokens make), the path (overlap or classic), the session's
+    prefilled tokens and the overlap judge's fallbacks, and the judge
+    prompt's tokens. ``reset`` starts a run."""
+
+    def __init__(self, tokenizer) -> None:
+        self.rows: list = []
+        self._tok = tokenizer
+        self._t_panel = None
+        self._t_token = None
+        self._local = threading.local()
+        self._saved: list = []
+
+    def reset(self) -> None:
+        self.rows.clear()
+        self._t_panel = self._t_token = None
+
+    def __enter__(self) -> "JudgeClock":
+        from llm_consensus_tpu_torch.consensus.judge import Judge, render_judge_prompt
+        from llm_consensus_tpu_torch.consensus.overlap import OverlapJudge
+        from llm_consensus_tpu_torch.engine.engine import Engine
+        from llm_consensus_tpu_torch.runner.runner import Runner
+
+        clock = self
+        orig_run = Runner.run
+        orig_decode = Engine._decode_stream
+
+        def decode_stream(engine, prompt_ids, last_logits, cache, sampling, ctx, on_token,
+                          *args, **kwargs):
+            # Only the judge decodes once the panel has ended.
+            if clock._t_panel is not None and clock._t_token is None:
+                def first_token(tok_id, _inner=on_token):
+                    if clock._t_token is None:
+                        clock._t_token = time.monotonic()
+                    if _inner is not None:
+                        _inner(tok_id)
+
+                return orig_decode(engine, prompt_ids, last_logits, cache, sampling, ctx,
+                                   first_token, *args, **kwargs)
+            return orig_decode(engine, prompt_ids, last_logits, cache, sampling, ctx, on_token,
+                               *args, **kwargs)
+
+        def run(runner, *args, **kwargs):
+            res = orig_run(runner, *args, **kwargs)
+            if clock._t_panel is None:
+                clock._t_panel = time.monotonic()
+            return res
+
+        def wrap(orig, kind):
+            def synthesize_stream(judge, ctx, prompt, responses, callback):
+                if getattr(clock._local, "inside", False):  # the overlap judge's fallback
+                    return orig(judge, ctx, prompt, responses, callback)
+                clock._local.inside = True
+                try:
+                    return orig(judge, ctx, prompt, responses, callback)
+                finally:
+                    clock._local.inside = False
+                    ttft = (clock._t_token - clock._t_panel
+                            if clock._t_token is not None and clock._t_panel is not None
+                            else None)
+                    clock.rows.append({
+                        "path": kind, "ttft_s": ttft,
+                        "prefilled": getattr(judge, "prefilled", 0),
+                        "fallbacks": getattr(judge, "fallbacks", 0),
+                        "prompt_tokens": len(clock._tok.encode(
+                            render_judge_prompt(prompt, responses)))})
+            return synthesize_stream
+
+        self._saved = [(Runner, "run", orig_run), (Engine, "_decode_stream", orig_decode),
+                       (Judge, "synthesize_stream", Judge.synthesize_stream),
+                       (OverlapJudge, "synthesize_stream", OverlapJudge.synthesize_stream)]
+        Runner.run = run
+        Engine._decode_stream = decode_stream
+        Judge.synthesize_stream = wrap(Judge.synthesize_stream, "classic")
+        OverlapJudge.synthesize_stream = wrap(OverlapJudge.synthesize_stream, "overlap")
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for cls, name, orig in self._saved:
+            setattr(cls, name, orig)
+
+
+def session_overlap(torch, fa, da, provider) -> dict:
+    """(b) The slice's CLI run with ``--judge-overlap`` and without, in
+    turns (on, off, off, on): wall, the judge's time to first token after
+    the panel's end, the session's prefilled tokens, the judge prompt's
+    tokens; an overlap run must make no classic fallback."""
+    counters = {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES}
+    tok = provider._engine_for(SESSION_JUDGE).tokenizer
+    runs = []
+    with JudgeClock(tok) as clock:
+        for overlap in (True, False, False, True):
+            clock.reset()
+            sl = run_slice(torch, counters, {}, f"session overlap={overlap}",
+                           models=SESSION_PANEL, judge=SESSION_JUDGE, timing=False,
+                           extra=("--judge-overlap",) if overlap else ())
+            (judge,) = clock.rows
+            run = {"overlap": overlap, "wall_s": sl["wall_s"], **judge,
+                   "peak_gb": sl["peak_gb"], "launches": sl["launches"]}
+            log(f"  judge: {json.dumps(run)}")
+            if judge["path"] != ("overlap" if overlap else "classic") or (
+                    overlap and (judge["fallbacks"] != 0 or judge["prefilled"] <= 0)):
+                raise AssertionError(f"session overlap: {run}")
+            if judge["ttft_s"] is None or min(sl["launches"].values()) <= 0:
+                raise AssertionError(f"session overlap: no judge token or a kernel idle: {run}")
+            runs.append(run)
+    return {"runs": runs, "fallbacks": sum(r["fallbacks"] for r in runs)}
+
+
+def session_ladder(torch) -> dict:
+    """(c) The retry ladder on a built provider (consensus-1b): an injected
+    RuntimeError on the first generate (one eviction, one rebuild, the
+    answer returned, peak memory under the old and the new engine's weights
+    together), an injected torch.cuda.OutOfMemoryError (rebuilt), and an
+    injected KernelLaunchError (propagates, no rebuild)."""
+    from llm_consensus_tpu_torch.engine import engine as engine_mod
+    from llm_consensus_tpu_torch.ops.kernels.build import KernelLaunchError
+    from llm_consensus_tpu_torch.providers import Request
+    from llm_consensus_tpu_torch.providers.gpu import GPUProvider, parse_model_name
+    from llm_consensus_tpu_torch.utils.context import Context
+
+    preset = parse_model_name(LADDER_MODEL)
+    provider = GPUProvider()
+    req = Request(model=LADDER_MODEL, prompt=PROMPT, max_tokens=48)
+    ref = provider.query(Context.background(), req).content  # builds the engine
+    events: list = []
+    orig_evict, orig_build = provider._evict, provider._build_engine
+
+    def evict(*args):
+        t0 = time.monotonic()
+        orig_evict(*args)
+        events.append(("evict", time.monotonic() - t0))
+
+    def build(*args):
+        t0 = time.monotonic()
+        out = orig_build(*args)
+        torch.cuda.synchronize()
+        events.append(("build", time.monotonic() - t0))
+        return out
+
+    provider._evict, provider._build_engine = evict, build
+    orig_generate = engine_mod.Engine.generate
+    rows = {}
+    try:
+        for label, err in (
+                ("runtime", lambda: RuntimeError("injected transient failure")),
+                ("oom", lambda: torch.cuda.OutOfMemoryError("injected: CUDA out of memory")),
+                ("kernel", lambda: KernelLaunchError("injected: decode_bf16_kernel launch "
+                                                     "failed"))):
+            # The error is made inside the wrapper: one held here would pin
+            # the failed engine through its traceback.
+            armed = [err]
+
+            def generate(engine, *args, **kwargs):
+                if armed and engine.cfg.name == preset:
+                    raise armed.pop()()
+                return orig_generate(engine, *args, **kwargs)
+
+            weights = sum(w.numel() * w.element_size() for w in
+                          provider.engines()[preset].params["layers"].values())
+            events.clear()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            engine_mod.Engine.generate = generate
+            raised = None
+            try:
+                answer = provider.query(Context.background(), req).content
+            except KernelLaunchError as exc:
+                raised, answer = exc, None
+            finally:
+                engine_mod.Engine.generate = orig_generate
+            torch.cuda.synchronize()
+            over = (torch.cuda.max_memory_allocated() - base) / 1e9
+            row = {"events": [[name, round(s, 4)] for name, s in events],
+                   "raised": type(raised).__name__ if raised else None,
+                   "answer_equal": answer == ref if answer is not None else None,
+                   "peak_over_start_gb": over, "weights_gb": weights / 1e9}
+            log(f"session ladder {label}: {json.dumps(row)}")
+            names = [name for name, _ in events]
+            if label == "kernel":
+                ok = raised is not None and names == []
+            else:
+                ok = (raised is None and names == ["evict", "build"] and answer
+                      and over < weights / 1e9)
+            if not ok:
+                raise AssertionError(f"session ladder {label}: {row}")
+            rows[label] = row
+    finally:
+        engine_mod.Engine.generate = orig_generate
+        provider.release()
+        release_memory(torch)
+    return rows
+
+
+@contextlib.contextmanager
+def openai_mock():
+    """A local stand-in for the OpenAI Responses API on 127.0.0.1 (SSE),
+    reached through OPENAI_BASE_URL for the block; yields the request
+    bodies it received."""
+    from http.server import BaseHTTPRequestHandler, HTTPServer
+
+    bodies: list = []
+
+    class Handler(BaseHTTPRequestHandler):
+        def do_POST(self):
+            bodies.append(json.loads(self.rfile.read(int(self.headers["Content-Length"]))))
+            self.send_response(200)
+            self.send_header("Content-Type", "text/event-stream")
+            self.end_headers()
+            for word in REMOTE_ANSWER.split(" "):
+                event = {"type": "response.output_text.delta", "delta": word + " "}
+                self.wfile.write(f"data: {json.dumps(event)}\n\n".encode())
+            self.wfile.write(b"data: [DONE]\n\n")
+
+        def log_message(self, *args):
+            pass
+
+    server = HTTPServer(("127.0.0.1", 0), Handler)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        with set_environ({"OPENAI_API_KEY": "sk-local-mock",
+                          "OPENAI_BASE_URL": f"http://127.0.0.1:{server.server_address[1]}"}):
+            yield bodies
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+
+
+def session_mixed(torch, fa, da) -> dict:
+    """(d) A mixed panel through the CLI: the remote model (the local mock)
+    and gpu:consensus-1b, the gpu:llama-3-8b judge under --judge-overlap,
+    auto-saved: exit 0, both answers, the JAX CLI's run directory."""
+    counters = {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES}
+    with openai_mock() as bodies, tempfile.TemporaryDirectory(prefix="chip-smoke-mixed-") as tmp:
+        sl = run_slice(torch, counters, {}, "session mixed panel",
+                       models=f"{REMOTE_MODEL},gpu:consensus-1b", judge=SESSION_JUDGE,
+                       extra=("--judge-overlap",), data_dir=tmp, timing=False)
+    doc, listing = sl["doc"], sl["files"]["listing"]
+    answers = {r["model"]: r for r in doc["responses"]}
+    row = {"wall_s": sl["wall_s"], "listing": listing, "models": sorted(answers),
+           "remote_requests": len(bodies), "launches": sl["launches"]}
+    log(f"session mixed: {json.dumps(row)}")
+    if (listing != [n for n in RUN_FILES if n != "trace.json"]
+            or answers.get(REMOTE_MODEL, {}).get("content", "").strip() != REMOTE_ANSWER
+            or answers[REMOTE_MODEL]["provider"] != "openai"
+            or not answers.get("gpu:consensus-1b", {}).get("content")
+            or len(bodies) != 1 or doc.get("warnings")):
+        raise AssertionError(f"session mixed: {row}; {json.dumps(doc)[:2000]}")
+    return row
+
+
+def run_session(torch, fa, da, card: str, seed: int) -> dict:
+    """Phase 8c over warm shared providers (llama-3-8b and consensus-1b,
+    bf16, random weights from the seed): (a) reuse, (b) overlap, (c) the
+    ladder, (d) the mixed panel. Prints a ``{"session": ...}`` line."""
+    from llm_consensus_tpu_torch.cli.main import install_planes
+    from llm_consensus_tpu_torch.providers.gpu import GPUProvider
+
+    t_phase = time.monotonic()
+    install_planes(False, sys.stderr)
+    provider = GPUProvider.shared()
+    for model in SESSION_PANEL.split(","):
+        provider._engine_for(model)
+    torch.cuda.synchronize()
+    log(f"session: engines {sorted(provider.engines())} built in "
+        f"{time.monotonic() - t_phase:.2f} s")
+    rows = {"reuse": session_reuse(torch, provider, seed)}
+    rows["overlap"] = session_overlap(torch, fa, da, provider)
+    rows["ladder"] = session_ladder(torch)
+    rows["mixed"] = session_mixed(torch, fa, da)
+    log(f"session phase: {time.monotonic() - t_phase:.1f} s")
+    print(json.dumps({"session": rows, "card": card}), flush=True)
+    release_engines(torch, {})
+    return rows
+
+
 # -- phases 12 to 16: Mixtral and the checkpoint loader ------------------------
 
 MIXTRAL = "mixtral-8x7b"
@@ -2641,8 +3073,8 @@ def run_mixtral(torch, fa, da, seed: int, records: dict) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phase", choices=("all", "kernels", "mixtral", "telemetry", "modes"),
-                    default="all")
+    ap.add_argument("--phase", choices=("all", "kernels", "mixtral", "telemetry", "modes",
+                                        "session"), default="all")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -2697,6 +3129,11 @@ def main(argv=None) -> int:
         run_modes(torch, fa, da, card)
         print(card, flush=True)
         return 0
+    if args.phase == "session":
+        # The session phase alone: no ok line.
+        run_session(torch, fa, da, card, args.seed)
+        print(card, flush=True)
+        return 0
     check_flash(torch, flash_rec)
     check_decode(torch, decode_rec)
     check_decode_int8(torch, int8_rec, w8a8_rec)
@@ -2735,6 +3172,7 @@ def main(argv=None) -> int:
     release_engines(torch, modes)
     run_telemetry(torch, fa, da)
     run_modes(torch, fa, da, card)
+    run_session(torch, fa, da, card, args.seed)
 
     qsl = run_slice(torch, {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES,
                             "decode_attention_int8": da.LAUNCHES_INT8},

@@ -10,7 +10,11 @@ flags, their validation and messages, precedence and exit codes.
     ``@alias`` model lists; explicit flags win. ``--version`` and
     ``--help`` never read it;
   * one provider per unique model, judge included (the panel only under
-    ``--vote``); an unknown model fails at registry init with the
+    ``--vote``): ``gpu:<preset>`` is the device provider, any other name
+    one of the remote HTTP providers of the JAX package's catalog
+    (``providers/registry.py`` ``REMOTE_MODELS``; keys and base URLs from
+    ``OPENAI_API_KEY``/``OPENAI_BASE_URL`` and the Anthropic and Google
+    equivalents); an unknown model fails at registry init with the
     available set;
   * the auto-saved run directory ``<data-dir>/<run-id>/`` is reserved
     before the fan-out, with the run manifest ``run.json`` (prompt, panel,
@@ -20,7 +24,10 @@ flags, their validation and messages, precedence and exit codes.
     the models the journal lacks, then the judge, into the same directory;
   * best-effort panel fan-out, panel agreement (``consensus/agreement.py``),
     then the judge's synthesis, or under ``--vote`` the host's tally of the
-    panel's votes (``consensus/vote.py``). ``--rounds N`` adds N - 1
+    panel's votes (``consensus/vote.py``). ``--judge-overlap`` (or
+    ``LLMC_JUDGE_OVERLAP``) prefills the judge prompt on a ``gpu:`` judge
+    as the panel's answers arrive (``consensus/overlap.py``): round 1's
+    synthesis rides it, refinement rounds use the classic judge. ``--rounds N`` adds N - 1
     refinement rounds (panel critique, judge refine; a failed round is a
     warning that keeps the last good consensus) and ``--confidence`` one
     judge-graded confidence query (``consensus/confidence.py``; a failure
@@ -37,9 +44,8 @@ flags, their validation and messages, precedence and exit codes.
 Model names are ``gpu:<preset>``. ``main(argv, device=None)`` runs on the
 current CUDA card and raises when there is none; tests pass
 ``device="cpu"``. The JAX CLI's flags for modules the port lacks
-(``--draft``, ``--spec-k``, ``--prefill-budget``, ``--judge-overlap``,
-``--priority``) are later work; a config file that sets ``draft`` is
-refused.
+(``--draft``, ``--spec-k``, ``--prefill-budget``, ``--priority``) are not
+ported; a config file that sets ``draft`` is refused.
 
 Run telemetry follows the JAX CLI: the live, attribution, roofline and
 flight-recorder planes are on by default and installed once per process
@@ -59,7 +65,10 @@ through the environment only (``LLMC_QUANT``, ``LLMC_KV_QUANT``,
 ``LLMC_W8A8``, ``LLMC_DECODE_W8A8``, ``LLMC_DECODE_QSTRUCT``,
 ``LLMC_INT4_IMPL``; ``LLMC_MAX_BATCH`` or ``LLMC_BATCH_STREAMS``,
 ``LLMC_POOL_PREFIX``, ``LLMC_POOL_PREFIX_MIN``, ``LLMC_PREFILL_BUDGET``;
-and ``LLMC_CHECKPOINT_DIR``, the per-preset checkpoint directory):
+``LLMC_CHECKPOINT_DIR``, the per-preset checkpoint directory;
+``LLMC_PREFIX_CACHE`` and ``LLMC_PREFIX_CACHE_MAX_MB``, the engines'
+prefix snapshot reuse; ``LLMC_HTTP_RETRIES`` and ``LLMC_HTTP_BACKOFF``,
+the remote providers' retries):
 the default provider factory reads them here (utils/knobs.py), the one
 place the port reads knobs, and an unknown mode or a refused setting fails
 at registry init, before any engine is built.
@@ -81,6 +90,7 @@ from llm_consensus_tpu_torch import obs, ui
 from llm_consensus_tpu_torch.consensus import (
     Judge,
     grade_confidence,
+    make_overlap_judge,
     render_critique_prompt,
     render_refine_prompt,
     render_vote_prompt,
@@ -129,6 +139,7 @@ class Config:
     interactive: bool = False  # REPL: one run per stdin line
     confidence: bool = False   # judge-graded confidence in the consensus
     resume: str = ""       # run-id of a crashed run to finish
+    judge_overlap: bool = False  # prefill the judge prompt as answers arrive
 
 
 class CLIError(Exception):
@@ -138,17 +149,26 @@ class CLIError(Exception):
 def create_provider(model: str, device: DeviceLike = None) -> Provider:
     """Resolve a model name to its provider: ``gpu:<preset>`` → the shared
     GPU provider of ``device`` and of the environment's quantization modes,
-    batching settings and checkpoint directory."""
+    batching settings, checkpoint directory and prefix settings; any other
+    name → the remote HTTP provider of the catalog, with the environment's
+    retry settings."""
     from llm_consensus_tpu_torch.providers.gpu import SCHEME, GPUProvider, parse_model_name
-    from llm_consensus_tpu_torch.utils.knobs import batch_settings, checkpoint_dir, quant_modes
+    from llm_consensus_tpu_torch.providers.registry import REMOTE_MODELS, create_remote_provider
+    from llm_consensus_tpu_torch.utils.knobs import (
+        batch_settings, checkpoint_dir, http_settings, prefix_settings, quant_modes)
 
-    if not model.startswith(SCHEME):
-        raise CLIError(f"unknown model {model!r}; available models: ['{SCHEME}<model>']")
+    if model.startswith(SCHEME):
+        try:
+            parse_model_name(model)
+        except ValueError as err:
+            raise CLIError(str(err)) from None
+        return GPUProvider.shared(device, **batch_settings(), **quant_modes(),
+                                  **checkpoint_dir(), **prefix_settings())
     try:
-        parse_model_name(model)
-    except ValueError as err:
-        raise CLIError(str(err)) from None
-    return GPUProvider.shared(device, **batch_settings(), **quant_modes(), **checkpoint_dir())
+        return create_remote_provider(model, **http_settings())
+    except ValueError:
+        available = sorted(REMOTE_MODELS) + [f"{SCHEME}<model>"]
+        raise CLIError(f"unknown model {model!r}; available models: {available}") from None
 
 
 def init_registry(models: list[str], judge: Optional[str],
@@ -356,6 +376,11 @@ def parse_args(argv: list[str], stdin: Optional[TextIO],
     parser.add_argument("--confidence", "-confidence", action="store_true",
                         help="After synthesis, the judge grades its confidence in the "
                              "consensus (0-100) and lists controversy points")
+    parser.add_argument("--judge-overlap", "-judge-overlap", action="store_true",
+                        help="Prefill the judge prompt incrementally as panel answers "
+                             "arrive (gpu judges), cutting judge time-to-first-token by "
+                             "nearly the whole prompt prefill. LLMC_JUDGE_OVERLAP=1 is "
+                             "equivalent")
     parser.add_argument("--quiet", "-quiet", "-q", action="store_true",
                         help="Suppress progress output")
     parser.add_argument("--json", "-json", action="store_true",
@@ -435,6 +460,7 @@ def parse_args(argv: list[str], stdin: Optional[TextIO],
         system=system,
         interactive=ns.interactive,
         confidence=ns.confidence,
+        judge_overlap=ns.judge_overlap,
     )
     if ns.resume:
         # A resumed run's identity (prompt, panel, judge, settings) comes
@@ -814,12 +840,37 @@ def _run(cfg: Config, ctx: Context, *, factory: ProviderFactory, stdout: TextIO,
     progress.start()
     runner = Runner(registry, cfg.timeout, max_tokens=cfg.max_tokens,
                     system=cfg.system or None)
+    # Judge prefill overlap (consensus/overlap.py): each panel answer
+    # prefills into the judge's growing cache as it lands. Never under
+    # --vote (no judge); None when off or the judge has no engine.
+    overlap_judge = None
+    if not cfg.vote:
+        try:
+            overlap_judge = make_overlap_judge(
+                registry.get(cfg.judge), cfg.judge, context_prompt, max_tokens=cfg.max_tokens,
+                enabled=True if cfg.judge_overlap else None)
+        except Exception:  # noqa: BLE001 — an unknown judge errors at synthesis
+            overlap_judge = None
+    # Each answer is journaled first, then fed to the overlap judge; a hook
+    # that fails must not keep the next from running.
+    response_hooks = [h for h in (
+        panel_journal(run_dir, warn=warn) if run_dir else None,
+        overlap_judge.on_response if overlap_judge is not None else None,
+    ) if h is not None]
+    on_model_response = None
+    if response_hooks:
+        def on_model_response(resp: Response) -> None:
+            for hook in response_hooks:
+                try:
+                    hook(resp)
+                except Exception:  # noqa: BLE001 — a hook must not fail a model
+                    pass
     runner.with_callbacks(Callbacks(
         on_model_start=progress.model_started,
         on_model_stream=progress.model_streaming,
         on_model_complete=progress.model_completed,
         on_model_error=progress.model_failed,
-        on_model_response=panel_journal(run_dir, warn=warn) if run_dir else None,
+        on_model_response=on_model_response,
     ))
     panel_prompt = render_vote_prompt(context_prompt, cfg.options) if cfg.vote else context_prompt
     try:
@@ -858,7 +909,7 @@ def _run(cfg: Config, ctx: Context, *, factory: ProviderFactory, stdout: TextIO,
             ui.print_success(stderr, "Votes tallied!")
     else:
         consensus, confidence = _synthesize_rounds(
-            cfg, ctx, registry, runner, result, context_prompt, show_ui, stderr)
+            cfg, ctx, registry, runner, result, context_prompt, show_ui, stderr, overlap_judge)
         judge_name = cfg.judge
     _close_expired_profile()
 
@@ -953,11 +1004,14 @@ def _run(cfg: Config, ctx: Context, *, factory: ProviderFactory, stdout: TextIO,
 
 def _synthesize_rounds(cfg: Config, ctx: Context, registry: Registry, runner: Runner,
                        result: RunResult, context_prompt: str, show_ui: bool,
-                       stderr: TextIO) -> tuple[str, Optional[dict]]:
-    """The judge's synthesis of round 1, then each refinement round (panel
-    critique, judge refine), then the confidence grading. A failed later
-    round or grading is a warning in ``result`` and the run keeps the last
-    good consensus. Returns (consensus, confidence or None)."""
+                       stderr: TextIO, overlap_judge=None) -> tuple[str, Optional[dict]]:
+    """The judge's synthesis of round 1 (on ``overlap_judge`` when given,
+    whose session the panel fed), then each refinement round (panel
+    critique, judge refine: the classic judge, their prompt differs from
+    the one the session was built with), then the confidence grading. A
+    failed later round or grading is a warning in ``result`` and the run
+    keeps the last good consensus. Returns (consensus, confidence or
+    None)."""
     if show_ui:
         ui.print_phase(stderr, "Synthesizing consensus...")
         stderr.write("\n")
@@ -967,12 +1021,13 @@ def _synthesize_rounds(cfg: Config, ctx: Context, registry: Registry, runner: Ru
         raise CLIError(f"judge model {cfg.judge}: {err}") from err
     judge = Judge(judge_provider, cfg.judge, max_tokens=cfg.max_tokens)
 
-    def synthesize(user_prompt: str, responses) -> str:
+    def synthesize(user_prompt: str, responses, syn=None) -> str:
+        syn = syn if syn is not None else judge
         judge_progress = ui.Progress(stderr, [cfg.judge], quiet=not show_ui)
         judge_progress.start()
         judge_progress.model_started(cfg.judge)
         try:
-            text = judge.synthesize_stream(
+            text = syn.synthesize_stream(
                 ctx, user_prompt, responses,
                 lambda chunk: judge_progress.model_streaming(cfg.judge, chunk))
         except Exception as err:  # noqa: BLE001
@@ -980,11 +1035,11 @@ def _synthesize_rounds(cfg: Config, ctx: Context, registry: Registry, runner: Ru
             raise CLIError(f"consensus synthesis: {err}") from err
         judge_progress.model_completed(cfg.judge)
         judge_progress.stop()
-        if judge.last_truncated:
+        if syn.last_truncated:
             result.warnings.append(f"{cfg.judge}: judge prompt truncated to fit context window")
         return text
 
-    consensus = synthesize(context_prompt, result.responses)
+    consensus = synthesize(context_prompt, result.responses, syn=overlap_judge)
     _close_expired_profile()
 
     # Refinement rounds: the panel critiques the draft, the judge refines.

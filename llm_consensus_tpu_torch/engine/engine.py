@@ -41,14 +41,29 @@ host time is taken out of the interval); spans ``prefill``, ``decode`` and ``fet
 land on the recorder. With every plane off the loops consult only the
 bound Nones, once per chunk.
 
-Prefix snapshot reuse, the KV pool, meshes, ``generate_batch``, the
-interleaved (budgeted) admission steps and the prefill sessions of the JAX
-engine are later work.
+Prefix snapshot reuse (the JAX engine's, on by default): every
+single-stream generate keeps its finished cache as the engine's one
+snapshot, paired with the ids whose KV it holds; the next prompt that
+shares at least one prefill chunk with them restores that prefix (one
+masked copy, :func:`_restore_prefix`) and prefills only its tail in
+chunks. A full-prompt chunked admission wave whose rows share a chunk
+forks the snapshot the same way (:func:`_fork_prefix`) and retains its row
+0. Snapshots above ``prefix_cache_max_mb`` are never kept.
+
+:class:`PrefillSession` (``Engine.prefill_session()``) prefills a prompt
+incrementally as its pieces become known (the judge-overlap path,
+consensus/overlap.py), then decodes through the same loop as ``generate``.
+
+The KV pool, meshes, ``generate_batch``, weight swaps (and with them the
+session's weight-version migration) and the interleaved (budgeted)
+admission steps of the JAX engine are not ported.
 """
 
 from __future__ import annotations
 
+import threading
 import time
+import weakref
 from contextlib import nullcontext
 from dataclasses import dataclass
 from functools import partial
@@ -99,9 +114,10 @@ class GenerateResult:
 # Decode attention width: buckets of this granule over the causal frontier
 # (the JAX engine's LLMC_DECODE_KV_MIN default).
 DECODE_KV_MIN = 128
-# The JAX engine's LLMC_PREFIX_CACHE_MAX_MB default: the largest dense
+# The JAX engine's LLMC_PREFIX_CACHE_MAX_MB default (MB = 1e6 bytes): the
+# largest prefix snapshot the engine keeps and the largest dense
 # shared-prefix copy the batcher may hold.
-PREFIX_MAX_BYTES = 2048e6
+PREFIX_CACHE_MAX_MB = 2048.0
 
 
 def _bucket(n: int, cap: int) -> int:
@@ -109,6 +125,75 @@ def _bucket(n: int, cap: int) -> int:
     while b < n:
         b *= 2
     return min(b, cap)
+
+
+def _cache_map(fn, *caches):
+    """``fn`` over the leaves of KV caches of one layout ({"k", "v"}, each a
+    tensor or an int8 {"q8", "s"} dict), as a cache of the results."""
+    first = caches[0]
+    if isinstance(first, dict):
+        return {name: _cache_map(fn, *(c[name] for c in caches)) for name in first}
+    return fn(*caches)
+
+
+def _seq_axis(leaf: torch.Tensor) -> int:
+    """The sequence axis of a cache leaf: 2 in the [L, B, S, Hkv, dh]
+    stacks (bf16, and the int8 codes ``q8``), 3 in the int8 scales ``s``
+    [L, B, Hkv, S] (seq-minor, as the decode kernels read them)."""
+    return 2 if leaf.dim() == 5 else 3
+
+
+def _mask_beyond(src: torch.Tensor, n_valid: int) -> torch.Tensor:
+    """A fresh copy of ``src`` with its positions >= ``n_valid`` zeroed
+    along its sequence axis: the one owner of the prefix-restore masking
+    (:func:`_restore_prefix`, :func:`_fork_prefix`). Never a view: the
+    forward writes caches in place, and the source is a snapshot that
+    later reuses read again."""
+    ax = _seq_axis(src)
+    out = torch.empty_like(src)
+    out.narrow(ax, 0, n_valid).copy_(src.narrow(ax, 0, n_valid))
+    out.narrow(ax, n_valid, src.shape[ax] - n_valid).zero_()
+    return out
+
+
+def _restore_prefix(saved: dict, n_valid: int) -> dict:
+    """A working cache from a prefix snapshot: positions < ``n_valid`` keep
+    the saved K/V, the rest are zero. One masked copy of the cache replaces
+    prefilling the shared prefix again; the snapshot is only read."""
+    return _cache_map(lambda src: _mask_beyond(src, n_valid), saved)
+
+
+def _fork_prefix(saved: dict, n_valid: int, k: int, width: int) -> dict:
+    """A [1, max_seq] prefix snapshot as a [k, width] admission-wave cache:
+    its first ``width`` positions, zero from ``n_valid`` on, in each of the
+    k rows. The copy costs k x width slots; the wave saves computing the
+    shared prefix chunks through the model."""
+    def leaf(src):
+        ax = _seq_axis(src)
+        shape = list(src.shape)
+        shape[1], shape[ax] = k, width
+        out = torch.zeros(shape, dtype=src.dtype, device=src.device)
+        out.narrow(ax, 0, n_valid).copy_(src.narrow(ax, 0, n_valid))  # broadcast over rows
+        return out
+
+    return _cache_map(leaf, saved)
+
+
+def _extract_row0(template: dict, pcache: dict, width: int) -> dict:
+    """Row 0 of a [k, width] admission-wave cache copied into ``template``,
+    a fresh full-capacity [1, max_seq] cache, which is returned."""
+    def copy(dst, src):
+        ax = _seq_axis(src)
+        dst.narrow(ax, 0, width).copy_(src[:, :1].narrow(ax, 0, width))
+        return dst
+
+    return _cache_map(copy, template, pcache)
+
+
+def _cache_nbytes(cache: dict) -> int:
+    total = []
+    _cache_map(lambda leaf: total.append(leaf.numel() * leaf.element_size()), cache)
+    return sum(total)
 
 
 class DeviceWall:
@@ -202,9 +287,13 @@ class Engine:
     ("auto" | "nibble", checked like the modes). Random-init weights are
     quantized leaf by leaf as they are drawn; given ``params`` are
     quantized when ``quant`` is set (already quantized leaves pass through).
-    ``prefix_max_bytes`` bounds the dense shared-prefix KV a continuous
-    batcher over this engine may establish. ``tokenizer`` defaults to the
-    byte-level one (a checkpoint's own comes from ``load_tokenizer``).
+    ``prefix_cache`` turns prefix snapshot reuse on (the JAX engine's
+    ``LLMC_PREFIX_CACHE`` default); it needs chunked prefill
+    (``prefill_chunk`` > 0). ``prefix_cache_max_mb`` (MB = 1e6 bytes)
+    bounds the snapshot the engine keeps (a larger cache is never
+    retained) and the dense shared-prefix KV a continuous batcher over
+    this engine may establish. ``tokenizer`` defaults to the byte-level one
+    (a checkpoint's own comes from ``load_tokenizer``).
     """
 
     def __init__(
@@ -223,11 +312,12 @@ class Engine:
         w8a8: bool = False,
         decode_w8a8: bool = False,
         int4_impl: str = "auto",
-        prefix_max_bytes: float = PREFIX_MAX_BYTES,
+        prefix_cache: bool = True,
+        prefix_cache_max_mb: float = PREFIX_CACHE_MAX_MB,
         tokenizer=None,
     ):
         self.cfg = cfg
-        self.prefix_max_bytes = prefix_max_bytes
+        self.prefix_max_bytes = prefix_cache_max_mb * 1e6
         self.quant = resolve_mode(quant, "quant", WEIGHT_MODES)
         self.kv_quant = resolve_mode(kv_quant, "kv_quant", KV_MODES)
         self.w8a8 = bool(w8a8) and self.quant == "int8"
@@ -257,6 +347,20 @@ class Engine:
                 params = quantize_params(params, self.quant)
         self.params = params
         self._layers = layer_views(params)
+        # Prefix snapshot: the ids and the [1, max_seq] cache holding their
+        # KV, read and written as a pair under the lock. Off with the
+        # switch, with chunking off (reuse prefills its tail in chunks), or
+        # when a snapshot would pass the byte cap (a 131,072-slot cache
+        # must not double its memory).
+        snapshot_bytes = _cache_nbytes(init_kv_cache(
+            cfg, batch=1, max_seq=self.max_seq, device=torch.device("meta"), dtype=dtype,
+            quant=self.kv_quant))
+        self.prefix_cache_enabled = (bool(prefix_cache) and self.prefill_chunk > 0
+                                     and snapshot_bytes <= self.prefix_max_bytes)
+        self._prefix_ids: Optional[tuple] = None
+        self._prefix_cache: Optional[dict] = None
+        self._prefix_lock = threading.Lock()
+        self._sessions: "weakref.WeakSet[PrefillSession]" = weakref.WeakSet()
         # Telemetry planes (obs/), bound once: a plane off costs the hot
         # loops one None check per chunk.
         self._obs = obs.recorder()
@@ -323,52 +427,115 @@ class Engine:
                self.decode_w8a8, *key)
         return self._roofline.dispatch(family, key, tokens=tokens, steps=steps, kv_valid=kv_valid)
 
-    def _chunked_prefill(self, prompt_ids: list[int], cache, chunk: int):
-        """Prefill in fixed chunks at a running start over the prompt's
-        bucket (the plain attention op, as the JAX package runs XLA here)."""
-        n_prompt = len(prompt_ids)
-        n_tail = -(-n_prompt // chunk)
-        padded = prompt_ids + [0] * (n_tail * chunk - n_prompt)
-        kv_width = _bucket(n_tail * chunk, self.max_seq)
-        last_in_chunk = torch.full((1,), (n_prompt - 1) % chunk, device=self.device)
+    # -- prefix snapshot ---------------------------------------------------------
+
+    def _reusable_prefix(self, prompt_ids: list[int]) -> tuple[int, Optional[dict]]:
+        """``(common-prefix length, snapshot cache)`` against the snapshot,
+        read as a pair so a concurrent generate cannot hand out a cache
+        that does not match the ids compared. The length is capped at
+        ``len(prompt_ids) - 1``: at least one token must prefill to give
+        the next-token logits."""
+        if not self.prefix_cache_enabled:
+            return 0, None
+        with self._prefix_lock:
+            saved_ids, saved_cache = self._prefix_ids, self._prefix_cache
+        if saved_ids is None:
+            return 0, None
+        max_l = min(len(saved_ids), len(prompt_ids) - 1)
+        lcp = next((i for i, (a, b) in enumerate(zip(saved_ids[:max_l], prompt_ids[:max_l]))
+                    if a != b), max_l)
+        return (lcp, saved_cache) if lcp > 0 else (0, None)
+
+    def _retain_prefix(self, ids: list[int], cache: dict) -> None:
+        """Keep a finished cache as the snapshot of ``ids``: its positions
+        ``[0, len(ids))`` must hold exactly their KV, and nothing may write
+        it afterwards (restores copy it). Costs residency only."""
+        if not self.prefix_cache_enabled:
+            return
+        with self._prefix_lock:
+            self._prefix_ids = tuple(ids)
+            self._prefix_cache = cache
+
+    def drop_prefix(self) -> None:
+        """Forget the snapshot (its memory becomes collectible)."""
+        with self._prefix_lock:
+            self._prefix_ids = None
+            self._prefix_cache = None
+
+    def close_sessions(self) -> None:
+        """Close every open :class:`PrefillSession` of this engine, dropping
+        their caches; a closed session refuses appends and ``generate``."""
+        for session in list(self._sessions):
+            session.close()
+
+    # -- prefill ---------------------------------------------------------------
+
+    def _prefill_chunk(self, tokens: torch.Tensor, cache: dict, start: int,
+                       last_index: torch.Tensor, kv_width: int, capture=None) -> torch.Tensor:
+        """One fixed-size prefill chunk at ``start`` over the first
+        ``kv_width`` cache slots (the plain attention op, as the JAX package
+        runs XLA here). Returns the logits at ``last_index`` [1, V]."""
+        logits, _ = self._forward(tokens, cache, start, attn_impl="torch", kv_width=kv_width,
+                                  logits_index=last_index, capture=capture)
+        return logits[:, 0]
+
+    def _chunked_prefill(self, prompt_ids: list[int], cache: dict, chunk: int, base: int = 0):
+        """Prefill ``prompt_ids[base:]`` in fixed chunks at a running start
+        over the bucket of the chunks' end; ``base`` > 0 resumes on top of
+        a restored prefix. Chunks start at ``base + i * chunk``, not at
+        multiples of the chunk."""
+        tail = len(prompt_ids) - base
+        n_tail = -(-tail // chunk)
+        padded = prompt_ids[base:] + [0] * (n_tail * chunk - tail)
+        kv_width = _bucket(base + n_tail * chunk, self.max_seq)
+        last_in_chunk = torch.full((1,), (tail - 1) % chunk, device=self.device)
         tokens = self._ids_tensor(padded)
         # One prefill dispatch of n_tail steps, the JAX chunk loop's count.
         cap = self._capture("prefill", ((1, chunk), kv_width), n_tail * chunk, n_tail)
         for i in range(n_tail):
             counted = cap if i == 0 else None
             with counted or nullcontext():
-                logits, cache = self._forward(
-                    tokens[:, i * chunk:(i + 1) * chunk], cache, i * chunk,
-                    attn_impl="torch", kv_width=kv_width, logits_index=last_in_chunk,
-                    capture=counted,
-                )
-        return logits[:, 0], cache
+                last_logits = self._prefill_chunk(
+                    tokens[:, i * chunk:(i + 1) * chunk], cache, base + i * chunk,
+                    last_in_chunk, kv_width, capture=counted)
+        return last_logits, cache
 
     def _prefill_ids(self, prompt_ids: list[int]):
-        """Prefill ``prompt_ids`` into a fresh cache; returns
-        ``(last_logits [1, V] fp32, cache)``."""
+        """Prefill ``prompt_ids`` into a fresh or prefix-restored cache;
+        returns ``(last_logits [1, V] fp32, cache)``. A prompt sharing at
+        least one chunk with the snapshot restores that prefix and prefills
+        only its tail; otherwise one shot (flash) or chunked from 0."""
         t0_obs = self._obs.now() if self._obs is not None else 0
         n_prompt = len(prompt_ids)
         chunk_len = self.prefill_chunk
         n_chunks = -(-n_prompt // chunk_len) if chunk_len else 1
-        cache = init_kv_cache(
-            self.cfg, batch=1, max_seq=self.max_seq, device=self.device, dtype=self.dtype,
-            quant=self.kv_quant,
-        )
-        if chunk_len and n_prompt > chunk_len and n_chunks * chunk_len <= self.max_seq:
-            last_logits, cache = self._chunked_prefill(prompt_ids, cache, chunk_len)
+        reuse_len, saved = self._reusable_prefix(prompt_ids)
+        n_tail = -(-(n_prompt - reuse_len) // chunk_len) if chunk_len else 0
+        reuse_ok = (chunk_len > 0 and reuse_len >= chunk_len
+                    and reuse_len + n_tail * chunk_len <= self.max_seq)
+        if reuse_ok:
+            cache = _restore_prefix(saved, reuse_len)
+            last_logits, cache = self._chunked_prefill(prompt_ids, cache, chunk_len, reuse_len)
         else:
-            bucket = _bucket(n_prompt, self.max_seq)
-            tokens = self._ids_tensor(prompt_ids + [0] * (bucket - n_prompt))
-            last = torch.full((1,), n_prompt - 1, device=self.device)
-            cap = self._capture("prefill", (1, bucket), bucket)
-            with cap or nullcontext():
-                logits, cache = self._forward(
-                    tokens, cache, 0, attn_impl="flash", logits_index=last, capture=cap,
-                )
-            last_logits = logits[:, 0]
+            cache = init_kv_cache(
+                self.cfg, batch=1, max_seq=self.max_seq, device=self.device, dtype=self.dtype,
+                quant=self.kv_quant,
+            )
+            if chunk_len and n_prompt > chunk_len and n_chunks * chunk_len <= self.max_seq:
+                last_logits, cache = self._chunked_prefill(prompt_ids, cache, chunk_len)
+            else:
+                bucket = _bucket(n_prompt, self.max_seq)
+                tokens = self._ids_tensor(prompt_ids + [0] * (bucket - n_prompt))
+                last = torch.full((1,), n_prompt - 1, device=self.device)
+                cap = self._capture("prefill", (1, bucket), bucket)
+                with cap or nullcontext():
+                    logits, cache = self._forward(
+                        tokens, cache, 0, attn_impl="flash", logits_index=last, capture=cap,
+                    )
+                last_logits = logits[:, 0]
         if self._obs is not None:
-            self._obs.complete("prefill", t0_obs, tid="engine", tokens=n_prompt, reused=0)
+            self._obs.complete("prefill", t0_obs, tid="engine", tokens=n_prompt,
+                               reused=reuse_len if reuse_ok else 0)
         return last_logits, cache
 
     def _rows_bucket(self, n_max: int) -> int:
@@ -385,6 +552,13 @@ class Engine:
         ):
             bucket = -(-bucket // chunk_len) * chunk_len
         return bucket
+
+    def prefill_session(self) -> "PrefillSession":
+        """An incremental prefill session: token chunks append to one
+        growing KV cache as they become known (the judge-overlap path)."""
+        session = PrefillSession(self)
+        self._sessions.add(session)
+        return session
 
     def _prefill_rows(self, rows: list[list[int]]):
         """Batched admission prefill: k left-aligned prompts in one pass,
@@ -594,6 +768,14 @@ class Engine:
         if attrib is not None and prefill_wall is not None and prefill_wall.done():
             attrib.observe_device("prefill", prefill_wall.seconds())
 
+        # Retain the finished cache for prefix reuse, with the ids whose KV
+        # it holds: the decode steps wrote slots [0, pos), the prompt and
+        # every token fed back. That is all emitted ids except, when the
+        # loop stopped at max_new with no step left to feed it, the last
+        # one; slots past len(ids), such as the overshoot after EOS, are
+        # zeroed on restore.
+        self._retain_prefix((prompt_ids + out_ids)[:pos], cache)
+
         decode_tokens, decode_s = 0, 0.0
         if t_first_fetch is not None and t_last_fetch > t_first_fetch:
             decode_tokens = n_at_last_fetch - n_at_first_fetch
@@ -671,6 +853,11 @@ class AdmissionPrefill:
     (positions offset by ``prefix_len``, the plain op with the prefix
     merge), padded to their own power-of-two bucket, and the cache holds
     only suffix KV.
+
+    A chunked full-prompt wave whose rows share at least one whole chunk
+    with the engine's prefix snapshot forks it across the k rows and
+    prefills only the chunks after it; a chunked wave of 2+ rows that share
+    a chunk among themselves retains its row 0 as the next snapshot.
     """
 
     def __init__(self, engine: Engine, rows: list[list[int]], prefix_cache=None,
@@ -707,12 +894,35 @@ class AdmissionPrefill:
             eng._obs.complete("admit_prefill", self._t0_obs, tid="engine", **args)
         return out
 
+    def _common_prefix(self) -> list[int]:
+        common = self.rows[0]
+        for r in self.rows[1:]:
+            m = min(len(common), len(r))
+            i = 0
+            while i < m and common[i] == r[i]:
+                i += 1
+            common = common[:i]
+        return common
+
     def _run(self):
         eng, width = self._eng, self.width
-        cache = init_kv_cache(
-            eng.cfg, batch=self.k, max_seq=width, device=eng.device, dtype=eng.dtype,
-            quant=eng.kv_quant,
-        )
+        # Wave prefix reuse (the panel's one-prompt fan-out): whole chunks
+        # of the rows' common prefix found in the snapshot are forked, not
+        # prefilled. Full-prompt chunked waves only.
+        reuse_base, saved, common = 0, None, []
+        if self._prefix_cache is None and self._use_chunks and eng.prefix_cache_enabled:
+            common = self._common_prefix()
+            lcp, snap = eng._reusable_prefix(common) if common else (0, None)
+            base = lcp // self._chunk_len * self._chunk_len
+            if base >= self._chunk_len:
+                reuse_base, saved = base, snap
+        if saved is not None:
+            cache = _fork_prefix(saved, reuse_base, self.k, width)
+        else:
+            cache = init_kv_cache(
+                eng.cfg, batch=self.k, max_seq=width, device=eng.device, dtype=eng.dtype,
+                quant=eng.kv_quant,
+            )
         tokens = eng.to_device([r + [0] * (width - len(r)) for r in self.rows])
         prefix = {}
         if self._prefix_cache is not None:
@@ -728,25 +938,209 @@ class AdmissionPrefill:
                                              logits_index=last, capture=cap, **prefix)
             return logits[:, 0], cache, width
         chunk = self._chunk_len
+        first = reuse_base // chunk
+        n_chunks = width // chunk
         # Per-row "last token in THIS chunk", clamped: each row reads the
         # logits of the chunk that holds its real last token.
         idx = eng.to_device([
             [min(max(len(r) - 1 - c * chunk, 0), chunk - 1) for r in self.rows]
-            for c in range(width // chunk)
+            for c in range(first, n_chunks)
         ])
         per_chunk = []
-        n_chunks = width // chunk
-        cap = eng._capture("prefill", ((self.k, chunk), width), self.k * width, n_chunks)
-        for c in range(n_chunks):
-            counted = cap if c == 0 else None
+        cap = eng._capture("prefill", ((self.k, chunk), width), self.k * (width - reuse_base),
+                           n_chunks - first)
+        for c in range(first, n_chunks):
+            counted = cap if c == first else None
             with counted or nullcontext():
                 logits, cache = eng._forward(
                     tokens[:, c * chunk:(c + 1) * chunk], cache, c * chunk,
-                    attn_impl="torch", kv_width=width, logits_index=idx[c],
+                    attn_impl="torch", kv_width=width, logits_index=idx[c - first],
                     capture=counted, **prefix,
                 )
             per_chunk.append(logits[:, 0])
-        sel = eng.to_device([(len(r) - 1) // chunk for r in self.rows])
-        stacked = torch.stack(per_chunk)  # [C, k, V]
+        sel = eng.to_device([(len(r) - 1) // chunk - first for r in self.rows])
+        stacked = torch.stack(per_chunk)  # [C - first, k, V]
         rows = torch.arange(self.k, device=stacked.device)
+        # Row 0 becomes the next snapshot when the wave's rows share a
+        # chunk (evidence of prefix traffic; a wave of unrelated prompts
+        # must not evict a live snapshot) and the snapshot is not already
+        # row 0: the copy allocates a full [1, max_seq] cache.
+        if (
+            self.k > 1 and len(common) >= chunk
+            and eng._prefix_ids != tuple(self.rows[0])
+        ):
+            template = init_kv_cache(eng.cfg, batch=1, max_seq=eng.max_seq, device=eng.device,
+                                     dtype=eng.dtype, quant=eng.kv_quant)
+            eng._retain_prefix(self.rows[0], _extract_row0(template, cache, width))
         return stacked[sel, rows], cache, width
+
+
+class PrefillSession:
+    """Incremental prefill: token chunks append to ONE growing KV cache (the
+    JAX engine's ``PrefillSession``, the judge-overlap half of its
+    prefill/decode overlap, consensus/overlap.py).
+
+    The judge prompt's header and each panel answer prefill the moment they
+    exist, through the engine's own chunk forward (:meth:`Engine._prefill_chunk`),
+    instead of after the last answer lands. Each whole chunk dispatches as
+    soon as it is complete, over ``kv_width = _bucket(base + chunk)``, so
+    attention grows with the content; the wider windows add only masked
+    zeros, but other float orders, so logits agree with the one-shot
+    prefill within tolerance, not bitwise. ``generate`` pads and prefills
+    the residue, then runs the engine's decode loop on the session cache,
+    as ``Engine.generate`` does, and retains it as the engine's prefix
+    snapshot.
+
+    One full-capacity [1, max_seq] cache is allocated at construction and
+    held until ``generate`` consumes it or :meth:`close` drops it. Single
+    use; appends serialize on one lock. Ids past the context window set
+    ``overflowed`` and stay unprefilled: a written cache cannot be
+    middle-out truncated, so the caller takes the classic path. The port
+    has no weight swap, so the JAX session's migration to a new weight
+    version is not ported.
+    """
+
+    def __init__(self, engine: Engine):
+        if not engine.prefill_chunk:
+            raise ValueError("PrefillSession requires chunked prefill (prefill_chunk > 0)")
+        self._eng = engine
+        self._chunk = engine.prefill_chunk
+        self._lock = threading.Lock()
+        self._ids: list[int] = []
+        self._base = 0  # ids already prefilled (a chunk multiple)
+        self._last_logits: Optional[torch.Tensor] = None
+        self._done: Optional[torch.cuda.Event] = None  # after the last dispatch (card)
+        self._closed = False
+        self.overflowed = False
+        with torch.inference_mode():
+            self._cache = init_kv_cache(engine.cfg, batch=1, max_seq=engine.max_seq,
+                                        device=engine.device, dtype=engine.dtype,
+                                        quant=engine.kv_quant)
+
+    @property
+    def tokens(self) -> int:
+        """Tokens appended so far (prefilled and residue)."""
+        with self._lock:
+            return len(self._ids)
+
+    @property
+    def prefilled(self) -> int:
+        """Tokens whose prefill has been dispatched (whole chunks)."""
+        with self._lock:
+            return self._base
+
+    @property
+    def closed(self) -> bool:
+        with self._lock:
+            return self._closed
+
+    def close(self) -> None:
+        """Drop the cache; later appends and ``generate`` raise."""
+        with self._lock:
+            self._closed = True
+            self._cache = self._last_logits = None
+
+    def append_text(self, text: str) -> int:
+        """Tokenize and append; returns the number of tokens appended. The
+        pieces concatenate into one prompt, so a leading BOS is kept only
+        on the session's first piece."""
+        tok = self._eng.tokenizer
+        ids = tok.encode(text)
+        bos = getattr(tok, "bos_id", None)
+        with self._lock:
+            if self._ids and ids and bos is not None and ids[0] == bos:
+                ids = ids[1:]
+            self._append_locked(ids)
+        return len(ids)
+
+    def append(self, ids: list[int]) -> None:
+        """Append ``ids``; every whole chunk they complete is dispatched at
+        once (asynchronously on a card)."""
+        with self._lock:
+            self._append_locked(list(ids))
+
+    def _append_locked(self, ids: list[int]) -> None:
+        eng, chunk = self._eng, self._chunk
+        if self._closed:
+            raise RuntimeError("PrefillSession already consumed")
+        self._ids.extend(ids)
+        # Overflow: the final padded chunk would end past capacity (the
+        # classic paths' n_chunks * chunk <= max_seq guard).
+        if len(self._ids) >= eng.max_seq or -(-len(self._ids) // chunk) * chunk > eng.max_seq:
+            self.overflowed = True
+        if self.overflowed:
+            return
+        while len(self._ids) - self._base >= chunk:
+            self._dispatch(self._ids[self._base:self._base + chunk], chunk - 1)
+            self._base += chunk
+
+    def _dispatch(self, chunk_ids: list[int], last: int) -> None:
+        """One chunk of the session at ``self._base``."""
+        eng = self._eng
+        kv_width = _bucket(self._base + self._chunk, eng.max_seq)
+        cap = eng._capture("prefill", ((1, self._chunk), kv_width), self._chunk)
+        with torch.inference_mode(), cap or nullcontext():
+            self._last_logits = eng._prefill_chunk(
+                eng._ids_tensor(chunk_ids), self._cache, self._base,
+                torch.full((1,), last, device=eng.device), kv_width, capture=cap)
+        if eng.device.type == "cuda":
+            self._done = torch.cuda.Event()
+            self._done.record()
+
+    def sync(self) -> None:
+        """Wait until every dispatched chunk has completed on the device."""
+        with self._lock:
+            done = self._done
+        if done is not None:
+            done.synchronize()
+
+    def generate(self, sampling: SamplingParams = SamplingParams(),
+                 ctx: Optional[Context] = None,
+                 on_text: Optional[Callable[[str], None]] = None) -> GenerateResult:
+        """Prefill the residue (one padded final chunk), then decode. The
+        chunk padding lands at slots >= the prompt length, which decode
+        overwrites before its frontier reaches them."""
+        eng = self._eng
+        ctx = ctx or Context.background()
+        start_time = time.monotonic()
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("PrefillSession already consumed")
+            if self.overflowed:
+                raise ValueError("session overflowed the context window; use the classic "
+                                 "(truncating) prompt path")
+            n = len(self._ids)
+            if n == 0:
+                raise ValueError("empty prompt")
+            if n >= eng.max_seq:
+                raise ValueError(f"prompt length {n} exceeds max sequence length {eng.max_seq}")
+            residue = n - self._base
+            if residue > 0:
+                if self._base + self._chunk > eng.max_seq:
+                    raise ValueError("residue chunk would overrun cache capacity")
+                self._dispatch(self._ids[self._base:] + [0] * (self._chunk - residue),
+                               residue - 1)
+                self._base = n
+            ids, last_logits, cache = list(self._ids), self._last_logits, self._cache
+            self._closed = True
+            self._cache = self._last_logits = None  # consumed by the decode loop
+        decoder = StreamDecoder(eng.tokenizer)
+        parts: list[str] = []
+
+        def on_token(tok_id: int) -> None:
+            text = decoder.push(tok_id)
+            if text:
+                parts.append(text)
+                if on_text is not None:
+                    on_text(text)
+
+        with torch.inference_mode():
+            result = eng._decode_stream(ids, last_logits, cache, sampling, ctx, on_token,
+                                        start_time)
+        tail = decoder.flush()
+        if tail:
+            parts.append(tail)
+            if on_text is not None:
+                on_text(tail)
+        result.text = "".join(parts)
+        return result

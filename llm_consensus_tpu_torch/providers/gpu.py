@@ -18,13 +18,30 @@ quantization modes (``quant``, ``kv_quant``, ``w8a8``, ``decode_w8a8``,
 ``int4_impl``) go to every engine the provider builds; unknown modes raise
 in the constructor, before anything is built.
 
+``prefix_cache`` and ``prefix_cache_max_mb`` go to every engine (prefix
+snapshot reuse, on by default as in the JAX package); ``release()`` drops
+the engines with their snapshots and open prefill sessions.
+
 ``batch_streams`` > 1 routes every request for a preset through one
 ``ContinuousBatcher`` over that preset's engine (built once, under a build
 lock), so concurrent streams of one model share the decode; greedy results
 equal the single-stream path's. ``pool_prefix`` and ``pool_prefix_min`` go
 to the batcher (shared-prefix serving: a panel of one model fans one prompt
-out to N streams). A failed submit raises: there is no fallback to the
-single-stream path.
+out to N streams). A submit the batcher refuses (``RuntimeError`` or
+``ValueError``: it is closed) or a submission a concurrent close cancelled
+goes to the single-stream ``engine.generate``.
+
+The retry ladder (the JAX provider's): a failed engine build gets one more
+build; a failed generate on which nothing streamed yet evicts the engine,
+drops the last reference to it, builds a fresh one and retries once (the
+rebuild runs outside the ``except`` block, so the failed engine is
+collectible before the new one allocates). On one card there is nowhere
+else to place the model, so a second failure fails it (a warning in the
+run, as the runner's best-effort rule says). ``torch.cuda.OutOfMemoryError``
+is the transient the ladder is for. No step catches ``Cancelled``,
+``DeadlineExceeded`` or a ``ValueError`` of the request, nor a
+``KernelBuildError`` or ``KernelLaunchError``: a retry on the same kernel
+would only hide the fault, so those propagate.
 
 Telemetry (obs/), bound at construction: an ``engine_stream`` span per
 request (recorder and flight recorder), the per-token latency into the live
@@ -35,19 +52,26 @@ weights) the CLI's footer and ``metrics.json`` read.
 
 from __future__ import annotations
 
+import gc
 import os
 import threading
 import time
+from concurrent.futures import CancelledError
 from typing import Optional
 
 from llm_consensus_tpu_torch import obs
+from llm_consensus_tpu_torch.engine.engine import PREFIX_CACHE_MAX_MB
 from llm_consensus_tpu_torch.obs.live import class_label
+from llm_consensus_tpu_torch.ops.kernels.build import KernelBuildError, KernelLaunchError
 from llm_consensus_tpu_torch.providers.base import Provider, Request, Response, StreamCallback
-from llm_consensus_tpu_torch.utils.context import Context
+from llm_consensus_tpu_torch.utils.context import Cancelled, Context, DeadlineExceeded
 from llm_consensus_tpu_torch.utils.device import DeviceLike, device_name, resolve_device
 
 DEFAULT_MAX_NEW_TOKENS = 4096
 SCHEME = "gpu:"
+# Errors the retry ladder never retries: a cancel or deadline, the
+# request's own ValueError, and a kernel that failed to build or launch.
+_NO_RETRY = (Cancelled, DeadlineExceeded, ValueError, KernelBuildError, KernelLaunchError)
 
 
 def parse_model_name(model: str) -> str:
@@ -86,8 +110,11 @@ class GPUProvider(Provider):
 
     def __init__(self, *, device: DeviceLike = None, max_seq: Optional[int] = None,
                  batch_streams: int = 1, pool_prefix: bool = True, pool_prefix_min: int = 192,
-                 checkpoint_dir: Optional[str] = None, **modes):
+                 checkpoint_dir: Optional[str] = None, prefix_cache: bool = True,
+                 prefix_cache_max_mb: float = PREFIX_CACHE_MAX_MB, **modes):
         self.modes = _resolve_modes(**modes)
+        self.prefix = {"prefix_cache": bool(prefix_cache),
+                       "prefix_cache_max_mb": float(prefix_cache_max_mb)}
         self.device = resolve_device(device)
         self.checkpoint_dir = checkpoint_dir or None
         self.batch_streams = batch_streams
@@ -108,22 +135,26 @@ class GPUProvider(Provider):
     @classmethod
     def shared(cls, device: DeviceLike = None, *, batch_streams: int = 1,
                pool_prefix: bool = True, pool_prefix_min: int = 192,
-               checkpoint_dir: Optional[str] = None, **modes) -> "GPUProvider":
-        """One provider per device, quantization modes, batching settings
-        and checkpoint directory for the process (the CLI's factory): a
-        quantized run never reuses a bf16 engine, a batched run never an
-        unbatched provider, a checkpointed run never random weights."""
+               checkpoint_dir: Optional[str] = None, prefix_cache: bool = True,
+               prefix_cache_max_mb: float = PREFIX_CACHE_MAX_MB, **modes) -> "GPUProvider":
+        """One provider per device, quantization modes, batching settings,
+        checkpoint directory and prefix settings for the process (the CLI's
+        factory): a quantized run never reuses a bf16 engine, a batched run
+        never an unbatched provider, a checkpointed run never random
+        weights."""
         dev = resolve_device(device)
         modes = _resolve_modes(**modes)
         batching = {"batch_streams": batch_streams, "pool_prefix": bool(pool_prefix),
                     "pool_prefix_min": pool_prefix_min}
+        prefix = {"prefix_cache": bool(prefix_cache),
+                  "prefix_cache_max_mb": float(prefix_cache_max_mb)}
         checkpoint_dir = checkpoint_dir or None
         key = (dev, tuple(sorted(modes.items())), tuple(sorted(batching.items())),
-               checkpoint_dir)
+               checkpoint_dir, tuple(sorted(prefix.items())))
         with cls._shared_lock:
             if key not in cls._shared:
                 cls._shared[key] = cls(device=dev, checkpoint_dir=checkpoint_dir, **batching,
-                                       **modes)
+                                       **prefix, **modes)
             return cls._shared[key]
 
     def prepare(self, models: list[str], judge: Optional[str]) -> None:
@@ -147,14 +178,35 @@ class GPUProvider(Provider):
         return {preset: b.snapshot() for preset, b in batchers.items()}
 
     def release(self) -> None:
-        """Close every batcher and drop every engine (weights and caches
-        become collectible)."""
+        """Close every batcher and drop every engine with its prefix
+        snapshot and open prefill sessions (weights and caches become
+        collectible, even where a caller still holds an engine or a
+        session)."""
         with self._lock:
             batchers = list(self._batchers.values())
+            engines = list(self._engines.values())
             self._batchers.clear()
             self._engines.clear()
         for b in batchers:
             b.close()
+        for engine in engines:
+            engine.drop_prefix()
+            engine.close_sessions()
+
+    def _evict(self, preset: str, engine) -> None:
+        """Drop ``preset``'s engine and batcher when they are still
+        ``engine``'s (a concurrent retry may have published a healthy
+        replacement already), closing the batcher."""
+        with self._lock:
+            if self._engines.get(preset) is engine:
+                del self._engines[preset]
+            batcher = self._batchers.get(preset)
+            if batcher is not None and batcher.engine is engine:
+                del self._batchers[preset]
+            else:
+                batcher = None
+        if batcher is not None:
+            batcher.close()
 
     def _get_or_build(self, table: dict, kind: str, preset: str, build):
         """``table[preset]``, built by ``build(preset)`` on first use.
@@ -195,7 +247,7 @@ class GPUProvider(Provider):
             tokenizer = load_tokenizer(ckpt)
         max_seq = min(self._max_seq, cfg.max_seq_len) if self._max_seq else None
         return Engine(cfg, params, device=self.device, max_seq=max_seq, tokenizer=tokenizer,
-                      **self.modes)
+                      **self.modes, **self.prefix)
 
     def _batcher_for(self, preset: str, engine):
         """The batcher serving ``preset`` over ``engine``, built once."""
@@ -204,6 +256,27 @@ class GPUProvider(Provider):
         return self._get_or_build(self._batchers, "batcher", preset, lambda _: ContinuousBatcher(
             engine, max_batch=self.batch_streams, pool_prefix=self.pool_prefix,
             pool_prefix_min=self.pool_prefix_min))
+
+    def _generate(self, engine, preset: str, prompt: str, sampling, ctx: Context, cb):
+        """One generate of ``prompt`` on ``engine``, through the preset's
+        batcher when batching; a refused or cancelled submission runs
+        single-stream."""
+        if self.batch_streams <= 1:
+            return engine.generate(prompt, sampling, ctx, on_text=cb)
+        batcher = self._batcher_for(preset, engine)
+        try:
+            fut = batcher.submit(prompt, sampling, ctx, on_text=cb)
+        except (KernelBuildError, KernelLaunchError):
+            raise
+        except (RuntimeError, ValueError):
+            # A closed batcher (a shutdown or eviction race): direct path.
+            return engine.generate(prompt, sampling, ctx, on_text=cb)
+        try:
+            return fut.result()
+        except CancelledError:
+            # A concurrent close cancelled the queued submission: a benign
+            # race, not an engine failure.
+            return engine.generate(prompt, sampling, ctx, on_text=cb)
 
     def query(self, ctx: Context, req: Request) -> Response:
         return self.query_stream(ctx, req, None)
@@ -214,7 +287,13 @@ class GPUProvider(Provider):
         from llm_consensus_tpu_torch.engine import SamplingParams
         from llm_consensus_tpu_torch.utils.flops import decode_mbu, decode_mfu
 
-        engine = self._engine_for(req.model)
+        try:
+            engine = self._engine_for(req.model)
+        except _NO_RETRY:
+            raise
+        except Exception:  # noqa: BLE001 — a transient build failure: one more build
+            ctx.raise_if_done()
+            engine = self._engine_for(req.model)
         start = time.monotonic()
         t0_ns = time.monotonic_ns() if self._obs is not None or self._bb is not None else 0
         sampling = SamplingParams(
@@ -228,11 +307,32 @@ class GPUProvider(Provider):
             # The plain engine has no chat template; fold the system
             # prompt ahead of the user prompt.
             prompt = f"{req.system}\n\n{req.prompt}"
-        if self.batch_streams > 1:
-            batcher = self._batcher_for(parse_model_name(req.model), engine)
-            result = batcher.submit(prompt, sampling, ctx, on_text=callback).result()
-        else:
-            result = engine.generate(prompt, sampling, ctx, on_text=callback)
+        streamed = [0]
+        cb = callback
+        if callback is not None:
+            def cb(chunk, _callback=callback):
+                streamed[0] += 1
+                _callback(chunk)
+        preset = parse_model_name(req.model)
+        retry = False
+        try:
+            result = self._generate(engine, preset, prompt, sampling, ctx, cb)
+        except _NO_RETRY:
+            raise
+        except Exception:  # noqa: BLE001 — one rebuild, unless text already streamed
+            if streamed[0]:
+                raise
+            retry = True
+        if retry:
+            # Outside the except block: the traceback no longer pins the
+            # failed engine's frames, so it is collectible before the
+            # fresh one allocates.
+            ctx.raise_if_done()  # never pay a rebuild for a doomed request
+            self._evict(preset, engine)
+            engine = None
+            gc.collect()
+            engine = self._engine_for(req.model)
+            result = self._generate(engine, preset, prompt, sampling, ctx, cb)
         with self._lock:
             self.stats["tokens"] += len(result.token_ids)
             self.stats["runs"] += 1

@@ -5,14 +5,16 @@ of ``llm_consensus_tpu/utils/context.py`` on plain ``threading``).
   * ``ctx.with_timeout(s)`` / ``ctx.with_cancel()``: derived children.
   * Cancelling a parent cancels all descendants.
   * Cooperative: long-running work calls ``ctx.raise_if_done()`` between
-    steps (the engine checks at every decode-chunk boundary).
+    steps (the engine checks at every decode-chunk boundary); blocking I/O
+    registers ``ctx.on_done(fn)`` to be interrupted (the HTTP providers
+    close their socket) and waits with ``ctx.sleep``.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 
 class Cancelled(Exception):
@@ -39,6 +41,7 @@ class Context:
         self._event = threading.Event()
         self._lock = threading.Lock()
         self._children: list[Context] = []
+        self._callbacks: list = []
         self._err: Optional[Exception] = None
         if parent is not None:
             parent._check_deadline()
@@ -72,10 +75,36 @@ class Context:
             if self._err is None:
                 self._err = err if err is not None else Cancelled()
             self._event.set()
-            children = self._children
-            self._children = []
+            children, callbacks = self._children, self._callbacks
+            self._children, self._callbacks = [], []
         for child in children:
             child._propagate(self._err)
+        for fn in callbacks:
+            try:
+                fn()
+            except Exception:  # noqa: BLE001 — a hook must not stop propagation
+                pass
+
+    def on_done(self, fn: Callable[[], None]) -> Callable[[], None]:
+        """Run ``fn`` when this context is cancelled or found expired (at
+        once when it already is). Returns the function that unsubscribes
+        it."""
+        self._check_deadline()
+        with self._lock:
+            if self._err is None:
+                self._callbacks.append(fn)
+
+                def unsubscribe() -> None:
+                    with self._lock:
+                        if fn in self._callbacks:
+                            self._callbacks.remove(fn)
+
+                return unsubscribe
+        try:
+            fn()
+        except Exception:  # noqa: BLE001
+            pass
+        return lambda: None
 
     def close(self) -> None:
         """Cancel this context and detach it from its parent (Go's
@@ -119,3 +148,14 @@ class Context:
         if self._deadline is None:
             return 0.0
         return max(0.0, time.monotonic() - self._deadline)
+
+    def sleep(self, seconds: float) -> bool:
+        """Sleep, waking early on cancellation or at the deadline. Returns
+        True when it slept the full ``seconds``."""
+        budget = seconds
+        rem = self.remaining()
+        if rem is not None:
+            budget = min(budget, rem)
+        interrupted = self._event.wait(budget)
+        self._check_deadline()
+        return not interrupted and budget == seconds and not self.done()

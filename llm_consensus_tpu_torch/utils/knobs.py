@@ -1,7 +1,8 @@
 """Environment knobs of the port, read at one boundary only: the CLI
 (``cli/main.py``: its provider factory, its telemetry planes and its
 config file). Engines and providers take explicit arguments and read no
-environment.
+``LLMC_*`` variable (the remote HTTP providers read their API keys and
+base URLs themselves, as the JAX ones do).
 
 The parsing is the JAX package's (``llm_consensus_tpu/utils/knobs.py``
 ``get_str``/``get_bool``): an unset or empty value means the default, and
@@ -22,6 +23,12 @@ knobs that the JAX package declares, with the same meaning:
     above 0 is refused;
   * ``LLMC_CHECKPOINT_DIR``: the directory of per-preset HF safetensors
     checkpoints (``<dir>/<preset>/``);
+  * ``LLMC_PREFIX_CACHE`` (default on) and ``LLMC_PREFIX_CACHE_MAX_MB``
+    (2048; MB = 1e6 bytes): the engines' prefix snapshot reuse and its cap;
+  * ``LLMC_JUDGE_OVERLAP``: the judge prompt prefills as panel answers
+    arrive (``--judge-overlap``);
+  * ``LLMC_HTTP_RETRIES`` (2) and ``LLMC_HTTP_BACKOFF`` (0.5 s, doubling
+    per attempt): the remote providers' retries of transient failures;
   * the telemetry planes (:func:`telemetry_settings`, installed by the CLI
     before any provider exists): ``LLMC_EVENTS`` and ``LLMC_EVENTS_MAX``
     (the recorder), ``LLMC_LIVE`` (default on), ``LLMC_LIVE_WINDOW_S``,
@@ -148,6 +155,29 @@ def checkpoint_dir() -> dict:
     """The checkpoint directory of the environment, as the keyword argument
     of ``GPUProvider`` (None when unset)."""
     return {"checkpoint_dir": get_str("LLMC_CHECKPOINT_DIR") or None}
+
+
+def prefix_settings() -> dict:
+    """The prefix snapshot settings of the environment, as the keyword
+    arguments of ``GPUProvider`` and ``Engine``."""
+    return {
+        "prefix_cache": get_bool("LLMC_PREFIX_CACHE", True),
+        "prefix_cache_max_mb": get_float("LLMC_PREFIX_CACHE_MAX_MB", 2048.0),
+    }
+
+
+def judge_overlap() -> bool:
+    """``LLMC_JUDGE_OVERLAP``: the judge-overlap default (off)."""
+    return get_bool("LLMC_JUDGE_OVERLAP")
+
+
+def http_settings() -> dict:
+    """The remote providers' retry settings of the environment, as their
+    keyword arguments (a malformed value means the default)."""
+    return {
+        "retries": max(0, get_int("LLMC_HTTP_RETRIES", 2)),
+        "backoff": get_float("LLMC_HTTP_BACKOFF", 0.5),
+    }
 
 
 def config_file() -> str:

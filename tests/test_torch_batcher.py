@@ -41,7 +41,8 @@ PREFIX = (
 
 @pytest.fixture(autouse=True)
 def _no_jax_prefix_reuse(monkeypatch):
-    # The JAX engine's snapshot reuse has no counterpart in the port.
+    # Each JAX generate a fresh prefill: these tests compare single
+    # generates (prefix reuse is held to JAX in test_torch_prefix_reuse.py).
     monkeypatch.setenv("LLMC_PREFIX_CACHE", "0")
 
 
@@ -466,7 +467,7 @@ def test_prefix_pool_compaction_stays_exact(make_batcher):
 
 def test_oversized_dense_prefix_falls_back_to_no_sharing(make_batcher):
     eng = Engine(get_config("tiny-llama"), dtype=torch.float32, max_seq=256,
-                 stream_interval=8, device="cpu", prefix_max_bytes=1000)
+                 stream_interval=8, device="cpu", prefix_cache_max_mb=0.001)
     b = make_batcher(eng, max_batch=4, pool_prefix_min=64)
     s = SamplingParams(max_new_tokens=8, ignore_eos=True)
     prompts = [f"{PREFIX} big {i}" for i in range(2)]

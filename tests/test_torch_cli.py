@@ -572,3 +572,100 @@ def test_cli_refuses_interleaved_admission(batch_knobs, monkeypatch):
     from llm_consensus_tpu_torch.utils.knobs import batch_settings
 
     assert batch_settings()["batch_streams"] == 4
+
+
+# -- remote providers and the overlapped judge ---------------------------------------
+
+
+@pytest.fixture
+def fake_openai(monkeypatch):
+    """A local stand-in for the OpenAI Responses API (SSE), reached through
+    OPENAI_BASE_URL; yields the bodies it received."""
+    from http.server import BaseHTTPRequestHandler, HTTPServer
+
+    bodies = []
+
+    class Handler(BaseHTTPRequestHandler):
+        def do_POST(self):
+            body = json.loads(self.rfile.read(int(self.headers.get("Content-Length", 0))))
+            bodies.append(body)
+            self.send_response(200)
+            self.send_header("Content-Type", "text/event-stream")
+            self.end_headers()
+            for delta in ("remote ", "answer"):
+                event = {"type": "response.output_text.delta", "delta": delta}
+                self.wfile.write(f"data: {json.dumps(event)}\n\n".encode())
+            self.wfile.write(b"data: [DONE]\n\n")
+
+        def log_message(self, *args):
+            pass
+
+    server = HTTPServer(("127.0.0.1", 0), Handler)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    monkeypatch.setenv("OPENAI_API_KEY", "sk-test")
+    monkeypatch.setenv("OPENAI_BASE_URL", f"http://127.0.0.1:{server.server_address[1]}")
+    yield bodies
+    server.shutdown()
+    thread.join(timeout=10)
+    assert not thread.is_alive()
+
+
+def test_mixed_panel_with_judge_overlap_writes_the_jax_cli_run(tmp_path, fake_openai,
+                                                              monkeypatch):
+    """A remote model beside a gpu one, the gpu judge overlapped (it is also
+    a panel model, so its session prefills while its engine decodes the
+    panel answer): both CLIs write the same run directory and result.json
+    fields, and the port's judge really rode a prefill session."""
+    from llm_consensus_tpu_torch.engine import Engine
+
+    sessions = []
+    real_session = Engine.prefill_session
+
+    def counted(self):
+        sessions.append(self.cfg.name)
+        return real_session(self)
+
+    monkeypatch.setattr(Engine, "prefill_session", counted)
+    docs, dirs = {}, {}
+    for scheme, runner in (("tpu", _run_jax), ("gpu", _run)):
+        data = tmp_path / scheme
+        rc, out, err = runner([
+            "--models", f"gpt-5.2-2025-12-11,{scheme}:tiny-llama",
+            "--judge", f"{scheme}:tiny-llama", "--judge-overlap", "--max-tokens", MAX_TOKENS,
+            "--data-dir", str(data), QUESTION])
+        assert rc == 0, err
+        (dirs[scheme],) = list(data.iterdir())
+        docs[scheme] = _doc(dirs[scheme])
+    assert sorted(os.listdir(dirs["gpu"])) == sorted(os.listdir(dirs["tpu"]))
+    assert sorted(os.listdir(dirs["gpu"] / "panel")) == sorted(
+        n.replace("tpu_", "gpu_") for n in os.listdir(dirs["tpu"] / "panel"))
+    doc, jax_doc = docs["gpu"], docs["tpu"]
+    assert list(doc) == list(jax_doc)
+    by_model = {r["model"]: r for r in doc["responses"]}
+    jax_by_model = {r["model"].replace("tpu:", "gpu:"): r for r in jax_doc["responses"]}
+    assert sorted(by_model) == sorted(jax_by_model) == ["gpt-5.2-2025-12-11", "gpu:tiny-llama"]
+    for model, resp in by_model.items():
+        assert list(resp) == list(jax_by_model[model])
+    remote = by_model["gpt-5.2-2025-12-11"]
+    assert remote["content"] == jax_by_model["gpt-5.2-2025-12-11"]["content"] == "remote answer"
+    assert remote["provider"] == "openai"
+    assert doc["judge"] == "gpu:tiny-llama" and doc["consensus"] and not doc.get("warnings")
+    assert sessions == ["tiny-llama"]  # the port's judge rode one prefill session
+    assert [b["input"] for b in fake_openai] == [QUESTION, QUESTION]
+    assert all(b["stream"] is True and b["model"] == "gpt-5.2-2025-12-11" for b in fake_openai)
+
+
+def test_unknown_model_message_is_the_jax_clis():
+    rc, _, err = _run(["--models", "openai-model", "x"])
+    jax_rc, _, jax_err = _run_jax(["--models", "openai-model", "x"])
+    assert rc == jax_rc == 1
+    assert err == jax_err.replace("tpu:<model>", "gpu:<model>")
+    assert "gpt-5.2-2025-12-11" in err and "'gpu:<model>'" in err
+
+
+def test_remote_model_without_a_key_fails_at_registry_init(monkeypatch):
+    monkeypatch.delenv("ANTHROPIC_API_KEY", raising=False)
+    rc, _, err = _run(["--models", "claude-opus-4-5,gpu:tiny-llama", "x"])
+    assert rc == 1
+    assert "initializing provider for claude-opus-4-5" in err and "ANTHROPIC_API_KEY" in err

@@ -27,8 +27,8 @@ LONG = "a long prompt that spans several prefill chunks: " + "tokens " * 12
 
 @pytest.fixture(autouse=True)
 def _no_prefix_reuse(monkeypatch):
-    # The JAX engine's prefix snapshot reuse has no counterpart in the
-    # port yet; keep each JAX generate a fresh prefill.
+    # Each JAX generate a fresh prefill: these tests compare single
+    # generates (prefix reuse is held to JAX in test_torch_prefix_reuse.py).
     monkeypatch.setenv("LLMC_PREFIX_CACHE", "0")
 
 

@@ -614,3 +614,79 @@ def test_hbm_device_stats_read_the_card(cuda, planes):
     assert st["bytes_in_use"] >= x.numel() * 4 and st["peak_bytes_in_use"] >= st["bytes_in_use"]
     assert st["bytes_limit"] == torch.cuda.get_device_properties(0).total_memory
     assert "device" in led.snapshot()["hbm"]
+
+
+# -- prefix reuse, the prefill session and the retry ladder on the card --------------
+
+# bf16 logits of two computation orders (a restored or appended cache against a
+# one-shot prefill), the bound chip_smoke.py holds the batched path to.
+REUSE_LOGIT_TOL = 0.25
+
+
+def _reuse_engines(cuda):
+    cfg = get_config("tiny-llama", head_dim=128)
+    eng = Engine(cfg, max_seq=1024, device=cuda, prefill_chunk=128, stream_interval=8)
+    fresh = Engine(cfg, eng.params, max_seq=1024, device=cuda, prefill_chunk=128,
+                   stream_interval=8, prefix_cache=False)
+    return eng, fresh
+
+
+def test_prefix_reuse_on_the_card_matches_a_fresh_engine(cuda):
+    eng, fresh = _reuse_engines(cuda)
+    ids = [eng.tokenizer.bos_id] + list(range(32, 127)) * 3
+    s = SamplingParams(max_new_tokens=24, ignore_eos=True)
+    first = eng.generate_ids(ids, s)
+    follow = ids + first.token_ids + list(range(40, 100))
+    assert eng._reusable_prefix(follow)[0] == len(ids) + 24
+    with torch.inference_mode():
+        reused, _ = eng._prefill_ids(follow)
+        ref, _ = fresh._prefill_ids(follow)
+    assert bool(torch.isfinite(reused).all())
+    assert (reused - ref).abs().max().item() <= REUSE_LOGIT_TOL
+    # The snapshot is only read: three generates of one prompt agree.
+    runs = [eng.generate_ids(follow, s).token_ids for _ in range(3)]
+    assert runs[0] == runs[1] == runs[2]
+
+
+def test_prefill_session_on_the_card_matches_one_shot(cuda):
+    """Uneven appends of a 384-token prompt (three whole chunks): the
+    session's last logits against the one-shot chunked prefill, then its
+    decode."""
+    eng, fresh = _reuse_engines(cuda)
+    ids = [eng.tokenizer.bos_id] + (list(range(32, 127)) * 5)[:383]
+    with torch.inference_mode():
+        ref, _ = fresh._prefill_ids(ids)
+    sess = eng.prefill_session()
+    for i in range(0, len(ids), 100):
+        sess.append(ids[i:i + 100])
+    sess.sync()
+    assert sess.prefilled == len(ids) == 384
+    assert (sess._last_logits - ref).abs().max().item() <= REUSE_LOGIT_TOL
+    out = sess.generate(SamplingParams(max_new_tokens=16, ignore_eos=True))
+    assert len(out.token_ids) == 16 and out.prompt_tokens == len(ids)
+    assert all(0 <= t < eng.cfg.vocab_size for t in out.token_ids)
+
+
+def test_ladder_propagates_a_kernel_error_on_the_card(cuda, monkeypatch):
+    from llm_consensus_tpu_torch.ops.kernels.build import KernelLaunchError
+    from llm_consensus_tpu_torch.providers import Request
+    from llm_consensus_tpu_torch.providers.gpu import GPUProvider
+    from llm_consensus_tpu_torch.utils.context import Context
+
+    provider = GPUProvider(device=cuda, max_seq=256)
+    req = Request(model="gpu:tiny-llama", prompt="ladder probe", max_tokens=8)
+    try:
+        assert provider.query(Context.background(), req).tokens == 8
+        engine = provider.engines()["tiny-llama"]
+        builds = []
+        monkeypatch.setattr(provider, "_build_engine", lambda preset: builds.append(preset))
+
+        def launch_failed(*a, **k):
+            raise KernelLaunchError("decode_bf16_kernel: an illegal memory access")
+
+        monkeypatch.setattr(engine, "generate", launch_failed)
+        with pytest.raises(KernelLaunchError):
+            provider.query(Context.background(), req)
+        assert builds == [] and provider.engines()["tiny-llama"] is engine
+    finally:
+        provider.release()
