@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phase telemetry # build + the telemetry phase only
     python3 chip_smoke.py --phase modes     # build + the modes phase only
     python3 chip_smoke.py --phase session   # build + the session phase only
+    python3 chip_smoke.py --phase serving   # build + the B = 16 kernel rows + serving
 
 Phases, in order; any failure exits non-zero before the last line:
 
@@ -22,7 +23,9 @@ Phases, in order; any failure exits non-zero before the last line:
    and from a CUDA graph replayed at four frontiers, with the plan's least
    split timed at 128, 256 and 512 slots; the ``return_state`` form of all
    three decode variants at B = 4 with ragged row starts, the bf16 one also at
-   width 8,192 beside the aten memory-efficient attention); each timed with CUDA
+   width 8,192 beside the aten memory-efficient attention; the bf16 decode and
+   its ``return_state`` form at B = 16 with ragged row starts, widths 384 and
+   2,048, beside SDPA and the memory-efficient attention); each timed with CUDA
    graphs, warm (back-to-back calls on the same inputs) and cold (a 128 MiB
    write between calls flushes the 50 MB L2; the flushes alone are timed
    and subtracted), beside its plain version and, where one exists, one
@@ -64,7 +67,7 @@ Phases, in order; any failure exits non-zero before the last line:
    equal); ``--trace DIR`` and ``--profile`` artifacts with the card's
    kernels; the ledger's device-memory numbers against
    ``torch.cuda.max_memory_allocated``; the slice's auto-saved CLI run in
-   a fresh process with the planes on and off, in turns (process and
+   a fresh process with the planes on and off, one of each (process and
    main() walls);
 8b. the consensus modes (``--phase modes``), each through the port's CLI
    over warm shared providers (the slice's panel and judge, bf16, the
@@ -86,7 +89,7 @@ Phases, in order; any failure exits non-zero before the last line:
    within BATCH_LOGIT_TOL; greedy tokens; peak memory with and without the
    snapshot), then a full-prompt wave of 4 rows sharing 1,100 tokens with a
    snapshot to fork and without; (b) the slice's CLI run with
-   ``--judge-overlap`` and without, in turns (on, off, off, on): wall, the
+   ``--judge-overlap`` and without, one of each: wall, the
    judge's time to first token after the panel's end, the session's
    prefilled tokens, the judge prompt's tokens, no classic fallback; (c)
    the provider's retry ladder on consensus-1b: an injected RuntimeError
@@ -97,6 +100,24 @@ Phases, in order; any failure exits non-zero before the last line:
    127.0.0.1 (``OPENAI_BASE_URL``) beside ``gpu:consensus-1b``, the
    llama-3-8b judge overlapped: exit 0, both answers, the JAX CLI's run
    directory; a ``{"session": ...}`` line;
+8d. the serving phase (``--phase serving``) on llama-3-8b, bf16: (a) a
+   ``ContinuousBatcher(max_batch=32)`` takes 32 random 350-token prompts
+   (28 x 32 tokens, 4 x 160), shrinks to 8 rows once the short ones retire
+   (memory_allocated before and after: 24 rows of 1.07 GB freed), then a
+   burst of 12 prompts sharing the slice's prompt regrows it to 16 (the
+   state kernel); rows over time, the step wall at 32, 8 and 16 rows, the 4
+   moved streams against single-stream; (b) four residents (1,501-token
+   prompts, 256 tokens) and a wave of four 1,501-token prompts with
+   ``prefill_budget`` 2048, 0, 0, 2048: the residents' longest gap between
+   fetches while the wave fills, the wave's time to first token, every
+   stream against single-stream; (c) a 2-row pool, two LOW residents (128
+   tokens) and a HIGH latecomer (64): a preemption, the resume through
+   flash, all three against single-stream; (d) the CLI with 4 x llama-3-8b
+   and its judge under ``LLMC_MAX_BATCH=16 --priority low --prefill-budget
+   2048``: classes 2 and 1 at the batcher. A batched stream in bf16 must
+   equal single-stream or, past a near-tie, keep every token within 0.25 of
+   the model's best logit under teacher forcing. Any RuntimeWarning fails
+   it. A ``{"serving": ...}`` line;
 9. the quantized slice: the same CLI run with ``LLMC_QUANT=int8
    LLMC_KV_QUANT=int8`` in the environment (int8 weights, int8 KV cache,
    the int8 decode kernel), then a profiler window over one of its
@@ -904,6 +925,110 @@ def time_state_width_8192(torch, da, q, k, v, rs: tuple) -> dict:
     return {"w8192_rs_ms": kern["ms"], "w8192_rs_cold_ms": kern["cold_ms"],
             "w8192_rs_bound_ms": bms, "w8192_library_ms": library["ms"],
             "w8192_library_cold_ms": library["cold_ms"], "w8192_rs": list(rs)}
+
+
+ROWS16_STARTS = (0, 17, 100, 5, 0, 300, 31, 2, 64, 0, 200, 9, 1, 150, 40, 77)
+
+
+def check_decode_rows16(torch, recs: dict) -> None:
+    """The bf16 decode kernel and its ``return_state`` form at B = 16, the
+    row-bucketed pool's middle size: q [16, 1, 32, 128] over llama-3-8b's
+    layer shape with ragged row starts at widths 384 and 2,048 (garbage
+    past each pos), each against its plain version, then timed warm and
+    cold beside its bound and the library call: SDPA for the plain form,
+    aten's memory-efficient attention with its log-sum-exp for the state
+    form, over the GQA-expanded K/V with the row starts as a bias mask."""
+    from llm_consensus_tpu_torch.ops.kernels import decode_attention as da
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    L, B, S, hq, hkv, dh, layer = 4, 16, 2048, 32, 8, 128, 3
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+
+    k, v, q = rnd(L, B, S, hkv, dh), rnd(L, B, S, hkv, dh), rnd(B, 1, hq, dh)
+    rs_t = torch.tensor(ROWS16_STARTS, dtype=torch.int32, device="cuda")
+    layer_t = torch.tensor(layer, dtype=torch.int32, device="cuda")
+    qt = q.transpose(1, 2)  # [B, Hq, 1, dh]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    efficient = torch.ops.aten._scaled_dot_product_efficient_attention
+    rows = {}
+    for pos, w in ((2047, 2048), (383, 384)):  # pos descending: poison never read later
+        k[layer, :, pos + 1:] = float("nan")
+        v[layer, :, pos + 1:] = float("nan")
+        pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        n_valid = sum(pos - r + 1 for r in ROWS16_STARTS)
+        kt = k[layer, :, :w].transpose(1, 2).repeat_interleave(hq // hkv, dim=1).contiguous()
+        vt = v[layer, :, :w].transpose(1, 2).repeat_interleave(hq // hkv, dim=1).contiguous()
+        cols = torch.arange(w, device="cuda")
+        valid = (cols[None, :] <= pos) & (cols[None, :] >= rs_t[:, None].long())
+        bias = torch.zeros((B, hq, 1, w), dtype=torch.bfloat16, device="cuda")
+        bias.masked_fill_(~valid[:, None, None, :], float("-inf"))
+        for state in (False, True):
+            kw = dict(kv_width=w, return_state=state)
+
+            def call(kw=kw, pos_t=pos_t):
+                return da.decode_attention(q, k, v, pos_t, layer_t, rs_t, **kw)
+
+            got = call()
+            torch.cuda.synchronize()
+            want = da.decode_attention_plain(q, k, v, pos, layer, rs_t, **kw)
+            got0, want0 = (got[0], want[0]) if state else (got, want)
+            err, tol = max_err(got0, want0), decode_tol(want0)
+            m_err = l_err = 0.0
+            if state:
+                m_err = max_err(got[1], want[1])
+                l_err = ((got[2] - want[2]).abs() / want[2].abs().clamp_min(1e-30)).max().item()
+            finite = all(bool(torch.isfinite(x).all()) for x in (got if state else (got,)))
+            name = "decode_attention_state" if state else "decode_attention"
+            log(f"rows16 {name} pos {pos} width {w} (split plan {da.split_plan(w, B, hkv)}): "
+                f"out max_abs_err {err:.3e} (tol {tol:.3e})"
+                + (f", m {m_err:.3e} (tol {STATE_M_TOL}), l relative {l_err:.3e} (tol "
+                   f"{STATE_L_REL_TOL})" if state else ""))
+            if (not finite or err > tol or m_err > STATE_M_TOL or l_err > STATE_L_REL_TOL):
+                raise AssertionError(f"{name} at B=16 width {w}: out {err}, m {m_err}, "
+                                     f"l {l_err}, finite {finite}")
+            kern = timed(call, 200)
+            plain_ms, _ = device_time_ms(
+                lambda kw=kw, pos_t=pos_t: da.decode_attention_plain(
+                    q, k, v, pos_t, layer_t, rs_t, **kw), 10)
+            if state:
+                library = timed(lambda: efficient(qt, kt, vt, bias, True), 200)
+            else:
+                library = timed(lambda: sdpa(qt, kt, vt, attn_mask=bias), 200)
+            io_bytes = 2.0 * 2 * B * hq * dh + (2 * 4 * B * hq if state else 0)
+            bms, by = bound_ms(2.0 * 2 * n_valid * hkv * dh + io_bytes, 4.0 * hq * dh * n_valid)
+            row = dict(err=err, m_err=m_err, l_err=l_err, ms=kern["ms"], cold_ms=kern["cold_ms"],
+                       plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                       library_ms=library["ms"], library_cold_ms=library["cold_ms"])
+            rows[(state, w)] = row
+            log(f"rows16 {name} timing q[{B},1,{hq},{dh}] cache[{L},{B},{S},{hkv},{dh}] pos {pos} "
+                f"width {w} row starts {list(ROWS16_STARTS)}: kernel warm {kern['ms']:.4f} ms, "
+                f"cold {kern['cold_ms']:.4f} ms, plain {plain_ms:.4f} ms, library warm "
+                f"{library['ms']:.4f}, cold {library['cold_ms']:.4f} ms, bound {bms:.5f} ms "
+                f"({by}), {100 * bms / kern['cold_ms']:.1f} % of it cold")
+        del kt, vt, bias
+    for state, key in ((False, "decode_attention_b16"), (True, "decode_attention_state_b16")):
+        short, wide = rows[(state, 384)], rows[(state, 2048)]
+        recs[key].update(
+            name=("decode_attention_state" if state else "decode_attention") + " (B=16)",
+            route="cuda", source="llm_consensus_tpu_torch/csrc/decode_attention.cu",
+            replaces=("llm_consensus_tpu/ops/pallas/decode_attention.py:410" if state
+                      else "llm_consensus_tpu/ops/pallas/decode_attention.py:415"),
+            shapes=(f"q[{B},1,{hq},{dh}] cache[{L},{B},{S},{hkv},{dh}] bf16, pos 383, kv_width "
+                    f"384, row starts {list(ROWS16_STARTS)}" + (", return_state" if state else "")),
+            max_abs_err=max(short["err"], wide["err"]), ms=short["ms"], cold_ms=short["cold_ms"],
+            plain_ms=short["plain_ms"], bound_ms=short["bound_ms"], bound_by=short["bound_by"],
+            bound_share=short["bound_ms"] / short["cold_ms"], library_ms=short["library_ms"],
+            library_cold_ms=short["library_cold_ms"], w2048_ms=wide["ms"],
+            w2048_cold_ms=wide["cold_ms"], w2048_plain_ms=wide["plain_ms"],
+            w2048_bound_ms=wide["bound_ms"], w2048_bound_share=wide["bound_ms"] / wide["cold_ms"],
+            w2048_library_ms=wide["library_ms"], w2048_library_cold_ms=wide["library_cold_ms"],
+            **({"m_max_abs_err": max(short["m_err"], wide["m_err"]),
+                "l_max_rel_err": max(short["l_err"], wide["l_err"])} if state else {}),
+        )
+    del k, v, q
+    release_memory(torch)
 
 
 def check_int8_matmul(torch) -> None:
@@ -1778,13 +1903,13 @@ PLANES_OFF = {"LLMC_LIVE": "0", "LLMC_ATTRIB": "0", "LLMC_ROOFLINE": "0", "LLMC_
 def measure_fresh_cli_walls() -> None:
     """The slice's CLI run, auto-saved as a user runs it, each time in a
     fresh process, with the planes on (the default) and off (every plane's
-    knob at 0), in turns (on, off, off, on): the process wall and main()'s
-    own wall. The planes-on runs write metrics.json, the others do not."""
+    knob at 0), one of each: the process wall and main()'s own wall. The
+    planes-on run writes metrics.json, the other does not."""
     repo = os.path.dirname(os.path.abspath(__file__))
     base = {k: v for k, v in os.environ.items() if not k.startswith("LLMC_")}
     base["LLMC_CONFIG"] = "0"  # no ambient config file changes the slice
     walls: dict = {"on": [], "off": []}
-    for arm in ("on", "off", "off", "on"):
+    for arm in ("on", "off"):
         env = {**base, **(PLANES_OFF if arm == "off" else {})}
         with tempfile.TemporaryDirectory(prefix="chip-smoke-") as data_dir:
             argv = ["--models", "gpu:llama-3-8b,gpu:consensus-1b", "--judge", "gpu:llama-3-8b",
@@ -2515,15 +2640,15 @@ class JudgeClock:
 
 
 def session_overlap(torch, fa, da, provider) -> dict:
-    """(b) The slice's CLI run with ``--judge-overlap`` and without, in
-    turns (on, off, off, on): wall, the judge's time to first token after
-    the panel's end, the session's prefilled tokens, the judge prompt's
-    tokens; an overlap run must make no classic fallback."""
+    """(b) The slice's CLI run with ``--judge-overlap`` and without, one of
+    each: wall, the judge's time to first token after the panel's end, the
+    session's prefilled tokens, the judge prompt's tokens; the overlap run
+    must make no classic fallback."""
     counters = {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES}
     tok = provider._engine_for(SESSION_JUDGE).tokenizer
     runs = []
     with JudgeClock(tok) as clock:
-        for overlap in (True, False, False, True):
+        for overlap in (True, False):
             clock.reset()
             sl = run_slice(torch, counters, {}, f"session overlap={overlap}",
                            models=SESSION_PANEL, judge=SESSION_JUDGE, timing=False,
@@ -2708,6 +2833,541 @@ def run_session(torch, fa, da, card: str, seed: int) -> dict:
     log(f"session phase: {time.monotonic() - t_phase:.1f} s")
     print(json.dumps({"session": rows, "card": card}), flush=True)
     release_engines(torch, {})
+    return rows
+
+
+# -- phase 8d: serving (the batcher's scheduling remainder) --------------------
+
+SERVING_MODEL = "llama-3-8b"
+# A batched stream against the single-stream engine in bf16: the two run
+# other matmul shapes (B rows against 1) and other attention split orders,
+# so a greedy choice between two logits closer than this may flip. A
+# stream that differs must have every token within this of the reference
+# model's best logit, the model fed the stream's own tokens (teacher
+# forcing). On an H100 at llama-3-8b's width the sound streams' largest gap
+# is 0.054 and a stream fed another row's prompt reads 1.2 at least
+# (PERF.md, §6); every run reads both again (fault_readings) and fails
+# unless this lies between them.
+NEAR_TIE_TOL = BATCH_LOGIT_TOL
+
+
+_TEACHER: dict = {}  # (prompt, tokens) -> teacher_gaps' result, within one phase
+
+
+def teacher_gaps(torch, engine, prompt_ids: list, got: list) -> tuple[list, float]:
+    """For each token of ``got``: the best logit minus the logit of that
+    token, the model fed ``prompt_ids + got`` in one flash prefill; and the
+    logits' standard deviation over those positions. A stream repeated
+    across runs is read once."""
+    key = (tuple(prompt_ids), tuple(got))
+    if key not in _TEACHER:
+        _TEACHER[key] = _teacher_gaps(torch, engine, prompt_ids, got)
+    return _TEACHER[key]
+
+
+def _teacher_gaps(torch, engine, prompt_ids: list, got: list) -> tuple[list, float]:
+    from llm_consensus_tpu_torch.engine.engine import _bucket
+    from llm_consensus_tpu_torch.models.transformer import init_kv_cache
+
+    ids = list(prompt_ids) + list(got)
+    n = len(ids)
+    with torch.inference_mode():
+        cache = init_kv_cache(engine.cfg, batch=1, max_seq=engine.max_seq,
+                              device=engine.device, dtype=engine.dtype)
+        tokens = engine._ids_tensor(ids + [0] * (_bucket(n, engine.max_seq) - n))
+        logits, _ = engine._forward(tokens, cache, 0, attn_impl="flash")
+        lg = logits[0, len(prompt_ids) - 1:n - 1].float()
+        chosen = lg.gather(1, torch.tensor(got, device=lg.device)[:, None])[:, 0]
+        gaps = (lg.max(-1).values - chosen).tolist()
+        std = lg.std(dim=-1).mean().item()
+    del cache, logits, lg
+    return gaps, std
+
+
+def greedy_check(torch, engine, label: str, prompt_ids: list, got: list, ref: list) -> dict:
+    """A batched stream's greedy tokens against the single-stream engine's:
+    equal, or (bf16 near-ties) every token within NEAR_TIE_TOL of the
+    reference model's best logit under teacher forcing. Anything else
+    fails."""
+    row = {"equal": got == ref, "agree": token_agreement(got, ref), "n": len(ref)}
+    if got != ref:
+        gaps, row["logit_std"] = teacher_gaps(torch, engine, prompt_ids, got)
+        row["max_gap"] = max(gaps)
+        row["first_gap"] = gaps[row["agree"]] if row["agree"] < len(gaps) else None
+    log(f"  {label}: {len(got)} tokens, equal to single-stream {row['equal']}"
+        + ("" if row["equal"] else
+           f" (first {row['agree']} equal; at the first difference the batched token is "
+           f"{row['first_gap']:.4f} below the best logit, at most {row['max_gap']:.4f} over "
+           f"the stream, tol {NEAR_TIE_TOL}; logit std {row['logit_std']:.3f})"))
+    if len(got) != len(ref) or (not row["equal"] and row["max_gap"] > NEAR_TIE_TOL):
+        raise AssertionError(f"{label}: batched tokens not the model's greedy ones: {row}")
+    return row
+
+
+def fault_readings(torch, engine, label: str, prompts: list, streams: list) -> dict:
+    """What the near-tie rule reads on two planted faults of this part's
+    own streams, each as the stream's largest teacher-forced gap: stream
+    i's tokens under stream i+1's prompt (a row fed another row's context;
+    none where the two streams' tokens are the same, as the fault then
+    changes nothing), and under its own prompt with one token dropped (a
+    lost token; the first token from the middle on that differs from its
+    successor, since dropping one of a run of equal tokens leaves the
+    sequence as it was; none for a stream of one repeated token). The
+    phase fails unless every swap reads above NEAR_TIE_TOL (run_serving,
+    after all parts): a rule that passes a misplaced row cannot tell a
+    sound batcher from a broken one. A lost token is only recorded: with
+    random weights the next token hardly depends on the last one, so it
+    reads 0.03-1.3 at full width (PERF.md, §6) and the exact checks
+    (the resize's carried rows, the residents across (b)'s runs, the CPU
+    tests) hold it instead."""
+    swapped, lost, stds = [], [], []
+    for i, got in enumerate(streams):
+        j = (i + 1) % len(prompts)
+        gaps, std = teacher_gaps(torch, engine, prompts[j], got)
+        swapped.append(None if got == streams[j][:len(got)] else max(gaps))
+        stds.append(std)
+        half = len(got) // 2
+        ks = [k for k in range(len(got) - 1) if got[k] != got[k + 1]]
+        k = next((k for k in ks if k >= half), ks[-1] if ks else None)
+        lost.append(None if k is None else
+                    max(teacher_gaps(torch, engine, prompts[i], got[:k] + got[k + 1:])[0]))
+    seen = [g for g in swapped if g is not None]
+    row = {"swapped": swapped, "lost": lost, "min": min(seen, default=None),
+           "logit_std": sum(stds) / len(stds)}
+    log(f"  {label} planted faults (largest teacher-forced gap per stream; tol {NEAR_TIE_TOL}): "
+        f"another row's prompt {[None if g is None else round(g, 3) for g in swapped]}, a "
+        f"lost token {[None if g is None else round(g, 3) for g in lost]}; logit std "
+        f"{row['logit_std']:.3f}")
+    return row
+
+
+class BatcherTrace:
+    """One part's batcher spans, read from the batcher's own recorder: a
+    Recorder is installed while the part runs (a batcher binds it at
+    construction) and its ``tid="batcher"`` spans give the resizes, fetch
+    arrivals (with the waves' first tokens), admissions (with resumed
+    streams) and interleaved credits. What the spans do not hold is added
+    by wrapping ``_resize_to``: ``memory_allocated`` around it, and each
+    live stream's row state (its cache up to the frontier, token, row
+    starts and prefix flag) before and after, which a move must carry bit
+    for bit; and by timestamping the flash counter's ``add``."""
+
+    def __init__(self, torch, fa) -> None:
+        from llm_consensus_tpu_torch import obs
+
+        self.torch, self.fa = torch, fa
+        self.rec = obs.Recorder()
+        self.t0_ns = time.monotonic_ns()
+        self.memory: list = []  # (before, after) bytes of each resize
+        self.carried: list = []  # (moved, bit-equal) of each live row of each resize
+        self.flash_ns: list = []
+        self._undo: list = []
+
+    def __enter__(self) -> "BatcherTrace":
+        from llm_consensus_tpu_torch import obs
+        from llm_consensus_tpu_torch.engine.batcher import ContinuousBatcher as CB
+
+        torch, tr = self.torch, self
+        prev, real_resize, counter = obs.recorder(), CB._resize_to, self.fa.LAUNCHES
+        real_add = counter.add
+
+        def row_state(b, i):
+            return ([b._cache[side][:, i, :b._pos].clone() for side in ("k", "v")],
+                    [int(t[i]) for t in (b._token, b._row_start, b._prefix_rows)]
+                    + [b._row_start_host[i]])
+
+        def resize(b, target):
+            live = [(i, s, row_state(b, i)) for i, s in enumerate(b._slots[:b._rows_cap])
+                    if s is not None]
+            before = torch.cuda.memory_allocated()
+            real_resize(b, target)
+            tr.memory.append((before, torch.cuda.memory_allocated()))
+            for i, s, (kv, scalars) in live:
+                j = next(j for j, x in enumerate(b._slots) if x is s)
+                kv2, scalars2 = row_state(b, j)
+                tr.carried.append((i != j, scalars == scalars2 and all(
+                    torch.equal(a, c) for a, c in zip(kv, kv2))))
+            del live
+
+        def add():
+            tr.flash_ns.append(time.monotonic_ns())
+            real_add()
+
+        obs.install(self.rec)
+        CB._resize_to = resize
+        counter.add = add
+        self._undo = [lambda: obs.install(prev), lambda: setattr(CB, "_resize_to", real_resize),
+                      lambda: vars(counter).pop("add")]
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for undo in self._undo:
+            undo()
+
+    def now(self) -> float:
+        return (time.monotonic_ns() - self.t0_ns) / 1e9
+
+    def spans(self, name: str) -> list:
+        """``(start_s, end_s, args)`` of the batcher's ``name`` spans, in
+        seconds since the trace began."""
+        return [((e.ts_ns - self.t0_ns) / 1e9, (e.ts_ns + e.dur_ns - self.t0_ns) / 1e9, e.args)
+                for e in self.rec.events()
+                if e.tid == "batcher" and e.ph == "X" and e.name == name]
+
+    def resizes(self) -> list:
+        return [{"t_s": t1, "from": a["before"], "to": a["rows"], "before_gb": m0 / 1e9,
+                 "after_gb": m1 / 1e9}
+                for (_, t1, a), (m0, m1) in zip(self.spans("resize"), self.memory)]
+
+    def flash_in(self, t0_s: float, t1_s: float) -> int:
+        lo, hi = self.t0_ns + int(t0_s * 1e9), self.t0_ns + int(t1_s * 1e9)
+        return sum(1 for t in self.flash_ns if lo <= t <= hi)
+
+
+def step_wall_ms(torch, engine, rows: int, frontier: int, windows: int = 5,
+                 steps: int = 8) -> list:
+    """Wall per decode step (host launches + device) of ``engine``'s decode
+    chunk at ``rows`` rows and the attention width of ``frontier``: after a
+    warm 16-step chunk, ``windows`` windows of ``steps`` steps, each ending
+    in a synchronize; the per-step wall of each window."""
+    from llm_consensus_tpu_torch.models.transformer import init_kv_cache
+
+    dev = engine.device
+    out = []
+    with torch.inference_mode():
+        cache = init_kv_cache(engine.cfg, batch=rows, max_seq=frontier + 128, device=dev,
+                              dtype=engine.dtype)
+        token = torch.randint(32, 127, (rows,), device=dev)
+        kw = {"row_start": torch.zeros(rows, dtype=torch.int32, device=dev)}
+        width = engine._decode_width(frontier + 112)
+        start = torch.full((), frontier, dtype=torch.int32, device=dev)
+        token, _, start = engine._decode_chunk(token, start, cache, 16, None,
+                                               (0.0, None, None), width, **kw)
+        for _ in range(windows):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            token, _, start = engine._decode_chunk(token, start, cache, steps, None,
+                                                   (0.0, None, None), width, **kw)
+            torch.cuda.synchronize()
+            out.append((time.monotonic() - t0) * 1e3 / steps)
+    del cache
+    return out
+
+
+def serving_rows(torch, fa, engine, seed: int) -> dict:
+    """(a) Row bucketing: a 32-row pool takes 32 random 350-token prompts
+    (28 x 32 tokens, 4 x 160), shrinks to 8 rows once the short ones
+    retire, then a burst of 12 prompts sharing the slice's prompt regrows it
+    to 16 (their shared prefix: the state kernel). Resizes with their
+    memory, rows over time, the step wall at 32, 8 and 16 rows (median and
+    spread of 5 windows), and the 4 long streams' greedy tokens against
+    single-stream, with the planted-fault readings on them."""
+    from llm_consensus_tpu_torch.engine import SamplingParams
+    from llm_consensus_tpu_torch.engine.batcher import ContinuousBatcher
+
+    tok = engine.tokenizer
+    prompts = [random_ids(torch, seed + 100 + i, 349, tok.bos_id) for i in range(32)]
+    short = SamplingParams(max_new_tokens=32, ignore_eos=True)
+    long = SamplingParams(max_new_tokens=160, ignore_eos=True)
+    burst = [PROMPT + f" Panelist {i} of twelve, answer in one line." for i in range(12)]
+    gb_row = (2 * engine.cfg.n_layers * engine.max_seq * engine.cfg.n_kv_heads
+              * engine.cfg.head_dim * engine.dtype.itemsize) / 1e9
+    with BatcherTrace(torch, fa) as tr:
+        b = ContinuousBatcher(engine, max_batch=32)
+        try:
+            cap0 = b._rows_cap
+            t0 = time.monotonic()
+            futs = [b.submit_ids(ids, long if i >= 28 else short)
+                    for i, ids in enumerate(prompts)]
+            first = [f.result(timeout=600) for f in futs]
+            t_first = time.monotonic() - t0
+            futs = [b.submit(p, short) for p in burst]
+            second = [f.result(timeout=600) for f in futs]
+            wall = time.monotonic() - t0
+            snap, cap_end = b.snapshot(), b._rows_cap
+        finally:
+            b.close()
+    release_memory(torch)
+    resizes = tr.resizes()
+    rows_seen = [(0.0, cap0)] + [(round(r["t_s"], 3), r["to"]) for r in resizes]
+    log(f"serving (a): 32 streams in {t_first:.2f} s, 12 more (shared prefix "
+        f"{snap['prefix_len']} tokens) in {wall - t_first:.2f} s; rows over time (s, rows) "
+        f"{rows_seen}; stats {snap}")
+    for r in resizes:
+        log(f"  resize {r['from']} -> {r['to']} rows at {r['t_s']:.3f} s: memory_allocated "
+            f"{r['before_gb']:.3f} -> {r['after_gb']:.3f} GB "
+            f"({r['after_gb'] - r['before_gb']:+.3f}; {r['to'] - r['from']} rows x "
+            f"{gb_row:.3f} GB = {(r['to'] - r['from']) * gb_row:+.3f})")
+    moved = sum(1 for m, _ in tr.carried if m)
+    log(f"  the resizes carried {len(tr.carried)} live rows ({moved} moved to another slot), "
+        f"bit for bit equal {sum(1 for _, eq in tr.carried if eq)} of {len(tr.carried)}")
+    moves = [(r["from"], r["to"]) for r in resizes]
+    if moves[:2] != [(32, 8), (8, 16)] or cap_end not in (8, 16):
+        raise AssertionError(f"serving (a): resizes {moves}")
+    if not moved or not all(eq for _, eq in tr.carried):
+        raise AssertionError(f"serving (a): a resize did not carry its rows: {tr.carried}")
+    drop = resizes[0]["before_gb"] - resizes[0]["after_gb"]
+    if abs(drop - 24 * gb_row) > 0.05 * 24 * gb_row:
+        raise AssertionError(f"serving (a): the shrink freed {drop:.3f} GB, not 24 rows")
+    if any(len(r.token_ids) != (160 if i >= 28 else 32) for i, r in enumerate(first)) or any(
+            len(r.token_ids) != 32 for r in second):
+        raise AssertionError("serving (a): a stream ended short")
+    checks = [greedy_check(torch, engine, f"long stream {i} (moved in the shrink)", prompts[i],
+                           first[i].token_ids, engine.generate_ids(prompts[i], long).token_ids)
+              for i in range(28, 32)]
+    faults = fault_readings(torch, engine, "serving (a)", prompts[28:],
+                            [r.token_ids for r in first[28:]])
+    steps = {rows: step_wall_ms(torch, engine, rows, 512) for rows in (32, 8, 16)}
+    release_memory(torch)
+    med = {rows: sorted(v)[len(v) // 2] for rows, v in steps.items()}
+    log("  decode step wall at frontier 512 (host launches + device, ms per step; median of "
+        "5 windows of 8 steps [min-max]): "
+        + ", ".join(f"{rows} rows {med[rows]:.2f} [{min(v):.2f}-{max(v):.2f}]"
+                    for rows, v in steps.items())
+        + f"; 32 rows / 8 rows {med[32] / med[8]:.2f}x (extremes "
+        f"{min(steps[32]) / max(steps[8]):.2f}-{max(steps[32]) / min(steps[8]):.2f}x)")
+    return {"wall_s": wall, "resizes": resizes, "rows_over_time": rows_seen,
+            "step_ms": steps, "step_ms_median": med, "greedy": checks, "faults": faults,
+            "stats": snap}
+
+
+def serving_interleave(torch, fa, engine, seed: int) -> dict:
+    """(b) Interleaved admission: four residents (random 1,501-token
+    prompts, 128 tokens) decode; once each has 32 tokens a wave of four
+    other 1,501-token prompts (32 tokens) arrives. Budget 2048, 0, 0, 2048:
+    the residents' longest gap between fetches while the wave fills and the
+    wave's time to its first token; every stream against single-stream."""
+    from llm_consensus_tpu_torch.engine import SamplingParams
+    from llm_consensus_tpu_torch.engine.batcher import ContinuousBatcher
+
+    tok = engine.tokenizer
+    residents = [random_ids(torch, seed + 200 + i, 1500, tok.bos_id) for i in range(4)]
+    wave = [random_ids(torch, seed + 300 + i, 1500, tok.bos_id) for i in range(4)]
+    s_res = SamplingParams(max_new_tokens=128, ignore_eos=True)
+    s_wave = SamplingParams(max_new_tokens=32, ignore_eos=True)
+    runs = []
+    for budget in (2048, 0, 0, 2048):
+        with BatcherTrace(torch, fa) as tr:
+            b = ContinuousBatcher(engine, max_batch=8, prefill_budget=budget)
+            try:
+                f_res = [b.submit_ids(ids, s_res) for ids in residents]
+                deadline = time.monotonic() + 600
+                while not all(st is not None and len(st.out_ids) >= 32
+                              for st in list(b._slots)[:4]):
+                    if time.monotonic() > deadline:
+                        raise AssertionError("serving (b): residents never decoded")
+                    time.sleep(0.002)
+                t_wave = tr.now()
+                f_wave = [b.submit_ids(ids, s_wave) for ids in wave]
+                r_wave = [f.result(timeout=600) for f in f_wave]
+                r_res = [f.result(timeout=600) for f in f_res]
+                snap = b.snapshot()
+            finally:
+                b.close()
+        fetches = tr.spans("fetch")
+        # The wave's first tokens ride the first fetch after its splice;
+        # until then every fetch is the residents' alone.
+        t_first = next(t1 for _, t1, a in fetches if t1 > t_wave and a["firsts"])
+        ends = [t1 for _, t1, _ in fetches]
+        gaps = [b2 - a for a, b2 in zip(ends, ends[1:]) if t_wave < b2 <= t_first]
+        credits = len(tr.spans("prefill_interleave"))
+        row = {"budget": budget, "longest_gap_ms": 1e3 * max(gaps), "ttft_ms":
+               1e3 * (t_first - t_wave), "fetches_during_wave": len(gaps),
+               "res": [r.token_ids for r in r_res], "wave": [r.token_ids for r in r_wave],
+               "admit_s": snap["admit_s"], "credits": credits}
+        runs.append(row)
+        log(f"serving (b) budget {budget}: residents' longest gap between fetches while the "
+            f"wave filled {row['longest_gap_ms']:.1f} ms over {len(gaps)} fetches; wave time "
+            f"to first token {row['ttft_ms']:.1f} ms; admit_s {snap['admit_s']:.3f}; paced "
+            f"credits {credits}")
+        if (credits >= 2) != bool(budget):
+            raise AssertionError(f"serving (b): budget {budget} ran {credits} credits")
+    base = runs[0]
+    same = [sum(int(r["res"][i] == base["res"][i]) for r in runs) for i in range(4)] + [
+        sum(int(r["wave"][i] == base["wave"][i]) for r in runs) for i in range(4)]
+    log(f"  streams equal to the first run's in each of the 4 runs (4 residents, 4 wave): {same}")
+    if same[:4] != [4] * 4:
+        # The residents decode at the same rows and widths in every run.
+        raise AssertionError(f"serving (b): residents differ across the runs: {same}")
+    checks = []
+    for label, prompts_, key, sp in (("resident", residents, "res", s_res),
+                                     ("wave", wave, "wave", s_wave)):
+        for i, ids in enumerate(prompts_):
+            ref = engine.generate_ids(ids, sp).token_ids
+            for r in runs:
+                checks.append(greedy_check(torch, engine, f"{label} {i}, budget {r['budget']}",
+                                           ids, r[key][i], ref))
+    faults = fault_readings(torch, engine, "serving (b)", residents + wave,
+                            base["res"] + base["wave"])
+    on = [r for r in runs if r["budget"]]
+    off = [r for r in runs if not r["budget"]]
+    ratio_gap = [a["longest_gap_ms"] / c["longest_gap_ms"] for a in on for c in off]
+    ratio_ttft = [a["ttft_ms"] / c["ttft_ms"] for a in on for c in off]
+    log(f"  budget 2048 against 0: longest gap {min(ratio_gap):.2f}-{max(ratio_gap):.2f}x, "
+        f"wave time to first token {min(ratio_ttft):.2f}-{max(ratio_ttft):.2f}x")
+    return {"runs": [{k: v for k, v in r.items() if k not in ("res", "wave")} for r in runs],
+            "equal_runs": same, "greedy": checks, "faults": faults}
+
+
+def serving_preempt(torch, fa, engine, seed: int) -> dict:
+    """(c) Preempt and resume: a 2-row pool, two LOW residents (random
+    350-token prompts, 128 tokens) and a HIGH latecomer (64 tokens) once
+    both decode. At least one preemption, the resume prefilled through
+    flash, all three streams against single-stream. The latecomer is retried
+    (at most 3 times) if the residents finished before it arrived."""
+    from llm_consensus_tpu_torch.engine import SamplingParams
+    from llm_consensus_tpu_torch.engine.batcher import ContinuousBatcher
+    from llm_consensus_tpu_torch.pressure import PRIORITY_HIGH, PRIORITY_LOW
+
+    tok = engine.tokenizer
+    lows = [random_ids(torch, seed + 400 + i, 349, tok.bos_id) for i in range(2)]
+    high = random_ids(torch, seed + 402, 349, tok.bos_id)
+    s_low = SamplingParams(max_new_tokens=128, ignore_eos=True)
+    s_high = SamplingParams(max_new_tokens=64, ignore_eos=True)
+    with BatcherTrace(torch, fa) as tr:
+        b = ContinuousBatcher(engine, max_batch=2)
+        try:
+            for attempt in range(3):
+                f_low = [b.submit_ids(ids, s_low, priority=PRIORITY_LOW) for ids in lows]
+                deadline = time.monotonic() + 600
+                while sum(1 for st in list(b._slots) if st is not None and len(st.out_ids) >= 16) < 2:
+                    if time.monotonic() > deadline:
+                        raise AssertionError("serving (c): residents never decoded")
+                    time.sleep(0.002)
+                r_high = b.submit_ids(high, s_high, priority=PRIORITY_HIGH).result(timeout=600)
+                r_low = [f.result(timeout=600) for f in f_low]
+                snap = b.snapshot()
+                if snap["preemptions"]:
+                    break
+        finally:
+            b.close()
+    resumes = [tr.flash_in(t0, t1) for t0, t1, a in tr.spans("admit")
+               if a["resumed"] and a["ok"]]
+    log(f"serving (c): attempt {attempt + 1}, preemptions {snap['preemptions']}, victims "
+        f"{[r.preempted for r in r_low]}, flash launches per resume admission {resumes}, "
+        f"stats {snap}")
+    if snap["preemptions"] < 1 or not resumes or min(resumes) < engine.cfg.n_layers:
+        raise AssertionError(f"serving (c): preemptions {snap['preemptions']}, resume flash "
+                             f"{resumes}")
+    checks = [greedy_check(torch, engine, f"low {i}{' (preempted)' if r.preempted else ''}",
+                           lows[i], r.token_ids, engine.generate_ids(lows[i], s_low).token_ids)
+              for i, r in enumerate(r_low)]
+    checks.append(greedy_check(torch, engine, "high", high, r_high.token_ids,
+                               engine.generate_ids(high, s_high).token_ids))
+    faults = fault_readings(torch, engine, "serving (c)", lows + [high],
+                            [r.token_ids for r in r_low] + [r_high.token_ids])
+    return {"preemptions": snap["preemptions"], "resume_flash": resumes, "greedy": checks,
+            "faults": faults, "attempts": attempt + 1}
+
+
+def serving_cli(torch, fa, da) -> dict:
+    """(d) The batched slice through the CLI: panel 4 x llama-3-8b, judge
+    llama-3-8b, ``LLMC_MAX_BATCH=16 --priority low --prefill-budget 2048``:
+    exit 0, every answer, a consensus, no warning but the random-weight
+    ones, and the batcher sees class 2 for the panel, 1 for the judge."""
+    from llm_consensus_tpu_torch.engine.batcher import ContinuousBatcher
+    from llm_consensus_tpu_torch.providers.gpu import GPUProvider
+    from llm_consensus_tpu_torch.utils.knobs import batch_settings
+
+    classes, lock = [], threading.Lock()
+    real = ContinuousBatcher.submit
+
+    def submit(b, prompt, sampling, ctx=None, on_text=None, *, priority=1):
+        with lock:
+            classes.append((priority, "You are a synthesis judge" in prompt))
+        return real(b, prompt, sampling, ctx, on_text, priority=priority)
+
+    # LLMC_PREFILL_BUDGET is set to 0 for the call and restored after it:
+    # the flag sets it inside the call (flag and knob are one setting).
+    env = {"LLMC_MAX_BATCH": "16", "LLMC_PREFILL_BUDGET": "0"}
+    counters = {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES,
+                "decode_attention_state": da.LAUNCHES_STATE}
+    argv = ["--models", ",".join([f"gpu:{SERVING_MODEL}"] * 4), "--judge",
+            f"gpu:{SERVING_MODEL}", "--max-tokens", "64", "--priority", "low",
+            "--prefill-budget", "2048", "--json", PROMPT]
+    ContinuousBatcher.submit = submit
+    try:
+        call = cli_call(torch, counters, env, argv)
+    finally:
+        ContinuousBatcher.submit = real
+    if call["rc"] != 0:
+        raise AssertionError(f"serving (d): CLI exit {call['rc']}: {call['err']}")
+    doc = json.loads(call["out"])
+    with set_environ({"LLMC_MAX_BATCH": "16", "LLMC_PREFILL_BUDGET": "2048"}):
+        provider = GPUProvider.shared(**batch_settings())
+    stats = provider.batcher_stats()
+    warn = [w for w in doc.get("warnings", []) if not w.endswith(RANDOM_WEIGHT_WARNINGS)]
+    log(f"serving (d): CLI exit 0 in {call['wall_s']:.2f} s wall, peak {call['peak_gb']:.2f} "
+        f"GB, launches {call['launches']}, classes (class, judge) {sorted(classes)}, batcher "
+        f"{stats}, consensus {len(doc['consensus'])} chars")
+    if (len(doc["responses"]) != 4 or doc.get("failed_models") or not doc["consensus"] or warn
+            or sorted(classes) != [(1, True)] + [(2, False)] * 4 or list(stats) != [SERVING_MODEL]
+            or min(call["launches"].values()) <= 0):
+        raise AssertionError(f"serving (d): classes {classes}, warnings {warn}, stats {stats}, "
+                             f"launches {call['launches']}, doc {json.dumps(doc)[:1500]}")
+    provider.release()
+    release_memory(torch)
+    return {"wall_s": call["wall_s"], "peak_gb": call["peak_gb"], "classes": sorted(classes),
+            "launches": call["launches"], "stats": stats[SERVING_MODEL]}
+
+
+def run_serving(torch, fa, da, card: str, seed: int, recs: dict) -> dict:
+    """Phase 8d on llama-3-8b (bf16, random weights from the seed): (a) row
+    bucketing, (b) interleaved admission, (c) preempt and resume, (d) the
+    CLI with ``--priority`` and ``--prefill-budget``. The decode kernels'
+    launches over (a) to (c) go to the B = 16 rows of the kernel line. Any
+    RuntimeWarning fails the phase. Prints a ``{"serving": ...}`` line."""
+    import warnings
+
+    from llm_consensus_tpu_torch.engine import Engine
+    from llm_consensus_tpu_torch.models import get_config
+
+    t_phase = time.monotonic()
+    engine = Engine(get_config(SERVING_MODEL), seed=seed)
+    torch.cuda.synchronize()
+    log(f"serving: {SERVING_MODEL} built in {time.monotonic() - t_phase:.2f} s")
+    _TEACHER.clear()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for c in (fa.LAUNCHES, da.LAUNCHES, da.LAUNCHES_STATE):
+            c.reset()
+        rows, part_s = {}, {}
+        for key, part in (("rows", serving_rows), ("interleave", serving_interleave),
+                          ("preempt", serving_preempt)):
+            t_part = time.monotonic()
+            rows[key] = part(torch, fa, engine, seed)
+            part_s[key] = time.monotonic() - t_part
+        launches = {"flash_attention": fa.LAUNCHES.count, "decode_attention": da.LAUNCHES.count,
+                    "decode_attention_state": da.LAUNCHES_STATE.count}
+        log(f"serving (a)-(c) launches {launches}")
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"serving: a kernel of the path never launched: {launches}")
+        for key, name in (("decode_attention_b16", "decode_attention"),
+                          ("decode_attention_state_b16", "decode_attention_state")):
+            recs[key]["launches"] = launches[name]
+        del engine
+        release_memory(torch)
+        t_part = time.monotonic()
+        rows["cli"] = serving_cli(torch, fa, da)
+        part_s["cli"] = time.monotonic() - t_part
+    bad = [str(w.message) for w in caught if issubclass(w.category, RuntimeWarning)]
+    if bad:
+        raise AssertionError(f"serving: warnings {bad}")
+    worst = max((c.get("max_gap", 0.0) for key in ("rows", "interleave", "preempt")
+                 for c in rows[key]["greedy"]), default=0.0)
+    faults = [rows[key]["faults"]["min"] for key in ("rows", "interleave", "preempt")]
+    lost = [g for key in ("rows", "interleave", "preempt")
+            for g in rows[key]["faults"]["lost"] if g is not None]
+    log(f"serving near-tie rule: sound streams' largest gap {worst:.4f}, a misplaced row's "
+        f"smallest reading per part {faults}, a lost token's {min(lost):.4f}-{max(lost):.4f} "
+        f"(recorded only), tol {NEAR_TIE_TOL}")
+    if any(f is None or f <= NEAR_TIE_TOL for f in faults) or worst > NEAR_TIE_TOL:
+        raise AssertionError(f"serving: the near-tie tolerance {NEAR_TIE_TOL} does not separate "
+                             f"the sound streams ({worst}) from a misplaced row ({faults})")
+    rows["launches"], rows["part_s"] = launches, part_s
+    log(f"serving phase: {time.monotonic() - t_phase:.1f} s (by part, checks included: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in part_s.items()) + ")")
+    print(json.dumps({"serving": rows, "card": card}, default=str), flush=True)
     return rows
 
 
@@ -3074,7 +3734,7 @@ def run_mixtral(torch, fa, da, seed: int, records: dict) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase", choices=("all", "kernels", "mixtral", "telemetry", "modes",
-                                        "session"), default="all")
+                                        "session", "serving"), default="all")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -3112,7 +3772,9 @@ def main(argv=None) -> int:
     int8_rec: dict = {}
     w8a8_rec: dict = {}
     state_recs: dict = {key: {} for key, _, _ in STATE_VARIANTS}
-    records = [flash_rec, decode_rec, int8_rec, w8a8_rec, *state_recs.values()]
+    rows16_recs: dict = {"decode_attention_b16": {}, "decode_attention_state_b16": {}}
+    records = [flash_rec, decode_rec, int8_rec, w8a8_rec, *state_recs.values(),
+               *rows16_recs.values()]
     mixtral_recs = {"flash": flash_rec, "int8": int8_rec, "w8a8": w8a8_rec}
     if args.phase == "mixtral":
         # The Mixtral phases alone: no ok line.
@@ -3134,10 +3796,18 @@ def main(argv=None) -> int:
         run_session(torch, fa, da, card, args.seed)
         print(card, flush=True)
         return 0
+    if args.phase == "serving":
+        # The B = 16 kernel rows and the serving phase: no ok line.
+        check_decode_rows16(torch, rows16_recs)
+        run_serving(torch, fa, da, card, args.seed, rows16_recs)
+        print(json.dumps({"kernels": list(rows16_recs.values())}), flush=True)
+        print(card, flush=True)
+        return 0
     check_flash(torch, flash_rec)
     check_decode(torch, decode_rec)
     check_decode_int8(torch, int8_rec, w8a8_rec)
     check_decode_state(torch, state_recs)
+    check_decode_rows16(torch, rows16_recs)
     check_int8_matmul(torch)
     if args.phase == "kernels":
         # Kernel checks only: the main path did not run, so no ok line.
@@ -3173,6 +3843,7 @@ def main(argv=None) -> int:
     run_telemetry(torch, fa, da)
     run_modes(torch, fa, da, card)
     run_session(torch, fa, da, card, args.seed)
+    run_serving(torch, fa, da, card, args.seed, rows16_recs)
 
     qsl = run_slice(torch, {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES,
                             "decode_attention_int8": da.LAUNCHES_INT8},

@@ -43,9 +43,11 @@ flags, their validation and messages, precedence and exit codes.
 
 Model names are ``gpu:<preset>``. ``main(argv, device=None)`` runs on the
 current CUDA card and raises when there is none; tests pass
-``device="cpu"``. The JAX CLI's flags for modules the port lacks
-(``--draft``, ``--spec-k``, ``--prefill-budget``, ``--priority``) are not
-ported; a config file that sets ``draft`` is refused.
+``device="cpu"``. ``--priority`` sets the panel's priority class (the
+judge runs one class above it) and ``--prefill-budget`` the batched
+engines' interleaved admission, as in the JAX CLI. The JAX CLI's flags for
+modules the port lacks (``--draft``, ``--spec-k``) are not ported; a config
+file that sets ``draft`` is refused.
 
 Run telemetry follows the JAX CLI: the live, attribution, roofline and
 flight-recorder planes are on by default and installed once per process
@@ -100,6 +102,7 @@ from llm_consensus_tpu_torch.consensus import (
 from llm_consensus_tpu_torch.obs import export as obs_export
 from llm_consensus_tpu_torch.output import Result
 from llm_consensus_tpu_torch.output.persist import reserve_run_dir, save_aux_files, save_file
+from llm_consensus_tpu_torch.pressure import parse_priority
 from llm_consensus_tpu_torch.providers import Provider, Registry, Response
 from llm_consensus_tpu_torch.runner import AllModelsFailed, Callbacks, RunResult, Runner
 from llm_consensus_tpu_torch.utils import knobs
@@ -140,10 +143,23 @@ class Config:
     confidence: bool = False   # judge-graded confidence in the consensus
     resume: str = ""       # run-id of a crashed run to finish
     judge_overlap: bool = False  # prefill the judge prompt as answers arrive
+    prefill_budget: Optional[int] = None  # interleaved admission (batched gpu engines)
+    priority: str = ""     # panel priority class (pressure/)
 
 
 class CLIError(Exception):
     """User-facing CLI error → ``error: ...`` + exit 1."""
+
+
+def run_priorities(cfg: Config) -> tuple[Optional[int], Optional[int]]:
+    """``(panel class, judge class)`` of a run: both None without
+    ``--priority`` (the provider's NORMAL, the Judge's HIGH); with it the
+    judge outranks its own panel by one class, so an explicit low-priority
+    batch run never runs its judge at HIGH against other tenants."""
+    if not cfg.priority:
+        return None, None
+    panel = parse_priority(cfg.priority)
+    return panel, max(0, panel - 1)
 
 
 def create_provider(model: str, device: DeviceLike = None) -> Provider:
@@ -381,6 +397,18 @@ def parse_args(argv: list[str], stdin: Optional[TextIO],
                              "arrive (gpu judges), cutting judge time-to-first-token by "
                              "nearly the whole prompt prefill. LLMC_JUDGE_OVERLAP=1 is "
                              "equivalent")
+    parser.add_argument("--prefill-budget", "-prefill-budget", type=int, default=None,
+                        metavar="TOKENS",
+                        help="Interleaved admission prefill for gpu continuous batching: "
+                             "dispatch at most this many prompt tokens of a new stream's "
+                             "prefill between decode chunks, so resident streams keep "
+                             "decoding during admission. 0/unset = classic stall-the-pool "
+                             "admission; LLMC_PREFILL_BUDGET is equivalent")
+    parser.add_argument("--priority", "-priority", default="", metavar="CLASS",
+                        help="Priority class for the panel queries (high/normal/low or "
+                             "0-2): orders continuous-batcher admission and selects "
+                             "preemption victims on shared engines. The judge always "
+                             "outranks the panel by one class. Default: normal")
     parser.add_argument("--quiet", "-quiet", "-q", action="store_true",
                         help="Suppress progress output")
     parser.add_argument("--json", "-json", action="store_true",
@@ -461,7 +489,14 @@ def parse_args(argv: list[str], stdin: Optional[TextIO],
         interactive=ns.interactive,
         confidence=ns.confidence,
         judge_overlap=ns.judge_overlap,
+        prefill_budget=ns.prefill_budget,
+        priority=ns.priority,
     )
+    if cfg.priority:
+        try:
+            parse_priority(cfg.priority)
+        except ValueError as err:
+            raise CLIError(str(err)) from err
     if ns.resume:
         # A resumed run's identity (prompt, panel, judge, settings) comes
         # from its manifest; flags that would change it, or disable the
@@ -681,6 +716,11 @@ def run(cfg: Config, ctx: Context, *, factory: ProviderFactory, stdout: TextIO,
     ``torch.profiler`` trace, ``--profile`` in one bounded deep-profiler
     window."""
     install_planes(cfg.events, stderr)
+    if cfg.prefill_budget is not None:
+        # The flag and LLMC_PREFILL_BUDGET are equivalent: the factory reads
+        # the knob when it builds a provider. Batchers already built in this
+        # process keep the budget they were built with.
+        knobs.set_prefill_budget(cfg.prefill_budget)
     # A resumed run's identity comes from the saved manifest, applied
     # before any provider exists.
     resume_manifest = None
@@ -838,8 +878,9 @@ def _run(cfg: Config, ctx: Context, *, factory: ProviderFactory, stdout: TextIO,
 
     progress = ui.Progress(stderr, models_to_run, quiet=not show_ui)
     progress.start()
+    panel_priority, judge_priority = run_priorities(cfg)
     runner = Runner(registry, cfg.timeout, max_tokens=cfg.max_tokens,
-                    system=cfg.system or None)
+                    system=cfg.system or None, priority=panel_priority)
     # Judge prefill overlap (consensus/overlap.py): each panel answer
     # prefills into the judge's growing cache as it lands. Never under
     # --vote (no judge); None when off or the judge has no engine.
@@ -848,7 +889,7 @@ def _run(cfg: Config, ctx: Context, *, factory: ProviderFactory, stdout: TextIO,
         try:
             overlap_judge = make_overlap_judge(
                 registry.get(cfg.judge), cfg.judge, context_prompt, max_tokens=cfg.max_tokens,
-                enabled=True if cfg.judge_overlap else None)
+                enabled=True if cfg.judge_overlap else None, priority=judge_priority)
         except Exception:  # noqa: BLE001 — an unknown judge errors at synthesis
             overlap_judge = None
     # Each answer is journaled first, then fed to the overlap judge; a hook
@@ -1019,7 +1060,8 @@ def _synthesize_rounds(cfg: Config, ctx: Context, registry: Registry, runner: Ru
         judge_provider = registry.get(cfg.judge)
     except Exception as err:  # noqa: BLE001
         raise CLIError(f"judge model {cfg.judge}: {err}") from err
-    judge = Judge(judge_provider, cfg.judge, max_tokens=cfg.max_tokens)
+    judge = Judge(judge_provider, cfg.judge, max_tokens=cfg.max_tokens,
+                  priority=run_priorities(cfg)[1])
 
     def synthesize(user_prompt: str, responses, syn=None) -> str:
         syn = syn if syn is not None else judge

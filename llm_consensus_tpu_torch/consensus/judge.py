@@ -113,10 +113,13 @@ class Judge:
     """Synthesizes consensus from multiple model responses."""
 
     def __init__(self, provider: Provider, model: str,
-                 max_tokens: Optional[int] = None):
+                 max_tokens: Optional[int] = None, priority: Optional[int] = None):
         self._provider = provider
         self._model = model
         self._max_tokens = max_tokens
+        # The judge outranks panel work by default (HIGH); a run with an
+        # explicit panel class passes the class one above it.
+        self._priority = 0 if priority is None else priority
         # Set when the engine had to truncate the judge prompt (long panel
         # concatenation vs the judge's context window); the CLI surfaces
         # it as a run warning.
@@ -144,7 +147,7 @@ class Judge:
             resp = self._provider.query_stream(
                 ctx,
                 Request(model=self._model, prompt=judge_prompt,
-                        max_tokens=self._max_tokens, priority=0),
+                        max_tokens=self._max_tokens, priority=self._priority),
                 callback,
             )
         except Exception as err:

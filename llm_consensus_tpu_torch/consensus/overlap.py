@@ -77,7 +77,8 @@ def overlap_enabled(flag: Optional[bool] = None) -> bool:
 
 def make_overlap_judge(provider: Provider, model: str, prompt: str,
                        max_tokens: Optional[int] = None,
-                       enabled: Optional[bool] = None) -> "Optional[OverlapJudge]":
+                       enabled: Optional[bool] = None,
+                       priority: Optional[int] = None) -> "Optional[OverlapJudge]":
     """An :class:`OverlapJudge` when overlap is enabled and ``provider`` can
     hand out an engine for ``model``, else None (the caller uses the
     classic Judge and wires no hook). The engine resolves on the first
@@ -86,18 +87,20 @@ def make_overlap_judge(provider: Provider, model: str, prompt: str,
         return None
     if not hasattr(provider, "_engine_for"):
         return None  # HTTP providers: the classic path
-    return OverlapJudge(provider, model, prompt, max_tokens=max_tokens)
+    return OverlapJudge(provider, model, prompt, max_tokens=max_tokens, priority=priority)
 
 
 class OverlapJudge:
     """A judge with the classic ``Judge``'s ``synthesize_stream``, fed
     incrementally by :meth:`on_response` as panel answers arrive."""
 
-    def __init__(self, provider, model: str, prompt: str, max_tokens: Optional[int] = None):
+    def __init__(self, provider, model: str, prompt: str, max_tokens: Optional[int] = None,
+                 priority: Optional[int] = None):
         self._provider = provider
         self._model = model
         self._prompt = prompt
         self._max_tokens = max_tokens
+        self._priority = priority  # the classic fallback's class (None: the Judge's)
         self._lock = threading.Lock()
         self._engine = None
         self._session = None
@@ -175,7 +178,8 @@ class OverlapJudge:
         and the provider's retry ladder included), the session abandoned."""
         self._abandon_session()
         self.fallbacks += 1
-        classic = Judge(self._provider, self._model, max_tokens=self._max_tokens)
+        classic = Judge(self._provider, self._model, max_tokens=self._max_tokens,
+                        priority=self._priority)
         text = classic.synthesize_stream(ctx, prompt, responses, callback)
         self.last_truncated = classic.last_truncated
         return text

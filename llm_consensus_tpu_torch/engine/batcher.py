@@ -1,7 +1,7 @@
 """Continuous batching: admission and eviction of decode streams mid-flight
-(port of ``llm_consensus_tpu/engine/batcher.py``, its classic path).
+(port of ``llm_consensus_tpu/engine/batcher.py``).
 
-A fixed pool of ``max_batch`` slots decodes as one batch while new requests
+A pool of up to ``max_batch`` slots decodes as one batch while new requests
 are admitted into free slots between decode chunks and finished streams
 are evicted without stopping their neighbours. Decode reads every weight
 once per step whatever the batch, so co-resident streams share that cost.
@@ -15,7 +15,16 @@ once per step whatever the batch, so co-resident streams share that cost.
   * **Admission waves.** The streams admissible in one pass share one
     batched prefill (``Engine._prefill_rows``, padded to a power-of-two
     row count), spliced into their slots in place; a failed batched
-    prefill falls back to one-by-one admission.
+    prefill falls back to one-by-one admission. Admission takes the queue
+    in priority order (a stable sort: FIFO within a class).
+  * **Interleaved admission** (``prefill_budget`` > 0): on a pool that is
+    decoding, a wave's prefill runs as a paced ``Engine.admission_session``,
+    one budget of prompt tokens (rows x chunk) between two decode chunks,
+    so residents keep decoding while the wave's KV fills; the wave's slots
+    stay empty until it splices at the frontier of its last credit. One
+    wave at a time; a wave whose own pacing would overrun capacity, or
+    whose session does not open, admits classically; a session that fails
+    requeues its streams and turns interleaving off for the batcher.
   * **Shared prefix (the one-prompt fan-out).** When an idle pool's wave
     shares a common prompt prefix of at least ``pool_prefix_min`` tokens,
     that prefix is prefilled once and kept as one dense [L, 1, P, Hkv, dh]
@@ -28,6 +37,18 @@ once per step whatever the batch, so co-resident streams share that cost.
     every live window slides left by the common reclaimable amount, in
     place (one layer at a time through a bounded scratch copy), and the
     row starts follow.
+  * **Occupancy row-bucketing** (``pool_bucket``, pools above
+    ``max(8, max_batch // 8)`` rows): after 3 dispatches with the live
+    streams at or below half the current row capacity, live rows move into
+    the low slots and every per-row tensor is reallocated at the
+    occupancy's power-of-two bucket (the old cache is freed); an admission
+    that needs more rows regrows the pool before its wave splices. Every
+    resize drains the fetch pipeline first.
+  * **Priority preemption** (``preempt``): when the slots are full and a
+    queued stream of a strictly higher class is blocked, the lowest-class,
+    least-advanced resident is suspended after a drained pipeline: its
+    slot frees and it requeues as ``prompt + emitted`` (the ``replay_ids``
+    contract of ``submit_ids``), so a greedy stream resumes byte-identical.
   * **Fetch and emit on a worker thread**, behind a depth-2 dispatch
     pipeline: the scheduler enqueues chunk N+1 (and admissions) while the
     worker waits on chunk N's copy to the host. The scheduler thread
@@ -40,23 +61,30 @@ and ``ignore_eos`` are per stream. A stream's seed draws its first token
 from the batcher's own generator. Greedy streams produce exactly the
 single-stream engine's tokens.
 
-Telemetry (obs/), bound at construction as the JAX batcher binds it: the
-recorder gets ``admit``, ``establish``, ``compact``, ``drain``, ``decode``
-and ``fetch`` spans (tid "batcher"), the flight recorder the decode and
-fetch spans and a dump at a fatal loop exit, and the attribution ledger
-the stream interval of every dispatch (an admission wave or a
-shared-prefix establishment as ``prefill``, a compaction as ``compact``, a
-decode chunk as ``decode``: :class:`DeviceWall`, read by the fetch worker
-after the next chunk's copy), the ``useful`` tokens, the pool cache's
-bytes and the host gaps between a drained pipeline and the next dispatch,
-by scheduler phase.
+Pool health for a supervisor: ``abandon(exc)`` fails every queued and live
+future without joining the (possibly wedged) threads, ``heartbeat_age()``
+and ``busy()`` read progress lock-free, ``pressure_snapshot()`` the
+headroom, ``set_brownout`` is accepted and ignored (a classic pool has
+nothing cheaper than its plain decode).
 
-Not ported (each listed in ROADMAP.md): speculative rounds, preemption and
-brownout, interleaved admission (``prefill_budget`` > 0, refused),
-occupancy row-bucketing (``max_batch`` above 8, refused), the journal, the
-integrity sentinel, weight-swap pins and ``abandon``/heartbeat. Settings
-are constructor arguments with the JAX knobs' defaults; nothing here reads
-the environment.
+Telemetry (obs/), bound at construction as the JAX batcher binds it: the
+recorder gets ``admit``, ``establish``, ``compact``, ``drain``, ``resize``,
+``prefill_interleave``, ``decode`` and ``fetch`` spans and ``preempt``
+instants (tid "batcher"), the flight recorder the decode and fetch spans,
+the ``preempt`` instants and a dump at a fatal loop exit or an
+abandonment, and the attribution ledger the stream interval of every
+dispatch (an admission wave, a paced credit or a shared-prefix
+establishment as ``prefill``, a compaction as ``compact``, a decode chunk
+as ``decode``: :class:`DeviceWall`, read by the fetch worker after the
+next chunk's copy), the ``useful`` tokens, the pool cache's bytes and the
+host gaps between a drained pipeline and the next dispatch, by scheduler
+phase.
+
+Not ported (each listed in ROADMAP.md, queue 1 item 5.1 and later):
+speculative rounds (and with them what brownout switches), the journal
+and replay, the integrity sentinel, the weight-swap pins, the KV pool and
+the pressure governor. Settings are constructor arguments with the JAX
+knobs' defaults; nothing here reads the environment.
 """
 
 from __future__ import annotations
@@ -82,9 +110,19 @@ from llm_consensus_tpu_torch.ops.quant import is_quantized, kv_capacity, kv_seq_
 from llm_consensus_tpu_torch.ops.sampling import sample_token
 from llm_consensus_tpu_torch.utils.context import Context
 
-# The JAX batcher row-buckets a pool of more than max(8, max_batch // 8)
-# rows, i.e. any pool above 8; the port serves only pools of at most 8.
-MIN_BUCKET_ROWS = 8
+
+def _fail(s, exc: BaseException) -> None:
+    """Fail ``s``'s future with ``exc`` unless it is resolved already."""
+    if not s.future.done():
+        try:
+            s.future.set_exception(exc)
+        except InvalidStateError:
+            pass
+
+# Dispatches in a row with the live streams at or below half the row
+# capacity before the pool shrinks (hysteresis: a transient dip does not
+# pay a resize).
+SHRINK_PATIENCE = 3
 
 
 @dataclass
@@ -106,6 +144,25 @@ class _Stream:
     # token) plus n_steps per chunk dispatched while live. planned >=
     # max_new means more dispatch is dead stepping.
     planned: int = 1
+    # Priority class (pressure/priority.py: HIGH 0 < NORMAL 1 < LOW 2):
+    # orders admission and picks preemption victims.
+    priority: int = 1
+    # The budgeted prompt ids without any replayed prefix: what a
+    # preempted stream's resume prefills, with its emitted tokens after.
+    pids: tuple = ()
+    # Preempted and resumed at least once (rides the GenerateResult).
+    preempted: bool = False
+
+
+@dataclass
+class _PendingWave:
+    """One interleaved admission wave while its KV fills: its reserved
+    ``(slot, prompt ids, stream)`` triples, the shared-prefix length it was
+    planned under, and the engine's admission session whose chunks the
+    scheduler paces between decode chunks."""
+    batch: list
+    wave_p: int
+    session: object  # engine.AdmissionPrefill
 
 
 # -- cache helpers (in place) ---------------------------------------------------
@@ -152,6 +209,58 @@ def extract_prefix(pcache: dict, p_cap: int) -> dict:
     return {"k": entry(pcache["k"]), "v": entry(pcache["v"])}
 
 
+def _replace_leaves(cache: dict, fn) -> None:
+    """Replace every leaf of ``cache`` by ``fn(leaf)``, in the dict, one leaf
+    at a time: each old leaf loses its last reference as soon as its
+    replacement lands, so a resize holds at most one extra leaf."""
+    for side in ("k", "v"):
+        entry = cache[side]
+        if is_quantized(entry):
+            for name in ("q8", "s"):
+                entry[name] = fn(entry[name])
+        else:
+            cache[side] = fn(entry)
+
+
+def move_row(cache: dict, src: int, dst: int) -> None:
+    """Copy row ``src``'s whole window onto row ``dst`` of the pool cache, in
+    place (every leaf's batch axis is 1). The two rows are disjoint slices
+    of one tensor, so the copy needs no temporary; the row keeps its
+    ``row_start``-relative positions, so no re-RoPE."""
+    if src == dst:
+        raise ValueError("move_row needs two distinct rows")
+    for side in ("k", "v"):
+        for (leaf,) in _leaves(cache[side]):
+            leaf[:, dst].copy_(leaf[:, src])
+
+
+def shrink_rows(cache: dict, rows: int) -> None:
+    """Reallocate every leaf of the pool cache at its first ``rows`` rows
+    (fresh contiguous tensors); the old leaves are freed leaf by leaf."""
+    def shrink(leaf: torch.Tensor) -> torch.Tensor:
+        out = leaf.new_empty((leaf.shape[0], rows) + tuple(leaf.shape[2:]))
+        out.copy_(leaf[:, :rows])
+        return out
+
+    _replace_leaves(cache, shrink)
+
+
+def grow_rows(cache: dict, rows: int) -> None:
+    """Reallocate every leaf of the pool cache at ``rows`` rows, the old rows
+    copied in and the new ones zero; the old leaves are freed leaf by leaf,
+    so the regrow transient is the cache plus one new leaf."""
+    def grow(leaf: torch.Tensor) -> torch.Tensor:
+        out = leaf.new_zeros((leaf.shape[0], rows) + tuple(leaf.shape[2:]))
+        out[:, :leaf.shape[1]].copy_(leaf)
+        return out
+
+    _replace_leaves(cache, grow)
+
+
+def _cache_bytes(cache: dict) -> int:
+    return sum(t.numel() * t.element_size() for side in cache.values() for (t,) in _leaves(side))
+
+
 def compact_cache(cache: dict, shift: int) -> None:
     """Slide every row's window left by ``shift`` slots, in place, one layer
     at a time (the scratch is one layer's source window, not a second
@@ -173,30 +282,33 @@ class ContinuousBatcher:
     thread the fetch → emit → retire half. ``close()`` cancels queued
     submissions, lets in-flight streams finish, and stops both threads.
 
-    ``prefill_budget`` > 0 (interleaved admission) and a ``max_batch`` that
-    the JAX batcher would row-bucket (above 8) raise ``NotImplementedError``.
-    ``pool_prefix`` and ``pool_prefix_min`` are the shared-prefix switch
-    and threshold (``LLMC_POOL_PREFIX``, ``LLMC_POOL_PREFIX_MIN``).
+    The settings take the JAX knobs' defaults: ``prefill_budget``
+    (``LLMC_PREFILL_BUDGET``, 0: classic admission), ``pool_prefix`` and
+    ``pool_prefix_min`` (``LLMC_POOL_PREFIX``, ``LLMC_POOL_PREFIX_MIN``),
+    ``pool_bucket`` (``LLMC_POOL_BUCKET``) and ``preempt``
+    (``LLMC_PRESSURE_PREEMPT``).
     """
 
     def __init__(self, engine: Engine, max_batch: int = 8, *, prefill_budget: int = 0,
-                 pool_prefix: bool = True, pool_prefix_min: int = 192):
+                 pool_prefix: bool = True, pool_prefix_min: int = 192,
+                 pool_bucket: bool = True, preempt: bool = True):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
-        if prefill_budget > 0:
-            raise NotImplementedError(
-                "interleaved admission (prefill_budget > 0) is not ported; use 0")
-        if max_batch > MIN_BUCKET_ROWS:
-            raise NotImplementedError(
-                f"max_batch {max_batch}: occupancy row-bucketing is not ported "
-                f"(at most {MIN_BUCKET_ROWS} rows)")
         self.engine = engine
         self.max_batch = max_batch
+        # Interleaved admission: prompt tokens (rows x chunk) of a pending
+        # wave dispatched per decode-chunk interval; 0 is classic.
+        self._prefill_budget = max(0, prefill_budget)
+        # The one interleaved wave in flight (admission is skipped while it
+        # fills, so waves never overlap); its slots stay None until it
+        # splices. Scheduler-owned.
+        self._pending_wave: Optional[_PendingWave] = None
         # Cross-thread state (the queue, the pipeline depth, the stats) is
         # guarded by _work; scheduler-owned state (_slots writes of a
-        # stream, the cache, the prefix fields) has one writer, the
-        # scheduler thread. The fetch worker only writes slots
-        # stream → None (retirement), the scheduler only None → stream.
+        # stream, the cache, the prefix fields, the row capacity) has one
+        # writer, the scheduler thread. The fetch worker only writes slots
+        # stream → None (retirement), the scheduler only None → stream
+        # (and moves a row only with the pipeline drained).
         self._lock = threading.Lock()
         self._work = threading.Condition(self._lock)
         self._queue: list[tuple[list, _Stream]] = []
@@ -215,6 +327,17 @@ class ContinuousBatcher:
         self._gen = torch.Generator(device=dev).manual_seed(0)
         self._row_start_host = [0] * max_batch
         self._pos = 0  # shared frontier (host int)
+        # Occupancy row-bucketing: the per-row tensors hold _rows_cap rows
+        # (slots at or past it are always None). The floor bounds the row
+        # sizes at log2(max_batch / floor) + 1.
+        self._rows_cap = max_batch
+        self._min_rows = max(8, max_batch // 8)
+        self._shrink_patience = 0
+        self._rows_bucket_enabled = bool(pool_bucket) and max_batch > self._min_rows
+        # Priority preemption; _preempt_req is an outside nudge (preempt()).
+        self._preempt_enabled = bool(preempt)
+        self._preempt_req = 0  # guarded by _work
+        self._brownout = False
         # Shared-prefix pool state. Gated off for sliding-window models
         # (the window would span the prefix/suffix seam).
         self._prefix_enabled = bool(pool_prefix) and engine.cfg.sliding_window is None
@@ -229,24 +352,29 @@ class ContinuousBatcher:
         # admission-prefill and prefix-establishment walls (admit_tokens the
         # prompt tokens admission prefilled, admitted the streams it
         # installed; establish_tokens the prefix tokens established);
-        # absorb_s the bounded burst-absorption pauses. Guarded by _work.
+        # absorb_s the bounded burst-absorption pauses; preemptions the
+        # streams suspended for a higher class; compactions the waterline
+        # slides. Guarded by _work.
         self.stats = {
             "decode_tokens": 0, "decode_s": 0.0, "admit_s": 0.0, "admit_tokens": 0,
             "admitted": 0, "establish_s": 0.0, "establish_tokens": 0, "absorb_s": 0.0,
+            "preemptions": 0, "compactions": 0,
         }
         self._prev_arrival: Optional[float] = None
         self._unfetched = 0  # dispatched chunks not yet emitted (guarded by _work)
         self._nondecode_work = False  # admission/compaction since last dispatch
         self._worker_exc: Optional[BaseException] = None  # guarded by _work
+        # Pool-death evidence: set by the loop's fatal exit and abandon().
+        self.failed_exc: Optional[BaseException] = None
+        # Progress heartbeat: stats updates (admissions, fetch arrivals)
+        # and decode dispatches advance it; submissions do not.
+        self._beat = time.monotonic()
         # Telemetry planes, bound once: a plane off costs one None check
         # per chunk on the scheduler and fetch loops.
         self._obs = obs.recorder()
         self._bb = obs.blackbox.ring()
         self._attrib = obs.attrib.ledger()
-        if self._attrib is not None:
-            self._attrib.update_component(f"pool_cache:{engine.cfg.name}", sum(
-                t.numel() * t.element_size()
-                for side in self._cache.values() for (t,) in _leaves(side)))
+        self._book_cache_bytes()
         # Device intervals of the admissions and compactions since the last
         # dispatch (scheduler-owned): they ride the next chunk to its fetch.
         self._walls: list[tuple[str, DeviceWall]] = []
@@ -268,24 +396,40 @@ class ContinuousBatcher:
         # tears down aborts the process; close cleanly at exit.
         atexit.register(self.close)
 
+    def _book_cache_bytes(self) -> None:
+        """The pool cache's bytes into the attribution ledger (at
+        construction and after every resize)."""
+        if self._attrib is not None:
+            self._attrib.update_component(f"pool_cache:{self.engine.cfg.name}",
+                                          _cache_bytes(self._cache))
+
     # -- public API ------------------------------------------------------------
 
     def submit(self, prompt: str, sampling: SamplingParams = SamplingParams(),
                ctx: Optional[Context] = None,
-               on_text: Optional[Callable[[str], None]] = None) -> "Future[GenerateResult]":
+               on_text: Optional[Callable[[str], None]] = None, *,
+               priority: int = 1) -> "Future[GenerateResult]":
         """Queue a prompt; the Future resolves to the single-stream API's
         GenerateResult shape."""
         eng = self.engine
         prompt_ids, truncated = eng._budget_prompt(
             eng.tokenizer.encode(prompt), sampling.max_new_tokens)
         return self.submit_ids(prompt_ids, sampling, ctx=ctx, on_text=on_text,
-                               truncated=truncated)
+                               truncated=truncated, priority=priority)
 
     def submit_ids(self, prompt_ids: list, sampling: SamplingParams = SamplingParams(),
                    ctx: Optional[Context] = None,
                    on_text: Optional[Callable[[str], None]] = None, *,
-                   truncated: bool = False) -> "Future[GenerateResult]":
-        """Token-level submit (``prompt_ids`` already budgeted)."""
+                   truncated: bool = False, replay_ids: "tuple | list" = (),
+                   priority: int = 1) -> "Future[GenerateResult]":
+        """Token-level submit (``prompt_ids`` already budgeted).
+
+        ``replay_ids`` resumes a stream decoded partway elsewhere: they join
+        the prefill context (re-established at admission, not re-decoded),
+        count against ``max_new`` as if this pool had produced them, and
+        are pre-fed through the stream decoder and ``on_text``, so a greedy
+        stream continues byte-identical and the final text covers the whole
+        generation."""
         eng = self.engine
         if not prompt_ids:
             raise ValueError("empty prompt")
@@ -296,7 +440,26 @@ class ContinuousBatcher:
             decoder=StreamDecoder(eng.tokenizer), submitted=time.monotonic(),
             truncated=truncated,
             max_new=min(sampling.max_new_tokens, eng.max_seq - len(prompt_ids)),
+            priority=int(priority), pids=tuple(prompt_ids),
         )
+        ids = list(prompt_ids)
+        if replay_ids:
+            if self._attrib is not None:
+                self._attrib.token_event("crash_replay", len(replay_ids))
+            ids += list(replay_ids)
+            stream.out_ids = list(replay_ids)
+            # The prefill-sampled first token is one new step on top of the
+            # replayed ones.
+            stream.planned = 1 + len(replay_ids)
+            if on_text is not None:
+                for tok in replay_ids:
+                    text = stream.decoder.push(tok)
+                    if text:
+                        stream.parts.append(text)
+                        on_text(text)
+            if len(stream.out_ids) >= stream.max_new:
+                stream.future.set_result(self._result(stream))
+                return stream.future
         with self._work:
             if self._closed:
                 raise RuntimeError("batcher is closed")
@@ -307,7 +470,8 @@ class ContinuousBatcher:
                     f"sampling shape {shape} does not match this batcher's "
                     f"{self._template} (temperature/top_k/top_p are per-batcher; "
                     "max_new_tokens/ignore_eos are per-stream)")
-            self._queue.append((list(prompt_ids), stream))
+            # No heartbeat here: a submission is not pool progress.
+            self._queue.append((ids, stream))
             self._work.notify()
         return stream.future
 
@@ -333,6 +497,175 @@ class ContinuousBatcher:
             snap = dict(self.stats)
         snap["prefix_len"] = self._prefix_len_host
         return snap
+
+    # -- pool health -------------------------------------------------------------
+
+    def heartbeat_age(self) -> float:
+        """Seconds since the pool last made progress (an admission, a
+        decode dispatch or a fetch arrival)."""
+        return time.monotonic() - self._beat
+
+    def busy(self) -> bool:
+        """Whether the pool has work that should advance the heartbeat.
+        Lock-free on purpose: a watchdog calls it to find a scheduler wedged
+        while holding the lock; a stale read delays it by one poll."""
+        return (self._unfetched > 0 or self._pending_wave is not None
+                or any(s is not None for s in self._slots) or bool(self._queue))
+
+    def abandon(self, exc: BaseException) -> None:
+        """Declare the pool dead without joining its threads (they may be
+        wedged in device work that never returns): record ``exc`` as the
+        failure, fail every queued, pending and live future, and clear the
+        slots so a fetch worker that wakes later drops its stale tokens by
+        the owner check. Idempotent; ``close()`` stays the graceful path."""
+        atexit.unregister(self.close)
+        with self._work:
+            first = self.failed_exc is None
+            if first:
+                self.failed_exc = exc
+            self._closed = True
+            queued = list(self._queue)
+            self._queue.clear()
+            live = [s for s in self._slots if s is not None]
+            for i in range(len(self._slots)):
+                self._slots[i] = None
+            wave, self._pending_wave = self._pending_wave, None
+            self._work.notify_all()
+        if first and self._bb is not None:
+            self._bb.instant("engine_abandon", tid="batcher", error=repr(exc))
+            self._bb.dump("engine_wedge", extra={"error": repr(exc)})
+        if self._attrib is not None and live:
+            # Their emitted tokens are work lost with the pool.
+            self._attrib.token_event("abandoned", sum(len(s.out_ids) for s in live))
+        for _, s in queued:
+            if not s.future.cancel():
+                _fail(s, exc)
+        for s in live + ([s for _, _, s in wave.batch] if wave is not None else []):
+            _fail(s, exc)
+
+    # -- preemption (pressure/) -------------------------------------------------
+
+    def preempt(self, max_victims: int = 1) -> None:
+        """Ask the scheduler to suspend up to ``max_victims`` of the
+        lowest-class, least-advanced residents at its next safe point (after
+        a drained pipeline, so no fetched token is lost). It acts only when
+        queued work of a strictly higher class is blocked; the victims'
+        futures stay pending and resolve when their resumed streams end."""
+        with self._work:
+            if self._closed:
+                return
+            self._preempt_req = max(self._preempt_req, max(1, max_victims))
+            self._work.notify()
+
+    # The pressure governor's spelling.
+    request_preempt = preempt
+
+    def set_brownout(self, on: bool) -> None:
+        """The pressure governor's brownout flag. A classic pool ignores it:
+        nothing is cheaper than its plain decode (speculative pools, which
+        it switches, are not ported)."""
+        self._brownout = bool(on)
+
+    def pressure_snapshot(self) -> dict:
+        """Headroom for a pressure governor: live streams, row capacity,
+        queued streams (a pending wave's included) and lifetime
+        preemptions. The lock is taken with a bound, so a wedged pool never
+        hangs its reader (the stale read is then lock-free)."""
+        wave = self._pending_wave
+        got = self._work.acquire(timeout=0.2)
+        try:
+            queued = len(self._queue)
+            preemptions = self.stats["preemptions"]
+        finally:
+            if got:
+                self._work.release()
+        return {"live": sum(1 for s in self._slots if s is not None), "cap": self._rows_cap,
+                "queued": queued + (len(wave.batch) if wave is not None else 0),
+                "preemptions": preemptions}
+
+    def _plan_preempt(self, requeue: list, firsts: list) -> list:
+        """When the slots are full and blocked streams (``requeue`` and the
+        queue) outrank residents, pick victims: lowest class first, least
+        progress first within a class, one per blocked higher-class stream,
+        never one at or above the class it unblocks. Returns the resume
+        queue entries (empty when nothing is justified)."""
+        with self._work:
+            ext, self._preempt_req = self._preempt_req, 0
+            queued_pri = [s.priority for _, s in self._queue]
+        live = [(i, s) for i, s in enumerate(self._slots[:self._rows_cap]) if s is not None]
+        if not live:
+            return []
+        slots_full = len(live) == self._rows_cap and self._pending_wave is None
+        if not slots_full and not ext:
+            return []
+        blocked = sorted([s.priority for _, s in requeue] + queued_pri)
+        if not blocked:
+            return []
+        cand = sorted(live, key=lambda t: (-t[1].priority, len(t[1].out_ids)))
+        # Full slots free one slot per blocked higher-class stream; a nudge
+        # alone keeps its own cap (a resume re-prefills: real work).
+        budget = len(blocked) if slots_full else min(ext, len(blocked))
+        victims: list[int] = []
+        bi = 0
+        for slot, s in cand:
+            if bi >= len(blocked) or len(victims) >= budget:
+                break
+            if s.priority > blocked[bi]:
+                victims.append(slot)
+                bi += 1
+        if not victims:
+            return []
+        # The victims' emitted tokens become their resume context: no
+        # fetched token may be in flight.
+        self._drain_fetches()
+        self._nondecode_work = True
+        self._gap_phase = "preempt"
+        return self._preempt_slots(victims, firsts)
+
+    def _preempt_slots(self, victims: list, firsts: list) -> list:
+        """Suspend the victim slots (scheduler thread, pipeline drained):
+        free the row and build the resume entry ``pids + emitted``, which
+        re-admission prefills so a greedy stream continues byte-identical.
+        A victim's first token still waiting in ``firsts`` is dropped (the
+        resume samples it again). The JAX batcher also seals the stream's
+        journal entry and opens a replay-seeded one here: the journal is not
+        ported (ROADMAP.md queue 1, item 5.1)."""
+        entries: list = []
+        for slot in victims:
+            s = self._slots[slot]
+            if s is None:
+                continue  # retired between planning and here
+            self._slots[slot] = None
+            for _slots, _fetch, owners in firsts:
+                for j, owner in enumerate(owners):
+                    if owner is s:
+                        owners[j] = None
+            snapshot = list(s.out_ids)
+            if len(snapshot) >= s.max_new:
+                # Nothing left to decode: resolve, do not resume.
+                s.finish = "length"
+                if not s.future.done():
+                    try:
+                        s.future.set_result(self._result(s))
+                    except InvalidStateError:
+                        pass
+                continue
+            # The resume prefill covers the emitted tokens plus one freshly
+            # sampled token (submit_ids' replay accounting).
+            s.planned = len(snapshot) + 1
+            s.preempted = True
+            entries.append((list(s.pids) + snapshot, s))
+            if self._attrib is not None:
+                self._attrib.token_event("preempt_replay", len(snapshot))
+            for rec in (self._obs, self._bb):
+                if rec is not None:
+                    rec.instant("preempt", tid="batcher", slot=slot, priority=s.priority,
+                                progress=len(snapshot))
+            if self._obs is not None:
+                self._obs.count("pressure.preemptions")
+        if entries:
+            self._stat_add(preemptions=len(entries))
+        return entries
 
     # -- admission -------------------------------------------------------------
 
@@ -451,6 +784,113 @@ class ContinuousBatcher:
             owners.append(s)
         return (slots, _Fetch(samples), owners)
 
+    # -- interleaved admission ---------------------------------------------------
+
+    def _begin_wave(self, batch: list, wave_p: int) -> bool:
+        """Open the admission session of an interleaved wave, which
+        ``_advance_wave`` paces between decode chunks. False (the caller
+        admits classically) when the wave would not fit the frontier after
+        the decode growth its own pacing implies, or when the session does
+        not open. The JAX batcher pins the streams' weight version here:
+        weight swaps are not ported (ROADMAP.md queue 1, item 4)."""
+        eng = self.engine
+        rows = [ids for _, ids, _ in batch]
+        k_pad = self._wave_k_pad(len(rows))
+        pad_rows = rows + [rows[0]] * (k_pad - len(rows))
+        if wave_p:
+            w_req = _bucket(max(len(r) - wave_p for r in rows), eng.max_seq)
+        else:
+            w_req = eng._rows_bucket(max(len(r) for r in rows))
+        # The splice happens at the frontier of the last credit: one decode
+        # chunk per budget of prefill, plus the depth-2 pipeline's slack.
+        total = sum(len(r) - wave_p for r in pad_rows)
+        steps = max(1, -(-total // max(1, self._prefill_budget)))
+        growth = (steps + 2) * eng.stream_interval
+        if any((self._pos + growth - (len(ids) - wave_p)) + w_req > eng.max_seq
+               for _, ids, _ in batch):
+            return False
+        try:
+            if wave_p:
+                session = eng.admission_session([r[wave_p:] for r in pad_rows],
+                                                prefix_cache=self._prefix_cache,
+                                                prefix_len=wave_p)
+            else:
+                session = eng.admission_session(pad_rows)
+        except Exception:  # noqa: BLE001 — the classic path has the fallback
+            return False
+        self._pending_wave = _PendingWave(batch=batch, wave_p=wave_p, session=session)
+        if self._obs is not None:
+            self._obs.instant("prefill_interleave_start", tid="batcher", streams=len(batch),
+                              prefix=wave_p, tokens=session.remaining_tokens)
+        return True
+
+    def _advance_wave(self, firsts: list, exhaust: bool) -> None:
+        """Dispatch one credit (``prefill_budget`` prompt tokens) of the
+        pending wave, or with ``exhaust`` (nothing live to overlap) the
+        rest of it. After the last credit, splice at the current frontier,
+        install the streams and attach their first tokens to ``firsts``."""
+        wave = self._pending_wave
+        eng = self.engine
+        self._nondecode_work = True
+        t_adm = self._admission_starts()
+        t0_obs = self._obs.now() if self._obs is not None else 0
+        try:
+            with self._wall("prefill"), obs.attrib.tag("prefill"):
+                done = wave.session.step(None if exhaust else self._prefill_budget)
+                finished = wave.session.finish() if done else None
+            if self._obs is not None:
+                self._obs.complete("prefill_interleave", t0_obs, tid="batcher", done=done,
+                                   exhaust=exhaust)
+            if not done:
+                self._stat_add(admit_s=time.monotonic() - t_adm)
+                return
+            last_logits, pcache, width = finished
+        except Exception:  # noqa: BLE001 — the classic path admits them
+            self._stat_add(admit_s=time.monotonic() - t_adm)
+            self._wave_fallback(wave)
+            return
+        members = [len(ids) - wave.wave_p for _, ids, _ in wave.batch]
+        if any(n > self._pos or (self._pos - n) + width > eng.max_seq for n in members):
+            # Decode outran the headroom _begin_wave planned: requeue (the
+            # prefill is wasted; a clamped splice would misalign rows).
+            self._pending_wave = None
+            self._stat_add(admit_s=time.monotonic() - t_adm)
+            with self._work:
+                self._queue[:0] = [(ids, s) for _, ids, s in wave.batch]
+                self._work.notify()
+            return
+        # The wave stays pending until the install lands: a pool-fatal
+        # splice failure reaches these streams through _pending_wave.
+        installed = False
+        try:
+            with self._wall("prefill"), obs.attrib.tag("prefill"):
+                entry = self._install_wave(wave.batch, wave.wave_p, last_logits, pcache, width)
+            installed = True
+        finally:
+            deltas = {"admit_s": time.monotonic() - t_adm}
+            if installed:
+                deltas.update(admitted=len(wave.batch), admit_tokens=sum(members))
+                self._pending_wave = None
+            self._stat_add(**deltas)
+        firsts.append(entry)
+        if self._obs is not None:
+            self._obs.complete("admit", t0_obs, tid="batcher", streams=len(wave.batch),
+                               prefix=wave.wave_p, ok=True, interleaved=True,
+                               resumed=sum(st.preempted for _, _, st in wave.batch))
+            self._obs.count("prefill.interleaved_tokens", sum(members))
+
+    def _wave_fallback(self, wave: _PendingWave) -> None:
+        """A wave's paced prefill failed: requeue its streams at the head
+        and turn interleaving off for this batcher, so the retry takes the
+        classic path (whose one-by-one fallback fails at most one stream)."""
+        self._pending_wave = None
+        warnings.warn("interleaved admission prefill failed; reverting to classic "
+                      "admission for this batcher", RuntimeWarning, stacklevel=2)
+        self._prefill_budget = 0
+        with self._work:
+            self._queue[:0] = [(ids, s) for _, ids, s in wave.batch]
+            self._work.notify()
+
     # -- streams ---------------------------------------------------------------
 
     def _result(self, s: _Stream) -> GenerateResult:
@@ -467,7 +907,7 @@ class ContinuousBatcher:
             token_ids=s.out_ids, text=text, finish_reason=s.finish,
             prompt_tokens=s.prompt_tokens,
             latency_ms=(time.monotonic() - s.submitted) * 1000,
-            truncated_prompt=s.truncated,
+            truncated_prompt=s.truncated, preempted=s.preempted,
         )
 
     def _retire(self, slot: int, finish: str) -> None:
@@ -503,15 +943,83 @@ class ContinuousBatcher:
         return True
 
     def _stat_add_locked(self, **deltas) -> None:
-        """Under ``_work``: accumulate stats."""
+        """Under ``_work``: accumulate stats. Every update is progress, so
+        it advances the heartbeat."""
         for k, v in deltas.items():
             self.stats[k] += v
+        self._beat = time.monotonic()
 
     def _stat_add(self, **deltas) -> None:
         with self._work:
             self._stat_add_locked(**deltas)
 
-    # -- frontier --------------------------------------------------------------
+    # -- frontier and row capacity ----------------------------------------------
+
+    def _rows_target(self, n: int) -> int:
+        """The power-of-two row bucket covering ``n`` live streams, floored
+        at ``_min_rows`` and capped at ``max_batch``."""
+        t = self._min_rows
+        while t < n:
+            t *= 2
+        return min(t, self.max_batch)
+
+    def _resize_to(self, target: int) -> None:
+        """Reallocate every per-row tensor at ``target`` rows. The caller
+        has drained the fetch pipeline: a row moving slots would otherwise
+        fail an in-flight chunk's owner check and lose its tokens. A shrink
+        first moves the live rows at or past ``target`` into free low slots
+        (cache row, token, row start, prefix flag, host row start and
+        stream together); the old tensors are freed."""
+        if target == self._rows_cap:
+            return
+        t0_obs = self._obs.now() if self._obs is not None else 0
+        cap = self._rows_cap
+        if target < cap:
+            frees = [i for i in range(target) if self._slots[i] is None]
+            for src in [i for i in range(target, cap) if self._slots[i] is not None]:
+                dst = frees.pop(0)
+                move_row(self._cache, src, dst)
+                for t in (self._token, self._row_start, self._prefix_rows):
+                    t[dst] = t[src]
+                self._row_start_host[dst] = self._row_start_host[src]
+                self._slots[dst], self._slots[src] = self._slots[src], None
+            shrink_rows(self._cache, target)
+            self._token = self._token[:target].clone()
+            self._row_start = self._row_start[:target].clone()
+            self._prefix_rows = self._prefix_rows[:target].clone()
+        else:
+            grow_rows(self._cache, target)
+            pad = target - cap
+            self._token = torch.cat([self._token, self._token.new_zeros(pad)])
+            self._row_start = torch.cat([self._row_start, self._row_start.new_zeros(pad)])
+            self._prefix_rows = torch.cat([self._prefix_rows, self._prefix_rows.new_zeros(pad)])
+        self._rows_cap = target
+        self._book_cache_bytes()
+        if self._obs is not None:
+            self._obs.complete("resize", t0_obs, tid="batcher", rows=target, before=cap)
+
+    def _maybe_shrink(self) -> None:
+        """Shrink the row bucket once the live streams have stayed at or
+        below half the current capacity for ``SHRINK_PATIENCE`` dispatches."""
+        live_n = sum(1 for s in self._slots if s is not None)
+        target = self._rows_target(live_n)
+        if live_n and target * 2 <= self._rows_cap:
+            self._shrink_patience += 1
+            if self._shrink_patience >= SHRINK_PATIENCE:
+                self._shrink_patience = 0
+                self._resize_drained(target)
+        else:
+            self._shrink_patience = 0
+
+    def _resize_drained(self, target: int) -> None:
+        """Drain the fetch pipeline, then ``_resize_to(target)`` (booked as
+        compaction-family device work)."""
+        self._drain_fetches()
+        self._nondecode_work = True
+        self._close_gap()  # the resize runs pipeline-drained
+        self._gap_phase = "resize"
+        with self._wall("compact"), obs.attrib.tag("compact"):
+            self._resize_to(target)
 
     def _compact(self) -> None:
         """Give live rows fresh runway when the frontier hits capacity:
@@ -533,6 +1041,7 @@ class ContinuousBatcher:
         self._row_start_host = [r - shift for r in self._row_start_host]
         self._row_start = self._row_start - shift
         self._pos -= shift
+        self._stat_add(compactions=1)
 
     def _plan_steps(self, chunk: int) -> int:
         """Steps of the next chunk: 1-step chunks inside the cache's last
@@ -561,6 +1070,7 @@ class ContinuousBatcher:
             with torch.inference_mode():
                 self._loop()
         except BaseException as exc:  # noqa: BLE001 — fail every future
+            self.failed_exc = exc  # before any future fails: the evidence
             if self._bb is not None:
                 # The ring holds the spans leading up to the death.
                 self._bb.instant("engine_crash", tid="batcher", error=repr(exc))
@@ -579,11 +1089,13 @@ class ContinuousBatcher:
             for i, s in enumerate(self._slots):
                 if s is not None:
                     self._slots[i] = None
-                    if not s.future.done():
-                        try:
-                            s.future.set_exception(exc)
-                        except InvalidStateError:
-                            pass
+                    _fail(s, exc)
+            wave, self._pending_wave = self._pending_wave, None
+            if wave is not None:
+                # A filling wave's streams are in neither the queue nor the
+                # slots.
+                for _, _, s in wave.batch:
+                    _fail(s, exc)
             raise
         else:
             self._fetch_q.put(None)
@@ -599,7 +1111,8 @@ class ContinuousBatcher:
         emitted = appended = 0
         for (slots, _, wave_owners), vals in zip(firsts, first_vals):
             for slot, owner, val in zip(slots, wave_owners, vals):
-                if self._slots[slot] is owner:
+                # None: the stream was preempted before this first token.
+                if owner is not None and self._slots[slot] is owner:
                     appended += self._emit(slot, val, eos)
                     emitted += 1
         overshoot = 0
@@ -653,7 +1166,8 @@ class ContinuousBatcher:
                 continue
             for rec in (self._obs, self._bb):
                 if rec is not None:
-                    rec.complete("fetch", t0_obs, tid="batcher", tokens=emitted, pure=pure)
+                    rec.complete("fetch", t0_obs, tid="batcher", tokens=emitted, pure=pure,
+                                 firsts=len(firsts))
             if self._attrib is not None:
                 # This chunk's copy is done, so its interval and those of
                 # the work enqueued before it read without a wait.
@@ -669,12 +1183,14 @@ class ContinuousBatcher:
                     ref = self._prev_arrival if self._prev_arrival is not None else t_dispatch
                     self._stat_add_locked(decode_tokens=emitted, decode_s=t_arrival - ref)
                 self._prev_arrival = t_arrival
+                self._beat = t_arrival  # a fetch arrival is progress
                 self._unfetched -= 1
                 if self._unfetched == 0:
                     # Drained: the next interval spans device idle time.
                     self._prev_arrival = None
                     if (self._attrib is not None and not self._dispatching
-                            and (self._live() or self._queue)):
+                            and (self._live() or self._queue
+                                 or self._pending_wave is not None)):
                         # Device idle begins on a batcher that still has
                         # work: the next dispatch closes the gap.
                         self._idle_at = t_arrival
@@ -789,11 +1305,23 @@ class ContinuousBatcher:
 
     def _admission_pass(self, pending: list, firsts: list) -> list:
         """Admit what fits from ``pending``, in waves, until nothing more
-        can be admitted; returns the requeue list (FIFO order kept)."""
+        can be admitted; returns the requeue list (priority order, FIFO
+        within a class). A wave on a decoding pool with ``prefill_budget``
+        set opens an interleaved session instead and ends the pass."""
         eng = self.engine
         requeue: list = []
         while True:
-            free = [i for i in range(self.max_batch) if self._slots[i] is None]
+            # Priority order, stable: a higher class drained in the same
+            # pass takes slots first, FIFO holds within a class.
+            pending.sort(key=lambda item: item[1].priority)
+            if self._rows_bucket_enabled and self._rows_cap < self.max_batch:
+                # Admission-driven regrowth, before the wave splices.
+                demand = sum(1 for s in self._slots if s is not None) + sum(
+                    1 for _, s in pending if not s.ctx.done() and s.max_new > 0)
+                target = self._rows_target(demand)
+                if target > self._rows_cap:
+                    self._resize_drained(target)
+            free = [i for i in range(self._rows_cap) if self._slots[i] is None]
             batch: list = []
             pool_idle = not self._live()
             candidates = [ids for ids, s in pending if not s.ctx.done() and s.max_new > 0]
@@ -834,6 +1362,12 @@ class ContinuousBatcher:
                 batch.append((free.pop(0), ids, stream))
             pending = []
             singles: list = []
+            if (batch and self._prefill_budget > 0 and self._pending_wave is None
+                    and self._live() and self._begin_wave(batch, wave_p)):
+                # Interleaved: the wave fills between decode chunks; later
+                # arrivals queue until it installs. An idle pool admits
+                # classically (there is no decode to overlap).
+                return requeue
             if batch:
                 self._nondecode_work = True
                 t_adm = self._admission_starts()
@@ -849,7 +1383,8 @@ class ContinuousBatcher:
                         admit_tokens=sum(len(i2) - wave_p for _, i2, _ in batch) if ok else 0)
                     if self._obs is not None:
                         self._obs.complete("admit", t0_obs, tid="batcher", streams=len(batch),
-                                           prefix=wave_p, ok=ok)
+                                           prefix=wave_p, ok=ok,
+                                           resumed=sum(st.preempted for _, _, st in batch))
                 if admitted is None:
                     singles = batch
                     if wave_p:
@@ -882,7 +1417,7 @@ class ContinuousBatcher:
                                    admit_tokens=len(ids) if ok else 0)
                     if self._obs is not None:
                         self._obs.complete("admit", t0_obs, tid="batcher", streams=1,
-                                           prefix=0, ok=ok)
+                                           prefix=0, ok=ok, resumed=int(stream.preempted))
                 if entry is not None:
                     firsts.append(entry)
             if requeue or not batch or all(st is not None for st in self._slots):
@@ -911,18 +1446,24 @@ class ContinuousBatcher:
                     self._worker_exc is None
                     and not self._queue
                     and not self._live()
+                    and self._pending_wave is None
                     and not (self._closed and self._unfetched == 0)
                 ):
                     self._work.wait()
                 if self._worker_exc is not None:
                     raise self._worker_exc
-                if self._closed and not self._live() and self._unfetched == 0:
+                if (self._closed and not self._live() and self._unfetched == 0
+                        and self._pending_wave is None):
                     for _, s in self._queue:
                         s.future.cancel()
                     self._queue.clear()
                     return
-                pending = list(self._queue)
-                self._queue.clear()
+                pending = []
+                if self._pending_wave is None:
+                    # While a wave fills, submissions stay queued (waves
+                    # never overlap); their arrival still breaks the gates.
+                    pending = list(self._queue)
+                    self._queue.clear()
                 if pending and not self._live():
                     # Idle-pool burst absorption before the first admission
                     # pass: exit after two quiet windows or 250 ms.
@@ -945,9 +1486,21 @@ class ContinuousBatcher:
                         if s is not None:
                             self._retire(i, "length")
             requeue = self._admission_pass(pending, pending_firsts) if pending else []
+            resumed: list = []
+            if self._preempt_enabled and (requeue or self._preempt_req):
+                # Blocked higher-class work against lower-class residents:
+                # the resumed entries queue behind the blocked work, so the
+                # next pass seats the higher class in the freed slots.
+                resumed = self._plan_preempt(requeue, pending_firsts)
             with self._work:
-                self._queue[:0] = requeue
+                self._queue[:0] = requeue + resumed
                 qlen0 = len(self._queue)
+            if resumed:
+                continue  # admit the unblocked work now
+            if self._pending_wave is not None:
+                # One credit of the filling wave between the previous decode
+                # chunk and the next; with nothing live to overlap, all of it.
+                self._advance_wave(pending_firsts, exhaust=not self._live())
             if not self._live():
                 continue
             with self._work:
@@ -980,6 +1533,10 @@ class ContinuousBatcher:
                 self._unfetched > 0 or len(self._queue) > qlen0
             ):
                 continue
+            if self._rows_bucket_enabled and not pending_firsts and self._pending_wave is None:
+                # Never with first tokens pending (their slot indices are not
+                # remapped by a move) nor while a wave holds reserved slots.
+                self._maybe_shrink()
             self._dispatch(chunk, live_now[0].sampling, pending_firsts)
             pending_firsts = []
 
@@ -1009,7 +1566,8 @@ class ContinuousBatcher:
         # roofline's count of the decode kernel's work.
         kv_valid = None
         if eng._roofline is not None:
-            kv_valid = sum(max(0, self._pos - r + 1) for r in self._row_start_host)
+            kv_valid = sum(max(0, self._pos - r + 1)
+                           for r in self._row_start_host[:self._rows_cap])
         with obs.attrib.tag("decode"):
             self._token, toks, _ = eng._decode_chunk(
                 self._token, pos, self._cache, n_steps, self._gen,
@@ -1031,7 +1589,9 @@ class ContinuousBatcher:
         for s in self._slots:
             if s is not None:
                 s.planned += n_steps
-        item = (fetch, list(self._slots), firsts, pure, t_dispatch, walls)
+        # The owners of the chunk's columns: the current row capacity.
+        item = (fetch, self._slots[:self._rows_cap], firsts, pure, t_dispatch, walls)
+        self._beat = time.monotonic()  # a dispatch is progress
         with self._work:
             self._unfetched += 1
             self._dispatching = False

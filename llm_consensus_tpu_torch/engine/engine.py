@@ -28,7 +28,8 @@ no environment: the CLI reads the JAX package's knobs for these modes.
 For the continuous batcher (engine/batcher.py) the engine also prefills
 admission waves of k rows in one pass (:class:`AdmissionPrefill`: full
 prompts through the flash kernel at B = k, or in chunks; or suffixes
-against the pool's shared prefix) and decodes a chunk of steps over
+against the pool's shared prefix), one-shot or paced a token budget at a
+time between decode chunks (``Engine.admission_session``), and decodes a chunk of steps over
 right-aligned rows (``row_start``) with an optional shared prefix
 (:meth:`Engine._decode_chunk`).
 
@@ -54,9 +55,8 @@ forks the snapshot the same way (:func:`_fork_prefix`) and retains its row
 incrementally as its pieces become known (the judge-overlap path,
 consensus/overlap.py), then decodes through the same loop as ``generate``.
 
-The KV pool, meshes, ``generate_batch``, weight swaps (and with them the
-session's weight-version migration) and the interleaved (budgeted)
-admission steps of the JAX engine are not ported.
+The KV pool, meshes, ``generate_batch`` and weight swaps (and with them
+the session's weight-version migration) of the JAX engine are not ported.
 """
 
 from __future__ import annotations
@@ -109,6 +109,9 @@ class GenerateResult:
     # generation fit in one chunk.
     decode_tokens: int = 0
     decode_s: float = 0.0
+    # Preempted and resumed at least once (the continuous batcher's
+    # priority preemption).
+    preempted: bool = False
 
 
 # Decode attention width: buckets of this granule over the causal frontier
@@ -560,6 +563,14 @@ class Engine:
         self._sessions.add(session)
         return session
 
+    def admission_session(self, rows: list[list[int]], prefix_cache=None,
+                          prefix_len: int = 0) -> "AdmissionPrefill":
+        """A resumable batched admission prefill over ``rows`` (suffixes
+        against ``prefix_cache`` when given): the one-shot wrappers below
+        drive it with ``step(None)``; the batcher's interleaved admission
+        paces ``step`` with a token budget between decode chunks."""
+        return AdmissionPrefill(self, rows, prefix_cache, prefix_len)
+
     def _prefill_rows(self, rows: list[list[int]]):
         """Batched admission prefill: k left-aligned prompts in one pass,
         padded to a shared bucket. Returns ``(last_logits [k, V], cache,
@@ -841,9 +852,8 @@ class Engine:
 
 
 class AdmissionPrefill:
-    """One admission wave of k rows prefilled in one pass (the JAX engine's
-    ``AdmissionPrefill`` driven to completion by ``step(None)``: the
-    classic batcher path; the budgeted interleaved steps are not ported).
+    """One admission wave of k rows prefilled in one pass, resumable (the JAX
+    engine's ``AdmissionPrefill``).
 
     Full-prompt rows are left-aligned and padded to ``_rows_bucket``: a
     bucket within ``prefill_chunk`` runs one-shot from position 0 through
@@ -854,45 +864,76 @@ class AdmissionPrefill:
     merge), padded to their own power-of-two bucket, and the cache holds
     only suffix KV.
 
+    ``step(token_budget)`` dispatches chunks until ``token_budget`` total
+    prompt tokens (rows x chunk) went out in this call, at least one chunk,
+    so the continuous batcher can pace a wave between its decode chunks
+    (interleaved admission); ``step(None)`` runs to completion, the classic
+    path. A one-shot wave is one indivisible step. ``finish()`` then gives
+    ``(last_logits [k, V], cache [k, width], width)``. Pacing changes when
+    the chunks run, never what they compute.
+
     A chunked full-prompt wave whose rows share at least one whole chunk
-    with the engine's prefix snapshot forks it across the k rows and
-    prefills only the chunks after it; a chunked wave of 2+ rows that share
-    a chunk among themselves retains its row 0 as the next snapshot.
+    with the engine's prefix snapshot forks it across the k rows (at
+    construction) and prefills only the chunks after it; a chunked wave of
+    2+ rows that share a chunk among themselves retains its row 0 as the
+    next snapshot (at ``finish``).
     """
 
     def __init__(self, engine: Engine, rows: list[list[int]], prefix_cache=None,
                  prefix_len: int = 0):
         self._eng = engine
+        self._t0_obs = engine._obs.now() if engine._obs is not None else 0
         self.rows = rows
         self.k = len(rows)
         self._prefix_cache = prefix_cache
         self._plen = prefix_len
         n_max = max(len(r) for r in rows)
-        self._chunk_len = engine.prefill_chunk
+        self._chunk_len = chunk = engine.prefill_chunk
         if prefix_cache is not None:
             self.width = _bucket(n_max, engine.max_seq)
         else:
             self.width = engine._rows_bucket(n_max)
+        width = self.width
         # A bucket capped at a max_seq that is no chunk multiple cannot
         # chunk (flooring would drop the tail) and runs one-shot instead.
-        self._use_chunks = (
-            bool(self._chunk_len)
-            and self.width > self._chunk_len
-            and self.width % self._chunk_len == 0
-        )
-        self._t0_obs = engine._obs.now() if engine._obs is not None else 0
+        self._use_chunks = bool(chunk) and width > chunk and width % chunk == 0
+        # Wave prefix reuse (the panel's one-prompt fan-out): whole chunks
+        # of the rows' common prefix found in the snapshot are forked, not
+        # prefilled. Full-prompt chunked waves only.
+        reuse_base, saved = 0, None
+        self._common: list[int] = []
+        if prefix_cache is None and self._use_chunks and engine.prefix_cache_enabled:
+            self._common = self._common_prefix()
+            lcp, snap = (engine._reusable_prefix(self._common) if self._common
+                         else (0, None))
+            base = lcp // chunk * chunk
+            if base >= chunk:
+                reuse_base, saved = base, snap
+        if saved is not None:
+            self._cache = _fork_prefix(saved, reuse_base, self.k, width)
+        else:
+            self._cache = init_kv_cache(
+                engine.cfg, batch=self.k, max_seq=width, device=engine.device,
+                dtype=engine.dtype, quant=engine.kv_quant,
+            )
+        self._tokens = engine.to_device([r + [0] * (width - len(r)) for r in rows])
+        self._n_chunks = width // chunk if self._use_chunks else 1
+        self._first = reuse_base // chunk if self._use_chunks else 0
+        self._next = self._first
+        self._per_chunk: list[torch.Tensor] = []
+        self._last_logits: Optional[torch.Tensor] = None
+        self._cap = None
+        self._done = False
 
-    def run(self):
-        """``(last_logits [k, V], cache [k, width], width)``; one prefill
-        dispatch for the roofline, an ``admit_prefill`` span."""
-        out = self._run()
-        eng = self._eng
-        if eng._obs is not None:
-            args = {"rows": self.k, "width": self.width}
-            if self._prefix_cache is not None:
-                args["prefix"] = self._plen
-            eng._obs.complete("admit_prefill", self._t0_obs, tid="engine", **args)
-        return out
+    @property
+    def remaining_tokens(self) -> int:
+        """Total prompt tokens (rows x chunk) not dispatched yet: the
+        batcher's pacing is sized off this."""
+        if self._done:
+            return 0
+        if not self._use_chunks:
+            return self.k * self.width
+        return self.k * self._chunk_len * (self._n_chunks - self._next)
 
     def _common_prefix(self) -> list[int]:
         common = self.rows[0]
@@ -904,26 +945,14 @@ class AdmissionPrefill:
             common = common[:i]
         return common
 
-    def _run(self):
+    def step(self, token_budget: Optional[int]) -> bool:
+        """Dispatch prefill chunks until ``token_budget`` total prompt tokens
+        (rows x chunk) went out in this call, at least one chunk; ``None``
+        runs to completion. True once every dispatch of the wave is made
+        (``finish`` may then be called)."""
+        if self._done:
+            return True
         eng, width = self._eng, self.width
-        # Wave prefix reuse (the panel's one-prompt fan-out): whole chunks
-        # of the rows' common prefix found in the snapshot are forked, not
-        # prefilled. Full-prompt chunked waves only.
-        reuse_base, saved, common = 0, None, []
-        if self._prefix_cache is None and self._use_chunks and eng.prefix_cache_enabled:
-            common = self._common_prefix()
-            lcp, snap = eng._reusable_prefix(common) if common else (0, None)
-            base = lcp // self._chunk_len * self._chunk_len
-            if base >= self._chunk_len:
-                reuse_base, saved = base, snap
-        if saved is not None:
-            cache = _fork_prefix(saved, reuse_base, self.k, width)
-        else:
-            cache = init_kv_cache(
-                eng.cfg, batch=self.k, max_seq=width, device=eng.device, dtype=eng.dtype,
-                quant=eng.kv_quant,
-            )
-        tokens = eng.to_device([r + [0] * (width - len(r)) for r in self.rows])
         prefix = {}
         if self._prefix_cache is not None:
             prefix = {"prefix": self._prefix_cache, "prefix_len": self._plen}
@@ -934,45 +963,79 @@ class AdmissionPrefill:
             impl = "torch" if prefix else "flash"
             cap = eng._capture("prefill", (self.k, width), self.k * width)
             with cap or nullcontext():
-                logits, cache = eng._forward(tokens, cache, 0, attn_impl=impl,
-                                             logits_index=last, capture=cap, **prefix)
-            return logits[:, 0], cache, width
+                logits, self._cache = eng._forward(self._tokens, self._cache, 0, attn_impl=impl,
+                                                   logits_index=last, capture=cap, **prefix)
+            self._last_logits = logits[:, 0]
+            self._done = True
+            return True
         chunk = self._chunk_len
-        first = reuse_base // chunk
-        n_chunks = width // chunk
-        # Per-row "last token in THIS chunk", clamped: each row reads the
-        # logits of the chunk that holds its real last token.
-        idx = eng.to_device([
-            [min(max(len(r) - 1 - c * chunk, 0), chunk - 1) for r in self.rows]
-            for c in range(first, n_chunks)
-        ])
-        per_chunk = []
-        cap = eng._capture("prefill", ((self.k, chunk), width), self.k * (width - reuse_base),
-                           n_chunks - first)
-        for c in range(first, n_chunks):
-            counted = cap if c == first else None
+        if self._next == self._first:
+            # One prefill dispatch of the wave's chunks for the roofline
+            # (the JAX chunk loop's count), its first chunk counted.
+            self._cap = eng._capture("prefill", ((self.k, chunk), width),
+                                     self.k * (width - self._first * chunk),
+                                     self._n_chunks - self._first)
+        spent = 0
+        while self._next < self._n_chunks:
+            c = self._next
+            # Per-row "last token in THIS chunk", clamped: each row reads
+            # the logits of the chunk that holds its real last token.
+            idx = eng.to_device([min(max(len(r) - 1 - c * chunk, 0), chunk - 1)
+                                 for r in self.rows])
+            counted = self._cap if c == self._first else None
             with counted or nullcontext():
-                logits, cache = eng._forward(
-                    tokens[:, c * chunk:(c + 1) * chunk], cache, c * chunk,
-                    attn_impl="torch", kv_width=width, logits_index=idx[c - first],
-                    capture=counted, **prefix,
+                logits, self._cache = eng._forward(
+                    self._tokens[:, c * chunk:(c + 1) * chunk], self._cache, c * chunk,
+                    attn_impl="torch", kv_width=width, logits_index=idx, capture=counted,
+                    **prefix,
                 )
-            per_chunk.append(logits[:, 0])
-        sel = eng.to_device([(len(r) - 1) // chunk - first for r in self.rows])
-        stacked = torch.stack(per_chunk)  # [C - first, k, V]
-        rows = torch.arange(self.k, device=stacked.device)
-        # Row 0 becomes the next snapshot when the wave's rows share a
-        # chunk (evidence of prefix traffic; a wave of unrelated prompts
-        # must not evict a live snapshot) and the snapshot is not already
-        # row 0: the copy allocates a full [1, max_seq] cache.
-        if (
-            self.k > 1 and len(common) >= chunk
-            and eng._prefix_ids != tuple(self.rows[0])
-        ):
-            template = init_kv_cache(eng.cfg, batch=1, max_seq=eng.max_seq, device=eng.device,
-                                     dtype=eng.dtype, quant=eng.kv_quant)
-            eng._retain_prefix(self.rows[0], _extract_row0(template, cache, width))
-        return stacked[sel, rows], cache, width
+            self._per_chunk.append(logits[:, 0])
+            self._next += 1
+            spent += self.k * chunk
+            if token_budget is not None and spent >= token_budget:
+                break
+        self._done = self._next >= self._n_chunks
+        return self._done
+
+    def finish(self):
+        """``(last_logits [k, V], cache [k, width], width)`` once ``step``
+        returned True: each row's real last-token logits, the wave's row 0
+        retained as the snapshot when the rows share a chunk, an
+        ``admit_prefill`` span."""
+        if not self._done:
+            raise RuntimeError("admission prefill finished before its last step")
+        eng, width, chunk = self._eng, self.width, self._chunk_len
+        cache = self._cache
+        if not self._use_chunks:
+            last_logits = self._last_logits
+        else:
+            sel = eng.to_device([(len(r) - 1) // chunk - self._first for r in self.rows])
+            stacked = torch.stack(self._per_chunk)  # [C - first, k, V]
+            last_logits = stacked[sel, torch.arange(self.k, device=stacked.device)]
+            # Row 0 becomes the next snapshot when the wave's rows share a
+            # chunk (evidence of prefix traffic; a wave of unrelated
+            # prompts must not evict a live snapshot) and the snapshot is
+            # not already row 0: the copy allocates a full [1, max_seq]
+            # cache.
+            if (
+                self.k > 1 and len(self._common) >= chunk
+                and eng._prefix_ids != tuple(self.rows[0])
+            ):
+                template = init_kv_cache(eng.cfg, batch=1, max_seq=eng.max_seq,
+                                         device=eng.device, dtype=eng.dtype,
+                                         quant=eng.kv_quant)
+                eng._retain_prefix(self.rows[0], _extract_row0(template, cache, width))
+        if eng._obs is not None:
+            args = {"rows": self.k, "width": width}
+            if self._prefix_cache is not None:
+                args["prefix"] = self._plen
+            eng._obs.complete("admit_prefill", self._t0_obs, tid="engine", **args)
+        return last_logits, cache, width
+
+    def run(self):
+        """The classic one-shot drive: ``step(None)``, then ``finish()``."""
+        self.step(None)
+        return self.finish()
 
 
 class PrefillSession:

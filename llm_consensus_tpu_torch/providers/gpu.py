@@ -25,9 +25,12 @@ the engines with their snapshots and open prefill sessions.
 ``batch_streams`` > 1 routes every request for a preset through one
 ``ContinuousBatcher`` over that preset's engine (built once, under a build
 lock), so concurrent streams of one model share the decode; greedy results
-equal the single-stream path's. ``pool_prefix`` and ``pool_prefix_min`` go
-to the batcher (shared-prefix serving: a panel of one model fans one prompt
-out to N streams). A submit the batcher refuses (``RuntimeError`` or
+equal the single-stream path's. ``pool_prefix`` and ``pool_prefix_min``
+(shared-prefix serving: a panel of one model fans one prompt out to N
+streams), ``prefill_budget`` (interleaved admission), ``pool_bucket``
+(occupancy row-bucketing) and ``preempt`` (priority preemption) go to the
+batcher, and each request's ``priority`` (None: NORMAL) to its submit. A
+submit the batcher refuses (``RuntimeError`` or
 ``ValueError``: it is closed) or a submission a concurrent close cancelled
 goes to the single-stream ``engine.generate``.
 
@@ -63,6 +66,7 @@ from llm_consensus_tpu_torch import obs
 from llm_consensus_tpu_torch.engine.engine import PREFIX_CACHE_MAX_MB
 from llm_consensus_tpu_torch.obs.live import class_label
 from llm_consensus_tpu_torch.ops.kernels.build import KernelBuildError, KernelLaunchError
+from llm_consensus_tpu_torch.pressure.priority import PRIORITY_NORMAL
 from llm_consensus_tpu_torch.providers.base import Provider, Request, Response, StreamCallback
 from llm_consensus_tpu_torch.utils.context import Cancelled, Context, DeadlineExceeded
 from llm_consensus_tpu_torch.utils.device import DeviceLike, device_name, resolve_device
@@ -110,6 +114,7 @@ class GPUProvider(Provider):
 
     def __init__(self, *, device: DeviceLike = None, max_seq: Optional[int] = None,
                  batch_streams: int = 1, pool_prefix: bool = True, pool_prefix_min: int = 192,
+                 prefill_budget: int = 0, pool_bucket: bool = True, preempt: bool = True,
                  checkpoint_dir: Optional[str] = None, prefix_cache: bool = True,
                  prefix_cache_max_mb: float = PREFIX_CACHE_MAX_MB, **modes):
         self.modes = _resolve_modes(**modes)
@@ -120,6 +125,9 @@ class GPUProvider(Provider):
         self.batch_streams = batch_streams
         self.pool_prefix = pool_prefix
         self.pool_prefix_min = pool_prefix_min
+        self.prefill_budget = prefill_budget
+        self.pool_bucket = pool_bucket
+        self.preempt = preempt
         self._engines: dict[str, object] = {}
         self._batchers: dict[str, object] = {}
         self._lock = threading.Lock()
@@ -134,7 +142,8 @@ class GPUProvider(Provider):
 
     @classmethod
     def shared(cls, device: DeviceLike = None, *, batch_streams: int = 1,
-               pool_prefix: bool = True, pool_prefix_min: int = 192,
+               pool_prefix: bool = True, pool_prefix_min: int = 192, prefill_budget: int = 0,
+               pool_bucket: bool = True, preempt: bool = True,
                checkpoint_dir: Optional[str] = None, prefix_cache: bool = True,
                prefix_cache_max_mb: float = PREFIX_CACHE_MAX_MB, **modes) -> "GPUProvider":
         """One provider per device, quantization modes, batching settings,
@@ -145,7 +154,8 @@ class GPUProvider(Provider):
         dev = resolve_device(device)
         modes = _resolve_modes(**modes)
         batching = {"batch_streams": batch_streams, "pool_prefix": bool(pool_prefix),
-                    "pool_prefix_min": pool_prefix_min}
+                    "pool_prefix_min": pool_prefix_min, "prefill_budget": max(0, prefill_budget),
+                    "pool_bucket": bool(pool_bucket), "preempt": bool(preempt)}
         prefix = {"prefix_cache": bool(prefix_cache),
                   "prefix_cache_max_mb": float(prefix_cache_max_mb)}
         checkpoint_dir = checkpoint_dir or None
@@ -255,17 +265,20 @@ class GPUProvider(Provider):
 
         return self._get_or_build(self._batchers, "batcher", preset, lambda _: ContinuousBatcher(
             engine, max_batch=self.batch_streams, pool_prefix=self.pool_prefix,
-            pool_prefix_min=self.pool_prefix_min))
+            pool_prefix_min=self.pool_prefix_min, prefill_budget=self.prefill_budget,
+            pool_bucket=self.pool_bucket, preempt=self.preempt))
 
-    def _generate(self, engine, preset: str, prompt: str, sampling, ctx: Context, cb):
+    def _generate(self, engine, preset: str, prompt: str, sampling, ctx: Context, cb,
+                  priority: Optional[int] = None):
         """One generate of ``prompt`` on ``engine``, through the preset's
-        batcher when batching; a refused or cancelled submission runs
-        single-stream."""
+        batcher (at ``priority``, None for NORMAL) when batching; a refused
+        or cancelled submission runs single-stream."""
         if self.batch_streams <= 1:
             return engine.generate(prompt, sampling, ctx, on_text=cb)
         batcher = self._batcher_for(preset, engine)
         try:
-            fut = batcher.submit(prompt, sampling, ctx, on_text=cb)
+            fut = batcher.submit(prompt, sampling, ctx, on_text=cb,
+                                 priority=PRIORITY_NORMAL if priority is None else priority)
         except (KernelBuildError, KernelLaunchError):
             raise
         except (RuntimeError, ValueError):
@@ -316,7 +329,7 @@ class GPUProvider(Provider):
         preset = parse_model_name(req.model)
         retry = False
         try:
-            result = self._generate(engine, preset, prompt, sampling, ctx, cb)
+            result = self._generate(engine, preset, prompt, sampling, ctx, cb, req.priority)
         except _NO_RETRY:
             raise
         except Exception:  # noqa: BLE001 — one rebuild, unless text already streamed
@@ -332,7 +345,7 @@ class GPUProvider(Provider):
             engine = None
             gc.collect()
             engine = self._engine_for(req.model)
-            result = self._generate(engine, preset, prompt, sampling, ctx, cb)
+            result = self._generate(engine, preset, prompt, sampling, ctx, cb, req.priority)
         with self._lock:
             self.stats["tokens"] += len(result.token_ids)
             self.stats["runs"] += 1
@@ -367,8 +380,9 @@ class GPUProvider(Provider):
                 per_tok = result.decode_s / result.decode_tokens
             else:
                 per_tok = (time.monotonic() - start) / len(result.token_ids)
-            self._live.observe("token_latency", per_tok, outcome="ok",
-                               **{"class": class_label(1 if req.priority is None
+            self._live.observe("token_latency", per_tok,
+                               outcome="preempted" if getattr(result, "preempted", False) else "ok",
+                               **{"class": class_label(PRIORITY_NORMAL if req.priority is None
                                                        else req.priority)})
         if self._obs is not None and tokens_per_sec is not None:
             # Run aggregates: the footer divides the sums; MFU re-weights by

@@ -3,6 +3,9 @@
 
   * One worker thread per model, all started together.
   * Per-model deadline via a child context.
+  * Every panel query carries the runner's priority class (``priority``,
+    None for the provider's default), which a batched engine admits and
+    preempts by.
   * Best-effort: a model failure becomes a warning and a ``failed_models``
     entry and never cancels siblings; workers never raise.
   * Responses are appended in completion order under a lock.
@@ -67,11 +70,15 @@ class Runner:
     def __init__(self, registry: Registry, timeout: float,
                  max_tokens: Optional[int] = None,
                  system: Optional[str] = None,
-                 stall_grace: float = DEFAULT_STALL_GRACE_S):
+                 stall_grace: float = DEFAULT_STALL_GRACE_S,
+                 priority: Optional[int] = None):
         self._registry = registry
         self._timeout = timeout
         self._max_tokens = max_tokens
         self._system = system  # system prompt for every panel query
+        # Priority class of every panel query (pressure/priority.py); None
+        # is the provider's default (NORMAL).
+        self._priority = priority
         self._stall_grace = stall_grace
         self._callbacks = Callbacks()
         self._obs = obs.recorder()
@@ -156,7 +163,7 @@ class Runner:
                     resp = provider.query_stream(
                         model_ctx,
                         Request(model=model, prompt=prompt, max_tokens=self._max_tokens,
-                                system=self._system),
+                                system=self._system, priority=self._priority),
                         on_chunk,
                     )
                 except Exception as err:  # noqa: BLE001

@@ -19,8 +19,15 @@ knobs that the JAX package declares, with the same meaning:
     the continuous-batching pool per preset, above 1 to batch;
   * ``LLMC_POOL_PREFIX``, ``LLMC_POOL_PREFIX_MIN``: shared-prefix serving
     and its minimum common prefix;
-  * ``LLMC_PREFILL_BUDGET``: interleaved admission, not ported: a value
-    above 0 is refused;
+  * ``LLMC_PREFILL_BUDGET`` (0): interleaved admission, the prompt tokens
+    of a new wave's prefill dispatched between two decode chunks (0:
+    classic admission);
+  * ``LLMC_POOL_BUCKET`` (on): occupancy row-bucketing of the pool cache;
+  * ``LLMC_PRESSURE_PREEMPT`` (on): priority preemption in the batcher;
+  * ``LLMC_PRESSURE_DEADLINE_HIGH_S`` (15 s) and
+    ``LLMC_PRESSURE_DEADLINE_LOW_S`` (600 s): the deadlines that derive a
+    request's priority class when it states none
+    (``pressure/priority.py`` ``resolve_priority``);
   * ``LLMC_CHECKPOINT_DIR``: the directory of per-preset HF safetensors
     checkpoints (``<dir>/<preset>/``);
   * ``LLMC_PREFIX_CACHE`` (default on) and ``LLMC_PREFIX_CACHE_MAX_MB``
@@ -126,16 +133,29 @@ def telemetry_settings() -> dict:
 
 def batch_settings() -> dict:
     """The continuous-batching settings of the environment, as the keyword
-    arguments of ``GPUProvider``. Raises ``NotImplementedError`` for
-    ``LLMC_PREFILL_BUDGET`` above 0 (interleaved admission)."""
-    if get_int("LLMC_PREFILL_BUDGET", 0) > 0:
-        raise NotImplementedError(
-            "LLMC_PREFILL_BUDGET > 0 (interleaved admission) is not ported; unset it or use 0")
+    arguments of ``GPUProvider``."""
     return {
         "batch_streams": get_int("LLMC_MAX_BATCH", 0) or get_int("LLMC_BATCH_STREAMS", 1),
         "pool_prefix": get_bool("LLMC_POOL_PREFIX", True),
         "pool_prefix_min": get_int("LLMC_POOL_PREFIX_MIN", 192),
+        "prefill_budget": max(0, get_int("LLMC_PREFILL_BUDGET", 0)),
+        "pool_bucket": get_bool("LLMC_POOL_BUCKET", True),
+        "preempt": get_bool("LLMC_PRESSURE_PREEMPT", True),
     }
+
+
+def set_prefill_budget(tokens: int) -> None:
+    """The CLI's ``--prefill-budget``: set ``LLMC_PREFILL_BUDGET`` for the
+    process, so the flag and the knob are one setting (as in the JAX
+    CLI)."""
+    os.environ["LLMC_PREFILL_BUDGET"] = str(tokens)
+
+
+def priority_deadlines() -> tuple[float, float]:
+    """``(high_s, low_s)``: a request deadline at or under ``high_s`` reads
+    as the HIGH class, one at or over ``low_s`` as LOW."""
+    return (get_float("LLMC_PRESSURE_DEADLINE_HIGH_S", 15.0),
+            get_float("LLMC_PRESSURE_DEADLINE_LOW_S", 600.0))
 
 
 def quant_modes() -> dict:

@@ -244,21 +244,25 @@ def test_long_prompt_waits_for_frontier_and_cache_tail_parity(engine, make_batch
 
 
 def test_waterline_compaction_gives_fresh_runway(pair, make_batcher):
-    """6 streams x (prompt ~25 + 60 new) through 2 slots of a 256-slot cache:
-    the shared frontier must compact, and every stream stays exact (JAX
-    engine too)."""
+    """6 streams through 2 slots of a 256-slot cache, one resident of 180
+    new tokens and five of 60 behind it: the pool never idles, so the
+    shared frontier (~25 + 300) must cross capacity and compact, and every
+    stream stays exact (JAX engine too)."""
     je, te = pair
     b = make_batcher(max_batch=2)
-    s = SamplingParams(max_new_tokens=60, ignore_eos=True)
+    news = [180] + [60] * 5
     prompts = [f"compaction wave stream {i}" for i in range(6)]
-    futs = [b.submit(p, s) for p in prompts]
-    for i, (p, f) in enumerate(zip(prompts, futs)):
+    futs = [b.submit(p, SamplingParams(max_new_tokens=n, ignore_eos=True))
+            for p, n in zip(prompts, news)]
+    for i, (p, n, f) in enumerate(zip(prompts, news, futs)):
+        s = SamplingParams(max_new_tokens=n, ignore_eos=True)
         r = f.result(timeout=WAIT)
         assert r.finish_reason == "length"
         assert r.token_ids == _single(te, p, s).token_ids, p
         if i == 5:
-            assert r.token_ids == je.generate(p, JaxSampling(max_new_tokens=60,
+            assert r.token_ids == je.generate(p, JaxSampling(max_new_tokens=n,
                                                              ignore_eos=True)).token_ids
+    assert b.snapshot()["compactions"] >= 1
 
 
 def test_compact_cache_shifts_in_place_like_a_roll(engine):
@@ -443,26 +447,27 @@ def test_sharing_disabled_stays_exact(engine, make_batcher, kw, prompts):
     assert b._prefix_cache is None and b.snapshot()["prefix_len"] == 0
 
 
-def test_prefix_pool_compaction_stays_exact(make_batcher):
+def test_prefix_pool_compaction_stays_exact(pair, make_batcher):
     """Suffix windows hitting the waterline mid-decode stay exact (the
-    prefix itself never moves), against the JAX engine too."""
-    je, te = _engines(max_seq=160)
+    prefix itself never moves), against the JAX engine too: one resident
+    of 110 new tokens and ten of 40 behind it keep the pool busy while the
+    suffix frontier (a few suffix tokens + 400) crosses the 256 slots."""
+    je, te = pair
     b = make_batcher(te, max_batch=2, pool_prefix_min=64)
-    s = SamplingParams(max_new_tokens=40, ignore_eos=True)
-    prompts = [f"{PREFIX} compaction probe {i}" for i in range(2)]
-    first = [b.submit(p, s) for p in prompts]
-    for f in first:
-        f.result(timeout=WAIT)
-    # A second wave joins the prefix at a frontier near capacity.
-    prompts2 = [f"{PREFIX} second wave {i} with a longer suffix" for i in range(2)]
-    futs = first + [b.submit(p, s) for p in prompts2]
-    assert b._prefix_cache is not None
-    for p, f in zip(prompts + prompts2, futs):
+    news = [110] + [40] * 10
+    prompts = [f"{PREFIX} compaction probe {i}" for i in range(len(news))]
+    futs = [b.submit(p, SamplingParams(max_new_tokens=n, ignore_eos=True))
+            for p, n in zip(prompts, news)]
+    for i, (p, n, f) in enumerate(zip(prompts, news, futs)):
+        s = SamplingParams(max_new_tokens=n, ignore_eos=True)
         r, ref = f.result(timeout=WAIT), _single(te, p, s)
         assert r.token_ids == ref.token_ids, p
         assert r.finish_reason == ref.finish_reason
-        assert r.token_ids == je.generate(p, JaxSampling(max_new_tokens=40,
-                                                         ignore_eos=True)).token_ids
+        if i in (0, len(news) - 1):
+            assert r.token_ids == je.generate(p, JaxSampling(max_new_tokens=n,
+                                                             ignore_eos=True)).token_ids
+    snap = b.snapshot()
+    assert snap["prefix_len"] > 0 and snap["compactions"] >= 1, snap
 
 
 def test_oversized_dense_prefix_falls_back_to_no_sharing(make_batcher):
@@ -481,20 +486,18 @@ def test_oversized_dense_prefix_falls_back_to_no_sharing(make_batcher):
 
 
 def test_refuses_what_is_not_ported(engine):
-    with pytest.raises(NotImplementedError, match="prefill_budget"):
-        ContinuousBatcher(engine, max_batch=2, prefill_budget=512)
-    for max_batch in (9, 16, 64):
-        with pytest.raises(NotImplementedError, match="row-bucketing"):
-            ContinuousBatcher(engine, max_batch=max_batch)
+    """Only a pool without rows is refused now: pools above 8 rows
+    (row-bucketed) and interleaved admission are served, exactly."""
     with pytest.raises(ValueError, match="max_batch"):
         ContinuousBatcher(engine, max_batch=0)
-    b = ContinuousBatcher(engine, max_batch=8)  # 8 rows run as in the JAX batcher
-    try:
-        s = SamplingParams(max_new_tokens=4, ignore_eos=True)
-        assert b.submit("eight rows", s).result(timeout=WAIT).token_ids == _single(
-            engine, "eight rows", s).token_ids
-    finally:
-        b.close()
+    s = SamplingParams(max_new_tokens=4, ignore_eos=True)
+    for kw in ({"max_batch": 8}, {"max_batch": 9}, {"max_batch": 2, "prefill_budget": 512}):
+        b = ContinuousBatcher(engine, **kw)
+        try:
+            assert b.submit("eight rows", s).result(timeout=WAIT).token_ids == _single(
+                engine, "eight rows", s).token_ids, kw
+        finally:
+            b.close()
 
 
 # -- mixture of experts ------------------------------------------------------------
@@ -545,3 +548,217 @@ def test_mixtral_wave_matches_the_jax_batcher(make_batcher, modes):
     assert got == want
     # Drops happened: some stream decoded otherwise than alone.
     assert got != [te.generate(p, SamplingParams(**sp)).token_ids for p in prompts]
+
+
+# -- interleaved admission (tests/test_overlap.py's batcher cases) --------------------
+
+LONG_PROMPT = "resident stream that keeps decoding while admissions land"
+LATE_PROMPTS = [
+    "late admission alpha beta gamma delta epsilon zeta eta theta",
+    "a different late stream with its own rather longer prompt text",
+]
+
+
+@pytest.fixture(scope="module")
+def chunked_pair():
+    """The JAX overlap file's engine: prefill_chunk 16, so a wave paces."""
+    return _engines_chunked()
+
+
+def _engines_chunked():
+    jcfg, tcfg = jax_config("tiny-llama"), get_config("tiny-llama")
+    jp = jax_init(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, torch.device("cpu"),
+                           torch.float32)
+    common = dict(max_seq=256, stream_interval=8, prefill_chunk=16)
+    return (JaxEngine(jcfg, params=jp, dtype=jnp.float32, **common),
+            Engine(tcfg, params=tp, dtype=torch.float32, device="cpu", **common))
+
+
+def _run_pool(make, eng, budget):
+    """One resident stream decodes; two late streams admit mid-flight."""
+    s_long = SamplingParams(max_new_tokens=96, ignore_eos=True)
+    s_late = SamplingParams(max_new_tokens=12, ignore_eos=True)
+    b = make(eng, max_batch=4, prefill_budget=budget)
+    streamed = threading.Event()
+    f_long = b.submit(LONG_PROMPT, s_long, on_text=lambda _t: streamed.set())
+    assert streamed.wait(timeout=WAIT), "resident stream never decoded"
+    futs = [b.submit(p, s_late) for p in LATE_PROMPTS]
+    results = [f_long.result(timeout=WAIT)] + [f.result(timeout=WAIT) for f in futs]
+    return results, b.snapshot()
+
+
+def test_interleaved_admission_byte_identical(chunked_pair, make_batcher, monkeypatch):
+    """Interleaved admission under a decoding resident: every stream's tokens
+    equal the classic (budget 0) pool's, the port's single-stream engine's
+    and the JAX engine's, and the wave really was paced (several credits)."""
+    je, te = chunked_pair
+    credits = []
+    real = ContinuousBatcher._advance_wave
+
+    def spy(self, firsts, exhaust):
+        credits.append(exhaust)
+        return real(self, firsts, exhaust)
+
+    monkeypatch.setattr(ContinuousBatcher, "_advance_wave", spy)
+    interleaved, snap = _run_pool(make_batcher, te, budget=32)
+    classic, _ = _run_pool(make_batcher, te, budget=0)
+    assert len(credits) >= 2 and not all(credits)  # paced between decode chunks
+    assert snap["admitted"] >= 3
+    prompts = [LONG_PROMPT] + LATE_PROMPTS
+    sps = [(96, True)] + [(12, True)] * 2
+    for p, (n, ie), got, ref_c in zip(prompts, sps, interleaved, classic):
+        s = SamplingParams(max_new_tokens=n, ignore_eos=ie)
+        ref = _single(te, p, s)
+        assert got.token_ids == ref.token_ids == ref_c.token_ids, p
+        assert got.finish_reason == ref.finish_reason
+        assert got.token_ids == je.generate(p, JaxSampling(max_new_tokens=n,
+                                                           ignore_eos=ie)).token_ids
+
+
+def test_admission_session_paced_equals_one_shot(chunked_pair):
+    """``AdmissionPrefill.step`` pacing changes when chunks run, never what
+    they compute: logits equal the one-shot drive's bit for bit, the
+    remaining-token ledger counts down by rows x chunk, and both equal the
+    JAX engine's paced session."""
+    je, te = chunked_pair
+    texts = ["first admission row with padding",
+             "second, rather longer, admission row text here"]
+    rows = [list(te.tokenizer.encode(t)) for t in texts]
+    ll_ref, cache_ref, w_ref = te._prefill_rows([list(r) for r in rows])
+    sess = te.admission_session([list(r) for r in rows])
+    width = te._rows_bucket(max(len(r) for r in rows))
+    assert sess.remaining_tokens == 2 * width
+    steps, left = 0, [sess.remaining_tokens]
+    while not sess.step(8):  # a tiny budget: one chunk a call
+        steps += 1
+        left.append(sess.remaining_tokens)
+        assert steps < 100
+    assert sess.remaining_tokens == 0 and steps == width // 16 - 1
+    assert all(a - b == 2 * 16 for a, b in zip(left, left[1:]))
+    ll, cache, w = sess.finish()
+    assert w == w_ref == width
+    assert torch.equal(ll, ll_ref)
+    assert torch.equal(cache["k"], cache_ref["k"]) and torch.equal(cache["v"], cache_ref["v"])
+    jsess = je.admission_session([list(r) for r in rows])
+    while not jsess.step(8):
+        pass
+    jll, _, _ = jsess.finish()
+    np.testing.assert_allclose(ll.numpy(), np.asarray(jll, np.float32), atol=2e-4, rtol=0)
+    # A wave within one chunk has nothing to pace: one indivisible step.
+    one = te.admission_session([rows[0][:10]])
+    assert one.step(1) and one.remaining_tokens == 0
+
+
+def test_interleaved_session_failure_falls_back_to_classic(chunked_pair, make_batcher,
+                                                           monkeypatch):
+    """A paced session that fails mid-wave requeues its streams (none lost),
+    warns once, and the batcher admits them classically from then on."""
+    from llm_consensus_tpu_torch.engine.engine import AdmissionPrefill
+
+    te = chunked_pair[1]
+    real = AdmissionPrefill.step
+    calls = {"n": 0}
+
+    def flaky(self, budget):
+        calls["n"] += 1
+        if budget is not None:
+            raise RuntimeError("injected paced prefill failure")
+        return real(self, budget)
+
+    monkeypatch.setattr(AdmissionPrefill, "step", flaky)
+    with pytest.warns(RuntimeWarning, match="interleaved admission prefill failed"):
+        results, snap = _run_pool(make_batcher, te, budget=32)
+    assert calls["n"] > 0
+    for p, n, got in zip([LONG_PROMPT] + LATE_PROMPTS, (96, 12, 12), results):
+        s = SamplingParams(max_new_tokens=n, ignore_eos=True)
+        assert got.token_ids == _single(te, p, s).token_ids, p
+
+
+# -- occupancy row-bucketing (tests/test_continuous_batching.py's cases) --------------
+
+
+def test_occupancy_bucket_shrinks_and_regrows(pair, make_batcher, monkeypatch):
+    """When most of a pool retires, the row bucket shrinks (live rows move
+    into the low slots, the cache is reallocated smaller) and regrows on the
+    next burst, every stream exactly the single-stream engine's (the JAX
+    engine's for the moved rows)."""
+    je, te = pair
+    sizes = []
+    real = ContinuousBatcher._resize_to
+
+    def spy(self, target):
+        before = batcher_mod._cache_bytes(self._cache)
+        real(self, target)
+        sizes.append((target, before, batcher_mod._cache_bytes(self._cache)))
+
+    monkeypatch.setattr(ContinuousBatcher, "_resize_to", spy)
+    b = make_batcher(te, max_batch=16)
+    assert b._rows_bucket_enabled and b._min_rows == 8
+    s_short = SamplingParams(max_new_tokens=6, ignore_eos=True)
+    s_long = SamplingParams(max_new_tokens=64, ignore_eos=True)
+    prompts_short = [f"short stream number {i}" for i in range(12)]
+    prompts_long = [f"long running stream {i}" for i in range(4)]
+    futs_s = [b.submit(p, s_short) for p in prompts_short]
+    futs_l = [b.submit(p, s_long) for p in prompts_long]
+    for p, f in zip(prompts_short, futs_s):
+        assert f.result(timeout=WAIT).token_ids == _single(te, p, s_short).token_ids, p
+    results_l = [f.result(timeout=WAIT) for f in futs_l]
+    assert b._rows_cap == 8  # shrunk (3 dispatches at or below half)
+    for p, r in zip(prompts_long, results_l):
+        assert r.token_ids == _single(te, p, s_long).token_ids, p
+    assert results_l[-1].token_ids == je.generate(
+        prompts_long[-1], JaxSampling(max_new_tokens=64, ignore_eos=True)).token_ids
+    # Regrowth: a 12-wide burst needs more than 8 rows.
+    prompts2 = [f"second burst stream {i}" for i in range(12)]
+    futs2 = [b.submit(p, s_short) for p in prompts2]
+    for p, f in zip(prompts2, futs2):
+        assert f.result(timeout=WAIT).token_ids == _single(te, p, s_short).token_ids, p
+    assert b._rows_cap == 16
+    # The shrink halved the cache bytes, the regrow doubled them back, and the
+    # per-row tensors follow the capacity.
+    assert [t for t, _, _ in sizes] == [8, 16]
+    (_, full, half), (_, half2, full2) = sizes
+    assert half * 2 == full == full2 and half2 == half
+    assert b._token.shape[0] == b._row_start.shape[0] == b._prefix_rows.shape[0] == 16
+
+
+def test_occupancy_bucket_disabled_by_env(engine, make_batcher):
+    """``pool_bucket=False`` (LLMC_POOL_BUCKET=0) keeps the full capacity."""
+    b = make_batcher(engine, max_batch=16, pool_bucket=False)
+    assert not b._rows_bucket_enabled
+    s = SamplingParams(max_new_tokens=8, ignore_eos=True)
+    futs = [b.submit(f"env off {i}", s) for i in range(4)]
+    for i, f in enumerate(futs):
+        assert f.result(timeout=WAIT).token_ids == _single(engine, f"env off {i}", s).token_ids
+    assert b._rows_cap == 16
+
+
+@pytest.mark.parametrize("quant", [None, "int8"], ids=["f32", "int8-kv"])
+def test_row_moves_and_resizes_keep_rows(engine, quant):
+    """move_row copies one row's window across every leaf (codes and
+    seq-minor scales too); shrink_rows and grow_rows reallocate the batch
+    axis, keeping the kept rows and zeroing new ones."""
+    cache = init_kv_cache(engine.cfg, 4, 32, device=torch.device("cpu"),
+                          dtype=torch.float32, quant=quant)
+    leaves = lambda c: ([c["k"], c["v"]] if quant is None  # noqa: E731
+                        else [c[s][x] for s in ("k", "v") for x in ("q8", "s")])
+    for i, leaf in enumerate(leaves(cache)):
+        leaf.copy_(torch.randint(-100, 100, leaf.shape, generator=torch.Generator()
+                                 .manual_seed(i)).to(leaf.dtype))
+    before = [leaf.clone() for leaf in leaves(cache)]
+    batcher_mod.move_row(cache, 3, 1)
+    for leaf, old in zip(leaves(cache), before):
+        assert torch.equal(leaf[:, 1], old[:, 3]) and torch.equal(leaf[:, 3], old[:, 3])
+        assert torch.equal(leaf[:, 0], old[:, 0]) and torch.equal(leaf[:, 2], old[:, 2])
+    with pytest.raises(ValueError):
+        batcher_mod.move_row(cache, 2, 2)
+    moved = [leaf.clone() for leaf in leaves(cache)]
+    batcher_mod.shrink_rows(cache, 2)
+    for leaf, old in zip(leaves(cache), moved):
+        assert leaf.shape[1] == 2 and leaf.is_contiguous()
+        assert torch.equal(leaf, old[:, :2])
+    batcher_mod.grow_rows(cache, 4)
+    for leaf, old in zip(leaves(cache), moved):
+        assert leaf.shape == old.shape and torch.equal(leaf[:, :2], old[:, :2])
+        assert not leaf[:, 2:].any()

@@ -452,7 +452,12 @@ def test_provider_mbu_uses_the_modes_byte_widths(monkeypatch):
 # -- continuous batching through the environment --------------------------------
 
 BATCH_KNOBS = ("LLMC_MAX_BATCH", "LLMC_BATCH_STREAMS", "LLMC_POOL_PREFIX",
-               "LLMC_POOL_PREFIX_MIN", "LLMC_PREFILL_BUDGET")
+               "LLMC_POOL_PREFIX_MIN", "LLMC_PREFILL_BUDGET", "LLMC_POOL_BUCKET",
+               "LLMC_PRESSURE_PREEMPT")
+# The batching part of the default shared provider's key.
+DEFAULT_BATCHING = tuple(sorted({
+    "batch_streams": 1, "pool_prefix": True, "pool_prefix_min": 192, "prefill_budget": 0,
+    "pool_bucket": True, "preempt": True}.items()))
 # 4 panel streams of one prompt share all of it but one token: at least the
 # 192 common tokens that establish sharing.
 LONG_PROMPT = ("Compare shipping drives by courier with streaming over the existing "
@@ -467,8 +472,7 @@ def batch_knobs(monkeypatch):
         monkeypatch.delenv(name, raising=False)
     yield monkeypatch
     for key, provider in list(GPUProvider._shared.items()):
-        if key[2] != tuple(sorted({"batch_streams": 1, "pool_prefix": True,
-                                   "pool_prefix_min": 192}.items())):
+        if key[2] != DEFAULT_BATCHING:
             provider.release()
             del GPUProvider._shared[key]
 
@@ -542,7 +546,9 @@ def test_batch_knobs_parse_like_jax(batch_knobs):
     for env in ({}, {"LLMC_MAX_BATCH": "4"}, {"LLMC_BATCH_STREAMS": "3"},
                 {"LLMC_MAX_BATCH": "x", "LLMC_BATCH_STREAMS": "2"},
                 {"LLMC_POOL_PREFIX": "off", "LLMC_POOL_PREFIX_MIN": "64"},
-                {"LLMC_POOL_PREFIX_MIN": "bad"}):
+                {"LLMC_POOL_PREFIX_MIN": "bad"},
+                {"LLMC_PREFILL_BUDGET": "2048", "LLMC_POOL_BUCKET": "0"},
+                {"LLMC_PREFILL_BUDGET": "-3", "LLMC_PRESSURE_PREEMPT": "no"}):
         for name in BATCH_KNOBS:
             batch_knobs.delenv(name, raising=False)
         for name, value in env.items():
@@ -552,26 +558,143 @@ def test_batch_knobs_parse_like_jax(batch_knobs):
                               or jknobs.get_int("LLMC_BATCH_STREAMS")),
             "pool_prefix": jknobs.get_bool("LLMC_POOL_PREFIX"),
             "pool_prefix_min": jknobs.get_int("LLMC_POOL_PREFIX_MIN"),
+            # The JAX batcher clamps the budget at 0 when it reads it.
+            "prefill_budget": max(0, jknobs.get_int("LLMC_PREFILL_BUDGET")),
+            "pool_bucket": jknobs.get_bool("LLMC_POOL_BUCKET"),
+            "preempt": jknobs.get_bool("LLMC_PRESSURE_PREEMPT"),
         }
         assert batch_settings() == want, env
 
 
-def test_cli_refuses_interleaved_admission(batch_knobs, monkeypatch):
-    import llm_consensus_tpu_torch.engine as engine_pkg
+def test_cli_refuses_interleaved_admission(batch_knobs, monkeypatch, capsys):
+    """Interleaved admission is served now: LLMC_PREFILL_BUDGET and
+    --prefill-budget (one setting, as in the JAX CLI) reach the batcher;
+    what the CLI still refuses is a budget that is not an integer, with
+    argparse's exit code 2 like the JAX CLI."""
+    from llm_consensus_tpu_torch.engine.batcher import ContinuousBatcher
 
-    def no_build(*a, **k):
-        raise AssertionError("no engine may be built for a refused setting")
+    budgets = []
+    real = ContinuousBatcher.__init__
 
-    monkeypatch.setattr(engine_pkg, "Engine", no_build)
+    def spy(self, engine, max_batch=8, **kw):
+        budgets.append(kw.get("prefill_budget"))
+        real(self, engine, max_batch, **kw)
+
+    monkeypatch.setattr(ContinuousBatcher, "__init__", spy)
     batch_knobs.setenv("LLMC_MAX_BATCH", "4")
     batch_knobs.setenv("LLMC_PREFILL_BUDGET", "512")
-    rc, out, err = _run(["--models", "gpu:tiny-llama", "--judge", JUDGE, "x"])
-    assert rc == 1 and out == ""
-    assert "LLMC_PREFILL_BUDGET" in err and "not ported" in err
-    batch_knobs.setenv("LLMC_PREFILL_BUDGET", "0")  # 0 is the classic path
+    rc, _, err = _run(["--models", "gpu:tiny-llama", "--judge", JUDGE, "--max-tokens", "4",
+                       "--json", "x"])
+    assert rc == 0, err
+    batch_knobs.delenv("LLMC_PREFILL_BUDGET")
+    rc, _, err = _run(["--models", "gpu:tiny-llama", "--judge", JUDGE, "--max-tokens", "4",
+                       "--prefill-budget", "64", "--json", "x"])
+    assert rc == 0, err
+    assert budgets == [512, 64]
     from llm_consensus_tpu_torch.utils.knobs import batch_settings
 
-    assert batch_settings()["batch_streams"] == 4
+    assert batch_settings()["prefill_budget"] == 64  # the flag set the knob
+    capsys.readouterr()
+    rc, out, _ = _run(["--models", "gpu:tiny-llama", "--prefill-budget", "lots", "x"])
+    assert rc == 2 and out == ""  # argparse reports on the process's stderr
+    assert "--prefill-budget" in capsys.readouterr().err
+
+
+class _Recording:
+    """Fake providers for both CLIs that record each request's priority
+    class: (model, priority, is the judge's prompt)."""
+
+    def __init__(self, scheme):
+        self.scheme, self.seen, self._lock = scheme, [], threading.Lock()
+
+    def factory(self, model):
+        if self.scheme == "tpu":
+            from llm_consensus_tpu.providers import ProviderFunc as Func
+            from llm_consensus_tpu.providers.base import Response as Resp
+        else:
+            Func, Resp = ProviderFunc, Response
+
+        def fn(ctx, req):
+            with self._lock:
+                self.seen.append((req.model.split(":", 1)[1], req.priority,
+                                  "You are a synthesis judge" in req.prompt))
+            return Resp(req.model, f"{req.model} says yes", "fake", 1.0)
+
+        return Func(fn)
+
+
+PRIORITY_CASES = {
+    "none": [],
+    "low": ["--priority", "low"],
+    "numeric high": ["-priority", "0"],
+    "normal with overlap": ["--priority", "Normal", "--judge-overlap"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(PRIORITY_CASES))
+def test_cli_priority_reaches_panel_and_judge_like_jax(tmp_path, case):
+    """--priority stamps every panel request and the judge's one class above
+    it (max 0): each CLI's fakes see the same classes, the JAX CLI's run
+    and the port's print the same result."""
+    from llm_consensus_tpu.cli.main import main as jax_main
+
+    seen, outs = {}, {}
+    for scheme, entry in (("tpu", jax_main), ("gpu", main)):
+        fakes = _Recording(scheme)
+        argv = ["--models", f"{scheme}:a,{scheme}:b", "--judge", f"{scheme}:j", "--json",
+                *PRIORITY_CASES[case], "q"]
+        stdout, stderr = io.StringIO(), io.StringIO()
+        rc = entry(argv, factory=fakes.factory, stdin=io.StringIO(""), stdout=stdout,
+                   stderr=stderr, install_signal_handlers=False)
+        assert rc == 0, stderr.getvalue()
+        seen[scheme] = sorted(fakes.seen)
+        doc = json.loads(stdout.getvalue())
+        outs[scheme] = (doc["consensus"].replace("tpu:", "gpu:"),
+                        sorted(r["content"].replace("tpu:", "gpu:") for r in doc["responses"]))
+    assert seen["gpu"] == seen["tpu"]
+    panel = [p for m, p, judge in seen["gpu"] if not judge]
+    judge = [p for m, p, is_judge in seen["gpu"] if is_judge]
+    want = {"none": (None, 0), "low": (2, 1), "numeric high": (0, 0),
+            "normal with overlap": (1, 0)}[case]
+    assert panel == [want[0]] * 2 and judge == [want[1]]
+    assert outs["gpu"] == outs["tpu"]
+
+
+@pytest.mark.parametrize("value", ["urgent", "3", "-1", "1.5"])
+def test_cli_bad_priority_fails_like_jax_before_any_provider(value):
+    from llm_consensus_tpu.cli.main import main as jax_main
+
+    errs = {}
+    for scheme, entry in (("tpu", jax_main), ("gpu", main)):
+        built = []
+        stdout, stderr = io.StringIO(), io.StringIO()
+        rc = entry(["--models", f"{scheme}:a", "--priority", value, "q"],
+                   factory=built.append, stdin=io.StringIO(""), stdout=stdout, stderr=stderr,
+                   install_signal_handlers=False)
+        assert rc == 1 and stdout.getvalue() == "" and built == []
+        errs[scheme] = stderr.getvalue()
+    assert errs["gpu"] == errs["tpu"] and errs["gpu"].startswith("error: ")
+
+
+def test_cli_priority_reaches_the_batcher(tmp_path, batch_knobs, monkeypatch):
+    """With a batched provider, the class of each submit: the panel's
+    --priority low is 2, the judge's 1."""
+    from llm_consensus_tpu_torch.engine.batcher import ContinuousBatcher
+
+    classes = []
+    real = ContinuousBatcher.submit
+
+    def spy(self, prompt, sampling, ctx=None, on_text=None, *, priority=1):
+        classes.append((priority, "You are a synthesis judge" in prompt))
+        return real(self, prompt, sampling, ctx, on_text, priority=priority)
+
+    monkeypatch.setattr(ContinuousBatcher, "submit", spy)
+    batch_knobs.setenv("LLMC_MAX_BATCH", "4")
+    rc, _, err = _run(["--models", "gpu:tiny-llama,gpu:tiny-llama", "--judge", JUDGE,
+                       "--max-tokens", "4", "--priority", "low", "--prefill-budget", "32",
+                       "--json", "which class?"])
+    assert rc == 0, err
+    assert sorted(classes) == [(1, True), (2, False), (2, False)]
 
 
 # -- remote providers and the overlapped judge ---------------------------------------

@@ -58,19 +58,25 @@ def _norm(text: str) -> str:
     return text.replace("tpu:", "gpu:").replace("tpu_", "gpu_")
 
 
-def _wait_turn() -> None:
+# How long a panel worker waits for its predecessors before it fails the
+# run: far past any real tiny-engine answer on a loaded machine.
+TURN_BOUND_S = 300.0
+
+
+def _wait_turn(bound_s: float = TURN_BOUND_S) -> None:
     """Panel worker ``i`` (thread ``runner-<i>-<model>`` in both runners)
     answers only once workers 0..i-1 of the fan-out have finished: answers
-    land in worker order."""
+    land in worker order. A worker never answers out of turn: past
+    ``bound_s`` it raises (its model fails, loudly) instead."""
     name = threading.current_thread().name
     if not name.startswith("runner-"):
         return
     idx = int(name.split("-")[1])
-    deadline = time.monotonic() + 10
-    while time.monotonic() < deadline:
-        if not any(t.is_alive() and t.name.startswith("runner-")
-                   and int(t.name.split("-")[1]) < idx for t in threading.enumerate()):
-            return
+    deadline = time.monotonic() + bound_s
+    while any(t.is_alive() and t.name.startswith("runner-")
+              and int(t.name.split("-")[1]) < idx for t in threading.enumerate()):
+        if time.monotonic() >= deadline:
+            raise RuntimeError(f"panel worker {idx} waited {bound_s} s for its predecessors")
         time.sleep(0.002)
 
 

@@ -14,6 +14,8 @@ checks allow 5 % of the largest plain output (a few bf16 ulps there), at
 most 3e-2.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -690,3 +692,68 @@ def test_ladder_propagates_a_kernel_error_on_the_card(cuda, monkeypatch):
         assert builds == [] and provider.engines()["tiny-llama"] is engine
     finally:
         provider.release()
+
+
+# -- the row-bucketed pool's rows and preemption (the serving slice) -------------------
+
+ROWS16 = (0, 17, 100, 5, 0, 300, 31, 2, 64, 0, 200, 9, 1, 150, 40, 77)
+
+
+@pytest.mark.parametrize("state", [False, True], ids=["out", "state"])
+@pytest.mark.parametrize("pos,width", [(383, 384), (2047, 2048)])
+def test_decode_kernel_at_16_rows_matches_plain(cuda, state, pos, width):
+    """The bf16 decode kernel and its return_state form at B = 16 (a
+    row-bucketed pool's middle size), ragged row starts, garbage past pos."""
+    q, k, v = _bf16(cuda, 30, (16, 1, 32, 128), (2, 16, 2048, 8, 128), (2, 16, 2048, 8, 128))
+    k[1, :, pos + 1:] = float("nan")
+    v[1, :, pos + 1:] = float("nan")
+    kw = dict(kv_width=width, return_state=state)
+    counter = da.LAUNCHES_STATE if state else da.LAUNCHES
+    before = counter.count
+    got = da.decode_attention(q, k, v, _i32(cuda, pos)[0], _i32(cuda, 1)[0], _i32(cuda, *ROWS16),
+                              **kw)
+    torch.cuda.synchronize()
+    assert counter.count == before + 1
+    want = da.decode_attention_plain(q, k, v, pos, 1, _i32(cuda, *ROWS16), **kw)
+    out, ref = (got[0], want[0]) if state else (got, want)
+    assert bool(torch.isfinite(out).all())
+    err, tol = _decode_err_and_tol(out, ref)
+    assert err <= tol
+    if state:
+        assert (got[1] - want[1]).abs().max().item() <= 1e-2
+        assert ((got[2] - want[2]).abs() <= 1e-2 * want[2].abs() + 1e-6).all()
+
+
+def test_batcher_preempt_resume_on_the_card(cuda):
+    """consensus-1b at its published width (random weights): a HIGH
+    latecomer preempts one of two LOW residents of a 2-row pool; the victim
+    resumes through a flash prefill of its prompt and emitted tokens and
+    every stream runs its full length with in-vocabulary tokens (greedy
+    tokens against single-stream, with bf16 near-ties, are chip_smoke.py's
+    serving phase (c))."""
+    from llm_consensus_tpu_torch.engine.batcher import ContinuousBatcher
+
+    engine = Engine(get_config("consensus-1b"), device=cuda)
+    b = ContinuousBatcher(engine, max_batch=2)
+    s_low = SamplingParams(max_new_tokens=96, ignore_eos=True)
+    s_high = SamplingParams(max_new_tokens=32, ignore_eos=True)
+    lows = [[engine.tokenizer.bos_id] + list(range(40 + i, 120 + i)) * 4 for i in range(2)]
+    try:
+        for _attempt in range(3):
+            futs = [b.submit_ids(ids, s_low, priority=2) for ids in lows]
+            while sum(1 for st in list(b._slots) if st is not None and len(st.out_ids) >= 16) < 2:
+                time.sleep(0.002)
+            flash0 = fa.LAUNCHES.count
+            high = b.submit_ids(lows[0][:200], s_high, priority=0).result(timeout=300)
+            results = [f.result(timeout=300) for f in futs]
+            if b.snapshot()["preemptions"]:
+                break
+        assert b.snapshot()["preemptions"] >= 1
+        # The latecomer's admission and the victim's resume: two flash prefills.
+        assert fa.LAUNCHES.count - flash0 >= 2 * engine.cfg.n_layers
+        assert len(high.token_ids) == 32 and all(len(r.token_ids) == 96 for r in results)
+        assert any(r.preempted for r in results) and not high.preempted
+        assert all(r.finish_reason == "length" for r in results + [high])
+        assert all(0 <= t < engine.cfg.vocab_size for r in results for t in r.token_ids)
+    finally:
+        b.close()
