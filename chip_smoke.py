@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phase modes     # build + the modes phase only
     python3 chip_smoke.py --phase session   # build + the session phase only
     python3 chip_smoke.py --phase serving   # build + the B = 16 kernel rows + serving
+    python3 chip_smoke.py --phase recovery  # build + the recovery phase only
 
 Phases, in order; any failure exits non-zero before the last line:
 
@@ -118,6 +119,27 @@ Phases, in order; any failure exits non-zero before the last line:
    equal single-stream or, past a near-tie, keep every token within 0.25 of
    the model's best logit under teacher forcing. Any RuntimeWarning fails
    it. A ``{"serving": ...}`` line;
+8e. the recovery phase (``--phase recovery``): (a) a journaled
+   ``GPUProvider(batch_streams=2)`` on llama-3-8b bf16 serves three 64-token
+   streams (the third queued) through ``crash@chunk=2``: one rebuild, every
+   stream whole with its streamed text continuous, the journal empty, the
+   rebuilt engine's parameter digest equal to the first one's, flash
+   launched in the replay prefill and the decode kernel after it, each
+   stream against single-stream by the near-tie rule with its planted-fault
+   reading; memory_allocated before the crash, after the rebuild and once
+   the dead engine is collected, the rebuild wall and the crash's wall to
+   the first replayed token; (d) every WAL file of (a) read back equal to
+   its journal entry, and a copy with its last record torn truncated to the
+   last good record; (c) a 4-stream pool on (a)'s engine with the integrity
+   plane on, clean (equal to a plane-off run exactly) and with
+   ``nan_logits@row=1@step=2`` (row 1 fails typed after one chunk, the
+   others equal the clean run), and the decode step wall with the sentinel
+   and without; (b) consensus-1b under ``wedge@chunk=2@s=30`` and a 2.0 s
+   heartbeat: the 48-token answer in under 25 s, the detection latency; (e)
+   the batched slice's CLI with ``LLMC_JOURNAL=1 LLMC_FAULTS=crash@chunk=3``
+   and ``--events``: exit 0, one restart, ``faults.txt`` and
+   ``metrics.json``'s ``faults``. Any RuntimeWarning fails it. A
+   ``{"recovery": ...}`` line;
 9. the quantized slice: the same CLI run with ``LLMC_QUANT=int8
    LLMC_KV_QUANT=int8`` in the environment (int8 weights, int8 KV cache,
    the int8 decode kernel), then a profiler window over one of its
@@ -3025,11 +3047,12 @@ class BatcherTrace:
 
 
 def step_wall_ms(torch, engine, rows: int, frontier: int, windows: int = 5,
-                 steps: int = 8) -> list:
+                 steps: int = 8, sentinel: bool = False) -> list:
     """Wall per decode step (host launches + device) of ``engine``'s decode
     chunk at ``rows`` rows and the attention width of ``frontier``: after a
     warm 16-step chunk, ``windows`` windows of ``steps`` steps, each ending
-    in a synchronize; the per-step wall of each window."""
+    in a synchronize; the per-step wall of each window. ``sentinel``: the
+    chunks carry the finite-logit sentinel (the integrity plane on)."""
     from llm_consensus_tpu_torch.models.transformer import init_kv_cache
 
     dev = engine.device
@@ -3041,13 +3064,15 @@ def step_wall_ms(torch, engine, rows: int, frontier: int, windows: int = 5,
         kw = {"row_start": torch.zeros(rows, dtype=torch.int32, device=dev)}
         width = engine._decode_width(frontier + 112)
         start = torch.full((), frontier, dtype=torch.int32, device=dev)
-        token, _, start = engine._decode_chunk(token, start, cache, 16, None,
-                                               (0.0, None, None), width, **kw)
+        res = engine._decode_chunk(token, start, cache, 16, None, (0.0, None, None), width,
+                                   sentinel=sentinel, **kw)
+        token, start = res[0], res[2]
         for _ in range(windows):
             torch.cuda.synchronize()
             t0 = time.monotonic()
-            token, _, start = engine._decode_chunk(token, start, cache, steps, None,
-                                                   (0.0, None, None), width, **kw)
+            res = engine._decode_chunk(token, start, cache, steps, None, (0.0, None, None),
+                                       width, sentinel=sentinel, **kw)
+            token, start = res[0], res[2]
             torch.cuda.synchronize()
             out.append((time.monotonic() - t0) * 1e3 / steps)
     del cache
@@ -3368,6 +3393,466 @@ def run_serving(torch, fa, da, card: str, seed: int, recs: dict) -> dict:
     log(f"serving phase: {time.monotonic() - t_phase:.1f} s (by part, checks included: "
         + ", ".join(f"{k} {v:.1f} s" for k, v in part_s.items()) + ")")
     print(json.dumps({"serving": rows, "card": card}, default=str), flush=True)
+    return rows
+
+
+# -- phase 8e: crash recovery, the wedge watchdog, the sentinel, the WAL ---------
+
+RECOVERY_MODEL = "llama-3-8b"
+WEDGE_MODEL = "consensus-1b"
+# Three prompts of the slice's family that share no pool prefix (each
+# admission and each replay prefills its whole prompt through flash).
+RECOVERY_PROMPTS = [f"Question {i + 1} of three. " + PROMPT for i in range(3)]
+
+
+def marked_plan(torch, spec: str, seed: int, marks: dict, counters: tuple = ()):
+    """A fault plan that also records, at each fault's first fire, the host
+    clock (``marks[kind]``), ``memory_allocated`` (``marks[kind + "_mem"]``)
+    and the given launch counters (``marks[kind + "_launches"]``)."""
+    from llm_consensus_tpu_torch.faults import FaultPlan
+
+    class Marked(FaultPlan):
+        def fire(self, site, **attrs):
+            hit = super().fire(site, **attrs)
+            if hit is not None and hit.kind not in marks:
+                marks[hit.kind + "_mem"] = torch.cuda.memory_allocated()
+                marks[hit.kind + "_launches"] = [c.count for c in counters]
+                marks[hit.kind] = time.monotonic()
+            return hit
+
+    return Marked(spec, seed=seed)
+
+
+def kept_journal(path):
+    """A StreamJournal (mirrored to ``path`` when given) that keeps every
+    entry it opened."""
+    from llm_consensus_tpu_torch.recovery import StreamJournal
+
+    class Kept(StreamJournal):
+        def __init__(self):
+            super().__init__(path=path)
+            self.entries = []
+
+        def record(self, *a, **k):
+            entry = super().record(*a, **k)
+            self.entries.append(entry)
+            return entry
+
+    return Kept()
+
+
+@contextlib.contextmanager
+def first_emits(stamps: dict, counters: tuple = ()):
+    """Record, per batcher, the host clock and the launch counters at its
+    first emitted token (``stamps[id(batcher)]``)."""
+    from llm_consensus_tpu_torch.engine.batcher import ContinuousBatcher as CB
+
+    real = CB._emit
+
+    def emit(b, slot, tok, eos):
+        if id(b) not in stamps:
+            stamps[id(b)] = (time.monotonic(), [c.count for c in counters])
+        return real(b, slot, tok, eos)
+
+    CB._emit = emit
+    try:
+        yield
+    finally:
+        CB._emit = real
+
+
+def query_all(provider, model: str, prompts: list, max_tokens: int) -> tuple:
+    """Each prompt through ``provider.query_stream`` on its own thread, at
+    once; returns the responses and each stream's streamed chunks."""
+    from llm_consensus_tpu_torch.providers import Request
+    from llm_consensus_tpu_torch.utils.context import Context
+
+    results, errors = [None] * len(prompts), [None] * len(prompts)
+    streamed = [[] for _ in prompts]
+
+    def fire(i):
+        try:
+            results[i] = provider.query_stream(
+                Context.background(),
+                Request(model=model, prompt=prompts[i], max_tokens=max_tokens),
+                streamed[i].append)
+        except Exception as exc:  # noqa: BLE001 — reported below
+            errors[i] = exc
+
+    threads = [threading.Thread(target=fire, args=(i,)) for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if any(e is not None for e in errors) or any(r is None for r in results):
+        raise AssertionError(f"a supervised stream failed: {errors}")
+    return results, streamed
+
+
+def final_streams(journal, prompts_ids: list) -> list:
+    """The tokens of each stream's last journal entry (finish ``length``),
+    in the order of ``prompts_ids``."""
+    done = [e for e in journal.entries if e.finish == "length"]
+    return [next(e for e in done if e.prompt_ids == ids).tokens() for ids in prompts_ids]
+
+
+def recovery_crash(torch, fa, da, tmp: str) -> tuple:
+    """(a) Crash replay at full width: llama-3-8b bf16 (random weights from
+    seed 0) under ``GPUProvider(batch_streams=2, journal=...)``, three
+    streams of 64 tokens (the third queued), ``crash@chunk=2`` seed 7.
+    Returns the row and the rebuilt engine (for (c)) with the journal (for
+    (d))."""
+    from llm_consensus_tpu_torch import faults, integrity
+    from llm_consensus_tpu_torch.engine import SamplingParams
+    from llm_consensus_tpu_torch.providers.gpu import GPUProvider
+
+    model = f"gpu:{RECOVERY_MODEL}"
+    counters = (fa.LAUNCHES, da.LAUNCHES)
+    marks, stamps = {}, {}
+    faults.install(marked_plan(torch, "crash@chunk=2", 7, marks, counters))
+    journal = kept_journal(os.path.join(tmp, "wal"))
+    provider = GPUProvider(batch_streams=2, journal=journal, ignore_eos=True)
+    t0 = time.monotonic()
+    engine = provider._engine_for(model)
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    digest0 = integrity.digest_tree(engine.params)
+    digest_s = time.monotonic() - t0
+    prompts_ids = [engine._budget_prompt(engine.tokenizer.encode(p), 64)[0]
+                   for p in RECOVERY_PROMPTS]
+    pool_gb = (2 * 2 * engine.cfg.n_layers * engine.max_seq * engine.cfg.n_kv_heads
+               * engine.cfg.head_dim * engine.dtype.itemsize) / 1e9
+    del engine
+    real_recover = provider._recover_batcher
+
+    def recover(preset, failed):
+        t = time.monotonic()
+        marks.setdefault("recover", t)
+        batcher = real_recover(preset, failed)
+        torch.cuda.synchronize()
+        if "rebuilt" not in marks:
+            marks["rebuilt"] = time.monotonic()
+            marks["rebuild_s"] = marks["rebuilt"] - t
+            marks["rebuilt_mem"] = torch.cuda.memory_allocated()
+        return batcher
+
+    provider._recover_batcher = recover
+    t0 = time.monotonic()
+    with first_emits(stamps, counters):
+        results, streamed = query_all(provider, model, RECOVERY_PROMPTS, 64)
+    wall = time.monotonic() - t0
+    launches_end = [c.count for c in counters]
+    # Nothing references the dead engine and pool any more: collected, the
+    # rebuilt engine and pool remain.
+    release_memory(torch)
+    collected_gb = torch.cuda.memory_allocated() / 1e9
+    stats = provider.recovery_stats()
+    engine = provider.engines()[RECOVERY_MODEL]
+    engine._faults = None  # the plan it bound when rebuilt is spent
+    new_id = id(provider._batchers[RECOVERY_MODEL])
+    answers = [(r.tokens, r.content) for r in results]
+    provider._recover_batcher = real_recover
+    provider.release()
+    del provider, results
+    faults.reset()
+    release_memory(torch)
+    t_first, launches_first = stamps[new_id]
+    flash_replay = launches_first[0] - marks["crash_launches"][0]
+    decode_after = launches_end[1] - launches_first[1]
+    digest1 = integrity.digest_tree(engine.params)
+    before_gb, rebuilt_gb = marks["crash_mem"] / 1e9, marks["rebuilt_mem"] / 1e9
+    row = {"build_s": build_s, "digest_s": digest_s, "wall_s": wall,
+           "rebuild_s": marks["rebuild_s"], "crash_to_first_replayed_s": t_first - marks["crash"],
+           "memory_gb": {"before_crash": before_gb, "after_rebuild": rebuilt_gb,
+                         "dead_engine_collected": collected_gb,
+                         "freed": rebuilt_gb - collected_gb, "pool": pool_gb},
+           "launches_replay": {"flash_attention": flash_replay, "decode_attention": decode_after},
+           "stats": stats, "digest": [digest0, digest1]}
+    log(f"recovery (a): {RECOVERY_MODEL} built in {build_s:.2f} s (digest {digest_s:.2f} s); "
+        f"3 streams x 64 tokens on 2 slots through crash@chunk=2 in {wall:.2f} s; rebuild "
+        f"wall {marks['rebuild_s']:.3f} s; crash to the first replayed token "
+        f"{row['crash_to_first_replayed_s']:.3f} s; memory_allocated before the crash "
+        f"{before_gb:.3f} GB, after the rebuild {rebuilt_gb:.3f} GB, dead engine collected "
+        f"{collected_gb:.3f} GB (freed {rebuilt_gb - collected_gb:.3f} GB; the pool "
+        f"{pool_gb:.3f} GB); launches: flash {flash_replay} from the crash to the first "
+        f"replayed token, decode {decode_after} after it; stats {stats}; params digest "
+        f"{digest0} -> {digest1}")
+    if (stats["restarts"] != 1 or stats["replayed_streams"] < 1 or stats["journal_depth"] != 0
+            or digest1 != digest0):
+        raise AssertionError(f"recovery (a): stats {stats}, digests {digest0} {digest1}")
+    if flash_replay < engine.cfg.n_layers or decode_after <= 0:
+        raise AssertionError(f"recovery (a): replay launches {row['launches_replay']}")
+    if collected_gb > before_gb + pool_gb:
+        raise AssertionError(f"recovery (a): {collected_gb:.3f} GB still allocated after the "
+                             f"dead engine was collected ({before_gb:.3f} before the crash)")
+    got = final_streams(journal, prompts_ids)
+    for i, ((n, content), chunks, toks) in enumerate(zip(answers, streamed, got)):
+        # Continuity: the streamed chunks concatenate exactly to the content.
+        if n != 64 or len(toks) != 64 or "".join(chunks) != content:
+            raise AssertionError(f"recovery (a): stream {i}: {n} tokens ({len(toks)} "
+                                 f"journaled), streamed text equal "
+                                 f"{''.join(chunks) == content}")
+    s = SamplingParams(max_new_tokens=64, ignore_eos=True)
+    row["greedy"] = [greedy_check(torch, engine, f"replayed stream {i}", ids, toks,
+                                  engine.generate_ids(ids, s).token_ids)
+                     for i, (ids, toks) in enumerate(zip(prompts_ids, got))]
+    row["faults"] = fault_readings(torch, engine, "recovery (a)", prompts_ids, got)
+    engine.drop_prefix()
+    return row, engine, journal
+
+
+def recovery_wedge(torch) -> dict:
+    """(b) Wedge: consensus-1b, ``wedge@chunk=2@s=30``, heartbeat 2.0 s,
+    one stream of 48 tokens: it finishes in under 25 s with the
+    single-stream answer, at least one restart; the detection latency is
+    the wedge's fire to the watchdog's abandonment."""
+    from llm_consensus_tpu_torch import faults
+    from llm_consensus_tpu_torch.engine import SamplingParams
+    from llm_consensus_tpu_torch.engine.batcher import ContinuousBatcher as CB
+    from llm_consensus_tpu_torch.providers import Request
+    from llm_consensus_tpu_torch.providers.gpu import GPUProvider
+    from llm_consensus_tpu_torch.recovery import EngineWedged
+    from llm_consensus_tpu_torch.utils.context import Context
+
+    model = f"gpu:{WEDGE_MODEL}"
+    marks: dict = {}
+    faults.install(marked_plan(torch, "wedge@chunk=2@s=30", 7, marks))
+    journal = kept_journal(None)
+    provider = GPUProvider(batch_streams=2, journal=journal, ignore_eos=True,
+                           engine_heartbeat_s=2.0)
+    provider._engine_for(model)  # built before the clock starts
+    real_abandon = CB.abandon
+
+    def abandon(b, exc):
+        if isinstance(exc, EngineWedged):
+            marks.setdefault("abandon", time.monotonic())
+        return real_abandon(b, exc)
+
+    CB.abandon = abandon
+    try:
+        t0 = time.monotonic()
+        r = provider.query(Context.background(), Request(model=model, prompt=PROMPT,
+                                                         max_tokens=48))
+        wall = time.monotonic() - t0
+    finally:
+        CB.abandon = real_abandon
+    stats = provider.recovery_stats()
+    engine = provider.engines()[WEDGE_MODEL]
+    provider.release()
+    faults.reset()
+    (ids,) = {tuple(e.prompt_ids) for e in journal.entries}
+    (got,) = final_streams(journal, [list(ids)])
+    detect = marks["abandon"] - marks["wedge"]
+    log(f"recovery (b): {WEDGE_MODEL}, wedge@chunk=2@s=30 under a 2.0 s heartbeat: the "
+        f"48-token answer in {wall:.2f} s, detection latency {detect:.3f} s (wedge to "
+        f"abandonment), stats {stats}")
+    if wall >= 25.0 or stats["restarts"] < 1 or r.tokens != 48 or len(got) != 48:
+        raise AssertionError(f"recovery (b): wall {wall:.2f} s, stats {stats}, {r.tokens} tokens")
+    check = greedy_check(torch, engine, "wedged stream", list(ids), got,
+                         engine.generate_ids(list(ids), SamplingParams(
+                             max_new_tokens=48, ignore_eos=True)).token_ids)
+    del engine
+    release_memory(torch)
+    # The wedged scheduler thread still sleeps (30 s from the wedge) and holds
+    # its engine until it wakes; it then dispatches nothing more.
+    return {"wall_s": wall, "detect_s": detect, "stats": stats, "greedy": check}
+
+
+def recovery_sentinel(torch, engine, seed: int) -> dict:
+    """(c) The sentinel on a 4-stream llama-3-8b pool: clean with the plane
+    on, the same with the plane off (equal exactly), and with
+    ``nan_logits@row=1@step=2`` (row 1 fails with IntegrityError, its entry
+    holding only the tokens emitted before the poisoned chunk; rows 0, 2
+    and 3 equal the clean run); then the decode step wall at 4 rows with
+    the sentinel and without (median and range of 5 windows of 8 steps)."""
+    from llm_consensus_tpu_torch import faults, integrity
+    from llm_consensus_tpu_torch.engine import SamplingParams
+    from llm_consensus_tpu_torch.engine.batcher import ContinuousBatcher
+
+    tok = engine.tokenizer
+    prompts = [random_ids(torch, seed + 500 + i, 349, tok.bos_id) for i in range(4)]
+    s = SamplingParams(max_new_tokens=48, ignore_eos=True)
+
+    def run(plane, plan, journal=None):
+        integrity.install(plane)
+        engine._faults = plan  # the plan the batcher reads, bound per run
+        b = ContinuousBatcher(engine, max_batch=4, journal=journal)
+        try:
+            futs = [b.submit_ids(ids, s) for ids in prompts]
+            out = []
+            for f in futs:
+                try:
+                    out.append(f.result(timeout=600).token_ids)
+                except integrity.IntegrityError as exc:
+                    out.append(exc)
+            return out
+        finally:
+            b.close()
+            engine._faults = None
+            integrity.reset()
+
+    plane = integrity.IntegrityPlane()
+    clean = run(plane, None)
+    off = run(None, None)
+    journal = kept_journal(None)
+    poisoned = run(plane, faults.FaultPlan("nan_logits@row=1@step=2", seed=5), journal)
+    stats = plane.stats()
+    kept = journal.entries[1].tokens()
+    log(f"recovery (c): plane-on clean run equal to plane-off {clean == off}; poisoned row 1: "
+        f"{type(poisoned[1]).__name__} ({poisoned[1]}), {len(kept)} tokens journaled (the "
+        f"first token and one 16-step chunk), neighbours equal to the clean run "
+        f"{[poisoned[i] == clean[i] for i in (0, 2, 3)]}; plane {stats}")
+    if clean != off or not all(len(t) == 48 for t in clean):
+        raise AssertionError("recovery (c): the plane changed a clean run's tokens")
+    if (not isinstance(poisoned[1], integrity.IntegrityError) or poisoned[1].surface != "logits"
+            or journal.entries[1].finish != "integrity" or kept != clean[1][:len(kept)]
+            or len(kept) != 1 + engine.stream_interval
+            or [poisoned[i] for i in (0, 2, 3)] != [clean[i] for i in (0, 2, 3)]
+            or stats["failures"] != {"logits": 1}):
+        raise AssertionError(f"recovery (c): poisoned run {poisoned}, stats {stats}")
+    # Alternating turns of 5 windows of 8 steps, off first: host-paced walls
+    # drift between turns, so each turn is printed beside the pooled median.
+    turns = [("off" if i % 2 == 0 else "on",
+              step_wall_ms(torch, engine, 4, 512, sentinel=i % 2 == 1)) for i in range(4)]
+    walls = {k: [w for label, ws in turns if label == k for w in ws] for k in ("off", "on")}
+    med = {k: sorted(v)[len(v) // 2] for k, v in walls.items()}
+    log("  decode step wall at 4 rows, frontier 512 (ms per step, turns of 5 windows of 8 "
+        "steps, median [min-max]): "
+        + ", ".join(f"{label} {sorted(ws)[2]:.3f} [{min(ws):.3f}-{max(ws):.3f}]"
+                    for label, ws in turns)
+        + "; pooled: " + ", ".join(f"sentinel {k} {med[k]:.3f}" for k in ("off", "on"))
+        + f"; on / off {med['on'] / med['off']:.4f}")
+    return {"equal_plane_off": clean == off, "kept": len(kept), "stats": stats,
+            "step_ms_turns": turns, "step_ms_median": med}
+
+
+def recovery_wal(journal, tmp: str) -> dict:
+    """(d) Every WAL file (a) wrote reads back through ``read_wal`` as its
+    journal entry's prompt, tokens and finish; a copy of one with its last
+    record torn truncates to the last good record."""
+    from llm_consensus_tpu_torch.recovery import read_wal
+
+    wal_dir = os.path.join(tmp, "wal")
+    files = sorted(os.listdir(wal_dir))
+    for e in journal.entries:
+        path = os.path.join(wal_dir, f"{os.getpid()}-{e.sid}.wal")
+        doc = read_wal(path, repair=False)
+        if (doc is None or doc["truncated"] or doc["header"]["prompt_ids"] != e.prompt_ids
+                or doc["tokens"] != e.tokens() or doc["finish"] != e.finish):
+            raise AssertionError(f"recovery (d): {path} reads back as {doc}")
+    last = next(e for e in journal.entries if e.finish == "length")
+    with open(os.path.join(wal_dir, f"{os.getpid()}-{last.sid}.wal"), "rb") as f:
+        blob = f.read()
+    start = blob.rstrip(b"\n").rfind(b"\n") + 1
+    torn_path = os.path.join(tmp, "torn.wal")
+    with open(torn_path, "wb") as f:
+        f.write(blob[:start + (len(blob) - start) // 2])
+    torn = read_wal(torn_path)
+    again = read_wal(torn_path)
+    log(f"recovery (d): {len(files)} WAL files ({len(journal.entries)} entries) read back "
+        f"equal; a torn last record read as {torn['records']} records (of "
+        f"{blob.count(b'\n')}), truncated {torn['truncated']}, finish {torn['finish']}, the "
+        f"repaired file clean {not again['truncated']}")
+    if (len(files) != len(journal.entries) or not torn["truncated"] or torn["finish"] is not None
+            or torn["tokens"] != last.tokens() or torn["records"] != blob.count(b"\n") - 1
+            or again["truncated"] or again["tokens"] != last.tokens()):
+        raise AssertionError(f"recovery (d): torn read {torn}, again {again}")
+    return {"files": len(files), "torn_records": torn["records"]}
+
+
+def recovery_cli(torch, fa, da, tmp: str) -> dict:
+    """(e) The batched slice through the CLI with ``LLMC_JOURNAL=1
+    LLMC_FAULTS=crash@chunk=3`` and ``--events``, auto-saved: exit 0, every
+    answer and a consensus, one restart, ``faults.txt`` in the run
+    directory and ``metrics.json``'s ``faults`` listing the crash."""
+    from llm_consensus_tpu_torch import faults
+    from llm_consensus_tpu_torch.providers.gpu import GPUProvider
+
+    fresh_planes()
+    faults.reset()
+    data = os.path.join(tmp, "data")
+    env = {"LLMC_MAX_BATCH": "4", "LLMC_PREFILL_BUDGET": "0", "LLMC_JOURNAL": "1",
+           "LLMC_FAULTS": "crash@chunk=3", "LLMC_FAULTS_SEED": "7"}
+    counters = {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES}
+    argv = ["--models", ",".join([f"gpu:{RECOVERY_MODEL}"] * 4), "--judge",
+            f"gpu:{RECOVERY_MODEL}", "--max-tokens", "64", "--events", "--data-dir", data,
+            PROMPT]
+    try:
+        call = cli_call(torch, counters, env, argv)
+        if call["rc"] != 0:
+            raise AssertionError(f"recovery (e): CLI exit {call['rc']}: {call['err']}")
+        (run_id,) = os.listdir(data)
+        files = read_run_dir(os.path.join(data, run_id))
+        with open(os.path.join(data, run_id, "faults.txt"), encoding="utf-8") as f:
+            trace = f.read().splitlines()
+        (provider,) = [p for p in GPUProvider._shared.values() if p.journal is not None]
+        stats = provider.recovery_stats()
+    finally:
+        faults.reset()
+        fresh_planes()
+        release_memory(torch)
+    doc, metrics = files["result.json"], files["metrics.json"]
+    warn = [w for w in doc.get("warnings", []) if not w.endswith(RANDOM_WEIGHT_WARNINGS)]
+    crash = f"engine#3[model={RECOVERY_MODEL}]->crash"
+    log(f"recovery (e): CLI exit 0 in {call['wall_s']:.2f} s wall, peak {call['peak_gb']:.2f} GB, "
+        f"launches {call['launches']}, run directory {files['listing']}, faults.txt "
+        f"{len(trace)} decisions (fired: {[ln for ln in trace if not ln.endswith('->-')]}), "
+        f"stats {stats}")
+    if (len(doc["responses"]) != 4 or doc.get("failed_models") or not doc["consensus"] or warn
+            or "faults.txt" not in files["listing"] or crash not in trace
+            or metrics.get("faults") != trace or stats["restarts"] != 1
+            or stats["journal_depth"] != 0 or min(call["launches"].values()) <= 0):
+        raise AssertionError(f"recovery (e): warnings {warn}, stats {stats}, trace {trace}, "
+                             f"listing {files['listing']}, doc {json.dumps(doc)[:1500]}")
+    return {"wall_s": call["wall_s"], "peak_gb": call["peak_gb"], "stats": stats,
+            "launches": call["launches"], "listing": files["listing"], "fired": crash}
+
+
+def run_recovery(torch, fa, da, card: str, seed: int) -> dict:
+    """Phase 8e: (a) crash replay on llama-3-8b, (b) the wedge watchdog on
+    consensus-1b, (c) the finite-logit sentinel on (a)'s rebuilt engine,
+    (d) the WAL files of (a), (e) the batched slice's CLI through a crash.
+    Any RuntimeWarning fails the phase. Prints a ``{"recovery": ...}``
+    line."""
+    import warnings
+
+    t_phase = time.monotonic()
+    fresh_planes()
+    release_memory(torch)
+    _TEACHER.clear()
+    rows, part_s = {}, {}
+    with warnings.catch_warnings(record=True) as caught, \
+            tempfile.TemporaryDirectory(prefix="chip-smoke-recovery-") as tmp:
+        warnings.simplefilter("always")
+        t = time.monotonic()
+        rows["crash"], engine, journal = recovery_crash(torch, fa, da, tmp)
+        part_s["crash"] = time.monotonic() - t
+        t = time.monotonic()
+        rows["wal"] = recovery_wal(journal, tmp)
+        part_s["wal"] = time.monotonic() - t
+        t = time.monotonic()
+        rows["sentinel"] = recovery_sentinel(torch, engine, seed)
+        part_s["sentinel"] = time.monotonic() - t
+        del engine
+        release_memory(torch)
+        t = time.monotonic()
+        rows["wedge"] = recovery_wedge(torch)
+        part_s["wedge"] = time.monotonic() - t
+        t = time.monotonic()
+        rows["cli"] = recovery_cli(torch, fa, da, tmp)
+        part_s["cli"] = time.monotonic() - t
+    bad = [str(w.message) for w in caught if issubclass(w.category, RuntimeWarning)]
+    if bad:
+        raise AssertionError(f"recovery: warnings {bad}")
+    swaps = rows["crash"]["faults"]["min"]
+    if swaps is None or swaps <= NEAR_TIE_TOL:
+        raise AssertionError(f"recovery: the near-tie rule does not separate a misplaced row "
+                             f"({swaps}) from the tolerance {NEAR_TIE_TOL}")
+    rows["part_s"] = part_s
+    log(f"recovery phase: {time.monotonic() - t_phase:.1f} s (by part, checks included: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in part_s.items()) + ")")
+    print(json.dumps({"recovery": rows, "card": card}, default=str), flush=True)
     return rows
 
 
@@ -3734,7 +4219,7 @@ def run_mixtral(torch, fa, da, seed: int, records: dict) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase", choices=("all", "kernels", "mixtral", "telemetry", "modes",
-                                        "session", "serving"), default="all")
+                                        "session", "serving", "recovery"), default="all")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -3796,6 +4281,11 @@ def main(argv=None) -> int:
         run_session(torch, fa, da, card, args.seed)
         print(card, flush=True)
         return 0
+    if args.phase == "recovery":
+        # The recovery phase alone: no ok line.
+        run_recovery(torch, fa, da, card, args.seed)
+        print(card, flush=True)
+        return 0
     if args.phase == "serving":
         # The B = 16 kernel rows and the serving phase: no ok line.
         check_decode_rows16(torch, rows16_recs)
@@ -3844,6 +4334,7 @@ def main(argv=None) -> int:
     run_modes(torch, fa, da, card)
     run_session(torch, fa, da, card, args.seed)
     run_serving(torch, fa, da, card, args.seed, rows16_recs)
+    run_recovery(torch, fa, da, card, args.seed)
 
     qsl = run_slice(torch, {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES,
                             "decode_attention_int8": da.LAUNCHES_INT8},

@@ -74,6 +74,15 @@ the remote providers' retries):
 the default provider factory reads them here (utils/knobs.py), the one
 place the port reads knobs, and an unknown mode or a refused setting fails
 at registry init, before any engine is built.
+
+Robustness follows the JAX CLI too: ``LLMC_FAULTS`` (with
+``LLMC_FAULTS_SEED``) installs a deterministic fault plan and
+``LLMC_INTEGRITY`` the integrity plane, both once per process and before
+any provider exists; ``LLMC_JOURNAL``, ``LLMC_ENGINE_HEARTBEAT_S`` and
+``LLMC_ENGINE_RESTARTS`` go to the provider factory (a journaled batched
+pool is supervised: a crash becomes a rebuild and a replay). An
+auto-saved run that a fault plan drove gains ``faults.txt``, the plan's
+decision sequence, and, with the recorder, ``metrics.json``'s ``faults``.
 """
 
 from __future__ import annotations
@@ -88,7 +97,7 @@ import time
 from dataclasses import dataclass, field, replace
 from typing import Callable, Optional, TextIO
 
-from llm_consensus_tpu_torch import obs, ui
+from llm_consensus_tpu_torch import faults, integrity, obs, ui
 from llm_consensus_tpu_torch.consensus import (
     Judge,
     grade_confidence,
@@ -171,7 +180,8 @@ def create_provider(model: str, device: DeviceLike = None) -> Provider:
     from llm_consensus_tpu_torch.providers.gpu import SCHEME, GPUProvider, parse_model_name
     from llm_consensus_tpu_torch.providers.registry import REMOTE_MODELS, create_remote_provider
     from llm_consensus_tpu_torch.utils.knobs import (
-        batch_settings, checkpoint_dir, http_settings, prefix_settings, quant_modes)
+        batch_settings, checkpoint_dir, http_settings, prefix_settings, quant_modes,
+        recovery_settings)
 
     if model.startswith(SCHEME):
         try:
@@ -179,7 +189,8 @@ def create_provider(model: str, device: DeviceLike = None) -> Provider:
         except ValueError as err:
             raise CLIError(str(err)) from None
         return GPUProvider.shared(device, **batch_settings(), **quant_modes(),
-                                  **checkpoint_dir(), **prefix_settings())
+                                  **checkpoint_dir(), **prefix_settings(),
+                                  **recovery_settings())
     try:
         return create_remote_provider(model, **http_settings())
     except ValueError:
@@ -707,6 +718,14 @@ def install_planes(events: bool, stderr: TextIO) -> None:
         profiler.install(profiler.DeepProfiler(
             st["profile_dir"] or profiler.DEFAULT_DIR, st["profile_max_s"],
             st["profile_min_interval_s"]) if st["profile"] else None)
+    # The fault plan and the integrity plane, as the JAX package resolves
+    # them: from the environment once per process (a plan installed by a
+    # harness stays), before any provider binds them.
+    fs = knobs.fault_settings()
+    if faults.plan() is None and fs["spec"]:
+        faults.install(faults.FaultPlan(fs["spec"], seed=fs["seed"]))
+    if integrity.plane() is None and knobs.integrity_enabled():
+        integrity.install(integrity.IntegrityPlane())
 
 
 def run(cfg: Config, ctx: Context, *, factory: ProviderFactory, stdout: TextIO,
@@ -961,6 +980,7 @@ def _run(cfg: Config, ctx: Context, *, factory: ProviderFactory, stdout: TextIO,
         result.warnings.append(
             "run telemetry recorded but not persisted: trace.json/metrics.json ride the "
             "auto-saved run directory, which --output, --json, and --no-save disable")
+    plan = faults.plan()
     if recorder is not None and run_dir:
         trace_doc = obs_export.local_trace(recorder)
         metrics_doc = obs_export.metrics_summary(
@@ -969,6 +989,7 @@ def _run(cfg: Config, ctx: Context, *, factory: ProviderFactory, stdout: TextIO,
             kv_stats=obs_export.collect_kv_stats(registry),
             spec_stats=obs_export.collect_spec_stats(registry),
             disagg_stats=obs_export.collect_disagg_stats(registry),
+            fault_trace=list(plan.trace) if plan is not None else None,
             failed_models=result.failed_models, warnings=result.warnings,
             live=obs_export.live_summary(), attrib=obs_export.attrib_summary(),
             roofline=obs_export.roofline_summary(),
@@ -1008,6 +1029,9 @@ def _run(cfg: Config, ctx: Context, *, factory: ProviderFactory, stdout: TextIO,
             output_path = save_aux_files(run_dir, cfg.prompt, consensus, warn=warn)
         except OSError as err:
             raise CLIError(f"creating run directory: {err}") from err
+    if run_dir and plan is not None:
+        # The exact injected fault sequence, whenever a plan drove the run.
+        save_file(run_dir, "faults.txt", plan.trace_bytes(), warn=warn)
     if metrics_doc is not None:
         obs_export.save_run_telemetry(run_dir, trace_doc, metrics_doc, warn=warn)
     if output_path:

@@ -61,11 +61,34 @@ and ``ignore_eos`` are per stream. A stream's seed draws its first token
 from the batcher's own generator. Greedy streams produce exactly the
 single-stream engine's tokens.
 
-Pool health for a supervisor: ``abandon(exc)`` fails every queued and live
-future without joining the (possibly wedged) threads, ``heartbeat_age()``
-and ``busy()`` read progress lock-free, ``pressure_snapshot()`` the
+Pool health for a supervisor (recovery/supervisor.py): ``abandon(exc)``
+fails every queued and live future without joining the (possibly wedged)
+threads, ``heartbeat_age()`` and ``busy()`` read progress lock-free,
+``failed_exc`` is the pool's death evidence, ``pressure_snapshot()`` the
 headroom, ``set_brownout`` is accepted and ignored (a classic pool has
 nothing cheaper than its plain decode).
+
+  * **The stream journal** (``journal``, recovery/journal.py): every stream
+    gets a journal entry at submit (or carries the supervisor's), each
+    emitted token is appended before its text is pushed, and the entry
+    closes with the stream's finish (``rejected``, ``cancelled``, ``failed``
+    for a failed admission, ``integrity`` for a poisoned row); a preempted
+    stream's entry is sealed and a replay-seeded one opened, so a crash
+    after a preemption still replays the whole stream. A pool-fatal death
+    leaves the entries open: they are what the supervisor replays.
+  * **Fault sites** (faults/, the engine's bound plan): before each decode
+    dispatch, ``decode`` (``decode_fault``) and ``engine``: ``crash`` raises
+    ``InjectedFault`` out of the loop (the fatal exit: ``failed_exc`` set,
+    every future failed), ``wedge`` sleeps ``@s`` seconds without
+    cooperating (600 by default); with the integrity plane on, ``corrupt``
+    (``nan_logits@row=N`` poisons row N's logits in that chunk).
+  * **The finite-logit sentinel** (integrity/, bound at construction): with
+    the plane on every decode chunk dispatches with ``sentinel=True``; the
+    fetch worker reads the [B] verdict with the chunk's tokens after the
+    same CUDA event and, before the emit loop, fails each owned row whose
+    logits were not all finite with ``IntegrityError("logits", ...)``
+    (booked as a ``logits`` check and failure on the plane); its
+    neighbours emit unchanged.
 
 Telemetry (obs/), bound at construction as the JAX batcher binds it: the
 recorder gets ``admit``, ``establish``, ``compact``, ``drain``, ``resize``,
@@ -81,10 +104,9 @@ host gaps between a drained pipeline and the next dispatch, by scheduler
 phase.
 
 Not ported (each listed in ROADMAP.md, queue 1 item 5.1 and later):
-speculative rounds (and with them what brownout switches), the journal
-and replay, the integrity sentinel, the weight-swap pins, the KV pool and
-the pressure governor. Settings are constructor arguments with the JAX
-knobs' defaults; nothing here reads the environment.
+speculative rounds (and with them what brownout switches), the weight-swap
+pins, the KV pool and the pressure governor. Settings are constructor
+arguments with the JAX knobs' defaults; nothing here reads the environment.
 """
 
 from __future__ import annotations
@@ -101,13 +123,15 @@ from typing import Callable, Iterable, Optional
 
 import torch
 
-from llm_consensus_tpu_torch import obs
+from llm_consensus_tpu_torch import integrity, obs
 from llm_consensus_tpu_torch.engine.engine import (
     DeviceWall, Engine, GenerateResult, SamplingParams, _bucket, _Fetch)
 from llm_consensus_tpu_torch.engine.tokenizer import StreamDecoder
+from llm_consensus_tpu_torch.faults import InjectedFault
 from llm_consensus_tpu_torch.models.transformer import init_kv_cache
 from llm_consensus_tpu_torch.ops.quant import is_quantized, kv_capacity, kv_seq_axis
 from llm_consensus_tpu_torch.ops.sampling import sample_token
+from llm_consensus_tpu_torch.recovery.journal import JournalEntry, StreamJournal
 from llm_consensus_tpu_torch.utils.context import Context
 
 
@@ -152,6 +176,8 @@ class _Stream:
     pids: tuple = ()
     # Preempted and resumed at least once (rides the GenerateResult).
     preempted: bool = False
+    # The stream's journal entry (recovery/), or None without a journal.
+    jentry: Optional[JournalEntry] = None
 
 
 @dataclass
@@ -286,12 +312,14 @@ class ContinuousBatcher:
     (``LLMC_PREFILL_BUDGET``, 0: classic admission), ``pool_prefix`` and
     ``pool_prefix_min`` (``LLMC_POOL_PREFIX``, ``LLMC_POOL_PREFIX_MIN``),
     ``pool_bucket`` (``LLMC_POOL_BUCKET``) and ``preempt``
-    (``LLMC_PRESSURE_PREEMPT``).
+    (``LLMC_PRESSURE_PREEMPT``). ``journal`` (None: off) is the stream
+    journal every submission records into.
     """
 
     def __init__(self, engine: Engine, max_batch: int = 8, *, prefill_budget: int = 0,
                  pool_prefix: bool = True, pool_prefix_min: int = 192,
-                 pool_bucket: bool = True, preempt: bool = True):
+                 pool_bucket: bool = True, preempt: bool = True,
+                 journal: Optional[StreamJournal] = None):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         self.engine = engine
@@ -374,6 +402,11 @@ class ContinuousBatcher:
         self._obs = obs.recorder()
         self._bb = obs.blackbox.ring()
         self._attrib = obs.attrib.ledger()
+        # Stream journal and integrity plane, bound once: without them every
+        # stream's jentry stays None (one check per emitted token) and decode
+        # chunks dispatch without the sentinel.
+        self._journal = journal
+        self._integrity = integrity.plane()
         self._book_cache_bytes()
         # Device intervals of the admissions and compactions since the last
         # dispatch (scheduler-owned): they ride the next chunk to its fetch.
@@ -421,18 +454,23 @@ class ContinuousBatcher:
                    ctx: Optional[Context] = None,
                    on_text: Optional[Callable[[str], None]] = None, *,
                    truncated: bool = False, replay_ids: "tuple | list" = (),
-                   priority: int = 1) -> "Future[GenerateResult]":
+                   priority: int = 1,
+                   jentry: Optional[JournalEntry] = None) -> "Future[GenerateResult]":
         """Token-level submit (``prompt_ids`` already budgeted).
 
-        ``replay_ids`` resumes a stream decoded partway elsewhere: they join
-        the prefill context (re-established at admission, not re-decoded),
-        count against ``max_new`` as if this pool had produced them, and
-        are pre-fed through the stream decoder and ``on_text``, so a greedy
+        ``replay_ids`` resumes a stream decoded partway elsewhere (a dead
+        pool's, recovery/): they join the prefill context (re-established
+        at admission, not re-decoded), count against ``max_new`` as if this
+        pool had produced them, and are pre-fed through the stream decoder
+        and ``on_text`` (which the supervisor's shim dedups), so a greedy
         stream continues byte-identical and the final text covers the whole
-        generation."""
+        generation. ``jentry`` carries the caller's journal entry; without
+        one, a batcher with a journal opens a fresh entry here."""
         eng = self.engine
         if not prompt_ids:
             raise ValueError("empty prompt")
+        if jentry is None and self._journal is not None:
+            jentry = self._journal.record(list(prompt_ids), sampling)
         shape = (sampling.temperature, sampling.top_k, sampling.top_p)
         stream = _Stream(
             future=Future(), sampling=sampling, ctx=ctx or Context.background(),
@@ -440,7 +478,7 @@ class ContinuousBatcher:
             decoder=StreamDecoder(eng.tokenizer), submitted=time.monotonic(),
             truncated=truncated,
             max_new=min(sampling.max_new_tokens, eng.max_seq - len(prompt_ids)),
-            priority=int(priority), pids=tuple(prompt_ids),
+            priority=int(priority), pids=tuple(prompt_ids), jentry=jentry,
         )
         ids = list(prompt_ids)
         if replay_ids:
@@ -458,14 +496,19 @@ class ContinuousBatcher:
                         stream.parts.append(text)
                         on_text(text)
             if len(stream.out_ids) >= stream.max_new:
+                # The dead incarnation produced everything it was allowed to.
                 stream.future.set_result(self._result(stream))
                 return stream.future
         with self._work:
             if self._closed:
+                if jentry is not None:
+                    jentry.close("rejected")
                 raise RuntimeError("batcher is closed")
             if self._template is None:
                 self._template = shape
             elif shape != self._template:
+                if jentry is not None:
+                    jentry.close("rejected")
                 raise ValueError(
                     f"sampling shape {shape} does not match this batcher's "
                     f"{self._template} (temperature/top_k/top_p are per-batcher; "
@@ -481,6 +524,8 @@ class ContinuousBatcher:
             self._closed = True
             for _, s in self._queue:
                 s.future.cancel()
+                if s.jentry is not None:
+                    s.jentry.close("cancelled")
             self._queue.clear()
             self._work.notify()
         self._thread.join(timeout=120)
@@ -627,9 +672,8 @@ class ContinuousBatcher:
         free the row and build the resume entry ``pids + emitted``, which
         re-admission prefills so a greedy stream continues byte-identical.
         A victim's first token still waiting in ``firsts`` is dropped (the
-        resume samples it again). The JAX batcher also seals the stream's
-        journal entry and opens a replay-seeded one here: the journal is not
-        ported (ROADMAP.md queue 1, item 5.1)."""
+        resume samples it again). A journaled victim's entry is sealed and a
+        fresh one seeded with the emitted tokens takes its place."""
         entries: list = []
         for slot in victims:
             s = self._slots[slot]
@@ -650,6 +694,16 @@ class ContinuousBatcher:
                     except InvalidStateError:
                         pass
                 continue
+            if s.jentry is not None and self._journal is not None:
+                # Seal the old incarnation's entry (late appends drop) and
+                # open one seeded with the snapshot, the prefix the resume
+                # re-prefills: a crash after the preemption still replays
+                # the whole stream.
+                old = s.jentry
+                old.seal()
+                s.jentry = self._journal.record(list(s.pids), s.sampling, tokens=snapshot,
+                                                replay_of=old, trace=old.trace)
+                old.close("preempted")
             # The resume prefill covers the emitted tokens plus one freshly
             # sampled token (submit_ids' replay accounting).
             s.planned = len(snapshot) + 1
@@ -903,6 +957,11 @@ class ContinuousBatcher:
                 s.parts.append(tail)
                 s.on_text(tail)
             text = "".join(s.parts)
+        if s.jentry is not None:
+            # Every resolution funnels through here: the entry retires with
+            # the stream's finish, so only unresolved streams stay replay
+            # candidates.
+            s.jentry.close(s.finish)
         return GenerateResult(
             token_ids=s.out_ids, text=text, finish_reason=s.finish,
             prompt_tokens=s.prompt_tokens,
@@ -924,6 +983,20 @@ class ContinuousBatcher:
             except InvalidStateError:
                 pass
 
+    def _fail_slot(self, slot: int, exc: BaseException) -> None:
+        """Fail exactly one slot's stream with ``exc`` (the integrity
+        plane's containment unit): the slot frees, the journal entry retires
+        as ``integrity``, so no replay resurrects a poisoned stream, and no
+        other slot is touched."""
+        s = self._slots[slot]
+        if s is None:
+            return
+        s.finish = "integrity"
+        self._slots[slot] = None
+        if s.jentry is not None:
+            s.jentry.close("integrity")
+        _fail(s, exc)
+
     def _emit(self, slot: int, tok: int, eos: int) -> bool:
         """Hand one token to its stream; True when it was appended."""
         s = self._slots[slot]
@@ -933,6 +1006,8 @@ class ContinuousBatcher:
             self._retire(slot, "eos")
             return False
         s.out_ids.append(tok)
+        if s.jentry is not None:
+            s.jentry.append(tok)  # write-ahead journal (recovery/)
         if s.on_text is not None:
             text = s.decoder.push(tok)
             if text:
@@ -1104,10 +1179,23 @@ class ContinuousBatcher:
     def _fetch(self, fetch: _Fetch, owners: list, firsts: list, eos: int) -> tuple[int, float]:
         """Wait for one chunk's tokens (and the first tokens of waves
         admitted before it), emit them; returns ``(tokens emitted, arrival
-        time)``, the time taken before the emit loop."""
+        time)``, the time taken before the emit loop. With the sentinel's
+        verdict on the chunk, each owned row whose logits were not all
+        finite fails typed before anything is emitted."""
         first_vals = [f.values() for _, f, _ in firsts]
         cols = list(zip(*fetch.values()))  # [n_steps][B] → [B][n_steps]
+        verdict = fetch.verdict()
         t_arrival = time.monotonic()
+        if verdict is not None and self._integrity is not None:
+            self._integrity.check("logits")
+            for i, row_ok in enumerate(verdict):
+                if row_ok or i >= len(owners) or owners[i] is None:
+                    continue
+                if self._slots[i] is not owners[i]:
+                    continue
+                self._integrity.failure("logits", f"non-finite logits in decode row {i}")
+                self._fail_slot(i, integrity.IntegrityError(
+                    "logits", f"non-finite logits detected in decode row {i}"))
         emitted = appended = 0
         for (slots, _, wave_owners), vals in zip(firsts, first_vals):
             for slot, owner, val in zip(slots, wave_owners, vals):
@@ -1411,6 +1499,9 @@ class ContinuousBatcher:
                         entry = self._admit(slot, ids, stream)
                 except Exception as exc:  # noqa: BLE001 — fails this stream only
                     stream.future.set_exception(exc)
+                    if stream.jentry is not None:
+                        # Terminal on a healthy pool: not a replay candidate.
+                        stream.jentry.close("failed")
                 finally:
                     ok = entry is not None
                     self._stat_add(admit_s=time.monotonic() - t_adm, admitted=int(ok),
@@ -1537,6 +1628,21 @@ class ContinuousBatcher:
                 # Never with first tokens pending (their slot indices are not
                 # remapped by a move) nor while a wave holds reserved slots.
                 self._maybe_shrink()
+            faults = eng._faults
+            if faults is not None:
+                faults.check("decode")  # injected device loss
+                # The engine site (recovery/): ``crash`` kills the whole pool
+                # mid-decode (pool-fatal: it escapes to _run's fatal exit,
+                # the supervisor's restart-and-replay trigger); ``wedge``
+                # stalls the scheduler without cooperating, freezing the
+                # heartbeat the watchdog reads.
+                fs = faults.fire("engine", model=eng.cfg.name)
+                if fs is not None and fs.kind == "crash":
+                    raise InjectedFault(f"injected engine crash mid-decode ({eng.cfg.name})")
+                if fs is not None and fs.kind == "wedge":
+                    time.sleep(float(fs.param("s", 600.0)))
+                    if self.failed_exc is not None:
+                        continue  # abandoned meanwhile: dispatch nothing more
             self._dispatch(chunk, live_now[0].sampling, pending_firsts)
             pending_firsts = []
 
@@ -1568,13 +1674,27 @@ class ContinuousBatcher:
         if eng._roofline is not None:
             kv_valid = sum(max(0, self._pos - r + 1)
                            for r in self._row_start_host[:self._rows_cap])
+        sentinel = self._integrity is not None
+        poison = None
+        if sentinel and eng._faults is not None:
+            # nan_logits@row=N (site ``corrupt``): poison one row's logits,
+            # only meaningful with the sentinel on.
+            fs = eng._faults.fire("corrupt", surface="logits", model=eng.cfg.name)
+            if fs is not None and fs.kind == "nan_logits":
+                poison = int(fs.param("row", 0))
+        verdict = None
         with obs.attrib.tag("decode"):
-            self._token, toks, _ = eng._decode_chunk(
+            out = eng._decode_chunk(
                 self._token, pos, self._cache, n_steps, self._gen,
                 (sampling.temperature, sampling.top_k, sampling.top_p),
-                eng._decode_width(self._pos + n_steps), kv_valid=kv_valid, **rows,
+                eng._decode_width(self._pos + n_steps), kv_valid=kv_valid,
+                sentinel=sentinel, poison_row=poison, **rows,
             )
-        fetch = _Fetch(toks, wall)
+        if sentinel:
+            self._token, toks, _, verdict = out
+        else:
+            self._token, toks, _ = out
+        fetch = _Fetch(toks, wall, verdict)
         self._pos += n_steps
         for rec in (self._obs, self._bb):
             if rec is not None:

@@ -55,6 +55,16 @@ forks the snapshot the same way (:func:`_fork_prefix`) and retains its row
 incrementally as its pieces become known (the judge-overlap path,
 consensus/overlap.py), then decodes through the same loop as ``generate``.
 
+Fault injection (faults/), bound at construction as in the JAX engine:
+``check("prefill")`` before every prefill (``_prefill_ids`` and each
+:class:`AdmissionPrefill`) and ``check("decode")`` before every decode chunk
+of the streamed loop. With no plan installed each site is one ``is not
+None`` check.
+
+The integrity plane's finite-logit sentinel lives in
+:meth:`Engine._decode_chunk` (``sentinel=True``): the continuous batcher
+asks for it when the plane is on.
+
 The KV pool, meshes, ``generate_batch`` and weight swaps (and with them
 the session's weight-version migration) of the JAX engine are not ported.
 """
@@ -71,7 +81,7 @@ from typing import Callable, Optional
 
 import torch
 
-from llm_consensus_tpu_torch import obs
+from llm_consensus_tpu_torch import faults, obs
 from llm_consensus_tpu_torch.engine.tokenizer import StreamDecoder, load_tokenizer
 from llm_consensus_tpu_torch.models.config import ModelConfig
 from llm_consensus_tpu_torch.models.transformer import (
@@ -249,15 +259,21 @@ class DeviceWall:
 class _Fetch:
     """One chunk's token ids on their way to the host: the device tensor,
     its host copy, and (on a card) the event that marks the copy done.
-    ``wall`` is the chunk's :class:`DeviceWall`, closed by that event."""
+    ``wall`` is the chunk's :class:`DeviceWall`, closed by that event.
+    ``verdict`` (the finite-logit sentinel's [B] bools, or None) is copied
+    beside the tokens, before the same event."""
 
-    def __init__(self, toks: torch.Tensor, wall: Optional[DeviceWall] = None) -> None:
+    def __init__(self, toks: torch.Tensor, wall: Optional[DeviceWall] = None,
+                 verdict: Optional[torch.Tensor] = None) -> None:
         if toks.is_cuda:
             self.host = toks.to("cpu", non_blocking=True)  # pinned destination
+            self.host_verdict = (verdict.to("cpu", non_blocking=True)
+                                 if verdict is not None else None)
             self.event = torch.cuda.Event(enable_timing=wall is not None)
             self.event.record()
         else:
             self.host = toks
+            self.host_verdict = verdict
             self.event = None
         self.wall = wall.stop(self.event) if wall is not None else None
 
@@ -266,6 +282,11 @@ class _Fetch:
         if self.event is not None:
             self.event.synchronize()
         return self.host.tolist()
+
+    def verdict(self) -> Optional[list]:
+        """The sentinel's per-row verdict (True: every logit finite), read
+        after :meth:`values`; None without a sentinel."""
+        return self.host_verdict.tolist() if self.host_verdict is not None else None
 
     def ids(self) -> list[int]:
         return [int(t) for t in self.values()]
@@ -369,6 +390,8 @@ class Engine:
         self._obs = obs.recorder()
         self._attrib = obs.attrib.ledger()
         self._roofline = obs.roofline.ledger()
+        # The fault plan (faults/), bound once like the planes.
+        self._faults = faults.plan()
         weight_bytes = {"int8": 1, "int4": 0.5}.get(self.quant, dtype.itemsize)
         if self._attrib is not None:
             self._attrib.update_component(f"weights:{cfg.name}", int(param_count(cfg) * weight_bytes))
@@ -508,6 +531,8 @@ class Engine:
         returns ``(last_logits [1, V] fp32, cache)``. A prompt sharing at
         least one chunk with the snapshot restores that prefix and prefills
         only its tail; otherwise one shot (flash) or chunked from 0."""
+        if self._faults is not None:
+            self._faults.check("prefill")  # injected device OOM / loss
         t0_obs = self._obs.now() if self._obs is not None else 0
         n_prompt = len(prompt_ids)
         chunk_len = self.prefill_chunk
@@ -590,23 +615,38 @@ class Engine:
 
     def _decode_chunk(self, token: torch.Tensor, pos: torch.Tensor, cache: dict,
                       n_steps: int, gen: Optional[torch.Generator], sample_args: tuple,
-                      kv_width: Optional[int], kv_valid: Optional[int] = None, **rows):
+                      kv_width: Optional[int], kv_valid: Optional[int] = None, *,
+                      sentinel: bool = False, poison_row: Optional[int] = None, **rows):
         """``n_steps`` one-token steps over every row of ``cache``, sampling
         on the device. ``token`` [B] is each row's last token and ``pos``
         the int32 device scalar of the shared write slot; ``rows`` as
         :meth:`_forward`; ``kv_valid`` the host-known valid cache slots of
         the first step summed over rows (the roofline's count of the decode
         kernel's work). Returns ``(last token [B], tokens [n_steps, B],
-        pos + n_steps)``."""
+        pos + n_steps)``.
+
+        ``sentinel=True`` adds the integrity plane's finite-logit sentinel:
+        per step ``isfinite(last).all(-1)`` AND-folded into a [B] bool
+        verdict, returned as a fourth output (the batcher copies it beside
+        the tokens, so it rides the chunk's one fetch). ``poison_row`` (the
+        ``nan_logits`` fault) sets that row's last logits to NaN before
+        sampling. With ``sentinel=False`` the step is unchanged: no launch,
+        no allocation."""
         cap = self._capture("decode", (tuple(token.shape), n_steps, kv_width),
                             n_steps * token.shape[0], n_steps, kv_valid)
+        ok = torch.ones(token.shape[0], dtype=torch.bool, device=token.device) if sentinel else None
 
         def step(token, pos, capture=None):
             logits, _ = self._forward(
                 token[:, None], cache, pos, attn_impl="flash", kv_width=kv_width,
                 capture=capture, **rows,
             )
-            return sample_token(logits[:, -1], gen, *sample_args)
+            last = logits[:, -1]
+            if poison_row is not None:
+                last[poison_row] = float("nan")
+            if sentinel:
+                ok.logical_and_(torch.isfinite(last).all(-1))
+            return sample_token(last, gen, *sample_args)
 
         toks = []
         for i in range(n_steps):
@@ -617,6 +657,8 @@ class Engine:
                 token = step(token, pos)
             toks.append(token)
             pos = pos + 1
+        if sentinel:
+            return token, torch.stack(toks), pos, ok
         return token, torch.stack(toks), pos
 
     # -- token-level API -------------------------------------------------------
@@ -744,6 +786,8 @@ class Engine:
             n_steps = 0
             inflight_first = 0  # the prefill-sampled token rides this chunk
             if pos < self.max_seq:
+                if self._faults is not None:
+                    self._faults.check("decode")  # injected device loss
                 n_steps = chunk if pos + chunk <= self.max_seq else 1
                 t0_obs = obs_r.now() if obs_r is not None else 0
                 wall = DeviceWall(self.device) if attrib is not None else None
@@ -881,6 +925,8 @@ class AdmissionPrefill:
 
     def __init__(self, engine: Engine, rows: list[list[int]], prefix_cache=None,
                  prefix_len: int = 0):
+        if engine._faults is not None:
+            engine._faults.check("prefill")  # injected device OOM / loss
         self._eng = engine
         self._t0_obs = engine._obs.now() if engine._obs is not None else 0
         self.rows = rows

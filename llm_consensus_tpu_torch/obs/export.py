@@ -204,11 +204,13 @@ def roofline_summary() -> Optional[dict]:
 def metrics_summary(recorder: Optional[Recorder] = None, responses=None,
                     batcher_stats: Optional[dict] = None, kv_stats: Optional[dict] = None,
                     spec_stats: Optional[dict] = None, disagg_stats: Optional[dict] = None,
+                    fault_trace: Optional[list[str]] = None,
                     failed_models: Optional[list[str]] = None,
                     warnings: Optional[list[str]] = None, live: Optional[dict] = None,
                     attrib: Optional[dict] = None, roofline: Optional[dict] = None) -> dict:
     """The run's aggregates as one JSON-serializable dict (the JAX
-    document's keys, in its order)."""
+    document's keys, in its order); ``fault_trace`` is the fault plan's
+    decision lines (``faults``)."""
     out: dict = {}
     if recorder is not None:
         events = recorder.events()
@@ -239,6 +241,8 @@ def metrics_summary(recorder: Optional[Recorder] = None, responses=None,
         out["attrib"] = attrib
     if roofline:
         out["roofline"] = roofline
+    if fault_trace:
+        out["faults"] = list(fault_trace)
     if failed_models:
         out["failed_models"] = list(failed_models)
     if warnings:

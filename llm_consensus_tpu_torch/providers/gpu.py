@@ -46,6 +46,18 @@ is the transient the ladder is for. No step catches ``Cancelled``,
 ``KernelBuildError`` or ``KernelLaunchError``: a retry on the same kernel
 would only hide the fault, so those propagate.
 
+Crash recovery (recovery/): with a ``journal`` (a ``StreamJournal``) every
+batched generate runs through an ``EngineSupervisor``: a pool that dies
+mid-decode (a crash escaping its scheduler, or a wedge the watchdog sees
+when ``engine_heartbeat_s`` > 0) becomes one rebuild of the preset's engine
+and batcher (:meth:`GPUProvider._recover_batcher`, serialized per preset)
+and a replay of each journaled stream, at most ``engine_restarts`` times a
+stream. ``recovery_stats()`` reports the pools' heartbeats and, with
+supervision, its restarts, replays and journal depth. The ``build`` fault
+site (``build_fail@preset=``) fires in every engine build, which the retry
+ladder then handles. ``stream_interval`` and ``ignore_eos`` (the JAX
+provider's) go to every engine and request.
+
 Telemetry (obs/), bound at construction: an ``engine_stream`` span per
 request (recorder and flight recorder), the per-token latency into the live
 plane labeled by the request's priority class and outcome, and the
@@ -62,12 +74,14 @@ import time
 from concurrent.futures import CancelledError
 from typing import Optional
 
-from llm_consensus_tpu_torch import obs
+from llm_consensus_tpu_torch import faults, obs
 from llm_consensus_tpu_torch.engine.engine import PREFIX_CACHE_MAX_MB
 from llm_consensus_tpu_torch.obs.live import class_label
 from llm_consensus_tpu_torch.ops.kernels.build import KernelBuildError, KernelLaunchError
 from llm_consensus_tpu_torch.pressure.priority import PRIORITY_NORMAL
 from llm_consensus_tpu_torch.providers.base import Provider, Request, Response, StreamCallback
+from llm_consensus_tpu_torch.recovery import (
+    DEFAULT_HEARTBEAT_S, DEFAULT_MAX_RESTARTS, EngineSupervisor, StreamJournal)
 from llm_consensus_tpu_torch.utils.context import Cancelled, Context, DeadlineExceeded
 from llm_consensus_tpu_torch.utils.device import DeviceLike, device_name, resolve_device
 
@@ -116,7 +130,11 @@ class GPUProvider(Provider):
                  batch_streams: int = 1, pool_prefix: bool = True, pool_prefix_min: int = 192,
                  prefill_budget: int = 0, pool_bucket: bool = True, preempt: bool = True,
                  checkpoint_dir: Optional[str] = None, prefix_cache: bool = True,
-                 prefix_cache_max_mb: float = PREFIX_CACHE_MAX_MB, **modes):
+                 prefix_cache_max_mb: float = PREFIX_CACHE_MAX_MB,
+                 journal: Optional[StreamJournal] = None,
+                 engine_heartbeat_s: float = DEFAULT_HEARTBEAT_S,
+                 engine_restarts: int = DEFAULT_MAX_RESTARTS,
+                 stream_interval: int = 16, ignore_eos: bool = False, **modes):
         self.modes = _resolve_modes(**modes)
         self.prefix = {"prefix_cache": bool(prefix_cache),
                        "prefix_cache_max_mb": float(prefix_cache_max_mb)}
@@ -128,6 +146,8 @@ class GPUProvider(Provider):
         self.prefill_budget = prefill_budget
         self.pool_bucket = pool_bucket
         self.preempt = preempt
+        self.stream_interval = stream_interval
+        self.ignore_eos = ignore_eos
         self._engines: dict[str, object] = {}
         self._batchers: dict[str, object] = {}
         self._lock = threading.Lock()
@@ -139,18 +159,29 @@ class GPUProvider(Provider):
         self._obs = obs.recorder()
         self._live = obs.live.metrics()
         self._bb = obs.blackbox.ring()
+        self._faults = faults.plan()
+        # Crash recovery, bound once: without a journal this stays None and
+        # the batched submit path is the unsupervised one.
+        self.journal = journal
+        self._recovery = (EngineSupervisor(self, journal, engine_heartbeat_s, engine_restarts)
+                          if journal is not None else None)
 
     @classmethod
     def shared(cls, device: DeviceLike = None, *, batch_streams: int = 1,
                pool_prefix: bool = True, pool_prefix_min: int = 192, prefill_budget: int = 0,
                pool_bucket: bool = True, preempt: bool = True,
                checkpoint_dir: Optional[str] = None, prefix_cache: bool = True,
-               prefix_cache_max_mb: float = PREFIX_CACHE_MAX_MB, **modes) -> "GPUProvider":
+               prefix_cache_max_mb: float = PREFIX_CACHE_MAX_MB, journal: str = "",
+               engine_heartbeat_s: float = DEFAULT_HEARTBEAT_S,
+               engine_restarts: int = DEFAULT_MAX_RESTARTS, **modes) -> "GPUProvider":
         """One provider per device, quantization modes, batching settings,
-        checkpoint directory and prefix settings for the process (the CLI's
-        factory): a quantized run never reuses a bf16 engine, a batched run
-        never an unbatched provider, a checkpointed run never random
-        weights."""
+        checkpoint directory, prefix settings and recovery settings for the
+        process (the CLI's factory): a quantized run never reuses a bf16
+        engine, a batched run never an unbatched provider, a checkpointed
+        run never random weights, a journaled run never an unsupervised
+        provider. ``journal`` is the ``LLMC_JOURNAL`` setting: empty or
+        ``"0"`` off, ``"1"`` in memory, else the directory the WAL files
+        mirror to."""
         dev = resolve_device(device)
         modes = _resolve_modes(**modes)
         batching = {"batch_streams": batch_streams, "pool_prefix": bool(pool_prefix),
@@ -159,12 +190,17 @@ class GPUProvider(Provider):
         prefix = {"prefix_cache": bool(prefix_cache),
                   "prefix_cache_max_mb": float(prefix_cache_max_mb)}
         checkpoint_dir = checkpoint_dir or None
+        journal = "" if journal in ("", "0") else journal
+        recovery = {"engine_heartbeat_s": float(engine_heartbeat_s),
+                    "engine_restarts": int(engine_restarts)}
         key = (dev, tuple(sorted(modes.items())), tuple(sorted(batching.items())),
-               checkpoint_dir, tuple(sorted(prefix.items())))
+               checkpoint_dir, tuple(sorted(prefix.items())), journal,
+               tuple(sorted(recovery.items())))
         with cls._shared_lock:
             if key not in cls._shared:
-                cls._shared[key] = cls(device=dev, checkpoint_dir=checkpoint_dir, **batching,
-                                       **prefix, **modes)
+                jr = StreamJournal(path=None if journal == "1" else journal) if journal else None
+                cls._shared[key] = cls(device=dev, checkpoint_dir=checkpoint_dir, journal=jr,
+                                       **batching, **prefix, **recovery, **modes)
             return cls._shared[key]
 
     def prepare(self, models: list[str], judge: Optional[str]) -> None:
@@ -186,6 +222,45 @@ class GPUProvider(Provider):
         with self._lock:
             batchers = dict(self._batchers)
         return {preset: b.snapshot() for preset, b in batchers.items()}
+
+    def _batcher_entries(self) -> list:
+        """Live ``(preset, batcher)`` pairs: the supervisor's watchdog reads
+        them each poll."""
+        with self._lock:
+            return list(self._batchers.items())
+
+    def recovery_stats(self) -> dict:
+        """Engine liveness and recovery state: each pool's decode-heartbeat
+        age, the worst age among BUSY pools (an idle pool legitimately stops
+        beating), and, with supervision, the restart and replay counters and
+        the journal depth (the JAX provider's keys)."""
+        hearts: dict = {}
+        worst = None
+        for preset, batcher in self._batcher_entries():
+            try:
+                busy = batcher.busy()
+                age = round(batcher.heartbeat_age(), 3)
+            except Exception:  # noqa: BLE001 — liveness must not throw
+                continue
+            hearts[preset] = {"age_s": age, "busy": busy}
+            if busy and (worst is None or age > worst):
+                worst = age
+        out: dict = {
+            "state": "ok",
+            "restarts": 0,
+            "replayed_streams": 0,
+            "journal_depth": 0,
+            "heartbeats": hearts,
+            "decode_heartbeat_age_s": worst,
+        }
+        if self._recovery is not None:
+            sup = self._recovery.stats()
+            out["state"] = sup["state"]
+            out["restarts"] = sup["restarts"]
+            out["replayed_streams"] = sup["replayed_streams"]
+            out["journal_depth"] = sup["journal"]["depth"]
+            out["heartbeat_s"] = sup["heartbeat_s"]
+        return out
 
     def release(self) -> None:
         """Close every batcher and drop every engine with its prefix
@@ -244,6 +319,10 @@ class GPUProvider(Provider):
                                   self._build_engine)
 
     def _build_engine(self, preset: str):
+        if self._faults is not None:
+            # build_fail[@preset=name]: the construction itself dies; the
+            # retry ladder in query_stream builds once more.
+            self._faults.check("build", preset=preset)
         from llm_consensus_tpu_torch.engine import Engine
         from llm_consensus_tpu_torch.engine.checkpoint import try_load_params
         from llm_consensus_tpu_torch.engine.tokenizer import load_tokenizer
@@ -257,7 +336,7 @@ class GPUProvider(Provider):
             tokenizer = load_tokenizer(ckpt)
         max_seq = min(self._max_seq, cfg.max_seq_len) if self._max_seq else None
         return Engine(cfg, params, device=self.device, max_seq=max_seq, tokenizer=tokenizer,
-                      **self.modes, **self.prefix)
+                      stream_interval=self.stream_interval, **self.modes, **self.prefix)
 
     def _batcher_for(self, preset: str, engine):
         """The batcher serving ``preset`` over ``engine``, built once."""
@@ -266,19 +345,62 @@ class GPUProvider(Provider):
         return self._get_or_build(self._batchers, "batcher", preset, lambda _: ContinuousBatcher(
             engine, max_batch=self.batch_streams, pool_prefix=self.pool_prefix,
             pool_prefix_min=self.pool_prefix_min, prefill_budget=self.prefill_budget,
-            pool_bucket=self.pool_bucket, preempt=self.preempt))
+            pool_bucket=self.pool_bucket, preempt=self.preempt, journal=self.journal))
+
+    def _recover_batcher(self, preset: str, failed_batcher):
+        """Tear down a dead pool and rebuild engine and batcher: the
+        supervisor's restart path, serialized per preset, so a pool's worth
+        of concurrent stream failures costs ONE rebuild. Returns the fresh
+        batcher.
+
+        The dead batcher is abandoned, never joined: its threads may be
+        wedged (the reason it is replaced), and ``close()``'s 120 s join
+        would stall every replay behind it. The provider drops its
+        references to the dead engine and batcher before the new engine is
+        built, so once their threads have exited (at once after a crash; a
+        wedged scheduler when it wakes) their weights and pool are
+        collectible."""
+        with self._lock:
+            recover_lock = self._build_locks.setdefault(("recover", preset), threading.Lock())
+        with recover_lock:
+            with self._lock:
+                current = self._batchers.get(preset)
+            if (current is not None and current is not failed_batcher
+                    and current.failed_exc is None):
+                # A concurrent recovery already published a healthy pool:
+                # this waiter replays onto it, no second rebuild.
+                return current
+            with self._lock:
+                if current is not None and self._batchers.get(preset) is current:
+                    del self._batchers[preset]
+                if self._engines.get(preset) is failed_batcher.engine:
+                    del self._engines[preset]
+            failed_batcher.abandon(RuntimeError(
+                f"engine pool for {preset!r} torn down for recovery"))
+            current = failed_batcher = None
+            batcher = self._batcher_for(preset, self._engine_for(preset))
+            if self._recovery is not None:
+                self._recovery.note_restart(preset)
+            return batcher
 
     def _generate(self, engine, preset: str, prompt: str, sampling, ctx: Context, cb,
                   priority: Optional[int] = None):
         """One generate of ``prompt`` on ``engine``, through the preset's
-        batcher (at ``priority``, None for NORMAL) when batching; a refused
-        or cancelled submission runs single-stream."""
+        batcher (at ``priority``, None for NORMAL) when batching, supervised
+        with a journal; a refused or cancelled submission runs
+        single-stream."""
         if self.batch_streams <= 1:
             return engine.generate(prompt, sampling, ctx, on_text=cb)
         batcher = self._batcher_for(preset, engine)
+        priority = PRIORITY_NORMAL if priority is None else priority
+        if self._recovery is not None:
+            # Supervised: journaled submit; a pool that dies mid-decode
+            # becomes a rebuild and a replay instead of a failed request.
+            # The supervisor owns the fallbacks the path below has inline.
+            return self._recovery.run_stream(preset, batcher, prompt, sampling, ctx, cb,
+                                             priority=priority)
         try:
-            fut = batcher.submit(prompt, sampling, ctx, on_text=cb,
-                                 priority=PRIORITY_NORMAL if priority is None else priority)
+            fut = batcher.submit(prompt, sampling, ctx, on_text=cb, priority=priority)
         except (KernelBuildError, KernelLaunchError):
             raise
         except (RuntimeError, ValueError):
@@ -314,6 +436,7 @@ class GPUProvider(Provider):
                 req.max_tokens if req.max_tokens is not None else DEFAULT_MAX_NEW_TOKENS
             ),
             temperature=req.temperature if req.temperature is not None else 0.0,
+            ignore_eos=self.ignore_eos,
         )
         prompt = req.prompt
         if req.system:

@@ -19,8 +19,9 @@ Transient failures (connection errors, a mid-body reset, statuses 408, 409,
 (default 2) after ``backoff * 2**n`` seconds (default 0.5), waiting on the
 context; the CLI takes both from ``LLMC_HTTP_RETRIES`` and
 ``LLMC_HTTP_BACKOFF``. A streamed answer retries only before its first
-chunk reached the caller. The JAX module's fault-injection point (a reset
-of the Nth SSE event) waits for the port of its ``faults/`` package.
+chunk reached the caller. The fault plan's ``sse`` site
+(``sse_reset@chunk=N``) replaces the Nth SSE data event of the process with
+a mid-stream reset.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ import time
 import urllib.parse
 from typing import Callable, Iterator, Optional
 
-from llm_consensus_tpu_torch import obs
+from llm_consensus_tpu_torch import faults, obs
 from llm_consensus_tpu_torch.providers.base import Provider, Request, Response, StreamCallback
 from llm_consensus_tpu_torch.utils.context import Context
 
@@ -154,6 +155,7 @@ def post_sse(ctx: Context, url: str, headers: dict[str, str], body: dict) -> Ite
     always raises: closing the socket errors the blocked read or ends the
     iteration early, and both paths check the context again."""
     obs_r = obs.recorder()  # one None check per event when off
+    fault_plan = faults.plan()  # the same
     conn, resp, unsubscribe = _connect(ctx, url, headers, body, accept="text/event-stream")
     saw_data = False
     try:
@@ -169,6 +171,14 @@ def post_sse(ctx: Context, url: str, headers: dict[str, str], body: dict) -> Ite
             if obs_r is not None:
                 # The remote provider's streaming cadence on the timeline.
                 obs_r.instant("sse_chunk", tid="sse", bytes=len(data))
+            if fault_plan is not None:
+                # sse_reset@chunk=N: the Nth data event at this site (one
+                # process-wide counter across all streams) becomes a
+                # mid-transfer reset, the transient shape a dropped
+                # connection has, so it rides the real retry machinery.
+                fs = fault_plan.fire("sse")
+                if fs is not None:
+                    raise TransientHTTPError(f"injected mid-stream reset ({fs.kind})")
             yield data
         ctx.raise_if_done()  # a cancel can end the stream cleanly
         if not saw_data:

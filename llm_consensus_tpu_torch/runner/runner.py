@@ -14,6 +14,9 @@
     for ``stall_grace`` seconds is booked failed and abandoned, so ``run``
     never blocks on a wedged worker. Abandoned workers run as daemon
     threads against a sealed result: late completions are dropped.
+  * Fault injection (faults/), bound at construction: the ``runner`` site
+    (``worker_stall@model=<m>@s=<secs>``) makes a worker sleep without
+    cooperating, the wedge the watchdog exists to catch.
   * Telemetry (obs/), bound at construction: a ``worker`` span per model
     (tid "runner") on the recorder and the flight recorder, and a
     ``watchdog_abandon`` instant when the watchdog gives a worker up.
@@ -26,7 +29,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
-from llm_consensus_tpu_torch import obs
+from llm_consensus_tpu_torch import faults, obs
 from llm_consensus_tpu_torch.providers import Registry, Request, Response
 from llm_consensus_tpu_torch.utils.context import Context
 
@@ -81,6 +84,7 @@ class Runner:
         self._priority = priority
         self._stall_grace = stall_grace
         self._callbacks = Callbacks()
+        self._faults = faults.plan()
         self._obs = obs.recorder()
         self._bb = obs.blackbox.ring()
 
@@ -144,6 +148,14 @@ class Runner:
             try:
                 if cb.on_model_start:
                     cb.on_model_start(model)
+                if self._faults is not None:
+                    # worker_stall[@model=name][@s=secs]: a NON-cooperative
+                    # sleep (it ignores model_ctx), the wedge the watchdog
+                    # exists to catch.
+                    fs = self._faults.fire("runner", model=model)
+                    if fs is not None:
+                        time.sleep(float(fs.param(
+                            "s", self._timeout + 2 * self._stall_grace + 1.0)))
                 try:
                     provider = self._registry.get(model)
                 except Exception as err:  # noqa: BLE001

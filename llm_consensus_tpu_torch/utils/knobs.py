@@ -47,7 +47,16 @@ knobs that the JAX package declares, with the same meaning:
     ``LLMC_BLACKBOX_MIN_INTERVAL_S``, ``LLMC_PROFILE`` (default on),
     ``LLMC_PROFILE_DIR``, ``LLMC_PROFILE_MAX_S``,
     ``LLMC_PROFILE_MIN_INTERVAL_S``, with the JAX package's defaults;
-  * ``LLMC_CONFIG``: the CLI's config file (:func:`config_file`).
+  * ``LLMC_CONFIG``: the CLI's config file (:func:`config_file`);
+  * the fault plan (:func:`fault_settings`, installed by the CLI):
+    ``LLMC_FAULTS`` (the spec, empty: none) and ``LLMC_FAULTS_SEED`` (0);
+  * crash recovery (:func:`recovery_settings`, ``GPUProvider.shared``'s
+    arguments): ``LLMC_JOURNAL`` (``1`` journals in memory, a directory also
+    mirrors each stream to ``.wal`` files; empty or ``0``: off),
+    ``LLMC_ENGINE_HEARTBEAT_S`` (0.0: no wedge watchdog) and
+    ``LLMC_ENGINE_RESTARTS`` (3 replays a stream);
+  * ``LLMC_INTEGRITY`` (off): the integrity plane (:func:`integrity_enabled`,
+    installed by the CLI).
 """
 
 from __future__ import annotations
@@ -204,3 +213,25 @@ def config_file() -> str:
     """``LLMC_CONFIG``, the CLI's config file: ``"0"`` disables it, a path
     overrides the search, unset (or empty) means search."""
     return get_str("LLMC_CONFIG")
+
+
+def fault_settings() -> dict:
+    """The fault plan of the environment: ``spec`` (empty: no plan) and
+    ``seed``."""
+    return {"spec": get_str("LLMC_FAULTS"), "seed": get_int("LLMC_FAULTS_SEED", 0)}
+
+
+def recovery_settings() -> dict:
+    """The crash-recovery settings of the environment, as the keyword
+    arguments of ``GPUProvider.shared``."""
+    journal = get_str("LLMC_JOURNAL")
+    return {
+        "journal": "" if journal == "0" else journal,
+        "engine_heartbeat_s": get_float("LLMC_ENGINE_HEARTBEAT_S", 0.0),
+        "engine_restarts": get_int("LLMC_ENGINE_RESTARTS", 3),
+    }
+
+
+def integrity_enabled() -> bool:
+    """``LLMC_INTEGRITY``: the integrity plane's switch (off)."""
+    return get_bool("LLMC_INTEGRITY")

@@ -30,6 +30,7 @@ from llm_consensus_tpu_torch.engine import batcher as batcher_mod
 from llm_consensus_tpu_torch.engine.batcher import ContinuousBatcher
 from llm_consensus_tpu_torch.models import get_config
 from llm_consensus_tpu_torch.models.transformer import init_kv_cache, params_from_numpy
+from llm_consensus_tpu_torch.recovery import StreamJournal
 from llm_consensus_tpu_torch.utils.context import Context
 
 WAIT = 300  # seconds any future may take
@@ -762,3 +763,117 @@ def test_row_moves_and_resizes_keep_rows(engine, quant):
     for leaf, old in zip(leaves(cache), moved):
         assert leaf.shape == old.shape and torch.equal(leaf[:, :2], old[:, :2])
         assert not leaf[:, 2:].any()
+
+
+# -- the stream journal and the engine fault site (recovery/, faults/) ---------------------
+
+
+@pytest.fixture()
+def fault_plan():
+    """Installs a fault plan for one test and leaves none behind (engines
+    bind the plan at construction, so build them after installing)."""
+    from llm_consensus_tpu_torch import faults
+
+    faults.reset()
+    yield faults
+    faults.reset()
+
+
+class _KeptJournal(StreamJournal):
+    """A StreamJournal that keeps every entry it opened."""
+
+    def __init__(self):
+        super().__init__()
+        self.entries = []
+
+    def record(self, *a, **k):
+        entry = super().record(*a, **k)
+        self.entries.append(entry)
+        return entry
+
+
+def _fresh_engine(engine):
+    return Engine(engine.cfg, params=engine.params, dtype=torch.float32,
+                  max_seq=engine.max_seq, stream_interval=engine.stream_interval, device="cpu")
+
+
+def test_journal_records_every_stream_and_closes_with_its_finish(engine, make_batcher):
+    """Each submission opens an entry, every emitted token is appended to it
+    and it closes with the stream's finish; a submission refused by a closed
+    batcher closes ``rejected``, one cancelled by close() ``cancelled``."""
+    j = _KeptJournal()
+    b, gate = _gated(make_batcher, engine, max_batch=2, journal=j)
+    s = SamplingParams(max_new_tokens=12, ignore_eos=True)
+    futs = [b.submit(f"journaled stream {i}", s) for i in range(3)]
+    short = b.submit_ids(engine.tokenizer.encode("short one"),
+                         SamplingParams(max_new_tokens=4, ignore_eos=True))
+    gate.set()
+    results = [f.result(timeout=WAIT) for f in futs + [short]]
+    assert [e.finish for e in j.entries] == ["length"] * 4
+    assert [e.tokens() for e in j.entries] == [r.token_ids for r in results]
+    assert results[0].token_ids == _single(engine, "journaled stream 0", s).token_ids
+    assert j.stats() == {"depth": 0, "opened": 4, "closed": 4}
+    # Queued behind a resident at close: cancelled; after it: rejected.
+    b2 = make_batcher(engine, max_batch=1, journal=j)
+    resident = b2.submit("a long resident", SamplingParams(max_new_tokens=200,
+                                                            ignore_eos=True))
+    while b2._slots[0] is None:
+        time.sleep(0.002)
+    queued = b2.submit("never admitted", s)
+    b2.close()
+    assert resident.result(timeout=WAIT).finish_reason == "length"
+    assert queued.cancelled() and j.entries[-1].finish == "cancelled"
+    assert j.entries[-2].finish == "length"
+    with pytest.raises(RuntimeError, match="closed"):
+        b2.submit("too late", s)
+    assert j.entries[-1].finish == "rejected" and j.depth() == 0
+
+
+def test_injected_crash_fails_every_future_and_leaves_entries_open(engine, make_batcher,
+                                                                     fault_plan):
+    """``crash@chunk=2`` kills the pool at its second decode dispatch: every
+    future fails (live ones with the InjectedFault, queued ones cancelled),
+    ``failed_exc`` holds the fault, and each stream's journal entry stays
+    open with the single-stream prefix it emitted: what a replay resumes."""
+    fault_plan.install(fault_plan.FaultPlan("crash@chunk=2", seed=7))
+    eng = _fresh_engine(engine)
+    j = _KeptJournal()
+    b, gate = _gated(make_batcher, eng, max_batch=2, journal=j)
+    s = SamplingParams(max_new_tokens=24, ignore_eos=True)
+    prompts = ["crash probe one", "crash probe two", "crash probe three"]
+    futs = [b.submit(p, s) for p in prompts]
+    gate.set()
+    for f in futs:
+        with pytest.raises(BaseException):
+            f.result(timeout=WAIT)
+    assert isinstance(b.failed_exc, fault_plan.InjectedFault)
+    assert j.depth() == 3
+    for p, e in zip(prompts, j.entries):
+        assert e.open
+        want = _single(engine, p, s).token_ids
+        assert e.tokens() == want[:len(e.tokens())]
+    assert fault_plan.plan().trace.count("engine#2[model=tiny-llama]->crash") == 1
+
+
+def test_preemption_seals_and_reopens_the_journal_entry(engine, make_batcher):
+    """A preempted stream's entry is sealed and closed ``preempted``; a
+    successor seeded with its emitted tokens (``replay_of``) carries the
+    rest, so the successor ends holding the whole stream."""
+    from tests.test_torch_pressure import _run_contended
+
+    j = _KeptJournal()
+    b = make_batcher(engine, max_batch=2, journal=j)
+    s_low = SamplingParams(max_new_tokens=48, ignore_eos=True)
+    s_hi = SamplingParams(max_new_tokens=10, ignore_eos=True)
+    lows = ["low class resident stream 0 body", "low class resident stream 1 body"]
+    r_low, _r_hi = _run_contended(b, lows, "high class latecomer", s_low, s_hi)
+    assert b.snapshot()["preemptions"] >= 1
+    sealed = [e for e in j.entries if e.finish == "preempted"]
+    assert sealed
+    for old in sealed:
+        nxt = next(e for e in j.entries if e.replay_of == old.sid)
+        assert nxt.tokens()[:len(old.tokens())] == old.tokens()
+    victim = next(r for r in r_low if r.preempted)
+    final = next(e for e in reversed(j.entries) if e.tokens() == victim.token_ids)
+    assert final.finish == "length" and final.replay_of is not None
+    assert j.depth() == 0

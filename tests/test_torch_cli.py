@@ -792,3 +792,107 @@ def test_remote_model_without_a_key_fails_at_registry_init(monkeypatch):
     rc, _, err = _run(["--models", "claude-opus-4-5,gpu:tiny-llama", "x"])
     assert rc == 1
     assert "initializing provider for claude-opus-4-5" in err and "ANTHROPIC_API_KEY" in err
+
+
+# -- fault injection and crash recovery through the CLI (faults/, recovery/) -------------------
+
+
+@pytest.fixture
+def fault_knobs(monkeypatch):
+    """Both packages' fault plans, journals and integrity planes reset around
+    the test (they are process-wide; the JAX ones resolve from the
+    environment once)."""
+    from llm_consensus_tpu import faults as jax_faults
+    from llm_consensus_tpu import integrity as jax_integrity
+    from llm_consensus_tpu import recovery as jax_recovery
+    from llm_consensus_tpu_torch import faults, integrity
+
+    mods = (faults, integrity, jax_faults, jax_integrity, jax_recovery)
+    for mod in mods:
+        mod.reset()
+    before = dict(GPUProvider._shared)
+    yield monkeypatch
+    for key, provider in list(GPUProvider._shared.items()):
+        if key not in before:
+            provider.release()
+            del GPUProvider._shared[key]
+    for mod in mods:
+        mod.reset()
+
+
+def test_cli_crash_replay_writes_the_jax_faults_txt(tmp_path, checkpoint_runs, fault_knobs):
+    """``LLMC_FAULTS=crash@chunk=3 LLMC_JOURNAL=1`` on a batched pool, both
+    CLIs on one checkpoint: the run survives the crash (one restart, the
+    answer whole), the run directory lists what the JAX CLI's lists, with
+    ``faults.txt``, and ``faults.txt`` and ``metrics.json``'s ``faults`` are
+    the JAX CLI's, byte for byte after the ``tpu:`` → ``gpu:`` rename."""
+    runs, _provider = checkpoint_runs
+    ckpt = runs["tpu"].parent.parent / "ckpt"
+    for knob, value in (("LLMC_CHECKPOINT_DIR", str(ckpt)), ("LLMC_MAX_BATCH", "2"),
+                        ("LLMC_JOURNAL", "1"), ("LLMC_FAULTS", "crash@chunk=3"),
+                        ("LLMC_FAULTS_SEED", "7")):
+        fault_knobs.setenv(knob, value)
+    dirs = {}
+    for scheme, runner in (("tpu", _run_jax), ("gpu", _run)):
+        data = tmp_path / scheme
+        rc, out, err = runner(["--models", f"{scheme}:tiny-llama", "--judge",
+                               f"{scheme}:tiny-llama", "--max-tokens", "48", "--events",
+                               "--data-dir", str(data), QUESTION])
+        assert rc == 0, err
+        (dirs[scheme],) = list(data.iterdir())
+    ours, theirs = dirs["gpu"], dirs["tpu"]
+    assert sorted(os.listdir(ours)) == sorted(os.listdir(theirs)) == [
+        "consensus.md", "faults.txt", "metrics.json", "panel", "prompt.txt", "result.json",
+        "run.json", "trace.json"]
+    trace = (ours / "faults.txt").read_bytes()
+    assert trace == (theirs / "faults.txt").read_bytes().replace(b"tpu:", b"gpu:")
+    assert b"engine#3[model=tiny-llama]->crash" in trace
+    assert trace.count(b"build#") == 2  # the engine and its one rebuild
+    metrics = _doc(ours, "metrics.json")
+    assert metrics["faults"] == [ln.replace("tpu:", "gpu:")
+                                 for ln in _doc(theirs, "metrics.json")["faults"]]
+    assert (ours / "faults.txt").read_text().splitlines() == metrics["faults"]
+    (resp,) = _doc(ours)["responses"]
+    assert resp["tokens"] == 48
+    provider = next(p for p in GPUProvider._shared.values() if p.journal is not None)
+    stats = provider.recovery_stats()
+    assert (stats["restarts"], stats["journal_depth"]) == (1, 0), stats
+
+
+def test_cli_without_faults_writes_no_faults_txt(tmp_path, fault_knobs):
+    from llm_consensus_tpu_torch import faults
+
+    rc, _out, err = _run(["--models", "gpu:tiny-llama", "--judge", "gpu:tiny-llama",
+                          "--max-tokens", "4", "--data-dir", str(tmp_path), QUESTION])
+    assert rc == 0, err
+    (run_dir,) = list(tmp_path.iterdir())
+    assert "faults.txt" not in os.listdir(run_dir) and faults.plan() is None
+
+
+def test_recovery_and_fault_knobs_parse_like_jax(fault_knobs):
+    from llm_consensus_tpu.utils import knobs as jax_knobs
+    from llm_consensus_tpu_torch.utils import knobs
+
+    assert knobs.recovery_settings() == {"journal": "", "engine_heartbeat_s": 0.0,
+                                         "engine_restarts": 3}
+    assert knobs.fault_settings() == {"spec": "", "seed": 0}
+    assert not knobs.integrity_enabled()
+    for name, value in (("LLMC_JOURNAL", "/tmp/wal"), ("LLMC_ENGINE_HEARTBEAT_S", "2.5"),
+                        ("LLMC_ENGINE_RESTARTS", "5"), ("LLMC_FAULTS", "crash@chunk=2"),
+                        ("LLMC_FAULTS_SEED", "9"), ("LLMC_INTEGRITY", "1")):
+        fault_knobs.setenv(name, value)
+    assert knobs.recovery_settings() == {
+        "journal": "/tmp/wal", "engine_heartbeat_s": jax_knobs.get_float(
+            "LLMC_ENGINE_HEARTBEAT_S"), "engine_restarts": jax_knobs.get_int(
+            "LLMC_ENGINE_RESTARTS")}
+    assert knobs.fault_settings() == {"spec": jax_knobs.get_str("LLMC_FAULTS"),
+                                      "seed": jax_knobs.get_int("LLMC_FAULTS_SEED")}
+    assert knobs.integrity_enabled() and jax_knobs.get_bool("LLMC_INTEGRITY")
+    fault_knobs.setenv("LLMC_JOURNAL", "0")
+    assert knobs.recovery_settings()["journal"] == ""
+    # The journal settings join the shared provider's key.
+    a = GPUProvider.shared("cpu", journal="1")
+    b = GPUProvider.shared("cpu", journal="1", engine_heartbeat_s=2.0)
+    assert a is not GPUProvider.shared("cpu") and a is not b
+    assert a is GPUProvider.shared("cpu", journal="1") and a.journal is not None
+    assert GPUProvider.shared("cpu", journal="0") is GPUProvider.shared("cpu")

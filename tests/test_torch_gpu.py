@@ -757,3 +757,96 @@ def test_batcher_preempt_resume_on_the_card(cuda):
         assert all(0 <= t < engine.cfg.vocab_size for r in results for t in r.token_ids)
     finally:
         b.close()
+
+
+# -- crash recovery and the finite-logit sentinel (the recovery slice) -----------------------
+
+
+def test_crash_replay_on_the_card(cuda):
+    """consensus-1b at its published width (random weights from seed 0):
+    crash@chunk=2 under a journaled 2-slot provider with three streams. One
+    rebuild, every stream runs its full length with the text it streamed
+    continuous, the journal empty, the rebuilt engine's weights equal to the
+    first one's, and the replay prefilled through flash and decoded through
+    the decode kernel (greedy tokens against single-stream, with bf16
+    near-ties, are chip_smoke.py's recovery phase (a))."""
+    import threading
+
+    from llm_consensus_tpu_torch import faults, integrity
+    from llm_consensus_tpu_torch.providers import Request
+    from llm_consensus_tpu_torch.providers.gpu import GPUProvider
+    from llm_consensus_tpu_torch.recovery import StreamJournal
+    from llm_consensus_tpu_torch.utils.context import Context
+
+    faults.install(faults.FaultPlan("crash@chunk=2", seed=7))
+    provider = GPUProvider(device=cuda, batch_streams=2, journal=StreamJournal(),
+                           ignore_eos=True, max_seq=1024)
+    prompts = [f"crash replay probe {i} " * (4 + 3 * i) for i in range(3)]
+    results, streamed = [None] * 3, [[] for _ in range(3)]
+    try:
+        digest0 = integrity.digest_tree(provider._engine_for("gpu:consensus-1b").params)
+
+        def fire(i):
+            results[i] = provider.query_stream(
+                Context.background(),
+                Request(model="gpu:consensus-1b", prompt=prompts[i], max_tokens=64),
+                streamed[i].append)
+
+        flash0, decode0 = fa.LAUNCHES.count, da.LAUNCHES.count
+        threads = [threading.Thread(target=fire, args=(i,)) for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        stats = provider.recovery_stats()
+        assert (stats["restarts"], stats["journal_depth"]) == (1, 0), stats
+        assert stats["replayed_streams"] >= 1
+        for r, chunks in zip(results, streamed):
+            assert r is not None and r.tokens == 64 and "".join(chunks) == r.content
+        digest1 = integrity.digest_tree(provider.engines()["consensus-1b"].params)
+        assert digest1 == digest0
+        assert fa.LAUNCHES.count > flash0 and da.LAUNCHES.count > decode0
+    finally:
+        provider.release()
+        faults.reset()
+
+
+def test_poisoned_row_fails_typed_on_the_card(cuda):
+    """consensus-1b, a 4-row pool with the integrity plane on and
+    nan_logits@row=1: row 1's stream fails with IntegrityError and the
+    other three equal the clean plane-on run's tokens."""
+    from llm_consensus_tpu_torch import faults, integrity
+    from llm_consensus_tpu_torch.engine.batcher import ContinuousBatcher
+
+    cfg = get_config("consensus-1b")
+    s = SamplingParams(max_new_tokens=48, ignore_eos=True)
+    prompts = [[1] + list(range(30 + 7 * i, 130 + 7 * i)) for i in range(4)]
+
+    def run():
+        b = ContinuousBatcher(Engine(cfg, device=cuda, max_seq=1024), max_batch=4)
+        try:
+            futs = [b.submit_ids(ids, s) for ids in prompts]
+            out = []
+            for f in futs:
+                try:
+                    out.append(f.result(timeout=300).token_ids)
+                except integrity.IntegrityError as exc:
+                    out.append(exc)
+            return out
+        finally:
+            b.close()
+
+    plane = integrity.IntegrityPlane()
+    integrity.install(plane)
+    try:
+        clean = run()
+        faults.install(faults.FaultPlan("nan_logits@row=1", seed=5))
+        poisoned = run()
+    finally:
+        faults.reset()
+        integrity.reset()
+    assert all(isinstance(t, list) and len(t) == 48 for t in clean)
+    assert isinstance(poisoned[1], integrity.IntegrityError)
+    assert poisoned[1].surface == "logits"
+    assert [poisoned[i] for i in (0, 2, 3)] == [clean[i] for i in (0, 2, 3)]
+    assert plane.stats()["failures"] == {"logits": 1}
