@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phase session   # build + the session phase only
     python3 chip_smoke.py --phase serving   # build + the B = 16 kernel rows + serving
     python3 chip_smoke.py --phase recovery  # build + the recovery phase only
+    python3 chip_smoke.py --phase kvpool    # build + the KV pool phase only
 
 Phases, in order; any failure exits non-zero before the last line:
 
@@ -109,7 +110,7 @@ Phases, in order; any failure exits non-zero before the last line:
    state kernel); rows over time, the step wall at 32, 8 and 16 rows, the 4
    moved streams against single-stream; (b) four residents (1,501-token
    prompts, 256 tokens) and a wave of four 1,501-token prompts with
-   ``prefill_budget`` 2048, 0, 0, 2048: the residents' longest gap between
+   ``prefill_budget`` 2048, then 0: the residents' longest gap between
    fetches while the wave fills, the wave's time to first token, every
    stream against single-stream; (c) a 2-row pool, two LOW residents (128
    tokens) and a HIGH latecomer (64): a preemption, the resume through
@@ -140,6 +141,30 @@ Phases, in order; any failure exits non-zero before the last line:
    and ``--events``: exit 0, one restart, ``faults.txt`` and
    ``metrics.json``'s ``faults``. Any RuntimeWarning fails it. A
    ``{"recovery": ...}`` line;
+8f. the KV pool phase (``--phase kvpool``) on llama-3-8b bf16: (a) an
+   engine with the cross-request paged KV pool (64-token blocks, a 4,096 MB
+   arena; ``memory_allocated`` across its construction equal to the arena's
+   modeled bytes) takes two prompts sharing a 1,101-token prefix, an exact
+   repeat, an unrelated 1,501-token prompt and a late third tail (48 tokens
+   each): at least 3 hits, every lease released, every stream against the
+   same weights without the pool by the near-tie rule; (f) a
+   ``ContinuousBatcher(max_batch=4)`` on that engine takes a lone 1,501-token
+   request whose first 23 blocks the pool holds: the radix consult
+   establishes them as the shared prefix (a gather) and the decode runs the
+   kernel's ``return_state`` form, against the same request without the
+   pool; (b) the session phase's 1,749-token follow-up on a pool hit against
+   a fresh engine: prefill, gather and publish ms (CUDA events, median of
+   5), first-step logits, the hit's peak (one gathered cache); (c) the
+   default 256 MB arena (30 blocks) under four distinct 1,501-token prompts:
+   evictions; (d) a shared-prefix pair over the int8 cache, pool on and
+   off, the int8 decode kernel; (e) ``pool_exhausted`` through the provider
+   (the response's ``kv``), ``hbm_squeeze@phase=publish@frac=0`` (the
+   ledger's ``hbm`` event) and ``bit_flip@surface=kv`` under the integrity
+   plane at ``sample=1.0`` (a corrupt gather becomes a miss), each against a
+   clean run; (g) the slice's CLI with ``LLMC_KV_POOL=1 LLMC_KV_POOL_MB=4096
+   --rounds 2 --events`` and without the pool: a ``kv`` block for every
+   preset, flash on the pool's misses, ``result.json``'s keys unchanged.
+   Any RuntimeWarning fails it. A ``{"kvpool": ...}`` line;
 9. the quantized slice: the same CLI run with ``LLMC_QUANT=int8
    LLMC_KV_QUANT=int8`` in the environment (int8 weights, int8 KV cache,
    the int8 decode kernel), then a profiler window over one of its
@@ -1959,12 +1984,12 @@ def measure_fresh_cli_walls() -> None:
 
 def measure_overhead(torch, engine) -> None:
     """The same llama-3-8b generate with every plane bound and with none,
-    in turns (off, on, on, off): both decode rates, the host time inside
+    in turns (off, on; off, on, on, off until PR 13): both decode rates, the
+    host time inside
     telemetry code per decode chunk, and the synchronizations per chunk,
     which must not differ."""
     from llm_consensus_tpu_torch import obs
     from llm_consensus_tpu_torch.engine import SamplingParams
-    from llm_consensus_tpu_torch.engine import engine as engine_mod
 
     planes = (engine._obs, engine._attrib, engine._roofline)
     if any(p is None for p in planes):
@@ -1975,8 +2000,8 @@ def measure_overhead(torch, engine) -> None:
              (obs.attrib.ChipTimeLedger, "observe_device"),
              (obs.attrib.ChipTimeLedger, "token_event"),
              (obs.roofline.RooflineLedger, "dispatch"), (obs.live.LiveMetrics, "observe"),
-             (engine_mod.DeviceWall, "__init__"), (engine_mod.DeviceWall, "stop"),
-             (engine_mod.DeviceWall, "seconds")]
+             (obs.attrib.DeviceWall, "__init__"), (obs.attrib.DeviceWall, "stop"),
+             (obs.attrib.DeviceWall, "seconds")]
 
     def timed(fn):
         def wrapper(*a, **kw):
@@ -2018,7 +2043,7 @@ def measure_overhead(torch, engine) -> None:
         torch.cuda.synchronize = counted(sync_orig[0])
         torch.cuda.Event.synchronize = counted(sync_orig[1])
         engine._decode_chunk = chunk
-        for arm in ("off", "on", "on", "off"):
+        for arm in ("off", "on"):
             engine._obs, engine._attrib, engine._roofline = (
                 planes if arm == "on" else (None, None, None))
             host_ns[0] = syncs[0] = chunks[0] = 0
@@ -3159,9 +3184,10 @@ def serving_rows(torch, fa, engine, seed: int) -> dict:
 def serving_interleave(torch, fa, engine, seed: int) -> dict:
     """(b) Interleaved admission: four residents (random 1,501-token
     prompts, 128 tokens) decode; once each has 32 tokens a wave of four
-    other 1,501-token prompts (32 tokens) arrives. Budget 2048, 0, 0, 2048:
-    the residents' longest gap between fetches while the wave fills and the
-    wave's time to its first token; every stream against single-stream."""
+    other 1,501-token prompts (32 tokens) arrives. Budget 2048, then 0 (two
+    more runs, 0 and 2048, until PR 13): the residents' longest gap between
+    fetches while the wave fills and the wave's time to its first token;
+    every stream against single-stream."""
     from llm_consensus_tpu_torch.engine import SamplingParams
     from llm_consensus_tpu_torch.engine.batcher import ContinuousBatcher
 
@@ -3171,7 +3197,7 @@ def serving_interleave(torch, fa, engine, seed: int) -> dict:
     s_res = SamplingParams(max_new_tokens=128, ignore_eos=True)
     s_wave = SamplingParams(max_new_tokens=32, ignore_eos=True)
     runs = []
-    for budget in (2048, 0, 0, 2048):
+    for budget in (2048, 0):
         with BatcherTrace(torch, fa) as tr:
             b = ContinuousBatcher(engine, max_batch=8, prefill_budget=budget)
             try:
@@ -3210,8 +3236,9 @@ def serving_interleave(torch, fa, engine, seed: int) -> dict:
     base = runs[0]
     same = [sum(int(r["res"][i] == base["res"][i]) for r in runs) for i in range(4)] + [
         sum(int(r["wave"][i] == base["wave"][i]) for r in runs) for i in range(4)]
-    log(f"  streams equal to the first run's in each of the 4 runs (4 residents, 4 wave): {same}")
-    if same[:4] != [4] * 4:
+    log(f"  streams equal to the first run's in each of the {len(runs)} runs (4 residents, 4 "
+        f"wave): {same}")
+    if same[:4] != [len(runs)] * 4:
         # The residents decode at the same rows and widths in every run.
         raise AssertionError(f"serving (b): residents differ across the runs: {same}")
     checks = []
@@ -3856,6 +3883,505 @@ def run_recovery(torch, fa, da, card: str, seed: int) -> dict:
     return rows
 
 
+# -- phase 8f: the cross-request paged KV pool (kv/) ---------------------------
+
+KV_MODEL = "llama-3-8b"
+KV_BLOCK = 64
+KV_MB = 4096.0
+# A gather, a restore and a tail prefill against a fresh prefill of the same
+# prompt: other chunk boundaries, so other bf16 orders (the session phase's
+# bound).
+KV_LOGIT_TOL = BATCH_LOGIT_TOL
+
+
+def kv_walk(pool) -> list:
+    """Every block of the pool's radix."""
+    out, stack = [], [pool._radix.root]
+    while stack:
+        for child in stack.pop().children:
+            out.append(child.block)
+            stack.append(child)
+    return out
+
+
+def kv_text(torch, seed: int, n: int) -> str:
+    """A random printable prompt of ``n`` bytes (``n`` + 1 byte tokens)."""
+    return "".join(chr(t) for t in random_ids(torch, seed, n))
+
+
+def kv_streams(torch, label: str, on, off, prompts: list, counters: dict, n: int = 48) -> tuple:
+    """Greedy streams of ``prompts`` on ``on`` (a pool engine), then on
+    ``off`` (the same weights without the pool). ``counters`` are reset
+    before the pool-on streams and read after them, before ``off`` runs.
+    A stream that reused the same prefix length on both engines (recorded
+    at each engine's ``_reusable_prefix``, floored at its prefill chunk as
+    ``_prefill_ids`` does) prefills the same chunks over the same bytes and
+    must be equal; any other is held by the near-tie rule (``off`` the
+    teacher). Returns the checks, the pool-on streams, each stream's
+    ``(reuse on, reuse off)`` and the pool-on launches."""
+    from llm_consensus_tpu_torch.engine import SamplingParams
+
+    s = SamplingParams(max_new_tokens=n, ignore_eos=True)
+    reuse = {id(on): [], id(off): []}
+
+    def run(eng) -> list:
+        seen, lookup = reuse[id(eng)], eng._reusable_prefix
+
+        def spy(ids):
+            n_reused, saved = lookup(ids)
+            seen.append(n_reused if n_reused >= eng.prefill_chunk else 0)
+            return n_reused, saved
+
+        eng._reusable_prefix = spy
+        try:
+            return [eng.generate_ids(p, s).token_ids for p in prompts]
+        finally:
+            del eng._reusable_prefix
+
+    for c in counters.values():
+        c.reset()
+    got = run(on)
+    launches = {name: c.count for name, c in counters.items()}
+    ref = run(off)
+    pairs = list(zip(reuse[id(on)], reuse[id(off)]))
+    if len(pairs) != len(prompts):
+        raise AssertionError(f"{label}: {reuse} reuse readings for {len(prompts)} prompts")
+    checks = [greedy_check(torch, off, f"{label} {i}", p, g, r)
+              for i, (p, g, r) in enumerate(zip(prompts, got, ref))]
+    for check, (r_on, r_off) in zip(checks, pairs):
+        check["reuse"] = [r_on, r_off]
+    unequal = [i for i, (c, (r_on, r_off)) in enumerate(zip(checks, pairs))
+               if r_on == r_off and not c["equal"]]
+    log(f"  {label}: prefix reused pool on / off {pairs}; the same reuse must give the same "
+        f"tokens")
+    if unequal:
+        raise AssertionError(f"{label}: streams {unequal} reused the same prefix pool on and "
+                             f"off but differ: {[checks[i] for i in unequal]}")
+    return checks, got, launches
+
+
+def kvpool_mixed(torch, fa, da, off, seed: int) -> tuple:
+    """(a) Mixed traffic on a 4,096 MB, 64-token-block pool (llama-3-8b bf16,
+    the weights of ``off``): two prompts sharing a 1,101-token system prefix
+    with different tails, an exact repeat, an unrelated 1,501-token prompt
+    and a late third tail, 48 greedy tokens each, against ``off``. Returns
+    the row, the pool engine and the prompts."""
+    from llm_consensus_tpu_torch.engine import Engine
+
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    on = Engine(off.cfg, off.params, device=off.device, kv_pool=True, kv_pool_block=KV_BLOCK,
+                kv_pool_mb=KV_MB)
+    torch.cuda.synchronize()
+    arena_alloc = torch.cuda.memory_allocated() - m0
+    pool = on._kv_pool
+    modeled = pool.n_blocks * pool.block_size * pool.bytes_per_token
+    log(f"kvpool (a): {pool.n_blocks} blocks of {pool.block_size} tokens, {pool.bytes_per_token} "
+        f"B a token ({pool.block_size * pool.bytes_per_token / 1e6:.2f} MB a block); arena "
+        f"{modeled / 1e9:.3f} GB modeled, memory_allocated across the pool's construction "
+        f"{arena_alloc / 1e9:.3f} GB")
+    if arena_alloc != modeled or pool.arena_bytes != modeled:
+        raise AssertionError(f"kvpool (a): arena {arena_alloc} B allocated, {modeled} modeled")
+    bos = off.tokenizer.bos_id
+    system = random_ids(torch, seed + 400, 1100, bos)
+    tails = [random_ids(torch, seed + 401 + i, 60 + 20 * i) for i in range(3)]
+    unrelated = random_ids(torch, seed + 410, 1500, bos)
+    prompts = [system + tails[0], system + tails[1], system + tails[0], unrelated,
+               system + tails[2]]
+    counters = {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES}
+    checks, got, launches = kv_streams(torch, "kvpool (a)", on, off, prompts, counters)
+    stats = pool.stats()
+    leased = sum(b.refs for b in kv_walk(pool))
+    planted = fault_readings(torch, off, "kvpool (a)", prompts, got)
+    row = {"blocks": pool.n_blocks, "bytes_per_token": pool.bytes_per_token,
+           "arena_bytes": arena_alloc, "stats": stats, "leased": leased, "launches": launches,
+           "equal": sum(c["equal"] for c in checks), "greedy": checks, "faults": planted}
+    log(f"kvpool (a): {row['equal']}/5 streams equal to the pool-off engine's; hits "
+        f"{stats['hits']} ({stats['hit_tokens']} tokens), misses' tokens {stats['miss_tokens']}, "
+        f"{stats['published_blocks']} blocks published, leases held {leased}; pool-on launches "
+        f"{launches}")
+    if stats["hits"] < 3 or leased or launches["decode_attention"] <= 0:
+        raise AssertionError(f"kvpool (a): {stats}, leased {leased}, launches {launches}")
+    if row["equal"] < 5 and (planted["min"] is None or planted["min"] <= NEAR_TIE_TOL):
+        raise AssertionError(f"kvpool (a): the near-tie rule does not separate a misplaced row "
+                             f"({planted['min']}) from the tolerance {NEAR_TIE_TOL}")
+    return row, on, prompts
+
+
+def kvpool_batcher(torch, fa, da, on, off, unrelated: list, seed: int) -> dict:
+    """(f) A lone 1,501-token request whose first 23 blocks the pool of (a)
+    holds (the unrelated prompt's): ``ContinuousBatcher(max_batch=4)``
+    establishes its prefix by radix consult (a gather) and decodes it as a
+    suffix through the decode kernel's ``return_state`` form; the same
+    request on ``off``'s batcher admits whole. Both against single-stream."""
+    from llm_consensus_tpu_torch.engine import SamplingParams
+    from llm_consensus_tpu_torch.engine.batcher import ContinuousBatcher
+
+    q = unrelated[:23 * KV_BLOCK] + random_ids(torch, seed + 430, 29)
+    held = on._kv_pool.match_len(q[:-1])
+    s = SamplingParams(max_new_tokens=48, ignore_eos=True)
+    runs = {}
+    for label, eng in (("pool", on), ("no pool", off)):
+        counters = (fa.LAUNCHES, da.LAUNCHES, da.LAUNCHES_STATE)
+        for c in counters:
+            c.reset()
+        b = ContinuousBatcher(eng, max_batch=4)
+        try:
+            t0 = time.monotonic()
+            r = b.submit_ids(q, s).result(timeout=600)
+            wall = time.monotonic() - t0
+            snap = b.snapshot()
+        finally:
+            b.close()
+        runs[label] = {"tokens": r.token_ids, "wall_s": wall,
+                       "establish_s": snap["establish_s"],
+                       "establish_tokens": snap["establish_tokens"],
+                       "admit_s": snap["admit_s"], "prefix_len": snap["prefix_len"],
+                       "launches": dict(zip(("flash_attention", "decode_attention",
+                                             "decode_attention_state"),
+                                            (c.count for c in counters)))}
+    ref = off.generate_ids(q, s).token_ids
+    checks = [greedy_check(torch, off, f"kvpool (f) {label}", q, run["tokens"], ref)
+              for label, run in runs.items()]
+    on_run, off_run = runs["pool"], runs["no pool"]
+    log(f"kvpool (f): the pool holds {held} of the request's tokens; established "
+        f"{on_run['establish_tokens']} in {1e3 * on_run['establish_s']:.2f} ms (+ suffix admit "
+        f"{1e3 * on_run['admit_s']:.2f} ms) against the whole request's admission "
+        f"{1e3 * off_run['admit_s']:.2f} ms without the pool; launches {on_run['launches']} "
+        f"/ {off_run['launches']}")
+    if (held < 23 * KV_BLOCK or on_run["establish_tokens"] != held
+            or on_run["launches"]["decode_attention_state"] <= 0
+            or off_run["establish_tokens"] != 0):
+        raise AssertionError(f"kvpool (f): {runs}")
+    return {"held": held, "runs": {k: {x: y for x, y in v.items() if x != "tokens"}
+                                   for k, v in runs.items()}, "greedy": checks}
+
+
+def kvpool_follow_up(torch, on, off, seed: int) -> dict:
+    """(b) The session phase's follow-up: the 1,501-token prompt and 48
+    tokens, then it with its answer and a 200-token follow-up (1,749
+    tokens) on a pool hit against a fresh engine: prefill, gather and
+    publish ms (CUDA events, median of 5), the first-step logits, and the
+    memory the hit adds at its peak (one gathered cache)."""
+    from llm_consensus_tpu_torch.engine import Engine, SamplingParams
+
+    pool = on._kv_pool
+    fresh = Engine(off.cfg, off.params, device=off.device, prefix_cache=False)
+    ids = random_ids(torch, seed, 1500, bos=off.tokenizer.bos_id)
+    first = on.generate_ids(ids, SamplingParams(max_new_tokens=48, ignore_eos=True))
+    follow = ids + first.token_ids + random_ids(torch, seed + 1, 200)
+    published = pool.match_len(follow)
+    cache_gb = pool.max_seq * pool.bytes_per_token / 1e9
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        a0 = torch.cuda.memory_allocated()
+        lg_hit, cache = on._prefill_ids(follow)
+        torch.cuda.synchronize()
+        rise_gb = (torch.cuda.max_memory_allocated() - a0) / 1e9
+        del cache
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        a0 = torch.cuda.memory_allocated()
+        lg_fresh, fresh_cache = fresh._prefill_ids(follow)
+        torch.cuda.synchronize()
+        fresh_rise_gb = (torch.cuda.max_memory_allocated() - a0) / 1e9
+        logit_err = max_err(lg_hit, lg_fresh)
+        hit_ms = median_ms(torch, lambda: on._prefill_ids(follow))
+        fresh_ms = median_ms(torch, lambda: fresh._prefill_ids(follow))
+        k_gather = -(-min(published, len(follow) - 1) // KV_BLOCK)
+        gather_ms = median_ms(torch, lambda: pool.lookup(follow, on.prefill_chunk))
+
+        def republish():
+            pool.evict_cold(0.0)  # host only: the publish below writes every block
+            pool.publish(follow, fresh_cache)
+
+        publish_ms = median_ms(torch, republish)
+    k_publish = -(-len(follow) // KV_BLOCK)
+    row = {"prompt_tokens": len(follow), "published_before": published,
+           "prefill_ms_hit": hit_ms, "prefill_ms_fresh": fresh_ms, "gather_ms": gather_ms,
+           "gather_blocks": k_gather, "publish_ms": publish_ms, "publish_blocks": k_publish,
+           "first_logits_max_abs_diff": logit_err, "hit_peak_rise_gb": rise_gb,
+           "fresh_peak_rise_gb": fresh_rise_gb, "gathered_cache_gb": cache_gb,
+           "snapshot_pr9": {"prefill_ms_reuse": 74.22, "reused": 1549,
+                            "prefill_ms_fresh": 188.72}}
+    log(f"kvpool (b): follow-up of {len(follow)} tokens, {published} published by the first "
+        f"generate; prefill {hit_ms:.2f} ms on a pool hit against {fresh_ms:.2f} ms fresh (CUDA "
+        f"events, median of 5; the snapshot in PR 9: 74.22 ms reusing 1,549 against 188.72); "
+        f"gather of {k_gather} blocks {gather_ms:.3f} ms, publish of {k_publish} blocks "
+        f"{publish_ms:.3f} ms; first-step logits max |diff| {logit_err:.3e} (tol "
+        f"{KV_LOGIT_TOL}); the hit's peak adds {rise_gb:.3f} GB, a fresh prefill's "
+        f"{fresh_rise_gb:.3f} GB (one cache {cache_gb:.3f} GB each)")
+    # A hit holds one full-capacity cache, as a fresh prefill does: a
+    # restore that copied the gathered cache would add a second.
+    if (published != 1549 or logit_err > KV_LOGIT_TOL or rise_gb < cache_gb
+            or rise_gb > fresh_rise_gb + 0.5 * cache_gb):
+        raise AssertionError(f"kvpool (b): {row}")
+    del fresh, fresh_cache
+    return row
+
+
+def kvpool_eviction(torch, off, seed: int) -> dict:
+    """(c) The default 256 MB arena (30 blocks, 1,920 tokens) under four
+    distinct 1,501-token prompts (16 tokens each): LRU eviction, outputs
+    held as in (a)."""
+    from llm_consensus_tpu_torch.engine import Engine
+
+    small = Engine(off.cfg, off.params, device=off.device, kv_pool=True,
+                   kv_pool_block=KV_BLOCK)
+    prompts = [random_ids(torch, seed + 420 + i, 1500, off.tokenizer.bos_id) for i in range(4)]
+    checks, _, _ = kv_streams(torch, "kvpool (c)", small, off, prompts, {}, n=16)
+    stats = small._kv_pool.stats()
+    log(f"kvpool (c): {stats['blocks_total']} blocks; {stats['evicted_blocks']} evicted, "
+        f"{stats['blocks_used']} used, {stats['published_blocks']} published; "
+        f"{sum(c['equal'] for c in checks)}/4 streams equal")
+    if not (stats["evicted_blocks"] > 0 and stats["blocks_used"] <= stats["blocks_total"] == 30):
+        raise AssertionError(f"kvpool (c): {stats}")
+    del small
+    return {"stats": stats, "greedy": checks}
+
+
+def kvpool_int8(torch, da, off, prompts: list) -> dict:
+    """(d) The int8 cache: (a)'s shared-prefix pair with ``kv_quant="int8"``
+    (16 tokens each), the pool on (1,024 MB) against off; blocks carry codes
+    and scales, the int8 decode kernel runs."""
+    from llm_consensus_tpu_torch.engine import Engine
+
+    q_on = Engine(off.cfg, off.params, device=off.device, kv_quant="int8", kv_pool=True,
+                  kv_pool_block=KV_BLOCK, kv_pool_mb=1024.0)
+    q_off = Engine(off.cfg, off.params, device=off.device, kv_quant="int8")
+    checks, _, counted = kv_streams(torch, "kvpool (d)", q_on, q_off, prompts[:2],
+                                    {"int8": da.LAUNCHES_INT8}, n=16)
+    stats = q_on._kv_pool.stats()
+    launches = counted["int8"]
+    log(f"kvpool (d): int8 cache, {stats['bytes_per_token']} B a token, {stats['blocks_total']} "
+        f"blocks; hits {stats['hits']} ({stats['hit_tokens']} tokens); int8 decode launches "
+        f"{launches}; {sum(c['equal'] for c in checks)}/2 streams equal")
+    if stats["hits"] < 1 or launches <= 0:
+        raise AssertionError(f"kvpool (d): {stats}, int8 launches {launches}")
+    del q_on, q_off
+    return {"stats": stats, "int8_launches": launches, "greedy": checks}
+
+
+def kvpool_faults(torch, off, seed: int) -> dict:
+    """(e) Each against a clean run of a 600-token prompt (16 tokens):
+    ``pool_exhausted@step=1`` through the provider (the response's ``kv``),
+    ``hbm_squeeze@phase=publish@frac=0@step=1`` (the same truncation and the
+    ledger's ``hbm`` event), and the integrity plane at ``sample=1.0`` with
+    ``bit_flip@surface=kv`` (one corrupt block, the lookup a miss, the
+    output equal to the clean run)."""
+    from llm_consensus_tpu_torch import faults, integrity, obs
+    from llm_consensus_tpu_torch.engine import Engine, SamplingParams
+    from llm_consensus_tpu_torch.faults import FaultPlan
+    from llm_consensus_tpu_torch.providers import Request
+    from llm_consensus_tpu_torch.providers.gpu import GPUProvider
+    from llm_consensus_tpu_torch.utils.context import Context
+
+    text = kv_text(torch, seed + 440, 600)
+    ids = off.tokenizer.encode(text)
+    s = SamplingParams(max_new_tokens=16, ignore_eos=True)
+    clean = off.generate_ids(ids, s).token_ids
+
+    def pool_engine():
+        return Engine(off.cfg, off.params, device=off.device, kv_pool=True,
+                      kv_pool_block=KV_BLOCK)
+
+    row = {}
+    faults.install(FaultPlan("pool_exhausted@step=1", seed=3))
+    try:
+        eng = pool_engine()
+        provider = GPUProvider(kv_pool=True, ignore_eos=True)
+        provider._engines[KV_MODEL] = eng
+        resp = provider.query(Context.background(),
+                              Request(model=f"gpu:{KV_MODEL}", prompt=text, max_tokens=16))
+        stats = eng._kv_pool.stats()
+        row["pool_exhausted"] = {"response_kv": resp.kv, "exhausted": stats["exhausted"],
+                                 "published_blocks": stats["published_blocks"],
+                                 "tokens": resp.tokens}
+        provider._engines.clear()
+        del eng, provider
+    finally:
+        faults.reset()
+    if row["pool_exhausted"]["response_kv"] != {"truncated": True} or \
+            row["pool_exhausted"]["exhausted"] != 1:
+        raise AssertionError(f"kvpool (e) pool_exhausted: {row['pool_exhausted']}")
+
+    prev = obs.attrib.ledger()
+    led = obs.attrib.ChipTimeLedger()
+    obs.attrib.install(led)
+    faults.install(FaultPlan("hbm_squeeze@phase=publish@frac=0@step=1", seed=5))
+    try:
+        eng = pool_engine()
+        r = eng.generate_ids(ids, s)
+        stats = eng._kv_pool.stats()
+        row["hbm_squeeze"] = {"kv_truncated": r.kv_truncated, "exhausted": stats["exhausted"],
+                              "hbm_events": led.snapshot()["hbm"]["events"],
+                              "equal": r.token_ids == clean}
+        del eng
+    finally:
+        faults.reset()
+        obs.attrib.install(prev)
+    if not (row["hbm_squeeze"]["kv_truncated"] and row["hbm_squeeze"]["exhausted"] == 1
+            and row["hbm_squeeze"]["hbm_events"] == 1 and row["hbm_squeeze"]["equal"]):
+        raise AssertionError(f"kvpool (e) hbm_squeeze: {row['hbm_squeeze']}")
+
+    plane = integrity.IntegrityPlane(sample=1.0)
+    integrity.install(plane)
+    faults.install(FaultPlan("bit_flip@surface=kv", seed=2))
+    try:
+        eng = pool_engine()
+        first = eng.generate_ids(ids, s).token_ids
+        hits0 = eng._kv_pool.stats()["hit_tokens"]
+        second = eng.generate_ids(ids, s).token_ids
+        stats = eng._kv_pool.stats()
+        row["bit_flip"] = {"corrupt_blocks": stats["corrupt_blocks"],
+                           "verified_blocks": stats["verified_blocks"],
+                           "failures": plane.stats()["failures"],
+                           "equal": first == clean and second == clean,
+                           "hits": stats["hits"]}
+        # The corrupt lookup dropped its chain: the generate republished it.
+        row["bit_flip"]["republished"] = eng._kv_pool.match_len(ids) >= len(ids) - 1
+        del eng
+    finally:
+        faults.reset()
+        integrity.reset()
+    log(f"kvpool (e): pool_exhausted → response kv {row['pool_exhausted']['response_kv']}, "
+        f"exhausted {row['pool_exhausted']['exhausted']}; hbm_squeeze → truncated "
+        f"{row['hbm_squeeze']['kv_truncated']}, hbm events {row['hbm_squeeze']['hbm_events']}; "
+        f"bit_flip → corrupt blocks {row['bit_flip']['corrupt_blocks']} of "
+        f"{row['bit_flip']['verified_blocks']} verified, failures "
+        f"{row['bit_flip']['failures']}, outputs equal to the clean run "
+        f"{row['bit_flip']['equal']} (hit tokens before {hits0})")
+    if not (row["bit_flip"]["corrupt_blocks"] == 1 and row["bit_flip"]["equal"]
+            and row["bit_flip"]["failures"] == {"kv": 1}):
+        raise AssertionError(f"kvpool (e) bit_flip: {row['bit_flip']}")
+    return row
+
+
+def kvpool_cli(torch, fa, da, tmp: str) -> dict:
+    """(g) The slice's CLI with ``LLMC_KV_POOL=1 LLMC_KV_POOL_MB=4096
+    --rounds 2 --events``, auto-saved, then the same run with the pool off:
+    exit 0, flash launched on the pool's misses (the one-chunk panel
+    prompts), a ``kv`` block in ``metrics.json`` for every ``gpu:`` preset,
+    and ``result.json``'s keys equal to the pool-off run's."""
+    runs = {}
+    for label, env in (("pool", {"LLMC_KV_POOL": "1", "LLMC_KV_POOL_MB": "4096"}),
+                       ("no pool", {})):
+        fresh_planes()
+        release_memory(torch)
+        root = os.path.join(tmp, label.replace(" ", "_"))
+        os.makedirs(root)
+        argv = ["--models", SESSION_PANEL, "--judge", SESSION_JUDGE, "--max-tokens", "64",
+                "--rounds", "2", "--events", "--data-dir", root, PROMPT]
+        call = cli_call(torch, {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES},
+                        env, argv)
+        if call["rc"] != 0:
+            raise AssertionError(f"kvpool (g) {label}: CLI exit {call['rc']}: {call['err']}")
+        (run_id,) = os.listdir(root)
+        files = read_run_dir(os.path.join(root, run_id))
+        runs[label] = {"wall_s": call["wall_s"], "peak_gb": call["peak_gb"],
+                       "launches": call["launches"], "files": files}
+    on, off = runs["pool"], runs["no pool"]
+    kv = on["files"]["metrics.json"].get("kv", {})
+    doc_on, doc_off = on["files"]["result.json"], off["files"]["result.json"]
+    keys_equal = (list(doc_on) == list(doc_off) and [list(r) for r in doc_on["responses"]]
+                  == [list(r) for r in doc_off["responses"]])
+    row = {"wall_s": {k: v["wall_s"] for k, v in runs.items()},
+           "peak_gb": {k: v["peak_gb"] for k, v in runs.items()},
+           "launches": {k: v["launches"] for k, v in runs.items()},
+           "kv": kv, "result_keys_equal": keys_equal,
+           "no_pool_kv": "kv" in off["files"]["metrics.json"]}
+    log(f"kvpool (g): the CLI with the pool {on['wall_s']:.2f} s (peak {on['peak_gb']:.2f} GB, "
+        f"launches {on['launches']}), without {off['wall_s']:.2f} s (peak "
+        f"{off['peak_gb']:.2f} GB); kv blocks " + ", ".join(
+            f"{preset}: hits {st['hits']} ({st['hit_tokens']} tokens) of {st['lookups']} "
+            f"lookups, {st['published_blocks']} blocks published" for preset, st in
+            sorted(kv.items())) + f"; result.json keys equal {keys_equal}")
+    if (sorted(kv) != sorted(m.split(":", 1)[1] for m in SESSION_PANEL.split(","))
+            or not keys_equal or row["no_pool_kv"]
+            or on["launches"]["flash_attention"] <= 0 or on["launches"]["decode_attention"] <= 0):
+        raise AssertionError(f"kvpool (g): {row}")
+    return row
+
+
+def run_kvpool(torch, fa, da, card: str, seed: int) -> dict:
+    """Phase 8f on llama-3-8b bf16 (random weights from the seed): (a) mixed
+    traffic pool on and off, (f) the batcher's radix consult, (b) the
+    follow-up on a pool hit, (c) eviction at the default arena, (d) the
+    int8 cache, (e) faults and integrity, (g) the CLI. Any RuntimeWarning
+    fails the phase. Prints a ``{"kvpool": ...}`` line."""
+    import warnings
+
+    from llm_consensus_tpu_torch.engine import Engine
+    from llm_consensus_tpu_torch.models import get_config
+
+    t_phase = time.monotonic()
+    fresh_planes()
+    release_memory(torch)
+    _TEACHER.clear()
+    torch.cuda.reset_peak_memory_stats()
+    rows, part_s = {}, {}
+    with warnings.catch_warnings(record=True) as caught, \
+            tempfile.TemporaryDirectory(prefix="chip-smoke-kvpool-") as tmp:
+        warnings.simplefilter("always")
+        off = Engine(get_config(KV_MODEL), device=torch.device("cuda"))
+        t = time.monotonic()
+        rows["mixed"], on, prompts = kvpool_mixed(torch, fa, da, off, seed)
+        part_s["mixed"] = time.monotonic() - t
+        t = time.monotonic()
+        rows["batcher"] = kvpool_batcher(torch, fa, da, on, off, prompts[3], seed)
+        part_s["batcher"] = time.monotonic() - t
+        t = time.monotonic()
+        rows["follow_up"] = kvpool_follow_up(torch, on, off, seed)
+        part_s["follow_up"] = time.monotonic() - t
+        rows["arena_stats"] = on._kv_pool.stats()
+        del on
+        release_memory(torch)
+        t = time.monotonic()
+        rows["eviction"] = kvpool_eviction(torch, off, seed)
+        part_s["eviction"] = time.monotonic() - t
+        t = time.monotonic()
+        rows["int8"] = kvpool_int8(torch, da, off, prompts)
+        part_s["int8"] = time.monotonic() - t
+        t = time.monotonic()
+        rows["faults"] = kvpool_faults(torch, off, seed)
+        part_s["faults"] = time.monotonic() - t
+        peak_engines_gb = torch.cuda.max_memory_allocated() / 1e9
+        del off
+        _TEACHER.clear()
+        release_memory(torch)
+        t = time.monotonic()
+        rows["cli"] = kvpool_cli(torch, fa, da, tmp)
+        part_s["cli"] = time.monotonic() - t
+        fresh_planes()
+        release_memory(torch)
+    bad = [str(w.message) for w in caught if issubclass(w.category, RuntimeWarning)]
+    if bad:
+        raise AssertionError(f"kvpool: warnings {bad}")
+    mixed = rows["mixed"]
+    summary = {
+        "card": card, "phase_s": time.monotonic() - t_phase, "part_s": part_s,
+        "arena_bytes": mixed["arena_bytes"], "blocks": mixed["blocks"],
+        "hits": mixed["stats"]["hits"], "misses": mixed["stats"]["lookups"]
+        - mixed["stats"]["hits"], "evicted": rows["eviction"]["stats"]["evicted_blocks"],
+        "exhausted": rows["faults"]["pool_exhausted"]["exhausted"]
+        + rows["faults"]["hbm_squeeze"]["exhausted"],
+        "corrupt": rows["faults"]["bit_flip"]["corrupt_blocks"],
+        "prefill_ms_hit": rows["follow_up"]["prefill_ms_hit"],
+        "prefill_ms_fresh": rows["follow_up"]["prefill_ms_fresh"],
+        "gather_ms": rows["follow_up"]["gather_ms"],
+        "publish_ms": rows["follow_up"]["publish_ms"],
+        "peak_gb": peak_engines_gb,
+        "launches": {"mixed": mixed["launches"],
+                     "batcher": rows["batcher"]["runs"]["pool"]["launches"],
+                     "int8": rows["int8"]["int8_launches"], "cli": rows["cli"]["launches"]},
+    }
+    log(f"kvpool phase: {summary['phase_s']:.1f} s (by part, checks included: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in part_s.items()) + ")")
+    print(json.dumps({"kvpool": summary, "parts": rows}, default=str), flush=True)
+    return rows
+
+
 # -- phases 12 to 16: Mixtral and the checkpoint loader ------------------------
 
 MIXTRAL = "mixtral-8x7b"
@@ -4219,7 +4745,8 @@ def run_mixtral(torch, fa, da, seed: int, records: dict) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase", choices=("all", "kernels", "mixtral", "telemetry", "modes",
-                                        "session", "serving", "recovery"), default="all")
+                                        "session", "serving", "recovery", "kvpool"),
+                    default="all")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -4286,6 +4813,11 @@ def main(argv=None) -> int:
         run_recovery(torch, fa, da, card, args.seed)
         print(card, flush=True)
         return 0
+    if args.phase == "kvpool":
+        # The KV pool phase alone: no ok line.
+        run_kvpool(torch, fa, da, card, args.seed)
+        print(card, flush=True)
+        return 0
     if args.phase == "serving":
         # The B = 16 kernel rows and the serving phase: no ok line.
         check_decode_rows16(torch, rows16_recs)
@@ -4335,6 +4867,7 @@ def main(argv=None) -> int:
     run_session(torch, fa, da, card, args.seed)
     run_serving(torch, fa, da, card, args.seed, rows16_recs)
     run_recovery(torch, fa, da, card, args.seed)
+    run_kvpool(torch, fa, da, card, args.seed)
 
     qsl = run_slice(torch, {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES,
                             "decode_attention_int8": da.LAUNCHES_INT8},

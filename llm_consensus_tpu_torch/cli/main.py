@@ -69,15 +69,20 @@ through the environment only (``LLMC_QUANT``, ``LLMC_KV_QUANT``,
 ``LLMC_POOL_PREFIX``, ``LLMC_POOL_PREFIX_MIN``, ``LLMC_PREFILL_BUDGET``;
 ``LLMC_CHECKPOINT_DIR``, the per-preset checkpoint directory;
 ``LLMC_PREFIX_CACHE`` and ``LLMC_PREFIX_CACHE_MAX_MB``, the engines'
-prefix snapshot reuse; ``LLMC_HTTP_RETRIES`` and ``LLMC_HTTP_BACKOFF``,
-the remote providers' retries):
+prefix snapshot reuse; ``LLMC_KV_POOL``, ``LLMC_KV_POOL_BLOCK`` and
+``LLMC_KV_POOL_MB``, the cross-request paged KV pool that replaces it
+(``metrics.json`` then carries each preset's ``kv`` block, and a response
+whose publish the pool truncated ``"kv": {"truncated": true}``);
+``LLMC_HTTP_RETRIES`` and ``LLMC_HTTP_BACKOFF``, the remote providers'
+retries):
 the default provider factory reads them here (utils/knobs.py), the one
 place the port reads knobs, and an unknown mode or a refused setting fails
 at registry init, before any engine is built.
 
 Robustness follows the JAX CLI too: ``LLMC_FAULTS`` (with
 ``LLMC_FAULTS_SEED``) installs a deterministic fault plan and
-``LLMC_INTEGRITY`` the integrity plane, both once per process and before
+``LLMC_INTEGRITY`` the integrity plane (``LLMC_INTEGRITY_SAMPLE`` its share
+of verified KV-pool gathers), both once per process and before
 any provider exists; ``LLMC_JOURNAL``, ``LLMC_ENGINE_HEARTBEAT_S`` and
 ``LLMC_ENGINE_RESTARTS`` go to the provider factory (a journaled batched
 pool is supervised: a crash becomes a rebuild and a replay). An
@@ -180,8 +185,8 @@ def create_provider(model: str, device: DeviceLike = None) -> Provider:
     from llm_consensus_tpu_torch.providers.gpu import SCHEME, GPUProvider, parse_model_name
     from llm_consensus_tpu_torch.providers.registry import REMOTE_MODELS, create_remote_provider
     from llm_consensus_tpu_torch.utils.knobs import (
-        batch_settings, checkpoint_dir, http_settings, prefix_settings, quant_modes,
-        recovery_settings)
+        batch_settings, checkpoint_dir, http_settings, kv_pool_settings, prefix_settings,
+        quant_modes, recovery_settings)
 
     if model.startswith(SCHEME):
         try:
@@ -190,7 +195,7 @@ def create_provider(model: str, device: DeviceLike = None) -> Provider:
             raise CLIError(str(err)) from None
         return GPUProvider.shared(device, **batch_settings(), **quant_modes(),
                                   **checkpoint_dir(), **prefix_settings(),
-                                  **recovery_settings())
+                                  **kv_pool_settings(), **recovery_settings())
     try:
         return create_remote_provider(model, **http_settings())
     except ValueError:
@@ -725,7 +730,7 @@ def install_planes(events: bool, stderr: TextIO) -> None:
     if faults.plan() is None and fs["spec"]:
         faults.install(faults.FaultPlan(fs["spec"], seed=fs["seed"]))
     if integrity.plane() is None and knobs.integrity_enabled():
-        integrity.install(integrity.IntegrityPlane())
+        integrity.install(integrity.IntegrityPlane(sample=knobs.integrity_sample()))
 
 
 def run(cfg: Config, ctx: Context, *, factory: ProviderFactory, stdout: TextIO,

@@ -32,7 +32,12 @@ once per step whatever the batch, so co-resident streams share that cost.
     merges attention over the one prefix copy with each row's own window
     exactly (the decode kernel's ``return_state``). Later waves whose every
     prompt starts with the prefix join it; other prompts admit with their
-    whole prompt beside the prefix rows (``prefix_rows`` false).
+    whole prompt beside the prefix rows (``prefix_rows`` false). With the
+    engine's KV pool (kv/) the idle pool also consults the radix: a wave
+    that shares nothing inside it (a lone request) establishes the prefix
+    the pool holds of its first prompt, sized to the resident span, so the
+    establishment is a block gather; the establishment publishes the prefix
+    into the pool.
   * **Compaction at the waterline.** When the frontier reaches capacity,
     every live window slides left by the common reclaimable amount, in
     place (one layer at a time through a bounded scratch copy), and the
@@ -105,7 +110,7 @@ phase.
 
 Not ported (each listed in ROADMAP.md, queue 1 item 5.1 and later):
 speculative rounds (and with them what brownout switches), the weight-swap
-pins, the KV pool and the pressure governor. Settings are constructor
+pins and the pressure governor. Settings are constructor
 arguments with the JAX knobs' defaults; nothing here reads the environment.
 """
 
@@ -132,6 +137,7 @@ from llm_consensus_tpu_torch.models.transformer import init_kv_cache
 from llm_consensus_tpu_torch.ops.quant import is_quantized, kv_capacity, kv_seq_axis
 from llm_consensus_tpu_torch.ops.sampling import sample_token
 from llm_consensus_tpu_torch.recovery.journal import JournalEntry, StreamJournal
+from llm_consensus_tpu_torch.recovery.supervisor import device_error
 from llm_consensus_tpu_torch.utils.context import Context
 
 
@@ -331,6 +337,9 @@ class ContinuousBatcher:
         # fills, so waves never overlap); its slots stay None until it
         # splices. Scheduler-owned.
         self._pending_wave: Optional[_PendingWave] = None
+        # The streams of the admission pass in progress (taken off the
+        # queue, not yet seated): a fatal exit fails them too.
+        self._admitting: list = []
         # Cross-thread state (the queue, the pipeline depth, the stats) is
         # guarded by _work; scheduler-owned state (_slots writes of a
         # stream, the cache, the prefix fields, the row capacity) has one
@@ -760,7 +769,8 @@ class ContinuousBatcher:
     def _establish_prefix(self, prefix_ids: list[int]) -> bool:
         """Prefill the wave's common prefix once and install it as the
         pool's shared-prefix KV (pool idle). Returns False, state cleared,
-        when it does not fit or fails."""
+        when it does not fit or its prefill fails; a device error (see
+        ``recovery.device_error``) or a failed KV-pool publish raises."""
         eng = self.engine
         p = len(prefix_ids)
         # 128-slot granule: prefix-attention work scales with p_cap.
@@ -775,13 +785,23 @@ class ContinuousBatcher:
         try:
             _, pcache = eng._prefill_ids(prefix_ids)
             self._prefix_cache = extract_prefix(pcache, p_cap)
-        except Exception:  # noqa: BLE001 — establishment is an optimization
+        except Exception as exc:  # noqa: BLE001 — establishment is an optimization
             self._clear_prefix()
+            if device_error(exc):
+                # A device fault (a failed KV-pool gather among them) is no
+                # optimization failing: it fails the batcher, as a decode
+                # fault does.
+                raise
             # Otherwise every later idle wave repeats the failing prefill.
             warnings.warn("shared-prefix establishment prefill failed; disabling pool "
                           "prefix sharing for this batcher", RuntimeWarning, stacklevel=2)
             self._prefix_enabled = False
             return False
+        if eng._kv_pool is not None:
+            # The KV pool keeps the prefix for later waves, as the JAX
+            # batcher retains it (a publish of the blocks it lacks). Outside
+            # the try: a failed publish raises.
+            eng._retain_prefix(prefix_ids, pcache)
         self._prefix_ids = tuple(prefix_ids)
         self._prefix_len_host = p
         return True
@@ -1171,6 +1191,8 @@ class ContinuousBatcher:
                 # slots.
                 for _, _, s in wave.batch:
                     _fail(s, exc)
+            for _, s in self._admitting:
+                _fail(s, exc)  # those the pass had seated are failed above
             raise
         else:
             self._fetch_q.put(None)
@@ -1359,8 +1381,11 @@ class ContinuousBatcher:
         """The wave's shared-prefix length (all or nothing): join the
         established prefix when every candidate extends it; on an idle
         pool, establish the wave's own common prefix when at least two
-        candidates share ``pool_prefix_min`` tokens; else 0 (and an idle
-        pool drops the prefix, back to the plain decode)."""
+        candidates share ``pool_prefix_min`` tokens, or (the radix consult)
+        the engine's KV pool holds at least that much of the first
+        candidate's prefix, at the resident length, so establishing it is a
+        gather, not a prefill; else 0 (and an idle pool drops the prefix,
+        back to the plain decode)."""
         p0 = self._prefix_len_host
         if self._prefix_cache is not None and all(
             len(r) > p0 and tuple(r[:p0]) == self._prefix_ids for r in candidates
@@ -1377,9 +1402,19 @@ class ContinuousBatcher:
             common = common[:i]
         # Every row keeps at least one suffix token.
         p = min(len(common), min(len(r) for r in candidates) - 1)
-        if p < self._prefix_min or len(candidates) < 2:
+        est_p = p if p >= self._prefix_min and len(candidates) > 1 else 0
+        kvp = self.engine._kv_pool
+        if not est_p and kvp is not None and p >= self._prefix_min:
+            # Radix consult: a wave with no sharing inside it (a lone
+            # candidate is the common case) still establishes when the pool
+            # holds its prefix; its rows then admit as suffixes.
+            hit = kvp.match_len(list(candidates[0][:p]))
+            if hit >= self._prefix_min:
+                est_p = hit
+        if not est_p:
             self._clear_prefix()
             return 0
+        p = est_p
         t_est = time.monotonic()
         self._close_gap(t_est)  # the pool is idle: nothing is in flight
         self._gap_phase = "establish"
@@ -1576,7 +1611,9 @@ class ContinuousBatcher:
                     for i, s in enumerate(self._slots):
                         if s is not None:
                             self._retire(i, "length")
+            self._admitting = pending
             requeue = self._admission_pass(pending, pending_firsts) if pending else []
+            self._admitting = []
             resumed: list = []
             if self._preempt_enabled and (requeue or self._preempt_req):
                 # Blocked higher-class work against lower-class residents:

@@ -35,7 +35,7 @@ right-aligned rows (``row_start``) with an optional shared prefix
 
 Telemetry (obs/): the recorder, the attribution ledger and the roofline
 ledger are bound at construction. A prefill and each decode chunk record
-their stream interval (:class:`DeviceWall`), read at the chunk's fetch,
+their stream interval (obs/attrib.py :class:`DeviceWall`), read at the fetch,
 into the attribution ledger; the first dispatch of each shape key runs one
 step under a roofline capture, which counts that step's first layer (its
 host time is taken out of the interval); spans ``prefill``, ``decode`` and ``fetch``
@@ -65,8 +65,17 @@ The integrity plane's finite-logit sentinel lives in
 :meth:`Engine._decode_chunk` (``sentinel=True``): the continuous batcher
 asks for it when the plane is on.
 
-The KV pool, meshes, ``generate_batch`` and weight swaps (and with them
-the session's weight-version migration) of the JAX engine are not ported.
+The cross-request paged KV pool (kv/, ``kv_pool=True``) replaces the
+snapshot: ``_reusable_prefix`` becomes a radix match and a block gather
+(restored by masking the private gathered cache in place,
+:func:`_restore_prefix_owned`), ``_retain_prefix`` a block publish whose
+truncation sets ``GenerateResult.kv_truncated``; an admission wave forks a
+pool hit and, under the pool, retains a lone-row wave too, unless the
+radix already covers its row 0. The ids published are the ones whose KV
+the decode loop wrote (``(prompt + emitted)[:pos]``), as for the snapshot.
+
+Meshes, ``generate_batch`` and weight swaps (and with them the session's
+weight-version migration) of the JAX engine are not ported.
 """
 
 from __future__ import annotations
@@ -84,8 +93,10 @@ import torch
 from llm_consensus_tpu_torch import faults, obs
 from llm_consensus_tpu_torch.engine.tokenizer import StreamDecoder, load_tokenizer
 from llm_consensus_tpu_torch.models.config import ModelConfig
+from llm_consensus_tpu_torch.kv import pool_for
 from llm_consensus_tpu_torch.models.transformer import (
-    forward, init_kv_cache, init_params, layer_views, param_leaves)
+    cache_map, forward, init_kv_cache, init_params, layer_views, param_leaves)
+from llm_consensus_tpu_torch.obs.attrib import DeviceWall
 from llm_consensus_tpu_torch.ops.kernels.decode_attention import w8a8_supported
 from llm_consensus_tpu_torch.ops.quant import (
     KV_MODES, WEIGHT_MODES, qmatmul, quantize_params, resolve_int4_impl, resolve_mode)
@@ -122,6 +133,9 @@ class GenerateResult:
     # Preempted and resumed at least once (the continuous batcher's
     # priority preemption).
     preempted: bool = False
+    # The KV pool truncated this generation's publish (arena exhausted or
+    # squeezed): reuse of this context is degraded.
+    kv_truncated: bool = False
 
 
 # Decode attention width: buckets of this granule over the causal frontier
@@ -138,15 +152,6 @@ def _bucket(n: int, cap: int) -> int:
     while b < n:
         b *= 2
     return min(b, cap)
-
-
-def _cache_map(fn, *caches):
-    """``fn`` over the leaves of KV caches of one layout ({"k", "v"}, each a
-    tensor or an int8 {"q8", "s"} dict), as a cache of the results."""
-    first = caches[0]
-    if isinstance(first, dict):
-        return {name: _cache_map(fn, *(c[name] for c in caches)) for name in first}
-    return fn(*caches)
 
 
 def _seq_axis(leaf: torch.Tensor) -> int:
@@ -173,7 +178,21 @@ def _restore_prefix(saved: dict, n_valid: int) -> dict:
     """A working cache from a prefix snapshot: positions < ``n_valid`` keep
     the saved K/V, the rest are zero. One masked copy of the cache replaces
     prefilling the shared prefix again; the snapshot is only read."""
-    return _cache_map(lambda src: _mask_beyond(src, n_valid), saved)
+    return cache_map(lambda src: _mask_beyond(src, n_valid), saved)
+
+
+def _restore_prefix_owned(saved: dict, n_valid: int) -> dict:
+    """:func:`_restore_prefix` for a PRIVATE input (the KV pool's freshly
+    gathered cache, dropped right after): its positions >= ``n_valid`` are
+    zeroed in place and the same cache is returned, so a pool hit holds one
+    full-capacity cache, not two. The snapshot path keeps the copying form:
+    its input is read again by later reuses."""
+    def mask(src: torch.Tensor) -> torch.Tensor:
+        ax = _seq_axis(src)
+        src.narrow(ax, n_valid, src.shape[ax] - n_valid).zero_()
+        return src
+
+    return cache_map(mask, saved)
 
 
 def _fork_prefix(saved: dict, n_valid: int, k: int, width: int) -> dict:
@@ -189,7 +208,7 @@ def _fork_prefix(saved: dict, n_valid: int, k: int, width: int) -> dict:
         out.narrow(ax, 0, n_valid).copy_(src.narrow(ax, 0, n_valid))  # broadcast over rows
         return out
 
-    return _cache_map(leaf, saved)
+    return cache_map(leaf, saved)
 
 
 def _extract_row0(template: dict, pcache: dict, width: int) -> dict:
@@ -200,60 +219,13 @@ def _extract_row0(template: dict, pcache: dict, width: int) -> dict:
         dst.narrow(ax, 0, width).copy_(src[:, :1].narrow(ax, 0, width))
         return dst
 
-    return _cache_map(copy, template, pcache)
+    return cache_map(copy, template, pcache)
 
 
 def _cache_nbytes(cache: dict) -> int:
     total = []
-    _cache_map(lambda leaf: total.append(leaf.numel() * leaf.element_size()), cache)
+    cache_map(lambda leaf: total.append(leaf.numel() * leaf.element_size()), cache)
     return sum(total)
-
-
-class DeviceWall:
-    """The stream interval of one dispatch, for the attribution ledger: a
-    start event on a card, closed by a later event of the path and read
-    after a later sync point (the fetch of a chunk enqueued after it) with
-    no sync of its own; the host clock around it on the CPU, where a
-    dispatch runs synchronously. The host time a roofline capture spent
-    counting inside the interval (obs/roofline.py ``held_s``) is taken out
-    of it: the device waited for the host meanwhile."""
-
-    __slots__ = ("_start", "_end", "_t0", "_t1", "_held")
-
-    def __init__(self, device: torch.device) -> None:
-        self._end = None
-        self._t1 = 0.0
-        self._held = obs.roofline.held_s()
-        if device.type == "cuda":
-            self._start = torch.cuda.Event(enable_timing=True)
-            self._start.record()
-        else:
-            self._start = None
-            self._t0 = time.monotonic()
-
-    def stop(self, end: Optional[torch.cuda.Event] = None) -> "DeviceWall":
-        """Close the interval here, or at ``end``, a timing event the
-        caller has just recorded."""
-        self._held = obs.roofline.held_s() - self._held
-        if self._start is not None:
-            if end is None:
-                end = torch.cuda.Event(enable_timing=True)
-                end.record()
-            self._end = end
-        else:
-            self._t1 = time.monotonic()
-        return self
-
-    def done(self) -> bool:
-        """Whether :meth:`seconds` can be read without waiting."""
-        return self._start is None or self._end.query()
-
-    def seconds(self) -> float:
-        if self._start is not None:
-            wall = self._start.elapsed_time(self._end) / 1e3
-        else:
-            wall = self._t1 - self._t0
-        return max(0.0, wall - self._held)
 
 
 class _Fetch:
@@ -316,8 +288,12 @@ class Engine:
     (``prefill_chunk`` > 0). ``prefix_cache_max_mb`` (MB = 1e6 bytes)
     bounds the snapshot the engine keeps (a larger cache is never
     retained) and the dense shared-prefix KV a continuous batcher over
-    this engine may establish. ``tokenizer`` defaults to the byte-level one
-    (a checkpoint's own comes from ``load_tokenizer``).
+    this engine may establish. ``kv_pool`` replaces the snapshot with the
+    cross-request paged KV pool (kv/; off by default, as the JAX
+    ``LLMC_KV_POOL``): ``kv_pool_block`` tokens a block, an arena of
+    ``kv_pool_mb`` MB, whose budget replaces the snapshot's byte cap.
+    ``tokenizer`` defaults to the byte-level one (a checkpoint's own comes
+    from ``load_tokenizer``).
     """
 
     def __init__(
@@ -339,6 +315,9 @@ class Engine:
         prefix_cache: bool = True,
         prefix_cache_max_mb: float = PREFIX_CACHE_MAX_MB,
         tokenizer=None,
+        kv_pool: bool = False,
+        kv_pool_block: int = 64,
+        kv_pool_mb: float = 256.0,
     ):
         self.cfg = cfg
         self.prefix_max_bytes = prefix_cache_max_mb * 1e6
@@ -375,12 +354,17 @@ class Engine:
         # KV, read and written as a pair under the lock. Off with the
         # switch, with chunking off (reuse prefills its tail in chunks), or
         # when a snapshot would pass the byte cap (a 131,072-slot cache
-        # must not double its memory).
+        # must not double its memory); under the KV pool the arena's budget
+        # replaces that cap.
+        self.kv_pool_requested = bool(kv_pool)
+        self.kv_pool_block = int(kv_pool_block)
+        self.kv_pool_mb = float(kv_pool_mb)
         snapshot_bytes = _cache_nbytes(init_kv_cache(
             cfg, batch=1, max_seq=self.max_seq, device=torch.device("meta"), dtype=dtype,
             quant=self.kv_quant))
-        self.prefix_cache_enabled = (bool(prefix_cache) and self.prefill_chunk > 0
-                                     and snapshot_bytes <= self.prefix_max_bytes)
+        self.prefix_cache_enabled = (
+            bool(prefix_cache) and self.prefill_chunk > 0
+            and (self.kv_pool_requested or snapshot_bytes <= self.prefix_max_bytes))
         self._prefix_ids: Optional[tuple] = None
         self._prefix_cache: Optional[dict] = None
         self._prefix_lock = threading.Lock()
@@ -403,6 +387,8 @@ class Engine:
                     "decode", flops_per_token(cfg, ctx_len),
                     decode_bytes_per_token(cfg, ctx_len, weight_bytes, kv_bytes))
                 self._roofline.note_modeled("prefill", flops_per_token(cfg, ctx_len))
+        # The KV pool last, once every setting it reads is bound.
+        self._kv_pool = pool_for(self)
 
     # -- helpers ---------------------------------------------------------------
 
@@ -460,9 +446,12 @@ class Engine:
         read as a pair so a concurrent generate cannot hand out a cache
         that does not match the ids compared. The length is capped at
         ``len(prompt_ids) - 1``: at least one token must prefill to give
-        the next-token logits."""
+        the next-token logits. Under the KV pool: a radix match and a block
+        gather into a private cache, a miss below one prefill chunk."""
         if not self.prefix_cache_enabled:
             return 0, None
+        if self._kv_pool is not None:
+            return self._kv_pool.lookup(prompt_ids, min_tokens=self.prefill_chunk or 1)
         with self._prefix_lock:
             saved_ids, saved_cache = self._prefix_ids, self._prefix_cache
         if saved_ids is None:
@@ -472,15 +461,21 @@ class Engine:
                     if a != b), max_l)
         return (lcp, saved_cache) if lcp > 0 else (0, None)
 
-    def _retain_prefix(self, ids: list[int], cache: dict) -> None:
+    def _retain_prefix(self, ids: list[int], cache: dict) -> bool:
         """Keep a finished cache as the snapshot of ``ids``: its positions
         ``[0, len(ids))`` must hold exactly their KV, and nothing may write
-        it afterwards (restores copy it). Costs residency only."""
+        it afterwards (restores copy it). Costs residency only. Under the
+        KV pool the cache's blocks are published instead (only those the
+        radix lacks); returns True when that publish was truncated."""
         if not self.prefix_cache_enabled:
-            return
+            return False
+        if self._kv_pool is not None:
+            _wrote, truncated = self._kv_pool.publish(ids, cache)
+            return truncated
         with self._prefix_lock:
             self._prefix_ids = tuple(ids)
             self._prefix_cache = cache
+        return False
 
     def drop_prefix(self) -> None:
         """Forget the snapshot (its memory becomes collectible)."""
@@ -529,8 +524,9 @@ class Engine:
     def _prefill_ids(self, prompt_ids: list[int]):
         """Prefill ``prompt_ids`` into a fresh or prefix-restored cache;
         returns ``(last_logits [1, V] fp32, cache)``. A prompt sharing at
-        least one chunk with the snapshot restores that prefix and prefills
-        only its tail; otherwise one shot (flash) or chunked from 0."""
+        least one chunk with the snapshot (or the KV pool) restores that
+        prefix and prefills only its tail; otherwise one shot (flash) or
+        chunked from 0."""
         if self._faults is not None:
             self._faults.check("prefill")  # injected device OOM / loss
         t0_obs = self._obs.now() if self._obs is not None else 0
@@ -542,7 +538,8 @@ class Engine:
         reuse_ok = (chunk_len > 0 and reuse_len >= chunk_len
                     and reuse_len + n_tail * chunk_len <= self.max_seq)
         if reuse_ok:
-            cache = _restore_prefix(saved, reuse_len)
+            restore = _restore_prefix_owned if self._kv_pool is not None else _restore_prefix
+            cache = restore(saved, reuse_len)
             last_logits, cache = self._chunked_prefill(prompt_ids, cache, chunk_len, reuse_len)
         else:
             cache = init_kv_cache(
@@ -828,8 +825,9 @@ class Engine:
         # every token fed back. That is all emitted ids except, when the
         # loop stopped at max_new with no step left to feed it, the last
         # one; slots past len(ids), such as the overshoot after EOS, are
-        # zeroed on restore.
-        self._retain_prefix((prompt_ids + out_ids)[:pos], cache)
+        # zeroed on restore. Under the KV pool this is the publish (a partial
+        # tail block is published too, so it must not claim that last id).
+        kv_truncated = self._retain_prefix((prompt_ids + out_ids)[:pos], cache)
 
         decode_tokens, decode_s = 0, 0.0
         if t_first_fetch is not None and t_last_fetch > t_first_fetch:
@@ -843,6 +841,7 @@ class Engine:
             latency_ms=(time.monotonic() - start_time) * 1000,
             decode_tokens=decode_tokens,
             decode_s=decode_s,
+            kv_truncated=kv_truncated,
         )
 
     # -- text-level API --------------------------------------------------------
@@ -917,10 +916,12 @@ class AdmissionPrefill:
     the chunks run, never what they compute.
 
     A chunked full-prompt wave whose rows share at least one whole chunk
-    with the engine's prefix snapshot forks it across the k rows (at
-    construction) and prefills only the chunks after it; a chunked wave of
-    2+ rows that share a chunk among themselves retains its row 0 as the
-    next snapshot (at ``finish``).
+    with the engine's prefix snapshot (or hold it in the KV pool) forks it
+    across the k rows (at construction) and prefills only the chunks after
+    it; a chunked wave of 2+ rows that share a chunk among themselves
+    retains its row 0 as the next snapshot (at ``finish``). Under the pool
+    a lone-row wave retains too (a publish evicts nobody), unless the radix
+    already covers row 0's whole blocks.
     """
 
     def __init__(self, engine: Engine, rows: list[list[int]], prefix_cache=None,
@@ -1062,10 +1063,14 @@ class AdmissionPrefill:
             # chunk (evidence of prefix traffic; a wave of unrelated
             # prompts must not evict a live snapshot) and the snapshot is
             # not already row 0: the copy allocates a full [1, max_seq]
-            # cache.
+            # cache. Under the KV pool a lone row retains too (a publish
+            # evicts nobody), and the staleness check is the radix's
+            # whole-block cover, last: it takes the pool's lock.
+            pool = eng._kv_pool
             if (
-                self.k > 1 and len(self._common) >= chunk
-                and eng._prefix_ids != tuple(self.rows[0])
+                (self.k > 1 or pool is not None) and len(self._common) >= chunk
+                and (not pool.covers(self.rows[0]) if pool is not None
+                     else eng._prefix_ids != tuple(self.rows[0]))
             ):
                 template = init_kv_cache(eng.cfg, batch=1, max_seq=eng.max_seq,
                                          device=eng.device, dtype=eng.dtype,

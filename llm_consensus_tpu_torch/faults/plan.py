@@ -160,8 +160,10 @@ tests/test_faults.py).
 
 The site table and the grammar are the JAX package's whole, so every spec
 string parses as there; the port fires the sites of the modules it has
-(prefill, decode, build, sse, runner, engine, and ``corrupt`` with
-``nan_logits`` and the WAL surfaces). The CLI installs the plan
+(prefill, decode, build, sse, runner, engine, the KV pool's ``kv``
+(``pool_exhausted``, ``evict_storm``) and ``pressure``
+(``hbm_squeeze@phase=publish``), and ``corrupt`` with ``nan_logits``, the
+WAL surfaces and ``bit_flip@surface=kv``). The CLI installs the plan
 (faults/__init__.py); consumers bind ``self._faults = faults.plan()`` at
 construction time, so without a plan the hot dispatch paths carry a single
 ``is not None`` check and no injector code runs.

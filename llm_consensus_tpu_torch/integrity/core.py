@@ -17,9 +17,11 @@ The plane follows the faults/obs singleton pattern of the port: the CLI
 installs it (``LLMC_INTEGRITY``, read by ``utils/knobs.py``) before any
 provider exists, and consumers bind it at construction
 (``self._integrity = integrity.plane()``), so a run without it pays one
-``is not None`` check on the hot paths. The quarantine tracker, the
-Prometheus families and the gather-sampling policy of the JAX plane belong
-to the KV pool and the serving tier, which the port does not have.
+``is not None`` check on the hot paths. The plane's sampling policy
+(:meth:`IntegrityPlane.sample_hit`, ``LLMC_INTEGRITY_SAMPLE`` resolved by
+the CLI) picks the KV pool's gathers to verify. The quarantine tracker and
+the Prometheus families of the JAX plane belong to the serving tier, which
+the port does not have.
 """
 
 from __future__ import annotations
@@ -220,10 +222,30 @@ class IntegrityCounters:
 
 
 class IntegrityPlane:
-    """Process-wide integrity plane: its counters."""
+    """Process-wide integrity plane: its counters and the sampling policy.
 
-    def __init__(self):
+    Sampling (the KV pool's gather verification) is deterministic: every
+    Nth call of :meth:`sample_hit` is a hit, ``N = round(1 / sample)``
+    (``sample`` 0: never), so two identical runs verify the same gathers.
+    ``sample`` defaults to the JAX ``LLMC_INTEGRITY_SAMPLE`` default."""
+
+    def __init__(self, sample: float = 0.05):
+        self.sample = max(0.0, min(1.0, float(sample)))
+        self._sample_every = round(1.0 / self.sample) if self.sample else 0
+        self._lock = threading.Lock()
+        self._sample_clock = 0  # guarded by: _lock
         self.counters = IntegrityCounters()
+
+    def sample_hit(self) -> bool:
+        """True when this sampled-verification site should verify now."""
+        if not self._sample_every:
+            return False
+        with self._lock:
+            self._sample_clock += 1
+            if self._sample_clock >= self._sample_every:
+                self._sample_clock = 0
+                return True
+            return False
 
     def check(self, surface: str, n: int = 1) -> None:
         self.counters.check(surface, n)

@@ -223,6 +223,15 @@ def param_leaves(tree: dict, prefix: str = ""):
             yield f"{prefix}{name}", value
 
 
+def cache_map(fn, *caches):
+    """``fn`` over the leaves of KV caches of one layout ({"k", "v"}, each a
+    tensor or an int8 {"q8", "s"} dict), as a cache of the results."""
+    first = caches[0]
+    if isinstance(first, dict):
+        return {name: cache_map(fn, *(c[name] for c in caches)) for name in first}
+    return fn(*caches)
+
+
 def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: Optional[int] = None, *,
                   device: torch.device, dtype: torch.dtype = torch.bfloat16,
                   quant: Optional[str] = None) -> dict:

@@ -25,9 +25,12 @@ Two sentinels feed the flight recorder (obs/blackbox.py):
     build after warm-up (``warmup_s``, or :meth:`ChipTimeLedger.mark_warm`)
     lands a ``retrace`` instant in the recorder and the ring and dumps it.
   * **HBM watermark**: modeled resident bytes (the engines' weights, the
-    batchers' pool caches) and, on a card, the allocator's own numbers
-    (``torch.cuda.memory_stats``: allocated bytes now and at peak, against
-    the card's total memory).
+    batchers' pool caches, the KV pools' arenas) and, on a card, the
+    allocator's own numbers (``torch.cuda.memory_stats``: allocated bytes
+    now and at peak, against the card's total memory). A pressure event
+    (:meth:`ChipTimeLedger.hbm_pressure`: the KV pool about to truncate a
+    publish) counts in the ``hbm`` block and lands an ``hbm_high_water``
+    instant in the recorder and the flight recorder, then a dump.
 
 The ledger is installed by the CLI (``LLMC_ATTRIB``: "0" off, unset follows
 ``LLMC_LIVE``; ``LLMC_ATTRIB_WARMUP_S``, ``LLMC_ATTRIB_HBM_HIGH``) and
@@ -41,6 +44,10 @@ import threading
 import time
 from contextlib import contextmanager
 from typing import Optional
+
+import torch
+
+from llm_consensus_tpu_torch.obs import roofline
 
 FAMILIES = (
     "prefill", "decode", "spec_verify", "draft",
@@ -173,13 +180,35 @@ class ChipTimeLedger:
             self._components[name] = int(nbytes)
             self._peak_modeled = max(self._peak_modeled, sum(self._components.values()))
 
+    def hbm_pressure(self, source: str, **info) -> None:
+        """An HBM-pressure event (the KV pool about to truncate a publish):
+        counted, then an ``hbm_high_water`` instant into the recorder and
+        the flight recorder and a (rate-limited) flight-recorder dump,
+        before the degradation it precedes is reported. On a card the
+        payload carries ``hbm_frac``, the device memory in use
+        (``torch.cuda.mem_get_info``)."""
+        with self._lock:
+            self._hbm_events += 1
+        payload = {"source": source, **info}
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            free, total = torch.cuda.mem_get_info()
+            payload["hbm_frac"] = round(1.0 - free / total, 4) if total else 0.0
+        from llm_consensus_tpu_torch import obs
+
+        rec = obs.recorder()
+        if rec is not None:
+            rec.instant("hbm_high_water", tid="attrib", **payload)
+            rec.count("attrib.hbm_events")
+        bb = obs.blackbox.ring()
+        if bb is not None:
+            bb.instant("hbm_high_water", tid="attrib", **payload)
+            bb.dump("hbm_high_water", extra=payload)
+
     @staticmethod
     def hbm_device_stats() -> Optional[dict]:
         """The card's allocator numbers (allocated bytes now and at peak,
         against its total memory), the fullest device's; None on the CPU or
         before CUDA is initialized (reading them must not start it)."""
-        import torch
-
         if not torch.cuda.is_available() or not torch.cuda.is_initialized():
             return None
         worst = None
@@ -283,7 +312,55 @@ def reset() -> None:
         _resolved = False
 
 
+class DeviceWall:
+    """The stream interval of one dispatch, for the attribution ledger: a
+    start event on a card, closed by a later event of the path and read
+    after a later sync point (the fetch of a chunk enqueued after it) with
+    no sync of its own; the host clock around it on the CPU, where a
+    dispatch runs synchronously. The host time a roofline capture spent
+    counting inside the interval (obs/roofline.py ``held_s``) is taken out
+    of it: the device waited for the host meanwhile."""
+
+    __slots__ = ("_start", "_end", "_t0", "_t1", "_held")
+
+    def __init__(self, device: torch.device) -> None:
+        self._end = None
+        self._t1 = 0.0
+        self._held = roofline.held_s()
+        if device.type == "cuda":
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._start.record()
+        else:
+            self._start = None
+            self._t0 = time.monotonic()
+
+    def stop(self, end: Optional[torch.cuda.Event] = None) -> "DeviceWall":
+        """Close the interval here, or at ``end``, a timing event the
+        caller has just recorded."""
+        self._held = roofline.held_s() - self._held
+        if self._start is not None:
+            if end is None:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+            self._end = end
+        else:
+            self._t1 = time.monotonic()
+        return self
+
+    def done(self) -> bool:
+        """Whether :meth:`seconds` can be read without waiting."""
+        return self._start is None or self._end.query()
+
+    def seconds(self) -> float:
+        if self._start is not None:
+            wall = self._start.elapsed_time(self._end) / 1e3
+        else:
+            wall = self._t1 - self._t0
+        return max(0.0, wall - self._held)
+
+
 __all__ = [
-    "DISPOSITIONS", "FAMILIES", "GAP_PHASES", "ChipTimeLedger", "current_family",
+    "DISPOSITIONS", "FAMILIES", "GAP_PHASES", "ChipTimeLedger", "DeviceWall", "current_family",
     "install", "ledger", "reset", "resolved", "tag",
 ]
+

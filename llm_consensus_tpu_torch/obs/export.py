@@ -142,7 +142,8 @@ def collect_batcher_stats(registry) -> dict:
 
 
 def collect_kv_stats(registry) -> dict:
-    """Paged-KV-pool snapshots: empty, the port has no pool yet."""
+    """Paged-KV-pool snapshots (``KVPool.stats``), keyed by preset: empty
+    when no engine runs with the pool."""
     return _collect_provider_stats(registry, "kv_stats")
 
 

@@ -37,7 +37,7 @@ The port counts instead: the first dispatch of a key runs one step under
 A capture costs the host a few milliseconds once per key, on the dispatch
 path: the mode's Python runs for every op of the counted layer and of the
 step around the layers. That time (:func:`held_s`) is taken out of the
-dispatch's stream interval (engine/engine.py ``DeviceWall``), so a
+dispatch's stream interval (obs/attrib.py ``DeviceWall``), so a
 captured dispatch books what an uncaptured one of its key books.
 
 Later dispatches of a key bump counters only. ``source`` reads

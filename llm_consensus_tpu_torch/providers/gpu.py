@@ -20,7 +20,14 @@ in the constructor, before anything is built.
 
 ``prefix_cache`` and ``prefix_cache_max_mb`` go to every engine (prefix
 snapshot reuse, on by default as in the JAX package); ``release()`` drops
-the engines with their snapshots and open prefill sessions.
+the engines with their snapshots and open prefill sessions. ``kv_pool``,
+``kv_pool_block`` and ``kv_pool_mb`` go to every engine the provider builds
+(the cross-request paged KV pool in place of the snapshot, kv/), the one
+``_recover_batcher`` rebuilds included, which starts with a fresh, empty
+pool. ``kv_stats()`` reports each pool (the JAX keys) and
+``kv_evict_cold(target_occupancy)`` evicts cold blocks from all of them; a
+response whose publish the pool truncated carries ``kv={"truncated":
+True}``.
 
 ``batch_streams`` > 1 routes every request for a preset through one
 ``ContinuousBatcher`` over that preset's engine (built once, under a build
@@ -131,6 +138,7 @@ class GPUProvider(Provider):
                  prefill_budget: int = 0, pool_bucket: bool = True, preempt: bool = True,
                  checkpoint_dir: Optional[str] = None, prefix_cache: bool = True,
                  prefix_cache_max_mb: float = PREFIX_CACHE_MAX_MB,
+                 kv_pool: bool = False, kv_pool_block: int = 64, kv_pool_mb: float = 256.0,
                  journal: Optional[StreamJournal] = None,
                  engine_heartbeat_s: float = DEFAULT_HEARTBEAT_S,
                  engine_restarts: int = DEFAULT_MAX_RESTARTS,
@@ -138,6 +146,8 @@ class GPUProvider(Provider):
         self.modes = _resolve_modes(**modes)
         self.prefix = {"prefix_cache": bool(prefix_cache),
                        "prefix_cache_max_mb": float(prefix_cache_max_mb)}
+        self.kv = {"kv_pool": bool(kv_pool), "kv_pool_block": int(kv_pool_block),
+                   "kv_pool_mb": float(kv_pool_mb)}
         self.device = resolve_device(device)
         self.checkpoint_dir = checkpoint_dir or None
         self.batch_streams = batch_streams
@@ -171,15 +181,16 @@ class GPUProvider(Provider):
                pool_prefix: bool = True, pool_prefix_min: int = 192, prefill_budget: int = 0,
                pool_bucket: bool = True, preempt: bool = True,
                checkpoint_dir: Optional[str] = None, prefix_cache: bool = True,
-               prefix_cache_max_mb: float = PREFIX_CACHE_MAX_MB, journal: str = "",
+               prefix_cache_max_mb: float = PREFIX_CACHE_MAX_MB, kv_pool: bool = False,
+               kv_pool_block: int = 64, kv_pool_mb: float = 256.0, journal: str = "",
                engine_heartbeat_s: float = DEFAULT_HEARTBEAT_S,
                engine_restarts: int = DEFAULT_MAX_RESTARTS, **modes) -> "GPUProvider":
         """One provider per device, quantization modes, batching settings,
-        checkpoint directory, prefix settings and recovery settings for the
-        process (the CLI's factory): a quantized run never reuses a bf16
-        engine, a batched run never an unbatched provider, a checkpointed
-        run never random weights, a journaled run never an unsupervised
-        provider. ``journal`` is the ``LLMC_JOURNAL`` setting: empty or
+        checkpoint directory, prefix and KV pool settings and recovery
+        settings for the process (the CLI's factory): a quantized run never
+        reuses a bf16 engine, a batched run never an unbatched provider, a
+        checkpointed run never random weights, a pooled run never a
+        snapshot engine, a journaled run never an unsupervised provider. ``journal`` is the ``LLMC_JOURNAL`` setting: empty or
         ``"0"`` off, ``"1"`` in memory, else the directory the WAL files
         mirror to."""
         dev = resolve_device(device)
@@ -188,7 +199,9 @@ class GPUProvider(Provider):
                     "pool_prefix_min": pool_prefix_min, "prefill_budget": max(0, prefill_budget),
                     "pool_bucket": bool(pool_bucket), "preempt": bool(preempt)}
         prefix = {"prefix_cache": bool(prefix_cache),
-                  "prefix_cache_max_mb": float(prefix_cache_max_mb)}
+                  "prefix_cache_max_mb": float(prefix_cache_max_mb),
+                  "kv_pool": bool(kv_pool), "kv_pool_block": int(kv_pool_block),
+                  "kv_pool_mb": float(kv_pool_mb)}
         checkpoint_dir = checkpoint_dir or None
         journal = "" if journal in ("", "0") else journal
         recovery = {"engine_heartbeat_s": float(engine_heartbeat_s),
@@ -222,6 +235,28 @@ class GPUProvider(Provider):
         with self._lock:
             batchers = dict(self._batchers)
         return {preset: b.snapshot() for preset, b in batchers.items()}
+
+    def _engines_with_batchers(self) -> list:
+        """Every live engine: the built ones and those the batchers run."""
+        with self._lock:
+            engines = dict(self._engines)
+            for preset, batcher in self._batchers.items():
+                engines.setdefault(preset, batcher.engine)
+        return list(engines.items())
+
+    def kv_stats(self) -> dict:
+        """Each live engine's KV pool occupancy and traffic, keyed by preset
+        (``KVPool.stats``, the JAX keys): ``metrics.json``'s ``kv`` block.
+        Empty when no engine runs with the pool."""
+        return {preset: eng._kv_pool.stats() for preset, eng in self._engines_with_batchers()
+                if eng._kv_pool is not None}
+
+    def kv_evict_cold(self, target_occupancy: float) -> int:
+        """Evict cold KV-pool blocks down to ``target_occupancy`` in every
+        live engine's pool; returns the blocks freed."""
+        return sum(eng._kv_pool.evict_cold(target_occupancy)
+                   for _preset, eng in self._engines_with_batchers()
+                   if eng._kv_pool is not None)
 
     def _batcher_entries(self) -> list:
         """Live ``(preset, batcher)`` pairs: the supervisor's watchdog reads
@@ -336,7 +371,8 @@ class GPUProvider(Provider):
             tokenizer = load_tokenizer(ckpt)
         max_seq = min(self._max_seq, cfg.max_seq_len) if self._max_seq else None
         return Engine(cfg, params, device=self.device, max_seq=max_seq, tokenizer=tokenizer,
-                      stream_interval=self.stream_interval, **self.modes, **self.prefix)
+                      stream_interval=self.stream_interval, **self.modes, **self.prefix,
+                      **self.kv)
 
     def _batcher_for(self, preset: str, engine):
         """The batcher serving ``preset`` over ``engine``, built once."""
@@ -525,4 +561,5 @@ class GPUProvider(Provider):
             tokens_per_sec=tokens_per_sec,
             mfu=mfu,
             mbu=mbu,
+            kv={"truncated": True} if getattr(result, "kv_truncated", False) else None,
         )

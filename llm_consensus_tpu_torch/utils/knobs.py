@@ -56,7 +56,12 @@ knobs that the JAX package declares, with the same meaning:
     ``LLMC_ENGINE_HEARTBEAT_S`` (0.0: no wedge watchdog) and
     ``LLMC_ENGINE_RESTARTS`` (3 replays a stream);
   * ``LLMC_INTEGRITY`` (off): the integrity plane (:func:`integrity_enabled`,
-    installed by the CLI).
+    installed by the CLI), and ``LLMC_INTEGRITY_SAMPLE`` (0.05): the share
+    of the KV pool's gathers it verifies (:func:`integrity_sample`);
+  * the cross-request KV pool (:func:`kv_pool_settings`, ``GPUProvider``'s
+    and ``Engine``'s arguments): ``LLMC_KV_POOL`` (off),
+    ``LLMC_KV_POOL_BLOCK`` (64 tokens a block) and ``LLMC_KV_POOL_MB``
+    (256; the arena's budget, MB = 1e6 bytes).
 """
 
 from __future__ import annotations
@@ -235,3 +240,19 @@ def recovery_settings() -> dict:
 def integrity_enabled() -> bool:
     """``LLMC_INTEGRITY``: the integrity plane's switch (off)."""
     return get_bool("LLMC_INTEGRITY")
+
+
+def integrity_sample() -> float:
+    """``LLMC_INTEGRITY_SAMPLE``: the share of KV-pool gathers the plane
+    verifies (0.05)."""
+    return get_float("LLMC_INTEGRITY_SAMPLE", 0.05)
+
+
+def kv_pool_settings() -> dict:
+    """The KV pool settings of the environment, as the keyword arguments of
+    ``GPUProvider`` and ``Engine``."""
+    return {
+        "kv_pool": get_bool("LLMC_KV_POOL"),
+        "kv_pool_block": get_int("LLMC_KV_POOL_BLOCK", 64),
+        "kv_pool_mb": get_float("LLMC_KV_POOL_MB", 256.0),
+    }

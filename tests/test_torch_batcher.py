@@ -245,22 +245,27 @@ def test_long_prompt_waits_for_frontier_and_cache_tail_parity(engine, make_batch
 
 
 def test_waterline_compaction_gives_fresh_runway(pair, make_batcher):
-    """6 streams through 2 slots of a 256-slot cache, one resident of 180
-    new tokens and five of 60 behind it: the pool never idles, so the
-    shared frontier (~25 + 300) must cross capacity and compact, and every
-    stream stays exact (JAX engine too)."""
+    """4 streams through 2 slots of a 256-slot cache: the shared frontier
+    (~25 + 230 steps) must cross capacity and compact, and every stream
+    stays exact (JAX engine too). The pool must never idle before the
+    crossing (an idle pool resets the frontier), so the first admission pass
+    waits until every stream is queued (one wave of 90 and 180 new tokens)
+    and the later streams (180) keep the two slots' retirements chunks apart
+    whatever the fetch pipeline's lag: slot 0 retires near chunks 12 and 36,
+    slot 1 near 23 and 47, and the frontier crosses near chunk 29."""
     je, te = pair
-    b = make_batcher(max_batch=2)
-    news = [180] + [60] * 5
-    prompts = [f"compaction wave stream {i}" for i in range(6)]
+    b, gate = _gated(make_batcher, te, max_batch=2)
+    news = [90] + [180] * 3
+    prompts = [f"compaction wave stream {i}" for i in range(len(news))]
     futs = [b.submit(p, SamplingParams(max_new_tokens=n, ignore_eos=True))
             for p, n in zip(prompts, news)]
+    gate.set()
     for i, (p, n, f) in enumerate(zip(prompts, news, futs)):
         s = SamplingParams(max_new_tokens=n, ignore_eos=True)
         r = f.result(timeout=WAIT)
         assert r.finish_reason == "length"
         assert r.token_ids == _single(te, p, s).token_ids, p
-        if i == 5:
+        if i == len(news) - 1:
             assert r.token_ids == je.generate(p, JaxSampling(max_new_tokens=n,
                                                              ignore_eos=True)).token_ids
     assert b.snapshot()["compactions"] >= 1
@@ -450,15 +455,21 @@ def test_sharing_disabled_stays_exact(engine, make_batcher, kw, prompts):
 
 def test_prefix_pool_compaction_stays_exact(pair, make_batcher):
     """Suffix windows hitting the waterline mid-decode stay exact (the
-    prefix itself never moves), against the JAX engine too: one resident
-    of 110 new tokens and ten of 40 behind it keep the pool busy while the
-    suffix frontier (a few suffix tokens + 400) crosses the 256 slots."""
+    prefix itself never moves), against the JAX engine too: the suffix
+    frontier (a few suffix tokens + ~250 steps) crosses the 256 slots. The
+    pool must never idle before the crossing, so the first admission pass
+    waits until every stream is queued (one wave, which establishes the
+    prefix: 50 and 110 new tokens) and the later streams (110) keep the two
+    slots' retirements chunks apart whatever the fetch pipeline's lag: slot
+    0 retires near chunks 7, 22 and 36, slot 1 near 14, 29 and 43, and the
+    frontier crosses near chunk 32."""
     je, te = pair
-    b = make_batcher(te, max_batch=2, pool_prefix_min=64)
-    news = [110] + [40] * 10
+    b, gate = _gated(make_batcher, te, max_batch=2, pool_prefix_min=64)
+    news = [50] + [110] * 6
     prompts = [f"{PREFIX} compaction probe {i}" for i in range(len(news))]
     futs = [b.submit(p, SamplingParams(max_new_tokens=n, ignore_eos=True))
             for p, n in zip(prompts, news)]
+    gate.set()
     for i, (p, n, f) in enumerate(zip(prompts, news, futs)):
         s = SamplingParams(max_new_tokens=n, ignore_eos=True)
         r, ref = f.result(timeout=WAIT), _single(te, p, s)

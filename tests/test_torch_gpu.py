@@ -850,3 +850,73 @@ def test_poisoned_row_fails_typed_on_the_card(cuda):
     assert poisoned[1].surface == "logits"
     assert [poisoned[i] for i in (0, 2, 3)] == [clean[i] for i in (0, 2, 3)]
     assert plane.stats()["failures"] == {"logits": 1}
+
+
+# -- the KV pool's block copies (kv/pool.py) -----------------------------------------------------
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"], ids=["bf16", "int8"])
+def test_kv_pool_block_copies_on_the_card(cuda, kv_quant):
+    """llama-3-8b's cache layout at 64-token blocks: a publish copies each
+    of a 1,501-token cache's 24 blocks (the last partial) to its slot and
+    leaves every other arena block byte for byte as it was; a gather of the
+    chain gives back the cache's bytes at [0, 24 x 64)."""
+    from llm_consensus_tpu_torch.kv import KVPool
+    from llm_consensus_tpu_torch.kv import pool as pool_mod
+    from llm_consensus_tpu_torch.models.transformer import init_kv_cache
+
+    cfg = get_config("llama-3-8b")
+    pool = KVPool(cfg, dtype=torch.bfloat16, kv_quant=kv_quant, device=cuda, max_seq=2048,
+                  block_size=64, budget_bytes=40 * 64 * 131_072)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+
+    def fill(cache):
+        for leaf in pool_mod._leaves(cache):
+            if leaf.dtype == torch.int8:
+                leaf.copy_(torch.randint(-127, 128, leaf.shape, generator=gen, device=cuda))
+            else:
+                leaf.copy_(torch.randn(leaf.shape, generator=gen, device=cuda))
+
+    with torch.inference_mode():
+        fill(pool._arena)
+        before = [leaf.clone() for leaf in pool_mod._leaves(pool._arena)]
+        src = init_kv_cache(cfg, 1, 2048, device=cuda, dtype=torch.bfloat16, quant=kv_quant)
+        fill(src)
+    ids = list(range(1501))
+    wrote, truncated = pool.publish(ids, src)
+    assert (wrote, truncated) == (24, False)
+    slots = [b.slot for b in pool._radix.match(ids)[1]]
+    torch.cuda.synchronize()
+    for leaf, old, s in zip(pool_mod._leaves(pool._arena), before, pool_mod._leaves(src)):
+        ax = pool_mod.kv_seq_axis(leaf)
+        for slot in range(pool.n_blocks):
+            got = leaf.narrow(ax, slot * 64, 64)
+            want = (s.narrow(ax, slots.index(slot) * 64, 64) if slot in slots
+                    else old.narrow(ax, slot * 64, 64))
+            assert torch.equal(got, want), (slot, slot in slots)
+    n, cache = pool.lookup(ids, min_tokens=512)
+    torch.cuda.synchronize()
+    assert n == 1500
+    for g, s in zip(pool_mod._leaves(cache), pool_mod._leaves(src)):
+        ax = pool_mod.kv_seq_axis(g)
+        assert torch.equal(g.narrow(ax, 0, 24 * 64), s.narrow(ax, 0, 24 * 64))
+
+
+def test_kv_pool_hit_on_the_card_matches_a_fresh_engine(cuda):
+    """A consensus-1b follow-up on a pool hit: logits within the reuse
+    tolerance of a fresh engine's, the gathered cache restored in place."""
+    cfg = get_config("consensus-1b")
+    eng = Engine(cfg, max_seq=1024, device=cuda, prefill_chunk=128, stream_interval=8,
+                 kv_pool=True, kv_pool_block=64, kv_pool_mb=64.0)
+    fresh = Engine(cfg, eng.params, max_seq=1024, device=cuda, prefill_chunk=128,
+                   stream_interval=8, prefix_cache=False)
+    ids = [eng.tokenizer.bos_id] + list(range(32, 127)) * 3
+    s = SamplingParams(max_new_tokens=24, ignore_eos=True)
+    first = eng.generate_ids(ids, s)
+    follow = ids + first.token_ids + list(range(40, 100))
+    with torch.inference_mode():
+        reused, _ = eng._prefill_ids(follow)
+        ref, _ = fresh._prefill_ids(follow)
+    assert eng._kv_pool.stats()["hits"] == 1
+    assert bool(torch.isfinite(reused).all())
+    assert (reused - ref).abs().max().item() <= REUSE_LOGIT_TOL

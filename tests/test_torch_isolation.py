@@ -52,6 +52,26 @@ def test_the_obs_modules_are_covered():
                      "profiler.py", "recorder.py", "roofline.py"}
 
 
+def test_the_kv_modules_are_covered():
+    """The AST checks above and below cover the KV pool's package."""
+    names = {p.name for p in _port_files() if p.parent.name == "kv"}
+    assert names == {"__init__.py", "pool.py", "radix.py"}
+
+
+def test_the_knobs_module_reads_only_knobs_the_jax_package_declares():
+    """Every ``LLMC_*`` name in utils/knobs.py (its readers and its
+    docstring) is declared by the JAX package's knob registry: the port adds
+    no knob."""
+    from llm_consensus_tpu.utils import knobs as jax_knobs
+
+    text = (PKG / "utils" / "knobs.py").read_text()
+    named = set(re.findall(r"LLMC_[A-Z0-9_]+", text))
+    assert {"LLMC_KV_POOL", "LLMC_KV_POOL_BLOCK", "LLMC_KV_POOL_MB",
+            "LLMC_INTEGRITY_SAMPLE"} <= named
+    undeclared = sorted(n for n in named if n not in jax_knobs.REGISTRY)
+    assert not undeclared, undeclared
+
+
 @pytest.mark.parametrize("path", [p for p in _port_files() if p.parent != ROOT],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_only_the_knobs_module_reads_llmc_variables(path):
