@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phase serving   # build + the B = 16 kernel rows + serving
     python3 chip_smoke.py --phase recovery  # build + the recovery phase only
     python3 chip_smoke.py --phase kvpool    # build + the KV pool phase only
+    python3 chip_smoke.py --phase spec      # build + the dh 64 kernel rows + speculation
 
 Phases, in order; any failure exits non-zero before the last line:
 
@@ -31,7 +32,8 @@ Phases, in order; any failure exits non-zero before the last line:
    graphs, warm (back-to-back calls on the same inputs) and cold (a 128 MiB
    write between calls flushes the 50 MB L2; the flushes alone are timed
    and subtracted), beside its plain version and, where one exists, one
-   PyTorch library call timed the same two ways; then the int8 matmuls
+   PyTorch library call timed the same two ways; the llama-3.2-1b shapes
+   (dh 64) of flash and the bf16 decode the same way; then the int8 matmuls
    (exactness of the int8 x int8 product, device time of the int8-weight
    matmul against bf16);
 4. the small-model check: a narrow model's logits through the kernels
@@ -41,7 +43,7 @@ Phases, in order; any failure exits non-zero before the last line:
    the kernel launch counters read around it;
 6. the chunked path: one Engine.generate on llama-3-8b with a ~1,500-token
    prompt (chunked prefill, then decode at a longer frontier);
-7. a torch.profiler window over one llama-3-8b generate: device busy
+7. a torch.profiler window over one llama-3-8b generate (16 tokens): device busy
    share and the kernels with the most device time (the bf16 decode is one
    launch per (layer, step): no merge kernel may appear);
 8. the batched slice: the CLI run with a panel of 4 x llama-3-8b and a
@@ -165,6 +167,24 @@ Phases, in order; any failure exits non-zero before the last line:
    --rounds 2 --events`` and without the pool: a ``kv`` block for every
    preset, flash on the pool's misses, ``result.json``'s keys unchanged.
    Any RuntimeWarning fails it. A ``{"kvpool": ...}`` line;
+8g. the speculation phase (``--phase spec``): llama-3-8b bf16 drafted by
+   llama-3.2-1b bf16 (16 layers, dh 64), both at full width and 8,192 slots,
+   the slice's prompt: (a) k = 4, adaptive and governor off, 128 tokens:
+   flash once a layer on both prompts, the decode kernel in every draft step
+   (k + 1 a round, 16 layers), none in a verify, at most one host fetch per
+   round group, the tokens against plain decode by the near-tie rule; (b)
+   the oracle at forced acceptance 1, 2, 3 and 5 against plain decode,
+   tokens/s over the request (median of 3, 64 tokens); (c) prompt lookup on
+   a judge prompt quoting an answer; (d) the governor on: it locks plain;
+   (e) rejection sampling at temperature 0.8 (every probability finite),
+   then ``acceptance_collapse@p=1`` greedy; (f) a lookup pool and an oracle
+   pool (``max_batch=4``) on 4 random 350-token prompts plus one admitted
+   mid-stream, and a compaction with holes on a 1,024-slot engine over the
+   same weights (the oracle forced to accept 1 a round); (g) the slice's CLI with ``--draft llama-3-8b=llama-3.2-1b
+   --spec-k 4 --events`` and the batched slice's with ``LLMC_MAX_BATCH=4
+   --draft lookup --events`` (``metrics.json``'s ``spec`` block,
+   consensus-1b undrafted). A RuntimeWarning (a "speculative decoding
+   disabled" one among them) fails it. A ``{"spec": ...}`` line;
 9. the quantized slice: the same CLI run with ``LLMC_QUANT=int8
    LLMC_KV_QUANT=int8`` in the environment (int8 weights, int8 KV cache,
    the int8 decode kernel), then a profiler window over one of its
@@ -194,8 +214,10 @@ Phases, in order; any failure exits non-zero before the last line:
 16. the checkpoint loader: synthetic HF-layout checkpoints of tiny-mixtral
     and tiny-qwen2 written into a temp dir (the format writer is here),
     loaded through ``GPUProvider(checkpoint_dir=...)`` on the card;
-17. a ``{"kernels": [...]}`` line, the card line, then the
-    ``{"ok": true, ...}`` line.
+17. a ``{"phase_walls_s": ...}`` line (each phase's wall, as ``main`` logged
+    it when the phase ended), a ``{"kernels": [...]}`` line (the phase 3
+    records, the llama-3.2-1b dh-64 rows among them), the card line, then
+    the ``{"ok": true, ...}`` line.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; a kernel of the path that never launched fails the run.
@@ -1400,10 +1422,17 @@ def check_one_launch_per_step(ours: dict, kernel: str, other: str, counter, n_la
         f"one per call, no {other} or {'/'.join(OLD_DECODE_SYMBOLS)}")
 
 
+# Decode steps of profile_decode's default window: the profiler's event
+# processing, not the generate, takes most of a window's wall (~70 s of the
+# bf16 window's 81 s at 48 tokens on an H100 80GB HBM3 at 700 W), and it
+# grows with the launches recorded.
+PROFILE_TOKENS = 16
+
+
 def profile_decode(torch, engine, label: str = "profile", run=None, counter=None,
                    export: str = None, stats: dict = None) -> dict:
     """Where the time goes: torch.profiler over ``run()`` (by default one
-    llama-3-8b generate, 350-token prompt, 48 tokens), run once before to
+    generate of the 350-token prompt and PROFILE_TOKENS tokens), run once before to
     warm; device busy share of the wall, the kernels with the most device
     time, and the sums of the matmul (GEMM/GEMV) kernels and of the copy
     kernels (which carry the int8 → bf16 weight conversion of the plain
@@ -1418,7 +1447,7 @@ def profile_decode(torch, engine, label: str = "profile", run=None, counter=None
 
     if run is None:
         ids = engine.tokenizer.encode(PROMPT)
-        sp = SamplingParams(max_new_tokens=48, ignore_eos=True)
+        sp = SamplingParams(max_new_tokens=PROFILE_TOKENS, ignore_eos=True)
 
         def run():
             engine.generate_ids(ids, sp)
@@ -1438,8 +1467,10 @@ def profile_decode(torch, engine, label: str = "profile", run=None, counter=None
             e, "self_cuda_time_total", 0.0)
 
     # Kernel rows only: an operator row repeats the device time of the
-    # kernels it launched.
-    events = [e for e in prof.key_averages()
+    # kernels it launched. The averages are built once (each build walks
+    # every recorded event).
+    averages = prof.key_averages()
+    events = [e for e in averages
               if "CUDA" in str(getattr(e, "device_type", "")) and dev_us(e) > 0]
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     if export is not None:
@@ -1461,7 +1492,7 @@ def profile_decode(torch, engine, label: str = "profile", run=None, counter=None
     }
     log("  port kernels: " + ", ".join(f"{k} {ms:.2f} ms in {n} launches"
                                        for k, (ms, n) in ours.items()))
-    host = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0),
+    host = sorted((e for e in averages if e.self_cpu_time_total > 0),
                   key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
     log("  host (self CPU time): " + ", ".join(
         f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.1f} ms/{e.count}" for e in host))
@@ -4391,6 +4422,445 @@ MIXTRAL = "mixtral-8x7b"
 MOE_TOL = 1e-4
 
 
+# -- phase 8g: speculative decoding ----------------------------------------------------
+
+SPEC_TARGET, SPEC_DRAFT = "llama-3-8b", "llama-3.2-1b"
+SPEC_K = 4
+SPEC_TOKENS = 128      # (a)
+SPEC_SWEEP_TOKENS = 64  # (b), (c), (e): medians of 3 at each point
+SPEC_GOVERNOR_TOKENS = 192  # (d): a 64-token drafted probe, a 64-token plain one, then locked
+
+
+def check_kernels_dh64(torch, flash_rec: dict, decode_rec: dict) -> None:
+    """The llama-3.2-1b shapes (dh 64, 32 query and 8 KV heads) of both
+    kernels against their plain versions, timed warm and cold beside their
+    bound and SDPA: flash q[1,512,32,64] over kv[1,512,8,64]; decode
+    q[1,1,32,64] over a [16,1,8192,8,64] cache at width 384 (the draft's
+    steps on the spec phase's prompt)."""
+    from llm_consensus_tpu_torch.ops.kernels import decode_attention as da
+    from llm_consensus_tpu_torch.ops.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(64)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    hq, hkv, dh, t = 32, 8, 64, 512
+    q, k, v = rnd(1, t, hq, dh), rnd(1, t, hkv, dh), rnd(1, t, hkv, dh)
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    err = max_err(got, fa.flash_attention_plain(q, k, v))
+    log(f"flash  llama-3.2-1b prefill q[1,{t},{hq},{dh}] kv[1,{t},{hkv},{dh}]: max_abs_err "
+        f"{err:.3e} (tol {FLASH_TOL})")
+    if not bool(torch.isfinite(got).all()) or err > FLASH_TOL:
+        raise AssertionError(f"flash_attention dh 64: err {err}")
+    kern = timed(lambda: fa.flash_attention(q, k, v), 50)
+    plain_ms, _ = device_time_ms(lambda: fa.flash_attention_plain(q, k, v), 5)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    kt, vt = kt.repeat_interleave(hq // hkv, 1), vt.repeat_interleave(hq // hkv, 1)
+    lib = timed(lambda: sdpa(qt, kt, vt, is_causal=True), 50)
+    bms, by = bound_ms(2.0 * (2 * t * hq * dh + 2 * t * hkv * dh), 4.0 * hq * dh * t * (t + 1) / 2)
+    flash_rec.update(
+        name="flash_attention_dh64", route="cuda",
+        source="llm_consensus_tpu_torch/csrc/flash_attention.cu",
+        replaces="llm_consensus_tpu/ops/pallas/flash_attention.py:136",
+        shapes=f"q[1,{t},{hq},{dh}] k/v[1,{t},{hkv},{dh}] bf16 (llama-3.2-1b)",
+        max_abs_err=err, ms=kern["ms"], cold_ms=kern["cold_ms"], plain_ms=plain_ms,
+        bound_ms=bms, bound_by=by, bound_share=bms / kern["cold_ms"],
+        library_ms=lib["ms"], library_cold_ms=lib["cold_ms"], launches=0)
+    log(f"flash  timing dh 64: kernel warm {kern['ms']:.4f} ms, cold {kern['cold_ms']:.4f} ms; "
+        f"sdpa warm {lib['ms']:.4f}, cold {lib['cold_ms']:.4f} ms; plain {plain_ms:.4f} ms; "
+        f"bound {bms:.5f} ms ({by})")
+    del q, k, v, qt, kt, vt
+
+    L, S, layer, pos, w = 16, 8192, 5, 383, 384
+    k, v, q = rnd(L, 1, S, hkv, dh), rnd(L, 1, S, hkv, dh), rnd(1, 1, hq, dh)
+    k[layer, :, pos + 1:] = float("nan")  # never read: past the frontier
+    v[layer, :, pos + 1:] = float("nan")
+    pos_t = torch.full((), pos, dtype=torch.int32, device="cuda")
+    layer_t = torch.full((), layer, dtype=torch.int32, device="cuda")
+    rs0 = torch.zeros(1, dtype=torch.int32, device="cuda")
+    got = da.decode_attention(q, k, v, pos_t, layer_t, rs0, kv_width=w)
+    torch.cuda.synchronize()
+    want = da.decode_attention_plain(q, k, v, pos, layer, rs0, kv_width=w)
+    err, tol = max_err(got, want), decode_tol(want)
+    log(f"decode llama-3.2-1b q[1,1,{hq},{dh}] cache[{L},1,{S},{hkv},{dh}] pos {pos} width {w}: "
+        f"max_abs_err {err:.3e} (tol {tol:.3e})")
+    if not bool(torch.isfinite(got).all()) or err > tol:
+        raise AssertionError(f"decode_attention dh 64: err {err}")
+    k[layer, :, pos + 1:] = 0.0
+    v[layer, :, pos + 1:] = 0.0
+    kern = timed(lambda: da.decode_attention(q, k, v, pos_t, layer_t, rs0, kv_width=w), 200)
+    plain_ms, _ = device_time_ms(
+        lambda: da.decode_attention_plain(q, k, v, pos_t, layer_t, rs0, kv_width=w), 10)
+    qt = q.transpose(1, 2)
+    kt = k[layer, :, :w].transpose(1, 2).repeat_interleave(hq // hkv, 1).contiguous()
+    vt = v[layer, :, :w].transpose(1, 2).repeat_interleave(hq // hkv, 1).contiguous()
+    lib = timed(lambda: sdpa(qt, kt, vt), 200)
+    n_valid = pos + 1
+    bms, by = bound_ms(2.0 * (2 * n_valid * hkv * dh + 2 * hq * dh), 4.0 * hq * dh * n_valid)
+    decode_rec.update(
+        name="decode_attention_dh64", route="cuda",
+        source="llm_consensus_tpu_torch/csrc/decode_attention.cu",
+        replaces="llm_consensus_tpu/ops/pallas/decode_attention.py:415",
+        shapes=f"q[1,1,{hq},{dh}] cache[{L},1,{S},{hkv},{dh}] bf16 (llama-3.2-1b), pos {pos}, "
+               f"kv_width {w}",
+        max_abs_err=err, ms=kern["ms"], cold_ms=kern["cold_ms"], plain_ms=plain_ms,
+        bound_ms=bms, bound_by=by, bound_share=bms / kern["cold_ms"],
+        library_ms=lib["ms"], library_cold_ms=lib["cold_ms"], launches=0)
+    log(f"decode timing dh 64 width {w}: kernel warm {kern['ms']:.4f} ms, cold "
+        f"{kern['cold_ms']:.4f} ms; sdpa warm {lib['ms']:.4f}, cold {lib['cold_ms']:.4f} ms; "
+        f"plain {plain_ms:.4f} ms; bound {bms:.5f} ms ({by})")
+    del k, v, kt, vt
+    release_memory(torch)
+
+
+class HostFetches:
+    """Counts the speculative loops' host copies (``speculative._to_host``)
+    while the block runs."""
+
+    def __init__(self) -> None:
+        self.count = 0
+
+    def __enter__(self) -> "HostFetches":
+        from llm_consensus_tpu_torch.engine import speculative as spec_mod
+
+        self._mod, self._real = spec_mod, spec_mod._to_host
+
+        def counted(tensors):
+            self.count += 1
+            return self._real(tensors)
+
+        spec_mod._to_host = counted
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._mod._to_host = self._real
+
+
+def spec_rate(res) -> float:
+    """Tokens per second over the whole request (host clock)."""
+    return len(res.token_ids) / (res.latency_ms / 1e3)
+
+
+def spec_model_draft(torch, fa, da, tgt, drf, ids, plain) -> dict:
+    """(a) the llama-3.2-1b drafter, greedy, k = 4, adaptive and governor
+    off: launches (flash once a layer on both prompts, the decode kernel in
+    every draft step, none in a verify), host fetches per round group, the
+    tokens against plain decode."""
+    from llm_consensus_tpu_torch.engine import SamplingParams, SpeculativeEngine
+
+    spec = SpeculativeEngine(tgt, drf, k=SPEC_K, adaptive=False, governor=False)
+    s = SamplingParams(max_new_tokens=SPEC_TOKENS, ignore_eos=True)
+    fa.LAUNCHES.reset()
+    da.LAUNCHES.reset()
+    with HostFetches() as fetches:
+        got = spec.generate(PROMPT, s)
+    flash_n, decode_n = fa.LAUNCHES.count, da.LAUNCHES.count
+    rounds = spec.stats["rounds"]
+    row = {"rounds": rounds, "mean_accepted": spec.mean_accepted, "flash": flash_n,
+           "decode": decode_n, "fetches": fetches.count, "rounds_per_fetch": spec.rounds,
+           "tokens_per_s": spec_rate(got), "plain_tokens_per_s": spec_rate(plain),
+           "check": greedy_check(torch, tgt, "(a) llama-3.2-1b draft", ids, got.token_ids,
+                                 plain.token_ids)}
+    layers_t, layers_d = tgt.cfg.n_layers, drf.cfg.n_layers
+    log(f"(a) model draft k {SPEC_K}: {rounds} rounds, mean accepted {spec.mean_accepted:.3f}, "
+        f"flash {flash_n} launches (want {layers_t} + {layers_d}), decode {decode_n} (want "
+        f"{rounds} x {SPEC_K + 1} x {layers_d}), host fetches {fetches.count} for "
+        f"{-(-rounds // spec.rounds)} round groups; {row['tokens_per_s']:.2f} tokens/s "
+        f"against plain {row['plain_tokens_per_s']:.2f} (host clock, whole request)")
+    if flash_n != layers_t + layers_d or decode_n != rounds * (SPEC_K + 1) * layers_d:
+        raise AssertionError(f"(a) launches: flash {flash_n}, decode {decode_n}, {rounds} rounds")
+    if fetches.count > -(-rounds // spec.rounds) + 1:
+        raise AssertionError(f"(a) {fetches.count} host fetches for {rounds} rounds")
+    return row
+
+
+def spec_oracle_sweep(torch, tgt, ids, plain) -> dict:
+    """(b) the oracle at forced acceptance 1, 2, 3 and 5 (k = 4) against
+    plain decode: tokens/s over the request, host clock, median of 3."""
+    from llm_consensus_tpu_torch.engine import OracleDrafter, SamplingParams, SpeculativeEngine
+
+    s = SamplingParams(max_new_tokens=SPEC_SWEEP_TOKENS, ignore_eos=True)
+    cont = plain.token_ids[:SPEC_SWEEP_TOKENS]
+    rates = {"plain": sorted(spec_rate(tgt.generate(PROMPT, s)) for _ in range(3))}
+    means = {}
+    for accept in (1, 2, 3, 5):
+        spec = SpeculativeEngine(tgt, OracleDrafter(cont, accept=accept), k=SPEC_K,
+                                 adaptive=False, governor=False)
+        runs = [spec.generate(PROMPT, s) for _ in range(3)]
+        for r in runs:
+            greedy_check(torch, tgt, f"(b) oracle accept {accept}", ids, r.token_ids, cont)
+        rates[accept] = sorted(spec_rate(r) for r in runs)
+        means[accept] = spec.mean_accepted
+    med = {key: v[1] for key, v in rates.items()}
+    log("(b) oracle sweep, tokens/s (median of 3, range): " + "; ".join(
+        f"{key}: {v[1]:.2f} ({v[0]:.2f}-{v[2]:.2f})" for key, v in rates.items())
+        + f"; mean accepted {means}")
+    return {"rates": rates, "median": med, "mean_accepted": means,
+            "speedup": {a: med[a] / med["plain"] for a in (1, 2, 3, 5)}}
+
+
+def spec_lookup(torch, tgt, plain) -> dict:
+    """(c) the prompt-lookup drafter on a judge prompt quoting two answers."""
+    from llm_consensus_tpu_torch.consensus import render_judge_prompt
+    from llm_consensus_tpu_torch.engine import PromptLookupDrafter, SamplingParams, SpeculativeEngine
+    from llm_consensus_tpu_torch.providers import Response
+
+    answers = [Response("gpu:llama-3-8b", plain.text, "gpu"),
+               Response("gpu:consensus-1b", PROMPT[:400], "gpu")]
+    judge = render_judge_prompt(PROMPT, answers)
+    s = SamplingParams(max_new_tokens=SPEC_SWEEP_TOKENS, ignore_eos=True)
+    want = tgt.generate(judge, s)
+    spec = SpeculativeEngine(tgt, PromptLookupDrafter(), k=SPEC_K, governor=False)
+    got = spec.generate(judge, s)
+    jids = tgt._budget_prompt(tgt.tokenizer.encode(judge), SPEC_SWEEP_TOKENS)[0]
+    row = {"prompt_tokens": len(jids), "mean_accepted": spec.mean_accepted,
+           "rounds": spec.stats["rounds"], "tokens_per_s": spec_rate(got),
+           "plain_tokens_per_s": spec_rate(want),
+           "check": greedy_check(torch, tgt, "(c) prompt lookup", jids, got.token_ids,
+                                 want.token_ids)}
+    log(f"(c) prompt lookup on a {len(jids)}-token judge prompt: mean accepted "
+        f"{spec.mean_accepted:.3f} over {row['rounds']} rounds, {row['tokens_per_s']:.2f} "
+        f"tokens/s against plain {row['plain_tokens_per_s']:.2f}")
+    return row
+
+
+def spec_governor(torch, tgt, drf, ids) -> dict:
+    """(d) the governor on, with the random llama-3.2-1b drafter: it locks
+    plain after its probes; the rate against plain's."""
+    from llm_consensus_tpu_torch.engine import SamplingParams, SpeculativeEngine
+
+    s = SamplingParams(max_new_tokens=SPEC_GOVERNOR_TOKENS, ignore_eos=True)
+    plain = [tgt.generate(PROMPT, s) for _ in range(3)]
+    spec = SpeculativeEngine(tgt, drf, k=SPEC_K)
+    got = spec.generate(PROMPT, s)
+    plain_rates = sorted(spec_rate(r) for r in plain)
+    row = {"governor": got.spec["governor"], "disables": spec.stats["governor_disables"],
+           "plain_tokens": got.spec["plain_tokens"], "tokens_per_s": spec_rate(got),
+           "decode_tokens_per_s": got.decode_tokens / got.decode_s if got.decode_s else None,
+           "plain_tokens_per_s": plain_rates,
+           "check": greedy_check(torch, tgt, "(d) governor on", ids, got.token_ids,
+                                 plain[0].token_ids)}
+    log(f"(d) governor on: {row['governor']}, disables {row['disables']}, plain tokens "
+        f"{row['plain_tokens']} of {len(got.token_ids)}; {row['tokens_per_s']:.2f} tokens/s "
+        f"against plain {plain_rates[0]:.2f}-{plain_rates[2]:.2f} (3 runs, whole request)")
+    if row["disables"] < 1:
+        raise AssertionError(f"(d) the governor never locked plain: {got.spec}")
+    return row
+
+
+def spec_sampled_and_fault(torch, tgt, drf, ids, plain) -> dict:
+    """(e) rejection sampling at temperature 0.8 with the model drafter
+    (every probability finite), then ``acceptance_collapse@p=1`` greedy."""
+    from llm_consensus_tpu_torch import faults
+    from llm_consensus_tpu_torch.engine import SamplingParams, SpeculativeEngine
+    from llm_consensus_tpu_torch.engine import speculative as spec_mod
+
+    flags = []
+    real = spec_mod.rejection_accept
+
+    def checked(ps, qs, drafts, us):
+        flags.append(torch.isfinite(ps).all() & torch.isfinite(qs).all())
+        return real(ps, qs, drafts, us)
+
+    spec_mod.rejection_accept = checked
+    try:
+        spec = SpeculativeEngine(tgt, drf, k=SPEC_K)
+        s = SamplingParams(max_new_tokens=SPEC_SWEEP_TOKENS, temperature=0.8, seed=3,
+                           ignore_eos=True)
+        got = spec.generate(PROMPT, s)
+    finally:
+        spec_mod.rejection_accept = real
+    finite = bool(torch.stack(flags).all()) if flags else False
+    row = {"sampled_tokens": len(got.token_ids), "sampled_mean_accepted": spec.mean_accepted,
+           "sampled_rounds": spec.stats["rounds"], "finite": finite}
+    if len(got.token_ids) != SPEC_SWEEP_TOKENS or not finite or not spec.stats["rounds"]:
+        raise AssertionError(f"(e) sampled: {row}")
+    faults.install(faults.FaultPlan("acceptance_collapse@p=1@times=-1", seed=5))
+    try:
+        spec = SpeculativeEngine(tgt, drf, k=SPEC_K, adaptive=False, governor=False)
+    finally:
+        faults.reset()
+    s = SamplingParams(max_new_tokens=SPEC_SWEEP_TOKENS, ignore_eos=True)
+    got = spec.generate(PROMPT, s)
+    row["collapse_faults"] = spec.stats["collapse_faults"]
+    row["collapse_mean_accepted"] = spec.mean_accepted
+    row["collapse_check"] = greedy_check(torch, tgt, "(e) acceptance_collapse", ids,
+                                         got.token_ids, plain.token_ids[:SPEC_SWEEP_TOKENS])
+    log(f"(e) sampled at 0.8: {len(got.token_ids)} tokens, {row['sampled_rounds']} rounds, "
+        f"mean accepted {row['sampled_mean_accepted']:.3f}, every p and q finite; "
+        f"acceptance_collapse: {row['collapse_faults']} junked rounds, mean accepted "
+        f"{row['collapse_mean_accepted']:.3f}")
+    if row["collapse_faults"] <= 0:
+        raise AssertionError(f"(e) the collapse fault never fired: {row}")
+    return row
+
+
+def spec_pool(torch, tgt, seed: int) -> dict:
+    """(f) ``ContinuousBatcher(max_batch=4, spec=SpecConfig("lookup"))`` and an
+    oracle pool on 4 random 350-token prompts plus one admitted mid-stream,
+    each stream against single-stream; then a compaction with holes on an
+    engine capped at 1,024 slots (the same weights)."""
+    from llm_consensus_tpu_torch.engine import Engine, SamplingParams, SpecConfig
+    from llm_consensus_tpu_torch.engine.batcher import ContinuousBatcher
+
+    bos = tgt.tokenizer.bos_id
+    prompts = [random_ids(torch, seed + 40 + i, 349, bos) for i in range(5)]
+    lengths = [24, 48, 48, 48, 32]
+    refs = [tgt.generate_ids(p, SamplingParams(max_new_tokens=m, ignore_eos=True)).token_ids
+            for p, m in zip(prompts, lengths)]
+    by_ids = {tuple(p): r for p, r in zip(prompts, refs)}
+    out = {}
+    for label, cfg in (("lookup", SpecConfig(kind="lookup", k=SPEC_K)),
+                       ("oracle", SpecConfig(kind="oracle", k=SPEC_K, adaptive=False,
+                                             governor=False,
+                                             oracle=lambda ids: by_ids.get(tuple(ids), [])))):
+        b = ContinuousBatcher(tgt, max_batch=4, spec=cfg)
+        t0 = time.monotonic()
+        try:
+            futs = [b.submit_ids(p, SamplingParams(max_new_tokens=m, ignore_eos=True))
+                    for p, m in zip(prompts[:4], lengths[:4])]
+            first = futs[0].result(timeout=600)
+            late = b.submit_ids(prompts[4], SamplingParams(max_new_tokens=lengths[4],
+                                                           ignore_eos=True))
+            results = [first] + [f.result(timeout=600) for f in futs[1:]] + [
+                late.result(timeout=600)]
+            snap, stats = b.spec_snapshot(), b.snapshot()
+        finally:
+            b.close()
+        wall = time.monotonic() - t0
+        checks = [greedy_check(torch, tgt, f"(f) {label} pool stream {i}", p, r.token_ids, ref)
+                  for i, (p, r, ref) in enumerate(zip(prompts, results, refs))]
+        out[label] = {"snapshot": snap, "admitted": stats["admitted"], "wall_s": wall,
+                      "checks": checks}
+        log(f"(f) {label} pool: {snap['rounds']} rounds, mean accepted {snap['mean_accepted']}, "
+            f"governor {snap['governor']}, {stats['admitted']} admitted, {wall:.2f} s")
+        if snap["rounds"] <= 0 or stats["admitted"] != 5:
+            raise AssertionError(f"(f) {label}: {snap} {stats}")
+    # The oracle forced to accept 1 a round: k holes a round, so the 160-token
+    # stream's window (349 + 5 x 160 slots) crosses the 1,024-slot cap.
+    capped = Engine(tgt.cfg, tgt.params, device=tgt.device, max_seq=1024,
+                    stream_interval=tgt.stream_interval)
+    pair = prompts[:2]
+    lens = [32, 160]
+    refs = [capped.generate_ids(p, SamplingParams(max_new_tokens=m, ignore_eos=True)).token_ids
+            for p, m in zip(pair, lens)]
+    cont = {tuple(p): r for p, r in zip(pair, refs)}
+    b = ContinuousBatcher(capped, max_batch=4,
+                          spec=SpecConfig(kind="oracle", k=SPEC_K, adaptive=False,
+                                          governor=False, oracle_accept=1,
+                                          oracle=lambda ids: cont.get(tuple(ids), [])))
+    try:
+        futs = [b.submit_ids(p, SamplingParams(max_new_tokens=m, ignore_eos=True))
+                for p, m in zip(pair, lens)]
+        results = [f.result(timeout=600) for f in futs]
+        stats = b.snapshot()
+    finally:
+        b.close()
+    checks = [greedy_check(torch, capped, f"(f) compaction stream {i}", p, r.token_ids, ref)
+              for i, (p, r, ref) in enumerate(zip(pair, results, refs))]
+    out["compaction"] = {"compactions": stats["compactions"], "checks": checks}
+    log(f"(f) compaction with holes at 1,024 slots: {stats['compactions']} compactions, both "
+        f"streams at full length")
+    if stats["compactions"] < 1:
+        raise AssertionError(f"(f) no compaction: {stats}")
+    del capped
+    return out
+
+
+def spec_cli(torch, fa, da) -> dict:
+    """(g) the slice's CLI with ``--draft llama-3-8b=llama-3.2-1b --spec-k 4``
+    and the batched slice's with ``LLMC_MAX_BATCH=4 --draft lookup``, both
+    ``--events``: result.json's keys those of a plain run, metrics.json's
+    ``spec`` block, consensus-1b plain."""
+    out = {}
+    counters = {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES}
+    fresh_planes()
+    sl = run_slice(torch, counters, {}, "(g) drafted slice", events=True, timing=False,
+                   extra=("--draft", f"{SPEC_TARGET}={SPEC_DRAFT}", "--spec-k", str(SPEC_K)))
+    doc, metrics = sl["doc"], sl["files"]["metrics.json"]
+    spec = metrics.get("spec", {})
+    by_model = {r["model"]: r for r in doc["responses"]}
+    if (set(spec) != {SPEC_TARGET} or spec[SPEC_TARGET]["rounds"] <= 0
+            or "spec" in by_model["gpu:consensus-1b"] or "spec" not in by_model["gpu:llama-3-8b"]):
+        raise AssertionError(f"(g) drafted slice: spec {spec}, responses {doc['responses']}")
+    out["drafted"] = {"wall_s": sl["wall_s"], "spec": spec, "launches": sl["launches"],
+                      "keys": list(doc)}
+    fresh_planes()
+    release_memory(torch)
+    bsl = run_slice(torch, counters, {"LLMC_MAX_BATCH": "4"}, "(g) batched lookup slice",
+                    models=",".join(["gpu:llama-3-8b"] * 4), events=True, timing=False,
+                    extra=("--draft", "lookup"))
+    spec_b = bsl["files"]["metrics.json"].get("spec", {})
+    if set(spec_b) != {SPEC_TARGET} or spec_b[SPEC_TARGET]["kind"] != "lookup":
+        raise AssertionError(f"(g) batched lookup slice: spec {spec_b}")
+    if list(bsl["doc"]) != list(doc):
+        raise AssertionError(f"(g) result.json keys {list(bsl['doc'])} vs {list(doc)}")
+    out["batched"] = {"wall_s": bsl["wall_s"], "spec": spec_b, "launches": bsl["launches"]}
+    log(f"(g) CLI: drafted slice {sl['wall_s']:.2f} s (spec {spec}); batched lookup slice "
+        f"{bsl['wall_s']:.2f} s (spec {spec_b})")
+    fresh_planes()
+    release_memory(torch)
+    return out
+
+
+def run_spec(torch, fa, da, card: str, seed: int, recs: dict) -> dict:
+    """Phase 8g: speculative decoding on llama-3-8b bf16 drafted by
+    llama-3.2-1b bf16, both at full width (random weights from the seed),
+    8,192 slots each: (a)-(g) above. A "speculative decoding disabled"
+    warning or any RuntimeWarning fails it. Prints a ``{"spec": ...}`` line."""
+    import warnings
+
+    from llm_consensus_tpu_torch.engine import Engine, SamplingParams
+    from llm_consensus_tpu_torch.engine.tokenizer import ByteTokenizer
+    from llm_consensus_tpu_torch.models import get_config
+
+    t_phase = time.monotonic()
+    fresh_planes()
+    release_memory(torch)
+    _TEACHER.clear()
+    torch.cuda.reset_peak_memory_stats()
+    rows, part_s = {}, {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t = time.monotonic()
+        tgt = Engine(get_config(SPEC_TARGET), device=torch.device("cuda"), seed=seed)
+        drf = Engine(get_config(SPEC_DRAFT), device=torch.device("cuda"), seed=seed + 1,
+                     max_seq=tgt.max_seq)
+        part_s["build"] = time.monotonic() - t
+        ids = ByteTokenizer().encode(PROMPT)
+        plain = tgt.generate(PROMPT, SamplingParams(max_new_tokens=SPEC_TOKENS, ignore_eos=True))
+        for name, fn in (("a", lambda: spec_model_draft(torch, fa, da, tgt, drf, ids, plain)),
+                         ("b", lambda: spec_oracle_sweep(torch, tgt, ids, plain)),
+                         ("c", lambda: spec_lookup(torch, tgt, plain)),
+                         ("d", lambda: spec_governor(torch, tgt, drf, ids)),
+                         ("e", lambda: spec_sampled_and_fault(torch, tgt, drf, ids, plain)),
+                         ("f", lambda: spec_pool(torch, tgt, seed))):
+            t = time.monotonic()
+            rows[name] = fn()
+            part_s[name] = time.monotonic() - t
+        recs["flash"]["launches"] = rows["a"]["flash"] - tgt.cfg.n_layers
+        recs["decode"]["launches"] = rows["a"]["decode"]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del tgt, drf, plain
+        release_memory(torch)
+        t = time.monotonic()
+        rows["g"] = spec_cli(torch, fa, da)
+        part_s["g"] = time.monotonic() - t
+    problems = [str(w.message) for w in caught if issubclass(w.category, RuntimeWarning)]
+    if problems:
+        raise AssertionError(f"spec phase warnings: {problems}")
+    phase_s = time.monotonic() - t_phase
+    log(f"spec phase: {phase_s:.1f} s, parts {', '.join(f'{k} {v:.1f} s' for k, v in part_s.items())}"
+        f", peak {peak:.2f} GB before the CLI parts")
+    line = {"spec": {"card": card, "phase_s": phase_s, "part_s": part_s, "peak_gb": peak,
+                     **rows}}
+    print(json.dumps(line, default=str), flush=True)
+    return line
+
+
 def check_moe_block(torch, seed: int) -> None:
     """One Mixtral layer's moe_block (d 4096, d_ff 14336, 8 experts, top-2)
     in float32 on the card against float32 on the CPU, at n = 1, 4 and 512
@@ -4742,10 +5212,30 @@ def run_mixtral(torch, fa, da, seed: int, records: dict) -> None:
     log(f"mixtral phases: {time.monotonic() - t0:.1f} s")
 
 
+PHASE_WALLS: dict = {}  # phase → seconds, in run order
+
+
+@contextlib.contextmanager
+def phase_wall(name: str):
+    """Log the wall of one phase of ``main`` as it ends (and keep it for
+    the summary line)."""
+    t0 = time.monotonic()
+    try:
+        yield
+    finally:
+        PHASE_WALLS[name] = time.monotonic() - t0
+        log(f"phase {name}: {PHASE_WALLS[name]:.1f} s")
+
+
+def print_phase_walls(t_start: float) -> None:
+    print(json.dumps({"phase_walls_s": PHASE_WALLS,
+                      "total_s": time.monotonic() - t_start}), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase", choices=("all", "kernels", "mixtral", "telemetry", "modes",
-                                        "session", "serving", "recovery", "kvpool"),
+                                        "session", "serving", "recovery", "kvpool", "spec"),
                     default="all")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -4771,10 +5261,11 @@ def main(argv=None) -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
-    t0 = time.monotonic()
-    build.ensure_built()
-    log(f"build: {time.monotonic() - t0:.2f} s "
-        f"(nvcc {build.build_seconds if build.build_seconds is not None else 'cached'})")
+    with phase_wall("build"):
+        t0 = time.monotonic()
+        build.ensure_built()
+        log(f"build: {time.monotonic() - t0:.2f} s "
+            f"(nvcc {build.build_seconds if build.build_seconds is not None else 'cached'})")
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             log(f"  {line.strip()}")
@@ -4785,8 +5276,9 @@ def main(argv=None) -> int:
     w8a8_rec: dict = {}
     state_recs: dict = {key: {} for key, _, _ in STATE_VARIANTS}
     rows16_recs: dict = {"decode_attention_b16": {}, "decode_attention_state_b16": {}}
+    dh64_recs: dict = {"flash": {}, "decode": {}}
     records = [flash_rec, decode_rec, int8_rec, w8a8_rec, *state_recs.values(),
-               *rows16_recs.values()]
+               *rows16_recs.values(), *dh64_recs.values()]
     mixtral_recs = {"flash": flash_rec, "int8": int8_rec, "w8a8": w8a8_rec}
     if args.phase == "mixtral":
         # The Mixtral phases alone: no ok line.
@@ -4825,75 +5317,105 @@ def main(argv=None) -> int:
         print(json.dumps({"kernels": list(rows16_recs.values())}), flush=True)
         print(card, flush=True)
         return 0
-    check_flash(torch, flash_rec)
-    check_decode(torch, decode_rec)
-    check_decode_int8(torch, int8_rec, w8a8_rec)
-    check_decode_state(torch, state_recs)
-    check_decode_rows16(torch, rows16_recs)
-    check_int8_matmul(torch)
+    if args.phase == "spec":
+        # The dh 64 kernel rows and the spec phase: no ok line.
+        with phase_wall("kernels dh 64"):
+            check_kernels_dh64(torch, dh64_recs["flash"], dh64_recs["decode"])
+        with phase_wall("spec"):
+            run_spec(torch, fa, da, card, args.seed, dh64_recs)
+        print_phase_walls(t_start)
+        print(json.dumps({"kernels": list(dh64_recs.values())}), flush=True)
+        print(card, flush=True)
+        return 0
+    with phase_wall("kernels"):
+        check_flash(torch, flash_rec)
+        check_decode(torch, decode_rec)
+        check_kernels_dh64(torch, dh64_recs["flash"], dh64_recs["decode"])
+        check_decode_int8(torch, int8_rec, w8a8_rec)
+        check_decode_state(torch, state_recs)
+        check_decode_rows16(torch, rows16_recs)
+        check_int8_matmul(torch)
     if args.phase == "kernels":
         # Kernel checks only: the main path did not run, so no ok line.
         print(json.dumps({"kernels": records}), flush=True)
         print(card, flush=True)
         return 0
 
-    check_small_model(torch, args.seed)
-    sl = run_slice(torch, {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES},
-                   {}, "slice")
-    flash_rec["launches"] = sl["launches"]["flash_attention"]
-    decode_rec["launches"] = sl["launches"]["decode_attention"]
-    if min(sl["launches"].values()) <= 0:
-        raise AssertionError(f"a kernel of the slice never launched: {sl['launches']}")
-    run_chunked(torch, fa, da, sl["engines"]["llama-3-8b"], args.seed)
-    engine = sl["engines"]["llama-3-8b"]
-    ours = profile_decode(torch, engine, counter=da.LAUNCHES)
-    # The bf16 decode is one launch per call: no merge kernel beside it.
-    if ours:
-        check_one_launch_per_step(ours, "decode_bf16_kernel", "decode_q8_kernel", da.LAUNCHES,
-                                  engine.cfg.n_layers, "bf16 decode profile")
-    del engine
-    single_responses = sl["responses"]
-    del sl
-    release_engines(torch, {})
+    with phase_wall("small model"):
+        check_small_model(torch, args.seed)
+    with phase_wall("slice"):
+        sl = run_slice(torch, {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES},
+                       {}, "slice")
+        flash_rec["launches"] = sl["launches"]["flash_attention"]
+        decode_rec["launches"] = sl["launches"]["decode_attention"]
+        if min(sl["launches"].values()) <= 0:
+            raise AssertionError(f"a kernel of the slice never launched: {sl['launches']}")
+    with phase_wall("chunked + profile"):
+        run_chunked(torch, fa, da, sl["engines"]["llama-3-8b"], args.seed)
+        engine = sl["engines"]["llama-3-8b"]
+        ours = profile_decode(torch, engine, counter=da.LAUNCHES)
+        # The bf16 decode is one launch per call: no merge kernel beside it.
+        if ours:
+            check_one_launch_per_step(ours, "decode_bf16_kernel", "decode_q8_kernel",
+                                      da.LAUNCHES, engine.cfg.n_layers, "bf16 decode profile")
+        del engine
+        single_responses = sl["responses"]
+        del sl
+        release_engines(torch, {})
 
-    bsl = run_batched_slice(torch, fa, da, single_responses)
-    state_recs["bf16"]["launches"] = bsl["launches"]["decode_attention_state"]
-    run_batched_engine(torch, fa, da, bsl["engines"]["llama-3-8b"], state_recs)
-    modes = bsl["modes"]
-    del bsl
-    release_engines(torch, modes)
-    run_telemetry(torch, fa, da)
-    run_modes(torch, fa, da, card)
-    run_session(torch, fa, da, card, args.seed)
-    run_serving(torch, fa, da, card, args.seed, rows16_recs)
-    run_recovery(torch, fa, da, card, args.seed)
-    run_kvpool(torch, fa, da, card, args.seed)
+    with phase_wall("batched"):
+        bsl = run_batched_slice(torch, fa, da, single_responses)
+        state_recs["bf16"]["launches"] = bsl["launches"]["decode_attention_state"]
+        run_batched_engine(torch, fa, da, bsl["engines"]["llama-3-8b"], state_recs)
+        modes = bsl["modes"]
+        del bsl
+        release_engines(torch, modes)
+    with phase_wall("telemetry"):
+        run_telemetry(torch, fa, da)
+    with phase_wall("modes"):
+        run_modes(torch, fa, da, card)
+    with phase_wall("session"):
+        run_session(torch, fa, da, card, args.seed)
+    with phase_wall("serving"):
+        run_serving(torch, fa, da, card, args.seed, rows16_recs)
+    with phase_wall("recovery"):
+        run_recovery(torch, fa, da, card, args.seed)
+    with phase_wall("kvpool"):
+        run_kvpool(torch, fa, da, card, args.seed)
+    with phase_wall("spec"):
+        run_spec(torch, fa, da, card, args.seed, dh64_recs)
 
-    qsl = run_slice(torch, {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES,
-                            "decode_attention_int8": da.LAUNCHES_INT8},
-                    {"LLMC_QUANT": "int8", "LLMC_KV_QUANT": "int8"}, "quantized slice")
-    int8_rec["launches"] = qsl["launches"]["decode_attention_int8"]
-    if (qsl["launches"]["flash_attention"] <= 0 or int8_rec["launches"] <= 0
-            or qsl["launches"]["decode_attention"] != 0):
-        raise AssertionError(f"quantized slice routing: {qsl['launches']}")
-    engine = qsl["engines"]["llama-3-8b"]
-    ours = profile_decode(torch, engine, "profile int8", counter=da.LAUNCHES_INT8)
-    # The int8 decode is one launch per call too: one q8 kernel a (layer, step).
-    if ours:
-        check_one_launch_per_step(ours, "decode_q8_kernel", "decode_bf16_kernel",
-                                  da.LAUNCHES_INT8, engine.cfg.n_layers, "int8 decode profile")
-    del engine
-    modes = qsl["modes"]
-    del qsl
-    release_engines(torch, modes)
+    with phase_wall("quantized slice"):
+        qsl = run_slice(torch, {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES,
+                                "decode_attention_int8": da.LAUNCHES_INT8},
+                        {"LLMC_QUANT": "int8", "LLMC_KV_QUANT": "int8"}, "quantized slice")
+        int8_rec["launches"] = qsl["launches"]["decode_attention_int8"]
+        if (qsl["launches"]["flash_attention"] <= 0 or int8_rec["launches"] <= 0
+                or qsl["launches"]["decode_attention"] != 0):
+            raise AssertionError(f"quantized slice routing: {qsl['launches']}")
+        engine = qsl["engines"]["llama-3-8b"]
+        ours = profile_decode(torch, engine, "profile int8", counter=da.LAUNCHES_INT8)
+        # The int8 decode is one launch per call too: one q8 kernel a (layer, step).
+        if ours:
+            check_one_launch_per_step(ours, "decode_q8_kernel", "decode_bf16_kernel",
+                                      da.LAUNCHES_INT8, engine.cfg.n_layers,
+                                      "int8 decode profile")
+        del engine
+        modes = qsl["modes"]
+        del qsl
+        release_engines(torch, modes)
 
-    run_long_context(torch, fa, da, args.seed)
-    w8a8_rec["launches"] = run_engine_phase(
-        torch, fa, da, "w8a8", da.LAUNCHES_W8A8, args.seed, quant="int8", kv_quant="int8",
-        w8a8=True, decode_w8a8=True)
-    run_engine_phase(torch, fa, da, "int4", da.LAUNCHES, args.seed, quant="int4")
-    run_mixtral(torch, fa, da, args.seed, mixtral_recs)
+    with phase_wall("long context"):
+        run_long_context(torch, fa, da, args.seed)
+    with phase_wall("w8a8 + int4"):
+        w8a8_rec["launches"] = run_engine_phase(
+            torch, fa, da, "w8a8", da.LAUNCHES_W8A8, args.seed, quant="int8", kv_quant="int8",
+            w8a8=True, decode_w8a8=True)
+        run_engine_phase(torch, fa, da, "int4", da.LAUNCHES, args.seed, quant="int4")
+    with phase_wall("mixtral"):
+        run_mixtral(torch, fa, da, args.seed, mixtral_recs)
     log(f"all phases: {time.monotonic() - t_start:.1f} s")
+    print_phase_walls(t_start)
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -45,9 +45,14 @@ Model names are ``gpu:<preset>``. ``main(argv, device=None)`` runs on the
 current CUDA card and raises when there is none; tests pass
 ``device="cpu"``. ``--priority`` sets the panel's priority class (the
 judge runs one class above it) and ``--prefill-budget`` the batched
-engines' interleaved admission, as in the JAX CLI. The JAX CLI's flags for
-modules the port lacks (``--draft``, ``--spec-k``) are not ported; a config
-file that sets ``draft`` is refused.
+engines' interleaved admission, as in the JAX CLI. ``--draft`` (a draft
+preset for every target, ``target=draft`` pairs, or ``lookup``) and
+``--spec-k`` turn on speculative decoding on the ``gpu:`` provider
+(engine/speculative.py; greedy output is token-exact, the draft only
+changes speed); they reach the provider as arguments of every run, so one
+in-process run's draft never leaks into the next, and the config file's
+``draft`` key sets ``--draft``. ``metrics.json`` then carries each
+preset's ``spec`` block.
 
 Run telemetry follows the JAX CLI: the live, attribution, roofline and
 flight-recorder planes are on by default and installed once per process
@@ -100,6 +105,7 @@ import sys
 import threading
 import time
 from dataclasses import dataclass, field, replace
+from functools import partial
 from typing import Callable, Optional, TextIO
 
 from llm_consensus_tpu_torch import faults, integrity, obs, ui
@@ -159,6 +165,8 @@ class Config:
     judge_overlap: bool = False  # prefill the judge prompt as answers arrive
     prefill_budget: Optional[int] = None  # interleaved admission (batched gpu engines)
     priority: str = ""     # panel priority class (pressure/)
+    draft: str = ""        # speculative decoding: the draft spec (``--draft``)
+    spec_k: Optional[int] = None  # its draft-length ceiling (``--spec-k``)
 
 
 class CLIError(Exception):
@@ -176,26 +184,33 @@ def run_priorities(cfg: Config) -> tuple[Optional[int], Optional[int]]:
     return panel, max(0, panel - 1)
 
 
-def create_provider(model: str, device: DeviceLike = None) -> Provider:
+def create_provider(model: str, device: DeviceLike = None, draft: Optional[str] = None,
+                    spec_k: Optional[int] = None) -> Provider:
     """Resolve a model name to its provider: ``gpu:<preset>`` → the shared
     GPU provider of ``device`` and of the environment's quantization modes,
-    batching settings, checkpoint directory and prefix settings; any other
-    name → the remote HTTP provider of the catalog, with the environment's
-    retry settings."""
+    batching settings, checkpoint directory, prefix and speculation
+    settings; any other name → the remote HTTP provider of the catalog,
+    with the environment's retry settings. ``draft`` / ``spec_k`` (the
+    ``--draft`` / ``--spec-k`` flags) reconfigure the shared provider's
+    drafting when given (``set_draft``)."""
     from llm_consensus_tpu_torch.providers.gpu import SCHEME, GPUProvider, parse_model_name
     from llm_consensus_tpu_torch.providers.registry import REMOTE_MODELS, create_remote_provider
     from llm_consensus_tpu_torch.utils.knobs import (
         batch_settings, checkpoint_dir, http_settings, kv_pool_settings, prefix_settings,
-        quant_modes, recovery_settings)
+        quant_modes, recovery_settings, spec_settings)
 
     if model.startswith(SCHEME):
         try:
             parse_model_name(model)
         except ValueError as err:
             raise CLIError(str(err)) from None
-        return GPUProvider.shared(device, **batch_settings(), **quant_modes(),
-                                  **checkpoint_dir(), **prefix_settings(),
-                                  **kv_pool_settings(), **recovery_settings())
+        provider = GPUProvider.shared(device, **batch_settings(), **quant_modes(),
+                                      **checkpoint_dir(), **prefix_settings(),
+                                      **kv_pool_settings(), **recovery_settings(),
+                                      **spec_settings())
+        if draft is not None:
+            provider.set_draft(draft, k=spec_k)
+        return provider
     try:
         return create_remote_provider(model, **http_settings())
     except ValueError:
@@ -235,8 +250,7 @@ def get_prompt(args: list[str], file: str, stdin: Optional[TextIO]) -> str:
 
 
 # Config-file keys that set flag defaults (CLI flags always win): the JAX
-# CLI's set. ``draft`` names a flag the port does not have yet and is
-# refused, never ignored.
+# CLI's set (``draft`` sets ``--draft``).
 _CONFIG_FLAG_KEYS = frozenset({
     "models", "judge", "timeout", "data_dir", "max_tokens", "system",
     "rounds", "confidence", "draft",
@@ -278,11 +292,6 @@ def load_config_file() -> tuple[dict, str]:
                 f"(known: {sorted(_CONFIG_FLAG_KEYS | {'aliases'})})"
             )
         _validate_config_types(data, path)
-        if "draft" in data:
-            raise CLIError(
-                f"config file {path}: 'draft' sets --draft, which is not in the "
-                "PyTorch port yet; remove the key"
-            )
         return data, path
     return {}, ""
 
@@ -297,7 +306,7 @@ def _validate_config_types(data: dict, path: str) -> None:
             f"got {type(data[key]).__name__}"
         )
 
-    for key in ("models", "judge", "system", "data_dir"):
+    for key in ("models", "judge", "system", "data_dir", "draft"):
         if key in data and not isinstance(data[key], str):
             fail(key, "a string")
     for key in ("timeout", "max_tokens"):
@@ -413,6 +422,15 @@ def parse_args(argv: list[str], stdin: Optional[TextIO],
                              "arrive (gpu judges), cutting judge time-to-first-token by "
                              "nearly the whole prompt prefill. LLMC_JUDGE_OVERLAP=1 is "
                              "equivalent")
+    parser.add_argument("--spec-k", "-spec-k", type=int, default=None, metavar="K",
+                        help="Speculative draft-length ceiling per round (default "
+                             "LLMC_SPEC_K or 4); adaptive k walks a pow2 ladder below it")
+    parser.add_argument("--draft", "-draft", default="", metavar="SPEC",
+                        help="Speculative decoding for gpu models: 'lookup' (prompt-lookup "
+                             "n-grams, zero draft cost, composes with LLMC_MAX_BATCH pools), "
+                             "a draft preset for all targets (e.g. llama-3.2-1b) or "
+                             "target=draft pairs (a=b,c=d). Greedy output is token-exact; "
+                             "the draft only changes speed")
     parser.add_argument("--prefill-budget", "-prefill-budget", type=int, default=None,
                         metavar="TOKENS",
                         help="Interleaved admission prefill for gpu continuous batching: "
@@ -507,6 +525,8 @@ def parse_args(argv: list[str], stdin: Optional[TextIO],
         judge_overlap=ns.judge_overlap,
         prefill_budget=ns.prefill_budget,
         priority=ns.priority,
+        draft=ns.draft,
+        spec_k=ns.spec_k,
     )
     if cfg.priority:
         try:
@@ -1302,10 +1322,11 @@ def main(
         if cfg is None:
             return 0
         if factory is None:
-            dev = resolve_device(device)
-
-            def factory(model: str) -> Provider:
-                return create_provider(model, dev)
+            # --draft reaches the shared gpu provider as an argument of
+            # every run, even when empty (set_draft('') clears a previous
+            # run's map); injected factories keep their own shape.
+            factory = partial(create_provider, device=resolve_device(device), draft=cfg.draft,
+                              spec_k=cfg.spec_k)
 
         run(cfg, ctx, factory=factory, stdout=stdout, stderr=stderr, stdin=stdin)
     except CLIError as err:

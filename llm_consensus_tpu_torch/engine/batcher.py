@@ -70,8 +70,28 @@ Pool health for a supervisor (recovery/supervisor.py): ``abandon(exc)``
 fails every queued and live future without joining the (possibly wedged)
 threads, ``heartbeat_age()`` and ``busy()`` read progress lock-free,
 ``failed_exc`` is the pool's death evidence, ``pressure_snapshot()`` the
-headroom, ``set_brownout`` is accepted and ignored (a classic pool has
-nothing cheaper than its plain decode).
+headroom, ``set_brownout`` switches a speculative pool to its plain windows
+(a classic pool has nothing cheaper than its plain decode and ignores it).
+
+  * **Speculative rounds** (``spec``, a ``SpecConfig`` naming a buffer
+    drafter: prompt lookup, or an oracle in tests and measurements): on a
+    greedy pool each dispatch is a round group, per round one proposal
+    program over the device token buffers and ONE target forward verifying
+    ``k + 1`` positions of every row (``_spec_verify_batch``). The frontier
+    advances ``k + 1`` a round, host-known; per-row acceptance is data, so
+    rejected slots become holes the written-slot bitmap masks (the
+    transformer's ``kv_mask``, through the plain attention op) and the
+    device ``row_start`` absorbs each row's hole count. The pool-wide
+    ``AdaptiveK`` walks k on the mean acceptance of live rows, the
+    ``SpecGovernor`` A/Bs pooled tokens per second against bitmap-keeping
+    plain windows (``_plain_chunk_masked``, also the cache's tail and the
+    brownout's), and the ``spec`` fault site fires once a round. A spec pool
+    shares no prefix (each row holds its whole prompt). Compaction first
+    squeezes each row's holes out (its accepted slots, in order, packed to
+    end at the frontier: positions were RoPE'd at write time, and the
+    packed window is exactly ``[row_start, frontier)``), then slides; so a
+    row's window counts its logical tokens only and a stream is never
+    retired early for its holes. ``spec_snapshot()`` reports the state.
 
   * **The stream journal** (``journal``, recovery/journal.py): every stream
     gets a journal entry at submit (or carries the supervisor's), each
@@ -108,9 +128,8 @@ next chunk's copy), the ``useful`` tokens, the pool cache's bytes and the
 host gaps between a drained pipeline and the next dispatch, by scheduler
 phase.
 
-Not ported (each listed in ROADMAP.md, queue 1 item 5.1 and later):
-speculative rounds (and with them what brownout switches), the weight-swap
-pins and the pressure governor. Settings are constructor
+Not ported (each listed in ROADMAP.md, queue 1): the weight-swap pins and
+the pressure governor. Settings are constructor
 arguments with the JAX knobs' defaults; nothing here reads the environment.
 """
 
@@ -120,7 +139,7 @@ import atexit
 import threading
 import time
 import warnings
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from concurrent.futures import Future, InvalidStateError
 from dataclasses import dataclass, field
 from queue import SimpleQueue
@@ -131,6 +150,9 @@ import torch
 from llm_consensus_tpu_torch import integrity, obs
 from llm_consensus_tpu_torch.engine.engine import (
     DeviceWall, Engine, GenerateResult, SamplingParams, _bucket, _Fetch)
+from llm_consensus_tpu_torch.engine.speculative import (
+    AdaptiveK, SpecConfig, SpecGovernor, _install_spec_rows, _junk_propose, _lookup_propose,
+    _oracle_propose, _plain_chunk_masked, _roll_valid, _spec_verify_batch)
 from llm_consensus_tpu_torch.engine.tokenizer import StreamDecoder
 from llm_consensus_tpu_torch.faults import InjectedFault
 from llm_consensus_tpu_torch.models.transformer import init_kv_cache
@@ -184,6 +206,9 @@ class _Stream:
     preempted: bool = False
     # The stream's journal entry (recovery/), or None without a journal.
     jentry: Optional[JournalEntry] = None
+    # Acceptance EMA of a speculative pool's row (telemetry: the pool-wide
+    # controller drives k).
+    spec_ema: float = 0.0
 
 
 @dataclass
@@ -195,6 +220,32 @@ class _PendingWave:
     batch: list
     wave_p: int
     session: object  # engine.AdmissionPrefill
+
+
+@dataclass
+class _SpecState:
+    """Device and host state of a speculative pool. ``controller`` and
+    ``governor`` are pool-wide (the verify's k is one for every row).
+    ``valid`` [rows, S] is the written-slot bitmap, ``buf`` [rows, S] each
+    row's logical tokens and ``blen`` [rows] their counts; ``obuf`` the
+    oracle's continuations. The host row starts (``_row_start_host``) keep
+    naming each row's first physical slot; the device ones absorb holes.
+    ``skip_feed`` drops the governor's first arrival after a mode switch (a
+    cold mode's first dispatch). The counters are written by the fetch
+    worker."""
+    cfg: SpecConfig
+    controller: AdaptiveK
+    governor: SpecGovernor
+    valid: torch.Tensor
+    buf: torch.Tensor
+    obuf: Optional[torch.Tensor]
+    blen: torch.Tensor
+    skip_feed: bool = True
+    rounds: int = 0           # round dispatches fetched
+    row_rounds: int = 0       # live (row, round) pairs fetched
+    accepted: int = 0         # accepted tokens of live rows
+    disables: int = 0         # the governor locked plain (0/1)
+    collapse_faults: int = 0  # injected acceptance_collapse rounds
 
 
 # -- cache helpers (in place) ---------------------------------------------------
@@ -293,6 +344,17 @@ def _cache_bytes(cache: dict) -> int:
     return sum(t.numel() * t.element_size() for side in cache.values() for (t,) in _leaves(side))
 
 
+def pack_slots(cache: dict, row: int, src: torch.Tensor, dst: int) -> None:
+    """Copy row ``row``'s slots ``src`` (ascending) to the contiguous run
+    starting at ``dst``, in place (the gather copies first, so the ranges
+    may overlap): a speculative row's holes squeezed out."""
+    for side in ("k", "v"):
+        for (leaf,) in _leaves(cache[side]):
+            r = leaf[:, row]
+            ax = kv_seq_axis(leaf) - 1
+            r.narrow(ax, dst, src.numel()).copy_(r.index_select(ax, src))
+
+
 def compact_cache(cache: dict, shift: int) -> None:
     """Slide every row's window left by ``shift`` slots, in place, one layer
     at a time (the scratch is one layer's source window, not a second
@@ -319,13 +381,16 @@ class ContinuousBatcher:
     ``pool_prefix_min`` (``LLMC_POOL_PREFIX``, ``LLMC_POOL_PREFIX_MIN``),
     ``pool_bucket`` (``LLMC_POOL_BUCKET``) and ``preempt``
     (``LLMC_PRESSURE_PREEMPT``). ``journal`` (None: off) is the stream
-    journal every submission records into.
+    journal every submission records into. ``spec`` (a ``SpecConfig`` of a
+    buffer drafter; None: classic) turns a greedy pool's dispatches into
+    speculative round groups; a sliding-window model refuses it with one
+    warning and decodes classically.
     """
 
     def __init__(self, engine: Engine, max_batch: int = 8, *, prefill_budget: int = 0,
                  pool_prefix: bool = True, pool_prefix_min: int = 192,
                  pool_bucket: bool = True, preempt: bool = True,
-                 journal: Optional[StreamJournal] = None):
+                 journal: Optional[StreamJournal] = None, spec: Optional[SpecConfig] = None):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         self.engine = engine
@@ -375,9 +440,31 @@ class ContinuousBatcher:
         self._preempt_enabled = bool(preempt)
         self._preempt_req = 0  # guarded by _work
         self._brownout = False
+        self._spec: Optional[_SpecState] = None
+        if spec is not None and engine.cfg.sliding_window is not None:
+            # A configuration error, told once: the bitmap's positions are
+            # exact only for full attention.
+            warnings.warn(f"speculative pool decode disabled for {engine.cfg.name!r}: kv_mask "
+                          "holes do not compose with sliding_window attention",
+                          RuntimeWarning, stacklevel=2)
+        elif spec is not None:
+            if spec.kind not in ("lookup", "oracle"):
+                raise ValueError(f"a pool drafts from its token buffers: kind {spec.kind!r}")
+            s_cap = engine.max_seq
+            with torch.inference_mode():
+                self._spec = _SpecState(
+                    cfg=spec, controller=AdaptiveK(spec.k, adaptive=spec.adaptive),
+                    governor=SpecGovernor(probe_tokens=spec.probe_tokens, enabled=spec.governor),
+                    valid=torch.zeros((max_batch, s_cap), dtype=torch.bool, device=dev),
+                    buf=torch.zeros((max_batch, s_cap), dtype=torch.long, device=dev),
+                    obuf=(torch.zeros((max_batch, s_cap), dtype=torch.long, device=dev)
+                          if spec.kind == "oracle" else None),
+                    blen=torch.zeros(max_batch, dtype=torch.long, device=dev))
         # Shared-prefix pool state. Gated off for sliding-window models
-        # (the window would span the prefix/suffix seam).
-        self._prefix_enabled = bool(pool_prefix) and engine.cfg.sliding_window is None
+        # (the window would span the prefix/suffix seam) and for speculative
+        # pools (the batched verify has no prefix-merge form).
+        self._prefix_enabled = (bool(pool_prefix) and engine.cfg.sliding_window is None
+                                and self._spec is None)
         self._prefix_min = pool_prefix_min
         self._prefix_ids: Optional[tuple] = None
         self._prefix_cache: Optional[dict] = None
@@ -615,10 +702,26 @@ class ContinuousBatcher:
     request_preempt = preempt
 
     def set_brownout(self, on: bool) -> None:
-        """The pressure governor's brownout flag. A classic pool ignores it:
-        nothing is cheaper than its plain decode (speculative pools, which
-        it switches, are not ported)."""
+        """The pressure governor's brownout flag: a speculative pool
+        dispatches its plain (bitmap-keeping) windows while it is set. A
+        classic pool ignores it: nothing is cheaper than its plain decode."""
         self._brownout = bool(on)
+
+    def spec_snapshot(self) -> Optional[dict]:
+        """The pool's speculation state (the JAX keys; ``metrics.json``'s
+        ``spec`` block), or None for a classic pool. The counters are the
+        fetch worker's plain int bumps: a telemetry read."""
+        sp = self._spec
+        if sp is None:
+            return None
+        return {
+            "kind": sp.cfg.kind, "k": sp.controller.k, "rounds": sp.rounds,
+            "accepted": sp.accepted,
+            "mean_accepted": round(sp.accepted / sp.row_rounds, 3) if sp.row_rounds else None,
+            "accept_ema": round(sp.controller.ema, 3), "governor": sp.governor.state,
+            "governor_disables": sp.disables, "collapse_faults": sp.collapse_faults,
+            "stream_emas": [round(s.spec_ema, 3) for s in self._slots if s is not None],
+        }
 
     def pressure_snapshot(self) -> dict:
         """Headroom for a pressure governor: live streams, row capacity,
@@ -851,12 +954,32 @@ class ContinuousBatcher:
         splice_rows(self._cache, pcache, range(k), slots, dsts, width)
         samples = self._sample_firsts(last_logits[:k], [s for _, _, s in batch])
         self._set_rows(slots, samples, dsts, bool(prefix_p))
+        if self._spec is not None:
+            self._spec_install(batch, slots, dsts, samples)
         owners = []
         for i, (slot, _ids, s) in enumerate(batch):
             self._row_start_host[slot] = dsts[i]
             self._slots[slot] = s
             owners.append(s)
         return (slots, _Fetch(samples), owners)
+
+    def _spec_install(self, batch: list, slots: list, dsts: list, samples: torch.Tensor) -> None:
+        """Admitted rows' speculative state: bitmap row = the spliced prompt
+        window, token buffer = prompt ids + the first token, ``blen`` = n +
+        1; an oracle pool's continuations are written from the host
+        (tests and measurements only)."""
+        sp = self._spec
+        eng = self.engine
+        slot_t = eng.to_device(slots)
+        prompts = [list(ids) for _, ids, _ in batch]
+        _install_spec_rows(sp.valid, sp.buf, sp.blen, slot_t, dsts, self._pos, prompts, samples)
+        for _, _, s in batch:
+            s.spec_ema = 0.0
+        if sp.obuf is not None and sp.cfg.oracle is not None:
+            s_cap = eng.max_seq
+            for slot, ids in zip(slots, prompts):
+                row = (ids + list(sp.cfg.oracle(list(ids))) + [0] * s_cap)[:s_cap]
+                sp.obuf[slot] = eng.to_device(row)
 
     # -- interleaved admission ---------------------------------------------------
 
@@ -1074,7 +1197,7 @@ class ContinuousBatcher:
             for src in [i for i in range(target, cap) if self._slots[i] is not None]:
                 dst = frees.pop(0)
                 move_row(self._cache, src, dst)
-                for t in (self._token, self._row_start, self._prefix_rows):
+                for t in (self._token, self._row_start, self._prefix_rows, *self._spec_rows()):
                     t[dst] = t[src]
                 self._row_start_host[dst] = self._row_start_host[src]
                 self._slots[dst], self._slots[src] = self._slots[src], None
@@ -1082,16 +1205,34 @@ class ContinuousBatcher:
             self._token = self._token[:target].clone()
             self._row_start = self._row_start[:target].clone()
             self._prefix_rows = self._prefix_rows[:target].clone()
+            self._spec_resize(lambda t: t[:target].clone())
         else:
             grow_rows(self._cache, target)
             pad = target - cap
             self._token = torch.cat([self._token, self._token.new_zeros(pad)])
             self._row_start = torch.cat([self._row_start, self._row_start.new_zeros(pad)])
             self._prefix_rows = torch.cat([self._prefix_rows, self._prefix_rows.new_zeros(pad)])
+            self._spec_resize(
+                lambda t: torch.cat([t, t.new_zeros((pad,) + tuple(t.shape[1:]))]))
         self._rows_cap = target
         self._book_cache_bytes()
         if self._obs is not None:
             self._obs.complete("resize", t0_obs, tid="batcher", rows=target, before=cap)
+
+    def _spec_rows(self) -> tuple:
+        """The speculative pool's per-row tensors (empty for a classic pool)."""
+        sp = self._spec
+        if sp is None:
+            return ()
+        return tuple(t for t in (sp.valid, sp.buf, sp.obuf, sp.blen) if t is not None)
+
+    def _spec_resize(self, fn) -> None:
+        sp = self._spec
+        if sp is None:
+            return
+        sp.valid, sp.buf, sp.blen = fn(sp.valid), fn(sp.buf), fn(sp.blen)
+        if sp.obuf is not None:
+            sp.obuf = fn(sp.obuf)
 
     def _maybe_shrink(self) -> None:
         """Shrink the row bucket once the live streams have stayed at or
@@ -1122,6 +1263,8 @@ class ContinuousBatcher:
         the common reclaimable amount, re-align the row starts and pull
         the frontier back. Windows keep their offsets: no re-RoPE."""
         eng = self.engine
+        if self._spec is not None:
+            self._squeeze_holes()
         for i, s in enumerate(self._slots):
             if s is not None and self._pos - self._row_start_host[i] >= eng.max_seq:
                 self._retire(i, "length")
@@ -1136,7 +1279,38 @@ class ContinuousBatcher:
         self._row_start_host = [r - shift for r in self._row_start_host]
         self._row_start = self._row_start - shift
         self._pos -= shift
+        if self._spec is not None:
+            # The bitmap slides with the KV it describes; the columns that
+            # wrap came from below every live row's base (False). The
+            # buffers are logical: untouched.
+            _roll_valid(self._spec.valid, shift)
         self._stat_add(compactions=1)
+
+    def _squeeze_holes(self) -> None:
+        """Pack each live speculative row's written slots (its bitmap, in
+        order: its logical positions 0..blen-2) into the run ending at the
+        frontier, before compaction measures windows. The KV was RoPE'd at
+        write time, and the run starts at the device row start (the
+        invariant row_start = frontier - blen + 1), so positions stay exact
+        and the row's window is its logical length. Runs pipeline-drained:
+        one host read of ``blen``."""
+        sp = self._spec
+        blens = sp.blen.tolist()
+        ar = torch.arange(sp.valid.shape[1], device=sp.valid.device)
+        for i, s in enumerate(self._slots[:self._rows_cap]):
+            if s is None:
+                continue
+            base = self._pos - (blens[i] - 1)
+            if base == self._row_start_host[i]:
+                continue  # no holes
+            src = sp.valid[i].nonzero()[:, 0]
+            if src.numel() != blens[i] - 1:
+                raise RuntimeError(f"speculative row {i}: bitmap holds {src.numel()} slots, "
+                                   f"its buffer {blens[i] - 1}")
+            pack_slots(self._cache, i, src, base)
+            sp.valid[i] = (ar >= base) & (ar < self._pos)
+            self._row_start_host[i] = base
+            self._row_start[i] = base
 
     def _plan_steps(self, chunk: int) -> int:
         """Steps of the next chunk: 1-step chunks inside the cache's last
@@ -1218,13 +1392,7 @@ class ContinuousBatcher:
                 self._integrity.failure("logits", f"non-finite logits in decode row {i}")
                 self._fail_slot(i, integrity.IntegrityError(
                     "logits", f"non-finite logits detected in decode row {i}"))
-        emitted = appended = 0
-        for (slots, _, wave_owners), vals in zip(firsts, first_vals):
-            for slot, owner, val in zip(slots, wave_owners, vals):
-                # None: the stream was preempted before this first token.
-                if owner is not None and self._slots[slot] is owner:
-                    appended += self._emit(slot, val, eos)
-                    emitted += 1
+        emitted, appended = self._emit_firsts(firsts, first_vals, eos)
         overshoot = 0
         for i, owner in enumerate(owners):
             if owner is None:
@@ -1245,6 +1413,87 @@ class ContinuousBatcher:
             self._attrib.token_event("overshoot", overshoot)
         return emitted, t_arrival
 
+    def _emit_firsts(self, firsts: list, first_vals: list, eos: int) -> tuple[int, int]:
+        """Emit the admitted waves' first tokens that rode this fetch (owner
+        checked); returns ``(emitted, appended)``."""
+        emitted = appended = 0
+        for (slots, _, wave_owners), vals in zip(firsts, first_vals):
+            for slot, owner, val in zip(slots, wave_owners, vals):
+                # None: the stream was preempted before this first token.
+                if owner is not None and self._slots[slot] is owner:
+                    appended += self._emit(slot, val, eos)
+                    emitted += 1
+        return emitted, appended
+
+    def _fetch_spec(self, fetch: _Fetch, owners: list, firsts: list,
+                    eos: int) -> tuple[int, float]:
+        """Fetch and emit one speculative round group: per round, row i
+        emits its accepted prefix (owner checked, as the classic emit
+        loop); the pool's controller observes the mean acceptance of the
+        rows still live (a retired row keeps stepping, and its post-EOS
+        repetition would over-accept), each stream's EMA its own."""
+        first_vals = [f.values() for _, f, _ in firsts]
+        rounds = fetch.values()  # [R][B][k + 2]
+        t_arrival = time.monotonic()
+        emitted, appended = self._emit_firsts(firsts, first_vals, eos)
+        sp = self._spec
+        k_used = len(rounds[0][0]) - 2
+        total_acc = rejected = overshoot = 0
+        for rnd in rounds:
+            live = acc = 0
+            for i, owner in enumerate(owners):
+                if owner is None:
+                    continue
+                row = rnd[i]
+                ai = row[-1]
+                if self._slots[i] is owner:
+                    owner.spec_ema += 0.25 * (ai - owner.spec_ema)
+                    live += 1
+                    acc += ai
+                taken = 0
+                for tok in row[:ai]:
+                    if self._slots[i] is not owner:
+                        break
+                    appended += self._emit(i, tok, eos)
+                    taken += 1
+                emitted += taken
+                overshoot += ai - taken
+            sp.rounds += 1
+            sp.row_rounds += live
+            total_acc += acc
+            # Verify positions the round threw away: k + 1 a live row.
+            rejected += live * (k_used + 1) - acc
+            if live:
+                sp.controller.observe(acc / live, k_used)
+        sp.accepted += total_acc
+        if self._attrib is not None:
+            self._attrib.token_event("useful", appended)
+            self._attrib.token_event("overshoot", overshoot)
+            self._attrib.token_event("spec_rejected", rejected)
+        if self._obs is not None:
+            self._obs.count("spec.rounds", len(rounds))
+            self._obs.count("spec.accepted", total_acc)
+        return emitted, t_arrival
+
+    def _governor_feed(self, mode: Optional[str], emitted: int, dt: float) -> None:
+        """A pure arrival of a speculative pool's dispatch in the mode its
+        governor probes feeds the A/B; the first arrival after each switch
+        is dropped (a cold mode's first dispatch)."""
+        sp = self._spec
+        if (sp is None or mode is None or not emitted
+                or sp.governor.state not in ("spec_probe", "plain_probe")
+                or mode != sp.governor.mode):
+            return
+        if sp.skip_feed:
+            sp.skip_feed = False
+        elif sp.governor.feed(emitted, dt):
+            sp.skip_feed = True
+        if sp.governor.disabled_spec and sp.disables == 0:
+            sp.disables = 1
+            if self._obs is not None:
+                self._obs.instant("spec_governor_disable", tid="batcher",
+                                  ema=round(sp.controller.ema, 3))
+
     def _fetch_worker(self) -> None:
         """Fetch side of the dispatch pipeline: waits on each chunk's copy,
         emits, retires finished and cancelled streams, and keeps the
@@ -1254,7 +1503,7 @@ class ContinuousBatcher:
             item = self._fetch_q.get()
             if item is None:
                 return
-            fetch, owners, firsts, pure, t_dispatch, walls = item
+            fetch, owners, firsts, pure, t_dispatch, walls, mode = item
             if self._worker_exc is not None:
                 # A prior fetch failed: emitting later chunks would resolve
                 # streams with tokens missing. Drain; the scheduler fails
@@ -1266,7 +1515,10 @@ class ContinuousBatcher:
             t0_obs = (time.monotonic_ns()
                       if self._obs is not None or self._bb is not None else 0)
             try:
-                emitted, t_arrival = self._fetch(fetch, owners, firsts, eos)
+                if mode == "spec":
+                    emitted, t_arrival = self._fetch_spec(fetch, owners, firsts, eos)
+                else:
+                    emitted, t_arrival = self._fetch(fetch, owners, firsts, eos)
             except BaseException as exc:  # noqa: BLE001
                 with self._work:
                     self._worker_exc = exc
@@ -1292,6 +1544,7 @@ class ContinuousBatcher:
                 if pure and emitted:
                     ref = self._prev_arrival if self._prev_arrival is not None else t_dispatch
                     self._stat_add_locked(decode_tokens=emitted, decode_s=t_arrival - ref)
+                    self._governor_feed(mode, emitted, t_arrival - ref)
                 self._prev_arrival = t_arrival
                 self._beat = t_arrival  # a fetch arrival is progress
                 self._unfetched -= 1
@@ -1684,8 +1937,9 @@ class ContinuousBatcher:
             pending_firsts = []
 
     def _dispatch(self, chunk: int, sampling: SamplingParams, firsts: list) -> None:
-        """Enqueue one decode chunk over every row and hand its token copy
-        (with the pending first tokens) to the fetch worker."""
+        """Enqueue one decode chunk over every row (a round group on a greedy
+        speculative pool) and hand its token copy (with the pending first
+        tokens) to the fetch worker."""
         eng = self.engine
         # Taken before the launches: an eager chunk's host launch loop is
         # most of its time, so a drained pipeline's interval starts here.
@@ -1697,7 +1951,46 @@ class ContinuousBatcher:
         t0_obs = (time.monotonic_ns()
                   if self._obs is not None or self._bb is not None else 0)
         wall = DeviceWall(eng.device) if self._attrib is not None else None
-        n_steps = self._plan_steps(chunk)
+        mode = None
+        if self._spec is not None and sampling.temperature == 0.0:
+            # A spec pool's greedy dispatch: a round group, or a bitmap-keeping
+            # plain window (governor, brownout, cache tail). A sampled
+            # template keeps the classic chunk below.
+            with obs.attrib.tag("spec_verify"):
+                toks, covered, mode = self._dispatch_spec(chunk)
+            fetch = _Fetch(toks, wall)
+        else:
+            covered = self._plan_steps(chunk)
+            fetch = self._dispatch_chunk(covered, sampling, wall)
+        for rec in (self._obs, self._bb):
+            if rec is not None:
+                args = {"spec": mode} if mode is not None else {}
+                rec.complete("decode", t0_obs, tid="batcher", steps=covered, pos=self._pos,
+                             **args)
+        walls, self._walls = self._walls, []
+        if wall is not None:
+            walls.append(("spec_verify" if mode == "spec" else "decode", fetch.wall))
+        # A pure interval: nothing but the previous chunk ran on the device
+        # since the last dispatch (no admission, no compaction).
+        pure = not firsts and not self._nondecode_work
+        self._nondecode_work = False
+        for s in self._slots:
+            if s is not None:
+                # The guaranteed advance: a spec round gives every row at
+                # least one token.
+                s.planned += covered
+        # The owners of the chunk's columns: the current row capacity.
+        item = (fetch, self._slots[:self._rows_cap], firsts, pure, t_dispatch, walls, mode)
+        self._beat = time.monotonic()  # a dispatch is progress
+        with self._work:
+            self._unfetched += 1
+            self._dispatching = False
+        self._fetch_q.put(item)
+
+    def _dispatch_chunk(self, n_steps: int, sampling: SamplingParams,
+                        wall: Optional[DeviceWall]) -> _Fetch:
+        """The classic chunk: ``n_steps`` decode steps over every row."""
+        eng = self.engine
         pos = torch.full((), self._pos, dtype=torch.int32, device=eng.device)
         rows = {"row_start": self._row_start}
         if self._prefix_cache is not None:
@@ -1731,25 +2024,57 @@ class ContinuousBatcher:
             self._token, toks, _, verdict = out
         else:
             self._token, toks, _ = out
-        fetch = _Fetch(toks, wall, verdict)
         self._pos += n_steps
-        for rec in (self._obs, self._bb):
-            if rec is not None:
-                rec.complete("decode", t0_obs, tid="batcher", steps=n_steps, pos=self._pos)
-        walls, self._walls = self._walls, []
-        if wall is not None:
-            walls.append(("decode", fetch.wall))
-        # A pure interval: nothing but the previous chunk ran on the device
-        # since the last dispatch (no admission, no compaction).
-        pure = not firsts and not self._nondecode_work
-        self._nondecode_work = False
-        for s in self._slots:
-            if s is not None:
-                s.planned += n_steps
-        # The owners of the chunk's columns: the current row capacity.
-        item = (fetch, self._slots[:self._rows_cap], firsts, pure, t_dispatch, walls)
-        self._beat = time.monotonic()  # a dispatch is progress
-        with self._work:
-            self._unfetched += 1
-            self._dispatching = False
-        self._fetch_q.put(item)
+        return _Fetch(toks, wall, verdict)
+
+    def _dispatch_spec(self, chunk: int) -> tuple:
+        """One speculative round group, or one bitmap-keeping plain window
+        while the governor probes or locks plain, under brownout, or when
+        no round fits the cache. Returns ``(tokens, guaranteed per-stream
+        advance, mode)``: a round group's tokens are [R, B, k + 2] (each
+        row's ``k + 1`` candidates, then its acceptance), a plain window's
+        [n, B]."""
+        eng = self.engine
+        sp = self._spec
+        k = sp.controller.k
+        if sp.governor.mode == "plain" or self._brownout or self._pos + (k + 1) > eng.max_seq:
+            n_steps = self._plan_steps(chunk)
+            width = eng._decode_width(min(self._pos + n_steps, eng.max_seq))
+            self._token, toks, sp.blen = _plain_chunk_masked(
+                eng, self._token, self._pos, self._row_start, sp.blen, self._cache, sp.valid,
+                sp.buf, n_steps, width)
+            self._pos += n_steps
+            return toks, n_steps, "plain"
+        rounds = max(1, chunk // (k + 1))
+        need = max((s.max_new - s.planned for s in self._slots if s is not None), default=0)
+        if 0 < need < rounds:
+            rounds = need  # a round advances every stream >= 1 token
+        while rounds > 1 and self._pos + rounds * (k + 1) > eng.max_seq:
+            rounds -= 1
+        width = eng._decode_width(min(self._pos + rounds * (k + 1), eng.max_seq))
+        vocab = eng.cfg.vocab_size
+        outs = []
+        for _ in range(rounds):
+            fault = None
+            if eng._faults is not None:
+                fs = eng._faults.fire("spec", model=eng.cfg.name)
+                if fs is not None and fs.kind == "draft_stall":
+                    time.sleep(float(fs.param("s", 0.05)))  # the round cadence collapses
+                elif fs is not None and fs.kind == "acceptance_collapse":
+                    sp.collapse_faults += 1
+                    fault = "acceptance_collapse"
+            with obs.attrib.tag("draft"):
+                if fault is not None:
+                    drafts = _junk_propose(sp.buf, sp.blen, k, vocab)
+                elif sp.cfg.kind == "oracle":
+                    drafts = _oracle_propose(sp.obuf, sp.blen, k, vocab, sp.cfg.oracle_accept)
+                else:
+                    cap = eng._capture("draft", (tuple(sp.buf.shape[:1]), k, sp.cfg.ngram), k)
+                    with cap or nullcontext():
+                        drafts = _lookup_propose(sp.buf, sp.blen, k, sp.cfg.ngram)
+            out, a, self._token, self._row_start, sp.blen = _spec_verify_batch(
+                eng, self._token, drafts, self._pos, self._row_start, sp.blen, self._cache,
+                sp.valid, sp.buf, k, width)
+            self._pos += k + 1
+            outs.append(torch.cat([out, a[:, None]], dim=1))
+        return torch.stack(outs), rounds, "spec"

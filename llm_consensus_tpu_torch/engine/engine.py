@@ -136,6 +136,10 @@ class GenerateResult:
     # The KV pool truncated this generation's publish (arena exhausted or
     # squeezed): reuse of this context is degraded.
     kv_truncated: bool = False
+    # Speculative decoding's per-call summary (engine/speculative.py):
+    # drafter kind, k, rounds, accepted tokens, governor state; None on the
+    # plain path.
+    spec: Optional[dict] = None
 
 
 # Decode attention width: buckets of this granule over the causal frontier

@@ -433,6 +433,7 @@ def forward(
     prefix_len=None,                  # int or int32 scalar: valid prefix slots
     prefix_rows: Optional[torch.Tensor] = None,  # [B] bool: rows attending prefix
     layer_scope: Optional[Callable] = None,  # a roofline capture's Capture.layer
+    kv_mask: Optional[torch.Tensor] = None,  # [B, S] bool: written-slot bitmap
 ) -> tuple[torch.Tensor, Optional[dict]]:
     """Run the model. Returns (logits [B, T, V] fp32, cache).
 
@@ -455,7 +456,14 @@ def forward(
     row flagged in ``prefix_rows`` (all rows when None); those rows' own
     slots hold positions ``prefix_len`` further on. Neither composes with
     the flash prefill kernel, and ``prefix`` refuses a sliding window.
-    ``layer_scope(i)`` is entered around layer ``i`` when given (a roofline
+    ``kv_mask`` (the batched speculative pool's written-slot bitmap) is the
+    whole per-(row, slot) validity: it replaces the ``row_start`` interval
+    clamp, so rejected slots behind the frontier stay masked while valid
+    slots below ``row_start`` (which absorbs hole counts) stay visible;
+    positions are still measured from the current ``row_start``. It needs
+    a cache and ``row_start``, refuses a sliding window (old slots' positions
+    underestimate their write-time ones, harmless only for full attention)
+    and never reaches a kernel. ``layer_scope(i)`` is entered around layer ``i`` when given (a roofline
     capture counts the first layer only, obs/roofline.py).
     """
     if attn_impl not in ATTN_IMPLS:
@@ -473,6 +481,12 @@ def forward(
                              "with sliding_window")
         if prefix_len is None:
             raise ValueError("prefix requires prefix_len")
+    if kv_mask is not None:
+        if cache is None or row_start is None:
+            raise ValueError("kv_mask requires a cache and row_start")
+        if cfg.sliding_window is not None:
+            raise ValueError("kv_mask (speculative holes) does not "
+                             "compose with sliding_window")
     b, t = tokens.shape
     dev = tokens.device
     x = embed_tokens(params, cfg, tokens)
@@ -486,6 +500,7 @@ def forward(
             and isinstance(start_pos, int)
             and row_start is None  # the kernel assumes one shared offset
             and prefix is None     # the prefill kernel has no merge-state form
+            and kv_mask is None    # the kernels derive validity from positions alone
             and flash_supported(t, hq, hkv, dh)
         )
         else None
@@ -496,6 +511,7 @@ def forward(
         and cache is not None
         and t == 1
         and flash_offset is None
+        and kv_mask is None  # the decode kernel has no bitmap form
         and decode_supported(hq, hkv, dh)
     )
 
@@ -529,7 +545,13 @@ def forward(
         if row_start is not None:
             rs = row_start.to(device=dev, dtype=torch.int32)[:, None]
             kv_positions = kv_slots - rs
-            kv_valid = kv_valid & (kv_slots >= rs)
+            if kv_mask is not None:
+                # The bitmap replaces the interval clamp: slots it clears
+                # are junk even below the frontier. This call's own write
+                # window is marked valid by the caller before dispatch.
+                kv_valid = kv_valid & kv_mask[:, :s].to(dev)
+            else:
+                kv_valid = kv_valid & (kv_slots >= rs)
         if pos_offset is not None:
             # The causal compare in the basis the query positions moved to.
             kv_positions = kv_positions + pos_offset[:, None]

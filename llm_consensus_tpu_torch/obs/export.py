@@ -148,7 +148,9 @@ def collect_kv_stats(registry) -> dict:
 
 
 def collect_spec_stats(registry) -> dict:
-    """Speculative-decoding snapshots: empty, the port has no speculation."""
+    """Speculative-decoding snapshots (``GPUProvider.spec_stats``: rounds,
+    acceptance, governor state), keyed by preset: empty when nothing is
+    drafted."""
     return _collect_provider_stats(registry, "spec_stats")
 
 

@@ -3,7 +3,7 @@ copy of ``llm_consensus_tpu/providers/base.py``, cut to the fields the
 port's device provider fills).
 
 ``latency_ms`` holds milliseconds. The on-device extensions (``truncated``,
-``tokens``, ``tokens_per_sec``, ``mfu``, ``mbu``, ``kv``) serialize only
+``tokens``, ``tokens_per_sec``, ``mfu``, ``mbu``, ``spec``, ``kv``) serialize only
 when set, so the JSON shape is the JAX package's.
 """
 
@@ -47,6 +47,9 @@ class Response:
     tokens_per_sec: Optional[float] = None
     mfu: Optional[float] = None
     mbu: Optional[float] = None  # memory-bandwidth utilization (decode)
+    # Speculative decoding's summary of this query (engine/speculative.py:
+    # rounds, accepted tokens, governor state); None on the plain paths.
+    spec: Optional[dict] = None
     # KV-reuse degradation of this query: {"truncated": True} when the
     # paged KV pool's arena ran out while publishing this context.
     kv: Optional[dict] = None
@@ -68,6 +71,8 @@ class Response:
             d["mfu"] = round(self.mfu, 4)
         if self.mbu is not None:
             d["mbu"] = round(self.mbu, 4)
+        if self.spec is not None:
+            d["spec"] = dict(self.spec)
         if self.kv is not None:
             d["kv"] = dict(self.kv)
         return d

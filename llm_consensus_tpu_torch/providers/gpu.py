@@ -65,6 +65,21 @@ site (``build_fail@preset=``) fires in every engine build, which the retry
 ladder then handles. ``stream_interval`` and ``ignore_eos`` (the JAX
 provider's) go to every engine and request.
 
+Speculative decoding (engine/speculative.py): ``draft`` maps targets to
+drafters in the JAX provider's syntax (:func:`_parse_draft_spec`: a preset
+drafting for every target, ``target=draft`` pairs, or ``lookup``, the
+prompt-lookup drafter); ``spec_k``, ``spec_ngram``, ``spec_adapt``,
+``spec_governor`` and ``spec_probe`` are the control plane's settings.
+Greedy and pure-temperature requests of a drafted target run through a
+``SpeculativeEngine`` (the draft engine is built with the target's
+``max_seq`` cap); with batching on only ``lookup`` batches (the pool's
+speculative rounds), and a model draft is ignored with one warning. A
+configuration error (an unknown draft preset, a draft of another
+vocabulary) turns speculation off for that target with one warning and the
+plain path serves; a kernel or CUDA error in a draft or verify propagates.
+``set_draft`` and ``set_spec_k`` reconfigure (the CLI's ``--draft`` and
+``--spec-k``), ``spec_stats()`` reports each preset (the JAX keys).
+
 Telemetry (obs/), bound at construction: an ``engine_stream`` span per
 request (recorder and flight recorder), the per-token latency into the live
 plane labeled by the request's priority class and outcome, and the
@@ -97,6 +112,24 @@ SCHEME = "gpu:"
 # Errors the retry ladder never retries: a cancel or deadline, the
 # request's own ValueError, and a kernel that failed to build or launch.
 _NO_RETRY = (Cancelled, DeadlineExceeded, ValueError, KernelBuildError, KernelLaunchError)
+
+
+def _parse_draft_spec(spec: str) -> dict:
+    """``--draft`` / ``LLMC_DRAFT`` → {target preset: draft}: a bare name
+    drafts for every target (key ``"*"``), ``a=b`` pairs name one target
+    each; the draft ``lookup`` is the prompt-lookup drafter. Drafts are
+    checked when a request needs one, not here."""
+    out: dict = {}
+    for part in (spec or "").strip().split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if "=" in part:
+            target, _, draft = part.partition("=")
+            out[target.strip()] = draft.strip()
+        else:
+            out["*"] = part
+    return out
 
 
 def parse_model_name(model: str) -> str:
@@ -142,7 +175,9 @@ class GPUProvider(Provider):
                  journal: Optional[StreamJournal] = None,
                  engine_heartbeat_s: float = DEFAULT_HEARTBEAT_S,
                  engine_restarts: int = DEFAULT_MAX_RESTARTS,
-                 stream_interval: int = 16, ignore_eos: bool = False, **modes):
+                 stream_interval: int = 16, ignore_eos: bool = False, draft: str = "",
+                 spec_k: int = 4, spec_ngram: int = 3, spec_adapt: bool = True,
+                 spec_governor: bool = True, spec_probe: int = 64, **modes):
         self.modes = _resolve_modes(**modes)
         self.prefix = {"prefix_cache": bool(prefix_cache),
                        "prefix_cache_max_mb": float(prefix_cache_max_mb)}
@@ -175,6 +210,17 @@ class GPUProvider(Provider):
         self.journal = journal
         self._recovery = (EngineSupervisor(self, journal, engine_heartbeat_s, engine_restarts)
                           if journal is not None else None)
+        # Speculative decoding: the draft map, the k ceiling it resets to,
+        # and one (target engine, SpeculativeEngine or None) pair a preset.
+        self._draft_map = _parse_draft_spec(draft)
+        self._spec_k_default = max(1, spec_k)
+        self._spec_k = self._spec_k_default
+        self._spec_ngram = max(1, spec_ngram)
+        self._spec_adapt = bool(spec_adapt)
+        self._spec_governor = bool(spec_governor)
+        self._spec_probe = int(spec_probe)
+        self._specs: dict[str, tuple] = {}
+        self._spec_batch_warned = False
 
     @classmethod
     def shared(cls, device: DeviceLike = None, *, batch_streams: int = 1,
@@ -184,7 +230,9 @@ class GPUProvider(Provider):
                prefix_cache_max_mb: float = PREFIX_CACHE_MAX_MB, kv_pool: bool = False,
                kv_pool_block: int = 64, kv_pool_mb: float = 256.0, journal: str = "",
                engine_heartbeat_s: float = DEFAULT_HEARTBEAT_S,
-               engine_restarts: int = DEFAULT_MAX_RESTARTS, **modes) -> "GPUProvider":
+               engine_restarts: int = DEFAULT_MAX_RESTARTS, draft: str = "", spec_k: int = 4,
+               spec_ngram: int = 3, spec_adapt: bool = True, spec_governor: bool = True,
+               spec_probe: int = 64, **modes) -> "GPUProvider":
         """One provider per device, quantization modes, batching settings,
         checkpoint directory, prefix and KV pool settings and recovery
         settings for the process (the CLI's factory): a quantized run never
@@ -192,7 +240,9 @@ class GPUProvider(Provider):
         checkpointed run never random weights, a pooled run never a
         snapshot engine, a journaled run never an unsupervised provider. ``journal`` is the ``LLMC_JOURNAL`` setting: empty or
         ``"0"`` off, ``"1"`` in memory, else the directory the WAL files
-        mirror to."""
+        mirror to. The speculation settings join the key too (the CLI's
+        ``--draft`` then reconfigures the shared provider with
+        ``set_draft``)."""
         dev = resolve_device(device)
         modes = _resolve_modes(**modes)
         batching = {"batch_streams": batch_streams, "pool_prefix": bool(pool_prefix),
@@ -206,14 +256,17 @@ class GPUProvider(Provider):
         journal = "" if journal in ("", "0") else journal
         recovery = {"engine_heartbeat_s": float(engine_heartbeat_s),
                     "engine_restarts": int(engine_restarts)}
+        spec = {"draft": draft or "", "spec_k": int(spec_k), "spec_ngram": int(spec_ngram),
+                "spec_adapt": bool(spec_adapt), "spec_governor": bool(spec_governor),
+                "spec_probe": int(spec_probe)}
         key = (dev, tuple(sorted(modes.items())), tuple(sorted(batching.items())),
                checkpoint_dir, tuple(sorted(prefix.items())), journal,
-               tuple(sorted(recovery.items())))
+               tuple(sorted(recovery.items())), tuple(sorted(spec.items())))
         with cls._shared_lock:
             if key not in cls._shared:
                 jr = StreamJournal(path=None if journal == "1" else journal) if journal else None
                 cls._shared[key] = cls(device=dev, checkpoint_dir=checkpoint_dir, journal=jr,
-                                       **batching, **prefix, **recovery, **modes)
+                                       **batching, **prefix, **recovery, **spec, **modes)
             return cls._shared[key]
 
     def prepare(self, models: list[str], judge: Optional[str]) -> None:
@@ -257,6 +310,48 @@ class GPUProvider(Provider):
         return sum(eng._kv_pool.evict_cold(target_occupancy)
                    for _preset, eng in self._engines_with_batchers()
                    if eng._kv_pool is not None)
+
+    def spec_stats(self) -> dict:
+        """Speculative decoding per preset (the JAX keys): a single-stream
+        ``SpeculativeEngine``'s cumulative stats, or a speculative pool's
+        ``spec_snapshot``. Empty when nothing is drafted."""
+        with self._lock:
+            specs = dict(self._specs)
+            batchers = dict(self._batchers)
+        out: dict = {}
+        for preset, (_eng, spec) in specs.items():
+            if spec is None:
+                continue
+            out[preset] = {
+                "kind": spec.drafter.kind, "k": spec.k, "rounds": spec.stats["rounds"],
+                "accepted": spec.stats["accepted"],
+                "mean_accepted": round(spec.mean_accepted, 3),
+                "accept_ema": round(spec.last_accept_ema, 3),
+                "governor_disables": spec.stats["governor_disables"],
+                "collapse_faults": spec.stats["collapse_faults"],
+            }
+        for preset, batcher in batchers.items():
+            snap = batcher.spec_snapshot()
+            if snap:
+                out[preset] = snap
+        return out
+
+    def set_draft(self, spec: str, k: Optional[int] = None) -> None:
+        """Reconfigure drafting (the CLI's ``--draft`` and ``--spec-k``):
+        cached pairs drop so the new map applies at once (target engines
+        stay warm; live batchers keep the mode they were built with).
+        ``k=None`` resets the ceiling to the provider's setting, so one
+        in-process run's flags never leak into the next."""
+        with self._lock:
+            self._draft_map = _parse_draft_spec(spec)
+            self._spec_k = max(1, k) if k is not None else self._spec_k_default
+            self._specs.clear()
+
+    def set_spec_k(self, k: int) -> None:
+        """Set only the draft-length ceiling, keeping the draft map."""
+        with self._lock:
+            self._spec_k = max(1, k)
+            self._specs.clear()
 
     def _batcher_entries(self) -> list:
         """Live ``(preset, batcher)`` pairs: the supervisor's watchdog reads
@@ -305,8 +400,11 @@ class GPUProvider(Provider):
         with self._lock:
             batchers = list(self._batchers.values())
             engines = list(self._engines.values())
+            engines += [spec.draft for _, spec in self._specs.values()
+                        if spec is not None and spec.draft is not None]
             self._batchers.clear()
             self._engines.clear()
+            self._specs.clear()
         for b in batchers:
             b.close()
         for engine in engines:
@@ -320,6 +418,7 @@ class GPUProvider(Provider):
         with self._lock:
             if self._engines.get(preset) is engine:
                 del self._engines[preset]
+            self._specs.pop(preset, None)
             batcher = self._batchers.get(preset)
             if batcher is not None and batcher.engine is engine:
                 del self._batchers[preset]
@@ -353,7 +452,7 @@ class GPUProvider(Provider):
         return self._get_or_build(self._engines, "engine", parse_model_name(model),
                                   self._build_engine)
 
-    def _build_engine(self, preset: str):
+    def _build_engine(self, preset: str, max_seq: Optional[int] = None):
         if self._faults is not None:
             # build_fail[@preset=name]: the construction itself dies; the
             # retry ladder in query_stream builds once more.
@@ -369,7 +468,8 @@ class GPUProvider(Provider):
             ckpt = os.path.join(self.checkpoint_dir, preset)
             params = try_load_params(cfg, ckpt, device=self.device, quant=self.modes["quant"])
             tokenizer = load_tokenizer(ckpt)
-        max_seq = min(self._max_seq, cfg.max_seq_len) if self._max_seq else None
+        cap = min(c for c in (self._max_seq, max_seq) if c) if (self._max_seq or max_seq) else None
+        max_seq = min(cap, cfg.max_seq_len) if cap else None
         return Engine(cfg, params, device=self.device, max_seq=max_seq, tokenizer=tokenizer,
                       stream_interval=self.stream_interval, **self.modes, **self.prefix,
                       **self.kv)
@@ -381,7 +481,64 @@ class GPUProvider(Provider):
         return self._get_or_build(self._batchers, "batcher", preset, lambda _: ContinuousBatcher(
             engine, max_batch=self.batch_streams, pool_prefix=self.pool_prefix,
             pool_prefix_min=self.pool_prefix_min, prefill_budget=self.prefill_budget,
-            pool_bucket=self.pool_bucket, preempt=self.preempt, journal=self.journal))
+            pool_bucket=self.pool_bucket, preempt=self.preempt, journal=self.journal,
+            spec=self._spec_config_for(preset)))
+
+    def _draft_preset_for(self, preset: str) -> Optional[str]:
+        """The draft configured for ``preset`` (None: none, or itself)."""
+        draft = self._draft_map.get(preset, self._draft_map.get("*"))
+        return draft if draft and draft != preset else None
+
+    def _spec_config_for(self, preset: str):
+        """The ``SpecConfig`` of ``preset``'s pool, or None: only the
+        buffer drafter (``lookup``) batches; model drafts stay single-stream."""
+        if self._draft_preset_for(preset) != "lookup":
+            return None
+        from llm_consensus_tpu_torch.engine.speculative import SpecConfig
+
+        return SpecConfig(kind="lookup", k=self._spec_k, ngram=self._spec_ngram,
+                          adaptive=self._spec_adapt, governor=self._spec_governor,
+                          probe_tokens=self._spec_probe)
+
+    def _spec_for(self, preset: str, engine):
+        """The ``SpeculativeEngine`` serving ``preset`` over ``engine`` (built
+        once, dropped when the engine changes), or None when nothing drafts
+        for it. A configuration error (an unknown draft preset, a draft of
+        another vocabulary or device) turns speculation off for this engine
+        with one warning; anything else (a kernel build or launch error, a
+        CUDA error while the draft engine builds) propagates."""
+        draft_preset = self._draft_preset_for(preset)
+        if draft_preset is None:
+            return None
+        with self._lock:
+            entry = self._specs.get(preset)
+            if entry is not None and entry[0] is engine:
+                return entry[1]
+        from llm_consensus_tpu_torch.engine.speculative import (
+            PromptLookupDrafter, SpeculativeEngine)
+
+        settings = {"k": self._spec_k, "adaptive": self._spec_adapt,
+                    "governor": self._spec_governor, "probe_tokens": self._spec_probe}
+        try:
+            if draft_preset == "lookup":
+                spec = SpeculativeEngine(engine, PromptLookupDrafter(self._spec_ngram), **settings)
+            else:
+                parse_model_name(draft_preset)
+                draft_engine = self._build_engine(draft_preset, max_seq=engine.max_seq)
+                spec = SpeculativeEngine(engine, draft_engine, **settings)
+        except (KeyError, ValueError) as exc:
+            import warnings
+
+            warnings.warn(f"speculative decoding disabled for {preset} (draft {draft_preset}): "
+                          f"{exc}", RuntimeWarning, stacklevel=2)
+            spec = None
+        with self._lock:
+            # Double-checked publish; the loser's draft is collectible.
+            entry = self._specs.get(preset)
+            if entry is not None and entry[0] is engine:
+                return entry[1]
+            self._specs[preset] = (engine, spec)
+        return spec
 
     def _recover_batcher(self, preset: str, failed_batcher):
         """Tear down a dead pool and rebuild engine and batcher: the
@@ -424,7 +581,29 @@ class GPUProvider(Provider):
         """One generate of ``prompt`` on ``engine``, through the preset's
         batcher (at ``priority``, None for NORMAL) when batching, supervised
         with a journal; a refused or cancelled submission runs
-        single-stream."""
+        single-stream. A drafted target runs its greedy and pure-temperature
+        requests through its ``SpeculativeEngine`` (single-stream); with
+        batching, ``lookup`` rides the pool's rounds and a model draft is
+        ignored with one warning."""
+        draft_preset = self._draft_preset_for(preset)
+        if draft_preset is not None:
+            if self.batch_streams > 1:
+                if draft_preset != "lookup" and not self._spec_batch_warned:
+                    # Model drafts are single-stream: a drafted request
+                    # must not silently bypass the batcher.
+                    self._spec_batch_warned = True
+                    import warnings
+
+                    warnings.warn(
+                        f"model draft configured for {preset!r} is ignored because stream "
+                        f"batching is enabled (batch_streams={self.batch_streams}); use "
+                        "--draft lookup for speculation that composes with continuous "
+                        "batching", RuntimeWarning, stacklevel=2)
+            elif sampling.temperature == 0.0 or (sampling.top_k is None
+                                                 and sampling.top_p is None):
+                spec = self._spec_for(preset, engine)
+                if spec is not None:
+                    return spec.generate(prompt, sampling, ctx, on_text=cb)
         if self.batch_streams <= 1:
             return engine.generate(prompt, sampling, ctx, on_text=cb)
         batcher = self._batcher_for(preset, engine)
@@ -561,5 +740,6 @@ class GPUProvider(Provider):
             tokens_per_sec=tokens_per_sec,
             mfu=mfu,
             mbu=mbu,
+            spec=getattr(result, "spec", None),
             kv={"truncated": True} if getattr(result, "kv_truncated", False) else None,
         )

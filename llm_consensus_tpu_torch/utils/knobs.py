@@ -61,7 +61,13 @@ knobs that the JAX package declares, with the same meaning:
   * the cross-request KV pool (:func:`kv_pool_settings`, ``GPUProvider``'s
     and ``Engine``'s arguments): ``LLMC_KV_POOL`` (off),
     ``LLMC_KV_POOL_BLOCK`` (64 tokens a block) and ``LLMC_KV_POOL_MB``
-    (256; the arena's budget, MB = 1e6 bytes).
+    (256; the arena's budget, MB = 1e6 bytes);
+  * speculative decoding (:func:`spec_settings`, ``GPUProvider``'s
+    arguments): ``LLMC_DRAFT`` (empty: none; the ``--draft`` syntax),
+    ``LLMC_SPEC_K`` (4, the draft-length ceiling), ``LLMC_SPEC_NGRAM`` (3,
+    the prompt-lookup gram), ``LLMC_SPEC_ADAPT`` (on: the adaptive k
+    ladder), ``LLMC_SPEC_GOVERNOR`` (on: the drafted-vs-plain A/B) and
+    ``LLMC_SPEC_PROBE`` (64 tokens a governor window).
 """
 
 from __future__ import annotations
@@ -255,4 +261,18 @@ def kv_pool_settings() -> dict:
         "kv_pool": get_bool("LLMC_KV_POOL"),
         "kv_pool_block": get_int("LLMC_KV_POOL_BLOCK", 64),
         "kv_pool_mb": get_float("LLMC_KV_POOL_MB", 256.0),
+    }
+
+
+def spec_settings() -> dict:
+    """The speculative-decoding settings of the environment, as the keyword
+    arguments of ``GPUProvider`` (the JAX defaults; k and the gram at
+    least 1)."""
+    return {
+        "draft": get_str("LLMC_DRAFT"),
+        "spec_k": max(1, get_int("LLMC_SPEC_K", 4)),
+        "spec_ngram": max(1, get_int("LLMC_SPEC_NGRAM", 3)),
+        "spec_adapt": get_bool("LLMC_SPEC_ADAPT", True),
+        "spec_governor": get_bool("LLMC_SPEC_GOVERNOR", True),
+        "spec_probe": get_int("LLMC_SPEC_PROBE", 64),
     }

@@ -611,16 +611,18 @@ def test_version_prints_the_port_prog(monkeypatch, tmp_path):
                                  f"\n  built:  {__date__}\n")
 
 
-def test_config_draft_is_refused_by_the_port(tmp_path, monkeypatch):
-    """The JAX key set includes ``draft``; the port has no --draft, so a
-    config file that sets it fails instead of being ignored."""
+def test_config_draft_sets_the_draft_flag(tmp_path, monkeypatch):
+    """The config file's ``draft`` sets ``--draft`` in both CLIs (an
+    explicit flag wins), and the run goes through."""
+    jax_cli = importlib.import_module("llm_consensus_tpu.cli.main")
     path = tmp_path / "c.json"
     path.write_text(json.dumps({"draft": "lookup", "models": "gpu:a"}))
     monkeypatch.setenv("LLMC_CONFIG", str(path))
+    for parse in (jax_cli.parse_args, cli_mod.parse_args):
+        assert parse(["q"], io.StringIO(""), io.StringIO()).draft == "lookup"
+        assert parse(["--draft", "x=y", "q"], io.StringIO(""), io.StringIO()).draft == "x=y"
     rc, out, err, fakes = _invoke("gpu", ["q"])
-    assert rc == 1 and not fakes.calls and not fakes.built
-    assert err == (f"error: config file {path}: 'draft' sets --draft, which is not in the "
-                   "PyTorch port yet; remove the key\n")
+    assert rc == 0, err
 
 
 def test_config_search_order(tmp_path, monkeypatch):

@@ -920,3 +920,75 @@ def test_kv_pool_hit_on_the_card_matches_a_fresh_engine(cuda):
     assert eng._kv_pool.stats()["hits"] == 1
     assert bool(torch.isfinite(reused).all())
     assert (reused - ref).abs().max().item() <= REUSE_LOGIT_TOL
+
+
+# -- speculative decoding (the speculation slice) -------------------------------------
+
+# bf16 greedy tokens of a verify forward (T = k + 1, the plain op) and of a
+# decode step (T = 1, the decode kernel) may flip where the two best logits
+# are this close; a misplaced or lost token reads far above it.
+SPEC_NEAR_TIE = 0.25
+
+
+def _spec_equal_or_near_tie(engine, ids, got, want):
+    """Greedy tokens equal, or equal up to a first difference where the two
+    tokens' logits (teacher-forced on ``want``) are within SPEC_NEAR_TIE."""
+    from llm_consensus_tpu_torch.models.transformer import forward
+
+    i = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if i is None:
+        return len(got) == len(want)
+    with torch.inference_mode():
+        logits, _ = forward(engine.params, engine.cfg,
+                            torch.tensor([ids + want[:i]], device=engine.device), None, 0)
+    last = logits[0, -1].float()
+    return abs(float(last[got[i]] - last[want[i]])) <= SPEC_NEAR_TIE
+
+
+def test_spec_drafted_generate_on_the_card(cuda):
+    """llama-3.2-1b (dh 64) drafted by another llama-3.2-1b: the draft's
+    steps launch the decode kernel (k + 1 steps a round, every layer), the
+    verify forwards none, both prompts flash once a layer; the tokens equal
+    plain decode up to a bf16 near-tie."""
+    from llm_consensus_tpu_torch.engine import SpeculativeEngine
+
+    cfg = get_config("llama-3.2-1b")
+    target = Engine(cfg, device=cuda, max_seq=1024, seed=0)
+    draft = Engine(cfg, device=cuda, max_seq=1024, seed=1)
+    ids = [target.tokenizer.bos_id] + list(range(40, 140)) * 3
+    prompt = target.tokenizer.decode(ids[1:])
+    s = SamplingParams(max_new_tokens=48, ignore_eos=True)
+    want = target.generate(prompt, s)
+    spec = SpeculativeEngine(target, draft, k=4, adaptive=False, governor=False)
+    flash0, dec0 = fa.LAUNCHES.count, da.LAUNCHES.count
+    got = spec.generate(prompt, s)
+    rounds = spec.stats["rounds"]
+    assert fa.LAUNCHES.count - flash0 == 2 * cfg.n_layers
+    assert da.LAUNCHES.count - dec0 == rounds * 5 * cfg.n_layers
+    assert len(got.token_ids) == 48 and rounds > 0
+    p_ids = target.tokenizer.encode(prompt)
+    assert _spec_equal_or_near_tie(target, p_ids, got.token_ids, want.token_ids)
+
+
+def test_spec_pool_on_the_card(cuda):
+    """consensus-1b at its published width: a 4-row prompt-lookup pool
+    runs rounds (no kernel in a verify), every stream equal to
+    single-stream up to a bf16 near-tie."""
+    from llm_consensus_tpu_torch.engine import SpecConfig
+    from llm_consensus_tpu_torch.engine.batcher import ContinuousBatcher
+
+    engine = Engine(get_config("consensus-1b"), device=cuda, max_seq=1024)
+    prompts = [[engine.tokenizer.bos_id] + list(range(40 + i, 90 + i)) * 3 for i in range(4)]
+    s = SamplingParams(max_new_tokens=40, ignore_eos=True)
+    refs = [engine.generate_ids(p, s).token_ids for p in prompts]
+    b = ContinuousBatcher(engine, max_batch=4, spec=SpecConfig(kind="lookup", governor=False))
+    try:
+        dec0 = da.LAUNCHES.count
+        got = [f.result(timeout=300).token_ids for f in [b.submit_ids(p, s) for p in prompts]]
+        snap = b.spec_snapshot()
+    finally:
+        b.close()
+    assert da.LAUNCHES.count == dec0  # verify and plain windows: the plain op
+    assert snap["rounds"] > 0
+    for p, g, r in zip(prompts, got, refs):
+        assert _spec_equal_or_near_tie(engine, p, g, r)

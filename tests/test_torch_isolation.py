@@ -67,7 +67,8 @@ def test_the_knobs_module_reads_only_knobs_the_jax_package_declares():
     text = (PKG / "utils" / "knobs.py").read_text()
     named = set(re.findall(r"LLMC_[A-Z0-9_]+", text))
     assert {"LLMC_KV_POOL", "LLMC_KV_POOL_BLOCK", "LLMC_KV_POOL_MB",
-            "LLMC_INTEGRITY_SAMPLE"} <= named
+            "LLMC_INTEGRITY_SAMPLE", "LLMC_DRAFT", "LLMC_SPEC_K", "LLMC_SPEC_NGRAM",
+            "LLMC_SPEC_ADAPT", "LLMC_SPEC_GOVERNOR", "LLMC_SPEC_PROBE"} <= named
     undeclared = sorted(n for n in named if n not in jax_knobs.REGISTRY)
     assert not undeclared, undeclared
 

@@ -25,7 +25,7 @@ from llm_consensus_tpu.engine import SamplingParams as JaxSampling
 from llm_consensus_tpu.models import get_config as jax_config
 from llm_consensus_tpu.models import init_params as jax_init
 from llm_consensus_tpu.pressure import priority as jax_priority
-from llm_consensus_tpu_torch.engine import Engine, SamplingParams
+from llm_consensus_tpu_torch.engine import Engine, SamplingParams, SpecConfig
 from llm_consensus_tpu_torch.engine.batcher import ContinuousBatcher
 from llm_consensus_tpu_torch.models import get_config
 from llm_consensus_tpu_torch.models.transformer import params_from_numpy
@@ -143,20 +143,31 @@ def _run_contended(b, low_prompts, hi_prompt, s_low, s_hi):
     return r_low, r_hi
 
 
-@pytest.mark.parametrize("pool,spec", [(False, False)], ids=["spec-off-kvpool-off"])
+@pytest.mark.parametrize("pool,spec", [(False, False), (False, True), (True, True)],
+                         ids=["spec-off-kvpool-off", "spec-on-kvpool-off", "spec-on-kvpool-on"])
 def test_preempt_resume_byte_identity_matrix(pair, make_batcher, pool, spec):
     """A HIGH latecomer preempts a LOW resident in a full pool, and every
     stream, the victim included, emits exactly the uncontended greedy
-    tokens (the port's single-stream engine's and the JAX engine's)."""
+    tokens (the port's single-stream engine's and the JAX engine's); the
+    spec axis runs the pool's speculative rounds (the JAX matrix's
+    ``lookup``, k 2, gram 2), the pool axis the engine's KV pool."""
     s_low = SamplingParams(max_new_tokens=48, ignore_eos=True)
     s_hi = SamplingParams(max_new_tokens=10, ignore_eos=True)
     low_prompts = [f"low class resident stream {i} body" for i in range(2)]
     hi_prompt = "high class latecomer"
     base_low = _refs(pair, low_prompts, s_low)
     (base_hi,) = _refs(pair, [hi_prompt], s_hi)
-    b = make_batcher(pair[1], max_batch=2)
+    eng = pair[1]
+    if pool:
+        eng = Engine(get_config("tiny-llama"), params=pair[1].params, dtype=torch.float32,
+                     device="cpu", max_seq=256, stream_interval=8, prefill_chunk=16,
+                     kv_pool=True, kv_pool_block=16)
+    b = make_batcher(eng, max_batch=2,
+                     spec=SpecConfig(kind="lookup", k=2, ngram=2) if spec else None)
     r_low, r_hi = _run_contended(b, low_prompts, hi_prompt, s_low, s_hi)
     assert b.snapshot()["preemptions"] >= 1, b.snapshot()
+    if spec:
+        assert b.spec_snapshot()["rounds"] > 0
     assert r_hi.token_ids == base_hi and not r_hi.preempted
     for i, r in enumerate(r_low):
         assert r.token_ids == base_low[i], f"victim stream {i} diverged"
