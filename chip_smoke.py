@@ -11,8 +11,11 @@
     python3 chip_smoke.py --phase recovery  # build + the recovery phase only
     python3 chip_smoke.py --phase kvpool    # build + the KV pool phase only
     python3 chip_smoke.py --phase spec      # build + the dh 64 kernel rows + speculation
+    python3 chip_smoke.py --phase gateway   # build + the serve gateway phase only
 
-Phases, in order; any failure exits non-zero before the last line:
+Phases, in order; any failure exits non-zero before the last line. Every
+CLI run of the script asks ``CLI_TOKENS`` (48) tokens a model, where the
+phases below say 64:
 
 1. the card: ``nvidia-smi`` name and power limit;
 2. build: the CUDA kernels from ``llm_consensus_tpu_torch/csrc`` with nvcc
@@ -71,11 +74,12 @@ Phases, in order; any failure exits non-zero before the last line:
    equal); ``--trace DIR`` and ``--profile`` artifacts with the card's
    kernels; the ledger's device-memory numbers against
    ``torch.cuda.max_memory_allocated``; the slice's auto-saved CLI run in
-   a fresh process with the planes on and off, one of each (process and
-   main() walls);
+   a fresh process with the planes off (process and main() walls; the
+   planes-on arm of the pair was cut to fit the gateway phase in the
+   time limit);
 8b. the consensus modes (``--phase modes``), each through the port's CLI
    over warm shared providers (the slice's panel and judge, bf16, the
-   350-token prompt, 64 tokens): ``--rounds 2 --confidence --system-file``
+   350-token prompt, 48 tokens): ``--rounds 2 --confidence --system-file``
    (7 generates), ``--vote`` (2, no judge engine built), ``--continue``, a
    plain run (the phase's baseline wall), ``--resume`` of that run less one
    panel answer and of a run whose child
@@ -169,12 +173,12 @@ Phases, in order; any failure exits non-zero before the last line:
    Any RuntimeWarning fails it. A ``{"kvpool": ...}`` line;
 8g. the speculation phase (``--phase spec``): llama-3-8b bf16 drafted by
    llama-3.2-1b bf16 (16 layers, dh 64), both at full width and 8,192 slots,
-   the slice's prompt: (a) k = 4, adaptive and governor off, 128 tokens:
+   the slice's prompt: (a) k = 4, adaptive and governor off, 64 tokens:
    flash once a layer on both prompts, the decode kernel in every draft step
    (k + 1 a round, 16 layers), none in a verify, at most one host fetch per
    round group, the tokens against plain decode by the near-tie rule; (b)
    the oracle at forced acceptance 1, 2, 3 and 5 against plain decode,
-   tokens/s over the request (median of 3, 64 tokens); (c) prompt lookup on
+   tokens/s over the request (one run each, 64 tokens); (c) prompt lookup on
    a judge prompt quoting an answer; (d) the governor on: it locks plain;
    (e) rejection sampling at temperature 0.8 (every probability finite),
    then ``acceptance_collapse@p=1`` greedy; (f) a lookup pool and an oracle
@@ -185,6 +189,30 @@ Phases, in order; any failure exits non-zero before the last line:
    --draft lookup --events`` (``metrics.json``'s ``spec`` block,
    consensus-1b undrafted). A RuntimeWarning (a "speculative decoding
    disabled" one among them) fails it. A ``{"spec": ...}`` line;
+8h. the gateway phase (``--phase gateway``): ``cli.main(["serve", ...])`` in
+   this process on a thread, stopped by its shutdown event, over
+   ``gpu:llama-3-8b`` + ``gpu:consensus-1b`` (judge llama-3-8b), bf16, full
+   width and context, random weights, ``--max-batch 8 --queue-depth 4
+   --max-tokens 48``, the governor's knobs of ``GATEWAY_ENV``, real HTTP on
+   127.0.0.1: (a) 8 concurrent distinct ~350-token requests (4 run, 4
+   queue), every run directory holding the CLI's result files; (a), (b), (d)
+   and (f) ask 16 tokens a request (the server's 48 in (c) and (e)); (b) 4
+   identical requests (one run, 3 coalesced), a fifth a cache hit, then 4
+   questions behind one shared preamble (the ``return_state`` launches); (c)
+   one SSE request (chunks of both panel models and the judge, then
+   ``done``); (d) 12 LOW requests with a HIGH one inside the burst: some
+   shed with ``Retry-After`` in [1.5, 3) s, the ladder past ``ok``, HIGH
+   answered; (e) consensus-1b swapped through ``POST /v1/swap`` to an HF
+   checkpoint of seed + 1 weights while a request decodes (that stream on
+   v0, the next on v1 against a fresh engine, then a rollback to v0, each
+   by the near-tie rule; prep, vacate and memory recorded); the TTFT
+   count equals the requests answered; (f) a drain with 2 requests in
+   flight (exit 0, runs flushed), then ``python -m llm_consensus_tpu_torch
+   serve`` in a child process drained by SIGTERM. Every request asks 16
+   tokens but (e)'s in-flight one (48). Flash and the bf16 decode kernel
+   must launch through the served requests: the launches of (e)'s
+   reference runs are counted apart and left out. A ``{"gateway": ...}``
+   line (latency median and maximum by request kind);
 9. the quantized slice: the same CLI run with ``LLMC_QUANT=int8
    LLMC_KV_QUANT=int8`` in the environment (int8 weights, int8 KV cache,
    the int8 decode kernel), then a profiler window over one of its
@@ -233,6 +261,8 @@ import gc
 import io
 import json
 import os
+import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -1291,10 +1321,16 @@ def read_run_dir(run_dir: str) -> dict:
     return files
 
 
+# Tokens a model of every CLI run of the script asks (cut from 64 to fit the
+# gateway phase in the time limit; 48 keeps the rate clock's 3 chunks).
+CLI_TOKENS = "48"
+
+
 def run_slice(torch, counters: dict, env: dict, label: str,
               models: str = "gpu:llama-3-8b,gpu:consensus-1b", events: bool = False,
               extra: tuple = (), data_dir: str = "", prompt: str = PROMPT,
-              timing: bool = True, n_models: int = 0, judge: str = "gpu:llama-3-8b") -> dict:
+              timing: bool = True, n_models: int = 0, judge: str = "gpu:llama-3-8b",
+              max_tokens: str = CLI_TOKENS) -> dict:
     """One consensus run through the port's CLI (panel ``models``, ``judge``,
     ``extra`` flags) with ``env`` set for the call (and restored
     after); ``counters`` (name → LaunchCounter) are set to 0 just before and
@@ -1318,7 +1354,7 @@ def run_slice(torch, counters: dict, env: dict, label: str,
         root = data_dir or tmp
         before = set(os.listdir(root)) if os.path.isdir(root) else set()
         argv = [
-            "--models", models, "--judge", judge, "--max-tokens", "64",
+            "--models", models, "--judge", judge, "--max-tokens", max_tokens,
             *(["--events"] if events else []), *([] if save else ["--json"]),
             "--data-dir", root, *extra, prompt,
         ]
@@ -1761,12 +1797,13 @@ def run_batched_engine(torch, fa, da, engine, state_recs: dict) -> None:
         raise AssertionError(f"batched engine shared wave: {snap}, state {state_n}, "
                              f"bf16 {bf16_n}")
 
-    # Where a shared-prefix wave's time goes (4 streams x 48 tokens).
-    s48 = SamplingParams(max_new_tokens=48, ignore_eos=True)
+    # Where a shared-prefix wave's time goes (4 streams x PROFILE_TOKENS: the
+    # profiler's event processing, not the wave, fills a longer window).
+    sp = SamplingParams(max_new_tokens=PROFILE_TOKENS, ignore_eos=True)
     b = ContinuousBatcher(engine, max_batch=4)
     try:
         profile_decode(torch, engine, "profile batched shared prefix", run=lambda: [
-            f.result(timeout=600) for f in [b.submit(pr, s48) for pr in prompts]])
+            f.result(timeout=600) for f in [b.submit(pr, sp) for pr in prompts]])
     finally:
         b.close()
 
@@ -1907,7 +1944,7 @@ def check_attrib_against_profiler(torch, engine) -> None:
 
     led = engine._attrib
     ids = engine.tokenizer.encode(PROMPT)
-    sp = SamplingParams(max_new_tokens=48, ignore_eos=True)
+    sp = SamplingParams(max_new_tokens=32, ignore_eos=True)
     marks = []
 
     def run():
@@ -1979,19 +2016,19 @@ PLANES_OFF = {"LLMC_LIVE": "0", "LLMC_ATTRIB": "0", "LLMC_ROOFLINE": "0", "LLMC_
 
 
 def measure_fresh_cli_walls() -> None:
-    """The slice's CLI run, auto-saved as a user runs it, each time in a
-    fresh process, with the planes on (the default) and off (every plane's
-    knob at 0), one of each: the process wall and main()'s own wall. The
-    planes-on run writes metrics.json, the other does not."""
+    """The slice's CLI run, auto-saved as a user runs it, in a fresh process
+    with the planes off (every plane's knob at 0): the process wall and
+    main()'s own wall, and no metrics.json. The planes-on case (the default)
+    runs in process in the telemetry slice."""
     repo = os.path.dirname(os.path.abspath(__file__))
     base = {k: v for k, v in os.environ.items() if not k.startswith("LLMC_")}
     base["LLMC_CONFIG"] = "0"  # no ambient config file changes the slice
-    walls: dict = {"on": [], "off": []}
-    for arm in ("on", "off"):
+    walls: dict = {"off": []}
+    for arm in ("off",):
         env = {**base, **(PLANES_OFF if arm == "off" else {})}
         with tempfile.TemporaryDirectory(prefix="chip-smoke-") as data_dir:
             argv = ["--models", "gpu:llama-3-8b,gpu:consensus-1b", "--judge", "gpu:llama-3-8b",
-                    "--max-tokens", "64", "--data-dir", data_dir, PROMPT]
+                    "--max-tokens", CLI_TOKENS, "--data-dir", data_dir, PROMPT]
             t0 = time.monotonic()
             proc = subprocess.run([sys.executable, "-c", _FRESH_CLI, *argv], env=env, cwd=repo,
                                   capture_output=True, text=True, timeout=600)
@@ -2065,7 +2102,7 @@ def measure_overhead(torch, engine) -> None:
     originals = [(cls, name, cls.__dict__[name]) for cls, name in hooks]
     sync_orig = (torch.cuda.synchronize, torch.cuda.Event.synchronize)
     ids = engine.tokenizer.encode(PROMPT)
-    sp = SamplingParams(max_new_tokens=128, ignore_eos=True)
+    sp = SamplingParams(max_new_tokens=64, ignore_eos=True)
     engine.generate_ids(ids, sp)  # warm: every key of this shape counted already
     arms = {"off": [], "on": []}
     try:
@@ -2206,6 +2243,7 @@ def run_telemetry(torch, fa, da) -> None:
 
 MODES_PANEL = "gpu:llama-3-8b,gpu:consensus-1b"
 MODES_JUDGE = "gpu:llama-3-8b"
+MODES_TOKENS = CLI_TOKENS
 # The vote run names a judge outside the panel, so that "no judge engine is
 # built" reads directly in the provider's engines().
 VOTE_JUDGE = "gpu:llama-3.1-8b"
@@ -2312,7 +2350,8 @@ def crash_run(data_dir: str, log_path: str) -> str:
     once its first panel answer lands in ``panel/``. Returns the run id."""
     repo = os.path.dirname(os.path.abspath(__file__))
     argv = [sys.executable, "-m", "llm_consensus_tpu_torch", "--models", MODES_PANEL,
-            "--judge", MODES_JUDGE, "--max-tokens", "64", "--data-dir", data_dir, PROMPT]
+            "--judge", MODES_JUDGE, "--max-tokens", MODES_TOKENS, "--data-dir", data_dir,
+            PROMPT]
     landed, t0 = [], time.monotonic()
     with open(log_path, "w", encoding="utf-8") as child_log:
         child = subprocess.Popen(argv, cwd=repo, env={**os.environ, "LLMC_CONFIG": "0"},
@@ -2345,7 +2384,7 @@ def run_modes(torch, fa, da, card: str) -> dict:
     """The modes phase: each consensus mode of the CLI through the port's
     CLI in this process over warm shared providers (panel llama-3-8b +
     consensus-1b, judge llama-3-8b, bf16, random weights, the 350-token
-    prompt, 64 new tokens), the crash case in a child process. Returns the
+    prompt, 48 new tokens), the crash case in a child process. Returns the
     rows of the ``{"modes": ...}`` line."""
     from llm_consensus_tpu_torch.cli.main import install_planes, load_panel_journal
     from llm_consensus_tpu_torch.engine.tokenizer import ByteTokenizer
@@ -2356,7 +2395,7 @@ def run_modes(torch, fa, da, card: str) -> dict:
     counters = {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES,
                 "generates": gens}
     env = {"LLMC_CONFIG": "0"}
-    slice_kw = {"models": MODES_PANEL, "judge": MODES_JUDGE}
+    slice_kw = {"models": MODES_PANEL, "judge": MODES_JUDGE, "max_tokens": MODES_TOKENS}
     second = MODES_PANEL.split(",")[1].split(":", 1)[1]
     rows: dict = {}
     # Warm shared providers: the panel's engines are built before the first
@@ -2392,6 +2431,7 @@ def run_modes(torch, fa, da, card: str) -> dict:
         # 2. --vote: the panel's 2 generates, no judge provider or engine.
         provider = sl["provider"]
         sl = run_slice(torch, counters, env, "modes: --vote", models=MODES_PANEL, judge=VOTE_JUDGE,
+                       max_tokens=MODES_TOKENS,
                        extra=("--vote", "--options", "A,B,C"), timing=False)
         judge_preset = VOTE_JUDGE.split(":", 1)[1]
         if sl["doc"]["judge"] != "vote" or judge_preset in provider.engines():
@@ -2467,7 +2507,7 @@ def run_modes(torch, fa, da, card: str) -> dict:
                            FOLLOW_UPS[1], "/reset", "/exit"]) + "\n"
         run = cli_call(torch, counters, env,
                        ["--models", MODES_PANEL, "--judge", MODES_JUDGE, "--max-tokens",
-                        "64", "--data-dir", session, "-i"], stdin=stdin)
+                        MODES_TOKENS, "--data-dir", session, "-i"], stdin=stdin)
         runs = saved_runs(session) if os.path.isdir(session) else []
         docs = [r.get("result.json", {}) for r in runs]
         shape = [(len(d.get("history", [])), len(d.get("responses", []))) for d in docs]
@@ -2485,7 +2525,7 @@ def run_modes(torch, fa, da, card: str) -> dict:
             json.dump({"aliases": {"@panel": MODES_PANEL}, "rounds": 2}, f)
         sl = run_slice(torch, counters, {"LLMC_CONFIG": config}, "modes: config file",
                        judge=MODES_JUDGE, models="@panel", n_models=2, data_dir=os.path.join(tmp, "config"),
-                       timing=False)
+                       timing=False, max_tokens=MODES_TOKENS)
         manifest = sl["files"]["run.json"]
         if manifest["models"] != MODES_PANEL.split(",") or manifest["rounds"] != 2:
             raise AssertionError(f"config: run.json {manifest}")
@@ -3366,7 +3406,7 @@ def serving_cli(torch, fa, da) -> dict:
     counters = {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES,
                 "decode_attention_state": da.LAUNCHES_STATE}
     argv = ["--models", ",".join([f"gpu:{SERVING_MODEL}"] * 4), "--judge",
-            f"gpu:{SERVING_MODEL}", "--max-tokens", "64", "--priority", "low",
+            f"gpu:{SERVING_MODEL}", "--max-tokens", CLI_TOKENS, "--priority", "low",
             "--prefill-budget", "2048", "--json", PROMPT]
     ContinuousBatcher.submit = submit
     try:
@@ -3834,7 +3874,7 @@ def recovery_cli(torch, fa, da, tmp: str) -> dict:
            "LLMC_FAULTS": "crash@chunk=3", "LLMC_FAULTS_SEED": "7"}
     counters = {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES}
     argv = ["--models", ",".join([f"gpu:{RECOVERY_MODEL}"] * 4), "--judge",
-            f"gpu:{RECOVERY_MODEL}", "--max-tokens", "64", "--events", "--data-dir", data,
+            f"gpu:{RECOVERY_MODEL}", "--max-tokens", CLI_TOKENS, "--events", "--data-dir", data,
             PROMPT]
     try:
         call = cli_call(torch, counters, env, argv)
@@ -4302,7 +4342,7 @@ def kvpool_cli(torch, fa, da, tmp: str) -> dict:
         release_memory(torch)
         root = os.path.join(tmp, label.replace(" ", "_"))
         os.makedirs(root)
-        argv = ["--models", SESSION_PANEL, "--judge", SESSION_JUDGE, "--max-tokens", "64",
+        argv = ["--models", SESSION_PANEL, "--judge", SESSION_JUDGE, "--max-tokens", CLI_TOKENS,
                 "--rounds", "2", "--events", "--data-dir", root, PROMPT]
         call = cli_call(torch, {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES},
                         env, argv)
@@ -4426,9 +4466,9 @@ MOE_TOL = 1e-4
 
 SPEC_TARGET, SPEC_DRAFT = "llama-3-8b", "llama-3.2-1b"
 SPEC_K = 4
-SPEC_TOKENS = 128      # (a)
-SPEC_SWEEP_TOKENS = 64  # (b), (c), (e): medians of 3 at each point
-SPEC_GOVERNOR_TOKENS = 192  # (d): a 64-token drafted probe, a 64-token plain one, then locked
+SPEC_TOKENS = 64       # (a)
+SPEC_SWEEP_TOKENS = 64  # (b), (c), (e); one run at each point of (b)
+SPEC_GOVERNOR_TOKENS = 160  # (d): a 64-token drafted probe, a 64-token plain one, then locked
 
 
 def check_kernels_dh64(torch, flash_rec: dict, decode_rec: dict) -> None:
@@ -4579,25 +4619,24 @@ def spec_model_draft(torch, fa, da, tgt, drf, ids, plain) -> dict:
 
 def spec_oracle_sweep(torch, tgt, ids, plain) -> dict:
     """(b) the oracle at forced acceptance 1, 2, 3 and 5 (k = 4) against
-    plain decode: tokens/s over the request, host clock, median of 3."""
+    plain decode: tokens/s over the request, host clock, one run each."""
     from llm_consensus_tpu_torch.engine import OracleDrafter, SamplingParams, SpeculativeEngine
 
     s = SamplingParams(max_new_tokens=SPEC_SWEEP_TOKENS, ignore_eos=True)
     cont = plain.token_ids[:SPEC_SWEEP_TOKENS]
-    rates = {"plain": sorted(spec_rate(tgt.generate(PROMPT, s)) for _ in range(3))}
+    rates = {"plain": [spec_rate(tgt.generate(PROMPT, s))]}
     means = {}
     for accept in (1, 2, 3, 5):
         spec = SpeculativeEngine(tgt, OracleDrafter(cont, accept=accept), k=SPEC_K,
                                  adaptive=False, governor=False)
-        runs = [spec.generate(PROMPT, s) for _ in range(3)]
+        runs = [spec.generate(PROMPT, s)]
         for r in runs:
             greedy_check(torch, tgt, f"(b) oracle accept {accept}", ids, r.token_ids, cont)
         rates[accept] = sorted(spec_rate(r) for r in runs)
         means[accept] = spec.mean_accepted
-    med = {key: v[1] for key, v in rates.items()}
-    log("(b) oracle sweep, tokens/s (median of 3, range): " + "; ".join(
-        f"{key}: {v[1]:.2f} ({v[0]:.2f}-{v[2]:.2f})" for key, v in rates.items())
-        + f"; mean accepted {means}")
+    med = {key: v[0] for key, v in rates.items()}
+    log("(b) oracle sweep, tokens/s (one run each): " + "; ".join(
+        f"{key}: {v[0]:.2f}" for key, v in rates.items()) + f"; mean accepted {means}")
     return {"rates": rates, "median": med, "mean_accepted": means,
             "speedup": {a: med[a] / med["plain"] for a in (1, 2, 3, 5)}}
 
@@ -4633,7 +4672,7 @@ def spec_governor(torch, tgt, drf, ids) -> dict:
     from llm_consensus_tpu_torch.engine import SamplingParams, SpeculativeEngine
 
     s = SamplingParams(max_new_tokens=SPEC_GOVERNOR_TOKENS, ignore_eos=True)
-    plain = [tgt.generate(PROMPT, s) for _ in range(3)]
+    plain = [tgt.generate(PROMPT, s)]
     spec = SpeculativeEngine(tgt, drf, k=SPEC_K)
     got = spec.generate(PROMPT, s)
     plain_rates = sorted(spec_rate(r) for r in plain)
@@ -4645,7 +4684,7 @@ def spec_governor(torch, tgt, drf, ids) -> dict:
                                  plain[0].token_ids)}
     log(f"(d) governor on: {row['governor']}, disables {row['disables']}, plain tokens "
         f"{row['plain_tokens']} of {len(got.token_ids)}; {row['tokens_per_s']:.2f} tokens/s "
-        f"against plain {plain_rates[0]:.2f}-{plain_rates[2]:.2f} (3 runs, whole request)")
+        f"against plain {plain_rates[0]:.2f} (one run, whole request)")
     if row["disables"] < 1:
         raise AssertionError(f"(d) the governor never locked plain: {got.spec}")
     return row
@@ -5212,6 +5251,629 @@ def run_mixtral(torch, fa, da, seed: int, records: dict) -> None:
     log(f"mixtral phases: {time.monotonic() - t0:.1f} s")
 
 
+# -- phase 8h: the serve gateway -------------------------------------------------
+
+GATEWAY_ARGS = ["--models", "gpu:llama-3-8b,gpu:consensus-1b", "--judge", "gpu:llama-3-8b",
+                "--max-batch", "8", "--queue-depth", "4", "--max-tokens", "48", "--port", "0"]
+# Operator knobs of (d): the governor samples every 50 ms and climbs one rung
+# a sample past the high-water mark; brownout serves the judge from
+# consensus-1b. Read by `serve` once, at start.
+GATEWAY_ENV = {"LLMC_PRESSURE_POLL_S": "0.05", "LLMC_PRESSURE_UP_PATIENCE": "1",
+               "LLMC_PRESSURE_DOWN_PATIENCE": "2",
+               "LLMC_PRESSURE_JUDGE_FALLBACK": "gpu:llama-3-8b=gpu:consensus-1b"}
+# The shared prefix of (b)'s second wave: ~400 tokens of one system-style
+# preamble ahead of four distinct questions.
+SHARED_PREAMBLE = ("You are one member of a review panel. Read the question, weigh the "
+                   "trade-offs a careful engineer would weigh, and answer in a few plain "
+                   "sentences with one recommendation. ") * 2 + PROMPT[:60] + " "
+
+
+def gw_post(port: int, body: dict, path: str = "/v1/consensus", timeout: float = 300.0):
+    """One HTTP POST to the gateway on 127.0.0.1: (status, headers, body
+    bytes, wall s, SSE events or None)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    t0 = time.monotonic()
+    try:
+        conn.request("POST", path, json.dumps(body), {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        headers = dict(r.getheaders())
+        if headers.get("Content-Type") != "text/event-stream":
+            return r.status, headers, r.read(), time.monotonic() - t0, None
+        events, name, first = [], None, None
+        for raw in r:
+            line = raw.decode("utf-8").rstrip("\r\n")
+            if line.startswith("event: "):
+                name = line[len("event: "):]
+            elif line.startswith("data: "):
+                if first is None:
+                    first = time.monotonic() - t0
+                events.append((name, json.loads(line[len("data: "):])))
+        return r.status, headers, b"", time.monotonic() - t0, (events, first)
+    finally:
+        conn.close()
+
+
+def gw_get(port: int, path: str) -> tuple:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        r = conn.getresponse()
+        return r.status, r.read().decode("utf-8")
+    finally:
+        conn.close()
+
+
+def gw_fire(port: int, bodies: list) -> list:
+    """``bodies`` POSTed concurrently; the answers in order."""
+    out = [None] * len(bodies)
+
+    def one(i):
+        out[i] = gw_post(port, bodies[i])
+
+    threads = [threading.Thread(target=one, args=(i,), daemon=True) for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if any(o is None for o in out):
+        raise AssertionError("gateway: a request never answered")
+    return out
+
+
+class StreamLog:
+    """Every batcher submission of the phase: (preset, prompt, sampling, the
+    future), by wrapping ``ContinuousBatcher.submit`` (restored on exit)."""
+
+    def __init__(self):
+        from llm_consensus_tpu_torch.engine.batcher import ContinuousBatcher
+
+        self.cls, self.real = ContinuousBatcher, ContinuousBatcher.submit
+        self.items: list = []
+        self.lock = threading.Lock()
+
+    def __enter__(self):
+        real, log_ = self.real, self
+
+        def submit(b, prompt, sampling, ctx=None, on_text=None, *, priority=1):
+            fut = real(b, prompt, sampling, ctx, on_text, priority=priority)
+            with log_.lock:
+                log_.items.append((b.engine.cfg.name, prompt, sampling, fut, b.engine))
+            return fut
+
+        self.cls.submit = submit
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.submit = self.real
+
+    def of(self, preset: str, needle: str) -> list:
+        with self.lock:
+            return [it for it in self.items if it[0] == preset and needle in it[1]]
+
+
+class RungLog:
+    """The governor's rung after every sample that changed it (wraps
+    ``PressureGovernor.observe``; restored on exit)."""
+
+    def __init__(self):
+        from llm_consensus_tpu_torch.pressure.governor import PressureGovernor
+
+        self.cls, self.real = PressureGovernor, PressureGovernor.observe
+        self.timeline: list = []
+        self.t0 = time.monotonic()
+
+    def __enter__(self):
+        real, log_ = self.real, self
+
+        def observe(g, pressure):
+            before = g.state
+            after = real(g, pressure)
+            if after != before:
+                log_.timeline.append((round(time.monotonic() - log_.t0, 3), after))
+            return after
+
+        self.cls.observe = observe
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.observe = self.real
+
+
+def gw_doc(answer, label: str) -> dict:
+    status, _h, data, _wall, _sse = answer
+    if status != 200:
+        raise AssertionError(f"gateway {label}: status {status}: {data[:500]!r}")
+    doc = json.loads(data)
+    if (len(doc["responses"]) != 2 or doc.get("failed_models") or not doc["consensus"]
+            or {r["model"] for r in doc["responses"]} != {"gpu:llama-3-8b", "gpu:consensus-1b"}):
+        raise AssertionError(f"gateway {label}: {json.dumps(doc)[:800]}")
+    return doc
+
+
+SERVE_FILES = ["consensus.md", "prompt.txt", "result.json", "run.json"]
+RESULT_KEYS = ["prompt", "responses", "consensus", "judge", "agreement"]
+
+
+def gw_run_dir(data_dir: str, doc: dict, label: str) -> None:
+    """A served run's directory: the one-shot CLI's result files (no
+    ``panel/`` journal and no ``metrics.json`` without ``--events``, as in the
+    JAX server), ``result.json`` with the CLI's keys in its order."""
+    got = read_run_dir(os.path.join(data_dir, doc["run_id"]))
+    keys = [k for k in got.get("result.json", {}) if k in RESULT_KEYS]
+    if got["listing"] != SERVE_FILES or keys != RESULT_KEYS or \
+            got["result.json"]["consensus"] != doc["consensus"]:
+        raise AssertionError(f"gateway {label}: run dir {got['listing']}, keys {keys}")
+
+
+def gw_stream_check(torch, log_: StreamLog, engine, preset: str, needle: str,
+                    label: str) -> dict:
+    """The batched ``preset`` stream of the request holding ``needle``,
+    held by the near-tie rule to ``engine``'s single-stream greedy tokens."""
+    from llm_consensus_tpu_torch.engine import SamplingParams
+
+    items = log_.of(preset, needle)
+    if len(items) != 1:
+        raise AssertionError(f"gateway {label}: {len(items)} {preset} streams for {needle!r}")
+    _, prompt, sampling, fut, _eng = items[0]
+    got = fut.result(timeout=60).token_ids
+    ids = engine._budget_prompt(engine.tokenizer.encode(prompt), sampling.max_new_tokens)[0]
+    ref = engine.generate_ids(ids, SamplingParams(max_new_tokens=sampling.max_new_tokens,
+                                                  ignore_eos=sampling.ignore_eos)).token_ids
+    return greedy_check(torch, engine, f"gateway {label}", ids, got, ref)
+
+
+def latency_by_kind(lat: dict) -> dict:
+    """Each request kind's count, median and maximum latency (s)."""
+    return {kind: {"n": len(xs), "p50_s": statistics.median(xs), "max_s": max(xs)}
+            for kind, xs in lat.items() if xs}
+
+
+def gw_calm(port: int) -> None:
+    """Wait for the governor to walk back to ``ok`` (an escalated ladder
+    would brown out, and so re-key, the next requests)."""
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline:
+        if json.loads(gw_get(port, "/statsz")[1])["pressure"]["state"] == "ok":
+            return
+        time.sleep(0.05)
+    raise AssertionError("gateway: the governor never walked back to ok")
+
+
+def gw_metrics(port: int) -> dict:
+    """/metricsz parsed (the port's Prometheus parser)."""
+    from llm_consensus_tpu_torch.obs import prom
+
+    status, text = gw_get(port, "/metricsz")
+    if status != 200:
+        raise AssertionError(f"gateway /metricsz: {status}")
+    return prom.parse_text(text)
+
+
+def gw_hist(parsed: dict, metric: str) -> tuple:
+    """(count, sum) of one histogram family over every label set."""
+    hs = [h for (m, _), h in parsed["histograms"].items() if m == metric]
+    return sum(h["count"] for h in hs), sum(h["sum"] for h in hs)
+
+
+def hf_tensors_from_params(cfg, params: dict) -> dict:
+    """A dense bf16 parameter tree in the HF layout (the inverse of the
+    loader's: [in, out] matmul weights back to [out, in], one tensor per
+    layer), on the host."""
+    from llm_consensus_tpu_torch.engine.checkpoint import _HF_LAYER_MAP, _HF_TRANSPOSE
+
+    t = {"model.embed_tokens.weight": params["embed"].cpu(),
+         "model.norm.weight": params["final_norm"].cpu()}
+    if "lm_head" in params:
+        t["lm_head.weight"] = params["lm_head"].t().contiguous().cpu()
+    for name, stacked in params["layers"].items():
+        for i in range(cfg.n_layers):
+            w = stacked[i]
+            t[_HF_LAYER_MAP[name].format(i=i)] = (
+                w.t() if _HF_TRANSPOSE[name] else w).contiguous().cpu()
+    return t
+
+
+@contextlib.contextmanager
+def gw_reference(port: int, counters: dict, tally: dict):
+    """A block of reference runs on the card (single-stream generates,
+    teacher forcing) with no served request in flight: the launches it
+    makes go into ``tally``, which the phase subtracts from its counts, so
+    that these count only the served traffic's."""
+    def idle(when):
+        adm = json.loads(gw_get(port, "/statsz")[1])["admission"]
+        if adm["active"] or adm["waiting"]:
+            raise AssertionError(f"gateway: served traffic in flight {when} a reference "
+                                 f"run: {adm}")
+
+    idle("before")
+    before = {name: c.count for name, c in counters.items()}
+    yield
+    for name, c in counters.items():
+        tally[name] += c.count - before[name]
+    idle("after")
+
+
+def gateway_swap(torch, port: int, log_: StreamLog, seed: int, tmp: str,
+                 answered: list, lat: dict, counters: dict, tally: dict) -> dict:
+    """(e) consensus-1b swapped to seed + 1 weights (an HF safetensors
+    directory written from ``init_params`` at seed + 1, so its logits have
+    the scale of the served random weights the near-tie rule is set for)
+    while a request decodes, then rolled back. The reference runs go
+    through ``gw_reference`` (their launches into ``tally``)."""
+    from llm_consensus_tpu_torch.engine import Engine
+    from llm_consensus_tpu_torch.engine.checkpoint import try_load_params
+    from llm_consensus_tpu_torch.models import get_config
+    from llm_consensus_tpu_torch.models.transformer import init_params
+
+    cfg = get_config("consensus-1b")
+    ckpt = os.path.join(tmp, "consensus-1b-seed1")
+    os.makedirs(ckpt)
+    t0 = time.monotonic()
+    new = init_params(cfg, seed + 1, device=torch.device("cuda"))
+    write_safetensors(os.path.join(ckpt, "model.safetensors"), hf_tensors_from_params(cfg, new))
+    del new
+    release_memory(torch)
+    write_s = time.monotonic() - t0
+    engine = log_.of("consensus-1b", "")[0][4]  # the served engine
+    mem = {"before": torch.cuda.memory_allocated() / 1e9}
+    inflight = []
+    body = {"prompt": "Swap request one. " + PROMPT, "max_tokens": 48}
+    t = threading.Thread(target=lambda: inflight.append(gw_post(port, body)), daemon=True)
+    t.start()
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline and engine.swap_stats()["pins"] == 0:
+        time.sleep(0.002)
+    if engine.swap_stats()["pins"] == 0:
+        raise AssertionError("gateway (e): the request never pinned consensus-1b")
+    t_swap = time.monotonic()
+    status, _h, data, _w, _s = gw_post(port, {"model": "gpu:consensus-1b", "checkpoint": ckpt},
+                                       path="/v1/swap")
+    swap_doc = json.loads(data)
+    post_s = time.monotonic() - t_swap
+    parked = bool(swap_doc.get("swap_pending"))
+    mem["during"] = torch.cuda.memory_allocated() / 1e9
+    t.join(600)
+    answered.append(gw_doc(inflight[0], "(e) in flight"))
+    lat.setdefault("e_in_flight_48", []).append(inflight[0][3])
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline and engine.weight_version < 1:
+        time.sleep(0.01)
+    stats = engine.swap_stats()
+    mem["after_flip"] = torch.cuda.memory_allocated() / 1e9
+    if status != 200 or not swap_doc.get("accepted") or engine.weight_version != 1:
+        raise AssertionError(f"gateway (e): swap {status} {swap_doc}, version "
+                             f"{engine.weight_version}")
+    # The next request on the new weights, against a fresh engine on them.
+    two = gw_post(port, {"prompt": "Swap request two. " + PROMPT, "max_tokens": 16})
+    answered.append(gw_doc(two, "(e) after the flip"))
+    with gw_reference(port, counters, tally):
+        fresh = Engine(cfg, try_load_params(cfg, ckpt, device=torch.device("cuda")))
+        new_row = gw_stream_check(torch, log_, fresh, "consensus-1b", "Swap request two.",
+                                  "(e) v1 stream against a fresh engine on the seed + 1 weights")
+        del fresh
+        release_memory(torch)
+    status, _h, data, _w, _s = gw_post(
+        port, {"model": "gpu:consensus-1b", "action": "rollback"}, path="/v1/swap")
+    rollback = json.loads(data)
+    if status != 200 or rollback.get("weight_version") != 2 or engine.weight_version != 2:
+        raise AssertionError(f"gateway (e): rollback {status} {rollback}")
+    mem["after_rollback"] = torch.cuda.memory_allocated() / 1e9
+    three = gw_post(port, {"prompt": "Swap request three. " + PROMPT, "max_tokens": 16})
+    answered.append(gw_doc(three, "(e) after the rollback"))
+    lat.setdefault("e_16", []).extend([two[3], three[3]])
+    # v0 again: the in-flight stream and the post-rollback one, each against
+    # the served engine's own single-stream tokens on the v0 weights.
+    with gw_reference(port, counters, tally):
+        old_row = gw_stream_check(torch, log_, engine, "consensus-1b", "Swap request one.",
+                                  "(e) in-flight stream on v0")
+        back_row = gw_stream_check(torch, log_, engine, "consensus-1b", "Swap request three.",
+                                   "(e) v2 (rolled back) stream on v0")
+    out = {"write_s": write_s, "post_s": post_s, "parked": parked,
+           "prep_ms": stats["last_prep_ms"], "vacate_ms": stats["last_vacate_ms"],
+           "swaps": engine.swap_stats()["swaps"], "rollbacks": engine.swap_stats()["rollbacks"],
+           "memory_gb": mem, "streams": {"v0_in_flight": old_row, "v1": new_row,
+                                         "v2": back_row}}
+    log(f"gateway (e): checkpoint written in {write_s:.1f} s; swap POST {post_s:.2f} s, parked "
+        f"under the in-flight pin {parked}, prep {stats['last_prep_ms']:.1f} ms, vacate "
+        f"{stats['last_vacate_ms']:.1f} ms; memory GB {mem}; streams v0 {old_row['equal']}, "
+        f"v1 {new_row['equal']}, v2 {back_row['equal']} (equal or within the near-tie rule)")
+    return out
+
+
+def gateway_child(tmp: str) -> dict:
+    """(f) ``python -m llm_consensus_tpu_torch serve`` in a child process
+    (consensus-1b panel and judge), one request in flight, SIGTERM: exit 0
+    and the run flushed."""
+    import signal
+
+    data = os.path.join(tmp, "child-data")
+    argv = [sys.executable, "-m", "llm_consensus_tpu_torch", "serve", "--models",
+            "gpu:consensus-1b", "--judge", "gpu:consensus-1b", "--max-tokens", "48",
+            "--port", "0", "--data-dir", data]
+    t0 = time.monotonic()
+    proc = subprocess.Popen(argv, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+                            env=dict(os.environ, PYTHONPATH=os.getcwd()))
+    lines: list = []
+    reader = threading.Thread(target=lambda: lines.extend(iter(proc.stderr.readline, "")),
+                              daemon=True)
+    reader.start()
+    try:
+        port = None
+        deadline = time.monotonic() + 180
+        while time.monotonic() < deadline and port is None:
+            for line in list(lines):
+                if "http://" in line:
+                    port = int(line.split("http://", 1)[1].split("/", 1)[0].rsplit(":", 1)[1])
+            if proc.poll() is not None:
+                raise AssertionError(f"gateway (f): child exited {proc.returncode}: {lines}")
+            time.sleep(0.05)
+        if port is None:
+            raise AssertionError(f"gateway (f): child never listened: {lines}")
+        up_s = time.monotonic() - t0
+        answer = []
+        t = threading.Thread(target=lambda: answer.append(gw_post(
+            port, {"prompt": "A request the child drains. " + PROMPT})), daemon=True)
+        t.start()
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            if json.loads(gw_get(port, "/statsz")[1])["admission"]["active"] >= 1:
+                break
+            time.sleep(0.01)
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        t.join(60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+    status, _h, body, wall, _s = answer[0]
+    doc = json.loads(body)
+    flushed = read_run_dir(os.path.join(data, doc["run_id"]))
+    if rc != 0 or status != 200 or flushed["listing"] != SERVE_FILES:
+        raise AssertionError(f"gateway (f) child: rc {rc}, status {status}, {flushed['listing']}"
+                             f", stderr {lines[-5:]}")
+    log(f"gateway (f) child: up in {up_s:.1f} s, its request {wall:.2f} s, SIGTERM drained "
+        f"to exit 0, run flushed")
+    return {"up_s": up_s, "request_s": wall, "rc": rc}
+
+
+def run_gateway(torch, fa, da, card: str, seed: int) -> dict:
+    """Phase 8h: the ``serve`` subcommand in process (``cli.main(["serve",
+    ...])`` on a thread, stopped by its shutdown event) over llama-3-8b and
+    consensus-1b (bf16, full width, random weights), real HTTP on 127.0.0.1:
+    (a) 8 concurrent distinct requests, 4 running and 4 queued; (b) 4
+    identical ones (one run, 3 coalesced) and a cache hit, then 4 distinct
+    questions behind one shared preamble; (c) an SSE request; (d) a burst of
+    12 LOW requests with a HIGH one inside it under the knobs of
+    ``GATEWAY_ENV``; (e) the weight swap and rollback; (f) a drain with two
+    requests in flight, then a child server drained by SIGTERM. Prints a
+    ``{"gateway": ...}`` line."""
+    from llm_consensus_tpu_torch.cli.main import main as cli_main
+
+    t_phase = time.monotonic()
+    fresh_planes()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-gateway-")
+    data = os.path.join(tmp, "data")
+    counters = {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES,
+                "decode_attention_state": da.LAUNCHES_STATE}
+    reference = dict.fromkeys(counters, 0)  # launches of (e)'s reference runs
+    stop = threading.Event()
+    err = io.StringIO()
+    rc: list = []
+    answered: list = []  # every 200 answer's doc, for the TTFT count
+    out: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    with set_environ(GATEWAY_ENV), StreamLog() as slog, RungLog() as rungs:
+        server = threading.Thread(target=lambda: rc.append(cli_main(
+            ["serve", *GATEWAY_ARGS, "--data-dir", data], device=None, stdout=io.StringIO(),
+            stderr=err, install_signal_handlers=False, shutdown=stop)), daemon=True)
+        server.start()
+        try:
+            port = None
+            deadline = time.monotonic() + 120
+            while time.monotonic() < deadline and port is None and server.is_alive():
+                text = err.getvalue()
+                if "http://" in text:
+                    port = int(text.split("http://", 1)[1].split("/", 1)[0].rsplit(":", 1)[1])
+                time.sleep(0.01)
+            if port is None:
+                raise AssertionError(f"gateway: the server never listened: {err.getvalue()}")
+            log(f"gateway: serving on 127.0.0.1:{port} after {time.monotonic() - t_phase:.1f} s")
+            lat: dict = {}  # request kind → latencies (s, host clock)
+
+            # (a) 8 distinct concurrent requests: 4 run, 4 queue.
+            t0 = time.monotonic()
+            peak_q = [0]
+            watch = threading.Event()
+
+            def watch_queue():
+                while not watch.is_set():
+                    try:
+                        adm = json.loads(gw_get(port, "/statsz")[1])["admission"]
+                        peak_q[0] = max(peak_q[0], adm["waiting"])
+                    except Exception:  # noqa: BLE001 — a probe, not a check
+                        pass
+                    time.sleep(0.02)
+
+            w = threading.Thread(target=watch_queue, daemon=True)
+            w.start()
+            first = gw_fire(port, [{"prompt": f"Request {i} of eight. " + PROMPT,
+                                    "max_tokens": 16} for i in range(8)])
+            watch.set()
+            w.join(10)
+            for i, a in enumerate(first):
+                doc = gw_doc(a, f"(a) request {i}")
+                gw_run_dir(data, doc, f"(a) request {i}")
+                answered.append(doc)
+                lat.setdefault("a_16", []).append(a[3])
+            out["a"] = {"wall_s": time.monotonic() - t0, "peak_queued": peak_q[0],
+                        "latencies_s": [a[3] for a in first]}
+            if peak_q[0] < 3:
+                raise AssertionError(f"gateway (a): the queue held at most {peak_q[0]}")
+            log(f"gateway (a): 8 answers in {out['a']['wall_s']:.2f} s, peak queue {peak_q[0]}")
+
+            # (b) 4 identical (one run, 3 followers), then a cache hit; then
+            # 4 questions behind one shared preamble.
+            gw_calm(port)
+            t0 = time.monotonic()
+            runs0 = json.loads(gw_get(port, "/statsz")[1])["runs_executed"]
+            same = gw_fire(port, [{"prompt": "Coalesce me. " + PROMPT, "max_tokens": 16}] * 4)
+            docs = [gw_doc(a, "(b) identical") for a in same]
+            hit = gw_doc(gw_post(port, {"prompt": "Coalesce me. " + PROMPT, "max_tokens": 16}),
+                         "(b) cache hit")
+            runs1 = json.loads(gw_get(port, "/statsz")[1])["runs_executed"]
+            ids = {d["run_id"] for d in docs + [hit]}
+            coalesced = sum(d["coalesced"] for d in docs)
+            for d in docs + [hit]:
+                gw_run_dir(data, d, "(b)")
+            answered += docs + [hit]
+            lat["b_identical_16"] = [a[3] for a in same]
+            if runs1 - runs0 != 1 or coalesced != 3 or not hit["cached"] or len(ids) != 5:
+                raise AssertionError(f"gateway (b): runs {runs1 - runs0}, coalesced {coalesced}, "
+                                     f"cached {hit['cached']}, run ids {len(ids)}")
+            state0 = da.LAUNCHES_STATE.count
+            shared = gw_fire(port, [{"prompt": SHARED_PREAMBLE + f"Question {i}: which option "
+                                     "and why?", "max_tokens": 16} for i in range(4)])
+            for a in shared:
+                answered.append(gw_doc(a, "(b) shared preamble"))
+                lat.setdefault("b_shared_16", []).append(a[3])
+            out["b"] = {"wall_s": time.monotonic() - t0, "coalesced": coalesced,
+                        "cached": 1, "state_launches": da.LAUNCHES_STATE.count - state0,
+                        "prefix_len": json.loads(gw_get(port, "/statsz")[1])[
+                            "batchers"]["llama-3-8b"]["prefix_len"]}
+            log(f"gateway (b): one run for 4 identical requests (3 coalesced), a cache hit, "
+                f"5 run dirs; shared-preamble wave: {out['b']['state_launches']} return_state "
+                f"launches, prefix {out['b']['prefix_len']} tokens")
+
+            # (c) SSE: chunks from both panel models and the judge, then done.
+            status, headers, _b, wall, (events, ttft) = gw_post(
+                port, {"prompt": "Stream this one. " + PROMPT, "stream": True, "max_tokens": 16})
+            kinds = {(d["kind"], d["model"]) for n, d in events if n == "chunk"}
+            done = [d for n, d in events if n == "done"]
+            if (status != 200 or headers.get("Content-Type") != "text/event-stream" or not done
+                    or events[-1][0] != "done"
+                    or not {("model_chunk", "gpu:llama-3-8b"), ("model_chunk", "gpu:consensus-1b"),
+                            ("judge_chunk", "gpu:llama-3-8b")} <= kinds):
+                raise AssertionError(f"gateway (c): {status} {kinds} {[n for n, _ in events]}")
+            answered.append(done[0])
+            lat["c_sse_16"] = [wall]
+            out["c"] = {"ttft_s": ttft, "wall_s": wall, "chunks": len(events) - 1}
+            log(f"gateway (c): SSE {len(events) - 1} chunks, first after {ttft:.3f} s, done after "
+                f"{wall:.2f} s")
+
+            # (d) overload: 12 LOW requests beyond the queue, a HIGH one
+            # inside the burst.
+            t0 = time.monotonic()
+            burst: list = [None] * 12
+            high: list = []
+
+            def low(i):
+                burst[i] = gw_post(port, {"prompt": f"Flood {i}. " + PROMPT, "priority": "low",
+                                          "max_tokens": 16})
+
+            threads = [threading.Thread(target=low, args=(i,), daemon=True) for i in range(12)]
+            for th in threads:
+                th.start()
+            time.sleep(0.3)
+            hi = threading.Thread(target=lambda: high.append(gw_post(
+                port, {"prompt": "An urgent question. " + PROMPT, "priority": "high",
+                       "max_tokens": 16})),
+                daemon=True)
+            hi.start()
+            for th in threads + [hi]:
+                th.join(600)
+            shed = [a for a in burst if a[0] in (429, 503)]
+            served = [a for a in burst if a[0] == 200]
+            ras = [float(json.loads(a[2])["retry_after_s"]) for a in shed]
+            heads = [a[1].get("Retry-After") for a in shed]
+            for a in served:
+                answered.append(json.loads(a[2]))
+            answered.append(gw_doc(high[0], "(d) HIGH in the burst"))
+            lat["d_low_served_16"] = [a[3] for a in served]
+            lat["d_high_16"] = [high[0][3]]
+            deg = [json.loads(a[2]).get("degraded") for a in served]
+            if (not shed or len(shed) + len(served) != 12 or any(h is None for h in heads)
+                    or not all(1.5 <= r < 3.0 for r in ras)
+                    or not any(s != "ok" for _t, s in rungs.timeline)):
+                raise AssertionError(f"gateway (d): shed {len(shed)}, served {len(served)}, "
+                                     f"Retry-After {ras} {heads}, rungs {rungs.timeline}")
+            for path in ("/healthz", "/statsz", "/metricsz"):
+                s, text = gw_get(port, path)
+                if s != 200 or (path != "/metricsz" and not json.loads(text)):
+                    raise AssertionError(f"gateway (d): {path} {s}")
+            gw_calm(port)
+            out["d"] = {"wall_s": time.monotonic() - t0, "shed": len(shed),
+                        "served": len(served), "retry_after_s": ras, "degraded": deg,
+                        "high_s": high[0][3], "rungs": list(rungs.timeline)}
+            log(f"gateway (d): {len(shed)} of 12 LOW shed (Retry-After {min(ras):.2f}-"
+                f"{max(ras):.2f} s), {len(served)} served ({deg.count('brownout')} browned "
+                f"out), HIGH answered in {high[0][3]:.2f} s; rungs {rungs.timeline}")
+
+            # (e) the swap.
+            out["e"] = gateway_swap(torch, port, slog, seed, tmp, answered, lat, counters,
+                                    reference)
+
+            # TTFT count against every answered request, and queue wait.
+            parsed = gw_metrics(port)
+            ttft_n, _ = gw_hist(parsed, "ttft")
+            qn, qsum = gw_hist(parsed, "queue_wait")
+            if ttft_n != len(answered):
+                raise AssertionError(f"gateway: TTFT count {ttft_n} against {len(answered)} "
+                                     f"answered")
+            out["queue_wait_mean_s"] = qsum / qn if qn else None
+
+            # (f) drain with 2 requests in flight.
+            pair: list = []
+            ths = [threading.Thread(target=lambda i=i: pair.append(gw_post(
+                port, {"prompt": f"Drain request {i}. " + PROMPT, "max_tokens": 16})),
+                daemon=True)
+                for i in range(2)]
+            for th in ths:
+                th.start()
+            deadline = time.monotonic() + 60
+            while time.monotonic() < deadline:
+                if json.loads(gw_get(port, "/statsz")[1])["admission"]["active"] >= 2:
+                    break
+                time.sleep(0.01)
+            t_drain = time.monotonic()
+            stop.set()
+            server.join(300)
+            drain_s = time.monotonic() - t_drain
+            for th in ths:
+                th.join(60)
+            for a in pair:
+                gw_run_dir(data, gw_doc(a, "(f) drained"), "(f) drained")
+            lat["f_drained_16"] = [a[3] for a in pair]
+            if rc != [0]:
+                raise AssertionError(f"gateway (f): serve returned {rc}: {err.getvalue()[-800:]}")
+        finally:
+            stop.set()
+            server.join(300)
+    # The served traffic's launches: the counts less (e)'s reference runs.
+    launches = {name: c.count - reference[name] for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    out["f"] = {"drain_s": drain_s, "child": gateway_child(tmp)}
+    if launches["flash_attention"] <= 0 or launches["decode_attention"] <= 0:
+        raise AssertionError(f"gateway: a kernel of the path never launched: {launches}")
+    out.update({"latency_s": latency_by_kind(lat), "answered": len(answered),
+                "launches": launches, "reference_launches": reference, "peak_gb": peak,
+                "wall_s": time.monotonic() - t_phase})
+    log(f"gateway: {len(answered)} answered, latency by kind {out['latency_s']}, queue wait "
+        f"mean {out['queue_wait_mean_s']}, launches through the gateway {launches} (reference "
+        f"runs {reference}, not counted), peak {peak:.2f} GB, phase {out['wall_s']:.1f} s")
+    print(json.dumps({"gateway": out, "card": card}, default=str), flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    release_memory(torch)
+    return out
+
+
 PHASE_WALLS: dict = {}  # phase → seconds, in run order
 
 
@@ -5235,7 +5897,8 @@ def print_phase_walls(t_start: float) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase", choices=("all", "kernels", "mixtral", "telemetry", "modes",
-                                        "session", "serving", "recovery", "kvpool", "spec"),
+                                        "session", "serving", "recovery", "kvpool", "spec",
+                                        "gateway"),
                     default="all")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -5317,6 +5980,13 @@ def main(argv=None) -> int:
         print(json.dumps({"kernels": list(rows16_recs.values())}), flush=True)
         print(card, flush=True)
         return 0
+    if args.phase == "gateway":
+        # The gateway phase alone: no ok line.
+        with phase_wall("gateway"):
+            run_gateway(torch, fa, da, card, args.seed)
+        print_phase_walls(t_start)
+        print(card, flush=True)
+        return 0
     if args.phase == "spec":
         # The dh 64 kernel rows and the spec phase: no ok line.
         with phase_wall("kernels dh 64"):
@@ -5384,6 +6054,8 @@ def main(argv=None) -> int:
         run_kvpool(torch, fa, da, card, args.seed)
     with phase_wall("spec"):
         run_spec(torch, fa, da, card, args.seed, dh64_recs)
+    with phase_wall("gateway"):
+        run_gateway(torch, fa, da, card, args.seed)
 
     with phase_wall("quantized slice"):
         qsl = run_slice(torch, {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES,

@@ -39,7 +39,10 @@ flags, their validation and messages, precedence and exit codes.
   * ``-i/--interactive``: one run per stdin line over warm providers, the
     conversation carried across queries (``/models +m|-m``, ``/judge m``,
     ``/reset``, ``/exit``);
-  * errors print ``error: ...`` to stderr and exit 1.
+  * errors print ``error: ...`` to stderr and exit 1;
+  * ``serve``: the resident HTTP gateway (cli/serve.py, serve/). The
+    ``route`` and ``distill`` subcommands of the JAX CLI exit 1: the fleet
+    tier and the flywheel are not in the port yet.
 
 Model names are ``gpu:<preset>``. ``main(argv, device=None)`` runs on the
 current CUDA card and raises when there is none; tests pass
@@ -704,12 +707,13 @@ def panel_journal(run_dir: str, warn=None) -> Callable[[Response], None]:
     return journal
 
 
-def install_planes(events: bool, stderr: TextIO) -> None:
+def install_planes(events: bool, stderr: TextIO, blackbox_dir: str = "") -> None:
     """Install the telemetry planes from the environment before any
     provider exists (consumers bind them at construction). Each plane is
     decided once per process; the recorder is per run: ``events`` (the
     flag) or ``LLMC_EVENTS`` installs it, otherwise a previous run's
-    recorder is dropped."""
+    recorder is dropped. ``blackbox_dir`` (``serve --blackbox-dir``)
+    overrides ``LLMC_BLACKBOX_DIR`` for a flight recorder made here."""
     from llm_consensus_tpu_torch.obs import attrib, blackbox, live, profiler, roofline
     from llm_consensus_tpu_torch.utils.knobs import telemetry_settings
 
@@ -737,7 +741,7 @@ def install_planes(events: bool, stderr: TextIO) -> None:
                          if st["roofline"] else None)
     if not blackbox.resolved():
         blackbox.install(blackbox.FlightRecorder(
-            st["blackbox_events"], st["blackbox_dir"] or blackbox.DEFAULT_DIR,
+            st["blackbox_events"], blackbox_dir or st["blackbox_dir"] or blackbox.DEFAULT_DIR,
             st["blackbox_min_interval_s"]) if st["blackbox"] else None)
     if not profiler.resolved():
         profiler.install(profiler.DeepProfiler(
@@ -1301,13 +1305,35 @@ def main(
     stdout: Optional[TextIO] = None,
     stderr: Optional[TextIO] = None,
     install_signal_handlers: bool = True,
+    shutdown: Optional[threading.Event] = None,
 ) -> int:
     """Run the CLI; returns the exit code. ``device=None`` resolves to the
-    current CUDA card and raises ``RuntimeError`` when there is none."""
+    current CUDA card and raises ``RuntimeError`` when there is none.
+    ``main(["serve", ...])`` runs the resident gateway (cli/serve.py) until
+    SIGTERM/SIGINT or, in process, until ``shutdown`` is set."""
     argv = sys.argv[1:] if argv is None else argv
     stdin = sys.stdin if stdin is None else stdin
     stdout = sys.stdout if stdout is None else stdout
     stderr = sys.stderr if stderr is None else stderr
+
+    if argv and argv[0] in ("serve", "route", "distill"):
+        # Resident services have their own flag sets and signal handling
+        # (SIGTERM = graceful drain, not context cancel).
+        if argv[0] != "serve":
+            stderr.write(f"error: the {argv[0]!r} subcommand is not in this port yet "
+                         f"({'the route slice' if argv[0] == 'route' else 'the flywheel'})\n")
+            return 1
+        from llm_consensus_tpu_torch.cli.serve import serve_main
+
+        try:
+            return serve_main(argv[1:], stdout=stdout, stderr=stderr,
+                              install_signal_handlers=install_signal_handlers,
+                              shutdown=shutdown, device=device)
+        except CLIError as err:
+            stderr.write(f"error: {err}\n")
+            return 1
+        except SystemExit as err:  # argparse --help / parse errors
+            return int(err.code or 0)
 
     ctx = Context.background().with_cancel()
     if install_signal_handlers:

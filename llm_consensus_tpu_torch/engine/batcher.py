@@ -128,9 +128,16 @@ next chunk's copy), the ``useful`` tokens, the pool cache's bytes and the
 host gaps between a drained pipeline and the next dispatch, by scheduler
 phase.
 
-Not ported (each listed in ROADMAP.md, queue 1): the weight-swap pins and
-the pressure governor. Settings are constructor
-arguments with the JAX knobs' defaults; nothing here reads the environment.
+Weight hot-swap (the JAX batcher's): every stream pins the engine's
+resident weights (``Engine.pin_weights``) before its prefill reads them and
+releases the pin on every path that removes it (retire, failure,
+preemption, a requeued or failed wave), so a swap parks until the resident
+set vacates; while one is pending, queued work holds at the queue head
+instead of re-pinning the old weights. The shared prefix carries the
+weight version that built it and is re-established after a flip. The
+pressure governor (pressure/governor.py) drives ``preempt`` and
+``set_brownout``. Settings are constructor arguments with the JAX knobs'
+defaults; nothing here reads the environment.
 """
 
 from __future__ import annotations
@@ -176,6 +183,9 @@ def _fail(s, exc: BaseException) -> None:
 # pay a resize).
 SHRINK_PATIENCE = 3
 
+# _admit_batch's answer when a swap made the wave's shared prefix stale.
+_STALE_PREFIX = object()
+
 
 @dataclass
 class _Stream:
@@ -209,6 +219,9 @@ class _Stream:
     # Acceptance EMA of a speculative pool's row (telemetry: the pool-wide
     # controller drives k).
     spec_ema: float = 0.0
+    # The weight version this stream is pinned to (Engine.pin_weights), -1
+    # while unpinned.
+    weight_version: int = -1
 
 
 @dataclass
@@ -469,6 +482,7 @@ class ContinuousBatcher:
         self._prefix_ids: Optional[tuple] = None
         self._prefix_cache: Optional[dict] = None
         self._prefix_len_host = 0
+        self._prefix_weight_version = -1  # the weight version that built it
         # decode_s counts arrival-to-arrival intervals (dispatch-to-arrival
         # after a drained pipeline) of chunks that ran alone on the device
         # (no admission or compaction since the last dispatch) and emitted
@@ -682,6 +696,7 @@ class ContinuousBatcher:
             if not s.future.cancel():
                 _fail(s, exc)
         for s in live + ([s for _, _, s in wave.batch] if wave is not None else []):
+            self._unpin_stream(s)
             _fail(s, exc)
 
     # -- preemption (pressure/) -------------------------------------------------
@@ -792,6 +807,9 @@ class ContinuousBatcher:
             if s is None:
                 continue  # retired between planning and here
             self._slots[slot] = None
+            # Leaving residency releases the pin; the resume re-pins at
+            # re-admission (possibly onto swapped-in weights).
+            self._unpin_stream(s)
             for _slots, _fetch, owners in firsts:
                 for j, owner in enumerate(owners):
                     if owner is s:
@@ -865,15 +883,21 @@ class ContinuousBatcher:
         shared frontier; a lone admission carries its whole prompt, so it
         never attends the pool prefix. Returns the firsts entry."""
         eng = self.engine
-        last_logits, pcache = eng._prefill_ids(prompt_ids)
-        return self._install_wave([(slot, prompt_ids, s)], 0, last_logits, pcache,
-                                  _bucket(len(prompt_ids), eng.max_seq))
+        self._pin_stream(s)  # before the prefill reads the weights
+        try:
+            last_logits, pcache = eng._prefill_ids(prompt_ids)
+            return self._install_wave([(slot, prompt_ids, s)], 0, last_logits, pcache,
+                                      _bucket(len(prompt_ids), eng.max_seq))
+        except BaseException:
+            self._unpin_stream(s)
+            raise
 
     def _establish_prefix(self, prefix_ids: list[int]) -> bool:
         """Prefill the wave's common prefix once and install it as the
         pool's shared-prefix KV (pool idle). Returns False, state cleared,
-        when it does not fit or its prefill fails; a device error (see
-        ``recovery.device_error``) or a failed KV-pool publish raises."""
+        when it does not fit, its prefill fails, or a weight swap flipped
+        under it; a device error (see ``recovery.device_error``) or a
+        failed KV-pool publish raises."""
         eng = self.engine
         p = len(prefix_ids)
         # 128-slot granule: prefix-attention work scales with p_cap.
@@ -885,34 +909,50 @@ class ContinuousBatcher:
             # needed: keeping it would hold the memory this cap bounds.
             self._clear_prefix()
             return False
+        # Pinned from the prefill to the version stamp: a swap arriving
+        # meanwhile parks, so the KV, its pool blocks and the stamp are all
+        # of version ``v``.
+        v = eng.pin_weights()
         try:
-            _, pcache = eng._prefill_ids(prefix_ids)
-            self._prefix_cache = extract_prefix(pcache, p_cap)
-        except Exception as exc:  # noqa: BLE001 — establishment is an optimization
+            try:
+                _, pcache = eng._prefill_ids(prefix_ids)
+                self._prefix_cache = extract_prefix(pcache, p_cap)
+            except Exception as exc:  # noqa: BLE001 — establishment is an optimization
+                self._clear_prefix()
+                if device_error(exc):
+                    # A device fault (a failed KV-pool gather among them) is
+                    # no optimization failing: it fails the batcher, as a
+                    # decode fault does.
+                    raise
+                # Otherwise every later idle wave repeats the failing prefill.
+                warnings.warn("shared-prefix establishment prefill failed; disabling pool "
+                              "prefix sharing for this batcher", RuntimeWarning, stacklevel=2)
+                self._prefix_enabled = False
+                return False
+            if eng._kv_pool is not None:
+                # The KV pool keeps the prefix for later waves, as the JAX
+                # batcher retains it (a publish of the blocks it lacks).
+                # Outside the inner try: a failed publish raises.
+                eng._retain_prefix(prefix_ids, pcache)
+            self._prefix_ids = tuple(prefix_ids)
+            self._prefix_len_host = p
+            # The weight version whose params computed this KV: the
+            # scheduler clears the prefix when a swap changes it.
+            self._prefix_weight_version = v
+        finally:
+            eng.unpin_weights()  # the last unpin applies a parked swap
+        if eng.weight_version != v:
+            # It flipped at that unpin: the KV is the old weights' (the
+            # flip evicted its cold pool blocks), so the wave admits whole.
             self._clear_prefix()
-            if device_error(exc):
-                # A device fault (a failed KV-pool gather among them) is no
-                # optimization failing: it fails the batcher, as a decode
-                # fault does.
-                raise
-            # Otherwise every later idle wave repeats the failing prefill.
-            warnings.warn("shared-prefix establishment prefill failed; disabling pool "
-                          "prefix sharing for this batcher", RuntimeWarning, stacklevel=2)
-            self._prefix_enabled = False
             return False
-        if eng._kv_pool is not None:
-            # The KV pool keeps the prefix for later waves, as the JAX
-            # batcher retains it (a publish of the blocks it lacks). Outside
-            # the try: a failed publish raises.
-            eng._retain_prefix(prefix_ids, pcache)
-        self._prefix_ids = tuple(prefix_ids)
-        self._prefix_len_host = p
         return True
 
     def _clear_prefix(self) -> None:
         self._prefix_cache = None
         self._prefix_ids = None
         self._prefix_len_host = 0
+        self._prefix_weight_version = -1
 
     def _wave_k_pad(self, k: int) -> int:
         """The wave's rows padded to a power of two, floored at
@@ -925,11 +965,22 @@ class ContinuousBatcher:
         """Admit several streams with one batched prefill. ``prefix_p`` > 0:
         every row starts with the pool's ``prefix_p``-token shared prefix,
         so only the suffixes prefill and only suffix KV lands in the pool.
-        Returns the firsts entries, or None when the batched prefill
-        failed (the caller admits one by one)."""
+        Returns the firsts entries, None when the batched prefill failed
+        (the caller admits one by one), or ``_STALE_PREFIX`` when the
+        prefix is older than the weights the streams pinned."""
         eng = self.engine
         rows = [ids for _, ids, _ in batch]
         pad_rows = rows + [rows[0]] * (self._wave_k_pad(len(rows)) - len(rows))
+        for _, _, s in batch:
+            self._pin_stream(s)  # before the prefill reads the weights
+        if prefix_p and batch[0][2].weight_version != self._prefix_weight_version:
+            # A swap flipped on an idle pool between the prefix's version
+            # check and these pins: the prefix is the old weights' KV.
+            # Nothing changed yet; the caller requeues the wave.
+            for _, _, s in batch:
+                self._unpin_stream(s)
+            self._clear_prefix()
+            return _STALE_PREFIX
         try:
             if prefix_p:
                 last_logits, pcache, width = eng._prefill_rows_suffix(
@@ -938,8 +989,10 @@ class ContinuousBatcher:
                 last_logits, pcache, width = eng._prefill_rows(pad_rows)
         except Exception:  # noqa: BLE001
             # Nothing changed yet: one-by-one admission makes a failure
-            # cost one stream, not the wave. Failures past this point
-            # (splice, install) are pool-fatal.
+            # cost one stream, not the wave (and re-pins). Failures past
+            # this point (splice, install) are pool-fatal.
+            for _, _, s in batch:
+                self._unpin_stream(s)
             return None
         return [self._install_wave(batch, prefix_p, last_logits, pcache, width)]
 
@@ -988,8 +1041,8 @@ class ContinuousBatcher:
         ``_advance_wave`` paces between decode chunks. False (the caller
         admits classically) when the wave would not fit the frontier after
         the decode growth its own pacing implies, or when the session does
-        not open. The JAX batcher pins the streams' weight version here:
-        weight swaps are not ported (ROADMAP.md queue 1, item 4)."""
+        not open. The streams pin the weights here: the session's chunks
+        read them."""
         eng = self.engine
         rows = [ids for _, ids, _ in batch]
         k_pad = self._wave_k_pad(len(rows))
@@ -1006,6 +1059,8 @@ class ContinuousBatcher:
         if any((self._pos + growth - (len(ids) - wave_p)) + w_req > eng.max_seq
                for _, ids, _ in batch):
             return False
+        for _, _, s in batch:
+            self._pin_stream(s)
         try:
             if wave_p:
                 session = eng.admission_session([r[wave_p:] for r in pad_rows],
@@ -1014,6 +1069,8 @@ class ContinuousBatcher:
             else:
                 session = eng.admission_session(pad_rows)
         except Exception:  # noqa: BLE001 — the classic path has the fallback
+            for _, _, s in batch:
+                self._unpin_stream(s)  # classic admission re-pins
             return False
         self._pending_wave = _PendingWave(batch=batch, wave_p=wave_p, session=session)
         if self._obs is not None:
@@ -1052,6 +1109,8 @@ class ContinuousBatcher:
             # prefill is wasted; a clamped splice would misalign rows).
             self._pending_wave = None
             self._stat_add(admit_s=time.monotonic() - t_adm)
+            for _, _, s in wave.batch:
+                self._unpin_stream(s)  # requeued: re-pins at re-admission
             with self._work:
                 self._queue[:0] = [(ids, s) for _, ids, s in wave.batch]
                 self._work.notify()
@@ -1084,6 +1143,8 @@ class ContinuousBatcher:
         warnings.warn("interleaved admission prefill failed; reverting to classic "
                       "admission for this batcher", RuntimeWarning, stacklevel=2)
         self._prefill_budget = 0
+        for _, _, s in wave.batch:
+            self._unpin_stream(s)  # classic retry re-pins
         with self._work:
             self._queue[:0] = [(ids, s) for _, ids, s in wave.batch]
             self._work.notify()
@@ -1112,12 +1173,29 @@ class ContinuousBatcher:
             truncated_prompt=s.truncated, preempted=s.preempted,
         )
 
+    # -- weight-version pinning (hot-swap) ----------------------------------------
+
+    def _pin_stream(self, s: _Stream) -> None:
+        """Pin ``s`` to the engine's resident weights before its prefill
+        reads them: a concurrent swap then parks instead of flipping under
+        the admission. Idempotent per stream."""
+        if s.weight_version < 0:
+            s.weight_version = self.engine.pin_weights()
+
+    def _unpin_stream(self, s: Optional[_Stream]) -> None:
+        """Release ``s``'s pin (idempotent: every removal path calls it).
+        The last unpin applies a parked swap."""
+        if s is not None and s.weight_version >= 0:
+            s.weight_version = -1
+            self.engine.unpin_weights()
+
     def _retire(self, slot: int, finish: str) -> None:
         s = self._slots[slot]
         if s is None:
             return
         s.finish = finish
         self._slots[slot] = None
+        self._unpin_stream(s)
         # First writer wins: the scheduler's failure path may have failed
         # this future already.
         if not s.future.done():
@@ -1136,6 +1214,7 @@ class ContinuousBatcher:
             return
         s.finish = "integrity"
         self._slots[slot] = None
+        self._unpin_stream(s)
         if s.jentry is not None:
             s.jentry.close("integrity")
         _fail(s, exc)
@@ -1358,14 +1437,17 @@ class ContinuousBatcher:
             for i, s in enumerate(self._slots):
                 if s is not None:
                     self._slots[i] = None
+                    self._unpin_stream(s)
                     _fail(s, exc)
             wave, self._pending_wave = self._pending_wave, None
             if wave is not None:
                 # A filling wave's streams are in neither the queue nor the
                 # slots.
                 for _, _, s in wave.batch:
+                    self._unpin_stream(s)
                     _fail(s, exc)
             for _, s in self._admitting:
+                self._unpin_stream(s)
                 _fail(s, exc)  # those the pass had seated are failed above
             raise
         else:
@@ -1753,7 +1835,7 @@ class ContinuousBatcher:
                     with self._wall("prefill"), obs.attrib.tag("prefill"):
                         admitted = self._admit_batch(batch, wave_p)
                 finally:
-                    ok = admitted is not None
+                    ok = admitted is not None and admitted is not _STALE_PREFIX
                     self._stat_add(
                         admit_s=time.monotonic() - t_adm, admitted=len(batch) if ok else 0,
                         admit_tokens=sum(len(i2) - wave_p for _, i2, _ in batch) if ok else 0)
@@ -1761,6 +1843,10 @@ class ContinuousBatcher:
                         self._obs.complete("admit", t0_obs, tid="batcher", streams=len(batch),
                                            prefix=wave_p, ok=ok,
                                            resumed=sum(st.preempted for _, _, st in batch))
+                if admitted is _STALE_PREFIX:
+                    # Back to the queue's head; the next pass plans the
+                    # wave on the new weights.
+                    return [(ids, st) for _, ids, st in batch] + requeue
                 if admitted is None:
                     singles = batch
                     if wave_p:
@@ -1864,6 +1950,24 @@ class ContinuousBatcher:
                     for i, s in enumerate(self._slots):
                         if s is not None:
                             self._retire(i, "length")
+            if self._prefix_cache is not None and (
+                self._prefix_weight_version != eng.weight_version
+            ):
+                # A swap landed since the prefix was established: its KV is
+                # the old weights'. Flips happen with no pins, so no row
+                # attends it: clear, and the next wave re-establishes.
+                self._clear_prefix()
+            if pending and eng.swap_pending():
+                # Weight-swap admission gate: admitting now would re-pin the
+                # old weights and starve the parked flip; queued work holds
+                # at the head while resident streams decode and retire.
+                with self._work:
+                    self._queue[:0] = pending
+                    pending = []
+                    if not self._live():
+                        # The flip waits on pins held elsewhere: a bounded
+                        # wait, not a hot spin.
+                        self._work.wait(timeout=0.01)
             self._admitting = pending
             requeue = self._admission_pass(pending, pending_firsts) if pending else []
             self._admitting = []
@@ -1933,6 +2037,12 @@ class ContinuousBatcher:
                     time.sleep(float(fs.param("s", 600.0)))
                     if self.failed_exc is not None:
                         continue  # abandoned meanwhile: dispatch nothing more
+                if eng.weight_version > 0:
+                    # canary_regress slows decode only on swapped-in weights.
+                    fs = faults.fire("swap", phase="decode", model=eng.cfg.name,
+                                     version=eng.weight_version)
+                    if fs is not None and fs.kind == "canary_regress":
+                        time.sleep(float(fs.param("s", 0.05)))
             self._dispatch(chunk, live_now[0].sampling, pending_firsts)
             pending_firsts = []
 

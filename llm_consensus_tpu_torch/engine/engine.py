@@ -74,8 +74,21 @@ pool hit and, under the pool, retains a lone-row wave too, unless the
 radix already covers its row 0. The ids published are the ones whose KV
 the decode loop wrote (``(prompt + emitted)[:pos]``), as for the snapshot.
 
-Meshes, ``generate_batch`` and weight swaps (and with them the session's
-weight-version migration) of the JAX engine are not ported.
+Live weight hot-swap (the JAX engine's): :meth:`Engine.pin_weights` /
+:meth:`Engine.unpin_weights` refcount the resident weights; every
+single-stream generate, every :class:`PrefillSession` generate and every
+batched stream (the batcher pins at admission) holds a pin, so it finishes
+on the weights it started with. :meth:`Engine.swap_weights` prepares the
+new tree (on the engine's device, quantized to its resident mode) outside
+the swap lock, then flips at once when nothing is pinned or parks it in
+the double buffer until the last unpin; the previous tree stays resident
+for :meth:`Engine.rollback_weights`, which installs it under a new
+monotone version. After a flip the prefix snapshot drops and the KV pool
+evicts every cold block (their KV came from the old weights). The ``swap``
+fault site fires ``swap_mid_stream`` at apply and ``canary_regress`` on a
+swapped-in (version > 0) engine's decode chunks.
+
+Meshes and ``generate_batch`` of the JAX engine are not ported.
 """
 
 from __future__ import annotations
@@ -322,6 +335,7 @@ class Engine:
         kv_pool: bool = False,
         kv_pool_block: int = 64,
         kv_pool_mb: float = 256.0,
+        swap_wait_s: float = 30.0,
     ):
         self.cfg = cfg
         self.prefix_max_bytes = prefix_cache_max_mb * 1e6
@@ -354,6 +368,24 @@ class Engine:
                 params = quantize_params(params, self.quant)
         self.params = params
         self._layers = layer_views(params)
+        # Weight hot-swap state. Pins refcount the resident weights (taken
+        # at stream admission, released at retirement) so every in-flight
+        # stream finishes on the buffer it started with; pin/unpin never
+        # block, and the flip rides whichever unpin drains the count to
+        # zero. The swap lock is a leaf: nothing under it calls out.
+        self._swap_lock = threading.Lock()
+        self._swap_cv = threading.Condition(self._swap_lock)
+        self.swap_wait_s = swap_wait_s  # LLMC_SWAP_WAIT_S
+        self.weight_version = 0
+        self.weight_meta: dict = {}
+        self._pins = 0
+        self._pending_swap: Optional[tuple] = None  # (version, params, meta)
+        self._prev_weights: Optional[tuple] = None  # (version, params)
+        self._swap_requested = 0.0
+        self._swap_stats = {
+            "swaps": 0, "swap_rejects": 0, "swap_queued": 0,
+            "rollbacks": 0, "last_vacate_ms": 0.0, "last_prep_ms": 0.0,
+        }
         # Prefix snapshot: the ids and the [1, max_seq] cache holding their
         # KV, read and written as a pair under the lock. Off with the
         # switch, with chunking off (reuse prefills its tail in chunks), or
@@ -444,6 +476,162 @@ class Engine:
         return self._roofline.dispatch(family, key, tokens=tokens, steps=steps, kv_valid=kv_valid)
 
     # -- prefix snapshot ---------------------------------------------------------
+
+    # -- live weight hot-swap ---------------------------------------------------
+
+    def pin_weights(self) -> int:
+        """Refcount the resident weights; returns their version. Never
+        blocks (the batcher's scheduler pins on its hot path); nesting
+        composes."""
+        with self._swap_lock:
+            self._pins += 1
+            return self.weight_version
+
+    def unpin_weights(self) -> None:
+        """Release one pin; the LAST unpin applies a pending swap. Extra
+        unpins are ignored."""
+        flipped = False
+        with self._swap_lock:
+            if self._pins > 0:
+                self._pins -= 1
+            if self._pins == 0 and self._pending_swap is not None:
+                version, params, meta = self._pending_swap
+                self._pending_swap = None
+                self._flip_locked(version, params, meta)
+                flipped = True
+        if flipped:
+            self._post_flip()
+
+    def swap_pending(self) -> bool:
+        """True while a prepared version waits for the pins to drain (the
+        batcher's admission gate: new streams hold so the resident set
+        vacates instead of re-pinning the old weights forever)."""
+        with self._swap_lock:
+            return self._pending_swap is not None
+
+    def _stale_locked(self, version: int) -> bool:
+        return version <= self.weight_version or (
+            self._pending_swap is not None and version <= self._pending_swap[0])
+
+    def _prepare_params(self, params: dict) -> dict:
+        """The incoming tree on this engine's device (copies enqueued on
+        the current stream), quantized to its resident mode (quantized
+        leaves pass through)."""
+        def place(tree: dict) -> dict:
+            return {k: place(v) if isinstance(v, dict) else v.to(self.device, non_blocking=True)
+                    for k, v in tree.items()}
+
+        params = place(params)
+        if self.quant is not None:
+            params = quantize_params(params, self.quant)
+        return params
+
+    def swap_weights(self, version: int, params: dict, *, wait: bool = False,
+                     meta: Optional[dict] = None, prepared: bool = False) -> bool:
+        """Install ``params`` as weight ``version`` (a monotone int above the
+        resident and any pending version; anything else is rejected and
+        counted). Preparation runs outside the swap lock under the ``swap``
+        attribution tag; the flip is immediate with no pins, else the tree
+        parks in the double buffer until the last unpin (``wait=True``
+        blocks up to ``swap_wait_s`` for it). Returns True when accepted
+        (applied or parked). ``prepared=True`` (the rollback) skips the
+        preparation."""
+        version = int(version)
+        if self._faults is not None:
+            fs = self._faults.fire("swap", phase="apply", model=self.cfg.name, version=version)
+            if fs is not None and fs.kind == "swap_mid_stream":
+                # Hold the apply so live streams are mid-decode when it
+                # lands: the pending (double-buffer) path, not an idle flip.
+                time.sleep(float(fs.param("s", 0.05)))
+        with self._swap_lock:
+            if self._stale_locked(version):
+                self._swap_stats["swap_rejects"] += 1
+                return False
+        t_prep = time.monotonic()
+        if not prepared:
+            with obs.attrib.tag("swap"):
+                params = self._prepare_params(params)
+        prep_ms = (time.monotonic() - t_prep) * 1000.0
+        flipped = False
+        with self._swap_lock:
+            if self._stale_locked(version):
+                # Lost a race to a concurrent swap while preparing.
+                self._swap_stats["swap_rejects"] += 1
+                return False
+            self._swap_stats["last_prep_ms"] = prep_ms
+            self._swap_requested = time.monotonic()
+            if self._pins == 0:
+                self._flip_locked(version, params, meta)
+                flipped = True
+            else:
+                self._pending_swap = (version, params, meta)
+                self._swap_stats["swap_queued"] += 1
+                if wait:
+                    deadline = time.monotonic() + self.swap_wait_s
+                    while self.weight_version < version:
+                        remaining = deadline - time.monotonic()
+                        if remaining <= 0:
+                            break
+                        self._swap_cv.wait(timeout=remaining)
+        if flipped:
+            self._post_flip()
+        return True
+
+    def rollback_weights(self, meta: Optional[dict] = None) -> Optional[int]:
+        """Swap back to the previous resident weights under a NEW version
+        (versions never reappear); returns it, or None when there is
+        nothing to roll back to."""
+        with self._swap_lock:
+            if self._prev_weights is None:
+                return None
+            prev_version, prev_params = self._prev_weights
+            new_version = self.weight_version + 1
+            from_version = self.weight_version
+        m = dict(meta or {})
+        m.setdefault("rolled_back_to", prev_version)
+        m.setdefault("rolled_back_from", from_version)
+        if not self.swap_weights(new_version, prev_params, prepared=True, meta=m):
+            return None
+        with self._swap_lock:
+            self._swap_stats["rollbacks"] += 1
+        return new_version
+
+    def _flip_locked(self, version: int, params: dict, meta: Optional[dict]) -> None:
+        """The buffer flip; the caller holds ``_swap_lock`` and no stream
+        holds a pin, so no queued kernel reads the replaced tree after it
+        (the tree it replaces as ``_prev_weights`` is freed here, when its
+        last reference goes)."""
+        self._prev_weights = (self.weight_version, self.params)
+        self.params = params
+        self._layers = layer_views(params)
+        self.weight_version = version
+        self.weight_meta = dict(meta or {})
+        vacate_ms = max(0.0, (time.monotonic() - self._swap_requested) * 1000.0)
+        self._swap_stats["swaps"] += 1
+        self._swap_stats["last_vacate_ms"] = vacate_ms
+        self._swap_cv.notify_all()
+        lm = obs.live.metrics()
+        if lm is not None:
+            lm.observe("swap_vacate", vacate_ms / 1000.0, model=self.cfg.name,
+                       version=str(version))
+
+    def _post_flip(self) -> None:
+        """Cache hygiene after a flip, outside the swap lock: every cached
+        KV byte came from the old weights, so the prefix snapshot drops and
+        the KV pool evicts every cold block (no stream is resident at a
+        flip, so no lease holds one)."""
+        self.drop_prefix()
+        if self._kv_pool is not None:
+            self._kv_pool.evict_cold(0.0)
+
+    def swap_stats(self) -> dict:
+        """Swap counters and the live pin state (the JAX keys)."""
+        with self._swap_lock:
+            out = dict(self._swap_stats)
+            out["weight_version"] = self.weight_version
+            out["pins"] = self._pins
+            out["swap_pending"] = 1 if self._pending_swap is not None else 0
+            return out
 
     def _reusable_prefix(self, prompt_ids: list[int]) -> tuple[int, Optional[dict]]:
         """``(common-prefix length, snapshot cache)`` against the snapshot,
@@ -671,6 +859,21 @@ class Engine:
         ctx: Optional[Context] = None,
         on_token: Optional[Callable[[int], None]] = None,
     ) -> GenerateResult:
+        # Pinned for the whole generation: a swap landing mid-stream parks
+        # until this (and every other pinned) stream ends.
+        self.pin_weights()
+        try:
+            return self._generate_ids_pinned(prompt_ids, sampling, ctx, on_token)
+        finally:
+            self.unpin_weights()
+
+    def _generate_ids_pinned(
+        self,
+        prompt_ids: list[int],
+        sampling: SamplingParams,
+        ctx: Optional[Context],
+        on_token: Optional[Callable[[int], None]],
+    ) -> GenerateResult:
         ctx = ctx or Context.background()
         start_time = time.monotonic()
         n_prompt = len(prompt_ids)
@@ -789,6 +992,14 @@ class Engine:
             if pos < self.max_seq:
                 if self._faults is not None:
                     self._faults.check("decode")  # injected device loss
+                    if self.weight_version > 0:
+                        # canary_regress: a swapped-in engine's decode
+                        # slows by @s a chunk (the regression a canary
+                        # must catch).
+                        fs = self._faults.fire("swap", phase="decode", model=self.cfg.name,
+                                               version=self.weight_version)
+                        if fs is not None and fs.kind == "canary_regress":
+                            time.sleep(float(fs.param("s", 0.05)))
                 n_steps = chunk if pos + chunk <= self.max_seq else 1
                 t0_obs = obs_r.now() if obs_r is not None else 0
                 wall = DeviceWall(self.device) if attrib is not None else None
@@ -1113,9 +1324,12 @@ class PrefillSession:
     held until ``generate`` consumes it or :meth:`close` drops it. Single
     use; appends serialize on one lock. Ids past the context window set
     ``overflowed`` and stay unprefilled: a written cache cannot be
-    middle-out truncated, so the caller takes the classic path. The port
-    has no weight swap, so the JAX session's migration to a new weight
-    version is not ported.
+    middle-out truncated, so the caller takes the classic path.
+
+    A session prefills UNPINNED (it may be abandoned without generating; a
+    pin would wedge swaps): ``generate`` pins, and re-prefills from zero if
+    a weight swap landed between appends, so the cache never mixes KV of
+    two weight versions.
     """
 
     def __init__(self, engine: Engine):
@@ -1130,10 +1344,14 @@ class PrefillSession:
         self._done: Optional[torch.cuda.Event] = None  # after the last dispatch (card)
         self._closed = False
         self.overflowed = False
+        self._weight_version = engine.weight_version
+        self._cache = self._new_cache()
+
+    def _new_cache(self) -> dict:
+        eng = self._eng
         with torch.inference_mode():
-            self._cache = init_kv_cache(engine.cfg, batch=1, max_seq=engine.max_seq,
-                                        device=engine.device, dtype=engine.dtype,
-                                        quant=engine.kv_quant)
+            return init_kv_cache(eng.cfg, batch=1, max_seq=eng.max_seq, device=eng.device,
+                                 dtype=eng.dtype, quant=eng.kv_quant)
 
     @property
     def tokens(self) -> int:
@@ -1215,9 +1433,18 @@ class PrefillSession:
     def generate(self, sampling: SamplingParams = SamplingParams(),
                  ctx: Optional[Context] = None,
                  on_text: Optional[Callable[[str], None]] = None) -> GenerateResult:
-        """Prefill the residue (one padded final chunk), then decode. The
-        chunk padding lands at slots >= the prompt length, which decode
-        overwrites before its frontier reaches them."""
+        """Prefill the residue (one padded final chunk), then decode, with
+        the weights pinned. The chunk padding lands at slots >= the prompt
+        length, which decode overwrites before its frontier reaches them."""
+        eng = self._eng
+        eng.pin_weights()
+        try:
+            return self._generate_pinned(sampling, ctx, on_text)
+        finally:
+            eng.unpin_weights()
+
+    def _generate_pinned(self, sampling: SamplingParams, ctx: Optional[Context],
+                         on_text: Optional[Callable[[str], None]]) -> GenerateResult:
         eng = self._eng
         ctx = ctx or Context.background()
         start_time = time.monotonic()
@@ -1232,6 +1459,16 @@ class PrefillSession:
                 raise ValueError("empty prompt")
             if n >= eng.max_seq:
                 raise ValueError(f"prompt length {n} exceeds max sequence length {eng.max_seq}")
+            if self._base > 0 and eng.weight_version != self._weight_version:
+                # A swap landed between appends: the cached chunks hold the
+                # old weights' KV. Re-prefill every id under the pinned
+                # version (one more prompt pass, never a mixed cache).
+                self._base = 0
+                self._last_logits = None
+                self._cache = self._new_cache()
+                self._weight_version = eng.weight_version
+                pending, self._ids = self._ids, []
+                self._append_locked(pending)
             residue = n - self._base
             if residue > 0:
                 if self._base + self._chunk > eng.max_seq:

@@ -161,9 +161,12 @@ tests/test_faults.py).
 The site table and the grammar are the JAX package's whole, so every spec
 string parses as there; the port fires the sites of the modules it has
 (prefill, decode, build, sse, runner, engine, the KV pool's ``kv``
-(``pool_exhausted``, ``evict_storm``) and ``pressure``
-(``hbm_squeeze@phase=publish``), and ``corrupt`` with ``nan_logits``, the
-WAL surfaces and ``bit_flip@surface=kv``). The CLI installs the plan
+(``pool_exhausted``, ``evict_storm``), ``pressure`` (``hbm_squeeze@phase=publish``
+and the governor's ``priority_storm``), ``serve`` (``queue_full``,
+``slow_admit``, ``disconnect``; not ``migrate_stall``: no fleet tier yet),
+``swap`` (``swap_mid_stream``, ``canary_regress``; not ``corpus_corrupt``: no
+flywheel yet), and ``corrupt`` with ``nan_logits``, the WAL surfaces,
+``bit_flip@surface=kv`` and ``@surface=ckpt``). The CLI installs the plan
 (faults/__init__.py); consumers bind ``self._faults = faults.plan()`` at
 construction time, so without a plan the hot dispatch paths carry a single
 ``is not None`` check and no injector code runs.

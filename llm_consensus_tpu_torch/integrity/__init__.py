@@ -24,6 +24,7 @@ from llm_consensus_tpu_torch.integrity.core import (  # noqa: F401 — public AP
     IntegrityCounters,
     IntegrityError,
     IntegrityPlane,
+    QuarantineTracker,
     canonical_digest,
     counters,
     crc32_str,
@@ -33,6 +34,7 @@ from llm_consensus_tpu_torch.integrity.core import (  # noqa: F401 — public AP
     digest_tree,
     frame_wal_line,
     install,
+    pair_digest,
     parse_wal_line,
     plane,
     reset,
@@ -40,7 +42,7 @@ from llm_consensus_tpu_torch.integrity.core import (  # noqa: F401 — public AP
 
 __all__ = [
     "CHECKSUM_LEN", "IntegrityCounters", "IntegrityError", "IntegrityPlane",
-    "canonical_digest", "counters", "crc32c", "crc32_str", "digest_array",
-    "digest_bytes", "digest_tree", "frame_wal_line", "install", "parse_wal_line",
+    "QuarantineTracker", "canonical_digest", "counters", "crc32c", "crc32_str", "digest_array",
+    "digest_bytes", "digest_tree", "frame_wal_line", "install", "pair_digest", "parse_wal_line",
     "plane", "reset",
 ]

@@ -217,6 +217,90 @@ class IntegrityCounters:
                 "failures_total": sum(self._failures.values()),
             }
 
+    def prom_families(self) -> dict:
+        """The ``llmc_integrity_checks_total`` / ``_failures_total``
+        families of ``/metricsz``, labeled by surface."""
+        with self._lock:
+            checks = dict(self._checks)
+            failures = dict(self._failures)
+        return {
+            "integrity_checks_total": {
+                "type": "counter",
+                "samples": [({"surface": s}, n) for s, n in sorted(checks.items())],
+            },
+            "integrity_failures_total": {
+                "type": "counter",
+                "samples": [({"surface": s}, n) for s, n in sorted(failures.items())],
+            },
+        }
+
+
+# -- quarantine hysteresis ----------------------------------------------------
+
+
+class QuarantineTracker:
+    """The enter/probe/exit hysteresis of one replica: :meth:`strike`
+    returns True when the integrity failures cross ``threshold`` (once per
+    crossing); while quarantined, :meth:`clean_probe` returns True after
+    ``probe_n`` consecutive clean probe windows (a strike resets the run).
+    The gateway reads ``LLMC_INTEGRITY_QUARANTINE_AFTER`` and
+    ``LLMC_INTEGRITY_PROBE_N`` for these through ``utils/knobs.py``."""
+
+    def __init__(self, threshold: int, probe_n: int):
+        self._lock = threading.Lock()
+        self.threshold = max(1, threshold)
+        self.probe_n = max(1, probe_n)
+        self._strikes = 0        # guarded by: _lock
+        self._clean_probes = 0   # guarded by: _lock
+        self._quarantines = 0    # guarded by: _lock
+
+    def strike(self) -> bool:
+        """Record one integrity failure; True when quarantine should engage
+        (exactly once per crossing of the threshold)."""
+        with self._lock:
+            self._strikes += 1
+            self._clean_probes = 0
+            if self._strikes == self.threshold:
+                self._quarantines += 1
+                return True
+            return False
+
+    def clean_probe(self) -> bool:
+        """Record one clean probe window; True when the replica has earned
+        its way back (``probe_n`` consecutive clean windows)."""
+        with self._lock:
+            self._clean_probes += 1
+            if self._clean_probes >= self.probe_n:
+                self._strikes = 0
+                self._clean_probes = 0
+                return True
+            return False
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {
+                "strikes": self._strikes,
+                "clean_probes": self._clean_probes,
+                "quarantines": self._quarantines,
+                "threshold": self.threshold,
+                "probe_n": self.probe_n,
+            }
+
+
+def pair_digest(doc: dict) -> str:
+    """Canonical content digest over the fields a distillation pair reads
+    (prompt, consensus, the panel's response texts): what the serve
+    scheduler stamps into ``result.json`` as ``integrity_digest`` with the
+    plane on (the JAX ``flywheel/corpus.py`` ``pair_digest``)."""
+    return canonical_digest({
+        "prompt": doc.get("prompt"),
+        "consensus": doc.get("consensus"),
+        "responses": [
+            r.get("content") if isinstance(r, dict) else None
+            for r in (doc.get("responses") or [])
+        ],
+    })
+
 
 # -- the plane ----------------------------------------------------------------
 

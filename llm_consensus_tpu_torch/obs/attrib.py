@@ -232,6 +232,41 @@ class ChipTimeLedger:
         with self._lock:
             return sum(self._dispatches.values()) + sum(self._tokens.values()) + self._gaps
 
+    def prom_families(self) -> dict:
+        """The labeled counter and gauge families ``/metricsz`` renders
+        (obs/prom.py ``render(families=...)``), the JAX ledger's names and
+        labels. No goodput-fraction gauge: a fleet merge sums gauges."""
+        with self._lock:
+            device = list(self._device_s.items())
+            tokens = list(self._tokens.items())
+            gaps = list(self._gap_s.items())
+            compiles = list(self._compiles.items())
+            retraces = self._retraces
+            modeled = sum(self._components.values())
+            peak = self._peak_modeled
+        out: dict = {
+            "device_time_seconds_total": {
+                "type": "counter", "samples": [({"family": f}, s) for f, s in device]},
+            "tokens_total": {
+                "type": "counter", "samples": [({"disposition": d}, n) for d, n in tokens]},
+            "host_gap_seconds_total": {
+                "type": "counter", "samples": [({"phase": p}, s) for p, s in gaps]},
+            "compiles_total": {
+                "type": "counter", "samples": [({"family": f}, n) for f, n in compiles]},
+            "retraces_total": {"type": "counter", "samples": [({}, retraces)]},
+            "hbm_modeled_bytes": {
+                "type": "gauge", "samples": [({"kind": "live"}, modeled), ({"kind": "peak"}, peak)]},
+        }
+        dev = self.hbm_device_stats()
+        if dev is not None:
+            out["hbm_device_bytes"] = {
+                "type": "gauge",
+                "samples": [({"kind": "in_use"}, dev["bytes_in_use"]),
+                            ({"kind": "peak"}, dev["peak_bytes_in_use"]),
+                            ({"kind": "limit"}, dev["bytes_limit"])],
+            }
+        return out
+
     def snapshot(self) -> dict:
         """The ``attrib`` block of ``metrics.json``."""
         with self._lock:

@@ -1,5 +1,5 @@
 """The live metrics plane: windowed, mergeable histograms (a copy of
-``llm_consensus_tpu/obs/live.py`` without its serving parts).
+``llm_consensus_tpu/obs/live.py``).
 
   * **Fixed log-bucket histograms** (:class:`Histogram`): one bucket ladder
     (powers of two from 100 µs) for every histogram, so histograms merge
@@ -11,23 +11,27 @@
     observation.
 
 Metric names on the port's paths: ``device_time`` (seconds of one
-dispatch, by ``family``; obs/attrib.py observes it) and ``token_latency``
+dispatch, by ``family``; obs/attrib.py observes it), ``token_latency``
 (seconds per generated token, by ``class``, the priority class, and
-``outcome``; the provider observes it). All values are seconds.
+``outcome``; the provider observes it), and the gateway's ``ttft``,
+``queue_wait``, ``e2e`` and ``judge_synthesis`` (serve/), and
+``swap_vacate`` (the engine's weight flip). All values are seconds.
 
 The plane is installed by the CLI (``LLMC_LIVE``, default on;
 ``LLMC_LIVE_WINDOW_S``, ``LLMC_LIVE_WINDOWS``) and bound by its consumers
 at construction; :func:`metrics` returns None when nothing is installed.
-The ``/metricsz`` renderer, the window-rotator thread and the SLO watcher
-wait for the port's ``serve/``.
+``LiveMetrics.start`` runs the window rotator (the ``serve`` gateway starts
+it); rotation callbacks feed the :class:`SLOWatcher`, whose burn dumps
+the flight recorder. obs/prom.py renders the plane for ``/metricsz``.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 from bisect import bisect_left
 from collections import deque
-from typing import Optional
+from typing import Callable, Optional
 
 # Upper edges BUCKET_MIN * 2^i: 100 µs .. ~14 min; past the top edge the
 # value lands in the +Inf bucket.
@@ -56,6 +60,11 @@ def bucket_index(value: float) -> int:
     if value <= BUCKET_MIN:
         return 0
     return bisect_left(BUCKET_EDGES, value)
+
+
+def new_trace_id() -> str:
+    """A fresh 16-hex-character request trace id."""
+    return os.urandom(8).hex()
 
 
 class Histogram:
@@ -107,6 +116,16 @@ class Histogram:
                 return lo + (hi - lo) * max(0.0, min(1.0, frac))
         return BUCKET_EDGES[-1]
 
+    def cumulative(self) -> list:
+        """Cumulative bucket counts in edge order, then the +Inf total: the
+        Prometheus ``_bucket`` series (obs/prom.py renders them)."""
+        out = []
+        cum = 0
+        for c in self.counts:
+            cum += c
+            out.append(cum)
+        return out
+
 
 class WindowedHistogram:
     """Cumulative total + the open window + a bounded ring of closed ones."""
@@ -145,6 +164,9 @@ class LiveMetrics:
         self._windows = max(1, windows)
         self._lock = threading.Lock()
         self._hists: dict = {}  # (name, ((k, v), ...)) -> WindowedHistogram
+        self._callbacks: list = []
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
 
     def observe(self, name: str, value: float, **labels) -> None:
         """Record one observation (seconds; negatives clamp to 0) into the
@@ -158,10 +180,30 @@ class LiveMetrics:
             wh.observe(value)
 
     def rotate(self) -> None:
-        """Close every histogram's current window."""
+        """Close every histogram's current window, then run the rotation
+        callbacks (outside the lock: a callback may observe or dump)."""
         with self._lock:
             for wh in self._hists.values():
                 wh.rotate()
+            callbacks = list(self._callbacks)
+        for fn in callbacks:
+            try:
+                fn(self)
+            except Exception:  # noqa: BLE001 — a callback must not stop rotation
+                pass
+
+    def on_rotate(self, fn: Callable[["LiveMetrics"], None]) -> None:
+        with self._lock:
+            self._callbacks.append(fn)
+
+    def remove_rotate(self, fn: Callable[["LiveMetrics"], None]) -> None:
+        """Detach a rotation callback (a closed gateway must not stay
+        reachable through the process plane)."""
+        with self._lock:
+            try:
+                self._callbacks.remove(fn)
+            except ValueError:
+                pass
 
     def families(self) -> dict:
         """{name: [(labels dict, cumulative Histogram copy)]}."""
@@ -190,6 +232,73 @@ class LiveMetrics:
             return sum(wh.total.count for (n, _), wh in self._hists.items()
                        if name is None or n == name)
 
+    def start(self) -> None:
+        """Start the window rotator thread (idempotent: in-process gateways
+        share one)."""
+        with self._lock:
+            if self._thread is not None:
+                return
+            self._thread = threading.Thread(target=self._loop, name="llmc-live-rotate",
+                                            daemon=True)
+        self._thread.start()
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.window_s):
+            try:
+                self.rotate()
+            except Exception:  # noqa: BLE001 — the rotator must not die
+                continue
+
+    def close(self) -> None:
+        self._stop.set()
+
+
+class SLOWatcher:
+    """The SLO-burn trigger: the ``quantile`` of a live metric over
+    ``threshold_s`` for ``windows`` consecutive closed windows fires
+    ``on_burn`` (the flight-recorder dump). Registered as a rotation
+    callback, so it samples once a window; ``threshold_s`` 0 disables it
+    (``LLMC_SLO_TTFT_P99_S`` and ``LLMC_SLO_WINDOWS``, read by the CLI)."""
+
+    def __init__(self, metric: str = "ttft", quantile: float = 0.99,
+                 threshold_s: float = 0.0, windows: int = 3,
+                 on_burn: Optional[Callable[[dict], None]] = None):
+        self.metric = metric
+        self.quantile = quantile
+        self.threshold_s = threshold_s
+        self.windows = max(1, windows)
+        self.on_burn = on_burn
+        self.burns = 0
+        self._streak = 0
+
+    @property
+    def enabled(self) -> bool:
+        return self.threshold_s > 0
+
+    def check(self, live: LiveMetrics) -> bool:
+        """One post-rotation sample; True when a burn fired. A quiet window
+        resets the streak: an idle server is not burning its SLO."""
+        if not self.enabled:
+            return False
+        q = live.quantile_recent(self.metric, self.quantile, windows=1)
+        if q is not None and q > self.threshold_s:
+            self._streak += 1
+        else:
+            self._streak = 0
+        if self._streak < self.windows:
+            return False
+        self._streak = 0  # the next burn needs N fresh windows
+        self.burns += 1
+        if self.on_burn is not None:
+            try:
+                self.on_burn({
+                    "metric": self.metric, "quantile": self.quantile, "value_s": q,
+                    "threshold_s": self.threshold_s, "windows": self.windows,
+                })
+            except Exception:  # noqa: BLE001
+                pass
+        return True
+
 
 _lock = threading.Lock()
 _metrics: Optional[LiveMetrics] = None
@@ -207,22 +316,27 @@ def resolved() -> bool:
 
 
 def install(m: Optional[LiveMetrics]) -> None:
+    """Install ``m`` as the process plane; a replaced plane's rotator
+    stops."""
     global _metrics, _resolved
     with _lock:
+        old = _metrics
         _metrics = m
         _resolved = True
+    if old is not None and old is not m:
+        old.close()
 
 
 def reset() -> None:
-    global _metrics, _resolved
+    global _resolved
+    install(None)
     with _lock:
-        _metrics = None
         _resolved = False
 
 
 __all__ = [
     "BUCKET_EDGES", "BUCKET_GROWTH", "BUCKET_MIN", "CLASS_NAMES", "DEFAULT_WINDOWS",
     "DEFAULT_WINDOW_S", "Histogram", "LiveMetrics", "N_BUCKETS", "OUTCOMES",
-    "WindowedHistogram", "bucket_index", "class_label", "install", "metrics",
-    "reset", "resolved",
+    "SLOWatcher", "WindowedHistogram", "bucket_index", "class_label", "install",
+    "metrics", "new_trace_id", "reset", "resolved",
 ]

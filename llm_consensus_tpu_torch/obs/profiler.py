@@ -21,7 +21,11 @@ activities only. The artifact is a Chrome trace, ``trace.json``.
 ``torch.profiler`` must stop on the thread that started it (stopping it
 from a timer thread, as the JAX window does, crashes the process), so the
 window has no timer: the thread that armed it closes it. Its CPU rows are
-that thread's operators; the card's kernels come from every thread.
+that thread's operators; the card's kernels come from every thread. A
+window armed from a thread that ends at once (the gateway's HTTP handler
+behind ``POST /debugz/profile``) runs on a thread of its own
+(:meth:`DeepProfiler.arm_owned`), which arms, waits out the bound and
+closes it.
 """
 
 from __future__ import annotations
@@ -82,6 +86,36 @@ class DeepProfiler:
             # start-up can take seconds on a loaded host).
             self._last_start, self._deadline = now, time.monotonic() + dur
         return final, "armed"
+
+    def arm_owned(self, duration_s: Optional[float] = None, tag: str = "ondemand",
+                  stop: Optional[threading.Event] = None) -> "tuple[Optional[str], str]":
+        """:meth:`arm` on a new owning thread, which closes the window at its
+        bound (or when ``stop`` is set); returns ``arm``'s result once the
+        window is armed or refused, and re-raises its failure."""
+        out: dict = {}
+        ready = threading.Event()
+        stop = stop if stop is not None else threading.Event()
+
+        def own() -> None:
+            try:
+                out["armed"] = self.arm(duration_s, tag=tag)
+            except BaseException as err:  # noqa: BLE001 — re-raised by the caller
+                out["error"] = err
+                return
+            finally:
+                ready.set()
+            if out["armed"][1] != "armed":
+                return
+            with self._lock:
+                deadline = self._deadline
+            stop.wait(max(0.0, deadline - time.monotonic()))
+            self.stop_now()
+
+        threading.Thread(target=own, name="llmc-profile-window", daemon=True).start()
+        ready.wait()
+        if "error" in out:
+            raise out["error"]
+        return out["armed"]
 
     def expired(self) -> bool:
         """Whether the open window outlived its bound."""

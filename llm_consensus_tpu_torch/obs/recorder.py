@@ -106,6 +106,11 @@ class Recorder:
         with self._lock:
             return list(self._events)
 
+    def depth(self) -> int:
+        """Events recorded so far (the gateway's ``obs`` block)."""
+        with self._lock:
+            return len(self._events)
+
     def counters(self) -> dict[str, float]:
         with self._lock:
             return dict(self._counters)

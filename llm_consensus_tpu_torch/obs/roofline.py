@@ -482,6 +482,29 @@ class RooflineLedger:
             "tol": self.tol,
         }
 
+    def prom_families(self, device_s: Optional[dict] = None) -> dict:
+        """The ``llmc_roofline_*`` families ``/metricsz`` renders: FLOP,
+        byte, dispatch and token totals per family as counters, and the
+        ridge as a gauge (the JAX ledger's names and labels)."""
+        snap = self.snapshot(device_s)
+        flops, nbytes, disp, toks = [], [], [], []
+        for family, f in snap["families"].items():
+            flops.append(({"family": family}, f["flops"]))
+            nbytes.append(({"family": family}, f["bytes"]))
+            disp.append(({"family": family}, f["dispatches"]))
+            if f["tokens"]:
+                toks.append(({"family": family}, f["tokens"]))
+        return {
+            "roofline_flops_total": {"type": "counter", "samples": flops},
+            "roofline_bytes_total": {"type": "counter", "samples": nbytes},
+            "roofline_dispatches_total": {"type": "counter", "samples": disp},
+            "roofline_tokens_total": {"type": "counter", "samples": toks},
+            "roofline_ridge_flops_per_byte": {
+                "type": "gauge",
+                "samples": [({"source": snap["ridge_source"]}, snap["ridge_flops_per_byte"])],
+            },
+        }
+
     def counter_track(self) -> "list[tuple[str, float]]":
         """(counter name, value) pairs for the trace's roofline counter
         tracks (obs/export.py ``ph: "C"`` events)."""

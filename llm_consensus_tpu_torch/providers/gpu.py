@@ -80,6 +80,22 @@ plain path serves; a kernel or CUDA error in a draft or verify propagates.
 ``set_draft`` and ``set_spec_k`` reconfigure (the CLI's ``--draft`` and
 ``--spec-k``), ``spec_stats()`` reports each preset (the JAX keys).
 
+The serving surface (the JAX provider's, for the ``serve`` gateway and its
+pressure governor): ``pressure_stats()`` (each pool's live/cap/queued
+headroom), ``utilization_stats()`` (each pool's live decode rate, MFU and
+MBU between window advances of at least a second), ``request_preempt`` and
+``set_brownout`` (the governor's preempt and brownout rungs; brownout also
+routes a drafted single-stream request plain), ``kv_evict_cold`` (the evict
+rung), and the weight hot-swap: ``swap_weights(model, params_or_path,
+version=None, wait=, meta=)`` loads a path with the port's HF safetensors
+reader (``engine/checkpoint.py``; the JAX provider restores an Orbax tree
+there), verifies a ``meta["params_digest"]`` against
+``integrity.digest_tree`` when the integrity plane is on (a mismatch, or the
+``bit_flip@surface=ckpt`` fault, is refused as ``params_digest_mismatch``
+before anything installs), and hands the tree to the engine's double
+buffer; ``rollback_weights``, ``swap_stats`` and ``weight_version`` report
+and undo it. ``swap_wait_s`` (``LLMC_SWAP_WAIT_S``) goes to every engine.
+
 Telemetry (obs/), bound at construction: an ``engine_stream`` span per
 request (recorder and flight recorder), the per-token latency into the live
 plane labeled by the request's priority class and outcome, and the
@@ -177,7 +193,8 @@ class GPUProvider(Provider):
                  engine_restarts: int = DEFAULT_MAX_RESTARTS,
                  stream_interval: int = 16, ignore_eos: bool = False, draft: str = "",
                  spec_k: int = 4, spec_ngram: int = 3, spec_adapt: bool = True,
-                 spec_governor: bool = True, spec_probe: int = 64, **modes):
+                 spec_governor: bool = True, spec_probe: int = 64, swap_wait_s: float = 30.0,
+                 **modes):
         self.modes = _resolve_modes(**modes)
         self.prefix = {"prefix_cache": bool(prefix_cache),
                        "prefix_cache_max_mb": float(prefix_cache_max_mb)}
@@ -221,6 +238,16 @@ class GPUProvider(Provider):
         self._spec_probe = int(spec_probe)
         self._specs: dict[str, tuple] = {}
         self._spec_batch_warned = False
+        # The governor's brownout rung: drafted single-stream decode runs
+        # plain while it is set.
+        self._brownout_active = False
+        self.swap_wait_s = swap_wait_s
+        # utilization_stats' window: (time, batcher snapshot) and the last
+        # entry per pool; a window advances after _UTIL_MIN_WINDOW_S, so
+        # concurrent scrapers cannot shrink each other's window to noise.
+        self._util_lock = threading.Lock()
+        self._util_prev: dict = {}
+        self._util_last: dict = {}
 
     @classmethod
     def shared(cls, device: DeviceLike = None, *, batch_streams: int = 1,
@@ -310,6 +337,160 @@ class GPUProvider(Provider):
         return sum(eng._kv_pool.evict_cold(target_occupancy)
                    for _preset, eng in self._engines_with_batchers()
                    if eng._kv_pool is not None)
+
+    # -- the serving surface (serve/, pressure/) -------------------------------------
+
+    _UTIL_MIN_WINDOW_S = 1.0
+
+    def pressure_stats(self) -> dict:
+        """Each pool's headroom (``ContinuousBatcher.pressure_snapshot``:
+        live, cap, queued, preemptions), keyed by preset: the governor's
+        batcher signal and the /statsz ``pressure`` block's pools."""
+        out: dict = {}
+        for preset, batcher in self._batcher_entries():
+            try:
+                out[preset] = batcher.pressure_snapshot()
+            except Exception:  # noqa: BLE001 — stats must not throw
+                continue
+        return out
+
+    def utilization_stats(self) -> dict:
+        """Each pool's live decode rate, MFU and MBU over the window since
+        the previous window advance (deltas of the batcher's decode
+        accounting); calls inside ``_UTIL_MIN_WINDOW_S`` replay the last
+        entry with the occupancy refreshed. A pool's first call reports
+        only its live streams. MFU and MBU need a known card."""
+        from llm_consensus_tpu_torch.utils.flops import batched_decode_mbu, decode_mfu
+
+        now = time.monotonic()
+        name = device_name(self.device)
+        out: dict = {}
+        for preset, batcher in self._batcher_entries():
+            try:
+                snap = batcher.snapshot()
+                live = sum(1 for s in batcher._slots if s is not None)
+                with self._util_lock:
+                    prev = self._util_prev.get(preset)
+                    if prev is not None and now - prev[0] < self._UTIL_MIN_WINDOW_S:
+                        last = dict(self._util_last.get(preset, {}))
+                        last["live_streams"] = live
+                        out[preset] = last
+                        continue
+                    self._util_prev[preset] = (now, snap)
+                entry: dict = {"live_streams": live}
+                if prev is not None:
+                    d_tok = snap["decode_tokens"] - prev[1]["decode_tokens"]
+                    d_s = snap["decode_s"] - prev[1]["decode_s"]
+                    if d_tok > 0 and d_s > 0:
+                        eng = batcher.engine
+                        tps = d_tok / d_s
+                        entry["tokens_per_sec"] = round(tps, 2)
+                        mfu = decode_mfu(eng.cfg, tps, name)
+                        if mfu is not None:
+                            entry["mfu"] = round(mfu, 4)
+                        mbu = batched_decode_mbu(
+                            eng.cfg, tps, max(1, live), name,
+                            weight_bytes={"int8": 1, "int4": 0.5}.get(eng.quant, 2),
+                            kv_bytes=1 if eng.kv_quant == "int8" else 2)
+                        if mbu is not None:
+                            entry["mbu"] = round(mbu, 4)
+                    else:
+                        entry["tokens_per_sec"] = 0.0
+                with self._util_lock:
+                    self._util_last[preset] = entry
+                out[preset] = entry
+            except Exception:  # noqa: BLE001 — stats must not throw
+                continue
+        return out
+
+    def request_preempt(self, max_victims: int = 1) -> None:
+        """The governor's ``preempt`` rung: nudge every pool to preempt its
+        lowest-class streams for blocked higher-class work (each batcher
+        checks the predicate itself; an unjustified nudge is a no-op)."""
+        for _preset, batcher in self._batcher_entries():
+            try:
+                batcher.preempt(max_victims)
+            except Exception:  # noqa: BLE001 — best-effort
+                continue
+
+    def set_brownout(self, on: bool) -> None:
+        """The governor's ``brownout`` rung: drafted decode runs plain for
+        its duration (single-stream speculation bypassed, pooled
+        speculation in its plain windows)."""
+        self._brownout_active = bool(on)
+        for _preset, batcher in self._batcher_entries():
+            try:
+                batcher.set_brownout(on)
+            except Exception:  # noqa: BLE001
+                continue
+
+    def swap_weights(self, model: str, params_or_path, version: Optional[int] = None, *,
+                     wait: bool = False, meta: Optional[dict] = None) -> dict:
+        """Hot-swap ``model``'s engine onto new weights: a parameter tree
+        (``Engine.params`` layout) or a checkpoint directory of HF
+        safetensors (``engine/checkpoint.py``, into the engine's
+        quantization mode). ``version=None`` is one past the resident
+        version. With the integrity plane on, a ``meta["params_digest"]``
+        is checked against ``integrity.digest_tree`` of the loaded tree
+        first (``bit_flip@surface=ckpt`` corrupts the computed digest); a
+        mismatch installs nothing. Returns the engine's swap stats with
+        ``accepted`` (and ``rejected`` on a digest refusal)."""
+        from llm_consensus_tpu_torch import integrity
+
+        eng = self._engine_for(model)
+        params = params_or_path
+        m = dict(meta or {})
+        if isinstance(params_or_path, str):
+            from llm_consensus_tpu_torch.engine.checkpoint import try_load_params
+
+            params = try_load_params(eng.cfg, params_or_path, device=eng.device,
+                                     dtype=eng.dtype, quant=eng.quant)
+            if params is None:
+                raise FileNotFoundError(f"no safetensors checkpoint at {params_or_path!r}")
+            m.setdefault("checkpoint", params_or_path)
+        plane = integrity.plane()
+        want = m.get("params_digest")
+        if plane is not None and isinstance(want, str):
+            plane.check("ckpt")
+            got = integrity.digest_tree(params)
+            fplan = faults.plan()
+            if fplan is not None:
+                fs = fplan.fire("corrupt", surface="ckpt", model=model)
+                if fs is not None and fs.kind == "bit_flip":
+                    got = f"{(int(got, 16) ^ 1):08x}"
+            if got != want:
+                plane.failure("ckpt", f"params digest mismatch for {model} "
+                                      f"(want {want}, got {got})")
+                out = eng.swap_stats()
+                out["accepted"] = False
+                out["rejected"] = "params_digest_mismatch"
+                return out
+        if version is None:
+            version = eng.weight_version + 1
+        ok = eng.swap_weights(int(version), params, wait=wait, meta=m)
+        out = eng.swap_stats()
+        out["accepted"] = bool(ok)
+        return out
+
+    def rollback_weights(self, model: str, meta: Optional[dict] = None) -> Optional[int]:
+        """Swap ``model`` back to its previous weights under a new version;
+        None when there is none (a rollback never builds an engine)."""
+        preset = parse_model_name(model)
+        engines = dict(self._engines_with_batchers())
+        eng = engines.get(preset)
+        if eng is None:
+            return None
+        return eng.rollback_weights(meta)
+
+    def swap_stats(self) -> dict:
+        """Each live engine's weight version and swap counters, keyed by
+        preset (``Engine.swap_stats``: the /statsz ``flywheel`` block)."""
+        return {preset: eng.swap_stats() for preset, eng in self._engines_with_batchers()}
+
+    def weight_version(self) -> int:
+        """The highest resident weight version among the live engines."""
+        return max((st.get("weight_version", 0) for st in self.swap_stats().values()),
+                   default=0)
 
     def spec_stats(self) -> dict:
         """Speculative decoding per preset (the JAX keys): a single-stream
@@ -471,8 +652,8 @@ class GPUProvider(Provider):
         cap = min(c for c in (self._max_seq, max_seq) if c) if (self._max_seq or max_seq) else None
         max_seq = min(cap, cfg.max_seq_len) if cap else None
         return Engine(cfg, params, device=self.device, max_seq=max_seq, tokenizer=tokenizer,
-                      stream_interval=self.stream_interval, **self.modes, **self.prefix,
-                      **self.kv)
+                      stream_interval=self.stream_interval, swap_wait_s=self.swap_wait_s,
+                      **self.modes, **self.prefix, **self.kv)
 
     def _batcher_for(self, preset: str, engine):
         """The batcher serving ``preset`` over ``engine``, built once."""
@@ -599,6 +780,8 @@ class GPUProvider(Provider):
                         f"batching is enabled (batch_streams={self.batch_streams}); use "
                         "--draft lookup for speculation that composes with continuous "
                         "batching", RuntimeWarning, stacklevel=2)
+            elif self._brownout_active:
+                pass  # pressure brownout: drafting off, the plain path below
             elif sampling.temperature == 0.0 or (sampling.top_k is None
                                                  and sampling.top_p is None):
                 spec = self._spec_for(preset, engine)

@@ -83,3 +83,7 @@ class Registry:
                 return self._providers[model]
             except KeyError:
                 raise UnknownModelError(model, sorted(self._providers)) from None
+
+    def __contains__(self, model: str) -> bool:
+        with self._lock:
+            return model in self._providers

@@ -10,6 +10,7 @@ from llm_consensus_tpu_torch.ui.printers import (
     print_header,
     print_model_response,
     print_phase,
+    print_serve_banner,
     print_success,
     print_summary,
     print_throughput,
@@ -26,6 +27,7 @@ __all__ = [
     "print_header",
     "print_model_response",
     "print_phase",
+    "print_serve_banner",
     "print_success",
     "print_summary",
     "print_throughput",

@@ -96,6 +96,18 @@ def print_aggregate(w: IO[str], aggregate) -> None:
     w.write(f"{ansi.DIM}{line}{ansi.RESET}\n")
 
 
+def print_serve_banner(w: IO[str], host: str, port: int, models: list[str], judge: str, *,
+                       max_concurrency: int, max_batch: int) -> None:
+    """Startup banner of the ``serve`` subcommand."""
+    w.write(f"\n{ansi.BOLD_CYAN}╭─ LLM Consensus — serving ─╮{ansi.RESET}\n")
+    w.write(f"{ansi.CYAN}│{ansi.RESET} http://{host}:{port}/v1/consensus\n")
+    w.write(f"{ansi.CYAN}│{ansi.RESET} panel: {ansi.DIM}{', '.join(models)}{ansi.RESET}\n")
+    w.write(f"{ansi.CYAN}│{ansi.RESET} judge: {ansi.DIM}{judge}{ansi.RESET}\n")
+    w.write(f"{ansi.CYAN}│{ansi.RESET} capacity: {max_concurrency} concurrent "
+            f"runs, {max_batch} batcher slots/preset\n")
+    w.write(f"{ansi.CYAN}╰───────────────────────────╯{ansi.RESET}\n")
+
+
 def is_terminal(f) -> bool:
     """Character-device check."""
     try:

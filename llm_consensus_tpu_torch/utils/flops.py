@@ -94,3 +94,17 @@ def decode_mbu(cfg: ModelConfig, tokens_per_sec: float, device_name: str,
         return None
     per_tok = decode_bytes_per_token(cfg, context_len, weight_bytes, kv_bytes)
     return tokens_per_sec * per_tok / peaks[1]
+
+
+def batched_decode_mbu(cfg: ModelConfig, tokens_per_sec: float, batch: int, device_name: str,
+                       context_len: int = 0, weight_bytes: float = 2,
+                       kv_bytes: float = 2) -> Optional[float]:
+    """Memory-bandwidth utilization of a ``batch``-stream shared-frontier
+    decode: the rows share one weight read a step and each reads its own
+    KV, so bytes a step = weights + batch·kv at an aggregate step rate of
+    ``tokens_per_sec / batch``. None off-GPU."""
+    peaks = device_peaks(device_name)
+    if peaks is None or tokens_per_sec <= 0 or batch <= 0:
+        return None
+    per_step = decode_bytes_per_token(cfg, batch * context_len, weight_bytes, kv_bytes)
+    return (tokens_per_sec / batch) * per_step / peaks[1]

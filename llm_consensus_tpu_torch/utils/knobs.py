@@ -67,7 +67,23 @@ knobs that the JAX package declares, with the same meaning:
     ``LLMC_SPEC_K`` (4, the draft-length ceiling), ``LLMC_SPEC_NGRAM`` (3,
     the prompt-lookup gram), ``LLMC_SPEC_ADAPT`` (on: the adaptive k
     ladder), ``LLMC_SPEC_GOVERNOR`` (on: the drafted-vs-plain A/B) and
-    ``LLMC_SPEC_PROBE`` (64 tokens a governor window).
+    ``LLMC_SPEC_PROBE`` (64 tokens a governor window);
+  * the ``serve`` subcommand (:func:`serve_settings`,
+    :func:`pressure_settings`, :func:`live_settings`, read by
+    ``cli/serve.py`` and passed to the gateway, the governor, the
+    admission controller and the engines as arguments):
+    ``LLMC_ELASTIC_WARM_S`` (0: serve at once), ``LLMC_INTEGRITY_QUARANTINE_AFTER``
+    (3) and ``LLMC_INTEGRITY_PROBE_N`` (3), ``LLMC_SWAP_WAIT_S`` (30 s),
+    ``LLMC_FLEET_ANNOUNCE`` (refused until the route slice), ``LLMC_DISAGG``
+    (refused: no disaggregation in the port), the governor's
+    ``LLMC_PRESSURE`` (on), ``LLMC_PRESSURE_POLL_S`` (0.5 s),
+    ``LLMC_PRESSURE_HIGH_WATER`` (0.75), ``LLMC_PRESSURE_LOW_WATER`` (0.35),
+    ``LLMC_PRESSURE_UP_PATIENCE`` (2), ``LLMC_PRESSURE_DOWN_PATIENCE`` (4),
+    ``LLMC_PRESSURE_EVICT_TARGET`` (0.7), ``LLMC_PRESSURE_JUDGE_FALLBACK``
+    (empty), ``LLMC_PRESSURE_BROWNOUT_MAX_NEW`` (256),
+    ``LLMC_PRESSURE_SHED_CLASS`` (2), the admission's ``LLMC_PRESSURE_AGE_S``
+    (30 s) and ``LLMC_PRESSURE_RETRY_SPREAD`` (0.5), and the SLO watcher's
+    ``LLMC_SLO_TTFT_P99_S`` (0: off) and ``LLMC_SLO_WINDOWS`` (3).
 """
 
 from __future__ import annotations
@@ -275,4 +291,49 @@ def spec_settings() -> dict:
         "spec_adapt": get_bool("LLMC_SPEC_ADAPT", True),
         "spec_governor": get_bool("LLMC_SPEC_GOVERNOR", True),
         "spec_probe": get_int("LLMC_SPEC_PROBE", 64),
+    }
+
+
+def serve_settings() -> dict:
+    """The ``serve`` subcommand's settings of the environment (the JAX
+    defaults): the gateway's warm-up and quarantine, the engines' swap wait,
+    the batcher depth's fallback (0: the subcommand's default) and the two
+    switches the port refuses (``announce``, ``disagg``)."""
+    return {
+        "elastic_warm_s": get_float("LLMC_ELASTIC_WARM_S", 0.0),
+        "quarantine_after": get_int("LLMC_INTEGRITY_QUARANTINE_AFTER", 3),
+        "probe_n": get_int("LLMC_INTEGRITY_PROBE_N", 3),
+        "swap_wait_s": get_float("LLMC_SWAP_WAIT_S", 30.0),
+        "max_batch": get_int("LLMC_MAX_BATCH", 0) or get_int("LLMC_BATCH_STREAMS", 0),
+        "announce": get_str("LLMC_FLEET_ANNOUNCE"),
+        "disagg": get_bool("LLMC_DISAGG"),
+    }
+
+
+def pressure_settings() -> dict:
+    """The pressure governor's and the admission controller's settings of
+    the environment (the JAX defaults); ``enabled`` is the governor's kill
+    switch."""
+    return {
+        "enabled": get_bool("LLMC_PRESSURE", True),
+        "poll_s": get_float("LLMC_PRESSURE_POLL_S", 0.5),
+        "high_water": get_float("LLMC_PRESSURE_HIGH_WATER", 0.75),
+        "low_water": get_float("LLMC_PRESSURE_LOW_WATER", 0.35),
+        "up_patience": get_int("LLMC_PRESSURE_UP_PATIENCE", 2),
+        "down_patience": get_int("LLMC_PRESSURE_DOWN_PATIENCE", 4),
+        "evict_target": get_float("LLMC_PRESSURE_EVICT_TARGET", 0.7),
+        "judge_fallback": get_str("LLMC_PRESSURE_JUDGE_FALLBACK"),
+        "brownout_max_new": get_int("LLMC_PRESSURE_BROWNOUT_MAX_NEW", 256),
+        "shed_class": get_int("LLMC_PRESSURE_SHED_CLASS", 2),
+        "age_s": get_float("LLMC_PRESSURE_AGE_S", 30.0),
+        "retry_spread": get_float("LLMC_PRESSURE_RETRY_SPREAD", 0.5),
+    }
+
+
+def live_settings() -> dict:
+    """The SLO-burn watcher's settings of the environment: the p99 TTFT
+    threshold (0 disables) and the consecutive windows that fire a dump."""
+    return {
+        "slo_ttft_p99_s": get_float("LLMC_SLO_TTFT_P99_S", 0.0),
+        "slo_windows": get_int("LLMC_SLO_WINDOWS", 3),
     }

@@ -992,3 +992,100 @@ def test_spec_pool_on_the_card(cuda):
     assert snap["rounds"] > 0
     for p, g, r in zip(prompts, got, refs):
         assert _spec_equal_or_near_tie(engine, p, g, r)
+
+
+# -- the weight swap and the gateway (the serve slice) -------------------------------------
+
+
+def test_engine_swap_on_the_card_keeps_a_pinned_stream_and_rolls_back(cuda):
+    """consensus-1b at its published width: a stream pinned across a swap
+    keeps its bytes (the flip parks until it ends), the flip frees nothing
+    early (the replaced tree stays resident as the rollback buffer, its
+    storage intact), and a rollback restores the v0 tokens under version 2."""
+    from llm_consensus_tpu_torch.engine.batcher import ContinuousBatcher
+    from llm_consensus_tpu_torch.models.transformer import init_params
+
+    cfg = get_config("consensus-1b")
+    engine = Engine(cfg, device=cuda, max_seq=1024, seed=0)
+    s = SamplingParams(max_new_tokens=64, ignore_eos=True)
+    ids = [engine.tokenizer.bos_id] + list(range(40, 140)) * 2
+    ref = engine.generate_ids(ids, s).token_ids
+    snapshot = {name: t.clone() for name, t in _leaves(engine.params)}
+    ptrs = {name: t.data_ptr() for name, t in _leaves(engine.params)}
+    new = init_params(cfg, 1, device=cuda, dtype=engine.dtype)
+    weight_bytes = sum(t.numel() * t.element_size() for _, t in _leaves(new))
+    b = ContinuousBatcher(engine, max_batch=2)
+    try:
+        fut = b.submit_ids(ids, s)
+        while engine.swap_stats()["pins"] == 0:
+            time.sleep(0.001)
+        assert engine.swap_weights(1, new) is True
+        assert engine.swap_pending()
+        got = fut.result(timeout=300).token_ids
+        while engine.weight_version < 1:
+            time.sleep(0.001)
+    finally:
+        b.close()
+    del new
+    torch.cuda.synchronize()
+    assert got == ref  # the pinned stream ran on v0 to its end
+    assert engine.swap_stats()["swap_queued"] == 1
+    # Nothing freed early: the replaced tree (held by nothing but the
+    # engine) is the rollback buffer, in its own storage, bytes unchanged.
+    prev = dict(_leaves(engine._prev_weights[1]))
+    assert {name: t.data_ptr() for name, t in prev.items()} == ptrs
+    assert all(torch.equal(t, snapshot[name]) for name, t in prev.items())
+    assert torch.cuda.memory_allocated() >= 2 * weight_bytes
+    assert engine.generate_ids(ids, s).token_ids != ref
+    assert engine.rollback_weights() == 2
+    assert engine.generate_ids(ids, s).token_ids == ref
+
+
+def _leaves(tree, prefix=""):
+    for name, value in tree.items():
+        if isinstance(value, dict):
+            yield from _leaves(value, f"{prefix}{name}.")
+        else:
+            yield f"{prefix}{name}", value
+
+
+def test_one_gateway_request_through_serve_main_on_the_card(cuda, tmp_path):
+    """``serve_main`` on the card (device=None) with a tiny-llama panel of
+    two and judge: one request answers 200 with both responses and a
+    consensus, flash and the decode kernel launch, the drain returns 0."""
+    import http.client
+    import io
+    import json
+    import threading
+
+    from llm_consensus_tpu_torch import obs
+    from llm_consensus_tpu_torch.cli.serve import serve_main
+
+    obs.reset_planes()
+    stop, err, rc = threading.Event(), io.StringIO(), []
+    argv = ["--models", "gpu:tiny-llama,gpu:tiny-llama", "--judge", "gpu:tiny-llama",
+            "--max-tokens", "32", "--port", "0", "--data-dir", str(tmp_path)]
+    t = threading.Thread(target=lambda: rc.append(serve_main(
+        argv, stdout=io.StringIO(), stderr=err, install_signal_handlers=False, shutdown=stop)),
+        daemon=True)
+    flash0, dec0 = fa.LAUNCHES.count, da.LAUNCHES.count
+    t.start()
+    try:
+        deadline = time.monotonic() + 120
+        while "http://" not in err.getvalue() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        port = int(err.getvalue().split("http://", 1)[1].split("/", 1)[0].rsplit(":", 1)[1])
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        conn.request("POST", "/v1/consensus", json.dumps({"prompt": "hello card " * 20}),
+                     {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        doc = json.loads(r.read())
+        conn.close()
+    finally:
+        stop.set()
+        t.join(120)
+        obs.reset_planes()
+    assert r.status == 200 and len(doc["responses"]) == 2 and doc["consensus"]
+    assert rc == [0]
+    assert fa.LAUNCHES.count > flash0 and da.LAUNCHES.count > dec0
+    assert (tmp_path / doc["run_id"] / "result.json").exists()

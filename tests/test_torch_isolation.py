@@ -49,7 +49,17 @@ def test_no_jax_import(path):
 def test_the_obs_modules_are_covered():
     names = {p.name for p in _port_files() if p.parent.name == "obs"}
     assert names == {"__init__.py", "attrib.py", "blackbox.py", "export.py", "live.py",
-                     "profiler.py", "recorder.py", "roofline.py"}
+                     "profiler.py", "prom.py", "recorder.py", "roofline.py"}
+
+
+def test_the_serve_modules_are_covered():
+    """The AST checks above and below cover the serving gateway's package,
+    the governor and the serve subcommand."""
+    names = {p.name for p in _port_files() if p.parent.name == "serve"}
+    assert names == {"__init__.py", "admission.py", "cache.py", "elastic.py", "gateway.py",
+                     "scheduler.py", "stats.py"}
+    files = {p.relative_to(PKG).as_posix() for p in _port_files() if PKG in p.parents}
+    assert {"pressure/governor.py", "cli/serve.py"} <= files
 
 
 def test_the_kv_modules_are_covered():
@@ -69,6 +79,13 @@ def test_the_knobs_module_reads_only_knobs_the_jax_package_declares():
     assert {"LLMC_KV_POOL", "LLMC_KV_POOL_BLOCK", "LLMC_KV_POOL_MB",
             "LLMC_INTEGRITY_SAMPLE", "LLMC_DRAFT", "LLMC_SPEC_K", "LLMC_SPEC_NGRAM",
             "LLMC_SPEC_ADAPT", "LLMC_SPEC_GOVERNOR", "LLMC_SPEC_PROBE"} <= named
+    assert {"LLMC_ELASTIC_WARM_S", "LLMC_INTEGRITY_QUARANTINE_AFTER", "LLMC_INTEGRITY_PROBE_N",
+            "LLMC_SWAP_WAIT_S", "LLMC_FLEET_ANNOUNCE", "LLMC_DISAGG", "LLMC_PRESSURE",
+            "LLMC_PRESSURE_POLL_S", "LLMC_PRESSURE_HIGH_WATER", "LLMC_PRESSURE_LOW_WATER",
+            "LLMC_PRESSURE_UP_PATIENCE", "LLMC_PRESSURE_DOWN_PATIENCE",
+            "LLMC_PRESSURE_EVICT_TARGET", "LLMC_PRESSURE_JUDGE_FALLBACK",
+            "LLMC_PRESSURE_BROWNOUT_MAX_NEW", "LLMC_PRESSURE_SHED_CLASS", "LLMC_PRESSURE_AGE_S",
+            "LLMC_PRESSURE_RETRY_SPREAD", "LLMC_SLO_TTFT_P99_S", "LLMC_SLO_WINDOWS"} <= named
     undeclared = sorted(n for n in named if n not in jax_knobs.REGISTRY)
     assert not undeclared, undeclared
 
@@ -139,3 +156,33 @@ def test_explicit_cpu_runs_on_the_cpu(no_cuda):
     eng = Engine(get_config("tiny-llama"), dtype=torch.float32, max_seq=64, device="cpu")
     assert eng.device.type == "cpu"
     assert all(w.device.type == "cpu" for w in eng.params["layers"].values())
+
+
+def test_the_serving_settings_take_the_jax_defaults(monkeypatch):
+    """With the environment empty, the port's serving knobs read the JAX
+    registry's defaults, and no serving module writes the environment."""
+    from llm_consensus_tpu.utils import knobs as jax_knobs
+    from llm_consensus_tpu_torch.utils import knobs
+
+    names = {
+        "serve_settings": {"elastic_warm_s": "LLMC_ELASTIC_WARM_S",
+                           "quarantine_after": "LLMC_INTEGRITY_QUARANTINE_AFTER",
+                           "probe_n": "LLMC_INTEGRITY_PROBE_N",
+                           "swap_wait_s": "LLMC_SWAP_WAIT_S",
+                           "announce": "LLMC_FLEET_ANNOUNCE", "disagg": "LLMC_DISAGG"},
+        "live_settings": {"slo_ttft_p99_s": "LLMC_SLO_TTFT_P99_S",
+                          "slo_windows": "LLMC_SLO_WINDOWS"},
+        "pressure_settings": {k: "LLMC_PRESSURE" + ("" if k == "enabled" else "_" + k.upper())
+                              for k in ("enabled", "poll_s", "high_water", "low_water",
+                                        "up_patience", "down_patience", "evict_target",
+                                        "judge_fallback", "brownout_max_new", "shed_class",
+                                        "age_s", "retry_spread")},
+    }
+    for fn, keys in names.items():
+        for name in keys.values():
+            monkeypatch.delenv(name, raising=False)
+        got = getattr(knobs, fn)()
+        for key, name in keys.items():
+            assert got[key] == jax_knobs.REGISTRY[name].default, (fn, key)
+    for path in sorted(PKG.rglob("*.py")):
+        assert "os.environ[" not in path.read_text() or path.name == "knobs.py", path
