@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phase kvpool    # build + the KV pool phase only
     python3 chip_smoke.py --phase spec      # build + the dh 64 kernel rows + speculation
     python3 chip_smoke.py --phase gateway   # build + the serve gateway phase only
+    python3 chip_smoke.py --phase route     # build + the route phase only
 
 Phases, in order; any failure exits non-zero before the last line. Every
 CLI run of the script asks ``CLI_TOKENS`` (48) tokens a model, where the
@@ -46,7 +47,7 @@ phases below say 64:
    the kernel launch counters read around it;
 6. the chunked path: one Engine.generate on llama-3-8b with a ~1,500-token
    prompt (chunked prefill, then decode at a longer frontier);
-7. a torch.profiler window over one llama-3-8b generate (16 tokens): device busy
+7. a torch.profiler window over one llama-3-8b generate (8 tokens): device busy
    share and the kernels with the most device time (the bf16 decode is one
    launch per (layer, step): no merge kernel may appear);
 8. the batched slice: the CLI run with a panel of 4 x llama-3-8b and a
@@ -84,7 +85,7 @@ phases below say 64:
    plain run (the phase's baseline wall), ``--resume`` of that run less one
    panel answer and of a run whose child
    process was killed with SIGKILL after its first panel answer, ``-i``
-   over three queries, the config file with an alias, and ``--version``;
+   over two queries, the config file with an alias, and ``--version``;
    each run's generates, the decode kernel's launches, flash launched
    exactly for the prompts that fit one prefill chunk, no warning but the
    ones random weights cause; a ``{"modes": ...}`` line;
@@ -213,6 +214,28 @@ phases below say 64:
    must launch through the served requests: the launches of (e)'s
    reference runs are counted apart and left out. A ``{"gateway": ...}``
    line (latency median and maximum by request kind);
+8i. the route phase (``--phase route``): two replicas in this process, each a
+   gateway over its own ``GPUProvider`` (llama-3-8b + consensus-1b, judge
+   llama-3-8b, bf16, full width, random weights from the seed,
+   ``LLMC_MAX_SEQ=2048``, 4 batcher rows, a journal each), one router from
+   ``build_router`` on 127.0.0.1: (a) 4 requests homed 2 and 2 by the ring;
+   (b) 3 identical ones, one run on their home and 2 coalesced; (c) an SSE
+   request on an idle fleet whose home the router loses at frame 2
+   (``replica_down``): the client's text equals an undisturbed run on the
+   other replica (or every differing stream is within the near-tie rule),
+   one ``done``; (d) a one-model 48-token SSE request migrated by ``POST
+   /v1/retire`` mid-decode: one resident, migrated, the record carries
+   tokens, the destination resumes through ``replay_ids`` with flash over
+   prompt + tokens, the text equals its reference; (e) the router's
+   ``/metricsz`` is the bucket-wise merge of the replicas', ``/statsz`` holds
+   the failovers and migrations, one trace id on the router's span, on both
+   replicas' ``engine_stream`` spans for (c) and in the destination's
+   journal for (d); (f) no replica placeable: a long-deadline request spills
+   to the local SSE mock (``degraded: remote``), a 5 s one gets 503; (g)
+   ``main(["route", ...])`` answers one request over one replica and exits 0
+   on shutdown. Flash and the bf16 decode kernel must launch through the
+   routed traffic; (c)'s and (d)'s references are counted apart. A
+   ``{"route": ...}`` line;
 9. the quantized slice: the same CLI run with ``LLMC_QUANT=int8
    LLMC_KV_QUANT=int8`` in the environment (int8 weights, int8 KV cache,
    the int8 decode kernel), then a profiler window over one of its
@@ -256,6 +279,7 @@ It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import gc
 import io
@@ -1461,8 +1485,8 @@ def check_one_launch_per_step(ours: dict, kernel: str, other: str, counter, n_la
 # Decode steps of profile_decode's default window: the profiler's event
 # processing, not the generate, takes most of a window's wall (~70 s of the
 # bf16 window's 81 s at 48 tokens on an H100 80GB HBM3 at 700 W), and it
-# grows with the launches recorded.
-PROFILE_TOKENS = 16
+# grows with the launches recorded (16 until the route phase joined the run).
+PROFILE_TOKENS = 8
 
 
 def profile_decode(torch, engine, label: str = "profile", run=None, counter=None,
@@ -1944,7 +1968,7 @@ def check_attrib_against_profiler(torch, engine) -> None:
 
     led = engine._attrib
     ids = engine.tokenizer.encode(PROMPT)
-    sp = SamplingParams(max_new_tokens=32, ignore_eos=True)
+    sp = SamplingParams(max_new_tokens=16, ignore_eos=True)
     marks = []
 
     def run():
@@ -2501,10 +2525,11 @@ def run_modes(torch, fa, da, card: str) -> dict:
                                           [files["result.json"]], 1 + rerun)
         rows["resume_crash"].update(reused=reused, rerun=rerun)
 
-        # 5. -i: two queries, drop consensus-1b, a third, /reset, /exit.
+        # 5. -i: a query, drop consensus-1b, a second query over the first's
+        # history, /reset, /exit (three queries until the route phase).
         session = os.path.join(tmp, "interactive")
-        stdin = "\n".join([PROMPT, FOLLOW_UPS[0], f"/models -gpu:{second}",
-                           FOLLOW_UPS[1], "/reset", "/exit"]) + "\n"
+        stdin = "\n".join([PROMPT, f"/models -gpu:{second}", FOLLOW_UPS[0], "/reset",
+                           "/exit"]) + "\n"
         run = cli_call(torch, counters, env,
                        ["--models", MODES_PANEL, "--judge", MODES_JUDGE, "--max-tokens",
                         MODES_TOKENS, "--data-dir", session, "-i"], stdin=stdin)
@@ -2513,11 +2538,11 @@ def run_modes(torch, fa, da, card: str) -> dict:
         shape = [(len(d.get("history", [])), len(d.get("responses", []))) for d in docs]
         log(f"  interactive: exit {run['rc']}, runs (history, responses) {shape}; stderr "
             f"{run['err'].strip()!r}")
-        if (run["rc"] != 0 or "error:" in run["err"] or shape != [(0, 2), (1, 2), (2, 1)]
-                or docs[2]["consensus"] != docs[2]["responses"][0]["content"]):
+        if (run["rc"] != 0 or "error:" in run["err"] or shape != [(0, 2), (1, 1)]
+                or docs[1]["consensus"] != docs[1]["responses"][0]["content"]):
             raise AssertionError(f"interactive: exit {run['rc']}, runs {shape}: "
                                  f"{run['err'][-2000:]}")
-        rows["interactive"] = check_mode("interactive", run, gens, docs, 7, min_flash=2)
+        rows["interactive"] = check_mode("interactive", run, gens, docs, 4, min_flash=2)
 
         # 6. The config file through LLMC_CONFIG: an alias and rounds 2.
         config = os.path.join(tmp, "llm-consensus.json")
@@ -3395,10 +3420,10 @@ def serving_cli(torch, fa, da) -> dict:
     classes, lock = [], threading.Lock()
     real = ContinuousBatcher.submit
 
-    def submit(b, prompt, sampling, ctx=None, on_text=None, *, priority=1):
+    def submit(b, prompt, sampling, ctx=None, on_text=None, *, priority=1, **kw):
         with lock:
             classes.append((priority, "You are a synthesis judge" in prompt))
-        return real(b, prompt, sampling, ctx, on_text, priority=priority)
+        return real(b, prompt, sampling, ctx, on_text, priority=priority, **kw)
 
     # LLMC_PREFILL_BUDGET is set to 0 for the call and restored after it:
     # the flag sets it inside the call (flag and knob are one setting).
@@ -5325,34 +5350,51 @@ def gw_fire(port: int, bodies: list) -> list:
 
 
 class StreamLog:
-    """Every batcher submission of the phase: (preset, prompt, sampling, the
-    future), by wrapping ``ContinuousBatcher.submit`` (restored on exit)."""
+    """Every batcher submission of the phase, by wrapping
+    ``ContinuousBatcher.submit_ids`` (a plain submit goes through it;
+    restored on exit): a ``Submitted`` each. A journaled provider's stream
+    carries its trace in its journal entry."""
 
     def __init__(self):
         from llm_consensus_tpu_torch.engine.batcher import ContinuousBatcher
 
-        self.cls, self.real = ContinuousBatcher, ContinuousBatcher.submit
+        self.cls, self.real = ContinuousBatcher, ContinuousBatcher.submit_ids
         self.items: list = []
         self.lock = threading.Lock()
 
     def __enter__(self):
         real, log_ = self.real, self
 
-        def submit(b, prompt, sampling, ctx=None, on_text=None, *, priority=1):
-            fut = real(b, prompt, sampling, ctx, on_text, priority=priority)
+        def submit_ids(b, prompt_ids, *a, **kw):
+            fut = real(b, prompt_ids, *a, **kw)
+            jentry = kw.get("jentry")
+            trace = kw.get("trace_id") or (jentry.trace if jentry is not None else None)
             with log_.lock:
-                log_.items.append((b.engine.cfg.name, prompt, sampling, fut, b.engine))
+                log_.items.append(Submitted(b.engine, list(prompt_ids),
+                                            a[0] if a else kw.get("sampling"),
+                                            list(kw.get("replay_ids") or ()), trace, fut))
             return fut
 
-        self.cls.submit = submit
+        self.cls.submit_ids = submit_ids
         return self
 
     def __exit__(self, *exc):
-        self.cls.submit = self.real
+        self.cls.submit_ids = self.real
 
     def of(self, preset: str, needle: str) -> list:
+        """The ``preset`` streams whose prompt holds ``needle``."""
         with self.lock:
-            return [it for it in self.items if it[0] == preset and needle in it[1]]
+            return [it for it in self.items if it.engine.cfg.name == preset
+                    and needle in it.engine.tokenizer.decode(it.prompt_ids)]
+
+    def traced(self, engine, trace: str) -> list:
+        """``engine``'s streams that carry ``trace``."""
+        with self.lock:
+            return [it for it in self.items if it.engine is engine and it.trace == trace]
+
+
+Submitted = collections.namedtuple(
+    "Submitted", "engine prompt_ids sampling replay_ids trace future")
 
 
 class RungLog:
@@ -5418,9 +5460,10 @@ def gw_stream_check(torch, log_: StreamLog, engine, preset: str, needle: str,
     items = log_.of(preset, needle)
     if len(items) != 1:
         raise AssertionError(f"gateway {label}: {len(items)} {preset} streams for {needle!r}")
-    _, prompt, sampling, fut, _eng = items[0]
-    got = fut.result(timeout=60).token_ids
-    ids = engine._budget_prompt(engine.tokenizer.encode(prompt), sampling.max_new_tokens)[0]
+    item = items[0]
+    sampling = item.sampling
+    got = item.future.result(timeout=60).token_ids
+    ids = engine._budget_prompt(item.prompt_ids, sampling.max_new_tokens)[0]
     ref = engine.generate_ids(ids, SamplingParams(max_new_tokens=sampling.max_new_tokens,
                                                   ignore_eos=sampling.ignore_eos)).token_ids
     return greedy_check(torch, engine, f"gateway {label}", ids, got, ref)
@@ -5478,23 +5521,31 @@ def hf_tensors_from_params(cfg, params: dict) -> dict:
 
 
 @contextlib.contextmanager
-def gw_reference(port: int, counters: dict, tally: dict):
+def gw_reference(ports: list, counters: dict, tally: dict, label: str = "gateway"):
     """A block of reference runs on the card (single-stream generates,
-    teacher forcing) with no served request in flight: the launches it
-    makes go into ``tally``, which the phase subtracts from its counts, so
-    that these count only the served traffic's."""
-    def idle(when):
-        adm = json.loads(gw_get(port, "/statsz")[1])["admission"]
-        if adm["active"] or adm["waiting"]:
-            raise AssertionError(f"gateway: served traffic in flight {when} a reference "
-                                 f"run: {adm}")
+    teacher forcing, runs sent to a replica directly) with no served
+    request in flight on any of ``ports``: the launches it makes go into
+    ``tally``, which the phase subtracts from its counts, so that these
+    count only the served traffic's. A request that just answered may hold
+    its admission slot a moment longer; one still held after 30 s fails."""
+    def idle(when, wait_s):
+        deadline = time.monotonic() + wait_s
+        for port in ports:
+            while True:
+                adm = json.loads(gw_get(port, "/statsz")[1])["admission"]
+                if not (adm["active"] or adm["waiting"]):
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"{label}: served traffic in flight {when} a "
+                                         f"reference run: {adm}")
+                time.sleep(0.01)
 
-    idle("before")
+    idle("before", 30.0)
     before = {name: c.count for name, c in counters.items()}
     yield
     for name, c in counters.items():
         tally[name] += c.count - before[name]
-    idle("after")
+    idle("after", 0.0)
 
 
 def gateway_swap(torch, port: int, log_: StreamLog, seed: int, tmp: str,
@@ -5518,7 +5569,7 @@ def gateway_swap(torch, port: int, log_: StreamLog, seed: int, tmp: str,
     del new
     release_memory(torch)
     write_s = time.monotonic() - t0
-    engine = log_.of("consensus-1b", "")[0][4]  # the served engine
+    engine = log_.of("consensus-1b", "")[0].engine  # the served engine
     mem = {"before": torch.cuda.memory_allocated() / 1e9}
     inflight = []
     body = {"prompt": "Swap request one. " + PROMPT, "max_tokens": 48}
@@ -5550,7 +5601,7 @@ def gateway_swap(torch, port: int, log_: StreamLog, seed: int, tmp: str,
     # The next request on the new weights, against a fresh engine on them.
     two = gw_post(port, {"prompt": "Swap request two. " + PROMPT, "max_tokens": 16})
     answered.append(gw_doc(two, "(e) after the flip"))
-    with gw_reference(port, counters, tally):
+    with gw_reference([port], counters, tally):
         fresh = Engine(cfg, try_load_params(cfg, ckpt, device=torch.device("cuda")))
         new_row = gw_stream_check(torch, log_, fresh, "consensus-1b", "Swap request two.",
                                   "(e) v1 stream against a fresh engine on the seed + 1 weights")
@@ -5567,7 +5618,7 @@ def gateway_swap(torch, port: int, log_: StreamLog, seed: int, tmp: str,
     lat.setdefault("e_16", []).extend([two[3], three[3]])
     # v0 again: the in-flight stream and the post-rollback one, each against
     # the served engine's own single-stream tokens on the v0 weights.
-    with gw_reference(port, counters, tally):
+    with gw_reference([port], counters, tally):
         old_row = gw_stream_check(torch, log_, engine, "consensus-1b", "Swap request one.",
                                   "(e) in-flight stream on v0")
         back_row = gw_stream_check(torch, log_, engine, "consensus-1b", "Swap request three.",
@@ -5874,6 +5925,463 @@ def run_gateway(torch, fa, da, card: str, seed: int) -> dict:
     return out
 
 
+# -- phase 8i: the route slice ----------------------------------------------------
+
+ROUTE_PANEL = ["gpu:llama-3-8b", "gpu:consensus-1b"]
+ROUTE_JUDGE = "gpu:llama-3-8b"
+# Each replica's engines at 2,048 slots (LLMC_MAX_SEQ, read through
+# utils/knobs.py as the CLI reads it): a replica is ~20 GB (16.06 GB of
+# llama-3-8b, 1.74 GB of consensus-1b, 0.27 GB of KV a 2,048-slot row), so
+# two fit the card beside each other; the ~1,000-token judge prompt fits.
+ROUTE_ENV = {"LLMC_MAX_SEQ": "2048"}
+ROUTE_MAX_BATCH = 4
+ROUTE_TOKENS = 16
+ROUTE_MIGRATE_TOKENS = 48
+ROUTE_DOWN_FRAME = 2  # (c): the router loses the home replica at this SSE frame
+
+
+def route_sse(port: int, body: dict, trace: str, timeout: float = 300.0) -> dict:
+    """One SSE POST on 127.0.0.1 with ``X-LLMC-Trace``: every event with its
+    arrival time (s since the request), and the text by ``kind:model``."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    t0 = time.monotonic()
+    events: list = []
+    try:
+        conn.request("POST", "/v1/consensus", json.dumps(dict(body, stream=True)),
+                     {"Content-Type": "application/json", "Accept": "text/event-stream",
+                      "X-LLMC-Trace": trace})
+        r = conn.getresponse()
+        if r.status != 200:
+            raise AssertionError(f"route: SSE status {r.status}: {r.read()[:300]!r}")
+        name = None
+        for raw in r:
+            line = raw.decode("utf-8").rstrip("\r\n")
+            if line.startswith("event: "):
+                name = line[len("event: "):]
+            elif line.startswith("data: "):
+                events.append((time.monotonic() - t0, name, json.loads(line[len("data: "):])))
+    finally:
+        conn.close()
+    names = [n for _t, n, _d in events]
+    if names.count("done") != 1 or names[-1] != "done" or "error" in names:
+        raise AssertionError(f"route: SSE events {names}")
+    text: dict = {}
+    for _t, n, d in events:
+        if n == "chunk":
+            key = f"{d['kind']}:{d['model']}"
+            text[key] = text.get(key, "") + d["text"]
+    return {"events": events, "text": text, "done": events[-1][2], "t0": t0,
+            "wall_s": time.monotonic() - t0}
+
+
+def route_replica(torch, tag: str, tmp: str, settings: dict) -> dict:
+    """One replica: its own ``GPUProvider`` (engines, batchers, a journal
+    mirrored to ``wal-<tag>``), gateway, recorder and live plane (each bound
+    at construction), the panel's engines and batchers built before any
+    traffic. The governor is off: a busy pool reads as pressure 1.0 and
+    would shed the fleet's own traffic (ROADMAP queue 3)."""
+    from llm_consensus_tpu_torch import obs, serve
+    from llm_consensus_tpu_torch.obs.live import LiveMetrics
+    from llm_consensus_tpu_torch.providers import Registry
+    from llm_consensus_tpu_torch.providers.gpu import GPUProvider, parse_model_name
+    from llm_consensus_tpu_torch.recovery import StreamJournal
+
+    t0 = time.monotonic()
+    rec, live = obs.Recorder(), LiveMetrics(window_s=3600.0)
+    obs.install(rec)
+    obs.live.install(live)
+    wal = os.path.join(tmp, f"wal-{tag}")
+    provider = GPUProvider(device=None, batch_streams=ROUTE_MAX_BATCH,
+                           journal=StreamJournal(path=wal), **settings)
+    registry = Registry()
+    for m in dict.fromkeys(ROUTE_PANEL + [ROUTE_JUDGE]):
+        registry.register(m, provider)
+    provider.prepare(ROUTE_PANEL, ROUTE_JUDGE)
+    for m in ROUTE_PANEL:
+        provider._batcher_for(parse_model_name(m), provider._engine_for(m))
+    gw = serve.build_gateway(registry, ROUTE_PANEL, ROUTE_JUDGE, max_tokens=ROUTE_TOKENS,
+                             timeout=300.0, max_concurrency=2, max_queue=8, cache_size=0,
+                             data_dir=os.path.join(tmp, f"data-{tag}"), save=False, live=live,
+                             pressure={"enabled": False})
+    host, port = gw.start()
+    torch.cuda.synchronize()
+    return {"gw": gw, "provider": provider, "rec": rec, "wal": wal, "port": port,
+            "url": f"http://{host}:{port}", "build_s": time.monotonic() - t0,
+            "engines": provider.engines()}
+
+
+def route_runs(rep: dict) -> int:
+    return json.loads(gw_get(rep["port"], "/statsz")[1])["runs_executed"]
+
+
+def route_wait_runs(rep: dict, n: int, label: str) -> None:
+    deadline = time.monotonic() + 300
+    while route_runs(rep) < n:
+        if time.monotonic() > deadline:
+            raise AssertionError(f"route {label}: {rep['url']} never finished its run")
+        time.sleep(0.05)
+
+
+def route_spans(rec, name: str, trace: str) -> list:
+    return [e for e in rec.events() if e.ph == "X" and e.name == name
+            and e.args.get("trace") == trace]
+
+
+def route_texts_match(torch, label: str, got: dict, ref: dict, slog: StreamLog, streams: list,
+                      reps: dict) -> dict:
+    """The client's text against the undisturbed reference: equal, or every
+    differing model's incarnations within the near-tie rule under teacher
+    forcing (their gaps printed)."""
+    if got == ref:
+        return {"equal": True}
+    gaps: dict = {}
+    for key in sorted(set(got) | set(ref)):
+        if got.get(key) == ref.get(key):
+            continue
+        preset = key.split(":", 1)[1].split(":", 1)[-1]
+        for tag, trace in streams:
+            engine = reps[tag]["engines"][preset]
+            for it in slog.traced(engine, trace):
+                toks = it.future.result(timeout=60).token_ids
+                g, _std = teacher_gaps(torch, engine, it.prompt_ids, toks)
+                gaps[f"{key}@{tag}"] = max(g) if g else 0.0
+    log(f"route {label}: text differs from the reference; teacher-forced largest gaps {gaps}, "
+        f"tol {NEAR_TIE_TOL}")
+    if not gaps or max(gaps.values()) > NEAR_TIE_TOL:
+        raise AssertionError(f"route {label}: client text differs beyond a near-tie: "
+                             f"{got} against {ref}; gaps {gaps}")
+    return {"equal": False, "gaps": gaps}
+
+
+def run_route(torch, fa, da, card: str, seed: int) -> dict:
+    """Phase 8i: the route slice. Two replicas in this process, each a
+    gateway over its own ``GPUProvider`` (never ``GPUProvider.shared``, whose
+    key would give both one provider): its own engines, batchers and journal,
+    so a migration's destination has never seen the stream. Each serves
+    panel ``llama-3-8b`` + ``consensus-1b``, judge ``llama-3-8b``, bf16, full
+    width, random weights from the seed (identical in both: what makes a
+    failover byte-identical), ``LLMC_MAX_SEQ=2048`` (through
+    ``utils/knobs.py``), 4 batcher rows, 16 tokens a request unless stated.
+    One router from ``build_router([url_a, url_b])`` on 127.0.0.1, its health
+    polls driven by hand, its spillover lane over the session phase's local
+    SSE mock (no network). (a) 4 distinct requests homed 2 and 2 by the ring;
+    (b) 3 identical ones: one run on their home, 2 coalesced; (c) one SSE
+    request on an idle fleet whose home replica the router loses at frame 2
+    (``replica_down``): the client's text equals an undisturbed run on the
+    other replica, one ``done``; (d) a single-model SSE request (48 tokens)
+    migrated by ``POST /v1/retire`` mid-decode: the record carries tokens,
+    the destination resumes through ``replay_ids`` (flash on prompt + tokens)
+    and the text equals its reference; (e) the router's ``/metricsz`` equals
+    the bucket-wise merge of the replicas', ``/statsz`` holds the failovers
+    and migrations, one trace id on the router's span, both replicas'
+    ``engine_stream`` spans for (c) and the destination's journal for (d);
+    (f) no replica placeable: a long-deadline request spills to the mock
+    (``degraded: remote``), a tight one gets 503; (g) ``main(["route",
+    ...])`` answers one request over replica b and exits 0. Flash and the
+    bf16 decode kernel must launch through the routed traffic; the (c) and
+    (d) reference runs and near-tie checks are counted apart. Prints a
+    ``{"route": ...}`` line."""
+    from llm_consensus_tpu_torch import faults, obs, serve
+    from llm_consensus_tpu_torch.cli.main import main as cli_main
+    from llm_consensus_tpu_torch.obs import prom
+    from llm_consensus_tpu_torch.obs.live import LiveMetrics
+    from llm_consensus_tpu_torch.providers.registry import remote_registry
+    from llm_consensus_tpu_torch.recovery.journal import read_wal
+    from llm_consensus_tpu_torch.serve import elastic as elastic_mod
+    from llm_consensus_tpu_torch.serve.router import RouteRequest
+    from llm_consensus_tpu_torch.utils import knobs
+
+    t_phase = time.monotonic()
+    fresh_planes()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-route-")
+    counters = {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES}
+    reference = dict.fromkeys(counters, 0)
+    out: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reps: dict = {}
+    router = None
+    shipped: list = []
+    real_ship = elastic_mod.ship_record
+
+    def ship(dest, record, timeout_s=10.0):
+        shipped.append(record.to_doc())
+        return real_ship(dest, record, timeout_s=timeout_s)
+
+    with set_environ(ROUTE_ENV), openai_mock() as mock_bodies, StreamLog() as slog:
+        settings = knobs.engine_settings()
+        if settings["max_seq"] != 2048:
+            raise AssertionError(f"route: LLMC_MAX_SEQ read as {settings}")
+        elastic_mod.ship_record = ship
+        try:
+            for tag in ("a", "b"):
+                torch.manual_seed(seed)
+                reps[tag] = route_replica(torch, tag, tmp, settings)
+            for tag, rep in reps.items():
+                if {e.max_seq for e in rep["engines"].values()} != {2048}:
+                    raise AssertionError(f"route: replica {tag} engines {rep['engines']}")
+            out["build_s"] = {tag: rep["build_s"] for tag, rep in reps.items()}
+            out["memory_gb_after_build"] = torch.cuda.memory_allocated() / 1e9
+            log(f"route: replicas built in {out['build_s']} s, "
+                f"{out['memory_gb_after_build']:.2f} GB allocated")
+            url_a, url_b = reps["a"]["url"], reps["b"]["url"]
+            rec_r = obs.Recorder()
+            obs.install(rec_r)
+            obs.live.install(LiveMetrics(window_s=3600.0))
+            faults.install(faults.FaultPlan(f"replica_down@phase=proxy@frame={ROUTE_DOWN_FRAME}",
+                                            seed=seed))
+            router = serve.build_router(
+                [url_a, url_b], poll_s=60.0,
+                spillover_registry=remote_registry([REMOTE_MODEL], REMOTE_MODEL),
+                spillover_models=[REMOTE_MODEL], spillover_judge=REMOTE_MODEL,
+                data_dir=os.path.join(tmp, "spill"))
+            faults.install(None)  # the router bound the plan; nothing else does
+            rport = router.start()[1]
+
+            def home(body: dict) -> str:
+                return router.candidates(RouteRequest(b"", dict(body), False).key())[0]
+
+            def homed(label: str, url: str, extra: dict = None) -> dict:
+                for i in range(200):
+                    body = dict(extra or {}, prompt=f"{label} {i}. " + PROMPT)
+                    if home(body) == url:
+                        return body
+                raise AssertionError(f"route: no prompt homes on {url}")
+
+            for c in counters.values():
+                c.reset()
+
+            # (a) placement: 4 distinct requests, 2 homed on each replica.
+            t0 = time.monotonic()
+            bodies = [homed(f"Routed request a{j}", url) for url in (url_a, url_b)
+                      for j in range(2)]
+            answers = gw_fire(rport, bodies)
+            docs = [gw_doc(a, f"route (a) request {i}") for i, a in enumerate(answers)]
+            placed = [d["replica"] for d in docs]
+            if placed != [home(b) for b in bodies] or set(placed) != {url_a, url_b}:
+                raise AssertionError(f"route (a): placed {placed}")
+            stats = json.loads(gw_get(rport, "/statsz")[1])
+            # Each request's client wall and its panel models' own latencies
+            # (the rest of the wall is the judge and the queue), by replica.
+            by_replica = {tag: [{"wall_s": a[3], "panel_s": {r["model"]: r["latency_ms"] / 1e3
+                                                             for r in d["responses"]}}
+                                for a, d in zip(answers, docs) if d["replica"] == rep["url"]]
+                          for tag, rep in reps.items()}
+            out["a"] = {"wall_s": time.monotonic() - t0, "latencies_s": [a[3] for a in answers],
+                        "placed": {tag: placed.count(rep["url"]) for tag, rep in reps.items()},
+                        "by_replica": by_replica, "requests": stats["counters"]["requests"]}
+            log(f"route (a): 4 answers in {out['a']['wall_s']:.2f} s, placed {out['a']['placed']}; "
+                f"by replica {by_replica}")
+
+            # (b) fleet-wide coalescing: 3 identical requests, one run on their home.
+            t0 = time.monotonic()
+            body = {"prompt": "Coalesce across the fleet. " + PROMPT}
+            runs0 = {tag: route_runs(rep) for tag, rep in reps.items()}
+            same = [gw_doc(a, "route (b)") for a in gw_fire(rport, [body] * 3)]
+            runs1 = {tag: route_runs(rep) for tag, rep in reps.items()}
+            delta = {tag: runs1[tag] - runs0[tag] for tag in reps}
+            home_tag = "a" if home(body) == url_a else "b"
+            coalesced = sum(d["coalesced"] for d in same)
+            if (coalesced != 2 or delta[home_tag] != 1 or sum(delta.values()) != 1
+                    or {d["replica"] for d in same} != {reps[home_tag]["url"]}):
+                raise AssertionError(f"route (b): coalesced {coalesced}, runs {delta}")
+            out["b"] = {"wall_s": time.monotonic() - t0, "coalesced": coalesced, "runs": delta}
+            log(f"route (b): 3 identical requests, one run on {home_tag}, 2 coalesced")
+
+            # (c) mid-stream failover, alone on an idle fleet. The reference
+            # run and the near-tie check (teacher forcing on the card) go
+            # through ``gw_reference``: their launches are counted apart.
+            ports = [rep["port"] for rep in reps.values()]
+            body_c = homed("Fail over this stream", url_a)
+            with gw_reference(ports, counters, reference, "route"):
+                ref_c = route_sse(reps["b"]["port"], body_c, "c0ffee00ref0000c")
+            runs_a = route_runs(reps["a"])
+            trace_c = "c0ffee000000000c"
+            got_c = route_sse(rport, body_c, trace_c)
+            route_wait_runs(reps["a"], runs_a + 1, "(c)")
+            done = got_c["done"]
+            if done.get("failovers") != 1 or done.get("replica") != url_b:
+                raise AssertionError(f"route (c): done {done}")
+            with gw_reference(ports, counters, reference, "route"):
+                tie_c = route_texts_match(
+                    torch, "(c)", got_c["text"], ref_c["text"], slog,
+                    [("a", trace_c), ("b", trace_c), ("b", "c0ffee00ref0000c")], reps)
+            router.monitor.poll_once()  # the router's own evidence made a suspect
+            out["c"] = {"wall_s": got_c["wall_s"], "reference_s": ref_c["wall_s"],
+                        "chunks": sum(1 for _t, n, _d in got_c["events"] if n == "chunk"),
+                        "text": tie_c, "chars": {k: len(v) for k, v in got_c["text"].items()}}
+            log(f"route (c): replica a lost at frame {ROUTE_DOWN_FRAME}, the stream finished on b "
+                f"in {got_c['wall_s']:.2f} s, text equal to the reference {tie_c['equal']}")
+
+            # (d) retire with live migration: one panel model, 48 tokens.
+            body_d = homed("Migrate this stream", url_a,
+                           {"models": [ROUTE_PANEL[0]], "max_tokens": ROUTE_MIGRATE_TOKENS})
+            with gw_reference(ports, counters, reference, "route"):
+                ref_d = route_sse(reps["b"]["port"], body_d, "d00d00d0ref0000d")
+            trace_d = "d00d00d00000000d"
+            box: dict = {}
+            client = threading.Thread(target=lambda: box.update(got=route_sse(
+                rport, body_d, trace_d)), daemon=True)
+            client.start()
+            # Retire once the source's journal holds decoded tokens of the
+            # stream (text may lag the tokens: random weights' ids decode to
+            # little text).
+            deadline = time.monotonic() + 120
+            while not any(e.trace == trace_d and e.tokens()
+                          for e in reps["a"]["provider"].journal.active()):
+                if time.monotonic() > deadline or not client.is_alive():
+                    raise AssertionError("route (d): the stream never decoded on a")
+                time.sleep(0.005)
+            flash0 = fa.LAUNCHES.count
+            t_retire = time.monotonic()
+            status, _h, data, retire_s, _sse = gw_post(reps["a"]["port"], {"to": url_b},
+                                                      path="/v1/retire")
+            retire = json.loads(data)
+            client.join(300)
+            if "got" not in box:
+                raise AssertionError("route (d): the client never finished")
+            got_d = box["got"]
+            if status != 200 or retire != {"residents": 1, "migrated": 1, "fallback": 0,
+                                           "lifecycle": "retiring"}:
+                raise AssertionError(f"route (d): retire {status} {retire}")
+            payload = (shipped[-1]["resume"] if shipped else {}).get(ROUTE_PANEL[0], {})
+            tokens = payload.get("tokens") or []
+            if not tokens or "text" in payload:
+                raise AssertionError(f"route (d): the record carries {sorted(payload)}")
+            b_engine = reps["b"]["engines"][ROUTE_PANEL[0].split(":", 1)[1]]
+            resumed = [it for it in slog.traced(b_engine, trace_d) if it.replay_ids == tokens]
+            flash_resume = fa.LAUNCHES.count - flash0
+            if len(resumed) != 1 or flash_resume < b_engine.cfg.n_layers:
+                raise AssertionError(f"route (d): resumed {len(resumed)} on b, flash "
+                                     f"{flash_resume}")
+            done = got_d["done"]
+            if done.get("failovers") != 1 or done.get("replica") != url_b:
+                raise AssertionError(f"route (d): done {done}")
+            tie_d = {"equal": True}
+            if got_d["text"] != ref_d["text"]:
+                (res,), (ref_it,) = resumed, slog.traced(b_engine, "d00d00d0ref0000d")
+                with gw_reference(ports, counters, reference, "route"):
+                    tie_d = greedy_check(torch, b_engine, "route (d) resumed stream",
+                                         res.prompt_ids, res.future.result(timeout=60).token_ids,
+                                         ref_it.future.result(timeout=60).token_ids)
+            # Wall from the retire to the first chunk the client got after it.
+            after = [got_d["t0"] + t for t, n, _d in got_d["events"]
+                     if n == "chunk" and got_d["t0"] + t > t_retire]
+            resume_s = after[0] - t_retire if after else None
+            router.monitor.poll_once()  # a now advertises retiring
+            out["d"] = {"retire": retire, "retire_post_s": retire_s,
+                        "record_tokens": len(tokens), "flash_on_resume": flash_resume,
+                        "retire_to_first_resumed_chunk_s": resume_s,
+                        "wall_s": got_d["wall_s"], "reference_s": ref_d["wall_s"], "text": tie_d}
+            log(f"route (d): retire {retire}; record {len(tokens)} tokens; {flash_resume} flash "
+                f"launches for the resume on b; first resumed chunk {resume_s} s after the retire")
+
+            # (e) the fleet's view.
+            families = ("ttft", "e2e", "queue_wait", "token_latency", "judge_synthesis")
+
+            def request_families(parsed):
+                return {k: v for k, v in parsed["histograms"].items() if k[0] in families}
+
+            merged = prom.merge([prom.parse_text(gw_get(rep["port"], "/metricsz")[1])
+                                 for rep in reps.values()])
+            fleet_view = prom.parse_text(gw_get(rport, "/metricsz")[1])
+            if (request_families(fleet_view) != request_families(merged)
+                    or not request_families(merged)):
+                raise AssertionError("route (e): the router's /metricsz is not the merge")
+            rstats = json.loads(gw_get(rport, "/statsz")[1])
+            el = {tag: json.loads(gw_get(rep["port"], "/statsz")[1])["elastic"]
+                  for tag, rep in reps.items()}
+            wal_traces = [(read_wal(os.path.join(reps["b"]["wal"], f)) or {}).get(
+                "header", {}).get("trace") for f in sorted(os.listdir(reps["b"]["wal"]))]
+            traced = {"route": len(route_spans(rec_r, "route", trace_c)),
+                      "engine_stream_a": len(route_spans(reps["a"]["rec"], "engine_stream",
+                                                         trace_c)),
+                      "engine_stream_b": len(route_spans(reps["b"]["rec"], "engine_stream",
+                                                         trace_c)),
+                      "journal_b_d": wal_traces.count(trace_d)}
+            if (rstats["counters"]["failovers"] < 2 or el["a"]["migrations_out"] != 1
+                    or el["b"]["migrations_in"] != 1 or el["b"]["migrations_resumed"] != 1
+                    or min(traced.values()) < 1):
+                raise AssertionError(f"route (e): counters {rstats['counters']}, elastic {el}, "
+                                     f"trace {traced}")
+            out["e"] = {"counters": rstats["counters"], "traced": traced,
+                        "histograms": sum(h["count"] for h in request_families(merged).values()),
+                        "elastic": {tag: {k: e[k] for k in ("lifecycle", "migrations_out",
+                                                             "migrations_in",
+                                                             "migrations_resumed")}
+                                    for tag, e in el.items()}}
+            log(f"route (e): /metricsz is the merge; counters {rstats['counters']}; trace {traced}")
+
+            # (f) spillover once no replica is placeable.
+            reps["b"]["gw"].set_lifecycle(elastic_mod.DRAINING)
+            router.monitor.poll_once()
+            if router.candidates("any"):
+                raise AssertionError(f"route (f): still placeable {router.candidates('any')}")
+            status, _h, data, spill_s, _sse = gw_post(
+                rport, {"prompt": "Spill this one. " + PROMPT, "timeout": 60})
+            spill = json.loads(data)
+            tight, _h, _data, _w, _sse = gw_post(
+                rport, {"prompt": "Too tight to spill. " + PROMPT, "timeout": 5})
+            if (status != 200 or spill.get("degraded") != "remote" or tight != 503
+                    or [r["model"] for r in spill["responses"]] != [REMOTE_MODEL]
+                    or len(mock_bodies) != 1):
+                raise AssertionError(f"route (f): {status} {spill}, tight {tight}")
+            reps["b"]["gw"].set_lifecycle(elastic_mod.SERVING)
+            out["f"] = {"spill_s": spill_s, "tight_status": tight}
+            log(f"route (f): spilled to the local mock in {spill_s:.2f} s (degraded remote), "
+                f"a 5 s deadline got {tight}")
+
+            # (g) the route subcommand over replica b.
+            stop, err, rc = threading.Event(), io.StringIO(), []
+            sub = threading.Thread(target=lambda: rc.append(cli_main(
+                ["route", "--replica", url_b, "--port", "0"], stdout=io.StringIO(), stderr=err,
+                install_signal_handlers=False, shutdown=stop)), daemon=True)
+            sub.start()
+            try:
+                gport = None
+                deadline = time.monotonic() + 60
+                while gport is None and time.monotonic() < deadline and sub.is_alive():
+                    text = err.getvalue()
+                    if "http://" in text:
+                        gport = int(text.split("http://", 1)[1].split(" ", 1)[0].rsplit(":", 1)[1])
+                    time.sleep(0.01)
+                if gport is None:
+                    raise AssertionError(f"route (g): never listened: {err.getvalue()}")
+                answer = gw_post(gport, {"prompt": "Through the route subcommand. " + PROMPT})
+                gdoc = gw_doc(answer, "route (g)")
+            finally:
+                stop.set()
+                sub.join(60)
+            if rc != [0] or gdoc["replica"] != url_b:
+                raise AssertionError(f"route (g): rc {rc}, replica {gdoc['replica']}")
+            out["g"] = {"wall_s": answer[3], "rc": rc[0]}
+            log(f"route (g): `route` answered in {answer[3]:.2f} s over b, exit 0")
+        finally:
+            elastic_mod.ship_record = real_ship
+            faults.install(None)
+            if router is not None:
+                router.close()
+            for rep in reps.values():
+                rep["gw"].close(drain=False, timeout=30.0)
+                rep["provider"].release()
+            obs.reset_planes()
+    launches = {name: c.count - reference[name] for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if launches["flash_attention"] <= 0 or launches["decode_attention"] <= 0:
+        raise AssertionError(f"route: a kernel of the path never launched: {launches}")
+    out.update({"launches": launches, "reference_launches": reference, "peak_gb": peak,
+                "wall_s": time.monotonic() - t_phase})
+    log(f"route: launches through the router {launches} (references {reference}, not counted), "
+        f"peak {peak:.2f} GB, phase {out['wall_s']:.1f} s")
+    print(json.dumps({"route": out, "card": card}, default=str), flush=True)
+    reps.clear()
+    shutil.rmtree(tmp, ignore_errors=True)
+    release_memory(torch)
+    return out
+
+
 PHASE_WALLS: dict = {}  # phase → seconds, in run order
 
 
@@ -5898,7 +6406,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase", choices=("all", "kernels", "mixtral", "telemetry", "modes",
                                         "session", "serving", "recovery", "kvpool", "spec",
-                                        "gateway"),
+                                        "gateway", "route"),
                     default="all")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -5987,6 +6495,13 @@ def main(argv=None) -> int:
         print_phase_walls(t_start)
         print(card, flush=True)
         return 0
+    if args.phase == "route":
+        # The route phase alone: no ok line.
+        with phase_wall("route"):
+            run_route(torch, fa, da, card, args.seed)
+        print_phase_walls(t_start)
+        print(card, flush=True)
+        return 0
     if args.phase == "spec":
         # The dh 64 kernel rows and the spec phase: no ok line.
         with phase_wall("kernels dh 64"):
@@ -6056,6 +6571,8 @@ def main(argv=None) -> int:
         run_spec(torch, fa, da, card, args.seed, dh64_recs)
     with phase_wall("gateway"):
         run_gateway(torch, fa, da, card, args.seed)
+    with phase_wall("route"):
+        run_route(torch, fa, da, card, args.seed)
 
     with phase_wall("quantized slice"):
         qsl = run_slice(torch, {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES,

@@ -40,9 +40,10 @@ flags, their validation and messages, precedence and exit codes.
     conversation carried across queries (``/models +m|-m``, ``/judge m``,
     ``/reset``, ``/exit``);
   * errors print ``error: ...`` to stderr and exit 1;
-  * ``serve``: the resident HTTP gateway (cli/serve.py, serve/). The
-    ``route`` and ``distill`` subcommands of the JAX CLI exit 1: the fleet
-    tier and the flywheel are not in the port yet.
+  * ``serve``: the resident HTTP gateway (cli/serve.py, serve/);
+    ``route``: the fleet router over N gateways (cli/route.py). The
+    ``distill`` subcommand of the JAX CLI exits 1: the flywheel is not in
+    the port yet.
 
 Model names are ``gpu:<preset>``. ``main(argv, device=None)`` runs on the
 current CUDA card and raises when there is none; tests pass
@@ -199,8 +200,8 @@ def create_provider(model: str, device: DeviceLike = None, draft: Optional[str] 
     from llm_consensus_tpu_torch.providers.gpu import SCHEME, GPUProvider, parse_model_name
     from llm_consensus_tpu_torch.providers.registry import REMOTE_MODELS, create_remote_provider
     from llm_consensus_tpu_torch.utils.knobs import (
-        batch_settings, checkpoint_dir, http_settings, kv_pool_settings, prefix_settings,
-        quant_modes, recovery_settings, spec_settings)
+        batch_settings, checkpoint_dir, engine_settings, http_settings, kv_pool_settings,
+        prefix_settings, quant_modes, recovery_settings, spec_settings)
 
     if model.startswith(SCHEME):
         try:
@@ -210,7 +211,7 @@ def create_provider(model: str, device: DeviceLike = None, draft: Optional[str] 
         provider = GPUProvider.shared(device, **batch_settings(), **quant_modes(),
                                       **checkpoint_dir(), **prefix_settings(),
                                       **kv_pool_settings(), **recovery_settings(),
-                                      **spec_settings())
+                                      **spec_settings(), **engine_settings())
         if draft is not None:
             provider.set_draft(draft, k=spec_k)
         return provider
@@ -928,7 +929,8 @@ def _run(cfg: Config, ctx: Context, *, factory: ProviderFactory, stdout: TextIO,
     progress.start()
     panel_priority, judge_priority = run_priorities(cfg)
     runner = Runner(registry, cfg.timeout, max_tokens=cfg.max_tokens,
-                    system=cfg.system or None, priority=panel_priority)
+                    system=cfg.system or None, priority=panel_priority,
+                    stall_grace=knobs.stall_grace())
     # Judge prefill overlap (consensus/overlap.py): each panel answer
     # prefills into the judge's growing cache as it lands. Never under
     # --vote (no judge); None when off or the judge has no engine.
@@ -1309,7 +1311,8 @@ def main(
 ) -> int:
     """Run the CLI; returns the exit code. ``device=None`` resolves to the
     current CUDA card and raises ``RuntimeError`` when there is none.
-    ``main(["serve", ...])`` runs the resident gateway (cli/serve.py) until
+    ``main(["serve", ...])`` runs the resident gateway (cli/serve.py) and
+    ``main(["route", ...])`` the fleet router (cli/route.py) until
     SIGTERM/SIGINT or, in process, until ``shutdown`` is set."""
     argv = sys.argv[1:] if argv is None else argv
     stdin = sys.stdin if stdin is None else stdin
@@ -1319,13 +1322,19 @@ def main(
     if argv and argv[0] in ("serve", "route", "distill"):
         # Resident services have their own flag sets and signal handling
         # (SIGTERM = graceful drain, not context cancel).
-        if argv[0] != "serve":
-            stderr.write(f"error: the {argv[0]!r} subcommand is not in this port yet "
-                         f"({'the route slice' if argv[0] == 'route' else 'the flywheel'})\n")
+        if argv[0] == "distill":
+            stderr.write("error: the 'distill' subcommand is not in this port yet "
+                         "(the flywheel)\n")
             return 1
-        from llm_consensus_tpu_torch.cli.serve import serve_main
-
         try:
+            if argv[0] == "route":
+                from llm_consensus_tpu_torch.cli.route import route_main
+
+                return route_main(argv[1:], stdout=stdout, stderr=stderr,
+                                  install_signal_handlers=install_signal_handlers,
+                                  shutdown=shutdown)
+            from llm_consensus_tpu_torch.cli.serve import serve_main
+
             return serve_main(argv[1:], stdout=stdout, stderr=stderr,
                               install_signal_handlers=install_signal_handlers,
                               shutdown=shutdown, device=device)

@@ -24,8 +24,10 @@ The environment is read once, through ``utils/knobs.py``, and its settings
 go to the provider, the gateway and the governor as arguments; nothing is
 written back into ``os.environ``. ``serve_main(device=None)`` runs on the
 current CUDA card and raises without one; tests pass ``device="cpu"``.
-``--announce`` (fleet membership) and ``--disagg`` (disaggregated
-prefill/decode) exit 1: the port has no fleet tier or handoff yet.
+``--announce URL`` (or ``LLMC_FLEET_ANNOUNCE``) registers the gateway with a
+fleet router (``route``) by periodic heartbeat (``LLMC_FLEET_HEARTBEAT_S``).
+``--disagg`` (disaggregated prefill/decode) exits 1: the port has no handoff
+yet.
 """
 
 from __future__ import annotations
@@ -69,7 +71,7 @@ class ServeConfig:
     events: bool = False
     prefill_budget: Optional[int] = None  # None → LLMC_PREFILL_BUDGET
     judge_overlap: bool = False
-    announce: str = ""  # fleet router URL (refused: no fleet tier yet)
+    announce: str = ""  # fleet router URL to heartbeat-register with
     draft: str = ""  # speculative decoding ("lookup" batches; see --draft)
     spec_k: Optional[int] = None  # draft-length ceiling per round
     no_live: bool = False  # disable the /metricsz live plane + blackbox
@@ -155,8 +157,7 @@ def parse_serve_args(argv: list[str]) -> ServeConfig:
     parser.add_argument("--announce", "-announce", default="", metavar="URL",
                         help="Fleet router base URL to register with by "
                              "periodic heartbeat (LLMC_FLEET_ANNOUNCE "
-                             "equivalent): not in this port until the "
-                             "route slice; refused")
+                             "equivalent)")
     parser.add_argument("--no-live", "-no-live", action="store_true",
                         help="Disable the live observability plane "
                              "(GET /metricsz histograms + the always-on "
@@ -285,7 +286,8 @@ def _gpu_provider(cfg: ServeConfig, device):
     jr = StreamJournal(path=None if journal == "1" else journal) if journal else None
     return GPUProvider(device=device, journal=jr, swap_wait_s=knobs.serve_settings()["swap_wait_s"],
                        **batching, **knobs.quant_modes(), **knobs.checkpoint_dir(),
-                       **knobs.prefix_settings(), **knobs.kv_pool_settings(), **recovery, **spec)
+                       **knobs.prefix_settings(), **knobs.kv_pool_settings(), **recovery, **spec,
+                       **knobs.engine_settings())
 
 
 def serve_main(
@@ -309,10 +311,6 @@ def serve_main(
     from llm_consensus_tpu_torch.providers.gpu import SCHEME, parse_model_name
 
     cfg = parse_serve_args(argv)
-    if cfg.announce:
-        raise CLIError(
-            "--announce (fleet membership by heartbeat) comes with the port's "
-            "route slice (router, fleet, elastic controller); not available yet")
     if cfg.disagg:
         raise CLIError(
             "--disagg (disaggregated prefill/decode, engine/handoff.py) is not "
@@ -379,11 +377,13 @@ def serve_main(
         log=log,
         pressure=pressure,
         judge_overlap=cfg.judge_overlap or knobs.judge_overlap(),
+        stall_grace=knobs.stall_grace(),
         warm_s=settings["elastic_warm_s"],
         quarantine_after=settings["quarantine_after"],
         probe_n=settings["probe_n"],
         slo_ttft_p99_s=slo,
         slo_windows=live["slo_windows"],
+        migrate_timeout_s=knobs.elastic_settings()["migrate_timeout_s"],
         features={
             "kv_pool": bool(gpu_provider) and gpu_provider[0].kv["kv_pool"],
             "spec": bool(gpu_provider) and bool(gpu_provider[0]._draft_map),
@@ -401,6 +401,12 @@ def serve_main(
                 stderr, host, port, cfg.models, cfg.judge,
                 max_concurrency=max_concurrency, max_batch=cfg.max_batch,
             )
+        if cfg.announce:
+            # Fleet membership: heartbeat-register with the router so it
+            # places requests here without static --replica config.
+            gateway.announce(cfg.announce, interval_s=knobs.fleet_settings()["heartbeat_s"])
+            if not cfg.quiet:
+                stderr.write(f"announcing to fleet router {cfg.announce}\n")
 
         stop = shutdown if shutdown is not None else threading.Event()
         if install_signal_handlers:

@@ -113,10 +113,13 @@ class Judge:
     """Synthesizes consensus from multiple model responses."""
 
     def __init__(self, provider: Provider, model: str,
-                 max_tokens: Optional[int] = None, priority: Optional[int] = None):
+                 max_tokens: Optional[int] = None, priority: Optional[int] = None,
+                 trace_id: Optional[str] = None):
         self._provider = provider
         self._model = model
         self._max_tokens = max_tokens
+        # The serving request's trace id, carried to the judge's engine hop.
+        self._trace = trace_id
         # The judge outranks panel work by default (HIGH); a run with an
         # explicit panel class passes the class one above it.
         self._priority = 0 if priority is None else priority
@@ -147,7 +150,8 @@ class Judge:
             resp = self._provider.query_stream(
                 ctx,
                 Request(model=self._model, prompt=judge_prompt,
-                        max_tokens=self._max_tokens, priority=self._priority),
+                        max_tokens=self._max_tokens, priority=self._priority,
+                        trace_id=self._trace),
                 callback,
             )
         except Exception as err:

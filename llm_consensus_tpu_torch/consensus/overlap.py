@@ -78,7 +78,8 @@ def overlap_enabled(flag: Optional[bool] = None) -> bool:
 def make_overlap_judge(provider: Provider, model: str, prompt: str,
                        max_tokens: Optional[int] = None,
                        enabled: Optional[bool] = None,
-                       priority: Optional[int] = None) -> "Optional[OverlapJudge]":
+                       priority: Optional[int] = None,
+                       trace_id: Optional[str] = None) -> "Optional[OverlapJudge]":
     """An :class:`OverlapJudge` when overlap is enabled and ``provider`` can
     hand out an engine for ``model``, else None (the caller uses the
     classic Judge and wires no hook). The engine resolves on the first
@@ -87,7 +88,8 @@ def make_overlap_judge(provider: Provider, model: str, prompt: str,
         return None
     if not hasattr(provider, "_engine_for"):
         return None  # HTTP providers: the classic path
-    return OverlapJudge(provider, model, prompt, max_tokens=max_tokens, priority=priority)
+    return OverlapJudge(provider, model, prompt, max_tokens=max_tokens, priority=priority,
+                        trace_id=trace_id)
 
 
 class OverlapJudge:
@@ -95,11 +97,12 @@ class OverlapJudge:
     incrementally by :meth:`on_response` as panel answers arrive."""
 
     def __init__(self, provider, model: str, prompt: str, max_tokens: Optional[int] = None,
-                 priority: Optional[int] = None):
+                 priority: Optional[int] = None, trace_id: Optional[str] = None):
         self._provider = provider
         self._model = model
         self._prompt = prompt
         self._max_tokens = max_tokens
+        self._trace = trace_id  # the classic fallback's engine hop carries it
         self._priority = priority  # the classic fallback's class (None: the Judge's)
         self._lock = threading.Lock()
         self._engine = None
@@ -179,7 +182,7 @@ class OverlapJudge:
         self._abandon_session()
         self.fallbacks += 1
         classic = Judge(self._provider, self._model, max_tokens=self._max_tokens,
-                        priority=self._priority)
+                        priority=self._priority, trace_id=self._trace)
         text = classic.synthesize_stream(ctx, prompt, responses, callback)
         self.last_truncated = classic.last_truncated
         return text

@@ -551,21 +551,22 @@ class ContinuousBatcher:
     def submit(self, prompt: str, sampling: SamplingParams = SamplingParams(),
                ctx: Optional[Context] = None,
                on_text: Optional[Callable[[str], None]] = None, *,
-               priority: int = 1) -> "Future[GenerateResult]":
+               priority: int = 1, trace_id: Optional[str] = None) -> "Future[GenerateResult]":
         """Queue a prompt; the Future resolves to the single-stream API's
         GenerateResult shape."""
         eng = self.engine
         prompt_ids, truncated = eng._budget_prompt(
             eng.tokenizer.encode(prompt), sampling.max_new_tokens)
         return self.submit_ids(prompt_ids, sampling, ctx=ctx, on_text=on_text,
-                               truncated=truncated, priority=priority)
+                               truncated=truncated, priority=priority, trace_id=trace_id)
 
     def submit_ids(self, prompt_ids: list, sampling: SamplingParams = SamplingParams(),
                    ctx: Optional[Context] = None,
                    on_text: Optional[Callable[[str], None]] = None, *,
                    truncated: bool = False, replay_ids: "tuple | list" = (),
                    priority: int = 1,
-                   jentry: Optional[JournalEntry] = None) -> "Future[GenerateResult]":
+                   jentry: Optional[JournalEntry] = None,
+                   trace_id: Optional[str] = None) -> "Future[GenerateResult]":
         """Token-level submit (``prompt_ids`` already budgeted).
 
         ``replay_ids`` resumes a stream decoded partway elsewhere (a dead
@@ -575,12 +576,14 @@ class ContinuousBatcher:
         and ``on_text`` (which the supervisor's shim dedups), so a greedy
         stream continues byte-identical and the final text covers the whole
         generation. ``jentry`` carries the caller's journal entry; without
-        one, a batcher with a journal opens a fresh entry here."""
+        one, a batcher with a journal opens a fresh entry here, carrying the
+        request's ``trace_id`` (a migrated stream's is how ``seal_stream``
+        finds it)."""
         eng = self.engine
         if not prompt_ids:
             raise ValueError("empty prompt")
         if jentry is None and self._journal is not None:
-            jentry = self._journal.record(list(prompt_ids), sampling)
+            jentry = self._journal.record(list(prompt_ids), sampling, trace=trace_id)
         shape = (sampling.temperature, sampling.top_k, sampling.top_p)
         stream = _Stream(
             future=Future(), sampling=sampling, ctx=ctx or Context.background(),
@@ -1761,6 +1764,36 @@ class ContinuousBatcher:
             self._obs.complete("establish", t0_obs, tid="batcher", prefix=p, ok=ok)
         return p if ok else 0
 
+    def _fits(self, n: int, pos: int, wave_p: int, width: int = 0) -> bool:
+        """A row of window ``n`` fits next to the frontier ``pos``: it ends
+        at it and the splice width (``width``, else its own) stays in the
+        cache."""
+        eng = self.engine
+        if not width:
+            width = (_bucket(n, eng.max_seq) if wave_p
+                     else max(_bucket(n, eng.max_seq), eng._rows_bucket(n)))
+        return n <= pos and (pos - n) + width <= eng.max_seq
+
+    def _wave_width(self, longest: int, wave_p: int) -> int:
+        """The one width a wave splices at, ``longest`` its longest window."""
+        eng = self.engine
+        return _bucket(longest, eng.max_seq) if wave_p else eng._rows_bucket(longest)
+
+    def _head_frontier(self, candidates: list, wave_p: int) -> int:
+        """An idle pool's frontier planned from the queue's head: the
+        longest leading run of candidates (at most ``max_batch``) whose rows
+        all fit one splice at the run's longest window, the head alone at
+        worst, which always fits. (A departure from the JAX batcher, which
+        keeps the frontier that admits nothing.)"""
+        for k in range(min(self.max_batch, len(candidates)), 1, -1):
+            ns = [len(ids) - wave_p for ids in candidates[:k]]
+            pos = max(ns)
+            width = self._wave_width(pos, wave_p)
+            if all(self._fits(n, pos, wave_p) and self._fits(n, pos, wave_p, width)
+                   for n in ns):
+                return pos
+        return len(candidates[0]) - wave_p
+
     def _admission_pass(self, pending: list, firsts: list) -> list:
         """Admit what fits from ``pending``, in waves, until nothing more
         can be admitted; returns the requeue list (priority order, FIFO
@@ -1792,6 +1825,11 @@ class ContinuousBatcher:
                 # An idle frontier resets to the wave's longest window so
                 # the whole wave right-aligns to it.
                 self._pos = max(len(ids) - wave_p for ids in candidates[:self.max_batch])
+                if not self._fits(len(candidates[0]) - wave_p, self._pos, wave_p):
+                    # The head cannot sit next to that frontier, and no row
+                    # leapfrogs it, so the pass would admit nothing, again
+                    # and again: re-plan from the queue's head.
+                    self._pos = self._head_frontier(candidates, wave_p)
             for ids, stream in pending:
                 if stream.ctx.done():
                     stream.finish = "deadline" if stream.ctx.remaining() == 0.0 else "cancelled"
@@ -1804,17 +1842,14 @@ class ContinuousBatcher:
                     requeue.append((ids, stream))  # no leapfrogging
                     continue
                 n = len(ids) - wave_p  # the window this row will occupy
-                w_req = (_bucket(n, eng.max_seq) if wave_p
-                         else max(_bucket(n, eng.max_seq), eng._rows_bucket(n)))
-                if n > self._pos or (self._pos - n) + w_req > eng.max_seq:
+                if not self._fits(n, self._pos, wave_p):
                     requeue.append((ids, stream))
                     continue
                 if batch:
                     # The wave splices at one width: every member must fit it.
                     members = [len(i2) - wave_p for _, i2, _ in batch] + [n]
-                    w_new = (_bucket(max(members), eng.max_seq) if wave_p
-                             else eng._rows_bucket(max(members)))
-                    if any((self._pos - nj) + w_new > eng.max_seq for nj in members):
+                    w_new = self._wave_width(max(members), wave_p)
+                    if not all(self._fits(nj, self._pos, wave_p, w_new) for nj in members):
                         requeue.append((ids, stream))
                         continue
                 batch.append((free.pop(0), ids, stream))
@@ -1861,7 +1896,7 @@ class ContinuousBatcher:
                     firsts += admitted
             for slot, ids, stream in singles:
                 n = len(ids)
-                if n > self._pos or (self._pos - n) + _bucket(n, eng.max_seq) > eng.max_seq:
+                if not self._fits(n, self._pos, 0, _bucket(n, eng.max_seq)):
                     requeue.append((ids, stream))
                     continue
                 self._nondecode_work = True

@@ -163,7 +163,8 @@ string parses as there; the port fires the sites of the modules it has
 (prefill, decode, build, sse, runner, engine, the KV pool's ``kv``
 (``pool_exhausted``, ``evict_storm``), ``pressure`` (``hbm_squeeze@phase=publish``
 and the governor's ``priority_storm``), ``serve`` (``queue_full``,
-``slow_admit``, ``disconnect``; not ``migrate_stall``: no fleet tier yet),
+``slow_admit``, ``disconnect``, ``migrate_stall``), ``router``
+(``replica_down``, ``slow_healthz``, ``partition``, ``replica_flap``),
 ``swap`` (``swap_mid_stream``, ``canary_regress``; not ``corpus_corrupt``: no
 flywheel yet), and ``corrupt`` with ``nan_logits``, the WAL surfaces,
 ``bit_flip@surface=kv`` and ``@surface=ckpt``). The CLI installs the plan

@@ -32,6 +32,15 @@ class Request:
     # judge's work outranks the panel's. The provider labels its per-token
     # latency with it (obs/live.py ``class_label``).
     priority: Optional[int] = None
+    # Cross-hop trace id (obs/live.py), minted at the router or the gateway:
+    # the provider stamps it on its engine spans and the journal entry.
+    # None outside the serving path.
+    trace_id: Optional[str] = None
+    # A migrated stream's resume payload (serve/elastic.py): the sealed
+    # journal snapshot ``{"prompt_ids", "sampling", "tokens"}``, which the
+    # gpu provider replays, or an emitted-text prefix ``{"text": ...}``,
+    # which providers ignore (greedy decode re-derives it).
+    resume: Optional[dict] = None
 
 
 @dataclass

@@ -18,6 +18,8 @@ quantization modes (``quant``, ``kv_quant``, ``w8a8``, ``decode_w8a8``,
 ``int4_impl``) go to every engine the provider builds; unknown modes raise
 in the constructor, before anything is built.
 
+``max_seq`` caps every engine's context (the draft engine's too) and
+``prefill_chunk`` sets every engine's chunked-prefill length (0: one-shot).
 ``prefix_cache`` and ``prefix_cache_max_mb`` go to every engine (prefix
 snapshot reuse, on by default as in the JAX package); ``release()`` drops
 the engines with their snapshots and open prefill sessions. ``kv_pool``,
@@ -96,11 +98,17 @@ before anything installs), and hands the tree to the engine's double
 buffer; ``rollback_weights``, ``swap_stats`` and ``weight_version`` report
 and undo it. ``swap_wait_s`` (``LLMC_SWAP_WAIT_S``) goes to every engine.
 
+Live stream migration (serve/elastic.py, the JAX provider's): each request's
+``trace_id`` goes to its batcher's journal entry, ``seal_stream(trace_id)``
+seals that entry and returns its resume payload, and a request's ``resume``
+payload replays through the batcher (see :meth:`GPUProvider._generate`).
+
 Telemetry (obs/), bound at construction: an ``engine_stream`` span per
-request (recorder and flight recorder), the per-token latency into the live
-plane labeled by the request's priority class and outcome, and the
-run-aggregate decode counters (``decode_tokens``, ``decode_s``, the MFU
-weights) the CLI's footer and ``metrics.json`` read.
+request (recorder and flight recorder, with the request's ``trace``), the
+per-token latency into the live plane labeled by the request's priority
+class and outcome, and the run-aggregate decode counters
+(``decode_tokens``, ``decode_s``, the MFU weights) the CLI's footer and
+``metrics.json`` read.
 """
 
 from __future__ import annotations
@@ -194,7 +202,7 @@ class GPUProvider(Provider):
                  stream_interval: int = 16, ignore_eos: bool = False, draft: str = "",
                  spec_k: int = 4, spec_ngram: int = 3, spec_adapt: bool = True,
                  spec_governor: bool = True, spec_probe: int = 64, swap_wait_s: float = 30.0,
-                 **modes):
+                 prefill_chunk: int = 512, **modes):
         self.modes = _resolve_modes(**modes)
         self.prefix = {"prefix_cache": bool(prefix_cache),
                        "prefix_cache_max_mb": float(prefix_cache_max_mb)}
@@ -217,6 +225,8 @@ class GPUProvider(Provider):
         # Context-capacity cap: every engine's max_seq is at most this
         # (KV-cache memory is proportional to capacity).
         self._max_seq = max_seq
+        # Chunked-prefill length of every engine (0: one-shot prefill).
+        self.prefill_chunk = max(0, int(prefill_chunk))
         self.stats = {"tokens": 0, "runs": 0}
         self._obs = obs.recorder()
         self._live = obs.live.metrics()
@@ -259,7 +269,8 @@ class GPUProvider(Provider):
                engine_heartbeat_s: float = DEFAULT_HEARTBEAT_S,
                engine_restarts: int = DEFAULT_MAX_RESTARTS, draft: str = "", spec_k: int = 4,
                spec_ngram: int = 3, spec_adapt: bool = True, spec_governor: bool = True,
-               spec_probe: int = 64, **modes) -> "GPUProvider":
+               spec_probe: int = 64, max_seq: Optional[int] = None, prefill_chunk: int = 512,
+               **modes) -> "GPUProvider":
         """One provider per device, quantization modes, batching settings,
         checkpoint directory, prefix and KV pool settings and recovery
         settings for the process (the CLI's factory): a quantized run never
@@ -269,7 +280,8 @@ class GPUProvider(Provider):
         ``"0"`` off, ``"1"`` in memory, else the directory the WAL files
         mirror to. The speculation settings join the key too (the CLI's
         ``--draft`` then reconfigures the shared provider with
-        ``set_draft``)."""
+        ``set_draft``), and so do the engines' context cap ``max_seq`` and
+        chunked-prefill length (``LLMC_MAX_SEQ``, ``LLMC_PREFILL_CHUNK``)."""
         dev = resolve_device(device)
         modes = _resolve_modes(**modes)
         batching = {"batch_streams": batch_streams, "pool_prefix": bool(pool_prefix),
@@ -286,14 +298,17 @@ class GPUProvider(Provider):
         spec = {"draft": draft or "", "spec_k": int(spec_k), "spec_ngram": int(spec_ngram),
                 "spec_adapt": bool(spec_adapt), "spec_governor": bool(spec_governor),
                 "spec_probe": int(spec_probe)}
+        engine = {"max_seq": max_seq or None, "prefill_chunk": max(0, int(prefill_chunk))}
         key = (dev, tuple(sorted(modes.items())), tuple(sorted(batching.items())),
                checkpoint_dir, tuple(sorted(prefix.items())), journal,
-               tuple(sorted(recovery.items())), tuple(sorted(spec.items())))
+               tuple(sorted(recovery.items())), tuple(sorted(spec.items())),
+               tuple(sorted(engine.items())))
         with cls._shared_lock:
             if key not in cls._shared:
                 jr = StreamJournal(path=None if journal == "1" else journal) if journal else None
                 cls._shared[key] = cls(device=dev, checkpoint_dir=checkpoint_dir, journal=jr,
-                                       **batching, **prefix, **recovery, **spec, **modes)
+                                       **batching, **prefix, **recovery, **spec, **engine,
+                                       **modes)
             return cls._shared[key]
 
     def prepare(self, models: list[str], judge: Optional[str]) -> None:
@@ -573,6 +588,28 @@ class GPUProvider(Provider):
             out["heartbeat_s"] = sup["heartbeat_s"]
         return out
 
+    def seal_stream(self, trace_id: Optional[str], model: Optional[str] = None) -> Optional[dict]:
+        """Seal the open journal entry of the stream carrying ``trace_id``
+        and return its migration resume payload, ``{"prompt_ids",
+        "sampling", "tokens"}``: the frontier a destination replica replays
+        through ``submit_ids`` (serve/elastic.py). Tokens a still-running
+        decode appends after the seal are dropped from the snapshot and
+        regenerated by the resume. None when the provider keeps no journal,
+        no open entry matches, or more than one does (a panel of two
+        models of this provider shares one trace id, and an entry does not
+        record its model): the gateway then ships the emitted text."""
+        if not trace_id or self.journal is None:
+            return None
+        from llm_consensus_tpu_torch.recovery.journal import _sampling_dict
+
+        matches = [e for e in self.journal.active() if e.trace == trace_id and e.finish is None]
+        if len(matches) != 1:
+            return None
+        entry = matches[0]
+        tokens = entry.seal()
+        return {"prompt_ids": list(entry.prompt_ids), "sampling": _sampling_dict(entry.sampling),
+                "tokens": list(tokens)}
+
     def release(self) -> None:
         """Close every batcher and drop every engine with its prefix
         snapshot and open prefill sessions (weights and caches become
@@ -653,7 +690,7 @@ class GPUProvider(Provider):
         max_seq = min(cap, cfg.max_seq_len) if cap else None
         return Engine(cfg, params, device=self.device, max_seq=max_seq, tokenizer=tokenizer,
                       stream_interval=self.stream_interval, swap_wait_s=self.swap_wait_s,
-                      **self.modes, **self.prefix, **self.kv)
+                      prefill_chunk=self.prefill_chunk, **self.modes, **self.prefix, **self.kv)
 
     def _batcher_for(self, preset: str, engine):
         """The batcher serving ``preset`` over ``engine``, built once."""
@@ -758,14 +795,21 @@ class GPUProvider(Provider):
             return batcher
 
     def _generate(self, engine, preset: str, prompt: str, sampling, ctx: Context, cb,
-                  priority: Optional[int] = None):
+                  priority: Optional[int] = None, trace_id: Optional[str] = None,
+                  resume: Optional[dict] = None):
         """One generate of ``prompt`` on ``engine``, through the preset's
         batcher (at ``priority``, None for NORMAL) when batching, supervised
         with a journal; a refused or cancelled submission runs
         single-stream. A drafted target runs its greedy and pure-temperature
         requests through its ``SpeculativeEngine`` (single-stream); with
         batching, ``lookup`` rides the pool's rounds and a model draft is
-        ignored with one warning."""
+        ignored with one warning. The batcher's journal entry carries
+        ``trace_id``. A migrated stream's ``resume`` payload with
+        ``prompt_ids`` and ``tokens`` resubmits through the crash-replay
+        path (``submit_ids(replay_ids=)``): the emitted tokens join the
+        prefill and re-feed ``cb`` (the router's ledger burns them), and a
+        failed resume re-decodes single-stream; a text-only payload runs
+        the plain path."""
         draft_preset = self._draft_preset_for(preset)
         if draft_preset is not None:
             if self.batch_streams > 1:
@@ -791,14 +835,30 @@ class GPUProvider(Provider):
             return engine.generate(prompt, sampling, ctx, on_text=cb)
         batcher = self._batcher_for(preset, engine)
         priority = PRIORITY_NORMAL if priority is None else priority
+        pids = (resume or {}).get("prompt_ids")
+        toks = (resume or {}).get("tokens")
+        if pids and toks:
+            if self._obs is not None:
+                self._obs.count("elastic.resumes")
+                self._obs.instant("migrate_resume", tid="provider", preset=preset,
+                                  trace=trace_id, replayed=len(toks))
+            try:
+                return batcher.submit_ids(list(pids), sampling, ctx=ctx, on_text=cb,
+                                          replay_ids=tuple(toks), priority=priority,
+                                          trace_id=trace_id).result()
+            except (Cancelled, DeadlineExceeded, KernelBuildError, KernelLaunchError):
+                raise
+            except (CancelledError, Exception):  # noqa: BLE001 — re-decode instead
+                return engine.generate(prompt, sampling, ctx, on_text=cb)
         if self._recovery is not None:
             # Supervised: journaled submit; a pool that dies mid-decode
             # becomes a rebuild and a replay instead of a failed request.
             # The supervisor owns the fallbacks the path below has inline.
             return self._recovery.run_stream(preset, batcher, prompt, sampling, ctx, cb,
-                                             priority=priority)
+                                             priority=priority, trace_id=trace_id)
         try:
-            fut = batcher.submit(prompt, sampling, ctx, on_text=cb, priority=priority)
+            fut = batcher.submit(prompt, sampling, ctx, on_text=cb, priority=priority,
+                                 trace_id=trace_id)
         except (KernelBuildError, KernelLaunchError):
             raise
         except (RuntimeError, ValueError):
@@ -849,8 +909,9 @@ class GPUProvider(Provider):
                 _callback(chunk)
         preset = parse_model_name(req.model)
         retry = False
+        gen = {"priority": req.priority, "trace_id": req.trace_id, "resume": req.resume}
         try:
-            result = self._generate(engine, preset, prompt, sampling, ctx, cb, req.priority)
+            result = self._generate(engine, preset, prompt, sampling, ctx, cb, **gen)
         except _NO_RETRY:
             raise
         except Exception:  # noqa: BLE001 — one rebuild, unless text already streamed
@@ -866,7 +927,7 @@ class GPUProvider(Provider):
             engine = None
             gc.collect()
             engine = self._engine_for(req.model)
-            result = self._generate(engine, preset, prompt, sampling, ctx, cb, req.priority)
+            result = self._generate(engine, preset, prompt, sampling, ctx, cb, **gen)
         with self._lock:
             self.stats["tokens"] += len(result.token_ids)
             self.stats["runs"] += 1
@@ -893,7 +954,7 @@ class GPUProvider(Provider):
         for rec in (self._obs, self._bb):
             if rec is not None:
                 rec.complete("engine_stream", t0_ns, tid="engine", model=req.model,
-                             tokens=len(result.token_ids))
+                             trace=req.trace_id, tokens=len(result.token_ids))
         if self._live is not None and result.token_ids:
             # Steady-state decode cadence when the engine measured one, else
             # the whole request's mean per token.

@@ -164,7 +164,8 @@ class EngineSupervisor:
         return provider
 
     def run_stream(self, preset: str, batcher, prompt: str, sampling,
-                   ctx: Optional[Context], on_text, priority: int = 1):
+                   ctx: Optional[Context], on_text, priority: int = 1,
+                   trace_id: Optional[str] = None):
         """One batched generation that survives engine death.
 
         Submits the stream journaled to ``batcher``; on a pool-fatal
@@ -175,7 +176,7 @@ class EngineSupervisor:
             batcher.engine.tokenizer.encode(prompt), sampling.max_new_tokens)
         if not prompt_ids:
             raise ValueError("empty prompt")
-        jentry = self._journal.record(list(prompt_ids), sampling)
+        jentry = self._journal.record(list(prompt_ids), sampling, trace=trace_id)
         shim = _StreamShim(on_text) if on_text is not None else None
         replay_ids: list[int] = []
         attempt = 0

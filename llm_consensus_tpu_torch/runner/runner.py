@@ -74,7 +74,9 @@ class Runner:
                  max_tokens: Optional[int] = None,
                  system: Optional[str] = None,
                  stall_grace: float = DEFAULT_STALL_GRACE_S,
-                 priority: Optional[int] = None):
+                 priority: Optional[int] = None,
+                 trace_id: Optional[str] = None,
+                 resume: Optional[dict] = None):
         self._registry = registry
         self._timeout = timeout
         self._max_tokens = max_tokens
@@ -82,6 +84,12 @@ class Runner:
         # Priority class of every panel query (pressure/priority.py); None
         # is the provider's default (NORMAL).
         self._priority = priority
+        # The serving request's trace id: on every worker span and in each
+        # provider Request, so it reaches the engine hop.
+        self._trace = trace_id
+        # A migrated run's resume payloads by model name (serve/elastic.py):
+        # each worker hands its model's payload to the provider.
+        self._resume = resume or {}
         self._stall_grace = stall_grace
         self._callbacks = Callbacks()
         self._faults = faults.plan()
@@ -137,9 +145,11 @@ class Runner:
                         except Exception:  # noqa: BLE001
                             pass
             finally:
+                targs = {"trace": self._trace} if self._trace else {}
                 for rec in (self._obs, self._bb):
                     if rec is not None:
-                        rec.complete("worker", t0_obs, tid="runner", model=model, wid=wid)
+                        rec.complete("worker", t0_obs, tid="runner", model=model, wid=wid,
+                                     **targs)
 
         def query_one(model: str, wid: int) -> None:
             model_ctx = ctx.with_timeout(self._timeout)
@@ -175,7 +185,8 @@ class Runner:
                     resp = provider.query_stream(
                         model_ctx,
                         Request(model=model, prompt=prompt, max_tokens=self._max_tokens,
-                                system=self._system, priority=self._priority),
+                                system=self._system, priority=self._priority,
+                                trace_id=self._trace, resume=self._resume.get(model)),
                         on_chunk,
                     )
                 except Exception as err:  # noqa: BLE001

@@ -24,11 +24,17 @@ the shared warm engines behind the registry. Endpoints:
     flight-recorder dump and one bounded ``torch.profiler`` window.
   * ``POST /v1/swap`` — hot-swap a model's weights onto a checkpoint (or
     roll back) without dropping streams; ``POST /v1/quarantine`` — the
-    integrity quarantine walk.
+    integrity quarantine walk (with ``{"to": url}`` its residents migrate).
+  * ``POST /v1/migrate`` — a retiring peer ships one resident stream's
+    sealed journal state here; the record parks in the migration table
+    until the router's failover re-submission claims it by coalescing key
+    and resumes the stream (``POST /v1/retire {"to": url}`` is the admin
+    trigger on the source side, serve/elastic.py).
 
-``POST /v1/migrate``, ``POST /v1/retire`` and a quarantine with a ``to``
-destination ship resident streams to another replica: they answer 501
-until the port has the fleet tier (router, fleet, elastic controller).
+``announce(router_url)`` registers the gateway with a fleet router
+(serve/router.py) by periodic heartbeat: its URL, ``load_score``, drain
+state, lifecycle and weight version; each beat is also one quarantine probe
+window.
 
 Request flow: drain check → shed check (the pressure governor) → cache
 lookup (a hit costs no slot and no model run) → single-flight join (an
@@ -43,8 +49,9 @@ Client disconnects (real or injected via the ``serve`` fault site's
 client vanishes mid-stream still finishes the run — followers and the
 cache get the result.
 
-The gateway reads no environment: warm-up, quarantine, SLO and feature
-settings are constructor arguments (``cli/serve.py`` reads them through
+The gateway reads no environment: warm-up, quarantine, SLO, migration and
+feature settings are constructor arguments, the heartbeat's cadence an
+argument of ``announce`` (``cli/serve.py`` reads them through
 ``utils/knobs.py``).
 """
 
@@ -125,13 +132,38 @@ class _SSEWriter:
 
 
 class _Resident:
-    """One leader run currently executing on this gateway: what a quarantine
-    walk counts (the port ships none of them; they finish locally)."""
+    """One leader run currently decoding on this gateway — the unit a
+    retire ships out. Tracks the per-(kind, model) emitted text so the
+    migration record is self-describing, and the ``migrated`` flag the
+    leader checks when its context is cancelled out from under it."""
 
     def __init__(self, key: str, req: ServeRequest, ctx):
         self.key = key
         self.req = req
         self.ctx = ctx
+        self._lock = threading.Lock()
+        self._emitted: dict[tuple[str, str], list[str]] = {}
+        self._migrated = False
+
+    def note(self, kind: str, model: str, text: str) -> None:
+        with self._lock:
+            self._emitted.setdefault((kind, model), []).append(text)
+
+    def emitted(self) -> dict:
+        with self._lock:
+            return {
+                f"{kind}:{model}": "".join(parts)
+                for (kind, model), parts in self._emitted.items()
+            }
+
+    def mark_migrated(self) -> None:
+        with self._lock:
+            self._migrated = True
+
+    @property
+    def migrated(self) -> bool:
+        with self._lock:
+            return self._migrated
 
 
 class ConsensusGateway:
@@ -160,6 +192,7 @@ class ConsensusGateway:
         probe_n: int = 3,
         slo_ttft_p99_s: float = 0.0,
         slo_windows: int = 3,
+        migrate_timeout_s: float = 10.0,
         features: Optional[dict] = None,
     ):
         self.scheduler = scheduler
@@ -182,7 +215,8 @@ class ConsensusGateway:
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
         self._started = time.monotonic()
-        # Set at close: an open /debugz/profile window closes with it.
+        # Set at close: an open /debugz/profile window closes with it, and
+        # so does the announce heartbeat.
         self._closing = threading.Event()
         # Configuration the build_info gauge reports (kv_pool, spec).
         self._features = dict(features or {})
@@ -238,8 +272,20 @@ class ConsensusGateway:
         self._warm_s = warm_s
         self._lifecycle_lock = threading.Lock()
         self._lifecycle = lifecycle
-        # Resident leader runs (key → record): what a quarantine counts.
+        # Resident-shipping serialization: retire() and quarantine() can
+        # race (admin POST vs a request thread crossing the strike
+        # threshold), and two concurrent walks over the same residents
+        # would double-ship and double-cancel a stream. Ship under ONE
+        # lock; the later walk sees ``resident.migrated`` and falls back.
+        # (Ordered before _lifecycle_lock.)
+        self._ship_lock = threading.Lock()
+        # The source's bounded wait for a destination to take one stream
+        # (LLMC_ELASTIC_MIGRATE_TIMEOUT_S).
+        self._migrate_timeout_s = migrate_timeout_s
+        # Resident leader runs (key → record) + the destination-side
+        # migration table: the two halves of live stream migration.
         self._residents: dict[str, _Resident] = {}
+        self._migrations = elastic_mod.MigrationTable()
         self._elastic_counts = {
             "migrations_out": 0, "migrations_in": 0, "migrations_resumed": 0,
             "migrate_fallbacks": 0, "retires": 0,
@@ -341,6 +387,67 @@ class ConsensusGateway:
             self._thread.join(timeout=5.0)
         return drained
 
+    def announce(self, router_url: str, interval_s: float = 2.0) -> None:
+        """Register with a fleet router by periodic heartbeat POST.
+
+        Every ``interval_s`` (``LLMC_FLEET_HEARTBEAT_S``) the gateway POSTs
+        ``/v1/register`` on the router with its own URL, current
+        ``load_score``, drain state, lifecycle and weight version —
+        push-based membership, so a fleet can grow without router-side
+        discovery config. A missed heartbeat ages the registration out on
+        the router side; the loop itself is best-effort (an unreachable
+        router must never hurt serving). Each beat is also one quarantine
+        probe window. Call after :meth:`start` (the advertised URL needs
+        the bound port); the beat stops at :meth:`close`."""
+        host, port = self.address
+        self_url = f"http://{host}:{port}"
+        register_url = router_url.rstrip("/") + "/v1/register"
+
+        def beat() -> None:
+            import http.client
+            import urllib.parse
+
+            parsed = urllib.parse.urlsplit(register_url)
+            first = True
+            while not self._closing.wait(0.0 if first else interval_s):
+                first = False
+                try:
+                    self.probe_quarantine()
+                except Exception:  # noqa: BLE001 — heartbeat must not die
+                    pass
+                lifecycle = self.lifecycle
+                body = json.dumps({
+                    "url": self_url,
+                    "load_score": self.load_score(),
+                    # Drain is advertised consistently: the admission
+                    # controller's flag OR a draining/retiring lifecycle —
+                    # the router must never place new work on a replica
+                    # that is shipping its residents out.
+                    "draining": self.admission.draining or lifecycle in (
+                        self._elastic_mod.DRAINING,
+                        self._elastic_mod.RETIRING,
+                    ),
+                    "lifecycle": lifecycle,
+                    "weight_version": self.weight_version(),
+                    "interval_s": interval_s,
+                }).encode("utf-8")
+                try:
+                    conn = http.client.HTTPConnection(
+                        parsed.netloc, timeout=max(1.0, interval_s)
+                    )
+                    try:
+                        conn.request(
+                            "POST", parsed.path, body,
+                            {"Content-Type": "application/json"},
+                        )
+                        conn.getresponse().read()
+                    finally:
+                        conn.close()
+                except (OSError, http.client.HTTPException):
+                    pass  # router down/unreachable: keep serving, retry
+
+        threading.Thread(target=beat, name="serve-announce", daemon=True).start()
+
     def _await_quiesce(self, deadline: Optional[float]) -> bool:
         with self._open_cond:
             while self._open_requests > 0:
@@ -383,7 +490,7 @@ class ConsensusGateway:
         except ValueError:
             pass  # already past serving (a retire raced the warm timer)
 
-    # -- resident leader runs -------------------------------------------------
+    # -- live stream migration (serve/elastic.py) ----------------------------
 
     def _resident_register(self, key: str, req: ServeRequest,
                            ctx) -> _Resident:
@@ -395,6 +502,171 @@ class ConsensusGateway:
     def _resident_unregister(self, key: str) -> None:
         with self._lifecycle_lock:
             self._residents.pop(key, None)
+
+    def _migration_record(self, resident: _Resident):
+        """Build one stream's shippable state: per-panel-model journal
+        payloads via the provider's ``seal_stream`` hook (the sealed token
+        snapshot is authoritative, late decode appends are dropped and
+        regenerated by the resume), with the emitted-text prefix as the
+        provider-agnostic fallback."""
+        req = resident.req
+        emitted = resident.emitted()
+        resume: dict = {}
+        for model in dict.fromkeys(req.models):
+            payload = None
+            provider = self.registry.get(model)
+            seal = getattr(provider, "seal_stream", None)
+            if seal is not None and req.trace_id:
+                try:
+                    payload = seal(req.trace_id, model)
+                except Exception:  # noqa: BLE001 — fallback below
+                    payload = None
+            if payload is None:
+                payload = {
+                    "text": emitted.get(f"model_chunk:{model}", ""),
+                }
+            resume[model] = payload
+        flags = {
+            "kv_pool": bool(self._features.get("kv_pool")),
+            "spec": bool(self._features.get("spec")),
+            "disagg": False,
+        }
+        host, port = self.address
+        return self._elastic_mod.MigrationRecord(
+            key=resident.key,
+            resume=resume,
+            emitted=emitted,
+            priority=req.priority,
+            trace_id=req.trace_id,
+            flags=flags,
+            source=f"http://{host}:{port}",
+        )
+
+    def retire(self, to: Optional[str] = None,
+               timeout_s: Optional[float] = None) -> dict:
+        """Policy-proactive scale-down: stop admitting, ship every
+        resident leader stream to ``to`` via ``POST /v1/migrate``, and
+        finish locally whatever the destination would not take (the
+        ``migrate_stall`` fault, a refused offer, or no destination at
+        all — drain-and-wait, never a dropped stream).
+
+        A shipped stream's context is cancelled; the leader converts the
+        cancel into :class:`~llm_consensus_tpu_torch.serve.elastic
+        .StreamMigrated` and closes its SSE leg without a terminal event
+        — the exact wire shape of a crashed replica — so the router's
+        failover re-submission lands on the destination (this replica is
+        draining, hence out of candidates), claims the shipped record,
+        and resumes byte-identically behind the StreamLedger."""
+        try:
+            self.set_lifecycle(self._elastic_mod.DRAINING)
+        except ValueError:
+            pass  # already draining/retiring: idempotent
+        self.admission.begin_drain()
+        with self._lifecycle_lock:
+            self._elastic_counts["retires"] += 1
+        residents, migrated, fallback = self._ship_residents(
+            to, timeout_s=timeout_s
+        )
+        try:
+            self.set_lifecycle(self._elastic_mod.RETIRING)
+        except ValueError:
+            pass
+        if self._obs is not None:
+            self._obs.count("elastic.retires")
+        return {
+            "residents": residents,
+            "migrated": migrated,
+            "fallback": fallback,
+            "lifecycle": self.lifecycle,
+        }
+
+    def _ship_residents(self, to: Optional[str],
+                        timeout_s: Optional[float] = None
+                        ) -> "tuple[int, int, int]":
+        """Ship every resident leader stream to ``to`` (the loop retire
+        and quarantine share); returns ``(residents, migrated,
+        fallback)``. A refused/stalled/destination-less stream counts as
+        fallback and finishes locally — never dropped. Serialized on
+        ``_ship_lock``: concurrent walks (a retire racing a quarantine)
+        must never ship-and-cancel the same resident twice."""
+        if timeout_s is None:
+            timeout_s = self._migrate_timeout_s
+        with self._ship_lock:
+            with self._lifecycle_lock:
+                residents = list(self._residents.values())
+            migrated = 0
+            fallback = 0
+            for i, resident in enumerate(residents, start=1):
+                stalled = False
+                if self._faults is not None:
+                    fs = self._faults.fire("serve", phase="migrate", stream=i)
+                    stalled = fs is not None and fs.kind == "migrate_stall"
+                shipped = False
+                if to is not None and not stalled and not resident.migrated:
+                    record = self._migration_record(resident)
+                    shipped = self._elastic_mod.ship_record(
+                        to, record, timeout_s=timeout_s
+                    )
+                if shipped:
+                    # Order matters: the destination holds the record BEFORE
+                    # the leader's cancel closes the client leg, so the
+                    # failover re-submission can never miss it.
+                    resident.mark_migrated()
+                    resident.ctx.cancel()
+                    migrated += 1
+                    with self._lifecycle_lock:
+                        self._elastic_counts["migrations_out"] += 1
+                    if self._obs is not None:
+                        self._obs.count("elastic.migrations")
+                else:
+                    fallback += 1
+                    with self._lifecycle_lock:
+                        self._elastic_counts["migrate_fallbacks"] += 1
+                    if self._obs is not None:
+                        self._obs.count("elastic.migrate_fallbacks")
+            return len(residents), migrated, fallback
+
+    def accept_migration(self, body: bytes) -> "tuple[int, dict]":
+        """Destination half of ``POST /v1/migrate``: park the record
+        until the router's re-submission claims it by key."""
+        try:
+            doc = json.loads(body.decode("utf-8"))
+            if not isinstance(doc, dict):
+                raise ValueError("body must be a JSON object")
+            record = self._elastic_mod.MigrationRecord.from_doc(doc)
+        except (ValueError, UnicodeDecodeError) as err:
+            return 400, {"accepted": False, "error": f"bad record: {err}"}
+        if self._integrity is not None:
+            self._integrity.check("migration")
+        if not record.verify_digest():
+            # A record whose content digest does not reproduce was
+            # corrupted in transit: refuse it — the source falls back to
+            # finishing the stream locally (reuse lost, never a resume
+            # from poisoned state).
+            if self._integrity is not None:
+                self._integrity.failure(
+                    "migration",
+                    f"record digest mismatch for {record.key[:12]}",
+                )
+                self.record_integrity_strike("migration")
+            return 200, {
+                "accepted": False, "error": "record digest mismatch",
+            }
+        if self.admission.draining or not self._elastic_mod.placeable(
+            self.lifecycle
+        ):
+            # A draining/joining destination must refuse: the source
+            # falls back to finishing the stream locally.
+            return 200, {
+                "accepted": False,
+                "error": f"not placeable (lifecycle {self.lifecycle})",
+            }
+        self._migrations.offer(record)
+        with self._lifecycle_lock:
+            self._elastic_counts["migrations_in"] += 1
+        if self._obs is not None:
+            self._obs.count("elastic.migrations_in")
+        return 200, {"accepted": True, "key": record.key}
 
     # -- integrity containment (integrity/) ----------------------------------
 
@@ -408,14 +680,16 @@ class ConsensusGateway:
         if self._quarantine is not None and self._quarantine.strike():
             self.quarantine()
 
-    def quarantine(self) -> dict:
-        """Integrity containment: walk this replica to ``quarantined``.
+    def quarantine(self, to: Optional[str] = None,
+                   timeout_s: Optional[float] = None) -> dict:
+        """Integrity containment: walk this replica to ``quarantined`` and
+        (when a destination is known) migrate resident streams away.
 
-        Unlike a drain, admission stays open — quarantine is reversible
-        (:meth:`probe_quarantine` lifts it after ``probe_n`` consecutive
-        clean windows). Resident streams finish locally: shipping them to
-        another replica (the JAX ``quarantine(to=...)``) needs the fleet
-        tier."""
+        Unlike :meth:`retire`, admission is NOT drained — quarantine is
+        reversible (:meth:`probe_quarantine`, one window per announce
+        heartbeat, lifts it after ``probe_n`` consecutive clean windows),
+        and the router stops placing the moment the heartbeat carries the
+        new lifecycle (``placeable()`` is serving-only)."""
         try:
             self.set_lifecycle(self._elastic_mod.QUARANTINED)
         except ValueError:
@@ -424,8 +698,6 @@ class ConsensusGateway:
             return {"lifecycle": self.lifecycle}
         with self._lifecycle_lock:
             self._elastic_counts["quarantines"] += 1
-            residents = len(self._residents)
-            self._elastic_counts["migrate_fallbacks"] += residents
             if self._integrity is not None:
                 # Arm the probe watermark at the CURRENT failure count:
                 # only failures after this point dirty a probe window.
@@ -434,21 +706,23 @@ class ConsensusGateway:
                 )
         if self._obs is not None:
             self._obs.count("integrity.quarantines")
+        residents, migrated, fallback = self._ship_residents(
+            to, timeout_s=timeout_s
+        )
         self.log(
-            f"replica quarantined (0/{residents} residents "
-            f"migrated, {residents} finishing locally)"
+            f"replica quarantined ({migrated}/{residents} residents "
+            f"migrated, {fallback} finishing locally)"
         )
         return {
             "residents": residents,
-            "migrated": 0,
-            "fallback": residents,
+            "migrated": migrated,
+            "fallback": fallback,
             "lifecycle": self.lifecycle,
         }
 
     def probe_quarantine(self) -> bool:
-        """One quarantine probe window (the JAX gateway's announce beat runs
-        one per heartbeat; here the caller does): a window with no new
-        integrity failures counts clean, and
+        """One quarantine probe window (rides the announce heartbeat): a
+        window with no new integrity failures counts clean, and
         ``probe_n`` consecutive clean windows lift the quarantine back
         to serving. Returns True when the quarantine lifted."""
         if self._quarantine is None or (
@@ -814,15 +1088,13 @@ class ConsensusGateway:
 
         def elastic_block() -> dict:
             # Membership state (serve/elastic.py): lifecycle, resident
-            # leader runs, and the migration counters both directions (the
-            # JAX block's keys; this replica ships and takes no streams, so
-            # its counters stay 0 but for quarantines and fallbacks) —
+            # leader runs, and the migration counters both directions —
             # flattened by /metricsz into llmc_stat{block="elastic"}.
             with self._lifecycle_lock:
                 out = dict(self._elastic_counts)
                 out["lifecycle"] = self._lifecycle
                 out["residents"] = len(self._residents)
-            out["table"] = {"depth": 0, "offered": 0, "claimed": 0, "expired": 0}
+            out["table"] = self._migrations.stats()
             return out
 
         reg.register("elastic", elastic_block)
@@ -1113,6 +1385,12 @@ class ConsensusGateway:
             except ClientGone:
                 outcome = "gone"
                 raise
+            except self._elastic_mod.StreamMigrated:
+                # The stream moved to another replica mid-decode: not an
+                # error, not a completion — the destination's histogram
+                # owns the e2e; this label marks the seam.
+                outcome = "migrated"
+                raise
             finally:
                 with self._open_cond:
                     self._open_requests -= 1
@@ -1179,6 +1457,22 @@ class ConsensusGateway:
                 return self._follow(
                     req, ctx, flight, respond, t0, degraded=degraded
                 )
+            # Migrated-stream resume (serve/elastic.py): a failover
+            # re-submission whose key a retiring peer shipped here claims
+            # the record exactly once — the journal payloads ride the
+            # request into the engine tier (submit_ids replay_ids), and
+            # the router's ledger burns the delivered prefix, so the
+            # client's stream is byte-identical across the seam.
+            migration = self._migrations.claim(key)
+            if migration is not None:
+                from dataclasses import replace as _dc_replace
+
+                req = _dc_replace(req, resume=dict(migration.resume))
+                with self._lifecycle_lock:
+                    self._elastic_counts["migrations_resumed"] += 1
+                if self._obs is not None:
+                    self._obs.instant("migration_resumed", tid="serve")
+                    self._obs.count("elastic.migrations_resumed")
             # A dead-client leader is droppable ONLY while nobody rides
             # its flight: coalesced followers joined for the result, so
             # their presence keeps the run worth executing.
@@ -1216,9 +1510,9 @@ class ConsensusGateway:
             try:
                 with ticket:
                     session = self.scheduler.open_session(req, ctx=ctx)
-                    # Register as a resident leader run (what a quarantine
-                    # counts). Followers are not residents — they ride
-                    # this flight.
+                    # Register as a resident leader run: the unit a
+                    # retire() ships out. Followers are not residents —
+                    # they ride this flight and fail over with it.
                     resident = self._resident_register(key, req, ctx)
                     respond.begin_stream(session.run_id)
                     first = [True]
@@ -1232,13 +1526,26 @@ class ConsensusGateway:
                                 "ttft", req, time.monotonic() - t0,
                                 ttft_outcome,
                             )
+                        resident.note(kind, model, text)
                         flight.publish(kind, model, text)
                         respond.chunk(kind, model, text)
 
                     out = self.scheduler.execute(session, req, emit=emit)
             except BaseException as err:
+                if resident is not None and resident.migrated:
+                    # The failure is retire() shipping this stream out —
+                    # the ctx cancel surfaces as Cancelled from the judge,
+                    # or as AllModelsFailed when every cancelled panel
+                    # worker was swallowed into a warning. Either way the
+                    # destination already holds the record: convert to the
+                    # migration marker so the leader AND every follower
+                    # close their SSE legs without a terminal event — the
+                    # router fails each over to the destination.
+                    err = self._elastic_mod.StreamMigrated(
+                        f"stream {key[:12]} migrated"
+                    )
                 flight.fail(err)
-                raise
+                raise err
             finally:
                 # Retire BEFORE caching: a request arriving between the
                 # two sees either the live flight or the cached result,
@@ -1295,6 +1602,11 @@ class ConsensusGateway:
                 # The leader was load-shed, so this follower is too —
                 # same retryable shape (429/503 + Retry-After).
                 raise type(cause)(str(cause), cause.retry_after_s) from err
+            if isinstance(cause, self._elastic_mod.StreamMigrated):
+                # The leader migrated: this follower's SSE leg closes
+                # without a terminal event too, so the router fails it
+                # over and it re-coalesces on the destination.
+                raise cause from err
             raise
         session = self.scheduler.persist_copy(req, out)
         respond.done(out, session.run_id, coalesced=True, degraded=degraded)
@@ -1504,14 +1816,23 @@ class _Handler(BaseHTTPRequestHandler):
             )
             self.respond_json(status, doc)
             return
-        if self.path in ("/v1/migrate", "/v1/retire"):
-            # Stream migration between replicas (the fleet tier's
-            # retire/scale-down path) is not in the port yet.
-            self.respond_json(501, {
-                "error": f"{self.path} ships resident streams to another "
-                "replica; it comes with the port's route slice (router, "
-                "fleet, elastic controller)"
-            })
+        if self.path == "/v1/migrate":
+            # A retiring peer ships a resident stream here; park it until
+            # the re-submitted request claims it by coalescing key.
+            status, doc = gw.accept_migration(body)
+            self.respond_json(status, doc)
+            return
+        if self.path == "/v1/retire":
+            try:
+                parsed = json.loads(body.decode("utf-8")) if body else {}
+            except (ValueError, UnicodeDecodeError) as err:
+                self.respond_json(400, {"error": f"bad retire body: {err}"})
+                return
+            to = parsed.get("to") if isinstance(parsed, dict) else None
+            if to is not None and not isinstance(to, str):
+                self.respond_json(400, {"error": "retire 'to' must be a url"})
+                return
+            self.respond_json(200, gw.retire(to=to))
             return
         if self.path == "/v1/swap":
             # Flywheel admin surface: hot-swap a model onto a distilled
@@ -1528,8 +1849,9 @@ class _Handler(BaseHTTPRequestHandler):
             self.respond_json(status, doc)
             return
         if self.path == "/v1/quarantine":
-            # Admin surface: force the integrity quarantine walk; probe
-            # windows lift it once they run clean.
+            # Admin/scaler surface: force the integrity quarantine walk
+            # (ship residents to 'to' when given); the announce-beat
+            # probes lift it once windows run clean.
             try:
                 parsed = json.loads(body.decode("utf-8")) if body else {}
             except (ValueError, UnicodeDecodeError) as err:
@@ -1543,13 +1865,7 @@ class _Handler(BaseHTTPRequestHandler):
                     400, {"error": "quarantine 'to' must be a url"}
                 )
                 return
-            if to is not None:
-                self.respond_json(501, {
-                    "error": "quarantine 'to' ships resident streams to another "
-                    "replica; it comes with the port's route slice"
-                })
-                return
-            self.respond_json(200, gw.quarantine())
+            self.respond_json(200, gw.quarantine(to=to))
             return
         if self.path != "/v1/consensus":
             self.respond_json(404, {"error": f"no such path {self.path!r}"})
@@ -1584,6 +1900,12 @@ class _Handler(BaseHTTPRequestHandler):
                 {"error": str(err), "retry_after_s": err.retry_after_s},
                 headers={"Retry-After": str(max(1, int(err.retry_after_s)))},
             )
+        except gw._elastic_mod.StreamMigrated:
+            # The stream was shipped to another replica mid-flight. Close
+            # the SSE leg with NO terminal event: the router reads the
+            # silent EOF as a replica failure, fails over to the
+            # destination, and splices the seam byte-identically.
+            self.close_connection = True
         except gw._integrity_mod.IntegrityError as err:
             # Corruption detected on THIS stream's path (non-finite
             # logits, a corrupt cross-mesh block, ...): a typed terminal

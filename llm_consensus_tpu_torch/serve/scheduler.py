@@ -42,6 +42,7 @@ from llm_consensus_tpu_torch.consensus import Judge, score_agreement
 from llm_consensus_tpu_torch.output.persist import reserve_run_dir, save_file
 from llm_consensus_tpu_torch.providers import Registry
 from llm_consensus_tpu_torch.runner import Callbacks, Runner
+from llm_consensus_tpu_torch.runner.runner import DEFAULT_STALL_GRACE_S
 from llm_consensus_tpu_torch.utils.context import Context
 
 # emit(kind, model, text): kind is "model_chunk" | "judge_chunk".
@@ -70,6 +71,10 @@ class ServeRequest:
     # envelope. NOT part of the cache key — identity is what a request
     # computes, not its id.
     trace_id: Optional[str] = None
+    # A migrated stream's resume payloads, model name → journal snapshot
+    # (serve/elastic.py), from the record a failover re-submission claims.
+    # NOT part of the cache key: a resumed stream computes the same answer.
+    resume: Optional[dict] = None
 
     def cache_fields(self) -> dict:
         """The identity fields the cache key covers (serve/cache.py)."""
@@ -103,6 +108,7 @@ class Scheduler:
         root_ctx: Optional[Context] = None,
         live=None,
         judge_overlap: bool = False,
+        stall_grace: float = DEFAULT_STALL_GRACE_S,
     ):
         self._registry = registry
         self._data_dir = data_dir
@@ -113,6 +119,8 @@ class Scheduler:
         self._lock = threading.Lock()
         # Judge prefill overlap (``--judge-overlap``): the flag, passed in.
         self._judge_overlap = bool(judge_overlap)
+        # The runners' watchdog grace (LLMC_STALL_GRACE), passed in.
+        self._stall_grace = stall_grace
         self.runs_executed = 0
         from llm_consensus_tpu_torch import obs
 
@@ -188,6 +196,9 @@ class Scheduler:
                 max_tokens=req.max_tokens,
                 system=req.system or None,
                 priority=req.priority,
+                stall_grace=self._stall_grace,
+                trace_id=req.trace_id,
+                resume=req.resume,
             )
             # Judge prefill overlap (consensus/overlap.py): when enabled
             # and the judge is an on-device engine, panel answers prefill
@@ -205,6 +216,7 @@ class Scheduler:
                     max_tokens=req.max_tokens,
                     enabled=self._judge_overlap,
                     priority=max(0, req.priority - 1),
+                    trace_id=req.trace_id,
                 )
             except Exception:  # noqa: BLE001 — unknown judge errors below
                 overlap = None
@@ -232,6 +244,7 @@ class Scheduler:
             judge = overlap if overlap is not None else Judge(
                 judge_provider, req.judge, max_tokens=req.max_tokens,
                 priority=max(0, req.priority - 1),
+                trace_id=req.trace_id,
             )
             judge_cb = None
             if emit is not None:

@@ -74,8 +74,8 @@ knobs that the JAX package declares, with the same meaning:
     admission controller and the engines as arguments):
     ``LLMC_ELASTIC_WARM_S`` (0: serve at once), ``LLMC_INTEGRITY_QUARANTINE_AFTER``
     (3) and ``LLMC_INTEGRITY_PROBE_N`` (3), ``LLMC_SWAP_WAIT_S`` (30 s),
-    ``LLMC_FLEET_ANNOUNCE`` (refused until the route slice), ``LLMC_DISAGG``
-    (refused: no disaggregation in the port), the governor's
+    ``LLMC_FLEET_ANNOUNCE`` (the router a gateway announces itself to, empty:
+    none), ``LLMC_DISAGG`` (refused: no disaggregation in the port), the governor's
     ``LLMC_PRESSURE`` (on), ``LLMC_PRESSURE_POLL_S`` (0.5 s),
     ``LLMC_PRESSURE_HIGH_WATER`` (0.75), ``LLMC_PRESSURE_LOW_WATER`` (0.35),
     ``LLMC_PRESSURE_UP_PATIENCE`` (2), ``LLMC_PRESSURE_DOWN_PATIENCE`` (4),
@@ -83,7 +83,27 @@ knobs that the JAX package declares, with the same meaning:
     (empty), ``LLMC_PRESSURE_BROWNOUT_MAX_NEW`` (256),
     ``LLMC_PRESSURE_SHED_CLASS`` (2), the admission's ``LLMC_PRESSURE_AGE_S``
     (30 s) and ``LLMC_PRESSURE_RETRY_SPREAD`` (0.5), and the SLO watcher's
-    ``LLMC_SLO_TTFT_P99_S`` (0: off) and ``LLMC_SLO_WINDOWS`` (3).
+    ``LLMC_SLO_TTFT_P99_S`` (0: off) and ``LLMC_SLO_WINDOWS`` (3);
+  * the engines' capacity and prefill (:func:`engine_settings`,
+    ``GPUProvider``'s arguments): ``LLMC_MAX_SEQ`` (0: the preset's window)
+    caps every engine's context, and ``LLMC_PREFILL_CHUNK`` (512; 0 turns
+    chunking off) is the chunked prefill's length;
+  * ``LLMC_STALL_GRACE`` (5 s, :func:`stall_grace`): how long past its
+    deadline a silent panel worker runs before the runner abandons it;
+  * the fleet tier (:func:`fleet_settings`, :func:`elastic_settings`, read
+    by ``cli/route.py`` and ``cli/serve.py`` and passed to the router, the
+    health monitor, the elastic controller and the gateway's heartbeat):
+    ``LLMC_FLEET_POLL_S`` (2 s), ``LLMC_FLEET_SUSPECT_AFTER`` (1),
+    ``LLMC_FLEET_DEAD_AFTER`` (3), ``LLMC_FLEET_REVIVE_AFTER`` (2),
+    ``LLMC_FLEET_SATURATION`` (0.85), ``LLMC_FLEET_SPILLOVER_MIN_TIMEOUT_S``
+    (10 s), ``LLMC_FLEET_SPILLOVER_MAX_PRIORITY`` (1),
+    ``LLMC_FLEET_HEARTBEAT_S`` (2 s), ``LLMC_CANARY_FRACTION`` (0: no canary
+    lane), and ``LLMC_ELASTIC`` (off: the controller's tick thread),
+    ``LLMC_ELASTIC_TICK_S`` (2 s), ``LLMC_ELASTIC_HIGH_WATER`` (0.8),
+    ``LLMC_ELASTIC_LOW_WATER`` (0.2), ``LLMC_ELASTIC_UP_PATIENCE`` (3),
+    ``LLMC_ELASTIC_DOWN_PATIENCE`` (6), ``LLMC_ELASTIC_MIN_REPLICAS`` (1),
+    ``LLMC_ELASTIC_MAX_REPLICAS`` (8) and ``LLMC_ELASTIC_MIGRATE_TIMEOUT_S``
+    (10 s).
 """
 
 from __future__ import annotations
@@ -297,8 +317,9 @@ def spec_settings() -> dict:
 def serve_settings() -> dict:
     """The ``serve`` subcommand's settings of the environment (the JAX
     defaults): the gateway's warm-up and quarantine, the engines' swap wait,
-    the batcher depth's fallback (0: the subcommand's default) and the two
-    switches the port refuses (``announce``, ``disagg``)."""
+    the batcher depth's fallback (0: the subcommand's default), the router
+    to announce to (``announce``, empty: none) and the switch the port
+    refuses (``disagg``)."""
     return {
         "elastic_warm_s": get_float("LLMC_ELASTIC_WARM_S", 0.0),
         "quarantine_after": get_int("LLMC_INTEGRITY_QUARANTINE_AFTER", 3),
@@ -336,4 +357,56 @@ def live_settings() -> dict:
     return {
         "slo_ttft_p99_s": get_float("LLMC_SLO_TTFT_P99_S", 0.0),
         "slo_windows": get_int("LLMC_SLO_WINDOWS", 3),
+    }
+
+
+def engine_settings() -> dict:
+    """The engines' context cap and chunked-prefill length of the
+    environment, as the keyword arguments of ``GPUProvider`` (``max_seq``
+    None: each preset's own window)."""
+    return {
+        "max_seq": get_int("LLMC_MAX_SEQ", 0) or None,
+        "prefill_chunk": max(0, get_int("LLMC_PREFILL_CHUNK", 512)),
+    }
+
+
+def stall_grace() -> float:
+    """``LLMC_STALL_GRACE``: seconds past its deadline a panel worker that
+    streams nothing may run before the runner abandons it (5)."""
+    return get_float("LLMC_STALL_GRACE", 5.0)
+
+
+def fleet_settings() -> dict:
+    """The fleet tier's settings of the environment (the JAX defaults): the
+    health monitor's cadence and hysteresis counts, placement's saturation
+    mark, the spillover lane's gates, the gateway heartbeat's cadence and
+    the canary lane's share of the keyspace."""
+    return {
+        "poll_s": get_float("LLMC_FLEET_POLL_S", 2.0),
+        "suspect_after": get_int("LLMC_FLEET_SUSPECT_AFTER", 1),
+        "dead_after": get_int("LLMC_FLEET_DEAD_AFTER", 3),
+        "revive_after": get_int("LLMC_FLEET_REVIVE_AFTER", 2),
+        "saturation": get_float("LLMC_FLEET_SATURATION", 0.85),
+        "spillover_min_timeout_s": get_float("LLMC_FLEET_SPILLOVER_MIN_TIMEOUT_S", 10.0),
+        "spillover_max_priority": get_int("LLMC_FLEET_SPILLOVER_MAX_PRIORITY", 1),
+        "heartbeat_s": get_float("LLMC_FLEET_HEARTBEAT_S", 2.0),
+        "canary_fraction": get_float("LLMC_CANARY_FRACTION", 0.0),
+    }
+
+
+def elastic_settings() -> dict:
+    """The elastic controller's settings of the environment (the JAX
+    defaults): its tick thread's switch (``enabled``) and cadence, the
+    two-sided hysteresis, the replica clamps, and the source's bounded wait
+    for a destination to take one migrated stream."""
+    return {
+        "enabled": get_bool("LLMC_ELASTIC"),
+        "tick_s": get_float("LLMC_ELASTIC_TICK_S", 2.0),
+        "high_water": get_float("LLMC_ELASTIC_HIGH_WATER", 0.8),
+        "low_water": get_float("LLMC_ELASTIC_LOW_WATER", 0.2),
+        "up_patience": get_int("LLMC_ELASTIC_UP_PATIENCE", 3),
+        "down_patience": get_int("LLMC_ELASTIC_DOWN_PATIENCE", 6),
+        "min_replicas": get_int("LLMC_ELASTIC_MIN_REPLICAS", 1),
+        "max_replicas": get_int("LLMC_ELASTIC_MAX_REPLICAS", 8),
+        "migrate_timeout_s": get_float("LLMC_ELASTIC_MIGRATE_TIMEOUT_S", 10.0),
     }

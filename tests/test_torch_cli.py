@@ -684,9 +684,9 @@ def test_cli_priority_reaches_the_batcher(tmp_path, batch_knobs, monkeypatch):
     classes = []
     real = ContinuousBatcher.submit
 
-    def spy(self, prompt, sampling, ctx=None, on_text=None, *, priority=1):
+    def spy(self, prompt, sampling, ctx=None, on_text=None, *, priority=1, **kw):
         classes.append((priority, "You are a synthesis judge" in prompt))
-        return real(self, prompt, sampling, ctx, on_text, priority=priority)
+        return real(self, prompt, sampling, ctx, on_text, priority=priority, **kw)
 
     monkeypatch.setattr(ContinuousBatcher, "submit", spy)
     batch_knobs.setenv("LLMC_MAX_BATCH", "4")

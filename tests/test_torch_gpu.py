@@ -1089,3 +1089,85 @@ def test_one_gateway_request_through_serve_main_on_the_card(cuda, tmp_path):
     assert rc == [0]
     assert fa.LAUNCHES.count > flash0 and da.LAUNCHES.count > dec0
     assert (tmp_path / doc["run_id"] / "result.json").exists()
+
+
+def test_router_fails_a_stream_over_between_two_gateways_on_the_card(cuda, tmp_path):
+    """Two consensus-1b gateways on the card (panel of one, the judge passing
+    its answer through), each over its own provider (engines at 1,024
+    slots, random weights from one seed), behind a router
+    that loses the first replica at the second SSE frame: the client gets
+    the undisturbed stream's text exactly, one ``done`` naming the second
+    replica, and flash and the decode kernel launch through the routed
+    request."""
+    import http.client
+    import json
+
+    from llm_consensus_tpu_torch import faults, obs, serve
+    from llm_consensus_tpu_torch.providers import Registry
+    from llm_consensus_tpu_torch.providers.gpu import GPUProvider
+    from llm_consensus_tpu_torch.serve.router import RouteRequest
+
+    model = "gpu:consensus-1b"
+
+    def sse(port, body):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        try:
+            conn.request("POST", "/v1/consensus", json.dumps(dict(body, stream=True)),
+                         {"Content-Type": "application/json", "Accept": "text/event-stream"})
+            r = conn.getresponse()
+            assert r.status == 200
+            events, name = [], None
+            for raw in r:
+                line = raw.decode("utf-8").rstrip("\r\n")
+                if line.startswith("event: "):
+                    name = line[len("event: "):]
+                elif line.startswith("data: "):
+                    events.append((name, json.loads(line[len("data: "):])))
+        finally:
+            conn.close()
+        text: dict = {}
+        for n, d in events:
+            if n == "chunk":
+                text[d["model"] + d["kind"]] = text.get(d["model"] + d["kind"], "") + d["text"]
+        return events, text
+
+    obs.reset_planes()
+    faults.reset()
+    gws, providers, router = [], [], None
+    try:
+        for tag in ("a", "b"):
+            torch.manual_seed(0)
+            provider = GPUProvider(device=None, max_seq=1024, batch_streams=2)
+            registry = Registry()
+            registry.register(model, provider)
+            gw = serve.build_gateway(registry, [model], model, max_tokens=48,
+                                     cache_size=0, data_dir=str(tmp_path / tag), save=False,
+                                     pressure={"enabled": False})
+            gw.start()
+            gws.append(gw)
+            providers.append(provider)
+        urls = ["http://%s:%d" % g.address for g in gws]
+        body = next(b for b in ({"prompt": f"route card probe {i} " * 8} for i in range(100))
+                    if serve.fleet.ring_order(RouteRequest(b"", dict(b), False).key(),
+                                              urls)[0] == urls[0])
+        _, want = sse(gws[1].address[1], body)
+        faults.install(faults.FaultPlan("replica_down@phase=proxy@frame=2", seed=1))
+        router = serve.build_router(urls, poll_s=60.0)
+        faults.install(None)
+        router.start()
+        flash0, dec0 = fa.LAUNCHES.count, da.LAUNCHES.count
+        events, got = sse(router.address[1], body)
+    finally:
+        faults.reset()
+        if router is not None:
+            router.close()
+        for gw in gws:
+            gw.close(drain=True, timeout=120)
+        for provider in providers:
+            provider.release()
+        obs.reset_planes()
+    names = [n for n, _ in events]
+    assert names.count("done") == 1 and names[-1] == "done"
+    assert events[-1][1]["failovers"] == 1 and events[-1][1]["replica"] == urls[1]
+    assert got == want
+    assert fa.LAUNCHES.count > flash0 and da.LAUNCHES.count > dec0

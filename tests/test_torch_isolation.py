@@ -53,13 +53,18 @@ def test_the_obs_modules_are_covered():
 
 
 def test_the_serve_modules_are_covered():
-    """The AST checks above and below cover the serving gateway's package,
-    the governor and the serve subcommand."""
+    """The AST checks above and below cover the serving gateway's package
+    with the fleet tier (router, fleet state, the whole elastic module),
+    the governor and the serve and route subcommands."""
     names = {p.name for p in _port_files() if p.parent.name == "serve"}
-    assert names == {"__init__.py", "admission.py", "cache.py", "elastic.py", "gateway.py",
-                     "scheduler.py", "stats.py"}
+    assert names == {"__init__.py", "admission.py", "cache.py", "elastic.py", "fleet.py",
+                     "gateway.py", "router.py", "scheduler.py", "stats.py"}
     files = {p.relative_to(PKG).as_posix() for p in _port_files() if PKG in p.parents}
-    assert {"pressure/governor.py", "cli/serve.py"} <= files
+    assert {"pressure/governor.py", "cli/serve.py", "cli/route.py"} <= files
+    elastic = (PKG / "serve" / "elastic.py").read_text()
+    for name in ("class ElasticController", "class MigrationRecord", "class MigrationTable",
+                 "class StreamMigrated", "def ship_record"):
+        assert name in elastic, name
 
 
 def test_the_kv_modules_are_covered():
@@ -86,6 +91,15 @@ def test_the_knobs_module_reads_only_knobs_the_jax_package_declares():
             "LLMC_PRESSURE_EVICT_TARGET", "LLMC_PRESSURE_JUDGE_FALLBACK",
             "LLMC_PRESSURE_BROWNOUT_MAX_NEW", "LLMC_PRESSURE_SHED_CLASS", "LLMC_PRESSURE_AGE_S",
             "LLMC_PRESSURE_RETRY_SPREAD", "LLMC_SLO_TTFT_P99_S", "LLMC_SLO_WINDOWS"} <= named
+    assert {"LLMC_MAX_SEQ", "LLMC_PREFILL_CHUNK", "LLMC_STALL_GRACE",
+            "LLMC_FLEET_POLL_S", "LLMC_FLEET_SUSPECT_AFTER", "LLMC_FLEET_DEAD_AFTER",
+            "LLMC_FLEET_REVIVE_AFTER", "LLMC_FLEET_SATURATION",
+            "LLMC_FLEET_SPILLOVER_MIN_TIMEOUT_S", "LLMC_FLEET_SPILLOVER_MAX_PRIORITY",
+            "LLMC_FLEET_HEARTBEAT_S", "LLMC_ELASTIC", "LLMC_ELASTIC_TICK_S",
+            "LLMC_ELASTIC_HIGH_WATER", "LLMC_ELASTIC_LOW_WATER", "LLMC_ELASTIC_UP_PATIENCE",
+            "LLMC_ELASTIC_DOWN_PATIENCE", "LLMC_ELASTIC_MIN_REPLICAS",
+            "LLMC_ELASTIC_MAX_REPLICAS", "LLMC_ELASTIC_MIGRATE_TIMEOUT_S",
+            "LLMC_CANARY_FRACTION"} <= named
     undeclared = sorted(n for n in named if n not in jax_knobs.REGISTRY)
     assert not undeclared, undeclared
 
@@ -186,3 +200,40 @@ def test_the_serving_settings_take_the_jax_defaults(monkeypatch):
             assert got[key] == jax_knobs.REGISTRY[name].default, (fn, key)
     for path in sorted(PKG.rglob("*.py")):
         assert "os.environ[" not in path.read_text() or path.name == "knobs.py", path
+
+def test_the_engine_and_fleet_settings_take_the_jax_defaults(monkeypatch):
+    """With the environment empty, the engines' capacity and prefill knobs,
+    the runner's stall grace and the fleet tier's knobs read the JAX
+    registry's defaults (``LLMC_MAX_SEQ`` 0 is the preset's window: None)."""
+    from llm_consensus_tpu.utils import knobs as jax_knobs
+    from llm_consensus_tpu_torch.utils import knobs
+
+    names = {
+        "fleet_settings": {k: "LLMC_FLEET_" + k.upper()
+                           for k in ("poll_s", "suspect_after", "dead_after", "revive_after",
+                                     "saturation", "spillover_min_timeout_s",
+                                     "spillover_max_priority", "heartbeat_s")},
+        "elastic_settings": {k: "LLMC_ELASTIC" + ("" if k == "enabled" else "_" + k.upper())
+                             for k in ("enabled", "tick_s", "high_water", "low_water",
+                                       "up_patience", "down_patience", "min_replicas",
+                                       "max_replicas", "migrate_timeout_s")},
+    }
+    names["fleet_settings"]["canary_fraction"] = "LLMC_CANARY_FRACTION"
+    for name in ("LLMC_MAX_SEQ", "LLMC_PREFILL_CHUNK", "LLMC_STALL_GRACE"):
+        monkeypatch.delenv(name, raising=False)
+    for fn, keys in names.items():
+        for name in keys.values():
+            monkeypatch.delenv(name, raising=False)
+        got = getattr(knobs, fn)()
+        assert set(got) == set(keys), fn
+        for key, name in keys.items():
+            assert got[key] == jax_knobs.REGISTRY[name].default, (fn, key)
+    assert knobs.engine_settings() == {
+        "max_seq": jax_knobs.REGISTRY["LLMC_MAX_SEQ"].default or None,
+        "prefill_chunk": jax_knobs.REGISTRY["LLMC_PREFILL_CHUNK"].default}
+    assert knobs.stall_grace() == jax_knobs.REGISTRY["LLMC_STALL_GRACE"].default
+    monkeypatch.setenv("LLMC_MAX_SEQ", "64")
+    monkeypatch.setenv("LLMC_PREFILL_CHUNK", "0")
+    monkeypatch.setenv("LLMC_STALL_GRACE", "0.3")
+    assert knobs.engine_settings() == {"max_seq": 64, "prefill_chunk": 0}
+    assert knobs.stall_grace() == 0.3

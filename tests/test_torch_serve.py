@@ -1176,17 +1176,40 @@ def test_swap_route_errors_match(tmp_path):
     assert both(scenario, tmp_path) == [400, 400, 400, 501, 501, 400, 409]
 
 
-def test_fleet_routes_answer_501_until_the_route_slice(tmp_path):
-    """Stream migration between replicas is not in the port: its routes and
-    the quarantine's destination form answer 501 naming the route slice,
-    and the swap body's ``out_dir`` form (the flywheel's) answers 501."""
+def test_fleet_routes_answer_on_both_gateways(tmp_path):
+    """The gateway's fleet half: ``/v1/migrate`` parks a record (400 without
+    a key), a quarantine with ``to`` and a retire with ``to`` walk the
+    lifecycle with no resident to ship, and a bad ``to`` is a 400 — the
+    JAX gateway's answers."""
+    def scenario(P, tmp):
+        gw = make_gateway(P, tmp, fake_provider(P))
+        try:
+            port = gw.address[1]
+            out = []
+            for path, body in (("/v1/migrate", {}),
+                               ("/v1/migrate", {"key": "k", "resume": {"alpha": {"text": ""}}}),
+                               ("/v1/quarantine", {"to": "http://127.0.0.1:9"}),
+                               ("/v1/retire", {"to": 5}),
+                               ("/v1/retire", {"to": "http://127.0.0.1:9"})):
+                status, _, data = post(port, body, path=path)
+                out.append((status, json.loads(data)))
+            elastic = get_json(port, "/statsz")[1]["elastic"]
+            return out, {k: elastic[k] for k in ("lifecycle", "migrations_in", "retires",
+                                                 "quarantines", "table")}
+        finally:
+            gw.close(drain=False)
+
+    out, elastic = both(scenario, tmp_path)
+    assert [s for s, _ in out] == [400, 200, 200, 400, 200]
+    assert elastic["lifecycle"] == "retiring" and elastic["table"]["depth"] == 1
+
+
+def test_swap_out_dir_answers_501_until_the_flywheel(tmp_path):
+    """The swap body's ``out_dir`` form (a distill output root) needs the
+    flywheel: 501 naming it, the lifecycle untouched."""
     gw = make_gateway(TORCH, tmp_path, fake_provider(TORCH))
     try:
         port = gw.address[1]
-        for path, body in (("/v1/migrate", {}), ("/v1/retire", {"to": "http://x"}),
-                           ("/v1/quarantine", {"to": "http://x"})):
-            status, _, data = post(port, body, path=path)
-            assert status == 501 and "route slice" in json.loads(data)["error"], path
         status, _, data = post(port, {"model": "alpha", "out_dir": "/d"}, path="/v1/swap")
         assert status == 501 and "flywheel" in json.loads(data)["error"]
         assert gw.lifecycle == "serving"

@@ -4,9 +4,10 @@ with a shutdown event, on the same synthetic tiny-llama checkpoint
 
 For the same prompt the two servers give the same JSON consensus, the same
 ``result.json`` fields and the same run-directory listing. The port's
-server then drains with a request in flight (exit 0, the run flushed), and
-refuses what waits for the route slice (``--announce``, ``--disagg``,
-``/v1/migrate``). Two real-engine servers in all: JAX compiles are slow.
+server parks a migration record on ``/v1/migrate``, then drains with a
+request in flight (exit 0, the run flushed), and refuses ``--disagg`` (no
+handoff in the port yet). Two real-engine servers in all: JAX compiles are
+slow.
 """
 
 from __future__ import annotations
@@ -232,12 +233,15 @@ def test_health_and_stats_blocks_equal_the_jax_servers(served):
     assert stats["flywheel"]["tiny-llama"]["weight_version"] == 0
 
 
-def test_fleet_routes_are_refused_until_the_route_slice(served):
+def test_migrate_parks_a_record_on_the_served_gateway(served):
     port = served["gpu"]["server"].port
     status, doc = _post(port, {}, path="/v1/migrate")
-    assert status == 501 and "route slice" in doc["error"]
-    status, doc = _post(port, {"to": "http://127.0.0.1:9"}, path="/v1/retire")
-    assert status == 501
+    assert status == 400 and "bad record" in doc["error"]
+    status, doc = _post(port, {"key": "k-cli", "resume": {"gpu:tiny-llama": {"text": ""}}},
+                        path="/v1/migrate")
+    assert status == 200 and doc == {"accepted": True, "key": "k-cli"}
+    elastic = _get(port, "/statsz")[1]["elastic"]
+    assert elastic["migrations_in"] == 1 and elastic["table"]["depth"] == 1
 
 
 def test_drain_with_a_request_in_flight_flushes_the_run(served):
@@ -260,7 +264,7 @@ def test_drain_with_a_request_in_flight_flushes_the_run(served):
     assert "Drained cleanly" in server.stderr.getvalue()
 
 
-@pytest.mark.parametrize("flag", [["--announce", "http://127.0.0.1:9"], ["--disagg"]])
+@pytest.mark.parametrize("flag", [["--disagg"]])
 def test_announce_and_disagg_exit_1(flag):
     err = io.StringIO()
     rc = port_main(["serve", "--models", "gpu:tiny-llama", "--port", "0"] + flag,
@@ -269,7 +273,7 @@ def test_announce_and_disagg_exit_1(flag):
     assert rc == 1 and err.getvalue().startswith("error: --")
 
 
-@pytest.mark.parametrize("sub", ["route", "distill"])
+@pytest.mark.parametrize("sub", ["distill"])
 def test_other_subcommands_exit_1(sub):
     err = io.StringIO()
     assert port_main([sub], device="cpu", stdout=io.StringIO(), stderr=err) == 1
