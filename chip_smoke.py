@@ -13,6 +13,8 @@
     python3 chip_smoke.py --phase spec      # build + the dh 64 kernel rows + speculation
     python3 chip_smoke.py --phase gateway   # build + the serve gateway phase only
     python3 chip_smoke.py --phase route     # build + the route phase only
+    python3 chip_smoke.py --phase disagg    # build + the disaggregated-serving phase only
+    python3 chip_smoke.py --phase distill   # build + three runs + the distill phase only
 
 Phases, in order; any failure exits non-zero before the last line. Every
 CLI run of the script asks ``CLI_TOKENS`` (48) tokens a model, where the
@@ -47,7 +49,7 @@ phases below say 64:
    the kernel launch counters read around it;
 6. the chunked path: one Engine.generate on llama-3-8b with a ~1,500-token
    prompt (chunked prefill, then decode at a longer frontier);
-7. a torch.profiler window over one llama-3-8b generate (8 tokens): device busy
+7. a torch.profiler window over one llama-3-8b generate (4 tokens, one 4-step chunk): device busy
    share and the kernels with the most device time (the bf16 decode is one
    launch per (layer, step): no merge kernel may appear);
 8. the batched slice: the CLI run with a panel of 4 x llama-3-8b and a
@@ -80,7 +82,7 @@ phases below say 64:
    time limit);
 8b. the consensus modes (``--phase modes``), each through the port's CLI
    over warm shared providers (the slice's panel and judge, bf16, the
-   350-token prompt, 48 tokens): ``--rounds 2 --confidence --system-file``
+   350-token prompt, 24 tokens): ``--rounds 2 --confidence --system-file``
    (7 generates), ``--vote`` (2, no judge engine built), ``--continue``, a
    plain run (the phase's baseline wall), ``--resume`` of that run less one
    panel answer and of a run whose child
@@ -179,7 +181,7 @@ phases below say 64:
    (k + 1 a round, 16 layers), none in a verify, at most one host fetch per
    round group, the tokens against plain decode by the near-tie rule; (b)
    the oracle at forced acceptance 1, 2, 3 and 5 against plain decode,
-   tokens/s over the request (one run each, 64 tokens); (c) prompt lookup on
+   tokens/s over the request (one run each, 48 tokens); (c) prompt lookup on
    a judge prompt quoting an answer; (d) the governor on: it locks plain;
    (e) rejection sampling at temperature 0.8 (every probability finite),
    then ``acceptance_collapse@p=1`` greedy; (f) a lookup pool and an oracle
@@ -236,6 +238,32 @@ phases below say 64:
    on shutdown. Flash and the bf16 decode kernel must launch through the
    routed traffic; (c)'s and (d)'s references are counted apart. A
    ``{"route": ...}`` line;
+8j. disaggregated prefill -> decode (``--phase disagg``): ``serve --disagg``
+   in process over llama-3-8b + consensus-1b (judge llama-3-8b, bf16, full
+   width, 8 batcher rows, the KV pool at 2,048 MB a preset, the governor and
+   the result cache off); both roles share the card, the prefill worker on
+   a CUDA stream of its own over the decode engine's weight tree: (a) 4
+   distinct ~350-token requests with disagg off, then on: handoffs complete
+   with no fallback, ``handoff_blocks`` > 0, the prefill role's flash
+   launches (the handoff threads') counted apart, the decode kernel
+   launched, answers equal to disagg off or within the near-tie rule, no
+   second weight tree in memory; (c) ``prefill_worker_crash@wave=1``: the
+   answer unchanged, the fallback counted; (d) consensus-1b swapped to seed
+   + 1 weights, then a ~700-token request whose stream equals a fresh engine
+   on them (near-tie rule); (b) on one provider, four 1,501-token residents
+   and a 4 x 1,501-token wave sharing a 1,472-token preamble, disagg off then
+   on: the residents' longest fetch gap while the wave fills, the wave's
+   time to first token, every stream on against off. A ``{"disagg": ...}``
+   line;
+8k. distillation (``--phase distill``; alone it first makes three one-shot
+   runs): ``distill --student consensus-1b --steps 8 --holdout 0.5`` over the runs the
+   disagg phase auto-saved, at full width in float32 (teacher = the student
+   preset, as in JAX): holdout loss before and after, each step's wall,
+   peak memory; then ``serve`` over consensus-1b with the integrity plane
+   on swaps the HF safetensors checkpoint in through ``POST /v1/swap
+   {"out_dir"}`` (digest checked) and a request's stream equals a fresh
+   engine loaded from the checkpoint (near-tie rule). A ``{"distill": ...}``
+   line;
 9. the quantized slice: the same CLI run with ``LLMC_QUANT=int8
    LLMC_KV_QUANT=int8`` in the environment (int8 weights, int8 KV cache,
    the int8 decode kernel), then a profiler window over one of its
@@ -1482,17 +1510,21 @@ def check_one_launch_per_step(ours: dict, kernel: str, other: str, counter, n_la
         f"one per call, no {other} or {'/'.join(OLD_DECODE_SYMBOLS)}")
 
 
-# Decode steps of profile_decode's default window: the profiler's event
+# Decode steps of the int8 and Mixtral profile windows: the profiler's event
 # processing, not the generate, takes most of a window's wall (~70 s of the
 # bf16 window's 81 s at 48 tokens on an H100 80GB HBM3 at 700 W), and it
-# grows with the launches recorded (16 until the route phase joined the run).
-PROFILE_TOKENS = 8
+# grows with the launches recorded. Such a window decodes them in one chunk
+# of as many steps, which the main path never runs: its busy share is a
+# 4-step chunk's. The bf16 window, whose busy share reads the main path's
+# host overhead, runs the engine's own 16-step chunk.
+PROFILE_TOKENS = 4
 
 
 def profile_decode(torch, engine, label: str = "profile", run=None, counter=None,
-                   export: str = None, stats: dict = None) -> dict:
+                   export: str = None, stats: dict = None, steps: int = PROFILE_TOKENS) -> dict:
     """Where the time goes: torch.profiler over ``run()`` (by default one
-    generate of the 350-token prompt and PROFILE_TOKENS tokens), run once before to
+    generate of the 350-token prompt and ``steps`` tokens, in one chunk of
+    ``steps`` steps), run once before to
     warm; device busy share of the wall, the kernels with the most device
     time, and the sums of the matmul (GEMM/GEMV) kernels and of the copy
     kernels (which carry the int8 → bf16 weight conversion of the plain
@@ -1507,10 +1539,14 @@ def profile_decode(torch, engine, label: str = "profile", run=None, counter=None
 
     if run is None:
         ids = engine.tokenizer.encode(PROMPT)
-        sp = SamplingParams(max_new_tokens=PROFILE_TOKENS, ignore_eos=True)
+        sp = SamplingParams(max_new_tokens=steps, ignore_eos=True)
 
         def run():
-            engine.generate_ids(ids, sp)
+            interval, engine.stream_interval = engine.stream_interval, steps
+            try:
+                engine.generate_ids(ids, sp)
+            finally:
+                engine.stream_interval = interval
 
     run()  # warm
     torch.cuda.synchronize()
@@ -1774,6 +1810,10 @@ def token_agreement(got: list, ref: list) -> int:
     return n
 
 
+# Tokens a stream of the batched engine's waves.
+BATCHED_TOKENS = 48
+
+
 def run_batched_engine(torch, fa, da, engine, state_recs: dict) -> None:
     """The batcher on llama-3-8b, driven directly."""
     from llm_consensus_tpu_torch.engine import Engine, SamplingParams
@@ -1784,7 +1824,7 @@ def run_batched_engine(torch, fa, da, engine, state_recs: dict) -> None:
     ids = [tok.encode(p) for p in prompts]
     p = len(tok.encode(PROMPT))
     check_batch_logits(torch, engine, ids, p)
-    s = SamplingParams(max_new_tokens=64, ignore_eos=True)
+    s = SamplingParams(max_new_tokens=BATCHED_TOKENS, ignore_eos=True)
 
     def counted(b, submit, counters):
         for c in counters:
@@ -1811,13 +1851,15 @@ def run_batched_engine(torch, fa, da, engine, state_recs: dict) -> None:
         b.close()
     agree = [token_agreement(r.token_ids, engine.generate(pr, s).token_ids)
              for pr, r in zip(prompts + [UNRELATED], results)]
-    log(f"batched engine, shared prefix: {len(results)} streams x 64 tokens in {wall:.2f} s, "
+    log(f"batched engine, shared prefix: {len(results)} streams x {BATCHED_TOKENS} tokens "
+        f"in {wall:.2f} s, "
         f"stats {snap}, pool decode {snap['decode_tokens'] / snap['decode_s']:.1f} tokens/s; "
         f"launches state {state_n}, bf16 decode {bf16_n} (state ones included), flash "
-        f"{flash_n}; leading tokens equal to the single-stream engine's {agree} (of 64)")
+        f"{flash_n}; leading tokens equal to the single-stream engine's {agree} "
+        f"(of {BATCHED_TOKENS})")
     # Every decode step ran with the prefix: no bf16 launch without state.
     if (state_n <= 0 or bf16_n != state_n or snap["establish_tokens"] < 192
-            or any(len(r.token_ids) != 64 for r in results)):
+            or any(len(r.token_ids) != BATCHED_TOKENS for r in results)):
         raise AssertionError(f"batched engine shared wave: {snap}, state {state_n}, "
                              f"bf16 {bf16_n}")
 
@@ -2126,7 +2168,7 @@ def measure_overhead(torch, engine) -> None:
     originals = [(cls, name, cls.__dict__[name]) for cls, name in hooks]
     sync_orig = (torch.cuda.synchronize, torch.cuda.Event.synchronize)
     ids = engine.tokenizer.encode(PROMPT)
-    sp = SamplingParams(max_new_tokens=64, ignore_eos=True)
+    sp = SamplingParams(max_new_tokens=48, ignore_eos=True)
     engine.generate_ids(ids, sp)  # warm: every key of this shape counted already
     arms = {"off": [], "on": []}
     try:
@@ -2267,7 +2309,9 @@ def run_telemetry(torch, fa, da) -> None:
 
 MODES_PANEL = "gpu:llama-3-8b,gpu:consensus-1b"
 MODES_JUDGE = "gpu:llama-3-8b"
-MODES_TOKENS = CLI_TOKENS
+# 24: the modes' checks count generates, launches and
+# prompts, and read no decode rate (the disagg and distill phases' cut).
+MODES_TOKENS = "24"
 # The vote run names a judge outside the panel, so that "no judge engine is
 # built" reads directly in the provider's engines().
 VOTE_JUDGE = "gpu:llama-3.1-8b"
@@ -4492,7 +4536,7 @@ MOE_TOL = 1e-4
 SPEC_TARGET, SPEC_DRAFT = "llama-3-8b", "llama-3.2-1b"
 SPEC_K = 4
 SPEC_TOKENS = 64       # (a)
-SPEC_SWEEP_TOKENS = 64  # (b), (c), (e); one run at each point of (b)
+SPEC_SWEEP_TOKENS = 48  # (b), (c), (e); one run at each point of (b)
 SPEC_GOVERNOR_TOKENS = 160  # (d): a 64-token drafted probe, a 64-token plain one, then locked
 
 
@@ -6382,6 +6426,566 @@ def run_route(torch, fa, da, card: str, seed: int) -> dict:
     return out
 
 
+# -- phase 8j: disaggregated prefill -> decode ------------------------------------
+
+DISAGG_ARGS = ["--models", "gpu:llama-3-8b,gpu:consensus-1b", "--judge", "gpu:llama-3-8b",
+               "--max-batch", "8", "--max-tokens", "16", "--cache-size", "0", "--port", "0",
+               "--disagg"]
+# The governor off (a busy pool reads as pressure 1.0 and would shed the
+# phase's own requests, ROADMAP queue 3); a 2,048 MB arena a preset, so every
+# handed-off prompt of the phase stays resident.
+DISAGG_ENV = {"LLMC_PRESSURE": "0", "LLMC_KV_POOL_MB": "2048"}
+DISAGG_RESIDENT_TOKENS = 128
+DISAGG_WAVE_TOKENS = 32
+HANDOFF_THREAD = "llmc-handoff-"
+
+
+class ProviderCatch:
+    """The ``gpu:`` provider each in-process ``serve`` builds (wraps
+    ``cli.serve._gpu_provider``; restored on exit)."""
+
+    def __enter__(self):
+        from llm_consensus_tpu_torch.cli import serve as serve_cli
+
+        self.mod, self.real, self.providers = serve_cli, serve_cli._gpu_provider, []
+
+        def make(cfg, dev):
+            provider = self.real(cfg, dev)
+            self.providers.append(provider)
+            return provider
+
+        serve_cli._gpu_provider = make
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._gpu_provider = self.real
+
+
+class RoleLaunches:
+    """Flash launches made on a handoff worker's thread (the prefill role),
+    counted beside the wrapper's own counter by wrapping its ``add``."""
+
+    def __init__(self, counter):
+        self.counter, self.prefill = counter, 0
+
+    def __enter__(self):
+        real, role = self.counter.add, self
+
+        def add():
+            if threading.current_thread().name.startswith(HANDOFF_THREAD):
+                role.prefill += 1
+            real()
+
+        self.counter.add = add
+        return self
+
+    def __exit__(self, *exc):
+        vars(self.counter).pop("add", None)
+
+
+def serve_in_process(argv: list, data: str, stop: threading.Event, err: io.StringIO,
+                     rc: list, label: str) -> tuple:
+    """``main(["serve", ...])`` on a thread; returns (thread, port) once the
+    banner names its address."""
+    from llm_consensus_tpu_torch.cli.main import main as cli_main
+
+    server = threading.Thread(target=lambda: rc.append(cli_main(
+        ["serve", *argv, "--data-dir", data], device=None, stdout=io.StringIO(), stderr=err,
+        install_signal_handlers=False, shutdown=stop)), daemon=True)
+    server.start()
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline and server.is_alive():
+        text = err.getvalue()
+        if "http://" in text:
+            return server, int(text.split("http://", 1)[1].split("/", 1)[0].rsplit(":", 1)[1])
+        time.sleep(0.01)
+    raise AssertionError(f"{label}: the server never listened: {err.getvalue()}")
+
+
+def streams_by_prompt(items: list) -> dict:
+    """(preset, prompt ids) → the stream's greedy tokens."""
+    return {(it.engine.cfg.name, tuple(it.prompt_ids)): it.future.result(timeout=60).token_ids
+            for it in items}
+
+
+def disagg_texts(torch, label: str, on: list, off: list, items_on: list, items_off: list,
+                 engines: dict) -> dict:
+    """Disagg-on answers against disagg-off ones on the same engines: the
+    consensus and each model's answer equal, or every differing stream
+    within the near-tie rule under teacher forcing: against the other run's
+    stream of the same prompt, or, for a judge prompt the other run never
+    had (the panel answers land in completion order, which the judge prompt
+    follows), against the engine's single-stream greedy tokens."""
+    from llm_consensus_tpu_torch.engine import SamplingParams
+
+    def answers(doc):
+        return doc["consensus"], {r["model"]: r["content"] for r in doc["responses"]}
+
+    equal = [answers(a) == answers(b) for a, b in zip(on, off)]
+    rows, unmatched = [], 0
+    if not all(equal):
+        ref = streams_by_prompt(items_off)
+        for it in items_on:
+            key = (it.engine.cfg.name, tuple(it.prompt_ids))
+            toks = it.future.result(timeout=60).token_ids
+            want = ref.get(key)
+            if want is None:
+                unmatched += 1
+                want = it.engine.generate_ids(list(it.prompt_ids), SamplingParams(
+                    max_new_tokens=it.sampling.max_new_tokens,
+                    ignore_eos=it.sampling.ignore_eos)).token_ids
+            if toks != want:
+                rows.append(greedy_check(torch, engines[key[0]], f"{label} {key[0]} stream",
+                                         list(key[1]), toks, want))
+    log(f"{label}: answers equal to disagg off {equal}; streams at a near-tie {len(rows)}, "
+        f"held to single-stream (no counterpart) {unmatched}")
+    return {"equal": equal, "near_ties": rows, "single_stream_refs": unmatched}
+
+
+def letters(seed: int, n: int) -> str:
+    """``n`` lowercase letters and spaces from ``seed`` (one byte token each)."""
+    import random
+
+    rng = random.Random(seed)
+    return "".join(rng.choice("abcdefghijklmnopqrstuvwxyz    ") for _ in range(n))
+
+
+def disagg_gap(torch, fa, seed: int) -> dict:
+    """(b) Four residents (1,501-token prompts, 128 tokens) decode; once each
+    has 32 tokens a wave of four 1,501-token prompts (32 tokens) sharing a
+    1,472-token preamble arrives, disagg off, then on, on one provider
+    (llama-3-8b bf16, 8 rows, the KV pool at 2,048 MB; the pool emptied
+    between the runs): the residents' longest gap between fetches from the
+    wave's arrival to its first tokens (the serving phase's metric), the wave's time to
+    first token, the handoff's stats; streams on against off."""
+    from llm_consensus_tpu_torch.providers.base import Request
+    from llm_consensus_tpu_torch.providers.gpu import GPUProvider
+    from llm_consensus_tpu_torch.utils.context import Context
+
+    residents = ["Resident. " + letters(seed + 200 + i, 1480) for i in range(4)]
+    preamble = "Shared preamble. " + letters(seed + 400, 1455)
+    wave = [preamble + f" Question {i}: which one and why?" for i in range(4)]
+    runs, items = [], {}
+    with BatcherTrace(torch, fa) as tr, StreamLog() as slog:
+        provider = GPUProvider(batch_streams=8, kv_pool=True, kv_pool_mb=2048.0, disagg=True,
+                               ignore_eos=True)
+        try:
+            for on in (False, True):
+                provider.disagg["disagg"] = on
+                provider.kv_evict_cold(0.0)
+                n0 = len(slog.items)
+                res: list = [None] * 4
+                wav: list = [None] * 4
+
+                def one(box, i, prompt, n):
+                    box[i] = provider.query_stream(Context.background(), Request(
+                        model="gpu:llama-3-8b", prompt=prompt, max_tokens=n), None)
+
+                ths = [threading.Thread(target=one, args=(res, i, p, DISAGG_RESIDENT_TOKENS),
+                                        daemon=True) for i, p in enumerate(residents)]
+                for th in ths:
+                    th.start()
+                deadline = time.monotonic() + 600
+                while True:
+                    b = provider._batchers.get("llama-3-8b")
+                    live = [st for st in (list(b._slots) if b is not None else [])
+                            if st is not None]
+                    if len(live) == 4 and all(len(st.out_ids) >= 32 for st in live):
+                        break
+                    if time.monotonic() > deadline:
+                        raise AssertionError("disagg (b): the residents never decoded")
+                    time.sleep(0.002)
+                t_wave = tr.now()
+                hs0 = provider.disagg_stats().get("llama-3-8b", {})
+                wths = [threading.Thread(target=one, args=(wav, i, p, DISAGG_WAVE_TOKENS),
+                                         daemon=True) for i, p in enumerate(wave)]
+                for th in wths:
+                    th.start()
+                for th in ths + wths:
+                    th.join(600)
+                if any(r is None for r in res + wav):
+                    raise AssertionError("disagg (b): a stream never answered")
+                fetches = tr.spans("fetch")
+                t_first = next(t1 for _, t1, a in fetches if t1 > t_wave and a["firsts"])
+                ends = [t1 for _, t1, _ in fetches]
+                gaps = [b2 - a for a, b2 in zip(ends, ends[1:]) if t_wave < b2 <= t_first]
+                hs1 = provider.disagg_stats().get("llama-3-8b", {})
+                row = {"disagg": on, "longest_gap_ms": 1e3 * max(gaps),
+                       "ttft_ms": 1e3 * (t_first - t_wave), "fetches_during_wave": len(gaps),
+                       "flash_during_wave": tr.flash_in(t_wave, t_first)}
+                if on:
+                    row["handoff"] = {k: hs1.get(k, 0) - hs0.get(k, 0)
+                                      for k in ("completed", "fallbacks", "handoff_tokens",
+                                                "prefill_tokens", "prefill_s", "handoff_s")}
+                    if row["handoff"]["completed"] < 4 or row["handoff"]["fallbacks"]:
+                        raise AssertionError(f"disagg (b): the wave's handoff {row['handoff']}")
+                items[on] = list(slog.items[n0:])
+                runs.append(row)
+                log(f"disagg (b) {'on' if on else 'off'}: residents' longest gap between "
+                    f"fetches while the wave filled {row['longest_gap_ms']:.1f} ms over "
+                    f"{len(gaps)} fetches; wave time to first token {row['ttft_ms']:.1f} ms"
+                    + (f"; handoff {row['handoff']}" if on else ""))
+            engine = provider._engines["llama-3-8b"]
+            got, ref = streams_by_prompt(items[True]), streams_by_prompt(items[False])
+            checks = [greedy_check(torch, engine, f"disagg (b) stream {i}", list(key[1]),
+                                   got[key], ref[key])
+                      for i, key in enumerate(sorted(ref)) if key in got]
+            if len(checks) != 8:
+                raise AssertionError(f"disagg (b): {len(checks)} of 8 streams paired")
+        finally:
+            provider.release()
+    ratio = runs[1]["longest_gap_ms"] / runs[0]["longest_gap_ms"]
+    log(f"disagg (b): longest gap on against off {ratio:.2f}x")
+    return {"runs": runs, "gap_ratio_on_off": ratio,
+            "equal": [c["equal"] for c in checks]}
+
+
+def run_disagg(torch, fa, da, card: str, seed: int, tmp: str) -> dict:
+    """Phase 8j: ``serve --disagg`` in process over llama-3-8b and
+    consensus-1b (bf16, full width, random weights from the seed, 8 batcher
+    rows, the KV pool implied, 2,048 MB a preset, the governor off, the
+    result cache off). Both roles share the card: the prefill worker runs
+    its waves on a CUDA stream of its own and publishes into the decode
+    engine's pool; the prefill engine shares the decode engine's weight
+    tree, and takes only prompts of one prefill chunk. (a) 4 distinct
+    ~350-token requests with disagg off, then on (the pool emptied
+    between), the launches of both counted: the panel prompts take no
+    handoff (consensus-1b submits none), llama-3-8b's judge prompts are
+    handed off with no fallback and ``handoff_blocks`` > 0, the prefill
+    role's flash launches (on the handoff threads) counted apart, the
+    decode kernel launched, the answers equal to disagg off or within the
+    near-tie rule; memory after
+    the build and after the handoffs (no second weight tree); (c)
+    ``prefill_worker_crash@wave=1`` on freshly built handoffs: the answer
+    unchanged, the fallback counted; (d) consensus-1b swapped to seed + 1
+    weights, then a ~700-token request (its lone-row wave establishes its
+    prefix from the handed-off blocks): its stream against a fresh engine on
+    the new weights; the /statsz ``disagg`` block and /metricsz; then (b)
+    the residents' longest fetch gap while a 4 x 1,501-token wave is handed
+    off, on against off (:func:`disagg_gap`). The served runs stay in
+    ``<tmp>/data`` for the distill phase. Prints a ``{"disagg": ...}``
+    line."""
+    from llm_consensus_tpu_torch import faults
+    from llm_consensus_tpu_torch.engine import Engine
+    from llm_consensus_tpu_torch.engine.checkpoint import try_load_params
+    from llm_consensus_tpu_torch.models import get_config
+    from llm_consensus_tpu_torch.models.transformer import init_params, param_leaves
+
+    t_phase = time.monotonic()
+    fresh_planes()
+    data = os.path.join(tmp, "data")
+    counters = {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES,
+                "decode_attention_state": da.LAUNCHES_STATE}
+    stop, err, rc = threading.Event(), io.StringIO(), []
+    out: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with set_environ(DISAGG_ENV), ProviderCatch() as catch, StreamLog() as slog, \
+            RoleLaunches(fa.LAUNCHES) as role:
+        server, port = serve_in_process(DISAGG_ARGS, data, stop, err, rc, "disagg")
+        try:
+            provider = catch.providers[0]
+            if not (provider.disagg["disagg"] and provider.kv["kv_pool"]):
+                raise AssertionError(f"disagg: provider settings {provider.disagg} {provider.kv}")
+            bodies = [{"prompt": f"Request {i} of four. " + PROMPT} for i in range(4)]
+
+            # (a) disagg off, then on, on the same engines.
+            provider.disagg["disagg"] = False
+            for c in counters.values():
+                c.reset()
+            t0 = time.monotonic()
+            n0 = len(slog.items)
+            off = [gw_doc(a, f"disagg (a) off {i}") for i, a in enumerate(gw_fire(port, bodies))]
+            off_s = time.monotonic() - t0
+            items_off = list(slog.items[n0:])
+            launches_off = {name: c.count for name, c in counters.items()}
+            engines = {name: eng for name, eng in provider.engines().items()}
+            weights = {name: sum(w.numel() * w.element_size()
+                                 for _n, w in param_leaves(eng.params))
+                       for name, eng in engines.items()}
+            torch.cuda.synchronize()
+            mem_built = torch.cuda.memory_allocated()
+            provider.disagg["disagg"] = True
+            provider.kv_evict_cold(0.0)
+            for c in counters.values():
+                c.reset()
+            role.prefill = 0
+            t0 = time.monotonic()
+            n0 = len(slog.items)
+            on = [gw_doc(a, f"disagg (a) on {i}") for i, a in enumerate(gw_fire(port, bodies))]
+            on_s = time.monotonic() - t0
+            items_on = list(slog.items[n0:])
+            launches = {name: c.count for name, c in counters.items()}
+            prefill_flash = role.prefill
+            stats = provider.disagg_stats()
+            kv = provider.kv_stats()
+            torch.cuda.synchronize()
+            mem_handoff = torch.cuda.memory_allocated()
+            # One card: a handoff takes only a prompt of one prefill chunk
+            # (the decode side reuses nothing shorter). The ~350-token panel
+            # prompts take the classic path; llama-3-8b's four judge prompts
+            # (~1,400 tokens) are handed off, prefilled in chunks.
+            for name, snap in stats.items():
+                if (snap["fallbacks"] or not snap["shared_device"]
+                        or snap["min_tokens"] != provider.prefill_chunk):
+                    raise AssertionError(f"disagg (a): {name} handoff {snap}")
+            trees = {name: (h._pe.params is None) for name, (_e, h) in provider._handoffs.items()
+                     if h is not None}
+            if (set(stats) != {"llama-3-8b", "consensus-1b"} or not all(trees.values())
+                    or stats["consensus-1b"]["submitted"] != 0
+                    or stats["llama-3-8b"]["completed"] < 4
+                    or kv["llama-3-8b"]["handoff_blocks"] <= 0
+                    or launches["decode_attention"] <= 0):
+                raise AssertionError(f"disagg (a): stats {stats}, kv {kv}, prefill-role flash "
+                                     f"{prefill_flash}, launches {launches}, trees held {trees}")
+            # One weight tree a preset: the handoffs add no tree beside the
+            # decode engines' (a second consensus-1b tree alone is 1.77 GB).
+            extra = (mem_handoff - mem_built) / 1e9
+            if extra > 0.5 * min(weights.values()) / 1e9:
+                raise AssertionError(f"disagg (a): {extra:.2f} GB more after the handoffs")
+            texts = disagg_texts(torch, "disagg (a)", on, off, items_on, items_off, engines)
+            out["a"] = {"off_s": off_s, "on_s": on_s, "launches": launches,
+                        "launches_off": launches_off, "prefill_role_flash": prefill_flash,
+                        "decode_role_flash": launches["flash_attention"] - prefill_flash,
+                        "handoff": stats, "handoff_blocks": {n: kv[n]["handoff_blocks"]
+                                                             for n in stats},
+                        "memory_gb": {"weights": {n: w / 1e9 for n, w in weights.items()},
+                                      "after_build": mem_built / 1e9,
+                                      "after_handoffs": mem_handoff / 1e9},
+                        "texts": texts}
+            log(f"disagg (a): 4 requests off {off_s:.2f} s, on {on_s:.2f} s; handoffs "
+                f"{ {n: (s['completed'], s['fallbacks'], s['waves']) for n, s in stats.items()} } "
+                f"(completed, fallbacks, waves); handoff blocks {out['a']['handoff_blocks']}; "
+                f"flash {launches['flash_attention']} ({prefill_flash} on the prefill role; "
+                f"{launches_off['flash_attention']} off), decode "
+                f"{launches['decode_attention']} ({launches_off['decode_attention']} off), state "
+                f"{launches['decode_attention_state']} "
+                f"({launches_off['decode_attention_state']} off); memory {mem_built / 1e9:.2f} GB built, "
+                f"{mem_handoff / 1e9:.2f} GB with the handoffs")
+
+            # (c) a crashed prefill wave falls back to the classic path.
+            faults.install(faults.FaultPlan("prefill_worker_crash@wave=1", seed=seed))
+            try:
+                for _eng, h in list(provider._handoffs.values()):
+                    if h is not None:
+                        h.close()
+                provider._handoffs.clear()  # rebuilt at the next request, binding the plan
+                provider.kv_evict_cold(0.0)
+                n0 = len(slog.items)
+                crashed = gw_doc(gw_post(port, bodies[0]), "disagg (c)")
+                items_c = list(slog.items[n0:])
+                plan = faults.plan()
+            finally:
+                faults.install(None)
+            fired = [t for t in plan.trace if t.endswith("->prefill_worker_crash")]
+            cstats = provider.disagg_stats()
+            if not fired or sum(s["fallbacks"] for s in cstats.values()) < 1:
+                raise AssertionError(f"disagg (c): fired {fired}, stats {cstats}")
+            tie_c = disagg_texts(torch, "disagg (c)", [crashed], [off[0]], items_c, items_off,
+                                 engines)
+            out["c"] = {"fired": len(fired), "fallbacks": {n: s["fallbacks"]
+                                                           for n, s in cstats.items()},
+                        "texts": tie_c}
+
+            # (d) a swap, then a request past one prefill chunk.
+            cfg = get_config("consensus-1b")
+            ckpt = os.path.join(tmp, "consensus-1b-seed1")
+            os.makedirs(ckpt)
+            new = init_params(cfg, seed + 1, device=torch.device("cuda"))
+            write_safetensors(os.path.join(ckpt, "model.safetensors"),
+                              hf_tensors_from_params(cfg, new))
+            del new
+            release_memory(torch)
+            status, _h, data_, _w, _s = gw_post(
+                port, {"model": "gpu:consensus-1b", "checkpoint": ckpt, "wait": True},
+                path="/v1/swap")
+            swap = json.loads(data_)
+            if status != 200 or swap.get("weight_version") != 1:
+                raise AssertionError(f"disagg (d): swap {status} {swap}")
+            before = provider.disagg_stats()["consensus-1b"]["completed"]
+            gw_doc(gw_post(port, {"prompt": "Swap check. " + PROMPT + " " + PROMPT}),
+                   "disagg (d)")
+            if provider.disagg_stats()["consensus-1b"]["completed"] <= before:
+                raise AssertionError("disagg (d): no handoff after the swap")
+            fresh = Engine(cfg, try_load_params(cfg, ckpt, device=torch.device("cuda")))
+            row_d = gw_stream_check(torch, slog, fresh, "consensus-1b", "Swap check.",
+                                    "disagg (d) stream after the swap against a fresh engine")
+            del fresh
+            release_memory(torch)
+            statsz = json.loads(gw_get(port, "/statsz")[1])
+            metrics = gw_get(port, "/metricsz")[1]
+            if ("disagg" not in statsz or "llama-3-8b:prefill" not in statsz["utilization"]
+                    or 'block="disagg"' not in metrics):
+                raise AssertionError(f"disagg: /statsz blocks {sorted(statsz)}")
+            out["d"] = {"swap": {k: swap.get(k) for k in ("weight_version", "last_prep_ms",
+                                                          "last_vacate_ms")}, "stream": row_d}
+            out["statsz_disagg"] = statsz["disagg"]
+            stop.set()
+            server.join(300)
+            if rc != [0]:
+                raise AssertionError(f"disagg: serve returned {rc}: {err.getvalue()[-800:]}")
+        finally:
+            stop.set()
+            server.join(300)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    release_memory(torch)
+    out["b"] = disagg_gap(torch, fa, seed)
+    out["wall_s"] = time.monotonic() - t_phase
+    log(f"disagg: peak {out['peak_gb']:.2f} GB, phase {out['wall_s']:.1f} s")
+    print(json.dumps({"disagg": out, "card": card}, default=str), flush=True)
+    release_memory(torch)
+    return out
+
+
+# -- phase 8k: distillation and the swap of its checkpoint ------------------------------
+
+DISTILL_STUDENT = "consensus-1b"
+DISTILL_STEPS = "8"
+# Half the examples held out: the phase's corpus is a handful of runs (the
+# disagg phase's off and on runs dedupe), and the default 0.2 can leave the
+# holdout empty (the loss is then read on the training examples).
+DISTILL_HOLDOUT = "0.5"
+
+
+class StampedIO(io.StringIO):
+    """A text sink that keeps each line's host time (the distill CLI's
+    progress lines, one a step)."""
+
+    def __init__(self):
+        super().__init__()
+        self.stamps: list = []
+
+    def write(self, text):
+        if text.strip():
+            self.stamps.append((time.monotonic(), text.strip()))
+        return super().write(text)
+
+
+def make_runs(data: str) -> int:
+    """Three auto-saved one-shot runs (consensus-1b twice on the panel and as
+    judge, 16 tokens) when ``data`` holds no run: the distill phase alone."""
+    from llm_consensus_tpu_torch.cli.main import main as cli_main
+
+    for i in range(3):
+        rc = cli_main(["--models", "gpu:consensus-1b,gpu:consensus-1b", "--judge",
+                       "gpu:consensus-1b", "--max-tokens", "16", "--data-dir", data,
+                       f"Distill corpus question {i}. " + PROMPT],
+                      device=None, stdout=io.StringIO(), stderr=io.StringIO(),
+                      install_signal_handlers=False)
+        if rc != 0:
+            raise AssertionError(f"distill: corpus run {i} exited {rc}")
+    fresh_planes()
+    return 3
+
+
+def run_distill(torch, card: str, seed: int, tmp: str) -> dict:
+    """Phase 8k: ``distill --student consensus-1b --steps 8`` in process at
+    full width (d 2048, 16 layers, vocab 32,000; float32, the student and the
+    teacher random from seeds 0 and 1, as in JAX; teacher = student preset)
+    over the runs the disagg phase auto-saved in ``<tmp>/data`` (three
+    one-shot runs made first when there are none): the holdout loss before
+    and after, each step's wall, peak memory. Then ``serve`` over
+    consensus-1b with the integrity plane on takes the checkpoint through
+    ``POST /v1/swap {"out_dir"}`` (its digest checked on the tree as
+    stored), and a request's stream equals a fresh engine loaded from the
+    checkpoint, up to the near-tie rule. Prints a ``{"distill": ...}``
+    line."""
+    from llm_consensus_tpu_torch import integrity
+    from llm_consensus_tpu_torch.cli.main import main as cli_main
+    from llm_consensus_tpu_torch.engine import Engine
+    from llm_consensus_tpu_torch.engine.checkpoint import try_load_params
+    from llm_consensus_tpu_torch.flywheel.distill import latest_checkpoint
+    from llm_consensus_tpu_torch.models import get_config
+
+    t_phase = time.monotonic()
+    fresh_planes()
+    data = os.path.join(tmp, "data")
+    os.makedirs(data, exist_ok=True)
+    made = 0 if any(os.path.exists(os.path.join(data, d, "run.json"))
+                    for d in os.listdir(data)) else make_runs(data)
+    outdir = os.path.join(tmp, "distill")
+    stdout, stderr = io.StringIO(), StampedIO()
+    release_memory(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    rc = cli_main(["distill", "--data-dir", data, "--student", DISTILL_STUDENT, "--steps",
+                   DISTILL_STEPS, "--holdout", DISTILL_HOLDOUT, "--out", outdir], device=None,
+                  stdout=stdout, stderr=stderr, install_signal_handlers=False)
+    distill_s = time.monotonic() - t0
+    if rc != 0:
+        raise AssertionError(f"distill: exit {rc}: {stdout.getvalue()[-800:]} "
+                             f"{stderr.getvalue()[-800:]}")
+    summary = json.loads(stdout.getvalue())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    steps = [t for t, line in stderr.stamps if line.startswith("distill step")]
+    step_s = [b - a for a, b in zip(steps, steps[1:])]
+    losses = (summary["holdout_loss_before"], summary["holdout_loss_after"])
+    if (summary["steps"] != int(DISTILL_STEPS) or summary.get("weight_version") != 1
+            or not all(x == x and abs(x) < 1e6 for x in losses)):
+        raise AssertionError(f"distill: summary {summary}")
+    latest = latest_checkpoint(outdir)
+    if not summary["corpus"]["holdout"]:
+        log("distill: the holdout split is empty; its loss is read on the training examples")
+    log(f"distill: {summary['corpus']['train']} train / {summary['corpus']['holdout']} "
+        f"holdout examples ({made} runs made here); holdout loss {losses[0]:.4f} -> "
+        f"{losses[1]:.4f}; steps {[round(x, 3) for x in step_s]} s apart; run {distill_s:.1f} s;"
+        f" peak {peak:.2f} GB")
+    release_memory(torch)
+
+    # The checkpoint through /v1/swap's out_dir form, the digest checked.
+    stop, err, srv_rc = threading.Event(), io.StringIO(), []
+    with set_environ({"LLMC_PRESSURE": "0", "LLMC_INTEGRITY": "1"}), StreamLog() as slog:
+        server, port = serve_in_process(
+            ["--models", "gpu:consensus-1b", "--judge", "gpu:consensus-1b", "--max-batch", "2",
+             "--max-tokens", "16", "--cache-size", "0", "--port", "0"],
+            os.path.join(tmp, "distill-serve"), stop, err, srv_rc, "distill")
+        try:
+            t0 = time.monotonic()
+            status, _h, data_, _w, _s = gw_post(
+                port, {"model": "gpu:consensus-1b", "out_dir": outdir, "wait": True},
+                path="/v1/swap")
+            swap_s = time.monotonic() - t0
+            swap = json.loads(data_)
+            if status != 200 or swap.get("weight_version") != 1:
+                raise AssertionError(f"distill: swap {status} {swap}")
+            status, _h, body, _w, _s = gw_post(port, {"prompt": "Distilled check. " + PROMPT})
+            doc = json.loads(body)
+            if status != 200 or not doc.get("consensus"):
+                raise AssertionError(f"distill: request {status} {body[:400]!r}")
+            cfg = get_config(DISTILL_STUDENT)
+            fresh = Engine(cfg, try_load_params(cfg, latest["params_path"],
+                                                device=torch.device("cuda")))
+            row = gw_stream_check(torch, slog, fresh, DISTILL_STUDENT, "Distilled check.",
+                                  "distill stream on the swapped checkpoint against a fresh "
+                                  "engine")
+            del fresh
+            stats = json.loads(gw_get(port, "/statsz")[1])
+            ckpt_checks = stats.get("integrity", {}).get("checks", {}).get("ckpt", 0)
+            if ckpt_checks < 1:
+                raise AssertionError(f"distill: no checkpoint digest check: "
+                                     f"{stats.get('integrity')}")
+            stop.set()
+            server.join(300)
+            if srv_rc != [0]:
+                raise AssertionError(f"distill: serve returned {srv_rc}: {err.getvalue()[-800:]}")
+        finally:
+            stop.set()
+            server.join(300)
+            integrity.reset()  # the serve installed the plane: no later phase keeps it
+    out = {"summary": {k: summary.get(k) for k in (
+               "steps", "batch", "seq", "loss", "kl", "ce", "grad_norm", "holdout_loss_before",
+               "holdout_loss_after", "weight_version")},
+           "corpus": summary["corpus"], "runs_made": made, "distill_s": distill_s,
+           "step_s": step_s, "peak_gb": peak, "swap_s": swap_s,
+           "swap": {k: swap.get(k) for k in ("weight_version", "last_prep_ms", "last_vacate_ms")},
+           "stream": row, "ckpt_checks": ckpt_checks, "wall_s": time.monotonic() - t_phase}
+    log(f"distill: swapped in through out_dir in {swap_s:.2f} s; stream equal to a fresh "
+        f"engine {row['equal']}; phase {out['wall_s']:.1f} s")
+    print(json.dumps({"distill": out, "card": card}, default=str), flush=True)
+    release_memory(torch)
+    return out
+
+
 PHASE_WALLS: dict = {}  # phase → seconds, in run order
 
 
@@ -6406,7 +7010,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase", choices=("all", "kernels", "mixtral", "telemetry", "modes",
                                         "session", "serving", "recovery", "kvpool", "spec",
-                                        "gateway", "route"),
+                                        "gateway", "route", "disagg", "distill"),
                     default="all")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -6502,6 +7106,21 @@ def main(argv=None) -> int:
         print_phase_walls(t_start)
         print(card, flush=True)
         return 0
+    if args.phase in ("disagg", "distill"):
+        # The disagg phase, or the distill phase (on three runs of its own),
+        # alone: no ok line.
+        tmp = tempfile.mkdtemp(prefix="chip-smoke-flywheel-")
+        try:
+            with phase_wall(args.phase):
+                if args.phase == "disagg":
+                    run_disagg(torch, fa, da, card, args.seed, tmp)
+                else:
+                    run_distill(torch, card, args.seed, tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        print_phase_walls(t_start)
+        print(card, flush=True)
+        return 0
     if args.phase == "spec":
         # The dh 64 kernel rows and the spec phase: no ok line.
         with phase_wall("kernels dh 64"):
@@ -6538,7 +7157,7 @@ def main(argv=None) -> int:
     with phase_wall("chunked + profile"):
         run_chunked(torch, fa, da, sl["engines"]["llama-3-8b"], args.seed)
         engine = sl["engines"]["llama-3-8b"]
-        ours = profile_decode(torch, engine, counter=da.LAUNCHES)
+        ours = profile_decode(torch, engine, counter=da.LAUNCHES, steps=engine.stream_interval)
         # The bf16 decode is one launch per call: no merge kernel beside it.
         if ours:
             check_one_launch_per_step(ours, "decode_bf16_kernel", "decode_q8_kernel",
@@ -6573,6 +7192,14 @@ def main(argv=None) -> int:
         run_gateway(torch, fa, da, card, args.seed)
     with phase_wall("route"):
         run_route(torch, fa, da, card, args.seed)
+    flywheel_tmp = tempfile.mkdtemp(prefix="chip-smoke-flywheel-")
+    try:
+        with phase_wall("disagg"):
+            run_disagg(torch, fa, da, card, args.seed, flywheel_tmp)
+        with phase_wall("distill"):
+            run_distill(torch, card, args.seed, flywheel_tmp)
+    finally:
+        shutil.rmtree(flywheel_tmp, ignore_errors=True)
 
     with phase_wall("quantized slice"):
         qsl = run_slice(torch, {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES,

@@ -41,9 +41,9 @@ flags, their validation and messages, precedence and exit codes.
     ``/reset``, ``/exit``);
   * errors print ``error: ...`` to stderr and exit 1;
   * ``serve``: the resident HTTP gateway (cli/serve.py, serve/);
-    ``route``: the fleet router over N gateways (cli/route.py). The
-    ``distill`` subcommand of the JAX CLI exits 1: the flywheel is not in
-    the port yet.
+    ``route``: the fleet router over N gateways (cli/route.py);
+    ``distill``: corpus → distilled, versioned checkpoint (cli/distill.py,
+    flywheel/).
 
 Model names are ``gpu:<preset>``. ``main(argv, device=None)`` runs on the
 current CUDA card and raises when there is none; tests pass
@@ -200,8 +200,8 @@ def create_provider(model: str, device: DeviceLike = None, draft: Optional[str] 
     from llm_consensus_tpu_torch.providers.gpu import SCHEME, GPUProvider, parse_model_name
     from llm_consensus_tpu_torch.providers.registry import REMOTE_MODELS, create_remote_provider
     from llm_consensus_tpu_torch.utils.knobs import (
-        batch_settings, checkpoint_dir, engine_settings, http_settings, kv_pool_settings,
-        prefix_settings, quant_modes, recovery_settings, spec_settings)
+        batch_settings, checkpoint_dir, disagg_settings, engine_settings, http_settings,
+        kv_pool_settings, prefix_settings, quant_modes, recovery_settings, spec_settings)
 
     if model.startswith(SCHEME):
         try:
@@ -211,7 +211,8 @@ def create_provider(model: str, device: DeviceLike = None, draft: Optional[str] 
         provider = GPUProvider.shared(device, **batch_settings(), **quant_modes(),
                                       **checkpoint_dir(), **prefix_settings(),
                                       **kv_pool_settings(), **recovery_settings(),
-                                      **spec_settings(), **engine_settings())
+                                      **spec_settings(), **engine_settings(),
+                                      **disagg_settings())
         if draft is not None:
             provider.set_draft(draft, k=spec_k)
         return provider
@@ -1313,7 +1314,8 @@ def main(
     current CUDA card and raises ``RuntimeError`` when there is none.
     ``main(["serve", ...])`` runs the resident gateway (cli/serve.py) and
     ``main(["route", ...])`` the fleet router (cli/route.py) until
-    SIGTERM/SIGINT or, in process, until ``shutdown`` is set."""
+    SIGTERM/SIGINT or, in process, until ``shutdown`` is set;
+    ``main(["distill", ...])`` one distillation run (cli/distill.py)."""
     argv = sys.argv[1:] if argv is None else argv
     stdin = sys.stdin if stdin is None else stdin
     stdout = sys.stdout if stdout is None else stdout
@@ -1322,11 +1324,15 @@ def main(
     if argv and argv[0] in ("serve", "route", "distill"):
         # Resident services have their own flag sets and signal handling
         # (SIGTERM = graceful drain, not context cancel).
-        if argv[0] == "distill":
-            stderr.write("error: the 'distill' subcommand is not in this port yet "
-                         "(the flywheel)\n")
-            return 1
         try:
+            if argv[0] == "distill":
+                # The flywheel's offline half: journal → corpus → distilled
+                # checkpoint, one JSON summary.
+                from llm_consensus_tpu_torch.cli.distill import distill_main
+
+                return distill_main(argv[1:], stdout=stdout, stderr=stderr,
+                                    install_signal_handlers=install_signal_handlers,
+                                    device=device)
             if argv[0] == "route":
                 from llm_consensus_tpu_torch.cli.route import route_main
 

@@ -26,8 +26,10 @@ written back into ``os.environ``. ``serve_main(device=None)`` runs on the
 current CUDA card and raises without one; tests pass ``device="cpu"``.
 ``--announce URL`` (or ``LLMC_FLEET_ANNOUNCE``) registers the gateway with a
 fleet router (``route``) by periodic heartbeat (``LLMC_FLEET_HEARTBEAT_S``).
-``--disagg`` (disaggregated prefill/decode) exits 1: the port has no handoff
-yet.
+``--disagg`` (or ``LLMC_DISAGG``) turns on disaggregated prefill → decode
+(engine/handoff.py) and implies the KV pool, the handoff channel (unless
+``LLMC_KV_POOL`` says otherwise), both as the provider's arguments; it acts
+on the batched path only (``--max-batch`` above 1).
 """
 
 from __future__ import annotations
@@ -77,7 +79,7 @@ class ServeConfig:
     no_live: bool = False  # disable the /metricsz live plane + blackbox
     blackbox_dir: str = ""  # flight-recorder dump dir (LLMC_BLACKBOX_DIR)
     slo_ttft_p99: Optional[float] = None  # SLO burn threshold seconds
-    disagg: bool = False  # disaggregated prefill/decode (refused)
+    disagg: bool = False  # disaggregated prefill → decode (implies the KV pool)
 
 
 def parse_serve_args(argv: list[str]) -> ServeConfig:
@@ -151,9 +153,10 @@ def parse_serve_args(argv: list[str]) -> ServeConfig:
                              "(default LLMC_SPEC_K or 4); adaptive k walks "
                              "a pow2 ladder below it")
     parser.add_argument("--disagg", "-disagg", action="store_true",
-                        help="Disaggregated prefill/decode serving "
-                             "(LLMC_DISAGG equivalent): not in this port "
-                             "yet; refused")
+                        help="Disaggregated prefill/decode serving: a "
+                             "prefill worker hands each batched request's "
+                             "prompt KV to the decode pool (implies the KV "
+                             "pool; LLMC_DISAGG equivalent)")
     parser.add_argument("--announce", "-announce", default="", metavar="URL",
                         help="Fleet router base URL to register with by "
                              "periodic heartbeat (LLMC_FLEET_ANNOUNCE "
@@ -284,10 +287,12 @@ def _gpu_provider(cfg: ServeConfig, device):
     recovery = knobs.recovery_settings()
     journal = recovery.pop("journal")
     jr = StreamJournal(path=None if journal == "1" else journal) if journal else None
+    disagg = knobs.disagg_settings()
+    disagg["disagg"] = cfg.disagg
     return GPUProvider(device=device, journal=jr, swap_wait_s=knobs.serve_settings()["swap_wait_s"],
                        **batching, **knobs.quant_modes(), **knobs.checkpoint_dir(),
-                       **knobs.prefix_settings(), **knobs.kv_pool_settings(), **recovery, **spec,
-                       **knobs.engine_settings())
+                       **knobs.prefix_settings(), **knobs.kv_pool_settings(default_on=cfg.disagg),
+                       **recovery, **spec, **knobs.engine_settings(), **disagg)
 
 
 def serve_main(
@@ -311,10 +316,6 @@ def serve_main(
     from llm_consensus_tpu_torch.providers.gpu import SCHEME, parse_model_name
 
     cfg = parse_serve_args(argv)
-    if cfg.disagg:
-        raise CLIError(
-            "--disagg (disaggregated prefill/decode, engine/handoff.py) is not "
-            "in the port yet")
     max_concurrency = resolve_concurrency(cfg)
     dev = resolve_device(device)
 
@@ -387,6 +388,7 @@ def serve_main(
         features={
             "kv_pool": bool(gpu_provider) and gpu_provider[0].kv["kv_pool"],
             "spec": bool(gpu_provider) and bool(gpu_provider[0]._draft_map),
+            "disagg": bool(gpu_provider) and gpu_provider[0].disagg["disagg"],
         },
     )
     try:

@@ -12,6 +12,10 @@
     in their place.
   * A missing directory, or one with neither, gives None: the caller
     random-initializes, as the JAX package's failed load does.
+  * :func:`save_hf_safetensors` writes a parameter tree back in the HF
+    layout (one ``model.safetensors`` file): the flywheel's distilled
+    checkpoints, which the loader and ``GPUProvider.swap_weights`` read
+    (the JAX package writes Orbax there).
 
 The safetensors format is read here with torch alone (an 8-byte
 little-endian header length, a JSON header of dtype, shape and byte
@@ -71,6 +75,7 @@ _HF_TRANSPOSE = {
 _ORBAX_MARKERS = ("_METADATA", "d", "manifest.ocdbt")
 
 _DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16}
+_DTYPE_NAMES = {v: k for k, v in _DTYPES.items()}
 
 
 class SafetensorsDir:
@@ -112,12 +117,12 @@ class SafetensorsDir:
 
 
 def load_hf_safetensors(cfg: ModelConfig, path: str, *, device: torch.device,
-                        dtype: torch.dtype = torch.bfloat16,
+                        dtype: Optional[torch.dtype] = torch.bfloat16,
                         quant: Optional[str] = None) -> dict:
     """Import an HF safetensors checkpoint into the port's parameter layout
     on ``device`` in ``dtype`` (the JAX package's ``load_hf_safetensors``
-    tree). With ``quant`` ("int8" | "int4") every matmul weight is
-    quantized as it lands."""
+    tree; None keeps each tensor's stored dtype). With ``quant`` ("int8" |
+    "int4") every matmul weight is quantized as it lands."""
     if quant not in (None, *WEIGHT_MODES):
         raise ValueError(f"unknown quant mode {quant!r}")
     src = SafetensorsDir(path)
@@ -164,7 +169,7 @@ def load_hf_safetensors(cfg: ModelConfig, path: str, *, device: torch.device,
 
 
 def try_load_params(cfg: ModelConfig, path: Optional[str], *, device: torch.device,
-                    dtype: torch.dtype = torch.bfloat16,
+                    dtype: Optional[torch.dtype] = torch.bfloat16,
                     quant: Optional[str] = None) -> Optional[dict]:
     """Parameters from ``path``: a directory of ``*.safetensors`` loads;
     a missing path or directory gives None (random init), as does a
@@ -181,3 +186,57 @@ def try_load_params(cfg: ModelConfig, path: Optional[str], *, device: torch.devi
             f"{path}: an Orbax checkpoint, which the PyTorch port cannot read; "
             "convert it to HF safetensors")
     return None
+
+
+def hf_tensors(cfg: ModelConfig, params: dict, dtype: Optional[torch.dtype] = None) -> dict:
+    """A dense parameter tree (``init_params`` layout) as HF-named host
+    tensors, the inverse of :func:`load_hf_safetensors`: [in, out] matmul
+    weights back to [out, in], one tensor per layer (and per expert), in
+    ``dtype`` (None: each leaf's own)."""
+    def host(t: torch.Tensor, transpose: bool = False) -> torch.Tensor:
+        t = t.detach()
+        t = t.t() if transpose else t
+        return t.to(device="cpu", dtype=dtype or t.dtype).contiguous()
+
+    out = {"model.embed_tokens.weight": host(params["embed"]),
+           "model.norm.weight": host(params["final_norm"])}
+    if "lm_head" in params:
+        out["lm_head.weight"] = host(params["lm_head"], True)
+    for name, stacked in params["layers"].items():
+        if isinstance(stacked, dict):
+            raise ValueError(f"{name}: a quantized tree has no HF layout to write")
+        moe = cfg.is_moe and name in ("w_gate", "w_up", "w_down")
+        template = (_HF_MOE_MAP if moe or name == "w_router" else _HF_LAYER_MAP)[name]
+        for i in range(cfg.n_layers):
+            if moe:
+                for e in range(cfg.n_experts):
+                    out[template.format(i=i, e=e)] = host(stacked[i][e], _HF_TRANSPOSE[name])
+            else:
+                out[template.format(i=i)] = host(stacked[i], _HF_TRANSPOSE[name])
+    return out
+
+
+def write_safetensors(path: str, tensors: dict) -> None:
+    """One safetensors file (an 8-byte little-endian header length, the
+    JSON header, the raw bytes), flushed and fsynced before it returns."""
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _DTYPE_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    head = json.dumps(header).encode()
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)) + head)
+        for t in tensors.values():
+            f.write(t.view(torch.uint8).numpy().tobytes() if t.numel() else b"")
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def save_hf_safetensors(cfg: ModelConfig, params: dict, path: str,
+                        dtype: Optional[torch.dtype] = None) -> None:
+    """Write ``params`` into the directory ``path`` as one HF
+    ``model.safetensors`` (what :func:`try_load_params` reads back)."""
+    os.makedirs(path, exist_ok=True)
+    write_safetensors(os.path.join(path, "model.safetensors"), hf_tensors(cfg, params, dtype))

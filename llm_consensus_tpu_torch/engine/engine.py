@@ -380,6 +380,9 @@ class Engine:
         self.weight_meta: dict = {}
         self._pins = 0
         self._pending_swap: Optional[tuple] = None  # (version, params, meta)
+        # True from a flip until its cache hygiene (_post_flip) is done: the
+        # old weights' KV is still cached meanwhile.
+        self._flipping = False
         self._prev_weights: Optional[tuple] = None  # (version, params)
         self._swap_requested = 0.0
         self._swap_stats = {
@@ -503,11 +506,13 @@ class Engine:
             self._post_flip()
 
     def swap_pending(self) -> bool:
-        """True while a prepared version waits for the pins to drain (the
-        batcher's admission gate: new streams hold so the resident set
-        vacates instead of re-pinning the old weights forever)."""
+        """True while a prepared version waits for the pins to drain, and
+        from its flip until the flip's cache hygiene is done (the batcher's
+        admission gate: new streams hold so the resident set vacates instead
+        of re-pinning the old weights forever, and no admission reads KV
+        the old weights left in the prefix snapshot or the KV pool)."""
         with self._swap_lock:
-            return self._pending_swap is not None
+            return self._pending_swap is not None or self._flipping
 
     def _stale_locked(self, version: int) -> bool:
         return version <= self.weight_version or (
@@ -606,6 +611,7 @@ class Engine:
         self._layers = layer_views(params)
         self.weight_version = version
         self.weight_meta = dict(meta or {})
+        self._flipping = True
         vacate_ms = max(0.0, (time.monotonic() - self._swap_requested) * 1000.0)
         self._swap_stats["swaps"] += 1
         self._swap_stats["last_vacate_ms"] = vacate_ms
@@ -619,10 +625,16 @@ class Engine:
         """Cache hygiene after a flip, outside the swap lock: every cached
         KV byte came from the old weights, so the prefix snapshot drops and
         the KV pool evicts every cold block (no stream is resident at a
-        flip, so no lease holds one)."""
-        self.drop_prefix()
-        if self._kv_pool is not None:
-            self._kv_pool.evict_cold(0.0)
+        flip, so no lease holds one). The admission gate opens again even
+        when the hygiene raises: the error reaches the swap's caller, and a
+        gate left shut would hold every later stream for good."""
+        try:
+            self.drop_prefix()
+            if self._kv_pool is not None:
+                self._kv_pool.evict_cold(0.0)
+        finally:
+            with self._swap_lock:
+                self._flipping = False
 
     def swap_stats(self) -> dict:
         """Swap counters and the live pin state (the JAX keys)."""

@@ -165,9 +165,11 @@ string parses as there; the port fires the sites of the modules it has
 and the governor's ``priority_storm``), ``serve`` (``queue_full``,
 ``slow_admit``, ``disconnect``, ``migrate_stall``), ``router``
 (``replica_down``, ``slow_healthz``, ``partition``, ``replica_flap``),
-``swap`` (``swap_mid_stream``, ``canary_regress``; not ``corpus_corrupt``: no
-flywheel yet), and ``corrupt`` with ``nan_logits``, the WAL surfaces,
-``bit_flip@surface=kv`` and ``@surface=ckpt``). The CLI installs the plan
+``swap`` (``swap_mid_stream``, ``canary_regress``, and ``corpus_corrupt`` in
+``flywheel/corpus.py``), ``disagg`` (``handoff_stall``,
+``prefill_worker_crash``, engine/handoff.py), and ``corrupt`` with
+``nan_logits``, the WAL surfaces, ``bit_flip@surface=kv``, ``@surface=ckpt``
+and ``@surface=handoff``). The CLI installs the plan
 (faults/__init__.py); consumers bind ``self._faults = faults.plan()`` at
 construction time, so without a plan the hot dispatch paths carry a single
 ``is not None`` check and no injector code runs.

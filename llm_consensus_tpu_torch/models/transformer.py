@@ -434,6 +434,7 @@ def forward(
     prefix_rows: Optional[torch.Tensor] = None,  # [B] bool: rows attending prefix
     layer_scope: Optional[Callable] = None,  # a roofline capture's Capture.layer
     kv_mask: Optional[torch.Tensor] = None,  # [B, S] bool: written-slot bitmap
+    remat: bool = False,              # recompute each layer in the backward (cache-less)
 ) -> tuple[torch.Tensor, Optional[dict]]:
     """Run the model. Returns (logits [B, T, V] fp32, cache).
 
@@ -465,6 +466,12 @@ def forward(
     underestimate their write-time ones, harmless only for full attention)
     and never reaches a kernel. ``layer_scope(i)`` is entered around layer ``i`` when given (a roofline
     capture counts the first layer only, obs/roofline.py).
+
+    The cache-less forward is the training forward (train/, flywheel/): it
+    writes nothing in place and takes the plain attention op, so autograd
+    runs through it. ``remat`` (the JAX package's per-layer
+    ``jax.checkpoint``) runs each layer under ``torch.utils.checkpoint``:
+    its activations are recomputed in the backward instead of kept.
     """
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
@@ -481,6 +488,8 @@ def forward(
                              "with sliding_window")
         if prefix_len is None:
             raise ValueError("prefix requires prefix_len")
+    if remat and cache is not None:
+        raise ValueError("remat is the cache-less (training) forward's")
     if kv_mask is not None:
         if cache is None or row_start is None:
             raise ValueError("kv_mask requires a cache and row_start")
@@ -579,12 +588,16 @@ def forward(
     decode_w8a8 = decode_w8a8 and decode_flash and is_quantized(cache["k"])
     for i, lp in enumerate(layers):
         with layer_scope(i) if layer_scope is not None else _NO_SCOPE:
-            x = _layer(
-                cfg, x, lp, cos, sin, mask, cache, start_pos, i,
-                layer_ids[i] if layer_ids is not None else None, row_start, slots,
-                flash_offset, kv_width, decode_flash, mm, decode_w8a8,
-                prefix, prefix_len, prefix_rows,
-            )
+            args = (cfg, x, lp, cos, sin, mask, cache, start_pos, i,
+                    layer_ids[i] if layer_ids is not None else None, row_start, slots,
+                    flash_offset, kv_width, decode_flash, mm, decode_w8a8,
+                    prefix, prefix_len, prefix_rows)
+            if remat and torch.is_grad_enabled():
+                from torch.utils.checkpoint import checkpoint
+
+                x = checkpoint(_layer, *args, use_reentrant=False)
+            else:
+                x = _layer(*args)
 
     if logits_index is not None:
         # Prefill samples one position: unembed only it.

@@ -155,7 +155,8 @@ def collect_spec_stats(registry) -> dict:
 
 
 def collect_disagg_stats(registry) -> dict:
-    """Disaggregated-serving snapshots: empty, the port has none."""
+    """Disaggregated-serving snapshots (``GPUProvider.disagg_stats``, per
+    preset); empty when no provider hands off."""
     return _collect_provider_stats(registry, "disagg_stats")
 
 

@@ -309,6 +309,9 @@ class RooflineLedger:
         self._deferred: dict = {}
         self._modeled_fpt: dict = {}
         self._modeled_bpt: dict = {}
+        # Bytes no dispatch counts: the disaggregated handoff's staged
+        # spans (the kv_handoff family's traffic).
+        self._transfer_bytes: dict = {}
         self._peaks_resolved = False
         self._peak_flops: Optional[float] = None
         self._peak_bw: Optional[float] = None
@@ -350,6 +353,14 @@ class RooflineLedger:
             rec["tokens"] += tokens + deferred[2]
             self.captures += 1
             self.capture_s += seconds
+
+    def note_transfer(self, family: str, nbytes: float) -> None:
+        """Book transfer bytes no capture counts (the KV handoff's staged
+        spans, engine/handoff.py)."""
+        if nbytes <= 0:
+            return
+        with self._lock:
+            self._transfer_bytes[family] = self._transfer_bytes.get(family, 0.0) + float(nbytes)
 
     def note_modeled(self, family: str, flops_per_token: float,
                      bytes_per_token: Optional[float] = None) -> None:
@@ -404,6 +415,7 @@ class RooflineLedger:
         peak_f, peak_b, n_dev = self._peaks()
         with self._lock:
             programs = {k: dict(v) for k, v in self._programs.items()}
+            transfer = dict(self._transfer_bytes)
             modeled_fpt = dict(self._modeled_fpt)
             modeled_bpt = dict(self._modeled_bpt)
         fams: dict = {}
@@ -418,6 +430,12 @@ class RooflineLedger:
             f["bytes"] += rec["raw_bytes"] * rec["steps"]
             f["out_bytes"] += rec["raw_out_bytes"] * rec["steps"]
             f["sources"].add(rec["source"])
+        for family, nbytes in transfer.items():
+            f = fams.setdefault(family, {"programs": 0, "dispatches": 0, "tokens": 0,
+                                         "flops": 0.0, "bytes": 0.0, "out_bytes": 0.0,
+                                         "sources": set()})
+            f["bytes"] += nbytes
+            f["sources"].add("transfer")
         out_families: dict = {}
         covered_wall = 0.0
         for family, f in fams.items():

@@ -103,6 +103,29 @@ Live stream migration (serve/elastic.py, the JAX provider's): each request's
 seals that entry and returns its resume payload, and a request's ``resume``
 payload replays through the batcher (see :meth:`GPUProvider._generate`).
 
+Disaggregated prefill → decode (engine/handoff.py, the JAX provider's
+``disagg``): with ``disagg`` (and a batched provider whose engines run the
+KV pool, the handoff channel) each preset's batched requests hand their
+prompt to a :class:`~llm_consensus_tpu_torch.engine.handoff.KVHandoff`
+first: its prefill worker prefills the prompt and publishes its
+whole-block KV into the decode engine's pool, and the batcher's admission
+then gathers it and prefills only the tail. Both roles share the
+provider's one device (the one-device case of ``parallel/mesh.py``
+``split_roles``) and the worker runs on its own CUDA stream; a prompt under
+one prefill chunk takes the classic path (``KVHandoff.min_tokens``). The
+prefill share of a multi-device slice (JAX's ``disagg_fraction`` and
+``replan_disagg``) waits for a provider with more than one device. The
+prefill engine shares the decode engine's weight
+tree (no second copy) with its own wave cache, no KV pool and no prefix
+snapshot. ``disagg_depth``, ``disagg_wave`` and ``disagg_wait_s`` bound the
+handoff queue, a wave and a submitter's wait; ``disagg_overlap`` polls the
+wait so a cancelled request abandons it. Any handoff failure (a full
+queue, a stall past the wait, a crashed wave) takes the classic path,
+which runs the same kernels. ``disagg_stats()`` is the /statsz ``disagg``
+block, ``pressure_stats`` folds the handoff queue
+into ``queued`` (``handoff_queued``), and ``utilization_stats`` adds a
+``<preset>:prefill`` gauge per role.
+
 Telemetry (obs/), bound at construction: an ``engine_stream`` span per
 request (recorder and flight recorder, with the request's ``trace``), the
 per-token latency into the live plane labeled by the request's priority
@@ -119,6 +142,8 @@ import threading
 import time
 from concurrent.futures import CancelledError
 from typing import Optional
+
+import torch
 
 from llm_consensus_tpu_torch import faults, obs
 from llm_consensus_tpu_torch.engine.engine import PREFIX_CACHE_MAX_MB
@@ -154,6 +179,12 @@ def _parse_draft_spec(spec: str) -> dict:
         else:
             out["*"] = part
     return out
+
+
+def _cast_tree(tree: dict, dtype) -> dict:
+    """Every floating leaf of a dense parameter tree in ``dtype``."""
+    return {k: _cast_tree(v, dtype) if isinstance(v, dict)
+            else (v.to(dtype) if v.is_floating_point() else v) for k, v in tree.items()}
 
 
 def parse_model_name(model: str) -> str:
@@ -202,7 +233,9 @@ class GPUProvider(Provider):
                  stream_interval: int = 16, ignore_eos: bool = False, draft: str = "",
                  spec_k: int = 4, spec_ngram: int = 3, spec_adapt: bool = True,
                  spec_governor: bool = True, spec_probe: int = 64, swap_wait_s: float = 30.0,
-                 prefill_chunk: int = 512, **modes):
+                 prefill_chunk: int = 512, disagg: bool = False,
+                 disagg_depth: int = 8, disagg_wave: int = 4, disagg_wait_s: float = 30.0,
+                 disagg_overlap: bool = True, **modes):
         self.modes = _resolve_modes(**modes)
         self.prefix = {"prefix_cache": bool(prefix_cache),
                        "prefix_cache_max_mb": float(prefix_cache_max_mb)}
@@ -258,6 +291,15 @@ class GPUProvider(Provider):
         self._util_lock = threading.Lock()
         self._util_prev: dict = {}
         self._util_last: dict = {}
+        # Disaggregated prefill → decode: the settings and one (decode
+        # engine, KVHandoff or None) pair a preset.
+        self.disagg = {"disagg": bool(disagg),
+                       "disagg_depth": max(1, int(disagg_depth)),
+                       "disagg_wave": max(1, int(disagg_wave)),
+                       "disagg_wait_s": float(disagg_wait_s),
+                       "disagg_overlap": bool(disagg_overlap)}
+        self._handoffs: dict[str, tuple] = {}
+        self._disagg_pool_warned = False
 
     @classmethod
     def shared(cls, device: DeviceLike = None, *, batch_streams: int = 1,
@@ -270,6 +312,8 @@ class GPUProvider(Provider):
                engine_restarts: int = DEFAULT_MAX_RESTARTS, draft: str = "", spec_k: int = 4,
                spec_ngram: int = 3, spec_adapt: bool = True, spec_governor: bool = True,
                spec_probe: int = 64, max_seq: Optional[int] = None, prefill_chunk: int = 512,
+               disagg: bool = False, disagg_depth: int = 8,
+               disagg_wave: int = 4, disagg_wait_s: float = 30.0, disagg_overlap: bool = True,
                **modes) -> "GPUProvider":
         """One provider per device, quantization modes, batching settings,
         checkpoint directory, prefix and KV pool settings and recovery
@@ -281,7 +325,8 @@ class GPUProvider(Provider):
         mirror to. The speculation settings join the key too (the CLI's
         ``--draft`` then reconfigures the shared provider with
         ``set_draft``), and so do the engines' context cap ``max_seq`` and
-        chunked-prefill length (``LLMC_MAX_SEQ``, ``LLMC_PREFILL_CHUNK``)."""
+        chunked-prefill length (``LLMC_MAX_SEQ``, ``LLMC_PREFILL_CHUNK``) and
+        the disaggregation settings (``LLMC_DISAGG*``)."""
         dev = resolve_device(device)
         modes = _resolve_modes(**modes)
         batching = {"batch_streams": batch_streams, "pool_prefix": bool(pool_prefix),
@@ -299,16 +344,18 @@ class GPUProvider(Provider):
                 "spec_adapt": bool(spec_adapt), "spec_governor": bool(spec_governor),
                 "spec_probe": int(spec_probe)}
         engine = {"max_seq": max_seq or None, "prefill_chunk": max(0, int(prefill_chunk))}
+        disagg = {"disagg": bool(disagg), "disagg_depth": int(disagg_depth), "disagg_wave": int(disagg_wave),
+                  "disagg_wait_s": float(disagg_wait_s), "disagg_overlap": bool(disagg_overlap)}
         key = (dev, tuple(sorted(modes.items())), tuple(sorted(batching.items())),
                checkpoint_dir, tuple(sorted(prefix.items())), journal,
                tuple(sorted(recovery.items())), tuple(sorted(spec.items())),
-               tuple(sorted(engine.items())))
+               tuple(sorted(engine.items())), tuple(sorted(disagg.items())))
         with cls._shared_lock:
             if key not in cls._shared:
                 jr = StreamJournal(path=None if journal == "1" else journal) if journal else None
                 cls._shared[key] = cls(device=dev, checkpoint_dir=checkpoint_dir, journal=jr,
                                        **batching, **prefix, **recovery, **spec, **engine,
-                                       **modes)
+                                       **disagg, **modes)
             return cls._shared[key]
 
     def prepare(self, models: list[str], judge: Optional[str]) -> None:
@@ -360,13 +407,26 @@ class GPUProvider(Provider):
     def pressure_stats(self) -> dict:
         """Each pool's headroom (``ContinuousBatcher.pressure_snapshot``:
         live, cap, queued, preemptions), keyed by preset: the governor's
-        batcher signal and the /statsz ``pressure`` block's pools."""
+        batcher signal and the /statsz ``pressure`` block's pools. Under
+        disaggregation a non-empty handoff queue folds into ``queued``
+        (``handoff_queued``): prefill work already committed backpressures
+        admission like batcher queueing."""
+        with self._lock:
+            handoffs = dict(self._handoffs)
         out: dict = {}
         for preset, batcher in self._batcher_entries():
             try:
-                out[preset] = batcher.pressure_snapshot()
+                snap = batcher.pressure_snapshot()
             except Exception:  # noqa: BLE001 — stats must not throw
                 continue
+            ent = handoffs.get(preset)
+            if ent is not None and ent[1] is not None:
+                hq = ent[1].queued()
+                if hq:
+                    snap = dict(snap)
+                    snap["handoff_queued"] = hq
+                    snap["queued"] = snap.get("queued", 0) + hq
+            out[preset] = snap
         return out
 
     def utilization_stats(self) -> dict:
@@ -416,6 +476,42 @@ class GPUProvider(Provider):
                 out[preset] = entry
             except Exception:  # noqa: BLE001 — stats must not throw
                 continue
+        # Per-role gauges: the prefill role's token rate and MFU from
+        # window deltas of its handoff's prefill accounting, keyed
+        # ``<preset>:prefill`` (prefill FLOPs a token ~ decode's 2 x params).
+        with self._lock:
+            handoffs = dict(self._handoffs)
+        for preset, (_eng, handoff) in handoffs.items():
+            if handoff is None:
+                continue
+            try:
+                snap = handoff.snapshot()
+                key = f"{preset}:prefill"
+                with self._util_lock:
+                    prev = self._util_prev.get(key)
+                    if prev is not None and now - prev[0] < self._UTIL_MIN_WINDOW_S:
+                        last = dict(self._util_last.get(key, {}))
+                        last["queued"] = snap["queued"]
+                        out[key] = last
+                        continue
+                    self._util_prev[key] = (now, snap)
+                entry = {"role": "prefill", "queued": snap["queued"]}
+                if prev is not None:
+                    d_tok = snap["prefill_tokens"] - prev[1]["prefill_tokens"]
+                    d_s = snap["prefill_s"] - prev[1]["prefill_s"]
+                    if d_tok > 0 and d_s > 0:
+                        tps = d_tok / d_s
+                        entry["tokens_per_sec"] = round(tps, 2)
+                        mfu = decode_mfu(handoff._pe.cfg, tps, name)
+                        if mfu is not None:
+                            entry["mfu"] = round(mfu, 4)
+                    else:
+                        entry["tokens_per_sec"] = 0.0
+                with self._util_lock:
+                    self._util_last[key] = entry
+                out[key] = entry
+            except Exception:  # noqa: BLE001 — stats must not throw
+                continue
         return out
 
     def request_preempt(self, max_victims: int = 1) -> None:
@@ -446,26 +542,32 @@ class GPUProvider(Provider):
         safetensors (``engine/checkpoint.py``, into the engine's
         quantization mode). ``version=None`` is one past the resident
         version. With the integrity plane on, a ``meta["params_digest"]``
-        is checked against ``integrity.digest_tree`` of the loaded tree
-        first (``bit_flip@surface=ckpt`` corrupts the computed digest); a
-        mismatch installs nothing. Returns the engine's swap stats with
+        is checked against ``integrity.digest_tree`` of the tree as the
+        checkpoint stores it first (``bit_flip@surface=ckpt`` corrupts the
+        computed digest), then cast to the engine's dtype; a mismatch
+        installs nothing. Returns the engine's swap stats with
         ``accepted`` (and ``rejected`` on a digest refusal)."""
         from llm_consensus_tpu_torch import integrity
 
         eng = self._engine_for(model)
         params = params_or_path
         m = dict(meta or {})
+        plane = integrity.plane()
+        want = m.get("params_digest")
+        verify = plane is not None and isinstance(want, str)
         if isinstance(params_or_path, str):
             from llm_consensus_tpu_torch.engine.checkpoint import try_load_params
 
+            # A digest covers the tree as written: read it back as stored
+            # (dtype, no quantization) to check it; the engine's dtype and
+            # mode are applied after.
             params = try_load_params(eng.cfg, params_or_path, device=eng.device,
-                                     dtype=eng.dtype, quant=eng.quant)
+                                     dtype=None if verify else eng.dtype,
+                                     quant=None if verify else eng.quant)
             if params is None:
                 raise FileNotFoundError(f"no safetensors checkpoint at {params_or_path!r}")
             m.setdefault("checkpoint", params_or_path)
-        plane = integrity.plane()
-        want = m.get("params_digest")
-        if plane is not None and isinstance(want, str):
+        if verify:
             plane.check("ckpt")
             got = integrity.digest_tree(params)
             fplan = faults.plan()
@@ -480,6 +582,8 @@ class GPUProvider(Provider):
                 out["accepted"] = False
                 out["rejected"] = "params_digest_mismatch"
                 return out
+        if isinstance(params_or_path, str) and verify:
+            params = _cast_tree(params, eng.dtype)
         if version is None:
             version = eng.weight_version + 1
         ok = eng.swap_weights(int(version), params, wait=wait, meta=m)
@@ -610,9 +714,25 @@ class GPUProvider(Provider):
         return {"prompt_ids": list(entry.prompt_ids), "sampling": _sampling_dict(entry.sampling),
                 "tokens": list(tokens)}
 
+    def disagg_stats(self) -> dict:
+        """Each live handoff's state, keyed by preset (``KVHandoff.snapshot``:
+        the /statsz ``disagg`` block). Empty when disaggregation is off or no
+        handoff is live."""
+        with self._lock:
+            handoffs = dict(self._handoffs)
+        out: dict = {}
+        for preset, (_eng, handoff) in handoffs.items():
+            if handoff is None:
+                continue
+            try:
+                out[preset] = handoff.snapshot()
+            except Exception:  # noqa: BLE001 — stats must not throw
+                continue
+        return out
+
     def release(self) -> None:
-        """Close every batcher and drop every engine with its prefix
-        snapshot and open prefill sessions (weights and caches become
+        """Close every batcher and handoff and drop every engine with its
+        prefix snapshot and open prefill sessions (weights and caches become
         collectible, even where a caller still holds an engine or a
         session)."""
         with self._lock:
@@ -620,9 +740,13 @@ class GPUProvider(Provider):
             engines = list(self._engines.values())
             engines += [spec.draft for _, spec in self._specs.values()
                         if spec is not None and spec.draft is not None]
+            handoffs = [h for _, h in self._handoffs.values() if h is not None]
             self._batchers.clear()
             self._engines.clear()
             self._specs.clear()
+            self._handoffs.clear()
+        for h in handoffs:
+            h.close()
         for b in batchers:
             b.close()
         for engine in engines:
@@ -630,13 +754,18 @@ class GPUProvider(Provider):
             engine.close_sessions()
 
     def _evict(self, preset: str, engine) -> None:
-        """Drop ``preset``'s engine and batcher when they are still
+        """Drop ``preset``'s engine, batcher and handoff when they are still
         ``engine``'s (a concurrent retry may have published a healthy
-        replacement already), closing the batcher."""
+        replacement already), closing the batcher and the handoff."""
         with self._lock:
             if self._engines.get(preset) is engine:
                 del self._engines[preset]
             self._specs.pop(preset, None)
+            hstale = self._handoffs.get(preset)
+            if hstale is not None and hstale[0] is engine:
+                del self._handoffs[preset]
+                if hstale[1] is not None:
+                    hstale[1].close()  # flips a flag, fails queued tickets
             batcher = self._batchers.get(preset)
             if batcher is not None and batcher.engine is engine:
                 del self._batchers[preset]
@@ -758,6 +887,74 @@ class GPUProvider(Provider):
             self._specs[preset] = (engine, spec)
         return spec
 
+    def _handoff_for(self, preset: str, engine):
+        """The live :class:`KVHandoff` feeding ``engine``'s pool, built on
+        first use, or None when disaggregation is off or cannot attach: the
+        decode engine runs without the KV pool (warned once), or the build
+        failed (warned; the classic path serves this engine generation). A
+        handoff belongs to one engine: a rebuilt engine gets a fresh one."""
+        if not self.disagg["disagg"]:
+            return None
+        with self._lock:
+            ent = self._handoffs.get(preset)
+            if ent is not None and ent[0] is engine:
+                return ent[1]
+        if getattr(engine, "_kv_pool", None) is None:
+            if not self._disagg_pool_warned:
+                self._disagg_pool_warned = True
+                import warnings
+
+                warnings.warn("disaggregation requested but the decode engine has no paged KV "
+                              "pool (kv_pool=True, LLMC_KV_POOL=1): running the classic "
+                              "interleaved-admission path", RuntimeWarning, stacklevel=2)
+            with self._lock:
+                self._handoffs.setdefault(preset, (engine, None))
+            return None
+        with self._lock:
+            build_lock = self._build_locks.setdefault(("handoff", preset), threading.Lock())
+        with build_lock:
+            with self._lock:
+                ent = self._handoffs.get(preset)
+                if ent is not None and ent[0] is engine:
+                    return ent[1]
+            stale = ent[1] if ent is not None else None
+            try:
+                from llm_consensus_tpu_torch.engine.handoff import KVHandoff
+
+                handoff = KVHandoff(self._build_prefill_engine(preset, engine), engine,
+                                    depth=self.disagg["disagg_depth"],
+                                    wave_rows=self.disagg["disagg_wave"],
+                                    wait_s=self.disagg["disagg_wait_s"], name=preset)
+            except (KernelBuildError, KernelLaunchError):
+                raise
+            except Exception as exc:  # noqa: BLE001 — the classic path serves
+                import warnings
+
+                warnings.warn(f"disaggregated prefill disabled for {preset}: {exc}",
+                              RuntimeWarning, stacklevel=2)
+                handoff = None
+            with self._lock:
+                self._handoffs[preset] = (engine, handoff)
+            if stale is not None:
+                stale.close()
+            return handoff
+
+    def _build_prefill_engine(self, preset: str, engine):
+        """The prefill role's engine on the decode engine's device and over
+        its weight tree (no copy), with its own wave cache, no KV pool and no
+        prefix snapshot. It holds no tree between waves: each wave runs on
+        the decode engine's pinned tree."""
+        if self._faults is not None:
+            self._faults.check("build", preset=preset)
+        from llm_consensus_tpu_torch.engine import Engine
+
+        pe = Engine(engine.cfg, engine.params, dtype=engine.dtype, device=engine.device,
+                    max_seq=engine.max_seq, tokenizer=engine.tokenizer,
+                    stream_interval=self.stream_interval, prefill_chunk=engine.prefill_chunk,
+                    prefix_cache=False, kv_pool=False, **self.modes)
+        pe.params = pe._layers = None
+        return pe
+
     def _recover_batcher(self, preset: str, failed_batcher):
         """Tear down a dead pool and rebuild engine and batcher: the
         supervisor's restart path, serialized per preset, so a pool's worth
@@ -786,6 +983,11 @@ class GPUProvider(Provider):
                     del self._batchers[preset]
                 if self._engines.get(preset) is failed_batcher.engine:
                     del self._engines[preset]
+                hstale = self._handoffs.get(preset)
+                if hstale is not None and hstale[0] is failed_batcher.engine:
+                    del self._handoffs[preset]
+                    if hstale[1] is not None:
+                        hstale[1].close()
             failed_batcher.abandon(RuntimeError(
                 f"engine pool for {preset!r} torn down for recovery"))
             current = failed_batcher = None
@@ -850,26 +1052,59 @@ class GPUProvider(Provider):
                 raise
             except (CancelledError, Exception):  # noqa: BLE001 — re-decode instead
                 return engine.generate(prompt, sampling, ctx, on_text=cb)
+        handoff_trunc = False
+        hand_ids, hand_tr = None, False
+        if self.disagg["disagg"]:
+            # Disaggregated admission: the prefill role establishes the
+            # prompt's KV in the decode pool BEFORE the submit, so the
+            # batcher's admission gathers it and prefills the tail. Every
+            # failure (no handoff, a full queue, a stall past the wait, a
+            # crashed wave) takes the classic path below. The prompt is
+            # encoded and budgeted once, here, for both.
+            handoff = self._handoff_for(preset, engine)
+            if handoff is not None:
+                try:
+                    hand_ids, hand_tr = engine._budget_prompt(
+                        engine.tokenizer.encode(prompt), sampling.max_new_tokens)
+                    wait = handoff.run_overlapped if self.disagg["disagg_overlap"] else handoff.run
+                    _off, handoff_trunc = wait(hand_ids, priority=priority, ctx=ctx)
+                except (Cancelled, DeadlineExceeded):
+                    raise
+                except Exception:  # noqa: BLE001 — the classic path
+                    hand_ids = None
+
+        def with_handoff_kv(result):
+            # A publish the pool truncated on the handoff path degrades this
+            # request's reuse as a local retain's would.
+            if handoff_trunc:
+                result.kv_truncated = True
+            return result
+
         if self._recovery is not None:
             # Supervised: journaled submit; a pool that dies mid-decode
             # becomes a rebuild and a replay instead of a failed request.
             # The supervisor owns the fallbacks the path below has inline.
-            return self._recovery.run_stream(preset, batcher, prompt, sampling, ctx, cb,
-                                             priority=priority, trace_id=trace_id)
+            return with_handoff_kv(self._recovery.run_stream(
+                preset, batcher, prompt, sampling, ctx, cb, priority=priority,
+                trace_id=trace_id))
         try:
-            fut = batcher.submit(prompt, sampling, ctx, on_text=cb, priority=priority,
-                                 trace_id=trace_id)
+            if hand_ids is not None:
+                fut = batcher.submit_ids(hand_ids, sampling, ctx=ctx, on_text=cb,
+                                         truncated=hand_tr, priority=priority, trace_id=trace_id)
+            else:
+                fut = batcher.submit(prompt, sampling, ctx, on_text=cb, priority=priority,
+                                     trace_id=trace_id)
         except (KernelBuildError, KernelLaunchError):
             raise
         except (RuntimeError, ValueError):
             # A closed batcher (a shutdown or eviction race): direct path.
-            return engine.generate(prompt, sampling, ctx, on_text=cb)
+            return with_handoff_kv(engine.generate(prompt, sampling, ctx, on_text=cb))
         try:
-            return fut.result()
+            return with_handoff_kv(fut.result())
         except CancelledError:
             # A concurrent close cancelled the queued submission: a benign
             # race, not an engine failure.
-            return engine.generate(prompt, sampling, ctx, on_text=cb)
+            return with_handoff_kv(engine.generate(prompt, sampling, ctx, on_text=cb))
 
     def query(self, ctx: Context, req: Request) -> Response:
         return self.query_stream(ctx, req, None)

@@ -529,7 +529,7 @@ class ConsensusGateway:
         flags = {
             "kv_pool": bool(self._features.get("kv_pool")),
             "spec": bool(self._features.get("spec")),
-            "disagg": False,
+            "disagg": bool(self._features.get("disagg")),
         }
         host, port = self.address
         return self._elastic_mod.MigrationRecord(
@@ -781,16 +781,18 @@ class ConsensusGateway:
         """POST /v1/swap: hot-swap a model onto a checkpoint without
         dropping streams.
 
-        Body: ``{"model", "checkpoint": path, "version"}`` names the
-        checkpoint: for the gpu provider a directory of HF safetensors
-        (engine/checkpoint.py). ``wait`` blocks the response until the
-        flip (bounded by LLMC_SWAP_WAIT_S). ``{"action": "rollback"}``
-        restores the previous resident buffer under a new monotone
-        version. Returns the provider's swap stats; 409 when the swap was
-        rejected (stale version, a params-digest mismatch) or there is
-        nothing to roll back to. The JAX body's ``out_dir`` form (the
-        newest distilled checkpoint of a flywheel output root) answers
-        501: the port has no flywheel yet."""
+        Body: ``{"model", "out_dir": distill output root}`` resolves the
+        newest complete version through
+        ``flywheel.distill.latest_checkpoint`` (its ``version.json`` gives
+        the version and the meta, ``params_digest`` included; 404 when
+        there is none), or ``{"model", "checkpoint": path, "version"}``
+        names the checkpoint: for the gpu provider a directory of HF
+        safetensors (engine/checkpoint.py). ``wait`` blocks the response
+        until the flip (bounded by LLMC_SWAP_WAIT_S).
+        ``{"action": "rollback"}`` restores the previous resident buffer
+        under a new monotone version. Returns the provider's swap stats;
+        409 when the swap was rejected (stale version, a params-digest
+        mismatch) or there is nothing to roll back to."""
         model = doc.get("model")
         if not isinstance(model, str) or model not in self.registry:
             return 400, {
@@ -821,16 +823,21 @@ class ConsensusGateway:
         version = doc.get("version")
         meta: dict = {}
         if path is None:
-            if isinstance(doc.get("out_dir"), str):
-                return 501, {
-                    "error": "swap 'out_dir' (a distill output root) needs the "
-                    "flywheel, which this port does not have yet; name the "
-                    "checkpoint directory with 'checkpoint'"
+            out_dir = doc.get("out_dir")
+            if not isinstance(out_dir, str):
+                return 400, {
+                    "error": "swap needs 'checkpoint' (params path) or "
+                    "'out_dir' (distill output root)"
                 }
-            return 400, {
-                "error": "swap needs 'checkpoint' (params path) or "
-                "'out_dir' (distill output root)"
-            }
+            from llm_consensus_tpu_torch.flywheel.distill import latest_checkpoint
+
+            latest = latest_checkpoint(out_dir)
+            if latest is None:
+                return 404, {"error": f"no checkpoint under {out_dir!r}"}
+            path = latest["params_path"]
+            if version is None:
+                version = latest.get("version")
+            meta = {k: v for k, v in latest.items() if k != "params_path"}
         if not isinstance(path, str):
             return 400, {"error": "'checkpoint' must be a path"}
         if version is not None and (
@@ -951,6 +958,15 @@ class ConsensusGateway:
             queued = adm["waiting"] / adm["max_queue"]
         else:
             queued = 1.0 if adm["waiting"] else 0.0
+        # Disaggregation backpressure: a saturated handoff queue is
+        # admission latency already committed upstream of the batcher, so
+        # it folds into the queued component.
+        try:
+            for block in self.disagg_stats().values():
+                frac = block.get("queued", 0) / max(1, block.get("depth", 1))
+                queued = max(queued, min(1.0, frac))
+        except Exception:  # noqa: BLE001 — load_score must not throw
+            pass
         heartbeat = 0.0
         recovery = self.recovery_stats()
         if recovery is not None:
@@ -1086,6 +1102,14 @@ class ConsensusGateway:
 
         reg.register("utilization", utilization_block)
 
+        def disagg_block() -> Optional[dict]:
+            # Disaggregated prefill → decode (engine/handoff.py): per preset
+            # the handoff queue and its bound, waves, bytes/s, fallbacks.
+            # Falsy (omitted) unless a handoff is live.
+            return self.disagg_stats() or None
+
+        reg.register("disagg", disagg_block)
+
         def elastic_block() -> dict:
             # Membership state (serve/elastic.py): lifecycle, resident
             # leader runs, and the migration counters both directions —
@@ -1164,6 +1188,8 @@ class ConsensusGateway:
         features = []
         if self._features.get("kv_pool"):
             features.append("kv_pool")
+        if self._features.get("disagg"):
+            features.append("disagg")
         if self._features.get("spec"):
             features.append("spec")
         if self.governor is not None:
@@ -1284,6 +1310,15 @@ class ConsensusGateway:
         from llm_consensus_tpu_torch.obs.export import collect_kv_stats
 
         return collect_kv_stats(self.registry)
+
+    def disagg_stats(self) -> dict:
+        """Disaggregated prefill → decode handoff state over the distinct
+        providers behind the registry (per preset: queue depth and bound,
+        waves, handoff bytes/s, fallbacks). Empty when disaggregation is
+        off."""
+        from llm_consensus_tpu_torch.obs.export import collect_disagg_stats
+
+        return collect_disagg_stats(self.registry)
 
     def recovery_stats(self) -> Optional[dict]:
         """Engine liveness + recovery state aggregated over the distinct

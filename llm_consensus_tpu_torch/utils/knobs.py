@@ -75,7 +75,7 @@ knobs that the JAX package declares, with the same meaning:
     ``LLMC_ELASTIC_WARM_S`` (0: serve at once), ``LLMC_INTEGRITY_QUARANTINE_AFTER``
     (3) and ``LLMC_INTEGRITY_PROBE_N`` (3), ``LLMC_SWAP_WAIT_S`` (30 s),
     ``LLMC_FLEET_ANNOUNCE`` (the router a gateway announces itself to, empty:
-    none), ``LLMC_DISAGG`` (refused: no disaggregation in the port), the governor's
+    none), the governor's
     ``LLMC_PRESSURE`` (on), ``LLMC_PRESSURE_POLL_S`` (0.5 s),
     ``LLMC_PRESSURE_HIGH_WATER`` (0.75), ``LLMC_PRESSURE_LOW_WATER`` (0.35),
     ``LLMC_PRESSURE_UP_PATIENCE`` (2), ``LLMC_PRESSURE_DOWN_PATIENCE`` (4),
@@ -103,7 +103,20 @@ knobs that the JAX package declares, with the same meaning:
     ``LLMC_ELASTIC_LOW_WATER`` (0.2), ``LLMC_ELASTIC_UP_PATIENCE`` (3),
     ``LLMC_ELASTIC_DOWN_PATIENCE`` (6), ``LLMC_ELASTIC_MIN_REPLICAS`` (1),
     ``LLMC_ELASTIC_MAX_REPLICAS`` (8) and ``LLMC_ELASTIC_MIGRATE_TIMEOUT_S``
-    (10 s).
+    (10 s);
+  * disaggregated prefill → decode (:func:`disagg_settings`,
+    ``GPUProvider``'s arguments): ``LLMC_DISAGG`` (off),
+    ``LLMC_DISAGG_DEPTH`` (8, the handoff queue's bound),
+    ``LLMC_DISAGG_WAVE`` (4 prompts a prefill wave), ``LLMC_DISAGG_WAIT_S``
+    (30 s, a submitter's bounded wait) and ``LLMC_DISAGG_OVERLAP`` (on: the
+    polled wait);
+  * the data flywheel (:func:`data_dir` and :func:`flywheel_settings`, read
+    by ``cli/distill.py`` and passed as arguments): ``LLMC_DATA_DIR`` (``data``, the run tree the corpus
+    scans), ``LLMC_DISTILL_LR`` (1e-4), ``LLMC_DISTILL_STEPS`` (20),
+    ``LLMC_DISTILL_BATCH`` (2), ``LLMC_DISTILL_SEQ`` (128),
+    ``LLMC_DISTILL_TEMP`` (2.0), ``LLMC_DISTILL_ALPHA`` (0.5),
+    ``LLMC_DISTILL_HOLDOUT`` (0.2) and ``LLMC_DISTILL_CKPT_EVERY`` (0: one
+    checkpoint at the end).
 """
 
 from __future__ import annotations
@@ -290,11 +303,12 @@ def integrity_sample() -> float:
     return get_float("LLMC_INTEGRITY_SAMPLE", 0.05)
 
 
-def kv_pool_settings() -> dict:
+def kv_pool_settings(default_on: bool = False) -> dict:
     """The KV pool settings of the environment, as the keyword arguments of
-    ``GPUProvider`` and ``Engine``."""
+    ``GPUProvider`` and ``Engine``; ``default_on`` is the pool's switch when
+    ``LLMC_KV_POOL`` is unset (``serve --disagg`` implies the pool)."""
     return {
-        "kv_pool": get_bool("LLMC_KV_POOL"),
+        "kv_pool": get_bool("LLMC_KV_POOL", default_on),
         "kv_pool_block": get_int("LLMC_KV_POOL_BLOCK", 64),
         "kv_pool_mb": get_float("LLMC_KV_POOL_MB", 256.0),
     }
@@ -318,8 +332,8 @@ def serve_settings() -> dict:
     """The ``serve`` subcommand's settings of the environment (the JAX
     defaults): the gateway's warm-up and quarantine, the engines' swap wait,
     the batcher depth's fallback (0: the subcommand's default), the router
-    to announce to (``announce``, empty: none) and the switch the port
-    refuses (``disagg``)."""
+    to announce to (``announce``, empty: none) and the fallback of
+    ``--disagg`` (``disagg``)."""
     return {
         "elastic_warm_s": get_float("LLMC_ELASTIC_WARM_S", 0.0),
         "quarantine_after": get_int("LLMC_INTEGRITY_QUARANTINE_AFTER", 3),
@@ -409,4 +423,37 @@ def elastic_settings() -> dict:
         "min_replicas": get_int("LLMC_ELASTIC_MIN_REPLICAS", 1),
         "max_replicas": get_int("LLMC_ELASTIC_MAX_REPLICAS", 8),
         "migrate_timeout_s": get_float("LLMC_ELASTIC_MIGRATE_TIMEOUT_S", 10.0),
+    }
+
+
+def disagg_settings() -> dict:
+    """Disaggregated prefill → decode of the environment, as the keyword
+    arguments of ``GPUProvider`` (the JAX defaults)."""
+    return {
+        "disagg": get_bool("LLMC_DISAGG"),
+        "disagg_depth": max(1, get_int("LLMC_DISAGG_DEPTH", 8)),
+        "disagg_wave": max(1, get_int("LLMC_DISAGG_WAVE", 4)),
+        "disagg_wait_s": get_float("LLMC_DISAGG_WAIT_S", 30.0),
+        "disagg_overlap": get_bool("LLMC_DISAGG_OVERLAP", True),
+    }
+
+
+def data_dir() -> str:
+    """``LLMC_DATA_DIR``: the run tree the flywheel's corpus scans."""
+    return get_str("LLMC_DATA_DIR", "data")
+
+
+def flywheel_settings() -> dict:
+    """The distillation settings of the environment, as the keyword
+    arguments of ``flywheel.distill.run_distill`` (the JAX defaults) plus
+    the corpus's ``holdout`` share."""
+    return {
+        "lr": get_float("LLMC_DISTILL_LR", 1e-4),
+        "steps": get_int("LLMC_DISTILL_STEPS", 20),
+        "batch": get_int("LLMC_DISTILL_BATCH", 2),
+        "seq": get_int("LLMC_DISTILL_SEQ", 128),
+        "temperature": get_float("LLMC_DISTILL_TEMP", 2.0),
+        "alpha": get_float("LLMC_DISTILL_ALPHA", 0.5),
+        "holdout": get_float("LLMC_DISTILL_HOLDOUT", 0.2),
+        "ckpt_every": get_int("LLMC_DISTILL_CKPT_EVERY", 0),
     }

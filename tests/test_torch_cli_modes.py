@@ -23,6 +23,7 @@ import threading
 import time
 
 import pytest
+import torch
 
 from llm_consensus_tpu.cli.main import main as jax_main
 from llm_consensus_tpu.consensus import judge as jax_judge
@@ -667,6 +668,16 @@ class Counting:
 
 MODE_FLAGS = {"rounds 2 confidence": ["--rounds", "2", "--confidence"],
               "vote": ["--vote", "--options", "A,B,C"]}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Tiny models, many small ops: one intra-op thread avoids oversubscribing
+    the CPU when test files run in parallel workers (restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

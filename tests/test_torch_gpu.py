@@ -1171,3 +1171,56 @@ def test_router_fails_a_stream_over_between_two_gateways_on_the_card(cuda, tmp_p
     assert events[-1][1]["failovers"] == 1 and events[-1][1]["replica"] == urls[1]
     assert got == want
     assert fa.LAUNCHES.count > flash0 and da.LAUNCHES.count > dec0
+
+
+def test_handoff_on_its_own_stream_publishes_the_prefill_bytes(cuda):
+    """consensus-1b at its published width, both roles on the card: the
+    prefill worker's wave of two one-chunk rows (512 tokens, the shortest a
+    shared-device handoff takes) runs on its own CUDA stream (flash at
+    B = 2) and
+    its publish is ordered after it, so the decode side gathers exactly
+    the bytes a prefill of the same rows gives on the default stream; the
+    flash launches are the worker thread's (one a layer a wave; the two
+    rows may land in one wave or two)."""
+    import threading as th
+
+    from llm_consensus_tpu_torch.engine.handoff import KVHandoff
+    from llm_consensus_tpu_torch.ops.quant import kv_seq_axis
+
+    cfg = get_config("consensus-1b")
+    de = Engine(cfg, max_seq=1024, device=cuda, prefill_chunk=512, kv_pool=True,
+                kv_pool_block=64, kv_pool_mb=256.0)
+    pe = Engine(cfg, de.params, max_seq=1024, device=cuda, prefill_chunk=512,
+                prefix_cache=False)
+    rows = [[de.tokenizer.bos_id] + [(7 * i + j) % 90 + 32 for i in range(511)]
+            for j in range(2)]
+    # The references, as one wave of both rows and as one wave a row (the
+    # worker may pop the first ticket before the second arrives).
+    refs = {2: [pe.admission_session(rows).run()[1]] * 2,
+            1: [pe.admission_session([r]).run()[1] for r in rows]}
+    threads: list = []
+    real_add = fa.LAUNCHES.add
+
+    def add():
+        threads.append(th.current_thread().name)
+        real_add()
+
+    fa.LAUNCHES.add = add
+    h = KVHandoff(pe, de, wave_rows=2, name="card")
+    try:
+        tickets = [h.submit(r, 1) for r in rows]
+        assert all(t is not None and t.wait(120) and t.ok for t in tickets), h.snapshot()
+    finally:
+        h.close()
+        del fa.LAUNCHES.add
+    assert threads and all(name.startswith("llmc-handoff-") for name in threads)
+    assert len(threads) == cfg.n_layers * h.waves  # one flash a layer a wave
+    for j, r in enumerate(rows):
+        n, gathered = de._kv_pool.lookup(r + [40], min_tokens=1)
+        span = (len(r) // 64) * 64
+        assert n == span
+        ref, row = refs[3 - h.waves][j], j if h.waves == 1 else 0
+        for name in ("k", "v"):
+            want = ref[name].narrow(1, row, 1).narrow(kv_seq_axis(ref[name]), 0, span)
+            got = gathered[name].narrow(kv_seq_axis(gathered[name]), 0, span)
+            assert torch.equal(got, want), (j, name)

@@ -100,8 +100,46 @@ def test_the_knobs_module_reads_only_knobs_the_jax_package_declares():
             "LLMC_ELASTIC_DOWN_PATIENCE", "LLMC_ELASTIC_MIN_REPLICAS",
             "LLMC_ELASTIC_MAX_REPLICAS", "LLMC_ELASTIC_MIGRATE_TIMEOUT_S",
             "LLMC_CANARY_FRACTION"} <= named
+    # Disaggregation (4, beside LLMC_DISAGG, now honoured), the data
+    # directory (1) and distillation (8): exactly these 13 joined the 98
+    # names before them. The prefill share of a multi-device slice and the
+    # canary watcher's three knobs have no reader in the port yet.
+    assert {"LLMC_DISAGG_DEPTH", "LLMC_DISAGG_WAVE", "LLMC_DISAGG_WAIT_S",
+            "LLMC_DISAGG_OVERLAP", "LLMC_DATA_DIR",
+            "LLMC_DISTILL_LR", "LLMC_DISTILL_STEPS", "LLMC_DISTILL_BATCH", "LLMC_DISTILL_SEQ",
+            "LLMC_DISTILL_TEMP", "LLMC_DISTILL_ALPHA", "LLMC_DISTILL_HOLDOUT",
+            "LLMC_DISTILL_CKPT_EVERY"} <= named
+    assert not {"LLMC_DISAGG_FRACTION", "LLMC_CANARY_WINDOWS", "LLMC_CANARY_LATENCY_TOL",
+                "LLMC_CANARY_MIN_SAMPLES"} & named
+    assert len(named) == 98 + 13, sorted(named)
     undeclared = sorted(n for n in named if n not in jax_knobs.REGISTRY)
     assert not undeclared, undeclared
+
+
+def test_the_disagg_and_flywheel_settings_take_the_jax_defaults(monkeypatch):
+    """With the environment empty, the disaggregation and distillation
+    knobs read the JAX registry's defaults."""
+    from llm_consensus_tpu.utils import knobs as jax_knobs
+    from llm_consensus_tpu_torch.utils import knobs
+
+    names = {
+        "disagg_settings": {"disagg": "LLMC_DISAGG", "disagg_depth": "LLMC_DISAGG_DEPTH", "disagg_wave": "LLMC_DISAGG_WAVE",
+                            "disagg_wait_s": "LLMC_DISAGG_WAIT_S",
+                            "disagg_overlap": "LLMC_DISAGG_OVERLAP"},
+        "flywheel_settings": {k: "LLMC_DISTILL_" + n for k, n in (
+            ("lr", "LR"), ("steps", "STEPS"), ("batch", "BATCH"), ("seq", "SEQ"),
+            ("temperature", "TEMP"), ("alpha", "ALPHA"), ("holdout", "HOLDOUT"),
+            ("ckpt_every", "CKPT_EVERY"))},
+    }
+    for fn, keys in names.items():
+        for name in keys.values():
+            monkeypatch.delenv(name, raising=False)
+        got = getattr(knobs, fn)()
+        assert set(got) == set(keys), fn
+        for key, name in keys.items():
+            assert got[key] == jax_knobs.REGISTRY[name].default, (fn, key)
+    monkeypatch.delenv("LLMC_DATA_DIR", raising=False)
+    assert knobs.data_dir() == jax_knobs.REGISTRY["LLMC_DATA_DIR"].default
 
 
 @pytest.mark.parametrize("path", [p for p in _port_files() if p.parent != ROOT],

@@ -58,6 +58,16 @@ BLOCK = 16
 RADIXES = pytest.mark.parametrize("Radix", [JaxRadix, RadixIndex], ids=["jax", "port"])
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Tiny models, many small ops: one intra-op thread avoids oversubscribing
+    the CPU when test files run in parallel workers (restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _clean_planes(monkeypatch):
     """No fault plan, integrity plane, recorder or ledger leaks between

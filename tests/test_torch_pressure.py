@@ -42,6 +42,16 @@ from llm_consensus_tpu_torch.pressure import (
 WAIT = 300
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Tiny models, many small ops: one intra-op thread avoids oversubscribing
+    the CPU when test files run in parallel workers (restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _no_jax_prefix_reuse(monkeypatch):
     # Each JAX generate a fresh prefill (the single-stream references).

@@ -1205,16 +1205,41 @@ def test_fleet_routes_answer_on_both_gateways(tmp_path):
 
 
 def test_swap_out_dir_answers_501_until_the_flywheel(tmp_path):
-    """The swap body's ``out_dir`` form (a distill output root) needs the
-    flywheel: 501 naming it, the lifecycle untouched."""
-    gw = make_gateway(TORCH, tmp_path, fake_provider(TORCH))
-    try:
-        port = gw.address[1]
-        status, _, data = post(port, {"model": "alpha", "out_dir": "/d"}, path="/v1/swap")
-        assert status == 501 and "flywheel" in json.loads(data)["error"]
-        assert gw.lifecycle == "serving"
-    finally:
-        gw.close(drain=False)
+    """The swap body's ``out_dir`` form (a distill output root) answered 501
+    until the port had the flywheel; now it answers as the JAX gateway does:
+    404 with no checkpoint under the root, else the newest version's
+    ``params`` path, version and ``version.json`` meta go to the provider's
+    ``swap_weights`` (200 when it accepts), the lifecycle untouched."""
+    root = tmp_path / "distill"
+    (root / "v0002" / "params").mkdir(parents=True)
+    (root / "v0002" / "version.json").write_text(json.dumps(
+        {"version": 2, "corpus_hash": "abc", "step": 8}))
+
+    def scenario(P, tmp):
+        provider = fake_provider(P)
+        calls = []
+
+        def swap_weights(model, path, version, wait=False, meta=None):
+            calls.append((model, os.path.relpath(path, root), version, wait, meta))
+            return {"accepted": True, "weight_version": version}
+
+        provider.swap_weights = swap_weights
+        gw = make_gateway(P, tmp, provider)
+        try:
+            port = gw.address[1]
+            missing = post(port, {"model": "alpha", "out_dir": str(tmp / "none")},
+                           path="/v1/swap")[0]
+            status, _, data = post(port, {"model": "alpha", "out_dir": str(root)},
+                                   path="/v1/swap")
+            return missing, status, json.loads(data)["weight_version"], calls, gw.lifecycle
+        finally:
+            gw.close(drain=False)
+
+    got = both(scenario, tmp_path)
+    assert got[:3] == (404, 200, 2)
+    assert got[3] == [("alpha", "v0002/params", 2, False,
+                       {"version": 2, "corpus_hash": "abc", "step": 8})]
+    assert got[4] == "serving"
 
 
 def test_debugz_blackbox_and_profile_contracts(tmp_path):

@@ -5,9 +5,9 @@ with a shutdown event, on the same synthetic tiny-llama checkpoint
 For the same prompt the two servers give the same JSON consensus, the same
 ``result.json`` fields and the same run-directory listing. The port's
 server parks a migration record on ``/v1/migrate``, then drains with a
-request in flight (exit 0, the run flushed), and refuses ``--disagg`` (no
-handoff in the port yet). Two real-engine servers in all: JAX compiles are
-slow.
+request in flight (exit 0, the run flushed), and serves ``--disagg`` (the
+handoff's arguments reach the provider). Two real-engine servers in all:
+JAX compiles are slow.
 """
 
 from __future__ import annotations
@@ -265,19 +265,56 @@ def test_drain_with_a_request_in_flight_flushes_the_run(served):
 
 
 @pytest.mark.parametrize("flag", [["--disagg"]])
-def test_announce_and_disagg_exit_1(flag):
+def test_announce_and_disagg_exit_1(flag, monkeypatch):
+    """``--disagg`` exited 1 while the port had no handoff; now the server
+    starts with the provider's disaggregation and the KV pool (its channel)
+    on, both passed as arguments (nothing is written to the environment),
+    the gateway's ``disagg`` feature on, and drains with exit 0."""
+    from llm_consensus_tpu_torch import serve
+    from llm_consensus_tpu_torch.cli import serve as serve_cli
+
+    seen: dict = {}
+    real_build, real_provider = serve.build_gateway, serve_cli._gpu_provider
+
+    def build(*a, **k):
+        seen["features"] = k["features"]
+        return real_build(*a, **k)
+
+    def provider(cfg, dev):
+        p = real_provider(cfg, dev)
+        seen["provider"] = (p.disagg["disagg"], p.kv["kv_pool"])
+        return p
+
+    monkeypatch.setattr(serve, "build_gateway", build)
+    monkeypatch.setattr(serve_cli, "_gpu_provider", provider)
+    for knob in ("LLMC_KV_POOL", "LLMC_DISAGG"):
+        monkeypatch.delenv(knob, raising=False)
+    before = dict(os.environ)
+    stop = threading.Event()
+    stop.set()  # drain as soon as it serves
     err = io.StringIO()
-    rc = port_main(["serve", "--models", "gpu:tiny-llama", "--port", "0"] + flag,
+    rc = port_main(["serve", "--models", "gpu:tiny-llama", "--port", "0", "--quiet"] + flag,
                    device="cpu", stdout=io.StringIO(), stderr=err,
-                   install_signal_handlers=False)
-    assert rc == 1 and err.getvalue().startswith("error: --")
+                   install_signal_handlers=False, shutdown=stop)
+    assert rc == 0, err.getvalue()
+    assert seen["provider"] == (True, True) and seen["features"]["disagg"] is True
+    assert dict(os.environ) == before
 
 
 @pytest.mark.parametrize("sub", ["distill"])
-def test_other_subcommands_exit_1(sub):
-    err = io.StringIO()
-    assert port_main([sub], device="cpu", stdout=io.StringIO(), stderr=err) == 1
-    assert "not in this port" in err.getvalue()
+def test_other_subcommands_exit_1(sub, tmp_path):
+    """``distill`` exited 1 while the port had no flywheel; now an empty
+    corpus prints the JAX CLI's summary and exits 2, as the JAX CLI does."""
+    from llm_consensus_tpu.cli.main import main as jax_main
+
+    outs = []
+    for entry, kw in ((port_main, {"device": "cpu"}), (jax_main, {})):
+        out = io.StringIO()
+        rc = entry([sub, "--data-dir", str(tmp_path), "--quiet"], stdout=out,
+                   stderr=io.StringIO(), install_signal_handlers=False, **kw)
+        outs.append((rc, json.loads(out.getvalue())))
+    assert outs[0] == outs[1]
+    assert outs[0][0] == 2 and outs[0][1]["error"] == "no training examples in corpus"
 
 
 def test_concurrency_is_resolved_like_the_jax_cli():

@@ -11,6 +11,7 @@ stat, and the greedy tokens before, across and after each flip must agree.
 
 from __future__ import annotations
 
+import threading
 import time
 
 import jax
@@ -35,6 +36,16 @@ from llm_consensus_tpu_torch.providers.gpu import GPUProvider
 
 WAIT = 300
 PROMPT = "the judge weighs every panel answer before the verdict"
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Tiny models, many small ops: one intra-op thread avoids oversubscribing
+    the CPU when test files run in parallel workers (restored after)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)
@@ -191,30 +202,42 @@ def test_pinned_stream_bytes_identical_across_swap(trees):
 def test_swap_pending_holds_admission_until_the_resident_set_vacates(trees):
     """The port's gate: a stream submitted while a swap is parked waits at
     the queue head, then runs on the new weights, while the resident
-    stream finishes on the old ones."""
+    stream finishes on the old ones. The resident's first decode dispatch
+    waits on a gate until the swap is parked and the later stream queued,
+    so it is still resident with most of its tokens to go when the
+    scheduler next plans admission."""
     cfg = get_config("tiny-llama")
     te = Engine(cfg, params=trees["torch"][0], dtype=torch.float32, max_seq=512, device="cpu")
     fresh = Engine(cfg, params=trees["torch"][1], dtype=torch.float32, max_seq=512,
                    device="cpu")
-    long = SamplingParams(max_new_tokens=320, ignore_eos=True)
+    long = SamplingParams(max_new_tokens=64, ignore_eos=True)
     s = SamplingParams(max_new_tokens=16, ignore_eos=True)
     want = fresh.generate("a later question", s).token_ids
     ref = te.generate(PROMPT, long).token_ids
     b = ContinuousBatcher(te, max_batch=2)
+    gate, held = threading.Event(), threading.Event()
+
+    def gated_dispatch(*a, **k):
+        held.set()
+        gate.wait(timeout=WAIT)
+        return ContinuousBatcher._dispatch(b, *a, **k)
+
+    b._dispatch = gated_dispatch
     try:
         first = b.submit(PROMPT, long)
-        deadline = time.time() + WAIT
-        while time.time() < deadline and b.snapshot()["admitted"] == 0:
-            time.sleep(0.002)
+        assert held.wait(timeout=WAIT)  # admitted, its first decode chunk held
         time.sleep(0.3)  # past the admission pass's burst absorption
         assert te.swap_stats()["pins"] == 1 and not first.done()
         assert te.swap_weights(1, trees["torch"][1]) is True
         assert te.swap_pending()
         later = b.submit("a later question", s)
+        time.sleep(0.05)
+        gate.set()
         assert later.result(timeout=WAIT).token_ids == want
         assert first.result(timeout=WAIT).token_ids == ref
         assert te.weight_version == 1 and te.swap_stats()["pins"] == 0
     finally:
+        gate.set()
         b.close()
 
 
@@ -392,3 +415,72 @@ def test_provider_swap_from_a_checkpoint_and_its_digest_refusal(trees, tmp_path)
                                                         "swap_pending", "weight_version"}
     finally:
         prov.release()
+
+
+def test_no_admission_reads_old_weight_kv_between_a_flip_and_its_hygiene(trees):
+    """A flip drops the old weights' cached KV (prefix snapshot, KV pool)
+    after it installs the new tree. A stream the batcher admits in that
+    window would gather old-weight blocks and decode over them: the
+    admission gate holds until the hygiene is done, so the stream prefills
+    on the new weights and equals a fresh engine's tokens."""
+    cfg = get_config("tiny-llama")
+    te = Engine(cfg, params=trees["torch"][0], dtype=torch.float32, max_seq=512, device="cpu",
+                prefill_chunk=16, kv_pool=True, kv_pool_block=16)
+    fresh = Engine(cfg, params=trees["torch"][1], dtype=torch.float32, max_seq=512,
+                   device="cpu")
+    s = SamplingParams(max_new_tokens=12, ignore_eos=True)
+    prompt = f"{PREAMBLE} and its question"
+    want = fresh.generate(prompt, s).token_ids
+    b = ContinuousBatcher(te, max_batch=2)
+    entered, gate = threading.Event(), threading.Event()
+    try:
+        b.submit(prompt, s).result(timeout=WAIT)  # the old weights' blocks, published
+        assert te._kv_pool.match_len(te.tokenizer.encode(prompt)) >= 16
+        real = te._post_flip
+
+        def held_hygiene():
+            entered.set()
+            gate.wait(timeout=WAIT)
+            real()
+
+        te._post_flip = held_hygiene
+        swapper = threading.Thread(target=te.swap_weights, args=(1, trees["torch"][1]))
+        swapper.start()
+        assert entered.wait(timeout=WAIT) and te.weight_version == 1
+        later = b.submit(prompt, s)
+        time.sleep(0.3)  # the scheduler's admission passes run in the window
+        gate.set()
+        swapper.join(WAIT)
+        assert later.result(timeout=WAIT).token_ids == want
+    finally:
+        gate.set()
+        b.close()
+
+
+def test_a_failed_flip_hygiene_still_opens_the_admission_gate(trees):
+    """The flip's cache hygiene raising reaches the swap's caller, and the
+    admission gate opens all the same: a later stream is admitted and runs
+    on the new weights instead of waiting on ``swap_pending`` for good."""
+    cfg = get_config("tiny-llama")
+    te = Engine(cfg, params=trees["torch"][0], dtype=torch.float32, max_seq=512, device="cpu",
+                prefill_chunk=16, kv_pool=True, kv_pool_block=16)
+    fresh = Engine(cfg, params=trees["torch"][1], dtype=torch.float32, max_seq=512,
+                   device="cpu")
+    s = SamplingParams(max_new_tokens=6, ignore_eos=True)
+    prompt = f"{PREAMBLE} and its question"
+    b = ContinuousBatcher(te, max_batch=2)
+    try:
+        b.submit(prompt, s).result(timeout=WAIT)
+
+        def broken_evict(_ttl):
+            raise RuntimeError("eviction failed")
+
+        te._kv_pool.evict_cold = broken_evict
+        with pytest.raises(RuntimeError, match="eviction failed"):
+            te.swap_weights(1, trees["torch"][1])
+        assert te.weight_version == 1 and not te.swap_pending()
+        fresh_prompt = "An unrelated request that shares no block with the first one"
+        later = b.submit(fresh_prompt, s).result(timeout=WAIT)
+        assert later.token_ids == fresh.generate(fresh_prompt, s).token_ids
+    finally:
+        b.close()
