@@ -15,6 +15,7 @@
     python3 chip_smoke.py --phase route     # build + the route phase only
     python3 chip_smoke.py --phase disagg    # build + the disaggregated-serving phase only
     python3 chip_smoke.py --phase distill   # build + three runs + the distill phase only
+    python3 chip_smoke.py --phase parallel  # build + the head-slice kernel rows + parallel/
 
 Phases, in order; any failure exits non-zero before the last line. Every
 CLI run of the script asks ``CLI_TOKENS`` (48) tokens a model, where the
@@ -76,10 +77,9 @@ phases below say 64:
    telemetry code per chunk, synchronizations per chunk, which must be
    equal); ``--trace DIR`` and ``--profile`` artifacts with the card's
    kernels; the ledger's device-memory numbers against
-   ``torch.cuda.max_memory_allocated``; the slice's auto-saved CLI run in
-   a fresh process with the planes off (process and main() walls; the
-   planes-on arm of the pair was cut to fit the gateway phase in the
-   time limit);
+   ``torch.cuda.max_memory_allocated`` (the slice's CLI in a fresh process
+   with the planes off, its process wall, was cut to fit the parallel
+   phase in the time limit);
 8b. the consensus modes (``--phase modes``), each through the port's CLI
    over warm shared providers (the slice's panel and judge, bf16, the
    350-token prompt, 24 tokens): ``--rounds 2 --confidence --system-file``
@@ -264,6 +264,14 @@ phases below say 64:
    {"out_dir"}`` (digest checked) and a request's stream equals a fresh
    engine loaded from the checkpoint (near-tie rule). A ``{"distill": ...}``
    line;
+8l. ``parallel/`` (``--phase parallel``, after the head-slice kernel rows of
+   phase 3) on mesh positions backed by the one card: (a) llama-3-8b bf16 on
+   a tp 2 mesh against tp 1 (64 greedy tokens, launches by shard at Hq 16 /
+   Hkv 4), (b) an sp 2 ring prefill of 1,024 tokens against the chunked
+   path, (c) the slice's CLI over a provider of 4 positions, (d) two
+   controller processes over gloo with equal merged results, (e) a
+   one-process gloo + NCCL group's training step against the step without
+   one. A ``{"parallel": ...}`` line;
 9. the quantized slice: the same CLI run with ``LLMC_QUANT=int8
    LLMC_KV_QUANT=int8`` in the environment (int8 weights, int8 KV cache,
    the int8 decode kernel), then a profiler window over one of its
@@ -2065,57 +2073,6 @@ def check_capture_walls(torch, engine) -> None:
         raise AssertionError(f"capture walls: keys counted per generate {arms}")
 
 
-# The slice's CLI in a fresh process: stderr's last line is the import
-# and main() walls.
-_FRESH_CLI = (
-    "import json, sys, time\n"
-    "t0 = time.monotonic()\n"
-    "import torch\n"
-    "from llm_consensus_tpu_torch.cli.main import main\n"
-    "t1 = time.monotonic()\n"
-    "rc = main(sys.argv[1:])\n"
-    "torch.cuda.synchronize()\n"
-    "print(json.dumps({'rc': rc, 'import_s': t1 - t0, 'main_s': time.monotonic() - t1}),\n"
-    "      file=sys.stderr)\n"
-)
-PLANES_OFF = {"LLMC_LIVE": "0", "LLMC_ATTRIB": "0", "LLMC_ROOFLINE": "0", "LLMC_BLACKBOX": "0"}
-
-
-def measure_fresh_cli_walls() -> None:
-    """The slice's CLI run, auto-saved as a user runs it, in a fresh process
-    with the planes off (every plane's knob at 0): the process wall and
-    main()'s own wall, and no metrics.json. The planes-on case (the default)
-    runs in process in the telemetry slice."""
-    repo = os.path.dirname(os.path.abspath(__file__))
-    base = {k: v for k, v in os.environ.items() if not k.startswith("LLMC_")}
-    base["LLMC_CONFIG"] = "0"  # no ambient config file changes the slice
-    walls: dict = {"off": []}
-    for arm in ("off",):
-        env = {**base, **(PLANES_OFF if arm == "off" else {})}
-        with tempfile.TemporaryDirectory(prefix="chip-smoke-") as data_dir:
-            argv = ["--models", "gpu:llama-3-8b,gpu:consensus-1b", "--judge", "gpu:llama-3-8b",
-                    "--max-tokens", CLI_TOKENS, "--data-dir", data_dir, PROMPT]
-            t0 = time.monotonic()
-            proc = subprocess.run([sys.executable, "-c", _FRESH_CLI, *argv], env=env, cwd=repo,
-                                  capture_output=True, text=True, timeout=600)
-            wall = time.monotonic() - t0
-            lines = proc.stderr.strip().splitlines()
-            if proc.returncode != 0 or not lines:
-                raise AssertionError(f"fresh CLI ({arm}): exit {proc.returncode}: "
-                                     f"{proc.stderr[-2000:]}")
-            rec = json.loads(lines[-1])
-            (run_id,) = os.listdir(data_dir)
-            listing = sorted(os.listdir(os.path.join(data_dir, run_id)))
-        if rec["rc"] != 0 or ("metrics.json" in listing) != (arm == "on"):
-            raise AssertionError(f"fresh CLI ({arm}): {rec}, run directory {listing}")
-        walls[arm].append((wall, rec["main_s"]))
-        log(f"fresh CLI, planes {arm}: process {wall:.3f} s, import {rec['import_s']:.3f} s, "
-            f"main() {rec['main_s']:.3f} s; run directory {listing}")
-    for arm, runs in walls.items():
-        log(f"fresh CLI, planes {arm}: main() " + ", ".join(f"{m:.3f}" for _, m in runs)
-            + " s; process " + ", ".join(f"{w:.3f}" for w, _ in runs) + " s")
-
-
 def measure_overhead(torch, engine) -> None:
     """The same llama-3-8b generate with every plane bound and with none,
     in turns (off, on; off, on, on, off until PR 13): both decode rates, the
@@ -2301,7 +2258,6 @@ def run_telemetry(torch, fa, da) -> None:
     del bsl
     release_engines(torch, modes)
     check_trace_and_profile(torch)
-    measure_fresh_cli_walls()
     log(f"telemetry phase: {time.monotonic() - t_phase:.1f} s")
 
 
@@ -4537,6 +4493,7 @@ SPEC_TARGET, SPEC_DRAFT = "llama-3-8b", "llama-3.2-1b"
 SPEC_K = 4
 SPEC_TOKENS = 64       # (a)
 SPEC_SWEEP_TOKENS = 48  # (b), (c), (e); one run at each point of (b)
+ORACLE_ACCEPTS = (1, 3, 5)  # (b)'s points (2 was cut for the parallel phase)
 SPEC_GOVERNOR_TOKENS = 160  # (d): a 64-token drafted probe, a 64-token plain one, then locked
 
 
@@ -4687,15 +4644,16 @@ def spec_model_draft(torch, fa, da, tgt, drf, ids, plain) -> dict:
 
 
 def spec_oracle_sweep(torch, tgt, ids, plain) -> dict:
-    """(b) the oracle at forced acceptance 1, 2, 3 and 5 (k = 4) against
-    plain decode: tokens/s over the request, host clock, one run each."""
+    """(b) the oracle at forced acceptance 1, 3 and 5 (k = 4; 2 was cut to fit
+    the parallel phase) against plain decode: tokens/s over the request,
+    host clock, one run each."""
     from llm_consensus_tpu_torch.engine import OracleDrafter, SamplingParams, SpeculativeEngine
 
     s = SamplingParams(max_new_tokens=SPEC_SWEEP_TOKENS, ignore_eos=True)
     cont = plain.token_ids[:SPEC_SWEEP_TOKENS]
     rates = {"plain": [spec_rate(tgt.generate(PROMPT, s))]}
     means = {}
-    for accept in (1, 2, 3, 5):
+    for accept in ORACLE_ACCEPTS:
         spec = SpeculativeEngine(tgt, OracleDrafter(cont, accept=accept), k=SPEC_K,
                                  adaptive=False, governor=False)
         runs = [spec.generate(PROMPT, s)]
@@ -4707,7 +4665,7 @@ def spec_oracle_sweep(torch, tgt, ids, plain) -> dict:
     log("(b) oracle sweep, tokens/s (one run each): " + "; ".join(
         f"{key}: {v[0]:.2f}" for key, v in rates.items()) + f"; mean accepted {means}")
     return {"rates": rates, "median": med, "mean_accepted": means,
-            "speedup": {a: med[a] / med["plain"] for a in (1, 2, 3, 5)}}
+            "speedup": {a: med[a] / med["plain"] for a in ORACLE_ACCEPTS}}
 
 
 def spec_lookup(torch, tgt, plain) -> dict:
@@ -6986,6 +6944,518 @@ def run_distill(torch, card: str, seed: int, tmp: str) -> dict:
     return out
 
 
+# -- phase 8l: parallel/ over a mesh of positions on the one card ----------------------
+
+HEAD_SLICES = (
+    # (record, tp, Hq, Hkv): llama-3-8b's heads over tp positions
+    ("tp2", 2, 16, 4),
+    ("tp8", 8, 4, 1),
+)
+
+
+def check_head_slices(torch, recs: dict) -> None:
+    """Both kernels on the head slices a tensor-parallel shard of
+    llama-3-8b gives them (tp 2: Hq 16 / Hkv 4; tp 8: Hq 4 / Hkv 1; the
+    group stays 4), against their plain versions, timed warm and cold
+    against the plain version and SDPA: flash at q[1,512,Hq,128], bf16
+    decode over [32,1,8192,Hkv,128] at width 384, and the int8 decode at
+    tp 2. Each shard's cache is a contiguous tensor of its heads, as the
+    sharded engine allocates it."""
+    from llm_consensus_tpu_torch.ops.kernels import decode_attention as da
+    from llm_consensus_tpu_torch.ops.kernels import flash_attention as fa
+    from llm_consensus_tpu_torch.ops.quant import quantize_kv
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+
+    def i32(x):
+        return torch.full((), x, dtype=torch.int32, device="cuda")
+
+    def record(name, source, replaces, shapes, err, kern, plain_ms, lib, nbytes, flops):
+        bms, by = bound_ms(nbytes, flops)
+        recs[name] = dict(
+            name=name, route="cuda", source=source, replaces=replaces, shapes=shapes,
+            launches=0, max_abs_err=err, ms=kern["ms"], cold_ms=kern["cold_ms"],
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            bound_share=bms / kern["cold_ms"],
+            library_ms=None if lib is None else lib["ms"],
+            library_cold_ms=None if lib is None else lib["cold_ms"])
+        log(f"head slice {name}: {shapes}: max_abs_err {err:.3e}; kernel warm "
+            f"{kern['ms']:.4f} ms, cold {kern['cold_ms']:.4f} ms; plain {plain_ms:.4f} ms; "
+            + ("" if lib is None else f"sdpa warm {lib['ms']:.4f}, cold {lib['cold_ms']:.4f} ms; ")
+            + f"bound {bms:.5f} ms ({by}), {100 * bms / kern['cold_ms']:.1f} % of it cold")
+
+    t, dh, L, S, layer, pos, w = 512, 128, 32, 8192, 7, 383, 384
+    for tag, _tp, hq, hkv in HEAD_SLICES:
+        # Flash, one-shot prefill of the slice's bucket.
+        q, k, v = rnd(1, t, hq, dh), rnd(1, t, hkv, dh), rnd(1, t, hkv, dh)
+        got = fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        err = max_err(got, fa.flash_attention_plain(q, k, v))
+        if not bool(torch.isfinite(got).all()) or err > FLASH_TOL:
+            raise AssertionError(f"flash_attention {tag} head slice: err {err}")
+        kern = timed(lambda: fa.flash_attention(q, k, v), 50)
+        plain_ms, _ = device_time_ms(lambda: fa.flash_attention_plain(q, k, v), 5)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        kt, vt = (x.repeat_interleave(hq // hkv, dim=1) for x in (kt, vt))
+        lib = timed(lambda: sdpa(qt, kt, vt, is_causal=True), 50)
+        record(f"flash_attention_{tag}", "llm_consensus_tpu_torch/csrc/flash_attention.cu",
+               "llm_consensus_tpu/ops/pallas/flash_attention.py:136",
+               f"q[1,{t},{hq},{dh}] k/v[1,{t},{hkv},{dh}] bf16 (llama-3-8b at {tag})", err,
+               kern, plain_ms, lib, 2.0 * (2 * t * hq * dh + 2 * t * hkv * dh),
+               4.0 * hq * dh * (t * (t + 1) // 2))
+        del q, k, v, qt, kt, vt
+        # bf16 decode over the shard's contiguous cache.
+        k, v, q = rnd(L, 1, S, hkv, dh), rnd(L, 1, S, hkv, dh), rnd(1, 1, hq, dh)
+        rs0 = torch.zeros(1, dtype=torch.int32, device="cuda")
+        pos_t, layer_t = i32(pos), i32(layer)
+        got = da.decode_attention(q, k, v, pos_t, layer_t, rs0, kv_width=w)
+        torch.cuda.synchronize()
+        want = da.decode_attention_plain(q, k, v, pos, layer, rs0, kv_width=w)
+        err = max_err(got, want)
+        if not bool(torch.isfinite(got).all()) or err > decode_tol(want):
+            raise AssertionError(f"decode_attention {tag} head slice: err {err}")
+        kern = timed(lambda: da.decode_attention(q, k, v, pos_t, layer_t, rs0, kv_width=w), 200)
+        plain_ms, _ = device_time_ms(
+            lambda: da.decode_attention_plain(q, k, v, pos_t, layer_t, rs0, kv_width=w), 10)
+        qt = q.transpose(1, 2)
+        kt = k[layer, :, :w].transpose(1, 2).repeat_interleave(hq // hkv, dim=1).contiguous()
+        vt = v[layer, :, :w].transpose(1, 2).repeat_interleave(hq // hkv, dim=1).contiguous()
+        lib = timed(lambda: sdpa(qt, kt, vt), 200)
+        n = pos + 1
+        record(f"decode_attention_{tag}", "llm_consensus_tpu_torch/csrc/decode_attention.cu",
+               "llm_consensus_tpu/ops/pallas/decode_attention.py:415",
+               f"q[1,1,{hq},{dh}] cache[{L},1,{S},{hkv},{dh}] bf16, pos {pos}, width {w}",
+               err, kern, plain_ms, lib, 2.0 * (2 * n * hkv * dh + 2 * hq * dh),
+               4.0 * hq * dh * n)
+        del k, v, kt, vt
+        torch.cuda.empty_cache()
+        if tag != "tp2":
+            continue
+        # The int8 decode at tp 2: codes beside their scales, one shard's heads.
+        sides = []
+        for _ in range(2):
+            q8 = torch.empty((L, 1, S, hkv, dh), dtype=torch.int8, device="cuda")
+            sc = torch.empty((L, 1, hkv, S), dtype=torch.bfloat16, device="cuda")
+            for i in range(L):
+                codes, scale = quantize_kv(rnd(1, S, hkv, dh))
+                q8[i].copy_(codes)
+                sc[i].copy_(scale[..., 0].transpose(1, 2))
+            sides.append({"q8": q8, "s": sc})
+        k8, v8 = sides
+        got = da.decode_attention(q, k8, v8, pos_t, layer_t, rs0, kv_width=w)
+        torch.cuda.synchronize()
+        want = da.decode_attention_plain(q, k8, v8, pos, layer, rs0, kv_width=w)
+        err = max_err(got, want)
+        if not bool(torch.isfinite(got).all()) or err > decode_tol(want):
+            raise AssertionError(f"decode_attention int8 {tag} head slice: err {err}")
+        kern = timed(lambda: da.decode_attention(q, k8, v8, pos_t, layer_t, rs0, kv_width=w), 200)
+        plain_ms, _ = device_time_ms(
+            lambda: da.decode_attention_plain(q, k8, v8, pos_t, layer_t, rs0, kv_width=w), 10)
+        record(f"decode_attention_int8_{tag}", "llm_consensus_tpu_torch/csrc/decode_attention.cu",
+               "llm_consensus_tpu/ops/pallas/decode_attention.py:415 (body _qstruct_block :268)",
+               f"q[1,1,{hq},{dh}] int8 cache[{L},1,{S},{hkv},{dh}] + bf16 scales, pos {pos}, "
+               f"width {w}", err, kern, plain_ms, None,
+               2.0 * n * hkv * (dh + 2) + 2.0 * 2 * hq * dh, 4.0 * hq * dh * n)
+        del k8, v8, sides
+        torch.cuda.empty_cache()
+
+
+class ShardLaunches:
+    """Each attention kernel call the sharded forward makes, by shard: wraps
+    the transformer module's kernel entry points for the block and records
+    every call's head counts; the sharded forward issues the shards of a
+    layer in order, so call ``i`` of a layer belongs to shard ``i % tp``.
+    The launch counts themselves are the wrappers' LaunchCounters."""
+
+    def __init__(self, tp: int):
+        self.tp = tp
+        self.calls: list = []
+
+    def __enter__(self):
+        import llm_consensus_tpu_torch.models.transformer as tr
+
+        self._tr = tr
+        self._real = {n: getattr(tr, n) for n in ("flash_attention", "decode_attention")}
+        for name, real in self._real.items():
+            def wrapped(q, k, *a, _r=real, _n=name, **kw):
+                kk = k["q8"] if isinstance(k, dict) else k
+                self.calls.append((_n, q.shape[2], kk.shape[-2]))
+                return _r(q, k, *a, **kw)
+            setattr(tr, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self._real.items():
+            setattr(self._tr, name, real)
+
+    def by_shard(self) -> dict:
+        out: dict = {}
+        for kind in ("flash_attention", "decode_attention"):
+            calls = [c for c in self.calls if c[0] == kind]
+            out[kind] = [sum(1 for i, _ in enumerate(calls) if i % self.tp == s)
+                         for s in range(self.tp)]
+            out[kind + "_heads"] = sorted({c[1:] for c in calls})
+        return out
+
+
+def gb(torch) -> float:
+    return torch.cuda.memory_allocated() / 1e9
+
+
+PAR_WORKER = r'''
+import io, json, os, sys
+from llm_consensus_tpu_torch.cli.main import create_provider, parse_args, run
+from llm_consensus_tpu_torch.parallel import multicontroller as mc
+from llm_consensus_tpu_torch.utils.context import Context
+from functools import partial
+
+out_dir, argv = sys.argv[1], json.loads(sys.argv[2])
+cfg = parse_args(argv, io.StringIO(""), io.StringIO())
+ctx = Context.background()
+err = io.StringIO()
+result = run(cfg, ctx, factory=partial(create_provider, device=None), stdout=io.StringIO(),
+             stderr=err)
+rank = mc.process_index()
+with open(os.path.join(out_dir, f"result-{rank}.json"), "w") as f:
+    f.write(result.to_json())
+print(json.dumps({"rank": rank, "count": mc.process_count(), "err": err.getvalue()[-400:]}))
+'''
+
+NCCL_WORKER = r'''
+import json, os, sys
+import torch
+import torch.distributed as dist
+from llm_consensus_tpu_torch.models import get_config
+from llm_consensus_tpu_torch.models.transformer import init_params
+from llm_consensus_tpu_torch.parallel import distributed, make_mesh, virtual_devices
+from llm_consensus_tpu_torch.train.step import init_train_state, make_train_step, sgd
+
+port = sys.argv[1]
+cfg = get_config("consensus-1b")
+dev = torch.device("cuda")
+tree = init_params(cfg, 0, device=dev, dtype=torch.float32)
+gen = torch.Generator().manual_seed(3)
+tokens = torch.randint(0, cfg.vocab_size, (2, 128), generator=gen).to(dev)
+batch = {"tokens": tokens, "targets": torch.roll(tokens, -1, 1),
+         "mask": torch.ones(2, 128, device=dev)}
+mesh = make_mesh({"dp": 1}, virtual_devices(1, "cuda"))
+out = {}
+for grouped in (False, True):
+    if grouped:
+        assert distributed.initialize(f"127.0.0.1:{port}", 1, 0, timeout_s=120)
+        out["backend"] = str(dist.get_backend())
+        seen = []
+        real = dist.all_reduce
+        dist.all_reduce = lambda t, *a, **k: seen.append(t.device.type) or real(t, *a, **k)
+    state = init_train_state(cfg, 0, sgd(1e-2), params=tree, mesh=mesh, dtype=torch.float32)
+    state, m = make_train_step(cfg, remat=True, mesh=mesh)(state, batch)
+    grads = [w.grad.detach().clone() for w in state.leaves()]
+    out["grouped" if grouped else "alone"] = {"loss": m["loss"], "grad_norm": m["grad_norm"]}
+    if not grouped:
+        ref = grads
+        del state
+    torch.cuda.synchronize()
+out["all_reduces"] = len(seen)
+out["all_reduce_devices"] = sorted(set(seen))
+out["grads_equal"] = all(torch.equal(a, b) for a, b in zip(ref, grads))
+out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+distributed.shutdown()
+print(json.dumps(out))
+'''
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_parallel_processes(tmp: str) -> list:
+    """(d) and (e) started together, in the background of (a): two controller
+    processes joined through ``initialize`` (LLMC_COORDINATOR on 127.0.0.1),
+    each owning one 1B-class panel model on the card (16 tokens), and a
+    one-process gloo + NCCL group running a consensus-1b training step with
+    and without the group. :func:`finish_parallel_processes` collects them."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env0 = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    script = os.path.join(tmp, "par_worker.py")
+    nccl = os.path.join(tmp, "nccl_worker.py")
+    with open(script, "w") as f:
+        f.write(PAR_WORKER)
+    with open(nccl, "w") as f:
+        f.write(NCCL_WORKER)
+    argv = ["--models", "gpu:consensus-1b,gpu:llama-3.2-1b", "--judge", "gpu:consensus-1b",
+            "--json", "--no-save", "--max-tokens", "16", PROMPT]
+    port, port_e = _free_port(), _free_port()
+    procs = []
+    for rank in range(2):
+        env = dict(env0, LLMC_COORDINATOR=f"127.0.0.1:{port}", LLMC_NUM_PROCESSES="2",
+                   LLMC_PROCESS_ID=str(rank))
+        procs.append(subprocess.Popen([sys.executable, script, tmp, json.dumps(argv)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True, env=env, cwd=here))
+    procs.append(subprocess.Popen([sys.executable, nccl, str(port_e)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True, env=env0, cwd=here))
+    return procs
+
+
+def finish_parallel_processes(procs: list) -> tuple:
+    """Wait for :func:`start_parallel_processes`' three processes (killing all
+    of them on a timeout or a failure): ((d)'s two documents, (e)'s)."""
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=420)
+            outs.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, (rc, out, err) in enumerate(outs):
+        if rc != 0:
+            raise AssertionError(f"parallel: process {i} exit {rc}: {out[-600:]} {err[-1500:]}")
+    docs = [json.loads(o[1].strip().splitlines()[-1]) for o in outs]
+    return docs[:2], docs[2]
+
+
+def parallel_tp2(torch, fa, da, seed: int, out: dict, recs: dict) -> dict:
+    """(a): llama-3-8b bf16 on a tp 2 mesh of two positions of the card
+    against the tp = 1 engine on the same seed-0 weights."""
+    from llm_consensus_tpu_torch.engine import Engine, SamplingParams
+    from llm_consensus_tpu_torch.models import get_config
+    from llm_consensus_tpu_torch.parallel import make_mesh, virtual_devices
+
+    cfg = get_config("llama-3-8b")
+    t0 = time.monotonic()
+    base = Engine(cfg, seed=0)
+    out["memory_gb"]["tp1 built"] = gb(torch)
+    tp = 2
+    sharded = Engine(cfg, base.params, mesh=make_mesh({"dp": 1, "tp": tp},
+                                                      virtual_devices(tp, "cuda")))
+    out["memory_gb"]["tp2 built"] = gb(torch)
+    out["walls_s"]["builds"] = time.monotonic() - t0
+    ids = random_ids(torch, seed + 30, 349, base.tokenizer.bos_id)
+    s64 = SamplingParams(max_new_tokens=64, ignore_eos=True)
+    t0 = time.monotonic()
+    ref = base.generate_ids(ids, s64).token_ids
+    out["walls_s"]["tp1 generate"] = time.monotonic() - t0
+    fa.LAUNCHES.reset()
+    da.LAUNCHES.reset()
+    t0 = time.monotonic()
+    with ShardLaunches(tp) as shard_log:
+        got = sharded.generate_ids(ids, s64).token_ids
+    torch.cuda.synchronize()
+    out["walls_s"]["tp2 generate"] = time.monotonic() - t0
+    launches = {"flash_attention": fa.LAUNCHES.count, "decode_attention": da.LAUNCHES.count}
+    per_shard = shard_log.by_shard()
+    row = {"launches": launches, "by_shard": per_shard,
+           "tokens": greedy_check(torch, base, "parallel (a) tp 2 against tp 1", ids, got, ref)}
+    heads = (cfg.n_heads // tp, cfg.n_kv_heads // tp)
+    if (per_shard["flash_attention_heads"] != [heads]
+            or per_shard["decode_attention_heads"] != [heads]
+            or per_shard["flash_attention"] != [cfg.n_layers] * tp
+            or min(per_shard["decode_attention"]) <= 0
+            or launches["flash_attention"] != sum(per_shard["flash_attention"])
+            or launches["decode_attention"] != sum(per_shard["decode_attention"])):
+        raise AssertionError(f"parallel (a): launches by shard {per_shard}, counters {launches}")
+    recs["flash_attention_tp2"]["launches"] = launches["flash_attention"]
+    recs["decode_attention_tp2"]["launches"] = launches["decode_attention"]
+    log(f"parallel (a): tp 2 on 2 positions of the card: flash {per_shard['flash_attention']} "
+        f"and decode {per_shard['decode_attention']} launches by shard at Hq/Hkv {heads}; "
+        f"memory {out['memory_gb']}")
+    del sharded
+    release_memory(torch)
+
+    # The other head-slice rows on the main path: tp 8 (Hq 4 / Hkv 1) in
+    # bf16, and tp 2 over the int8 cache against tp 1 over the int8 cache;
+    # 16 tokens each (no rate is read here).
+    s16 = SamplingParams(max_new_tokens=16, ignore_eos=True)
+    for tag, n, kv_quant, counter, key in (
+            ("tp 8", 8, None, da.LAUNCHES, "decode_attention_tp8"),
+            ("tp 2, int8 cache", 2, "int8", da.LAUNCHES_INT8, "decode_attention_int8_tp2")):
+        ref_engine = base if kv_quant is None else Engine(cfg, base.params, kv_quant=kv_quant)
+        want = ref_engine.generate_ids(ids, s16).token_ids
+        eng = Engine(cfg, base.params, kv_quant=kv_quant,
+                     mesh=make_mesh({"dp": 1, "tp": n}, virtual_devices(n, "cuda")))
+        out["memory_gb"][f"{tag} built"] = gb(torch)
+        fa.LAUNCHES.reset()
+        counter.reset()
+        with ShardLaunches(n) as shard_log:
+            got = eng.generate_ids(ids, s16).token_ids
+        torch.cuda.synchronize()
+        by = shard_log.by_shard()
+        counts = {"flash_attention": fa.LAUNCHES.count, key: counter.count}
+        hq_hkv = (cfg.n_heads // n, cfg.n_kv_heads // n)
+        row[tag] = {"launches": counts, "by_shard": by, "tokens": greedy_check(
+            torch, ref_engine, f"parallel (a) {tag} against tp 1", ids, got, want)}
+        if (by["flash_attention"] != [cfg.n_layers] * n or min(by["decode_attention"]) <= 0
+                or by["decode_attention_heads"] != [hq_hkv]
+                or counts[key] != sum(by["decode_attention"])
+                or counts["flash_attention"] != sum(by["flash_attention"])):
+            raise AssertionError(f"parallel (a) {tag}: {row[tag]}")
+        if n == 8:
+            recs["flash_attention_tp8"]["launches"] = counts["flash_attention"]
+        recs[key]["launches"] = counts[key]
+        log(f"parallel (a) {tag}: flash {by['flash_attention']} and decode "
+            f"{by['decode_attention']} launches by shard at Hq/Hkv {hq_hkv}")
+        del eng, ref_engine
+        release_memory(torch)
+    del base
+    release_memory(torch)
+    return row
+
+
+def parallel_cli(torch, fa, da) -> dict:
+    """(c): the slice's CLI with the provider given 4 positions of the card:
+    panel and judge on disjoint positions (tp 2 each), every model
+    answers, the kernels launched."""
+    from llm_consensus_tpu_torch.cli.main import main as cli_main
+    from llm_consensus_tpu_torch.parallel import virtual_devices
+    from llm_consensus_tpu_torch.providers.gpu import GPUProvider
+
+    fresh_planes()
+    t0 = time.monotonic()
+    prov = GPUProvider(devices=virtual_devices(4, "cuda"), prefix_cache=False)
+    counters = {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES}
+    for c in counters.values():
+        c.reset()
+    cli_out, cli_err = io.StringIO(), io.StringIO()
+    models = ["gpu:llama-3-8b", "gpu:consensus-1b"]
+    rc = cli_main(["--models", ",".join(models), "--judge", "gpu:llama-3-8b", "--json",
+                   "--max-tokens", CLI_TOKENS, PROMPT], factory=lambda m: prov,
+                  stdout=cli_out, stderr=cli_err, install_signal_handlers=False)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"parallel (c): exit {rc}: {cli_err.getvalue()[-800:]}")
+    doc = json.loads(cli_out.getvalue())
+    places = {m: [d.id for d in prov.placement(m).devices.flat] for m in models}
+    row = {"placements": places, "launches": {n: c.count for n, c in counters.items()},
+           "answers": [r["model"] for r in doc["responses"]],
+           "memory_gb": gb(torch), "wall_s": time.monotonic() - t0}
+    log(f"parallel (c): placements {places}, answers {row['answers']}, launches "
+        f"{row['launches']}, {row['wall_s']:.1f} s, {row['memory_gb']:.2f} GB")
+    if (set(places[models[0]]) & set(places[models[1]]) or len(doc["responses"]) != 2
+            or not doc.get("consensus") or min(row["launches"].values()) <= 0):
+        raise AssertionError(f"parallel (c): {row}")
+    prov.release()
+    del prov
+    release_memory(torch)
+    return row
+
+
+def run_parallel(torch, fa, da, card: str, seed: int, recs: dict) -> dict:
+    """Phase 8l: ``parallel/`` on the one card, several mesh positions backed
+    by ``cuda:0`` (``virtual_devices``). (a) llama-3-8b bf16 at full width on
+    ``make_mesh({"dp": 1, "tp": 2})``: a 350-token prompt and 64 greedy
+    tokens against the tp = 1 engine on the same seed-0 weights (equal or
+    the near-tie rule), the flash and decode launches counted by shard at
+    Hq 16 / Hkv 4. (b) sequence-parallel prefill at sp 2 of a 1,024-token
+    prompt (ring attention): its last logits within BATCH_LOGIT_TOL of the
+    tp = 1 engine's chunked prefill, and 16 tokens decoded from the
+    ring-built cache. (c) the slice's CLI with the provider given 4
+    positions: panel and judge on disjoint positions (tp 2 each), every
+    model answers, the kernels launched. (d) two controller processes, each
+    owning one 1B-class panel model, the results merged over gloo: both
+    end with the same merged result. (e) a one-process gloo + NCCL group:
+    a consensus-1b training step whose gradient all-reduce goes through
+    NCCL equals the step without a group. Prints a ``{"parallel": ...}``
+    line."""
+    from llm_consensus_tpu_torch.engine import Engine, SamplingParams
+    from llm_consensus_tpu_torch.models import get_config
+    from llm_consensus_tpu_torch.parallel import make_mesh, virtual_devices
+
+    t_phase = time.monotonic()
+    out: dict = {"memory_gb": {}, "walls_s": {}}
+    release_memory(torch)
+    # (d) and (e) run in child processes beside (a) and (c) (their ~24 GB fit
+    # beside either one's ~35 GB at most; (b), ~52 GB, waits for them).
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-parallel-")
+    procs = start_parallel_processes(tmp)
+    try:
+        out["a"] = parallel_tp2(torch, fa, da, seed, out, recs)
+        out["c"] = parallel_cli(torch, fa, da)
+    except BaseException:
+        for p in procs:
+            p.kill()
+            p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    try:
+        d_docs, e_doc = finish_parallel_processes(procs)
+        out["walls_s"]["processes"] = time.monotonic() - t_phase
+        results = []
+        for rank in range(2):
+            with open(os.path.join(tmp, f"result-{rank}.json")) as f:
+                results.append(f.read())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cfg = get_config("llama-3-8b")
+    base = Engine(cfg, seed=0)
+
+    # (b) sequence-parallel prefill of 1,024 tokens against the chunked path.
+    import llm_consensus_tpu_torch.engine.engine as eng_mod
+
+    t0 = time.monotonic()
+    sp = Engine(cfg, base.params, mesh=make_mesh({"sp": 2}, virtual_devices(2, "cuda")))
+    out["memory_gb"]["sp2 built"] = gb(torch)
+    long_ids = random_ids(torch, seed + 31, 1023, base.tokenizer.bos_id)
+    rings = []
+    real_ring = eng_mod.forward_ring_prefill
+    eng_mod.forward_ring_prefill = lambda *a, **k: rings.append(1) or real_ring(*a, **k)
+    try:
+        with torch.inference_mode():
+            sp_logits, _c = sp._prefill_ids(long_ids)
+            del _c
+            ref_logits, _c = base._prefill_ids(long_ids)
+            del _c
+        torch.cuda.synchronize()
+    finally:
+        eng_mod.forward_ring_prefill = real_ring
+    diff = (sp_logits.float() - ref_logits.float()).abs().max().item()
+    s16 = SamplingParams(max_new_tokens=16, ignore_eos=True)
+    got16 = sp.generate_ids(long_ids, s16).token_ids
+    ref16 = base.generate_ids(long_ids, s16).token_ids
+    out["walls_s"]["sp"] = time.monotonic() - t0
+    out["b"] = {"ring_prefills": len(rings), "max_logit_diff": diff,
+                "tokens": greedy_check(torch, base, "parallel (b) sp 2 against chunked", long_ids,
+                                       got16, ref16)}
+    log(f"parallel (b): sp 2 ring prefill of {len(long_ids)} tokens ({len(rings)} ring "
+        f"prefills), last logits {diff:.4f} from the chunked path (tol {BATCH_LOGIT_TOL})")
+    if len(rings) < 1 or diff > BATCH_LOGIT_TOL:
+        raise AssertionError(f"parallel (b): {out['b']}")
+    del sp, base
+    release_memory(torch)
+
+    merged = json.loads(results[0])
+    out["d"] = {"equal": results[0] == results[1], "counts": [d["count"] for d in d_docs],
+                "answers": sorted(r["model"] for r in merged["responses"])}
+    out["e"] = e_doc
+    log(f"parallel (d): two controllers, merged results equal {out['d']['equal']}, answers "
+        f"{out['d']['answers']}; (e) backend {e_doc.get('backend')}, all-reduces "
+        f"{e_doc['all_reduces']} on {e_doc['all_reduce_devices']}, grads equal "
+        f"{e_doc['grads_equal']}, loss {e_doc['alone']['loss']:.6f} / "
+        f"{e_doc['grouped']['loss']:.6f}; done {out['walls_s']['processes']:.1f} s into the phase")
+    if (not out["d"]["equal"] or out["d"]["counts"] != [2, 2]
+            or out["d"]["answers"] != ["gpu:consensus-1b", "gpu:llama-3.2-1b"]
+            or not merged.get("consensus")):
+        raise AssertionError(f"parallel (d): {out['d']}")
+    if (not e_doc["grads_equal"] or e_doc["all_reduces"] <= 0
+            or e_doc["all_reduce_devices"] != ["cuda"] or "nccl" not in e_doc["backend"]
+            or e_doc["alone"]["loss"] != e_doc["grouped"]["loss"]):
+        raise AssertionError(f"parallel (e): {e_doc}")
+    out["wall_s"] = time.monotonic() - t_phase
+    log(f"parallel: phase {out['wall_s']:.1f} s")
+    print(json.dumps({"parallel": out, "card": card}, default=str), flush=True)
+    return out
+
+
 PHASE_WALLS: dict = {}  # phase → seconds, in run order
 
 
@@ -7010,7 +7480,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase", choices=("all", "kernels", "mixtral", "telemetry", "modes",
                                         "session", "serving", "recovery", "kvpool", "spec",
-                                        "gateway", "route", "disagg", "distill"),
+                                        "gateway", "route", "disagg", "distill", "parallel"),
                     default="all")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -7052,6 +7522,7 @@ def main(argv=None) -> int:
     state_recs: dict = {key: {} for key, _, _ in STATE_VARIANTS}
     rows16_recs: dict = {"decode_attention_b16": {}, "decode_attention_state_b16": {}}
     dh64_recs: dict = {"flash": {}, "decode": {}}
+    head_recs: dict = {}  # the head-slice rows (check_head_slices)
     records = [flash_rec, decode_rec, int8_rec, w8a8_rec, *state_recs.values(),
                *rows16_recs.values(), *dh64_recs.values()]
     mixtral_recs = {"flash": flash_rec, "int8": int8_rec, "w8a8": w8a8_rec}
@@ -7121,6 +7592,16 @@ def main(argv=None) -> int:
         print_phase_walls(t_start)
         print(card, flush=True)
         return 0
+    if args.phase == "parallel":
+        # The head-slice kernel rows and the parallel phase: no ok line.
+        with phase_wall("kernels head slices"):
+            check_head_slices(torch, head_recs)
+        with phase_wall("parallel"):
+            run_parallel(torch, fa, da, card, args.seed, head_recs)
+        print_phase_walls(t_start)
+        print(json.dumps({"kernels": list(head_recs.values())}), flush=True)
+        print(card, flush=True)
+        return 0
     if args.phase == "spec":
         # The dh 64 kernel rows and the spec phase: no ok line.
         with phase_wall("kernels dh 64"):
@@ -7138,7 +7619,9 @@ def main(argv=None) -> int:
         check_decode_int8(torch, int8_rec, w8a8_rec)
         check_decode_state(torch, state_recs)
         check_decode_rows16(torch, rows16_recs)
+        check_head_slices(torch, head_recs)
         check_int8_matmul(torch)
+    records += list(head_recs.values())
     if args.phase == "kernels":
         # Kernel checks only: the main path did not run, so no ok line.
         print(json.dumps({"kernels": records}), flush=True)
@@ -7200,6 +7683,8 @@ def main(argv=None) -> int:
             run_distill(torch, card, args.seed, flywheel_tmp)
     finally:
         shutil.rmtree(flywheel_tmp, ignore_errors=True)
+    with phase_wall("parallel"):
+        run_parallel(torch, fa, da, card, args.seed, head_recs)
 
     with phase_wall("quantized slice"):
         qsl = run_slice(torch, {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES,

@@ -201,7 +201,8 @@ def create_provider(model: str, device: DeviceLike = None, draft: Optional[str] 
     from llm_consensus_tpu_torch.providers.registry import REMOTE_MODELS, create_remote_provider
     from llm_consensus_tpu_torch.utils.knobs import (
         batch_settings, checkpoint_dir, disagg_settings, engine_settings, http_settings,
-        kv_pool_settings, prefix_settings, quant_modes, recovery_settings, spec_settings)
+        kv_pool_settings, placement_settings, prefix_settings, quant_modes, recovery_settings,
+        spec_settings)
 
     if model.startswith(SCHEME):
         try:
@@ -212,7 +213,7 @@ def create_provider(model: str, device: DeviceLike = None, draft: Optional[str] 
                                       **checkpoint_dir(), **prefix_settings(),
                                       **kv_pool_settings(), **recovery_settings(),
                                       **spec_settings(), **engine_settings(),
-                                      **disagg_settings())
+                                      **disagg_settings(), **placement_settings())
         if draft is not None:
             provider.set_draft(draft, k=spec_k)
         return provider
@@ -760,11 +761,18 @@ def install_planes(events: bool, stderr: TextIO, blackbox_dir: str = "") -> None
 
 
 def run(cfg: Config, ctx: Context, *, factory: ProviderFactory, stdout: TextIO,
-        stderr: TextIO, stdin: Optional[TextIO] = None) -> None:
+        stderr: TextIO, stdin: Optional[TextIO] = None) -> Optional[Result]:
     """One consensus run, or an interactive session of them, with the
     telemetry planes installed once; ``--trace`` wraps it in a
     ``torch.profiler`` trace, ``--profile`` in one bounded deep-profiler
-    window."""
+    window. Returns the run's :class:`Result` (None for a session).
+
+    Under a multi-controller run (several processes joined through
+    ``LLMC_COORDINATOR`` / ``LLMC_NUM_PROCESSES`` / ``LLMC_PROCESS_ID``) each
+    process queries the models it owns (runner/multihost.py), the judge's
+    owner synthesizes and broadcasts (parallel/multicontroller.py), and only
+    process 0 persists and prints; every process returns the same merged
+    result."""
     install_planes(cfg.events, stderr)
     if cfg.prefill_budget is not None:
         # The flag and LLMC_PREFILL_BUDGET are equivalent: the factory reads
@@ -790,14 +798,30 @@ def run(cfg: Config, ctx: Context, *, factory: ProviderFactory, stdout: TextIO,
             confidence=bool(manifest.get("confidence", False)),
         )
 
-    def body() -> None:
+    # Multi-controller runs (parallel/distributed.py): join the process
+    # group before any provider exists; a no-op without configuration.
+    if any(m.startswith("gpu:") for m in cfg.models + ([cfg.judge] if cfg.judge else [])):
+        from llm_consensus_tpu_torch.parallel import distributed
+        from llm_consensus_tpu_torch.parallel import multicontroller as mc
+
+        try:
+            distributed.initialize(**knobs.distributed_settings())
+        except Exception as err:  # noqa: BLE001 — reported as a CLI error
+            raise CLIError(f"joining distributed cluster: {err}") from err
+        if mc.is_multicontroller() and cfg.interactive:
+            # A REPL cannot keep the controllers in lockstep: the others
+            # have no stdin, and a diverged one deadlocks the next exchange.
+            raise CLIError("--interactive is not supported under multi-controller "
+                           "execution; pass the prompt as an argument or --file")
+
+    def body():
         if cfg.interactive:
             interactive_loop(cfg, ctx, factory=factory,
                              stdin=stdin if stdin is not None else sys.stdin,
                              stdout=stdout, stderr=stderr)
-        else:
-            _run(cfg, ctx, factory=factory, stdout=stdout, stderr=stderr,
-                 resume_manifest=resume_manifest)
+            return None
+        return _run(cfg, ctx, factory=factory, stdout=stdout, stderr=stderr,
+                    resume_manifest=resume_manifest)
 
     if cfg.trace:
         from llm_consensus_tpu_torch.obs.profiler import trace_window
@@ -900,11 +924,31 @@ def _run(cfg: Config, ctx: Context, *, factory: ProviderFactory, stdout: TextIO,
         except Exception as err:  # noqa: BLE001 — reported as a CLI error
             raise CLIError(f"preparing provider: {err}") from err
 
+    # Multi-controller execution: each process queries only the models it
+    # owns, results merge through one allgather, the judge's owner
+    # broadcasts the synthesis, and process 0 alone persists and prints.
+    mc = None
+    if any(m.startswith("gpu:") for m in cfg.models + ([judge] if judge else [])):
+        from llm_consensus_tpu_torch.parallel import multicontroller
+
+        if multicontroller.is_multicontroller():
+            mc = multicontroller
+    if mc is not None:
+        # Every controller must run the identical prompt: a stdin-piped one
+        # exists only on the launching terminal, so process 0's wins.
+        context_prompt = mc.broadcast_json(context_prompt, owner=0)
+        if cfg.resume:
+            # The panel journal is process 0's: a resumed run's skip set
+            # would diverge across controllers and deadlock the merge.
+            raise CLIError("--resume is not supported under multi-controller execution; "
+                           "rerun the prompt instead")
+
     # The run directory and its manifest before the fan-out (a resumed run
     # writes into its own); each panel answer is journaled as it lands.
     warn = (lambda msg: ui.print_error(stderr, msg)) if show_ui else None
     run_dir = resume_dir
-    if not run_dir and not cfg.output and not cfg.json and not cfg.no_save:
+    if (not run_dir and not cfg.output and not cfg.json and not cfg.no_save
+            and not (mc is not None and mc.process_index() != 0)):
         try:
             _run_id, run_dir = reserve_run_dir(cfg.data_dir)
         except OSError as err:
@@ -929,14 +973,23 @@ def _run(cfg: Config, ctx: Context, *, factory: ProviderFactory, stdout: TextIO,
     progress = ui.Progress(stderr, models_to_run, quiet=not show_ui)
     progress.start()
     panel_priority, judge_priority = run_priorities(cfg)
-    runner = Runner(registry, cfg.timeout, max_tokens=cfg.max_tokens,
-                    system=cfg.system or None, priority=panel_priority,
-                    stall_grace=knobs.stall_grace())
+    if mc is not None:
+        from llm_consensus_tpu_torch.runner.multihost import MultiControllerRunner
+
+        runner = MultiControllerRunner(
+            registry, cfg.timeout, max_tokens=cfg.max_tokens, system=cfg.system or None,
+            priority=panel_priority, stall_grace=knobs.stall_grace(),
+            owner_fn=lambda m: mc.model_owner(registry, m),
+            allgather_cap=knobs.allgather_timeout())
+    else:
+        runner = Runner(registry, cfg.timeout, max_tokens=cfg.max_tokens,
+                        system=cfg.system or None, priority=panel_priority,
+                        stall_grace=knobs.stall_grace())
     # Judge prefill overlap (consensus/overlap.py): each panel answer
     # prefills into the judge's growing cache as it lands. Never under
     # --vote (no judge); None when off or the judge has no engine.
     overlap_judge = None
-    if not cfg.vote:
+    if not cfg.vote and mc is None:  # the overlap session is process-local
         try:
             overlap_judge = make_overlap_judge(
                 registry.get(cfg.judge), cfg.judge, context_prompt, max_tokens=cfg.max_tokens,
@@ -1001,20 +1054,37 @@ def _run(cfg: Config, ctx: Context, *, factory: ProviderFactory, stdout: TextIO,
             ui.print_success(stderr, "Votes tallied!")
     else:
         consensus, confidence = _synthesize_rounds(
-            cfg, ctx, registry, runner, result, context_prompt, show_ui, stderr, overlap_judge)
+            cfg, ctx, registry, runner, result, context_prompt, show_ui, stderr, overlap_judge,
+            mc=mc)
         judge_name = cfg.judge
     _close_expired_profile()
 
     # Run telemetry rides the auto-saved run directory; a recorded run
     # that has none says so instead of discarding it silently.
+    # Under a multi-controller run the decision is the flags' (identical on
+    # every process), since the timeline merge is a collective every
+    # process must enter; only process 0 has the run directory.
+    persists = (bool(run_dir) if mc is None
+                else not cfg.output and not cfg.json and not cfg.no_save)
     trace_doc = metrics_doc = None
-    if recorder is not None and not run_dir:
+    if recorder is not None and not persists:
         result.warnings.append(
             "run telemetry recorded but not persisted: trace.json/metrics.json ride the "
             "auto-saved run directory, which --output, --json, and --no-save disable")
     plan = faults.plan()
-    if recorder is not None and run_dir:
-        trace_doc = obs_export.local_trace(recorder)
+    if recorder is not None and persists:
+        # The degradation the run saw, read before the telemetry exchange.
+        degraded = mc.degraded_peers() if mc is not None else None
+        trace_missing: list = []
+        if mc is not None and cfg.events:
+            # Merged only under the --events flag, which reaches every
+            # controller alike (an environment-enabled recorder stays local).
+            from llm_consensus_tpu_torch.obs.multihost import merge_timelines
+
+            trace_doc, trace_missing = merge_timelines(
+                recorder, mc.allgather_timeout(ctx, knobs.allgather_timeout()))
+        else:
+            trace_doc = obs_export.local_trace(recorder)
         metrics_doc = obs_export.metrics_summary(
             recorder, responses=result.responses,
             batcher_stats=obs_export.collect_batcher_stats(registry),
@@ -1024,8 +1094,10 @@ def _run(cfg: Config, ctx: Context, *, factory: ProviderFactory, stdout: TextIO,
             fault_trace=list(plan.trace) if plan is not None else None,
             failed_models=result.failed_models, warnings=result.warnings,
             live=obs_export.live_summary(), attrib=obs_export.attrib_summary(),
-            roofline=obs_export.roofline_summary(),
+            roofline=obs_export.roofline_summary(), degraded_peers=degraded,
         )
+        if trace_missing:
+            metrics_doc["timeline_missing_controllers"] = sorted(int(p) for p in trace_missing)
     elif run_dir:
         # Without the recorder, the planes' numbers persist whenever this
         # run moved them (the process-lifetime snapshot, as a scrape shows).
@@ -1051,6 +1123,11 @@ def _run(cfg: Config, ctx: Context, *, factory: ProviderFactory, stdout: TextIO,
         agreement=agreement.to_dict() if agreement else None,
         confidence=confidence,
     )
+
+    if mc is not None and mc.process_index() != 0:
+        # The other controllers hold the identical merged result but own
+        # no output: process 0 persists and prints it once.
+        return out
 
     # Output routing: --output file, else the run directory's result.json,
     # else --json stdout, else pretty TTY, else JSON stdout. result.json is
@@ -1101,7 +1178,8 @@ def _run(cfg: Config, ctx: Context, *, factory: ProviderFactory, stdout: TextIO,
 
 def _synthesize_rounds(cfg: Config, ctx: Context, registry: Registry, runner: Runner,
                        result: RunResult, context_prompt: str, show_ui: bool,
-                       stderr: TextIO, overlap_judge=None) -> tuple[str, Optional[dict]]:
+                       stderr: TextIO, overlap_judge=None, mc=None
+                       ) -> tuple[str, Optional[dict]]:
     """The judge's synthesis of round 1 (on ``overlap_judge`` when given,
     whose session the panel fed), then each refinement round (panel
     critique, judge refine: the classic judge, their prompt differs from
@@ -1116,6 +1194,10 @@ def _synthesize_rounds(cfg: Config, ctx: Context, registry: Registry, runner: Ru
         judge_provider = registry.get(cfg.judge)
     except Exception as err:  # noqa: BLE001
         raise CLIError(f"judge model {cfg.judge}: {err}") from err
+    if mc is not None:
+        # The judge's owner synthesizes on its slice; the text (or the
+        # error, in lockstep) broadcasts to the other controllers.
+        judge_provider = mc.BroadcastProvider(judge_provider, mc.model_owner(registry, cfg.judge))
     judge = Judge(judge_provider, cfg.judge, max_tokens=cfg.max_tokens,
                   priority=run_priorities(cfg)[1])
 

@@ -406,6 +406,7 @@ class ContinuousBatcher:
                  journal: Optional[StreamJournal] = None, spec: Optional[SpecConfig] = None):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
+        engine.require_unsharded("ContinuousBatcher")
         self.engine = engine
         self.max_batch = max_batch
         # Interleaved admission: prompt tokens (rows x chunk) of a pending

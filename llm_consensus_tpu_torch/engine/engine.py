@@ -88,7 +88,19 @@ evicts every cold block (their KV came from the old weights). The ``swap``
 fault site fires ``swap_mid_stream`` at apply and ``canary_regress`` on a
 swapped-in (version > 0) engine's decode chunks.
 
-Meshes and ``generate_batch`` of the JAX engine are not ported.
+Tensor, expert and sequence parallelism (``mesh=``, the JAX engine's):
+the engine holds one weight shard per mesh position (parallel/sharding.py)
+and runs models/transformer.py ``forward_sharded`` over them, each shard's
+compute issued on its own position's device, the partial sums reduced by
+the engine; the kernels launch per shard on its head slice where the JAX
+gate lets them (a tp-only mesh whose degree divides both head counts). On
+a mesh with an ``sp`` axis a prompt whose bucket splits over it prefills by
+ring attention (``forward_ring_prefill``). A sharded engine serves the
+single-stream path (``generate``, one-shot and chunked prefill, chunked
+decode, :class:`PrefillSession`); its prefix snapshot is off, and the
+batcher, the KV pool, the handoff, speculative decoding and the weight
+swap over it raise ``NotImplementedError`` (:meth:`Engine.require_unsharded`).
+``generate_batch`` of the JAX engine is not ported.
 """
 
 from __future__ import annotations
@@ -108,7 +120,8 @@ from llm_consensus_tpu_torch.engine.tokenizer import StreamDecoder, load_tokeniz
 from llm_consensus_tpu_torch.models.config import ModelConfig
 from llm_consensus_tpu_torch.kv import pool_for
 from llm_consensus_tpu_torch.models.transformer import (
-    cache_map, forward, init_kv_cache, init_params, layer_views, param_leaves)
+    ShardGroup, cache_map, forward, forward_ring_prefill, forward_sharded, init_kv_cache,
+    init_params, layer_views, param_leaves)
 from llm_consensus_tpu_torch.obs.attrib import DeviceWall
 from llm_consensus_tpu_torch.ops.kernels.decode_attention import w8a8_supported
 from llm_consensus_tpu_torch.ops.quant import (
@@ -311,6 +324,15 @@ class Engine:
     ``kv_pool_mb`` MB, whose budget replaces the snapshot's byte cap.
     ``tokenizer`` defaults to the byte-level one (a checkpoint's own comes
     from ``load_tokenizer``).
+
+    ``mesh`` (parallel/mesh.py) pins the engine to those positions: with
+    more than one, the weights (``params`` on the first position's device,
+    or drawn there from ``seed``, quantized first when ``quant`` is set)
+    split as parallel/sharding.py ``param_specs`` says, one shard per
+    position (positions of a ``dp`` axis beyond its first index hold none:
+    one stream is one batch row), and the engine runs on the first
+    position's device; ``device`` must then be None. A one-position mesh is
+    that position's device.
     """
 
     def __init__(
@@ -336,8 +358,14 @@ class Engine:
         kv_pool_block: int = 64,
         kv_pool_mb: float = 256.0,
         swap_wait_s: float = 30.0,
+        mesh=None,
     ):
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None:
+                raise ValueError("pass a mesh or a device, not both")
+            device = mesh.devices.flat[0].torch_device
         self.prefix_max_bytes = prefix_cache_max_mb * 1e6
         self.quant = resolve_mode(quant, "quant", WEIGHT_MODES)
         self.kv_quant = resolve_mode(kv_quant, "kv_quant", KV_MODES)
@@ -366,8 +394,24 @@ class Engine:
                     )
             if self.quant is not None:
                 params = quantize_params(params, self.quant)
+        # Sharded: one ShardGroup per sp position, the full tree dropped.
+        self._groups: Optional[list] = None
+        if mesh is not None and mesh.size > 1:
+            if kv_pool:
+                raise NotImplementedError(
+                    "the KV pool over a sharded engine (mesh of more than one position) is "
+                    "not ported")
+            from llm_consensus_tpu_torch.parallel.sharding import param_specs, shard_pytree
+
+            specs = param_specs(cfg, mesh)
+            keep = [i for i in range(mesh.size) if mesh.coords(i).get("dp", 0) == 0]
+            shards = shard_pytree(params, specs, mesh, positions=keep)
+            params = None
+            self._groups = [ShardGroup(cfg, mesh, shards, specs, {"dp": 0, "sp": s})
+                            for s in range(mesh.shape.get("sp", 1))]
+            prefix_cache = False
         self.params = params
-        self._layers = layer_views(params)
+        self._layers = layer_views(params) if params is not None else None
         # Weight hot-swap state. Pins refcount the resident weights (taken
         # at stream admission, released at retirement) so every in-flight
         # stream finishes on the buffer it started with; pin/unpin never
@@ -443,12 +487,36 @@ class Engine:
         """[1, n] int64 token ids on the device."""
         return self.to_device([ids])
 
+    def require_unsharded(self, what: str) -> None:
+        """Raise ``NotImplementedError`` naming ``what`` on a sharded engine
+        (what the port's sharded path does not cover yet)."""
+        if self._groups is not None:
+            raise NotImplementedError(
+                f"{what} over a sharded engine (mesh {self.mesh.shape}) is not ported")
+
+    def new_cache(self, batch: int = 1):
+        """A fresh single-stream KV cache: one ``init_kv_cache`` dict, or a
+        sharded engine's list of per-shard caches."""
+        if self._groups is not None:
+            return self._groups[0].new_caches(batch, self.max_seq, self.dtype, self.kv_quant)
+        return init_kv_cache(self.cfg, batch=batch, max_seq=self.max_seq, device=self.device,
+                             dtype=self.dtype, quant=self.kv_quant)
+
     def _forward(self, tokens, cache, start_pos, *, attn_impl, kv_width=None,
                  logits_index=None, capture=None, **rows):
         """:func:`forward` with this engine's weights and modes; ``rows``
         are the batcher's ``row_start``/``prefix``/``prefix_len``/
         ``prefix_rows``; ``capture`` the roofline capture this step runs
-        under, if any (it counts the first layer)."""
+        under, if any (it counts the first layer). A sharded engine runs
+        :func:`forward_sharded` (no batcher forms, no capture)."""
+        if self._groups is not None:
+            if any(v is not None for v in rows.values()):
+                self.require_unsharded("a batched forward")
+            logits = forward_sharded(
+                self._groups[0], tokens, cache, start_pos, attn_impl=attn_impl,
+                kv_width=kv_width, logits_index=logits_index, mm=self._mm,
+                decode_w8a8=self.decode_w8a8)
+            return logits, cache
         return forward(
             self.params, self.cfg, tokens, cache, start_pos=start_pos,
             attn_impl=attn_impl, kv_width=kv_width, logits_index=logits_index,
@@ -472,7 +540,7 @@ class Engine:
         key's first sight, else None. The key names this engine's model and
         modes beside the shapes: two models (or one model's bf16 and int8
         engines) share a ledger, and one shape costs each its own work."""
-        if self._roofline is None:
+        if self._roofline is None or self._groups is not None:
             return None
         key = (self.cfg.name, str(self.dtype), self.quant, self.kv_quant, self.w8a8,
                self.decode_w8a8, *key)
@@ -541,6 +609,7 @@ class Engine:
         blocks up to ``swap_wait_s`` for it). Returns True when accepted
         (applied or parked). ``prepared=True`` (the rollback) skips the
         preparation."""
+        self.require_unsharded("the weight swap")
         version = int(version)
         if self._faults is not None:
             fs = self._faults.fire("swap", phase="apply", model=self.cfg.name, version=version)
@@ -746,11 +815,18 @@ class Engine:
             cache = restore(saved, reuse_len)
             last_logits, cache = self._chunked_prefill(prompt_ids, cache, chunk_len, reuse_len)
         else:
-            cache = init_kv_cache(
-                self.cfg, batch=1, max_seq=self.max_seq, device=self.device, dtype=self.dtype,
-                quant=self.kv_quant,
-            )
-            if chunk_len and n_prompt > chunk_len and n_chunks * chunk_len <= self.max_seq:
+            cache = self.new_cache()
+            sp = len(self._groups) if self._groups is not None else 1
+            sp_bucket = _bucket(max(n_prompt, sp), self.max_seq) if sp > 1 else 0
+            if sp > 1 and sp_bucket % sp == 0:
+                # Sequence-parallel prefill: the prompt's bucket splits over
+                # the sp positions (ring attention); a bucket clamped to a
+                # max_seq it does not divide takes the paths below.
+                tokens = self._ids_tensor(prompt_ids + [0] * (sp_bucket - n_prompt))
+                last = torch.full((1,), n_prompt - 1, device=self.device)
+                logits = forward_ring_prefill(self._groups, tokens, cache, last, mm=self._mm)
+                last_logits = logits[:, 0]
+            elif chunk_len and n_prompt > chunk_len and n_chunks * chunk_len <= self.max_seq:
                 last_logits, cache = self._chunked_prefill(prompt_ids, cache, chunk_len)
             else:
                 bucket = _bucket(n_prompt, self.max_seq)
@@ -1362,8 +1438,7 @@ class PrefillSession:
     def _new_cache(self) -> dict:
         eng = self._eng
         with torch.inference_mode():
-            return init_kv_cache(eng.cfg, batch=1, max_seq=eng.max_seq, device=eng.device,
-                                 dtype=eng.dtype, quant=eng.kv_quant)
+            return eng.new_cache()
 
     @property
     def tokens(self) -> int:

@@ -19,7 +19,11 @@ What the port does differently from the JAX module, and why:
     roles share the device (``parallel/mesh.py`` ``split_roles``, the
     port's departure); the worker runs each wave on a ``torch.cuda.Stream``
     of its own, so the wave's kernels can run beside the decode loop's,
-    which stay on the device's default stream.
+    which stay on the device's default stream. On a provider of several
+    devices the roles are placed apart (the provider's ``prepare``): the
+    wave runs on a copy of the decode tree on the prefill device (one per
+    weight version) and each row's span is copied to the decode device
+    before its publish.
   * **Ordering and lifetimes across the two streams.** The wave ends with
     an event recorded on the worker's stream; the decode stream waits on
     it before the publish's copies are enqueued there, so no gather the
@@ -90,6 +94,11 @@ def _extract_row_span(pcache: dict, row: int, span: int) -> dict:
                      pcache)
 
 
+def _to(cache: dict, device: torch.device) -> dict:
+    """A cache's leaves copied to ``device``."""
+    return cache_map(lambda leaf: leaf.to(device), cache)
+
+
 class HandoffTicket:
     """One prompt's pending handoff: resolved by the worker wave."""
 
@@ -131,6 +140,7 @@ class KVHandoff:
     def __init__(self, prefill_engine, decode_engine, *, depth: int = DEFAULT_DEPTH,
                  wave_rows: int = DEFAULT_WAVE_ROWS, wait_s: float = DEFAULT_WAIT_S,
                  name: str = ""):
+        decode_engine.require_unsharded("KVHandoff")
         pool = getattr(decode_engine, "_kv_pool", None)
         if pool is None:
             raise ValueError("KVHandoff requires the decode engine's paged KV pool "
@@ -171,6 +181,7 @@ class KVHandoff:
         # Every handed-off block is verified, not sampled: a mismatch fails
         # only that row's ticket and its submitter prefills classically.
         self._integrity = integrity.plane()
+        self._tree: Optional[tuple] = None  # (version, params, layers) on another device
         dev = decode_engine.device
         if dev.type == "cuda":
             self._stream = torch.cuda.Stream(device=dev)
@@ -325,7 +336,7 @@ class KVHandoff:
         version = de.pin_weights()
         try:
             # The pin holds the flip off, so this is the tree of ``version``.
-            pe.params, pe._layers = de.params, de._layers
+            pe.params, pe._layers = self._role_tree(version)
             t_pf = time.monotonic()
             stream = self._stream
             with _attrib_tag("prefill"), (torch.cuda.stream(stream) if stream is not None
@@ -351,6 +362,25 @@ class KVHandoff:
                                streams=len(batch), width=width)
             self._obs.count("handoff.tokens", sum((len(t.ids) // bs) * bs for t in batch))
 
+    def _role_tree(self, version: int) -> tuple:
+        """The weights a wave runs on: the decode engine's tree itself when
+        both roles share a device, else a copy on the prefill device, made
+        once per weight version (the JAX prefill engine holds its own tree
+        on its slice)."""
+        pe, de = self._pe, self._de
+        if pe.device == de.device:
+            return de.params, de._layers
+        if self._tree is None or self._tree[0] != version:
+            from llm_consensus_tpu_torch.models.transformer import layer_views
+
+            def place(tree):
+                return {k: place(v) if isinstance(v, dict) else v.to(pe.device)
+                        for k, v in tree.items()}
+
+            params = place(de.params)
+            self._tree = (version, params, layer_views(params))
+        return self._tree[1], self._tree[2]
+
     def _hand_off(self, t: HandoffTicket, row: int, pcache: dict, wave_n: int,
                   version: int) -> None:
         """Publish one row's whole-block span; resolves its ticket."""
@@ -366,6 +396,9 @@ class KVHandoff:
         try:
             with _attrib_tag("kv_handoff"):
                 staged = _extract_row_span(pcache, row, span)
+                if self._pe.device != self._de.device:
+                    # The handoff proper: the span crosses to the decode device.
+                    staged = _to(staged, self._de.device)
                 nbytes = sum(leaf.numel() * leaf.element_size() for leaf in _leaves(staged))
                 if self._attrib is not None:
                     # The staged span is resident until the publish's copy

@@ -607,6 +607,7 @@ class SpeculativeEngine:
                  governor: bool = True, probe_tokens: int = 64):
         if k < 1:
             raise ValueError("k must be >= 1")
+        target.require_unsharded("SpeculativeEngine")
         if isinstance(draft, Engine):
             draft = ModelDrafter(draft)
         if not isinstance(draft, Drafter):

@@ -6,7 +6,7 @@ corpus → judge distillation → live hot-swap.
     into a deduplicated, versioned training set with a deterministic
     train/holdout split;
   * :mod:`.distill` — distillation of the journaled judge onto a student
-    model on one device (soft-target KL from the teacher's logits plus
+    model, on one device or over a mesh (soft-target KL from the teacher's logits plus
     hard-label CE on the verdict tokens), versioned HF safetensors
     checkpoints tagged with the corpus hash;
   * :mod:`.canary` — the rollout half: version-labeled latencies compared

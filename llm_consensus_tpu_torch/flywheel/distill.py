@@ -1,6 +1,7 @@
-"""Judge distillation over the served corpus on one device (port of
-``llm_consensus_tpu/flywheel/distill.py``; its mesh arguments and
-``opt_state_shardings`` wait for ``parallel/``).
+"""Judge distillation over the served corpus (port of
+``llm_consensus_tpu/flywheel/distill.py``), on one device or over a mesh
+(``mesh=``: the data-parallel step of train/step.py, the teacher's
+forward whole on the mesh's first device, its logits split by dp row).
 
 The student trains on ``alpha * KL(teacher logits) + (1 - alpha) *
 CE(verdict tokens)`` (train/loss.py ``distill_loss``) over the examples
@@ -41,7 +42,8 @@ from llm_consensus_tpu_torch.models.config import ModelConfig, get_config
 from llm_consensus_tpu_torch.models.transformer import forward, init_params
 from llm_consensus_tpu_torch.train.loss import distill_loss
 from llm_consensus_tpu_torch.train.step import (
-    OptimizerSpec, TrainState, apply_gradients, default_optimizer, init_train_state)
+    OptimizerSpec, TrainState, apply_gradients, default_optimizer, group_value,
+    init_train_state, sharded_loss)
 from llm_consensus_tpu_torch.utils.device import DeviceLike, resolve_device
 
 DEFAULT_LR = 1e-4
@@ -53,14 +55,29 @@ def default_distill_optimizer(lr: float = DEFAULT_LR, weight_decay: float = 0.1,
     return default_optimizer(lr=lr, weight_decay=weight_decay, clip_norm=clip_norm)
 
 
+def opt_state_shardings(optimizer: OptimizerSpec, cfg: ModelConfig, mesh) -> dict:
+    """The optimizer state's spec trees (the JAX ``opt_state_shardings``):
+    AdamW's two moments ``{"mu", "nu"}``, each parallel/sharding.py
+    ``opt_moment_specs`` (the parameter's spec, then its first replicated
+    dim that ``dp`` divides split over ``dp``: ZeRO-1 style); SGD keeps no
+    state. The port's moments follow their parameters' shards (train/step.py
+    says so); these specs are the layout the reference places them in."""
+    from llm_consensus_tpu_torch.parallel.sharding import opt_moment_specs
+
+    if optimizer.kind != "adamw":
+        return {}
+    return {"mu": opt_moment_specs(cfg, mesh), "nu": opt_moment_specs(cfg, mesh)}
+
+
 def init_distill_state(cfg: ModelConfig, seed: int = 0,
                        optimizer: Optional[OptimizerSpec] = None, *,
                        device: DeviceLike = None, dtype: torch.dtype = torch.bfloat16,
-                       params: Optional[dict] = None) -> TrainState:
+                       params: Optional[dict] = None, mesh=None) -> TrainState:
     """Student parameters (random from ``seed``, or a copy of ``params``)
-    and the optimizer over them; bf16 by default, as in JAX."""
+    and the optimizer over them; bf16 by default, as in JAX. ``mesh``
+    shards them (train/step.py ``init_train_state``)."""
     return init_train_state(cfg, seed, optimizer or default_distill_optimizer(),
-                            device=device, dtype=dtype, params=params)
+                            device=device, dtype=dtype, params=params, mesh=mesh)
 
 
 def _teacher_logits(teacher_params: dict, teacher_cfg: ModelConfig, tokens: torch.Tensor):
@@ -70,13 +87,32 @@ def _teacher_logits(teacher_params: dict, teacher_cfg: ModelConfig, tokens: torc
 
 
 def make_distill_step(cfg: ModelConfig, teacher_cfg: ModelConfig, remat: bool = True,
-                      temperature: float = 2.0, alpha: float = 0.5):
+                      temperature: float = 2.0, alpha: float = 0.5, mesh=None):
     """``step_fn(state, teacher_params, batch) -> (state, metrics)``:
     ``batch`` is ``{"tokens", "targets", "mask"}`` each [B, T]; metrics
     carry ``loss``, ``kl``, ``ce`` and ``grad_norm`` as floats. The state
-    is updated in place, with its own optimizer, and returned."""
+    is updated in place, with its own optimizer, and returned. ``mesh``
+    must be the state's (its dp rows and gradient reduction: train/step.py)."""
 
     def step_fn(state: TrainState, teacher_params: dict, batch: dict):
+        if state.mesh is not mesh:
+            raise ValueError("the step's mesh is not the state's")
+        if mesh is not None:
+            dev0 = mesh.devices.flat[0].torch_device
+            tokens0 = batch["tokens"].to(dev0)
+            teacher = _teacher_logits(teacher_params, teacher_cfg, tokens0)
+            state.opt_state.zero_grad(set_to_none=True)
+
+            def part_loss(logits, part, more):
+                return distill_loss(logits, more["teacher"], part["targets"],
+                                    part.get("mask"), temperature=temperature, alpha=alpha)
+
+            loss, aux = sharded_loss(state, cfg, batch, part_loss, remat,
+                                     extra={"teacher": teacher})
+            loss.backward()
+            norm = apply_gradients(state)
+            return state, {"loss": group_value(mesh, loss), "kl": group_value(mesh, aux["kl"]),
+                           "ce": group_value(mesh, aux["ce"]), "grad_norm": float(norm)}
         teacher = _teacher_logits(teacher_params, teacher_cfg, batch["tokens"])
         state.opt_state.zero_grad(set_to_none=True)
         logits, _ = forward(state.params, cfg, batch["tokens"], remat=remat)
@@ -303,6 +339,6 @@ def run_distill(corpus, student: str = "tiny-llama", teacher: Optional[str] = No
 
 __all__ = [
     "default_distill_optimizer", "init_distill_state", "latest_checkpoint",
-    "make_distill_eval", "make_distill_step", "next_version", "run_distill",
-    "save_checkpoint",
+    "make_distill_eval", "make_distill_step", "next_version", "opt_state_shardings",
+    "run_distill", "save_checkpoint",
 ]

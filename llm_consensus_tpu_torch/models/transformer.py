@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import math
 from contextlib import nullcontext
+from dataclasses import replace
 from typing import Callable, Optional, Union
 
 import numpy as np
@@ -54,6 +55,7 @@ from llm_consensus_tpu_torch.ops.quant import (
     KV_MODES, QUANT_KEYS, WEIGHT_MODES, is_quantized, kv_capacity, kv_layer, kv_read,
     kv_write_rows, qmatmul, quantize_kv, quantize_weight, stack_layers)
 from llm_consensus_tpu_torch.ops.rope import apply_rope, rope_angles, rope_inv_freq
+from llm_consensus_tpu_torch.parallel.sharding import gather, reduce_sum
 
 Pos = Union[int, torch.Tensor]
 
@@ -294,10 +296,20 @@ def _roundtrip(fresh: torch.Tensor) -> torch.Tensor:
     return q8.to(fresh.dtype) * s
 
 
-def _layer(
+def _project(cfg: ModelConfig, x: torch.Tensor, lp: dict, mm) -> tuple:
+    """Normed ``x`` through this layer's q/k/v projections (+ biases):
+    flat [B, T, H * dh] each, heads as many as ``lp``'s columns hold."""
+    h = rms_norm(x, lp["attn_norm"], cfg.rms_eps, cfg.norm_offset)
+    q, k, v = mm(h, lp["wq"]), mm(h, lp["wk"]), mm(h, lp["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    return q, k, v
+
+
+def _attention(
     cfg: ModelConfig,
     x: torch.Tensor,          # [B, T, D]
-    lp: dict,                 # this layer's params (leading L axis removed)
+    qkv: tuple,               # _project(...): flat q, k, v
     cos: torch.Tensor,
     sin: torch.Tensor,
     mask: Optional[torch.Tensor],  # [B, T, S]; None on the kernel paths
@@ -310,21 +322,17 @@ def _layer(
     flash_offset: Optional[int],
     kv_width: Optional[int],
     decode_flash: bool,
-    mm,                       # qmatmul with the engine's W8A8 / int4 settings
     decode_w8a8: bool,
-    prefix: Optional[dict],   # shared-prefix KV stacks, or None
-    prefix_len,               # int or int32 scalar: valid prefix slots
-    prefix_rows: Optional[torch.Tensor],  # [B] bool: rows attending the prefix
+    prefix: Optional[dict] = None,   # shared-prefix KV stacks, or None
+    prefix_len=None,                  # int or int32 scalar: valid prefix slots
+    prefix_rows: Optional[torch.Tensor] = None,  # [B] bool: rows attending the prefix
 ) -> torch.Tensor:
+    """Rope, the cache write and attention over ``cfg``'s heads (all of
+    them, or a tensor-parallel shard's): the attention output [B, T,
+    Hq * dh] before the output projection."""
     b, t, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-
-    h = rms_norm(x, lp["attn_norm"], cfg.rms_eps, cfg.norm_offset)
-    q = mm(h, lp["wq"])
-    k = mm(h, lp["wk"])
-    v = mm(h, lp["wv"])
-    if cfg.qkv_bias:
-        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    q, k, v = qkv
     q = apply_rope(q.reshape(b, t, hq, dh), cos, sin)
     k = apply_rope(k.reshape(b, t, hkv, dh), cos, sin)
     v = v.reshape(b, t, hkv, dh)
@@ -394,13 +402,49 @@ def _layer(
             logit_softcap=cfg.attn_logit_softcap,
         )
         attn_out = merge_attention_states(o1, m1, l1, attn_out, m2, l2)
-    x = x + mm(attn_out.reshape(b, t, hq * dh), lp["wo"])
+    return attn_out.reshape(b, t, hq * dh)
 
+
+def _mlp(cfg: ModelConfig, x: torch.Tensor, lp: dict, mm, expert_offset: int = 0
+         ) -> torch.Tensor:
+    """The normed MLP (or MoE) block's output, no residual: the whole of it,
+    or a shard's partial sum when ``lp`` holds a slice of the hidden dim or
+    of the experts."""
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_eps, cfg.norm_offset)
     if cfg.is_moe:
-        return x + moe_block(h, lp["w_router"], lp["w_gate"], lp["w_up"], lp["w_down"],
-                             top_k=cfg.experts_per_token, activation=cfg.activation, mm=mm)
-    return x + gated_mlp(h, lp["w_gate"], lp["w_up"], lp["w_down"], cfg.activation, mm=mm)
+        return moe_block(h, lp["w_router"], lp["w_gate"], lp["w_up"], lp["w_down"],
+                         top_k=cfg.experts_per_token, activation=cfg.activation, mm=mm,
+                         expert_offset=expert_offset)
+    return gated_mlp(h, lp["w_gate"], lp["w_up"], lp["w_down"], cfg.activation, mm=mm)
+
+
+def _layer(
+    cfg: ModelConfig,
+    x: torch.Tensor,          # [B, T, D]
+    lp: dict,                 # this layer's params (leading L axis removed)
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    cache: Optional[dict],
+    start_pos: Pos,
+    layer_idx: int,
+    layer_t: Optional[torch.Tensor],
+    row_start: Optional[torch.Tensor],
+    slots: Optional[torch.Tensor],
+    flash_offset: Optional[int],
+    kv_width: Optional[int],
+    decode_flash: bool,
+    mm,                       # qmatmul with the engine's W8A8 / int4 settings
+    decode_w8a8: bool,
+    prefix: Optional[dict],
+    prefix_len,
+    prefix_rows: Optional[torch.Tensor],
+) -> torch.Tensor:
+    attn_out = _attention(cfg, x, _project(cfg, x, lp, mm), cos, sin, mask, cache, start_pos,
+                          layer_idx, layer_t, row_start, slots, flash_offset, kv_width,
+                          decode_flash, decode_w8a8, prefix, prefix_len, prefix_rows)
+    x = x + mm(attn_out, lp["wo"])
+    return x + _mlp(cfg, x, lp, mm)
 
 
 def layer_views(params: dict) -> list[dict]:
@@ -604,3 +648,341 @@ def forward(
         idx = logits_index.to(device=dev, dtype=torch.long)
         x = x.gather(1, idx[:, None, None].expand(b, 1, x.shape[-1]))
     return unembed(params, cfg, x, mm), cache
+
+
+# -- tensor, expert and sequence parallelism -------------------------------------
+
+
+class ShardGroup:
+    """One replica's tensor- and expert-parallel group of a sharded model:
+    the mesh positions at fixed indices of the other axes (``replica``,
+    e.g. ``{"dp": 0, "sp": 1}``), with the weight shard each holds
+    (parallel/sharding.py ``shard_pytree``), as :func:`forward_sharded`
+    runs them. It is JAX's GSPMD program made explicit: every shard's
+    compute is issued on its own device and the partial sums are reduced
+    here (parallel/sharding.py ``reduce_sum``, ``gather``).
+
+    Attention: when ``tp`` divides both head counts each tp position runs
+    its own head slice (the projections by column, the output projection
+    by row, its own contiguous cache of Hkv / tp heads, its own kernel
+    launch: JAX's ``shard_map`` round the kernels). Otherwise the
+    projections follow their specs (a column split may cut through a head)
+    and are gathered, and attention runs once, on the group's first
+    device, over one replicated cache with the plain op: the reference's
+    routing for a non-dividing degree (its ``qkv_pin`` pins the heads
+    replicated before rope and the cache write, because GSPMD carrying a
+    within-head split through them miscompiled on jax 0.4). The kernels
+    run only on meshes whose every axis but ``tp`` has size 1, the JAX
+    gate; elsewhere attention takes the plain op on each shard.
+
+    MLP: the hidden dim splits by column and row over ``tp`` and the
+    partials sum; MoE experts split over ``ep`` (or ``tp``), their hidden
+    dim over ``tp`` too when both axes exist, the router whole on every
+    shard. The vocabulary splits over ``tp``: the lookup is masked per shard
+    and summed, the logits gathered.
+    """
+
+    def __init__(self, cfg: ModelConfig, mesh, shards: list, specs: dict,
+                 replica: Optional[dict] = None):
+        self.cfg, self.mesh = cfg, mesh
+        self.replica = dict(replica or {})
+        self.tp = mesh.shape.get("tp", 1)
+        lspec = specs["layers"]
+
+        def positions(*spec_entries) -> list:
+            """Flat indices over the axes the specs split (others at the
+            replica's index, or 0)."""
+            axes = [a for a in ("ep", "tp") if any(
+                a == e or (isinstance(e, tuple) and a in e)
+                for spec in spec_entries for e in spec)]
+            out = [dict(self.replica)]
+            for a in axes:
+                out = [{**c, a: i} for c in out for i in range(mesh.shape[a])]
+            return [mesh.flat_index(**c) for c in out]
+
+        self.root_pos = mesh.flat_index(**self.replica)
+        self.heads = cfg.n_heads % self.tp == 0 and cfg.n_kv_heads % self.tp == 0
+        self.lcfg = (replace(cfg, n_heads=cfg.n_heads // self.tp,
+                             n_kv_heads=cfg.n_kv_heads // self.tp) if self.heads else cfg)
+        self.q_pos = positions(lspec["wq"])
+        self.kv_pos = positions(lspec["wk"])
+        self.o_pos = positions(lspec["wo"])
+        self.attn_pos = self.q_pos if self.heads else [self.root_pos]
+        self.mlp_pos = positions(lspec["w_gate"], lspec["w_down"])
+        self.vocab_pos = positions(specs["embed"])
+        self.head_pos = positions(specs.get("lm_head", specs["embed"]))
+        used = {self.root_pos, *self.q_pos, *self.kv_pos, *self.o_pos, *self.mlp_pos,
+                *self.vocab_pos, *self.head_pos}
+        self.params = {p: shards[p] for p in used}
+        self.layers = {p: layer_views(shards[p]) for p in used}
+        self.devs = {p: mesh.devices.flat[p].torch_device for p in used}
+        self.root = self.devs[self.root_pos]
+        # Each MLP position's first expert (its ep coordinate times the experts
+        # a shard holds; 0 when the experts are whole).
+        self.expert_offset = {}
+        ep_entry = lspec["w_gate"][1] if cfg.is_moe else None
+        if ep_entry is not None:
+            per = cfg.n_experts // mesh.shape[ep_entry]
+            self.expert_offset = {p: mesh.coords(p)[ep_entry] * per for p in self.mlp_pos}
+        others = {a: n for a, n in mesh.shape.items() if a != "tp"}
+        self.kernels = self.heads and all(n == 1 for n in others.values())
+
+    def new_caches(self, batch: int, max_seq: int, dtype: torch.dtype,
+                   quant: Optional[str]) -> list:
+        """The group's KV caches: one contiguous cache of its heads per
+        attention position, or one whole cache on the first device."""
+        return [init_kv_cache(self.lcfg, batch, max_seq, device=self.devs[p], dtype=dtype,
+                              quant=quant) for p in self.attn_pos]
+
+    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Token embeddings [B, T, D] on the first device."""
+        cfg = self.cfg
+        if len(self.vocab_pos) == 1:
+            x = self.params[self.vocab_pos[0]]["embed"][tokens.to(self.root)]
+        else:
+            parts = []
+            for j, p in enumerate(self.vocab_pos):
+                table = self.params[p]["embed"]
+                n = table.shape[0]
+                local = tokens.to(self.devs[p]) - j * n
+                ok = (local >= 0) & (local < n)
+                parts.append(table[local.clamp(0, n - 1)] * ok[..., None].to(table.dtype))
+            x = reduce_sum(parts, self.root)
+        if cfg.embed_scale:
+            x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
+        return x
+
+    def unembed(self, x: torch.Tensor, mm) -> torch.Tensor:
+        """Final norm + LM head → fp32 logits [B, T, V] on the first device."""
+        cfg = self.cfg
+        parts = []
+        for p in self.head_pos:
+            params = self.params[p]
+            h = rms_norm(x.to(self.devs[p]), params["final_norm"], cfg.rms_eps, cfg.norm_offset)
+            head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+            parts.append(mm(h, head, torch.float32))
+        logits = gather(parts, -1, self.root)
+        if cfg.final_logit_softcap is not None:
+            c = cfg.final_logit_softcap
+            logits = c * torch.tanh(logits / c)
+        return logits
+
+    def project(self, x: torch.Tensor, i: int, mm) -> dict:
+        """Layer ``i``'s q/k/v: per attention position (its heads) when the
+        heads split, else gathered whole on the first device."""
+        if self.heads:
+            return {p: _project(self.cfg, x.to(self.devs[p]), self.layers[p][i], mm)
+                    for p in self.attn_pos}
+        cfg = self.cfg
+        names = (("wq", "bq", self.q_pos), ("wk", "bk", self.kv_pos), ("wv", "bv", self.kv_pos))
+        normed = {}
+        out = []
+        for w, b, pos in names:
+            parts = []
+            for p in pos:
+                if p not in normed:
+                    lp = self.layers[p][i]
+                    normed[p] = rms_norm(x.to(self.devs[p]), lp["attn_norm"], cfg.rms_eps,
+                                         cfg.norm_offset)
+                y = mm(normed[p], self.layers[p][i][w])
+                if cfg.qkv_bias:
+                    y = y + self.layers[p][i][b]
+                parts.append(y)
+            out.append(gather(parts, -1, self.root))
+        return {self.root_pos: tuple(out)}
+
+    def out_proj(self, attn: dict, i: int, mm) -> torch.Tensor:
+        """The output projection's sum over the group, on the first device:
+        ``attn`` maps each attention position to its [B, T, H * dh]."""
+        if self.heads:
+            return reduce_sum([mm(a, self.layers[p][i]["wo"]) for p, a in attn.items()],
+                              self.root)
+        a = attn[self.root_pos]
+        chunks = a.chunk(len(self.o_pos), dim=-1)
+        return reduce_sum([mm(c.to(self.devs[p]), self.layers[p][i]["wo"])
+                           for c, p in zip(chunks, self.o_pos)], self.root)
+
+    def mlp(self, x: torch.Tensor, i: int, mm) -> torch.Tensor:
+        return reduce_sum([_mlp(self.cfg, x.to(self.devs[p]), self.layers[p][i], mm,
+                                self.expert_offset.get(p, 0)) for p in self.mlp_pos],
+                          self.root)
+
+
+def _on(t: Optional[torch.Tensor], dev: torch.device, memo: dict):
+    """``t`` on ``dev``, one copy per device per call."""
+    if t is None:
+        return None
+    key = (id(t), dev)
+    if key not in memo:
+        memo[key] = t.to(dev)
+    return memo[key]
+
+
+def forward_sharded(
+    group: ShardGroup,
+    tokens: torch.Tensor,             # [B, T] int
+    caches: Optional[list] = None,    # group.new_caches(...) or None; updated in place
+    start_pos: Pos = 0,
+    attn_impl: str = "torch",
+    kv_width: Optional[int] = None,
+    logits_index: Optional[torch.Tensor] = None,
+    *,
+    mm: Callable = qmatmul,
+    decode_w8a8: bool = False,
+    remat: bool = False,
+) -> torch.Tensor:
+    """:func:`forward` over a :class:`ShardGroup`: fp32 logits [B, T, V] on
+    the group's first device, the same numbers as the unsharded forward up
+    to the order of the partial sums. Single-stream forms only (a cache
+    with a shared start, or none): the batcher's ``row_start``, shared
+    prefix and bitmap forms over a sharded model are not ported. Routing
+    as in :func:`forward`, the kernels each on its shard's heads where
+    :class:`ShardGroup` says they run."""
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
+    if remat and caches is not None:
+        raise ValueError("remat is the cache-less (training) forward's")
+    cfg, lcfg, root = group.cfg, group.lcfg, group.root
+    b, t = tokens.shape
+    tokens = tokens.to(root)
+    x = group.embed(tokens)
+    hq, hkv, dh = lcfg.n_heads, lcfg.n_kv_heads, lcfg.head_dim
+    cache = caches[0] if caches is not None else None
+    flash_offset = (
+        int(start_pos)
+        if (attn_impl == "flash" and cache is not None and isinstance(start_pos, int)
+            and group.kernels and flash_supported(t, hq, hkv, dh))
+        else None
+    )
+    decode_flash = (attn_impl == "flash" and cache is not None and t == 1
+                    and flash_offset is None and group.kernels
+                    and decode_supported(hq, hkv, dh))
+
+    steps = torch.arange(t, dtype=torch.int32, device=root)
+    positions = (steps + (start_pos.to(root) if torch.is_tensor(start_pos) else start_pos)
+                 )[None, :].expand(b, t)
+    inv_freq = rope_inv_freq(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling_dict, device=root)
+    cos, sin = rope_angles(positions, inv_freq)
+    slots = None if isinstance(start_pos, int) else (steps + start_pos.to(root)).long()
+    if flash_offset is not None or decode_flash:
+        mask = None
+    elif cache is not None:
+        s = kv_capacity(cache["k"])
+        if kv_width is not None:
+            s = min(s, kv_width)
+        kv_slots = torch.arange(s, dtype=torch.int32, device=root)[None, :].expand(b, s)
+        start = start_pos.to(root) if torch.is_tensor(start_pos) else start_pos
+        mask = make_attention_mask(positions, kv_slots, kv_slots < (start + t),
+                                   cfg.sliding_window)
+    else:
+        mask = make_attention_mask(positions, positions, None, cfg.sliding_window)
+    layer_ids = row_start = None
+    if decode_flash:
+        if isinstance(start_pos, int):
+            start_pos = torch.full((), start_pos, dtype=torch.int32, device=root)
+            slots = (steps + start_pos).long()
+        else:
+            start_pos = start_pos.to(device=root, dtype=torch.int32)
+        layer_ids = torch.arange(cfg.n_layers, dtype=torch.int32, device=root)
+        row_start = torch.zeros(b, dtype=torch.int32, device=root)
+    decode_w8a8 = decode_w8a8 and decode_flash and is_quantized(cache["k"])
+    memo: dict = {}
+
+    def layer(x, i):
+        qkv = group.project(x, i, mm)
+        attn = {}
+        for j, p in enumerate(group.attn_pos):
+            d = group.devs[p]
+            attn[p] = _attention(
+                lcfg, x.to(d), qkv[p], _on(cos, d, memo),
+                _on(sin, d, memo), _on(mask, d, memo),
+                caches[j] if caches is not None else None,
+                _on(start_pos, d, memo) if torch.is_tensor(start_pos) else start_pos, i,
+                layer_ids[i].to(d) if layer_ids is not None else None,
+                _on(row_start, d, memo), _on(slots, d, memo), flash_offset, kv_width,
+                decode_flash, decode_w8a8)
+        x = x + group.out_proj(attn, i, mm)
+        return x + group.mlp(x, i, mm)
+
+    for i in range(cfg.n_layers):
+        if remat and torch.is_grad_enabled():
+            from torch.utils.checkpoint import checkpoint
+
+            x = checkpoint(layer, x, i, use_reentrant=False)
+        else:
+            x = layer(x, i)
+    if logits_index is not None:
+        idx = logits_index.to(device=root, dtype=torch.long)
+        x = x.gather(1, idx[:, None, None].expand(b, 1, x.shape[-1]))
+    return group.unembed(x, mm)
+
+
+def forward_ring_prefill(
+    groups: list,                     # one ShardGroup per sp position, in sp order
+    tokens: torch.Tensor,             # [B, T], T divisible by len(groups)
+    caches: list,                     # groups[0].new_caches(...); written at [0, T)
+    logits_index: Optional[torch.Tensor] = None,
+    *,
+    mm: Callable = qmatmul,
+) -> torch.Tensor:
+    """Sequence-parallel one-shot prefill from position 0 (the JAX
+    ``_forward_ring_prefill``): the prompt's activations split over the
+    ``sp`` positions, each holding one block of T / sp tokens on its
+    devices, attention by ring attention (parallel/ring.py) per head shard
+    (heads over ``tp`` when it divides them, else whole on each sp
+    position), and every block's K/V written into the first group's
+    caches, where the whole sequence assembles for decode. Returns fp32
+    logits [B, 1 or T, V] on the first group's device."""
+    from llm_consensus_tpu_torch.parallel.ring import ring_attention_blocks
+
+    g0 = groups[0]
+    cfg, lcfg = g0.cfg, g0.lcfg
+    n = len(groups)
+    b, t = tokens.shape
+    if t % n:
+        raise ValueError(f"ring prefill: {t} tokens do not split over sp={n}")
+    tb = t // n
+    hq, hkv, dh = lcfg.n_heads, lcfg.n_kv_heads, lcfg.head_dim
+    x_all = g0.embed(tokens)
+    positions = torch.arange(t, dtype=torch.int32, device=g0.root)[None, :].expand(b, t)
+    inv_freq = rope_inv_freq(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling_dict,
+                             device=g0.root)
+    cos, sin = rope_angles(positions, inv_freq)
+
+    def block(a, s, dev):
+        return a[:, s * tb:(s + 1) * tb].to(dev)
+
+    xs = [block(x_all, s, g.root) for s, g in enumerate(groups)]
+    for i in range(cfg.n_layers):
+        qkv = [g.project(xs[s], i, mm) for s, g in enumerate(groups)]
+        attn = [dict() for _ in groups]
+        for j, p0 in enumerate(g0.attn_pos):
+            qs, ks, vs, pos = [], [], [], []
+            for s, g in enumerate(groups):
+                p = g.attn_pos[j]
+                d = g.devs[p]
+                q, k, v = qkv[s][p]
+                c, sn = block(cos, s, d), block(sin, s, d)
+                qs.append(apply_rope(q.reshape(b, tb, hq, dh), c, sn))
+                ks.append(apply_rope(k.reshape(b, tb, hkv, dh), c, sn))
+                vs.append(v.reshape(b, tb, hkv, dh))
+                pos.append(block(positions, s, d))
+            outs = ring_attention_blocks(qs, ks, vs, pos, dh ** -0.5, cfg.sliding_window,
+                                         cfg.attn_logit_softcap)
+            cdev = g0.devs[p0]
+            for s, g in enumerate(groups):
+                attn[s][g.attn_pos[j]] = outs[s].reshape(b, tb, hq * dh)
+                kv_write_rows(caches[j]["k"], ks[s].to(cdev), i, s * tb)
+                kv_write_rows(caches[j]["v"], vs[s].to(cdev), i, s * tb)
+        for s, g in enumerate(groups):
+            xs[s] = xs[s] + g.out_proj(attn[s], i, mm)
+            xs[s] = xs[s] + g.mlp(xs[s], i, mm)
+    if logits_index is None:
+        return g0.unembed(gather(xs, 1, g0.root), mm)
+    idx = int(logits_index.reshape(-1)[0]) if b == 1 else None
+    if idx is None:
+        x = gather(xs, 1, g0.root)
+        li = logits_index.to(device=g0.root, dtype=torch.long)
+        return g0.unembed(x.gather(1, li[:, None, None].expand(b, 1, x.shape[-1])), mm)
+    s, local = divmod(idx, tb)
+    return groups[s].unembed(xs[s][:, local:local + 1], mm).to(g0.root)

@@ -211,7 +211,8 @@ def metrics_summary(recorder: Optional[Recorder] = None, responses=None,
                     fault_trace: Optional[list[str]] = None,
                     failed_models: Optional[list[str]] = None,
                     warnings: Optional[list[str]] = None, live: Optional[dict] = None,
-                    attrib: Optional[dict] = None, roofline: Optional[dict] = None) -> dict:
+                    attrib: Optional[dict] = None, roofline: Optional[dict] = None,
+                    degraded_peers=None) -> dict:
     """The run's aggregates as one JSON-serializable dict (the JAX
     document's keys, in its order); ``fault_trace`` is the fault plan's
     decision lines (``faults``)."""
@@ -247,6 +248,9 @@ def metrics_summary(recorder: Optional[Recorder] = None, responses=None,
         out["roofline"] = roofline
     if fault_trace:
         out["faults"] = list(fault_trace)
+    if degraded_peers:
+        # Controllers that missed a collective deadline this run.
+        out["degraded_peers"] = sorted(int(p) for p in degraded_peers)
     if failed_models:
         out["failed_models"] = list(failed_models)
     if warnings:

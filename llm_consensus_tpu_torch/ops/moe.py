@@ -43,9 +43,18 @@ def moe_block(
     capacity_factor: float = 2.0,
     activation: str = "silu",
     mm=qmatmul,              # the engine's matmul (W8A8 / int4 settings bound)
+    expert_offset: int = 0,  # the first expert w_gate/w_up/w_down hold (an ep shard)
 ) -> torch.Tensor:
+    """The block's output, or, when the expert weights hold a slice of the
+    experts (``expert_offset`` onward: an expert-parallel shard, possibly
+    with a slice of each expert's hidden dim too), this shard's partial
+    sum: routing and capacity are over all ``E`` experts (the router is
+    whole on every shard) and only the shard's experts' products run, so
+    the shards' partials sum to the block's output."""
     b, t, d = x.shape
     e = w_router.shape[-1]
+    lead = w_gate if not isinstance(w_gate, dict) else w_gate.get("q8", w_gate.get("q4"))
+    lo, hi = expert_offset, expert_offset + lead.shape[0]
     n = b * t  # every row and position the forward sees, pads included
     tokens = x.reshape(n, d)
     gates, idx = route(tokens, w_router, top_k)
@@ -61,13 +70,16 @@ def moe_block(
 
     expert_in = x.new_zeros(e * capacity + 1, d)
     expert_in[slot] = tokens.repeat_interleave(top_k, dim=0)
-    expert_in = expert_in[:-1].reshape(e, capacity, d)
+    expert_in = expert_in[lo * capacity:hi * capacity].reshape(hi - lo, capacity, d)
     h = _activate(mm(expert_in, w_gate), activation) * mm(expert_in, w_up)
-    expert_out = mm(h, w_down).reshape(e * capacity, d)
+    expert_out = mm(h, w_down).reshape((hi - lo) * capacity, d)
 
-    # Combine: each token's kept choices, weighted by their gates cast to
-    # x's dtype (the JAX block's combine.astype(x.dtype)), summed in float32.
-    g = torch.where(kept, gates.reshape(-1).to(x.dtype), 0).float()
-    picked = expert_out[slot.clamp(max=e * capacity - 1)].float()
+    # Combine: each token's kept choices of this shard's experts, weighted
+    # by their gates cast to x's dtype (the JAX block's
+    # combine.astype(x.dtype)), summed in float32.
+    mine = kept & (flat >= lo) & (flat < hi)
+    g = torch.where(mine, gates.reshape(-1).to(x.dtype), 0).float()
+    local = (slot - lo * capacity).clamp(0, (hi - lo) * capacity - 1)
+    picked = expert_out[local].float()
     out = (picked * g[:, None]).reshape(n, top_k, d).sum(dim=1)
     return out.to(x.dtype).reshape(b, t, d)

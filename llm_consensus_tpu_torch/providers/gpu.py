@@ -112,12 +112,15 @@ whole-block KV into the decode engine's pool, and the batcher's admission
 then gathers it and prefills only the tail. Both roles share the
 provider's one device (the one-device case of ``parallel/mesh.py``
 ``split_roles``) and the worker runs on its own CUDA stream; a prompt under
-one prefill chunk takes the classic path (``KVHandoff.min_tokens``). The
-prefill share of a multi-device slice (JAX's ``disagg_fraction`` and
-``replan_disagg``) waits for a provider with more than one device. The
-prefill engine shares the decode engine's weight
-tree (no second copy) with its own wave cache, no KV pool and no prefix
-snapshot. ``disagg_depth``, ``disagg_wave`` and ``disagg_wait_s`` bound the
+one prefill chunk takes the classic path (``KVHandoff.min_tokens``). On a
+provider of several devices ``prepare`` splits each preset's slice into a
+prefill and a decode role (``disagg_fraction`` of it to prefill,
+``split_roles``); each role runs on its mesh's first device (tensor
+parallelism under disaggregation waits for the handoff over a sharded
+engine), and ``replan_disagg`` re-carves a preset's prefill share at run
+time. The prefill engine shares the decode engine's weight tree when both
+roles share a device (no second copy) and keeps a copy on its own device
+otherwise, with its own wave cache, no KV pool and no prefix snapshot. ``disagg_depth``, ``disagg_wave`` and ``disagg_wait_s`` bound the
 handoff queue, a wave and a submitter's wait; ``disagg_overlap`` polls the
 wait so a cancelled request abandons it. Any handoff failure (a full
 queue, a stall past the wait, a crashed wave) takes the classic path,
@@ -125,6 +128,20 @@ which runs the same kernels. ``disagg_stats()`` is the /statsz ``disagg``
 block, ``pressure_stats`` folds the handoff queue
 into ``queued`` (``handoff_queued``), and ``utilization_stats`` adds a
 ``<preset>:prefill`` gauge per role.
+
+Placement (parallel/mesh.py, the JAX provider's): the provider's devices
+are ``devices`` (mesh positions) or one handle for its ``device``.
+``prepare(models, judge, devices=None)`` runs ``plan_panel`` over them
+(every process's, under a multi-controller run) and keeps a mesh per
+preset: panel models on disjoint slices, the judge on the larger one, each
+with its ``best_tp``. An engine is built on its preset's mesh (sharded over
+it when the mesh has more than one position); a layout change rebuilds it,
+a preset absent from the new plan is evicted, the same layout keeps the
+cached engine. ``placement(model)`` is the mesh (parallel/multicontroller.py
+reads its owner from it). The retry ladder's third step re-places a model
+whose engine failed twice onto healthy positions (``_replace_engine``) and
+remembers the failed ones for later plans. One device plans what a single
+card always ran: every preset on it.
 
 Telemetry (obs/), bound at construction: an ``engine_stream`` span per
 request (recorder and flight recorder, with the request's ``trace``), the
@@ -140,6 +157,7 @@ import gc
 import os
 import threading
 import time
+import warnings
 from concurrent.futures import CancelledError
 from typing import Optional
 
@@ -185,6 +203,36 @@ def _cast_tree(tree: dict, dtype) -> dict:
     """Every floating leaf of a dense parameter tree in ``dtype``."""
     return {k: _cast_tree(v, dtype) if isinstance(v, dict)
             else (v.to(dtype) if v.is_floating_point() else v) for k, v in tree.items()}
+
+
+def _mesh_key(mesh):
+    """A mesh's layout (device ids, axes, shape), or None."""
+    if mesh is None:
+        return None
+    return (tuple(d.id for d in mesh.devices.flat), tuple(mesh.axis_names),
+            tuple(mesh.devices.shape))
+
+
+def _fits(engine, mesh) -> bool:
+    """True when ``engine`` runs on ``mesh``: built on it, or an engine
+    placed on a device (no mesh) and a one-position mesh of that device."""
+    em = getattr(engine, "mesh", None)
+    if em is not None:
+        return em is mesh or _mesh_key(em) == _mesh_key(mesh)
+    return mesh.size == 1 and mesh.devices.flat[0].torch_device == engine.device
+
+
+def _mesh_ids(engine) -> set:
+    mesh = getattr(engine, "mesh", None)
+    return set() if mesh is None else {d.id for d in mesh.devices.flat}
+
+
+def _to_device(tree, device):
+    """A parameter tree on ``device`` (the tree itself when already there)."""
+    if tree is None:
+        return None
+    return {k: _to_device(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
 
 
 def parse_model_name(model: str) -> str:
@@ -235,13 +283,27 @@ class GPUProvider(Provider):
                  spec_governor: bool = True, spec_probe: int = 64, swap_wait_s: float = 30.0,
                  prefill_chunk: int = 512, disagg: bool = False,
                  disagg_depth: int = 8, disagg_wave: int = 4, disagg_wait_s: float = 30.0,
-                 disagg_overlap: bool = True, **modes):
+                 disagg_overlap: bool = True, disagg_fraction: float = 0.5,
+                 devices=None, multihost_placement: bool = True, **modes):
         self.modes = _resolve_modes(**modes)
         self.prefix = {"prefix_cache": bool(prefix_cache),
                        "prefix_cache_max_mb": float(prefix_cache_max_mb)}
         self.kv = {"kv_pool": bool(kv_pool), "kv_pool_block": int(kv_pool_block),
                    "kv_pool_mb": float(kv_pool_mb)}
+        if devices is not None:
+            devices = list(devices)
+            if device is None:
+                device = devices[0].torch_device
         self.device = resolve_device(device)
+        from llm_consensus_tpu_torch.parallel.mesh import local_devices
+
+        self._devices = devices if devices is not None else local_devices(self.device)
+        self.multihost_placement = bool(multihost_placement)
+        # Placement: a mesh per preset (and the prefill role's under
+        # disaggregation), and every position seen failing a model twice.
+        self._meshes: dict = {}
+        self._prefill_meshes: dict = {}
+        self._bad_devices: set = set()
         self.checkpoint_dir = checkpoint_dir or None
         self.batch_streams = batch_streams
         self.pool_prefix = pool_prefix
@@ -298,6 +360,7 @@ class GPUProvider(Provider):
                        "disagg_wave": max(1, int(disagg_wave)),
                        "disagg_wait_s": float(disagg_wait_s),
                        "disagg_overlap": bool(disagg_overlap)}
+        self.disagg_fraction = min(max(float(disagg_fraction), 0.05), 0.9)
         self._handoffs: dict[str, tuple] = {}
         self._disagg_pool_warned = False
 
@@ -314,6 +377,7 @@ class GPUProvider(Provider):
                spec_probe: int = 64, max_seq: Optional[int] = None, prefill_chunk: int = 512,
                disagg: bool = False, disagg_depth: int = 8,
                disagg_wave: int = 4, disagg_wait_s: float = 30.0, disagg_overlap: bool = True,
+               disagg_fraction: float = 0.5, multihost_placement: bool = True,
                **modes) -> "GPUProvider":
         """One provider per device, quantization modes, batching settings,
         checkpoint directory, prefix and KV pool settings and recovery
@@ -345,7 +409,9 @@ class GPUProvider(Provider):
                 "spec_probe": int(spec_probe)}
         engine = {"max_seq": max_seq or None, "prefill_chunk": max(0, int(prefill_chunk))}
         disagg = {"disagg": bool(disagg), "disagg_depth": int(disagg_depth), "disagg_wave": int(disagg_wave),
-                  "disagg_wait_s": float(disagg_wait_s), "disagg_overlap": bool(disagg_overlap)}
+                  "disagg_wait_s": float(disagg_wait_s), "disagg_overlap": bool(disagg_overlap),
+                  "disagg_fraction": float(disagg_fraction),
+                  "multihost_placement": bool(multihost_placement)}
         key = (dev, tuple(sorted(modes.items())), tuple(sorted(batching.items())),
                checkpoint_dir, tuple(sorted(prefix.items())), journal,
                tuple(sorted(recovery.items())), tuple(sorted(spec.items())),
@@ -358,13 +424,80 @@ class GPUProvider(Provider):
                                        **disagg, **modes)
             return cls._shared[key]
 
-    def prepare(self, models: list[str], judge: Optional[str]) -> None:
-        """Build the CUDA kernels before the panel fan-out, so the first
-        build never runs inside a model's deadline."""
+    def prepare(self, models: list[str], judge: Optional[str], devices=None) -> None:
+        """Build the CUDA kernels before the panel fan-out (so the first
+        build never runs inside a model's deadline), and carve the devices
+        (``devices``, else the provider's, every process's under a
+        multi-controller run) into per-preset meshes with ``plan_panel``.
+        A preset serving both roles keeps the judge's slice. Presets whose
+        placement changed, or that the new plan lacks, drop their engine
+        (and batcher and handoff), so a stale placement never overlaps a
+        fresh one; a changed or dropped prefill role closes its handoff."""
         if self.device.type == "cuda":
             from llm_consensus_tpu_torch.ops.kernels.build import ensure_built
 
             ensure_built()
+        from llm_consensus_tpu_torch.models.config import get_config
+        from llm_consensus_tpu_torch.parallel import multicontroller as mc
+        from llm_consensus_tpu_torch.parallel.mesh import plan_panel
+
+        judge_preset = parse_model_name(judge) if judge and judge.startswith(SCHEME) else None
+        panel = list(dict.fromkeys(parse_model_name(m) for m in models if m.startswith(SCHEME)))
+        if not panel and judge_preset is None:
+            return
+        pool = list(devices) if devices is not None else mc.global_devices(self._devices)
+        with self._lock:
+            bad = set(self._bad_devices)
+        survivors = [d for d in pool if d.id not in bad]
+        if survivors:  # every position bad: plan as usual and fail honestly
+            pool = survivors
+        with warnings.catch_warnings():
+            if len(pool) == 1:
+                # One device has always served every model in turn: the
+                # planner's time-multiplexing warning would say nothing new.
+                warnings.simplefilter("ignore", RuntimeWarning)
+            plan = plan_panel(
+                [(p, get_config(p)) for p in panel if p != judge_preset],
+                (judge_preset, get_config(judge_preset)) if judge_preset else None,
+                devices=pool, multihost_placement=self.multihost_placement,
+                disagg_fraction=self.disagg_fraction if self.disagg["disagg"] else None)
+        meshes = {p.model: self._role_mesh(p.mesh) for p in plan.placements}
+        prefill = {p.model: self._role_mesh(p.prefill_mesh) for p in plan.placements
+                   if p.prefill_mesh is not None}
+        stale = []
+        with self._lock:
+            for preset, mesh in meshes.items():
+                old = self._meshes.get(preset)
+                if old is not None and _mesh_key(old) == _mesh_key(mesh):
+                    meshes[preset] = old  # same layout: the cached engine stays
+                elif preset in self._engines and not _fits(self._engines[preset], mesh):
+                    stale.append((preset, self._engines[preset]))
+            stale += [(p, e) for p, e in self._engines.items() if p not in meshes]
+            self._meshes = meshes
+            for preset in set(self._prefill_meshes) | set(prefill):
+                if _mesh_key(self._prefill_meshes.get(preset)) != _mesh_key(prefill.get(preset)):
+                    ent = self._handoffs.pop(preset, None)
+                    if ent is not None and ent[1] is not None:
+                        ent[1].close()
+            self._prefill_meshes = prefill
+        for preset, engine in stale:
+            self._evict(preset, engine)
+
+    def _role_mesh(self, mesh):
+        """The mesh a role runs on: the planned one, or under
+        disaggregation its first position alone (each role is tp = 1 until
+        the handoff over a sharded engine is ported)."""
+        if mesh is None or not self.disagg["disagg"] or mesh.size == 1:
+            return mesh
+        from llm_consensus_tpu_torch.parallel.mesh import make_mesh
+
+        return make_mesh({"dp": 1, "tp": 1}, [mesh.devices.flat[0]])
+
+    def placement(self, model: str):
+        """The mesh the preset serving ``model`` is (or will be) placed on,
+        or None before ``prepare`` placed it."""
+        with self._lock:
+            return self._meshes.get(parse_model_name(model))
 
     def engines(self) -> dict:
         """Built engines by preset (a snapshot)."""
@@ -745,6 +878,8 @@ class GPUProvider(Provider):
             self._engines.clear()
             self._specs.clear()
             self._handoffs.clear()
+            self._meshes.clear()
+            self._prefill_meshes.clear()
         for h in handoffs:
             h.close()
         for b in batchers:
@@ -795,9 +930,54 @@ class GPUProvider(Provider):
             return obj
 
     def _engine_for(self, model: str):
-        """Get or lazily build the engine serving ``model``."""
-        return self._get_or_build(self._engines, "engine", parse_model_name(model),
-                                  self._build_engine)
+        """Get or lazily build the engine serving ``model``, on its preset's
+        current mesh: an engine a concurrent ``prepare`` re-planned away
+        from during its build is dropped and built again."""
+        preset = parse_model_name(model)
+        while True:
+            engine = self._get_or_build(self._engines, "engine", preset, self._build_engine)
+            with self._lock:
+                mesh = self._meshes.get(preset)
+                if mesh is None or _fits(engine, mesh):
+                    return engine
+                if self._engines.get(preset) is engine:
+                    del self._engines[preset]
+
+    def _replace_engine(self, preset: str, failed_ids: set):
+        """Re-place ``preset`` off positions it failed on twice (the JAX
+        provider's elastic re-placement): onto positions of this process no
+        placement uses, else healthy ones another model holds
+        (time-multiplexed, with a warning either way); returns the fresh
+        engine, or None when no healthy position remains. The failed
+        positions are remembered, so later plans route round them."""
+        import warnings
+
+        from llm_consensus_tpu_torch.models.config import get_config
+        from llm_consensus_tpu_torch.parallel.mesh import (
+            _pow2_floor, best_tp, host_groups, make_mesh)
+
+        with self._lock:
+            self._bad_devices.update(failed_ids)
+            exclude = set(self._bad_devices)
+            used = {d.id for p, m in self._meshes.items() if p != preset
+                    for d in m.devices.flat}
+        healthy = [d for d in self._devices if d.id not in exclude]
+        if not healthy:
+            return None
+        spare = [d for d in healthy if d.id not in used]
+        group = max(host_groups(spare if spare else healthy), key=len)
+        tp = best_tp(get_config(preset), _pow2_floor(len(group)))
+        mesh = make_mesh({"dp": 1, "tp": tp}, group[:tp])
+        warnings.warn(f"re-placing {preset} after repeated failures on devices "
+                      f"{sorted(failed_ids)} -> {sorted(d.id for d in mesh.devices.flat)}"
+                      + ("" if spare else " (sharing a healthy model's slice)"),
+                      RuntimeWarning, stacklevel=2)
+        with self._lock:
+            self._meshes[preset] = mesh
+            engine = self._engines.get(preset)
+        if engine is not None:
+            self._evict(preset, engine)
+        return self._engine_for(SCHEME + preset)
 
     def _build_engine(self, preset: str, max_seq: Optional[int] = None):
         if self._faults is not None:
@@ -817,9 +997,18 @@ class GPUProvider(Provider):
             tokenizer = load_tokenizer(ckpt)
         cap = min(c for c in (self._max_seq, max_seq) if c) if (self._max_seq or max_seq) else None
         max_seq = min(cap, cfg.max_seq_len) if cap else None
-        return Engine(cfg, params, device=self.device, max_seq=max_seq, tokenizer=tokenizer,
+        with self._lock:
+            mesh = self._meshes.get(preset)
+        place = {"mesh": mesh} if mesh is not None else {"device": self.device}
+        if self.checkpoint_dir and params is not None and mesh is not None:
+            params = _to_device(params, mesh.devices.flat[0].torch_device)
+        kv = dict(self.kv)
+        if mesh is not None and mesh.size > 1:
+            kv["kv_pool"] = False  # not over a sharded engine yet (engine/engine.py)
+        return Engine(cfg, params, max_seq=max_seq, tokenizer=tokenizer,
                       stream_interval=self.stream_interval, swap_wait_s=self.swap_wait_s,
-                      prefill_chunk=self.prefill_chunk, **self.modes, **self.prefix, **self.kv)
+                      prefill_chunk=self.prefill_chunk, **place, **self.modes, **self.prefix,
+                      **kv)
 
     def _batcher_for(self, preset: str, engine):
         """The batcher serving ``preset`` over ``engine``, built once."""
@@ -940,20 +1129,71 @@ class GPUProvider(Provider):
             return handoff
 
     def _build_prefill_engine(self, preset: str, engine):
-        """The prefill role's engine on the decode engine's device and over
-        its weight tree (no copy), with its own wave cache, no KV pool and no
-        prefix snapshot. It holds no tree between waves: each wave runs on
-        the decode engine's pinned tree."""
+        """The prefill role's engine, on its planned prefill device (the
+        decode engine's when the slice had one device), with its own wave
+        cache, no KV pool and no prefix snapshot. It holds no tree of its
+        own at rest: each wave runs on the decode engine's pinned tree, or,
+        on another device, on the handoff's copy of it (engine/handoff.py)."""
         if self._faults is not None:
             self._faults.check("build", preset=preset)
         from llm_consensus_tpu_torch.engine import Engine
 
-        pe = Engine(engine.cfg, engine.params, dtype=engine.dtype, device=engine.device,
-                    max_seq=engine.max_seq, tokenizer=engine.tokenizer,
+        with self._lock:
+            pmesh = self._prefill_meshes.get(preset)
+        device = pmesh.devices.flat[0].torch_device if pmesh is not None else engine.device
+        pe = Engine(engine.cfg, _to_device(engine.params, device), dtype=engine.dtype,
+                    device=device, max_seq=engine.max_seq, tokenizer=engine.tokenizer,
                     stream_interval=self.stream_interval, prefill_chunk=engine.prefill_chunk,
                     prefix_cache=False, kv_pool=False, **self.modes)
         pe.params = pe._layers = None
         return pe
+
+    def replan_disagg(self, preset: str, fraction: float) -> dict:
+        """Re-carve ``preset``'s prefill share at run time (the JAX
+        provider's elastic hook): ``split_roles`` over the union of its
+        decode and prefill positions with the new ``fraction``, the prefill
+        mesh republished. The decode mesh (the resident pool) never moves;
+        a changed prefill role closes the stale handoff and the next request
+        builds one on the new slice. The fraction sticks for later plans."""
+        from llm_consensus_tpu_torch.models.config import get_config
+        from llm_consensus_tpu_torch.parallel.mesh import split_role_meshes
+
+        f = min(max(float(fraction), 0.05), 0.9)
+        with self._lock:
+            build_lock = self._build_locks.setdefault(("handoff", preset), threading.Lock())
+        with build_lock:
+            with self._lock:
+                self.disagg_fraction = f
+                dmesh = self._meshes.get(preset)
+                pmesh = self._prefill_meshes.get(preset)
+            if dmesh is None or not self.disagg["disagg"]:
+                return {"preset": preset, "fraction": f, "changed": False}
+            seen: dict = {}
+            for m in (dmesh, pmesh):
+                for d in (m.devices.flat if m is not None else ()):
+                    seen.setdefault(d.id, d)
+            new_pmesh, _ = split_role_meshes(get_config(preset), [seen[i] for i in sorted(seen)],
+                                             f)
+            new_pmesh = self._role_mesh(new_pmesh)
+            changed = _mesh_key(new_pmesh) != _mesh_key(pmesh)
+            stale = None
+            if changed:
+                with self._lock:
+                    if new_pmesh is None:
+                        self._prefill_meshes.pop(preset, None)
+                    else:
+                        self._prefill_meshes[preset] = new_pmesh
+                    stale = self._handoffs.pop(preset, None)
+            if stale is not None and stale[1] is not None:
+                stale[1].close()
+            if self._obs is not None:
+                self._obs.count("elastic.recarves")
+                self._obs.instant("disagg_recarve", tid="provider", preset=preset,
+                                  fraction=f, changed=changed)
+            return {"preset": preset, "fraction": f, "changed": changed,
+                    "prefill_devices": ([] if new_pmesh is None
+                                        else [d.id for d in new_pmesh.devices.flat]),
+                    "decode_devices": [d.id for d in dmesh.devices.flat]}
 
     def _recover_batcher(self, preset: str, failed_batcher):
         """Tear down a dead pool and rebuild engine and batcher: the
@@ -1158,11 +1398,33 @@ class GPUProvider(Provider):
             # failed engine's frames, so it is collectible before the
             # fresh one allocates.
             ctx.raise_if_done()  # never pay a rebuild for a doomed request
+            failed_ids = _mesh_ids(engine)
             self._evict(preset, engine)
             engine = None
             gc.collect()
-            engine = self._engine_for(req.model)
-            result = self._generate(engine, preset, prompt, sampling, ctx, cb, **gen)
+            replace = False
+            try:
+                engine = self._engine_for(req.model)
+                result = self._generate(engine, preset, prompt, sampling, ctx, cb, **gen)
+            except _NO_RETRY:
+                raise
+            except Exception:  # noqa: BLE001 — the placement is suspect
+                # A second failure (the rebuild or its generate): re-place
+                # the model on healthy positions and try once more; with
+                # none (one card) the model fails.
+                if engine is not None:
+                    failed_ids |= _mesh_ids(engine)
+                if streamed[0] or not failed_ids or len(self._devices) < 2:
+                    raise
+                replace = True
+            if replace:
+                ctx.raise_if_done()
+                engine = None
+                gc.collect()
+                engine = self._replace_engine(preset, failed_ids)
+                if engine is None:
+                    raise RuntimeError(f"{preset}: no healthy device left to re-place it on")
+                result = self._generate(engine, preset, prompt, sampling, ctx, cb, **gen)
         with self._lock:
             self.stats["tokens"] += len(result.token_ids)
             self.stats["runs"] += 1
@@ -1177,14 +1439,18 @@ class GPUProvider(Provider):
             tokens_per_sec = result.decode_tokens / result.decode_s
             kind = device_name(self.device)
             mid_context = result.prompt_tokens + len(result.token_ids) // 2
-            mfu = decode_mfu(engine.cfg, tokens_per_sec, kind, context_len=mid_context)
+            # Per card: virtual positions sharing one card count it once.
+            n_dev = (len({d.torch_device for d in engine.mesh.devices.flat})
+                     if engine.mesh is not None else 1)
+            cards = {"n_devices": n_dev} if n_dev > 1 else {}
+            mfu = decode_mfu(engine.cfg, tokens_per_sec, kind, context_len=mid_context, **cards)
             # Bytes per weight and per cache element of this engine's modes
             # (the JAX provider's widths).
             itemsize = engine.dtype.itemsize
             mbu = decode_mbu(
                 engine.cfg, tokens_per_sec, kind, context_len=mid_context,
                 weight_bytes={"int8": 1, "int4": 0.5}.get(engine.quant, itemsize),
-                kv_bytes=1 if engine.kv_quant == "int8" else itemsize,
+                kv_bytes=1 if engine.kv_quant == "int8" else itemsize, **cards,
             )
         for rec in (self._obs, self._bb):
             if rec is not None:

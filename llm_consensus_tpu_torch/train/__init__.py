@@ -1,5 +1,5 @@
 """Training layer of the port (``llm_consensus_tpu/train/``): the loss and
-the single-device train step.
+the train step, on one device or over a mesh.
 
 Modules:
   loss — next-token cross-entropy (fp32, masked) and the distillation
@@ -7,8 +7,8 @@ Modules:
   step — ``TrainState``, the optimizer (AdamW behind a global-norm clip),
          ``make_train_step`` (activation checkpointing per layer)
 
-The JAX step's mesh arguments (data, tensor, sequence and expert
-parallelism) wait for ``parallel/``.
+Over a mesh (``mesh=``, parallel/) the parameters are tensor- and
+expert-sharded and the data-parallel rows' gradients all-reduce.
 """
 
 from llm_consensus_tpu_torch.train.loss import cross_entropy_loss, distill_loss

@@ -77,23 +77,25 @@ def device_peaks(device_name: str) -> Optional[tuple[float, float]]:
 
 
 def decode_mfu(cfg: ModelConfig, tokens_per_sec: float, device_name: str,
-               context_len: int = 0) -> Optional[float]:
-    """Model FLOPs utilization of a decode stream, or None off-GPU."""
+               context_len: int = 0, n_devices: int = 1) -> Optional[float]:
+    """Model FLOPs utilization of a decode stream over ``n_devices`` cards,
+    or None off-GPU."""
     peaks = device_peaks(device_name)
     if peaks is None or tokens_per_sec <= 0:
         return None
-    return tokens_per_sec * flops_per_token(cfg, context_len) / peaks[0]
+    return tokens_per_sec * flops_per_token(cfg, context_len) / (peaks[0] * n_devices)
 
 
 def decode_mbu(cfg: ModelConfig, tokens_per_sec: float, device_name: str,
                context_len: int = 0, weight_bytes: float = 2,
-               kv_bytes: float = 2) -> Optional[float]:
-    """Memory-bandwidth utilization of a decode stream, or None off-GPU."""
+               kv_bytes: float = 2, n_devices: int = 1) -> Optional[float]:
+    """Memory-bandwidth utilization of a decode stream over ``n_devices``
+    cards, or None off-GPU."""
     peaks = device_peaks(device_name)
     if peaks is None or tokens_per_sec <= 0:
         return None
     per_tok = decode_bytes_per_token(cfg, context_len, weight_bytes, kv_bytes)
-    return tokens_per_sec * per_tok / peaks[1]
+    return tokens_per_sec * per_tok / (peaks[1] * n_devices)
 
 
 def batched_decode_mbu(cfg: ModelConfig, tokens_per_sec: float, batch: int, device_name: str,

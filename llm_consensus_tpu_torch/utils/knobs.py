@@ -116,7 +116,17 @@ knobs that the JAX package declares, with the same meaning:
     ``LLMC_DISTILL_BATCH`` (2), ``LLMC_DISTILL_SEQ`` (128),
     ``LLMC_DISTILL_TEMP`` (2.0), ``LLMC_DISTILL_ALPHA`` (0.5),
     ``LLMC_DISTILL_HOLDOUT`` (0.2) and ``LLMC_DISTILL_CKPT_EVERY`` (0: one
-    checkpoint at the end).
+    checkpoint at the end);
+  * placement and multi-controller runs (read by the CLI and passed as
+    arguments): ``LLMC_DISAGG_FRACTION`` (0.5, :func:`disagg_fraction`: the
+    prefill share of a preset's devices under disaggregation),
+    ``LLMC_MULTIHOST_PLACEMENT`` (on, :func:`multihost_placement`:
+    host-aware ``plan_panel``), ``LLMC_ALLGATHER_TIMEOUT`` (60 s,
+    :func:`allgather_timeout`: the cap of one bounded allgather), and
+    :func:`distributed_settings`: ``LLMC_COORDINATOR`` (empty),
+    ``LLMC_NUM_PROCESSES`` (0), ``LLMC_PROCESS_ID`` (0) and
+    ``LLMC_DISTRIBUTED`` (off: 1 joins through a launcher's environment),
+    the arguments of parallel/distributed.py ``initialize``.
 """
 
 from __future__ import annotations
@@ -456,4 +466,44 @@ def flywheel_settings() -> dict:
         "alpha": get_float("LLMC_DISTILL_ALPHA", 0.5),
         "holdout": get_float("LLMC_DISTILL_HOLDOUT", 0.2),
         "ckpt_every": get_int("LLMC_DISTILL_CKPT_EVERY", 0),
+    }
+
+
+def disagg_fraction() -> float:
+    """``LLMC_DISAGG_FRACTION``: the prefill share of each preset's device
+    slice under disaggregation (0.5), ``GPUProvider(disagg_fraction=)``."""
+    return get_float("LLMC_DISAGG_FRACTION", 0.5)
+
+
+def placement_settings() -> dict:
+    """The placement knobs as ``GPUProvider``'s keyword arguments:
+    ``disagg_fraction`` and ``multihost_placement``."""
+    return {"disagg_fraction": disagg_fraction(), "multihost_placement": multihost_placement()}
+
+
+def multihost_placement() -> bool:
+    """``LLMC_MULTIHOST_PLACEMENT``: host-aware placement of model slices
+    (on), ``plan_panel(multihost_placement=)``."""
+    return get_bool("LLMC_MULTIHOST_PLACEMENT", True)
+
+
+def allgather_timeout() -> float:
+    """``LLMC_ALLGATHER_TIMEOUT``: the deadline cap of one bounded
+    allgather in seconds (60)."""
+    return get_float("LLMC_ALLGATHER_TIMEOUT", 60.0)
+
+
+def distributed_settings() -> dict:
+    """The process group of a multi-controller run, as the keyword
+    arguments of parallel/distributed.py ``initialize``: the coordinator
+    address, the process count and this process's id (``LLMC_COORDINATOR``,
+    ``LLMC_NUM_PROCESSES``, ``LLMC_PROCESS_ID``; empty, 0, 0) and
+    ``LLMC_DISTRIBUTED`` (off) as ``force``. A process count of 0 means
+    none was given."""
+    n = get_int("LLMC_NUM_PROCESSES", 0)
+    return {
+        "coordinator_address": get_str("LLMC_COORDINATOR", "") or None,
+        "num_processes": n or None,
+        "process_id": get_int("LLMC_PROCESS_ID", 0),
+        "force": get_bool("LLMC_DISTRIBUTED"),
     }

@@ -1224,3 +1224,71 @@ def test_handoff_on_its_own_stream_publishes_the_prefill_bytes(cuda):
             want = ref[name].narrow(1, row, 1).narrow(kv_seq_axis(ref[name]), 0, span)
             got = gathered[name].narrow(kv_seq_axis(gathered[name]), 0, span)
             assert torch.equal(got, want), (j, name)
+
+
+# -- head slices of a tensor-parallel shard, and a tp = 2 engine (parallel/) ------------------
+
+
+@pytest.mark.parametrize("tp,hq,hkv", [(2, 16, 4), (8, 4, 1)], ids=["tp2", "tp8"])
+def test_kernels_on_a_shards_head_slice(cuda, tp, hq, hkv):
+    """llama-3-8b's heads over tp positions (group 4): flash at q[1,512,Hq,128]
+    and the bf16 and int8 decode kernels over one shard's contiguous
+    [L, 1, S, Hkv, 128] cache, each against its plain version."""
+    q, k, v = _bf16(cuda, 20 + tp, (1, 512, hq, 128), (1, 512, hkv, 128), (1, 512, hkv, 128))
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert (got.float() - fa.flash_attention_plain(q, k, v).float()).abs().max().item() < TOL
+    q, k, v = _bf16(cuda, 30 + tp, (1, 1, hq, 128), (2, 1, 8192, hkv, 128),
+                    (2, 1, 8192, hkv, 128))
+    rs = _i32(cuda, 0)
+    for pos, width in ((383, 384), (8191, 8192)):
+        got = da.decode_attention(q, k, v, _i32(cuda, pos)[0], _i32(cuda, 1)[0], rs,
+                                  kv_width=width)
+        torch.cuda.synchronize()
+        err, tol = _decode_err_and_tol(got, da.decode_attention_plain(q, k, v, pos, 1, rs,
+                                                                      kv_width=width))
+        assert err <= tol
+    k8, v8 = _int8_cache(cuda, 40 + tp, 2, 1, 2048, hkv), _int8_cache(cuda, 50 + tp, 2, 1, 2048,
+                                                                     hkv)
+    before = da.LAUNCHES_INT8.count
+    got = da.decode_attention(q, k8, v8, _i32(cuda, 1000)[0], _i32(cuda, 1)[0], rs,
+                              kv_width=1024)
+    torch.cuda.synchronize()
+    assert da.LAUNCHES_INT8.count == before + 1
+    err, tol = _decode_err_and_tol(got, da.decode_attention_plain(q, k8, v8, 1000, 1, rs,
+                                                                  kv_width=1024))
+    assert err <= tol
+
+
+def test_tp2_engine_on_two_positions_of_the_card_matches_tp1(cuda):
+    """A tp = 2 bf16 Engine on virtual_devices(2, "cuda") against the tp = 1
+    engine on the same weights: each shard launches its own flash and decode
+    kernels (twice the layers' launches), and the greedy tokens are equal or
+    keep every token within 0.25 of the tp = 1 model's best logit under
+    teacher forcing (the near-tie rule: the partial sums add in another
+    order in bf16)."""
+    from llm_consensus_tpu_torch.engine.engine import _bucket
+    from llm_consensus_tpu_torch.models.transformer import init_kv_cache
+    from llm_consensus_tpu_torch.parallel import make_mesh, virtual_devices
+
+    cfg = get_config("tiny-llama", head_dim=128, n_heads=8, n_kv_heads=4)
+    base = Engine(cfg, max_seq=256, device=cuda)
+    sharded = Engine(cfg, base.params, max_seq=256,
+                     mesh=make_mesh({"dp": 1, "tp": 2}, virtual_devices(2, cuda)))
+    s = SamplingParams(max_new_tokens=20, ignore_eos=True)
+    prompt_ids = base.tokenizer.encode("the quick brown fox")
+    want = base.generate_ids(prompt_ids, s).token_ids
+    flash0, decode0 = fa.LAUNCHES.count, da.LAUNCHES.count
+    got = sharded.generate_ids(prompt_ids, s).token_ids
+    assert fa.LAUNCHES.count - flash0 == 2 * cfg.n_layers
+    assert da.LAUNCHES.count - decode0 >= 2 * 19 * cfg.n_layers
+    assert len(got) == len(want)
+    if got != want:
+        ids = prompt_ids + got
+        with torch.inference_mode():
+            cache = init_kv_cache(cfg, 1, 256, device=cuda, dtype=base.dtype)
+            tokens = base._ids_tensor(ids + [0] * (_bucket(len(ids), 256) - len(ids)))
+            logits, _ = base._forward(tokens, cache, 0, attn_impl="flash")
+            lg = logits[0, len(prompt_ids) - 1:len(ids) - 1].float()
+            gaps = lg.max(-1).values - lg.gather(1, torch.tensor(got, device=cuda)[:, None])[:, 0]
+        assert gaps.max().item() <= 0.25, gaps.tolist()

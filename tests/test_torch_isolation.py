@@ -49,7 +49,16 @@ def test_no_jax_import(path):
 def test_the_obs_modules_are_covered():
     names = {p.name for p in _port_files() if p.parent.name == "obs"}
     assert names == {"__init__.py", "attrib.py", "blackbox.py", "export.py", "live.py",
-                     "profiler.py", "prom.py", "recorder.py", "roofline.py"}
+                     "multihost.py", "profiler.py", "prom.py", "recorder.py", "roofline.py"}
+
+
+def test_the_parallel_modules_are_covered():
+    """The AST checks cover the whole of the ported ``parallel/`` and the
+    multi-controller runner."""
+    names = {p.name for p in _port_files() if p.parent.name == "parallel"}
+    assert names == {"__init__.py", "distributed.py", "mesh.py", "multicontroller.py",
+                     "pipeline.py", "ring.py", "sharding.py"}
+    assert (PKG / "runner" / "multihost.py").exists()
 
 
 def test_the_serve_modules_are_covered():
@@ -109,9 +118,12 @@ def test_the_knobs_module_reads_only_knobs_the_jax_package_declares():
             "LLMC_DISTILL_LR", "LLMC_DISTILL_STEPS", "LLMC_DISTILL_BATCH", "LLMC_DISTILL_SEQ",
             "LLMC_DISTILL_TEMP", "LLMC_DISTILL_ALPHA", "LLMC_DISTILL_HOLDOUT",
             "LLMC_DISTILL_CKPT_EVERY"} <= named
-    assert not {"LLMC_DISAGG_FRACTION", "LLMC_CANARY_WINDOWS", "LLMC_CANARY_LATENCY_TOL",
+    # Placement and multi-controller runs: exactly these 7 joined next.
+    assert {"LLMC_DISTRIBUTED", "LLMC_COORDINATOR", "LLMC_NUM_PROCESSES", "LLMC_PROCESS_ID",
+            "LLMC_MULTIHOST_PLACEMENT", "LLMC_ALLGATHER_TIMEOUT", "LLMC_DISAGG_FRACTION"} <= named
+    assert not {"LLMC_CANARY_WINDOWS", "LLMC_CANARY_LATENCY_TOL",
                 "LLMC_CANARY_MIN_SAMPLES"} & named
-    assert len(named) == 98 + 13, sorted(named)
+    assert len(named) == 98 + 13 + 7, sorted(named)
     undeclared = sorted(n for n in named if n not in jax_knobs.REGISTRY)
     assert not undeclared, undeclared
 
@@ -275,3 +287,26 @@ def test_the_engine_and_fleet_settings_take_the_jax_defaults(monkeypatch):
     monkeypatch.setenv("LLMC_STALL_GRACE", "0.3")
     assert knobs.engine_settings() == {"max_seq": 64, "prefill_chunk": 0}
     assert knobs.stall_grace() == 0.3
+
+
+def test_the_placement_knobs_take_the_jax_defaults(monkeypatch):
+    """With the environment empty, the 7 placement and multi-controller knobs
+    read the JAX registry's defaults."""
+    from llm_consensus_tpu.utils import knobs as jax_knobs
+    from llm_consensus_tpu_torch.utils import knobs
+
+    names = ("LLMC_DISTRIBUTED", "LLMC_COORDINATOR", "LLMC_NUM_PROCESSES", "LLMC_PROCESS_ID",
+             "LLMC_MULTIHOST_PLACEMENT", "LLMC_ALLGATHER_TIMEOUT", "LLMC_DISAGG_FRACTION")
+    for name in names:
+        monkeypatch.delenv(name, raising=False)
+    reg = jax_knobs.REGISTRY
+    assert knobs.disagg_fraction() == reg["LLMC_DISAGG_FRACTION"].default
+    assert knobs.multihost_placement() == reg["LLMC_MULTIHOST_PLACEMENT"].default
+    assert knobs.allgather_timeout() == reg["LLMC_ALLGATHER_TIMEOUT"].default
+    assert knobs.placement_settings() == {"disagg_fraction": knobs.disagg_fraction(),
+                                          "multihost_placement": knobs.multihost_placement()}
+    d = knobs.distributed_settings()
+    assert d["force"] == reg["LLMC_DISTRIBUTED"].default
+    assert (d["coordinator_address"] or "") == reg["LLMC_COORDINATOR"].default
+    assert (d["num_processes"] or 0) == reg["LLMC_NUM_PROCESSES"].default
+    assert d["process_id"] == reg["LLMC_PROCESS_ID"].default

@@ -4,7 +4,8 @@ case by case, on one device (the CPU), and to the JAX step itself.
 
 The JAX file's mesh cases (``test_sharded_matches_single_device``,
 ``test_moe_with_expert_axis``, ``test_dp1_vs_dp2_gradient_parity``,
-``test_opt_state_dp_sharded``) wait for the port's ``parallel/``.
+``test_opt_state_dp_sharded``) run over ``virtual_devices(8, "cpu")``
+against the JAX results.
 
 Tolerances, stated once: a loss is held to the JAX step's within 1e-5
 relative; parameters after one to three steps within 5 % of one step's
@@ -313,3 +314,112 @@ def test_distill_loss_and_kl_decrease(trees):
     for _ in range(8):
         state, metrics = step(state, trees[7][1], batch)
     assert metrics["loss"] < first["loss"] and metrics["kl"] < first["kl"]
+
+
+# -- the mesh cases (TestTrainStep / TestDistillStep over a mesh) ---------------------------
+
+
+def _vdevs(axes: dict):
+    from llm_consensus_tpu_torch.parallel import make_mesh, virtual_devices
+
+    return make_mesh(axes, virtual_devices(int(np.prod(list(axes.values()))), "cpu"))
+
+
+@pytest.mark.parametrize("axes", [{"dp": 2, "tp": 4}, {"dp": 2, "tp": 2, "sp": 2}, {"dp": 8}])
+def test_sharded_matches_single_device(trees, axes):
+    """One SGD step over a mesh of virtual CPU positions (tp-sharded params,
+    dp rows whose gradients all-reduce): the loss within the JAX file's 5e-4
+    of the JAX single-device step's, the gathered parameters within 5 % of
+    its largest update."""
+    cfg, jcfg = get_config(PRESET), jax_config(PRESET)
+    b = _batch_np(1, cfg.vocab_size, batch=4)
+    opt = optax.sgd(1e-2)
+    jp = jax.tree.map(jnp.array, trees[0][0])
+    jstate = JaxTrainState(step=jnp.zeros((), jnp.int32), params=jp, opt_state=opt.init(jp))
+    jstate, jm = jax_train_step(jcfg, opt, remat=False)(jstate, _jax_batch(b))
+    mesh = _vdevs(axes)
+    state = init_train_state(cfg, optimizer=sgd(1e-2), params=trees[0][1], mesh=mesh,
+                             dtype=torch.float32)
+    state, m = make_train_step(cfg, remat=False, mesh=mesh)(state, _torch_batch(b))
+    np.testing.assert_allclose(m["loss"], float(jm["loss"]), rtol=5e-4)
+    _hold_params(state.tree(), jstate.params, trees[0][0])
+
+
+def test_moe_with_expert_axis():
+    """tiny-mixtral over dp 2 x ep 4 (experts over ep, the router whole on
+    every position): the first step's loss equals the JAX single-device
+    step's within 5e-4, and six steps of the default optimizer lower it."""
+    from llm_consensus_tpu_torch.train.step import default_optimizer as port_default
+
+    cfg, jcfg = get_config("tiny-mixtral"), jax_config("tiny-mixtral")
+    jp = jax_init(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    tree = params_from_numpy(jax.tree.map(np.asarray, jp), cfg, CPU, torch.float32)
+    b = _batch_np(1, cfg.vocab_size)
+    opt = jax_default_optimizer(lr=1e-2)
+    jstate = JaxTrainState(step=jnp.zeros((), jnp.int32), params=jp, opt_state=opt.init(jp))
+    _, jm = jax_train_step(jcfg, opt, remat=False)(jstate, _jax_batch(b))
+    mesh = _vdevs({"dp": 2, "ep": 4})
+    state = init_train_state(cfg, optimizer=port_default(lr=1e-2), params=tree, mesh=mesh,
+                             dtype=torch.float32)
+    step = make_train_step(cfg, mesh=mesh)
+    state, first = step(state, _torch_batch(b))
+    np.testing.assert_allclose(first["loss"], float(jm["loss"]), rtol=5e-4)
+    for _ in range(5):
+        state, metrics = step(state, _torch_batch(b))
+    assert metrics["loss"] < first["loss"]
+    assert np.isfinite(metrics["grad_norm"])
+
+
+def test_dp1_vs_dp2_gradient_parity(trees):
+    """The distillation step over dp 2 x tp 4 against the JAX step on one
+    device (the JAX file's tolerances: loss 2e-3, gradient norm 5e-3, the
+    first parameter leaf 2e-3 / 5e-4)."""
+    cfg, jcfg = get_config(PRESET), jax_config(PRESET)
+    b = _batch_np(1, cfg.vocab_size, batch=4)
+    jstate = jax_init_distill(jcfg, jax.random.PRNGKey(0), optax.sgd(1e-2), dtype=jnp.float32,
+                              params=jax.tree.map(jnp.array, trees[0][0]))
+    jstate, jm = jax_distill_step(jcfg, jcfg, optax.sgd(1e-2), remat=False, alpha=0.5)(
+        jstate, trees[7][0], _jax_batch(b))
+    mesh = _vdevs({"dp": 2, "tp": 4})
+    state = init_distill_state(cfg, optimizer=sgd(1e-2), dtype=torch.float32,
+                               params=trees[0][1], mesh=mesh)
+    state, m = make_distill_step(cfg, cfg, remat=False, alpha=0.5, mesh=mesh)(
+        state, trees[7][1], _torch_batch(b))
+    np.testing.assert_allclose(m["loss"], float(jm["loss"]), rtol=2e-3)
+    np.testing.assert_allclose(m["grad_norm"], float(jm["grad_norm"]), rtol=5e-3)
+    got = dict(_flat({k: v.detach() for k, v in _flat(state.tree())}))
+    want = dict(_flat(jax.tree.map(np.asarray, jstate.params)))
+    first = sorted(want)[0]
+    np.testing.assert_allclose(got[first].numpy(), want[first], rtol=2e-3, atol=5e-4)
+
+
+@pytest.mark.parametrize("axes", [{"dp": 2, "tp": 4}, {"dp": 2, "tp": 2, "sp": 2}])
+def test_opt_state_dp_sharded(axes):
+    """AdamW's moments take their parameters' specs widened over dp (ZeRO-1):
+    the spec trees equal the JAX optimizer state's mu/nu shardings leaf for
+    leaf, and the 2-D+ moments carry "dp"."""
+    from llm_consensus_tpu.flywheel.distill import opt_state_shardings as jax_shardings
+    from llm_consensus_tpu.models import init_params
+    from llm_consensus_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from llm_consensus_tpu_torch.flywheel.distill import opt_state_shardings
+    from llm_consensus_tpu_torch.train.step import default_optimizer as port_default
+
+    cfg = get_config(PRESET)
+    n = int(np.prod(list(axes.values())))
+    got = opt_state_shardings(port_default(), cfg, _vdevs(axes))
+    assert set(got) == {"mu", "nu"}
+    jmesh = jax_make_mesh(axes, jax.devices()[:n])
+    params = jax.eval_shape(lambda: init_params(jax_config(PRESET), jax.random.PRNGKey(0)))
+    flat = jax.tree_util.tree_flatten_with_path(
+        jax_shardings(optax.adamw(1e-3), params, jax_config(PRESET), jmesh))[0]
+    for moment in ("mu", "nu"):
+        want = {}
+        for path, sh in flat:
+            names = [getattr(e, "name", None) for e in path]
+            if moment in names:
+                keys = [getattr(e, "key", None) for e in path[names.index(moment) + 1:]]
+                want["/".join(keys)] = tuple(sh.spec)
+        mine = {k: v for k, v in _flat(got[moment])}
+        assert mine == want, moment
+        assert any("dp" in spec for k, spec in mine.items() if len(spec) >= 2)
+    assert opt_state_shardings(sgd(1e-2), cfg, _vdevs(axes)) == {}
