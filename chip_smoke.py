@@ -18,8 +18,8 @@
     python3 chip_smoke.py --phase parallel  # build + the head-slice kernel rows + parallel/
 
 Phases, in order; any failure exits non-zero before the last line. Every
-CLI run of the script asks ``CLI_TOKENS`` (48) tokens a model, where the
-phases below say 64:
+CLI run of the script asks ``CLI_TOKENS`` (48) tokens a model (the
+drafted slice of phase 8g 16), where the phases below say 64:
 
 1. the card: ``nvidia-smi`` name and power limit;
 2. build: the CUDA kernels from ``llm_consensus_tpu_torch/csrc`` with nvcc
@@ -113,7 +113,7 @@ phases below say 64:
    directory; a ``{"session": ...}`` line;
 8d. the serving phase (``--phase serving``) on llama-3-8b, bf16: (a) a
    ``ContinuousBatcher(max_batch=32)`` takes 32 random 350-token prompts
-   (28 x 32 tokens, 4 x 160), shrinks to 8 rows once the short ones retire
+   (28 x 32 tokens, 4 x 128), shrinks to 8 rows once the short ones retire
    (memory_allocated before and after: 24 rows of 1.07 GB freed), then a
    burst of 12 prompts sharing the slice's prompt regrows it to 16 (the
    state kernel); rows over time, the step wall at 32, 8 and 16 rows, the 4
@@ -176,7 +176,7 @@ phases below say 64:
    Any RuntimeWarning fails it. A ``{"kvpool": ...}`` line;
 8g. the speculation phase (``--phase spec``): llama-3-8b bf16 drafted by
    llama-3.2-1b bf16 (16 layers, dh 64), both at full width and 8,192 slots,
-   the slice's prompt: (a) k = 4, adaptive and governor off, 64 tokens:
+   the slice's prompt: (a) k = 4, adaptive and governor off, 48 tokens:
    flash once a layer on both prompts, the decode kernel in every draft step
    (k + 1 a round, 16 layers), none in a verify, at most one host fetch per
    round group, the tokens against plain decode by the near-tie rule; (b)
@@ -188,7 +188,7 @@ phases below say 64:
    pool (``max_batch=4``) on 4 random 350-token prompts plus one admitted
    mid-stream, and a compaction with holes on a 1,024-slot engine over the
    same weights (the oracle forced to accept 1 a round); (g) the slice's CLI with ``--draft llama-3-8b=llama-3.2-1b
-   --spec-k 4 --events`` and the batched slice's with ``LLMC_MAX_BATCH=4
+   --spec-k 4 --events`` (16 tokens a model) and the batched slice's with ``LLMC_MAX_BATCH=4
    --draft lookup --events`` (``metrics.json``'s ``spec`` block,
    consensus-1b undrafted). A RuntimeWarning (a "speculative decoding
    disabled" one among them) fails it. A ``{"spec": ...}`` line;
@@ -271,7 +271,13 @@ phases below say 64:
    path, (c) the slice's CLI over a provider of 4 positions, (d) two
    controller processes over gloo with equal merged results, (e) a
    one-process gloo + NCCL group's training step against the step without
-   one. A ``{"parallel": ...}`` line;
+   one; then serving over (a)'s tp 2 engine: (f) a ``ContinuousBatcher``
+   of 4 rows (a shared-prefix wave, then 4 unrelated prompts) against the
+   same waves on tp 1, each shard's flash, decode and state launches at its
+   head slice, (g) a KV-pool hit and its miss, (h) a handoff from the tp 1
+   engine into the tp 2 pool (bitwise), (i) prompt lookup on a judge
+   prompt, and (j) a weight swap of a tp 2 consensus-1b against a fresh
+   engine on the new weights. A ``{"parallel": ...}`` line;
 9. the quantized slice: the same CLI run with ``LLMC_QUANT=int8
    LLMC_KV_QUANT=int8`` in the environment (int8 weights, int8 KV cache,
    the int8 decode kernel), then a profiler window over one of its
@@ -317,6 +323,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import faulthandler
 import gc
 import io
 import json
@@ -3200,9 +3207,14 @@ def step_wall_ms(torch, engine, rows: int, frontier: int, windows: int = 5,
     return out
 
 
+# (a)'s four long streams: they outlive the short ones by 96 tokens, 6 chunks
+# (the pool shrinks 3 dispatches after the shorts retire).
+SERVING_LONG_TOKENS = 128
+
+
 def serving_rows(torch, fa, engine, seed: int) -> dict:
     """(a) Row bucketing: a 32-row pool takes 32 random 350-token prompts
-    (28 x 32 tokens, 4 x 160), shrinks to 8 rows once the short ones
+    (28 x 32 tokens, 4 x 128), shrinks to 8 rows once the short ones
     retire, then a burst of 12 prompts sharing the slice's prompt regrows it
     to 16 (their shared prefix: the state kernel). Resizes with their
     memory, rows over time, the step wall at 32, 8 and 16 rows (median and
@@ -3214,7 +3226,7 @@ def serving_rows(torch, fa, engine, seed: int) -> dict:
     tok = engine.tokenizer
     prompts = [random_ids(torch, seed + 100 + i, 349, tok.bos_id) for i in range(32)]
     short = SamplingParams(max_new_tokens=32, ignore_eos=True)
-    long = SamplingParams(max_new_tokens=160, ignore_eos=True)
+    long = SamplingParams(max_new_tokens=SERVING_LONG_TOKENS, ignore_eos=True)
     burst = [PROMPT + f" Panelist {i} of twelve, answer in one line." for i in range(12)]
     gb_row = (2 * engine.cfg.n_layers * engine.max_seq * engine.cfg.n_kv_heads
               * engine.cfg.head_dim * engine.dtype.itemsize) / 1e9
@@ -3255,7 +3267,8 @@ def serving_rows(torch, fa, engine, seed: int) -> dict:
     drop = resizes[0]["before_gb"] - resizes[0]["after_gb"]
     if abs(drop - 24 * gb_row) > 0.05 * 24 * gb_row:
         raise AssertionError(f"serving (a): the shrink freed {drop:.3f} GB, not 24 rows")
-    if any(len(r.token_ids) != (160 if i >= 28 else 32) for i, r in enumerate(first)) or any(
+    if any(len(r.token_ids) != (SERVING_LONG_TOKENS if i >= 28 else 32)
+           for i, r in enumerate(first)) or any(
             len(r.token_ids) != 32 for r in second):
         raise AssertionError("serving (a): a stream ended short")
     checks = [greedy_check(torch, engine, f"long stream {i} (moved in the shrink)", prompts[i],
@@ -4491,7 +4504,8 @@ MOE_TOL = 1e-4
 
 SPEC_TARGET, SPEC_DRAFT = "llama-3-8b", "llama-3.2-1b"
 SPEC_K = 4
-SPEC_TOKENS = 64       # (a)
+SPEC_TOKENS = 48       # (a)
+SPEC_CLI_TOKENS = "16"  # (g)'s drafted slice, tokens a model
 SPEC_SWEEP_TOKENS = 48  # (b), (c), (e); one run at each point of (b)
 ORACLE_ACCEPTS = (1, 3, 5)  # (b)'s points (2 was cut for the parallel phase)
 SPEC_GOVERNOR_TOKENS = 160  # (d): a 64-token drafted probe, a 64-token plain one, then locked
@@ -4838,13 +4852,15 @@ def spec_pool(torch, tgt, seed: int) -> dict:
 
 def spec_cli(torch, fa, da) -> dict:
     """(g) the slice's CLI with ``--draft llama-3-8b=llama-3.2-1b --spec-k 4``
-    and the batched slice's with ``LLMC_MAX_BATCH=4 --draft lookup``, both
+    (``SPEC_CLI_TOKENS`` a model) and the batched slice's with
+    ``LLMC_MAX_BATCH=4 --draft lookup``, both
     ``--events``: result.json's keys those of a plain run, metrics.json's
     ``spec`` block, consensus-1b plain."""
     out = {}
     counters = {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES}
     fresh_planes()
     sl = run_slice(torch, counters, {}, "(g) drafted slice", events=True, timing=False,
+                   max_tokens=SPEC_CLI_TOKENS,
                    extra=("--draft", f"{SPEC_TARGET}={SPEC_DRAFT}", "--spec-k", str(SPEC_K)))
     doc, metrics = sl["doc"], sl["files"]["metrics.json"]
     spec = metrics.get("spec", {})
@@ -6515,7 +6531,13 @@ def disagg_gap(torch, fa, seed: int) -> dict:
     (llama-3-8b bf16, 8 rows, the KV pool at 2,048 MB; the pool emptied
     between the runs): the residents' longest gap between fetches from the
     wave's arrival to its first tokens (the serving phase's metric), the wave's time to
-    first token, the handoff's stats; streams on against off."""
+    first token, the handoff's stats; streams on against off. The residents
+    admit classically in both runs, and the handoff is switched on only for
+    the wave: the batcher consults the pool only when idle, so a resident
+    handed off while another decodes is prefilled again in an interleaved
+    wave, and when the worker split the residents over two waves the first
+    could finish its 128 tokens before the last was live (the wait below
+    then had nothing left to wait for)."""
     from llm_consensus_tpu_torch.providers.base import Request
     from llm_consensus_tpu_torch.providers.gpu import GPUProvider
     from llm_consensus_tpu_torch.utils.context import Context
@@ -6529,7 +6551,7 @@ def disagg_gap(torch, fa, seed: int) -> dict:
                                ignore_eos=True)
         try:
             for on in (False, True):
-                provider.disagg["disagg"] = on
+                provider.disagg["disagg"] = False
                 provider.kv_evict_cold(0.0)
                 n0 = len(slog.items)
                 res: list = [None] * 4
@@ -6551,8 +6573,16 @@ def disagg_gap(torch, fa, seed: int) -> dict:
                     if len(live) == 4 and all(len(st.out_ids) >= 32 for st in live):
                         break
                     if time.monotonic() > deadline:
-                        raise AssertionError("disagg (b): the residents never decoded")
+                        # Every thread's stack, and where the residents are,
+                        # for the next reader of this failure.
+                        faulthandler.dump_traceback(all_threads=True)
+                        raise AssertionError(
+                            f"disagg (b): the residents never decoded: live "
+                            f"{[len(st.out_ids) for st in live]}, answered "
+                            f"{[r is not None for r in res]}, handoff "
+                            f"{provider.disagg_stats().get('llama-3-8b')}")
                     time.sleep(0.002)
+                provider.disagg["disagg"] = on
                 t_wave = tr.now()
                 hs0 = provider.disagg_stats().get("llama-3-8b", {})
                 wths = [threading.Thread(target=one, args=(wav, i, p, DISAGG_WAVE_TOKENS),
@@ -6953,6 +6983,121 @@ HEAD_SLICES = (
 )
 
 
+def head_record(recs: dict, name: str, source: str, replaces: str, shapes: str, err: float,
+                kern: dict, plain_ms: float, lib, nbytes: float, flops: float) -> None:
+    """One head-slice row of the kernels line: its times, bound and library
+    call; ``launches`` is filled in by the parallel phase's main-path run."""
+    bms, by = bound_ms(nbytes, flops)
+    recs[name] = dict(
+        name=name, route="cuda", source=source, replaces=replaces, shapes=shapes,
+        launches=0, max_abs_err=err, ms=kern["ms"], cold_ms=kern["cold_ms"],
+        plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        bound_share=bms / kern["cold_ms"],
+        library_ms=None if lib is None else lib["ms"],
+        library_cold_ms=None if lib is None else lib["cold_ms"])
+    log(f"head slice {name}: {shapes}: max_abs_err {err:.3e}; kernel warm "
+        f"{kern['ms']:.4f} ms, cold {kern['cold_ms']:.4f} ms; plain {plain_ms:.4f} ms; "
+        + ("" if lib is None else f"library warm {lib['ms']:.4f}, cold {lib['cold_ms']:.4f} ms; ")
+        + f"bound {bms:.5f} ms ({by}), {100 * bms / kern['cold_ms']:.1f} % of it cold")
+
+
+TP2_ROWS = (0, 40, 80, 120)  # the B = 4 decode row's ragged starts (parallel (f)'s wave)
+TP2_STATE_ROWS = (0, 37, 255, 5)  # the state row's, as the full-head B = 4 row's
+
+
+def check_head_slices_b4(torch, recs: dict) -> None:
+    """The shapes each tp 2 shard of llama-3-8b gives the kernels under the
+    batcher (parallel (f)): flash at the B = 4 wave, q[4,512,16,128]; the
+    bf16 decode at q[4,1,16,128] over [32,4,8192,4,128] with ragged row
+    starts at width 512; its ``return_state`` form at width 256. Each
+    against its plain version, timed warm and cold against the plain
+    version and the library call (SDPA; for the state form aten's
+    memory-efficient attention with its log-sum-exp), K/V expanded to 16
+    heads with the row starts as a bias mask."""
+    from llm_consensus_tpu_torch.ops.kernels import decode_attention as da
+    from llm_consensus_tpu_torch.ops.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    efficient = torch.ops.aten._scaled_dot_product_efficient_attention
+    b, t, hq, hkv, dh, L, S, layer = 4, 512, 16, 4, 128, 32, 8192, 5
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+
+    q, k, v = rnd(b, t, hq, dh), rnd(b, t, hkv, dh), rnd(b, t, hkv, dh)
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    err = max_err(got, fa.flash_attention_plain(q, k, v))
+    if not bool(torch.isfinite(got).all()) or err > FLASH_TOL:
+        raise AssertionError(f"flash_attention tp 2 B = 4: err {err}")
+    kern = timed(lambda: fa.flash_attention(q, k, v), 50)
+    plain_ms, _ = device_time_ms(lambda: fa.flash_attention_plain(q, k, v), 5)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    kt, vt = (x.repeat_interleave(hq // hkv, dim=1) for x in (kt, vt))
+    lib = timed(lambda: sdpa(qt, kt, vt, is_causal=True), 50)
+    head_record(recs, "flash_attention_tp2_b4", "llm_consensus_tpu_torch/csrc/flash_attention.cu",
+                "llm_consensus_tpu/ops/pallas/flash_attention.py:136",
+                f"q[{b},{t},{hq},{dh}] k/v[{b},{t},{hkv},{dh}] bf16 (llama-3-8b at tp 2, the "
+                "batcher's B = 4 wave)", err, kern, plain_ms, lib,
+                2.0 * b * (2 * t * hq * dh + 2 * t * hkv * dh), 4.0 * b * hq * dh * (t * (t + 1) // 2))
+    del q, k, v, qt, kt, vt
+    k, v, q = rnd(L, b, S, hkv, dh), rnd(L, b, S, hkv, dh), rnd(b, 1, hq, dh)
+    layer_t = torch.full((), layer, dtype=torch.int32, device="cuda")
+    qt = q.transpose(1, 2)
+    for state, pos, w, starts in ((False, 511, 512, TP2_ROWS), (True, 255, 256, TP2_STATE_ROWS)):
+        rs_t = torch.tensor(starts, dtype=torch.int32, device="cuda")
+        pos_t = torch.full((), pos, dtype=torch.int32, device="cuda")
+        kw = dict(kv_width=w, return_state=state)
+
+        def call(kw=kw, pos_t=pos_t, rs_t=rs_t):
+            return da.decode_attention(q, k, v, pos_t, layer_t, rs_t, **kw)
+
+        got = call()
+        torch.cuda.synchronize()
+        want = da.decode_attention_plain(q, k, v, pos, layer, rs_t, **kw)
+        got0, want0 = (got[0], want[0]) if state else (got, want)
+        err = max_err(got0, want0)
+        m_err = l_err = 0.0
+        if state:
+            m_err = max_err(got[1], want[1])
+            l_err = ((got[2] - want[2]).abs() / want[2].abs().clamp_min(1e-30)).max().item()
+        finite = all(bool(torch.isfinite(x).all()) for x in (got if state else (got,)))
+        if (not finite or err > decode_tol(want0) or m_err > STATE_M_TOL
+                or l_err > STATE_L_REL_TOL):
+            raise AssertionError(f"decode tp 2 B = 4 (state {state}): out {err}, m {m_err}, "
+                                 f"l {l_err}, finite {finite}")
+        kern = timed(call, 200)
+        plain_ms, _ = device_time_ms(
+            lambda kw=kw, pos_t=pos_t, rs_t=rs_t: da.decode_attention_plain(
+                q, k, v, pos_t, layer_t, rs_t, **kw), 10)
+        kt = k[layer, :, :w].transpose(1, 2).repeat_interleave(hq // hkv, dim=1).contiguous()
+        vt = v[layer, :, :w].transpose(1, 2).repeat_interleave(hq // hkv, dim=1).contiguous()
+        cols = torch.arange(w, device="cuda")
+        valid = (cols[None, :] <= pos) & (cols[None, :] >= rs_t[:, None].long())
+        bias = torch.zeros((b, hq, 1, w), dtype=torch.bfloat16, device="cuda")
+        bias.masked_fill_(~valid[:, None, None, :], float("-inf"))
+        if state:
+            lib = timed(lambda: efficient(qt, kt, vt, bias, True), 200)
+        else:
+            lib = timed(lambda: sdpa(qt, kt, vt, attn_mask=bias), 200)
+        n_valid = sum(pos - r + 1 for r in starts)
+        io_bytes = 2.0 * 2 * b * hq * dh + (2 * 4 * b * hq if state else 0)
+        name = "decode_attention_state_tp2_b4" if state else "decode_attention_tp2_b4"
+        head_record(recs, name, "llm_consensus_tpu_torch/csrc/decode_attention.cu",
+                    "llm_consensus_tpu/ops/pallas/decode_attention.py:415"
+                    + (" (return_state :139-147)" if state else ""),
+                    f"q[{b},1,{hq},{dh}] cache[{L},{b},{S},{hkv},{dh}] bf16, pos {pos}, width {w}, "
+                    f"row starts {list(starts)}" + (", return_state" if state else ""),
+                    err, kern, plain_ms, lib, 2.0 * 2 * n_valid * hkv * dh + io_bytes,
+                    4.0 * hq * dh * n_valid)
+        if state:
+            recs[name].update(m_max_abs_err=m_err, l_max_rel_err=l_err)
+        del kt, vt, bias
+    del k, v, q
+    release_memory(torch)
+
+
 def check_head_slices(torch, recs: dict) -> None:
     """Both kernels on the head slices a tensor-parallel shard of
     llama-3-8b gives them (tp 2: Hq 16 / Hkv 4; tp 8: Hq 4 / Hkv 1; the
@@ -6974,19 +7119,8 @@ def check_head_slices(torch, recs: dict) -> None:
     def i32(x):
         return torch.full((), x, dtype=torch.int32, device="cuda")
 
-    def record(name, source, replaces, shapes, err, kern, plain_ms, lib, nbytes, flops):
-        bms, by = bound_ms(nbytes, flops)
-        recs[name] = dict(
-            name=name, route="cuda", source=source, replaces=replaces, shapes=shapes,
-            launches=0, max_abs_err=err, ms=kern["ms"], cold_ms=kern["cold_ms"],
-            plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-            bound_share=bms / kern["cold_ms"],
-            library_ms=None if lib is None else lib["ms"],
-            library_cold_ms=None if lib is None else lib["cold_ms"])
-        log(f"head slice {name}: {shapes}: max_abs_err {err:.3e}; kernel warm "
-            f"{kern['ms']:.4f} ms, cold {kern['cold_ms']:.4f} ms; plain {plain_ms:.4f} ms; "
-            + ("" if lib is None else f"sdpa warm {lib['ms']:.4f}, cold {lib['cold_ms']:.4f} ms; ")
-            + f"bound {bms:.5f} ms ({by}), {100 * bms / kern['cold_ms']:.1f} % of it cold")
+    def record(*args):
+        head_record(recs, *args)
 
     t, dh, L, S, layer, pos, w = 512, 128, 32, 8192, 7, 383, 384
     for tag, _tp, hq, hkv in HEAD_SLICES:
@@ -7067,9 +7201,11 @@ def check_head_slices(torch, recs: dict) -> None:
 class ShardLaunches:
     """Each attention kernel call the sharded forward makes, by shard: wraps
     the transformer module's kernel entry points for the block and records
-    every call's head counts; the sharded forward issues the shards of a
-    layer in order, so call ``i`` of a layer belongs to shard ``i % tp``.
-    The launch counts themselves are the wrappers' LaunchCounters."""
+    every call's kind (the decode kernel's ``return_state`` form apart),
+    head counts and rows; the sharded forward issues the shards of a layer
+    in order, so call ``i`` of a kind belongs to shard ``i % tp`` (only one
+    sharded engine may run kernels inside the block). The launch counts
+    themselves are the wrappers' LaunchCounters."""
 
     def __init__(self, tp: int):
         self.tp = tp
@@ -7083,7 +7219,8 @@ class ShardLaunches:
         for name, real in self._real.items():
             def wrapped(q, k, *a, _r=real, _n=name, **kw):
                 kk = k["q8"] if isinstance(k, dict) else k
-                self.calls.append((_n, q.shape[2], kk.shape[-2]))
+                kind = _n + "_state" if kw.get("return_state") else _n
+                self.calls.append((kind, q.shape[2], kk.shape[-2], q.shape[0]))
                 return _r(q, k, *a, **kw)
             setattr(tr, name, wrapped)
         return self
@@ -7094,12 +7231,16 @@ class ShardLaunches:
 
     def by_shard(self) -> dict:
         out: dict = {}
-        for kind in ("flash_attention", "decode_attention"):
+        for kind in ("flash_attention", "decode_attention", "decode_attention_state"):
             calls = [c for c in self.calls if c[0] == kind]
             out[kind] = [sum(1 for i, _ in enumerate(calls) if i % self.tp == s)
                          for s in range(self.tp)]
-            out[kind + "_heads"] = sorted({c[1:] for c in calls})
+            out[kind + "_heads"] = sorted({c[1:3] for c in calls})
         return out
+
+    def at_batch(self, kind: str, b: int) -> int:
+        """Calls of ``kind`` with ``b`` query rows."""
+        return sum(1 for c in self.calls if c[0] == kind and c[3] == b)
 
 
 def gb(torch) -> float:
@@ -7225,9 +7366,236 @@ def finish_parallel_processes(procs: list) -> tuple:
     return docs[:2], docs[2]
 
 
+PAR_POOL_MB = 2048.0  # the tp 2 engine's KV pool: 2,048 MB over its two shards
+PAR_TOKENS = 32        # (f): tokens a batched stream
+PAR_SPEC_TOKENS = 48   # (i)
+
+
+def gated_batcher(engine, **kw):
+    """A batcher whose scheduler waits on a gate: submissions queued before
+    the gate opens form one admission wave."""
+    from llm_consensus_tpu_torch.engine.batcher import ContinuousBatcher
+
+    gate = threading.Event()
+    real_loop = ContinuousBatcher._loop
+
+    def gated(self):
+        gate.wait(timeout=300)
+        real_loop(self)
+
+    ContinuousBatcher._loop = gated
+    try:
+        b = ContinuousBatcher(engine, **kw)
+    finally:
+        ContinuousBatcher._loop = real_loop
+    return b, gate
+
+
+def par_waves(torch, engine, waves: list, n: int) -> tuple:
+    """Each wave of prompt ids through its own gated ``ContinuousBatcher``
+    (max_batch 4) over ``engine``, ``n`` greedy tokens a stream: the streams'
+    tokens, each wave's snapshot and wall."""
+    from llm_consensus_tpu_torch.engine import SamplingParams
+
+    s = SamplingParams(max_new_tokens=n, ignore_eos=True)
+    tokens, snaps, walls = [], [], []
+    for wave in waves:
+        b, gate = gated_batcher(engine, max_batch=4)
+        try:
+            t0 = time.monotonic()
+            futs = [b.submit_ids(list(p), s) for p in wave]
+            gate.set()
+            tokens += [f.result(timeout=600).token_ids for f in futs]
+            torch.cuda.synchronize()
+            walls.append(time.monotonic() - t0)
+            snaps.append(b.snapshot())
+        finally:
+            b.close()
+        del b
+        release_memory(torch)
+    return tokens, snaps, walls
+
+
+def parallel_serving(torch, fa, da, base, sharded, ids: list, seed: int, out: dict,
+                     recs: dict) -> dict:
+    """(f)-(i): serving over the tp 2 engine of (a) (its KV pool on), the tp 1
+    engine beside it. (f) a ``ContinuousBatcher(max_batch=4)`` over tp 2: 4
+    prompts sharing (a)'s 350-token prompt (the shared prefix), then 4
+    unrelated ones of 300-420 tokens (flash at B = 4, ragged rows), 32
+    tokens each, against the same waves on tp 1 (the near-tie rule), each
+    shard's launches counted at its head slice. (g) a 1,500-token prompt
+    through the tp 2 pool: its miss, then its hit (prefill ms by CUDA
+    events, the median of 3; the hit's tokens against the miss's). (h) a ``KVHandoff`` from
+    the tp 1 engine (the prefill role, its own tree) into the tp 2 pool: the
+    gathered shards joined, bitwise equal to the tp 1 prefill's bytes. (i)
+    prompt lookup on a ~2,000-token judge prompt over tp 2, against the
+    plain tp 2 decode."""
+    from llm_consensus_tpu_torch.consensus import render_judge_prompt
+    from llm_consensus_tpu_torch.engine import PromptLookupDrafter, SamplingParams, SpeculativeEngine
+    from llm_consensus_tpu_torch.engine.handoff import KVHandoff
+    from llm_consensus_tpu_torch.models.transformer import ShardGroup
+    from llm_consensus_tpu_torch.ops.quant import kv_seq_axis
+    from llm_consensus_tpu_torch.providers import Response
+
+    cfg, tp, row = base.cfg, 2, {}
+    bos = base.tokenizer.bos_id
+    shared = [ids + random_ids(torch, seed + 40 + i, 8) for i in range(4)]
+    unrelated = [random_ids(torch, seed + 50 + i, n, bos) for i, n in enumerate((419, 379, 339, 299))]
+    t0 = time.monotonic()
+    for c in (fa.LAUNCHES, da.LAUNCHES, da.LAUNCHES_STATE):
+        c.reset()
+    with ShardLaunches(tp) as log2:
+        got, snaps, walls = par_waves(torch, sharded, [shared, unrelated], PAR_TOKENS)
+    launches = {"flash_attention": fa.LAUNCHES.count, "decode_attention": da.LAUNCHES.count,
+                "decode_attention_state": da.LAUNCHES_STATE.count}
+    out["memory_gb"]["tp2 batcher peak"] = torch.cuda.max_memory_allocated() / 1e9
+    ref, ref_snaps, ref_walls = par_waves(torch, base, [shared, unrelated], PAR_TOKENS)
+    by = log2.by_shard()
+    b4 = {"flash_attention": log2.at_batch("flash_attention", 4),
+          "decode_attention": log2.at_batch("decode_attention", 4),
+          "decode_attention_state": log2.at_batch("decode_attention_state", 4)}
+    heads = (cfg.n_heads // tp, cfg.n_kv_heads // tp)
+    checks = [greedy_check(torch, base, f"parallel (f) stream {i} tp 2 against tp 1",
+                           p, g, r) for i, (p, g, r) in enumerate(zip(shared + unrelated, got, ref))]
+    row["f"] = {"launches": launches, "by_shard": by, "at_b4": b4, "walls_s": walls,
+                "tp1_walls_s": ref_walls, "prefix_len": [sn["prefix_len"] for sn in snaps],
+                "pool_decode_tokens_per_s": [sn["decode_tokens"] / max(sn["decode_s"], 1e-9)
+                                             for sn in snaps],
+                "tp1_pool_decode_tokens_per_s": [sn["decode_tokens"] / max(sn["decode_s"], 1e-9)
+                                                 for sn in ref_snaps],
+                "tokens": checks, "wall_s": time.monotonic() - t0}
+    log(f"parallel (f): tp 2 batcher, waves {[round(w, 2) for w in walls]} s (tp 1 "
+        f"{[round(w, 2) for w in ref_walls]}), prefix {row['f']['prefix_len']}; by shard: flash "
+        f"{by['flash_attention']}, decode {by['decode_attention']}, state "
+        f"{by['decode_attention_state']} at Hq/Hkv {heads}; at B = 4: {b4}; counters {launches}")
+    if (snaps[0]["prefix_len"] <= 0 or snaps[1]["prefix_len"] != 0
+            or any(by[k + "_heads"] != [heads] for k in launches)
+            or any(len(set(by[k])) != 1 or min(by[k]) <= 0 for k in launches)
+            or any(launches[k] != sum(by[k]) for k in ("flash_attention", "decode_attention_state"))
+            or launches["decode_attention"] != sum(by["decode_attention"])
+            + sum(by["decode_attention_state"])
+            or min(b4.values()) <= 0 or b4["flash_attention"] != tp * cfg.n_layers):
+        raise AssertionError(f"parallel (f): {row['f']}")
+    recs["flash_attention_tp2_b4"]["launches"] = b4["flash_attention"]
+    recs["decode_attention_tp2_b4"]["launches"] = b4["decode_attention"]
+    recs["decode_attention_state_tp2_b4"]["launches"] = b4["decode_attention_state"]
+
+    # (g) a pool hit over tp 2 against its miss.
+    pool = sharded._kv_pool
+    long_ids = random_ids(torch, seed + 60, 1500, bos)
+    s16 = SamplingParams(max_new_tokens=16, ignore_eos=True)
+    with torch.inference_mode():
+        miss_ms = median_ms(torch, lambda: sharded._prefill_ids(long_ids), 3)
+        miss = sharded.generate_ids(long_ids, s16).token_ids  # publishes the prompt's blocks
+        hits0 = pool.stats()["hits"]
+        hit_ms = median_ms(torch, lambda: sharded._prefill_ids(long_ids), 3)
+    hit = sharded.generate_ids(long_ids, s16).token_ids
+    stats = pool.stats()
+    row["g"] = {"miss_prefill_ms": miss_ms, "hit_prefill_ms": hit_ms,
+                "hits": stats["hits"] - hits0, "hit_tokens": stats["hit_tokens"],
+                "arenas": len(pool._arena), "arena_gb": pool.arena_bytes / 1e9,
+                "tokens": greedy_check(torch, base, "parallel (g) tp 2 pool hit against its miss",
+                                       long_ids, hit, miss)}
+    log(f"parallel (g): tp 2 pool ({len(pool._arena)} arenas, {pool.arena_bytes / 1e9:.2f} GB): "
+        f"{len(long_ids)}-token prefill {miss_ms:.1f} ms on a miss, {hit_ms:.1f} ms on a hit "
+        f"({row['g']['hits']} hits)")
+    if row["g"]["hits"] < 4 or not hit_ms < miss_ms:
+        raise AssertionError(f"parallel (g): {row['g']}")
+
+    # (h) a handoff from the tp 1 engine into the tp 2 pool: the bytes.
+    h_ids = random_ids(torch, seed + 61, 1200, bos)
+    with torch.inference_mode():
+        _lg, ref_cache, _w = base.admission_session([list(h_ids)]).run()
+    # The tp 1 engine holds the tree the tp 2 engine was cut from.
+    h = KVHandoff(base, sharded, version=sharded.weight_version, name="parallel")
+    try:
+        t0 = time.monotonic()
+        ok, truncated = h.run(list(h_ids), priority=0)
+        h_wall = time.monotonic() - t0
+        snap = h.snapshot()
+    finally:
+        h.close()
+    span = (len(h_ids) // pool.block_size) * pool.block_size
+    with torch.inference_mode():
+        n, gathered = pool.lookup(list(h_ids) + [65], min_tokens=1)
+        joined = ShardGroup.join_cache(gathered, base.device) if n else None
+        equal = n == span and all(
+            torch.equal(a.narrow(kv_seq_axis(a), 0, span), b.narrow(kv_seq_axis(b), 0, span))
+            for side in ("k", "v") for a, b in ((joined[side], ref_cache[side]),))
+    row["h"] = {"ok": ok, "truncated": truncated, "span": span, "gathered": n,
+                "bitwise_equal": equal, "handoff_bytes": snap["handoff_bytes"],
+                "handoff_blocks": pool.stats()["handoff_blocks"], "wall_s": h_wall}
+    log(f"parallel (h): handoff tp 1 → tp 2 pool of {span} tokens in {h_wall:.2f} s, "
+        f"{snap['handoff_bytes'] / 1e6:.1f} MB, gathered {n}, bitwise equal {equal}")
+    del gathered, joined, ref_cache
+    if not (ok and not truncated and equal):
+        raise AssertionError(f"parallel (h): {row['h']}")
+
+    # (i) prompt lookup over the tp 2 judge.
+    answer = sharded.tokenizer.decode(got[0])
+    judge = render_judge_prompt(PROMPT, [Response("gpu:llama-3-8b", answer, "gpu"),
+                                         Response("gpu:consensus-1b", PROMPT[:400], "gpu")])
+    s48 = SamplingParams(max_new_tokens=PAR_SPEC_TOKENS, ignore_eos=True)
+    plain = sharded.generate(judge, s48)
+    spec = SpeculativeEngine(sharded, PromptLookupDrafter(), k=SPEC_K, governor=False)
+    res = spec.generate(judge, s48)
+    jids = sharded._budget_prompt(sharded.tokenizer.encode(judge), PAR_SPEC_TOKENS)[0]
+    row["i"] = {"prompt_tokens": len(jids), "rounds": spec.stats["rounds"],
+                "mean_accepted": spec.mean_accepted, "tokens_per_s": spec_rate(res),
+                "plain_tokens_per_s": spec_rate(plain),
+                "tokens": greedy_check(torch, base, "parallel (i) lookup over tp 2", jids,
+                                       res.token_ids, plain.token_ids)}
+    log(f"parallel (i): lookup over tp 2 on a {len(jids)}-token judge prompt: mean accepted "
+        f"{spec.mean_accepted:.3f} over {spec.stats['rounds']} rounds, "
+        f"{row['i']['tokens_per_s']:.2f} tokens/s against plain {row['i']['plain_tokens_per_s']:.2f}")
+    if spec.stats["rounds"] <= 0 or spec.mean_accepted <= 1.0:
+        raise AssertionError(f"parallel (i): {row['i']}")
+    return row
+
+
+def parallel_swap(torch, seed: int, out: dict) -> dict:
+    """(j): consensus-1b bf16 on tp 2 swapped to seed + 1 weights: its tokens
+    equal a fresh tp 2 engine's on those weights; the swap's preparation
+    wall and the memory the double buffer holds."""
+    from llm_consensus_tpu_torch.engine import Engine, SamplingParams
+    from llm_consensus_tpu_torch.models import get_config
+    from llm_consensus_tpu_torch.models.transformer import init_params
+    from llm_consensus_tpu_torch.parallel import make_mesh, virtual_devices
+
+    cfg = get_config("consensus-1b")
+    mesh = make_mesh({"dp": 1, "tp": 2}, virtual_devices(2, "cuda"))
+    t0 = time.monotonic()
+    gb0 = gb(torch)
+    eng = Engine(cfg, seed=0, mesh=mesh)
+    built = gb(torch)
+    ids = random_ids(torch, seed + 70, 349, eng.tokenizer.bos_id)
+    s32 = SamplingParams(max_new_tokens=32, ignore_eos=True)
+    before = eng.generate_ids(ids, s32).token_ids
+    new = init_params(cfg, seed + 1, device=eng.device)
+    eng.swap_weights(1, new)
+    swapped = eng.generate_ids(ids, s32).token_ids
+    after_swap = gb(torch)
+    fresh = Engine(cfg, new, mesh=make_mesh({"dp": 1, "tp": 2}, virtual_devices(2, "cuda")))
+    want = fresh.generate_ids(ids, s32).token_ids
+    stats = eng.swap_stats()
+    row = {"equal_to_fresh": swapped == want, "changed": swapped != before,
+           "version": stats["weight_version"], "prep_ms": stats["last_prep_ms"],
+           "memory_gb": {"built": built - gb0, "after swap": after_swap - gb0},
+           "wall_s": time.monotonic() - t0}
+    log(f"parallel (j): consensus-1b tp 2 swapped to seed + 1 in {stats['last_prep_ms']:.1f} ms "
+        f"of preparation; tokens equal to a fresh tp 2 engine {row['equal_to_fresh']}, changed "
+        f"{row['changed']}; {row['memory_gb']}")
+    if not row["equal_to_fresh"] or not row["changed"] or row["version"] != 1:
+        raise AssertionError(f"parallel (j): {row}")
+    del eng, fresh, new
+    release_memory(torch)
+    return row
+
+
 def parallel_tp2(torch, fa, da, seed: int, out: dict, recs: dict) -> dict:
     """(a): llama-3-8b bf16 on a tp 2 mesh of two positions of the card
-    against the tp = 1 engine on the same seed-0 weights."""
+    against the tp = 1 engine on the same seed-0 weights (the tp 2 engine's
+    KV pool on, for (g) and (h)); then (f)-(i) over the same two engines."""
     from llm_consensus_tpu_torch.engine import Engine, SamplingParams
     from llm_consensus_tpu_torch.models import get_config
     from llm_consensus_tpu_torch.parallel import make_mesh, virtual_devices
@@ -7237,8 +7605,8 @@ def parallel_tp2(torch, fa, da, seed: int, out: dict, recs: dict) -> dict:
     base = Engine(cfg, seed=0)
     out["memory_gb"]["tp1 built"] = gb(torch)
     tp = 2
-    sharded = Engine(cfg, base.params, mesh=make_mesh({"dp": 1, "tp": tp},
-                                                      virtual_devices(tp, "cuda")))
+    sharded = Engine(cfg, base.params, kv_pool=True, kv_pool_mb=PAR_POOL_MB,
+                     mesh=make_mesh({"dp": 1, "tp": tp}, virtual_devices(tp, "cuda")))
     out["memory_gb"]["tp2 built"] = gb(torch)
     out["walls_s"]["builds"] = time.monotonic() - t0
     ids = random_ids(torch, seed + 30, 349, base.tokenizer.bos_id)
@@ -7270,6 +7638,9 @@ def parallel_tp2(torch, fa, da, seed: int, out: dict, recs: dict) -> dict:
     log(f"parallel (a): tp 2 on 2 positions of the card: flash {per_shard['flash_attention']} "
         f"and decode {per_shard['decode_attention']} launches by shard at Hq/Hkv {heads}; "
         f"memory {out['memory_gb']}")
+    t0 = time.monotonic()
+    out.update(parallel_serving(torch, fa, da, base, sharded, ids, seed, out, recs))
+    out["walls_s"]["serving (f)-(i)"] = time.monotonic() - t0
     del sharded
     release_memory(torch)
 
@@ -7365,8 +7736,11 @@ def run_parallel(torch, fa, da, card: str, seed: int, recs: dict) -> dict:
     owning one 1B-class panel model, the results merged over gloo: both
     end with the same merged result. (e) a one-process gloo + NCCL group:
     a consensus-1b training step whose gradient all-reduce goes through
-    NCCL equals the step without a group. Prints a ``{"parallel": ...}``
-    line."""
+    NCCL equals the step without a group. (f)-(i) serve over (a)'s tp 2
+    engine (:func:`parallel_serving`: the batcher with its shared prefix, a
+    KV-pool hit, a handoff from tp 1 into the tp 2 pool, prompt lookup);
+    (j) swaps a tp 2 consensus-1b to seed + 1 weights
+    (:func:`parallel_swap`). Prints a ``{"parallel": ...}`` line."""
     from llm_consensus_tpu_torch.engine import Engine, SamplingParams
     from llm_consensus_tpu_torch.models import get_config
     from llm_consensus_tpu_torch.parallel import make_mesh, virtual_devices
@@ -7380,6 +7754,9 @@ def run_parallel(torch, fa, da, card: str, seed: int, recs: dict) -> dict:
     procs = start_parallel_processes(tmp)
     try:
         out["a"] = parallel_tp2(torch, fa, da, seed, out, recs)
+        t0 = time.monotonic()
+        out["j"] = parallel_swap(torch, seed, out)
+        out["walls_s"]["swap (j)"] = time.monotonic() - t0
         out["c"] = parallel_cli(torch, fa, da)
     except BaseException:
         for p in procs:
@@ -7596,6 +7973,7 @@ def main(argv=None) -> int:
         # The head-slice kernel rows and the parallel phase: no ok line.
         with phase_wall("kernels head slices"):
             check_head_slices(torch, head_recs)
+            check_head_slices_b4(torch, head_recs)
         with phase_wall("parallel"):
             run_parallel(torch, fa, da, card, args.seed, head_recs)
         print_phase_walls(t_start)
@@ -7620,6 +7998,7 @@ def main(argv=None) -> int:
         check_decode_state(torch, state_recs)
         check_decode_rows16(torch, rows16_recs)
         check_head_slices(torch, head_recs)
+        check_head_slices_b4(torch, head_recs)
         check_int8_matmul(torch)
     records += list(head_recs.values())
     if args.phase == "kernels":

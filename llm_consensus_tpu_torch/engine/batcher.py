@@ -60,6 +60,13 @@ once per step whatever the batch, so co-resident streams share that cost.
     launches all device work on one stream; the worker only reads each
     chunk's own freshly allocated token copy after its CUDA event.
 
+Over a sharded engine (``Engine(mesh=)``) the pool cache is the engine's
+list of per-shard caches (``Engine.new_cache``) and every cache helper below
+moves all shards in lockstep; the host state (frontier, row starts, slots)
+is one. As in the JAX batcher, the shared prefix runs only where every mesh
+axis but ``tp`` has size 1, and an ``sp`` mesh admits rows one at a time
+(each keeps its ring prefill).
+
 Sampling shape (temperature/top_k/top_p) is per batcher; ``max_new_tokens``
 and ``ignore_eos`` are per stream. A stream's seed draws its first token
 (as the single-stream engine's seeded generator would); decode steps draw
@@ -156,13 +163,13 @@ import torch
 
 from llm_consensus_tpu_torch import integrity, obs
 from llm_consensus_tpu_torch.engine.engine import (
-    DeviceWall, Engine, GenerateResult, SamplingParams, _bucket, _Fetch)
+    DeviceWall, Engine, GenerateResult, SamplingParams, _bucket, _cache_nbytes, _Fetch)
 from llm_consensus_tpu_torch.engine.speculative import (
     AdaptiveK, SpecConfig, SpecGovernor, _install_spec_rows, _junk_propose, _lookup_propose,
     _oracle_propose, _plain_chunk_masked, _roll_valid, _spec_verify_batch)
 from llm_consensus_tpu_torch.engine.tokenizer import StreamDecoder
 from llm_consensus_tpu_torch.faults import InjectedFault
-from llm_consensus_tpu_torch.models.transformer import init_kv_cache
+from llm_consensus_tpu_torch.models.transformer import is_shard_list
 from llm_consensus_tpu_torch.ops.quant import is_quantized, kv_capacity, kv_seq_axis
 from llm_consensus_tpu_torch.ops.sampling import sample_token
 from llm_consensus_tpu_torch.recovery.journal import JournalEntry, StreamJournal
@@ -262,6 +269,28 @@ class _SpecState:
 
 
 # -- cache helpers (in place) ---------------------------------------------------
+#
+# Each helper takes one cache or a sharded engine's list of per-shard caches
+# (engine.new_cache: one per attention position, the same leaf names, its
+# heads only) and applies the same row or slot operation to every shard in
+# lockstep; index tensors follow each shard to its device. The row and slot
+# axes are never sharded, so the batcher's host state (frontier, row
+# starts, slots) is one for all shards.
+
+
+def _per_shard(fn):
+    """``fn(cache, *args)`` over a list of shard caches, shard by shard (a
+    second shard list among ``args``, the admission cache's, goes with it);
+    the results as a list, or None."""
+    def run(cache, *args):
+        if is_shard_list(cache):
+            out = [fn(c, *(a[i] if is_shard_list(a) else a for a in args))
+                   for i, c in enumerate(cache)]
+            return out if out[0] is not None else None
+        return fn(cache, *args)
+
+    run.__doc__, run.__name__ = fn.__doc__, fn.__name__
+    return run
 
 
 def _leaves(*sides) -> Iterable[tuple]:
@@ -274,6 +303,7 @@ def _leaves(*sides) -> Iterable[tuple]:
         yield tuple(sides)
 
 
+@_per_shard
 def splice_rows(batch_cache: dict, src_cache: dict, src_rows, slots, dsts,
                 width: int) -> None:
     """Copy slots [0, width) of rows ``src_rows`` of an admission cache into
@@ -292,6 +322,7 @@ def splice_rows(batch_cache: dict, src_cache: dict, src_rows, slots, dsts,
                 bdst[:, slot].narrow(ax, dst, width).copy_(src[:, r].narrow(ax, 0, width))
 
 
+@_per_shard
 def extract_prefix(pcache: dict, p_cap: int) -> dict:
     """Slots [0, p_cap) of a [1, S] prefill cache as the pool's shared-prefix
     KV [L, 1, p_cap, Hkv, dh], dense in the compute dtype: an int8 cache is
@@ -318,6 +349,7 @@ def _replace_leaves(cache: dict, fn) -> None:
             cache[side] = fn(entry)
 
 
+@_per_shard
 def move_row(cache: dict, src: int, dst: int) -> None:
     """Copy row ``src``'s whole window onto row ``dst`` of the pool cache, in
     place (every leaf's batch axis is 1). The two rows are disjoint slices
@@ -330,6 +362,7 @@ def move_row(cache: dict, src: int, dst: int) -> None:
             leaf[:, dst].copy_(leaf[:, src])
 
 
+@_per_shard
 def shrink_rows(cache: dict, rows: int) -> None:
     """Reallocate every leaf of the pool cache at its first ``rows`` rows
     (fresh contiguous tensors); the old leaves are freed leaf by leaf."""
@@ -341,6 +374,7 @@ def shrink_rows(cache: dict, rows: int) -> None:
     _replace_leaves(cache, shrink)
 
 
+@_per_shard
 def grow_rows(cache: dict, rows: int) -> None:
     """Reallocate every leaf of the pool cache at ``rows`` rows, the old rows
     copied in and the new ones zero; the old leaves are freed leaf by leaf,
@@ -353,10 +387,7 @@ def grow_rows(cache: dict, rows: int) -> None:
     _replace_leaves(cache, grow)
 
 
-def _cache_bytes(cache: dict) -> int:
-    return sum(t.numel() * t.element_size() for side in cache.values() for (t,) in _leaves(side))
-
-
+@_per_shard
 def pack_slots(cache: dict, row: int, src: torch.Tensor, dst: int) -> None:
     """Copy row ``row``'s slots ``src`` (ascending) to the contiguous run
     starting at ``dst``, in place (the gather copies first, so the ranges
@@ -365,9 +396,10 @@ def pack_slots(cache: dict, row: int, src: torch.Tensor, dst: int) -> None:
         for (leaf,) in _leaves(cache[side]):
             r = leaf[:, row]
             ax = kv_seq_axis(leaf) - 1
-            r.narrow(ax, dst, src.numel()).copy_(r.index_select(ax, src))
+            r.narrow(ax, dst, src.numel()).copy_(r.index_select(ax, src.to(r.device)))
 
 
+@_per_shard
 def compact_cache(cache: dict, shift: int) -> None:
     """Slide every row's window left by ``shift`` slots, in place, one layer
     at a time (the scratch is one layer's source window, not a second
@@ -406,7 +438,6 @@ class ContinuousBatcher:
                  journal: Optional[StreamJournal] = None, spec: Optional[SpecConfig] = None):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
-        engine.require_unsharded("ContinuousBatcher")
         self.engine = engine
         self.max_batch = max_batch
         # Interleaved admission: prompt tokens (rows x chunk) of a pending
@@ -436,10 +467,7 @@ class ContinuousBatcher:
             self._token = torch.zeros(max_batch, dtype=torch.long, device=dev)
             self._row_start = torch.zeros(max_batch, dtype=torch.int32, device=dev)
             self._prefix_rows = torch.zeros(max_batch, dtype=torch.bool, device=dev)
-            self._cache = init_kv_cache(
-                engine.cfg, batch=max_batch, max_seq=engine.max_seq, device=dev,
-                dtype=engine.dtype, quant=engine.kv_quant,
-            )
+            self._cache = engine.new_cache(max_batch)
         self._gen = torch.Generator(device=dev).manual_seed(0)
         self._row_start_host = [0] * max_batch
         self._pos = 0  # shared frontier (host int)
@@ -475,10 +503,17 @@ class ContinuousBatcher:
                           if spec.kind == "oracle" else None),
                     blen=torch.zeros(max_batch, dtype=torch.long, device=dev))
         # Shared-prefix pool state. Gated off for sliding-window models
-        # (the window would span the prefix/suffix seam) and for speculative
-        # pools (the batched verify has no prefix-merge form).
+        # (the window would span the prefix/suffix seam), for speculative
+        # pools (the batched verify has no prefix-merge form) and, as in the
+        # JAX batcher, for meshes with a non-trivial axis other than tp (an
+        # sp or dp axis would put the prefix where the splice and the ring
+        # prefill do not model it). On an sp mesh admission also goes one
+        # row at a time, so each row keeps its ring prefill.
+        shape = dict(engine.mesh.shape) if engine.mesh is not None else {}
+        self._one_by_one = shape.get("sp", 1) > 1
         self._prefix_enabled = (bool(pool_prefix) and engine.cfg.sliding_window is None
-                                and self._spec is None)
+                                and self._spec is None
+                                and all(n == 1 for a, n in shape.items() if a != "tp"))
         self._prefix_min = pool_prefix_min
         self._prefix_ids: Optional[tuple] = None
         self._prefix_cache: Optional[dict] = None
@@ -545,7 +580,7 @@ class ContinuousBatcher:
         construction and after every resize)."""
         if self._attrib is not None:
             self._attrib.update_component(f"pool_cache:{self.engine.cfg.name}",
-                                          _cache_bytes(self._cache))
+                                          _cache_nbytes(self._cache))
 
     # -- public API ------------------------------------------------------------
 
@@ -1856,13 +1891,17 @@ class ContinuousBatcher:
                 batch.append((free.pop(0), ids, stream))
             pending = []
             singles: list = []
-            if (batch and self._prefill_budget > 0 and self._pending_wave is None
+            if batch and self._one_by_one:
+                # An sp mesh keeps each row's ring prefill (a batched
+                # admission is a plain left-aligned prefill).
+                singles = batch
+            elif (batch and self._prefill_budget > 0 and self._pending_wave is None
                     and self._live() and self._begin_wave(batch, wave_p)):
                 # Interleaved: the wave fills between decode chunks; later
                 # arrivals queue until it installs. An idle pool admits
                 # classically (there is no decode to overlap).
                 return requeue
-            if batch:
+            elif batch:
                 self._nondecode_work = True
                 t_adm = self._admission_starts()
                 t0_obs = self._obs.now() if self._obs is not None else 0

@@ -95,12 +95,15 @@ compute issued on its own position's device, the partial sums reduced by
 the engine; the kernels launch per shard on its head slice where the JAX
 gate lets them (a tp-only mesh whose degree divides both head counts). On
 a mesh with an ``sp`` axis a prompt whose bucket splits over it prefills by
-ring attention (``forward_ring_prefill``). A sharded engine serves the
-single-stream path (``generate``, one-shot and chunked prefill, chunked
-decode, :class:`PrefillSession`); its prefix snapshot is off, and the
-batcher, the KV pool, the handoff, speculative decoding and the weight
-swap over it raise ``NotImplementedError`` (:meth:`Engine.require_unsharded`).
-``generate_batch`` of the JAX engine is not ported.
+ring attention (``forward_ring_prefill``). A sharded engine serves every
+path the unsharded one does: its caches are lists of per-shard caches
+(one per attention position, each of its heads, :meth:`Engine.new_cache`),
+which the prefix snapshot copies and restores shard by shard and the
+batcher, the KV pool (one arena per shard) and the handoff move in
+lockstep; the batched forms (``row_start``, the shared prefix, the
+speculative bitmap) run through ``forward_sharded``; the weight swap
+shards the incoming tree as the constructor does and flips every group's
+shards at once. ``generate_batch`` of the JAX engine is not ported.
 """
 
 from __future__ import annotations
@@ -252,7 +255,7 @@ def _extract_row0(template: dict, pcache: dict, width: int) -> dict:
     return cache_map(copy, template, pcache)
 
 
-def _cache_nbytes(cache: dict) -> int:
+def _cache_nbytes(cache) -> int:
     total = []
     cache_map(lambda leaf: total.append(leaf.numel() * leaf.element_size()), cache)
     return sum(total)
@@ -396,20 +399,16 @@ class Engine:
                 params = quantize_params(params, self.quant)
         # Sharded: one ShardGroup per sp position, the full tree dropped.
         self._groups: Optional[list] = None
+        self._shards: Optional[list] = None
         if mesh is not None and mesh.size > 1:
-            if kv_pool:
-                raise NotImplementedError(
-                    "the KV pool over a sharded engine (mesh of more than one position) is "
-                    "not ported")
-            from llm_consensus_tpu_torch.parallel.sharding import param_specs, shard_pytree
+            from llm_consensus_tpu_torch.parallel.sharding import param_specs
 
-            specs = param_specs(cfg, mesh)
-            keep = [i for i in range(mesh.size) if mesh.coords(i).get("dp", 0) == 0]
-            shards = shard_pytree(params, specs, mesh, positions=keep)
+            self._specs = param_specs(cfg, mesh)
+            self._shards = self._shard(params)
             params = None
-            self._groups = [ShardGroup(cfg, mesh, shards, specs, {"dp": 0, "sp": s})
+            self._groups = [ShardGroup(cfg, mesh, self._shards, self._specs,
+                                       {"dp": 0, "sp": s})
                             for s in range(mesh.shape.get("sp", 1))]
-            prefix_cache = False
         self.params = params
         self._layers = layer_views(params) if params is not None else None
         # Weight hot-swap state. Pins refcount the resident weights (taken
@@ -487,35 +486,54 @@ class Engine:
         """[1, n] int64 token ids on the device."""
         return self.to_device([ids])
 
-    def require_unsharded(self, what: str) -> None:
-        """Raise ``NotImplementedError`` naming ``what`` on a sharded engine
-        (what the port's sharded path does not cover yet)."""
-        if self._groups is not None:
-            raise NotImplementedError(
-                f"{what} over a sharded engine (mesh {self.mesh.shape}) is not ported")
+    @property
+    def sharded(self) -> bool:
+        """True when the engine runs over shards (a mesh of several positions)."""
+        return self._groups is not None
 
-    def new_cache(self, batch: int = 1):
-        """A fresh single-stream KV cache: one ``init_kv_cache`` dict, or a
-        sharded engine's list of per-shard caches."""
+    def _shard(self, params: dict) -> list:
+        """A whole tree (on the first position's device) as one shard per
+        position of this engine's mesh (positions of a ``dp`` axis beyond its
+        first index hold none: one stream is one batch row)."""
+        from llm_consensus_tpu_torch.parallel.sharding import shard_pytree
+
+        mesh = self.mesh
+        keep = [i for i in range(mesh.size) if mesh.coords(i).get("dp", 0) == 0]
+        return shard_pytree(params, self._specs, mesh, positions=keep)
+
+    def full_params(self) -> dict:
+        """The resident weights as one whole tree: the engine's own on one
+        device, or a sharded engine's shards joined on its first device
+        (a copy; the handoff's prefill role runs on it)."""
+        if self._groups is None:
+            return self.params
+        from llm_consensus_tpu_torch.parallel.sharding import gather_tree
+
+        return gather_tree(self._shards, self._specs, self.mesh)
+
+    def new_cache(self, batch: int = 1, max_seq: Optional[int] = None):
+        """A fresh KV cache of ``batch`` rows and ``max_seq`` slots (default
+        the engine's): one ``init_kv_cache`` dict, or a sharded engine's
+        list of per-shard caches (one per attention position, its heads)."""
+        s = max_seq or self.max_seq
         if self._groups is not None:
-            return self._groups[0].new_caches(batch, self.max_seq, self.dtype, self.kv_quant)
-        return init_kv_cache(self.cfg, batch=batch, max_seq=self.max_seq, device=self.device,
+            return self._groups[0].new_caches(batch, s, self.dtype, self.kv_quant)
+        return init_kv_cache(self.cfg, batch=batch, max_seq=s, device=self.device,
                              dtype=self.dtype, quant=self.kv_quant)
 
     def _forward(self, tokens, cache, start_pos, *, attn_impl, kv_width=None,
                  logits_index=None, capture=None, **rows):
         """:func:`forward` with this engine's weights and modes; ``rows``
         are the batcher's ``row_start``/``prefix``/``prefix_len``/
-        ``prefix_rows``; ``capture`` the roofline capture this step runs
-        under, if any (it counts the first layer). A sharded engine runs
-        :func:`forward_sharded` (no batcher forms, no capture)."""
+        ``prefix_rows``/``kv_mask``; ``capture`` the roofline capture this
+        step runs under, if any (it counts the first layer). A sharded
+        engine runs :func:`forward_sharded` over its first group (no
+        capture)."""
         if self._groups is not None:
-            if any(v is not None for v in rows.values()):
-                self.require_unsharded("a batched forward")
             logits = forward_sharded(
                 self._groups[0], tokens, cache, start_pos, attn_impl=attn_impl,
                 kv_width=kv_width, logits_index=logits_index, mm=self._mm,
-                decode_w8a8=self.decode_w8a8)
+                decode_w8a8=self.decode_w8a8, **rows)
             return logits, cache
         return forward(
             self.params, self.cfg, tokens, cache, start_pos=start_pos,
@@ -586,10 +604,14 @@ class Engine:
         return version <= self.weight_version or (
             self._pending_swap is not None and version <= self._pending_swap[0])
 
-    def _prepare_params(self, params: dict) -> dict:
+    def _prepare_params(self, params: dict):
         """The incoming tree on this engine's device (copies enqueued on
         the current stream), quantized to its resident mode (quantized
-        leaves pass through)."""
+        leaves pass through); on a sharded engine then cut into one shard
+        per position, as the constructor does, and returned as the shard
+        list. The tree is quantized whole before the cut: the row-parallel
+        weights' per-column scales span every row, as the JAX engine's
+        quantization of its sharded (global) tree gives them."""
         def place(tree: dict) -> dict:
             return {k: place(v) if isinstance(v, dict) else v.to(self.device, non_blocking=True)
                     for k, v in tree.items()}
@@ -597,7 +619,24 @@ class Engine:
         params = place(params)
         if self.quant is not None:
             params = quantize_params(params, self.quant)
-        return params
+        return self._shard(params) if self._groups is not None else params
+
+    def _resident(self):
+        """The resident weights in the engine's own form: the tree, or a
+        sharded engine's shard list (what a flip keeps for rollback)."""
+        return self._shards if self._groups is not None else self.params
+
+    def _install(self, weights) -> None:
+        """Make ``weights`` (:meth:`_resident`'s form) the resident ones:
+        every group's shards flip together. None drops them (a handoff's
+        prefill role between waves)."""
+        if self._groups is not None:
+            self._shards = weights
+            for group in self._groups:
+                group.install(weights)
+        else:
+            self.params = weights
+            self._layers = layer_views(weights) if weights is not None else None
 
     def swap_weights(self, version: int, params: dict, *, wait: bool = False,
                      meta: Optional[dict] = None, prepared: bool = False) -> bool:
@@ -609,7 +648,6 @@ class Engine:
         blocks up to ``swap_wait_s`` for it). Returns True when accepted
         (applied or parked). ``prepared=True`` (the rollback) skips the
         preparation."""
-        self.require_unsharded("the weight swap")
         version = int(version)
         if self._faults is not None:
             fs = self._faults.fire("swap", phase="apply", model=self.cfg.name, version=version)
@@ -675,9 +713,8 @@ class Engine:
         holds a pin, so no queued kernel reads the replaced tree after it
         (the tree it replaces as ``_prev_weights`` is freed here, when its
         last reference goes)."""
-        self._prev_weights = (self.weight_version, self.params)
-        self.params = params
-        self._layers = layer_views(params)
+        self._prev_weights = (self.weight_version, self._resident())
+        self._install(params)
         self.weight_version = version
         self.weight_meta = dict(meta or {})
         self._flipping = True
@@ -1262,10 +1299,7 @@ class AdmissionPrefill:
         if saved is not None:
             self._cache = _fork_prefix(saved, reuse_base, self.k, width)
         else:
-            self._cache = init_kv_cache(
-                engine.cfg, batch=self.k, max_seq=width, device=engine.device,
-                dtype=engine.dtype, quant=engine.kv_quant,
-            )
+            self._cache = engine.new_cache(self.k, width)
         self._tokens = engine.to_device([r + [0] * (width - len(r)) for r in rows])
         self._n_chunks = width // chunk if self._use_chunks else 1
         self._first = reuse_base // chunk if self._use_chunks else 0
@@ -1375,9 +1409,7 @@ class AdmissionPrefill:
                 and (not pool.covers(self.rows[0]) if pool is not None
                      else eng._prefix_ids != tuple(self.rows[0]))
             ):
-                template = init_kv_cache(eng.cfg, batch=1, max_seq=eng.max_seq,
-                                         device=eng.device, dtype=eng.dtype,
-                                         quant=eng.kv_quant)
+                template = eng.new_cache(1)
                 eng._retain_prefix(self.rows[0], _extract_row0(template, cache, width))
         if eng._obs is not None:
             args = {"rows": self.k, "width": width}

@@ -34,15 +34,21 @@ What the port does differently from the JAX module, and why:
     next wave before those copies have run. The worker waits for its own
     event before it publishes (the JAX worker's ``block_until_ready``), so
     a wave's wall is the prefill role's compute.
-  * **One weight tree.** The prefill engine is built over the decode
-    engine's parameter tree (no second copy), with its own wave cache, no
-    KV pool and no prefix snapshot. A wave pins the decode engine's
-    weights (the batcher's pin discipline) for its whole span and runs on
-    exactly the pinned tree, so a weight swap flips only after the wave's
-    publish, and the flip's cache hygiene (``Engine._post_flip`` evicts
-    every cold block) drops what the wave published: no KV of replaced
-    weights outlives the flip. The JAX prefill engine keeps its own tree,
-    which a swap of the decode engine does not touch.
+  * **One weight version.** A wave pins the decode engine's weights (the
+    batcher's pin discipline) for its whole span and runs on the tree of
+    exactly the pinned version, so a weight swap flips only after the
+    wave's publish, and the flip's cache hygiene (``Engine._post_flip``
+    evicts every cold block) drops what the wave published: no KV of
+    replaced weights outlives the flip. Where both roles are one
+    unsharded engine's device, the prefill engine holds no tree and runs on
+    the decode engine's (no second copy). Otherwise it runs on a tree of
+    its own in its own layout (its mesh's shards): the one it was built
+    with, for the decode version the caller names (the provider copies it
+    under a pin of the decode weights, so no swap lands between the copy
+    and its tag), and for any other version a copy of the decode engine's
+    weights, joined from its shards and cut to the prefill mesh, made once
+    per version. The JAX prefill engine keeps its own tree, which a swap of
+    the decode engine does not touch.
   * **Only prompts the decode side reuses.** The decode side reuses a pool
     match only from one prefill chunk on (a single-stream restore; a
     batcher wave establishes from the pool only when it is idle). With
@@ -50,9 +56,15 @@ What the port does differently from the JAX module, and why:
     worth its second prefill on the same SMs, so ``submit`` takes it
     classically (``min_tokens``); the JAX worker, on chips of its own,
     hands off every prompt of one block.
-  * **No reshard.** ``_extract_row_span`` is a slice of each leaf along its
-    sequence axis (``ops/quant.py`` ``kv_seq_axis``); the publish's
-    indexed copy is the transfer.
+  * **The reshard by heads.** ``_extract_row_span`` is a slice of each
+    leaf along its sequence axis (``ops/quant.py`` ``kv_seq_axis``). When
+    the two roles' cache layouts differ (a sharded role, or another
+    device), the span is joined from the prefill role's head slices and cut
+    into the decode mesh's (``ShardGroup.join_cache`` / ``split_cache``),
+    each piece copied onto its shard's device: the bytes JAX's
+    ``device_put`` across meshes moves, also between a tp that divides
+    the heads and one that does not. Otherwise the publish's indexed copy
+    is the transfer.
 
 Kept from the JAX module: the bounded queue (``submit`` rejects at
 ``depth`` and the caller admits classically at once), the priority order
@@ -61,7 +73,8 @@ an injected ``prefill_worker_crash`` included, fails only that wave's
 tickets; their submitters take the classic path, which runs the same
 kernels), the ``disagg`` fault site (``handoff_stall``,
 ``prefill_worker_crash``), the digest check of every handed-off block
-(integrity surface ``handoff``, ``bit_flip@surface=handoff``), the
+(integrity surface ``handoff``, ``bit_flip@surface=handoff``; the digest
+is of the whole span, every shard's heads joined, on both sides), the
 ``handoff_staging:<model>`` HBM component while a row is staged, the
 ``kv_handoff`` attribution family and its transfer bytes in the roofline
 ledger, and the stats keys. Locks are plain ``threading`` locks.
@@ -78,7 +91,7 @@ import torch
 
 from llm_consensus_tpu_torch import faults, integrity, obs
 from llm_consensus_tpu_torch.kv.pool import _leaves
-from llm_consensus_tpu_torch.models.transformer import cache_map
+from llm_consensus_tpu_torch.models.transformer import ShardGroup, cache_map, is_shard_list
 from llm_consensus_tpu_torch.obs.attrib import tag as _attrib_tag
 from llm_consensus_tpu_torch.ops.quant import kv_seq_axis
 
@@ -97,6 +110,14 @@ def _extract_row_span(pcache: dict, row: int, span: int) -> dict:
 def _to(cache: dict, device: torch.device) -> dict:
     """A cache's leaves copied to ``device``."""
     return cache_map(lambda leaf: leaf.to(device), cache)
+
+
+def _whole(cache) -> dict:
+    """A cache in one piece: a sharded layout's head slices joined on its
+    first shard's device (a copy), a whole cache as it is."""
+    if is_shard_list(cache):
+        return ShardGroup.join_cache(cache, next(_leaves(cache)).device)
+    return cache
 
 
 class HandoffTicket:
@@ -131,16 +152,18 @@ class KVHandoff:
     bounded priority queue of :class:`HandoffTicket`; a daemon worker
     drains the queue in waves of at most ``wave_rows`` prompts and
     publishes each row's whole-block prefix into the decode engine's KV
-    pool. ``depth`` bounds the queue, ``wait_s`` a submitter's wait (the
+    pool. ``version`` is the decode weight version the prefill engine's
+    own tree was copied from, if it holds one (the provider copies it under
+    a pin of the decode weights); ``depth`` bounds the queue, ``wait_s`` a
+    submitter's wait (the
     JAX knobs' defaults; the provider passes ``LLMC_DISAGG_DEPTH``,
     ``_WAVE`` and ``_WAIT_S``). Thread-safe; built by
     ``GPUProvider._handoff_for``.
     """
 
-    def __init__(self, prefill_engine, decode_engine, *, depth: int = DEFAULT_DEPTH,
-                 wave_rows: int = DEFAULT_WAVE_ROWS, wait_s: float = DEFAULT_WAIT_S,
-                 name: str = ""):
-        decode_engine.require_unsharded("KVHandoff")
+    def __init__(self, prefill_engine, decode_engine, *, version: Optional[int] = None,
+                 depth: int = DEFAULT_DEPTH, wave_rows: int = DEFAULT_WAVE_ROWS,
+                 wait_s: float = DEFAULT_WAIT_S, name: str = ""):
         pool = getattr(decode_engine, "_kv_pool", None)
         if pool is None:
             raise ValueError("KVHandoff requires the decode engine's paged KV pool "
@@ -181,7 +204,14 @@ class KVHandoff:
         # Every handed-off block is verified, not sampled: a mismatch fails
         # only that row's ticket and its submitter prefills classically.
         self._integrity = integrity.plane()
-        self._tree: Optional[tuple] = None  # (version, params, layers) on another device
+        # (version, weights in the prefill engine's form): the tree a wave of
+        # that decode version runs on, when the roles do not share one. The
+        # prefill engine's own tree counts as ``version`` only when the
+        # caller names the decode version it was copied from (under a pin);
+        # otherwise the first wave copies the decode engine's tree.
+        own = prefill_engine._resident()
+        self._tree: Optional[tuple] = (
+            (int(version), own) if own is not None and version is not None else None)
         dev = decode_engine.device
         if dev.type == "cuda":
             self._stream = torch.cuda.Stream(device=dev)
@@ -336,7 +366,7 @@ class KVHandoff:
         version = de.pin_weights()
         try:
             # The pin holds the flip off, so this is the tree of ``version``.
-            pe.params, pe._layers = self._role_tree(version)
+            pe._install(self._role_tree(version))
             t_pf = time.monotonic()
             stream = self._stream
             with _attrib_tag("prefill"), (torch.cuda.stream(stream) if stream is not None
@@ -355,31 +385,46 @@ class KVHandoff:
             for i, t in enumerate(batch):
                 self._hand_off(t, i, pcache, wave_n, version)
         finally:
-            pe.params = pe._layers = None  # the prefill role holds no tree between waves
+            # Between waves the prefill role holds only a tree of its own.
+            pe._install(self._tree[1] if self._tree is not None else None)
             de.unpin_weights()
         if self._obs is not None:
             self._obs.complete("handoff_wave", t0_obs, tid="handoff", wave=wave_n,
                                streams=len(batch), width=width)
             self._obs.count("handoff.tokens", sum((len(t.ids) // bs) * bs for t in batch))
 
-    def _role_tree(self, version: int) -> tuple:
-        """The weights a wave runs on: the decode engine's tree itself when
-        both roles share a device, else a copy on the prefill device, made
-        once per weight version (the JAX prefill engine holds its own tree
-        on its slice)."""
+    def _role_tree(self, version: int):
+        """The weights a wave of decode version ``version`` runs on, in the
+        prefill engine's form: its own tree of that version; else the decode
+        engine's tree itself when both are one unsharded engine's device;
+        else the decode engine's whole tree (joined from its shards) placed
+        on the prefill device and cut to the prefill mesh, made once per
+        weight version (the JAX prefill engine holds its own tree on its
+        slice)."""
         pe, de = self._pe, self._de
-        if pe.device == de.device:
-            return de.params, de._layers
-        if self._tree is None or self._tree[0] != version:
-            from llm_consensus_tpu_torch.models.transformer import layer_views
+        if self._tree is not None and self._tree[0] == version:
+            return self._tree[1]
+        if pe.device == de.device and not pe.sharded and not de.sharded:
+            return de.params
 
-            def place(tree):
-                return {k: place(v) if isinstance(v, dict) else v.to(pe.device)
-                        for k, v in tree.items()}
+        def place(tree):
+            return {k: place(v) if isinstance(v, dict) else v.to(pe.device)
+                    for k, v in tree.items()}
 
-            params = place(de.params)
-            self._tree = (version, params, layer_views(params))
-        return self._tree[1], self._tree[2]
+        whole = place(de.full_params())
+        self._tree = (version, pe._shard(whole) if pe.sharded else whole)
+        return self._tree[1]
+
+    def _reshard(self, span: dict):
+        """A row's span (the prefill engine's cache layout) in the decode
+        engine's: joined from the prefill mesh's head slices and cut into
+        the decode mesh's, each on its shard's device (the bytes unchanged);
+        the span itself when both roles hold one cache on one device."""
+        pe, de = self._pe, self._de
+        if not pe.sharded and not de.sharded:
+            return span if pe.device == de.device else _to(span, de.device)
+        whole = _whole(span)
+        return de._groups[0].split_cache(whole) if de.sharded else _to(whole, de.device)
 
     def _hand_off(self, t: HandoffTicket, row: int, pcache: dict, wave_n: int,
                   version: int) -> None:
@@ -395,10 +440,8 @@ class KVHandoff:
         nbytes = 0
         try:
             with _attrib_tag("kv_handoff"):
-                staged = _extract_row_span(pcache, row, span)
-                if self._pe.device != self._de.device:
-                    # The handoff proper: the span crosses to the decode device.
-                    staged = _to(staged, self._de.device)
+                # The handoff proper: the span crosses to the decode layout.
+                staged = self._reshard(_extract_row_span(pcache, row, span))
                 nbytes = sum(leaf.numel() * leaf.element_size() for leaf in _leaves(staged))
                 if self._attrib is not None:
                     # The staged span is resident until the publish's copy
@@ -458,7 +501,8 @@ class KVHandoff:
         if self._faults is not None:
             fs = self._faults.fire("corrupt", surface="handoff", wave=wave_n)
             flip = fs is not None and fs.kind == "bit_flip"
-        source = _extract_row_span(pcache, row, span)
+        source = _whole(_extract_row_span(pcache, row, span))
+        staged = _whole(staged)
         for b_i in range(span // bs):
             self._integrity.check("handoff")
             want = self._pool.block_digest(source, b_i * bs)
@@ -479,8 +523,8 @@ class KVHandoff:
             out["waves"] = self.waves
         out["depth"] = self.depth
         out["wave_rows"] = self.wave_rows
-        out["prefill_devices"] = 1
-        out["decode_devices"] = 1
+        out["prefill_devices"] = self._pe.mesh.size if self._pe.mesh is not None else 1
+        out["decode_devices"] = self._de.mesh.size if self._de.mesh is not None else 1
         out["shared_device"] = self._pe.device == self._de.device
         out["min_tokens"] = self.min_tokens
         if out["handoff_s"] > 0:

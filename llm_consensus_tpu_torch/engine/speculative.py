@@ -588,7 +588,9 @@ class SpeculativeEngine:
     (pure-temperature sampling rides a model drafter by rejection
     sampling), as does any generation whose prompt and requested tokens
     would outgrow a model draft's window, and ``max_new_tokens <= 0``
-    returns at once. Near the cache's end the loop stops a round's worth of
+    returns at once. A model draft whose target or draft sits on a mesh of
+    more than one position raises ``ValueError`` (the JAX rule); a buffer
+    drafter rides a sharded target. Near the cache's end the loop stops a round's worth of
     slots early instead of switching to one-token steps.
 
     Per stream an :class:`AdaptiveK` (off with ``adaptive=False``) and a
@@ -607,12 +609,19 @@ class SpeculativeEngine:
                  governor: bool = True, probe_tokens: int = 64):
         if k < 1:
             raise ValueError("k must be >= 1")
-        target.require_unsharded("SpeculativeEngine")
         if isinstance(draft, Engine):
             draft = ModelDrafter(draft)
         if not isinstance(draft, Drafter):
             raise TypeError("draft must be an Engine or a Drafter")
         if isinstance(draft, ModelDrafter):
+            if target.sharded or draft.engine.sharded:
+                # The JAX rule: a model draft's cache would have to live
+                # beside a sharded target's across the slice. A buffer
+                # drafter carries no second cache and rides a sharded
+                # target (its verify runs through forward_sharded).
+                raise ValueError(
+                    "speculative decoding supports unsharded engines or "
+                    "a target/draft pair on the same single-device mesh")
             if draft.engine.device != target.device:
                 raise ValueError(
                     f"speculative decoding needs the draft on the target's device "

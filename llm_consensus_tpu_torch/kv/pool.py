@@ -4,10 +4,13 @@ of ``llm_consensus_tpu/kv/pool.py``).
 The device half of the cross-request KV cache (see the package docstring):
 
   * **One arena per engine**, allocated once at construction with the
-    port's ``init_kv_cache(batch=1, max_seq=n_blocks x block_size)``: every
+    engine's ``new_cache(1, n_blocks x block_size)``: every
     leaf keeps a working cache's layout, ``[L, 1, n_blocks * bs, Hkv, dh]``
     (bf16, or the int8 codes) and the int8 scales ``[L, 1, Hkv,
     n_blocks * bs]`` (sequence axis last, as the decode kernels read them).
+    A sharded engine's arena is its cache layout: one such arena per
+    attention position, of that shard's heads, every copy moving the same
+    block ids in each.
   * **One indexed copy per leaf** serves each direction (:func:`_gather`,
     :func:`_scatter`): the sequence axis is viewed as ``[n_blocks, bs]``
     and the blocks move by ``index_select`` into the destination (gather:
@@ -48,21 +51,26 @@ published block and verifies a deterministic sample of gathers.
 from __future__ import annotations
 
 import threading
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional
 
 import torch
 
 from llm_consensus_tpu_torch import faults, integrity, obs
 from llm_consensus_tpu_torch.kv.radix import RadixIndex
-from llm_consensus_tpu_torch.models.transformer import cache_map, init_kv_cache
+from llm_consensus_tpu_torch.models.transformer import cache_map, is_shard_list
 from llm_consensus_tpu_torch.obs.attrib import DeviceWall
 from llm_consensus_tpu_torch.ops.quant import kv_seq_axis
 
 
-def _leaves(cache: dict) -> Iterator[torch.Tensor]:
+def _leaves(cache) -> Iterator[torch.Tensor]:
     """The cache's leaves in sorted key order (``k`` then ``v``; ``q8``
     then ``s``): the JAX package's tree order, so a block digest covers its
-    leaves in the same order there and here."""
+    leaves in the same order there and here. A sharded engine's cache (a
+    list, one cache per attention position) yields each shard's in turn."""
+    if is_shard_list(cache):
+        for shard in cache:
+            yield from _leaves(shard)
+        return
     for name in sorted(cache):
         node = cache[name]
         if isinstance(node, dict):
@@ -88,7 +96,7 @@ def _gather(dst: dict, arena: dict, slots: torch.Tensor, bs: int) -> None:
     for d, a in zip(_leaves(dst), _leaves(arena)):
         ax = kv_seq_axis(a)
         src = _blocks(a, 0, a.shape[ax] // bs, bs)
-        torch.index_select(src, ax, slots, out=_blocks(d, 0, k, bs))
+        torch.index_select(src, ax, slots.to(a.device), out=_blocks(d, 0, k, bs))
 
 
 def _scatter(arena: dict, src: dict, start: int, slots: torch.Tensor, bs: int) -> None:
@@ -97,7 +105,8 @@ def _scatter(arena: dict, src: dict, start: int, slots: torch.Tensor, bs: int) -
     k = slots.numel()
     for a, s in zip(_leaves(arena), _leaves(src)):
         ax = kv_seq_axis(a)
-        _blocks(a, 0, a.shape[ax] // bs, bs).index_copy_(ax, slots, _blocks(s, start, k, bs))
+        _blocks(a, 0, a.shape[ax] // bs, bs).index_copy_(ax, slots.to(a.device),
+                                                         _blocks(s, start, k, bs))
 
 
 class KVPool:
@@ -107,10 +116,18 @@ class KVPool:
 
     ``budget_bytes`` sizes the arena: ``n_blocks = max(4, budget //
     (block_size x bytes_per_token))``, where ``bytes_per_token`` counts the
-    K and V of every layer (codes plus scales for the int8 cache)."""
+    K and V of every layer (codes plus scales for the int8 cache).
+
+    ``new_cache(n_slots)`` makes the arena in the engine's cache layout (a
+    sharded engine's: one arena per attention position, each of its Hkv /
+    tp heads on its device). The radix, the block ids, the LRU and eviction
+    stay single: a block id names the same slots in every shard's arena,
+    and each copy moves every shard's blocks; a digest covers every shard's
+    bytes, and the byte counts sum over the shards."""
 
     def __init__(self, cfg, *, dtype: torch.dtype, kv_quant: Optional[str],
-                 device: torch.device, max_seq: int, block_size: int, budget_bytes: float):
+                 device: torch.device, max_seq: int, block_size: int, budget_bytes: float,
+                 new_cache: Callable[[int], object]):
         if block_size < 1:
             raise ValueError("block_size must be >= 1")
         self.cfg = cfg
@@ -128,9 +145,7 @@ class KVPool:
         self.n_blocks = max(4, int(budget_bytes // (block_size * self.bytes_per_token)))
         self._lock = threading.Lock()
         with torch.inference_mode():
-            self._arena = init_kv_cache(  # guarded by: _lock
-                cfg, batch=1, max_seq=self.n_blocks * block_size, device=self.device,
-                dtype=dtype, quant=kv_quant)
+            self._arena = new_cache(self.n_blocks * block_size)  # guarded by: _lock
         self._free = list(range(self.n_blocks))  # guarded by: _lock
         self._radix = RadixIndex(block_size)  # guarded by: _lock
         # Copies' stream intervals not yet booked (read once complete).
@@ -158,7 +173,8 @@ class KVPool:
         return cls(engine.cfg, dtype=engine.dtype, kv_quant=engine.kv_quant,
                    device=engine.device, max_seq=engine.max_seq,
                    block_size=max(1, engine.kv_pool_block),
-                   budget_bytes=engine.kv_pool_mb * 1e6)
+                   budget_bytes=engine.kv_pool_mb * 1e6,
+                   new_cache=lambda n_slots: engine.new_cache(1, n_slots))
 
     @property
     def arena_bytes(self) -> int:
@@ -285,7 +301,7 @@ class KVPool:
             self._obs.count("kv.hit_tokens", n)
         return n, dst
 
-    def _empty_cache(self) -> dict:
+    def _empty_cache(self):
         """An unwritten ``[1, max_seq]`` cache of the arena's layout: the
         gather fills its blocks and the caller masks the rest, so it is never
         zeroed (that would write the whole cache once more)."""

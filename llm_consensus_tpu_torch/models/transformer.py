@@ -225,10 +225,20 @@ def param_leaves(tree: dict, prefix: str = ""):
             yield f"{prefix}{name}", value
 
 
+def is_shard_list(cache) -> bool:
+    """True for a sharded engine's KV cache: a list of caches, one per
+    attention position, each of its heads (``ShardGroup.new_caches``); a
+    list of ints (rows, offsets) is not one."""
+    return isinstance(cache, list) and bool(cache) and isinstance(cache[0], dict)
+
+
 def cache_map(fn, *caches):
     """``fn`` over the leaves of KV caches of one layout ({"k", "v"}, each a
-    tensor or an int8 {"q8", "s"} dict), as a cache of the results."""
+    tensor or an int8 {"q8", "s"} dict, or a sharded engine's list of such
+    caches, one per attention position), as a cache of the results."""
     first = caches[0]
+    if is_shard_list(first):
+        return [cache_map(fn, *parts) for parts in zip(*caches)]
     if isinstance(first, dict):
         return {name: cache_map(fn, *(c[name] for c in caches)) for name in first}
     return fn(*caches)
@@ -459,6 +469,137 @@ def layer_views(params: dict) -> list[dict]:
     return [{name: take(w, i) for name, w in layers.items()} for i in range(n)]
 
 
+def _check_forms(attn_impl, cfg, cache, row_start, prefix, prefix_len, kv_mask,
+                 remat) -> None:
+    """The argument rules :func:`forward` and :func:`forward_sharded` share."""
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
+    if row_start is not None and cache is None:
+        raise ValueError(
+            "row_start (left-padded batching) requires a cache: the "
+            "no-cache mask path has no kv_valid to exclude pad slots"
+        )
+    if prefix is not None:
+        if cache is None:
+            raise ValueError("a shared prefix requires a cache")
+        if cfg.sliding_window is not None:
+            raise ValueError("shared-prefix attention does not compose "
+                             "with sliding_window")
+        if prefix_len is None:
+            raise ValueError("prefix requires prefix_len")
+    if remat and cache is not None:
+        raise ValueError("remat is the cache-less (training) forward's")
+    if kv_mask is not None:
+        if cache is None or row_start is None:
+            raise ValueError("kv_mask requires a cache and row_start")
+        if cfg.sliding_window is not None:
+            raise ValueError("kv_mask (speculative holes) does not "
+                             "compose with sliding_window")
+
+
+def _routes(attn_impl, cache, start_pos, t, cfg, row_start, prefix, kv_mask,
+            kernels: bool) -> tuple:
+    """``(flash_offset, decode_flash)``: the kernel routes of one forward,
+    decided from shapes alone. ``cfg`` holds the heads one kernel call sees
+    (a shard's slice over tp); ``kernels`` is False where the mesh keeps
+    the kernels off."""
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    flash_offset = (
+        int(start_pos)
+        if (
+            attn_impl == "flash"
+            and kernels
+            and cache is not None
+            and isinstance(start_pos, int)
+            and row_start is None  # the kernel assumes one shared offset
+            and prefix is None     # the prefill kernel has no merge-state form
+            and kv_mask is None    # the kernels derive validity from positions alone
+            and flash_supported(t, hq, hkv, dh)
+        )
+        else None
+    )
+    # T = 1 decode steps take the decode kernel over the full stack.
+    decode_flash = (
+        attn_impl == "flash"
+        and kernels
+        and cache is not None
+        and t == 1
+        and flash_offset is None
+        and kv_mask is None  # the decode kernel has no bitmap form
+        and decode_supported(hq, hkv, dh)
+    )
+    return flash_offset, decode_flash
+
+
+def _geometry(cfg, b, t, dev, cache, start_pos, kv_width, flash_offset, decode_flash,
+              row_start, prefix, prefix_len, prefix_rows, kv_mask) -> tuple:
+    """One forward's positions as rope angles, its attention mask (None on
+    the kernel routes), the cache write slots and, on the decode kernel's
+    route, the device scalars it reads: ``(cos, sin, mask, slots,
+    start_pos, layer_ids, row_start)``, all on ``dev``."""
+    steps = torch.arange(t, dtype=torch.int32, device=dev)
+    start = start_pos.to(dev) if torch.is_tensor(start_pos) else start_pos
+    positions = (steps + start)[None, :].expand(b, t)
+    if row_start is not None:
+        positions = positions - row_start.to(device=dev, dtype=torch.int32)[:, None]
+    pos_offset = None
+    if prefix is not None:
+        # Suffix-resident rows: slot j holds ABSOLUTE position prefix_len +
+        # (j - row_start); rows outside prefix_rows carry their whole prompt
+        # in their own window and keep their positions.
+        if prefix_rows is not None:
+            pos_offset = prefix_len * prefix_rows.to(device=dev, dtype=torch.int32)
+        else:
+            pos_offset = torch.zeros(b, dtype=torch.int32, device=dev) + prefix_len
+        positions = positions + pos_offset[:, None]
+    inv_freq = rope_inv_freq(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling_dict, device=dev)
+    cos, sin = rope_angles(positions, inv_freq)
+    slots = None if isinstance(start_pos, int) else (steps + start).long()
+
+    if flash_offset is not None or decode_flash:
+        mask = None  # the kernels derive causality from pos / q_offset
+    elif cache is not None:
+        s = kv_capacity(cache["k"])
+        if kv_width is not None:
+            s = min(s, kv_width)
+        kv_slots = torch.arange(s, dtype=torch.int32, device=dev)[None, :].expand(b, s)
+        kv_valid = kv_slots < (start + t)
+        kv_positions = kv_slots
+        if row_start is not None:
+            rs = row_start.to(device=dev, dtype=torch.int32)[:, None]
+            kv_positions = kv_slots - rs
+            if kv_mask is not None:
+                # The bitmap replaces the interval clamp: slots it clears
+                # are junk even below the frontier. This call's own write
+                # window is marked valid by the caller before dispatch.
+                kv_valid = kv_valid & kv_mask[:, :s].to(dev)
+            else:
+                kv_valid = kv_valid & (kv_slots >= rs)
+        if pos_offset is not None:
+            # The causal compare in the basis the query positions moved to.
+            kv_positions = kv_positions + pos_offset[:, None]
+        mask = make_attention_mask(positions, kv_positions, kv_valid, cfg.sliding_window)
+    else:
+        mask = make_attention_mask(positions, positions, None, cfg.sliding_window)
+
+    layer_ids = None
+    if decode_flash:
+        # Device scalars for the decode kernel: the position, each layer's
+        # index, and the rows' starts (a single stream's zeros, as the JAX
+        # package passes). A host int becomes a device fill, not a copy.
+        if isinstance(start_pos, int):
+            start_pos = torch.full((), start_pos, dtype=torch.int32, device=dev)
+            slots = (steps + start_pos).long()  # the cache write follows it
+        else:
+            start_pos = start_pos.to(device=dev, dtype=torch.int32)
+        layer_ids = torch.arange(cfg.n_layers, dtype=torch.int32, device=dev)
+        if row_start is None:
+            row_start = torch.zeros(b, dtype=torch.int32, device=dev)
+        else:
+            row_start = row_start.to(device=dev, dtype=torch.int32).contiguous()
+    return cos, sin, mask, slots, start_pos, layer_ids, row_start
+
+
 def forward(
     params: dict,
     cfg: ModelConfig,
@@ -517,116 +658,15 @@ def forward(
     ``jax.checkpoint``) runs each layer under ``torch.utils.checkpoint``:
     its activations are recomputed in the backward instead of kept.
     """
-    if attn_impl not in ATTN_IMPLS:
-        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
-    if row_start is not None and cache is None:
-        raise ValueError(
-            "row_start (left-padded batching) requires a cache: the "
-            "no-cache mask path has no kv_valid to exclude pad slots"
-        )
-    if prefix is not None:
-        if cache is None:
-            raise ValueError("a shared prefix requires a cache")
-        if cfg.sliding_window is not None:
-            raise ValueError("shared-prefix attention does not compose "
-                             "with sliding_window")
-        if prefix_len is None:
-            raise ValueError("prefix requires prefix_len")
-    if remat and cache is not None:
-        raise ValueError("remat is the cache-less (training) forward's")
-    if kv_mask is not None:
-        if cache is None or row_start is None:
-            raise ValueError("kv_mask requires a cache and row_start")
-        if cfg.sliding_window is not None:
-            raise ValueError("kv_mask (speculative holes) does not "
-                             "compose with sliding_window")
+    _check_forms(attn_impl, cfg, cache, row_start, prefix, prefix_len, kv_mask, remat)
     b, t = tokens.shape
     dev = tokens.device
     x = embed_tokens(params, cfg, tokens)
-    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-
-    flash_offset = (
-        int(start_pos)
-        if (
-            attn_impl == "flash"
-            and cache is not None
-            and isinstance(start_pos, int)
-            and row_start is None  # the kernel assumes one shared offset
-            and prefix is None     # the prefill kernel has no merge-state form
-            and kv_mask is None    # the kernels derive validity from positions alone
-            and flash_supported(t, hq, hkv, dh)
-        )
-        else None
-    )
-    # T = 1 decode steps take the decode kernel over the full stack.
-    decode_flash = (
-        attn_impl == "flash"
-        and cache is not None
-        and t == 1
-        and flash_offset is None
-        and kv_mask is None  # the decode kernel has no bitmap form
-        and decode_supported(hq, hkv, dh)
-    )
-
-    steps = torch.arange(t, dtype=torch.int32, device=dev)
-    positions = (steps + start_pos)[None, :].expand(b, t)
-    if row_start is not None:
-        positions = positions - row_start.to(device=dev, dtype=torch.int32)[:, None]
-    pos_offset = None
-    if prefix is not None:
-        # Suffix-resident rows: slot j holds ABSOLUTE position prefix_len +
-        # (j - row_start); rows outside prefix_rows carry their whole prompt
-        # in their own window and keep their positions.
-        if prefix_rows is not None:
-            pos_offset = prefix_len * prefix_rows.to(device=dev, dtype=torch.int32)
-        else:
-            pos_offset = torch.zeros(b, dtype=torch.int32, device=dev) + prefix_len
-        positions = positions + pos_offset[:, None]
-    inv_freq = rope_inv_freq(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling_dict, device=dev)
-    cos, sin = rope_angles(positions, inv_freq)
-    slots = None if isinstance(start_pos, int) else (steps + start_pos).long()
-
-    if flash_offset is not None or decode_flash:
-        mask = None  # the kernels derive causality from pos / q_offset
-    elif cache is not None:
-        s = kv_capacity(cache["k"])
-        if kv_width is not None:
-            s = min(s, kv_width)
-        kv_slots = torch.arange(s, dtype=torch.int32, device=dev)[None, :].expand(b, s)
-        kv_valid = kv_slots < (start_pos + t)
-        kv_positions = kv_slots
-        if row_start is not None:
-            rs = row_start.to(device=dev, dtype=torch.int32)[:, None]
-            kv_positions = kv_slots - rs
-            if kv_mask is not None:
-                # The bitmap replaces the interval clamp: slots it clears
-                # are junk even below the frontier. This call's own write
-                # window is marked valid by the caller before dispatch.
-                kv_valid = kv_valid & kv_mask[:, :s].to(dev)
-            else:
-                kv_valid = kv_valid & (kv_slots >= rs)
-        if pos_offset is not None:
-            # The causal compare in the basis the query positions moved to.
-            kv_positions = kv_positions + pos_offset[:, None]
-        mask = make_attention_mask(positions, kv_positions, kv_valid, cfg.sliding_window)
-    else:
-        mask = make_attention_mask(positions, positions, None, cfg.sliding_window)
-
-    layer_ids = None
-    if decode_flash:
-        # Device scalars for the decode kernel: the position, each layer's
-        # index, and the rows' starts (a single stream's zeros, as the JAX
-        # package passes). A host int becomes a device fill, not a copy.
-        if isinstance(start_pos, int):
-            start_pos = torch.full((), start_pos, dtype=torch.int32, device=dev)
-            slots = (steps + start_pos).long()  # the cache write follows it
-        else:
-            start_pos = start_pos.to(device=dev, dtype=torch.int32)
-        layer_ids = torch.arange(cfg.n_layers, dtype=torch.int32, device=dev)
-        if row_start is None:
-            row_start = torch.zeros(b, dtype=torch.int32, device=dev)
-        else:
-            row_start = row_start.to(device=dev, dtype=torch.int32).contiguous()
+    flash_offset, decode_flash = _routes(attn_impl, cache, start_pos, t, cfg, row_start, prefix,
+                                         kv_mask, kernels=True)
+    cos, sin, mask, slots, start_pos, layer_ids, row_start = _geometry(
+        cfg, b, t, dev, cache, start_pos, kv_width, flash_offset, decode_flash, row_start,
+        prefix, prefix_len, prefix_rows, kv_mask)
     if layers is None:
         layers = layer_views(params)
     decode_w8a8 = decode_w8a8 and decode_flash and is_quantized(cache["k"])
@@ -711,12 +751,11 @@ class ShardGroup:
         self.mlp_pos = positions(lspec["w_gate"], lspec["w_down"])
         self.vocab_pos = positions(specs["embed"])
         self.head_pos = positions(specs.get("lm_head", specs["embed"]))
-        used = {self.root_pos, *self.q_pos, *self.kv_pos, *self.o_pos, *self.mlp_pos,
-                *self.vocab_pos, *self.head_pos}
-        self.params = {p: shards[p] for p in used}
-        self.layers = {p: layer_views(shards[p]) for p in used}
-        self.devs = {p: mesh.devices.flat[p].torch_device for p in used}
+        self.used = sorted({self.root_pos, *self.q_pos, *self.kv_pos, *self.o_pos,
+                            *self.mlp_pos, *self.vocab_pos, *self.head_pos})
+        self.devs = {p: mesh.devices.flat[p].torch_device for p in self.used}
         self.root = self.devs[self.root_pos]
+        self.install(shards)
         # Each MLP position's first expert (its ep coordinate times the experts
         # a shard holds; 0 when the experts are whole).
         self.expert_offset = {}
@@ -727,12 +766,45 @@ class ShardGroup:
         others = {a: n for a, n in mesh.shape.items() if a != "tp"}
         self.kernels = self.heads and all(n == 1 for n in others.values())
 
+    def install(self, shards: Optional[list]) -> None:
+        """Hold ``shards`` (one per mesh position, ``shard_pytree``'s list)
+        as the group's weights; None drops them."""
+        if shards is None:
+            self.params = self.layers = None
+            return
+        self.params = {p: shards[p] for p in self.used}
+        self.layers = {p: layer_views(shards[p]) for p in self.used}
+
     def new_caches(self, batch: int, max_seq: int, dtype: torch.dtype,
                    quant: Optional[str]) -> list:
         """The group's KV caches: one contiguous cache of its heads per
         attention position, or one whole cache on the first device."""
         return [init_kv_cache(self.lcfg, batch, max_seq, device=self.devs[p], dtype=dtype,
                               quant=quant) for p in self.attn_pos]
+
+    def split_cache(self, cache: dict) -> list:
+        """A whole KV cache (every head, on any device) in the group's
+        layout: each attention position's head slice, a contiguous copy on
+        its device (the whole cache on the first device when the heads do
+        not split). The bytes move unchanged: this is the reshard by heads
+        of a handoff between meshes."""
+        n = len(self.attn_pos)
+
+        def piece(leaf: torch.Tensor, j: int, dev: torch.device) -> torch.Tensor:
+            ax = _head_axis(leaf)
+            h = leaf.shape[ax] // n
+            block = leaf.narrow(ax, j * h, h)
+            return torch.empty(block.shape, dtype=block.dtype, device=dev).copy_(block)
+
+        return [cache_map(lambda leaf, j=j, d=self.devs[p]: piece(leaf, j, d), cache)
+                for j, p in enumerate(self.attn_pos)]
+
+    @staticmethod
+    def join_cache(caches: list, device: torch.device) -> dict:
+        """The inverse of :meth:`split_cache`: the per-position head slices
+        joined along the heads axis into one whole cache on ``device``."""
+        return cache_map(lambda *parts: torch.cat([t.to(device) for t in parts],
+                                                  dim=_head_axis(parts[0])), *caches)
 
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
         """Token embeddings [B, T, D] on the first device."""
@@ -808,10 +880,19 @@ class ShardGroup:
                           self.root)
 
 
-def _on(t: Optional[torch.Tensor], dev: torch.device, memo: dict):
-    """``t`` on ``dev``, one copy per device per call."""
-    if t is None:
-        return None
+def _head_axis(leaf: torch.Tensor) -> int:
+    """The heads axis of a cache leaf: 3 in the [L, B, S, Hkv, dh] stacks,
+    2 in the int8 scales [L, B, Hkv, S]."""
+    return 3 if leaf.dim() == 5 else 2
+
+
+def _on(t, dev: torch.device, memo: dict):
+    """``t`` (a tensor, or a host value passed through) on ``dev``, one copy
+    per device per call. The memo lives for one call only: the batcher
+    updates its row tensors in place between steps, and each step copies
+    them afresh."""
+    if not torch.is_tensor(t):
+        return t
     key = (id(t), dev)
     if key not in memo:
         memo[key] = t.to(dev)
@@ -829,62 +910,35 @@ def forward_sharded(
     *,
     mm: Callable = qmatmul,
     decode_w8a8: bool = False,
+    row_start: Optional[torch.Tensor] = None,
+    prefix: Optional[list] = None,    # per attention position {"k", "v"} [L, 1, P, Hkv/tp, dh]
+    prefix_len=None,
+    prefix_rows: Optional[torch.Tensor] = None,
+    kv_mask: Optional[torch.Tensor] = None,
     remat: bool = False,
 ) -> torch.Tensor:
     """:func:`forward` over a :class:`ShardGroup`: fp32 logits [B, T, V] on
     the group's first device, the same numbers as the unsharded forward up
-    to the order of the partial sums. Single-stream forms only (a cache
-    with a shared start, or none): the batcher's ``row_start``, shared
-    prefix and bitmap forms over a sharded model are not ported. Routing
-    as in :func:`forward`, the kernels each on its shard's heads where
-    :class:`ShardGroup` says they run."""
-    if attn_impl not in ATTN_IMPLS:
-        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
-    if remat and caches is not None:
-        raise ValueError("remat is the cache-less (training) forward's")
+    to the order of the partial sums. Every form of :func:`forward` runs
+    here: the batcher's ``row_start``, a shared ``prefix`` (one dense
+    prefix KV per attention position, its heads' slice, merged on each
+    shard with the decode kernel's state form or the plain op's), the
+    speculative pool's ``kv_mask`` and a per-row ``logits_index``. The
+    positions, the mask and the decode kernel's device scalars are made
+    once on the first device and copied to each shard's. Routing as in
+    :func:`forward`, the kernels each on its shard's heads where
+    :class:`ShardGroup` says they run; elsewhere the plain op."""
     cfg, lcfg, root = group.cfg, group.lcfg, group.root
+    cache = caches[0] if caches is not None else None
+    _check_forms(attn_impl, cfg, cache, row_start, prefix, prefix_len, kv_mask, remat)
     b, t = tokens.shape
     tokens = tokens.to(root)
     x = group.embed(tokens)
-    hq, hkv, dh = lcfg.n_heads, lcfg.n_kv_heads, lcfg.head_dim
-    cache = caches[0] if caches is not None else None
-    flash_offset = (
-        int(start_pos)
-        if (attn_impl == "flash" and cache is not None and isinstance(start_pos, int)
-            and group.kernels and flash_supported(t, hq, hkv, dh))
-        else None
-    )
-    decode_flash = (attn_impl == "flash" and cache is not None and t == 1
-                    and flash_offset is None and group.kernels
-                    and decode_supported(hq, hkv, dh))
-
-    steps = torch.arange(t, dtype=torch.int32, device=root)
-    positions = (steps + (start_pos.to(root) if torch.is_tensor(start_pos) else start_pos)
-                 )[None, :].expand(b, t)
-    inv_freq = rope_inv_freq(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling_dict, device=root)
-    cos, sin = rope_angles(positions, inv_freq)
-    slots = None if isinstance(start_pos, int) else (steps + start_pos.to(root)).long()
-    if flash_offset is not None or decode_flash:
-        mask = None
-    elif cache is not None:
-        s = kv_capacity(cache["k"])
-        if kv_width is not None:
-            s = min(s, kv_width)
-        kv_slots = torch.arange(s, dtype=torch.int32, device=root)[None, :].expand(b, s)
-        start = start_pos.to(root) if torch.is_tensor(start_pos) else start_pos
-        mask = make_attention_mask(positions, kv_slots, kv_slots < (start + t),
-                                   cfg.sliding_window)
-    else:
-        mask = make_attention_mask(positions, positions, None, cfg.sliding_window)
-    layer_ids = row_start = None
-    if decode_flash:
-        if isinstance(start_pos, int):
-            start_pos = torch.full((), start_pos, dtype=torch.int32, device=root)
-            slots = (steps + start_pos).long()
-        else:
-            start_pos = start_pos.to(device=root, dtype=torch.int32)
-        layer_ids = torch.arange(cfg.n_layers, dtype=torch.int32, device=root)
-        row_start = torch.zeros(b, dtype=torch.int32, device=root)
+    flash_offset, decode_flash = _routes(attn_impl, cache, start_pos, t, lcfg, row_start,
+                                         prefix, kv_mask, kernels=group.kernels)
+    cos, sin, mask, slots, start_pos, layer_ids, row_start = _geometry(
+        cfg, b, t, root, cache, start_pos, kv_width, flash_offset, decode_flash, row_start,
+        prefix, prefix_len, prefix_rows, kv_mask)
     decode_w8a8 = decode_w8a8 and decode_flash and is_quantized(cache["k"])
     memo: dict = {}
 
@@ -894,13 +948,13 @@ def forward_sharded(
         for j, p in enumerate(group.attn_pos):
             d = group.devs[p]
             attn[p] = _attention(
-                lcfg, x.to(d), qkv[p], _on(cos, d, memo),
-                _on(sin, d, memo), _on(mask, d, memo),
-                caches[j] if caches is not None else None,
-                _on(start_pos, d, memo) if torch.is_tensor(start_pos) else start_pos, i,
+                lcfg, x.to(d), qkv[p], _on(cos, d, memo), _on(sin, d, memo),
+                _on(mask, d, memo), caches[j] if caches is not None else None,
+                _on(start_pos, d, memo), i,
                 layer_ids[i].to(d) if layer_ids is not None else None,
                 _on(row_start, d, memo), _on(slots, d, memo), flash_offset, kv_width,
-                decode_flash, decode_w8a8)
+                decode_flash, decode_w8a8, prefix[j] if prefix is not None else None,
+                _on(prefix_len, d, memo), _on(prefix_rows, d, memo))
         x = x + group.out_proj(attn, i, mm)
         return x + group.mlp(x, i, mm)
 

@@ -115,12 +115,13 @@ provider's one device (the one-device case of ``parallel/mesh.py``
 one prefill chunk takes the classic path (``KVHandoff.min_tokens``). On a
 provider of several devices ``prepare`` splits each preset's slice into a
 prefill and a decode role (``disagg_fraction`` of it to prefill,
-``split_roles``); each role runs on its mesh's first device (tensor
-parallelism under disaggregation waits for the handoff over a sharded
-engine), and ``replan_disagg`` re-carves a preset's prefill share at run
+``split_roles``), each on its planned mesh (sharded over it when it has
+several positions; the handoff reshards each row's KV by heads between the
+two), and ``replan_disagg`` re-carves a preset's prefill share at run
 time. The prefill engine shares the decode engine's weight tree when both
-roles share a device (no second copy) and keeps a copy on its own device
-otherwise, with its own wave cache, no KV pool and no prefix snapshot. ``disagg_depth``, ``disagg_wave`` and ``disagg_wait_s`` bound the
+roles are one unsharded engine's device (no second copy) and keeps a copy
+in its own layout otherwise, with its own wave cache, no KV pool and no
+prefix snapshot. ``disagg_depth``, ``disagg_wave`` and ``disagg_wait_s`` bound the
 handoff queue, a wave and a submitter's wait; ``disagg_overlap`` polls the
 wait so a cancelled request abandons it. Any handoff failure (a full
 queue, a stall past the wait, a crashed wave) takes the classic path,
@@ -461,8 +462,8 @@ class GPUProvider(Provider):
                 (judge_preset, get_config(judge_preset)) if judge_preset else None,
                 devices=pool, multihost_placement=self.multihost_placement,
                 disagg_fraction=self.disagg_fraction if self.disagg["disagg"] else None)
-        meshes = {p.model: self._role_mesh(p.mesh) for p in plan.placements}
-        prefill = {p.model: self._role_mesh(p.prefill_mesh) for p in plan.placements
+        meshes = {p.model: p.mesh for p in plan.placements}
+        prefill = {p.model: p.prefill_mesh for p in plan.placements
                    if p.prefill_mesh is not None}
         stale = []
         with self._lock:
@@ -482,16 +483,6 @@ class GPUProvider(Provider):
             self._prefill_meshes = prefill
         for preset, engine in stale:
             self._evict(preset, engine)
-
-    def _role_mesh(self, mesh):
-        """The mesh a role runs on: the planned one, or under
-        disaggregation its first position alone (each role is tp = 1 until
-        the handoff over a sharded engine is ported)."""
-        if mesh is None or not self.disagg["disagg"] or mesh.size == 1:
-            return mesh
-        from llm_consensus_tpu_torch.parallel.mesh import make_mesh
-
-        return make_mesh({"dp": 1, "tp": 1}, [mesh.devices.flat[0]])
 
     def placement(self, model: str):
         """The mesh the preset serving ``model`` is (or will be) placed on,
@@ -1002,13 +993,10 @@ class GPUProvider(Provider):
         place = {"mesh": mesh} if mesh is not None else {"device": self.device}
         if self.checkpoint_dir and params is not None and mesh is not None:
             params = _to_device(params, mesh.devices.flat[0].torch_device)
-        kv = dict(self.kv)
-        if mesh is not None and mesh.size > 1:
-            kv["kv_pool"] = False  # not over a sharded engine yet (engine/engine.py)
         return Engine(cfg, params, max_seq=max_seq, tokenizer=tokenizer,
                       stream_interval=self.stream_interval, swap_wait_s=self.swap_wait_s,
                       prefill_chunk=self.prefill_chunk, **place, **self.modes, **self.prefix,
-                      **kv)
+                      **self.kv)
 
     def _batcher_for(self, preset: str, engine):
         """The batcher serving ``preset`` over ``engine``, built once."""
@@ -1110,7 +1098,14 @@ class GPUProvider(Provider):
             try:
                 from llm_consensus_tpu_torch.engine.handoff import KVHandoff
 
-                handoff = KVHandoff(self._build_prefill_engine(preset, engine), engine,
+                # The pin holds a swap off while the decode tree is copied,
+                # so the copy is tagged with the version it was taken from.
+                version = engine.pin_weights()
+                try:
+                    pe = self._build_prefill_engine(preset, engine)
+                finally:
+                    engine.unpin_weights()
+                handoff = KVHandoff(pe, engine, version=version,
                                     depth=self.disagg["disagg_depth"],
                                     wave_rows=self.disagg["disagg_wave"],
                                     wait_s=self.disagg["disagg_wait_s"], name=preset)
@@ -1129,23 +1124,31 @@ class GPUProvider(Provider):
             return handoff
 
     def _build_prefill_engine(self, preset: str, engine):
-        """The prefill role's engine, on its planned prefill device (the
-        decode engine's when the slice had one device), with its own wave
-        cache, no KV pool and no prefix snapshot. It holds no tree of its
-        own at rest: each wave runs on the decode engine's pinned tree, or,
-        on another device, on the handoff's copy of it (engine/handoff.py)."""
+        """The prefill role's engine, on its planned prefill mesh (sharded
+        over it when it has several positions; the decode engine's device
+        when the slice had one), with its own wave cache, no KV pool and no
+        prefix snapshot. Where both roles are one unsharded engine's device
+        it holds no tree at rest and each wave runs on the decode engine's
+        pinned tree; otherwise it keeps the decode engine's weights (joined
+        from its shards) in its own layout, and the handoff refreshes them
+        after a swap (engine/handoff.py)."""
         if self._faults is not None:
             self._faults.check("build", preset=preset)
         from llm_consensus_tpu_torch.engine import Engine
 
         with self._lock:
             pmesh = self._prefill_meshes.get(preset)
-        device = pmesh.devices.flat[0].torch_device if pmesh is not None else engine.device
-        pe = Engine(engine.cfg, _to_device(engine.params, device), dtype=engine.dtype,
-                    device=device, max_seq=engine.max_seq, tokenizer=engine.tokenizer,
+        if pmesh is not None and pmesh.size > 1:
+            place, device = {"mesh": pmesh}, pmesh.devices.flat[0].torch_device
+        else:
+            device = pmesh.devices.flat[0].torch_device if pmesh is not None else engine.device
+            place = {"device": device}
+        pe = Engine(engine.cfg, _to_device(engine.full_params(), device), dtype=engine.dtype,
+                    max_seq=engine.max_seq, tokenizer=engine.tokenizer,
                     stream_interval=self.stream_interval, prefill_chunk=engine.prefill_chunk,
-                    prefix_cache=False, kv_pool=False, **self.modes)
-        pe.params = pe._layers = None
+                    prefix_cache=False, kv_pool=False, **place, **self.modes)
+        if not pe.sharded and not engine.sharded and pe.device == engine.device:
+            pe._install(None)  # one tree: each wave runs on the decode engine's
         return pe
 
     def replan_disagg(self, preset: str, fraction: float) -> dict:
@@ -1174,7 +1177,6 @@ class GPUProvider(Provider):
                     seen.setdefault(d.id, d)
             new_pmesh, _ = split_role_meshes(get_config(preset), [seen[i] for i in sorted(seen)],
                                              f)
-            new_pmesh = self._role_mesh(new_pmesh)
             changed = _mesh_key(new_pmesh) != _mesh_key(pmesh)
             stale = None
             if changed:

@@ -700,9 +700,9 @@ def test_occupancy_bucket_shrinks_and_regrows(pair, make_batcher, monkeypatch):
     real = ContinuousBatcher._resize_to
 
     def spy(self, target):
-        before = batcher_mod._cache_bytes(self._cache)
+        before = batcher_mod._cache_nbytes(self._cache)
         real(self, target)
-        sizes.append((target, before, batcher_mod._cache_bytes(self._cache)))
+        sizes.append((target, before, batcher_mod._cache_nbytes(self._cache)))
 
     monkeypatch.setattr(ContinuousBatcher, "_resize_to", spy)
     b = make_batcher(te, max_batch=16)

@@ -867,7 +867,9 @@ def test_kv_pool_block_copies_on_the_card(cuda, kv_quant):
 
     cfg = get_config("llama-3-8b")
     pool = KVPool(cfg, dtype=torch.bfloat16, kv_quant=kv_quant, device=cuda, max_seq=2048,
-                  block_size=64, budget_bytes=40 * 64 * 131_072)
+                  block_size=64, budget_bytes=40 * 64 * 131_072,
+                  new_cache=lambda n: init_kv_cache(cfg, 1, n, device=cuda,
+                                                    dtype=torch.bfloat16, quant=kv_quant))
     gen = torch.Generator(device=cuda).manual_seed(0)
 
     def fill(cache):

@@ -468,7 +468,9 @@ def test_gather_after_publish_is_byte_equal_and_scatter_leaves_other_blocks(kv_q
 
     cfg = get_config("tiny-llama")
     pool = KVPool(cfg, dtype=torch.float32, kv_quant=kv_quant, device=torch.device("cpu"),
-                  max_seq=100, block_size=8, budget_bytes=1.0)  # the 4-block floor
+                  max_seq=100, block_size=8, budget_bytes=1.0,  # the 4-block floor
+                  new_cache=lambda n: init_kv_cache(cfg, 1, n, device=torch.device("cpu"),
+                                                    dtype=torch.float32, quant=kv_quant))
     gen = torch.Generator().manual_seed(0)
     with torch.inference_mode():  # the arena is an inference tensor, as every cache
         for leaf in pool_mod._leaves(pool._arena):

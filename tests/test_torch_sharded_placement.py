@@ -5,8 +5,8 @@ provider's and planner's by device id (the JAX side on its 8-device virtual
 CPU mesh, the port on ``virtual_devices(8, "cpu")``), sharded engines' greedy
 tokens equal the JAX engine's from the same numpy weights. Beyond the JAX
 file: the re-placement rung of the retry ladder, disaggregation's role
-split over several positions, and the NotImplementedError of what a sharded
-engine does not serve yet."""
+split over several positions, and the refusals that stay (JAX's own: a
+model drafter on a multi-device mesh, the shared prefix on an sp mesh)."""
 
 from __future__ import annotations
 
@@ -428,35 +428,68 @@ def test_replace_engine_moves_a_twice_failed_model(monkeypatch):
 
 def test_disagg_splits_roles_over_positions_and_replans():
     """Under disaggregation a preset's slice splits into a prefill and a
-    decode role on disjoint positions (each tp 1); replan_disagg re-carves the
-    prefill share, keeps the decode role and closes the stale handoff."""
+    decode role on disjoint positions, each on its planned mesh (tp 2 here,
+    the JAX planner's carving): the decode engine and the handoff's prefill
+    engine are sharded over them; replan_disagg re-carves the prefill share,
+    keeps the decode role and closes the stale handoff."""
     prov = GPUProvider(devices=_devs(4), disagg=True, batch_streams=2, kv_pool=True,
                        prefill_chunk=16, ignore_eos=True, stream_interval=4)
     prov.prepare(["gpu:tiny-gemma"], None)
     dmesh, pmesh = prov.placement("gpu:tiny-gemma"), prov._prefill_meshes["tiny-gemma"]
-    assert dmesh.size == 1 and pmesh.size == 1
-    assert _ids(dmesh) == [0] and _ids(pmesh) == [2]
+    jplan = jax_plan_panel([("tiny-gemma", jax_config("tiny-gemma"))], None,
+                           devices=jax.devices()[:4], disagg_fraction=0.5)
+    jp = jplan.placements[0]
+    assert (_ids(dmesh), _ids(pmesh)) == (
+        [d.id for d in jp.mesh.devices.flat], [d.id for d in jp.prefill_mesh.devices.flat])
+    assert _ids(dmesh) == [0, 1] and _ids(pmesh) == [2, 3]
     engine = prov._engine_for("gpu:tiny-gemma")
     handoff = prov._handoff_for("tiny-gemma", engine)
-    assert handoff is not None
+    assert handoff is not None and engine.sharded and handoff._pe.sharded
+    snap = handoff.snapshot()
+    assert (snap["prefill_devices"], snap["decode_devices"]) == (2, 2)
     out = prov.replan_disagg("tiny-gemma", 0.25)
-    assert out["changed"] is False and out["decode_devices"] == [0]
-    assert prov.replan_disagg("tiny-gemma", 0.5)["prefill_devices"] == [2]
+    assert out["changed"] is True and out["decode_devices"] == [0, 1]
+    assert out["prefill_devices"] == [3]
+    assert prov._handoffs.get("tiny-gemma") is None  # the stale handoff closed
+    assert prov.replan_disagg("tiny-gemma", 0.5)["prefill_devices"] == [3]
+    prov.release()
 
 
 def test_sharded_engine_refuses_what_it_does_not_serve_yet():
+    """What stays refused over a sharded engine is JAX's own: a model
+    drafter whose target or draft sits on a mesh of more than one position
+    raises ValueError (a buffer drafter rides it), and on a mesh with sp > 1
+    the batcher shares no prefix and admits one row at a time (each keeps
+    its ring prefill); on a tp mesh the prefix is on and waves batch."""
     from llm_consensus_tpu_torch.engine.batcher import ContinuousBatcher
     from llm_consensus_tpu_torch.engine.speculative import PromptLookupDrafter, SpeculativeEngine
 
     _jp, tree = _trees("tiny-llama", 1)
     cfg = get_config("tiny-llama")
-    eng = Engine(cfg, tree, dtype=torch.float32, mesh=_tp2())
-    with pytest.raises(NotImplementedError, match="ContinuousBatcher"):
-        ContinuousBatcher(eng, max_batch=2)
-    with pytest.raises(NotImplementedError, match="SpeculativeEngine"):
-        SpeculativeEngine(eng, PromptLookupDrafter(3))
-    with pytest.raises(NotImplementedError, match="weight swap"):
-        eng.swap_weights(1, tree)
-    with pytest.raises(NotImplementedError, match="KV pool"):
-        Engine(cfg, tree, dtype=torch.float32, mesh=_tp2(), kv_pool=True)
-    assert not eng.prefix_cache_enabled
+    eng = Engine(cfg, tree, dtype=torch.float32, mesh=_tp2(), stream_interval=4)
+    single = Engine(cfg, tree, dtype=torch.float32, device="cpu")
+    for target, draft in ((eng, single), (single, eng)):
+        with pytest.raises(ValueError, match="single-device mesh"):
+            SpeculativeEngine(target, draft)
+    assert SpeculativeEngine(eng, PromptLookupDrafter(3)).draft is None
+    tp_pool = ContinuousBatcher(eng, max_batch=2)
+    try:
+        assert tp_pool._prefix_enabled and not tp_pool._one_by_one
+    finally:
+        tp_pool.close()
+    sp = Engine(cfg, tree, dtype=torch.float32, stream_interval=4,
+                mesh=make_mesh({"sp": 2}, _devs(2)))
+    b = ContinuousBatcher(sp, max_batch=2)
+    waves = []
+    real = b._admit_batch
+    b._admit_batch = lambda *a, **k: waves.append(1) or real(*a, **k)
+    try:
+        assert not b._prefix_enabled and b._one_by_one
+        s = SamplingParams(max_new_tokens=6, ignore_eos=True)
+        prompts = [PROMPT, PROMPT + " Again."]
+        futs = [b.submit(p, s) for p in prompts]
+        for p, f in zip(prompts, futs):
+            assert f.result(timeout=300).token_ids == sp.generate(p, s).token_ids
+        assert waves == [] and b.snapshot()["admitted"] == 2
+    finally:
+        b.close()
