@@ -16,6 +16,7 @@
     python3 chip_smoke.py --phase disagg    # build + the disaggregated-serving phase only
     python3 chip_smoke.py --phase distill   # build + three runs + the distill phase only
     python3 chip_smoke.py --phase parallel  # build + the head-slice kernel rows + parallel/
+    python3 chip_smoke.py --phase sanitize  # build + the sanitize phase only (child processes)
 
 Phases, in order; any failure exits non-zero before the last line. Every
 CLI run of the script asks ``CLI_TOKENS`` (48) tokens a model (the
@@ -62,7 +63,12 @@ drafted slice of phase 8g 16), where the phases below say 64:
    decode step at B = 1, at B = 4 and at B = 4 with the prefix, a
    shared-prefix wave with an unrelated prompt beside it, a profiler
    window over a shared-prefix wave, a wave of 4 unrelated prompts (flash
-   at B = 4), and short int8-KV and W8A8 shared-prefix runs;
+   at B = 4), and short int8-KV and W8A8 shared-prefix runs; then
+   ``Engine.generate_batch`` on that llama-3-8b engine: four ragged prompts
+   (37, 120, 255 and 350 tokens) left-padded to one bucket, 32 tokens
+   each, every row equal to its single-stream generate or a near-tie, no
+   flash launch in the batch prefill and one decode launch a layer a step
+   (its decode shape is a row of phase 3);
 8a. telemetry (obs/, on by default in every CLI phase): the slice's CLI
    run with ``--events`` and auto-save, then the batched slice's, each
    checked for the JAX CLI's run directory (``metrics.json``,
@@ -278,6 +284,16 @@ drafted slice of phase 8g 16), where the phases below say 64:
    engine into the tp 2 pool (bitwise), (i) prompt lookup on a judge
    prompt, and (j) a weight swap of a tp 2 consensus-1b against a fresh
    engine on the new weights. A ``{"parallel": ...}`` line;
+8m. the runtime sanitizer (``--phase sanitize``), in child processes of
+   this script (the sanitizer resolves ``LLMC_SANITIZE`` once per process):
+   (a) with ``LLMC_SANITIZE=1``, the CLI over a 4 x consensus-1b panel and
+   a consensus-1b judge, bf16, 24 tokens, under ``LLMC_MAX_BATCH=4
+   LLMC_KV_POOL=1 LLMC_JOURNAL=1 LLMC_INTEGRITY=1 LLMC_FAULTS=crash@chunk=3``
+   (one crash, one restart, the replay); (b) with it, ``serve --disagg``
+   over consensus-1b and four ~700-token requests, each handed off; (c) (a)
+   again without it. No lock-order cycle and no off-lock access in (a) or
+   (b), every kernel of (a) launched, every (b) request answered, and (a)'s
+   streams equal to (c)'s or near-ties. A ``{"sanitize": ...}`` line;
 9. the quantized slice: the same CLI run with ``LLMC_QUANT=int8
    LLMC_KV_QUANT=int8`` in the environment (int8 weights, int8 KV cache,
    the int8 decode kernel), then a profiler window over one of its
@@ -7019,8 +7035,7 @@ def check_head_slices_b4(torch, recs: dict) -> None:
 
     gen = torch.Generator(device="cuda").manual_seed(9)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    efficient = torch.ops.aten._scaled_dot_product_efficient_attention
-    b, t, hq, hkv, dh, L, S, layer = 4, 512, 16, 4, 128, 32, 8192, 5
+    b, t, hq, hkv, dh = 4, 512, 16, 4, 128
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device="cuda", dtype=torch.bfloat16)
@@ -7042,10 +7057,32 @@ def check_head_slices_b4(torch, recs: dict) -> None:
                 "batcher's B = 4 wave)", err, kern, plain_ms, lib,
                 2.0 * b * (2 * t * hq * dh + 2 * t * hkv * dh), 4.0 * b * hq * dh * (t * (t + 1) // 2))
     del q, k, v, qt, kt, vt
+    decode_b4_rows(torch, recs, gen, hq, hkv, (
+        ("decode_attention_tp2_b4", False, 511, 512, TP2_ROWS),
+        ("decode_attention_state_tp2_b4", True, 255, 256, TP2_STATE_ROWS)))
+    release_memory(torch)
+
+
+def decode_b4_rows(torch, recs: dict, gen, hq: int, hkv: int, rows: tuple) -> None:
+    """B = 4 rows of the bf16 decode kernel over a [32,4,8192,hkv,128]
+    cache at layer 5: each ``(name, state, pos, width, row starts)`` against
+    its plain version, timed warm and cold against the plain version and
+    the library call (SDPA; for the state form aten's memory-efficient
+    attention with its log-sum-exp), K/V expanded to ``hq`` heads with the
+    row starts as a bias mask."""
+    from llm_consensus_tpu_torch.ops.kernels import decode_attention as da
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    efficient = torch.ops.aten._scaled_dot_product_efficient_attention
+    b, dh, L, S, layer = 4, 128, 32, 8192, 5
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+
     k, v, q = rnd(L, b, S, hkv, dh), rnd(L, b, S, hkv, dh), rnd(b, 1, hq, dh)
     layer_t = torch.full((), layer, dtype=torch.int32, device="cuda")
     qt = q.transpose(1, 2)
-    for state, pos, w, starts in ((False, 511, 512, TP2_ROWS), (True, 255, 256, TP2_STATE_ROWS)):
+    for name, state, pos, w, starts in rows:
         rs_t = torch.tensor(starts, dtype=torch.int32, device="cuda")
         pos_t = torch.full((), pos, dtype=torch.int32, device="cuda")
         kw = dict(kv_width=w, return_state=state)
@@ -7065,7 +7102,7 @@ def check_head_slices_b4(torch, recs: dict) -> None:
         finite = all(bool(torch.isfinite(x).all()) for x in (got if state else (got,)))
         if (not finite or err > decode_tol(want0) or m_err > STATE_M_TOL
                 or l_err > STATE_L_REL_TOL):
-            raise AssertionError(f"decode tp 2 B = 4 (state {state}): out {err}, m {m_err}, "
+            raise AssertionError(f"{name}: out {err}, m {m_err}, "
                                  f"l {l_err}, finite {finite}")
         kern = timed(call, 200)
         plain_ms, _ = device_time_ms(
@@ -7083,7 +7120,6 @@ def check_head_slices_b4(torch, recs: dict) -> None:
             lib = timed(lambda: sdpa(qt, kt, vt, attn_mask=bias), 200)
         n_valid = sum(pos - r + 1 for r in starts)
         io_bytes = 2.0 * 2 * b * hq * dh + (2 * 4 * b * hq if state else 0)
-        name = "decode_attention_state_tp2_b4" if state else "decode_attention_tp2_b4"
         head_record(recs, name, "llm_consensus_tpu_torch/csrc/decode_attention.cu",
                     "llm_consensus_tpu/ops/pallas/decode_attention.py:415"
                     + (" (return_state :139-147)" if state else ""),
@@ -7096,6 +7132,65 @@ def check_head_slices_b4(torch, recs: dict) -> None:
         del kt, vt, bias
     del k, v, q
     release_memory(torch)
+
+
+# generate_batch's step of the batched phase: four ragged prompts (tokens, BOS
+# included) left-padded to the 512-token bucket, 32 tokens each; its decode
+# kernel row at the first step (pos 512, width 640).
+GB_LENGTHS = (37, 120, 255, 350)
+GB_TOKENS = 32
+GB_ROWS = tuple(512 - n for n in GB_LENGTHS)
+
+
+def check_decode_batch(torch, recs: dict) -> None:
+    """The shape ``Engine.generate_batch`` gives the bf16 decode kernel on
+    llama-3-8b in the batched phase: q[4,1,32,128] over [32,4,8192,8,128] at
+    its first step (pos 512, width 640) with the ragged prompts' row starts,
+    against its plain version, timed as :func:`decode_b4_rows` does."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    decode_b4_rows(torch, recs, gen, 32, 8,
+                   (("decode_attention_batch_b4", False, 512, 640, GB_ROWS),))
+    release_memory(torch)
+
+
+def batched_generate_batch(torch, fa, da, engine, seed: int) -> dict:
+    """``Engine.generate_batch`` on the batched phase's llama-3-8b engine:
+    four ragged random prompts (37, 120, 255 and 350 tokens), 32 tokens
+    each. Every row's tokens equal that prompt's single-stream generate or
+    are near-ties; the batch prefill launches no flash kernel (the plain op,
+    as the JAX engine sends it to XLA); the decode kernel launches exactly
+    once a layer a step."""
+    from llm_consensus_tpu_torch.engine import SamplingParams
+
+    prompts = [kv_text(torch, seed + 40 + i, n - 1) for i, n in enumerate(GB_LENGTHS)]
+    ids = [engine.tokenizer.encode(p) for p in prompts]
+    if [len(x) for x in ids] != list(GB_LENGTHS):
+        raise AssertionError(f"generate_batch: prompt lengths {[len(x) for x in ids]}")
+    sp = SamplingParams(max_new_tokens=GB_TOKENS, ignore_eos=True)
+    counters = {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES,
+                "decode_attention_state": da.LAUNCHES_STATE}
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.reset()
+    t0 = time.monotonic()
+    got = engine.generate_batch(prompts, sp)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {name: c.count for name, c in counters.items()}
+    chunk = engine.stream_interval
+    steps = -(-(GB_TOKENS - 1) // chunk) * chunk  # the dispatched decode steps
+    rows = [greedy_check(torch, engine, f"generate_batch row {i} ({n} tokens)", ids[i],
+                         got[i].token_ids, engine.generate(prompts[i], sp).token_ids)
+            for i, n in enumerate(GB_LENGTHS)]
+    want = {"flash_attention": 0, "decode_attention": steps * engine.cfg.n_layers,
+            "decode_attention_state": 0}
+    log(f"generate_batch: 4 rows of {list(GB_LENGTHS)} tokens, {GB_TOKENS} tokens each in "
+        f"{wall:.3f} s ({4 * GB_TOKENS / wall:.2f} tokens/s), launches {launches} (want {want}), "
+        f"rows equal to single-stream {[r['equal'] for r in rows]}")
+    if launches != want or any(len(r.token_ids) != GB_TOKENS for r in got):
+        raise AssertionError(f"generate_batch: launches {launches} (want {want}), "
+                             f"lengths {[len(r.token_ids) for r in got]}")
+    return {"wall_s": wall, "launches": launches, "rows": rows}
 
 
 def check_head_slices(torch, recs: dict) -> None:
@@ -7833,6 +7928,245 @@ def run_parallel(torch, fa, da, card: str, seed: int, recs: dict) -> dict:
     return out
 
 
+# -- phase 8m: the runtime sanitizer over the chaos and disaggregated paths ----
+
+SANITIZE_MODEL = "consensus-1b"
+SANITIZE_TOKENS = "24"
+# (a) the batched, pooled, journaled, integrity-checked CLI through an
+# injected crash with the sanitizer on; (c) the same run with it off.
+SANITIZE_CHAOS_ENV = {"LLMC_MAX_BATCH": "4", "LLMC_KV_POOL": "1", "LLMC_JOURNAL": "1",
+                      "LLMC_INTEGRITY": "1", "LLMC_FAULTS": "crash@chunk=3",
+                      "LLMC_FAULTS_SEED": "7"}
+# (b) ``serve --disagg`` over consensus-1b alone: four ~700-token requests,
+# so every panel and judge prompt holds a 512-token prefill chunk and takes a
+# handoff on one card.
+SANITIZE_DISAGG_ARGS = ["--models", f"gpu:{SANITIZE_MODEL}", "--judge", f"gpu:{SANITIZE_MODEL}",
+                        "--max-batch", "4", "--max-tokens", "16", "--cache-size", "0",
+                        "--port", "0", "--disagg"]
+SANITIZE_CHILD_S = 420  # one child's limit: it is killed after it
+
+
+def sanitize_streams(slog) -> list:
+    """Every stream of ``slog`` that finished: its preset, prompt ids,
+    greedy tokens and sampling bounds (a replayed stream's tokens include
+    the ones it replayed)."""
+    out = []
+    for it in slog.items:
+        fut = it.future
+        if fut.done() and not fut.cancelled() and fut.exception() is None:
+            out.append({"preset": it.engine.cfg.name, "prompt_ids": list(it.prompt_ids),
+                        "tokens": list(fut.result().token_ids),
+                        "max_new": it.sampling.max_new_tokens,
+                        "ignore_eos": it.sampling.ignore_eos})
+    return out
+
+
+def sanitize_compare(torch, provider, mine: list, other: list) -> dict:
+    """The sanitized run's streams (``other``) against this run's
+    (``mine``), on this run's engines: equal, or near-ties under teacher
+    forcing; a stream this run never had (a judge prompt whose panel answers
+    landed in another order) is held to the engine's single-stream greedy
+    tokens."""
+    from llm_consensus_tpu_torch.engine import SamplingParams
+
+    ref = {(s["preset"], tuple(s["prompt_ids"])): s["tokens"] for s in mine}
+    engines = provider.engines()
+    rows, seen, equal, unmatched = [], set(), 0, 0
+    for s in other:
+        key = (s["preset"], tuple(s["prompt_ids"]))
+        if key in seen:
+            continue
+        seen.add(key)
+        engine = engines[s["preset"]]
+        want = ref.get(key)
+        if want is None:
+            unmatched += 1
+            want = engine.generate_ids(list(key[1]), SamplingParams(
+                max_new_tokens=s["max_new"], ignore_eos=s["ignore_eos"])).token_ids
+        if s["tokens"] == want:
+            equal += 1
+        else:
+            rows.append(greedy_check(torch, engine, f"sanitize (a) {s['preset']} stream",
+                                     list(key[1]), s["tokens"], want))
+    return {"streams": len(seen), "equal": equal, "near_ties": rows,
+            "single_stream_refs": unmatched}
+
+
+def sanitize_chaos(torch, fa, da, tmp: str, kind: str, against: str) -> dict:
+    """Child (a) or (c): the port's CLI in this process, panel 4 x
+    consensus-1b, judge consensus-1b, bf16, the slice's prompt, 24 tokens,
+    under ``SANITIZE_CHAOS_ENV``. Its finished streams go to
+    ``<tmp>/<kind>.streams.json``; with ``against`` (another child's
+    streams) they are compared as :func:`sanitize_compare` does."""
+    from llm_consensus_tpu_torch.providers.gpu import GPUProvider
+
+    counters = {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES,
+                "decode_attention_state": da.LAUNCHES_STATE}
+    argv = ["--models", ",".join([f"gpu:{SANITIZE_MODEL}"] * 4), "--judge",
+            f"gpu:{SANITIZE_MODEL}", "--max-tokens", SANITIZE_TOKENS, "--json",
+            "--data-dir", os.path.join(tmp, kind), PROMPT]
+    with StreamLog() as slog:
+        call = cli_call(torch, counters, SANITIZE_CHAOS_ENV, argv)
+    out = {"rc": call["rc"], "wall_s": call["wall_s"], "launches": call["launches"],
+           "peak_gb": call["peak_gb"]}
+    if call["rc"] != 0:
+        raise AssertionError(f"CLI exit {call['rc']}: {call['err'][-3000:]}")
+    doc = json.loads(call["out"])
+    (provider,) = [p for p in GPUProvider._shared.values() if p.journal is not None]
+    out["restarts"] = provider.recovery_stats()["restarts"]
+    out["answers"] = {"consensus": doc["consensus"],
+                      "responses": sorted(r["content"] for r in doc["responses"]),
+                      "failed_models": doc.get("failed_models") or []}
+    streams = sanitize_streams(slog)
+    with open(os.path.join(tmp, f"{kind}.streams.json"), "w", encoding="utf-8") as f:
+        json.dump(streams, f)
+    if against:
+        with open(against, encoding="utf-8") as f:
+            out["against"] = sanitize_compare(torch, provider, streams, json.load(f))
+    log(f"sanitize ({kind}): CLI exit 0 in {call['wall_s']:.2f} s, launches {call['launches']}, "
+        f"restarts {out['restarts']}, {len(streams)} streams")
+    return out
+
+
+def sanitize_disagg(torch, fa, da, tmp: str) -> dict:
+    """Child (b): ``serve --disagg`` in this process on one card, four
+    concurrent requests whose prompts take a handoff; every request must be
+    answered."""
+    counters = {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES,
+                "decode_attention_state": da.LAUNCHES_STATE}
+    stop, err, rc = threading.Event(), io.StringIO(), []
+    with set_environ(DISAGG_ENV), ProviderCatch() as catch:
+        server, port = serve_in_process(SANITIZE_DISAGG_ARGS, os.path.join(tmp, "disagg"), stop,
+                                        err, rc, "sanitize (b)")
+        try:
+            provider = catch.providers[0]
+            bodies = [{"prompt": f"Request {i} of four. {PROMPT} {PROMPT}"} for i in range(4)]
+            for c in counters.values():
+                c.reset()
+            t0 = time.monotonic()
+            answers = gw_fire(port, bodies)
+            wall = time.monotonic() - t0
+            launches = {name: c.count for name, c in counters.items()}
+            stats = provider.disagg_stats()
+        finally:
+            stop.set()
+            server.join(120)
+    answered = 0
+    for status, _h, data, _wall, _sse in answers:
+        doc = json.loads(data) if status == 200 else {}
+        answered += bool(doc.get("consensus")) and not doc.get("failed_models")
+    out = {"rc": rc[0] if rc else None, "wall_s": wall, "launches": launches,
+           "answered": answered, "handoff": stats.get(SANITIZE_MODEL)}
+    log(f"sanitize (disagg): {answered} of 4 answered in {wall:.2f} s, launches {launches}, "
+        f"handoff {out['handoff']}, server exit {out['rc']}")
+    return out
+
+
+def sanitize_child(torch, fa, da, kind: str, tmp: str, against: str) -> int:
+    """One child of the sanitize phase, in a process of its own (the
+    sanitizer resolves ``LLMC_SANITIZE`` once per process): runs ``kind``
+    and prints one ``{"sanitize_child": ...}`` line with the sanitizer's
+    counts (and its rendered report when it found anything)."""
+    from llm_consensus_tpu_torch.analysis import sanitizer
+
+    out = {"child": kind, "sanitize": sanitizer.enabled()}
+    t0 = time.monotonic()
+    try:
+        if kind == "disagg":
+            out.update(sanitize_disagg(torch, fa, da, tmp))
+        else:
+            out.update(sanitize_chaos(torch, fa, da, tmp, kind, against))
+    except BaseException as err:  # noqa: BLE001 — reported on the line, then the exit code
+        out["error"] = f"{type(err).__name__}: {err}"[-4000:]
+    rep = sanitizer.report()
+    if rep is not None:
+        out["sanitizer"] = {"locks": len(rep["locks"]), "edges": len(rep["edges"]),
+                            "cycles": len(rep["cycles"]), "violations": len(rep["violations"])}
+        if rep["cycles"] or rep["violations"]:
+            out["report"] = sanitizer.render_report(rep)
+    out["child_wall_s"] = time.monotonic() - t0
+    print(json.dumps({"sanitize_child": out}, default=str), flush=True)
+    return 1 if "error" in out else 0
+
+
+def sanitize_spawn(kind: str, tmp: str, sanitize: bool, against: str = "") -> dict:
+    """Run one child (``python3 chip_smoke.py --sanitize-child kind``) with
+    ``LLMC_SANITIZE=1`` or without it, echo its log lines and return its
+    ``sanitize_child`` record; kill it after ``SANITIZE_CHILD_S``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k != "LLMC_SANITIZE"}
+    if sanitize:
+        env["LLMC_SANITIZE"] = "1"
+    argv = [sys.executable, os.path.join(here, "chip_smoke.py"), "--sanitize-child", kind,
+            "--sanitize-dir", tmp] + (["--sanitize-against", against] if against else [])
+    proc = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env=env, cwd=here)
+    try:
+        stdout, stderr = proc.communicate(timeout=SANITIZE_CHILD_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        stdout, stderr = proc.communicate()
+        raise AssertionError(f"sanitize ({kind}): the child ran past {SANITIZE_CHILD_S} s: "
+                             f"{stdout[-2000:]} {stderr[-3000:]}")
+    records = []
+    for line in stdout.splitlines():
+        if line.startswith('{"sanitize_child"'):
+            records.append(json.loads(line)["sanitize_child"])
+        else:
+            log(f"  [{kind}] {line}")
+    if proc.returncode != 0 or not records:
+        raise AssertionError(f"sanitize ({kind}): child exit {proc.returncode}: {records} "
+                             f"{stderr[-4000:]}")
+    return records[-1]
+
+
+def run_sanitize(torch, card: str, seed: int) -> dict:
+    """Phase 8m: the runtime lock sanitizer (``LLMC_SANITIZE=1``) over the
+    port's chaos and disaggregated serving paths on the card, in child
+    processes: (a) the chaos CLI (:func:`sanitize_chaos`) through one
+    injected crash and its replay; (b) ``serve --disagg`` with four handed-off
+    requests; (c) (a) again without the sanitizer, the reference. Fails on a
+    lock-order cycle or an off-lock access in (a) or (b) (printed with the
+    first-observed stacks), a kernel of (a) that never launched, (a) or (c)
+    without exactly one restart, an unanswered request in (b), or an (a)
+    stream neither equal to (c)'s nor a near-tie. Prints a
+    ``{"sanitize": ...}`` line."""
+    t_phase = time.monotonic()
+    fresh_planes()
+    release_memory(torch)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-sanitize-") as tmp:
+        a = sanitize_spawn("chaos", tmp, True)
+        b = sanitize_spawn("disagg", tmp, True)
+        c = sanitize_spawn("reference", tmp, False, os.path.join(tmp, "chaos.streams.json"))
+    for name, child in (("a", a), ("b", b)):
+        counts = child.get("sanitizer")
+        if not child["sanitize"] or counts is None:
+            raise AssertionError(f"sanitize ({name}): the sanitizer was off: {child}")
+        if counts["cycles"] or counts["violations"]:
+            raise AssertionError(f"sanitize ({name}): {counts}\n{child.get('report', '')}")
+    if c["sanitize"] or "sanitizer" in c:
+        raise AssertionError(f"sanitize (c): the reference ran sanitized: {c}")
+    if min(a["launches"].values()) <= 0:
+        raise AssertionError(f"sanitize (a): a kernel never launched: {a['launches']}")
+    for name, child in (("a", a), ("c", c)):
+        if child["rc"] != 0 or child["restarts"] != 1 or child["answers"]["failed_models"]:
+            raise AssertionError(f"sanitize ({name}): exit {child['rc']}, restarts "
+                                 f"{child['restarts']}, {child['answers']}")
+    handoff = b["handoff"] or {}
+    if b["answered"] != 4 or handoff.get("completed", 0) < 4 or handoff.get("fallbacks"):
+        raise AssertionError(f"sanitize (b): {b['answered']} of 4 answered, handoff {handoff}")
+    out = {"a": a, "b": b, "c": c, "answers_equal": a["answers"] == c["answers"],
+           "wall_ratio": a["wall_s"] / c["wall_s"], "wall_s": time.monotonic() - t_phase}
+    log(f"sanitize: (a) {a['sanitizer']} in {a['wall_s']:.2f} s against {c['wall_s']:.2f} s "
+        f"unsanitized ({out['wall_ratio']:.3f}x), launches {a['launches']}; (b) {b['sanitizer']}, "
+        f"{b['answered']} of 4 answered in {b['wall_s']:.2f} s, handoff {handoff}; answers equal "
+        f"{out['answers_equal']}, (a)'s streams against (c): {c['against']['equal']} equal, "
+        f"{len(c['against']['near_ties'])} near-ties, {c['against']['single_stream_refs']} "
+        f"held to single-stream; phase {out['wall_s']:.1f} s")
+    print(json.dumps({"sanitize": out, "card": card}, default=str), flush=True)
+    return out
+
+
 PHASE_WALLS: dict = {}  # phase → seconds, in run order
 
 
@@ -7857,9 +8191,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phase", choices=("all", "kernels", "mixtral", "telemetry", "modes",
                                         "session", "serving", "recovery", "kvpool", "spec",
-                                        "gateway", "route", "disagg", "distill", "parallel"),
+                                        "gateway", "route", "disagg", "distill", "parallel",
+                                        "sanitize"),
                     default="all")
     ap.add_argument("--seed", type=int, default=0)
+    # One child of the sanitize phase (run_sanitize starts them).
+    ap.add_argument("--sanitize-child", choices=("chaos", "disagg", "reference"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--sanitize-dir", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--sanitize-against", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -7891,6 +8231,9 @@ def main(argv=None) -> int:
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             log(f"  {line.strip()}")
+    if args.sanitize_child:
+        return sanitize_child(torch, fa, da, args.sanitize_child, args.sanitize_dir,
+                              args.sanitize_against)
 
     flash_rec: dict = {}
     decode_rec: dict = {}
@@ -7900,6 +8243,7 @@ def main(argv=None) -> int:
     rows16_recs: dict = {"decode_attention_b16": {}, "decode_attention_state_b16": {}}
     dh64_recs: dict = {"flash": {}, "decode": {}}
     head_recs: dict = {}  # the head-slice rows (check_head_slices)
+    batch_recs: dict = {}  # generate_batch's decode row (check_decode_batch)
     records = [flash_rec, decode_rec, int8_rec, w8a8_rec, *state_recs.values(),
                *rows16_recs.values(), *dh64_recs.values()]
     mixtral_recs = {"flash": flash_rec, "int8": int8_rec, "w8a8": w8a8_rec}
@@ -7980,6 +8324,13 @@ def main(argv=None) -> int:
         print(json.dumps({"kernels": list(head_recs.values())}), flush=True)
         print(card, flush=True)
         return 0
+    if args.phase == "sanitize":
+        # The sanitize phase alone: no ok line.
+        with phase_wall("sanitize"):
+            run_sanitize(torch, card, args.seed)
+        print_phase_walls(t_start)
+        print(card, flush=True)
+        return 0
     if args.phase == "spec":
         # The dh 64 kernel rows and the spec phase: no ok line.
         with phase_wall("kernels dh 64"):
@@ -7999,8 +8350,9 @@ def main(argv=None) -> int:
         check_decode_rows16(torch, rows16_recs)
         check_head_slices(torch, head_recs)
         check_head_slices_b4(torch, head_recs)
+        check_decode_batch(torch, batch_recs)
         check_int8_matmul(torch)
-    records += list(head_recs.values())
+    records += list(head_recs.values()) + list(batch_recs.values())
     if args.phase == "kernels":
         # Kernel checks only: the main path did not run, so no ok line.
         print(json.dumps({"kernels": records}), flush=True)
@@ -8033,6 +8385,8 @@ def main(argv=None) -> int:
         bsl = run_batched_slice(torch, fa, da, single_responses)
         state_recs["bf16"]["launches"] = bsl["launches"]["decode_attention_state"]
         run_batched_engine(torch, fa, da, bsl["engines"]["llama-3-8b"], state_recs)
+        gb = batched_generate_batch(torch, fa, da, bsl["engines"]["llama-3-8b"], args.seed)
+        batch_recs["decode_attention_batch_b4"]["launches"] = gb["launches"]["decode_attention"]
         modes = bsl["modes"]
         del bsl
         release_engines(torch, modes)
@@ -8064,6 +8418,8 @@ def main(argv=None) -> int:
         shutil.rmtree(flywheel_tmp, ignore_errors=True)
     with phase_wall("parallel"):
         run_parallel(torch, fa, da, card, args.seed, head_recs)
+    with phase_wall("sanitize"):
+        run_sanitize(torch, card, args.seed)
 
     with phase_wall("quantized slice"):
         qsl = run_slice(torch, {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES,

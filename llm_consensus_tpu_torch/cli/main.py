@@ -113,6 +113,7 @@ from functools import partial
 from typing import Callable, Optional, TextIO
 
 from llm_consensus_tpu_torch import faults, integrity, obs, ui
+from llm_consensus_tpu_torch.analysis import sanitizer
 from llm_consensus_tpu_torch.consensus import (
     Judge,
     grade_confidence,
@@ -691,7 +692,7 @@ def panel_journal(run_dir: str, warn=None) -> Callable[[Response], None]:
     past the highest file already there: a torn file keeps its index, and
     a resumed rerun never overwrites the journal it reuses."""
     panel_dir = os.path.join(run_dir, "panel")
-    lock = threading.Lock()
+    lock = sanitizer.make_lock("cli.panel")
     nxt = 0
     if os.path.isdir(panel_dir):
         for name in os.listdir(panel_dir):

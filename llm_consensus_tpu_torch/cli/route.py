@@ -29,6 +29,7 @@ import signal
 import threading
 from typing import Optional, TextIO
 
+from llm_consensus_tpu_torch.analysis import sanitizer
 from llm_consensus_tpu_torch.utils import knobs
 
 
@@ -190,7 +191,7 @@ def route_main(
             + "\n"
         )
 
-    stop = shutdown if shutdown is not None else threading.Event()
+    stop = shutdown if shutdown is not None else sanitizer.make_event("cli.shutdown")
     if install_signal_handlers:
         for sig in (signal.SIGINT, signal.SIGTERM):
             try:

@@ -41,6 +41,7 @@ from dataclasses import dataclass
 from typing import Optional, TextIO
 
 from llm_consensus_tpu_torch import ui
+from llm_consensus_tpu_torch.analysis import sanitizer
 from llm_consensus_tpu_torch.utils import knobs
 from llm_consensus_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -410,7 +411,7 @@ def serve_main(
             if not cfg.quiet:
                 stderr.write(f"announcing to fleet router {cfg.announce}\n")
 
-        stop = shutdown if shutdown is not None else threading.Event()
+        stop = shutdown if shutdown is not None else sanitizer.make_event("cli.shutdown")
         if install_signal_handlers:
             for sig in (signal.SIGINT, signal.SIGTERM):
                 try:

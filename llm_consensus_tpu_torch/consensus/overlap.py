@@ -34,13 +34,13 @@ generate propagates; neither becomes the classic fallback.
 
 from __future__ import annotations
 
-import threading
 import time
 from typing import Optional
 
 import torch
 
 from llm_consensus_tpu_torch import obs
+from llm_consensus_tpu_torch.analysis import sanitizer
 from llm_consensus_tpu_torch.consensus.judge import (
     JUDGE_PROMPT_FOOTER, JUDGE_PROMPT_HEADER, Judge, NoResponsesError, render_response_block)
 from llm_consensus_tpu_torch.ops.kernels.build import KernelBuildError, KernelLaunchError
@@ -104,7 +104,7 @@ class OverlapJudge:
         self._max_tokens = max_tokens
         self._trace = trace_id  # the classic fallback's engine hop carries it
         self._priority = priority  # the classic fallback's class (None: the Judge's)
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock("consensus.overlap")
         self._engine = None
         self._session = None
         self._streamed: list[Response] = []  # arrival order

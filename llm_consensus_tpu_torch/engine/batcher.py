@@ -162,6 +162,7 @@ from typing import Callable, Iterable, Optional
 import torch
 
 from llm_consensus_tpu_torch import integrity, obs
+from llm_consensus_tpu_torch.analysis import sanitizer
 from llm_consensus_tpu_torch.engine.engine import (
     DeviceWall, Engine, GenerateResult, SamplingParams, _bucket, _cache_nbytes, _Fetch)
 from llm_consensus_tpu_torch.engine.speculative import (
@@ -456,9 +457,9 @@ class ContinuousBatcher:
         # writer, the scheduler thread. The fetch worker only writes slots
         # stream → None (retirement), the scheduler only None → stream
         # (and moves a row only with the pipeline drained).
-        self._lock = threading.Lock()
-        self._work = threading.Condition(self._lock)
-        self._queue: list[tuple[list, _Stream]] = []
+        self._lock = sanitizer.make_lock("engine.batcher")
+        self._work = sanitizer.make_condition("engine.batcher", self._lock)
+        self._queue: list[tuple[list, _Stream]] = []  # guarded by: _work
         self._slots: list[Optional[_Stream]] = [None] * max_batch
         self._closed = False
         self._template: Optional[tuple] = None  # (temperature, top_k, top_p)
@@ -480,7 +481,7 @@ class ContinuousBatcher:
         self._rows_bucket_enabled = bool(pool_bucket) and max_batch > self._min_rows
         # Priority preemption; _preempt_req is an outside nudge (preempt()).
         self._preempt_enabled = bool(preempt)
-        self._preempt_req = 0  # guarded by _work
+        self._preempt_req = 0  # guarded by: _work
         self._brownout = False
         self._spec: Optional[_SpecState] = None
         if spec is not None and engine.cfg.sliding_window is not None:
@@ -528,16 +529,16 @@ class ContinuousBatcher:
         # installed; establish_tokens the prefix tokens established);
         # absorb_s the bounded burst-absorption pauses; preemptions the
         # streams suspended for a higher class; compactions the waterline
-        # slides. Guarded by _work.
-        self.stats = {
+        # slides.
+        self.stats = {  # guarded by: _work
             "decode_tokens": 0, "decode_s": 0.0, "admit_s": 0.0, "admit_tokens": 0,
             "admitted": 0, "establish_s": 0.0, "establish_tokens": 0, "absorb_s": 0.0,
             "preemptions": 0, "compactions": 0,
         }
         self._prev_arrival: Optional[float] = None
-        self._unfetched = 0  # dispatched chunks not yet emitted (guarded by _work)
+        self._unfetched = 0  # guarded by: _work (dispatched chunks not yet emitted)
         self._nondecode_work = False  # admission/compaction since last dispatch
-        self._worker_exc: Optional[BaseException] = None  # guarded by _work
+        self._worker_exc: Optional[BaseException] = None  # guarded by: _work
         # Pool-death evidence: set by the loop's fatal exit and abandon().
         self.failed_exc: Optional[BaseException] = None
         # Progress heartbeat: stats updates (admissions, fetch arrivals)
@@ -703,8 +704,10 @@ class ContinuousBatcher:
         """Whether the pool has work that should advance the heartbeat.
         Lock-free on purpose: a watchdog calls it to find a scheduler wedged
         while holding the lock; a stale read delays it by one poll."""
-        return (self._unfetched > 0 or self._pending_wave is not None
-                or any(s is not None for s in self._slots) or bool(self._queue))
+        return (self._unfetched > 0  # lint-ok: GS01 watchdog must not block
+                or self._pending_wave is not None
+                or any(s is not None for s in self._slots)
+                or bool(self._queue))  # lint-ok: GS01 watchdog must not block
 
     def abandon(self, exc: BaseException) -> None:
         """Declare the pool dead without joining its threads (they may be
@@ -785,8 +788,8 @@ class ContinuousBatcher:
         wave = self._pending_wave
         got = self._work.acquire(timeout=0.2)
         try:
-            queued = len(self._queue)
-            preemptions = self.stats["preemptions"]
+            queued = len(self._queue)  # lint-ok: GS01 bounded-acquire fallback
+            preemptions = self.stats["preemptions"]  # lint-ok: GS01 bounded-acquire fallback
         finally:
             if got:
                 self._work.release()
@@ -1281,6 +1284,7 @@ class ContinuousBatcher:
     def _stat_add_locked(self, **deltas) -> None:
         """Under ``_work``: accumulate stats. Every update is progress, so
         it advances the heartbeat."""
+        sanitizer.assert_held(self._work)
         for k, v in deltas.items():
             self.stats[k] += v
         self._beat = time.monotonic()
@@ -1443,7 +1447,7 @@ class ContinuousBatcher:
             n_steps = min(1 << max(need - 1, 0).bit_length(), n_steps)
         if (
             n_steps == chunk
-            and self._unfetched == 0  # racy read: a heuristic only
+            and self._unfetched == 0  # lint-ok: GS01 monotone read (heuristic only)
             and chunk > 32
             and sum(1 for s in self._slots if s is not None) * 2 < self.max_batch
         ):
@@ -1625,7 +1629,7 @@ class ContinuousBatcher:
             if item is None:
                 return
             fetch, owners, firsts, pure, t_dispatch, walls, mode = item
-            if self._worker_exc is not None:
+            if self._worker_exc is not None:  # lint-ok: GS01 own-write read
                 # A prior fetch failed: emitting later chunks would resolve
                 # streams with tokens missing. Drain; the scheduler fails
                 # every live stream.
@@ -1742,9 +1746,10 @@ class ContinuousBatcher:
         wave and lose sharing)."""
         t_abs = time.monotonic()
         deadline = t_abs + deadline_s
+        sanitizer.assert_held(self._work)
         seen, quiet = -1, 0
         while not self._closed and quiet < quiet_windows and time.monotonic() < deadline:
-            n = len(self._queue)
+            n = len(self._queue)  # lint-ok: GS01 caller holds _work (asserted above)
             quiet = quiet + 1 if n == seen else 0
             seen = n
             self._work.wait(timeout=0.01)
@@ -1974,6 +1979,14 @@ class ContinuousBatcher:
             if not pending:
                 return requeue
 
+    def _drain_queue_locked(self) -> list:
+        """Under ``self._work``: take everything still queued so shutdown
+        can cancel it (no future may hang forever)."""
+        sanitizer.assert_held(self._work)
+        queued = list(self._queue)
+        self._queue.clear()
+        return queued
+
     def _loop(self) -> None:
         eng = self.engine
         chunk = eng.stream_interval
@@ -1981,6 +1994,10 @@ class ContinuousBatcher:
         # down with the next chunk's fetch.
         pending_firsts: list[tuple] = []
         while True:
+            # Schedule-exploration seam (analysis/schedule.py): one
+            # iteration of the scheduler loop is the protocol step the
+            # model checker preempts between.
+            sanitizer.sched_point("batcher.schedule")
             with self._work:
                 while (
                     self._worker_exc is None
@@ -1994,9 +2011,8 @@ class ContinuousBatcher:
                     raise self._worker_exc
                 if (self._closed and not self._live() and self._unfetched == 0
                         and self._pending_wave is None):
-                    for _, s in self._queue:
+                    for _, s in self._drain_queue_locked():
                         s.future.cancel()
-                    self._queue.clear()
                     return
                 pending = []
                 if self._pending_wave is None:
@@ -2047,7 +2063,10 @@ class ContinuousBatcher:
             requeue = self._admission_pass(pending, pending_firsts) if pending else []
             self._admitting = []
             resumed: list = []
-            if self._preempt_enabled and (requeue or self._preempt_req):
+            # A racy pre-check: _plan_preempt drains the nudge under the lock.
+            if self._preempt_enabled and (
+                requeue or self._preempt_req  # lint-ok: GS01 racy pre-check
+            ):
                 # Blocked higher-class work against lower-class residents:
                 # the resumed entries queue behind the blocked work, so the
                 # next pass seats the higher class in the freed slots.
@@ -2090,7 +2109,8 @@ class ContinuousBatcher:
             if not live_now:
                 continue
             if all(s.planned >= s.max_new for s in live_now) and (
-                self._unfetched > 0 or len(self._queue) > qlen0
+                self._unfetched > 0  # lint-ok: GS01 monotone read
+                or len(self._queue) > qlen0  # lint-ok: GS01 racy pre-check
             ):
                 continue
             if self._rows_bucket_enabled and not pending_firsts and self._pending_wave is None:

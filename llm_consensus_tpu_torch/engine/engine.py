@@ -103,12 +103,13 @@ batcher, the KV pool (one arena per shard) and the handoff move in
 lockstep; the batched forms (``row_start``, the shared prefix, the
 speculative bitmap) run through ``forward_sharded``; the weight swap
 shards the incoming tree as the constructor does and flips every group's
-shards at once. ``generate_batch`` of the JAX engine is not ported.
+shards at once. ``generate_batch`` is the JAX engine's static batch: left-
+padded rows with per-row ``row_start``, the prefill on the plain op and
+every decode step on the decode kernel with the row starts.
 """
 
 from __future__ import annotations
 
-import threading
 import time
 import weakref
 from contextlib import nullcontext
@@ -119,6 +120,7 @@ from typing import Callable, Optional
 import torch
 
 from llm_consensus_tpu_torch import faults, obs
+from llm_consensus_tpu_torch.analysis import sanitizer
 from llm_consensus_tpu_torch.engine.tokenizer import StreamDecoder, load_tokenizer
 from llm_consensus_tpu_torch.models.config import ModelConfig
 from llm_consensus_tpu_torch.kv import pool_for
@@ -416,8 +418,8 @@ class Engine:
         # stream finishes on the buffer it started with; pin/unpin never
         # block, and the flip rides whichever unpin drains the count to
         # zero. The swap lock is a leaf: nothing under it calls out.
-        self._swap_lock = threading.Lock()
-        self._swap_cv = threading.Condition(self._swap_lock)
+        self._swap_lock = sanitizer.make_lock("engine.swap")
+        self._swap_cv = sanitizer.make_condition("engine.swap", self._swap_lock)
         self.swap_wait_s = swap_wait_s  # LLMC_SWAP_WAIT_S
         self.weight_version = 0
         self.weight_meta: dict = {}
@@ -449,7 +451,7 @@ class Engine:
             and (self.kv_pool_requested or snapshot_bytes <= self.prefix_max_bytes))
         self._prefix_ids: Optional[tuple] = None
         self._prefix_cache: Optional[dict] = None
-        self._prefix_lock = threading.Lock()
+        self._prefix_lock = sanitizer.make_lock("engine.prefix")
         self._sessions: "weakref.WeakSet[PrefillSession]" = weakref.WeakSet()
         # Telemetry planes (obs/), bound once: a plane off costs the hot
         # loops one None check per chunk.
@@ -1184,6 +1186,152 @@ class Engine:
             kv_truncated=kv_truncated,
         )
 
+    # -- batched API -------------------------------------------------------------
+
+    def generate_batch(
+        self,
+        prompts: list[str],
+        sampling: SamplingParams = SamplingParams(),
+        ctx: Optional[Context] = None,
+    ) -> list[GenerateResult]:
+        """Decode ``len(prompts)`` streams in one static batch (the JAX
+        engine's serving-throughput API). Rows are right-aligned (left-padded)
+        to one bucket with per-row ``row_start`` offsets; finished rows keep
+        stepping (their output is dropped) until every row finishes. The
+        whole batch is pinned to one weight version. The batch prefill runs
+        the plain attention op, as the JAX engine sends it to XLA; every
+        decode step launches the decode kernel with the row starts."""
+        self.pin_weights()
+        try:
+            with torch.inference_mode():
+                return self._generate_batch_pinned(prompts, sampling, ctx)
+        finally:
+            self.unpin_weights()
+
+    def _generate_batch_pinned(
+        self,
+        prompts: list[str],
+        sampling: SamplingParams,
+        ctx: Optional[Context],
+    ) -> list[GenerateResult]:
+        ctx = ctx or Context.background()
+        start_time = time.monotonic()
+        if not prompts:
+            return []
+        rows: list[list[int]] = []
+        truncated: list[bool] = []
+        for p in prompts:
+            ids, trunc = self._budget_prompt(self.tokenizer.encode(p), sampling.max_new_tokens)
+            if not ids:
+                raise ValueError("empty prompt")
+            rows.append(ids)
+            truncated.append(trunc)
+        n_max = max(len(r) for r in rows)
+        if n_max >= self.max_seq:
+            raise ValueError(f"prompt length {n_max} exceeds max sequence length {self.max_seq}")
+        b = len(rows)
+        bucket = _bucket(n_max, self.max_seq)
+        if bucket >= self.max_seq:
+            # Decode slots start at the shared bucket: one that rounds up to
+            # max_seq would leave no room, so the rows fit exactly.
+            bucket = n_max
+        # Long buckets prefill in chunks like the single-stream path, the
+        # rows right-aligned to a chunk multiple.
+        chunk_len = self.prefill_chunk
+        use_chunks = bool(chunk_len) and bucket > chunk_len
+        if use_chunks:
+            pad_to = -(-bucket // chunk_len) * chunk_len
+            if pad_to >= self.max_seq:
+                use_chunks = False
+            else:
+                bucket = pad_to
+        max_new = min(sampling.max_new_tokens, self.max_seq - bucket)
+        row_start_list = [bucket - len(r) for r in rows]
+        row_start = self.to_device(row_start_list, torch.int32)
+        tokens = self.to_device([[0] * s + r for s, r in zip(row_start_list, rows)])
+        cache = self.new_cache(b)
+        step = chunk_len if use_chunks else bucket
+        last = torch.full((b,), (bucket - 1) % step, device=self.device)
+        with obs.attrib.tag("prefill"):
+            for i in range(bucket // step):
+                logits, _ = self._forward(
+                    tokens[:, i * step:(i + 1) * step], cache, i * step, attn_impl="torch",
+                    kv_width=bucket, logits_index=last, row_start=row_start)
+        gen = torch.Generator(device=self.device).manual_seed(sampling.seed)
+        sample_args = (sampling.temperature, sampling.top_k, sampling.top_p)
+        token = sample_token(logits[:, 0], gen, *sample_args)  # [B]
+        pos_dev = torch.full((), bucket, dtype=torch.int32, device=self.device)
+
+        eos = -1 if sampling.ignore_eos else self.tokenizer.eos_id
+        out_ids: list[list[int]] = [[] for _ in range(b)]
+        finish = ["length"] * b
+        done = [max_new <= 0] * b
+        pos = bucket
+        chunk = self.stream_interval
+        window = self.cfg.sliding_window
+
+        def emit(step_tokens) -> None:
+            for i in range(b):
+                if done[i]:
+                    continue
+                tok = int(step_tokens[i])
+                if tok == eos:
+                    finish[i] = "eos"
+                    done[i] = True
+                    continue
+                out_ids[i].append(tok)
+                if len(out_ids[i]) >= max_new:
+                    done[i] = True
+
+        # One-chunk lookahead like the single-stream loop: chunk N+1 is
+        # dispatched before chunk N's tokens are fetched; overshoot past EOS
+        # or max_new is dropped by emit.
+        first = token if max_new > 0 else None
+        inflight: Optional[_Fetch] = None
+        steps_needed = max_new - 1  # tokens beyond the prefill-sampled one
+        steps_dispatched = 0
+        while not all(done):
+            if ctx.done():
+                reason = "deadline" if ctx.remaining() == 0.0 else "cancelled"
+                for i in range(b):
+                    if not done[i]:
+                        finish[i] = reason
+                break
+            dispatched = None
+            if steps_dispatched < steps_needed and pos < self.max_seq:
+                n_steps = chunk if pos + chunk <= self.max_seq else 1
+                kv_valid = sum(min(pos + 1 - s, window or pos + 1) for s in row_start_list)
+                token, toks, pos_dev = self._decode_chunk(
+                    token, pos_dev, cache, n_steps, gen, sample_args,
+                    self._decode_width(pos + n_steps), kv_valid=kv_valid, row_start=row_start)
+                if first is not None:
+                    toks = torch.cat([first[None], toks])
+                    first = None
+                dispatched = _Fetch(toks)
+                steps_dispatched += n_steps
+                pos += n_steps
+            if inflight is not None:
+                for step_tokens in inflight.values():
+                    emit(step_tokens)
+            elif dispatched is None:
+                break
+            inflight = dispatched
+        # Only the prefill-sampled token can still be pending, when
+        # max_new == 1 dispatched no chunk at all.
+        if not all(done) and first is not None and not ctx.done():
+            emit(first.tolist())
+        return [
+            GenerateResult(
+                token_ids=out_ids[i],
+                text=self.tokenizer.decode(out_ids[i]),
+                finish_reason=finish[i],
+                prompt_tokens=len(rows[i]),
+                latency_ms=(time.monotonic() - start_time) * 1000,
+                truncated_prompt=truncated[i],
+            )
+            for i in range(b)
+        ]
+
     # -- text-level API --------------------------------------------------------
 
     def _prompt_budget(self, max_new: int) -> int:
@@ -1457,7 +1605,7 @@ class PrefillSession:
             raise ValueError("PrefillSession requires chunked prefill (prefill_chunk > 0)")
         self._eng = engine
         self._chunk = engine.prefill_chunk
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock("engine.session")
         self._ids: list[int] = []
         self._base = 0  # ids already prefilled (a chunk multiple)
         self._last_logits: Optional[torch.Tensor] = None

@@ -90,6 +90,7 @@ from typing import Optional
 import torch
 
 from llm_consensus_tpu_torch import faults, integrity, obs
+from llm_consensus_tpu_torch.analysis import sanitizer
 from llm_consensus_tpu_torch.kv.pool import _leaves
 from llm_consensus_tpu_torch.models.transformer import ShardGroup, cache_map, is_shard_list
 from llm_consensus_tpu_torch.obs.attrib import tag as _attrib_tag
@@ -132,7 +133,7 @@ class HandoffTicket:
         self.ok = False
         self.truncated = False
         self.error: Optional[BaseException] = None
-        self._done = threading.Event()
+        self._done = sanitizer.make_event("engine.handoff.ticket")
 
     def resolve(self, ok: bool, truncated: bool = False,
                 error: Optional[BaseException] = None) -> None:
@@ -181,16 +182,16 @@ class KVHandoff:
         self.wave_rows = max(1, int(wave_rows))
         self._wait_s = float(wait_s)
         self._name = name or prefill_engine.cfg.name
-        self._lock = threading.Lock()
-        self._work = threading.Condition(self._lock)
-        self._queue: list[HandoffTicket] = []  # guarded by _lock
-        self._seq = 0
-        self._closed = False
-        self.waves = 0
+        self._lock = sanitizer.make_lock("engine.handoff")
+        self._work = sanitizer.make_condition("engine.handoff", self._lock)
+        self._queue: list[HandoffTicket] = []  # guarded by: _lock
+        self._seq = 0  # guarded by: _lock
+        self._closed = False  # guarded by: _lock
+        self.waves = 0  # guarded by: _lock
         # Lifetime counters (the JAX keys): handoff_* the transfer,
         # prefill_* the prefill role's compute (the per-role utilization
         # gauge's numerator), covered the prompts already pool-resident.
-        self.stats = {
+        self.stats = {  # guarded by: _lock
             "submitted": 0, "covered": 0, "rejected": 0, "timeouts": 0,
             "fallbacks": 0, "completed": 0, "truncated": 0,
             "handoff_tokens": 0, "handoff_bytes": 0, "handoff_s": 0.0,
@@ -322,6 +323,9 @@ class KVHandoff:
 
     def _run(self) -> None:
         while True:
+            # Schedule-exploration seam: one wave drain is the protocol
+            # step the model checker preempts between.
+            sanitizer.sched_point("handoff.drain")
             with self._work:
                 while not self._queue and not self._closed:
                     self._work.wait()

@@ -14,9 +14,9 @@ flip plans with them between runs.
 
 from __future__ import annotations
 
-import threading
 from typing import Optional
 
+from llm_consensus_tpu_torch.analysis import sanitizer
 from llm_consensus_tpu_torch.faults.plan import (  # noqa: F401 — public API
     SITE_KINDS, FaultPlan, FaultSpec, InjectedFault, parse_spec)
 
@@ -25,7 +25,7 @@ __all__ = [
     "parse_spec", "plan", "install", "reset",
 ]
 
-_lock = threading.Lock()
+_lock = sanitizer.make_lock("faults.registry")
 _plan: Optional[FaultPlan] = None
 
 

@@ -178,9 +178,10 @@ construction time, so without a plan the hot dispatch paths carry a single
 from __future__ import annotations
 
 import random
-import threading
 from dataclasses import dataclass, field
 from typing import Optional
+
+from llm_consensus_tpu_torch.analysis import sanitizer
 
 # site -> kinds that can fire there
 SITE_KINDS: dict[str, tuple[str, ...]] = {
@@ -271,7 +272,7 @@ class FaultPlan:
         self._specs = parse_spec(spec)
         self._rng = random.Random(seed)
         self._counts: dict[str, int] = {}
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock("faults.plan")
         self.trace: list[str] = []
 
     def _matches(self, fs: FaultSpec, n: int, attrs: dict) -> bool:

@@ -29,8 +29,9 @@ firing re-arms the streak so the next regression needs N fresh windows.
 
 from __future__ import annotations
 
-import threading
 from typing import Callable, Optional
+
+from llm_consensus_tpu_torch.analysis import sanitizer
 
 # Per-(version, window) sample cap: the watcher compares tails, it does
 # not archive traffic — beyond this, extra samples change p99 by noise.
@@ -65,7 +66,7 @@ class CanaryWatcher:
         self.windows = max(1, int(windows))
         self.min_samples = max(1, int(min_samples))
         self.on_regress = on_regress
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock("flywheel.canary")
         self._window: dict = {}  # version -> [latency_s, ...] (open window)
         self._streak = 0
         self.windows_closed = 0

@@ -27,9 +27,10 @@ the port does not have.
 from __future__ import annotations
 
 import json
-import threading
 import zlib
 from typing import Optional
+
+from llm_consensus_tpu_torch.analysis import sanitizer
 
 # -- CRC32C (Castagnoli) ------------------------------------------------------
 
@@ -189,7 +190,7 @@ class IntegrityCounters:
     def __init__(self):
         from llm_consensus_tpu_torch import obs
 
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock("integrity.counters")
         self._checks: dict = {}    # guarded by: _lock
         self._failures: dict = {}  # guarded by: _lock
         self._obs = obs.recorder()
@@ -247,7 +248,7 @@ class QuarantineTracker:
     ``LLMC_INTEGRITY_PROBE_N`` for these through ``utils/knobs.py``."""
 
     def __init__(self, threshold: int, probe_n: int):
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock("integrity.quarantine")
         self.threshold = max(1, threshold)
         self.probe_n = max(1, probe_n)
         self._strikes = 0        # guarded by: _lock
@@ -316,7 +317,7 @@ class IntegrityPlane:
     def __init__(self, sample: float = 0.05):
         self.sample = max(0.0, min(1.0, float(sample)))
         self._sample_every = round(1.0 / self.sample) if self.sample else 0
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock("integrity.plane")
         self._sample_clock = 0  # guarded by: _lock
         self.counters = IntegrityCounters()
 
@@ -341,7 +342,7 @@ class IntegrityPlane:
         return self.counters.snapshot()
 
 
-_lock = threading.Lock()
+_lock = sanitizer.make_lock("integrity.registry")
 _plane: Optional[IntegrityPlane] = None
 
 

@@ -23,9 +23,9 @@ With nothing installed every accessor returns None.
 
 from __future__ import annotations
 
-import threading
 from typing import Optional
 
+from llm_consensus_tpu_torch.analysis import sanitizer
 from llm_consensus_tpu_torch.obs import (  # noqa: F401 — public API
     attrib, blackbox, live, profiler, roofline)
 from llm_consensus_tpu_torch.obs.recorder import (  # noqa: F401 — public API
@@ -36,7 +36,7 @@ __all__ = [
     "profiler", "roofline", "recorder", "install", "reset", "reset_planes",
 ]
 
-_lock = threading.Lock()
+_lock = sanitizer.make_lock("obs.registry")
 _recorder: Optional[Recorder] = None
 
 

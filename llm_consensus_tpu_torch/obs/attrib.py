@@ -47,6 +47,7 @@ from typing import Optional
 
 import torch
 
+from llm_consensus_tpu_torch.analysis import sanitizer
 from llm_consensus_tpu_torch.obs import roofline
 
 FAMILIES = (
@@ -94,7 +95,7 @@ class ChipTimeLedger:
         self.warmup_s = max(0.0, warmup_s)
         self.hbm_high = min(1.0, max(0.0, hbm_high))
         self._t0 = time.monotonic()
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock("obs.attrib")
         self._device_s: dict = {}
         self._dispatches: dict = {}
         self._tokens: dict = {}
@@ -319,7 +320,7 @@ def _live():
     return live.metrics()
 
 
-_lock = threading.Lock()
+_lock = sanitizer.make_lock("obs.attrib.registry")
 _ledger: Optional[ChipTimeLedger] = None
 _resolved = False
 

@@ -21,11 +21,11 @@ from __future__ import annotations
 
 import json
 import os
-import threading
 import time
 from collections import deque
 from typing import Optional
 
+from llm_consensus_tpu_torch.analysis import sanitizer
 from llm_consensus_tpu_torch.obs.recorder import Event
 
 DEFAULT_CAPACITY = 4096
@@ -44,7 +44,7 @@ class FlightRecorder:
         self._ring: deque = deque(maxlen=max(16, capacity))
         self.out_dir = out_dir
         self.min_interval_s = min_interval_s
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock("obs.blackbox")
         self._last_dump = 0.0
         self.dumps = 0
         self.suppressed = 0
@@ -110,7 +110,7 @@ def _safe(reason: str) -> str:
     return "".join(c if c.isalnum() or c in "-_" else "-" for c in str(reason))[:48] or "anomaly"
 
 
-_lock = threading.Lock()
+_lock = sanitizer.make_lock("obs.blackbox.registry")
 _ring: Optional[FlightRecorder] = None
 _resolved = False
 

@@ -33,6 +33,8 @@ from bisect import bisect_left
 from collections import deque
 from typing import Callable, Optional
 
+from llm_consensus_tpu_torch.analysis import sanitizer
+
 # Upper edges BUCKET_MIN * 2^i: 100 µs .. ~14 min; past the top edge the
 # value lands in the +Inf bucket.
 BUCKET_MIN = 1e-4
@@ -162,10 +164,10 @@ class LiveMetrics:
     def __init__(self, window_s: float = DEFAULT_WINDOW_S, windows: int = DEFAULT_WINDOWS):
         self.window_s = max(0.05, window_s)
         self._windows = max(1, windows)
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock("obs.live")
         self._hists: dict = {}  # (name, ((k, v), ...)) -> WindowedHistogram
         self._callbacks: list = []
-        self._stop = threading.Event()
+        self._stop = sanitizer.make_event("obs.live.stop")
         self._thread: Optional[threading.Thread] = None
 
     def observe(self, name: str, value: float, **labels) -> None:
@@ -300,7 +302,7 @@ class SLOWatcher:
         return True
 
 
-_lock = threading.Lock()
+_lock = sanitizer.make_lock("obs.live.registry")
 _metrics: Optional[LiveMetrics] = None
 _resolved = False
 

@@ -35,6 +35,8 @@ import threading
 import time
 from typing import Optional
 
+from llm_consensus_tpu_torch.analysis import sanitizer
+
 DEFAULT_DIR = os.path.join("data", "_artifacts", "profiles")
 DEFAULT_MAX_S = 10.0
 DEFAULT_MIN_INTERVAL_S = 60.0
@@ -49,7 +51,7 @@ class DeepProfiler:
         self.out_dir = out_dir
         self.max_s = max_s
         self.min_interval_s = min_interval_s
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock("obs.profiler")
         self._prof = None
         self._paths: Optional[tuple] = None  # (partial, final)
         self._last_start = 0.0
@@ -93,8 +95,8 @@ class DeepProfiler:
         bound (or when ``stop`` is set); returns ``arm``'s result once the
         window is armed or refused, and re-raises its failure."""
         out: dict = {}
-        ready = threading.Event()
-        stop = stop if stop is not None else threading.Event()
+        ready = sanitizer.make_event("obs.profiler.armed")
+        stop = stop if stop is not None else sanitizer.make_event("obs.profiler.stop")
 
         def own() -> None:
             try:
@@ -196,7 +198,7 @@ class trace_window:
         os.replace(partial, self.path)
 
 
-_lock = threading.Lock()
+_lock = sanitizer.make_lock("obs.profiler.registry")
 _profiler: Optional[DeepProfiler] = None
 _resolved = False
 

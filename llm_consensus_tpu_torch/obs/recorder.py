@@ -25,10 +25,11 @@ environment: the CLI resolves ``LLMC_EVENTS_MAX`` (utils/knobs.py).
 
 from __future__ import annotations
 
-import threading
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
+
+from llm_consensus_tpu_torch.analysis import sanitizer
 
 DEFAULT_MAX_EVENTS = 200_000
 
@@ -51,7 +52,7 @@ class Recorder:
     copies, so exporters see consistent state while workers append."""
 
     def __init__(self, max_events: int = DEFAULT_MAX_EVENTS):
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock("obs.recorder")
         self._events: list[Event] = []
         self._counters: dict[str, float] = {}
         self._max_events = max_events

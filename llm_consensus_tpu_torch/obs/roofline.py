@@ -66,13 +66,15 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode, _disable_current_modes
 from torch.utils.flop_counter import flop_registry
 
+from llm_consensus_tpu_torch.analysis import sanitizer
+
 DEFAULT_RIDGE = 32.0
 DEFAULT_TOL = 4.0
 
 # Live captures in the process: the kernel wrappers' one-read check on
 # every call (a capture itself is per thread, in _tls).
 CAPTURING = 0
-_capturing_lock = threading.Lock()
+_capturing_lock = sanitizer.make_lock("obs.roofline.capturing")
 _tls = threading.local()
 
 _aten = torch.ops.aten
@@ -303,7 +305,7 @@ class RooflineLedger:
         self.ridge_override = ridge if ridge and ridge > 0 else None
         self.fallback_ridge = DEFAULT_RIDGE
         self.tol = max(1.0, tol)
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock("obs.roofline")
         self._programs: dict = {}
         self._capturing: set = set()
         self._deferred: dict = {}
@@ -545,7 +547,7 @@ def _round_floats(doc: dict) -> dict:
             for k, v in doc.items()}
 
 
-_lock = threading.Lock()
+_lock = sanitizer.make_lock("obs.roofline.registry")
 _ledger: Optional[RooflineLedger] = None
 _resolved = False
 

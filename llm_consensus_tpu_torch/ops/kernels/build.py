@@ -19,10 +19,11 @@ import os
 import shutil
 import subprocess
 import tempfile
-import threading
 import time
 from pathlib import Path
 from typing import Optional
+
+from llm_consensus_tpu_torch.analysis import sanitizer
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 SOURCES = ("flash_attention.cu", "decode_attention.cu")
@@ -33,7 +34,7 @@ NVCC_FLAGS = (
 )
 LIB_NAME = "libllmc_kernels.so"
 
-_lock = threading.Lock()
+_lock = sanitizer.make_lock("ops.kernels.build")
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None  # wall time of the build this process ran
 build_log = ""  # nvcc/ptxas output of that build (registers, spills)
@@ -199,7 +200,7 @@ class LaunchCounter:
 
     def __init__(self) -> None:
         self.count = 0
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock("ops.kernels.launches")
 
     def add(self) -> None:
         with self._lock:

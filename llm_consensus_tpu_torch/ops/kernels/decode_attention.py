@@ -37,11 +37,11 @@ and the merge drops such a row whatever its l).
 
 from __future__ import annotations
 
-import threading
 from typing import Optional, Union
 
 import torch
 
+from llm_consensus_tpu_torch.analysis import sanitizer
 from llm_consensus_tpu_torch.obs import roofline as _roofline
 from llm_consensus_tpu_torch.ops.kernels.build import (
     LaunchCounter, check, ensure_built)
@@ -102,7 +102,7 @@ def split_bounds(kv_width: int, n_split: int) -> list:
 
 _sms: dict = {}
 _tickets: dict = {}
-_tickets_lock = threading.Lock()
+_tickets_lock = sanitizer.make_lock("ops.kernels.decode_attention")
 
 
 def _sm_count(dev: torch.device) -> int:

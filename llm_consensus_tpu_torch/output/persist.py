@@ -12,9 +12,10 @@ from __future__ import annotations
 import os
 import secrets
 import tempfile
-import threading
 import time
 from typing import Callable, Optional
+
+from llm_consensus_tpu_torch.analysis import sanitizer
 
 # In-process collision guard for generate_run_id: the id format is
 # wall-clock-derived down to the second, so a burst of concurrent server
@@ -23,7 +24,7 @@ from typing import Callable, Optional
 # CURRENT second (the set resets when the second rolls over, so memory
 # stays bounded on a long-lived server) makes two calls from one process
 # provably never collide, while keeping the id format intact.
-_id_lock = threading.Lock()
+_id_lock = sanitizer.make_lock("output.runid")
 _id_second = ""
 _id_issued: set = set()
 

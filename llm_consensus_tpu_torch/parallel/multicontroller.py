@@ -35,6 +35,7 @@ from typing import Optional
 
 import torch
 
+from llm_consensus_tpu_torch.analysis import sanitizer
 from llm_consensus_tpu_torch.providers.base import Provider, Request, Response, StreamCallback
 from llm_consensus_tpu_torch.utils.context import Context
 
@@ -159,7 +160,7 @@ def global_devices(local: list) -> list:
 
 # -- degraded mode ------------------------------------------------------------
 
-_degraded_lock = threading.Lock()
+_degraded_lock = sanitizer.make_lock("parallel.degraded")
 _degraded: set[int] = set()
 
 

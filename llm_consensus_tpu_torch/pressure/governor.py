@@ -59,6 +59,8 @@ import threading
 import time
 from typing import Callable, Optional
 
+from llm_consensus_tpu_torch.analysis import sanitizer
+
 LADDER = ("ok", "evict", "preempt", "brownout", "shed")
 _RUNG = {name: i for i, name in enumerate(LADDER)}
 
@@ -121,7 +123,7 @@ class PressureGovernor:
         self.brownout_max_new = brownout_max_new
         self.shed_class = shed_class
         self.evict_target = evict_target
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock("pressure.governor")
         self._rung = 0
         self._above = 0
         self._below = 0
@@ -133,7 +135,7 @@ class PressureGovernor:
             "evicted_blocks": 0, "brownouts": 0, "shed": 0,
             "storm_admits": 0,
         }
-        self._stop = threading.Event()
+        self._stop = sanitizer.make_event("pressure.governor.stop")
         self._thread: Optional[threading.Thread] = None
         from llm_consensus_tpu_torch import faults, obs
 
@@ -439,6 +441,8 @@ class PressureGovernor:
 
     def _loop(self) -> None:
         while not self._stop.wait(self.poll_s):
+            # Schedule-exploration seam: one governor tick.
+            sanitizer.sched_point("governor.tick")
             try:
                 self.sample()
             except Exception:  # noqa: BLE001 — the governor must not die

@@ -165,6 +165,7 @@ from typing import Optional
 import torch
 
 from llm_consensus_tpu_torch import faults, obs
+from llm_consensus_tpu_torch.analysis import sanitizer
 from llm_consensus_tpu_torch.engine.engine import PREFIX_CACHE_MAX_MB
 from llm_consensus_tpu_torch.obs.live import class_label
 from llm_consensus_tpu_torch.ops.kernels.build import KernelBuildError, KernelLaunchError
@@ -268,7 +269,7 @@ class GPUProvider(Provider):
 
     name = "gpu"
     _shared: dict = {}  # (device, modes, batching, checkpoints) → provider (see shared())
-    _shared_lock = threading.Lock()
+    _shared_lock = sanitizer.make_lock("providers.gpu.shared")
 
     def __init__(self, *, device: DeviceLike = None, max_seq: Optional[int] = None,
                  batch_streams: int = 1, pool_prefix: bool = True, pool_prefix_min: int = 192,
@@ -316,7 +317,7 @@ class GPUProvider(Provider):
         self.ignore_eos = ignore_eos
         self._engines: dict[str, object] = {}
         self._batchers: dict[str, object] = {}
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock("providers.gpu")
         self._build_locks: dict[tuple[str, str], threading.Lock] = {}
         # Context-capacity cap: every engine's max_seq is at most this
         # (KV-cache memory is proportional to capacity).
@@ -351,7 +352,7 @@ class GPUProvider(Provider):
         # utilization_stats' window: (time, batcher snapshot) and the last
         # entry per pool; a window advances after _UTIL_MIN_WINDOW_S, so
         # concurrent scrapers cannot shrink each other's window to noise.
-        self._util_lock = threading.Lock()
+        self._util_lock = sanitizer.make_lock("providers.gpu.util")
         self._util_prev: dict = {}
         self._util_last: dict = {}
         # Disaggregated prefill → decode: the settings and one (decode
@@ -910,7 +911,8 @@ class GPUProvider(Provider):
             obj = table.get(preset)
             if obj is not None:
                 return obj
-            build_lock = self._build_locks.setdefault((kind, preset), threading.Lock())
+            build_lock = self._build_locks.setdefault((kind, preset), sanitizer.make_lock(
+                "providers.gpu.build" if kind == "engine" else "providers.gpu.build.batcher"))
         with build_lock:
             with self._lock:
                 obj = table.get(preset)
@@ -1088,7 +1090,8 @@ class GPUProvider(Provider):
                 self._handoffs.setdefault(preset, (engine, None))
             return None
         with self._lock:
-            build_lock = self._build_locks.setdefault(("handoff", preset), threading.Lock())
+            build_lock = self._build_locks.setdefault(
+                ("handoff", preset), sanitizer.make_lock("providers.gpu.build.handoff"))
         with build_lock:
             with self._lock:
                 ent = self._handoffs.get(preset)
@@ -1163,7 +1166,8 @@ class GPUProvider(Provider):
 
         f = min(max(float(fraction), 0.05), 0.9)
         with self._lock:
-            build_lock = self._build_locks.setdefault(("handoff", preset), threading.Lock())
+            build_lock = self._build_locks.setdefault(
+                ("handoff", preset), sanitizer.make_lock("providers.gpu.build.handoff"))
         with build_lock:
             with self._lock:
                 self.disagg_fraction = f
@@ -1211,7 +1215,8 @@ class GPUProvider(Provider):
         wedged scheduler when it wakes) their weights and pool are
         collectible."""
         with self._lock:
-            recover_lock = self._build_locks.setdefault(("recover", preset), threading.Lock())
+            recover_lock = self._build_locks.setdefault(
+                ("recover", preset), sanitizer.make_lock("providers.gpu.build.recover"))
         with recover_lock:
             with self._lock:
                 current = self._batchers.get(preset)

@@ -9,9 +9,9 @@ layers the ``gpu:`` scheme on top.
 
 from __future__ import annotations
 
-import threading
 from typing import Optional
 
+from llm_consensus_tpu_torch.analysis import sanitizer
 from llm_consensus_tpu_torch.providers.base import Provider
 
 # Known remote models → provider kind (the JAX package's catalog).
@@ -66,7 +66,7 @@ class Registry:
     """Maps model names to the Provider serving them."""
 
     def __init__(self) -> None:
-        self._lock = threading.RLock()
+        self._lock = sanitizer.make_rlock("providers.registry")
         self._providers: dict[str, Provider] = {}
 
     def register(self, model: str, provider: Provider) -> None:

@@ -34,11 +34,11 @@ from __future__ import annotations
 
 import json
 import os
-import threading
 
 from typing import Optional
 
 from llm_consensus_tpu_torch import integrity
+from llm_consensus_tpu_torch.analysis import sanitizer
 
 
 class JournalEntry:
@@ -59,7 +59,7 @@ class JournalEntry:
         self.prompt_ids = list(prompt_ids)
         self.sampling = sampling
         self._tokens = list(tokens) if tokens else []
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock("recovery.journal.entry")
         self._sealed = False
         self._file = None
         self.finish: Optional[str] = None
@@ -143,7 +143,7 @@ class StreamJournal:
 
     def __init__(self, path: Optional[str] = None):
         self._path = path
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock("recovery.journal")
         self._next_sid = 0
         self._active: dict[int, JournalEntry] = {}
         # Lifetime counters (healthz/statsz read these).

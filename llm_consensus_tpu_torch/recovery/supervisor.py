@@ -45,6 +45,7 @@ from concurrent.futures import CancelledError
 from typing import Optional
 
 from llm_consensus_tpu_torch import obs
+from llm_consensus_tpu_torch.analysis import sanitizer
 from llm_consensus_tpu_torch.ops.kernels.build import KernelBuildError, KernelLaunchError
 from llm_consensus_tpu_torch.recovery.journal import StreamJournal
 from llm_consensus_tpu_torch.utils.context import Cancelled, Context, DeadlineExceeded
@@ -91,7 +92,7 @@ class _StreamShim:
 
     def __init__(self, on_text):
         self._on_text = on_text
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock("recovery.supervisor.shim")
         self._gen = 0
         self._skip = 0
         self.delivered = 0
@@ -139,11 +140,11 @@ class EngineSupervisor:
         self._journal = journal
         self.heartbeat_s = heartbeat_s
         self.max_restarts = max_restarts
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock("recovery.supervisor")
         self.restarts = 0
         self.replayed_streams = 0
         self._recovering = 0  # pools currently mid-rebuild
-        self._stop = threading.Event()
+        self._stop = sanitizer.make_event("recovery.supervisor.stop")
         self._watchdog: Optional[threading.Thread] = None
         self._obs = obs.recorder()
         # Flight recorder: wedge and restart instants land in the ring (the
@@ -325,6 +326,8 @@ class EngineSupervisor:
         # start stays fixed, so sustained submissions cannot mask a stall.
         busy_since: dict[int, float] = {}
         while not self._stop.wait(poll):
+            # Schedule-exploration seam: one watchdog pass.
+            sanitizer.sched_point("supervisor.watchdog")
             provider = self._provider_ref()
             if provider is None:
                 return  # provider collected; nothing left to watch

@@ -30,6 +30,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 from llm_consensus_tpu_torch import faults, obs
+from llm_consensus_tpu_torch.analysis import sanitizer
 from llm_consensus_tpu_torch.providers import Registry, Request, Response
 from llm_consensus_tpu_torch.utils.context import Context
 
@@ -109,7 +110,7 @@ class Runner:
 
     def _collect(self, ctx: Context, models: list[str], prompt: str) -> RunResult:
         result = RunResult()
-        lock = threading.Lock()
+        lock = sanitizer.make_lock("runner.result")
         sealed = [False]
         # Per-worker state is keyed by worker INDEX: a panel may name the
         # same model twice.

@@ -45,10 +45,10 @@ grant — both deterministic under a seeded plan.
 from __future__ import annotations
 
 import random
-import threading
 import time
 from typing import Optional
 
+from llm_consensus_tpu_torch.analysis import sanitizer
 from llm_consensus_tpu_torch.pressure.priority import PRIORITY_NORMAL
 from llm_consensus_tpu_torch.utils.context import Context
 
@@ -148,7 +148,7 @@ class AdmissionController:
         self._jitter = random.Random()
         # Controller state below is guarded by the condition; the
         # *_locked helpers run with it held.
-        self._cond = threading.Condition()
+        self._cond = sanitizer.make_condition("serve.admission")
         self._active = 0  # guarded by: _cond
         self._waiting = 0  # guarded by: _cond
         self._queue: list[_Waiter] = []  # guarded by: _cond
@@ -189,6 +189,7 @@ class AdmissionController:
         """The waiter the next free slot belongs to (bumped waiters are
         already shed — they only still sit in the list until their
         thread wakes)."""
+        sanitizer.assert_held(self._cond)
         now = time.monotonic()
         best = None
         best_key = None
@@ -204,6 +205,7 @@ class AdmissionController:
         """Queue-full arbitration: the WORST queued waiter of a strictly
         lower class than ``priority`` (max effective key), or None when
         the whole queue is at/above the arrival's class."""
+        sanitizer.assert_held(self._cond)
         now = time.monotonic()
         victim = None
         victim_key = None
@@ -270,6 +272,8 @@ class AdmissionController:
             self._waiting += 1
             try:
                 while True:
+                    # Schedule-exploration seam: one dequeue-check pass.
+                    sanitizer.sched_point("admission.dequeue")
                     if self._draining:
                         self._reject_locked()
                         raise Draining(
@@ -332,11 +336,13 @@ class AdmissionController:
             self._cond.notify_all()
 
     def _reject_locked(self) -> None:
+        sanitizer.assert_held(self._cond)
         self.rejected += 1
         if self._obs is not None:
             self._obs.count("serve.rejected")
 
     def _drop_locked(self) -> None:
+        sanitizer.assert_held(self._cond)
         self.dropped_disconnected += 1
         if self._obs is not None:
             self._obs.count("serve.dropped_disconnected")

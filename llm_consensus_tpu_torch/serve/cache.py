@@ -30,11 +30,11 @@ from __future__ import annotations
 
 import hashlib
 import json
-import threading
 import time
 from collections import OrderedDict
 from typing import Callable, Iterator, Optional
 
+from llm_consensus_tpu_torch.analysis import sanitizer
 from llm_consensus_tpu_torch.utils.context import Context
 
 
@@ -87,7 +87,7 @@ class ConsensusCache:
         self.capacity = capacity
         self.ttl_s = ttl_s
         self._clock = clock
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock("serve.cache")
         self._entries: "OrderedDict[str, _Entry]" = OrderedDict()
         self.hits = 0
         self.misses = 0
@@ -145,7 +145,7 @@ class Flight:
 
     def __init__(self, key: str):
         self.key = key
-        self._cond = threading.Condition()
+        self._cond = sanitizer.make_condition("serve.cache.flight")
         self._chunks: list[tuple[str, str, str]] = []  # (kind, model, text)
         self._done = False
         self._result = None
@@ -215,7 +215,7 @@ class FlightTable:
     """Single-flight registry: one live :class:`Flight` per key."""
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock("serve.cache.flights")
         self._flights: dict[str, Flight] = {}
 
     def begin(self, key: str) -> tuple[Flight, bool]:

@@ -62,6 +62,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 from llm_consensus_tpu_torch import faults, integrity, obs
+from llm_consensus_tpu_torch.analysis import sanitizer
 
 # -- lifecycle ----------------------------------------------------------------
 
@@ -197,7 +198,7 @@ class MigrationTable:
     def __init__(self, ttl_s: float = 60.0, clock=time.monotonic):
         self._ttl_s = ttl_s
         self._clock = clock
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock("serve.elastic.migrations")
         self._records: dict[str, MigrationRecord] = {}
         self.offered = 0
         self.claimed = 0
@@ -291,7 +292,7 @@ class ElasticController:
         self.down_patience = max(1, down_patience)
         self.tick_s = tick_s
         self._clock = clock
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock("serve.elastic.controller")
         self._above = 0
         self._below = 0
         self._flap_until = 0.0
@@ -305,7 +306,7 @@ class ElasticController:
         self.denied = 0  # clamped at min/max or hook refused
         self.flaps = 0
         self.last_signal = 0.0
-        self._stop = threading.Event()
+        self._stop = sanitizer.make_event("serve.elastic.controller.stop")
         self._thread: Optional[threading.Thread] = None
 
     # -- signal ---------------------------------------------------------------
@@ -444,6 +445,8 @@ class ElasticController:
 
     def _run(self) -> None:
         while not self._stop.wait(self.tick_s):
+            # Schedule-exploration seam: one controller tick.
+            sanitizer.sched_point("elastic.tick")
             try:
                 self.tick()
             except Exception:  # noqa: BLE001 — the loop must survive a bad tick

@@ -49,6 +49,7 @@ import time
 from typing import Callable, Optional
 
 from llm_consensus_tpu_torch import faults, obs
+from llm_consensus_tpu_torch.analysis import sanitizer
 
 HEALTHY = "healthy"
 SUSPECT = "suspect"
@@ -123,7 +124,7 @@ class FleetState:
         self.dead_after = dead_after
         self.revive_after = revive_after
         self._clock = clock
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock("serve.fleet")
         self._replicas: dict[str, Replica] = {}
         self.deaths = 0
         self.revivals = 0
@@ -307,7 +308,7 @@ class HealthMonitor:
             max(0.5, self.poll_s) if timeout_s is None else timeout_s
         )
         self._probe = probe if probe is not None else self._http_probe
-        self._stop = threading.Event()
+        self._stop = sanitizer.make_event("serve.fleet.stop")
         self._thread: Optional[threading.Thread] = None
         self._faults = faults.plan()
         self._obs = obs.recorder()

@@ -64,6 +64,7 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Optional
 
+from llm_consensus_tpu_torch.analysis import sanitizer
 from llm_consensus_tpu_torch.providers import Registry
 from llm_consensus_tpu_torch.serve.admission import (
     AdmissionController,
@@ -141,7 +142,7 @@ class _Resident:
         self.key = key
         self.req = req
         self.ctx = ctx
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock("serve.gateway.resident")
         self._emitted: dict[tuple[str, str], list[str]] = {}
         self._migrated = False
 
@@ -217,7 +218,7 @@ class ConsensusGateway:
         self._started = time.monotonic()
         # Set at close: an open /debugz/profile window closes with it, and
         # so does the announce heartbeat.
-        self._closing = threading.Event()
+        self._closing = sanitizer.make_event("serve.gateway.announce")
         # Configuration the build_info gauge reports (kv_pool, spec).
         self._features = dict(features or {})
         # Open consensus requests, counted from after the drain check to
@@ -227,7 +228,7 @@ class ConsensusGateway:
         # otherwise a SIGTERM landing as execute() returns reports a
         # clean drain while handler threads (daemons) still hold
         # unwritten responses and unflushed follower run dirs.
-        self._open_cond = threading.Condition()
+        self._open_cond = sanitizer.make_condition("serve.gateway.open")
         self._open_requests = 0
         from llm_consensus_tpu_torch import faults, obs
 
@@ -270,7 +271,7 @@ class ConsensusGateway:
                 else elastic_mod.SERVING
             )
         self._warm_s = warm_s
-        self._lifecycle_lock = threading.Lock()
+        self._lifecycle_lock = sanitizer.make_lock("serve.gateway.lifecycle")
         self._lifecycle = lifecycle
         # Resident-shipping serialization: retire() and quarantine() can
         # race (admin POST vs a request thread crossing the strike
@@ -278,7 +279,7 @@ class ConsensusGateway:
         # would double-ship and double-cancel a stream. Ship under ONE
         # lock; the later walk sees ``resident.migrated`` and falls back.
         # (Ordered before _lifecycle_lock.)
-        self._ship_lock = threading.Lock()
+        self._ship_lock = sanitizer.make_lock("serve.gateway.ship")
         # The source's bounded wait for a destination to take one stream
         # (LLMC_ELASTIC_MIGRATE_TIMEOUT_S).
         self._migrate_timeout_s = migrate_timeout_s

@@ -70,6 +70,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Optional
 
 from llm_consensus_tpu_torch import faults, obs
+from llm_consensus_tpu_torch.analysis import sanitizer
 from llm_consensus_tpu_torch.pressure import PRIORITY_NORMAL, resolve_priority
 from llm_consensus_tpu_torch.serve import elastic as elastic_mod
 from llm_consensus_tpu_torch.serve.cache import cache_key
@@ -250,7 +251,7 @@ class ConsensusRouter:
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
         self._started = time.monotonic()
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock("serve.router")
         self.counters = {
             "requests": 0, "failovers": 0, "overflow": 0,
             "spillover": 0, "rejected": 0, "registered": 0,

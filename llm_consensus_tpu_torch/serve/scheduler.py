@@ -32,12 +32,12 @@ write did.
 from __future__ import annotations
 
 import json
-import threading
 import time
 from dataclasses import dataclass
 from typing import Callable, Optional
 
 from llm_consensus_tpu_torch import output as output_mod
+from llm_consensus_tpu_torch.analysis import sanitizer
 from llm_consensus_tpu_torch.consensus import Judge, score_agreement
 from llm_consensus_tpu_torch.output.persist import reserve_run_dir, save_file
 from llm_consensus_tpu_torch.providers import Registry
@@ -116,7 +116,7 @@ class Scheduler:
         # All request contexts derive from this root: cancelling it (hard
         # shutdown) cancels every in-flight run cooperatively.
         self._root = root_ctx if root_ctx is not None else Context.background()
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock("serve.scheduler")
         # Judge prefill overlap (``--judge-overlap``): the flag, passed in.
         self._judge_overlap = bool(judge_overlap)
         # The runners' watchdog grace (LLMC_STALL_GRACE), passed in.

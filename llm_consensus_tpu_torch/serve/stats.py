@@ -21,15 +21,16 @@ rebuild.
 
 from __future__ import annotations
 
-import threading
 from typing import Callable, Optional
+
+from llm_consensus_tpu_torch.analysis import sanitizer
 
 
 class StatsRegistry:
     """Ordered name → snapshot-callable registry."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = sanitizer.make_lock("serve.stats")
         self._providers: dict = {}  # insertion-ordered
 
     def register(self, name: str, fn: Callable[[], Optional[dict]]) -> None:

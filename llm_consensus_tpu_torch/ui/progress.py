@@ -15,6 +15,7 @@ import time
 from dataclasses import dataclass
 from typing import IO, Optional
 
+from llm_consensus_tpu_torch.analysis import sanitizer
 from llm_consensus_tpu_torch.ui import ansi
 
 REPAINT_INTERVAL = 0.1  # seconds
@@ -66,8 +67,8 @@ class Progress:
         self._models = {m: ModelState(model=m) for m in models}
         self._start_time = time.monotonic()
         self._quiet = quiet
-        self._lock = threading.Lock()
-        self._stop_event = threading.Event()
+        self._lock = sanitizer.make_lock("ui.progress")
+        self._stop_event = sanitizer.make_event("ui.progress.stop")
         self._thread: Optional[threading.Thread] = None
         self._rendered = False
 

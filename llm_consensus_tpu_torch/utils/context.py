@@ -12,9 +12,10 @@ of ``llm_consensus_tpu/utils/context.py`` on plain ``threading``).
 
 from __future__ import annotations
 
-import threading
 import time
 from typing import Callable, Optional
+
+from llm_consensus_tpu_torch.analysis import sanitizer
 
 
 class Cancelled(Exception):
@@ -38,8 +39,8 @@ class Context:
                  parent: Optional["Context"] = None):
         self._deadline = deadline  # time.monotonic() timestamp
         self._parent = parent
-        self._event = threading.Event()
-        self._lock = threading.Lock()
+        self._event = sanitizer.make_event("utils.context.done")
+        self._lock = sanitizer.make_lock("utils.context")
         self._children: list[Context] = []
         self._callbacks: list = []
         self._err: Optional[Exception] = None

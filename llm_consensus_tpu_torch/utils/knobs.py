@@ -2,7 +2,13 @@
 (``cli/main.py``: its provider factory, its telemetry planes and its
 config file). Engines and providers take explicit arguments and read no
 ``LLMC_*`` variable (the remote HTTP providers read their API keys and
-base URLs themselves, as the JAX ones do).
+base URLs themselves, as the JAX ones do). One knob is read outside that
+boundary: ``LLMC_SANITIZE`` (:func:`sanitize_enabled`), which
+``analysis/sanitizer.py`` resolves once, lazily, at the first lock factory
+call. Module-level locks (the fault registry's, the telemetry registries')
+are built when their modules are imported, before any CLI runs, and every
+lock of a process must be instrumented or none, so the switch cannot wait
+for an argument.
 
 The parsing is the JAX package's (``llm_consensus_tpu/utils/knobs.py``
 ``get_str``/``get_bool``): an unset or empty value means the default, and
@@ -126,7 +132,15 @@ knobs that the JAX package declares, with the same meaning:
     :func:`distributed_settings`: ``LLMC_COORDINATOR`` (empty),
     ``LLMC_NUM_PROCESSES`` (0), ``LLMC_PROCESS_ID`` (0) and
     ``LLMC_DISTRIBUTED`` (off: 1 joins through a launcher's environment),
-    the arguments of parallel/distributed.py ``initialize``.
+    the arguments of parallel/distributed.py ``initialize``;
+  * the concurrency analysis (``analysis/``): ``LLMC_SANITIZE`` (off,
+    :func:`sanitize_enabled`: instrumented locks, the lock-order graph and
+    the guarded-field checks) and :func:`sched_settings`: ``LLMC_SCHED``
+    (empty; an integer seed or ``replay:<token>`` for the schedule
+    explorer), ``LLMC_SCHED_PREEMPTS`` (4, the preemption bound of one
+    schedule), ``LLMC_SCHED_STEPS`` (20000, its step budget) and
+    ``LLMC_SCHED_RACE`` (on: the happens-before race detector rides the
+    explored schedules).
 """
 
 from __future__ import annotations
@@ -506,4 +520,24 @@ def distributed_settings() -> dict:
         "num_processes": n or None,
         "process_id": get_int("LLMC_PROCESS_ID", 0),
         "force": get_bool("LLMC_DISTRIBUTED"),
+    }
+
+
+def sanitize_enabled() -> bool:
+    """``LLMC_SANITIZE`` (off): instrument every lock the sanitizer
+    factories build. Read by ``analysis/sanitizer.py`` once per process, at
+    the first factory call (see the module docstring)."""
+    return get_bool("LLMC_SANITIZE")
+
+
+def sched_settings() -> dict:
+    """The schedule explorer's knobs (``analysis/schedule.py``), with the
+    JAX defaults: the ``LLMC_SCHED`` spec (empty: none), the preemption
+    bound ``LLMC_SCHED_PREEMPTS`` (4), the step budget ``LLMC_SCHED_STEPS``
+    (20000) and the race detector's switch ``LLMC_SCHED_RACE`` (on)."""
+    return {
+        "spec": get_str("LLMC_SCHED"),
+        "preempts": get_int("LLMC_SCHED_PREEMPTS", 4),
+        "steps": get_int("LLMC_SCHED_STEPS", 20000),
+        "race": get_bool("LLMC_SCHED_RACE", True),
     }

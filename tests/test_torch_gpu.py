@@ -283,6 +283,25 @@ def test_batcher_shared_prefix_runs_through_the_state_kernel(cuda):
         b.close()
 
 
+def test_generate_batch_decodes_through_the_kernel_with_row_starts(cuda):
+    """``Engine.generate_batch`` on the card: the left-padded batch prefill
+    takes the plain op (no flash launch), every decode step one decode
+    launch a layer with the rows' starts, and each row's tokens match its
+    single-stream generate or sit at a bf16 near-tie (at least the first
+    token equal)."""
+    engine = Engine(get_config("tiny-llama", head_dim=128), max_seq=512, device=cuda)
+    prompts = ["short", "a somewhat longer prompt of the batch " * 2, "mid-length prompt " * 3]
+    s = SamplingParams(max_new_tokens=17, ignore_eos=True)
+    flash0, plain0, state0 = fa.LAUNCHES.count, da.LAUNCHES.count, da.LAUNCHES_STATE.count
+    got = engine.generate_batch(prompts, s)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES.count == flash0 and da.LAUNCHES_STATE.count == state0
+    assert da.LAUNCHES.count - plain0 == 16 * engine.cfg.n_layers  # one 16-step chunk
+    for prompt, r in zip(prompts, got):
+        solo = engine.generate(prompt, s).token_ids
+        assert len(r.token_ids) == 17 and r.token_ids[0] == solo[0]
+
+
 @pytest.mark.parametrize("b,t,s,hq,hkv,dh,off,window,cap", [
     (1, 48, 48, 8, 2, 128, 0, None, None),       # T below one 128-row q tile
     (1, 200, 200, 8, 8, 128, 0, None, None),     # ragged last q tile, group 1
