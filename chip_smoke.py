@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --phase kernels   # build + kernel checks only
+    python3 chip_smoke.py --phase gemma     # build + the dh 256 kernel rows + gemma-7b
     python3 chip_smoke.py --phase mixtral   # build + the Mixtral phases only
     python3 chip_smoke.py --phase telemetry # build + the telemetry phase only
     python3 chip_smoke.py --phase modes     # build + the modes phase only
@@ -41,7 +42,10 @@ drafted slice of phase 8g 16), where the phases below say 64:
    write between calls flushes the 50 MB L2; the flushes alone are timed
    and subtracted), beside its plain version and, where one exists, one
    PyTorch library call timed the same two ways; the llama-3.2-1b shapes
-   (dh 64) of flash and the bf16 decode the same way; then the int8 matmuls
+   (dh 64) of flash and the bf16 decode the same way; gemma-7b's head width
+   (dh 256) for flash, the bf16, int8 and W8A8 decode (W8A8 with a q whose
+   amax lies in dims 128-255) and the return_state form over the bf16 and
+   the int8 cache, timed the same way; then the int8 matmuls
    (exactness of the int8 x int8 product, device time of the int8-weight
    matmul against bf16);
 4. the small-model check: a narrow model's logits through the kernels
@@ -54,6 +58,16 @@ drafted slice of phase 8g 16), where the phases below say 64:
 7. a torch.profiler window over one llama-3-8b generate (4 tokens, one 4-step chunk): device busy
    share and the kernels with the most device time (the bf16 decode is one
    launch per (layer, step): no merge kernel may appear);
+7a. gemma-7b (``--phase gemma``, after the dh-256 rows of phase 3): the CLI
+   with a ``gpu:gemma-7b,gpu:consensus-1b`` panel and a ``gpu:gemma-7b``
+   judge, bf16 at the published widths (28 layers, 16/16 heads of 256,
+   vocab 256,000), random weights from the seed, the 350-token prompt, 24
+   tokens a model, auto-saved: every response and a consensus, flash
+   exactly 28 launches per one-shot gemma prefill and the decode kernel
+   28 per gemma decode step (both at dh 256), the judge's chunked prefill
+   on the plain op, no kernel's plain version reached on the card; the
+   engine builds, wall, decode rate, MBU, prefill ms and peak memory. A
+   ``{"gemma": ...}`` line;
 8. the batched slice: the CLI run with a panel of 4 x llama-3-8b and a
    llama-3-8b judge under ``LLMC_MAX_BATCH=4`` (one continuous batcher;
    the panel's shared prompt becomes the pool's shared prefix, so its
@@ -282,8 +296,10 @@ drafted slice of phase 8g 16), where the phases below say 64:
    same waves on tp 1, each shard's flash, decode and state launches at its
    head slice, (g) a KV-pool hit and its miss, (h) a handoff from the tp 1
    engine into the tp 2 pool (bitwise), (i) prompt lookup on a judge
-   prompt, and (j) a weight swap of a tp 2 consensus-1b against a fresh
-   engine on the new weights. A ``{"parallel": ...}`` line;
+   prompt, (j) a weight swap of a tp 2 consensus-1b against a fresh
+   engine on the new weights, and (k) a consensus-1b HF checkpoint restored
+   onto tp 2 whole then cut and straight into its shards (each load's peak
+   memory; the shards bitwise equal). A ``{"parallel": ...}`` line;
 8m. the runtime sanitizer (``--phase sanitize``), in child processes of
    this script (the sanitizer resolves ``LLMC_SANITIZE`` once per process):
    (a) with ``LLMC_SANITIZE=1``, the CLI over a 4 x consensus-1b panel and
@@ -325,7 +341,8 @@ drafted slice of phase 8g 16), where the phases below say 64:
     loaded through ``GPUProvider(checkpoint_dir=...)`` on the card;
 17. a ``{"phase_walls_s": ...}`` line (each phase's wall, as ``main`` logged
     it when the phase ended), a ``{"kernels": [...]}`` line (the phase 3
-    records, the llama-3.2-1b dh-64 rows among them), the card line, then
+    records, the llama-3.2-1b dh-64 and the gemma-7b dh-256 rows among
+    them), the card line, then
     the ``{"ok": true, ...}`` line.
 
 Each path's launch counts are set to 0 just before it runs and read just
@@ -1708,6 +1725,184 @@ def run_engine_phase(torch, fa, da, label: str, counter, seed: int, **modes) -> 
     del engine
     release_memory(torch)
     return launches
+
+
+# -- phase 7a: gemma-7b, head width 256, through the CLI ------------------------
+
+GEMMA_PANEL = "gpu:gemma-7b,gpu:consensus-1b"
+GEMMA_JUDGE = "gpu:gemma-7b"
+GEMMA_TOKENS = "24"
+
+
+class AttentionCalls:
+    """Every attention kernel call the transformer makes while installed (a
+    context manager), by kind, preset (the engine whose ``generate`` runs on
+    the calling thread: the single-stream path forwards on it) and head
+    width (the kernels' own counters hold the launches), every decode
+    chunk's steps by preset, each engine build's wall, and every call of a
+    kernel's plain version (a CUDA call must never reach one)."""
+
+    def __init__(self) -> None:
+        self.calls: collections.Counter = collections.Counter()  # (kind, preset, dh) -> calls
+        self.steps: collections.Counter = collections.Counter()  # preset -> decode steps
+        self.builds: dict = {}                                   # preset -> build seconds
+        self.plain = 0
+        self._lock = threading.Lock()
+        self._local = threading.local()
+
+    def __enter__(self) -> "AttentionCalls":
+        import llm_consensus_tpu_torch.models.transformer as tr
+        from llm_consensus_tpu_torch.engine import engine as engine_mod
+        from llm_consensus_tpu_torch.ops.kernels import decode_attention as da
+        from llm_consensus_tpu_torch.ops.kernels import flash_attention as fa
+        from llm_consensus_tpu_torch.providers.gpu import GPUProvider
+
+        self._saved = [(tr, "flash_attention"), (tr, "decode_attention"),
+                       (engine_mod.Engine, "generate"), (engine_mod.Engine, "_decode_chunk"),
+                       (GPUProvider, "_build_engine"), (fa, "flash_attention_plain"),
+                       (da, "decode_attention_plain")]
+        self._saved = [(owner, name, getattr(owner, name)) for owner, name in self._saved]
+        real = {name: fn for _, name, fn in self._saved}
+        me = self
+
+        def counted(kind):
+            def call(q, *a, **kw):
+                with me._lock:
+                    me.calls[kind + ("_state" if kw.get("return_state") else ""),
+                             getattr(me._local, "preset", None), q.shape[-1]] += 1
+                return real[kind](q, *a, **kw)
+            return call
+
+        def generate(engine, *a, **kw):
+            me._local.preset = engine.cfg.name
+            try:
+                return real["generate"](engine, *a, **kw)
+            finally:
+                me._local.preset = None
+
+        def decode_chunk(engine, token, pos_dev, cache, n_steps, *a, **kw):
+            with me._lock:
+                me.steps[engine.cfg.name] += n_steps
+            return real["_decode_chunk"](engine, token, pos_dev, cache, n_steps, *a, **kw)
+
+        def build_engine(provider, preset, *a, **kw):
+            import torch
+
+            t0 = time.monotonic()
+            engine = real["_build_engine"](provider, preset, *a, **kw)
+            torch.cuda.synchronize()
+            with me._lock:
+                me.builds[preset] = time.monotonic() - t0
+            return engine
+
+        def plain(name):
+            def call(*a, **kw):
+                with me._lock:
+                    me.plain += 1
+                return real[name](*a, **kw)
+            return call
+
+        tr.flash_attention = counted("flash_attention")
+        tr.decode_attention = counted("decode_attention")
+        engine_mod.Engine.generate = generate
+        engine_mod.Engine._decode_chunk = decode_chunk
+        GPUProvider._build_engine = build_engine
+        fa.flash_attention_plain = plain("flash_attention_plain")
+        da.decode_attention_plain = plain("decode_attention_plain")
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+
+def run_gemma(torch, fa, da, card: str, recs: dict) -> dict:
+    """Phase 7a: gemma-7b (28 layers, d 3072, 16 query and 16 kv heads at
+    head width 256, d_ff 24,576, vocab 256,000, tied embeddings) in bf16 at
+    its published widths, random weights from the seed: one CLI run, panel
+    gemma-7b + consensus-1b, judge gemma-7b, the 350-token prompt (bucket
+    512, one-shot: flash), 24 tokens a model, auto-saved. Every response
+    and a consensus; flash exactly 28 launches per one-shot gemma prefill
+    at dh 256, the decode kernel exactly 28 per gemma decode step, the
+    judge's chunked prefill on the plain op (no flash), no kernel's plain
+    version reached. Prints the engine builds, the wall, the peak memory,
+    the prompt's prefill ms and the decode rate and MBU of a 48-token
+    generate after the run, and a ``{"gemma": ...}`` line; the dh-256 rows
+    of ``recs`` (phase 3) take this run's launches."""
+    from llm_consensus_tpu_torch.models import get_config
+
+    preset = GEMMA_JUDGE.split(":", 1)[1]
+    layers, dh = get_config(preset).n_layers, get_config(preset).head_dim
+    counters = {"flash_attention": fa.LAUNCHES, "decode_attention": da.LAUNCHES}
+    data = tempfile.mkdtemp(prefix="chip-smoke-gemma-")
+    try:
+        with GenerateLog() as gens, AttentionCalls() as calls:
+            sl = run_slice(torch, counters, {}, "gemma", models=GEMMA_PANEL, judge=GEMMA_JUDGE,
+                           max_tokens=GEMMA_TOKENS, data_dir=data, timing=False)
+            launches = dict(sl["launches"])
+            seen = {"calls": dict(calls.calls), "steps": dict(calls.steps),
+                    "builds": dict(calls.builds), "plain": calls.plain,
+                    "gens": list(gens.calls)}
+    finally:
+        shutil.rmtree(data, ignore_errors=True)
+    # After the counted run: the panel prompt's prefill (bucket 512, 28 flash
+    # launches; CUDA events, median of 5), and the decode rate and MBU of a
+    # 48-token generate of it (the CLI's 24 tokens are two 16-step chunks,
+    # too few for the engine's rate clock, which starts at the first fetch).
+    from llm_consensus_tpu_torch.engine import SamplingParams
+    from llm_consensus_tpu_torch.utils.flops import decode_bytes_per_token
+
+    engine = sl["engines"][preset]
+    ids = engine.tokenizer.encode(PROMPT)
+    with torch.inference_mode():
+        prefill_ms = median_ms(torch, lambda: engine._prefill_ids(ids))
+    res = engine.generate_ids(ids, SamplingParams(max_new_tokens=48, ignore_eos=True))
+    rate = res.decode_tokens / res.decode_s if res.decode_s > 0 else float("nan")
+    mbu = rate * decode_bytes_per_token(engine.cfg, len(ids) + 24) / PEAK_BYTES_PER_S
+    del engine
+    by = {f"{kind}@{p}@dh{d}": n for (kind, p, d), n in seen["calls"].items()}
+    gemma = [c for c in seen["gens"] if c[0] == preset]
+    one_shot = sum(1 for c in gemma if c[3] == "flash")
+    chunked = sum(1 for c in gemma if c[3] == "chunked")
+    flash256 = seen["calls"].get(("flash_attention", preset, dh), 0)
+    decode256 = seen["calls"].get(("decode_attention", preset, dh), 0)
+    steps = seen["steps"].get(preset, 0)
+    resp = {r["model"]: r for r in sl["responses"]}[GEMMA_JUDGE]
+    row = {"launches": launches, "calls_by_dh": by, "gemma_generates": len(gemma),
+           "gemma_one_shot": one_shot, "gemma_chunked": chunked, "gemma_decode_steps": steps,
+           "prompts": [c[1] for c in gemma], "plain_version_calls": seen["plain"],
+           "build_s": seen["builds"], "wall_s": sl["wall_s"], "peak_gb": sl["peak_gb"],
+           "prefill_ms": prefill_ms, "decode_tok_s_48": rate, "mbu_48": mbu,
+           "tokens": resp.get("tokens")}
+    log(f"gemma: {json.dumps(row)}")
+    problems = []
+    if one_shot < 1 or chunked < 1:
+        problems.append(f"{one_shot} one-shot and {chunked} chunked gemma prefills (the panel "
+                        "answer one-shot, the judge chunked)")
+    if flash256 != layers * one_shot:
+        problems.append(f"flash at dh {dh} {flash256} != {layers} x {one_shot} one-shot prefills")
+    if steps <= 0 or decode256 != layers * steps:
+        problems.append(f"decode at dh {dh} {decode256} != {layers} x {steps} decode steps")
+    for kind in ("flash_attention", "decode_attention"):
+        made = sum(n for (k, _, _), n in seen["calls"].items() if k == kind)
+        if launches[kind] != made or any(p is None for (k, p, _) in seen["calls"]):
+            problems.append(f"{kind}: {launches[kind]} launches for {made} calls {by}")
+    if seen["plain"]:
+        problems.append(f"{seen['plain']} calls reached a kernel's plain version")
+    if problems:
+        raise AssertionError("gemma: " + "; ".join(problems))
+    for name in ("flash_attention_dh256", "decode_attention_dh256"):
+        if name in recs:
+            recs[name]["launches"] = flash256 if name.startswith("flash") else decode256
+    log(f"gemma: flash {flash256} launches at dh {dh} = {one_shot} one-shot prefills x {layers} "
+        f"layers, decode {decode256} = {steps} steps x {layers} layers; the judge's {chunked} "
+        f"chunked prefill(s) on the plain op; prefill {prefill_ms:.2f} ms; builds "
+        f"{seen['builds']}")
+    modes = sl["modes"]
+    del sl
+    release_engines(torch, modes)
+    print(json.dumps({"gemma": row, "card": card}), flush=True)
+    return row
 
 
 # -- phase 8: the batched slice -------------------------------------------------
@@ -4612,6 +4807,246 @@ def check_kernels_dh64(torch, flash_rec: dict, decode_rec: dict) -> None:
     release_memory(torch)
 
 
+# The dh-256 rows of the kernel phase (gemma-7b's head width): flash, the
+# bf16, int8 and W8A8 decode, and the return_state form over the bf16 and
+# the int8 cache. Each kernel addresses one layer of the stack, so the
+# caches hold two layers (gemma-7b has 28).
+DH256_ROWS = ("flash_attention_dh256", "decode_attention_dh256",
+              "decode_attention_int8_dh256", "decode_attention_int8_w8a8_dh256",
+              "decode_attention_state_dh256", "decode_attention_int8_state_dh256")
+
+
+def check_kernels_dh256(torch, recs: dict) -> None:
+    """gemma-7b's head width (256; 16 query and 16 kv heads) for every
+    kernel against its plain version, timed warm and cold beside its bound,
+    its plain version and, for the bf16 rows, SDPA: flash q[1,512,16,256]
+    over kv[1,512,16,256] (and a window + softcap case); the bf16 and int8
+    decode q[1,1,16,256] over a [2,1,8192,16,256] cache at widths 384 and
+    8,192; W8A8 (GQA groups 2 to 4 only) over [2,1,8192,8,256], with a q
+    whose amax lies in dims 128-255; the return_state form at B 4, row
+    starts (0,37,255,5), widths 256 and 8,192, over the bf16 and the int8
+    cache."""
+    from llm_consensus_tpu_torch.ops.kernels import decode_attention as da
+    from llm_consensus_tpu_torch.ops.kernels import flash_attention as fa
+    from llm_consensus_tpu_torch.ops.quant import quantize_kv
+
+    gen = torch.Generator(device="cuda").manual_seed(256)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+
+    def i32(*x):
+        return torch.tensor(x, dtype=torch.int32, device="cuda")
+
+    def int8_of(x):
+        codes, scale = quantize_kv(x)
+        return {"q8": codes.contiguous(), "s": scale[..., 0].transpose(-1, -2).contiguous()}
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dh, t, L, S = 256, 512, 2, 8192
+    flash_src = "llm_consensus_tpu_torch/csrc/flash_attention.cu"
+    decode_src = "llm_consensus_tpu_torch/csrc/decode_attention.cu"
+    flash_at = "llm_consensus_tpu/ops/pallas/flash_attention.py:136"
+    decode_at = "llm_consensus_tpu/ops/pallas/decode_attention.py:415"
+
+    # Flash at gemma-7b's prefill, then a GQA window + softcap case.
+    hq = hkv = 16
+    q, k, v = rnd(1, t, hq, dh), rnd(1, t, hkv, dh), rnd(1, t, hkv, dh)
+    worst = 0.0
+    for qq, kk, vv, kw in ((q, k, v, {}),
+                           (rnd(1, 320, 8, dh), rnd(1, 448, 4, dh), rnd(1, 448, 4, dh),
+                            dict(q_offset=128, sliding_window=200, logit_softcap=30.0))):
+        got = fa.flash_attention(qq, kk, vv, **kw)
+        torch.cuda.synchronize()
+        err = max_err(got, fa.flash_attention_plain(qq, kk, vv, **kw))
+        if not bool(torch.isfinite(got).all()) or err > FLASH_TOL:
+            raise AssertionError(f"flash_attention dh 256 {kw}: err {err}")
+        worst = max(worst, err)
+    kern = timed(lambda: fa.flash_attention(q, k, v), 50)
+    plain_ms, _ = device_time_ms(lambda: fa.flash_attention_plain(q, k, v), 5)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib = timed(lambda: sdpa(qt, kt, vt, is_causal=True), 50)
+    head_record(recs, "flash_attention_dh256", flash_src, flash_at,
+                f"q[1,{t},{hq},{dh}] k/v[1,{t},{hkv},{dh}] bf16 (gemma-7b)", worst, kern,
+                plain_ms, lib, 2.0 * 4 * t * hq * dh, 4.0 * hq * dh * t * (t + 1) / 2,
+                label="dh256")
+    del q, k, v, qt, kt, vt
+
+    # bf16 decode over gemma-7b's layer; NaN past each pos (descending).
+    layer = 1
+    k, v, q = rnd(L, 1, S, hkv, dh), rnd(L, 1, S, hkv, dh), rnd(1, 1, hq, dh)
+    k8, v8 = int8_of(k), int8_of(v)
+    rs0 = i32(0)
+    worst = {"bf16": 0.0, "int8": 0.0}
+    for pos, w, window, cap in ((8191, 8192, None, None), (4000, 4096, 512, 30.0),
+                                (383, 384, None, None), (0, 1, None, None)):
+        for side in (k, v):
+            side[layer, :, pos + 1:] = float("nan")
+        for side in (k8, v8):
+            side["q8"][layer, :, pos + 1:] = 127
+            side["s"][layer, :, :, pos + 1:] = float("nan")
+        for key, (kk, vv) in (("bf16", (k, v)), ("int8", (k8, v8))):
+            kw = dict(kv_width=w, sliding_window=window, logit_softcap=cap)
+            got = da.decode_attention(q, kk, vv, i32(pos)[0], i32(layer)[0], rs0, **kw)
+            torch.cuda.synchronize()
+            want = da.decode_attention_plain(q, kk, vv, pos, layer, rs0, **kw)
+            err, tol = max_err(got, want), decode_tol(want)
+            if not bool(torch.isfinite(got).all()) or err > tol:
+                raise AssertionError(f"decode {key} dh 256 pos {pos} width {w}: err {err}")
+            worst[key] = max(worst[key], err)
+    k[layer].normal_(generator=gen)
+    v[layer].normal_(generator=gen)
+    k8, v8 = int8_of(k), int8_of(v)
+    layer_t = i32(layer)[0]
+    qt = q.transpose(1, 2)
+    for key, (kk, vv) in (("bf16", (k, v)), ("int8", (k8, v8))):
+        times = {}
+        for pos, w in ((383, 384), (S - 1, S)):
+            pos_t = i32(pos)[0]
+            times[w] = timed(lambda: da.decode_attention(q, kk, vv, pos_t, layer_t, rs0,
+                                                         kv_width=w), 200)
+        n = 384
+        pos_t = i32(n - 1)[0]
+        plain_ms, _ = device_time_ms(lambda: da.decode_attention_plain(
+            q, kk, vv, pos_t, layer_t, rs0, kv_width=n), 10)
+        slot = 2 * hkv * dh * (2 if key == "bf16" else 1) + (0 if key == "bf16" else 4 * hkv)
+        io = 2.0 * 2 * hq * dh
+        lib = wide_lib = None
+        if key == "bf16":
+            kt = k[layer, :, :n].transpose(1, 2).contiguous()
+            vt = v[layer, :, :n].transpose(1, 2).contiguous()
+            lib = timed(lambda: sdpa(qt, kt, vt), 200)
+            kt = k[layer].transpose(1, 2).contiguous()
+            vt = v[layer].transpose(1, 2).contiguous()
+            wide_lib = timed(lambda: sdpa(qt, kt, vt), 100)
+            del kt, vt
+        head_record(
+            recs, "decode_attention_dh256" if key == "bf16" else "decode_attention_int8_dh256",
+            decode_src, decode_at if key == "bf16" else
+            "llm_consensus_tpu/ops/pallas/decode_attention.py:268",
+            f"q[1,1,{hq},{dh}] {'' if key == 'bf16' else 'int8 '}cache[{L},1,{S},{hkv},{dh}] "
+            f"(gemma-7b), pos 383, kv_width 384", worst[key], times[384], plain_ms, lib,
+            n * slot + io, 4.0 * hq * dh * n, label="dh256",
+            w8192_ms=times[S]["ms"], w8192_cold_ms=times[S]["cold_ms"],
+            w8192_bound_ms=bound_ms(S * slot + io, 4.0 * hq * dh * S)[0],
+            w8192_library_ms=None if wide_lib is None else wide_lib["ms"],
+            w8192_library_cold_ms=None if wide_lib is None else wide_lib["cold_ms"])
+    del k, v, k8, v8
+
+    # W8A8 (group 2): the same widths, then q with one outlier of 127 per
+    # head at dim 200, where every K code is 0: W8A8 must quantize the
+    # whole head to match its plain version, and lands far from int8's.
+    hkv8 = 8
+    k8, v8 = int8_of(rnd(L, 1, S, hkv8, dh)), int8_of(rnd(L, 1, S, hkv8, dh))
+    q = rnd(1, 1, hq, dh)
+    w8_worst = 0.0
+    for pos, w in ((8191, 8192), (383, 384)):
+        kw = dict(kv_width=w, w8a8=True)
+        got = da.decode_attention(q, k8, v8, i32(pos)[0], layer_t, rs0, **kw)
+        torch.cuda.synchronize()
+        want = da.decode_attention_plain(q, k8, v8, pos, layer, rs0, **kw)
+        err, tol = max_err(got, want), decode_tol(want)
+        if not bool(torch.isfinite(got).all()) or err > tol:
+            raise AssertionError(f"decode w8a8 dh 256 width {w}: err {err}")
+        w8_worst = max(w8_worst, err)
+    q_out = q.clone()
+    q_out[..., 200] = 127.0
+    k8["q8"][layer, ..., 200] = 0
+    pos_t = i32(383)[0]
+    got = {w8: da.decode_attention(q_out, k8, v8, pos_t, layer_t, rs0, kv_width=384, w8a8=w8)
+           for w8 in (False, True)}
+    want = {w8: da.decode_attention_plain(q_out, k8, v8, pos_t, layer_t, rs0, kv_width=384,
+                                          w8a8=w8) for w8 in (False, True)}
+    err, tol = max_err(got[True], want[True]), decode_tol(want[True])
+    cross = max_err(got[True], want[False])
+    log(f"dh256  W8A8 q outlier at dim 200: max_abs_err {err:.3e} (tol {tol:.3e}); against "
+        f"the int8 plain version {cross:.3e} (must exceed the tol)")
+    if err > tol or cross <= tol or max_err(got[False], want[False]) > decode_tol(want[False]):
+        raise AssertionError(f"decode w8a8 dh 256 upper-half amax: err {err}, cross {cross}")
+    w8_worst = max(w8_worst, err)
+    last_t = i32(S - 1)[0]
+    kern = timed(lambda: da.decode_attention(q, k8, v8, pos_t, layer_t, rs0, kv_width=384,
+                                             w8a8=True), 200)
+    wide = timed(lambda: da.decode_attention(q, k8, v8, last_t, layer_t, rs0,
+                                             kv_width=S, w8a8=True), 100)
+    plain_ms, _ = device_time_ms(lambda: da.decode_attention_plain(
+        q, k8, v8, pos_t, layer_t, rs0, kv_width=384, w8a8=True), 10)
+    slot = 2 * hkv8 * dh + 4 * hkv8
+    head_record(recs, "decode_attention_int8_w8a8_dh256", decode_src,
+                "llm_consensus_tpu/ops/pallas/decode_attention.py:245",
+                f"q[1,1,{hq},{dh}] int8 cache[{L},1,{S},{hkv8},{dh}] (group 2), pos 383, "
+                "kv_width 384", w8_worst, kern, plain_ms, None, 384 * slot + 4.0 * hq * dh,
+                2.0 * hq * dh * 384, 2.0 * hq * dh * 384, label="dh256",
+                q_outlier_cross_err=cross, w8192_ms=wide["ms"], w8192_cold_ms=wide["cold_ms"],
+                w8192_bound_ms=bound_ms(S * slot + 4.0 * hq * dh, 2.0 * hq * dh * S,
+                                        2.0 * hq * dh * S)[0])
+    del k8, v8
+
+    # return_state at B 4 over the bf16 and the int8 cache.
+    B, rs = 4, (0, 37, 255, 5)
+    k, v = rnd(L, B, S, hkv, dh), rnd(L, B, S, hkv, dh)
+    k8, v8 = int8_of(k), int8_of(v)
+    q = rnd(B, 1, hq, dh)
+    worst = {"bf16": [0.0, 0.0, 0.0], "int8": [0.0, 0.0, 0.0]}
+    for pos, w, prs in ((S - 1, S, (0, 1000, 8191, 17)), (255, 256, rs)):
+        for side in (k, v):
+            side[layer, :, pos + 1:] = float("nan")
+        for side in (k8, v8):
+            side["q8"][layer, :, pos + 1:] = 127
+            side["s"][layer, :, :, pos + 1:] = float("nan")
+        for key, (kk, vv) in (("bf16", (k, v)), ("int8", (k8, v8))):
+            kw = dict(kv_width=w, return_state=True)
+            got = da.decode_attention(q, kk, vv, i32(pos)[0], layer_t, i32(*prs), **kw)
+            torch.cuda.synchronize()
+            want = da.decode_attention_plain(q, kk, vv, pos, layer, i32(*prs), **kw)
+            errs = (max_err(got[0], want[0]), max_err(got[1], want[1]),
+                    ((got[2] - want[2]).abs() / want[2].abs().clamp_min(1e-30)).max().item())
+            if (not all(bool(torch.isfinite(x).all()) for x in got)
+                    or errs[0] > decode_tol(want[0]) or errs[1] > STATE_M_TOL
+                    or errs[2] > STATE_L_REL_TOL):
+                raise AssertionError(f"decode state {key} dh 256 width {w}: {errs}")
+            worst[key] = [max(a, b) for a, b in zip(worst[key], errs)]
+    pos_t, rs_t = i32(255)[0], i32(*rs)
+    n_valid = sum(255 - r + 1 for r in rs)
+    io = 2.0 * 2 * B * hq * dh + 2 * 4 * B * hq
+    # The full window on layer 0, which no case poisoned.
+    last_t, fresh_t, rs4_t = i32(S - 1)[0], i32(0)[0], i32(0, 0, 0, 0)
+    for key, (kk, vv) in (("bf16", (k, v)), ("int8", (k8, v8))):
+        def call(kk=kk, vv=vv):
+            return da.decode_attention(q, kk, vv, pos_t, layer_t, rs_t, kv_width=256,
+                                       return_state=True)
+
+        kern = timed(call, 200)
+        wide = timed(lambda kk=kk, vv=vv: da.decode_attention(
+            q, kk, vv, last_t, fresh_t, rs4_t, kv_width=S, return_state=True), 50)
+        plain_ms, _ = device_time_ms(lambda kk=kk, vv=vv: da.decode_attention_plain(
+            q, kk, vv, pos_t, layer_t, rs_t, kv_width=256, return_state=True), 10)
+        slot = 2 * hkv * dh * (2 if key == "bf16" else 1) + (0 if key == "bf16" else 4 * hkv)
+        lib = None
+        if key == "bf16":
+            kt = k[layer, :, :256].transpose(1, 2).contiguous()
+            vt = v[layer, :, :256].transpose(1, 2).contiguous()
+            cols = torch.arange(256, device="cuda")
+            valid = (cols[None, :] <= 255) & (cols[None, :] >= rs_t[:, None].long())
+            bias = torch.zeros((B, hq, 1, 256), dtype=torch.bfloat16, device="cuda")
+            bias.masked_fill_(~valid[:, None, None, :], float("-inf"))
+            efficient = torch.ops.aten._scaled_dot_product_efficient_attention
+            lib = timed(lambda: efficient(q.transpose(1, 2), kt, vt, bias, True), 200)
+            del kt, vt, bias
+        head_record(
+            recs, "decode_attention_state_dh256" if key == "bf16" else
+            "decode_attention_int8_state_dh256", decode_src,
+            "llm_consensus_tpu/ops/pallas/decode_attention.py:410",
+            f"q[{B},1,{hq},{dh}] {'' if key == 'bf16' else 'int8 '}cache[{L},{B},{S},{hkv},{dh}], "
+            f"pos 255, kv_width 256, row_start {list(rs)}, return_state", worst[key][0], kern,
+            plain_ms, lib, n_valid * slot + io, 4.0 * hq * dh * n_valid, label="dh256",
+            m_max_abs_err=worst[key][1], l_max_rel_err=worst[key][2], w8192_ms=wide["ms"],
+            w8192_cold_ms=wide["cold_ms"],
+            w8192_bound_ms=bound_ms(B * S * slot + io, 4.0 * B * hq * dh * S)[0])
+    del k, v, k8, v8
+    release_memory(torch)
+
+
 class HostFetches:
     """Counts the speculative loops' host copies (``speculative._to_host``)
     while the block runs."""
@@ -7000,21 +7435,24 @@ HEAD_SLICES = (
 
 
 def head_record(recs: dict, name: str, source: str, replaces: str, shapes: str, err: float,
-                kern: dict, plain_ms: float, lib, nbytes: float, flops: float) -> None:
-    """One head-slice row of the kernels line: its times, bound and library
-    call; ``launches`` is filled in by the parallel phase's main-path run."""
-    bms, by = bound_ms(nbytes, flops)
+                kern: dict, plain_ms: float, lib, nbytes: float, flops: float,
+                int8_ops: float = 0.0, label: str = "head slice", **extra) -> None:
+    """One row of the kernels line (a head-slice or a dh-256 row): its
+    times, bound and library call, and ``extra`` fields; ``launches`` is
+    filled in by the phase whose main-path run launches the kernel."""
+    bms, by = bound_ms(nbytes, flops, int8_ops)
     recs[name] = dict(
         name=name, route="cuda", source=source, replaces=replaces, shapes=shapes,
         launches=0, max_abs_err=err, ms=kern["ms"], cold_ms=kern["cold_ms"],
         plain_ms=plain_ms, bound_ms=bms, bound_by=by,
         bound_share=bms / kern["cold_ms"],
         library_ms=None if lib is None else lib["ms"],
-        library_cold_ms=None if lib is None else lib["cold_ms"])
-    log(f"head slice {name}: {shapes}: max_abs_err {err:.3e}; kernel warm "
+        library_cold_ms=None if lib is None else lib["cold_ms"], **extra)
+    log(f"{label} {name}: {shapes}: max_abs_err {err:.3e}; kernel warm "
         f"{kern['ms']:.4f} ms, cold {kern['cold_ms']:.4f} ms; plain {plain_ms:.4f} ms; "
         + ("" if lib is None else f"library warm {lib['ms']:.4f}, cold {lib['cold_ms']:.4f} ms; ")
-        + f"bound {bms:.5f} ms ({by}), {100 * bms / kern['cold_ms']:.1f} % of it cold")
+        + f"bound {bms:.5f} ms ({by}), {100 * bms / kern['cold_ms']:.1f} % of it cold"
+        + "".join(f"; {k} {v}" for k, v in extra.items()))
 
 
 TP2_ROWS = (0, 40, 80, 120)  # the B = 4 decode row's ragged starts (parallel (f)'s wave)
@@ -7687,6 +8125,65 @@ def parallel_swap(torch, seed: int, out: dict) -> dict:
     return row
 
 
+def parallel_checkpoint(torch, seed: int) -> dict:
+    """(k): a consensus-1b HF checkpoint (bf16, seed + 2) restored onto a tp 2
+    mesh of the card both ways: the whole tree on the first position, then
+    cut (``shard_pytree``, the engine's own cut), and straight into the
+    shards (``try_load_params(mesh=)``, each position's blocks read from the
+    file). Each load's peak device memory above what was allocated before
+    it, its wall, and each position's shard bitwise equal between them."""
+    from llm_consensus_tpu_torch.engine.checkpoint import (
+        load_hf_safetensors, save_hf_safetensors, try_load_params)
+    from llm_consensus_tpu_torch.models import get_config
+    from llm_consensus_tpu_torch.models.transformer import init_params, param_leaves
+    from llm_consensus_tpu_torch.parallel import make_mesh, virtual_devices
+    from llm_consensus_tpu_torch.parallel.sharding import param_specs, shard_pytree
+
+    cfg = get_config("consensus-1b")
+    mesh = make_mesh({"dp": 1, "tp": 2}, virtual_devices(2, "cuda"))
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    try:
+        params = init_params(cfg, seed + 2, device=torch.device("cuda"))
+        tree_gb = sum(t.numel() * t.element_size() for _, t in param_leaves(params)) / 1e9
+        t0 = time.monotonic()
+        save_hf_safetensors(cfg, params, tmp)
+        write_s = time.monotonic() - t0
+        del params
+        release_memory(torch)
+        loads, walls, peaks = {}, {}, {}
+        for how in ("whole then cut", "into shards"):
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.monotonic()
+            if how == "whole then cut":
+                tree = load_hf_safetensors(cfg, tmp, device=mesh.devices.flat[0].torch_device)
+                loads[how] = shard_pytree(tree, param_specs(cfg, mesh), mesh)
+                del tree
+            else:
+                loads[how] = try_load_params(cfg, tmp, mesh=mesh)
+            torch.cuda.synchronize()
+            walls[how] = time.monotonic() - t0
+            peaks[how] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    def same(x, y):
+        fx, fy = dict(param_leaves(x)), dict(param_leaves(y))
+        return fx.keys() == fy.keys() and all(torch.equal(fx[n], fy[n]) for n in fx)
+
+    equal = all(same(x, y) for x, y in zip(loads["whole then cut"], loads["into shards"]))
+    row = {"tree_gb": tree_gb, "write_s": write_s, "load_s": walls, "peak_gb": peaks,
+           "shards_equal": equal}
+    log(f"parallel (k): consensus-1b checkpoint ({tree_gb:.2f} GB bf16) onto tp 2: peak "
+        f"{peaks['whole then cut']:.2f} GB whole then cut ({walls['whole then cut']:.2f} s), "
+        f"{peaks['into shards']:.2f} GB into the shards ({walls['into shards']:.2f} s); each "
+        f"position's shard bitwise equal {equal}")
+    if not equal:
+        raise AssertionError(f"parallel (k): {row}")
+    del loads
+    release_memory(torch)
+    return row
+
+
 def parallel_tp2(torch, fa, da, seed: int, out: dict, recs: dict) -> dict:
     """(a): llama-3-8b bf16 on a tp 2 mesh of two positions of the card
     against the tp = 1 engine on the same seed-0 weights (the tp 2 engine's
@@ -7835,7 +8332,9 @@ def run_parallel(torch, fa, da, card: str, seed: int, recs: dict) -> dict:
     engine (:func:`parallel_serving`: the batcher with its shared prefix, a
     KV-pool hit, a handoff from tp 1 into the tp 2 pool, prompt lookup);
     (j) swaps a tp 2 consensus-1b to seed + 1 weights
-    (:func:`parallel_swap`). Prints a ``{"parallel": ...}`` line."""
+    (:func:`parallel_swap`); (k) restores a consensus-1b checkpoint onto tp 2
+    whole then cut and straight into its shards (:func:`parallel_checkpoint`).
+    Prints a ``{"parallel": ...}`` line."""
     from llm_consensus_tpu_torch.engine import Engine, SamplingParams
     from llm_consensus_tpu_torch.models import get_config
     from llm_consensus_tpu_torch.parallel import make_mesh, virtual_devices
@@ -7852,6 +8351,9 @@ def run_parallel(torch, fa, da, card: str, seed: int, recs: dict) -> dict:
         t0 = time.monotonic()
         out["j"] = parallel_swap(torch, seed, out)
         out["walls_s"]["swap (j)"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        out["k"] = parallel_checkpoint(torch, seed)
+        out["walls_s"]["checkpoint (k)"] = time.monotonic() - t0
         out["c"] = parallel_cli(torch, fa, da)
     except BaseException:
         for p in procs:
@@ -8189,10 +8691,10 @@ def print_phase_walls(t_start: float) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phase", choices=("all", "kernels", "mixtral", "telemetry", "modes",
-                                        "session", "serving", "recovery", "kvpool", "spec",
-                                        "gateway", "route", "disagg", "distill", "parallel",
-                                        "sanitize"),
+    ap.add_argument("--phase", choices=("all", "kernels", "gemma", "mixtral", "telemetry",
+                                        "modes", "session", "serving", "recovery", "kvpool",
+                                        "spec", "gateway", "route", "disagg", "distill",
+                                        "parallel", "sanitize"),
                     default="all")
     ap.add_argument("--seed", type=int, default=0)
     # One child of the sanitize phase (run_sanitize starts them).
@@ -8244,6 +8746,7 @@ def main(argv=None) -> int:
     dh64_recs: dict = {"flash": {}, "decode": {}}
     head_recs: dict = {}  # the head-slice rows (check_head_slices)
     batch_recs: dict = {}  # generate_batch's decode row (check_decode_batch)
+    dh256_recs: dict = {}  # gemma-7b's head width (check_kernels_dh256)
     records = [flash_rec, decode_rec, int8_rec, w8a8_rec, *state_recs.values(),
                *rows16_recs.values(), *dh64_recs.values()]
     mixtral_recs = {"flash": flash_rec, "int8": int8_rec, "w8a8": w8a8_rec}
@@ -8331,6 +8834,16 @@ def main(argv=None) -> int:
         print_phase_walls(t_start)
         print(card, flush=True)
         return 0
+    if args.phase == "gemma":
+        # The dh 256 kernel rows and the gemma phase: no ok line.
+        with phase_wall("kernels dh 256"):
+            check_kernels_dh256(torch, dh256_recs)
+        with phase_wall("gemma"):
+            run_gemma(torch, fa, da, card, dh256_recs)
+        print_phase_walls(t_start)
+        print(json.dumps({"kernels": [dh256_recs[n] for n in DH256_ROWS]}), flush=True)
+        print(card, flush=True)
+        return 0
     if args.phase == "spec":
         # The dh 64 kernel rows and the spec phase: no ok line.
         with phase_wall("kernels dh 64"):
@@ -8345,6 +8858,7 @@ def main(argv=None) -> int:
         check_flash(torch, flash_rec)
         check_decode(torch, decode_rec)
         check_kernels_dh64(torch, dh64_recs["flash"], dh64_recs["decode"])
+        check_kernels_dh256(torch, dh256_recs)
         check_decode_int8(torch, int8_rec, w8a8_rec)
         check_decode_state(torch, state_recs)
         check_decode_rows16(torch, rows16_recs)
@@ -8352,7 +8866,8 @@ def main(argv=None) -> int:
         check_head_slices_b4(torch, head_recs)
         check_decode_batch(torch, batch_recs)
         check_int8_matmul(torch)
-    records += list(head_recs.values()) + list(batch_recs.values())
+    records += (list(head_recs.values()) + list(batch_recs.values())
+                + [dh256_recs[n] for n in DH256_ROWS])
     if args.phase == "kernels":
         # Kernel checks only: the main path did not run, so no ok line.
         print(json.dumps({"kernels": records}), flush=True)
@@ -8380,6 +8895,8 @@ def main(argv=None) -> int:
         single_responses = sl["responses"]
         del sl
         release_engines(torch, {})
+    with phase_wall("gemma"):
+        run_gemma(torch, fa, da, card, dh256_recs)
 
     with phase_wall("batched"):
         bsl = run_batched_slice(torch, fa, da, single_responses)

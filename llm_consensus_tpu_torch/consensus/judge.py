@@ -128,6 +128,14 @@ class Judge:
         # it as a run warning.
         self.last_truncated = False
 
+    @property
+    def model(self) -> str:
+        return self._model
+
+    def synthesize(self, ctx: Context, prompt: str, responses: list[Response]) -> str:
+        """The consensus answer, with no streaming callback."""
+        return self.synthesize_stream(ctx, prompt, responses, None)
+
     def synthesize_stream(
         self,
         ctx: Context,

@@ -51,18 +51,20 @@
 //     merge round trip costs more than a shorter split saves: measured over
 //     the int8 cache too, whose slots carry half the bytes, at 128, 256 and
 //     512), so the split count follows the width and the batch;
-//   * each CTA streams its split's valid slots in 128-slot chunks through a
-//     3-stage cp.async ring (zero-fill for the rows outside [row_start, pos]
-//     and the window: they are never read, and NaN there cannot reach the
-//     output), so chunk loads overlap scoring. An int8 stage also holds the
-//     chunk's K and V scale runs (contiguous: the layout is seq-minor),
-//     copied in 16-byte pieces from the 16-byte boundary at or before the
-//     chunk's first slot, since a split or chunk may start at any slot and S
-//     need not be a multiple of 8; the kernel reads them from that offset.
-//     With one CTA to an SM, eight warps (16 slots each per chunk) hide the
-//     latency of each warp's dependent products;
+//   * each CTA streams its split's valid slots in 128-slot chunks (64 at
+//     dh 256: Geom below) through a 3-stage cp.async ring (zero-fill for the
+//     rows outside [row_start, pos] and the window: they are never read, and
+//     NaN there cannot reach the output), so chunk loads overlap scoring.
+//     An int8 stage also holds the chunk's K and V scale runs (contiguous:
+//     the layout is seq-minor), copied in 16-byte pieces from the 16-byte
+//     boundary at or before the chunk's first slot, since a split or chunk
+//     may start at any slot and S need not be a multiple of 8; the kernel
+//     reads them from that offset.
+//     With one CTA to an SM, eight warps (16 slots each per chunk; four at
+//     dh 256) hide the latency of each warp's dependent products;
 //   * tensor-core arithmetic on registers: the kv head's G <= 16 query heads
-//     are the 16 rows of an mma.sync A operand loaded once (zero past G);
+//     are the 16 rows of an mma.sync A operand loaded once (zero past G;
+//     held in registers, at dh 256 in shared memory);
 //     each warp scores 16 slots of a chunk, keeps its online softmax and its
 //     O fragment in registers across chunks, and feeds P (bf16) back as the
 //     A operand of P.V (m16n8k16). bf16 reads K with ldmatrix and V with
@@ -98,16 +100,32 @@ namespace {
 
 enum class Cache { kBf16, kInt8, kW8A8 };
 
-constexpr int kWarps = 8;                 // warps of a CTA
-constexpr int kThreads = kWarps * 32;
-constexpr int kChunk = 16 * kWarps;       // kv slots per ring chunk: 16 per warp
 constexpr int kStages = 3;                // cp.async ring depth
 constexpr int kMaxGroup = 16;             // query heads per kv head
 constexpr int kMaxSplit = 512;            // splits per (row, kv head) the fused merge holds
 constexpr int kMaxDevices = 64;           // devices whose shared-memory opt-in is remembered
-constexpr int kScaleRun = kChunk + 8;     // bf16 scales a stage holds: from a 16-byte boundary
 constexpr float kNegInf = -1e30f;         // the TPU kernel's mask value
 constexpr float kLog2e = 1.4426950408889634f;
+
+// The CTA's shape by head width. Up to dh 128: eight warps of 16 slots, so a
+// ring chunk is 128 slots. At dh 256 a bf16 slot row is 528 bytes and three
+// stages of 128-slot K and V chunks (405,504 bytes) would not fit the opt-in:
+// four warps halve the chunk to 64 slots, three stages then take 202,752
+// bytes (the int8 ring 105,312), and the merge buffer, whose warp O and
+// split-lane sums shrink with the warps, takes 132,736 bytes at kMaxSplit:
+// with the static arrays (8.5 KB at most) under the 232,448-byte opt-in.
+// There the O fragment alone is 128 registers a thread, so the CTA also
+// keeps q's A fragments in shared memory, read per k-step (64 registers not
+// held), and converts int8 V one 32-bit word at a time inside P.V instead of
+// all of it before the scores (64 more).
+template <int DH>
+struct Geom {
+  static constexpr int WARPS = DH > 128 ? 4 : 8;
+  static constexpr int THREADS = WARPS * 32;
+  static constexpr int CHUNK = 16 * WARPS;     // kv slots per ring chunk: 16 per warp
+  static constexpr int SCALE_RUN = CHUNK + 8;  // scales a stage holds: from a 16-byte boundary
+  static constexpr bool LEAN = DH > 128;       // q fragments in shared memory, int8 V converted late
+};
 
 struct DecodeArgs {
   const __nv_bfloat16* q;
@@ -132,22 +150,23 @@ struct DecodeArgs {
 // Shared memory of one CTA, in bytes.
 template <int DH, Cache C>
 struct Smem {
+  using Geo = Geom<DH>;
   static constexpr int ESIZE = C == Cache::kBf16 ? 2 : 1;  // bytes per cached element
   static constexpr int LD = DH * ESIZE + 16;   // slot row pitch: ldmatrix rows hit distinct banks
-  static constexpr int TILE = kChunk * LD;     // one K or V chunk
-  static constexpr int SCALES = C == Cache::kBf16 ? 0 : kScaleRun * 2;  // one scale run
+  static constexpr int TILE = Geo::CHUNK * LD;  // one K or V chunk
+  static constexpr int SCALES = C == Cache::kBf16 ? 0 : Geo::SCALE_RUN * 2;  // one scale run
   static constexpr int STAGE = 2 * TILE + 2 * SCALES;
   static constexpr int RING = kStages * STAGE;
   static constexpr int LDO = DH + 4;           // fp32 pitch of the warps' merge buffer
-  static constexpr int O_BYTES = kWarps * 16 * LDO * 4;
-  static constexpr int STAT_BYTES = 2 * kWarps * 16 * 4;  // per-warp m and l of 16 rows
+  static constexpr int O_BYTES = Geo::WARPS * 16 * LDO * 4;
+  static constexpr int STAT_BYTES = 2 * Geo::WARPS * 16 * 4;  // per-warp m and l of 16 rows
   // After the loop the ring holds the warps' O and (m, l), the split weights
   // and (M, l) of each head, then the split lanes' float4 sums.
   __host__ __device__ static int sum_offset(int n_split) {
     return (O_BYTES + STAT_BYTES + (kMaxGroup * n_split + 2 * kMaxGroup) * 4 + 15) & ~15;
   }
   __host__ __device__ static int bytes(int n_split) {
-    const int merge = sum_offset(n_split) + kThreads * kMaxGroup * 16;
+    const int merge = sum_offset(n_split) + Geo::THREADS * kMaxGroup * 16;
     return merge > RING ? merge : RING;
   }
 };
@@ -240,6 +259,7 @@ __device__ __forceinline__ uint32_t q_code(float x, float s) {
 // N 32-bit words from shared memory (N = 1, 2 or 4: one vector load).
 template <int N>
 __device__ __forceinline__ void load_words(uint32_t (&w)[N], const unsigned char* p) {
+  static_assert(N == 1 || N == 2 || N == 4, "one vector load holds 1, 2 or 4 words");
   if constexpr (N == 4) {
     const uint4 x = *reinterpret_cast<const uint4*>(p);
     w[0] = x.x, w[1] = x.y, w[2] = x.z, w[3] = x.w;
@@ -254,7 +274,7 @@ __device__ __forceinline__ void load_words(uint32_t (&w)[N], const unsigned char
 // One CTA per (split, kv head, batch row). The split covers slots
 // [split * kv_width / n_split, (split + 1) * kv_width / n_split); the CTA
 // streams the valid part of it (inside [row_start, pos] and the window) in
-// 128-slot chunks through the ring; each of the eight warps scores 16 slots
+// chunks of 16 slots a warp through the ring; each warp scores its 16 slots
 // of a chunk and keeps its own online softmax and O fragment in registers.
 // The warps merge through shared memory at the end. With one split the CTA
 // writes the output; otherwise it writes an fp32 partial and takes a ticket,
@@ -263,7 +283,10 @@ __device__ __forceinline__ void load_words(uint32_t (&w)[N], const unsigned char
 template <int DH, Cache C>
 __device__ __forceinline__ void decode_body(const DecodeArgs& a) {
   using L = Smem<DH, C>;
+  using Geo = Geom<DH>;
   constexpr bool kQuant = C != Cache::kBf16;
+  constexpr int kWarps = Geo::WARPS, kThreads = Geo::THREADS, kChunk = Geo::CHUNK;
+  constexpr int kScaleRun = Geo::SCALE_RUN;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_last;
 
@@ -315,35 +338,48 @@ __device__ __forceinline__ void decode_body(const DecodeArgs& a) {
       qa[kk][3] = x1.y;
     }
   } else {
-    // One warp per query head: lane i quantizes dh 4i .. 4i + 3 (the head's
-    // amax is a warp reduction), rows past G are zero codes, and the codes
-    // go through shared memory into the m16n8k32 A layout: a thread holds
-    // dh 4 quad .. + 3 and 16 + 4 quad .. + 3 of each 32 for rows g8 and
-    // g8 + 8.
+    // One warp per query head: lane i quantizes dh 4i .. 4i + 3 of each
+    // 128-wide stride of the head (one stride up to dh 128, two at dh 256;
+    // the head's amax over all of them is a warp reduction), rows past G
+    // are zero codes, and the codes go through shared memory into the
+    // m16n8k32 A layout: a thread holds dh 4 quad .. + 3 and 16 + 4 quad ..
+    // + 3 of each 32 for rows g8 and g8 + 8.
     constexpr int kLdq = DH + 16;  // bytes per head: the fragment reads hit distinct banks
+    constexpr int kStrides = DH > 128 ? DH / 128 : 1;
     __shared__ __align__(16) unsigned char sq8[kMaxGroup * kLdq];
     __shared__ float sqs[kMaxGroup];
     for (int g = warp; g < kMaxGroup; g += kWarps) {
-      float x[4] = {0.f, 0.f, 0.f, 0.f};
-      if (g < G && lane < DH / 4) {
-        const uint2 raw = *reinterpret_cast<const uint2*>(qg + g * DH + 4 * lane);
-        const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-        const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-        x[0] = lo.x, x[1] = lo.y, x[2] = hi.x, x[3] = hi.y;
+      float x[kStrides][4];
+      float amax = 0.f;
+#pragma unroll
+      for (int r = 0; r < kStrides; ++r) {
+        const int d = 128 * r + 4 * lane;
+        x[r][0] = x[r][1] = x[r][2] = x[r][3] = 0.f;
+        if (g < G && d < DH) {
+          const uint2 raw = *reinterpret_cast<const uint2*>(qg + g * DH + d);
+          const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+          const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+          x[r][0] = lo.x, x[r][1] = lo.y, x[r][2] = hi.x, x[r][3] = hi.y;
+        }
+        amax = fmaxf(amax, fmaxf(fmaxf(fabsf(x[r][0]), fabsf(x[r][1])),
+                                 fmaxf(fabsf(x[r][2]), fabsf(x[r][3]))));
       }
-      float amax = fmaxf(fmaxf(fabsf(x[0]), fabsf(x[1])), fmaxf(fabsf(x[2]), fabsf(x[3])));
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) {
         amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
       }
       const float qs = fmaxf(amax * (1.f / 127.f), 1e-30f);
-      if (lane < DH / 4) {
-        uint32_t codes = 0u;
-        if (g < G) {
-          codes = q_code(x[0], qs) | q_code(x[1], qs) << 8 | q_code(x[2], qs) << 16 |
-                  q_code(x[3], qs) << 24;
+#pragma unroll
+      for (int r = 0; r < kStrides; ++r) {
+        const int d = 128 * r + 4 * lane;
+        if (d < DH) {
+          uint32_t codes = 0u;
+          if (g < G) {
+            codes = q_code(x[r][0], qs) | q_code(x[r][1], qs) << 8 |
+                    q_code(x[r][2], qs) << 16 | q_code(x[r][3], qs) << 24;
+          }
+          *reinterpret_cast<uint32_t*>(sq8 + g * kLdq + d) = codes;
         }
-        *reinterpret_cast<uint32_t*>(sq8 + g * kLdq + 4 * lane) = codes;
       }
       if (lane == 0) sqs[g] = qs;
     }
@@ -360,6 +396,28 @@ __device__ __forceinline__ void decode_body(const DecodeArgs& a) {
     qs0 = sqs[g8];
     qs1 = sqs[g8 + 8];
   }
+  // dh 256: every warp holds the same fragments, so warp 0 parks them in
+  // shared memory (lane-major 16-byte rows: conflict-free reads) and the
+  // scores read each k-step's as they go; the loop's first barrier orders
+  // the stores before any read.
+  __shared__ __align__(16) uint4 sqa[Geo::LEAN ? kQSteps * 32 : 1];
+  if constexpr (Geo::LEAN) {
+    if (warp == 0) {
+#pragma unroll
+      for (int kk = 0; kk < kQSteps; ++kk) {
+        sqa[kk * 32 + lane] = make_uint4(qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3]);
+      }
+    }
+  }
+  // q's A fragment of k-step kk.
+  auto q_frag = [&](int kk, uint32_t (&f)[4]) {
+    if constexpr (Geo::LEAN) {
+      const uint4 x = sqa[kk * 32 + lane];
+      f[0] = x.x, f[1] = x.y, f[2] = x.z, f[3] = x.w;
+    } else {
+      f[0] = qa[kk][0], f[1] = qa[kk][1], f[2] = qa[kk][2], f[3] = qa[kk][3];
+    }
+  };
 
   if (a.window > 0) lo = max(lo, pos - a.window + 1);
   const int first =
@@ -434,12 +492,14 @@ __device__ __forceinline__ void decode_body(const DecodeArgs& a) {
     const __nv_bfloat16* svs = sks + kScaleRun;
 
     // int8 V as the B operand of P.V, converted now (it waits on nothing
-    // the scores compute). n8-tile n's column g8 is dh g8 * DH/8 + n, so a
-    // thread's B columns are the contiguous DH/8 codes at g8 * DH/8 of its
-    // four slot rows (row + 2 quad, + 1, + 8, + 9: the k of the B fragment),
-    // paired across neighbouring slots.
-    [[maybe_unused]] uint32_t vb[kQuant ? DH / 8 : 1][2];
-    if constexpr (kQuant) {
+    // the scores compute; at dh 256 inside P.V instead, a word at a time).
+    // n8-tile n's column g8 is dh g8 * DH/8 + n, so a thread's B columns are
+    // the contiguous DH/8 codes at g8 * DH/8 of its four slot rows (row +
+    // 2 quad, + 1, + 8, + 9: the k of the B fragment), paired across
+    // neighbouring slots.
+    constexpr bool kEarlyV = kQuant && !Geo::LEAN;
+    [[maybe_unused]] uint32_t vb[kEarlyV ? DH / 8 : 1][2];
+    if constexpr (kEarlyV) {
       constexpr int kW = DH / 32;  // 32-bit words of a thread's run
       uint32_t vw[4][kW];
 #pragma unroll
@@ -469,10 +529,11 @@ __device__ __forceinline__ void decode_body(const DecodeArgs& a) {
       int si[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
 #pragma unroll
       for (int kk = 0; kk < DH / 32; ++kk) {
-        uint32_t kf[4];
+        uint32_t kf[4], qf[4];
         ldmatrix_x4(kf, krow + 32 * kk);
-        mma_s8(si[0], qa[kk], kf[0], kf[1]);
-        mma_s8(si[1], qa[kk], kf[2], kf[3]);
+        q_frag(kk, qf);
+        mma_s8(si[0], qf, kf[0], kf[1]);
+        mma_s8(si[1], qf, kf[2], kf[3]);
       }
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
@@ -488,16 +549,20 @@ __device__ __forceinline__ void decode_body(const DecodeArgs& a) {
         uint32_t kf[4];
         ldmatrix_x4(kf, krow + 32 * kk);
         if constexpr (C == Cache::kBf16) {
-          mma_bf16(s[0], qa[kk], kf[0], kf[1]);
-          mma_bf16(s[1], qa[kk], kf[2], kf[3]);
+          uint32_t qf[4];
+          q_frag(kk, qf);
+          mma_bf16(s[0], qf, kf[0], kf[1]);
+          mma_bf16(s[1], qf, kf[2], kf[3]);
         } else {
-          uint32_t kb16[4][2];
+          uint32_t kb16[4][2], qe[4], qo[4];
 #pragma unroll
           for (int i = 0; i < 4; ++i) codes_to_bf16(kf[i], kb16[i][0], kb16[i][1]);
-          mma_bf16(s[0], qa[2 * kk], kb16[0][0], kb16[0][1]);
-          mma_bf16(s_odd[0], qa[2 * kk + 1], kb16[1][0], kb16[1][1]);
-          mma_bf16(s[1], qa[2 * kk], kb16[2][0], kb16[2][1]);
-          mma_bf16(s_odd[1], qa[2 * kk + 1], kb16[3][0], kb16[3][1]);
+          q_frag(2 * kk, qe);
+          q_frag(2 * kk + 1, qo);
+          mma_bf16(s[0], qe, kb16[0][0], kb16[0][1]);
+          mma_bf16(s_odd[0], qo, kb16[1][0], kb16[1][1]);
+          mma_bf16(s[1], qe, kb16[2][0], kb16[2][1]);
+          mma_bf16(s_odd[1], qo, kb16[3][0], kb16[3][1]);
         }
       }
       if constexpr (C == Cache::kInt8) {
@@ -581,13 +646,32 @@ __device__ __forceinline__ void decode_body(const DecodeArgs& a) {
       }
     } else {
 #pragma unroll
-      for (int n = 0; n < DH / 8; ++n) {
-        float* o = acc[n];
-        o[0] *= alpha0;
-        o[1] *= alpha0;
-        o[2] *= alpha1;
-        o[3] *= alpha1;
-        mma_bf16(acc[n], pa, vb[n][0], vb[n][1]);
+      for (int w = 0; w < DH / 32; ++w) {
+        // The B fragments of n8-tiles 4 w .. 4 w + 3: word w of the thread's
+        // four slot rows.
+        uint32_t b0[4], b1[4];
+        if constexpr (kEarlyV) {
+#pragma unroll
+          for (int t = 0; t < 4; ++t) b0[t] = vb[4 * w + t][0], b1[t] = vb[4 * w + t][1];
+        } else {
+          uint32_t x[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            x[i] = *reinterpret_cast<const uint32_t*>(
+                sv + (row + 2 * quad + (i & 1) + 8 * (i >> 1)) * L::LD + g8 * (DH / 8) + 4 * w);
+          }
+          pair_codes(x[0], x[1], b0);
+          pair_codes(x[2], x[3], b1);
+        }
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          float* o = acc[4 * w + t];
+          o[0] *= alpha0;
+          o[1] *= alpha0;
+          o[2] *= alpha1;
+          o[3] *= alpha1;
+          mma_bf16(acc[4 * w + t], pa, b0[t], b1[t]);
+        }
       }
     }
   }
@@ -737,13 +821,13 @@ __device__ __forceinline__ void decode_body(const DecodeArgs& a) {
 }
 
 template <int DH>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Geom<DH>::THREADS)
 decode_bf16_kernel(const __grid_constant__ DecodeArgs a) {
   decode_body<DH, Cache::kBf16>(a);
 }
 
 template <int DH, bool W8A8>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Geom<DH>::THREADS)
 decode_q8_kernel(const __grid_constant__ DecodeArgs a) {
   decode_body<DH, W8A8 ? Cache::kW8A8 : Cache::kInt8>(a);
 }
@@ -770,7 +854,8 @@ cudaError_t launch(const DecodeArgs& a, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     if (dev < kMaxDevices) opted[dev].store(true, std::memory_order_release);
   }
-  kernel<<<dim3(a.n_split, a.Hkv, a.B), kThreads, Smem<DH, C>::bytes(a.n_split), stream>>>(a);
+  kernel<<<dim3(a.n_split, a.Hkv, a.B), Geom<DH>::THREADS, Smem<DH, C>::bytes(a.n_split),
+           stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -790,6 +875,8 @@ int dispatch(const DecodeArgs& a, int dh, void* stream) {
       return launch<64, C>(a, st);
     case 128:
       return launch<128, C>(a, st);
+    case 256:
+      return launch<256, C>(a, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -9,18 +9,33 @@
 // rounded to bf16 before P.V, and a row with l = 0 outputs 0.
 //
 // What bounds it on this card: at the main path's prefill shapes (T <= 512,
-// dh 128, B 1 or 4) the work is ~4 * T * T/2 * dh FLOPs per head against one
-// read of q/k/v and one write of o: a few microseconds at either peak, so in
-// practice the latency of each CTA's serial kv sweep bounds it, and the
-// longest sweep (the last causal q tile) sets the kernel's time.
+// dh 128 or 256, B 1 or 4) the work is ~4 * T * T/2 * dh FLOPs per head
+// against one read of q/k/v and one write of o: a few microseconds at either
+// peak, so in practice the latency of each CTA's serial kv sweep bounds it,
+// and the longest sweep (the last causal q tile) sets the kernel's time.
 //
 // The design (FlashAttention-3's shape, written out in PTX):
 //   * one CTA per (64 query rows, q head, batch row): one consumer warpgroup
-//     and one producer warp, 80 KB of shared memory, so two CTAs share an SM
-//     and one's softmax overlaps the other's tensor-core products. (Measured
-//     on the card against two consumer warpgroups per 128 rows and against
-//     128-row kv tiles: at T = 512 the causal sweep of the last q tile is the
-//     kernel's critical path, and 64-row tiles halve it.)
+//     and one producer warp, 80 KB of shared memory up to dh 128, so two CTAs
+//     share an SM and one's softmax overlaps the other's tensor-core
+//     products. (Measured on the card against two consumer warpgroups per
+//     128 rows and against 128-row kv tiles: at T = 512 the causal sweep of
+//     the last q tile is the kernel's critical path, and 64-row tiles halve
+//     it.)
+//   * dh 256 (gemma-7b) keeps that shape, re-derived: a tile row is 512
+//     bytes (four 128-byte swizzle atoms), so Q is 32 KB and one K or V tile
+//     of 64 rows 32 KB. Two stages of K and V take 128 KB: 161 KB in all,
+//     one CTA to an SM (the 227 KB opt-in holds one; __launch_bounds__'s
+//     min-blocks hint drops to 1 with it, which raises the register cap to
+//     255). A third stage would fit (225 KB), but the simple kernel keeps
+//     the ring it has; 32-row kv tiles would halve the ring but need m64n32
+//     score products and twice the barrier round trips, and 64 rows keep
+//     one tile shape for every width. Registers: O is a 128-float fragment a
+//     thread, S 32 and P's A operand 16: under the 255 cap with room for
+//     the addresses (ptxas -v in the build log reports spills). P.V is one
+//     m64n256k16 a k-step, whose MN-major V descriptor steps over the four
+//     atoms by its leading byte offset (one atom's 8 KB), as the dh-128
+//     product steps over two.
 //   * the producer warp loads the CTA's Q tile once and streams K/V tiles of
 //     64 rows through a 2-stage shared-memory ring with TMA
 //     (cp.async.bulk.tensor, 128-byte swizzle, 64-byte for dh 32) and
@@ -78,6 +93,10 @@ struct Tile {
   static constexpr int BAR_OFF = V_OFF + kStages * KV_BYTES;
   static constexpr int BYTES = BAR_OFF + (2 * kStages + 1) * 8 + 1024;  // + alignment slack
   static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;    // descriptor code: 128B / 64B swizzle
+  // CTAs an SM holds (the __launch_bounds__ hint): two up to dh 128 (80 KB
+  // each), one at dh 256 (161 KB), which also lifts the register cap from
+  // ~200 to 255 a thread for its 128-register O fragment.
+  static constexpr int MIN_BLOCKS = 2 * BYTES <= 232448 ? 2 : 1;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -205,8 +224,20 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// D += A.B over k16: A [64 x 16] bf16 in registers, B [16 x 256] MN-major in shared memory
+// (the dh-256 P.V: the descriptor's leading byte offset steps over the four swizzle atoms).
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 template <int DH>
-__global__ void __launch_bounds__(kThreads, 2)  // two CTAs to an SM
+__global__ void __launch_bounds__(kThreads, Tile<DH>::MIN_BLOCKS)
 flash_prefill_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int T,
                      int s_eff, int Hq, int Hkv, int q_offset, int window, float softcap,
@@ -507,6 +538,9 @@ int llmc_flash_attention_bf16(const void* q, const void* k, const void* v, void*
                         scale, st);
     case 128:
       return launch<128>(q, k, v, o, B, T, S, s_eff, Hq, Hkv, q_offset, window, softcap,
+                         scale, st);
+    case 256:
+      return launch<256>(q, k, v, o, B, T, S, s_eff, Hq, Hkv, q_offset, window, softcap,
                          scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

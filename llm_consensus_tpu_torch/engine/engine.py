@@ -130,7 +130,8 @@ from llm_consensus_tpu_torch.models.transformer import (
 from llm_consensus_tpu_torch.obs.attrib import DeviceWall
 from llm_consensus_tpu_torch.ops.kernels.decode_attention import w8a8_supported
 from llm_consensus_tpu_torch.ops.quant import (
-    KV_MODES, WEIGHT_MODES, qmatmul, quantize_params, resolve_int4_impl, resolve_mode)
+    KV_MODES, WEIGHT_MODES, is_quantized, qmatmul, quantize_params, resolve_int4_impl,
+    resolve_mode)
 from llm_consensus_tpu_torch.ops.sampling import sample_token
 from llm_consensus_tpu_torch.utils.context import Context
 from llm_consensus_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -336,8 +337,12 @@ class Engine:
     split as parallel/sharding.py ``param_specs`` says, one shard per
     position (positions of a ``dp`` axis beyond its first index hold none:
     one stream is one batch row), and the engine runs on the first
-    position's device; ``device`` must then be None. A one-position mesh is
-    that position's device.
+    position's device; ``device`` must then be None. ``params`` may instead
+    be those shards already, a list with one per position in that form (a
+    checkpoint restored into its shards, engine/checkpoint.py
+    ``try_load_params(mesh=)``; quantized already when ``quant`` is set),
+    and the whole tree then never exists. A one-position mesh is that
+    position's device.
     """
 
     def __init__(
@@ -389,7 +394,11 @@ class Engine:
         self.dtype = dtype
         # Past this length a prompt prefills in fixed chunks; 0 disables.
         self.prefill_chunk = max(0, prefill_chunk)
-        if params is None:
+        shards = params if isinstance(params, list) else None
+        if shards is not None:
+            self._check_shards(shards, mesh)
+            params = None
+        elif params is None:
             params = init_params(cfg, seed, device=self.device, dtype=dtype, quant=self.quant)
         else:
             for name, w in param_leaves(params):
@@ -406,7 +415,7 @@ class Engine:
             from llm_consensus_tpu_torch.parallel.sharding import param_specs
 
             self._specs = param_specs(cfg, mesh)
-            self._shards = self._shard(params)
+            self._shards = shards if shards is not None else self._shard(params)
             params = None
             self._groups = [ShardGroup(cfg, mesh, self._shards, self._specs,
                                        {"dp": 0, "sp": s})
@@ -492,6 +501,26 @@ class Engine:
     def sharded(self) -> bool:
         """True when the engine runs over shards (a mesh of several positions)."""
         return self._groups is not None
+
+    def _check_shards(self, shards: list, mesh) -> None:
+        """Shards given as ``params``: one entry per position of a mesh of
+        several, a shard on each of the ``dp`` axis's first index (on its
+        position's device) and None elsewhere, quantized when the engine
+        quantizes."""
+        if mesh is None or mesh.size < 2 or len(shards) != mesh.size:
+            raise ValueError("a list of shards needs a mesh of as many positions")
+        for i, shard in enumerate(shards):
+            if (shard is None) != (mesh.coords(i).get("dp", 0) != 0):
+                raise ValueError(f"position {i}: a shard on dp index 0 only, None elsewhere")
+            if shard is None:
+                continue
+            dev = mesh.devices.flat[i].torch_device
+            for name, w in param_leaves(shard):
+                if w.device != dev:
+                    raise ValueError(f"shard {i}: {name} is on {w.device}, its position on {dev}")
+            if self.quant is not None and not is_quantized(shard["layers"]["wq"]):
+                raise ValueError(f"shard {i} is not quantized to {self.quant}: quantize "
+                                 "the whole tree before it is cut (try_load_params(quant=))")
 
     def _shard(self, params: dict) -> list:
         """A whole tree (on the first position's device) as one shard per

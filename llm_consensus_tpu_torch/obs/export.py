@@ -22,6 +22,7 @@ metadata names the process and the threads.
 from __future__ import annotations
 
 import json
+import os
 from typing import Iterable, Optional
 
 from llm_consensus_tpu_torch.obs.recorder import Event, Recorder
@@ -273,6 +274,16 @@ def save_run_telemetry(run_dir: str, trace: Optional[dict], metrics: dict,
         if path:
             written.append(path)
     return written
+
+
+def load_trace(path: str) -> dict:
+    """A persisted ``trace.json`` parsed; ``ValueError`` when the file is
+    not a trace document (no ``traceEvents`` list)."""
+    with open(path, "r", encoding="utf-8") as f:
+        doc = json.load(f)
+    if not isinstance(doc, dict) or not isinstance(doc.get("traceEvents"), list):
+        raise ValueError(f"{os.path.basename(path)} is not a trace document")
+    return doc
 
 
 def trace_span_names(doc: dict) -> set[str]:

@@ -14,9 +14,10 @@ variants, each a kernel in ``csrc/decode_attention.cu``:
     float32 scale, int8 x int8 scores with int32 accumulation, P.V in bf16.
 
 All three are one launch per call: a split plan made here from the shape
-(:func:`split_plan`), a ``cp.async`` ring of 128-slot chunks, tensor-core
-scores, and the merge of the splits fused into the launch (the last CTA of
-each (row, kv head) merges, after a ticket in a per-device int32 buffer).
+(:func:`split_plan`), a ``cp.async`` ring of 128-slot chunks (64 at head
+width 256), tensor-core scores, and the merge of the splits fused into the
+launch (the last CTA of each (row, kv head) merges, after a ticket in a
+per-device int32 buffer).
 Each variant also has a ``return_state`` form (the shared-prefix decode
 path): the kernel's merge writes the softmax state it already holds, fp32
 ``(m, l)`` [B, Hq], beside the output, in the same launch. ``m`` is the max
@@ -51,13 +52,14 @@ NEG_INF = -1e30  # the TPU kernel's mask value
 
 # Head widths the CUDA kernel is instantiated for, the largest GQA group it
 # holds (one 16-row tensor-core tile), the kv slots of one chunk of its
-# ring, the least span of a split, the most splits its fused merge holds,
-# and the CTAs per SM its plan aims at. The least split and the CTAs per SM
-# come from the card: over either cache one merge round trip costs more
-# than a split under 256 slots saves (the int8 cache measured at 128, 256
-# and 512), and a second CTA per SM bought no bandwidth (measured on an
-# H100, PERF.md §6).
-HEAD_DIMS = (32, 64, 128)
+# ring (the most: at dh 256 a CTA has four warps and 64-slot chunks), the
+# least span of a split, the most splits its fused merge holds (at every
+# head width), and the CTAs per SM its plan aims at. The least split and the
+# CTAs per SM come from the card: over either cache one merge round trip
+# costs more than a split under 256 slots saves (the int8 cache measured at
+# 128, 256 and 512), and a second CTA per SM bought no bandwidth (measured
+# on an H100, PERF.md §6).
+HEAD_DIMS = (32, 64, 128, 256)
 MAX_GROUP = 16
 RING_CHUNK = 128
 MIN_SPLIT = 256

@@ -22,7 +22,7 @@ from llm_consensus_tpu_torch.ops.kernels.build import (
 NEG_INF = -1e30  # the TPU kernel's mask value (ops/attention.py uses -2**30)
 
 # Head widths the CUDA kernel is instantiated for (csrc/flash_attention.cu).
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 
 LAUNCHES = LaunchCounter()
 

@@ -92,9 +92,13 @@ def is_quantized(w) -> bool:
 # -- weights -------------------------------------------------------------------
 
 
-def _quantize(w: torch.Tensor) -> dict:
-    """[..., C, O] → {"q8": int8 [..., C, O], "s": [..., 1, O] in w's dtype}."""
-    scale = (w.abs().amax(dim=-2, keepdim=True).float() * _INV127).clamp_min(_TINY)
+def _quantize(w: torch.Tensor, amax: Optional[torch.Tensor] = None) -> dict:
+    """[..., C, O] → {"q8": int8 [..., C, O], "s": [..., 1, O] in w's dtype}.
+    ``amax`` ([..., 1, O]) replaces w's own column maxima: a block of a
+    weight's rows quantizes with the whole weight's scales."""
+    if amax is None:
+        amax = w.abs().amax(dim=-2, keepdim=True)
+    scale = (amax.float() * _INV127).clamp_min(_TINY)
     q8 = torch.round(w.float() / scale).clamp_(-127, 127)
     return {"q8": q8.to(torch.int8), "s": scale.to(w.dtype)}
 

@@ -160,22 +160,28 @@ def _axes(entry) -> tuple:
     return entry if isinstance(entry, tuple) else (entry,)
 
 
-def _slice(t: torch.Tensor, spec: Sequence, mesh: Mesh, coords: dict) -> torch.Tensor:
-    """This position's block of ``t`` under ``spec``."""
+def block_index(shape: Sequence[int], spec: Sequence, mesh: Mesh, coords: dict) -> tuple:
+    """The slices, one a dim of ``spec``, that cut the block of a tensor of
+    ``shape`` held by the position at ``coords``."""
     idx = []
     for dim, entry in enumerate(spec):
         axes = _axes(entry)
         if not axes:
-            idx.append(slice(None))
+            idx.append(slice(0, shape[dim]))
             continue
         n, i = 1, 0
         for a in axes:
             n, i = n * mesh.shape[a], i * mesh.shape[a] + coords[a]
-        if t.shape[dim] % n:
-            raise ValueError(f"dim {dim} of size {t.shape[dim]} does not divide by {n}")
-        w = t.shape[dim] // n
+        if shape[dim] % n:
+            raise ValueError(f"dim {dim} of size {shape[dim]} does not divide by {n}")
+        w = shape[dim] // n
         idx.append(slice(i * w, (i + 1) * w))
-    return t[tuple(idx)]
+    return tuple(idx)
+
+
+def _slice(t: torch.Tensor, spec: Sequence, mesh: Mesh, coords: dict) -> torch.Tensor:
+    """This position's block of ``t`` under ``spec``."""
+    return t[block_index(t.shape, spec, mesh, coords)]
 
 
 def _leaf_parts(leaf, spec) -> list:
@@ -321,6 +327,6 @@ def all_gather(tensors: Sequence[torch.Tensor], dim: int) -> list:
     return [whole.to(t.device) for t in tensors]
 
 
-__all__ = ["abstract_param_bytes", "all_gather", "all_reduce_sum", "cache_specs", "gather",
-           "gather_tree", "make_shard_fn", "opt_moment_specs", "param_shapes", "param_specs",
-           "reduce_sum", "shard_pytree"]
+__all__ = ["abstract_param_bytes", "all_gather", "all_reduce_sum", "block_index", "cache_specs",
+           "gather", "gather_tree", "make_shard_fn", "opt_moment_specs", "param_shapes",
+           "param_specs", "reduce_sum", "shard_pytree"]

@@ -983,18 +983,19 @@ class GPUProvider(Provider):
         from llm_consensus_tpu_torch.models.config import get_config
 
         cfg = get_config(preset)
+        with self._lock:
+            mesh = self._meshes.get(preset)
         params = tokenizer = None
         if self.checkpoint_dir:
+            # On a mesh of several positions each position reads its own
+            # shard of the checkpoint (the whole tree never lands anywhere).
             ckpt = os.path.join(self.checkpoint_dir, preset)
-            params = try_load_params(cfg, ckpt, device=self.device, quant=self.modes["quant"])
+            params = try_load_params(cfg, ckpt, device=self.device, mesh=mesh,
+                                     quant=self.modes["quant"])
             tokenizer = load_tokenizer(ckpt)
         cap = min(c for c in (self._max_seq, max_seq) if c) if (self._max_seq or max_seq) else None
         max_seq = min(cap, cfg.max_seq_len) if cap else None
-        with self._lock:
-            mesh = self._meshes.get(preset)
         place = {"mesh": mesh} if mesh is not None else {"device": self.device}
-        if self.checkpoint_dir and params is not None and mesh is not None:
-            params = _to_device(params, mesh.devices.flat[0].torch_device)
         return Engine(cfg, params, max_seq=max_seq, tokenizer=tokenizer,
                       stream_interval=self.stream_interval, swap_wait_s=self.swap_wait_s,
                       prefill_chunk=self.prefill_chunk, **place, **self.modes, **self.prefix,

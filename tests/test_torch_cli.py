@@ -315,6 +315,43 @@ def test_judge_single_response_passthrough():
     assert text == "only" and seen == ["only"]
 
 
+def test_judge_synthesize_and_model_match_jax():
+    """``Judge.synthesize`` (the blocking form) and ``Judge.model``, held to
+    the JAX judge over a fake provider of each package: the same judge
+    request, the same answer, the same errors."""
+    from llm_consensus_tpu.consensus import Judge as JaxJudge
+    from llm_consensus_tpu.consensus import NoResponsesError as JaxNoResponses
+    from llm_consensus_tpu.providers import ProviderFunc as JaxProviderFunc
+    from llm_consensus_tpu.utils import Context as JaxContext
+    from llm_consensus_tpu_torch.consensus import NoResponsesError
+
+    specs = [("gpu:a", "first answer", "gpu"), ("gpu:b", "second answer", "gpu")]
+    runs = []
+    for judge_cls, func_cls, resp_cls, ctx in (
+            (Judge, ProviderFunc, Response, Context.background()),
+            (JaxJudge, JaxProviderFunc, JaxResponse, JaxContext.background())):
+        seen = []
+
+        def fn(ctx, req, seen=seen, resp_cls=resp_cls):
+            seen.append((req.model, req.prompt, req.max_tokens, req.priority))
+            return resp_cls(model=req.model, content=f"judged {len(req.prompt)}",
+                            provider="gpu")
+
+        judge = judge_cls(func_cls(fn), "gpu:judge", max_tokens=32)
+        responses = [resp_cls(model=m, content=c, provider=p) for m, c, p in specs]
+        text = judge.synthesize(ctx, "the question", responses)
+        single = judge.synthesize(ctx, "the question", responses[:1])
+        runs.append((judge.model, text, single, seen))
+    assert runs[0] == runs[1]
+    assert runs[0][0] == "gpu:judge" and runs[0][2] == "first answer"
+    assert len(runs[0][3]) == 1  # one query: the single response passes through
+    with pytest.raises(NoResponsesError):
+        Judge(ProviderFunc(lambda ctx, req: None), "j").synthesize(Context.background(), "p", [])
+    with pytest.raises(JaxNoResponses):
+        JaxJudge(JaxProviderFunc(lambda ctx, req: None), "j").synthesize(
+            JaxContext.background(), "p", [])
+
+
 def test_runner_partial_failure_and_wipeout():
     reg = Registry()
     reg.register("ok", ProviderFunc(lambda ctx, req: _resp(req.model, "fine")))

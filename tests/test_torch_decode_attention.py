@@ -9,7 +9,9 @@ atol/rtol 1e-5 in float32. The int8-cache and W8A8 variants are held to
 the TPU kernel on that file's int8 and W8A8 cases at atol/rtol 2e-4 (the
 JAX file's own tolerance for them), with the same codes and scales given
 to both, and must keep NaN scales and garbage codes past the frontier out
-of the output. The CUDA kernels run only on a card: tests/test_torch_gpu.py
+of the output. At head width 256 (gemma-7b's) every variant, and each with
+``return_state``, is held to the TPU kernel the same way, with row starts and
+a window. The CUDA kernels run only on a card: tests/test_torch_gpu.py
 holds them to these plain versions there.
 """
 
@@ -164,6 +166,11 @@ def test_split_plan_of_the_main_path():
     # long-context phase at 8,064).
     assert da.split_plan(8064, 1, 8) == 16     # long context: 128 CTAs
     assert da.split_plan(8064, 1, 32) == 4     # a 32-kv-head model there: 128 CTAs
+    # gemma-7b (16 kv heads at dh 256): no merge at the slice's width, 128
+    # CTAs at the full window; MAX_SPLIT only on a card of that many SMs.
+    assert da.split_plan(384, 1, 16) == 1
+    assert da.split_plan(8192, 1, 16) == 8
+    assert da.split_plan(131072, 1, 1, da.MAX_SPLIT) == da.MAX_SPLIT
 
 
 def test_gate_is_the_kernel_shape_limit():
@@ -172,7 +179,8 @@ def test_gate_is_the_kernel_shape_limit():
     assert da.decode_supported(8, 1, 64)        # MQA
     assert not da.decode_supported(15, 8, 128)  # ragged GQA
     assert not da.decode_supported(64, 2, 128)  # group above the kernel's 16
-    assert not da.decode_supported(32, 8, 256)  # no build for dh 256
+    assert da.decode_supported(32, 8, 256)      # dh 256 has a build
+    assert da.decode_supported(16, 16, 256)     # gemma-7b
 
 
 # -- int8 cache and W8A8 scores ---------------------------------------------------
@@ -309,3 +317,62 @@ def test_int8_wrapper_on_cpu_takes_plain_version_and_checks_w8a8(monkeypatch):
         da.decode_attention(q, k8, torch.from_numpy(v), 200, 1)
     assert da.w8a8_supported(32, 8) and da.w8a8_supported(16, 8)
     assert not da.w8a8_supported(8, 8) and not da.w8a8_supported(8, 1)
+
+
+# -- head width 256 ---------------------------------------------------------------
+
+DH256_CASES = [
+    # (b, w, hq, hkv, pos, window, row_start): GQA group 2, so W8A8 applies
+    (2, 384, 4, 2, 300, None, (0, 37)),
+    (2, 512, 4, 2, 450, 128, (5, 0)),     # window, a ragged row
+]
+
+
+@pytest.mark.parametrize("state", [False, True], ids=["out", "state"])
+@pytest.mark.parametrize("variant", ["bf16", "int8", "w8a8"])
+@pytest.mark.parametrize("case", DH256_CASES)
+def test_dh256_plain_matches_jax_interpret(monkeypatch, case, variant, state):
+    """Each variant's plain version at dh 256 against the TPU kernel in
+    interpret mode: bf16 at 1e-5, the int8 cache and W8A8 at 2e-4 (the
+    tolerances above); with ``return_state`` its m and l at the same."""
+    b, w, hq, hkv, pos, window, rs = case
+    q, k, v = _inputs(14, 2, b, w, hq, hkv, dh=256)
+    kw = dict(sliding_window=window, return_state=state)
+    monkeypatch.setenv("LLMC_DECODE_W8A8", "1" if variant == "w8a8" else "0")
+    tol = dict(atol=1e-5, rtol=1e-5) if variant == "bf16" else TOL8
+    if variant != "bf16":
+        k, v = _int8_stack(k), _int8_stack(v)
+    tk, tv, jk, jv = (
+        (torch.from_numpy(k), torch.from_numpy(v), jnp.asarray(k), jnp.asarray(v))
+        if variant == "bf16" else
+        tuple({key: f(a) for key, a in side.items()}
+              for f in (torch.from_numpy, jnp.asarray) for side in (k, v)))
+    rs_t = torch.tensor(rs, dtype=torch.int32)
+    got = da.decode_attention_plain(torch.from_numpy(q), tk, tv, pos, 1, rs_t,
+                                    w8a8=variant == "w8a8", **kw)
+    with jax.default_matmul_precision("highest"):
+        want = jax_decode(jnp.asarray(q), jk, jv, jnp.int32(pos), jnp.int32(1),
+                          jnp.asarray(rs, jnp.int32), interpret=True, **kw)
+    got, want = (got, want) if state else ((got,), (want,))
+    got = [x.numpy() for x in got]
+    assert got[0].shape == (b, 1, hq, 256)
+    for ours, theirs in zip(got, want):
+        np.testing.assert_allclose(ours, np.asarray(theirs), **tol)
+
+
+def test_dh256_w8a8_quantizes_the_whole_head(monkeypatch):
+    """A q whose largest value lies in dims 128-255 (on a dimension where
+    every K code is 0): the per-head scale must come from all 256 dims. The
+    plain version holds the TPU kernel's codes, and its output moves far
+    from the int8 variant's (the case the card holds the kernel to)."""
+    b, w, hq, hkv, pos = 1, 256, 4, 2, 255
+    q, k, v = _inputs(15, 1, b, w, hq, hkv, dh=256)
+    q[..., 200] = 127.0
+    k8, v8 = _int8_stack(k), _int8_stack(v)
+    k8["q8"][..., 200] = 0
+    monkeypatch.setenv("LLMC_DECODE_W8A8", "1")
+    want = _jax8(q, k8, v8, pos)
+    got = _port8(q, k8, v8, pos, w8a8=True)
+    np.testing.assert_allclose(got, want, **TOL8)
+    gap = np.abs(got - _port8(q, k8, v8, pos)).max()
+    assert gap > 0.2 * np.abs(want).max()

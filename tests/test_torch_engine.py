@@ -71,6 +71,32 @@ def test_greedy_tokens_identical_to_jax(head_dim, prompt, chunk):
     assert (b.finish_reason, b.prompt_tokens) == (a.finish_reason, a.prompt_tokens)
 
 
+@pytest.mark.parametrize("prompt,chunk", [(SHORT, 512), (LONG, 32)],
+                         ids=["one-shot", "chunked"])
+def test_gemma_head_dim_256_greedy_tokens_identical_to_jax(monkeypatch, prompt, chunk):
+    """tiny-gemma at gemma-7b's head width (256): 16 greedy tokens equal the
+    JAX engine's (its Pallas kernels in interpret mode), one-shot and
+    chunked; the port's one-shot prefill takes the flash route and every
+    T = 1 step the decode kernel's (their plain versions on the CPU), a
+    chunked prefill the plain op, as in JAX."""
+    import llm_consensus_tpu_torch.models.transformer as tr
+
+    calls = {"flash_attention": [], "decode_attention": []}
+    for name, seen in calls.items():
+        real = getattr(tr, name)
+        monkeypatch.setattr(tr, name, lambda q, *a, _r=real, _s=seen, **k: (
+            _s.append(tuple(q.shape)), _r(q, *a, **k))[1])
+    je, te = _engines(prefill_chunk=chunk, preset="tiny-gemma", overrides={"head_dim": 256})
+    a = je.generate(prompt, JaxSampling(max_new_tokens=16, ignore_eos=True))
+    b = te.generate(prompt, SamplingParams(max_new_tokens=16, ignore_eos=True))
+    assert b.token_ids == a.token_ids and len(b.token_ids) == 16
+    n_layers = te.cfg.n_layers
+    flash = calls["flash_attention"]
+    assert len(flash) == (n_layers if chunk == 512 else 0)
+    assert all(shape[3] == 256 for shape in flash + calls["decode_attention"])
+    assert len(calls["decode_attention"]) >= 15 * n_layers
+
+
 def test_stream_interval_one_equals_sixteen():
     _, te = _engines()
     te1 = Engine(te.cfg, params=te.params, dtype=torch.float32, max_seq=128,

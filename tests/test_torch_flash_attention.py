@@ -3,7 +3,7 @@ against the JAX Pallas kernel run in interpret mode.
 
 The plain version must match the TPU kernel over the cases of
 tests/test_flash_attention.py (q_offset, window, softcap, ragged S,
-several kv blocks) at atol/rtol 1e-5 in float32. The CUDA kernel itself
+several kv blocks), and at head width 256, at atol/rtol 1e-5 in float32. The CUDA kernel itself
 runs only on a card: tests/test_torch_gpu.py holds it to this plain
 version there.
 """
@@ -30,6 +30,11 @@ CASES = [
     (1, 48, 96, 4, 2, 32, 16, 20, 8.0),         # everything at once, ragged S
     (1, 256, 256, 4, 2, 32, 0, None, None),     # multi-kv-block: online carry
     (1, 128, 512, 4, 2, 32, 128, 96, None),     # multi-block + offset + window
+    # head width 256 (gemma-7b's)
+    (1, 128, 128, 2, 1, 256, 0, None, None),    # GQA
+    (1, 64, 192, 2, 2, 256, 128, None, None),   # q_offset
+    (1, 128, 128, 2, 2, 256, 0, 48, None),      # sliding window
+    (1, 64, 64, 2, 1, 256, 0, None, 20.0),      # logit softcap
 ]
 
 
@@ -100,5 +105,6 @@ def test_gate_copies_the_tpu_gate(t, hq, hkv):
 def test_gate_adds_the_kernel_head_widths():
     assert fa.flash_supported(64, 32, 8, head_dim=128)
     assert fa.flash_supported(64, 4, 2, head_dim=32)
-    assert not fa.flash_supported(64, 4, 2, head_dim=256)
+    assert fa.flash_supported(64, 4, 2, head_dim=256)
+    assert fa.flash_supported(512, 16, 16, head_dim=256)  # gemma-7b's prefill
     assert not fa.flash_supported(64, 4, 2, head_dim=16)

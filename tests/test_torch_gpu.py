@@ -70,21 +70,25 @@ def test_flash_kernel_matches_plain(cuda, b, t, s, hq, hkv, dh, off, window, cap
     assert (got.float() - want.float()).abs().max().item() < TOL
 
 
-@pytest.mark.parametrize("b,s,hq,hkv,pos,width,rs", [
-    (1, 8192, 32, 8, 600, 640, (0,)),           # llama-3-8b stack
-    (1, 4096, 16, 8, 4095, 4096, (0,)),         # consensus-1b, full window
-    (4, 128, 8, 2, 95, 128, (0, 5, 17, 90)),    # ragged rows
+@pytest.mark.parametrize("dh", [128, 256])
+@pytest.mark.parametrize("b,s,hq,hkv,pos,width,rs,window,cap", [
+    (1, 8192, 32, 8, 600, 640, (0,), None, None),           # llama-3-8b stack
+    (1, 4096, 16, 8, 4095, 4096, (0,), None, None),         # consensus-1b, full window
+    (4, 128, 8, 2, 95, 128, (0, 5, 17, 90), None, None),    # ragged rows
+    (1, 8192, 16, 16, 383, 384, (0,), None, None),          # gemma-7b's heads
+    (2, 1024, 16, 16, 900, 1000, (0, 7), 128, 30.0),        # window + softcap
 ])
-def test_decode_kernel_matches_plain(cuda, b, s, hq, hkv, pos, width, rs):
-    q, k, v = _bf16(cuda, 1, (b, 1, hq, 128), (2, b, s, hkv, 128), (2, b, s, hkv, 128))
+def test_decode_kernel_matches_plain(cuda, b, s, hq, hkv, pos, width, rs, window, cap, dh):
+    q, k, v = _bf16(cuda, 1, (b, 1, hq, dh), (2, b, s, hkv, dh), (2, b, s, hkv, dh))
     k[1, :, pos + 1:] = float("nan")  # unwritten slots must not leak
     v[1, :, pos + 1:] = float("nan")
+    kw = dict(kv_width=width, sliding_window=window, logit_softcap=cap)
     before = da.LAUNCHES.count
     got = da.decode_attention(q, k, v, _i32(cuda, pos)[0], _i32(cuda, 1)[0],
-                              _i32(cuda, *rs), kv_width=width)
+                              _i32(cuda, *rs), **kw)
     torch.cuda.synchronize()
     assert da.LAUNCHES.count == before + 1
-    want = da.decode_attention_plain(q, k, v, pos, 1, _i32(cuda, *rs), kv_width=width)
+    want = da.decode_attention_plain(q, k, v, pos, 1, _i32(cuda, *rs), **kw)
     assert bool(torch.isfinite(got).all())
     err, tol = _decode_err_and_tol(got, want)
     assert err <= tol
@@ -100,10 +104,11 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         da.decode_attention(q, k, v, 10, _i32(cuda, 0)[0], _i32(cuda, 0))
 
 
-def test_engine_runs_through_both_kernels(cuda):
-    """A narrow model (head_dim 128) generates on the card through the flash
-    and decode kernels, with no host sync per step."""
-    engine = Engine(get_config("tiny-llama", head_dim=128), max_seq=256, device=cuda)
+@pytest.mark.parametrize("preset,dh", [("tiny-llama", 128), ("tiny-gemma", 256)])
+def test_engine_runs_through_both_kernels(cuda, preset, dh):
+    """A narrow model (head_dim 128, and gemma's 256) generates on the card
+    through the flash and decode kernels, with no host sync per step."""
+    engine = Engine(get_config(preset, head_dim=dh), max_seq=256, device=cuda)
     flash0, decode0 = fa.LAUNCHES.count, da.LAUNCHES.count
     result = engine.generate("the quick brown fox", SamplingParams(max_new_tokens=20,
                                                                    ignore_eos=True))
@@ -122,6 +127,7 @@ def _int8_cache(cuda, seed, l, b, s, hkv, dh=128):
     return {"q8": q8.contiguous(), "s": sc[..., 0].transpose(2, 3).contiguous()}
 
 
+@pytest.mark.parametrize("dh", [128, 256])
 @pytest.mark.parametrize("w8a8", [False, True], ids=["int8", "w8a8"])
 @pytest.mark.parametrize("b,s,hq,hkv,pos,width,rs,window,cap", [
     (1, 8192, 32, 8, 383, 384, (0,), None, None),      # llama-3-8b, slice width
@@ -130,9 +136,9 @@ def _int8_cache(cuda, seed, l, b, s, hkv, dh=128):
     (2, 512, 16, 8, 400, 512, (0, 0), 128, 30.0),      # window + softcap
 ])
 def test_int8_decode_kernels_match_plain(cuda, w8a8, b, s, hq, hkv, pos, width, rs,
-                                         window, cap):
-    (q,) = _bf16(cuda, 4, (b, 1, hq, 128))
-    k, v = _int8_cache(cuda, 5, 2, b, s, hkv), _int8_cache(cuda, 6, 2, b, s, hkv)
+                                         window, cap, dh):
+    (q,) = _bf16(cuda, 4, (b, 1, hq, dh))
+    k, v = _int8_cache(cuda, 5, 2, b, s, hkv, dh), _int8_cache(cuda, 6, 2, b, s, hkv, dh)
     for side in (k, v):  # garbage past the frontier must not leak
         side["s"][1, :, :, pos + 1:] = float("nan")
         side["q8"][1, :, pos + 1:] = 127
@@ -149,19 +155,24 @@ def test_int8_decode_kernels_match_plain(cuda, w8a8, b, s, hq, hkv, pos, width, 
     assert err <= tol
 
 
-@pytest.mark.parametrize("b,s,hq,hkv,pos,width", [
-    (1, 1024, 32, 8, 383, 384),     # llama-3-8b at the slice width
-    (4, 512, 16, 8, 300, 384),      # consensus-1b's group, B = 4
+@pytest.mark.parametrize("b,s,hq,hkv,pos,width,dh,d_out", [
+    (1, 1024, 32, 8, 383, 384, 128, 0),     # llama-3-8b at the slice width
+    (4, 512, 16, 8, 300, 384, 128, 0),      # consensus-1b's group, B = 4
+    (1, 1024, 16, 8, 383, 384, 256, 200),   # dh 256: the amax in the upper half
+    (4, 512, 16, 4, 300, 384, 256, 130),
 ])
-def test_w8a8_kernel_is_not_the_int8_kernel(cuda, b, s, hq, hkv, pos, width):
-    """q with one outlier of 127 per head, on a dimension where every K code
-    is 0: q's int8 scale becomes 1 with the scores untouched, so W8A8
+def test_w8a8_kernel_is_not_the_int8_kernel(cuda, b, s, hq, hkv, pos, width, dh, d_out):
+    """q with one outlier of 127 per head, on dimension ``d_out`` where every
+    K code is 0: q's int8 scale becomes 1 with the scores untouched, so W8A8
     rounds the rest of q to integers and its output moves well past the
-    tolerance. Each kernel matches its own plain version, not the other's."""
-    (q,) = _bf16(cuda, 10, (b, 1, hq, 128))
-    q[..., 0] = 127.0
-    k, v = _int8_cache(cuda, 11, 1, b, s, hkv), _int8_cache(cuda, 12, 1, b, s, hkv)
-    k["q8"][..., 0] = 0
+    tolerance. Each kernel matches its own plain version, not the other's.
+    At dh 256 the outlier lies in dims 128-255, which a quantizer that read
+    only the first 128 would miss."""
+    (q,) = _bf16(cuda, 10, (b, 1, hq, dh))
+    q[..., d_out] = 127.0
+    k = _int8_cache(cuda, 11, 1, b, s, hkv, dh)
+    v = _int8_cache(cuda, 12, 1, b, s, hkv, dh)
+    k["q8"][..., d_out] = 0
     rs = _i32(cuda, *([0] * b))
     got, want = {}, {}
     for w8a8 in (False, True):
@@ -214,23 +225,26 @@ def test_quantized_engine_runs_through_the_kernels(cuda, modes, counter):
     assert getattr(da, counter).count - decode0 >= 19 * engine.cfg.n_layers
 
 
+@pytest.mark.parametrize("dh", [128, 256])
 @pytest.mark.parametrize("variant", ["bf16", "int8", "w8a8"])
 @pytest.mark.parametrize("b,s,hq,hkv,pos,width,rs,window,cap", [
     (4, 8192, 32, 8, 300, 384, (0, 37, 300, 5), None, None),   # llama-3-8b, one row 1 slot
     (4, 8192, 32, 8, 8000, 8192, (0, 100, 7999, 8000), None, None),
     (4, 512, 16, 8, 400, 512, (0, 0, 390, 0), 128, 30.0),     # window + softcap
 ])
-def test_state_kernels_match_plain(cuda, variant, b, s, hq, hkv, pos, width, rs, window, cap):
+def test_state_kernels_match_plain(cuda, variant, b, s, hq, hkv, pos, width, rs, window, cap,
+                                   dh):
     """return_state of each variant: out at the decode tolerance; m within
     1e-2 absolute (scores of magnitude ~10, fp32 sums in another order);
     l within 1e-2 relative (a sum of exps rescaled in another order)."""
-    (q,) = _bf16(cuda, 20, (b, 1, hq, 128))
+    (q,) = _bf16(cuda, 20, (b, 1, hq, dh))
     if variant == "bf16":
-        k, v = _bf16(cuda, 21, (2, b, s, hkv, 128), (2, b, s, hkv, 128))
+        k, v = _bf16(cuda, 21, (2, b, s, hkv, dh), (2, b, s, hkv, dh))
         k[1, :, pos + 1:] = float("nan")
         v[1, :, pos + 1:] = float("nan")
     else:
-        k, v = _int8_cache(cuda, 22, 2, b, s, hkv), _int8_cache(cuda, 23, 2, b, s, hkv)
+        k = _int8_cache(cuda, 22, 2, b, s, hkv, dh)
+        v = _int8_cache(cuda, 23, 2, b, s, hkv, dh)
         for side in (k, v):
             side["s"][1, :, :, pos + 1:] = float("nan")
             side["q8"][1, :, pos + 1:] = 127
@@ -312,6 +326,10 @@ def test_generate_batch_decodes_through_the_kernel_with_row_starts(cuda):
     (1, 200, 200, 8, 2, 32, 0, None, None),      # dh 32 (64-byte swizzle)
     (1, 320, 320, 8, 2, 64, 0, None, None),      # dh 64
     (4, 512, 512, 32, 8, 128, 0, None, None),    # the batcher's B = 4 admission wave
+    (1, 512, 512, 16, 16, 256, 0, None, None),   # gemma-7b prefill (dh 256, four atoms)
+    (2, 48, 48, 4, 1, 256, 0, None, None),       # dh 256, T below one q tile, group 4
+    (1, 100, 300, 4, 2, 256, 170, None, None),   # dh 256, q_offset mid-tile
+    (1, 320, 320, 4, 4, 256, 0, 200, 30.0),      # dh 256, window + softcap
 ])
 def test_flash_kernel_tiles_and_masks(cuda, b, t, s, hq, hkv, dh, off, window, cap):
     """The Hopper flash kernel (128-row q tiles, 128-row kv tiles, masks only
@@ -371,6 +389,10 @@ def _poison(k, v, layer, pos, rs=()):
     (2, 2048, 8, 2, 2000, 2040, (5, 77), 32),           # dh 32
     (1, 1536, 16, 4, 1500, 1533, (19,), 64),            # dh 64
     (1, 131072, 32, 8, 131000, 131072, (0,), 128),      # the long-context stack's S
+    (1, 64, 8, 4, 0, 1, (0,), 256),                     # dh 256: one slot
+    (1, 128, 8, 4, 64, 65, (0,), 256),                  # one slot past a 64-slot chunk
+    (1, 3000, 16, 4, 2998, 2999, (0,), 256),            # split bounds off multiples of 8
+    (4, 1024, 8, 2, 900, 1000, (37, 3, 901, 13), 256),  # row starts off 8, one row empty
 ])
 @pytest.mark.parametrize("state", [False, True], ids=["out", "state"])
 @pytest.mark.parametrize("variant", VARIANTS)
@@ -416,13 +438,14 @@ def test_decode_state_row_with_nothing_valid_among_splits(cuda, variant):
     assert err <= tol
 
 
+@pytest.mark.parametrize("dh", [128, 256])
 @pytest.mark.parametrize("variant", VARIANTS)
-def test_decode_graph_replay_at_other_positions(cuda, variant):
+def test_decode_graph_replay_at_other_positions(cuda, variant, dh):
     """One CUDA graph of a decode call replayed at four frontiers: the
     kernel's merge tickets must be back at 0 after every launch, and pos is
     read on the device."""
-    (q,) = _bf16(cuda, 34, (1, 1, 32, 128))
-    k, v = _cache(cuda, variant, 35, 1, 1, 2048, 8)
+    (q,) = _bf16(cuda, 34, (1, 1, 32, dh))
+    k, v = _cache(cuda, variant, 35, 1, 1, 2048, 8, dh)
     pos, layer, rs = _i32(cuda, 100)[0], _i32(cuda, 0)[0], _i32(cuda, 0)
     kw = dict(kv_width=2048, w8a8=variant == "w8a8")
     assert da.split_plan(2048, 1, 8) > 1
@@ -438,6 +461,36 @@ def test_decode_graph_replay_at_other_positions(cuda, variant):
         want = da.decode_attention_plain(q, k, v, p, 0, rs, **kw)
         err, tol = _decode_err_and_tol(out, want)
         assert err <= tol, (p, err, tol)
+
+
+@pytest.mark.parametrize("state", [False, True], ids=["out", "state"])
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("sms", [None, da.MAX_SPLIT], ids=["h100", "max_split"])
+def test_decode_largest_split_at_dh256(cuda, variant, state, sms, monkeypatch):
+    """The most splits the plan gives at dh 256 (B 1, one kv head, width
+    131,072): the H100's 132, and MAX_SPLIT on a card with that many SMs
+    (the SM count patched), whose fused merge needs the most shared
+    memory."""
+    if sms is not None:
+        monkeypatch.setitem(da._sms, torch.empty(0, device=cuda).device.index, sms)
+    width = 131072
+    (q,) = _bf16(cuda, 36, (1, 1, 4, 256))
+    k, v = _cache(cuda, variant, 37, 1, 1, width, 1, 256)
+    _poison(k, v, 0, width - 10)
+    card_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n = da.split_plan(width, 1, 1, sms or card_sms)
+    assert n == (sms or min(card_sms, da.MAX_SPLIT))
+    kw = dict(kv_width=width, return_state=state, w8a8=variant == "w8a8")
+    args = (q, k, v, _i32(cuda, width - 10)[0], _i32(cuda, 0)[0], _i32(cuda, 0))
+    got = da.decode_attention(*args, **kw)
+    torch.cuda.synchronize()
+    want = da.decode_attention_plain(*args, **kw)
+    got, want = (got, want) if state else ((got,), (want,))
+    err, tol = _decode_err_and_tol(got[0], want[0])
+    assert bool(torch.isfinite(got[0]).all()) and err <= tol, (n, err, tol)
+    if state:
+        assert (got[1] - want[1]).abs().max().item() <= 1e-2
+        assert ((got[2] - want[2]).abs() <= 1e-2 * want[2].abs() + 1e-6).all()
 
 
 # -- mixture of experts and checkpoints on the card ----------------------------------

@@ -36,6 +36,11 @@ CPU = torch.device("cpu")
 FAMILIES = ["tiny-gemma", "tiny-qwen2", "tiny-mistral", "tiny-mixtral"]
 CONFIGS = [("tiny-llama", {}), ("tiny-llama", {"head_dim": 128})] + [
     (name, {}) for name in FAMILIES]
+# And tiny-gemma at head width 256, gemma-7b's: both kernels' routes there,
+# in float32 and with quantized weights. (The int8-cache tests below keep
+# CONFIGS: their 1e-3 is derived from a code off by one on tiny-llama's
+# widths, and a 256-wide head's scores sum twice the codes.)
+WIDE = CONFIGS + [("tiny-gemma", {"head_dim": 256})]
 
 
 def _with_biases(jp, jcfg, seed):
@@ -73,7 +78,7 @@ def test_presets_equal_the_jax_table():
             jconfig.MODEL_PRESETS[name], 300)
 
 
-@pytest.mark.parametrize("name,overrides", CONFIGS)
+@pytest.mark.parametrize("name,overrides", WIDE)
 def test_params_from_numpy_carries_the_jax_tree(name, overrides):
     _, _, jp, tp = _pair(name, overrides)
     flat_j = {"/".join(str(getattr(k, "key", k)) for k in path): np.asarray(leaf)
@@ -121,7 +126,7 @@ def test_expert_leaves_draw_layer_by_layer_the_same_with_quant(mode):
     assert {k: tuple(v.shape) for k, v in jshapes.items()} == ttf._layer_shapes(cfg)
 
 
-@pytest.mark.parametrize("name,overrides", CONFIGS)
+@pytest.mark.parametrize("name,overrides", WIDE)
 def test_full_sequence_logits_match_jax(name, overrides):
     jcfg, tcfg, jp, tp = _pair(name, overrides)
     toks = _tokens(1, 24, jcfg.vocab_size)
@@ -132,7 +137,7 @@ def test_full_sequence_logits_match_jax(name, overrides):
 
 
 @pytest.mark.parametrize("jax_impl", ["xla", "flash"])
-@pytest.mark.parametrize("name,overrides", CONFIGS)
+@pytest.mark.parametrize("name,overrides", WIDE)
 def test_cache_prefill_then_decode_matches_jax(name, overrides, jax_impl):
     """Prefill 16 tokens at start 0, then 4 single-token steps at a running
     start; the port through its kernels' plain versions (and, for the
@@ -160,7 +165,7 @@ def test_cache_prefill_then_decode_matches_jax(name, overrides, jax_impl):
         np.testing.assert_allclose(tcache[side].numpy(), np.asarray(jcache[side]), **TOL)
 
 
-@pytest.mark.parametrize("name,overrides", CONFIGS)
+@pytest.mark.parametrize("name,overrides", WIDE)
 def test_plain_attention_path_matches_kernel_path(name, overrides):
     """attn_impl="torch" (the plain op everywhere) and "flash" agree."""
     _, tcfg, _, tp = _pair(name, overrides)
@@ -175,7 +180,7 @@ def test_plain_attention_path_matches_kernel_path(name, overrides):
         np.testing.assert_allclose(a.numpy(), b.numpy(), **TOL)
 
 
-@pytest.mark.parametrize("name,overrides", CONFIGS)
+@pytest.mark.parametrize("name,overrides", WIDE)
 def test_padded_prefill_rows_overwritten_by_decode(name, overrides):
     """A one-shot prefill over a 16-token bucket holding 11 real tokens
     writes junk k/v at slots 11..15; decode from slot 11 overwrites them
@@ -220,7 +225,7 @@ def _quantized_pair(name, overrides, mode="int8", seed=0):
 
 
 @pytest.mark.parametrize("mode", ["int8", "int4"])
-@pytest.mark.parametrize("name,overrides", CONFIGS)
+@pytest.mark.parametrize("name,overrides", WIDE)
 def test_quantized_jax_tree_gives_the_jax_logits(name, overrides, mode):
     jcfg, tcfg, jp, tp = _quantized_pair(name, overrides, mode)
     code = "q4" if mode == "int4" else "q8"
@@ -302,3 +307,25 @@ def test_int8_cache_plain_path_matches_kernel_path(name, overrides):
         outs[impl] = (first, step)
     for a, b in zip(outs["torch"], outs["flash"]):
         np.testing.assert_allclose(a.numpy(), b.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("tp", [1, 2])
+def test_gemma_7b_routes_to_both_kernels_like_jax(tp):
+    """gemma-7b's heads (16/16 at dh 256; 8/8 on a tp 2 shard): a one-shot
+    prefill takes the flash route and a T = 1 step the decode kernel's, as
+    the JAX gates send them to its Pallas kernels; a chunk past the first
+    (start_pos > 0 on a cache) still takes flash at its offset."""
+    from dataclasses import replace
+
+    from llm_consensus_tpu.ops.pallas.decode_attention import decode_flash_supported
+    from llm_consensus_tpu.ops.pallas.flash_attention import flash_supported
+
+    cfg = tconfig.get_config("gemma-7b")
+    shard = replace(cfg, n_heads=cfg.n_heads // tp, n_kv_heads=cfg.n_kv_heads // tp)
+    hq, hkv, dh = shard.n_heads, shard.n_kv_heads, shard.head_dim
+    assert dh == 256 and flash_supported(512, hq, hkv) and decode_flash_supported(hq, hkv, dh)
+    cache = {}
+    assert ttf._routes("flash", cache, 0, 512, shard, None, None, None, True) == (0, False)
+    assert ttf._routes("flash", cache, 0, 1, shard, None, None, None, True) == (None, True)
+    assert ttf._routes("flash", cache, 512, 64, shard, None, None, None, True) == (512, False)
+    assert ttf._routes("xla", cache, 0, 1, shard, None, None, None, True) == (None, False)

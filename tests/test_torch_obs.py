@@ -115,6 +115,29 @@ def test_chrome_export_matches_the_jax_golden():
     assert min(e["ts"] for e in ours if e["ph"] != "M") == 0.0
 
 
+def test_load_trace_reads_back_a_local_trace_like_jax(tmp_path):
+    """``load_trace``: a trace ``local_trace`` wrote (through
+    ``save_run_telemetry``) reads back equal, as the JAX reader reads it; a
+    file that is not a trace document raises the same ``ValueError``."""
+    rec = obs.Recorder()
+    rec.complete("decode", rec.now(), tid="engine", steps=16)
+    rec.complete("fetch", rec.now(), tid="engine", tokens=16)
+    doc = export.local_trace(rec)
+    export.save_run_telemetry(str(tmp_path), doc, {"models": {}})
+    path = str(tmp_path / export.TRACE_FILE)
+    got = export.load_trace(path)
+    assert got == json.loads(json.dumps(doc)) == jexport.load_trace(path)
+    assert export.trace_span_names(got) == {"decode", "fetch"}
+    for name, body in (("metrics.json", None), ("list.json", "[1, 2]"),
+                       ("events.json", '{"traceEvents": {}}')):
+        bad = tmp_path / name
+        if body is not None:
+            bad.write_text(body)
+        for reader in (export.load_trace, jexport.load_trace):
+            with pytest.raises(ValueError, match=f"{name} is not a trace document"):
+                reader(str(bad))
+
+
 def test_local_trace_carries_the_roofline_counter_tracks():
     rec = obs.Recorder()
     rec.complete("decode", rec.now(), tid="engine")

@@ -49,8 +49,11 @@ PATCHES = {
     "v_smem_tile": [
         ("  static constexpr int RING = kStages * STAGE;",
          "  static constexpr int RING =\n"
-         "      kStages * STAGE + (C == Cache::kBf16 ? 0 : kChunk * (DH * 2 + 16));"),
-        ("    [[maybe_unused]] uint32_t vb[kQuant ? DH / 8 : 1][2];\n    if constexpr (kQuant) {",
+         "      kStages * STAGE + (C == Cache::kBf16 ? 0 : Geo::CHUNK * (DH * 2 + 16));"),
+        ("    constexpr bool kEarlyV = kQuant && !Geo::LEAN;\n"
+         "    [[maybe_unused]] uint32_t vb[kEarlyV ? DH / 8 : 1][2];\n"
+         "    if constexpr (kEarlyV) {",
+         "    constexpr bool kEarlyV = false;\n"
          "    unsigned char* vtile = smem + kStages * L::STAGE;\n"
          "    if constexpr (kQuant) {\n"
          "      for (int i = tid; i < kChunk * DH / 4; i += kThreads) {\n"
@@ -62,33 +65,35 @@ PATCHES = {
          "      }\n"
          "      __syncthreads();\n"
          "    }\n"
-         "    if constexpr (false) {\n"
-         "      uint32_t vb[1][2];"),
-        ("        mma_bf16(acc[n], pa, vb[n][0], vb[n][1]);",
-         "        (void)o;\n"
+         "    [[maybe_unused]] uint32_t vb[1][2];\n"
+         "    if constexpr (false) {"),
+        ("          mma_bf16(acc[4 * w + t], pa, b0[t], b1[t]);",
+         "          (void)o;\n"
+         "        }\n"
          "      }\n"
          "#pragma unroll\n"
          "      for (int nn = 0; nn < DH / 16; ++nn) {\n"
          "        uint32_t vf[4];\n"
          "        ldmatrix_x4_trans(vf, vtile + (row + ((lane >> 3) & 1) * 8 + (lane & 7)) *\n"
          "                                          (DH * 2 + 16) + nn * 32 + (lane >> 4) * 16);\n"
-         "        mma_bf16(acc[2 * nn], pa, vf[0], vf[1]);\n"
-         "        mma_bf16(acc[2 * nn + 1], pa, vf[2], vf[3]);"),
+         "        {\n"
+         "          mma_bf16(acc[2 * nn], pa, vf[0], vf[1]);\n"
+         "          mma_bf16(acc[2 * nn + 1], pa, vf[2], vf[3]);"),
         ("    const int col = kQuant ? 2 * quad * (DH / 8) + n : 8 * n + 2 * quad;\n"
          "    const int next = kQuant ? DH / 8 : 1;",
          "    const int col = 8 * n + 2 * quad;\n"
          "    const int next = 1;"),
     ],
     "skip_rescale": [
-        ("    } else {\n#pragma unroll\n      for (int n = 0; n < DH / 8; ++n) {\n",
+        ("    } else {\n#pragma unroll\n      for (int w = 0; w < DH / 32; ++w) {\n",
          "    } else {\n"
          "      const bool same = __all_sync(0xffffffffu, alpha0 == 1.f && alpha1 == 1.f);\n"
-         "#pragma unroll\n      for (int n = 0; n < DH / 8; ++n) {\n"),
-        ("        o[0] *= alpha0;\n        o[1] *= alpha0;\n        o[2] *= alpha1;\n"
-         "        o[3] *= alpha1;\n        mma_bf16(acc[n], pa, vb[n][0], vb[n][1]);",
-         "        if (!same) {\n          o[0] *= alpha0;\n          o[1] *= alpha0;\n"
-         "          o[2] *= alpha1;\n          o[3] *= alpha1;\n        }\n"
-         "        mma_bf16(acc[n], pa, vb[n][0], vb[n][1]);"),
+         "#pragma unroll\n      for (int w = 0; w < DH / 32; ++w) {\n"),
+        ("          o[0] *= alpha0;\n          o[1] *= alpha0;\n          o[2] *= alpha1;\n"
+         "          o[3] *= alpha1;\n          mma_bf16(acc[4 * w + t], pa, b0[t], b1[t]);",
+         "          if (!same) {\n            o[0] *= alpha0;\n            o[1] *= alpha0;\n"
+         "            o[2] *= alpha1;\n            o[3] *= alpha1;\n          }\n"
+         "          mma_bf16(acc[4 * w + t], pa, b0[t], b1[t]);"),
     ],
     "stages_2": [("constexpr int kStages = 3;", "constexpr int kStages = 2;")],
     "stages_4": [("constexpr int kStages = 3;", "constexpr int kStages = 4;")],
@@ -105,9 +110,9 @@ PATCHES = {
          "          for (int i = 0; i < 4; ++i) kb16[i][0] = kf[i], kb16[i][1] = kf[i] >> 1;"),
     ],
     "no_pv_mma": [
-        ("        mma_bf16(acc[n], pa, vb[n][0], vb[n][1]);",
-         "        o[0] += __uint_as_float((pa[0] ^ vb[n][0]) & 0x3f7fffffu);\n"
-         "        o[2] += __uint_as_float((pa[1] ^ vb[n][1]) & 0x3f7fffffu);"),
+        ("          mma_bf16(acc[4 * w + t], pa, b0[t], b1[t]);",
+         "          o[0] += __uint_as_float((pa[0] ^ b0[t]) & 0x3f7fffffu);\n"
+         "          o[2] += __uint_as_float((pa[1] ^ b1[t]) & 0x3f7fffffu);"),
     ],
 }
 
